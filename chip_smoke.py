@@ -28,24 +28,35 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 
 # Kernel-vs-plain tolerances.  bf16 attention outputs: the kernel and the
-# plain version both accumulate in f32 and round once to bf16, in another
-# summation order, so they may differ by one bf16 rounding step (2^-8
-# relative, 2^-6 absolute at |x| < 4): atol 1e-2 + rtol 1e-2.  The trust
+# plain version both accumulate in f32 and round to bf16, in another
+# summation order, so they may differ by one bf16 step, 2^-7 relative.
+# The outputs are weighted means of unit-normal V rows over hundreds of
+# keys, about 0.1 in size, where one step is about 5e-4: atol 2e-3 +
+# rtol 2^-7, a few steps and not a tenth of a typical value.  The trust
 # epilogue: margin exactly equal (max/min only), entropy within 1e-4 (one
 # f32 pass over 50257 terms against log_softmax's two).
-ATTN_ATOL = ATTN_RTOL = 1e-2
+ATTN_ATOL = 2e-3
+ATTN_RTOL = 2.0 ** -7
 ENTROPY_ATOL = 1e-4
-# Greedy streams of the kernel path and the plain path are compared up to
-# the first token whose plain-path top-1 margin is below this: under it
-# the two paths' last-bit differences may flip the argmax legitimately
-# (the parity tolerance of the JAX package's int8 probe).
+# Greedy streams of the kernel path and the plain path are compared while
+# their tokens agree.  At the first disagreement the plain path's top-1
+# margin there must be below NEAR_TIE_MARGIN: under it the two paths'
+# last-bit differences may flip the argmax legitimately (the parity
+# tolerance of the JAX package's int8 probe).  At every agreeing position
+# the two paths' margins differ by less than that same bound, and their
+# entropies by less than about one bf16 step of logits of size 1-2
+# (2^-7), which bounds how far the entropy moves when every logit moves
+# by at most one step and the logits' spread is about 1.
 NEAR_TIE_MARGIN = 0.05
+SERVE_MARGIN_ATOL = NEAR_TIE_MARGIN
+SERVE_ENTROPY_ATOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/paged_attention.cu"
@@ -55,9 +66,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def one_card() -> str:
+    """Make the first visible card the only one this process sees, so the
+    run and its report name one card; returns its index or UUID."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible.strip() or "0"
+    return os.environ["CUDA_VISIBLE_DEVICES"]
+
+
+def nvidia_smi_line(card: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--id={card}", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
@@ -251,23 +270,29 @@ def serve_drive(torch, pa, entries, card):
 
     _, plain_results, plain_wall = serve_smoke(cfg, params, "plain",
                                                requests)
-    compared = mismatched = 0
-    ent_err = 0.0
+    compared = near_ties = 0
+    ent_err = mar_err = 0.0
     for rid, (prompt, temp) in enumerate(requests):
         if temp > 0.0:
             continue
         mine, ref = results[rid], plain_results[rid]
         for i, (a, b) in enumerate(zip(mine.tokens, ref.tokens)):
-            if ref.margins[i] < NEAR_TIE_MARGIN:
+            if a != b:
+                if ref.margins[i] >= NEAR_TIE_MARGIN:
+                    raise AssertionError(
+                        f"request {rid} token {i}: kernel path {a} != plain "
+                        f"path {b} at plain margin {ref.margins[i]}")
+                near_ties += 1
                 break
             compared += 1
             ent_err = max(ent_err, abs(mine.entropies[i] - ref.entropies[i]))
-            if a != b:
-                mismatched += 1
-                break
-    if mismatched or compared == 0:
-        raise AssertionError(f"greedy streams vs plain path: {mismatched} "
-                             f"mismatch(es) in {compared} compared tokens")
+            mar_err = max(mar_err, abs(mine.margins[i] - ref.margins[i]))
+    if compared == 0 or ent_err > SERVE_ENTROPY_ATOL \
+            or mar_err > SERVE_MARGIN_ATOL:
+        raise AssertionError(
+            f"greedy streams vs plain path over {compared} agreeing tokens: "
+            f"entropy err {ent_err} (limit {SERVE_ENTROPY_ATOL}), margin err "
+            f"{mar_err} (limit {SERVE_MARGIN_ATOL})")
     for name, n in launches.items():
         key = {"paged_attention": "paged_decode_attention"}.get(name, name)
         entries[key]["launches"] = n
@@ -285,12 +310,16 @@ def serve_drive(torch, pa, entries, card):
           "prefix_hits": summary["prefix_hits"],
           "mean_occupancy": summary["mean_occupancy"],
           "launches": launches,
+          "greedy_tokens": 32 * sum(temp == 0.0 for _, temp in requests),
           "greedy_tokens_compared": compared,
+          "greedy_streams_split_at_near_tie": near_ties,
           "greedy_entropy_max_abs_err": ent_err,
+          "greedy_margin_max_abs_err": mar_err,
           "near_tie_margin": NEAR_TIE_MARGIN})
 
 
 def main() -> int:
+    card = one_card()
     try:
         import torch
     except ImportError:
@@ -305,7 +334,11 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: run from the repo root ({exc})", file=sys.stderr)
         return 1
-    smi = nvidia_smi_line()
+    if torch.cuda.device_count() != 1:
+        print(f"chip_smoke: {torch.cuda.device_count()} cards visible, "
+              "want 1", file=sys.stderr)
+        return 1
+    smi = nvidia_smi_line(card)
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
@@ -318,10 +351,10 @@ def main() -> int:
     emit({"phase": "kernel_checks", "ok": True})
     serve_drive(torch, pa, entries, smi)
     emit({"kernels": list(entries.values())})
-    print(nvidia_smi_line(), flush=True)
+    print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

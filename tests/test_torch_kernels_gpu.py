@@ -6,8 +6,9 @@ These need an NVIDIA card and skip without one.  Run them there with
 (``tests/conftest.py`` sets up JAX, which the card does not need).
 
 Tolerances: f32 outputs within 2e-5 (the kernels accumulate in f32 in
-another order than the plain einsum); bf16 outputs within one bf16
-rounding step of the f32 result (atol 1e-2 + rtol 1e-2 at |x| < 4); the
+another order than the plain einsum); bf16 outputs within one bf16 step
+of each other (rtol 2^-7) plus atol 2e-3, a few steps at the outputs'
+size (weighted means of unit-normal V rows, mostly well under 1); the
 margin exactly equal, the entropy within 1e-4 (one f32 pass over up to
 50257 terms).
 """
@@ -35,10 +36,10 @@ def _pools(rng, nb, h, bsz, dh, dtype, device):
     return mk((nb, h, bsz, dh)), mk((nb, h, bsz, dh)), mk
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 2e-3, 2.0**-7)])
 @pytest.mark.parametrize("bsz,dh", [(8, 16), (16, 64)])
-def test_decode_kernel_matches_plain(cuda, dtype, tol, bsz, dh):
+def test_decode_kernel_matches_plain(cuda, dtype, atol, rtol, bsz, dh):
     rng = np.random.default_rng(0)
     nb, h, r, nbps = 40, 3, 4, 8
     pk, pv, mk = _pools(rng, nb, h, bsz, dh, dtype, cuda)
@@ -53,14 +54,14 @@ def test_decode_kernel_matches_plain(cuda, dtype, tol, bsz, dh):
         torch.cuda.synchronize()
         assert pa.paged_attention.launches == before + 1
         ref = pa.paged_attention_plain(q, pk, pv, table, start)
-        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
-                                   atol=tol)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=atol)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 2e-3, 2.0**-7)])
 @pytest.mark.parametrize("t,start", [(20, 12), (64, 128), (64, 448)])
-def test_prefill_kernel_matches_plain(cuda, dtype, tol, t, start):
+def test_prefill_kernel_matches_plain(cuda, dtype, atol, rtol, t, start):
     rng = np.random.default_rng(1)
     nb, h, bsz, dh, nbps = 80, 2, 16, 64, 32
     pk, pv, mk = _pools(rng, nb, h, bsz, dh, dtype, cuda)
@@ -74,7 +75,8 @@ def test_prefill_kernel_matches_plain(cuda, dtype, tol, t, start):
     # the serve path; compare the rows inside it.
     keep = min(t, nbps * bsz - start)
     torch.testing.assert_close(got[:, :, :keep].float(),
-                               ref[:, :, :keep].float(), rtol=tol, atol=tol)
+                               ref[:, :, :keep].float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("b,v", [(5, 700), (8, 50257)])

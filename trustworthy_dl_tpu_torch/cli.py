@@ -42,9 +42,6 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num-blocks", type=int, default=None)
     parser.add_argument("--no-prefix-cache", action="store_true")
     parser.add_argument("--prefill-chunk", type=int, default=None)
-    parser.add_argument("--attn-impl", type=str, default="kernel",
-                        choices=["kernel", "plain"],
-                        help="plain runs the gathered-view reference path")
     parser.add_argument("--seed", type=int, default=0)
     return parser
 
@@ -65,7 +62,7 @@ def serve_main(argv: Optional[List[str]] = None,
         max_slots=args.max_slots, max_seq=args.max_seq,
         queue_limit=args.queue_limit, block_size=args.block_size,
         num_blocks=args.num_blocks, prefix_cache=not args.no_prefix_cache,
-        prefill_chunk=args.prefill_chunk, attn_impl=args.attn_impl)
+        prefill_chunk=args.prefill_chunk)
     cfg = gpt2.GPT2Config.from_name(args.model, **(model_overrides or {}))
     if args.max_seq > cfg.n_positions:
         print(f"--max-seq {args.max_seq} exceeds the model's "
