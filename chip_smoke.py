@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port builds and serves on the card.
+"""Quickest proof that the PyTorch/CUDA port builds, serves and trains on
+the card.
 
 Run from the root of a checkout, on a machine with one NVIDIA card:
 
@@ -10,15 +11,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the CUDA kernels from ``trustworthy_dl_tpu_torch/ops/
    csrc`` with nvcc for sm_90a (one nvcc per source, started together).
-3. kernels: call each kernel's wrapper at the serving path's shapes, hold
-   it against its plain PyTorch version on the same inputs, and time the
-   kernel, the plain version and a library yardstick (median of per-launch
-   CUDA-event timings, L2 flushed before each launch).
+3. kernels: call each kernel's wrapper at its path's shapes (serving's
+   for B5-B7, training's for B1-B3), hold it against its plain PyTorch
+   version on the same inputs, and time the kernel, the plain version and
+   a library yardstick (median of per-launch CUDA-event timings, L2
+   flushed before each launch).
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
    just before and read just after; hold the greedy streams against the
    same engine on the plain path.
+5. train: ``DistributedTrainer.train_epoch`` on GPT-2 small at full width
+   (T = 1024, 4 nodes x 8 sequences, AdamW lr 1e-4, block remat, flash
+   attention through ``attn_impl="auto"``, synthetic tokens from seed 0),
+   with the launch counters set to 0 just before and read just after:
+   detection OFF for 2 warm-up + 6 timed steps, then detection ON for 16
+   steps with gradient poisoning of node 2 from step 12 (steps 2-11
+   timed).  Node 2 must be gated on every attacked step and confirmed by
+   the second, no other node ever flagged or gated, and the kernels
+   launched exactly as the design says.  Then one step from the same
+   state with flash and with full attention, and flash-vs-full attention
+   fwd+bwd times at T = 512 and 1024.
 
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -57,9 +70,25 @@ ENTROPY_ATOL = 1e-4
 NEAR_TIE_MARGIN = 0.05
 SERVE_MARGIN_ATOL = NEAR_TIE_MARGIN
 SERVE_ENTROPY_ATOL = 1e-2
+# Moment battery (B1): min, max and max|x| exactly equal (order-free); each
+# sum within 1e-5 of the matching magnitude sum (sum |x|^p), the f32
+# rounding of a sum over up to 38.6M terms taken in another order.  Flash
+# kernels (B2, B3): the attention tolerance above; lse within 1e-3 (f32
+# logsumexp over bf16 score products).  Train comparison, flash vs full
+# attention from the same state: per-node losses within 2e-2 (bf16
+# compute), every verdict vector equal.
+MOMENT_RTOL = 1e-5
+LSE_ATOL = 1e-3
+FLASH_VS_FULL_LOSS_ATOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/paged_attention.cu"
+STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
+FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
+# Train phase geometry (GPT-2 small at full width).
+TRAIN_NODES, TRAIN_BATCH, TRAIN_T = 4, 32, 1024
+OFF_WARMUP, OFF_TIMED = 2, 6
+ON_STEPS, ATTACK_START, ON_WARMUP = 16, 12, 2
 
 
 def emit(obj) -> None:
@@ -318,6 +347,322 @@ def serve_drive(torch, pa, entries, card):
           "near_tie_margin": NEAR_TIE_MARGIN})
 
 
+def gpt2_small(torch, **overrides):
+    from trustworthy_dl_tpu_torch.models import gpt2
+
+    return gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16,
+                                     **overrides)
+
+
+def flash_work(bh, t, d, matmuls):
+    """Flops of ``matmuls`` [t, t] x [t, d]-shaped products restricted to
+    the causal triangle (t (t + 1) / 2 query-key pairs), 2 per
+    multiply-add, over ``bh`` heads."""
+    pairs = t * (t + 1) // 2
+    return 2 * bh * d * pairs * matmuls
+
+
+def check_train_kernels(torch, entries):
+    """Phase 3, training kernels: B1 over the 16 gradient leaves of GPT-2
+    small on each of 4 nodes (one launch, 64 segments), B2 and B3 at one
+    node's attention shape [96, 1024, 64] bf16."""
+    import torch.nn.functional as F
+
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+    from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg = gpt2_small(torch)
+    shapes = [tuple(p.shape) for p in tree_leaves(
+        gpt2.init_params(cfg, gen, device=dev))]
+    grads = [torch.randn((TRAIN_NODES,) + s, device=dev, generator=gen)
+             * 1e-3 for s in shapes]
+    segs = [g[i].reshape(-1) for i in range(TRAIN_NODES) for g in grads]
+    got = fs.fused_moments(segs)
+    torch.cuda.synchronize()
+    ref = fs.fused_moments_plain(segs)
+    mag = torch.stack([torch.stack([x.abs().sum(), (x * x).sum(),
+                                    (x.abs() ** 3).sum(), (x ** 4).sum(),
+                                    x.abs().sum()]) for x in segs])
+    sums = [fs.S1, fs.S2, fs.S3, fs.S4, fs.L1]
+    sum_err = (got[:, sums] - ref[:, sums]).abs()
+    exact = [fs.MIN, fs.MAX, fs.LINF]
+    if not bool((sum_err <= MOMENT_RTOL * mag).all()) or not torch.equal(
+            got[:, exact], ref[:, exact]):
+        raise AssertionError(
+            "fused_moments disagrees with plain: worst sum error / "
+            f"magnitude {float((sum_err / mag).max())}, extrema equal "
+            f"{torch.equal(got[:, exact], ref[:, exact])}")
+    n_el = sum(x.numel() for x in segs)
+
+    def library_moments():
+        # The fewest PyTorch reductions giving the eight sums, per segment.
+        for x in segs:
+            x.sum()
+            for order in (1, 2, 4, float("inf")):
+                torch.linalg.vector_norm(x, order)
+            torch.aminmax(x)
+            x.pow(3).sum()
+
+    bound_ms, bound_by = bound_entry(n_el * 4 + len(segs) * 32, n_el * 12,
+                                     "float32")
+    entries["fused_moments"] = {
+        "name": "fused_moments", "route": "cuda", "source": STATS_SOURCE,
+        "replaces": "trustworthy_dl_tpu/ops/fused_stats.py:85",
+        "launches": 0, "max_abs_err": float(sum_err.max()),
+        "ms": time_ms(torch, lambda: fs.fused_moments(segs), flush, reps=10),
+        "plain_ms": time_ms(torch, lambda: fs.fused_moments_plain(segs),
+                            flush, reps=5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(torch, library_moments, flush, reps=5),
+        "library_calls": "per segment: sum, linalg.vector_norm ord 1/2/4/"
+                         "inf, aminmax, pow(3).sum",
+        "shape": {"segments": len(segs), "elements": n_el},
+    }
+    del grads, segs, got, ref, mag
+
+    bh, t, d = cfg.n_head * TRAIN_BATCH // TRAIN_NODES, TRAIN_T, \
+        cfg.head_dim
+
+    def mk():
+        return torch.randn(bh, t, d, device=dev, generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v, do = mk(), mk(), mk(), mk()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v)
+    dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+
+    def err(a, b, name):
+        e = (a.float() - b.float()).abs()
+        if not bool((e <= ATTN_ATOL + ATTN_RTOL * b.float().abs()).all()):
+            raise AssertionError(f"{name}: kernel disagrees with plain "
+                                 f"(max abs err {float(e.max())})")
+        return float(e.max())
+
+    o_err = err(o, o_ref, "flash fwd")
+    lse_err = float((lse - lse_ref).abs().max())
+    if lse_err > LSE_ATOL:
+        raise AssertionError(f"flash fwd lse err {lse_err}")
+    dq_err = err(dq, dq_ref, "flash dq")
+    dkv_err = max(err(dk, dk_ref, "flash dk"), err(dv, dv_ref, "flash dv"))
+    del o_ref, dq_ref, dk_ref, dv_ref
+
+    # Yardsticks: SDPA forward, and SDPA's backward alone (it computes dq,
+    # dk and dv together, so both B3 entries carry the same time).
+    q4, k4, v4 = (a.reshape(1, bh, t, d).clone().requires_grad_()
+                  for a in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do.view(1, bh, t, d), retain_graph=True), flush)
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4.detach(), k4.detach(), v4.detach(), is_causal=True), flush)
+    tile = bh * t * d * 2
+    rows = bh * t * 4
+    for name, replaces, ins, outs, n_rows, matmuls, kern, plain, e, lib in (
+            ("flash_attention_fwd", ":176", 3, 1, 1, 2,
+             lambda: fa.flash_attention_fwd(q, k, v),
+             lambda: fa.flash_fwd_plain(q, k, v), o_err, sdpa_fwd),
+            ("flash_attention_bwd_dq", ":306", 4, 1, 2, 3,
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta),
+             dq_err, sdpa_bwd),
+            ("flash_attention_bwd_dkv", ":324", 4, 2, 2, 4,
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
+             dkv_err, sdpa_bwd)):
+        bound_ms, bound_by = bound_entry(
+            (ins + outs) * tile + n_rows * rows,
+            flash_work(bh, t, d, matmuls), "bfloat16")
+        entries[name] = {
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": "trustworthy_dl_tpu/ops/flash_attention.py"
+                        + replaces,
+            "launches": 0, "max_abs_err": e,
+            "ms": time_ms(torch, kern, flush),
+            "plain_ms": time_ms(torch, plain, flush, reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib,
+            "shape": {"bhtd": [bh, t, d], "dtype": "bfloat16"},
+        }
+    entries["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
+
+
+def train_drive(torch, entries, card):
+    """Phase 5: GPT-2 small at full width through ``DistributedTrainer``,
+    detection OFF then ON under a gradient-poisoning attack on node 2."""
+    import itertools
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+
+    cfg = gpt2_small(torch)
+    tokens_per_step = TRAIN_BATCH * TRAIN_T
+
+    def trainer(detection):
+        config = TrainingConfig(
+            model_name="gpt2", batch_size=TRAIN_BATCH,
+            num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
+            remat=True, attack_detection_enabled=detection,
+            gradient_verification_enabled=detection, seed=0)
+        tr = DistributedTrainer(config, model_overrides=dict(
+            seq_len=TRAIN_T, attn_impl="auto"), device="cuda")
+        tr.initialize()
+        return tr
+
+    loader = get_dataloader("openwebtext", batch_size=TRAIN_BATCH,
+                            seq_len=TRAIN_T, vocab_size=cfg.vocab_size,
+                            num_examples=TRAIN_BATCH * ON_STEPS, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    off = trainer(False)
+    off.train_epoch(itertools.islice(iter(loader), OFF_WARMUP + OFF_TIMED),
+                    0)
+    off_hist = off.batch_history
+    del off
+    on = trainer(True)
+    attacker = AdversarialAttacker(AttackConfig(
+        attack_types=["gradient_poisoning"], target_nodes=[2],
+        intensity=1.0, start_step=ATTACK_START))
+    attacker.activate_attacks()
+    on.set_attack_plan(attacker.plan(TRAIN_NODES))
+    on.train_epoch(loader, 0)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    on_hist = on.batch_history
+
+    steps = OFF_WARMUP + OFF_TIMED + ON_STEPS
+    per_layer = cfg.n_layer * TRAIN_NODES * steps
+    want = {"flash_attention_fwd": 2 * per_layer,      # forward + remat
+            "flash_attention_bwd_dq": per_layer,
+            "flash_attention_bwd_dkv": per_layer,
+            "fused_moments": 2 * steps}               # gradients + features
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"design says {n}: {launches}")
+    losses = [h["loss"] for h in off_hist + on_hist]
+    if not all(math.isfinite(x) for x in losses) or len(on_hist) != ON_STEPS:
+        raise AssertionError(f"train losses {losses}")
+    flag_steps = [s for s, h in enumerate(on_hist) if h["attacked"][2]]
+    for s, h in enumerate(on_hist):
+        others = [i for i in range(TRAIN_NODES) if i != 2]
+        if any(h["attacked"][i] or h["weights"][i] == 0 for i in others):
+            raise AssertionError(f"step {s}: a clean node was flagged or "
+                                 f"gated: {h}")
+        if s >= ATTACK_START and h["weights"][2] != 0:
+            raise AssertionError(f"step {s}: node 2 not gated under attack")
+        if s < ATTACK_START and (h["weights"][2] == 0 or h["attacked"][2]):
+            raise AssertionError(f"step {s}: node 2 gated before the attack")
+    if not flag_steps or flag_steps[0] > ATTACK_START + 1:
+        raise AssertionError(f"node 2 confirmed at steps {flag_steps}")
+    if [r["node_id"] for r in on.attack_history] != [2] or \
+            on.attack_history[0]["attack_type"] != "gradient_poisoning":
+        raise AssertionError(f"attack history {on.attack_history}")
+
+    # A step's step_s is the wall since the previous step ended (batch
+    # drawn and copied, step, host sync, record-keeping), so the timed
+    # steps tile their window and tokens/s is over the window's wall.
+    off_window = [h["step_s"] for h in off_hist[OFF_WARMUP:]]
+    on_window = [h["step_s"] for h in on_hist[ON_WARMUP:ATTACK_START]]
+    tps_off = tokens_per_step * len(off_window) / sum(off_window)
+    tps_on = tokens_per_step * len(on_window) / sum(on_window)
+    off_ms = 1e3 * statistics.mean(off_window)
+    on_ms = 1e3 * statistics.mean(on_window)
+    for name in want:
+        entries[name]["launches"] = launches[name]
+    emit({"phase": "train", "card": card,
+          "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                   "weights, random init seed 0)",
+          "nodes": TRAIN_NODES, "batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+          "tokens_per_step": tokens_per_step,
+          "tokens_per_s_detection_on": tps_on,
+          "tokens_per_s_detection_off": tps_off,
+          "vs_baseline": tps_on / tps_off,
+          "step_ms_on": on_ms, "step_ms_off": off_ms,
+          "step_ms_on_each": [1e3 * h["step_s"] for h in on_hist],
+          "step_ms_off_each": [1e3 * h["step_s"] for h in off_hist],
+          "peak_memory_bytes": peak,
+          "losses_off": [h["loss"] for h in off_hist],
+          "losses_on": [h["loss"] for h in on_hist],
+          "per_node_loss_last": on_hist[-1]["per_node_loss"],
+          "launches": launches, "expected_launches": want,
+          "attack_start_step": ATTACK_START, "flag_steps": flag_steps,
+          "attack_history": [{k: r[k] for k in ("node_id", "step",
+                                                "attack_type")}
+                             for r in on.attack_history],
+          "trust_last": on_hist[-1]["trust_scores"]})
+    return on, loader
+
+
+def flash_vs_full(torch, on, loader, card):
+    """One train step from the detection-ON run's final state with flash
+    and with full attention (verdicts equal, losses within bf16), then
+    fwd+bwd times of one layer's attention at T = 512 and 1024 (the
+    AUTO_FLASH_MIN_T choice)."""
+    from trustworthy_dl_tpu_torch.attacks.adversarial import null_plan
+    from trustworthy_dl_tpu_torch.engine.step import build_train_step
+    from trustworthy_dl_tpu_torch.models.factory import create_model
+    from trustworthy_dl_tpu_torch.models.gpt2 import full_attention
+    from trustworthy_dl_tpu_torch.ops.flash_attention import flash_attention
+
+    batch = on._node_batch(next(iter(loader)))
+    plan = null_plan(TRAIN_NODES, "cuda")
+    out = {}
+    for impl in ("flash", "full"):
+        bundle = create_model("gpt2", seq_len=TRAIN_T, attn_impl=impl,
+                              remat=True)
+        step = build_train_step(bundle, on.config, on.optimizer)
+        _, m = step(on.state, batch, plan)
+        out[impl] = {k: getattr(m, k).tolist() for k in (
+            "per_node_loss", "attacked", "verified", "finite", "byzantine",
+            "backdoor", "status")}
+        out[impl]["gated"] = (m.weights == 0).tolist()
+        # attack_type is meaningful only where a node is confirmed.
+        out[impl]["attack_type"] = torch.where(
+            m.attacked, m.attack_type, -1).tolist()
+        del m
+    diff = max(abs(a - b) for a, b in zip(out["flash"]["per_node_loss"],
+                                          out["full"]["per_node_loss"]))
+    verdicts_equal = all(out["flash"][k] == out["full"][k]
+                         for k in out["flash"] if k != "per_node_loss")
+    if diff > FLASH_VS_FULL_LOSS_ATOL or not verdicts_equal:
+        raise AssertionError(f"flash vs full step: loss diff {diff}, "
+                             f"verdicts {out}")
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    times = {}
+    for t in (512, 1024):
+        qkv = [torch.randn(TRAIN_BATCH // TRAIN_NODES, 12, t, 64,
+                           device=dev, generator=gen).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3)]
+        g = torch.randn_like(qkv[0])
+        for name, fn in (("flash", flash_attention),
+                         ("full", full_attention)):
+            def fwd_bwd(fn=fn):
+                torch.autograd.grad(fn(*qkv), qkv, g)
+            times[f"{name}_T{t}_ms"] = time_ms(torch, fwd_bwd, flush)
+    emit({"phase": "flash_vs_full", "card": card,
+          "step_per_node_loss_max_abs_diff": diff,
+          "step_verdicts_equal": verdicts_equal,
+          "attention_fwd_bwd_shape": "[8, 12, T, 64] bf16", **times})
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -348,8 +693,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     entries = check_kernels(torch, pa)
+    check_train_kernels(torch, entries)
     emit({"phase": "kernel_checks", "ok": True})
     serve_drive(torch, pa, entries, smi)
+    on, loader = train_drive(torch, entries, smi)
+    flash_vs_full(torch, on, loader, smi)
+    del on
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,16 @@
 
 The port mirrors the JAX package's module paths.  It imports ``torch`` and
 numpy only, never ``jax`` nor ``trustworthy_dl_tpu``.  Its entry points
-(``serve.ServingEngine``, ``cli.serve_main``) run on the card by default
-and take ``device="cpu"`` only when the caller asks for it; on the CPU each
+(``serve.ServingEngine``, ``engine.trainer.DistributedTrainer``,
+``cli.serve_main``, ``cli.train_main``) run on the card by default and
+take ``device="cpu"`` only when the caller asks for it; on the CPU each
 kernel wrapper runs its plain PyTorch version.
 
-This slice covers paged continuous-batching serving of GPT-2: the decode,
+Slice 1 covers paged continuous-batching serving of GPT-2: the decode,
 chunked-prefill and trust-epilogue kernels (``ops/paged_attention.py``).
+Slice 2 covers the trusted data-parallel training step: the detector's
+moment battery (``ops/fused_stats.py``) and causal flash attention
+forward and backward (``ops/flash_attention.py``).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,10 +1,15 @@
-"""Command line of the port: ``python -m trustworthy_dl_tpu_torch.cli serve``.
+"""Command line of the port: ``python -m trustworthy_dl_tpu_torch.cli
+serve|train``.
 
-Counterpart of ``trustworthy-dl-serve`` (``trustworthy_dl_tpu/cli.py:
-serve_main``) with the flags this slice supports.  It serves GPT-2 from
-random weights drawn from ``--seed`` (checkpoint loading is not ported
-yet), drives a synthetic heterogeneous workload and prints the serving
-metrics.  It runs on the card unless ``--device cpu`` is given.
+``serve`` is the counterpart of ``trustworthy-dl-serve``
+(``trustworthy_dl_tpu/cli.py:serve_main``) with the flags the port
+supports: it serves GPT-2 from random weights drawn from ``--seed``
+(checkpoint loading is not ported yet), drives a synthetic heterogeneous
+workload and prints the serving metrics.  ``train`` is the counterpart of
+``trustworthy-dl-train`` (``trustworthy_dl_tpu/cli.py:main``) on its
+data-parallel path: trusted training of GPT-2 over ``--nodes`` logical
+nodes on the synthetic LM source, printing the run's statistics.  Both
+run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -115,13 +120,75 @@ def serve_main(argv: Optional[List[str]] = None,
     return 0
 
 
+def build_train_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m trustworthy_dl_tpu_torch.cli train",
+        description="Trust-gated data-parallel training of GPT-2 (random "
+                    "init) on the synthetic LM source, on the card.")
+    parser.add_argument("--model", type=str, default="gpt2")
+    parser.add_argument("--nodes", type=int, default=4)
+    parser.add_argument("--epochs", type=int, default=1)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--learning-rate", type=float, default=5e-5)
+    parser.add_argument("--seq-len", type=int, default=128)
+    parser.add_argument("--no-detection", action="store_true",
+                        help="disable the in-step attack detector")
+    parser.add_argument("--steps-per-epoch", type=int, default=50,
+                        help="synthetic-data epoch length")
+    parser.add_argument("--remat", action="store_true",
+                        help="checkpoint every transformer block")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="cpu runs every kernel's plain PyTorch version")
+    return parser
+
+
+def train_main(argv: Optional[List[str]] = None,
+               model_overrides: Optional[dict] = None) -> int:
+    """Entry point of ``train``; ``model_overrides`` shrinks the model
+    (tests)."""
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+
+    args = build_train_parser().parse_args(argv)
+    config = TrainingConfig(
+        model_name=args.model, num_nodes=args.nodes,
+        num_epochs=args.epochs, batch_size=args.batch_size,
+        learning_rate=args.learning_rate, remat=args.remat, seed=args.seed,
+        attack_detection_enabled=not args.no_detection)
+    overrides = {"seq_len": args.seq_len, **(model_overrides or {})}
+    trainer = DistributedTrainer(config, model_overrides=overrides,
+                                 device=args.device)
+    trainer.initialize()
+    print(f"training {args.model} from random init (seed {args.seed}) on "
+          f"{trainer.device} over {args.nodes} node(s)")
+    loader = get_dataloader(
+        "openwebtext", batch_size=args.batch_size, seq_len=args.seq_len,
+        vocab_size=trainer.model.config.vocab_size,
+        num_examples=args.batch_size * args.steps_per_epoch, seed=args.seed)
+    result = trainer.train(loader)
+    stats = result["stats"]
+    for record in result["epochs"]:
+        print(f"  epoch {record['epoch']}: train_loss "
+              f"{record['train_loss']:.4f}")
+    print(f"Training completed: {stats['global_step']} steps, final state "
+          f"{stats['training_state']}, attacks recorded "
+          f"{stats['attack_count']}")
+    return 0
+
+
+COMMANDS = {"serve": serve_main, "train": train_main}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "serve":
-        print("usage: python -m trustworthy_dl_tpu_torch.cli serve "
+    if not argv or argv[0] not in COMMANDS:
+        print("usage: python -m trustworthy_dl_tpu_torch.cli serve|train "
               "[--help | options]", file=sys.stderr)
         return 2
-    return serve_main(argv[1:])
+    return COMMANDS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

@@ -1,16 +1,21 @@
-"""Serving configuration.
+"""Serving and training configuration.
 
-Counterpart of ``ServeConfig`` in ``trustworthy_dl_tpu/core/config.py``,
-with the fields this slice serves: the paged pool's geometry, the prefix
-cache, chunked prefill and the attention path.  The int8 KV/weight tiers,
-speculative decoding, adapters, the stripe pool and tensor parallelism
-are not ported yet.
+Counterpart of ``ServeConfig``, ``TrainingConfig`` and ``AttackConfig`` in
+``trustworthy_dl_tpu/core/config.py``, with the fields the port reads.
+``ServeConfig`` covers the paged pool's geometry, the prefix cache, chunked
+prefill and the attention path (the int8 KV/weight tiers, speculative
+decoding, adapters, the stripe pool and tensor parallelism are not ported
+yet).  ``TrainingConfig`` covers the trusted data-parallel step: its
+defaults are the JAX package's (``weight_decay`` 0.0, ``detector_warmup``
+10, ``recovery_probation_steps`` 25, ...); the pipeline, tensor, sequence
+and expert modes, the async host pipeline, checkpointing and the ML tier
+are not ported yet, so their knobs are absent.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 from trustworthy_dl_tpu_torch.models.generate import ATTN_IMPLS
 from trustworthy_dl_tpu_torch.serve.kv_slots import validate_paged_geometry
@@ -41,3 +46,69 @@ class ServeConfig:
                              f"{self.attn_impl!r}")
         validate_paged_geometry(self.max_seq, self.block_size,
                                 self.num_blocks, self.prefill_chunk)
+
+
+@dataclass
+class TrainingConfig:
+    """The trusted data-parallel training step's configuration."""
+
+    model_name: str = "gpt2"
+    dataset_name: str = "openwebtext"
+    batch_size: int = 32
+    learning_rate: float = 5e-5
+    num_epochs: int = 10
+    num_nodes: int = 4
+    trust_threshold: float = 0.7
+    attack_detection_enabled: bool = True
+    gradient_verification_enabled: bool = True
+    # Sequential microbatches per node: only 1 is ported.
+    grad_accum_steps: int = 1
+    seed: int = 0
+    # torch.utils.checkpoint around every block ("block" policy only).
+    remat: bool = False
+    remat_policy: str = "block"
+    # Trust decay clock: step count x time_per_step.
+    time_per_step: float = 1.0
+    detector_history: int = 1000       # rolling window
+    detector_warmup: int = 10          # min history before verdicts
+    # Epoch-cadence adaptive trust threshold, pushed back into the step.
+    adaptive_thresholds: bool = True
+    # -1 leaves the model's "auto" in charge; 0 forces materialised logits;
+    # > 0 asks for the vocab-chunked fused head (not ported: raises).
+    lm_head_chunk: int = -1
+    recovery_probation_steps: int = 25
+    optimizer: str = "adamw"
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 0.0        # 0 disables
+    lr_schedule: str = "constant"      # constant | cosine | linear
+    warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    min_lr_ratio: float = 0.0
+    initial_trust: float = 1.0
+    trust_decay_rate: float = 0.01
+    trust_recovery_rate: float = 0.005
+    trust_alpha: float = 0.1
+
+    def __post_init__(self) -> None:
+        if self.remat_policy != "block":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r}: only 'block' is ported")
+        if self.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1, got "
+                             f"{self.grad_accum_steps}")
+        if self.num_nodes < 1:
+            raise ValueError(f"num_nodes must be >= 1, got {self.num_nodes}")
+
+
+@dataclass
+class AttackConfig:
+    """Attack injection schedule (the JAX package's ``AttackConfig``)."""
+
+    attack_types: List[str] = field(
+        default_factory=lambda: ["gradient_poisoning", "data_poisoning"])
+    target_nodes: List[int] = field(default_factory=lambda: [1, 3])
+    intensity: float = 0.5
+    start_step: int = 200
+    seed: int = 0
+    intensity_ramp: float = 0.0
+    collude: bool = False

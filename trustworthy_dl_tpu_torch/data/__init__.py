@@ -1,0 +1,3 @@
+"""Language-model data loaders (``loader``)."""
+
+from trustworthy_dl_tpu_torch.data.loader import get_dataloader  # noqa: F401

@@ -1,0 +1,193 @@
+"""Language-model data: the learnable synthetic token source and the
+window loaders.
+
+Counterpart of the LM branch of ``trustworthy_dl_tpu/data/loader.py`` and
+of the numpy half of ``trustworthy_dl_tpu/native`` (splitmix64 streams,
+the affine next-token chain, Fisher-Yates permutations, window gathers),
+bit for bit: the same seed gives the same batches as the JAX package.
+Real corpora load from ``data_dir`` (``<name>.bin``, a flat uint16 token
+memmap); otherwise the synthetic source stands in.  The vision datasets
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """Vectorised splitmix64 finaliser on uint64 states (wrapping)."""
+    with np.errstate(over="ignore"):
+        z = x + _GOLDEN
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
+
+
+def splitmix_fill(seed: int, n: int) -> np.ndarray:
+    """u64 [n]: splitmix64(seed + i * GOLDEN)."""
+    with np.errstate(over="ignore"):
+        states = np.uint64(seed) + np.arange(n, dtype=np.uint64) * _GOLDEN
+    return _splitmix64(states)
+
+
+def _splitmix_scalar(x: int) -> int:
+    return int(_splitmix64(np.asarray([x], np.uint64))[0])
+
+
+def synthetic_tokens(n: int, vocab: int, seed: int) -> np.ndarray:
+    """i32 [n] affine next-token chain t -> (31 t + 7) mod V with 10 %
+    uniform resets: low-entropy enough that a model visibly learns."""
+    a, b = 31, 7
+    noise_u = splitmix_fill(_splitmix_scalar(seed ^ 0xA5A5A5A5A5A5A5A5), n)
+    reset = (noise_u >> np.uint64(48)) < np.uint64(6554)
+    resets_tok = (splitmix_fill(_splitmix_scalar(seed ^ 0x5A5A5A5A5A5A5A5A),
+                                n) % np.uint64(vocab)).astype(np.int64)
+    out = np.empty(n, np.int32)
+    t = _splitmix_scalar(seed) % vocab
+    out[0] = t
+    reset_l, tok_l = reset.tolist(), resets_tok.tolist()
+    for i in range(1, n):
+        t = tok_l[i] if reset_l[i] else (a * t + b) % vocab
+        out[i] = t
+    return out
+
+
+def permutation(seed: int, n: int) -> np.ndarray:
+    """i64 [n] Fisher-Yates permutation from the splitmix stream."""
+    out = np.arange(n, dtype=np.int64)
+    if n:
+        us = splitmix_fill(seed, n)
+        for i in range(n - 1, 0, -1):
+            j = int(us[i] % np.uint64(i + 1))
+            out[i], out[j] = out[j], out[i]
+    return out
+
+
+def window_gather(stream: np.ndarray, seq_len: int, batch: int, seed: int
+                  ) -> "tuple[np.ndarray, np.ndarray]":
+    """(inputs, targets) i32 [batch, seq_len]: seq_len + 1 windows of a
+    token stream at splitmix-derived offsets."""
+    stream = np.ascontiguousarray(stream, np.int32)
+    span = len(stream) - seq_len
+    if span <= 0:
+        raise ValueError(f"stream of {len(stream)} tokens too short for "
+                         f"seq_len={seq_len}")
+    offs = (splitmix_fill(seed, batch) % np.uint64(span)).astype(np.int64)
+    windows = stream[offs[:, None] + np.arange(seq_len + 1)[None, :]]
+    return windows[:, :-1].copy(), windows[:, 1:].copy()
+
+
+class ArrayDataLoader:
+    """Deterministic batched iterator over {'input', 'target'} arrays,
+    reshuffled every epoch (drop_last)."""
+
+    def __init__(self, inputs: np.ndarray, targets: np.ndarray,
+                 batch_size: int, shuffle: bool = True, seed: int = 0):
+        if len(inputs) != len(targets):
+            raise ValueError("inputs and targets differ in length")
+        self.inputs = np.ascontiguousarray(inputs)
+        self.targets = np.ascontiguousarray(targets)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.inputs) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if self.shuffle:
+            idx = permutation(self.seed + self._epoch, len(self.inputs))
+        else:
+            idx = np.arange(len(self.inputs), dtype=np.int64)
+        self._epoch += 1
+        for start in range(0, len(idx) - self.batch_size + 1,
+                           self.batch_size):
+            sel = idx[start:start + self.batch_size]
+            yield {"input": self.inputs[sel], "target": self.targets[sel]}
+
+
+class TokenStreamLoader:
+    """Random-window batches over a token stream: batch k of epoch e
+    depends only on (seed, e, k); ``freeze_epoch`` pins every pass to
+    epoch 0 (validation)."""
+
+    def __init__(self, stream: np.ndarray, batch_size: int, seq_len: int,
+                 steps_per_epoch: int, seed: int = 0,
+                 freeze_epoch: bool = False):
+        self.stream = np.ascontiguousarray(stream, np.int32)
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.steps_per_epoch = steps_per_epoch
+        self.seed = seed
+        self.freeze_epoch = freeze_epoch
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return self.steps_per_epoch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        epoch = 0 if self.freeze_epoch else self._epoch
+        if not self.freeze_epoch:
+            self._epoch += 1
+        mask = (1 << 64) - 1
+        k_epoch = int(splitmix_fill(
+            ((self.seed & 0xFFFFFFFF) << 32 | (epoch & 0xFFFFFFFF)), 1)[0])
+        for step in range(self.steps_per_epoch):
+            seed = int(splitmix_fill((k_epoch + step) & mask, 1)[0])
+            inputs, targets = window_gather(self.stream, self.seq_len,
+                                            self.batch_size, seed)
+            yield {"input": inputs, "target": targets}
+
+
+def get_dataloader(dataset_name: str, split: str = "train",
+                   batch_size: int = 32, seq_len: int = 128,
+                   vocab_size: int = 50257,
+                   num_examples: Optional[int] = None, seed: int = 0,
+                   data_dir: Optional[str] = None,
+                   sampling: str = "epoch"):
+    """LM loaders: "epoch" partitions the stream into fixed shuffled
+    windows, "windows" draws fresh random windows every batch."""
+    name = dataset_name.lower()
+    if name not in ("openwebtext", "wikitext", "lm", "synthetic_lm"):
+        raise ValueError(f"unknown or not yet ported dataset "
+                         f"{dataset_name!r} (the port has the LM branch)")
+    if sampling not in ("epoch", "windows"):
+        raise ValueError(f"sampling must be 'epoch' or 'windows', got "
+                         f"{sampling!r}")
+    split_seed = seed + (0 if split == "train" else 10_000)
+    n = num_examples or (2048 if split == "train" else 256)
+    bin_path = os.path.join(data_dir, f"{name}.bin") if data_dir else ""
+    if bin_path and os.path.exists(bin_path):
+        tokens = np.memmap(bin_path, dtype=np.uint16, mode="r")
+        cut = int(len(tokens) * 0.95)
+        tokens = np.asarray(tokens[:cut] if split == "train"
+                            else tokens[cut:], np.int32)
+    else:
+        tokens = synthetic_tokens(n * (seq_len + 1) + 1,
+                                  min(vocab_size, 512), split_seed)
+    if sampling == "windows":
+        return TokenStreamLoader(tokens, batch_size, seq_len,
+                                 steps_per_epoch=max(n // max(batch_size, 1),
+                                                     1),
+                                 seed=split_seed,
+                                 freeze_epoch=(split != "train"))
+    usable = min((len(tokens) - 1) // seq_len, n)
+    window = tokens[: usable * seq_len + 1]
+    inputs = np.stack([window[i * seq_len:(i + 1) * seq_len]
+                       for i in range(usable)])
+    targets = np.stack([window[i * seq_len + 1:(i + 1) * seq_len + 1]
+                        for i in range(usable)])
+    return ArrayDataLoader(inputs, targets, batch_size, shuffle=True,
+                           seed=split_seed)
+
+
+__all__ = ["ArrayDataLoader", "TokenStreamLoader", "get_dataloader",
+           "permutation", "splitmix_fill", "synthetic_tokens",
+           "window_gather"]

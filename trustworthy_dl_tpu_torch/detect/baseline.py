@@ -1,13 +1,16 @@
 """Rolling statistical baselines as a fixed-shape ring buffer.
 
-Counterpart of ``trustworthy_dl_tpu/detect/baseline.py``, on host (CPU)
-f32 tensors: a ring [n, K, S] of the last K stat vectors per node with a
-monotonic write count, and masked mean/std over the valid window.
+Counterpart of ``trustworthy_dl_tpu/detect/baseline.py``: a ring [n, K, S]
+of the last K stat vectors per node with a monotonic write count, and
+masked mean/std over the valid window.  Every tensor lives on the device
+the caller names at construction (the serving monitor keeps host tensors,
+the training step keeps its baselines on the card), and every tensor the
+functions build follows the state's device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -17,11 +20,12 @@ class BaselineState(NamedTuple):
     count: torch.Tensor  # i64 [n], total writes per node
 
 
-def init_baseline_state(num_nodes: int, window: int, num_stats: int
-                        ) -> BaselineState:
+def init_baseline_state(num_nodes: int, window: int, num_stats: int, *,
+                        device: Any) -> BaselineState:
     return BaselineState(
-        ring=torch.zeros(num_nodes, window, num_stats, dtype=torch.float32),
-        count=torch.zeros(num_nodes, dtype=torch.int64))
+        ring=torch.zeros(num_nodes, window, num_stats, dtype=torch.float32,
+                         device=device),
+        count=torch.zeros(num_nodes, dtype=torch.int64, device=device))
 
 
 def push_stats(state: BaselineState, stats: torch.Tensor,
@@ -29,9 +33,10 @@ def push_stats(state: BaselineState, stats: torch.Tensor,
     """Append one stat vector per node ([n, S]); ``mask`` ([n] bool) skips
     nodes that produced no signal."""
     n, window, _ = state.ring.shape
+    device = state.ring.device
     if mask is None:
-        mask = torch.ones(n, dtype=torch.bool)
-    rows = torch.arange(n)
+        mask = torch.ones(n, dtype=torch.bool, device=device)
+    rows = torch.arange(n, device=device)
     idx = state.count % window
     ring = state.ring.clone()
     ring[rows, idx] = torch.where(mask[:, None], stats.float(),
@@ -45,7 +50,8 @@ def baseline_moments(state: BaselineState
     valid window."""
     n, window, _ = state.ring.shape
     valid = state.count.clamp(max=window)
-    mask = (torch.arange(window)[None, :] < valid[:, None]).float()[..., None]
+    slot = torch.arange(window, device=state.ring.device)
+    mask = (slot[None, :] < valid[:, None]).float()[..., None]
     denom = valid.float().clamp(min=1.0)[:, None]
     mean = (state.ring * mask).sum(dim=1) / denom
     var = (((state.ring - mean[:, None, :]) ** 2) * mask).sum(dim=1) / denom

@@ -1,0 +1,418 @@
+"""The trusted training step.
+
+Counterpart of ``trustworthy_dl_tpu/engine/step.py`` (``build_train_step``
+and its helpers).  One call runs, in the JAX package's order:
+
+  1. poison the batch (attack injection, experiments only);
+  2. per-node forward, loss and the detector's output features;
+  3. per-node gradients, then gradient poisoning (injection);
+  4. gradient verification (finite + log-norm z, cross-node gated) and
+     the fleet-level norm-surge alarm;
+  5. detector verdicts on the output and gradient batteries, Byzantine
+     and backdoor consensus checks, loss detachment, hard cross-node
+     outliers; rolling baselines absorb only clean nodes;
+  6. mark compromised (confirmed verdicts, non-finite gradients);
+  7. trust update from output deviation / gradient consistency, then
+     probation recovery;
+  8. trust-gated aggregation with gated nodes hard-masked (0 * NaN = NaN);
+  9. the optimizer update, skipped entirely (params and optimizer state)
+     when every node is gated out; the monitor absorbs clean samples.
+
+The JAX step vmaps the node axis; here the per-node gradients come from a
+Python loop over the nodes (forward, loss, ``torch.autograd.grad``),
+stacked into [n, ...] leaves.  The statistic batteries run on detached
+tensors under ``torch.no_grad``: one moment-battery launch (kernel B1)
+covers every gradient leaf of every node, one more every node's features.
+Medians follow ``jnp.median`` (the two middle values averaged, NaN if any
+input is NaN) and standard deviations are population ones, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
+    Sequence, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
+    poison_batch, poison_gradients
+from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+from trustworthy_dl_tpu_torch.detect import baseline as bl
+from trustworthy_dl_tpu_torch.detect import stats as st
+from trustworthy_dl_tpu_torch.detect.detector import anomaly_verdicts, \
+    attribute_attack
+from trustworthy_dl_tpu_torch.detect.verifier import absorb_norms, \
+    fleet_surge_update, norm_suspicions
+from trustworthy_dl_tpu_torch.engine.optimizer import Optimizer, \
+    global_norm, guarded_update
+from trustworthy_dl_tpu_torch.engine.state import TrainState, update_monitor
+from trustworthy_dl_tpu_torch.models.factory import ModelBundle
+from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+from trustworthy_dl_tpu_torch.trust import state as ts
+from trustworthy_dl_tpu_torch.utils.tree import tree_leaves, tree_unflatten
+
+Tensor = torch.Tensor
+
+CROSS_SECTIONAL_THRESHOLD = 3.0
+HARD_CROSS_Z = 25.0
+NORM_CROSS_Z = 3.0
+NORM_MAD_FLOOR = 0.1
+LOSS_CROSS_Z = 6.0
+LOSS_MAD_FLOOR_REL = 0.05
+LOSS_MAD_FLOOR_ABS = 0.02
+
+
+def _median(values: Tensor, dim: int = 0, keepdim: bool = False) -> Tensor:
+    """``jnp.median``: the mean of the two middle values for an even count
+    ((lo + hi) * 0.5), NaN wherever an input along ``dim`` is NaN."""
+    n = values.shape[dim]
+    s = values.sort(dim=dim).values
+    med = (s.narrow(dim, (n - 1) // 2, 1) + s.narrow(dim, n // 2, 1)) * 0.5
+    med = torch.where(values.isnan().any(dim=dim, keepdim=True),
+                      torch.full_like(med, float("nan")), med)
+    return med if keepdim else med.squeeze(dim)
+
+
+def _median_mad(values: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """[n, d] -> (median [1, d], |dev| [n, d], sigma-consistent MAD
+    [1, d])."""
+    med = _median(values, 0, keepdim=True)
+    abs_dev = (values - med).abs()
+    return med, abs_dev, _median(abs_dev, 0, keepdim=True) * 1.4826
+
+
+def _cross_sectional_score(stats: Tensor) -> Tensor:
+    """f32 [n]: mean robust z of each node's stat vector against this
+    step's cross-node median/MAD."""
+    _, abs_dev, mad = _median_mad(stats)
+    usable = mad[0] > 1e-12
+    z = torch.where(usable[None, :], abs_dev / mad.clamp(min=1e-12),
+                    torch.zeros_like(abs_dev))
+    return z.sum(dim=1) / usable.sum().clamp(min=1)
+
+
+def _hard_cross_outliers(stats: Tensor) -> Tensor:
+    """bool [n]: astronomical cross-node outliers (MAD floored at 5 % of
+    the median), the detection path a poisoned baseline cannot blind."""
+    med, abs_dev, mad = _median_mad(stats)
+    floor = (0.05 * med.abs()).clamp(min=1e-6)
+    return (abs_dev / torch.maximum(mad, floor)).mean(dim=1) > HARD_CROSS_Z
+
+
+def _loss_cross_outliers(losses: Tensor) -> Tensor:
+    """bool [n]: a node's loss far ABOVE the cross-node median (the
+    data-poisoning signature), one-sided."""
+    med = _median(losses)
+    dev = losses - med
+    mad = _median(dev.abs()) * 1.4826
+    floor = (LOSS_MAD_FLOOR_REL * med.abs()).clamp(min=LOSS_MAD_FLOOR_ABS)
+    return dev / torch.maximum(mad, floor) > LOSS_CROSS_Z
+
+
+def _norm_cross_outliers(global_norms: Tensor) -> Tensor:
+    """bool [n]: cross-node outliers of the log gradient norm."""
+    log_norm = global_norms.clamp(min=1e-30).log()
+    _, abs_dev, mad = _median_mad(log_norm[:, None])
+    return (abs_dev / mad.clamp(min=NORM_MAD_FLOOR))[:, 0] > NORM_CROSS_Z
+
+
+def _moments(segments: Sequence[Tensor]) -> Tensor:
+    """B1 over any number of segments, :data:`fs.MAX_SEGMENTS` a launch."""
+    step = fs.MAX_SEGMENTS
+    return torch.cat([fs.fused_moments(segments[i:i + step])
+                      for i in range(0, len(segments), step)])
+
+
+def gradient_stat_vector(leaves: Sequence[Tensor], moments: Tensor,
+                         max_sort: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """(17-stat battery, per-leaf norms, finite flag) of one node's
+    flattened gradient leaves from their moments [L, 8]."""
+    base, leaf_norms, finite, sample = st.leafwise_statistics(
+        leaves, max_sort, moments)
+    extra = torch.stack([
+        torch.tensor(float(len(leaves)), device=base.device),
+        leaf_norms.mean(), leaf_norms.std(correction=0), leaf_norms.max(),
+        st.chunked_cosine_mean(sample)])
+    return torch.cat([base, extra]), leaf_norms, finite
+
+
+def output_stat_vector(flat: Tensor, moments: Tensor, max_sort: int
+                       ) -> Tensor:
+    """17-padded output battery (12 real stats + zero padding)."""
+    base = st.leafwise_statistics([flat], max_sort, moments)[0]
+    pad = torch.zeros(st.NUM_GRADIENT_STATS - st.NUM_TENSOR_STATS,
+                      device=base.device)
+    return torch.cat([base, pad])
+
+
+class StepMetrics(NamedTuple):
+    loss: Tensor            # f32 [] trust-weighted aggregate
+    per_node_loss: Tensor   # f32 [n]
+    trust_scores: Tensor    # f32 [n]
+    status: Tensor          # i32 [n]
+    attacked: Tensor        # bool [n] confirmed (debounced) verdicts
+    verified: Tensor        # bool [n] gradient verification passed
+    finite: Tensor          # bool [n]
+    weights: Tensor         # f32 [n] contribution gate used
+    system_trust: Tensor    # f32 []
+    grad_norm: Tensor       # f32 [] aggregated gradient norm
+    out_score: Tensor       # f32 [n]
+    grad_score: Tensor      # f32 [n]
+    attack_type: Tensor     # i32 [n] (valid iff attacked)
+    byzantine: Tensor       # bool [n]
+    backdoor: Tensor        # bool [n]
+    out_stats: Tensor       # f32 [n, 17]
+    grad_stats: Tensor      # f32 [n, 17]
+    model_aux: Optional[Dict[str, Tensor]] = None
+    fleet_alert: Any = None  # bool [] debounced fleet norm surge
+
+
+StepFn = Callable[..., Tuple[TrainState, StepMetrics]]
+
+
+def build_train_step(bundle: ModelBundle, config: TrainingConfig,
+                     optimizer: Optimizer, max_sort: int = 16384) -> StepFn:
+    """The step for ``config.num_nodes`` nodes: ``step(state, batch, plan,
+    grad_noise=None, batch_noise=None) -> (state, metrics)``, with batches
+    {'input': [n, b, T], 'target': [n, b, T]} on the state's device.
+    ``grad_noise`` / ``batch_noise`` hand the attack injectors their draws
+    (else they draw from ``state.rng``)."""
+    if config.grad_accum_steps > 1:
+        raise NotImplementedError(
+            "grad_accum_steps > 1 (sequential microbatches inside the step) "
+            "is not ported yet")
+    n_nodes = config.num_nodes
+    detection = config.attack_detection_enabled
+    verification = config.gradient_verification_enabled
+    num_classes = bundle.input_spec.get("vocab_size", 2)
+
+    def node_passes(params: Any, batch: Dict[str, Tensor]):
+        """Per node: forward + loss + grads.  Returns (losses [n], features
+        (detached, one per node), mean_logits [n, V], grads as [n, ...]
+        leaves in tree order)."""
+        template = tree_leaves(params)
+        losses, feats, mean_logits = [], [], []
+        grads: List[Tensor] = []
+        for i in range(n_nodes):
+            leaves = [p.detach().requires_grad_(True) for p in template]
+            node_params = tree_unflatten(params, leaves)
+            node_batch = {k: v[i] for k, v in batch.items()}
+            with torch.enable_grad():
+                loss, f, ml = bundle.loss_monitor(node_params, node_batch)
+                g = torch.autograd.grad(loss, leaves)
+            if i == 0:
+                grads = [torch.empty((n_nodes,) + x.shape, dtype=x.dtype,
+                                     device=x.device) for x in g]
+            for dst, src in zip(grads, g):
+                dst[i].copy_(src)
+            del g
+            losses.append(loss.detach())
+            feats.append(f.detach())
+            mean_logits.append(ml.detach())
+        return (torch.stack(losses), feats, torch.stack(mean_logits), grads)
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor],
+                   plan: AttackPlan,
+                   grad_noise: Optional[Sequence[Tensor]] = None,
+                   batch_noise: Optional[Dict[str, Tensor]] = None
+                   ) -> Tuple[TrainState, StepMetrics]:
+        step = state.step
+        now = float(step) * config.time_per_step
+        live = plan.is_live(step)
+
+        # 1. Attack injection on the data path.
+        if live:
+            batch = poison_batch(plan, batch, step, num_classes,
+                                 generator=state.rng, noise=batch_noise)
+
+        # 2-3. Per-node forward/backward, then gradient injection.
+        with record_function("tddl.forward_backward"):
+            losses, feats, mean_logits, grads = node_passes(state.params,
+                                                            batch)
+        if live:
+            grads = poison_gradients(plan, grads, step, generator=state.rng,
+                                     noise=grad_noise)
+
+        with torch.no_grad():
+            return _after_backward(state, plan, losses, feats, mean_logits,
+                                   grads, now)
+
+    def _after_backward(state, plan, losses, feats, mean_logits, grads, now):
+        n = n_nodes
+        device = losses.device
+        with record_function("tddl.detection"):     # stages 4-7
+            # Output batteries: one B1 launch over every node's features.
+            flat_feats = [f.reshape(-1) for f in feats]
+            feat_moments = _moments(flat_feats)
+            out_stats = torch.stack([
+                output_stat_vector(flat_feats[i], feat_moments[i:i + 1],
+                                   max_sort) for i in range(n)])
+            out_mean = torch.stack([f.mean() for f in feats])
+            out_std = torch.stack([f.std(correction=0) for f in feats])
+            del feats, flat_feats
+
+            # Gradient batteries: one B1 launch over every leaf of every node.
+            n_leaves = len(grads)
+            node_leaves = [[g[i].reshape(-1) for g in grads] for i in range(n)]
+            grad_moments = _moments([x for node in node_leaves for x in node]
+                                    ).reshape(n, n_leaves, 8)
+            per_node = [gradient_stat_vector(node_leaves[i], grad_moments[i],
+                                             max_sort) for i in range(n)]
+            grad_stats = torch.stack([p[0] for p in per_node])
+            leaf_norms = torch.stack([p[1] for p in per_node])
+            finite_b = torch.stack([p[2] for p in per_node])
+            global_norms = (leaf_norms * leaf_norms).sum(dim=1).sqrt()
+
+            # 4. Gradient verification (pure read; absorption after 5).
+            if verification:
+                norm_suspect = norm_suspicions(state.verifier, global_norms)
+                if n >= 4:
+                    norm_suspect = norm_suspect & _norm_cross_outliers(
+                        global_norms)
+            else:
+                norm_suspect = torch.zeros_like(finite_b)
+            verified = finite_b & ~norm_suspect
+
+            # 4b. Fleet-level norm-surge alarm.
+            if verification:
+                fleet_median = _median(global_norms)[None]
+                _, fleet_norm, fleet_streak = fleet_surge_update(
+                    state.fleet_norm, fleet_median, state.fleet_raw_streak)
+                fleet_alert = (fleet_streak >= 2)[0]
+            else:
+                fleet_alert = None
+                fleet_norm, fleet_streak = state.fleet_norm, \
+                    state.fleet_raw_streak
+
+            # 5. Detector verdicts.
+            zeros_b = torch.zeros(n, dtype=torch.bool, device=device)
+            if detection:
+                warmup = config.detector_warmup
+                out_v = anomaly_verdicts(out_stats, state.out_baseline,
+                                         warmup=warmup)
+                grad_v = anomaly_verdicts(grad_stats, state.grad_baseline,
+                                          warmup=warmup)
+                if n >= 4:
+                    out_v = out_v._replace(is_attack=out_v.is_attack & (
+                        _cross_sectional_score(out_stats)
+                        > CROSS_SECTIONAL_THRESHOLD))
+                    grad_v = grad_v._replace(is_attack=grad_v.is_attack & (
+                        _cross_sectional_score(grad_stats)
+                        > CROSS_SECTIONAL_THRESHOLD))
+                warm_nodes = state.out_baseline.count >= warmup
+                if n >= 3:
+                    byz = st.byzantine_verdicts(
+                        torch.softmax(mean_logits, dim=-1)) & warm_nodes
+                else:
+                    byz = zeros_b
+                consensus = mean_logits.mean(dim=0, keepdim=True)
+                kl = torch.stack([st.backdoor_divergence(m[None], consensus)
+                                  for m in mean_logits])
+                backdoor = (kl > 2.0) & warm_nodes
+                loss_outlier = (_loss_cross_outliers(losses) & warm_nodes
+                                if n >= 4 else zeros_b)
+                candidates = (out_v.is_attack | grad_v.is_attack | byz
+                              | backdoor | loss_outlier)
+                if n >= 4:
+                    candidates = candidates | _hard_cross_outliers(out_stats) \
+                        | _hard_cross_outliers(grad_stats)
+                clean_now = ~(candidates | norm_suspect | ~finite_b)
+                out_bl = bl.push_stats(state.out_baseline, out_stats,
+                                       mask=clean_now)
+                grad_bl = bl.push_stats(state.grad_baseline, grad_stats,
+                                        mask=clean_now)
+                attacked = candidates & state.prev_suspects
+                out_score, grad_score = out_v.score, grad_v.score
+                attack_type = attribute_attack(grad_v, out_v, byz, backdoor,
+                                               loss_outlier)
+            else:
+                out_bl, grad_bl = state.out_baseline, state.grad_baseline
+                attacked = candidates = byz = backdoor = zeros_b
+                out_score = grad_score = torch.zeros(n, device=device)
+                attack_type = torch.zeros(n, dtype=torch.int32, device=device)
+                clean_now = verified
+
+            candidates = candidates | norm_suspect
+            attacked = attacked | (norm_suspect & state.prev_suspects)
+
+            # 5b. Verifier absorption by the same clean-this-step rule.
+            verifier = (absorb_norms(state.verifier, global_norms, clean_now)
+                        if verification else state.verifier)
+
+            # 6. Compromise marking.
+            trust = ts.mark_compromised(state.trust, attacked | ~finite_b)
+
+            # 7. Trust signals against the monitor's expectations, EMA update.
+            mon = state.monitor
+            warm = mon.warm
+            exp_std = mon.out_std_avg.clamp(min=1e-6)
+            mean_dev = (out_mean - mon.out_mean_avg).abs() / exp_std
+            std_dev = (out_std - mon.out_std_avg).abs() / exp_std
+            output_deviation = torch.where(
+                warm, torch.clamp((mean_dev + std_dev) / 2.0, max=1.0),
+                torch.zeros_like(mean_dev))
+            exp_norms = mon.grad_norm_avg
+            per_leaf = torch.clamp(leaf_norms / exp_norms.clamp(min=1e-12),
+                                   max=1.0)
+            usable = exp_norms > 0
+            cons = torch.where(usable, per_leaf, torch.zeros_like(per_leaf)
+                               ).sum(dim=1) / usable.sum(dim=1).clamp(min=1)
+            gradient_consistency = torch.where(warm, cons,
+                                               torch.ones_like(cons))
+            trust = ts.update_trust(trust, output_deviation,
+                                    gradient_consistency, now,
+                                    alpha=config.trust_alpha)
+            trust, clean_streak = ts.probation_recovery(
+                trust, state.clean_streak, verified & ~candidates,
+                config.recovery_probation_steps)
+
+        with record_function("tddl.update"):        # stages 8-9
+            # 8. Trust-gated aggregation, gated nodes hard-masked.
+            weights = ts.contribution_weights(trust, verified & ~candidates)
+            denom = weights.sum()
+            inv = torch.where(denom > 0, 1.0 / denom.clamp(min=1e-30),
+                              torch.zeros_like(denom))
+            w = weights * inv
+            agg = []
+            for g in grads:
+                mask = (weights > 0).reshape((n,) + (1,) * (g.dim() - 1))
+                agg.append(torch.tensordot(
+                    w.to(g.dtype), torch.where(mask, g, torch.zeros_like(g)),
+                    dims=1))
+            del grads
+
+            # 9. Optimizer (skipped when every node is gated) and monitor.
+            param_leaves = tree_leaves(state.params)
+            new_leaves, opt_state = guarded_update(
+                denom > 0, optimizer, agg, state.opt_state, param_leaves)
+            monitor = update_monitor(mon, out_mean, out_std, leaf_norms,
+                                     verified & ~candidates)
+            loss = (torch.where(weights > 0, losses, torch.zeros_like(losses))
+                    * weights).sum() * inv
+        new_state = TrainState(
+            params=tree_unflatten(state.params, new_leaves),
+            opt_state=opt_state, trust=trust, out_baseline=out_bl,
+            grad_baseline=grad_bl, verifier=verifier, monitor=monitor,
+            prev_suspects=candidates, step=state.step + 1,
+            epoch=state.epoch, rng=state.rng, clean_streak=clean_streak,
+            fleet_norm=fleet_norm, fleet_raw_streak=fleet_streak)
+        metrics = StepMetrics(
+            loss=loss, per_node_loss=losses, trust_scores=trust.scores,
+            status=trust.status, attacked=attacked, verified=verified,
+            finite=finite_b, weights=weights,
+            system_trust=ts.system_trust(trust),
+            grad_norm=global_norm(agg), out_score=out_score,
+            grad_score=grad_score, attack_type=attack_type, byzantine=byz,
+            backdoor=backdoor, out_stats=out_stats, grad_stats=grad_stats,
+            model_aux=None, fleet_alert=fleet_alert)
+        return new_state, metrics
+
+    return train_step
+
+
+__all__ = [
+    "CROSS_SECTIONAL_THRESHOLD", "HARD_CROSS_Z", "LOSS_CROSS_Z",
+    "NORM_CROSS_Z", "StepMetrics", "build_train_step",
+    "gradient_stat_vector", "output_stat_vector",
+]

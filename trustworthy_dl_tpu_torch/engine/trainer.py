@@ -1,0 +1,340 @@
+"""DistributedTrainer: the host loop around the trusted training step.
+
+Counterpart of ``trustworthy_dl_tpu/engine/trainer.py`` on its synchronous
+data-parallel path: every batch is split over the logical nodes and runs
+one :func:`engine.step.build_train_step` call; the host reads the step's
+metrics in one device-to-host copy per step (the step's one sync), records
+confirmed incidents (``attack_history``), mirrors compromises into the
+host :class:`TrustManager`, hands the flagged node's work to the most
+trusted node (``reassignment_history``) and, at epoch cadence, absorbs the
+device trust state and pushes the adaptive threshold back.
+
+The trainer runs on the card (``device="cuda"``, the default) and raises
+without CUDA unless the caller passes ``device="cpu"``, where every kernel
+runs its plain PyTorch version.  Not ported yet: the async host pipeline,
+checkpointing, the supervisor, chaos injection, telemetry, elastic
+eviction and readmission, the ML detector tier, validation, and the
+pipeline, tensor, sequence and expert modes.
+"""
+
+from __future__ import annotations
+
+import enum
+import logging
+import time
+from typing import Any, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
+    null_plan
+from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+from trustworthy_dl_tpu_torch.detect.detector import AttackType
+from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
+from trustworthy_dl_tpu_torch.engine.optimizer import build_optimizer
+from trustworthy_dl_tpu_torch.engine.state import TrainState, \
+    init_train_state
+from trustworthy_dl_tpu_torch.engine.step import StepMetrics, \
+    build_train_step
+from trustworthy_dl_tpu_torch.models.factory import create_model
+from trustworthy_dl_tpu_torch.serve.engine import resolve_device
+from trustworthy_dl_tpu_torch.trust.manager import TrustManager
+from trustworthy_dl_tpu_torch.trust.state import NodeStatus
+from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
+
+logger = logging.getLogger(__name__)
+
+#: The [n] step metrics the host reads every step (see ``_host_view``).
+_HOST_FIELDS = ("per_node_loss", "weights", "trust_scores", "out_score",
+                "grad_score", "attacked", "finite", "status", "attack_type")
+
+
+class TrainingState(enum.Enum):
+    """Trainer lifecycle."""
+
+    INITIALIZING = "initializing"
+    TRAINING = "training"
+    UNDER_ATTACK = "under_attack"
+    RECOVERING = "recovering"
+    COMPLETED = "completed"
+
+
+class DistributedTrainer:
+    """Trusted data-parallel training of ``config.num_nodes`` logical
+    nodes on one device."""
+
+    def __init__(self, config: TrainingConfig,
+                 model_overrides: Optional[Dict[str, Any]] = None,
+                 device: Any = "cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        overrides = dict(model_overrides or {})
+        if config.lm_head_chunk >= 0:
+            overrides.setdefault("lm_head_chunk", config.lm_head_chunk)
+        if config.remat:
+            overrides.setdefault("remat", True)
+        self.model = create_model(config.model_name, **overrides)
+        self.optimizer = build_optimizer(config)
+        self._train_step = build_train_step(self.model, config,
+                                            self.optimizer)
+        self.state: Optional[TrainState] = None
+        self.training_state = TrainingState.INITIALIZING
+        self._init_host_state()
+
+    def _init_host_state(self) -> None:
+        config = self.config
+        self.current_epoch = 0
+        self.global_step = 0
+        self.trust_manager = TrustManager(
+            num_nodes=config.num_nodes,
+            trust_threshold=config.trust_threshold,
+            initial_trust=config.initial_trust,
+            decay_rate=config.trust_decay_rate,
+            recovery_rate=config.trust_recovery_rate,
+            alpha=config.trust_alpha)
+        self.attack_history: List[Dict] = []
+        self.reassignment_history: List[Dict] = []
+        self._fleet_tracker = FleetEpisodeTracker()
+        self.fleet_alerts: List[Dict] = self._fleet_tracker.episodes
+        # Step coordinate -> node id (identity: eviction is not ported).
+        self.node_map: List[int] = list(range(config.num_nodes))
+        # Nodes in a recorded-compromised episode: an incident is recorded
+        # on the clean -> compromised transition only.
+        self._open_incidents: set = set()
+        self.batch_history: List[Dict] = []
+        self.attack_plan: AttackPlan = null_plan(config.num_nodes,
+                                                 self.device)
+
+    # ------------------------------------------------------------------
+    # Setup
+    # ------------------------------------------------------------------
+
+    def initialize(self, seed: Optional[int] = None,
+                   params: Optional[Any] = None) -> TrainState:
+        """Fresh params (drawn from ``seed``, or the ``params`` given, e.g.
+        converted from the JAX package), optimizer state and world-view."""
+        seed = self.config.seed if seed is None else seed
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.model.init(gen, self.device)
+        else:
+            params = map_tree(lambda a: a.detach().to(
+                device=self.device, dtype=torch.float32), params)
+        opt_state = self.optimizer.init(tree_leaves(params))
+        rng = torch.Generator(device=self.device).manual_seed(seed + 1)
+        c = self.config
+        self.state = init_train_state(
+            rng, params, opt_state, num_nodes=c.num_nodes,
+            trust_threshold=c.trust_threshold,
+            initial_trust=c.initial_trust, decay_rate=c.trust_decay_rate,
+            recovery_rate=c.trust_recovery_rate,
+            detector_window=c.detector_history, device=self.device)
+        self.training_state = TrainingState.TRAINING
+        return self.state
+
+    def set_attack_plan(self, plan: AttackPlan) -> None:
+        """Install the experiment's fault-injection schedule."""
+        self.attack_plan = plan._replace(
+            target_mask=plan.target_mask.to(self.device))
+
+    def _node_batch(self, batch: Dict[str, np.ndarray]
+                    ) -> Dict[str, torch.Tensor]:
+        """[B, ...] -> [n, B // n, ...] on the device, trimming B to a
+        multiple of the node count."""
+        n = self.config.num_nodes
+        lead = min(arr.shape[0] for arr in batch.values())
+        b = (lead // n) * n
+        if b == 0:
+            raise ValueError(f"batch size {lead} < num_nodes = {n}")
+        return {k: torch.as_tensor(np.asarray(arr[:b]).reshape(
+                    (n, b // n) + arr.shape[1:]), dtype=torch.long
+                ).to(self.device) for k, arr in batch.items()}
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def train_epoch(self, dataloader: Iterable[Dict[str, np.ndarray]],
+                    epoch: int) -> float:
+        if self.state is None:
+            self.initialize()
+        self.current_epoch = epoch
+        epoch_loss, num_batches = 0.0, 0
+        t_prev = time.perf_counter()
+        for batch_idx, batch in enumerate(dataloader):
+            record = self.train_step(batch, epoch)
+            now = time.perf_counter()
+            # Wall time since the previous step ended: drawing the batch,
+            # copying it to the device, the step, its sync and the
+            # record-keeping.  Summed, the steps tile the epoch's wall.
+            record["step_s"] = now - t_prev
+            t_prev = now
+            epoch_loss += record["loss"]
+            num_batches += 1
+            if batch_idx % 10 == 0:
+                logger.info("Epoch %d, Batch %d, Loss: %.4f", epoch,
+                            batch_idx, record["loss"])
+        self.sync_host_state()
+        self._epoch_intelligence()
+        avg = epoch_loss / max(num_batches, 1)
+        logger.info("Epoch %d completed. Average loss: %.4f", epoch, avg)
+        return avg
+
+    def train_step(self, batch: Dict[str, np.ndarray], epoch: int
+                   ) -> Dict[str, Any]:
+        """One trusted step on a host batch; returns its
+        ``batch_history`` record."""
+        self.global_step += 1
+        node_batch = self._node_batch(batch)
+        self.state, metrics = self._train_step(self.state, node_batch,
+                                               self.attack_plan)
+        return self._record_batch(self._host_view(metrics), epoch)
+
+    def _epoch_intelligence(self) -> None:
+        """Adaptive trust threshold, pushed back into the step's state."""
+        if self.config.adaptive_thresholds:
+            self.trust_manager.adaptive_threshold_adjustment()
+            threshold = torch.tensor(self.trust_manager.trust_threshold,
+                                     dtype=torch.float32, device=self.device)
+            self.state = self.state._replace(
+                trust=self.state.trust._replace(threshold=threshold))
+
+    def _host_view(self, metrics: StepMetrics) -> Dict[str, Any]:
+        """The metrics the host reads, in the step's one device-to-host
+        copy: every field packed into one f32 vector (the ints and bools
+        are small, so f32 holds them exactly)."""
+        parts = [metrics.loss.reshape(1)] + [getattr(metrics, k)
+                                             for k in _HOST_FIELDS]
+        fleet = metrics.fleet_alert is not None
+        if fleet:
+            parts += [metrics.fleet_alert.reshape(1),
+                      self.state.fleet_raw_streak]
+        flat = torch.cat([p.float().reshape(-1) for p in parts]
+                         ).cpu().numpy()
+        n = self.config.num_nodes
+        host: Dict[str, Any] = {"loss": float(flat[0])}
+        for i, key in enumerate(_HOST_FIELDS):
+            host[key] = flat[1 + i * n:1 + (i + 1) * n]
+        for key in ("attacked", "finite"):
+            host[key] = host[key] != 0
+        for key in ("status", "attack_type"):
+            host[key] = host[key].astype(np.int64)
+        host["fleet_alert"] = bool(flat[-2]) if fleet else None
+        host["fleet_streak"] = int(flat[-1]) if fleet else None
+        return host
+
+    def _record_batch(self, host: Dict[str, Any], epoch: int
+                      ) -> Dict[str, Any]:
+        attacked, finite = host["attacked"], host["finite"]
+        status, trust = host["status"], host["trust_scores"]
+        id_of = self.node_map
+        record = {
+            "step": self.global_step, "epoch": epoch, "loss": host["loss"],
+            "step_s": None,
+            "per_node_loss": host["per_node_loss"].tolist(),
+            "weights": host["weights"].tolist(),
+            "attacked": attacked.tolist(),
+            "trust_scores": {id_of[i]: float(trust[i])
+                             for i in range(len(trust))}}
+        self.batch_history.append(record)
+
+        if host["fleet_alert"] is not None:
+            opened = self._fleet_tracker.update(
+                host["fleet_alert"], host["fleet_streak"], self.global_step,
+                extra={"epoch": epoch})
+            if opened is not None:
+                logger.error("fleet-level norm surge at step %d",
+                             self.global_step)
+                self.training_state = TrainingState.UNDER_ATTACK
+
+        flagged = attacked | ~finite
+        for orig in list(self._open_incidents):
+            coord = id_of.index(orig)
+            if not flagged[coord] and status[coord] != int(
+                    NodeStatus.COMPROMISED):
+                self._open_incidents.discard(orig)
+        if flagged.any():
+            flagged_ids = {id_of[int(c)] for c in np.nonzero(flagged)[0]}
+            for coord in np.nonzero(flagged)[0]:
+                orig = id_of[int(coord)]
+                if orig in self._open_incidents:
+                    continue
+                self._open_incidents.add(orig)
+                self._handle_detected_attack(
+                    orig, AttackType(int(host["attack_type"][coord])).label
+                    if attacked[coord] else "gradient_verification_failure",
+                    host, int(coord), flagged_ids)
+        return record
+
+    def _handle_detected_attack(self, node_id: int, attack_type: str,
+                                host: Dict[str, Any], coord: int,
+                                exclude: set) -> None:
+        """Record the incident, mirror the compromise into the host trust
+        manager and hand the node's work to the most trusted node.  The
+        in-step gating already happened."""
+        logger.error("Attack detected on node %d (%s)", node_id, attack_type)
+        self.attack_history.append({
+            "node_id": node_id, "timestamp": time.time(),
+            "step": self.global_step, "attack_type": attack_type,
+            "output_stats": {
+                "anomaly_score": float(host["out_score"][coord]),
+                "gradient_score": float(host["grad_score"][coord])}})
+        self.trust_manager.mark_compromised(node_id, attack_type)
+        self.reassign_node_tasks(node_id, exclude)
+        self.training_state = TrainingState.UNDER_ATTACK
+
+    def reassign_node_tasks(self, compromised_node_id: int,
+                            exclude: Optional[set] = None) -> None:
+        unfit = set(exclude or ()) | {compromised_node_id}
+        trusted = [n for n in self.trust_manager.get_trusted_nodes()
+                   if n not in unfit]
+        if not trusted:
+            logger.error("No trusted nodes available for reassignment")
+            return
+        best = max(trusted, key=self.trust_manager.get_trust_score)
+        self.reassignment_history.append({
+            "from_node": compromised_node_id, "to_node": best,
+            "timestamp": time.time(), "step": self.global_step})
+
+    def train(self, train_dataloader: Iterable[Dict[str, np.ndarray]],
+              num_epochs: Optional[int] = None) -> Dict[str, Any]:
+        if num_epochs is None:
+            num_epochs = self.config.num_epochs
+        if self.state is None:
+            self.initialize()
+        self.training_state = TrainingState.TRAINING
+        history = []
+        for epoch in range(num_epochs):
+            avg = self.train_epoch(train_dataloader, epoch)
+            if self.training_state == TrainingState.UNDER_ATTACK:
+                self.training_state = TrainingState.RECOVERING
+            history.append({"epoch": epoch, "train_loss": avg})
+        self.training_state = TrainingState.COMPLETED
+        return {"epochs": history, "stats": self.get_training_stats()}
+
+    def sync_host_state(self) -> None:
+        """Epoch-cadence absorption of the device trust state."""
+        if self.state is not None:
+            self.trust_manager.sync_from_device(self.state.trust,
+                                                node_ids=self.node_map)
+
+    def get_training_stats(self) -> Dict[str, Any]:
+        losses = [b["loss"] for b in self.batch_history]
+        return {
+            "current_epoch": self.current_epoch,
+            "global_step": self.global_step,
+            "training_state": self.training_state.value,
+            "trust_scores": {i: self.trust_manager.get_trust_score(i)
+                             for i in range(self.config.num_nodes)},
+            "attack_count": len(self.attack_history),
+            "reassignment_count": len(self.reassignment_history),
+            "fleet_alert_count": len(self.fleet_alerts),
+            "trust_threshold": self.trust_manager.trust_threshold,
+            "metrics": {"num_batches": len(losses),
+                        "mean_loss": float(np.mean(losses)) if losses
+                        else None},
+        }
+
+
+__all__ = ["DistributedTrainer", "TrainingState"]

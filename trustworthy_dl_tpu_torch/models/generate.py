@@ -142,7 +142,7 @@ def _decode_view(params: Params, cfg: gpt2.GPT2Config) -> Params:
     the dense weights pre-cast to the compute dtype (LayerNorms keep f32),
     f32 ``wte``/``wpe`` for the embedding lookups, and ``wte_head``, the
     tied head pre-cast once.  Numerically the same casts ``dense`` and
-    ``project_logits`` would do at every use."""
+    ``gpt2.head_weight`` would do at every use."""
     def cast(d: Params) -> Params:
         return {"w": d["w"].to(cfg.dtype), "b": d["b"].to(cfg.dtype)}
 

@@ -1,23 +1,29 @@
-"""GPT-2 family: configuration, initialisation and the training-style
-forward with full causal attention.
+"""GPT-2 family: configuration, initialisation, the forward and the
+monitored training loss.
 
 Counterpart of ``trustworthy_dl_tpu/models/gpt2.py``.  Parameters are a
 plain dict laid out like the JAX pytree: ``wte`` [V, D], ``wpe`` [P, D],
 ``ln_f``, and ``blocks`` whose every leaf carries a leading layer axis.
-The flash, ring and Ulysses attention variants and remat are not ported
-yet: only ``full`` attention.
+Attention goes through a registry: ``full`` (softmax over the whole score
+matrix), ``flash`` (kernels B2/B3, ``ops/flash_attention``) and ``auto``
+(flash at T >= :data:`AUTO_FLASH_MIN_T` where the kernel takes the shape,
+full below).  ``remat`` checkpoints every block (policy ``block``).  The
+ring and Ulysses variants, the ``attention`` remat policy and the
+vocab-chunked fused head (``ops/fused_ce.py``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from trustworthy_dl_tpu_torch.models import layers as L
+from trustworthy_dl_tpu_torch.utils.tree import map_tree
 
 Params = Dict[str, Any]
 
@@ -38,6 +44,12 @@ class GPT2Config:
     n_embd: int = 768
     n_head: int = 12
     dtype: torch.dtype = torch.bfloat16
+    # full | flash | auto (see the module docstring).
+    attn_impl: str = "auto"
+    remat: bool = False
+    # 0 materialises the logits; "auto" or an int > 0 may pick the
+    # vocab-chunked fused head (resolve_lm_head_chunk), not ported yet.
+    lm_head_chunk: Any = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -97,16 +109,15 @@ def init_params(cfg: GPT2Config, generator: torch.Generator,
     }
 
 
-def map_tree(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def unstack_blocks(blocks: Params, n_layer: int) -> List[Params]:
-    """Stacked block params -> one dict of views per layer."""
-    return [map_tree(lambda a, i=i: a[i], blocks) for i in range(n_layer)]
+    """Stacked block params -> one dict of views per layer.  ``unbind``
+    (one view per layer from a single op) rather than ``a[i]``: the
+    backward of ``a[i]`` scatters each layer's gradient into a zeroed
+    full-stack buffer, n_layer full-size adds per leaf, where unbind's
+    stacks them once."""
+    per_leaf = map_tree(lambda a: a.unbind(0), blocks)
+    return [map_tree(lambda views, i=i: views[i], per_leaf)
+            for i in range(n_layer)]
 
 
 def split_heads(a: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -139,6 +150,51 @@ def mlp(block: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return L.dense(block["mlp"]["proj"], y, dtype)
 
 
+# --------------------------------------------------------------------------
+# Attention registry
+# --------------------------------------------------------------------------
+
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+#: T from which ``auto`` picks the flash kernels.  The JAX package's
+#: threshold, tuned on a TPU; re-deciding it from the card's flash-vs-full
+#: times is open work.
+AUTO_FLASH_MIN_T = 1024
+
+
+def auto_picks_flash(t: int, d: int, dtype: torch.dtype) -> bool:
+    """THE ``attn_impl="auto"`` predicate: flash for long sequences, on
+    shapes and the dtype (bf16) the kernels take; full attention
+    elsewhere."""
+    from trustworthy_dl_tpu_torch.ops.flash_attention import supports_flash
+
+    return (t >= AUTO_FLASH_MIN_T and supports_flash(t, d)
+            and dtype == torch.bfloat16)
+
+
+def _flash(q, k, v):
+    from trustworthy_dl_tpu_torch.ops.flash_attention import flash_attention
+
+    return flash_attention(q, k, v)
+
+
+def _auto(q, k, v):
+    if auto_picks_flash(q.shape[-2], q.shape[-1], q.dtype):
+        return _flash(q, k, v)
+    return full_attention(q, k, v)
+
+
+ATTENTION: Dict[str, AttnFn] = {"full": full_attention, "flash": _flash,
+                                "auto": _auto}
+
+
+def get_attention(name: str) -> AttnFn:
+    if name not in ATTENTION:
+        raise ValueError(f"unknown attention impl {name!r} (one of "
+                         f"{sorted(ATTENTION)})")
+    return ATTENTION[name]
+
+
 def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config
                   ) -> torch.Tensor:
     """One transformer block on f32 [B, T, D] activations."""
@@ -146,10 +202,23 @@ def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config
     b, t, d = x.shape
     y = L.layernorm(block["ln_1"], x).to(dtype)
     q, k, v = L.dense(block["attn"]["qkv"], y, dtype).split(d, dim=-1)
-    out = full_attention(*(split_heads(a, cfg.n_head) for a in (q, k, v)))
+    attn = get_attention(cfg.attn_impl)
+    out = attn(*(split_heads(a, cfg.n_head) for a in (q, k, v)))
     out = out.permute(0, 2, 1, 3).reshape(b, t, d)
     x = x + L.dense(block["attn"]["proj"], out, dtype).to(x.dtype)
     return x + mlp(block, x, dtype).to(x.dtype)
+
+
+def apply_blocks(blocks: Params, x: torch.Tensor, cfg: GPT2Config
+                 ) -> torch.Tensor:
+    """Every block in turn; with ``cfg.remat`` each block is checkpointed
+    (its forward re-runs in the backward, flash kernels included)."""
+    for block in unstack_blocks(blocks, cfg.n_layer):
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(block_forward, block, x, cfg, use_reentrant=False)
+        else:
+            x = block_forward(block, x, cfg)
+    return x
 
 
 def embed(params: Params, tokens: torch.Tensor,
@@ -160,23 +229,110 @@ def embed(params: Params, tokens: torch.Tensor,
     return (params["wte"][tokens] + params["wpe"][pos]).float()
 
 
-def project_logits(params: Params, normed: torch.Tensor, cfg: GPT2Config
-                   ) -> torch.Tensor:
-    """Tied-embedding projection [..., D] -> f32 [..., V], in the compute
-    dtype."""
-    return (normed.to(cfg.dtype) @ params["wte"].to(cfg.dtype).T).float()
+#: The head's vocab axis is padded to a multiple of this inside the
+#: product.  GPT-2's 50257 is odd, and cuBLAS then falls back to its
+#: 1-element-aligned GEMMs, several times slower than the aligned ones; the
+#: padded rows are zero and their logits are sliced off before use.
+HEAD_PAD = 64
+
+
+def head_weight(params: Params, cfg: GPT2Config) -> torch.Tensor:
+    """The tied head's weight: ``wte`` cast to the compute dtype, its vocab
+    axis zero-padded to a multiple of :data:`HEAD_PAD`.  Built once per
+    forward and shared by its products."""
+    w = params["wte"].to(cfg.dtype)
+    return F.pad(w, (0, 0, 0, -w.shape[0] % HEAD_PAD))
+
+
+def project_logits(w_head: torch.Tensor, normed: torch.Tensor,
+                   cfg: GPT2Config) -> torch.Tensor:
+    """Tied-embedding projection [..., D] -> f32 [..., V] through
+    :func:`head_weight`, in the compute dtype."""
+    return (normed.to(cfg.dtype) @ w_head.T)[..., :cfg.vocab_size].float()
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: GPT2Config
             ) -> torch.Tensor:
-    return project_logits(params, L.layernorm(params["ln_f"], x), cfg)
+    return project_logits(head_weight(params, cfg),
+                          L.layernorm(params["ln_f"], x), cfg)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: GPT2Config
             ) -> torch.Tensor:
     """tokens [B, T] -> f32 logits [B, T, V]."""
-    x = embed(params, tokens)
-    for block in unstack_blocks(params["blocks"], cfg.n_layer):
-        x = block_forward(block, x, cfg)
+    x = apply_blocks(params["blocks"], embed(params, tokens), cfg)
     return unembed(params, x, cfg)
+
+
+# lm_head_chunk="auto": the per-node materialised-logits budget above which
+# the JAX package switches to the vocab-chunked fused head.
+AUTO_CE_CHUNK = 8192
+AUTO_CE_MAX_LOGITS_BYTES = 1 << 30
+
+
+def auto_picks_chunked_ce(num_tokens: int, vocab: int,
+                          itemsize: int = 2) -> bool:
+    """THE ``lm_head_chunk="auto"`` predicate: chunked exactly when this
+    node's [tokens, vocab] logits would exceed 1 GiB."""
+    return num_tokens * vocab * itemsize > AUTO_CE_MAX_LOGITS_BYTES
+
+
+def resolve_lm_head_chunk(cfg: GPT2Config, num_tokens: int) -> int:
+    """``cfg.lm_head_chunk`` resolved for a loss over ``num_tokens``."""
+    chunk = cfg.lm_head_chunk
+    if chunk == "auto":
+        itemsize = torch.tensor([], dtype=cfg.dtype).element_size()
+        if auto_picks_chunked_ce(num_tokens, cfg.vocab_size, itemsize):
+            return AUTO_CE_CHUNK
+        return 0
+    return int(chunk or 0)
+
+
+def forward_with_monitor(params: Params, tokens: torch.Tensor,
+                         cfg: GPT2Config
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tokens [B, T] -> (logits [B, T, V], features [B, T, D],
+    mean_logits [V]).  ``features`` are the final hidden activations
+    before ln_f (the node-boundary output the detector watches);
+    ``mean_logits`` is exact because the tied projection is linear."""
+    x = apply_blocks(params["blocks"], embed(params, tokens), cfg)
+    normed = L.layernorm(params["ln_f"], x)
+    w_head = head_weight(params, cfg)
+    mean_normed = normed.mean(dim=tuple(range(normed.dim() - 1)))
+    return (project_logits(w_head, normed, cfg), x,
+            project_logits(w_head, mean_normed, cfg))
+
+
+def head_loss_and_signature(params: Params, x: torch.Tensor,
+                            targets: torch.Tensor, cfg: GPT2Config
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ln_f + tied head on [B, T, D] hiddens -> (mean CE, mean_logits)."""
+    if resolve_lm_head_chunk(cfg, targets.numel()):
+        raise NotImplementedError(
+            "lm_head_chunk resolves to the vocab-chunked fused head "
+            "(trustworthy_dl_tpu/ops/fused_ce.py), which is not ported yet; "
+            "use lm_head_chunk=0 or a smaller per-node batch")
+    normed = L.layernorm(params["ln_f"], x)
+    mean_normed = normed.mean(dim=tuple(range(normed.dim() - 1)))
+    w_head = head_weight(params, cfg)
+    mean_logits = project_logits(w_head, mean_normed, cfg)
+    logits = project_logits(w_head, normed, cfg)
+    return L.cross_entropy_loss(logits, targets), mean_logits
+
+
+def loss_with_monitor(params: Params, batch: Dict[str, torch.Tensor],
+                      cfg: GPT2Config
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """{'input', 'target'} -> (loss, features [B, T, D], mean_logits [V]):
+    the training step's loss with the detector's signals."""
+    x = apply_blocks(params["blocks"], embed(params, batch["input"]), cfg)
+    loss, mean_logits = head_loss_and_signature(params, x, batch["target"],
+                                                cfg)
+    return loss, x, mean_logits
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: GPT2Config) -> torch.Tensor:
+    """Next-token cross entropy on {'input', 'target'} batches."""
+    return loss_with_monitor(params, batch, cfg)[0]
 

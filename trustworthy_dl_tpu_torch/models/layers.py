@@ -29,3 +29,13 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
     var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
     y = (x - mean) * torch.rsqrt(var + eps)
     return y * params["scale"] + params["bias"]
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mean token cross-entropy, ``logsumexp(logits) - logits[target]`` in
+    f32 (one fused reduction, no second [..., V] tensor)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt).mean()

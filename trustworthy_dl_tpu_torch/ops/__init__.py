@@ -35,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_ERROR_STRING = ([_I], ctypes.c_char_p)
 
 #: Exported C functions per library: name -> (argtypes, restype).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -42,7 +44,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tddl_paged_decode": ([_P] * 6 + [_I] * 7 + [_P], _I),
         "tddl_paged_prefill": ([_P] * 6 + [_I] * 8 + [_P], _I),
         "tddl_trust_stats": ([_P] * 3 + [_I] * 2 + [_P], _I),
-        "tddl_error_string": ([_I], ctypes.c_char_p),
+        "tddl_error_string": _ERROR_STRING,
+    },
+    "fused_stats": {
+        "tddl_fused_moments": ([ctypes.POINTER(_P), ctypes.POINTER(_L), _I,
+                                _L, _P, _P, _P], _I),
+        "tddl_error_string": _ERROR_STRING,
+    },
+    "flash_attention": {
+        "tddl_flash_fwd": ([_P] * 5 + [_I] * 3 + [_P], _I),
+        "tddl_flash_bwd_dq": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "tddl_flash_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_P], _I),
+        "tddl_error_string": _ERROR_STRING,
     },
 }
 
@@ -155,8 +168,29 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port (each carries ``launches``)."""
+    from trustworthy_dl_tpu_torch.ops import flash_attention, fused_stats, \
+        paged_attention
+
+    return (paged_attention.KERNEL_WRAPPERS + fused_stats.KERNEL_WRAPPERS
+            + flash_attention.KERNEL_WRAPPERS)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's ``launches`` back to 0."""
+    for fn in kernel_wrappers():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """``launches`` of every kernel wrapper, by wrapper name."""
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+
+
 __all__ = [
     "BUILD_DIR", "CSRC", "DTYPE_CODES", "SIGNATURES", "build",
-    "check_launch", "kernel_library", "library_path", "nvcc_path",
-    "on_cuda", "stream_handle",
+    "check_launch", "kernel_library", "kernel_wrappers", "launch_counts",
+    "library_path", "nvcc_path", "on_cuda", "reset_launch_counts",
+    "stream_handle",
 ]

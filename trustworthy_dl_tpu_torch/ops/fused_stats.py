@@ -1,0 +1,102 @@
+"""The detector moment battery (B1): eight raw moments of many f32
+segments in one pass.
+
+Counterpart of ``trustworthy_dl_tpu/ops/fused_stats.py``.  For each segment
+of a list (every gradient leaf of every node, or every node's monitored
+features) :func:`fused_moments` returns one row (sum x, sum x^2, sum x^3,
+sum x^4, min, max, sum |x|, max |x|), all f32.  CPU tensors run the plain
+PyTorch twin :func:`fused_moments_plain`; CUDA tensors launch the kernel in
+``csrc/fused_stats.cu`` (see the note there for what it replaces, its bound
+and its design).  Unlike the TPU version there is no size cut-off: every
+segment, of any length, goes through the kernel.
+
+The statistics are diagnostics and constant under differentiation: the
+inputs are detached and the twin runs under ``torch.no_grad``.
+
+:func:`fused_moments` carries a plain integer ``launches`` that it
+increments where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from trustworthy_dl_tpu_torch.ops import check_launch, kernel_library, \
+    on_cuda, stream_handle
+
+#: Elements per CTA in the kernel's first pass (a multiple of 4).
+CHUNK = 32768
+#: Segments one launch takes (the kernel's parameter block).
+MAX_SEGMENTS = 128
+
+# Row layout of the moments.
+S1, S2, S3, S4, MIN, MAX, L1, LINF = range(8)
+
+
+def fused_moments_plain(segments: Sequence[torch.Tensor]) -> torch.Tensor:
+    """f32 [len(segments), 8] by eight PyTorch reductions per segment; an
+    empty segment gives (0, 0, 0, 0, +inf, -inf, 0, 0)."""
+    rows = []
+    with torch.no_grad():
+        for seg in segments:
+            x = seg.detach().reshape(-1).float()
+            if x.numel() == 0:
+                rows.append(torch.tensor(
+                    [0.0, 0.0, 0.0, 0.0, float("inf"), float("-inf"), 0.0,
+                     0.0], device=x.device))
+                continue
+            x2 = x * x
+            ax = x.abs()
+            rows.append(torch.stack([x.sum(), x2.sum(), (x2 * x).sum(),
+                                     (x2 * x2).sum(), x.min(), x.max(),
+                                     ax.sum(), ax.max()]))
+    return torch.stack(rows)
+
+
+def fused_moments(segments: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The moment battery of every segment, f32 [len(segments), 8], in one
+    kernel launch for CUDA tensors (each a contiguous f32 tensor on one
+    card, at most :data:`MAX_SEGMENTS` of them)."""
+    segments = [s.detach().reshape(-1) for s in segments]
+    if not segments:
+        raise ValueError("fused_moments: no segments")
+    if not on_cuda(segments[0], "fused_moments"):
+        return fused_moments_plain(segments)
+    device = segments[0].device
+    if len(segments) > MAX_SEGMENTS:
+        raise ValueError(f"fused_moments: {len(segments)} segments > "
+                         f"{MAX_SEGMENTS} per launch")
+    for i, seg in enumerate(segments):
+        if seg.dtype != torch.float32 or seg.device != device \
+                or not seg.is_contiguous():
+            raise ValueError(f"fused_moments: segment {i} must be a "
+                             f"contiguous f32 tensor on {device}, got "
+                             f"{seg.dtype} on {seg.device}")
+    lens = [seg.numel() for seg in segments]
+    chunks = sum(-(-n // CHUNK) for n in lens)
+    partials = torch.empty((max(chunks, 1), 8), dtype=torch.float32,
+                           device=device)
+    out = torch.empty((len(segments), 8), dtype=torch.float32, device=device)
+    ptrs = (ctypes.c_void_p * len(segments))(
+        *[seg.data_ptr() for seg in segments])
+    lens_c = (ctypes.c_longlong * len(segments))(*lens)
+    lib = kernel_library("fused_stats")
+    with torch.cuda.device(device):
+        err = lib.tddl_fused_moments(ptrs, lens_c, len(segments), CHUNK,
+                                     partials.data_ptr(), out.data_ptr(),
+                                     stream_handle(device))
+    check_launch(lib, err, "tddl_fused_moments")
+    fused_moments.launches += 1
+    return out
+
+
+fused_moments.launches = 0
+
+#: The kernels of this module, by the wrapper that launches each.
+KERNEL_WRAPPERS = (fused_moments,)
+
+__all__ = ["CHUNK", "KERNEL_WRAPPERS", "MAX_SEGMENTS", "fused_moments",
+           "fused_moments_plain"]

@@ -46,8 +46,8 @@ def resolve_device(device: Any) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available on this machine: the serving engine "
-            "runs on the card by default; pass device='cpu' to run the "
+            "CUDA is not available on this machine: the port's entry "
+            "points run on the card by default; pass device='cpu' to run the "
             "plain PyTorch versions of its kernels on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
@@ -96,7 +96,9 @@ class OutputMonitor:
                  z_threshold: float = 4.0):
         self.warmup = warmup
         self.z_threshold = z_threshold
-        self._state = bl.init_baseline_state(1, window, self.NUM_SIGNALS)
+        # Host tensors: the signals arrive as Python floats per request.
+        self._state = bl.init_baseline_state(1, window, self.NUM_SIGNALS,
+                                             device="cpu")
 
     def observe(self, entropies: Sequence[float],
                 margins: Sequence[float]) -> tuple:

@@ -1,0 +1,221 @@
+"""Host-side trust reporting view over :mod:`trust.state`.
+
+Counterpart of ``trustworthy_dl_tpu/trust/manager.py``.  The trust math
+lives only in ``trust/state.py``; this class holds one host (CPU)
+:class:`TrustState` and forwards every mutation to those functions, adding
+what belongs on the host: a wall-clock decay clock for standalone use,
+per-node history and attack logs, statistics, and the
+:meth:`sync_from_device` bridge through which the training step's state
+reaches the reports at epoch cadence.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import defaultdict, deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from trustworthy_dl_tpu_torch.trust import state as ts
+from trustworthy_dl_tpu_torch.trust.state import METRIC_NAMES, NodeStatus, \
+    TrustState
+
+logger = logging.getLogger(__name__)
+
+
+class TrustManager:
+    """Trust bookkeeping facade; math delegated to ``trust/state.py``."""
+
+    def __init__(self, num_nodes: int, trust_threshold: float = 0.7,
+                 initial_trust: float = 1.0, max_history: int = 1000,
+                 decay_rate: float = 0.01, recovery_rate: float = 0.005,
+                 alpha: float = 0.1):
+        self.num_nodes = num_nodes
+        self.initial_trust = initial_trust
+        self.alpha = alpha
+        # Clock for standalone updates: wall seconds since construction
+        # (f32 keeps sub-ms resolution there, not at epoch magnitudes).
+        self._epoch0 = time.time()
+        self._state: TrustState = ts.init_trust_state(
+            num_nodes, trust_threshold=trust_threshold,
+            initial_trust=initial_trust, decay_rate=decay_rate,
+            recovery_rate=recovery_rate, now=0.0)
+        self.trust_history: Dict[int, deque] = defaultdict(
+            lambda: deque(maxlen=max_history))
+        self.attack_history: Dict[int, List] = defaultdict(list)
+
+    # -- state access -----------------------------------------------------
+
+    @property
+    def state(self) -> TrustState:
+        return self._state
+
+    @property
+    def trust_threshold(self) -> float:
+        return float(self._state.threshold)
+
+    @trust_threshold.setter
+    def trust_threshold(self, value: float) -> None:
+        self._state = self._state._replace(
+            threshold=torch.tensor(value, dtype=torch.float32))
+
+    def _now(self) -> float:
+        return time.time() - self._epoch0
+
+    def _one_hot(self, node_id: int) -> torch.Tensor:
+        mask = np.zeros(self.num_nodes, dtype=bool)
+        mask[node_id] = True
+        return torch.from_numpy(mask)
+
+    # -- mutations --------------------------------------------------------
+
+    def update_trust_score(self, node_id: int, output_deviation: float,
+                           gradient_consistency: float,
+                           **kwargs: float) -> None:
+        """Standalone one-node update with wall-clock decay, through the
+        vectorised ``ts.update_trust`` and a one-hot mask."""
+        st = self._state
+        extra = st.metrics[:, 2:6].numpy().copy()
+        for key, value in kwargs.items():
+            if key in METRIC_NAMES and METRIC_NAMES.index(key) >= 2:
+                extra[node_id, METRIC_NAMES.index(key) - 2] = value
+        dev = st.metrics[:, 0].clone()
+        dev[node_id] = output_deviation
+        cons = st.metrics[:, 1].clone()
+        cons[node_id] = gradient_consistency
+        self._state = ts.update_trust(
+            st, dev, cons, now=self._now(),
+            extra_metrics=torch.from_numpy(extra),
+            update_mask=self._one_hot(node_id), alpha=self.alpha)
+        self._record_history(node_id)
+
+    def mark_compromised(self, node_id: int,
+                         attack_type: str = "unknown") -> None:
+        """Penalty via ``ts.mark_compromised``; the log records the trust
+        held before the overwrite."""
+        prior = self.get_trust_score(node_id)
+        self._state = ts.mark_compromised(self._state,
+                                          self._one_hot(node_id))
+        self.attack_history[node_id].append({
+            "timestamp": time.time(), "attack_type": attack_type,
+            "previous_trust": prior})
+        logger.warning("trust: node %d compromised (%s)", node_id,
+                       attack_type)
+
+    def initiate_recovery(self, node_id: int) -> None:
+        self._state = ts.initiate_recovery(self._state,
+                                           self._one_hot(node_id))
+
+    def adaptive_threshold_adjustment(self) -> None:
+        self._state = ts.adaptive_threshold(self._state)
+
+    # -- queries ----------------------------------------------------------
+
+    def get_trust_score(self, node_id: int) -> float:
+        if not 0 <= node_id < self.num_nodes:
+            return 0.0
+        return float(self._state.scores[node_id])
+
+    def get_node_status(self, node_id: int) -> NodeStatus:
+        if not 0 <= node_id < self.num_nodes:
+            return NodeStatus.OFFLINE
+        return NodeStatus(int(self._state.status[node_id]))
+
+    def _nodes_with_status(self, status: NodeStatus) -> List[int]:
+        return np.flatnonzero(
+            self._state.status.numpy() == int(status)).tolist()
+
+    def get_trusted_nodes(self) -> List[int]:
+        return self._nodes_with_status(NodeStatus.TRUSTED)
+
+    def get_suspicious_nodes(self) -> List[int]:
+        return self._nodes_with_status(NodeStatus.SUSPICIOUS)
+
+    def get_compromised_nodes(self) -> List[int]:
+        return self._nodes_with_status(NodeStatus.COMPROMISED)
+
+    def can_assign_task(self, node_id: int) -> bool:
+        if not 0 <= node_id < self.num_nodes:
+            return False
+        return bool(ts.can_assign_task(self._state)[node_id])
+
+    def calculate_system_trust(self) -> float:
+        return float(ts.system_trust(self._state))
+
+    def get_trust_statistics(self) -> Dict:
+        scores = self._state.scores.numpy()
+        if scores.size == 0:
+            return {}
+        return {
+            "mean_trust": float(scores.mean()),
+            "std_trust": float(scores.std()),
+            "min_trust": float(scores.min()),
+            "max_trust": float(scores.max()),
+            "system_trust": self.calculate_system_trust(),
+            "node_status_counts": {
+                status.label: len(self._nodes_with_status(status))
+                for status in NodeStatus},
+            "total_attacks": sum(len(a) for a in
+                                 self.attack_history.values()),
+        }
+
+    def get_node_history(self, node_id: int, limit: int = 100) -> List[Dict]:
+        history = list(self.trust_history.get(node_id, ()))
+        return history[-limit:] if limit else history
+
+    # -- device bridge ----------------------------------------------------
+
+    def _record_history(self, node_id: int,
+                        wall_time: Optional[float] = None) -> None:
+        row = self._state.metrics[node_id].tolist()
+        self.trust_history[node_id].append({
+            "timestamp": wall_time if wall_time is not None else time.time(),
+            "trust_score": self.get_trust_score(node_id),
+            "metrics": dict(zip(METRIC_NAMES, row)),
+        })
+
+    def to_device_state(self, device: torch.device | str,
+                        now: float = 0.0) -> TrustState:
+        """The world-view on ``device``, re-clocked for the step (whose
+        decay clock is the step count)."""
+        state = self._state._replace(last_updated=torch.full(
+            (self.num_nodes,), now, dtype=torch.float32))
+        return TrustState(*[t.to(device) for t in state])
+
+    def sync_from_device(self, state: TrustState,
+                         wall_time: Optional[float] = None,
+                         node_ids: Optional[List[int]] = None) -> None:
+        """Absorb a TrustState computed inside the training step (epoch
+        cadence).  ``node_ids`` maps step coordinates to host node ids."""
+        wall_time = wall_time if wall_time is not None else time.time()
+        n_dev = int(state.scores.shape[0])
+        if node_ids is None:
+            node_ids = list(range(min(self.num_nodes, n_dev)))
+        pairs = [(c, i) for c, i in zip(range(n_dev), node_ids)
+                 if 0 <= i < self.num_nodes]
+        if not pairs:
+            return
+        cs = torch.tensor([c for c, _ in pairs])
+        ids = torch.tensor([i for _, i in pairs])
+        host = TrustState(*[t.detach().cpu() for t in state])
+        s = self._state
+        scores, status = s.scores.clone(), s.status.clone()
+        count, metrics = s.update_count.clone(), s.metrics.clone()
+        last = s.last_updated.clone()
+        scores[ids] = host.scores[cs]
+        status[ids] = host.status[cs]
+        count[ids] = host.update_count[cs]
+        metrics[ids] = host.metrics[cs]
+        last[ids] = wall_time - self._epoch0
+        self._state = s._replace(
+            scores=scores, status=status, update_count=count,
+            metrics=metrics, last_updated=last,
+            threshold=host.threshold.clone())
+        for i in ids.tolist():
+            self._record_history(int(i), wall_time)
+
+
+__all__ = ["TrustManager"]
