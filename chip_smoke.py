@@ -12,15 +12,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build: compile the CUDA kernels from ``trustworthy_dl_tpu_torch/ops/
    csrc`` with nvcc for sm_90a (one nvcc per source, started together).
 3. kernels: call each kernel's wrapper at its path's shapes (serving's
-   for B5-B7, training's for B1-B3), hold it against its plain PyTorch
-   version on the same inputs, and time the kernel, the plain version and
-   a library yardstick (median of per-launch CUDA-event timings, L2
-   flushed before each launch).
+   for B4-B8 and the int8 branches of B5/B6, training's for B1-B3), hold
+   it against its plain PyTorch version on the same inputs, and time the
+   kernel, the plain version and a library yardstick (median of
+   per-launch CUDA-event timings, L2 flushed before each launch).
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
    just before and read just after; hold the greedy streams against the
    same engine on the plain path.
+4b. serve_spec: the same traffic with ``spec_k=4`` over the int8 KV pool
+   (parity probe on; the engine must keep the int8 pool), launch counts
+   of B4, B5-int8, B6-int8, B7 and B8 exactly as the engine's counters
+   say, greedy streams against the same engine at ``spec_k=0`` and
+   against the spec engine's plain path.  Then the same engine with a
+   draft that cannot propose a seeded half of the vocabulary, so that
+   proposals are rejected: launch counts, no leaked block, greedy streams
+   against ``spec_k=0``.
+4c. serve_int8_weights: ``weight_dtype="int8"``, ``spec_k=0``, the same
+   traffic; B4's launch count exact; greedy streams against the plain
+   path.
 5. train: ``DistributedTrainer.train_epoch`` on GPT-2 small at full width
    (T = 1024, 4 nodes x 8 sequences, AdamW lr 1e-4, block remat, flash
    attention through ``attn_impl="auto"``, synthetic tokens from seed 0),
@@ -85,6 +96,19 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/paged_attention.cu"
 STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
+DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
+# B4: each output within 1e-5 of sum |x| |w| scale over its terms (f32
+# summation order only: bf16 x int8 products are exact in f32).  B8: the
+# logits within one bf16 step of the plain twin's plus that same f32 sum
+# bound (the twin's f32 product in another order, each rounded to bf16),
+# the margin exactly top-2 of the kernel's own logits, the entropy within
+# ENTROPY_ATOL.
+DQ_RTOL = 1e-5
+SPEC_K = 4
+# GPT-2 small's four block matrices (K, N): qkv, attention proj, fc, mlp
+# proj.
+DQ_SHAPES = {"qkv": (768, 2304), "attn_proj": (768, 768),
+             "fc": (768, 3072), "mlp_proj": (3072, 768)}
 # Train phase geometry (GPT-2 small at full width).
 TRAIN_NODES, TRAIN_BATCH, TRAIN_T = 4, 32, 1024
 OFF_WARMUP, OFF_TIMED = 2, 6
@@ -129,14 +153,17 @@ def time_ms(torch, fn, flush, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def attention_bound(starts, t, h, dh, itemsize):
+def attention_bound(starts, t, h, dh, kv_itemsize, cap, scale_itemsize=0):
     """Least time for the attention work these rows need: each row reads
-    K and V of positions [0, start + t) once, reads q and writes out once;
-    2 flops per multiply-add in q.k and p.v over each query's window."""
+    K and V (and an int8 pool's per-position scales) of positions [0,
+    min(start + t, cap)) once, ``cap`` being the positions its table
+    holds, reads bf16 q and writes bf16 out once; 2 flops per multiply-add
+    in q.k and p.v over each query's window, clipped to the table."""
     rows = len(starts)
-    kv_bytes = sum((s + t) for s in starts) * h * dh * 2 * itemsize
-    io_bytes = 2 * rows * h * t * dh * itemsize + rows * 4
-    flops = sum(sum(s + i + 1 for i in range(t)) for s in starts) \
+    positions = sum(min(s + t, cap) for s in starts)
+    kv_bytes = positions * h * 2 * (dh * kv_itemsize + scale_itemsize)
+    io_bytes = 2 * rows * h * t * dh * 2 + rows * 4
+    flops = sum(sum(min(s + i + 1, cap) for i in range(t)) for s in starts) \
         * h * dh * 4
     return kv_bytes + io_bytes, flops
 
@@ -185,7 +212,8 @@ def check_kernels(torch, pa):
         kpos = torch.arange(view_k.shape[2], device=dev)
         qpos = start.long()[:, None] + torch.arange(t, device=dev)[None]
         mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
-        n_bytes, flops = attention_bound(start_list, t, h, dh, 2)
+        n_bytes, flops = attention_bound(start_list, t, h, dh, 2,
+                                         nbps * bsz)
         bound_ms, bound_by = bound_entry(n_bytes, flops, "bfloat16")
         entries[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
@@ -258,13 +286,217 @@ def check_kernels(torch, pa):
             torch.logsumexp(logits, -1), torch.topk(logits, 2, -1)), flush),
         "shape": {"logits": [b, v]},
     }
+    check_int8_attention(torch, pa, entries, flush, rng)
+    check_dequant_matmul(torch, entries, flush)
+    check_verify_tail(torch, pa, entries, flush)
     return entries
+
+
+def check_int8_attention(torch, pa, entries, flush, rng):
+    """B5 and B6 over an int8 pool at the serve shapes (the serve drive's
+    pool geometry, int8 values with f32 per-(head, position) scales), against
+    the twin with scales; yardstick SDPA over the dequantized gathered
+    view (dequantization and gather not timed).  B6's entry is the
+    serve_spec path's launch: under int8 KV the chunk is max_seq, so a
+    prefix hit resumes at position 128 with one 512-row chunk whose last
+    128 rows lie past the 512-position table (checked on the rows inside
+    it, as the engine reads only those)."""
+    import torch.nn.functional as F
+
+    from trustworthy_dl_tpu_torch.quant import int8 as q8
+
+    dev = torch.device("cuda")
+    r, h, dh, bsz, nbps = 8, 12, 64, 16, 32
+    nb = r * nbps + 1
+    kq, ks = q8.quantize_kv(torch.randn(nb, h, bsz, dh, device=dev))
+    vq, vs = q8.quantize_kv(torch.randn(nb, h, bsz, dh, device=dev))
+    table = torch.tensor((rng.permutation(r * nbps) + 1).reshape(r, nbps),
+                         dtype=torch.int32, device=dev)
+    kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
+    vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
+
+    def case(name, wrapper, q, tab, start_list, timed=True):
+        start = torch.tensor(start_list, dtype=torch.int32, device=dev)
+        got = wrapper(q, kq, vq, tab, start, ks, vs)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(q, kq, vq, tab, start, ks, vs)
+        rows, _, t, _ = q.shape
+        keep = (torch.arange(t, device=dev)[None, :] + start.long()[:, None]
+                < nbps * bsz)[:, None, :, None].expand_as(got)
+        err = (got.float() - ref.float()).abs()
+        within = err <= ATTN_ATOL + ATTN_RTOL * ref.float().abs()
+        if not bool(within[keep].all()) or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: kernel disagrees with plain "
+                                 f"(max abs err {float(err[keep].max())})")
+        numbers = {"max_abs_err": float(err[keep].max())}
+        if not timed:
+            return numbers
+        view_k = kd[tab.long()].permute(0, 2, 1, 3, 4).reshape(rows, h, -1,
+                                                               dh)
+        view_v = vd[tab.long()].permute(0, 2, 1, 3, 4).reshape(rows, h, -1,
+                                                               dh)
+        kpos = torch.arange(view_k.shape[2], device=dev)
+        qpos = start.long()[:, None] + torch.arange(t, device=dev)[None]
+        mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+        n_bytes, flops = attention_bound(start_list, t, h, dh, 1,
+                                         nbps * bsz, scale_itemsize=4)
+        bound_ms, bound_by = bound_entry(n_bytes, flops, "bfloat16")
+        return {
+            **numbers,
+            "ms": time_ms(torch, lambda: wrapper(q, kq, vq, tab, start, ks,
+                                                 vs), flush),
+            "plain_ms": time_ms(torch, lambda: pa.paged_attention_plain(
+                q, kq, vq, tab, start, ks, vs), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, view_k, view_v, attn_mask=mask), flush),
+            "shape": {"q": list(q.shape), "pool": list(kq.shape),
+                      "pool_dtype": "int8", "starts": start_list},
+        }
+
+    def entry(name, replaces, numbers):
+        entries[name] = {"name": name, "route": "cuda", "source": SOURCE,
+                         "replaces": replaces, "launches": 0, **numbers}
+
+    starts = [int(s0) for s0 in rng.integers(0, nbps * bsz - 8, size=r)]
+    bf = torch.bfloat16
+    entry("paged_decode_attention_int8",
+          "trustworthy_dl_tpu/ops/paged_attention.py:429 (quantized=True, "
+          "kernel branch :328-352)",
+          case("int8 decode", pa.paged_attention_int8,
+               torch.randn(r, h, 1, dh, device=dev).to(bf), table, starts))
+    # The verify window (T = k + 1) through the same kernel, checked.
+    entries["paged_decode_attention_int8"]["verify_window_max_abs_err"] = \
+        case("int8 verify window", pa.paged_attention_int8,
+             torch.randn(r, h, SPEC_K + 1, dh, device=dev).to(bf), table,
+             starts, timed=False)["max_abs_err"]
+    entry("paged_prefill_attention_int8",
+          "trustworthy_dl_tpu/ops/paged_attention.py:649 (quantized=True, "
+          "kernel branch :556-576)",
+          case("int8 prefill", pa.paged_prefill_attention_int8,
+               torch.randn(1, h, nbps * bsz, dh, device=dev).to(bf),
+               table[:1], [128]))
+    # Extra cases: a 64-row chunk at position 128 (timed) and a ragged
+    # multi-row prefill, 8 rows of T = 20 with mid-block starts (checked).
+    entries["paged_prefill_attention_int8"]["chunk64"] = case(
+        "int8 prefill 64", pa.paged_prefill_attention_int8,
+        torch.randn(1, h, 64, dh, device=dev).to(bf), table[:1], [128])
+    entries["paged_prefill_attention_int8"]["ragged_max_abs_err"] = case(
+        "int8 ragged prefill", pa.paged_prefill_attention_int8,
+        torch.randn(r, h, 20, dh, device=dev).to(bf), table,
+        [0, 5, 13, 30, 77, 200, 301, 490], timed=False)["max_abs_err"]
+
+
+def check_dequant_matmul(torch, entries, flush):
+    """B4 at M = 8 (a draft step's rows) and M = 64 (a prefill chunk) for
+    each of GPT-2 small's four block matrices; the entry's numbers are the
+    fc matrix at M = 8 (the largest decode launch), every case in
+    ``cases``.  Yardstick: ``x @ w_bf16 * scale`` with the weight cast to
+    bf16 beforehand (not timed)."""
+    from trustworthy_dl_tpu_torch.ops import fused_dequant_matmul as fdm
+    from trustworthy_dl_tpu_torch.quant import int8 as q8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for label, (k, n) in DQ_SHAPES.items():
+        wq, scale = q8.quantize_int8(
+            torch.randn(k, n, device=dev, generator=gen) * 0.02, axis=0)
+        wq, scale = wq.contiguous(), scale.contiguous()
+        w_bf = (wq.float()).to(torch.bfloat16)
+        for m in (8, 64):
+            x = torch.randn(m, k, device=dev, generator=gen).to(
+                torch.bfloat16)
+            got = fdm.dequant_matmul(x, wq, scale)
+            torch.cuda.synchronize()
+            ref = fdm.dequant_matmul_plain(x, wq, scale)
+            mag = (x.float().abs() @ wq.float().abs()) * scale
+            err = (got - ref).abs()
+            if not bool((err <= DQ_RTOL * mag + 1e-30).all()):
+                raise AssertionError(
+                    f"dequant_matmul {label} M={m}: worst error / bound "
+                    f"{float((err / (DQ_RTOL * mag + 1e-30)).max())}")
+            bound_ms, bound_by = bound_entry(
+                k * n + n * 4 + m * k * 2 + m * n * 4, 2 * m * k * n,
+                "bfloat16")
+            cases.append({
+                "matrix": label, "m": m, "k": k, "n": n,
+                "max_abs_err": float(err.max()),
+                "ms": time_ms(torch, lambda: fdm.dequant_matmul(x, wq, scale),
+                              flush),
+                "plain_ms": time_ms(torch, lambda: fdm.dequant_matmul_plain(
+                    x, wq, scale), flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": time_ms(torch, lambda: (x @ w_bf).float()
+                                      * scale, flush)})
+    main = next(c for c in cases if c["matrix"] == "fc" and c["m"] == 8)
+    entries["dequant_matmul"] = {
+        "name": "dequant_matmul", "route": "cuda", "source": DQ_SOURCE,
+        "replaces": "trustworthy_dl_tpu/ops/fused_dequant_matmul.py:51",
+        "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "shape": {"x": [8, 768], "w_q": [768, 3072], "dtype": "bfloat16"},
+        "cases": cases,
+    }
+
+
+def check_verify_tail(torch, pa, entries, flush):
+    """B8 at the spec verify shape: normed [R (k + 1) = 40, 768] bf16 x the
+    tied head [50257, 768] bf16, one row with a duplicated maximum.
+    Yardstick: ``torch.matmul`` + ``logsumexp`` + ``topk``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, d, v = 8 * (SPEC_K + 1), 768, 50257
+    head = (torch.randn(v, d, device=dev, generator=gen) * 0.02).to(
+        torch.bfloat16)
+    normed = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
+    head[v - 1] = head[7]
+    normed[0] = (head[7].float() * 60.0).to(torch.bfloat16)
+    logits, ent, mar = pa.fused_verify_tail(normed, head)
+    torch.cuda.synchronize()
+    ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+    bound = ref.abs() * 2.0 ** -7 \
+        + DQ_RTOL * (normed.float().abs() @ head.float().abs().T)
+    excess = float(((logits - ref).abs() - bound).max())
+    top2 = torch.topk(logits, 2, dim=-1).values
+    ent_err = float((ent - ent_ref).abs().max())
+    if excess > 0.0 or not torch.equal(mar, top2[:, 0] - top2[:, 1]) \
+            or ent_err > ENTROPY_ATOL or float(mar[0]) != 0.0:
+        raise AssertionError(
+            f"verify tail disagrees: logits excess over bound {excess}, "
+            f"margin == top-2 of own logits "
+            f"{torch.equal(mar, top2[:, 0] - top2[:, 1])}, entropy err "
+            f"{ent_err}, duplicated-max margin {float(mar[0])}")
+    head_t = head.T
+
+    def library():
+        lg = (normed @ head_t).float()
+        return torch.logsumexp(lg, -1), torch.topk(lg, 2, -1)
+
+    bound_ms, bound_by = bound_entry(v * d * 2 + b * d * 2 + b * v * 4
+                                     + 2 * b * 4, 2 * b * d * v, "bfloat16")
+    entries["fused_verify_tail"] = {
+        "name": "fused_verify_tail", "route": "cuda", "source": SOURCE,
+        "replaces": "trustworthy_dl_tpu/ops/paged_attention.py:898",
+        "launches": 0, "max_abs_err": float((logits - ref).abs().max()),
+        "entropy_max_abs_err": ent_err,
+        "ms": time_ms(torch, lambda: pa.fused_verify_tail(normed, head),
+                      flush),
+        "plain_ms": time_ms(torch, lambda: pa.fused_verify_tail_plain(
+            normed, head), flush),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(torch, library, flush),
+        "shape": {"normed": [b, d], "head": [v, d], "dtype": "bfloat16"},
+    }
 
 
 def serve_drive(torch, pa, entries, card):
     """Phase 4: GPT-2 small through the port's engine, kernel path, with
     the launch counters set to 0 just before and read just after; then the
     same traffic on the plain path for the greedy-stream comparison."""
+    from trustworthy_dl_tpu_torch import ops
     from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.utils.serve_profile import (serve_smoke,
                                                               smoke_traffic)
@@ -275,20 +507,16 @@ def serve_drive(torch, pa, entries, card):
     requests = smoke_traffic(cfg.vocab_size)
     serve_smoke(cfg, params, "kernel", requests[:1])        # warm-up
 
-    pa.reset_launch_counts()
+    ops.reset_launch_counts()
     engine, results, wall = serve_smoke(cfg, params, "kernel", requests)
-    launches = {fn.__name__: fn.launches for fn in pa.KERNEL_WRAPPERS}
+    counts = ops.launch_counts()
+    launches = {name: counts.pop(name) for name in
+                ("paged_attention", "paged_prefill_attention",
+                 "logit_trust_stats")}
+    if any(counts.values()):
+        raise AssertionError(f"kernels off this path launched: {counts}")
     summary = engine.metrics_summary()
-    for res in results.values():
-        if res.status != "completed" or len(res.tokens) != 32:
-            raise AssertionError(f"request {res.request_id} ended "
-                                 f"{res.status} with {len(res.tokens)} "
-                                 "tokens")
-        if not all(map(math.isfinite, res.entropies + res.margins)):
-            raise AssertionError(f"request {res.request_id}: non-finite "
-                                 "trust signals")
-    if len(results) != len(requests):
-        raise AssertionError(f"{len(results)} of {len(requests)} done")
+    check_completed(results, requests)
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     if launches["paged_attention"] != cfg.n_layer * summary["decode_ticks"]:
@@ -299,29 +527,8 @@ def serve_drive(torch, pa, entries, card):
 
     _, plain_results, plain_wall = serve_smoke(cfg, params, "plain",
                                                requests)
-    compared = near_ties = 0
-    ent_err = mar_err = 0.0
-    for rid, (prompt, temp) in enumerate(requests):
-        if temp > 0.0:
-            continue
-        mine, ref = results[rid], plain_results[rid]
-        for i, (a, b) in enumerate(zip(mine.tokens, ref.tokens)):
-            if a != b:
-                if ref.margins[i] >= NEAR_TIE_MARGIN:
-                    raise AssertionError(
-                        f"request {rid} token {i}: kernel path {a} != plain "
-                        f"path {b} at plain margin {ref.margins[i]}")
-                near_ties += 1
-                break
-            compared += 1
-            ent_err = max(ent_err, abs(mine.entropies[i] - ref.entropies[i]))
-            mar_err = max(mar_err, abs(mine.margins[i] - ref.margins[i]))
-    if compared == 0 or ent_err > SERVE_ENTROPY_ATOL \
-            or mar_err > SERVE_MARGIN_ATOL:
-        raise AssertionError(
-            f"greedy streams vs plain path over {compared} agreeing tokens: "
-            f"entropy err {ent_err} (limit {SERVE_ENTROPY_ATOL}), margin err "
-            f"{mar_err} (limit {SERVE_MARGIN_ATOL})")
+    vs_plain = compare_greedy(requests, results, plain_results,
+                              "kernel vs plain path")
     for name, n in launches.items():
         key = {"paged_attention": "paged_decode_attention"}.get(name, name)
         entries[key]["launches"] = n
@@ -340,11 +547,225 @@ def serve_drive(torch, pa, entries, card):
           "mean_occupancy": summary["mean_occupancy"],
           "launches": launches,
           "greedy_tokens": 32 * sum(temp == 0.0 for _, temp in requests),
-          "greedy_tokens_compared": compared,
-          "greedy_streams_split_at_near_tie": near_ties,
-          "greedy_entropy_max_abs_err": ent_err,
-          "greedy_margin_max_abs_err": mar_err,
+          **vs_plain, "near_tie_margin": NEAR_TIE_MARGIN})
+
+
+def compare_greedy(requests, results, ref_results, what,
+                   either_margin=False):
+    """The near-tie rule: walk each greedy stream while its tokens agree
+    with the reference's; at the first split the reference's top-1 margin
+    (with ``either_margin``, the lesser of the two streams' margins there)
+    must be below NEAR_TIE_MARGIN; at every agreeing position the entropies
+    and margins must agree within the serve bounds.  Returns (tokens
+    compared, splits at near ties, entropy err, margin err)."""
+    compared = near_ties = 0
+    ent_err = mar_err = 0.0
+    for rid, (_, temp) in enumerate(requests):
+        if temp > 0.0:
+            continue
+        mine, ref = results[rid], ref_results[rid]
+        for i, (a, b) in enumerate(zip(mine.tokens, ref.tokens)):
+            if a != b:
+                split_margin = (min(ref.margins[i], mine.margins[i])
+                                if either_margin else ref.margins[i])
+                if split_margin >= NEAR_TIE_MARGIN:
+                    raise AssertionError(
+                        f"{what}: request {rid} token {i}: {a} != {b} at "
+                        f"reference margin {ref.margins[i]}")
+                near_ties += 1
+                break
+            compared += 1
+            ent_err = max(ent_err, abs(mine.entropies[i] - ref.entropies[i]))
+            mar_err = max(mar_err, abs(mine.margins[i] - ref.margins[i]))
+    if compared == 0 or ent_err > SERVE_ENTROPY_ATOL \
+            or mar_err > SERVE_MARGIN_ATOL:
+        raise AssertionError(
+            f"{what}: greedy streams over {compared} agreeing tokens: "
+            f"entropy err {ent_err} (limit {SERVE_ENTROPY_ATOL}), margin "
+            f"err {mar_err} (limit {SERVE_MARGIN_ATOL})")
+    return {"greedy_tokens_compared": compared,
+            "greedy_streams_split_at_near_tie": near_ties,
+            "greedy_entropy_max_abs_err": ent_err,
+            "greedy_margin_max_abs_err": mar_err}
+
+
+def check_completed(results, requests, max_new=32):
+    if len(results) != len(requests):
+        raise AssertionError(f"{len(results)} of {len(requests)} done")
+    for res in results.values():
+        if res.status != "completed" or len(res.tokens) != max_new:
+            raise AssertionError(f"request {res.request_id} ended "
+                                 f"{res.status} with {len(res.tokens)} "
+                                 "tokens")
+        if not all(map(math.isfinite, res.entropies + res.margins)):
+            raise AssertionError(f"request {res.request_id}: non-finite "
+                                 "trust signals")
+
+
+def expect_launches(launches, want, what):
+    """Every kernel of ``want`` launched exactly as counted, at least once,
+    and no other kernel launched."""
+    got = {name: n for name, n in launches.items() if n or name in want}
+    if got != want or min(want.values()) == 0:
+        raise AssertionError(f"{what}: launches {got}, design says {want}")
+
+
+def serve_tiers_drive(torch, entries, card):
+    """Phases 4b and 4c: speculative decoding over the int8 KV pool, then
+    the weight-only int8 tier, at the smoke geometry and traffic."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.models import generate as gen
+    from trustworthy_dl_tpu_torch.quant import int8 as q8
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (drive_smoke,
+                                                              serve_smoke,
+                                                              smoke_engine,
+                                                              smoke_traffic)
+
+    cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2.init_params(cfg, gen_, device="cuda")
+    requests = smoke_traffic(cfg.vocab_size)
+    n_layer = cfg.n_layer
+    # The int8 KV parity probe's own report (the engine runs the probe).
+    probe = q8.kv_parity_report(gen._decode_view(params, cfg), cfg)
+    spec = dict(spec_k=SPEC_K, kv_dtype="int8", prefill_chunk=None)
+    serve_smoke(cfg, params, "kernel", requests[:1], **spec)   # warm-up
+    ops.reset_launch_counts()
+    engine, results, wall = serve_smoke(cfg, params, "kernel", requests,
+                                        **spec)
+    launches = ops.launch_counts()
+    s = engine.metrics_summary()
+    if engine.kv_fallback_reason is not None or not engine.scheduler.kv.quantized:
+        raise AssertionError(f"int8 pool not kept ({engine.kv_fallback_reason}"
+                             f"); probe report {probe}")
+    check_completed(results, requests)
+    sched = engine.scheduler
+    if sched._spec_claims or sched.blocks_in_use != len(sched.prefix):
+        raise AssertionError("speculative claims or blocks leaked")
+
+    def spec_launches(s):
+        ticks, fallback = s["spec_ticks"], s["spec_fallback_ticks"]
+        return {"fused_verify_tail": ticks,
+                "dequant_matmul": 4 * n_layer * SPEC_K * ticks,
+                "paged_attention_int8": n_layer * ((SPEC_K + 1) * ticks
+                                                   + fallback),
+                "paged_prefill_attention_int8": n_layer * s["prefill_chunks"],
+                "logit_trust_stats": len(requests) + fallback}
+
+    want = spec_launches(s)
+    expect_launches(launches, want, "serve_spec")
+    off_engine, off_results, off_wall = serve_smoke(
+        cfg, params, "kernel", requests, spec_k=0, kv_dtype="int8",
+        prefill_chunk=None)
+    off_summary = off_engine.metrics_summary()
+    vs_off = compare_greedy(requests, results, off_results, "spec vs spec off")
+    _, plain_results, plain_wall = serve_smoke(cfg, params, "plain",
+                                               requests, **spec)
+    vs_plain = compare_greedy(requests, results, plain_results,
+                              "spec kernel vs plain path")
+    for name in want:
+        if name != "logit_trust_stats":
+            entries_key = {"paged_attention_int8":
+                           "paged_decode_attention_int8"}.get(name, name)
+            entries[entries_key]["launches"] = launches[name]
+    emit({"phase": "serve_spec", "card": card,
+          "model": "gpt2 (12L, 768, 12H, V50257, bf16, random init seed 0)",
+          "spec_k": SPEC_K, "kv_dtype": "int8", "requests": len(requests),
+          "kv_fallback_reason": engine.kv_fallback_reason,
+          "kv_parity_report": probe, "wall_s": wall,
+          "spec_off_wall_s": off_wall, "plain_path_wall_s": plain_wall,
+          "spec_off": {key: off_summary.get(key) for key in (
+              "tokens_per_s", "ttft_p50_ms", "itl_p50_ms", "itl_p99_ms",
+              "decode_ticks")},
+          **{key: s.get(key) for key in (
+              "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+              "itl_p99_ms", "accepted_rate", "spec_proposed",
+              "spec_accepted", "spec_near_tie_flips", "spec_ticks",
+              "spec_fallback_ticks", "spec_draft_s", "spec_verify_s",
+              "spec_verify_fraction", "local_prefills", "prefill_chunks",
+              "prefix_hits", "mean_occupancy")},
+          "launches": {k: launches[k] for k in want},
+          "expected_launches": want,
+          "vs_spec_off": vs_off, "vs_plain_path": vs_plain,
           "near_tie_margin": NEAR_TIE_MARGIN})
+
+    # Rejections on the card.  The int8 self-draft of random weights agrees
+    # with its target almost always, so the drive above never rejects.
+    # Here the same spec engine drafts through a head with a seeded half
+    # of its vocabulary rows zeroed: the draft cannot propose those tokens,
+    # so about half the proposals at each window position are rejected.
+    # Rejected draft K/V stays in the pool under later writes, speculative
+    # claims are released after a reject and lengths advance by 1 to k + 1.
+    # The emitted streams are still the target's: held against spec off
+    # (a split only where either stream's margin is a near tie, since a
+    # near-tie flip emits the draft's token), no block leaked.
+    engine = smoke_engine(cfg, params, "kernel", **spec)
+    draft = dict(engine.scheduler.draft_view)
+    head = draft["wte_head"]
+    keep = torch.rand(head.shape[0], device=head.device,
+                      generator=torch.Generator(device=head.device)
+                      .manual_seed(1)) < 0.5
+    draft["wte_head"] = head * keep[:, None].to(head.dtype)
+    engine.scheduler.draft_view = draft
+    ops.reset_launch_counts()
+    results, reject_wall = drive_smoke(engine, requests)
+    launches = ops.launch_counts()
+    s = engine.metrics_summary()
+    check_completed(results, requests)
+    sched = engine.scheduler
+    if engine.kv_fallback_reason is not None or not sched.kv.quantized:
+        raise AssertionError("rejecting drive: int8 pool not kept")
+    if sched._spec_claims or sched.blocks_in_use != len(sched.prefix):
+        raise AssertionError("rejecting drive leaked claims or blocks")
+    if not s["spec_accepted"] < s["spec_proposed"]:
+        raise AssertionError(f"no proposal rejected: {s['spec_accepted']} "
+                             f"of {s['spec_proposed']} accepted")
+    want = spec_launches(s)
+    expect_launches(launches, want, "serve_spec with rejections")
+    vs_off = compare_greedy(requests, results, off_results,
+                            "rejecting spec vs spec off", either_margin=True)
+    emit({"phase": "serve_spec_rejecting", "card": card,
+          "draft": "the int8 self-draft, half its head rows zeroed (seed 1)",
+          "wall_s": reject_wall,
+          **{key: s.get(key) for key in (
+              "tokens_per_s", "accepted_rate", "spec_proposed",
+              "spec_accepted", "spec_near_tie_flips", "spec_ticks",
+              "spec_fallback_ticks", "spec_draft_s", "spec_verify_s")},
+          "launches": {k: launches[k] for k in want},
+          "expected_launches": want, "vs_spec_off": vs_off})
+
+    weights = dict(weight_dtype="int8")
+    serve_smoke(cfg, params, "kernel", requests[:1], **weights)  # warm-up
+    ops.reset_launch_counts()
+    engine, results, wall = serve_smoke(cfg, params, "kernel", requests,
+                                        **weights)
+    launches = ops.launch_counts()
+    s = engine.metrics_summary()
+    check_completed(results, requests)
+    forwards = s["decode_ticks"] + s["local_prefills"] + s["prefill_chunks"]
+    want = {"dequant_matmul": 4 * n_layer * forwards,
+            "paged_attention": n_layer * s["decode_ticks"],
+            "paged_prefill_attention": n_layer * s["prefill_chunks"],
+            "logit_trust_stats": len(requests) + s["decode_ticks"]}
+    expect_launches(launches, want, "serve_int8_weights")
+    _, plain_results, plain_wall = serve_smoke(cfg, params, "plain",
+                                               requests, **weights)
+    vs_plain = compare_greedy(requests, results, plain_results,
+                              "int8 weights kernel vs plain path")
+    entries["dequant_matmul"]["launches_int8_weights_drive"] = \
+        launches["dequant_matmul"]
+    emit({"phase": "serve_int8_weights", "card": card,
+          "weight_dtype": "int8", "requests": len(requests),
+          "wall_s": wall, "plain_path_wall_s": plain_wall,
+          "weight_roundtrip_errors": q8.weight_roundtrip_errors(
+              params, cfg, qview=engine.scheduler.view),
+          **{key: s.get(key) for key in (
+              "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+              "itl_p99_ms", "decode_ticks", "local_prefills",
+              "prefill_chunks", "prefix_hits")},
+          "launches": {k: launches[k] for k in want},
+          "expected_launches": want, "vs_plain_path": vs_plain})
 
 
 def gpt2_small(torch, **overrides):
@@ -696,6 +1117,7 @@ def main() -> int:
     check_train_kernels(torch, entries)
     emit({"phase": "kernel_checks", "ok": True})
     serve_drive(torch, pa, entries, smi)
+    serve_tiers_drive(torch, entries, smi)
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)
     del on

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (B5 decode, B6 prefill, B7 trust epilogue; B1
-moment battery; B2/B3 flash attention forward and backward) against their
-plain PyTorch twins, on the card, and the detector baseline's tensors
-following the card.
+"""The port's CUDA kernels (B5 decode, B6 prefill, each over a bf16/f32 or
+an int8 pool, B7 trust epilogue, B8 fused verify tail; B4 int8 dequant
+matmul; B1 moment battery; B2/B3 flash attention forward and backward)
+against their plain PyTorch twins, on the card, and the detector
+baseline's tensors following the card.
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -12,7 +13,12 @@ another order than the plain einsum); bf16 outputs within one bf16 step
 of each other (rtol 2^-7) plus atol 2e-3, a few steps at the outputs'
 size (weighted means of unit-normal V rows, mostly well under 1); the
 margin exactly equal, the entropy within 1e-4 (one f32 pass over up to
-50257 terms).
+50257 terms).  B4: within 1e-5 of sum |x| |w| scale over each output
+(f32 summation order only: bf16 x int8 products are exact in f32).  B8:
+logits within one bf16 step of the twin's plus that same f32 sum bound
+(the same f32 sum in another order, each rounded to bf16: near zero the
+order's f32 error is larger than a step of the value), the margin exactly
+top-2 of the kernel's own logits.
 """
 
 import numpy as np
@@ -20,8 +26,10 @@ import pytest
 import torch
 
 from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+from trustworthy_dl_tpu_torch.ops import fused_dequant_matmul as fdm
 from trustworthy_dl_tpu_torch.ops import fused_stats as fs
 from trustworthy_dl_tpu_torch.ops import paged_attention as pa
+from trustworthy_dl_tpu_torch.quant import int8 as q8
 
 pytestmark = pytest.mark.torchport
 
@@ -217,3 +225,116 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
     odd = torch.zeros(2, 96, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(odd, odd, odd)
+
+
+def _int8_pools(rng, nb, h, bsz, dh, device):
+    k = torch.tensor(rng.normal(size=(nb, h, bsz, dh)), dtype=torch.float32)
+    v = torch.tensor(rng.normal(size=(nb, h, bsz, dh)), dtype=torch.float32)
+    kq, ks = q8.quantize_kv(k)
+    vq, vs = q8.quantize_kv(v)
+    return [a.to(device) for a in (kq, vq, ks, vs)]
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 2e-3, 2.0**-7)])
+def test_int8_decode_and_prefill_kernels_match_plain(cuda, dtype, atol, rtol):
+    """B5 and B6 over an int8 pool (ragged decode rows T = 1, 5, 8; a
+    ragged multi-row prefill T = 20; a chunk as long as the table, most of
+    its rows' windows running past the table's end, as under int8 KV's
+    max_seq chunk) against the twin with scales, on the rows inside each
+    table."""
+    rng = np.random.default_rng(6)
+    nb, h, bsz, dh, r, nbps = 40, 3, 16, 64, 4, 8
+    kq, vq, ks, vs = _int8_pools(rng, nb, h, bsz, dh, cuda)
+    table = torch.tensor(rng.integers(0, nb, size=(r, nbps)),
+                         dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 5, 13, nbps * bsz - 24], dtype=torch.int32,
+                         device=cuda)
+
+    def mk(t):
+        return torch.tensor(rng.normal(size=(r, h, t, dh)),
+                            dtype=torch.float32).to(device=cuda, dtype=dtype)
+
+    for t, wrapper in ((1, pa.paged_attention_int8),
+                       (5, pa.paged_attention_int8),
+                       (8, pa.paged_attention_int8),
+                       (20, pa.paged_prefill_attention_int8),
+                       (nbps * bsz, pa.paged_prefill_attention_int8)):
+        q = mk(t)
+        before = wrapper.launches
+        got = wrapper(q, kq, vq, table, start, ks, vs)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref = pa.paged_attention_plain(q, kq, vq, table, start, ks, vs)
+        keep = (torch.arange(t, device=cuda)[None, :] + start.long()[:, None]
+                < nbps * bsz)[:, None, :, None].expand_as(got)
+        torch.testing.assert_close(got.float()[keep], ref.float()[keep],
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("m", [1, 8, 15, 64, 100])
+@pytest.mark.parametrize("k,n", [(768, 2304), (3072, 768), (128, 64)])
+def test_dequant_matmul_kernel_matches_plain(cuda, m, k, n):
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(m, k)), dtype=torch.float32).to(
+        device=cuda, dtype=torch.bfloat16)
+    w = torch.tensor(rng.normal(size=(k, n)) * 0.02, dtype=torch.float32)
+    wq, scale = (a.to(cuda) for a in q8.quantize_int8(w, axis=0))
+    before = fdm.dequant_matmul.launches
+    got = fdm.dequant_matmul(x, wq.contiguous(), scale.contiguous())
+    torch.cuda.synchronize()
+    assert fdm.dequant_matmul.launches == before + 1
+    ref = fdm.dequant_matmul_plain(x, wq, scale)
+    mag = (x.float().abs() @ wq.float().abs()) * scale
+    assert bool(((got - ref).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+@pytest.mark.parametrize("b,d,v", [(40, 768, 50257), (5, 64, 700),
+                                   (72, 768, 1000)])
+def test_verify_tail_kernel_matches_plain(cuda, b, d, v):
+    rng = np.random.default_rng(8)
+    normed = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32).to(
+        device=cuda, dtype=torch.bfloat16)
+    head = torch.tensor(rng.normal(size=(v, d)) * 0.05,
+                        dtype=torch.float32).to(device=cuda,
+                                                dtype=torch.bfloat16)
+    head[v - 1] = head[3]                    # row 0's maximum duplicated
+    normed[0] = head[3] * 40.0
+    before = pa.fused_verify_tail.launches
+    logits, ent, mar = pa.fused_verify_tail(normed, head)
+    torch.cuda.synchronize()
+    assert pa.fused_verify_tail.launches == before + 1
+    ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+    bound = ref.abs() * 2.0 ** -7 \
+        + 1e-5 * (normed.float().abs() @ head.float().abs().T)
+    excess = float(((logits - ref).abs() - bound).max())
+    assert excess <= 0.0, excess
+    top2 = torch.topk(logits, 2, dim=-1).values
+    assert torch.equal(mar, top2[:, 0] - top2[:, 1])
+    assert float(mar[0]) == 0.0
+    torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+def test_new_wrappers_reject_what_kernels_do_not_take(cuda):
+    x32 = torch.zeros(8, 64, device=cuda)
+    wq = torch.zeros(64, 64, dtype=torch.int8, device=cuda)
+    scale = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError):
+        fdm.dequant_matmul(x32, wq, scale)             # f32 x on the card
+    with pytest.raises(ValueError):
+        fdm.dequant_matmul(x32.bfloat16()[:, :48].contiguous(), wq[:48],
+                           scale)                      # K not a multiple
+    with pytest.raises(ValueError):
+        pa.fused_verify_tail(torch.zeros(4, 64, device=cuda),
+                             torch.zeros(9, 64, device=cuda))    # f32
+    with pytest.raises(ValueError):
+        pa.fused_verify_tail(torch.zeros(97, 64, dtype=torch.bfloat16,
+                                         device=cuda),
+                             torch.zeros(9, 64, dtype=torch.bfloat16,
+                                         device=cuda))           # B > 96
+    q = torch.zeros(1, 2, 1, 16, dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros(3, 2, 8, 16, dtype=torch.bfloat16, device=cuda)
+    sc = torch.zeros(3, 2, 8, device=cuda)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                    # bf16 pool + scales
+        pa.paged_attention_int8(q, pool, pool, table, 0, sc, sc)

@@ -161,3 +161,127 @@ def test_apply_with_cache_paged_matches_jax(t, lengths):
                                    atol=1e-5)
         np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=1e-5,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The int8 branches of B5/B6 and the fused verify tail (B8): plain twins
+# against the JAX kernels in interpret mode, and the int8 paged path.
+# ---------------------------------------------------------------------------
+
+
+def _int8_pools(rng, nb, h, bsz, dh):
+    from trustworthy_dl_tpu.quant import int8 as jq8
+
+    k = rng.normal(size=(nb, h, bsz, dh)).astype(np.float32)
+    v = rng.normal(size=(nb, h, bsz, dh)).astype(np.float32)
+    kq, ks = jq8.quantize_kv(jnp.asarray(k))
+    vq, vs = jq8.quantize_kv(jnp.asarray(v))
+    return [np.asarray(a) for a in (kq, vq, ks, vs)]
+
+
+@pytest.mark.parametrize("t", [1, 5])
+def test_int8_decode_plain_matches_interpret_kernel_ragged(t):
+    rng = np.random.default_rng(5)
+    kq, vq, ks, vs = _int8_pools(rng, 9, 3, 8, 16)
+    table = rng.integers(0, 9, size=(4, 4)).astype(np.int32)
+    start = np.asarray([0, 5, 13, 26], np.int32)
+    q = rng.normal(size=(4, 3, t, 16)).astype(np.float32)
+    ref = jpa.paged_attention(jnp.asarray(q), jnp.asarray(kq),
+                              jnp.asarray(vq), jnp.asarray(table),
+                              jnp.asarray(start), k_scale=jnp.asarray(ks),
+                              v_scale=jnp.asarray(vs), interpret=True)
+    got = pa.paged_attention_int8(_t(q), _t(kq), _t(vq), _t(table),
+                                  _t(start), _t(ks), _t(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_int8_prefill_plain_matches_interpret_kernel_ragged():
+    """Two rows of a T = 20 chunk starting mid-block (ragged starts 3 and
+    12), three query tiles each."""
+    rng = np.random.default_rng(6)
+    kq, vq, ks, vs = _int8_pools(rng, 12, 2, 8, 16)
+    table = np.stack([rng.permutation(12)[:6],
+                      rng.permutation(12)[:6]]).astype(np.int32)
+    start = np.asarray([3, 12], np.int32)
+    q = rng.normal(size=(2, 2, 20, 16)).astype(np.float32)
+    ref = jpa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(table),
+        jnp.asarray(start), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+        interpret=True)
+    got = pa.paged_prefill_attention_int8(_t(q), _t(kq), _t(vq), _t(table),
+                                          _t(start), _t(ks), _t(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_verify_tail_plain_matches_interpret_kernel(dtype):
+    """B = 10 rows, odd V = 1001 (the TPU kernel pads its vocab tile), a
+    duplicated maximum in row 3.  f32: logits within 1e-5, margin exactly
+    top-2 of the logits, entropy within 1e-5.  bf16 (the rounding
+    contract: the product rounds to bf16): logits within one bf16 step of
+    the JAX ones (the f32 sums run in another order before the rounding),
+    margins and entropies within those steps."""
+    rng = np.random.default_rng(7)
+    normed = rng.normal(size=(10, 32)).astype(np.float32)
+    head = (rng.normal(size=(1001, 32)) * 0.3).astype(np.float32)
+    head[1000] = head[17]
+    normed[3] = head[17] * 30.0
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    jl, je, jm = jpa.fused_verify_tail(jnp.asarray(normed, jt),
+                                       jnp.asarray(head, jt), interpret=True)
+    tl, te, tm = pa.fused_verify_tail(_t(normed).to(tt), _t(head).to(tt))
+    jl = np.asarray(jl)
+    assert tl.dtype == torch.float32 and tl.shape == (10, 1001)
+    step = np.abs(jl) * (2.0 ** -7 if dtype == "bfloat16" else 0.0) + 1e-5
+    assert np.all(np.abs(tl.numpy() - jl) <= step)
+    top2 = torch.topk(tl, 2, dim=-1).values
+    assert torch.equal(tm, top2[:, 0] - top2[:, 1])
+    assert float(tm[3]) == 0.0 and float(np.asarray(jm)[3]) == 0.0
+    tol = 1e-5 if dtype == "float32" else 0.1
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=0, atol=tol)
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=0,
+                               atol=1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("t,lengths", [(1, [1, 11, 26]), (5, [0, 8, 19]),
+                                       (12, [0, 8, 16])])
+def test_apply_with_cache_paged_int8_matches_jax(t, lengths):
+    """The int8 pool through both port paths against the JAX gather path:
+    decode (T = 1), a verify-width window (T = 5, the decode kernel) and a
+    12-wide chunk (the prefill kernel).  Logits within 2e-4; the written
+    scales within 1e-5 and the int8 values within one step."""
+    from trustworthy_dl_tpu.quant import int8 as jq8
+
+    rng = np.random.default_rng(8)
+    jparams = jgpt2.init_params(jax.random.PRNGKey(1), JCFG)
+    tparams = convert.params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                             jparams))
+    shape = (2, 13, 4, 8, 8)
+    kq, ks = (np.asarray(a) for a in jq8.quantize_kv(jnp.asarray(
+        (rng.normal(size=shape) * 0.3).astype(np.float32))))
+    vq, vs = (np.asarray(a) for a in jq8.quantize_kv(jnp.asarray(
+        (rng.normal(size=shape) * 0.3).astype(np.float32))))
+    table = np.asarray([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12]],
+                       np.int32)
+    tokens = rng.integers(0, 199, size=(3, t)).astype(np.int32)
+    start = np.asarray(lengths, np.int32)
+    logits, jk, jv, jks, jvs = jgen._apply_with_cache_paged(
+        jgen._decode_view(jparams, JCFG), jnp.asarray(tokens),
+        jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(table), jnp.asarray(start), JCFG, attn_impl="jnp")
+    view = gen._decode_view(tparams, CFG)
+    for impl in gen.ATTN_IMPLS:
+        pk, pv, pks, pvs = (_t(a.copy()) for a in (kq, vq, ks, vs))
+        got = gen._apply_with_cache_paged(view, _t(tokens).long(), pk, pv,
+                                          _t(table), _t(start), CFG,
+                                          attn_impl=impl, pool_ks=pks,
+                                          pool_vs=pvs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(logits),
+                                   rtol=2e-4, atol=2e-4)
+        for a, b, sa, sb in ((pk, jk, pks, jks), (pv, jv, pvs, jvs)):
+            np.testing.assert_allclose(sa.numpy(), np.asarray(sb),
+                                       rtol=1e-5, atol=1e-7)
+            assert np.abs(a.numpy().astype(np.int32)
+                          - np.asarray(b).astype(np.int32)).max() <= 1

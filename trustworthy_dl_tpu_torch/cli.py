@@ -47,6 +47,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num-blocks", type=int, default=None)
     parser.add_argument("--no-prefix-cache", action="store_true")
     parser.add_argument("--prefill-chunk", type=int, default=None)
+    parser.add_argument("--kv-dtype", type=str, default="model",
+                        choices=["model", "bfloat16", "float32", "int8"],
+                        help="KV pool storage (int8: per-position scales, "
+                             "parity-probed at startup)")
+    parser.add_argument("--weight-dtype", type=str, default="model",
+                        choices=["model", "int8"],
+                        help="int8: weight-only int8 block matrices")
+    parser.add_argument("--spec-k", type=int, default=0,
+                        help="speculative decoding: draft tokens per tick "
+                             "with the int8 weight tier (0 = off)")
     parser.add_argument("--seed", type=int, default=0)
     return parser
 
@@ -67,7 +77,8 @@ def serve_main(argv: Optional[List[str]] = None,
         max_slots=args.max_slots, max_seq=args.max_seq,
         queue_limit=args.queue_limit, block_size=args.block_size,
         num_blocks=args.num_blocks, prefix_cache=not args.no_prefix_cache,
-        prefill_chunk=args.prefill_chunk)
+        prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
+        weight_dtype=args.weight_dtype, spec_k=args.spec_k)
     cfg = gpt2.GPT2Config.from_name(args.model, **(model_overrides or {}))
     if args.max_seq > cfg.n_positions:
         print(f"--max-seq {args.max_seq} exceeds the model's "
@@ -110,7 +121,9 @@ def serve_main(argv: Optional[List[str]] = None,
                 "requests_flagged", "tokens_emitted", "tokens_per_s",
                 "itl_p50_ms", "itl_p99_ms", "ttft_p50_ms", "ttft_p99_ms",
                 "mean_occupancy", "peak_tokens_in_flight", "blocks_in_use",
-                "prefix_hits", "prefix_hit_rate"):
+                "prefix_hits", "prefix_hit_rate", "kv_dtype", "weight_dtype",
+                "kv_fallback_reason", "spec_ticks", "spec_proposed",
+                "spec_accepted", "accepted_rate"):
         if key in summary:
             value = summary[key]
             shown = f"{value:.3f}" if isinstance(value, float) else value

@@ -3,8 +3,8 @@
 Counterpart of ``ServeConfig``, ``TrainingConfig`` and ``AttackConfig`` in
 ``trustworthy_dl_tpu/core/config.py``, with the fields the port reads.
 ``ServeConfig`` covers the paged pool's geometry, the prefix cache, chunked
-prefill and the attention path (the int8 KV/weight tiers, speculative
-decoding, adapters, the stripe pool and tensor parallelism are not ported
+prefill, the attention path, the int8 KV and weight tiers and speculative
+decoding (adapters, the stripe pool and tensor parallelism are not ported
 yet).  ``TrainingConfig`` covers the trusted data-parallel step: its
 defaults are the JAX package's (``weight_decay`` 0.0, ``detector_warmup``
 10, ``recovery_probation_steps`` 25, ...); the pipeline, tensor, sequence
@@ -18,14 +18,49 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 from trustworthy_dl_tpu_torch.models.generate import ATTN_IMPLS
+from trustworthy_dl_tpu_torch.quant.int8 import validate_dtypes
 from trustworthy_dl_tpu_torch.serve.kv_slots import validate_paged_geometry
+
+#: Largest accepted ``ServeConfig.spec_k``: the draft depth; acceptance
+#: past a handful of tokens decays geometrically.
+SPEC_K_MAX = 8
+
+
+def validate_spec(spec_k: int, paged: bool, weight_dtype: str) -> None:
+    """Construction-time validation of the speculative-decoding knob,
+    shared by ``ServeConfig`` and the engine (the JAX package's checks and
+    wording; the port's pool is always paged)."""
+    if not 0 <= int(spec_k) <= SPEC_K_MAX:
+        raise ValueError(
+            f"spec_k must be in [0, {SPEC_K_MAX}], got {spec_k}"
+        )
+    if spec_k > 0 and not paged:
+        raise ValueError(
+            "spec_k > 0 requires the paged KV pool (paged=True): "
+            "rejected draft tokens roll back by releasing COW block "
+            "claims, which the legacy stripe pool cannot express"
+        )
+    if spec_k > 0 and weight_dtype != "model":
+        raise ValueError(
+            f"spec_k > 0 requires weight_dtype='model' (got "
+            f"{weight_dtype!r}): the int8 weight tier is the DRAFT — "
+            "it is built automatically — and the verify pass must be "
+            "the model-dtype tier, or draft and verify would share one "
+            "set of weights"
+        )
 
 
 @dataclass
 class ServeConfig:
     """``attn_impl``: "kernel" (the hand-written CUDA kernels; their plain
     twins on CPU tensors) or "plain" (the gathered-view reference path).
-    Bad values fail here, at construction."""
+    ``kv_dtype`` ("model", "bfloat16", "float32", "int8") is the pool's
+    storage; an int8 pool is parity-probed at construction unless
+    ``kv_parity_check`` is False.  ``weight_dtype`` "int8" serves the four
+    block matrices as weight-only int8.  ``spec_k`` > 0 drafts that many
+    tokens a tick with the int8 weight tier and verifies them in one
+    model-dtype pass (needs ``weight_dtype="model"``).  Bad values fail
+    here, at construction."""
 
     max_slots: int = 8
     max_seq: int = 256
@@ -35,6 +70,10 @@ class ServeConfig:
     prefix_cache: bool = True
     prefill_chunk: Optional[int] = None
     attn_impl: str = "kernel"
+    kv_dtype: str = "model"
+    weight_dtype: str = "model"
+    kv_parity_check: bool = True
+    spec_k: int = 0
 
     def __post_init__(self) -> None:
         if self.max_slots < 1:
@@ -46,6 +85,8 @@ class ServeConfig:
                              f"{self.attn_impl!r}")
         validate_paged_geometry(self.max_seq, self.block_size,
                                 self.num_blocks, self.prefill_chunk)
+        validate_dtypes(self.kv_dtype, self.weight_dtype)
+        validate_spec(self.spec_k, True, self.weight_dtype)
 
 
 @dataclass

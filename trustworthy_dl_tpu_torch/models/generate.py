@@ -15,6 +15,13 @@ Unlike JAX, which threads caches and pools functionally, the port updates
 them IN PLACE (slice assignment / ``index_put_``): a cache or pool passed
 in is the one written.
 
+int8 KV tier: a cache or pool with scale planes stores int8 K/V with f32
+per-(head, position) scales (``quant/int8.py``); fresh rows are quantized
+at the write, the K scale multiplies the scores after the dot and the V
+scale the probabilities before the PV contraction.  Weight-only int8
+views (``quant.int8.quantize_decode_view``) run the four block matrices
+through ``quant.int8.qdense`` (B4 on the card).
+
 Paged path (``attn_impl``):
 
 * ``"kernel"``: write-then-attend.  The fresh K/V are scattered into the
@@ -34,10 +41,12 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from trustworthy_dl_tpu_torch.models import gpt2
 from trustworthy_dl_tpu_torch.models import layers as L
 from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
+from trustworthy_dl_tpu_torch.quant import int8 as q8
 
 Params = Dict[str, Any]
 Start = Union[int, torch.Tensor]
@@ -51,14 +60,28 @@ class KVCache(NamedTuple):
     v: torch.Tensor       # [L, B, H, S, Dh]
     # Valid positions: an int shared by every row, or i64 [B] per row.
     length: Start
+    # int8 tier: f32 per-(head, position) scales [L, B, H, S].
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init_cache(cfg: gpt2.GPT2Config, batch: int, max_len: int,
-               device: Any = "cpu") -> KVCache:
+               device: Any = "cpu",
+               kv_dtype: Optional[torch.dtype] = None) -> KVCache:
+    """Zeros in ``kv_dtype`` (default the compute dtype); ``torch.int8``
+    adds zero scale planes, so untouched rows dequantize to exact zeros."""
+    kv_dtype = cfg.dtype if kv_dtype is None else kv_dtype
     shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   v=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   length=0)
+    cache = KVCache(k=torch.zeros(shape, dtype=kv_dtype, device=device),
+                    v=torch.zeros(shape, dtype=kv_dtype, device=device),
+                    length=0)
+    if kv_dtype == torch.int8:
+        return cache._replace(
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device))
+    return cache
 
 
 def _positions(start: Start, t: int, device: torch.device) -> torch.Tensor:
@@ -79,8 +102,9 @@ def _embed(view: Params, tokens: torch.Tensor, start: Start,
 
 def _write_cache_rows(layer_kv: torch.Tensor, new: torch.Tensor,
                       start: Start) -> None:
-    """Write [B, H, T, Dh] rows into the [B, H, S, Dh] cache at ``start``
-    (int: every row at one offset; tensor [B]: each row at its own)."""
+    """Write [B, H, T(, Dh)] rows into the [B, H, S(, Dh)] cache (or scale
+    plane) at ``start`` (int: every row at one offset; tensor [B]: each row
+    at its own)."""
     t = new.shape[2]
     new = new.to(layer_kv.dtype)
     if not isinstance(start, torch.Tensor):
@@ -88,7 +112,7 @@ def _write_cache_rows(layer_kv: torch.Tensor, new: torch.Tensor,
         return
     idx = _positions(start, t, layer_kv.device)              # [B, T]
     rows = torch.arange(layer_kv.shape[0], device=layer_kv.device)[:, None]
-    layer_kv[rows, :, idx] = new.permute(0, 2, 1, 3)
+    layer_kv[rows, :, idx] = new.transpose(1, 2)
 
 
 def _attn_qkv(block: Params, x: torch.Tensor, cfg: gpt2.GPT2Config
@@ -96,33 +120,56 @@ def _attn_qkv(block: Params, x: torch.Tensor, cfg: gpt2.GPT2Config
     """ln_1 + fused qkv projection + head split: [B, T, D] -> q, k, v
     [B, H, T, Dh] in the compute dtype."""
     y = L.layernorm(block["ln_1"], x).to(cfg.dtype)
-    qkv = L.dense(block["attn"]["qkv"], y, cfg.dtype)
+    qkv = q8.qdense(block["attn"]["qkv"], y, cfg.dtype)
     q, k, v = qkv.split(cfg.n_embd, dim=-1)
     return tuple(gpt2.split_heads(a, cfg.n_head) for a in (q, k, v))
 
 
 def _attn_mlp_tail(block: Params, x: torch.Tensor, out: torch.Tensor,
                    cfg: gpt2.GPT2Config) -> torch.Tensor:
-    """Merge heads, attention projection + residual, MLP + residual."""
+    """Merge heads, attention projection + residual, MLP (ln_2, fc,
+    tanh GELU, proj) + residual; every matrix through ``qdense``."""
+    dtype = cfg.dtype
     b, t, d = x.shape
     out = out.permute(0, 2, 1, 3).reshape(b, t, d)
-    x = x + L.dense(block["attn"]["proj"], out, cfg.dtype).to(x.dtype)
-    return x + gpt2.mlp(block, x, cfg.dtype).to(x.dtype)
+    x = x + q8.qdense(block["attn"]["proj"], out, dtype).to(x.dtype)
+    y = L.layernorm(block["ln_2"], x).to(dtype)
+    y = F.gelu(q8.qdense(block["mlp"]["fc"], y, dtype), approximate="tanh")
+    return x + q8.qdense(block["mlp"]["proj"], y, dtype).to(x.dtype)
 
 
 def _block_with_cache(block: Params, x: torch.Tensor,
                       layer_k: torch.Tensor, layer_v: torch.Tensor,
-                      start: Start, cfg: gpt2.GPT2Config) -> torch.Tensor:
+                      start: Start, cfg: gpt2.GPT2Config,
+                      layer_k_scale: Optional[torch.Tensor] = None,
+                      layer_v_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """One block over [B, T, D] new positions: writes their K/V into the
     cache [B, H, S, Dh] at ``start`` (in place), then attends causally to
-    cache positions [0, start + t]."""
+    cache positions [0, start + t].  With scale planes [B, H, S] the cache
+    is int8: rows are quantized at the write, the K scale multiplies the
+    compute-dtype scores and the V scale the probabilities (JAX
+    ``_block_with_cache``'s int8 branch, step for step)."""
+    dtype = cfg.dtype
     t = x.shape[1]
     s = layer_k.shape[-2]
     q, k, v = _attn_qkv(block, x, cfg)
-    _write_cache_rows(layer_k, k, start)
-    _write_cache_rows(layer_v, v, start)
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, layer_k) \
-        / math.sqrt(cfg.head_dim)
+    quantized = layer_k_scale is not None
+    if quantized:
+        k_q, k_s = q8.quantize_kv(k)
+        v_q, v_s = q8.quantize_kv(v)
+        _write_cache_rows(layer_k, k_q, start)
+        _write_cache_rows(layer_v, v_q, start)
+        _write_cache_rows(layer_k_scale, k_s, start)
+        _write_cache_rows(layer_v_scale, v_s, start)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, layer_k.to(dtype))
+        scores = scores * layer_k_scale[:, :, None, :] \
+            / math.sqrt(cfg.head_dim)
+    else:
+        _write_cache_rows(layer_k, k, start)
+        _write_cache_rows(layer_v, v, start)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, layer_k) \
+            / math.sqrt(cfg.head_dim)
     q_pos = _positions(start, t, x.device)
     k_pos = torch.arange(s, device=x.device)
     if q_pos.dim() == 1:
@@ -132,8 +179,12 @@ def _block_with_cache(block: Params, x: torch.Tensor,
     scores = torch.where(mask, scores,
                          torch.full_like(scores,
                                          torch.finfo(scores.dtype).min))
-    probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, layer_v)
+    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    if quantized:
+        pv = (probs * layer_v_scale[:, :, None, :]).to(dtype)
+        out = torch.einsum("bhqk,bhkd->bhqd", pv, layer_v.to(dtype))
+    else:
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, layer_v)
     return _attn_mlp_tail(block, x, out, cfg)
 
 
@@ -169,6 +220,27 @@ def _final_logits(view: Params, x: torch.Tensor, cfg: gpt2.GPT2Config,
     return (normed.to(cfg.dtype) @ view["wte_head"].T).float()
 
 
+def _all_logits(view: Params, x: torch.Tensor, cfg: gpt2.GPT2Config
+                ) -> torch.Tensor:
+    """Every fed position's logits [B, T, V] (the speculative verify
+    pass's materialised tail): :func:`_final_logits`' math, row-wise."""
+    normed = L.layernorm(view["ln_f"], x)
+    return (normed.to(cfg.dtype) @ view["wte_head"].T).float()
+
+
+def fused_verify_logits(view: Params, x: torch.Tensor, cfg: gpt2.GPT2Config
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel twin of :func:`_all_logits` + the trust epilogue: pre-``ln_f``
+    activations [R, T, D] -> (logits [R, T, V] f32, entropy [R*T], margin
+    [R*T]) in one pass over the vocab (``ops.paged_attention.
+    fused_verify_tail``, B8), against the same ``wte_head``."""
+    r, t, d = x.shape
+    normed = L.layernorm(view["ln_f"], x).to(cfg.dtype)
+    logits, ent, mar = pattn.fused_verify_tail(
+        normed.reshape(r * t, d).contiguous(), view["wte_head"])
+    return logits.reshape(r, t, -1), ent, mar
+
+
 def _apply_with_cache(view: Params, tokens: torch.Tensor, cache: KVCache,
                       cfg: gpt2.GPT2Config, last_pos: Optional[int] = None
                       ) -> Tuple[torch.Tensor, KVCache]:
@@ -178,8 +250,12 @@ def _apply_with_cache(view: Params, tokens: torch.Tensor, cache: KVCache,
     start = cache.length
     t = tokens.shape[-1]
     x = _embed(view, tokens, start, cfg)
+    quantized = cache.k_scale is not None
     for i, block in enumerate(view["layers"]):
-        x = _block_with_cache(block, x, cache.k[i], cache.v[i], start, cfg)
+        x = _block_with_cache(
+            block, x, cache.k[i], cache.v[i], start, cfg,
+            cache.k_scale[i] if quantized else None,
+            cache.v_scale[i] if quantized else None)
     return (_final_logits(view, x, cfg, last_pos),
             cache._replace(length=start + t))
 
@@ -187,15 +263,6 @@ def _apply_with_cache(view: Params, tokens: torch.Tensor, cache: KVCache,
 # ---------------------------------------------------------------------------
 # Paged read/write path over serve/kv_slots pools [L, NB + 1, H, BLOCK, Dh]
 # ---------------------------------------------------------------------------
-
-
-def _paged_gather(layer_pool: torch.Tensor, table: torch.Tensor
-                  ) -> torch.Tensor:
-    """[NB, H, BLOCK, Dh] pool + [R, NBPS] table -> a contiguous copy of
-    each row's view [R, H, NBPS * BLOCK, Dh]."""
-    g = layer_pool[table.long()]                   # [R, NBPS, H, BLOCK, Dh]
-    r, nbps, h, bsz, dh = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(r, h, nbps * bsz, dh)
 
 
 def _pool_write_coords(table: torch.Tensor, start: torch.Tensor, t: int,
@@ -213,20 +280,25 @@ def _pool_write_coords(table: torch.Tensor, start: torch.Tensor, t: int,
 
 
 def _rows_of(a: torch.Tensor) -> torch.Tensor:
-    """[R, H, T, Dh] -> [R*T, H, Dh], the pool's per-position layout."""
-    r, h, t, dh = a.shape
-    return a.permute(0, 2, 1, 3).reshape(r * t, h, dh)
+    """[R, H, T(, Dh)] -> [R*T, H(, Dh)], the pool's per-position
+    layout."""
+    r, h, t = a.shape[:3]
+    order = (0, 2, 1) + tuple(range(3, a.dim()))
+    return a.permute(*order).reshape(r * t, h, *a.shape[3:])
 
 
 def _paged_block(block: Params, x: torch.Tensor, pool_k_l: torch.Tensor,
                  pool_v_l: torch.Tensor, table: torch.Tensor,
                  start: torch.Tensor, cfg: gpt2.GPT2Config,
-                 attn_impl: str = "kernel") -> torch.Tensor:
+                 attn_impl: str = "kernel",
+                 pool_ks_l: Optional[torch.Tensor] = None,
+                 pool_vs_l: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block over [R, T, D] new positions against one layer's pool
-    (written in place).  ``start`` is i32 [R] on the pool's device."""
+    (written in place; int8 with scale planes [NB, H, BLOCK] when
+    ``pool_ks_l`` is given).  ``start`` is i32 [R] on the pool's device."""
     if attn_impl == "kernel":
         return _paged_block_kernel(block, x, pool_k_l, pool_v_l, table,
-                                   start, cfg)
+                                   start, cfg, pool_ks_l, pool_vs_l)
     r, t, _ = x.shape
     nbps = table.shape[1]
     bsz = pool_k_l.shape[2]
@@ -239,33 +311,55 @@ def _paged_block(block: Params, x: torch.Tensor, pool_k_l: torch.Tensor,
         table_read = torch.cat([table, pad], dim=1)
     else:
         table_read = table
-    view_k = _paged_gather(pool_k_l, table_read)
-    view_v = _paged_gather(pool_v_l, table_read)
-    x = _block_with_cache(block, x, view_k, view_v, start, cfg)
+    quantized = pool_ks_l is not None
+    views = [pattn.gather_pool(p, table_read) for p in
+             ((pool_k_l, pool_v_l, pool_ks_l, pool_vs_l) if quantized
+              else (pool_k_l, pool_v_l))]
+    x = _block_with_cache(block, x, *views[:2], start, cfg, *views[2:])
     pos, phys, offs = _pool_write_coords(table_read, start, t, bsz, nbps)
-    idx = pos[:, None, :, None].expand(-1, view_k.shape[1], -1,
-                                       view_k.shape[-1])
-    pool_k_l[phys, :, offs] = _rows_of(torch.gather(view_k, 2, idx))
-    pool_v_l[phys, :, offs] = _rows_of(torch.gather(view_v, 2, idx))
+    pools = (pool_k_l, pool_v_l, pool_ks_l, pool_vs_l)
+    for pool, view in zip(pools, views):
+        idx = pos[:, None, :]
+        if view.dim() == 4:
+            idx = idx[..., None].expand(-1, view.shape[1], -1,
+                                        view.shape[-1])
+        else:
+            idx = idx.expand(-1, view.shape[1], -1)
+        pool[phys, :, offs] = _rows_of(torch.gather(view, 2, idx))
     return x
 
 
 def _paged_block_kernel(block: Params, x: torch.Tensor,
                         pool_k_l: torch.Tensor, pool_v_l: torch.Tensor,
                         table: torch.Tensor, start: torch.Tensor,
-                        cfg: gpt2.GPT2Config) -> torch.Tensor:
-    """Write-then-attend: scatter the fresh K/V into the pool, then run the
-    decode kernel (T <= QROWS) or the chunked-prefill kernel (T > QROWS)
-    over the pool."""
+                        cfg: gpt2.GPT2Config,
+                        pool_ks_l: Optional[torch.Tensor] = None,
+                        pool_vs_l: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Write-then-attend: scatter the fresh K/V into the pool (quantized at
+    the write on an int8 pool: the values the plain path writes), then run
+    the decode kernel (T <= QROWS) or the chunked-prefill kernel (T >
+    QROWS) over the pool."""
     r, t, _ = x.shape
     q, k, v = _attn_qkv(block, x, cfg)                      # [R, H, T, Dh]
     _, phys, offs = _pool_write_coords(table, start, t, pool_k_l.shape[2],
                                        table.shape[1])
+    if pool_ks_l is not None:
+        k, k_s = q8.quantize_kv(k)
+        v, v_s = q8.quantize_kv(v)
+        pool_ks_l[phys, :, offs] = _rows_of(k_s)
+        pool_vs_l[phys, :, offs] = _rows_of(v_s)
     pool_k_l[phys, :, offs] = _rows_of(k.to(pool_k_l.dtype))
     pool_v_l[phys, :, offs] = _rows_of(v.to(pool_v_l.dtype))
-    attend = (pattn.paged_prefill_attention if t > pattn.QROWS
-              else pattn.paged_attention)
-    out = attend(q.contiguous(), pool_k_l, pool_v_l, table, start)
+    if pool_ks_l is not None:
+        attend = (pattn.paged_prefill_attention_int8 if t > pattn.QROWS
+                  else pattn.paged_attention_int8)
+        out = attend(q.contiguous(), pool_k_l, pool_v_l, table, start,
+                     pool_ks_l, pool_vs_l)
+    else:
+        attend = (pattn.paged_prefill_attention if t > pattn.QROWS
+                  else pattn.paged_attention)
+        out = attend(q.contiguous(), pool_k_l, pool_v_l, table, start)
     return _attn_mlp_tail(block, x, out.to(cfg.dtype), cfg)
 
 
@@ -275,17 +369,26 @@ def _apply_with_cache_paged(view: Params, tokens: torch.Tensor,
                             cfg: gpt2.GPT2Config,
                             last_pos: Optional[int] = None,
                             attn_impl: str = "kernel",
-                            hidden: bool = False) -> torch.Tensor:
+                            hidden: bool = False,
+                            pool_ks: Optional[torch.Tensor] = None,
+                            pool_vs: Optional[torch.Tensor] = None,
+                            all_logits: bool = False) -> torch.Tensor:
     """All blocks over ``tokens`` [R, T] against the paged pool (updated in
-    place), rows starting at ``start`` i32 [R].  Returns logits [R, V] of
-    the last position (or ``last_pos``), or with ``hidden`` the pre-ln_f
-    activations [R, T, D] and no projection."""
+    place; int8 when the scale planes ``pool_ks``/``pool_vs`` [L, NB, H,
+    BLOCK] are given), rows starting at ``start`` i32 [R].  Returns logits
+    [R, V] of the last position (or ``last_pos``); with ``all_logits``
+    every position's [R, T, V] (the verify pass's materialised tail); with
+    ``hidden`` the pre-ln_f activations [R, T, D] and no projection."""
     x = _embed(view, tokens, start, cfg)
+    quantized = pool_ks is not None
     for i, block in enumerate(view["layers"]):
         x = _paged_block(block, x, pool_k[i], pool_v[i], table, start, cfg,
-                         attn_impl)
+                         attn_impl, pool_ks[i] if quantized else None,
+                         pool_vs[i] if quantized else None)
     if hidden:
         return x
+    if all_logits:
+        return _all_logits(view, x, cfg)
     return _final_logits(view, x, cfg, last_pos)
 
 

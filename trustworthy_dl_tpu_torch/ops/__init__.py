@@ -42,8 +42,15 @@ _ERROR_STRING = ([_I], ctypes.c_char_p)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "paged_attention": {
         "tddl_paged_decode": ([_P] * 6 + [_I] * 7 + [_P], _I),
+        "tddl_paged_decode_int8": ([_P] * 8 + [_I] * 7 + [_P], _I),
         "tddl_paged_prefill": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        "tddl_paged_prefill_int8": ([_P] * 8 + [_I] * 8 + [_P], _I),
         "tddl_trust_stats": ([_P] * 3 + [_I] * 2 + [_P], _I),
+        "tddl_verify_tail": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        "tddl_error_string": _ERROR_STRING,
+    },
+    "fused_dequant_matmul": {
+        "tddl_dequant_matmul": ([_P] * 4 + [_I] * 3 + [_P], _I),
         "tddl_error_string": _ERROR_STRING,
     },
     "fused_stats": {
@@ -59,7 +66,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
 }
 
-#: Kernel dtype codes shared with the C interface.
+#: Kernel dtype codes shared with the C interface (of the queries and
+#: outputs; an int8 pool has entries of its own, not a code).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -170,11 +178,12 @@ def stream_handle(device: torch.device) -> int:
 
 def kernel_wrappers() -> tuple:
     """Every kernel wrapper of the port (each carries ``launches``)."""
-    from trustworthy_dl_tpu_torch.ops import flash_attention, fused_stats, \
-        paged_attention
+    from trustworthy_dl_tpu_torch.ops import flash_attention, \
+        fused_dequant_matmul, fused_stats, paged_attention
 
     return (paged_attention.KERNEL_WRAPPERS + fused_stats.KERNEL_WRAPPERS
-            + flash_attention.KERNEL_WRAPPERS)
+            + flash_attention.KERNEL_WRAPPERS
+            + fused_dequant_matmul.KERNEL_WRAPPERS)
 
 
 def reset_launch_counts() -> None:

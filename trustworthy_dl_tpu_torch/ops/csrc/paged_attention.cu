@@ -1,5 +1,7 @@
 // Serving kernels for Hopper (sm_90a): ragged paged-decode attention (B5),
-// query-tiled chunked-prefill attention (B6) and the trust epilogue (B7).
+// query-tiled chunked-prefill attention (B6), each over a model-dtype or an
+// int8 pool, the trust epilogue (B7) and the fused speculative-verify tail
+// (B8).
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (trustworthy_dl_tpu_torch/ops/__init__.py).  Every entry point
@@ -35,6 +37,15 @@
 // and the work is memory-bound either way.  Faster staging (cp.async/TMA,
 // split-K over long caches) is later work.
 //
+// The int8 branches (the quantized=True instances of the same two TPU
+// kernels) read int8 K/V tiles and f32 per-(head, position) scales
+// [NB, H, BLOCK] through the same table walk: the K scale multiplies the
+// score after the dot (it is constant along the contracted Dh axis), the
+// V scale multiplies the probability before the PV contraction, and the
+// running sum l keeps the unscaled probabilities - the algebra of
+// paged_attention_reference.  Their bound is bytes again: half the bf16
+// pool's K/V bytes plus 8 bytes of scales per (head, position).
+//
 // B7 replaces _trust_stats_kernel (_trust_stats_call): for each row of
 // f32 logits [B, V] it returns the softmax entropy logZ - sum(x p) and the
 // top-1 margin top1 - top2 in one read of the row.  Bound: bytes (one read
@@ -44,9 +55,28 @@
 // keeps a duplicated maximum (top2 == top1, margin 0) and uses only
 // max/min, so the margin is bit-exact against top-k of the same values.
 // The row is bounds-checked against V instead of being padded.
+//
+// B8 replaces _verify_tail_kernel (_verify_tail_call): logits [B, V] f32 =
+// normed [B, D] bf16 @ head [V, D]^T, rounded through bf16 (the tail's
+// matmul runs in the compute dtype and upcasts after it), plus the entropy
+// and top-1 margin of every row folded in the same vocab pass.  Bound:
+// bytes - the head (V * D * 2 = 77.2 MB for GPT-2 small) read once plus
+// the [B, V] f32 logits written once; at B = 40 the products are 3.1
+// GFLOP, ~3 us at 989 TFLOP/s against ~26 us of bytes.  Design: a CTA
+// keeps all B (<= 96) rows of normed resident in shared memory and walks
+// 128-column vocab tiles (grid-stride, as many CTAs as fit on the card);
+// each tile's head rows stream in 64-deep K chunks through WMMA bf16
+// products with f32 accumulation (8 warps, 16 columns each); the tile is
+// staged in shared memory, rounded to bf16, written, and reduced per row
+// into partials (m, sum e, sum x e, top1, top2) - columns at or past V are
+// left out of the reductions, never counted as 0.  A second one-warp-per-
+// row launch folds each row's partials in fixed tile order: no atomics,
+// so the bits repeat, and the top-2 merge is B7's, so the margin equals
+// top-k over the kernel's own logits bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 
 #include <math.h>
 #include <stdint.h>
@@ -64,6 +94,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -75,10 +106,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 // One CTA = (row r, head h, query tile ti).  Decode is the one-tile case.
-template <typename T>
+// KV is T (model-dtype pool) or int8_t (QUANT: scales [NB, H, BLOCK]).
+template <typename T, typename KV, bool QUANT>
 __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
-    const T* __restrict__ q, const T* __restrict__ pool_k,
-    const T* __restrict__ pool_v, const int32_t* __restrict__ table,
+    const T* __restrict__ q, const KV* __restrict__ pool_k,
+    const KV* __restrict__ pool_v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ table,
     const int32_t* __restrict__ start, T* __restrict__ out, int H, int Tq,
     int Dh, int bsz, int nbps, int q_tile, int n_tiles, int stage_blocks,
     float scale) {
@@ -106,6 +139,8 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
   float* m_s = acc + q_tile * Dh;    // [q_tile]
   float* l_s = m_s + q_tile;         // [q_tile]
   float* c_s = l_s + q_tile;         // [q_tile]
+  float* ks_s = c_s + q_tile;        // [kt] (QUANT)
+  float* vs_s = ks_s + kt;           // [kt] (QUANT)
 
   const size_t head_row = (size_t)(r * H + h) * Tq + t0;
   const T* q_rows = q + head_row * Dh;
@@ -126,13 +161,20 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
     const int nkeys = nblk * bsz;
     for (int b = 0; b < nblk; ++b) {
       const size_t base = ((size_t)trow[j0 + b] * H + h) * blk_elems;
-      const T* kb = pool_k + base;
-      const T* vb = pool_v + base;
+      const KV* kb = pool_k + base;
+      const KV* vb = pool_v + base;
       for (int i = tid; i < blk_elems; i += blockDim.x) {
         const int key = b * bsz + i / Dh;
         const int d = i % Dh;
         k_s[key * ldk + d] = to_f(kb[i]);
         v_s[key * Dh + d] = to_f(vb[i]);
+      }
+      if (QUANT) {
+        const size_t sbase = ((size_t)trow[j0 + b] * H + h) * bsz;
+        for (int i = tid; i < bsz; i += blockDim.x) {
+          ks_s[b * bsz + i] = k_scale[sbase + i];
+          vs_s[b * bsz + i] = v_scale[sbase + i];
+        }
       }
     }
     __syncthreads();
@@ -146,7 +188,9 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
       const float* kr = k_s + key * ldk;
       float dot = 0.f;
       for (int d = 0; d < Dh; ++d) dot = fmaf(qr[d], kr[d], dot);
-      p_s[t * kt + key] = (kpos0 + key <= qpos0 + t) ? dot * scale : NEG_INF;
+      float sc = dot * scale;
+      if (QUANT) sc *= ks_s[key];   // K scale after the dot
+      p_s[t * kt + key] = (kpos0 + key <= qpos0 + t) ? sc : NEG_INF;
     }
     __syncthreads();
 
@@ -162,7 +206,8 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
       float sum = 0.f;
       for (int key = 0; key < nkeys; ++key) {
         const float e = expf(pr[key] - m_cur);
-        pr[key] = e;
+        // V scale folds into the probability (l sums the unscaled ones).
+        pr[key] = QUANT ? e * vs_s[key] : e;
         sum += e;
       }
       const float corr = expf(m_prev - m_cur);
@@ -191,14 +236,15 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
 
 size_t attn_smem_bytes(int q_tile, int Dh, int kt) {
   return sizeof(float) * ((size_t)2 * q_tile * Dh + (size_t)kt * (Dh + 1) +
-                          (size_t)kt * Dh + (size_t)q_tile * kt + 3 * q_tile);
+                          (size_t)kt * Dh + (size_t)q_tile * kt + 3 * q_tile +
+                          2 * (size_t)kt);
 }
 
-template <typename T>
+template <typename T, typename KV, bool QUANT>
 int launch_attn(const void* q, const void* pool_k, const void* pool_v,
-                const void* table, const void* start, void* out, int R, int H,
-                int Tq, int Dh, int bsz, int nbps, int q_tile,
-                cudaStream_t stream) {
+                const void* k_scale, const void* v_scale, const void* table,
+                const void* start, void* out, int R, int H, int Tq, int Dh,
+                int bsz, int nbps, int q_tile, cudaStream_t stream) {
   if (R < 1 || H < 1 || Tq < 1 || Dh < 1 || bsz < 1 || nbps < 1 || q_tile < 1)
     return (int)cudaErrorInvalidValue;
   int stage_blocks = STAGE_KEYS / bsz > 0 ? STAGE_KEYS / bsz : 1;
@@ -209,25 +255,41 @@ int launch_attn(const void* q, const void* pool_k, const void* pool_v,
   if (smem > STATIC_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int n_tiles = (Tq + q_tile - 1) / q_tile;
   const float scale = (float)(1.0 / sqrt((double)Dh));
-  paged_attn_kernel<T><<<R * H * n_tiles, ATTN_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k),
-      static_cast<const T*>(pool_v), static_cast<const int32_t*>(table),
+  paged_attn_kernel<T, KV, QUANT>
+      <<<R * H * n_tiles, ATTN_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(pool_k),
+      static_cast<const KV*>(pool_v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int32_t*>(table),
       static_cast<const int32_t*>(start), static_cast<T*>(out), H, Tq, Dh, bsz,
       nbps, q_tile, n_tiles, stage_blocks, scale);
   return (int)cudaGetLastError();
 }
 
+// k_scale == nullptr: model-dtype pool (KV = T); else int8 pool.
 int dispatch_attn(int dtype, const void* q, const void* pool_k,
-                  const void* pool_v, const void* table, const void* start,
+                  const void* pool_v, const void* k_scale,
+                  const void* v_scale, const void* table, const void* start,
                   void* out, int R, int H, int Tq, int Dh, int bsz, int nbps,
                   int q_tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_attn<float>(q, pool_k, pool_v, table, start, out, R, H, Tq,
-                              Dh, bsz, nbps, q_tile, s);
-  if (dtype == 1)
-    return launch_attn<__nv_bfloat16>(q, pool_k, pool_v, table, start, out, R,
-                                      H, Tq, Dh, bsz, nbps, q_tile, s);
+  const bool quant = k_scale != nullptr;
+  if (quant && v_scale == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && !quant)
+    return launch_attn<float, float, false>(q, pool_k, pool_v, k_scale,
+                                            v_scale, table, start, out, R, H,
+                                            Tq, Dh, bsz, nbps, q_tile, s);
+  if (dtype == 1 && !quant)
+    return launch_attn<__nv_bfloat16, __nv_bfloat16, false>(
+        q, pool_k, pool_v, k_scale, v_scale, table, start, out, R, H, Tq, Dh,
+        bsz, nbps, q_tile, s);
+  if (dtype == 0 && quant)
+    return launch_attn<float, int8_t, true>(q, pool_k, pool_v, k_scale,
+                                            v_scale, table, start, out, R, H,
+                                            Tq, Dh, bsz, nbps, q_tile, s);
+  if (dtype == 1 && quant)
+    return launch_attn<__nv_bfloat16, int8_t, true>(
+        q, pool_k, pool_v, k_scale, v_scale, table, start, out, R, H, Tq, Dh,
+        bsz, nbps, q_tile, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -309,6 +371,142 @@ __global__ void __launch_bounds__(TRUST_THREADS)
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// B8: fused speculative-verify tail.
+// ---------------------------------------------------------------------------
+
+constexpr int VT_COLS = 128;     // vocab columns per tile
+constexpr int VT_KC = 64;        // head K chunk
+constexpr int VT_WARPS = 8;      // each warp owns 16 columns of a tile
+constexpr int VT_THREADS = VT_WARPS * 32;
+constexpr int VT_MAX_FR = 6;     // row fragments: B <= 96
+constexpr int VT_LDW = VT_KC + 8;
+constexpr int VT_LDS = VT_COLS + 4;
+constexpr int VT_PARTS = 5;      // m, sum e, sum x e, top1, top2
+
+size_t vt_smem_bytes(int bp, int D) {
+  const size_t x_bytes = (size_t)bp * (D + 8) * sizeof(__nv_bfloat16);
+  const size_t w_bytes = (size_t)VT_COLS * VT_LDW * sizeof(__nv_bfloat16);
+  const size_t st_bytes = (size_t)bp * VT_LDS * sizeof(float);
+  // The head chunk buffer and the output stage are never live together.
+  return x_bytes + (w_bytes > st_bytes ? w_bytes : st_bytes);
+}
+
+__global__ void __launch_bounds__(VT_THREADS) verify_tail_kernel(
+    const __nv_bfloat16* __restrict__ normed,
+    const __nv_bfloat16* __restrict__ head, float* __restrict__ logits,
+    float* __restrict__ partials, int B, int bp, int D, int V, int ntiles) {
+  using namespace nvcuda;
+  extern __shared__ __align__(128) unsigned char vt_smem[];
+  const int ldx = D + 8;
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(vt_smem);
+  unsigned char* tail = vt_smem + (size_t)bp * ldx * sizeof(__nv_bfloat16);
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(tail);
+  float* st = reinterpret_cast<float*>(tail);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nfr = bp / 16;
+  const int vec_per_row = D / 8;
+  for (int i = tid; i < bp * vec_per_row; i += VT_THREADS) {
+    const int r = i / vec_per_row;
+    const int c = (i % vec_per_row) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < B)
+      v = *reinterpret_cast<const uint4*>(normed + (size_t)r * D + c);
+    *reinterpret_cast<uint4*>(x_s + r * ldx + c) = v;
+  }
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int v0 = tile * VT_COLS;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[VT_MAX_FR];
+#pragma unroll
+    for (int f = 0; f < VT_MAX_FR; ++f) wmma::fill_fragment(acc[f], 0.f);
+    for (int k0 = 0; k0 < D; k0 += VT_KC) {
+      // Head rows v0.. of this K chunk: [VT_COLS, VT_KC] bf16; rows at or
+      // past V load as zeros (their columns never reach the output).
+      for (int i = tid; i < VT_COLS * (VT_KC / 8); i += VT_THREADS) {
+        const int c = i / (VT_KC / 8);
+        const int kk = (i % (VT_KC / 8)) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (v0 + c < V)
+          v = *reinterpret_cast<const uint4*>(head + (size_t)(v0 + c) * D +
+                                              k0 + kk);
+        *reinterpret_cast<uint4*>(w_s + c * VT_LDW + kk) = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < VT_KC; kk += 16) {
+        // B = head^T: element (k, n) = w_s[n * VT_LDW + k], column-major.
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> bf;
+        wmma::load_matrix_sync(bf, w_s + warp * 16 * VT_LDW + kk, VT_LDW);
+#pragma unroll
+        for (int f = 0; f < VT_MAX_FR; ++f) {
+          if (f < nfr) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> af;
+            wmma::load_matrix_sync(af, x_s + f * 16 * ldx + k0 + kk, ldx);
+            wmma::mma_sync(acc[f], af, bf, acc[f]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int f = 0; f < VT_MAX_FR; ++f)
+      if (f < nfr)
+        wmma::store_matrix_sync(st + f * 16 * VT_LDS + warp * 16, acc[f],
+                                VT_LDS, wmma::mem_row_major);
+    __syncthreads();
+    for (int r = warp; r < B; r += VT_WARPS) {
+      TrustAcc a = trust_empty();
+      for (int c = lane; c < VT_COLS; c += 32) {
+        const int col = v0 + c;
+        if (col < V) {
+          // Round through bf16: the compute-dtype matmul's output.
+          const float x = __bfloat162float(__float2bfloat16(st[r * VT_LDS + c]));
+          logits[(size_t)r * V + col] = x;
+          trust_push(a, x);
+        }
+      }
+      a = trust_warp_merge(a);
+      if (lane == 0) {
+        float* p = partials + ((size_t)r * ntiles + tile) * VT_PARTS;
+        p[0] = a.m;
+        p[1] = a.s;
+        p[2] = a.w;
+        p[3] = a.t1;
+        p[4] = a.t2;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One warp per row: lane l folds tiles l, l + 32, ... in order, then the
+// warp merges by the fixed shuffle tree.
+__global__ void __launch_bounds__(32) verify_fold_kernel(
+    const float* __restrict__ partials, float* __restrict__ entropy,
+    float* __restrict__ margin, int ntiles) {
+  const int r = blockIdx.x;
+  const int lane = threadIdx.x;
+  TrustAcc a = trust_empty();
+  for (int t = lane; t < ntiles; t += 32) {
+    const float* p = partials + ((size_t)r * ntiles + t) * VT_PARTS;
+    a = trust_merge(a, TrustAcc{p[0], p[1], p[2], p[3], p[4]});
+  }
+  a = trust_warp_merge(a);
+  if (lane == 0) {
+    const float s = fmaxf(a.s, 1e-30f);
+    entropy[r] = (a.m + logf(s)) - a.w / s;
+    margin[r] = a.t1 - a.t2;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -318,8 +516,22 @@ int tddl_paged_decode(const void* q, const void* pool_k, const void* pool_v,
                       const void* table, const void* start, void* out, int R,
                       int H, int T, int Dh, int bsz, int nbps, int dtype,
                       void* stream) {
-  return dispatch_attn(dtype, q, pool_k, pool_v, table, start, out, R, H, T,
-                       Dh, bsz, nbps, T, stream);
+  return dispatch_attn(dtype, q, pool_k, pool_v, nullptr, nullptr, table,
+                       start, out, R, H, T, Dh, bsz, nbps, T, stream);
+}
+
+// B5, int8 pool: pool_k/pool_v int8 [NB, H, BLOCK, Dh], scales f32
+// [NB, H, BLOCK].
+int tddl_paged_decode_int8(const void* q, const void* pool_k,
+                           const void* pool_v, const void* k_scale,
+                           const void* v_scale, const void* table,
+                           const void* start, void* out, int R, int H, int T,
+                           int Dh, int bsz, int nbps, int dtype,
+                           void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_attn(dtype, q, pool_k, pool_v, k_scale, v_scale, table,
+                       start, out, R, H, T, Dh, bsz, nbps, T, stream);
 }
 
 // B6: q [R, H, T, Dh] split into ceil(T / q_tile) query tiles per (row, head).
@@ -327,8 +539,21 @@ int tddl_paged_prefill(const void* q, const void* pool_k, const void* pool_v,
                        const void* table, const void* start, void* out, int R,
                        int H, int T, int Dh, int bsz, int nbps, int q_tile,
                        int dtype, void* stream) {
-  return dispatch_attn(dtype, q, pool_k, pool_v, table, start, out, R, H, T,
-                       Dh, bsz, nbps, q_tile, stream);
+  return dispatch_attn(dtype, q, pool_k, pool_v, nullptr, nullptr, table,
+                       start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
+}
+
+// B6, int8 pool (layouts as tddl_paged_decode_int8).
+int tddl_paged_prefill_int8(const void* q, const void* pool_k,
+                            const void* pool_v, const void* k_scale,
+                            const void* v_scale, const void* table,
+                            const void* start, void* out, int R, int H,
+                            int T, int Dh, int bsz, int nbps, int q_tile,
+                            int dtype, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_attn(dtype, q, pool_k, pool_v, k_scale, v_scale, table,
+                       start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
 }
 
 // B7: f32 logits [B, V] -> entropy [B], margin [B].
@@ -338,6 +563,43 @@ int tddl_trust_stats(const void* logits, void* entropy, void* margin, int B,
   trust_stats_kernel<<<B, TRUST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(logits), static_cast<float*>(entropy),
       static_cast<float*>(margin), V);
+  return (int)cudaGetLastError();
+}
+
+// B8: normed bf16 [B, D] x head bf16 [V, D] -> logits f32 [B, V] (rounded
+// through bf16), entropy [B], margin [B]; partials f32 [B, ntiles, 5] is
+// scratch.  B <= 96, D % 64 == 0.
+int tddl_verify_tail(const void* normed, const void* head, void* logits,
+                     void* partials, void* entropy, void* margin, int B,
+                     int D, int V, void* stream) {
+  if (B < 1 || B > 16 * VT_MAX_FR || D < VT_KC || D % VT_KC || V < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bp = (B + 15) / 16 * 16;
+  const int ntiles = (V + VT_COLS - 1) / VT_COLS;
+  const size_t smem = vt_smem_bytes(bp, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      verify_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, verify_tail_kernel, VT_THREADS, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = ntiles < sms * per_sm ? ntiles : sms * per_sm;
+  verify_tail_kernel<<<grid, VT_THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(normed),
+      static_cast<const __nv_bfloat16*>(head), static_cast<float*>(logits),
+      static_cast<float*>(partials), B, bp, D, V, ntiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  verify_fold_kernel<<<B, 32, 0, s>>>(static_cast<const float*>(partials),
+                                      static_cast<float*>(entropy),
+                                      static_cast<float*>(margin), ntiles);
   return (int)cudaGetLastError();
 }
 

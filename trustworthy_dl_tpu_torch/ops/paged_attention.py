@@ -1,5 +1,6 @@
 """Serving kernels: ragged paged-decode attention (B5), query-tiled
-chunked-prefill attention (B6) and the trust epilogue (B7).
+chunked-prefill attention (B6), each over a model-dtype or an int8 pool,
+the trust epilogue (B7) and the fused speculative-verify tail (B8).
 
 Counterpart of ``trustworthy_dl_tpu/ops/paged_attention.py``.  Each wrapper
 takes CPU tensors to its plain PyTorch twin (``*_plain``) and CUDA tensors
@@ -11,7 +12,9 @@ JAX package's ``paged_attention_reference`` and
 and ``chip_smoke.py`` holds the kernels against them on the card.
 
 Each wrapper carries a plain integer ``launches`` that it increments where
-it launches its kernel and nowhere else.
+it launches its kernel and nowhere else.  The int8 instances of B5 and B6
+have wrappers of their own (``paged_attention_int8``,
+``paged_prefill_attention_int8``), so their launches count apart.
 
 Semantics shared by the attention pair: ``q`` [R, H, T, Dh] are queries at
 absolute positions ``start[r] + t``; ``pool_k``/``pool_v`` [NB, H, BLOCK,
@@ -25,7 +28,7 @@ to the last block its window needs, clipped into the table.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -49,29 +52,38 @@ def _start_vector(start: Start, r: int, device: torch.device
     return torch.full((r,), int(start), dtype=torch.int32, device=device)
 
 
-def _gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """[NB, H, BLOCK, Dh] pool + [R, NBPS] table -> [R, H, NBPS*BLOCK, Dh]."""
-    g = pool[table.long()]                          # [R, NBPS, H, BLOCK, Dh]
-    r, nbps, h, bsz, dh = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(r, h, nbps * bsz, dh)
+def gather_pool(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[NB, H, BLOCK(, Dh)] pool (or scale plane) + [R, NBPS] table ->
+    [R, H, NBPS*BLOCK(, Dh)]."""
+    g = pool[table.long()]                       # [R, NBPS, H, BLOCK(, Dh)]
+    r, nbps, h, bsz = g.shape[:4]
+    order = (0, 2, 1, 3) + tuple(range(4, g.dim()))
+    return g.permute(*order).reshape(r, h, nbps * bsz, *g.shape[4:])
 
 
 def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
                           pool_v: torch.Tensor, table: torch.Tensor,
-                          start: Start) -> torch.Tensor:
+                          start: Start, k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Gather semantics, spelled standalone (f32 softmax over the whole
-    gathered view, NEG_INF mask): the twin of both attention kernels."""
+    gathered view, NEG_INF mask, int8 scales after the dot and before the
+    PV contraction): the twin of every attention kernel here."""
     r, h, t, dh = q.shape
     start = _start_vector(start, r, q.device).long()
-    view_k = _gather(pool_k, table).float()
-    view_v = _gather(pool_v, table).float()
+    view_k = gather_pool(pool_k, table).float()
+    view_v = gather_pool(pool_v, table).float()
     s = torch.einsum("rhtd,rhkd->rhtk", q.float(), view_k)
     s = s / math.sqrt(dh)
+    if k_scale is not None:
+        s = s * gather_pool(k_scale, table)[:, :, None, :]
     kpos = torch.arange(view_k.shape[2], device=q.device)
     qpos = start[:, None] + torch.arange(t, device=q.device)[None, :]
     s = torch.where(kpos[None, None, None, :] <= qpos[:, None, :, None], s,
                     torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * gather_pool(v_scale, table)[:, :, None, :]
     return torch.einsum("rhtk,rhkd->rhtd", p, view_v).to(q.dtype)
 
 
@@ -81,20 +93,32 @@ paged_prefill_attention_plain = paged_attention_plain
 
 def _check_attention(q: torch.Tensor, pool_k: torch.Tensor,
                      pool_v: torch.Tensor, table: torch.Tensor,
-                     start: torch.Tensor, op: str) -> None:
+                     start: torch.Tensor, op: str,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> None:
     r, h, t, dh = q.shape
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{op}: dtype {q.dtype} not supported "
                          f"(one of {sorted(map(str, DTYPE_CODES))})")
+    pool_dtype = q.dtype if k_scale is None else torch.int8
     for name, a in (("pool_k", pool_k), ("pool_v", pool_v)):
-        if a.dtype != q.dtype:
-            raise ValueError(f"{op}: {name} is {a.dtype}, q is {q.dtype}")
+        if a.dtype != pool_dtype:
+            raise ValueError(f"{op}: {name} is {a.dtype}, want {pool_dtype}")
         if a.dim() != 4 or a.shape[1] != h or a.shape[3] != dh:
             raise ValueError(f"{op}: {name} shape {tuple(a.shape)} is not "
                              f"[NB, {h}, BLOCK, {dh}]")
     if pool_v.shape != pool_k.shape:
         raise ValueError(f"{op}: pool_k {tuple(pool_k.shape)} and pool_v "
                          f"{tuple(pool_v.shape)} differ")
+    scales = (("k_scale", k_scale), ("v_scale", v_scale))
+    for name, a in scales if k_scale is not None else ():
+        if (a is None or a.dtype != torch.float32
+                or tuple(a.shape) != tuple(pool_k.shape[:3])):
+            raise ValueError(f"{op}: {name} must be f32 "
+                             f"{list(pool_k.shape[:3])}")
+        if a.device != q.device or not a.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous on "
+                             f"{q.device}")
     if table.dtype != torch.int32 or table.dim() != 2 or table.shape[0] != r:
         raise ValueError(f"{op}: table must be int32 [{r}, NBPS], got "
                          f"{table.dtype} {tuple(table.shape)}")
@@ -111,18 +135,26 @@ def _check_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
 def _launch_attention(entry: str, q: torch.Tensor, pool_k: torch.Tensor,
                       pool_v: torch.Tensor, table: torch.Tensor,
-                      start: torch.Tensor, *extra: int) -> torch.Tensor:
+                      start: torch.Tensor, *extra: int,
+                      scales: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
     r, h, t, dh = q.shape
     lib = kernel_library("paged_attention")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            *(a.data_ptr() for a in scales),
             table.data_ptr(), start.data_ptr(), out.data_ptr(),
             r, h, t, dh, pool_k.shape[2], table.shape[1], *extra,
             DTYPE_CODES[q.dtype], stream_handle(q.device))
     check_launch(lib, err, entry)
     return out
+
+
+def _decode_rows(q: torch.Tensor, op: str) -> None:
+    if q.shape[2] > QROWS:
+        raise ValueError(f"{op}: T={q.shape[2]} > {QROWS}; chunks go "
+                         "through paged_prefill_attention")
 
 
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -132,11 +164,8 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     T <= :data:`QROWS`.  Returns [R, H, T, Dh] in q's dtype."""
     if not on_cuda(q, "paged_attention"):
         return paged_attention_plain(q, pool_k, pool_v, table, start)
-    r, _, t, _ = q.shape
-    if t > QROWS:
-        raise ValueError(f"paged_attention: T={t} > {QROWS}; chunks go "
-                         "through paged_prefill_attention")
-    start = _start_vector(start, r, q.device)
+    _decode_rows(q, "paged_attention")
+    start = _start_vector(start, q.shape[0], q.device)
     _check_attention(q, pool_k, pool_v, table, start, "paged_attention")
     out = _launch_attention("tddl_paged_decode", q, pool_k, pool_v, table,
                             start)
@@ -145,6 +174,27 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+def paged_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
+                         pool_v: torch.Tensor, table: torch.Tensor,
+                         start: Start, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor) -> torch.Tensor:
+    """B5 over an int8 pool with f32 scales [NB, H, BLOCK]."""
+    if not on_cuda(q, "paged_attention_int8"):
+        return paged_attention_plain(q, pool_k, pool_v, table, start,
+                                     k_scale, v_scale)
+    _decode_rows(q, "paged_attention_int8")
+    start = _start_vector(start, q.shape[0], q.device)
+    _check_attention(q, pool_k, pool_v, table, start, "paged_attention_int8",
+                     k_scale, v_scale)
+    out = _launch_attention("tddl_paged_decode_int8", q, pool_k, pool_v,
+                            table, start, scales=(k_scale, v_scale))
+    paged_attention_int8.launches += 1
+    return out
+
+
+paged_attention_int8.launches = 0
 
 
 def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -167,6 +217,26 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
 
 
 paged_prefill_attention.launches = 0
+
+
+def paged_prefill_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
+                                 pool_v: torch.Tensor, table: torch.Tensor,
+                                 start: Start, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor) -> torch.Tensor:
+    """B6 over an int8 pool with f32 scales [NB, H, BLOCK]."""
+    if not on_cuda(q, "paged_prefill_attention_int8"):
+        return paged_prefill_attention_plain(q, pool_k, pool_v, table, start,
+                                             k_scale, v_scale)
+    start = _start_vector(start, q.shape[0], q.device)
+    _check_attention(q, pool_k, pool_v, table, start,
+                     "paged_prefill_attention_int8", k_scale, v_scale)
+    out = _launch_attention("tddl_paged_prefill_int8", q, pool_k, pool_v,
+                            table, start, QROWS, scales=(k_scale, v_scale))
+    paged_prefill_attention_int8.launches += 1
+    return out
+
+
+paged_prefill_attention_int8.launches = 0
 
 
 def logit_trust_stats_plain(logits: torch.Tensor
@@ -204,9 +274,76 @@ def logit_trust_stats(logits: torch.Tensor
 
 logit_trust_stats.launches = 0
 
+#: Most rows the verify-tail kernel takes (R * (k + 1) <= 8 * 9 on the
+#: serving path).
+VERIFY_MAX_ROWS = 96
+#: The verify-tail kernel's vocab tile and K chunk.
+VERIFY_TILE_COLS = 128
+VERIFY_K_CHUNK = 64
+
+
+def fused_verify_tail_plain(normed: torch.Tensor, head: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``normed`` [B, D] x ``head`` [V, D] -> (logits [B, V] f32, entropy
+    [B], margin [B]): the f32 product rounded through ``normed``'s dtype
+    (the compute-dtype matmul's output), then the trust epilogue."""
+    logits = (normed.float() @ head.float().T).to(normed.dtype).float()
+    entropy, margin = logit_trust_stats_plain(logits)
+    return logits, entropy, margin
+
+
+def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The speculative-verify tail (B8) in one pass over the vocab:
+    post-``ln_f`` activations ``normed`` [B, D] in the compute dtype x the
+    tied head [V, D] -> (f32 logits [B, V], entropy [B], margin [B]).  The
+    logits are written (the verify sampler reads whole rows) and reduced
+    while on chip; the margin equals top-2 of the returned logits bit for
+    bit.  The kernel takes bf16, B <= :data:`VERIFY_MAX_ROWS` and D a
+    multiple of :data:`VERIFY_K_CHUNK`."""
+    if not on_cuda(normed, "fused_verify_tail"):
+        return fused_verify_tail_plain(normed, head)
+    if normed.dim() != 2 or head.dim() != 2 or head.shape[1] != normed.shape[1]:
+        raise ValueError("fused_verify_tail: normed [B, D] and head [V, D], "
+                         f"got {tuple(normed.shape)} and {tuple(head.shape)}")
+    b, d = normed.shape
+    v = head.shape[0]
+    if normed.dtype != torch.bfloat16 or head.dtype != torch.bfloat16:
+        raise ValueError("fused_verify_tail: the kernel takes bf16, got "
+                         f"{normed.dtype} and {head.dtype}")
+    if not 1 <= b <= VERIFY_MAX_ROWS or d % VERIFY_K_CHUNK:
+        raise ValueError(f"fused_verify_tail: B={b} must be in [1, "
+                         f"{VERIFY_MAX_ROWS}] and D={d} a multiple of "
+                         f"{VERIFY_K_CHUNK}")
+    for name, a in (("normed", normed), ("head", head)):
+        if (a.device != normed.device or not a.is_contiguous()
+                or a.data_ptr() % 16):
+            raise ValueError(f"fused_verify_tail: {name} must be contiguous "
+                             f"and 16-byte aligned on {normed.device}")
+    ntiles = -(-v // VERIFY_TILE_COLS)
+    dev = normed.device
+    logits = torch.empty(b, v, dtype=torch.float32, device=dev)
+    partials = torch.empty(b, ntiles, 5, dtype=torch.float32, device=dev)
+    entropy = torch.empty(b, dtype=torch.float32, device=dev)
+    margin = torch.empty_like(entropy)
+    lib = kernel_library("paged_attention")
+    with torch.cuda.device(dev):
+        err = lib.tddl_verify_tail(normed.data_ptr(), head.data_ptr(),
+                                   logits.data_ptr(), partials.data_ptr(),
+                                   entropy.data_ptr(), margin.data_ptr(), b,
+                                   d, v, stream_handle(dev))
+    check_launch(lib, err, "tddl_verify_tail")
+    fused_verify_tail.launches += 1
+    return logits, entropy, margin
+
+
+fused_verify_tail.launches = 0
+
 #: The kernels of this module, by the wrapper that launches each.
 KERNEL_WRAPPERS = (paged_attention, paged_prefill_attention,
-                   logit_trust_stats)
+                   logit_trust_stats, paged_attention_int8,
+                   paged_prefill_attention_int8, fused_verify_tail)
 
 
 def reset_launch_counts() -> None:
@@ -216,8 +353,11 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "NEG_INF", "QROWS", "logit_trust_stats",
-    "logit_trust_stats_plain", "paged_attention", "paged_attention_plain",
-    "paged_prefill_attention", "paged_prefill_attention_plain",
+    "KERNEL_WRAPPERS", "NEG_INF", "QROWS", "VERIFY_MAX_ROWS",
+    "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
+    "logit_trust_stats",
+    "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",
+    "paged_attention_plain", "paged_prefill_attention",
+    "paged_prefill_attention_int8", "paged_prefill_attention_plain",
     "reset_launch_counts",
 ]

@@ -7,6 +7,13 @@ Counterpart of ``trustworthy_dl_tpu/serve/engine.py`` over the paged pool.
 requests into free rows, runs one scheduler tick (prefill chunks + the
 fused decode step), streams the new tokens and retires finished requests.
 
+The int8 tiers and speculative decoding (``kv_dtype``, ``weight_dtype``,
+``spec_k``) follow the JAX engine: the decode view is built once and
+shared by the parity probe, the scheduler and the int8 self-draft; an int8
+pool is parity-probed at construction and, when the probe fails, the
+engine serves on the model-dtype pool shrunk to the int8 byte budget and
+records ``kv_fallback_reason``.
+
 At retirement the request's mean (entropy, margin) vector is z-scored
 against a rolling baseline of past clean requests (``detect.baseline``,
 score first, absorb only if clean).  A flagged request is marked and the
@@ -32,7 +39,10 @@ import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.detect import baseline as bl
+from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
+from trustworthy_dl_tpu_torch.quant import int8 as q8
+from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
 from trustworthy_dl_tpu_torch.serve.scheduler import (PagedBatchingScheduler,
                                                       SlotTask)
 from trustworthy_dl_tpu_torch.utils.metrics import ServeMetrics
@@ -57,9 +67,10 @@ def resolve_device(device: Any) -> torch.device:
 @dataclasses.dataclass
 class ServeRequest:
     """One generation request.  ``temperature <= 0`` decodes greedily;
-    ``seed`` seeds the request's sampling generator (default: derived from
-    the engine seed and the request id); ``deadline_s`` is a wall-clock
-    budget from submission; ``on_token(request_id, token)`` streams."""
+    ``seed`` is the request's sampling seed (default: derived from the
+    engine seed and the request id): emission i is drawn with a generator
+    seeded from (seed, i); ``deadline_s`` is a wall-clock budget from
+    submission; ``on_token(request_id, token)`` streams."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -123,7 +134,8 @@ class ServingEngine:
 
     ``queue_limit`` bounds the admission queue: ``submit`` returns None
     (shed) when it is full.  Finished results accumulate in ``results``
-    until ``drain_results()`` takes them."""
+    until ``drain_results()`` takes them.  ``kv_dtype``, ``weight_dtype``,
+    ``kv_parity_check`` and ``spec_k`` are ``ServeConfig``'s knobs."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config,
                  max_slots: int = 8, max_seq: int = 256,
@@ -133,15 +145,53 @@ class ServingEngine:
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
-                 attn_impl: str = "kernel", device: Any = "cuda"):
+                 attn_impl: str = "kernel", device: Any = "cuda",
+                 kv_dtype: str = "model", weight_dtype: str = "model",
+                 kv_parity_check: bool = True, spec_k: int = 0):
+        # core.config imports serve (its pool geometry check): late import.
+        from trustworthy_dl_tpu_torch.core.config import validate_spec
+
+        q8.validate_dtypes(kv_dtype, weight_dtype)
+        validate_spec(spec_k, True, weight_dtype)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.spec_k = int(spec_k)
+        self.kv_fallback_reason: Optional[str] = None
         params = gpt2.map_tree(lambda a: a.to(self.device), params)
+        # The decode view, built once and shared by the parity probe, the
+        # scheduler and the int8 self-draft (one walk of the weights each).
+        base_view = gen._decode_view(params, cfg)
+        view = (q8.quantize_decode_view(params, cfg, view=base_view)
+                if weight_dtype == "int8" else base_view)
+        draft_view = (q8.draft_decode_view(params, cfg, dense_view=base_view)
+                      if self.spec_k > 0 else None)
+        if kv_dtype == "int8" and kv_parity_check:
+            if not q8.kv_parity_probe(view, cfg):
+                self.kv_fallback_reason = "kv_parity_probe_failed"
+                kv_dtype = "model"
+                # Keep the HBM budget the int8 pool planned for: the
+                # model-dtype pool shrinks to what those bytes buy.
+                if num_blocks is None:
+                    num_blocks = max_slots * (max_seq // block_size)
+                fallback = max(
+                    max_seq // block_size,
+                    num_blocks * kv_bytes_per_token(cfg, torch.int8)
+                    // kv_bytes_per_token(cfg))
+                logger.warning(
+                    "int8 KV parity probe failed: falling back to the "
+                    "model-dtype paged pool, shrinking %d -> %d blocks to "
+                    "stay inside the int8 pool's byte budget", num_blocks,
+                    fallback)
+                num_blocks = fallback
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
         self.scheduler = PagedBatchingScheduler(
             params, cfg, max_slots, max_seq, self.device,
             block_size=block_size, num_blocks=num_blocks,
             prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, view=view, kv_dtype=kv_dtype,
+            weight_dtype=weight_dtype, spec_k=self.spec_k,
+            draft_view=draft_view)
         self.queue_limit = queue_limit
         self.seed = int(seed)
         self.monitor = monitor if monitor is not None else (
@@ -175,7 +225,11 @@ class ServingEngine:
                    num_blocks=serve_config.num_blocks,
                    prefix_cache=serve_config.prefix_cache,
                    prefill_chunk=serve_config.prefill_chunk,
-                   attn_impl=serve_config.attn_impl, **kwargs)
+                   attn_impl=serve_config.attn_impl,
+                   kv_dtype=serve_config.kv_dtype,
+                   weight_dtype=serve_config.weight_dtype,
+                   kv_parity_check=serve_config.kv_parity_check,
+                   spec_k=serve_config.spec_k, **kwargs)
 
     # -- submission --------------------------------------------------------
 
@@ -199,16 +253,12 @@ class ServingEngine:
             return None
         request_id = self._next_id
         self._next_id += 1
-        generator = None
-        if request.temperature > 0.0:
-            seed = (request.seed if request.seed is not None
-                    else self.seed * 1_000_003 + request_id)
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(int(seed))
+        seed = (request.seed if request.seed is not None
+                else self.seed * 1_000_003 + request_id)
         task = SlotTask(request_id=request_id, prompt=prompt,
                         max_new_tokens=int(request.max_new_tokens),
                         temperature=float(request.temperature),
-                        generator=generator, eos_id=request.eos_id)
+                        seed=int(seed), eos_id=request.eos_id)
         self._queue.append((task, request))
         self._submit_t[request_id] = time.perf_counter()
         return request_id
@@ -239,10 +289,16 @@ class ServingEngine:
             if rid not in self._inflight:
                 continue
             _, request = self._inflight[rid]
-            self._timing.setdefault(rid, []).append(time.perf_counter())
-            if request.on_token is not None:
-                request.on_token(rid, task.emitted[-1])
-            emitted += 1
+            # The tokens this tick added: those past the ones already
+            # timed.  A speculative tick can add several at once (their
+            # ITLs are honest near-zeros: they landed together).
+            times = self._timing.setdefault(rid, [])
+            new_tokens = task.emitted[len(times):]
+            for token in new_tokens:
+                times.append(time.perf_counter())
+                if request.on_token is not None:
+                    request.on_token(rid, token)
+            emitted += len(new_tokens)
             if task.done:
                 self._finish(task, request, "completed")
             elif self._expired(request, rid):
@@ -359,6 +415,9 @@ class ServingEngine:
         out: Dict[str, Any] = {
             "device": str(self.device),
             "attn_impl": sched.attn_impl,
+            "kv_dtype": self.kv_dtype,
+            "weight_dtype": self.weight_dtype,
+            "kv_fallback_reason": self.kv_fallback_reason,
             "requests_completed": self._status_counts.get("completed", 0),
             "requests_deadline_exceeded":
                 self._status_counts.get("deadline_exceeded", 0),
@@ -384,5 +443,19 @@ class ServingEngine:
             "prefix_hit_rate": (sched.prefix_hits / sched.prefix_lookups
                                 if sched.prefix_lookups else 0.0),
         }
+        if self.spec_k:
+            out.update({
+                "spec_k": self.spec_k,
+                "spec_proposed": sched.spec_proposed,
+                "spec_accepted": sched.spec_accepted,
+                "accepted_rate": sched.accepted_rate,
+                "spec_near_tie_flips": sched.spec_near_tie_flips,
+                "spec_ticks": sched.spec_ticks,
+                "spec_fallback_ticks": sched.spec_fallback_ticks,
+                "spec_draft_s": sched.spec_draft_s,
+                "spec_verify_s": sched.spec_verify_s,
+                "spec_verify_fraction": (sched.spec_verify_s / elapsed
+                                         if elapsed > 0 else 0.0),
+            })
         out.update(self.metrics.summary())
         return out

@@ -11,6 +11,8 @@ reference counts so prompt prefixes shared through the radix
 ``PrefixCache`` free only when their last holder lets go, and the
 quarantine set impounds the private blocks of a flagged request.  A
 request only ever writes blocks it owns alone, so sharing needs no copy.
+The int8 tier pages f32 per-(head, position) scales ``[L, NUM_BLOCKS + 1,
+H, BLOCK]`` beside the int8 values, block for block.
 """
 
 from __future__ import annotations
@@ -27,10 +29,17 @@ TRASH_BLOCK = 0
 
 
 class PagedKV(NamedTuple):
-    """Block-pooled K/V: ``[L, NUM_BLOCKS + 1, H, BLOCK, Dh]`` each."""
+    """Block-pooled K/V: ``[L, NUM_BLOCKS + 1, H, BLOCK, Dh]`` each; on the
+    int8 tier ``k_scale``/``v_scale`` ``[L, NUM_BLOCKS + 1, H, BLOCK]``."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def num_blocks(self) -> int:
@@ -42,11 +51,17 @@ class PagedKV(NamedTuple):
         return self.k.shape[3]
 
 
-def kv_bytes_per_token(cfg: gpt2.GPT2Config) -> int:
-    """Bytes one cached position costs in the model-dtype pool (K and V,
-    every layer and head)."""
-    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-    return 2 * cfg.n_layer * cfg.n_head * cfg.head_dim * itemsize
+def kv_bytes_per_token(cfg: gpt2.GPT2Config,
+                       dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes one cached position costs (K and V, every layer and head) in a
+    pool of ``dtype`` (default the compute dtype); int8 counts one byte an
+    element plus the 4-byte per-(head, position) scale."""
+    dtype = cfg.dtype if dtype is None else dtype
+    heads = cfg.n_layer * cfg.n_head
+    if dtype == torch.int8:
+        return 2 * heads * (cfg.head_dim + 4)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return 2 * heads * cfg.head_dim * itemsize
 
 
 def validate_paged_geometry(max_seq: int, block_size: int,
@@ -82,18 +97,28 @@ def resolve_prefill_chunk(max_seq: int, block_size: int,
 
 
 def init_paged_pool(cfg: gpt2.GPT2Config, num_blocks: int, block_size: int,
-                    device: Any = "cpu") -> PagedKV:
-    """Allocate ``num_blocks`` usable blocks (+1 trash) of zeros in the
-    model dtype."""
+                    device: Any = "cpu",
+                    kv_dtype: Optional[torch.dtype] = None) -> PagedKV:
+    """Allocate ``num_blocks`` usable blocks (+1 trash) of zeros in
+    ``kv_dtype`` (default the model dtype); ``torch.int8`` adds zero scale
+    planes (one tensor each: the port writes them in place)."""
     if num_blocks < 1:
         raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
     if block_size > cfg.n_positions:
         raise ValueError(f"block_size={block_size} exceeds the model's "
                          f"position table (n_positions={cfg.n_positions})")
+    kv_dtype = cfg.dtype if kv_dtype is None else kv_dtype
     shape = (cfg.n_layer, num_blocks + 1, cfg.n_head, block_size,
              cfg.head_dim)
-    return PagedKV(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+    pool = PagedKV(k=torch.zeros(shape, dtype=kv_dtype, device=device),
+                   v=torch.zeros(shape, dtype=kv_dtype, device=device))
+    if kv_dtype == torch.int8:
+        return pool._replace(
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device))
+    return pool
 
 
 class SlotAllocator:
@@ -194,6 +219,20 @@ class BlockAllocator:
         if block in self._quarantined:
             self._quarantined.discard(block)
             self._free.append(block)
+
+    def claim_speculative(self, blocks: Sequence[int]) -> None:
+        """Pin the blocks a speculative draft window is about to write: one
+        extra reference each, so while un-verified draft K/V sits in them
+        no eviction can see them as single-holder-free."""
+        for b in blocks:
+            self.incref(b)
+
+    def release_speculative(self, blocks: Sequence[int]) -> None:
+        """Drop the speculative claims after the verify pass: the rollback.
+        Rejected positions lie past the accepted length, are causally
+        invisible and are overwritten by the next write."""
+        for b in blocks:
+            self.release(b)
 
     @property
     def free_count(self) -> int:

@@ -2,25 +2,42 @@
 
 Counterpart of the paged half of ``trustworthy_dl_tpu/serve/scheduler.py``.
 Each engine tick advances every mid-prefill slot by one chunk, then runs
-one fused decode step for every decode-phase slot.  Three device programs,
-as in the JAX package:
+one decode step for every decode-phase slot: the fused single-token step,
+or with ``spec_k`` > 0 a speculative tick.  The device programs, as in the
+JAX package:
 
 * ``_paged_prefill_impl``: a prompt that fits one chunk with no prefix
   hit runs through a full-precision local dense cache (plain torch ops,
-  no kernel), and its K/V are scattered into the pool block-wise;
+  no attention kernel), and its K/V are written into the pool block-wise
+  (quantized once there on an int8 pool);
 * ``_paged_chunk_impl``: one chunk of a longer prompt, or the suffix of a
   prefix-cache hit, attends through the pool (B6 on the kernel path);
 * ``_paged_decode_impl``: one token for every decode row, live or not
-  (inactive rows point at the trash block), through B5.
+  (inactive rows point at the trash block), through B5;
+* ``_spec_draft_impl`` / ``_spec_verify_impl``: ``spec_k`` single-token
+  draft steps with the int8 weight view (B4 in every block matrix, B5),
+  chained on the device, then one model-dtype forward over every slot's
+  window [last emitted, d_1 .. d_k] that overwrites the draft positions
+  with target K/V, with the fused verify tail (B8) on the kernel path.
 
 The trust signals of every first token and every decode tick come from
-``_logit_signals`` (B7 on the kernel path).  Host-facing outputs ride one
-packed f32 [3, B] tensor, one device-to-host copy per program.
+``_logit_signals`` (B7 on the kernel path); a verify pass's come from its
+tail.  Host-facing outputs ride one packed f32 tensor, one device-to-host
+copy per program (the draft chain adds one for its tokens).
 
-Sampling is per slot: greedy rows take the argmax, sampled rows one draw
-from their request's own ``torch.Generator`` (the counterpart of the JAX
-per-request key stream, whose threefry draws the port does not
-reproduce).  Speculative decoding, adapters, migration, the stripe
+Sampling: greedy rows take the argmax; a sampled row draws from
+softmax(logits / temp) with a generator seeded from (request seed,
+emission index) alone, so a token is a function of the seed, its index
+and the logits - the port's counterpart of the JAX per-request key stream
+(``request_key_stream``), whose threefry draws it does not reproduce.  A
+verify pass that samples k + 1 positions and keeps some therefore leaves
+the stream where spec-off decode would.
+
+The pool is updated IN PLACE.  Draft steps write draft K/V at positions
+[len, len + k); the verify pass, at the lengths fixed before the draft
+(a host copy), writes the target K/V of [len, len + k + 1) before it
+reads them; positions past the accepted length are causally invisible
+and are overwritten by the next tick.  Adapters, migration, the stripe
 scheduler and the compile watcher are not ported yet.
 """
 
@@ -28,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,12 +54,14 @@ import torch
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
 from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
+from trustworthy_dl_tpu_torch.quant import int8 as q8
 from trustworthy_dl_tpu_torch.serve.kv_slots import (
     TRASH_BLOCK,
     BlockAllocator,
     PagedKV,
     PrefixCache,
     SlotAllocator,
+    blocks_for_span,
     init_paged_pool,
     resolve_prefill_chunk,
     validate_paged_geometry,
@@ -49,19 +69,33 @@ from trustworthy_dl_tpu_torch.serve.kv_slots import (
 
 logger = logging.getLogger(__name__)
 
+_MASK64 = (1 << 64) - 1
 
-def _sample_tokens(logits: torch.Tensor,
-                   generators: Sequence[Optional[torch.Generator]],
-                   temps: Sequence[float], greedy: Sequence[bool]
-                   ) -> torch.Tensor:
-    """[B, V] -> [B]: argmax for greedy rows, one draw from
-    softmax(logits / temp) with the row's generator for the others."""
+
+def draw_seed(seed: int, index: int) -> int:
+    """The generator seed of emission ``index`` of a request seeded with
+    ``seed``: a SplitMix64 mix of the pair, in [0, 2**63)."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(index) + 1)
+         * 0xD1B54A32D192ED03) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def _sample_tokens(logits: torch.Tensor, seeds: Sequence[int],
+                   indices: Sequence[int], temps: Sequence[float],
+                   greedy: Sequence[bool]) -> torch.Tensor:
+    """[B, V] -> [B]: argmax for greedy rows; for the others one draw from
+    softmax(logits / temp) with the generator of (seed, emission index),
+    made fresh for the draw: no generator state is shared between draws,
+    engines or threads."""
     tokens = logits.argmax(dim=-1)
     for i, is_greedy in enumerate(greedy):
         if not is_greedy:
             probs = torch.softmax(logits[i] / max(temps[i], 1e-6), dim=-1)
-            tokens[i] = torch.multinomial(probs, 1,
-                                          generator=generators[i])[0]
+            gen_ = torch.Generator(device=logits.device).manual_seed(
+                draw_seed(seeds[i], indices[i]))
+            tokens[i] = torch.multinomial(probs, 1, generator=gen_)[0]
     return tokens
 
 
@@ -83,53 +117,63 @@ def _pack_step_outputs(tokens: torch.Tensor, entropy: torch.Tensor,
 
 
 def _local_prefill(cfg: gpt2.GPT2Config, view: Any, tokens: torch.Tensor,
-                   real_len: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   real_len: int, quantized: bool = False
+                   ) -> Tuple[torch.Tensor, ...]:
     """Run the blocks over the padded prompt [C] through a full-precision
     local cache; returns (logits at ``real_len - 1`` [1, V], local K,
-    local V [L, 1, H, C, Dh])."""
+    local V [L, 1, H, C, Dh], K scales, V scales [L, 1, H, C]).  With
+    ``quantized`` the K/V come back int8 with their scales (quantized once,
+    here); else the scales are None."""
     local = gen.init_cache(cfg, 1, tokens.shape[0], tokens.device)
     logits, local = gen._apply_with_cache(view, tokens[None], local, cfg,
                                           last_pos=real_len - 1)
-    return logits, local.k, local.v
+    if quantized:
+        k_rows, k_s = q8.quantize_kv(local.k)
+        v_rows, v_s = q8.quantize_kv(local.v)
+        return logits, k_rows, v_rows, k_s, v_s
+    return logits, local.k, local.v, None, None
 
 
-def _sample_pack(logits: torch.Tensor,
-                 generator: Optional[torch.Generator], temp: float,
+def _sample_pack(logits: torch.Tensor, seed: int, index: int, temp: float,
                  greedy: bool, attn_impl: str) -> torch.Tensor:
     """Single-slot tail: first token + trust signals, packed [3, 1]."""
-    token = _sample_tokens(logits, [generator], [temp], [greedy])
+    token = _sample_tokens(logits, [seed], [index], [temp], [greedy])
     entropy, margin = _logit_signals(logits, attn_impl)
     return _pack_step_outputs(token, entropy, margin)
 
 
 def _paged_prefill_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
                         tokens: torch.Tensor, real_len: int,
-                        block_ids: torch.Tensor,
-                        generator: Optional[torch.Generator], temp: float,
+                        block_ids: torch.Tensor, seed: int, temp: float,
                         greedy: bool, attn_impl: str) -> torch.Tensor:
     """Whole-prompt prefill into the pool: the local-cache prologue, then
-    the local K/V re-laid out block-wise and written at ``block_ids``
-    (entries past the slot's allocation point at the trash block)."""
+    the local K/V (and scales, on an int8 pool) re-laid out block-wise and
+    written at ``block_ids`` (entries past the slot's allocation point at
+    the trash block)."""
     c = tokens.shape[0]
     bsz = kv.block_size
-    logits, k_rows, v_rows = _local_prefill(cfg, view, tokens, real_len)
+    logits, k_rows, v_rows, k_s, v_s = _local_prefill(
+        cfg, view, tokens, real_len, kv.quantized)
 
     def to_blocks(a: torch.Tensor) -> torch.Tensor:
-        l, _, h, _, dh = a.shape                   # [L, 1, H, C, Dh]
-        a = a[:, 0].permute(0, 2, 1, 3).reshape(l, c // bsz, bsz, h, dh)
-        return a.permute(0, 1, 3, 2, 4).to(kv.k.dtype)
+        # [L, 1, H, C(, Dh)] -> [L, C/BLOCK, H, BLOCK(, Dh)]
+        l, _, h = a.shape[:3]
+        a = a[:, 0].transpose(1, 2).reshape(l, c // bsz, bsz, h,
+                                            *a.shape[4:])
+        return a.transpose(2, 3)
 
-    kv.k[:, block_ids] = to_blocks(k_rows)
-    kv.v[:, block_ids] = to_blocks(v_rows)
-    return _sample_pack(logits, generator, temp, greedy, attn_impl)
+    kv.k[:, block_ids] = to_blocks(k_rows).to(kv.k.dtype)
+    kv.v[:, block_ids] = to_blocks(v_rows).to(kv.v.dtype)
+    if kv.quantized:
+        kv.k_scale[:, block_ids] = to_blocks(k_s)
+        kv.v_scale[:, block_ids] = to_blocks(v_s)
+    return _sample_pack(logits, seed, 0, temp, greedy, attn_impl)
 
 
 def _paged_chunk_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
                       tokens: torch.Tensor, table: torch.Tensor,
                       start: torch.Tensor, last_idx: int, final: bool,
-                      generator: Optional[torch.Generator], temp: float,
-                      greedy: bool, attn_impl: str
+                      seed: int, temp: float, greedy: bool, attn_impl: str
                       ) -> Optional[torch.Tensor]:
     """One chunk of a paged prefill: C prompt positions from ``start``
     (i32 [1]) attending to everything already in the slot's blocks and
@@ -138,26 +182,79 @@ def _paged_chunk_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
     host drops them; here the host knows which chunk is final)."""
     out = gen._apply_with_cache_paged(
         view, tokens[None], kv.k, kv.v, table, start, cfg,
-        last_pos=last_idx, attn_impl=attn_impl, hidden=not final)
+        last_pos=last_idx, attn_impl=attn_impl, hidden=not final,
+        pool_ks=kv.k_scale, pool_vs=kv.v_scale)
     if not final:
         return None
-    return _sample_pack(out, generator, temp, greedy, attn_impl)
+    return _sample_pack(out, seed, 0, temp, greedy, attn_impl)
 
 
 def _paged_decode_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
                        tokens: torch.Tensor, tables: torch.Tensor,
-                       lengths: torch.Tensor,
-                       generators: Sequence[Optional[torch.Generator]],
-                       temps: Sequence[float], greedy: Sequence[bool],
-                       attn_impl: str) -> torch.Tensor:
+                       lengths: torch.Tensor, seeds: Sequence[int],
+                       indices: Sequence[int], temps: Sequence[float],
+                       greedy: Sequence[bool], attn_impl: str
+                       ) -> torch.Tensor:
     """The fused paged decode step: one token for every row; returns the
     packed [3, MAX_SLOTS] outputs."""
     logits = gen._apply_with_cache_paged(view, tokens[:, None], kv.k, kv.v,
                                          tables, lengths, cfg,
-                                         attn_impl=attn_impl)
-    next_tok = _sample_tokens(logits, generators, temps, greedy)
+                                         attn_impl=attn_impl,
+                                         pool_ks=kv.k_scale,
+                                         pool_vs=kv.v_scale)
+    next_tok = _sample_tokens(logits, seeds, indices, temps, greedy)
     entropy, margin = _logit_signals(logits, attn_impl)
     return _pack_step_outputs(next_tok, entropy, margin)
+
+
+def _spec_draft_impl(cfg: gpt2.GPT2Config, kv: PagedKV, draft_view: Any,
+                     tokens: torch.Tensor, tables: torch.Tensor,
+                     lengths: torch.Tensor, seeds: Sequence[int],
+                     indices: Sequence[int], temps: Sequence[float],
+                     greedy: Sequence[bool], attn_impl: str
+                     ) -> torch.Tensor:
+    """One draft step of the speculative tick: the fused decode body with
+    the int8 draft view; returns the next tokens [R] on the device (the
+    chain feeds on-device) and skips the trust reductions (draft logits
+    never reach the monitor)."""
+    logits = gen._apply_with_cache_paged(draft_view, tokens[:, None], kv.k,
+                                         kv.v, tables, lengths, cfg,
+                                         attn_impl=attn_impl,
+                                         pool_ks=kv.k_scale,
+                                         pool_vs=kv.v_scale)
+    return _sample_tokens(logits, seeds, indices, temps, greedy)
+
+
+def _spec_verify_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
+                      tokens: torch.Tensor, tables: torch.Tensor,
+                      lengths: torch.Tensor, seeds: Sequence[int],
+                      indices: Sequence[int], temps: Sequence[float],
+                      greedy: Sequence[bool], attn_impl: str
+                      ) -> torch.Tensor:
+    """The batched verify: one model-dtype forward over every slot's window
+    ``tokens`` [R, k+1] at the pre-draft ``lengths``, overwriting the draft
+    positions with target K/V (quantized at the write on an int8 pool), and
+    per-position sampling at emission indices ``indices`` [R*(k+1)].  The
+    tail is the fused verify kernel (B8) on the kernel path, the
+    materialised logits plus the plain trust reductions otherwise.  Returns
+    the packed [3, R, k+1]."""
+    r, t = tokens.shape
+    paged = dict(attn_impl=attn_impl, pool_ks=kv.k_scale,
+                 pool_vs=kv.v_scale)
+    if attn_impl == "kernel":
+        x = gen._apply_with_cache_paged(view, tokens, kv.k, kv.v, tables,
+                                        lengths, cfg, hidden=True, **paged)
+        logits, ent, margin = gen.fused_verify_logits(view, x, cfg)
+        flat = logits.reshape(r * t, -1)
+    else:
+        logits = gen._apply_with_cache_paged(view, tokens, kv.k, kv.v,
+                                             tables, lengths, cfg,
+                                             all_logits=True, **paged)
+        flat = logits.reshape(r * t, -1)
+        ent, margin = _logit_signals(flat, attn_impl)
+    tok = _sample_tokens(flat, np.repeat(seeds, t), indices,
+                         np.repeat(temps, t), np.repeat(greedy, t))
+    return _pack_step_outputs(tok, ent, margin).reshape(3, r, t)
 
 
 def _device_i32(device: torch.device, *arrays: np.ndarray
@@ -181,7 +278,7 @@ class SlotTask:
     prompt: np.ndarray            # i32 [P] token ids
     max_new_tokens: int
     temperature: float
-    generator: Optional[torch.Generator] = None   # None for greedy
+    seed: int = 0                 # sampling seed (unused when greedy)
     eos_id: Optional[int] = None
     slot: int = -1
     emitted: List[int] = dataclasses.field(default_factory=list)
@@ -220,16 +317,26 @@ class PagedBatchingScheduler:
     A request claims ``ceil((prompt + max_new) / BLOCK)`` blocks at
     admission, reusing cached prefix blocks where its prompt matches the
     radix cache; prefill then covers only the unshared suffix, one chunk
-    per tick, interleaved with the fused decode step.  Host state: per
-    slot lengths and block tables (numpy/lists), the task table and the
-    allocators.  Device state: the pool, updated in place."""
+    per tick, interleaved with the decode step.  Host state: per slot
+    lengths and block tables (numpy/lists), the task table and the
+    allocators.  Device state: the pool, updated in place.
+
+    ``kv_dtype`` selects the pool's storage (``"int8"``: int8 values with
+    f32 scales; the prefill chunk then defaults to ``max_seq``, so a fresh
+    prompt prefills through the full-precision local cache in one piece).
+    ``view`` is the served weight view (built here when None: weight-only
+    int8 under ``weight_dtype="int8"``); ``spec_k`` > 0 with ``draft_view``
+    (the int8 self-draft) turns decode ticks speculative."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config, max_slots: int,
                  max_seq: int, device: torch.device,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
-                 attn_impl: str = "kernel", view: Any = None):
+                 attn_impl: str = "kernel", view: Any = None,
+                 kv_dtype: str = "model", weight_dtype: str = "model",
+                 spec_k: int = 0, draft_view: Any = None):
+        q8.validate_dtypes(kv_dtype, weight_dtype)
         validate_paged_geometry(max_seq, block_size, num_blocks,
                                 prefill_chunk)
         if max_seq > cfg.n_positions:
@@ -242,15 +349,28 @@ class PagedBatchingScheduler:
         self.cfg = cfg
         self.device = device
         self.attn_impl = attn_impl
-        self.view = view if view is not None else gen._decode_view(params,
-                                                                   cfg)
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
+        if view is None:
+            view = (q8.quantize_decode_view(params, cfg)
+                    if weight_dtype == "int8"
+                    else gen._decode_view(params, cfg))
+        self.view = view
         self.block_size = block_size
         self.nbps = max_seq // block_size
         self.num_blocks = (num_blocks if num_blocks is not None
                            else max_slots * self.nbps)
-        self.chunk = resolve_prefill_chunk(max_seq, block_size,
-                                           prefill_chunk)
-        self.kv = init_paged_pool(cfg, self.num_blocks, block_size, device)
+        if prefill_chunk is None and kv_dtype == "int8":
+            # A chunked continuation would attend to already-quantized
+            # blocks; the one-chunk local prefill sees exact K/V (the JAX
+            # engine's default for the same reason).
+            self.chunk = max_seq
+        else:
+            self.chunk = resolve_prefill_chunk(max_seq, block_size,
+                                               prefill_chunk)
+        self.kv = init_paged_pool(cfg, self.num_blocks, block_size, device,
+                                  kv_dtype=q8.resolve_kv_dtype(kv_dtype,
+                                                               cfg))
         self.allocator = SlotAllocator(max_slots)
         self.blocks = BlockAllocator(self.num_blocks)
         self.prefix = (PrefixCache(block_size, self.blocks)
@@ -268,6 +388,23 @@ class PagedBatchingScheduler:
         self.decode_ticks = 0
         self.local_prefills = 0
         self.prefill_chunks = 0
+        # -- speculative decoding (spec_k > 0) --------------------------------
+        self.spec_k = int(spec_k)
+        self.draft_view = draft_view
+        if self.spec_k > 0 and draft_view is None:
+            raise ValueError(
+                "spec_k > 0 needs a draft_view (the int8 weight tier; "
+                "quant.int8.draft_decode_view - the engine builds it)")
+        self._spec_claims: Dict[int, List[int]] = {}
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_near_tie_flips = 0
+        self.spec_ticks = 0
+        self.spec_fallback_ticks = 0
+        # Host wall time in the two phases (the draft chain syncs at its
+        # token copy, the verify at its packed copy).
+        self.spec_draft_s = 0.0
+        self.spec_verify_s = 0.0
 
     # -- admission ---------------------------------------------------------
 
@@ -293,6 +430,13 @@ class PagedBatchingScheduler:
     @property
     def blocks_in_use(self) -> int:
         return self.blocks.in_use
+
+    @property
+    def accepted_rate(self) -> float:
+        """Fraction of proposable draft tokens that became stream tokens
+        (a slot with r tokens of budget left can propose at most r - 1)."""
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
 
     def admit(self, task: SlotTask) -> bool:
         """Claim a decode row and the request's blocks (reusing cached
@@ -364,7 +508,7 @@ class PagedBatchingScheduler:
             tokens, ids_dev = _device_i32(self.device, chunk, ids)
             packed = _paged_prefill_impl(
                 self.cfg, self.kv, self.view, tokens.long(), st.plen,
-                ids_dev.long(), task.generator, temp, task.greedy,
+                ids_dev.long(), task.seed, temp, task.greedy,
                 self.attn_impl)
             self.local_prefills += 1
         else:
@@ -374,7 +518,7 @@ class PagedBatchingScheduler:
                 np.array([st.pos]))
             packed = _paged_chunk_impl(
                 self.cfg, self.kv, self.view, tokens.long(), table, start,
-                last_idx, final, task.generator, temp, task.greedy,
+                last_idx, final, task.seed, temp, task.greedy,
                 self.attn_impl)
             self.prefill_chunks += 1
         if not final:
@@ -393,9 +537,11 @@ class PagedBatchingScheduler:
         return task
 
     def decode_tick(self) -> List[SlotTask]:
-        """Advance every mid-prefill slot by one chunk, then run the fused
-        decode step for every decode-phase slot.  Returns the tasks that
-        received a token."""
+        """Advance every mid-prefill slot by one chunk, then run the decode
+        step for every decode-phase slot: a speculative tick when
+        ``spec_k`` > 0 and some live slot has more than one token left,
+        else the fused single-token step.  Returns the tasks that received
+        tokens."""
         ticked: List[SlotTask] = []
         finished_prefill = set()
         for slot in sorted(self._prefill):
@@ -408,23 +554,32 @@ class PagedBatchingScheduler:
                   and s not in finished_prefill}
         if not active:
             return ticked
+        if self.spec_k > 0:
+            if any(t.max_new_tokens - len(t.emitted) > 1
+                   for t in active.values()):
+                ticked.extend(self._spec_tick(active))
+                return ticked
+            # Every live slot has one token left: drafting would be waste.
+            self.spec_fallback_ticks += 1
         ms = self.allocator.max_slots
         tokens = np.zeros(ms, np.int32)
         tables = np.full((ms, self.nbps), TRASH_BLOCK, np.int32)
-        generators: List[Optional[torch.Generator]] = [None] * ms
+        seeds = [0] * ms
+        indices = [0] * ms
         temps = [1.0] * ms
         greedy = [True] * ms
         for slot, task in active.items():
             tokens[slot] = task.next_token
             tables[slot] = self._table_row(slot)
-            generators[slot] = task.generator
+            seeds[slot] = task.seed
+            indices[slot] = len(task.emitted)
             temps[slot] = max(task.temperature, 1e-6)
             greedy[slot] = task.greedy
         tokens_dev, tables_dev, lengths_dev = _device_i32(
             self.device, tokens, tables, self.lengths)
         packed = _paged_decode_impl(
             self.cfg, self.kv, self.view, tokens_dev.long(), tables_dev,
-            lengths_dev, generators, temps, greedy, self.attn_impl)
+            lengths_dev, seeds, indices, temps, greedy, self.attn_impl)
         self.decode_ticks += 1
         host = packed.cpu().numpy()      # the tick's one device-to-host copy
         next_tok, ent, margin = host[0], host[1], host[2]
@@ -435,18 +590,127 @@ class PagedBatchingScheduler:
             ticked.append(task)
         return ticked
 
+    def _spec_tick(self, active: Dict[int, SlotTask]) -> List[SlotTask]:
+        """One speculative tick for every decode-phase slot: claim the
+        draft window's blocks, draft ``spec_k`` tokens with the int8 view
+        (chained on the device), verify every window in one model-dtype
+        forward, accept per slot the longest prefix where the draft matched
+        the target (a greedy mismatch under a near-tie target margin, below
+        ``PARITY_MARGIN_TOL``, emits the draft token and goes on, counted
+        in ``spec_near_tie_flips``), then release the claims: rejection is
+        a refcount decrement plus not advancing the length past the
+        accepted prefix."""
+        k = self.spec_k
+        ms = self.allocator.max_slots
+        tokens0 = np.zeros(ms, np.int32)
+        tables = np.full((ms, self.nbps), TRASH_BLOCK, np.int32)
+        seeds = [0] * ms
+        temps = [1.0] * ms
+        greedy = [True] * ms
+        # Emission index of window position i per slot: the index spec-off
+        # decode would sample at (clamped at the budget; past it the
+        # emissions are discarded anyway).
+        indices = np.zeros((ms, k + 1), np.int64)
+        proposable: Dict[int, int] = {}
+        for slot, task in active.items():
+            tokens0[slot] = task.next_token
+            tables[slot] = self._table_row(slot)
+            seeds[slot] = task.seed
+            temps[slot] = max(task.temperature, 1e-6)
+            greedy[slot] = task.greedy
+            base = len(task.emitted)
+            proposable[slot] = min(k, task.max_new_tokens - base - 1)
+            indices[slot] = np.minimum(base + np.arange(k + 1),
+                                       task.max_new_tokens - 1)
+            claimed = blocks_for_span(
+                self.tables[slot], self.block_size,
+                int(self.lengths[slot]), int(self.lengths[slot]) + k + 1)
+            self.blocks.claim_speculative(claimed)
+            self._spec_claims[slot] = claimed
+        # The verify reads the pre-draft lengths: a host copy, so no draft
+        # step can move them.
+        lengths0 = self.lengths.copy()
+        dev = _device_i32(self.device, tokens0, tables, lengths0,
+                          *[lengths0 + j for j in range(1, k)])
+        cur, tables_dev, lengths_dev = dev[0].long(), dev[1], dev[2]
+        draft_lengths = [lengths_dev] + dev[3:]
+        t0 = time.perf_counter()
+        draft_dev = []
+        for j in range(k):
+            cur = _spec_draft_impl(self.cfg, self.kv, self.draft_view, cur,
+                                   tables_dev, draft_lengths[j], seeds,
+                                   indices[:, j], temps, greedy,
+                                   self.attn_impl)
+            draft_dev.append(cur)
+        # One host copy for the whole draft chain.
+        drafts = torch.stack(draft_dev, dim=1).cpu().numpy()
+        t1 = time.perf_counter()
+        self.spec_draft_s += t1 - t0
+        window = torch.cat([dev[0].long()[:, None],
+                            torch.stack(draft_dev, dim=1)], dim=1)
+        packed = _spec_verify_impl(self.cfg, self.kv, self.view, window,
+                                   tables_dev, lengths_dev, seeds,
+                                   indices.reshape(-1), temps, greedy,
+                                   self.attn_impl)
+        host = packed.cpu().numpy()                      # [3, ms, k+1]
+        self.spec_verify_s += time.perf_counter() - t1
+        self.spec_ticks += 1
+        ticked: List[SlotTask] = []
+        tick_proposed = tick_accepted = 0
+        for slot, task in active.items():
+            tgt, ent, margin = host[0, slot], host[1, slot], host[2, slot]
+            d = drafts[slot]
+            # Position i emits the TARGET token (spec-off's token: same
+            # logits, same draw); the walk goes past i only when the draft
+            # guessed it, so every later target was conditioned on the
+            # true stream.
+            accepted: List[Tuple[int, float, float]] = []
+            for i in range(k + 1):
+                tok = int(tgt[i])
+                cont = False
+                if i < k:
+                    if int(d[i]) == tok:
+                        cont = True
+                    elif (task.greedy
+                          and float(margin[i]) < q8.PARITY_MARGIN_TOL):
+                        tok = int(d[i])
+                        self.spec_near_tie_flips += 1
+                        cont = True
+                accepted.append((tok, float(ent[i]), float(margin[i])))
+                if not cont:
+                    break
+            n_fed = 0
+            for tok, e_sig, m_sig in accepted:
+                task._record(tok, e_sig, m_sig)
+                n_fed += 1
+                if task.done:
+                    break          # eos or budget: later tokens discarded
+            # Positions [len, len + n_fed) now hold target K/V of the
+            # emitted stream; everything past is rejected draft K/V.
+            self.lengths[slot] += n_fed
+            tick_proposed += proposable[slot]
+            tick_accepted += max(n_fed - 1, 0)
+            self.blocks.release_speculative(self._spec_claims.pop(slot, []))
+            ticked.append(task)
+        self.spec_proposed += tick_proposed
+        self.spec_accepted += tick_accepted
+        return ticked
+
     # -- retirement --------------------------------------------------------
 
     def retire(self, task: SlotTask, quarantine: bool = False) -> None:
         """Release the task's row and drop its block references.  Under
         ``quarantine`` the blocks the task itself published leave the
         prefix cache first, then its unshared blocks are impounded with
-        the row until an operator releases them."""
+        the row until an operator releases them.  Outstanding speculative
+        claims unwind first, so a claim can never keep a suspect block
+        "shared" past its owner."""
         slot = task.slot
         if slot < 0 or self.tasks.get(slot) is not task:
             return
         del self.tasks[slot]
         self._prefill.pop(slot, None)
+        self.blocks.release_speculative(self._spec_claims.pop(slot, []))
         published = self._published.pop(slot, [])
         if quarantine and self.prefix is not None and published:
             self.prefix.purge(set(published))

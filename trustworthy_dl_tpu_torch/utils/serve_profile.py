@@ -1,6 +1,7 @@
 """Where a serve run's time goes on the card.
 
     python -m trustworthy_dl_tpu_torch.utils.serve_profile [--attn-impl kernel]
+        [--kv-dtype int8] [--weight-dtype int8] [--spec-k 4]
 
 Serves the smoke traffic (:func:`smoke_traffic`, the same 16 requests
 ``chip_smoke.py`` drives) on GPT-2 small (bf16, random weights from seed
@@ -40,16 +41,34 @@ def smoke_traffic(vocab: int) -> List[Tuple[List[int], float]]:
     return [(p, 0.8 if i % 4 == 3 else 0.0) for i, p in enumerate(prompts)]
 
 
-def serve_smoke(cfg, params, attn_impl: str, requests, max_new: int = 32):
-    """Serve ``requests`` on a fresh engine with the smoke geometry (8
-    slots, 512 positions, 16-token blocks, 64-token chunks, prefix cache);
-    returns (engine, results, wall seconds)."""
-    from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+def smoke_engine(cfg, params, attn_impl: str, **engine_kwargs):
+    """A fresh engine with the smoke geometry (8 slots, 512 positions,
+    16-token blocks, 64-token chunks unless ``engine_kwargs`` say
+    otherwise, prefix cache); ``engine_kwargs`` pass through to
+    ``ServingEngine`` (``kv_dtype``, ``weight_dtype``, ``spec_k``,
+    ``prefill_chunk``, ...)."""
+    from trustworthy_dl_tpu_torch.serve import ServingEngine
 
-    engine = ServingEngine(params, cfg, max_slots=8, max_seq=512,
-                           block_size=16, prefill_chunk=64,
-                           prefix_cache=True, attn_impl=attn_impl,
-                           device="cuda")
+    kwargs = dict(max_slots=8, max_seq=512, block_size=16, prefill_chunk=64,
+                  prefix_cache=True, attn_impl=attn_impl, device="cuda")
+    kwargs.update(engine_kwargs)
+    return ServingEngine(params, cfg, **kwargs)
+
+
+def serve_smoke(cfg, params, attn_impl: str, requests, max_new: int = 32,
+                **engine_kwargs):
+    """Serve ``requests`` on a fresh :func:`smoke_engine`.  Returns
+    (engine, results, wall seconds)."""
+    engine = smoke_engine(cfg, params, attn_impl, **engine_kwargs)
+    results, wall = drive_smoke(engine, requests, max_new)
+    return engine, results, wall
+
+
+def drive_smoke(engine, requests, max_new: int = 32):
+    """Submit ``requests`` to ``engine`` and run it until idle.  Returns
+    (results, wall seconds)."""
+    from trustworthy_dl_tpu_torch.serve import ServeRequest
+
     for prompt, temp in requests:
         if engine.submit(ServeRequest(prompt=prompt, max_new_tokens=max_new,
                                       temperature=temp)) is None:
@@ -57,7 +76,7 @@ def serve_smoke(cfg, params, attn_impl: str, requests, max_new: int = 32):
     t0 = time.perf_counter()
     results = engine.run_until_idle()
     torch.cuda.synchronize()
-    return engine, results, time.perf_counter() - t0
+    return results, time.perf_counter() - t0
 
 
 def _device_us(evt) -> float:
@@ -71,8 +90,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--attn-impl", default="kernel",
                         choices=["kernel", "plain"])
+    parser.add_argument("--kv-dtype", default="model",
+                        choices=["model", "bfloat16", "float32", "int8"])
+    parser.add_argument("--weight-dtype", default="model",
+                        choices=["model", "int8"])
+    parser.add_argument("--spec-k", type=int, default=0)
+    parser.add_argument("--prefill-chunk", type=int, default=64,
+                        help="0 = the engine's default for the pool")
     parser.add_argument("--top", type=int, default=12)
     args = parser.parse_args(argv)
+    knobs = dict(kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
+                 spec_k=args.spec_k, prefill_chunk=args.prefill_chunk or None)
     if not torch.cuda.is_available():
         print("serve_profile: needs a CUDA card", file=sys.stderr)
         return 1
@@ -85,12 +113,14 @@ def main(argv=None) -> int:
     params = gpt2.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     requests = smoke_traffic(cfg.vocab_size)
-    serve_smoke(cfg, params, args.attn_impl, requests[:1])      # warm-up
-    engine, _, wall = serve_smoke(cfg, params, args.attn_impl, requests)
+    serve_smoke(cfg, params, args.attn_impl, requests[:1], **knobs)  # warm-up
+    engine, _, wall = serve_smoke(cfg, params, args.attn_impl, requests,
+                                  **knobs)
     summary = engine.metrics_summary()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, prof_wall = serve_smoke(cfg, params, args.attn_impl, requests)
+        _, _, prof_wall = serve_smoke(cfg, params, args.attn_impl, requests,
+                                      **knobs)
     # Device-side events only: an operator's own row repeats the time of
     # the kernels it launched.
     kernels = [e for e in prof.key_averages()
@@ -98,7 +128,10 @@ def main(argv=None) -> int:
     device_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:args.top]
     print(json.dumps({
-        "attn_impl": args.attn_impl,
+        "attn_impl": args.attn_impl, **knobs,
+        "spec": {k: summary[k] for k in ("spec_ticks", "accepted_rate",
+                                         "spec_draft_s", "spec_verify_s")
+                 if k in summary},
         "device": torch.cuda.get_device_name(0),
         "wall_s": wall, "profiled_wall_s": prof_wall,
         "device_kernel_s": device_us / 1e6,
