@@ -12,7 +12,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build: compile the CUDA kernels from ``trustworthy_dl_tpu_torch/ops/
    csrc`` with nvcc for sm_90a (one nvcc per source, started together).
 3. kernels: call each kernel's wrapper at its path's shapes (serving's
-   for B4-B8 and the int8 branches of B5/B6, training's for B1-B3), hold
+   for B4-B9 and the int8 branches of B5/B6, training's for B1-B3), hold
    it against its plain PyTorch version on the same inputs, and time the
    kernel, the plain version and a library yardstick (median of
    per-launch CUDA-event timings, L2 flushed before each launch).
@@ -32,6 +32,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
 4c. serve_int8_weights: ``weight_dtype="int8"``, ``spec_k=0``, the same
    traffic; B4's launch count exact; greedy streams against the plain
    path.
+4d. serve_adapters, serve_adapters_int8: the same traffic from 8 tenants
+   through rank-16 adapters (bf16 pages, then int8 pages with scales), the
+   pool one page short of the adapters the tenants' Zipf map assigns; B9's
+   launches exactly 2 x 12 per decode tick and per chunk, none on the
+   plain path; greedy streams against the plain path; at least one
+   eviction, no leaked page or block, and some greedy stream moved from
+   the rank-0 serve drive's.
 5. train: ``DistributedTrainer.train_epoch`` on GPT-2 small at full width
    (T = 1024, 4 nodes x 8 sequences, AdamW lr 1e-4, block remat, flash
    attention through ``attn_impl="auto"``, synthetic tokens from seed 0),
@@ -97,6 +104,12 @@ SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/paged_attention.cu"
 STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
 DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
+ADAPTER_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/adapter_delta.cu"
+# B9: f32 sums of bf16 or int8 x bf16 products in another order than the
+# plain twin's einsum: within 1e-5 of the plain output's largest
+# magnitude; rows on the zero page exactly 0.0.
+ADAPTER_RTOL = 1e-5
+ADAPTER_RANK = 16
 # B4: each output within 1e-5 of sum |x| |w| scale over its terms (f32
 # summation order only: bf16 x int8 products are exact in f32).  B8: the
 # logits within one bf16 step of the plain twin's plus that same f32 sum
@@ -151,6 +164,33 @@ def time_ms(torch, fn, flush, reps: int = 25) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, flush, kernel: str, reps: int = 25) -> float:
+    """Mean device time of one call's ``kernel`` (a substring of the CUDA
+    kernel's name) over ``reps`` calls with the L2 flushed before each,
+    from ``torch.profiler``: the kernel's own time, where ``time_ms``'s
+    event window also holds the host's dispatch of the call whenever the
+    card waits for it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from trustworthy_dl_tpu_torch.utils.serve_profile import device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key]
+    calls = sum(e.count for e in found)
+    if calls != reps:
+        raise AssertionError(f"profiler saw {calls} launches of {kernel}, "
+                             f"want {reps}")
+    return sum(device_us(e) for e in found) / calls / 1e3
 
 
 def attention_bound(starts, t, h, dh, kv_itemsize, cap, scale_itemsize=0):
@@ -289,6 +329,7 @@ def check_kernels(torch, pa):
     check_int8_attention(torch, pa, entries, flush, rng)
     check_dequant_matmul(torch, entries, flush)
     check_verify_tail(torch, pa, entries, flush)
+    check_adapter_delta(torch, pa, entries, flush)
     return entries
 
 
@@ -492,6 +533,114 @@ def check_verify_tail(torch, pa, entries, flush):
     }
 
 
+def check_adapter_delta(torch, pa, entries, flush):
+    """B9 at the serve path's shapes against its plain twin, on one site of
+    one layer of a GPT-2-small adapter pool [12, 5, 2, 768, 16] (a strided
+    view, as the engine passes it), bf16 pages and int8 pages with
+    per-page scales: decode rows R = 8, T = 1 over pages [0, 1, 2, 2, 3, 0,
+    4, 1] (zero page and duplicates), a 64-position chunk, and a ragged
+    T = 20 over pages [3, 0].  Yardstick: the page gather and two
+    ``torch.bmm`` in bf16, scaled.  The entry's numbers are the bf16
+    decode case (the path's most frequent launch); every case is in
+    ``cases``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_layer, pages, d, rank = 12, 4, 768, ADAPTER_RANK
+    shape_a = (n_layer, pages + 1, 2, d, rank)
+    shape_b = (n_layer, pages + 1, 2, rank, d)
+    tiers = {}
+    a = (torch.randn(shape_a, device=dev, generator=gen) * 0.02).to(
+        torch.bfloat16)
+    b = (torch.randn(shape_b, device=dev, generator=gen) * 0.02).to(
+        torch.bfloat16)
+    a[:, 0] = 0
+    b[:, 0] = 0
+    tiers["bf16"] = (a, b, None, None)
+    qa = torch.randint(-127, 128, shape_a, device=dev, generator=gen,
+                       dtype=torch.int8)
+    qb = torch.randint(-127, 128, shape_b, device=dev, generator=gen,
+                       dtype=torch.int8)
+    qa[:, 0] = 0
+    qb[:, 0] = 0
+    sa = torch.rand(n_layer, pages + 1, 2, device=dev, generator=gen) * 1e-3
+    sb = torch.rand(n_layer, pages + 1, 2, device=dev, generator=gen) * 1e-3
+    sa[:, 0] = 1.0
+    sb[:, 0] = 1.0
+    tiers["int8"] = (qa, qb, sa, sb)
+    layer, site = 3, 1
+    cases = []
+    for tier, (pa_, pb_, psa, psb) in tiers.items():
+        a_site, b_site = pa_[layer][:, site], pb_[layer][:, site]
+        sa_site = None if psa is None else psa[layer][:, site]
+        sb_site = None if psb is None else psb[layer][:, site]
+        for label, rows, t, page_list in (
+                ("decode", 8, 1, [0, 1, 2, 2, 3, 0, 4, 1]),
+                ("chunk", 1, 64, [2]), ("ragged", 2, 20, [3, 0])):
+            x = torch.randn(rows, t, d, device=dev, generator=gen).to(
+                torch.bfloat16)
+            pg = torch.tensor(page_list, dtype=torch.int32, device=dev)
+            args = (x, a_site, b_site, pg, sa_site, sb_site)
+            got = pa.adapter_delta(*args)
+            torch.cuda.synchronize()
+            ref = pa.adapter_delta_plain(*args)
+            err = float((got - ref).abs().max())
+            zero_rows = [i for i, p_ in enumerate(page_list) if p_ == 0]
+            if err > ADAPTER_RTOL * float(ref.abs().max()) \
+                    or not torch.isfinite(got).all() \
+                    or any(bool((got[i] != 0.0).any()) for i in zero_rows):
+                raise AssertionError(
+                    f"adapter_delta {tier} {label}: max abs err {err} "
+                    f"(limit {ADAPTER_RTOL} x {float(ref.abs().max())}), "
+                    f"zero-page rows {zero_rows} exact "
+                    f"{[bool((got[i] == 0.0).all()) for i in zero_rows]}")
+
+            def library(x=x, pg=pg, a_site=a_site, b_site=b_site,
+                        sa_site=sa_site, sb_site=sb_site):
+                idx = pg.long()
+                h = torch.bmm(x, a_site[idx].to(torch.bfloat16)).float()
+                if sa_site is not None:
+                    h = h * sa_site[idx][:, None, None]
+                out = torch.bmm(h.to(torch.bfloat16),
+                                b_site[idx].to(torch.bfloat16)).float()
+                if sb_site is not None:
+                    out = out * sb_site[idx][:, None, None]
+                return out
+
+            distinct = len(set(page_list))
+            itemsize = a_site.element_size()
+            n_bytes = (rows * t * d * 2 + rows * t * d * 4 + rows * 4
+                       + distinct * 2 * d * rank * itemsize
+                       + (distinct * 8 if sa_site is not None else 0))
+            bound_ms, bound_by = bound_entry(n_bytes,
+                                             4 * rows * t * d * rank,
+                                             "bfloat16")
+            cases.append({
+                "tier": tier, "case": label, "rows": rows, "t": t,
+                "pages": page_list, "max_abs_err": err,
+                "plain_max_abs": float(ref.abs().max()),
+                "ms": time_ms(torch, lambda: pa.adapter_delta(*args), flush),
+                "device_ms": device_ms(torch, lambda: pa.adapter_delta(*args),
+                                       flush, "adapter_delta_kernel"),
+                "plain_ms": time_ms(torch,
+                                    lambda: pa.adapter_delta_plain(*args),
+                                    flush),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": time_ms(torch, library, flush)})
+    main = cases[0]
+    entries["adapter_delta"] = {
+        "name": "adapter_delta", "route": "cuda", "source": ADAPTER_SOURCE,
+        "replaces": "trustworthy_dl_tpu/ops/paged_attention.py:1008",
+        "launches": 0,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        **{key: main[key] for key in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")},
+        "library_calls": "page gather + 2 x torch.bmm (bf16), scaled",
+        "shape": {"x": [8, 1, d], "pool": list(shape_a), "rank": rank,
+                  "dtype": "bfloat16", "site": "layer 3, site 1 view"},
+        "cases": cases,
+    }
+
+
 def serve_drive(torch, pa, entries, card):
     """Phase 4: GPT-2 small through the port's engine, kernel path, with
     the launch counters set to 0 just before and read just after; then the
@@ -548,6 +697,7 @@ def serve_drive(torch, pa, entries, card):
           "launches": launches,
           "greedy_tokens": 32 * sum(temp == 0.0 for _, temp in requests),
           **vs_plain, "near_tie_margin": NEAR_TIE_MARGIN})
+    return results
 
 
 def compare_greedy(requests, results, ref_results, what,
@@ -766,6 +916,90 @@ def serve_tiers_drive(torch, entries, card):
               "prefill_chunks", "prefix_hits")},
           "launches": {k: launches[k] for k in want},
           "expected_launches": want, "vs_plain_path": vs_plain})
+
+
+def serve_adapters_drive(torch, entries, card, base_results):
+    """Phase 4d: the smoke traffic from 8 tenants through rank-16 adapters,
+    bf16 pages (serve_adapters) then int8 pages (serve_adapters_int8), on
+    the kernel path with the launch counters set to 0 just before and read
+    just after, then on the plain path; ``base_results`` is the rank-0
+    serve drive's, for the check that the deltas move the streams."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (
+        serve_smoke, smoke_adapter_traffic, smoke_traffic)
+
+    cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2.init_params(cfg, gen_, device="cuda")
+    requests = smoke_traffic(cfg.vocab_size)
+    tenants, adapter_map, pages = smoke_adapter_traffic(len(requests))
+    n_layer = cfg.n_layer
+    for tier, phase in (("model", "serve_adapters"),
+                        ("int8", "serve_adapters_int8")):
+        knobs = dict(adapter_rank=ADAPTER_RANK, adapter_pool_pages=pages,
+                     adapter_dtype=tier, adapter_map=adapter_map)
+        serve_smoke(cfg, params, "kernel", requests[:1],      # warm-up
+                    tenants=tenants[:1], **knobs)
+        ops.reset_launch_counts()
+        engine, results, wall = serve_smoke(cfg, params, "kernel", requests,
+                                            tenants=tenants, **knobs)
+        launches = ops.launch_counts()
+        s = engine.metrics_summary()
+        check_completed(results, requests)
+        if s["local_prefills"] != 0:
+            raise AssertionError(f"{phase}: {s['local_prefills']} adapter "
+                                 "prompts took the dense local prefill")
+        want = {"adapter_delta": 2 * n_layer * (s["decode_ticks"]
+                                                + s["prefill_chunks"]),
+                "paged_attention": n_layer * s["decode_ticks"],
+                "paged_prefill_attention": n_layer * s["prefill_chunks"],
+                "logit_trust_stats": len(requests) + s["decode_ticks"]}
+        expect_launches(launches, want, phase)
+        pool, sched = engine.adapter_pool, engine.scheduler
+        refcounts = {name: pool.alloc.refcount(page)
+                     for name, page in pool.resident.items()}
+        if s["adapters"]["evictions"] < 1:
+            raise AssertionError(f"{phase}: no eviction ({s['adapters']})")
+        if any(n != 1 for n in refcounts.values()) \
+                or sched.blocks_in_use != len(sched.prefix):
+            raise AssertionError(f"{phase}: leaked pages {refcounts} or "
+                                 f"blocks ({sched.blocks_in_use} in use, "
+                                 f"{len(sched.prefix)} cached)")
+        if any(r.adapter != adapter_map[tenants[rid]]
+               for rid, r in results.items()):
+            raise AssertionError(f"{phase}: a request lost its adapter")
+        ops.reset_launch_counts()
+        _, plain_results, plain_wall = serve_smoke(
+            cfg, params, "plain", requests, tenants=tenants, **knobs)
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"{phase}: the plain path launched "
+                                 f"{ops.launch_counts()}")
+        vs_plain = compare_greedy(requests, results, plain_results,
+                                  f"{phase} kernel vs plain path")
+        greedy = [rid for rid, (_, temp) in enumerate(requests)
+                  if temp == 0.0]
+        moved = [rid for rid in greedy
+                 if results[rid].tokens != base_results[rid].tokens]
+        if not moved:
+            raise AssertionError(f"{phase}: no greedy stream differs from "
+                                 "the rank-0 drive's")
+        key = "launches" if tier == "model" else "launches_int8_drive"
+        entries["adapter_delta"][key] = launches["adapter_delta"]
+        emit({"phase": phase, "card": card, "adapter_rank": ADAPTER_RANK,
+              "adapter_dtype": tier, "adapter_pool_pages": pages,
+              "adapter_map": adapter_map, "requests": len(requests),
+              "wall_s": wall, "plain_path_wall_s": plain_wall,
+              **{key_: s.get(key_) for key_ in (
+                  "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                  "itl_p50_ms", "itl_p99_ms", "decode_ticks",
+                  "local_prefills", "prefill_chunks", "prefix_hits",
+                  "mean_occupancy", "adapters")},
+              "resident_refcounts": refcounts,
+              "launches": {k: launches[k] for k in want},
+              "expected_launches": want, "vs_plain_path": vs_plain,
+              "greedy_streams_moved_from_rank0": len(moved),
+              "greedy_streams": len(greedy)})
 
 
 def gpt2_small(torch, **overrides):
@@ -1116,8 +1350,9 @@ def main() -> int:
     entries = check_kernels(torch, pa)
     check_train_kernels(torch, entries)
     emit({"phase": "kernel_checks", "ok": True})
-    serve_drive(torch, pa, entries, smi)
+    base_results = serve_drive(torch, pa, entries, smi)
     serve_tiers_drive(torch, entries, smi)
+    serve_adapters_drive(torch, entries, smi, base_results)
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)
     del on

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (B5 decode, B6 prefill, each over a bf16/f32 or
-an int8 pool, B7 trust epilogue, B8 fused verify tail; B4 int8 dequant
-matmul; B1 moment battery; B2/B3 flash attention forward and backward)
+an int8 pool, B7 trust epilogue, B8 fused verify tail, B9 paged adapter
+delta; B4 int8 dequant matmul; B1 moment battery; B2/B3 flash attention
+forward and backward)
 against their plain PyTorch twins, on the card, and the detector
 baseline's tensors following the card.
 
@@ -18,7 +19,8 @@ margin exactly equal, the entropy within 1e-4 (one f32 pass over up to
 logits within one bf16 step of the twin's plus that same f32 sum bound
 (the same f32 sum in another order, each rounded to bf16: near zero the
 order's f32 error is larger than a step of the value), the margin exactly
-top-2 of the kernel's own logits.
+top-2 of the kernel's own logits.  B9: within 1e-5 of the plain output's
+largest magnitude (f32 sums in another order), zero-page rows exactly 0.0.
 """
 
 import numpy as np
@@ -338,3 +340,69 @@ def test_new_wrappers_reject_what_kernels_do_not_take(cuda):
     table = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):                    # bf16 pool + scales
         pa.paged_attention_int8(q, pool, pool, table, 0, sc, sc)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("rows,t,rank,d", [(8, 1, 16, 768), (1, 64, 16, 768),
+                                           (2, 20, 4, 64), (3, 9, 64, 768),
+                                           (1, 3, 33, 128)])
+def test_adapter_delta_kernel_matches_plain(cuda, tier, rows, t, rank, d):
+    """B9 on one site of one layer of a pool [3, 5, 2, D, r] (the strided
+    view the engine passes), bf16 pages or int8 pages with per-page
+    scales; row 0 on the zero page, duplicates where rows allow."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    npg = 5
+    shape_a, shape_b = (3, npg, 2, d, rank), (3, npg, 2, rank, d)
+    if tier == "int8":
+        a = torch.randint(-127, 128, shape_a, device=cuda, generator=gen,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, shape_b, device=cuda, generator=gen,
+                          dtype=torch.int8)
+        sa = torch.rand(3, npg, 2, device=cuda, generator=gen) * 1e-3
+        sb = torch.rand(3, npg, 2, device=cuda, generator=gen) * 1e-3
+    else:
+        a = torch.randn(shape_a, device=cuda, generator=gen).to(
+            torch.bfloat16)
+        b = torch.randn(shape_b, device=cuda, generator=gen).to(
+            torch.bfloat16)
+        sa = sb = None
+    a[:, 0] = 0
+    b[:, 0] = 0
+    pages = torch.tensor(([0, 3, 3, 1, 4, 2, 0, 1] * 2)[:rows],
+                         dtype=torch.int32, device=cuda)
+    x = torch.randn(rows, t, d, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    args = (x, a[1][:, 0], b[1][:, 0], pages,
+            None if sa is None else sa[1][:, 0],
+            None if sb is None else sb[1][:, 0])
+    before = pa.adapter_delta.launches
+    got = pa.adapter_delta(*args)
+    torch.cuda.synchronize()
+    assert pa.adapter_delta.launches == before + 1
+    ref = pa.adapter_delta_plain(*args)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert bool((got[0] == 0.0).all())
+
+
+def test_adapter_delta_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros(3, 64, 4, dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(3, 4, 64, dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros(2, 1, 64, dtype=torch.bfloat16, device=cuda)
+    pages = torch.zeros(2, dtype=torch.int32, device=cuda)
+    scale = torch.ones(3, device=cuda)
+    with pytest.raises(ValueError):                    # f32 x on the card
+        pa.adapter_delta(x.float(), a, b, pages)
+    with pytest.raises(ValueError):                    # f32 pages
+        pa.adapter_delta(x, a.float(), b.float(), pages)
+    with pytest.raises(ValueError):                    # rank above 64
+        pa.adapter_delta(x, torch.zeros(3, 64, 65, dtype=torch.bfloat16,
+                                        device=cuda),
+                         torch.zeros(3, 65, 64, dtype=torch.bfloat16,
+                                     device=cuda), pages)
+    with pytest.raises(ValueError):                    # D not a multiple
+        pa.adapter_delta(x[:, :, :60].contiguous(), a[:, :60].contiguous(),
+                         b[:, :, :60].contiguous(), pages)
+    with pytest.raises(ValueError):                    # one scale only
+        pa.adapter_delta(x, a, b, pages, scale, None)
+    with pytest.raises(ValueError):                    # i64 pages
+        pa.adapter_delta(x, a, b, pages.long())

@@ -57,6 +57,14 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spec-k", type=int, default=0,
                         help="speculative decoding: draft tokens per tick "
                              "with the int8 weight tier (0 = off)")
+    parser.add_argument("--adapter-rank", type=int, default=0,
+                        help="per-tenant low-rank adapters of this rank "
+                             "(0 = off); the synthetic traffic then comes "
+                             "from 8 Zipf-weighted tenants")
+    parser.add_argument("--adapter-pool-pages", type=int, default=None,
+                        help="resident adapter pages (default max-slots)")
+    parser.add_argument("--adapter-dtype", type=str, default="model",
+                        choices=["model", "int8"])
     parser.add_argument("--seed", type=int, default=0)
     return parser
 
@@ -71,6 +79,8 @@ def serve_main(argv: Optional[List[str]] = None,
     from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
     from trustworthy_dl_tpu_torch.serve.engine import resolve_device
+    from trustworthy_dl_tpu_torch.serve.workload import (
+        make_tenant_population, zipf_adapter_assignments)
 
     args = build_serve_parser().parse_args(argv)
     serve_config = ServeConfig(
@@ -78,7 +88,10 @@ def serve_main(argv: Optional[List[str]] = None,
         queue_limit=args.queue_limit, block_size=args.block_size,
         num_blocks=args.num_blocks, prefix_cache=not args.no_prefix_cache,
         prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
-        weight_dtype=args.weight_dtype, spec_k=args.spec_k)
+        weight_dtype=args.weight_dtype, spec_k=args.spec_k,
+        adapter_rank=args.adapter_rank,
+        adapter_pool_pages=args.adapter_pool_pages,
+        adapter_dtype=args.adapter_dtype)
     cfg = gpt2.GPT2Config.from_name(args.model, **(model_overrides or {}))
     if args.max_seq > cfg.n_positions:
         print(f"--max-seq {args.max_seq} exceeds the model's "
@@ -94,20 +107,33 @@ def serve_main(argv: Optional[List[str]] = None,
     params = gpt2.init_params(cfg, generator, device=device)
     print(f"serving {args.model} from random init (seed {args.seed}) on "
           f"{device}")
+    tenant_names: List[str] = []
+    adapter_map = None
+    if serve_config.adapter_rank > 0:
+        # Tenants for the adapter tier to resolve: a Zipf tenant ->
+        # adapter map over one adapter more than the pool's pages, so the
+        # run churns the pool (LRU eviction).
+        tenant_names = [t.name for t in make_tenant_population(8)]
+        pages = args.adapter_pool_pages or args.max_slots
+        adapter_map = zipf_adapter_assignments(tenant_names, pages + 1,
+                                               seed=args.seed)
     engine = ServingEngine.from_config(
         params, cfg, serve_config, seed=args.seed,
-        enable_monitor=not args.no_monitor, device=device)
+        enable_monitor=not args.no_monitor, device=device,
+        adapter_map=adapter_map)
     rng = np.random.default_rng(args.seed)
     deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     submitted = 0
-    for _ in range(args.num_requests):
+    for i in range(args.num_requests):
         plen = int(np.clip(rng.integers(max(args.prompt_len // 2, 1),
                                         args.prompt_len * 2 + 1),
                            1, args.max_seq - args.max_new_tokens))
         request = ServeRequest(
             prompt=rng.integers(0, cfg.vocab_size, plen).tolist(),
             max_new_tokens=int(rng.integers(1, args.max_new_tokens + 1)),
-            temperature=args.temperature, deadline_s=deadline)
+            temperature=args.temperature, deadline_s=deadline,
+            tenant=tenant_names[i % len(tenant_names)]
+            if tenant_names else None)
         rid = engine.submit(request)
         if rid is None:
             engine.run_until_idle()      # drain, then retry the arrival
@@ -130,6 +156,14 @@ def serve_main(argv: Optional[List[str]] = None,
             print(f"  {key}: {shown}")
     if summary["quarantined_slots"]:
         print(f"  quarantined_slots: {summary['quarantined_slots']}")
+    adapters = summary.get("adapters")
+    if adapters:
+        print(f"  adapters: rank={adapters['rank']} "
+              f"dtype={adapters['dtype']} pages={adapters['pages']} "
+              f"resident={adapters['resident']} "
+              f"hit_rate={adapters['hit_rate']:.3f} "
+              f"evictions={adapters['evictions']} "
+              f"uploads={adapters['uploads']}")
     return 0
 
 

@@ -3,9 +3,9 @@
 Counterpart of ``ServeConfig``, ``TrainingConfig`` and ``AttackConfig`` in
 ``trustworthy_dl_tpu/core/config.py``, with the fields the port reads.
 ``ServeConfig`` covers the paged pool's geometry, the prefix cache, chunked
-prefill, the attention path, the int8 KV and weight tiers and speculative
-decoding (adapters, the stripe pool and tensor parallelism are not ported
-yet).  ``TrainingConfig`` covers the trusted data-parallel step: its
+prefill, the attention path, the int8 KV and weight tiers, speculative
+decoding and the per-tenant adapter tier (the stripe pool and tensor
+parallelism are not ported yet).  ``TrainingConfig`` covers the trusted data-parallel step: its
 defaults are the JAX package's (``weight_decay`` 0.0, ``detector_warmup``
 10, ``recovery_probation_steps`` 25, ...); the pipeline, tensor, sequence
 and expert modes, the async host pipeline, checkpointing and the ML tier
@@ -50,6 +50,47 @@ def validate_spec(spec_k: int, paged: bool, weight_dtype: str) -> None:
         )
 
 
+def validate_adapters(adapter_rank: int,
+                      adapter_pool_pages: Optional[int],
+                      adapter_dtype: str, paged: bool,
+                      spec_k: int) -> None:
+    """Construction-time validation of the adapter-tier knobs, shared by
+    ``ServeConfig`` and the engine (the JAX package's checks and wording;
+    the port's pool is always paged).  ``adapter_rank`` 0 disables the
+    tier; > 0 needs the paged pool and ``spec_k == 0`` (the int8 draft
+    carries no adapter deltas); ``adapter_dtype`` is "model" or "int8";
+    ``adapter_pool_pages``, when given, is at least 1."""
+    if adapter_rank < 0:
+        raise ValueError(
+            f"adapter_rank must be >= 0 (0 disables), got {adapter_rank}"
+        )
+    if adapter_rank == 0:
+        return
+    if not paged:
+        raise ValueError(
+            "adapter_rank > 0 requires the paged KV pool (paged=True): "
+            "adapter pages are claimed per slot through the same traced "
+            "page-table discipline as KV blocks, which the legacy "
+            "stripe pool cannot express"
+        )
+    if spec_k > 0:
+        raise ValueError(
+            "adapter_rank > 0 is incompatible with spec_k > 0: the int8 "
+            "draft model carries no adapter deltas, so draft and verify "
+            "would diverge on every adapter-carrying request"
+        )
+    if adapter_dtype not in ("model", "int8"):
+        raise ValueError(
+            f"adapter_dtype must be 'model' or 'int8', got "
+            f"{adapter_dtype!r}"
+        )
+    if adapter_pool_pages is not None and adapter_pool_pages < 1:
+        raise ValueError(
+            f"adapter_pool_pages must be >= 1 (or None = max_slots), "
+            f"got {adapter_pool_pages}"
+        )
+
+
 @dataclass
 class ServeConfig:
     """``attn_impl``: "kernel" (the hand-written CUDA kernels; their plain
@@ -59,8 +100,12 @@ class ServeConfig:
     ``kv_parity_check`` is False.  ``weight_dtype`` "int8" serves the four
     block matrices as weight-only int8.  ``spec_k`` > 0 drafts that many
     tokens a tick with the int8 weight tier and verifies them in one
-    model-dtype pass (needs ``weight_dtype="model"``).  Bad values fail
-    here, at construction."""
+    model-dtype pass (needs ``weight_dtype="model"``).  ``adapter_rank``
+    > 0 turns on the per-tenant adapter tier: rank-r deltas on the
+    attention output and the MLP in a second paged pool of
+    ``adapter_pool_pages`` pages (default ``max_slots``) stored in
+    ``adapter_dtype`` ("model" or "int8").  Bad values fail here, at
+    construction."""
 
     max_slots: int = 8
     max_seq: int = 256
@@ -74,6 +119,9 @@ class ServeConfig:
     weight_dtype: str = "model"
     kv_parity_check: bool = True
     spec_k: int = 0
+    adapter_rank: int = 0
+    adapter_pool_pages: Optional[int] = None
+    adapter_dtype: str = "model"
 
     def __post_init__(self) -> None:
         if self.max_slots < 1:
@@ -87,6 +135,8 @@ class ServeConfig:
                                 self.num_blocks, self.prefill_chunk)
         validate_dtypes(self.kv_dtype, self.weight_dtype)
         validate_spec(self.spec_k, True, self.weight_dtype)
+        validate_adapters(self.adapter_rank, self.adapter_pool_pages,
+                          self.adapter_dtype, True, self.spec_k)
 
 
 @dataclass

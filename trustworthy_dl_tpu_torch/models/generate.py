@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from trustworthy_dl_tpu_torch.models import gpt2
 from trustworthy_dl_tpu_torch.models import layers as L
 from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
+from trustworthy_dl_tpu_torch.ops.fused_dequant_matmul import lowrank_delta
 from trustworthy_dl_tpu_torch.quant import int8 as q8
 
 Params = Dict[str, Any]
@@ -126,30 +127,66 @@ def _attn_qkv(block: Params, x: torch.Tensor, cfg: gpt2.GPT2Config
 
 
 def _attn_mlp_tail(block: Params, x: torch.Tensor, out: torch.Tensor,
-                   cfg: gpt2.GPT2Config) -> torch.Tensor:
+                   cfg: gpt2.GPT2Config, adapter: Optional[tuple] = None,
+                   adapter_pool: Optional[tuple] = None) -> torch.Tensor:
     """Merge heads, attention projection + residual, MLP (ln_2, fc,
-    tanh GELU, proj) + residual; every matrix through ``qdense``."""
+    tanh GELU, proj) + residual; every matrix through ``qdense``.
+
+    Adapter deltas (``serve/adapters.py``), JAX ``_attn_mlp_tail``'s
+    order: site 0 takes the merged attention output and adds to ``x``
+    after the projection's residual; site 1 takes the ``ln_2`` output and
+    adds to the MLP output before its residual.  ``adapter`` is the
+    gathered form ``(a [B, 2, D, r], b [B, 2, r, D], a_scale [B, 2] or
+    None, b_scale)`` for :func:`lowrank_delta`; ``adapter_pool`` the
+    ungathered one-layer pool ``(a_l [P+1, 2, D, r], b_l, a_scale_l
+    [P+1, 2] or None, b_scale_l, pages i32 [B])`` for B9
+    (``ops.paged_attention.adapter_delta``).  With neither, this is the
+    adapter-free tail bit for bit."""
     dtype = cfg.dtype
     b, t, d = x.shape
     out = out.permute(0, 2, 1, 3).reshape(b, t, d)
+
+    def delta(site_x: torch.Tensor, site: int) -> Optional[torch.Tensor]:
+        if adapter_pool is not None:
+            a_l, b_l, as_l, bs_l, pages = adapter_pool
+            return pattn.adapter_delta(
+                site_x, a_l[:, site], b_l[:, site], pages,
+                None if as_l is None else as_l[:, site],
+                None if bs_l is None else bs_l[:, site])
+        if adapter is not None:
+            a_s, b_s, as_s, bs_s = adapter
+            return lowrank_delta(site_x, a_s[:, site], b_s[:, site],
+                                 None if as_s is None else as_s[:, site],
+                                 None if bs_s is None else bs_s[:, site])
+        return None
+
     x = x + q8.qdense(block["attn"]["proj"], out, dtype).to(x.dtype)
+    d0 = delta(out, 0)
+    if d0 is not None:
+        x = x + d0.to(x.dtype)
     y = L.layernorm(block["ln_2"], x).to(dtype)
+    ln2 = y
     y = F.gelu(q8.qdense(block["mlp"]["fc"], y, dtype), approximate="tanh")
-    return x + q8.qdense(block["mlp"]["proj"], y, dtype).to(x.dtype)
+    mlp = q8.qdense(block["mlp"]["proj"], y, dtype).to(x.dtype)
+    d1 = delta(ln2, 1)
+    if d1 is not None:
+        mlp = mlp + d1.to(x.dtype)
+    return x + mlp
 
 
 def _block_with_cache(block: Params, x: torch.Tensor,
                       layer_k: torch.Tensor, layer_v: torch.Tensor,
                       start: Start, cfg: gpt2.GPT2Config,
                       layer_k_scale: Optional[torch.Tensor] = None,
-                      layer_v_scale: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      layer_v_scale: Optional[torch.Tensor] = None,
+                      adapter: Optional[tuple] = None) -> torch.Tensor:
     """One block over [B, T, D] new positions: writes their K/V into the
     cache [B, H, S, Dh] at ``start`` (in place), then attends causally to
     cache positions [0, start + t].  With scale planes [B, H, S] the cache
     is int8: rows are quantized at the write, the K scale multiplies the
     compute-dtype scores and the V scale the probabilities (JAX
-    ``_block_with_cache``'s int8 branch, step for step)."""
+    ``_block_with_cache``'s int8 branch, step for step).  ``adapter`` is
+    the gathered per-row adapter slice (:func:`_attn_mlp_tail`)."""
     dtype = cfg.dtype
     t = x.shape[1]
     s = layer_k.shape[-2]
@@ -185,7 +222,7 @@ def _block_with_cache(block: Params, x: torch.Tensor,
         out = torch.einsum("bhqk,bhkd->bhqd", pv, layer_v.to(dtype))
     else:
         out = torch.einsum("bhqk,bhkd->bhqd", probs, layer_v)
-    return _attn_mlp_tail(block, x, out, cfg)
+    return _attn_mlp_tail(block, x, out, cfg, adapter=adapter)
 
 
 def _decode_view(params: Params, cfg: gpt2.GPT2Config) -> Params:
@@ -292,13 +329,26 @@ def _paged_block(block: Params, x: torch.Tensor, pool_k_l: torch.Tensor,
                  start: torch.Tensor, cfg: gpt2.GPT2Config,
                  attn_impl: str = "kernel",
                  pool_ks_l: Optional[torch.Tensor] = None,
-                 pool_vs_l: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 pool_vs_l: Optional[torch.Tensor] = None,
+                 adapter_l: Optional[tuple] = None) -> torch.Tensor:
     """One block over [R, T, D] new positions against one layer's pool
     (written in place; int8 with scale planes [NB, H, BLOCK] when
-    ``pool_ks_l`` is given).  ``start`` is i32 [R] on the pool's device."""
+    ``pool_ks_l`` is given).  ``start`` is i32 [R] on the pool's device.
+    ``adapter_l`` is one layer's adapter pool plus the page row, ``(a_l
+    [P+1, 2, D, r], b_l, a_scale_l, b_scale_l, pages i32 [R])``: the
+    kernel path hands it to B9 ungathered, the plain path gathers each
+    row's pages here."""
     if attn_impl == "kernel":
         return _paged_block_kernel(block, x, pool_k_l, pool_v_l, table,
-                                   start, cfg, pool_ks_l, pool_vs_l)
+                                   start, cfg, pool_ks_l, pool_vs_l,
+                                   adapter_pool=adapter_l)
+    adapter = None
+    if adapter_l is not None:
+        a_l, b_l, as_l, bs_l, pages = adapter_l
+        idx = pages.long()
+        adapter = (a_l[idx], b_l[idx],
+                   None if as_l is None else as_l[idx],
+                   None if bs_l is None else bs_l[idx])
     r, t, _ = x.shape
     nbps = table.shape[1]
     bsz = pool_k_l.shape[2]
@@ -315,7 +365,8 @@ def _paged_block(block: Params, x: torch.Tensor, pool_k_l: torch.Tensor,
     views = [pattn.gather_pool(p, table_read) for p in
              ((pool_k_l, pool_v_l, pool_ks_l, pool_vs_l) if quantized
               else (pool_k_l, pool_v_l))]
-    x = _block_with_cache(block, x, *views[:2], start, cfg, *views[2:])
+    x = _block_with_cache(block, x, *views[:2], start, cfg, *views[2:],
+                          adapter=adapter)
     pos, phys, offs = _pool_write_coords(table_read, start, t, bsz, nbps)
     pools = (pool_k_l, pool_v_l, pool_ks_l, pool_vs_l)
     for pool, view in zip(pools, views):
@@ -334,12 +385,13 @@ def _paged_block_kernel(block: Params, x: torch.Tensor,
                         table: torch.Tensor, start: torch.Tensor,
                         cfg: gpt2.GPT2Config,
                         pool_ks_l: Optional[torch.Tensor] = None,
-                        pool_vs_l: Optional[torch.Tensor] = None
+                        pool_vs_l: Optional[torch.Tensor] = None,
+                        adapter_pool: Optional[tuple] = None
                         ) -> torch.Tensor:
     """Write-then-attend: scatter the fresh K/V into the pool (quantized at
     the write on an int8 pool: the values the plain path writes), then run
     the decode kernel (T <= QROWS) or the chunked-prefill kernel (T >
-    QROWS) over the pool."""
+    QROWS) over the pool; adapter deltas through B9."""
     r, t, _ = x.shape
     q, k, v = _attn_qkv(block, x, cfg)                      # [R, H, T, Dh]
     _, phys, offs = _pool_write_coords(table, start, t, pool_k_l.shape[2],
@@ -360,7 +412,8 @@ def _paged_block_kernel(block: Params, x: torch.Tensor,
         attend = (pattn.paged_prefill_attention if t > pattn.QROWS
                   else pattn.paged_attention)
         out = attend(q.contiguous(), pool_k_l, pool_v_l, table, start)
-    return _attn_mlp_tail(block, x, out.to(cfg.dtype), cfg)
+    return _attn_mlp_tail(block, x, out.to(cfg.dtype), cfg,
+                          adapter_pool=adapter_pool)
 
 
 def _apply_with_cache_paged(view: Params, tokens: torch.Tensor,
@@ -372,19 +425,28 @@ def _apply_with_cache_paged(view: Params, tokens: torch.Tensor,
                             hidden: bool = False,
                             pool_ks: Optional[torch.Tensor] = None,
                             pool_vs: Optional[torch.Tensor] = None,
-                            all_logits: bool = False) -> torch.Tensor:
+                            all_logits: bool = False,
+                            adapter: Optional[tuple] = None) -> torch.Tensor:
     """All blocks over ``tokens`` [R, T] against the paged pool (updated in
     place; int8 when the scale planes ``pool_ks``/``pool_vs`` [L, NB, H,
     BLOCK] are given), rows starting at ``start`` i32 [R].  Returns logits
     [R, V] of the last position (or ``last_pos``); with ``all_logits``
     every position's [R, T, V] (the verify pass's materialised tail); with
-    ``hidden`` the pre-ln_f activations [R, T, D] and no projection."""
+    ``hidden`` the pre-ln_f activations [R, T, D] and no projection.
+    ``adapter`` is the adapter pool and page row ``(a [L, P+1, 2, D, r],
+    b, a_scale [L, P+1, 2] or None, b_scale, pages i32 [R])``; each layer
+    takes its slice."""
     x = _embed(view, tokens, start, cfg)
     quantized = pool_ks is not None
     for i, block in enumerate(view["layers"]):
+        adapter_l = None
+        if adapter is not None:
+            a, b, a_s, b_s, pages = adapter
+            adapter_l = (a[i], b[i], None if a_s is None else a_s[i],
+                         None if b_s is None else b_s[i], pages)
         x = _paged_block(block, x, pool_k[i], pool_v[i], table, start, cfg,
                          attn_impl, pool_ks[i] if quantized else None,
-                         pool_vs[i] if quantized else None)
+                         pool_vs[i] if quantized else None, adapter_l)
     if hidden:
         return x
     if all_logits:

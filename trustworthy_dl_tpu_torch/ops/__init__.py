@@ -58,6 +58,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _L, _P, _P, _P], _I),
         "tddl_error_string": _ERROR_STRING,
     },
+    "adapter_delta": {
+        "tddl_adapter_delta": ([_P] * 7 + [_L] * 3 + [_I] * 6 + [_P], _I),
+        "tddl_error_string": _ERROR_STRING,
+    },
     "flash_attention": {
         "tddl_flash_fwd": ([_P] * 5 + [_I] * 3 + [_P], _I),
         "tddl_flash_bwd_dq": ([_P] * 7 + [_I] * 3 + [_P], _I),

@@ -1,8 +1,9 @@
-"""Weight-only int8 dequant matmul (B4): ``y = (x @ w_q) * scale``.
+"""Weight-only int8 dequant matmul (B4): ``y = (x @ w_q) * scale``, and
+the adapter tier's gathered low-rank delta (``lowrank_delta``, plain
+torch).
 
 Counterpart of ``trustworthy_dl_tpu/ops/fused_dequant_matmul.py``
-(``dequant_matmul``; ``lowrank_delta`` belongs to the adapter tier and is
-not ported yet).  ``x`` [M, K] float, ``w_q`` int8 [K, N], ``scale`` f32
+(``dequant_matmul`` and ``lowrank_delta``).  ``x`` [M, K] float, ``w_q`` int8 [K, N], ``scale`` f32
 [N] -> f32 [M, N], accumulated in f32.  The wrapper takes CPU tensors to
 the plain twin and CUDA tensors to the hand-written kernel in
 ``csrc/fused_dequant_matmul.cu`` (its note says what it replaces, what
@@ -16,6 +17,8 @@ the compute dtype, bf16 on the card).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -69,8 +72,29 @@ def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
 
 dequant_matmul.launches = 0
 
+def lowrank_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  a_scale: Optional[torch.Tensor] = None,
+                  b_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched gathered low-rank delta ``(x @ A) @ B`` for the paged adapter
+    tier, one site at a time::
+
+        x [R, T, D] @ a [R, D, r] -> h [R, T, r] @ b [R, r, D] -> f32
+
+    ``a``/``b`` are each row's gathered pool page (model dtype, or int8
+    with per-row scales [R]).  Accumulation is f32; ``a_scale`` multiplies
+    ``h`` between the two contractions and ``b_scale`` the result, the
+    JAX order exactly (folding the two would change the f32 rounding)."""
+    h = torch.einsum("rtd,rdk->rtk", x.float(), a.float())
+    if a_scale is not None:
+        h = h * a_scale.float()[:, None, None]
+    out = torch.einsum("rtk,rkd->rtd", h, b.float())
+    if b_scale is not None:
+        out = out * b_scale.float()[:, None, None]
+    return out
+
+
 #: The kernels of this module, by the wrapper that launches each.
 KERNEL_WRAPPERS = (dequant_matmul,)
 
 __all__ = ["KERNEL_WRAPPERS", "TILE", "dequant_matmul",
-           "dequant_matmul_plain"]
+           "dequant_matmul_plain", "lowrank_delta"]

@@ -1,12 +1,13 @@
 """Serving kernels: ragged paged-decode attention (B5), query-tiled
 chunked-prefill attention (B6), each over a model-dtype or an int8 pool,
-the trust epilogue (B7) and the fused speculative-verify tail (B8).
+the trust epilogue (B7), the fused speculative-verify tail (B8) and the
+paged per-tenant adapter delta (B9).
 
 Counterpart of ``trustworthy_dl_tpu/ops/paged_attention.py``.  Each wrapper
 takes CPU tensors to its plain PyTorch twin (``*_plain``) and CUDA tensors
-to its hand-written kernel in ``csrc/paged_attention.cu`` (see the note at
-the top of that file for what each kernel replaces, what bounds it and how
-its design answers that).  The plain twins are the same functions as the
+to its hand-written kernel in ``csrc/paged_attention.cu`` (B9 in
+``csrc/adapter_delta.cu``; see the note at the top of each file for what
+each kernel replaces, what bounds it and how its design answers that).  The plain twins are the same functions as the
 JAX package's ``paged_attention_reference`` and
 ``logit_trust_stats_reference``; tests hold them against the JAX kernels
 and ``chip_smoke.py`` holds the kernels against them on the card.
@@ -35,6 +36,7 @@ import torch
 from trustworthy_dl_tpu_torch.ops import (DTYPE_CODES, check_launch,
                                           kernel_library, on_cuda,
                                           stream_handle)
+from trustworthy_dl_tpu_torch.ops.fused_dequant_matmul import lowrank_delta
 
 NEG_INF = -1e30
 #: Query rows per CTA: the decode kernel's ceiling on T, and the
@@ -340,10 +342,134 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
 
 fused_verify_tail.launches = 0
 
+#: B9's largest rank, the multiple D must be (x and the pool pages are
+#: read in 16-byte vectors, 16 int8 values each) and its positions of T
+#: per CTA.
+ADAPTER_MAX_RANK = 64
+ADAPTER_D_MULTIPLE = 16
+ADAPTER_TILE_T = 8
+#: Shared memory one B9 CTA may use (the H100's 227 KB per block).
+ADAPTER_SMEM_LIMIT = 232448
+_ADAPTER_POOL_CODES = {torch.bfloat16: 1, torch.int8: 2}
+
+
+def adapter_delta_plain(x: torch.Tensor, a_pool: torch.Tensor,
+                        b_pool: torch.Tensor, pages: torch.Tensor,
+                        a_scale: Optional[torch.Tensor] = None,
+                        b_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The page gather, then :func:`lowrank_delta`: the twin of B9."""
+    idx = pages.long()
+    return lowrank_delta(x, a_pool[idx], b_pool[idx],
+                         None if a_scale is None else a_scale[idx],
+                         None if b_scale is None else b_scale[idx])
+
+
+def _check_adapter(x: torch.Tensor, a_pool: torch.Tensor,
+                   b_pool: torch.Tensor, pages: torch.Tensor,
+                   a_scale: Optional[torch.Tensor],
+                   b_scale: Optional[torch.Tensor]) -> None:
+    op = "adapter_delta"
+    if x.dtype != torch.bfloat16 or x.dim() != 3:
+        raise ValueError(f"{op}: x must be bf16 [R, T, D] on the card, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    r_rows, t, d = x.shape
+    if r_rows < 1 or t < 1 or d % ADAPTER_D_MULTIPLE:
+        raise ValueError(f"{op}: R={r_rows} and T={t} must be >= 1 and "
+                         f"D={d} a multiple of {ADAPTER_D_MULTIPLE}")
+    if a_pool.dtype not in _ADAPTER_POOL_CODES or b_pool.dtype != a_pool.dtype:
+        raise ValueError(f"{op}: pool pages must be bf16 or int8 (both "
+                         f"sides alike), got {a_pool.dtype} / "
+                         f"{b_pool.dtype}")
+    if a_pool.dim() != 3 or a_pool.shape[1] != d:
+        raise ValueError(f"{op}: a_pool must be [P+1, {d}, r], got "
+                         f"{tuple(a_pool.shape)}")
+    npg, _, rank = a_pool.shape
+    if tuple(b_pool.shape) != (npg, rank, d):
+        raise ValueError(f"{op}: b_pool must be [{npg}, {rank}, {d}], got "
+                         f"{tuple(b_pool.shape)}")
+    if not 1 <= rank <= ADAPTER_MAX_RANK:
+        raise ValueError(f"{op}: rank {rank} outside [1, "
+                         f"{ADAPTER_MAX_RANK}]")
+    smem = 4 * (ADAPTER_TILE_T * d + rank * (d + 1) + ADAPTER_TILE_T * 64)
+    if smem > ADAPTER_SMEM_LIMIT:
+        raise ValueError(f"{op}: D={d}, r={rank} needs {smem} bytes of "
+                         f"shared memory (limit {ADAPTER_SMEM_LIMIT})")
+    # A site view of the pool: pages may be strided, each page dense and
+    # 16-byte aligned.
+    if (a_pool.stride(1), a_pool.stride(2)) != (rank, 1) or \
+            (b_pool.stride(1), b_pool.stride(2)) != (d, 1):
+        raise ValueError(f"{op}: each pool page must be dense (strides "
+                         f"{a_pool.stride()} / {b_pool.stride()})")
+    if a_pool.data_ptr() % 16 or a_pool.stride(0) * a_pool.element_size() \
+            % 16:
+        raise ValueError(f"{op}: a_pool's pages must be 16-byte aligned")
+    if (a_scale is None) != (b_scale is None):
+        raise ValueError(f"{op}: give both scales or neither")
+    for name, s in (("a_scale", a_scale), ("b_scale", b_scale)):
+        if s is not None and (s.dtype != torch.float32
+                              or tuple(s.shape) != (npg,)
+                              or s.stride(0) != a_scale.stride(0)
+                              or s.device != x.device):
+            raise ValueError(f"{op}: {name} must be f32 [{npg}] on "
+                             f"{x.device}, strided like a_scale")
+    if pages.dtype != torch.int32 or tuple(pages.shape) != (r_rows,) \
+            or not pages.is_contiguous():
+        raise ValueError(f"{op}: pages must be contiguous int32 "
+                         f"[{r_rows}], got {pages.dtype} "
+                         f"{tuple(pages.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{op}: x must be contiguous and 16-byte aligned")
+    for name, a in (("a_pool", a_pool), ("b_pool", b_pool),
+                    ("pages", pages)):
+        if a.device != x.device:
+            raise ValueError(f"{op}: {name} on {a.device}, x on {x.device}")
+
+
+def adapter_delta(x: torch.Tensor, a_pool: torch.Tensor,
+                  b_pool: torch.Tensor, pages: torch.Tensor,
+                  a_scale: Optional[torch.Tensor] = None,
+                  b_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged low-rank delta for ONE adapter site (B9): ``x`` [R, T, D] x
+    pool pages ``a_pool`` [P+1, D, r] / ``b_pool`` [P+1, r, D] selected
+    by ``pages`` i32 [R] -> f32 [R, T, D], reading each row's pages
+    straight from the pool (no gathered copy).  ``a_scale``/``b_scale``
+    [P+1] are the int8 tier's per-page scales for this site (None: 1.0).
+    The pools may be strided site views (``a_l[:, site]``).  Page indices
+    are the caller's host-validated row (``serve.adapters.
+    adapter_page_row``); the kernel writes NaN rows for one outside [0,
+    P] rather than read outside the pool.  The kernel takes bf16 x, bf16
+    or int8 pages, r <= :data:`ADAPTER_MAX_RANK` and D a multiple of
+    :data:`ADAPTER_D_MULTIPLE`."""
+    if not on_cuda(x, "adapter_delta"):
+        return adapter_delta_plain(x, a_pool, b_pool, pages, a_scale,
+                                   b_scale)
+    _check_adapter(x, a_pool, b_pool, pages, a_scale, b_scale)
+    r_rows, t, d = x.shape
+    npg, _, rank = a_pool.shape
+    out = torch.empty(r_rows, t, d, dtype=torch.float32, device=x.device)
+    lib = kernel_library("adapter_delta")
+    with torch.cuda.device(x.device):
+        err = lib.tddl_adapter_delta(
+            x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
+            None if a_scale is None else a_scale.data_ptr(),
+            None if b_scale is None else b_scale.data_ptr(),
+            pages.data_ptr(), out.data_ptr(), a_pool.stride(0),
+            b_pool.stride(0), 0 if a_scale is None else a_scale.stride(0),
+            r_rows, t, d, rank, npg, _ADAPTER_POOL_CODES[a_pool.dtype],
+            stream_handle(x.device))
+    check_launch(lib, err, "tddl_adapter_delta")
+    adapter_delta.launches += 1
+    return out
+
+
+adapter_delta.launches = 0
+
 #: The kernels of this module, by the wrapper that launches each.
 KERNEL_WRAPPERS = (paged_attention, paged_prefill_attention,
                    logit_trust_stats, paged_attention_int8,
-                   paged_prefill_attention_int8, fused_verify_tail)
+                   paged_prefill_attention_int8, fused_verify_tail,
+                   adapter_delta)
 
 
 def reset_launch_counts() -> None:
@@ -353,7 +479,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "NEG_INF", "QROWS", "VERIFY_MAX_ROWS",
+    "ADAPTER_MAX_RANK", "KERNEL_WRAPPERS", "NEG_INF", "QROWS",
+    "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
     "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
     "logit_trust_stats",
     "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",

@@ -14,6 +14,11 @@ pool is parity-probed at construction and, when the probe fails, the
 engine serves on the model-dtype pool shrunk to the int8 byte budget and
 records ``kv_fallback_reason``.
 
+The adapter tier (``adapter_rank`` > 0) serves per-tenant low-rank deltas
+from a paged pool on the engine's device (``serve/adapters.py``): a
+request names its adapter, or its tenant resolves through ``adapter_map``;
+the scheduler claims the adapter's page at admission.
+
 At retirement the request's mean (entropy, margin) vector is z-scored
 against a rolling baseline of past clean requests (``detect.baseline``,
 score first, absorb only if clean).  A flagged request is marked and the
@@ -23,8 +28,8 @@ releases it.
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
 where every kernel wrapper runs its plain PyTorch version.  Observability
-spans, the attribution ledger, SLO watchers, chaos hooks, fleets and
-tensor parallelism are not ported yet.
+spans, the attribution ledger, SLO watchers, chaos hooks, fleets, tensor
+parallelism and the adapter pool's HBM gate are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from trustworthy_dl_tpu_torch.detect import baseline as bl
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
 from trustworthy_dl_tpu_torch.quant import int8 as q8
+from trustworthy_dl_tpu_torch.serve.adapters import AdapterPool
 from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
 from trustworthy_dl_tpu_torch.serve.scheduler import (PagedBatchingScheduler,
                                                       SlotTask)
@@ -70,7 +76,10 @@ class ServeRequest:
     ``seed`` is the request's sampling seed (default: derived from the
     engine seed and the request id): emission i is drawn with a generator
     seeded from (seed, i); ``deadline_s`` is a wall-clock budget from
-    submission; ``on_token(request_id, token)`` streams."""
+    submission; ``on_token(request_id, token)`` streams.  ``tenant`` is
+    the request's tenant; ``adapter`` names its adapter (None: the
+    engine's ``adapter_map`` entry for the tenant, else the base
+    model)."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -79,6 +88,8 @@ class ServeRequest:
     deadline_s: Optional[float] = None
     seed: Optional[int] = None
     on_token: Optional[Callable[[int, int], None]] = None
+    tenant: Optional[str] = None
+    adapter: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -93,6 +104,7 @@ class ServeResult:
     monitor_z: float = 0.0
     entropies: List[float] = dataclasses.field(default_factory=list)
     margins: List[float] = dataclasses.field(default_factory=list)
+    adapter: Optional[str] = None    # the resolved adapter id
 
 
 class OutputMonitor:
@@ -135,7 +147,9 @@ class ServingEngine:
     ``queue_limit`` bounds the admission queue: ``submit`` returns None
     (shed) when it is full.  Finished results accumulate in ``results``
     until ``drain_results()`` takes them.  ``kv_dtype``, ``weight_dtype``,
-    ``kv_parity_check`` and ``spec_k`` are ``ServeConfig``'s knobs."""
+    ``kv_parity_check``, ``spec_k``, ``adapter_rank``,
+    ``adapter_pool_pages`` and ``adapter_dtype`` are ``ServeConfig``'s
+    knobs; ``adapter_map`` routes tenant -> adapter id."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config,
                  max_slots: int = 8, max_seq: int = 256,
@@ -147,12 +161,19 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  attn_impl: str = "kernel", device: Any = "cuda",
                  kv_dtype: str = "model", weight_dtype: str = "model",
-                 kv_parity_check: bool = True, spec_k: int = 0):
+                 kv_parity_check: bool = True, spec_k: int = 0,
+                 adapter_rank: int = 0,
+                 adapter_pool_pages: Optional[int] = None,
+                 adapter_dtype: str = "model",
+                 adapter_map: Optional[Dict[str, str]] = None):
         # core.config imports serve (its pool geometry check): late import.
-        from trustworthy_dl_tpu_torch.core.config import validate_spec
+        from trustworthy_dl_tpu_torch.core.config import (validate_adapters,
+                                                          validate_spec)
 
         q8.validate_dtypes(kv_dtype, weight_dtype)
         validate_spec(spec_k, True, weight_dtype)
+        validate_adapters(adapter_rank, adapter_pool_pages, adapter_dtype,
+                          True, spec_k)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec_k = int(spec_k)
@@ -185,13 +206,23 @@ class ServingEngine:
                 num_blocks = fallback
         self.kv_dtype = kv_dtype
         self.weight_dtype = weight_dtype
+        self.adapter_rank = int(adapter_rank)
+        self.adapter_dtype = adapter_dtype
+        self.adapter_map: Dict[str, str] = dict(adapter_map or {})
+        self.adapter_pool: Optional[AdapterPool] = None
+        if self.adapter_rank > 0:
+            pages = (adapter_pool_pages if adapter_pool_pages is not None
+                     else max_slots)
+            self.adapter_pool = AdapterPool(cfg, self.adapter_rank, pages,
+                                            adapter_dtype=adapter_dtype,
+                                            device=self.device)
         self.scheduler = PagedBatchingScheduler(
             params, cfg, max_slots, max_seq, self.device,
             block_size=block_size, num_blocks=num_blocks,
             prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
             attn_impl=attn_impl, view=view, kv_dtype=kv_dtype,
             weight_dtype=weight_dtype, spec_k=self.spec_k,
-            draft_view=draft_view)
+            draft_view=draft_view, adapters=self.adapter_pool)
         self.queue_limit = queue_limit
         self.seed = int(seed)
         self.monitor = monitor if monitor is not None else (
@@ -229,7 +260,10 @@ class ServingEngine:
                    kv_dtype=serve_config.kv_dtype,
                    weight_dtype=serve_config.weight_dtype,
                    kv_parity_check=serve_config.kv_parity_check,
-                   spec_k=serve_config.spec_k, **kwargs)
+                   spec_k=serve_config.spec_k,
+                   adapter_rank=serve_config.adapter_rank,
+                   adapter_pool_pages=serve_config.adapter_pool_pages,
+                   adapter_dtype=serve_config.adapter_dtype, **kwargs)
 
     # -- submission --------------------------------------------------------
 
@@ -248,6 +282,17 @@ class ServingEngine:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             raise ValueError("prompt token ids must be in "
                              f"[0, {self.cfg.vocab_size})")
+        # An explicit adapter wins, else the tenant's entry.  Loud when the
+        # tier is off: serving the base model under the tenant's name
+        # would misattribute the stream.
+        adapter = request.adapter
+        if adapter is None and request.tenant is not None:
+            adapter = self.adapter_map.get(request.tenant)
+        if adapter is not None and self.adapter_pool is None:
+            raise ValueError(
+                f"request names adapter {adapter!r} but the adapter tier "
+                "is off (adapter_rank=0); serving it on the base model "
+                "would silently misattribute the stream")
         if len(self._queue) >= self.queue_limit:
             self.rejected += 1
             return None
@@ -258,7 +303,8 @@ class ServingEngine:
         task = SlotTask(request_id=request_id, prompt=prompt,
                         max_new_tokens=int(request.max_new_tokens),
                         temperature=float(request.temperature),
-                        seed=int(seed), eos_id=request.eos_id)
+                        seed=int(seed), eos_id=request.eos_id,
+                        adapter=adapter)
         self._queue.append((task, request))
         self._submit_t[request_id] = time.perf_counter()
         return request_id
@@ -387,7 +433,8 @@ class ServingEngine:
         self._record_result(ServeResult(
             request_id=rid, tokens=list(task.emitted), status=status,
             ttft_s=ttft, itl_s=itl, flagged=flagged, monitor_z=z,
-            entropies=list(task.entropies), margins=list(task.margins)))
+            entropies=list(task.entropies), margins=list(task.margins),
+            adapter=task.adapter))
         self._inflight.pop(rid, None)
 
     # -- reporting ---------------------------------------------------------
@@ -400,6 +447,35 @@ class ServingEngine:
         """Operator action: return a quarantined row (and its impounded
         blocks) to service."""
         self.scheduler.release_quarantine(slot)
+
+    def quarantine_adapter(self, name: str) -> None:
+        """Trust verdict against an ADAPTER: future resolves refuse, its
+        page is impounded when the last in-flight request drains.  The
+        engine stays in service: adapter trust and slot trust are separate
+        axes."""
+        if self.adapter_pool is not None:
+            self.adapter_pool.quarantine(name)
+
+    def unquarantine_adapter(self, name: str) -> None:
+        """Operator action: lift an adapter verdict."""
+        if self.adapter_pool is not None:
+            self.adapter_pool.unquarantine(name)
+
+    @property
+    def quarantined_adapters(self):
+        return (self.adapter_pool.quarantined
+                if self.adapter_pool is not None else set())
+
+    @property
+    def busy(self) -> bool:
+        """Work still queued or in flight (the workload drivers' test)."""
+        return bool(self._queue or self._inflight)
+
+    @property
+    def open_requests(self) -> int:
+        """Accepted-but-unfinished requests (the closed-loop driver's
+        in-flight count)."""
+        return len(self._queue) + len(self._inflight)
 
     def drain_results(self) -> Dict[int, ServeResult]:
         out = self.results
@@ -457,5 +533,9 @@ class ServingEngine:
                 "spec_verify_fraction": (sched.spec_verify_s / elapsed
                                          if elapsed > 0 else 0.0),
             })
+        if self.adapter_pool is not None:
+            out["adapters"] = {"rank": self.adapter_rank,
+                               "dtype": self.adapter_dtype,
+                               **self.adapter_pool.metrics()}
         out.update(self.metrics.summary())
         return out

@@ -266,7 +266,15 @@ class PrefixCache:
     which the cache keeps a reference, so a retired request's prompt
     blocks stay resident for later requests with the same prefix.
     Lookups incref what they match for the caller; eviction is LRU over
-    leaves whose block has no other holder."""
+    leaves whose block has no other holder.
+
+    Every tree hangs from the root of a ``scope``: the model that computed
+    its K/V.  Base-model requests use ``None`` (root 0); a request served
+    through an adapter uses the adapter's id, so it only ever reuses K/V
+    that the same adapter computed.  (The JAX cache keys by tokens alone,
+    ``trustworthy_dl_tpu/serve/scheduler.py:987-997``: there an adapter
+    request can take a base model's prefix, whose K/V past layer 0 differ,
+    and publish its own for other tenants.)"""
 
     def __init__(self, block_size: int, blocks: BlockAllocator):
         self.block_size = block_size
@@ -274,6 +282,8 @@ class PrefixCache:
         # key -> [block id, last-used tick, node id, cached-child count]
         self._nodes: Dict[Tuple[int, Tuple[int, ...]], List[Any]] = {}
         self._by_id: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        # scope -> root id; adapter scopes get negative ids, never node ids.
+        self._roots: Dict[Optional[str], int] = {None: 0}
         self._next_id = 1
         self._clock = 0
 
@@ -287,12 +297,19 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._nodes)
 
-    def lookup(self, tokens: Sequence[int], max_blocks: int) -> List[int]:
+    def _root(self, scope: Optional[str]) -> int:
+        if scope not in self._roots:
+            self._roots[scope] = -len(self._roots)
+        return self._roots[scope]
+
+    def lookup(self, tokens: Sequence[int], max_blocks: int,
+               scope: Optional[str] = None) -> List[int]:
         """Longest cached full-block prefix of ``tokens`` (at most
-        ``max_blocks`` blocks), each matched block increffed."""
+        ``max_blocks`` blocks) under ``scope``, each matched block
+        increffed."""
         out: List[int] = []
-        parent = 0
-        for i in range(max_blocks):
+        parent = self._roots.get(scope)
+        for i in range(max_blocks if parent is not None else 0):
             node = self._nodes.get((parent, self._segment(tokens, i)))
             if node is None:
                 break
@@ -303,13 +320,13 @@ class PrefixCache:
             self._blocks.incref(b)
         return out
 
-    def insert(self, tokens: Sequence[int], block_ids: Sequence[int]
-               ) -> List[int]:
-        """Cache ``tokens``' full blocks (backed by ``block_ids``);
-        returns the newly cached ids."""
+    def insert(self, tokens: Sequence[int], block_ids: Sequence[int],
+               scope: Optional[str] = None) -> List[int]:
+        """Cache ``tokens``' full blocks (backed by ``block_ids``) under
+        ``scope``; returns the newly cached ids."""
         n = min(len(tokens) // self.block_size, len(block_ids))
         added: List[int] = []
-        parent = 0
+        parent = self._root(scope)
         for i in range(n):
             key = (parent, self._segment(tokens, i))
             node = self._nodes.get(key)
@@ -322,7 +339,7 @@ class PrefixCache:
             self._nodes[key] = [block_ids[i], self._bump(), nid, 0]
             self._by_id[nid] = key
             self._blocks.incref(block_ids[i])
-            if parent:
+            if parent > 0:
                 self._nodes[self._by_id[parent]][3] += 1
             added.append(block_ids[i])
             parent = nid

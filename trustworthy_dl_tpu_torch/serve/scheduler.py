@@ -37,8 +37,16 @@ The pool is updated IN PLACE.  Draft steps write draft K/V at positions
 [len, len + k); the verify pass, at the lengths fixed before the draft
 (a host copy), writes the target K/V of [len, len + k + 1) before it
 reads them; positions past the accepted length are causally invisible
-and are overwritten by the next tick.  Adapters, migration, the stripe
-scheduler and the compile watcher are not ported yet.
+and are overwritten by the next tick.
+
+Adapters (``adapters``, a ``serve.adapters.AdapterPool``): admission
+claims the request's adapter page after its KV blocks (and unwinds both
+when the pool is full of live pages); an adapter-carrying prompt always
+prefills through the chunk path, and every chunk and decode tick carries
+the pool and the per-slot page row (adapterless and inactive slots on
+``ZERO_PAGE``, an exactly-zero delta).  Prefix reuse is scoped by adapter
+(``kv_slots.PrefixCache``).  Migration, the stripe scheduler and the
+compile watcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
 from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
 from trustworthy_dl_tpu_torch.quant import int8 as q8
+from trustworthy_dl_tpu_torch.serve.adapters import (ZERO_PAGE, AdapterPool,
+                                                     adapter_page_row)
 from trustworthy_dl_tpu_torch.serve.kv_slots import (
     TRASH_BLOCK,
     BlockAllocator,
@@ -173,17 +183,19 @@ def _paged_prefill_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
 def _paged_chunk_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
                       tokens: torch.Tensor, table: torch.Tensor,
                       start: torch.Tensor, last_idx: int, final: bool,
-                      seed: int, temp: float, greedy: bool, attn_impl: str
+                      seed: int, temp: float, greedy: bool, attn_impl: str,
+                      adapter: Optional[tuple] = None
                       ) -> Optional[torch.Tensor]:
     """One chunk of a paged prefill: C prompt positions from ``start``
     (i32 [1]) attending to everything already in the slot's blocks and
     writing their own K/V.  Only the prompt's final chunk projects logits
     and samples (the JAX program computes them on every chunk and the
-    host drops them; here the host knows which chunk is final)."""
+    host drops them; here the host knows which chunk is final).
+    ``adapter`` is the adapter pool and the slot's page [1]."""
     out = gen._apply_with_cache_paged(
         view, tokens[None], kv.k, kv.v, table, start, cfg,
         last_pos=last_idx, attn_impl=attn_impl, hidden=not final,
-        pool_ks=kv.k_scale, pool_vs=kv.v_scale)
+        pool_ks=kv.k_scale, pool_vs=kv.v_scale, adapter=adapter)
     if not final:
         return None
     return _sample_pack(out, seed, 0, temp, greedy, attn_impl)
@@ -193,15 +205,17 @@ def _paged_decode_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
                        tokens: torch.Tensor, tables: torch.Tensor,
                        lengths: torch.Tensor, seeds: Sequence[int],
                        indices: Sequence[int], temps: Sequence[float],
-                       greedy: Sequence[bool], attn_impl: str
-                       ) -> torch.Tensor:
+                       greedy: Sequence[bool], attn_impl: str,
+                       adapter: Optional[tuple] = None) -> torch.Tensor:
     """The fused paged decode step: one token for every row; returns the
-    packed [3, MAX_SLOTS] outputs."""
+    packed [3, MAX_SLOTS] outputs.  ``adapter`` is the adapter pool and
+    the per-slot page row."""
     logits = gen._apply_with_cache_paged(view, tokens[:, None], kv.k, kv.v,
                                          tables, lengths, cfg,
                                          attn_impl=attn_impl,
                                          pool_ks=kv.k_scale,
-                                         pool_vs=kv.v_scale)
+                                         pool_vs=kv.v_scale,
+                                         adapter=adapter)
     next_tok = _sample_tokens(logits, seeds, indices, temps, greedy)
     entropy, margin = _logit_signals(logits, attn_impl)
     return _pack_step_outputs(next_tok, entropy, margin)
@@ -280,6 +294,8 @@ class SlotTask:
     temperature: float
     seed: int = 0                 # sampling seed (unused when greedy)
     eos_id: Optional[int] = None
+    adapter: Optional[str] = None  # resolved adapter id (None = base)
+    adapter_page: int = ZERO_PAGE  # its pool page while admitted
     slot: int = -1
     emitted: List[int] = dataclasses.field(default_factory=list)
     next_token: int = -1
@@ -326,7 +342,8 @@ class PagedBatchingScheduler:
     prompt prefills through the full-precision local cache in one piece).
     ``view`` is the served weight view (built here when None: weight-only
     int8 under ``weight_dtype="int8"``); ``spec_k`` > 0 with ``draft_view``
-    (the int8 self-draft) turns decode ticks speculative."""
+    (the int8 self-draft) turns decode ticks speculative; ``adapters``
+    (an ``AdapterPool`` on ``device``) turns on the adapter tier."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config, max_slots: int,
                  max_seq: int, device: torch.device,
@@ -335,7 +352,8 @@ class PagedBatchingScheduler:
                  prefill_chunk: Optional[int] = None,
                  attn_impl: str = "kernel", view: Any = None,
                  kv_dtype: str = "model", weight_dtype: str = "model",
-                 spec_k: int = 0, draft_view: Any = None):
+                 spec_k: int = 0, draft_view: Any = None,
+                 adapters: Optional[AdapterPool] = None):
         q8.validate_dtypes(kv_dtype, weight_dtype)
         validate_paged_geometry(max_seq, block_size, num_blocks,
                                 prefill_chunk)
@@ -375,6 +393,7 @@ class PagedBatchingScheduler:
         self.blocks = BlockAllocator(self.num_blocks)
         self.prefix = (PrefixCache(block_size, self.blocks)
                        if prefix_cache else None)
+        self.adapters = adapters
         self.max_seq = max_seq
         self.lengths = np.zeros(max_slots, np.int32)
         self.tables: List[List[int]] = [[] for _ in range(max_slots)]
@@ -457,8 +476,11 @@ class PagedBatchingScheduler:
             self.prefix_lookups += 1
             # At least one prompt token always prefills, so the first
             # sampled token has fresh logits.
+            # Reuse only K/V the same model computed: the lookup is
+            # scoped by the request's adapter (None = the base model).
             shared = self.prefix.lookup(task.prompt.tolist(),
-                                        (p - 1) // self.block_size)
+                                        (p - 1) // self.block_size,
+                                        scope=task.adapter)
         n_new = -(-total // self.block_size) - len(shared)
         fresh = self.blocks.alloc(n_new)
         if fresh is None and self.prefix is not None:
@@ -469,6 +491,17 @@ class PagedBatchingScheduler:
                 self.blocks.release(b)
             self.allocator.free(slot)
             return False
+        if task.adapter is not None and self.adapters is not None:
+            # The second paged resource, with the KV blocks' backpressure
+            # semantics: a pool whose resident pages are all live (or a
+            # quarantined adapter) refuses and everything unwinds.
+            page = self.adapters.acquire(task.adapter)
+            if page is None:
+                for b in shared + fresh:
+                    self.blocks.release(b)
+                self.allocator.free(slot)
+                return False
+            task.adapter_page = page
         if shared:
             self.prefix_hits += 1
             self.prefix_tokens_reused += len(shared) * self.block_size
@@ -499,9 +532,10 @@ class PagedBatchingScheduler:
         chunk[:n_real] = task.prompt[st.pos:st.pos + n_real]
         final = st.pos + n_real >= st.plen
         temp = max(task.temperature, 1e-6)
-        if st.pos == 0 and st.plen <= c:
-            # Whole prompt in one chunk, nothing shared: the dense local
-            # prefill.
+        if st.pos == 0 and st.plen <= c and task.adapter_page == ZERO_PAGE:
+            # Whole prompt in one chunk, nothing shared, no adapter: the
+            # dense local prefill (an adapter's prompt must run through
+            # the delta'd layers, so it takes the chunk path).
             ids = np.full(c // self.block_size, TRASH_BLOCK, np.int32)
             n_ids = min(len(self.tables[slot]), len(ids))
             ids[:n_ids] = self.tables[slot][:n_ids]
@@ -513,13 +547,15 @@ class PagedBatchingScheduler:
             self.local_prefills += 1
         else:
             last_idx = int(np.clip(st.plen - 1 - st.pos, 0, c - 1))
-            tokens, table, start = _device_i32(
+            extra = ([self._adapter_row({0: task.adapter_page}, 1)]
+                     if self.adapters is not None else [])
+            tokens, table, start, *pages = _device_i32(
                 self.device, chunk, self._table_row(slot)[None],
-                np.array([st.pos]))
+                np.array([st.pos]), *extra)
             packed = _paged_chunk_impl(
                 self.cfg, self.kv, self.view, tokens.long(), table, start,
                 last_idx, final, task.seed, temp, task.greedy,
-                self.attn_impl)
+                self.attn_impl, self._adapter_args(pages))
             self.prefill_chunks += 1
         if not final:
             st.pos += c
@@ -533,8 +569,26 @@ class PagedBatchingScheduler:
             # publish them for later same-prefix requests.
             self._published[slot] = self.prefix.insert(
                 task.prompt.tolist(),
-                self.tables[slot][:st.plen // self.block_size])
+                self.tables[slot][:st.plen // self.block_size],
+                scope=task.adapter)
         return task
+
+    def _adapter_row(self, page_by_slot: Dict[int, int],
+                     rows: int) -> np.ndarray:
+        """The page row of ``rows`` slots, its range checked here, on the
+        host copy (B9 reads pages unchecked)."""
+        row = adapter_page_row(page_by_slot, rows)
+        if row.min() < 0 or row.max() > self.adapters.pages:
+            raise ValueError(f"adapter page row {row.tolist()} outside "
+                             f"[0, {self.adapters.pages}]")
+        return row
+
+    def _adapter_args(self, pages: List[torch.Tensor]) -> Optional[tuple]:
+        """The adapter pool plus the device page row, or None when the tier
+        is off."""
+        if self.adapters is None:
+            return None
+        return (*self.adapters.device_args(), pages[0])
 
     def decode_tick(self) -> List[SlotTask]:
         """Advance every mid-prefill slot by one chunk, then run the decode
@@ -575,11 +629,16 @@ class PagedBatchingScheduler:
             indices[slot] = len(task.emitted)
             temps[slot] = max(task.temperature, 1e-6)
             greedy[slot] = task.greedy
-        tokens_dev, tables_dev, lengths_dev = _device_i32(
-            self.device, tokens, tables, self.lengths)
+        # Inactive and adapterless slots stay on the zero page.
+        extra = ([self._adapter_row({s: t.adapter_page
+                                     for s, t in active.items()}, ms)]
+                 if self.adapters is not None else [])
+        tokens_dev, tables_dev, lengths_dev, *pages = _device_i32(
+            self.device, tokens, tables, self.lengths, *extra)
         packed = _paged_decode_impl(
             self.cfg, self.kv, self.view, tokens_dev.long(), tables_dev,
-            lengths_dev, seeds, indices, temps, greedy, self.attn_impl)
+            lengths_dev, seeds, indices, temps, greedy, self.attn_impl,
+            self._adapter_args(pages))
         self.decode_ticks += 1
         host = packed.cpu().numpy()      # the tick's one device-to-host copy
         next_tok, ent, margin = host[0], host[1], host[2]
@@ -710,6 +769,13 @@ class PagedBatchingScheduler:
             return
         del self.tasks[slot]
         self._prefill.pop(slot, None)
+        if task.adapter is not None and self.adapters is not None \
+                and task.adapter_page != ZERO_PAGE:
+            # Drop the request's reference on its adapter page; the pool's
+            # own keeps it resident.  A slot quarantine does not
+            # quarantine the adapter (that verdict is the adapter's own).
+            self.adapters.release(task.adapter)
+            task.adapter_page = ZERO_PAGE
         self.blocks.release_speculative(self._spec_claims.pop(slot, []))
         published = self._published.pop(slot, [])
         if quarantine and self.prefix is not None and published:
