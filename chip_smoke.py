@@ -15,7 +15,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    for B4-B9 and the int8 branches of B5/B6, training's for B1-B3), hold
    it against its plain PyTorch version on the same inputs, and time the
    kernel, the plain version and a library yardstick (median of
-   per-launch CUDA-event timings, L2 flushed before each launch).
+   per-launch CUDA-event timings, L2 flushed before each launch).  B8
+   also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
+   with ``tflops``).
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -485,31 +487,48 @@ def check_dequant_matmul(torch, entries, flush):
 
 def check_verify_tail(torch, pa, entries, flush):
     """B8 at the spec verify shape: normed [R (k + 1) = 40, 768] bf16 x the
-    tied head [50257, 768] bf16, one row with a duplicated maximum.
-    Yardstick: ``torch.matmul`` + ``logsumexp`` + ``topk``."""
+    tied head [50257, 768] bf16, one row with a duplicated maximum; then
+    the 16 x 9 = 144 rows of ``max_slots=16, spec_k=8``, which the wrapper
+    runs as two launches (rows 0-95, 96-143).  Yardstick: ``torch.matmul``
+    + ``logsumexp`` + ``topk``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    b, d, v = 8 * (SPEC_K + 1), 768, 50257
+    d, v = 768, 50257
     head = (torch.randn(v, d, device=dev, generator=gen) * 0.02).to(
         torch.bfloat16)
-    normed = torch.randn(b, d, device=dev, generator=gen).to(torch.bfloat16)
     head[v - 1] = head[7]
-    normed[0] = (head[7].float() * 60.0).to(torch.bfloat16)
-    logits, ent, mar = pa.fused_verify_tail(normed, head)
-    torch.cuda.synchronize()
-    ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
-    bound = ref.abs() * 2.0 ** -7 \
-        + DQ_RTOL * (normed.float().abs() @ head.float().abs().T)
-    excess = float(((logits - ref).abs() - bound).max())
-    top2 = torch.topk(logits, 2, dim=-1).values
-    ent_err = float((ent - ent_ref).abs().max())
-    if excess > 0.0 or not torch.equal(mar, top2[:, 0] - top2[:, 1]) \
-            or ent_err > ENTROPY_ATOL or float(mar[0]) != 0.0:
-        raise AssertionError(
-            f"verify tail disagrees: logits excess over bound {excess}, "
-            f"margin == top-2 of own logits "
-            f"{torch.equal(mar, top2[:, 0] - top2[:, 1])}, entropy err "
-            f"{ent_err}, duplicated-max margin {float(mar[0])}")
+
+    def check(b, launches):
+        normed = torch.randn(b, d, device=dev, generator=gen).to(
+            torch.bfloat16)
+        normed[b - 1] = (head[7].float() * 60.0).to(torch.bfloat16)
+        before = pa.fused_verify_tail.launches
+        logits, ent, mar = pa.fused_verify_tail(normed, head)
+        torch.cuda.synchronize()
+        if pa.fused_verify_tail.launches - before != launches:
+            raise AssertionError(
+                f"verify tail at B={b}: "
+                f"{pa.fused_verify_tail.launches - before} launches, want "
+                f"{launches}")
+        ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+        bound = ref.abs() * 2.0 ** -7 \
+            + DQ_RTOL * (normed.float().abs() @ head.float().abs().T)
+        excess = float(((logits - ref).abs() - bound).max())
+        top2 = torch.topk(logits, 2, dim=-1).values
+        ent_err = float((ent - ent_ref).abs().max())
+        if excess > 0.0 or not torch.equal(mar, top2[:, 0] - top2[:, 1]) \
+                or ent_err > ENTROPY_ATOL or float(mar[b - 1]) != 0.0:
+            raise AssertionError(
+                f"verify tail at B={b} disagrees: logits excess over bound "
+                f"{excess}, margin == top-2 of own logits "
+                f"{torch.equal(mar, top2[:, 0] - top2[:, 1])}, entropy err "
+                f"{ent_err}, duplicated-max margin {float(mar[b - 1])}")
+        return normed, float((logits - ref).abs().max()), ent_err
+
+    wide, wide_err, wide_ent_err = check(16 * 9, 2)
+    del wide
+    b = 8 * (SPEC_K + 1)
+    normed, max_err, ent_err = check(b, 1)
     head_t = head.T
 
     def library():
@@ -521,8 +540,10 @@ def check_verify_tail(torch, pa, entries, flush):
     entries["fused_verify_tail"] = {
         "name": "fused_verify_tail", "route": "cuda", "source": SOURCE,
         "replaces": "trustworthy_dl_tpu/ops/paged_attention.py:898",
-        "launches": 0, "max_abs_err": float((logits - ref).abs().max()),
+        "launches": 0, "max_abs_err": max_err,
         "entropy_max_abs_err": ent_err,
+        "cases": [{"rows": 16 * 9, "launches": 2, "max_abs_err": wide_err,
+                   "entropy_max_abs_err": wide_ent_err}],
         "ms": time_ms(torch, lambda: pa.fused_verify_tail(normed, head),
                       flush),
         "plain_ms": time_ms(torch, lambda: pa.fused_verify_tail_plain(
@@ -1020,7 +1041,8 @@ def flash_work(bh, t, d, matmuls):
 def check_train_kernels(torch, entries):
     """Phase 3, training kernels: B1 over the 16 gradient leaves of GPT-2
     small on each of 4 nodes (one launch, 64 segments), B2 and B3 at one
-    node's attention shape [96, 1024, 64] bf16."""
+    node's attention shape [96, 1024, 64] bf16 (B3 from the new B2's
+    ``lse``), and B2 at D = 32 and 128 (``cases``, T = 1024)."""
     import torch.nn.functional as F
 
     from trustworthy_dl_tpu_torch.models import gpt2
@@ -1149,7 +1171,42 @@ def check_train_kernels(torch, entries):
             "library_ms": lib,
             "shape": {"bhtd": [bh, t, d], "dtype": "bfloat16"},
         }
-    entries["flash_attention_fwd"]["lse_max_abs_err"] = lse_err
+    fwd = entries["flash_attention_fwd"]
+    fwd["lse_max_abs_err"] = lse_err
+    fwd["tflops"] = flash_work(bh, t, d, 2) / (fwd["ms"] * 1e-3) / 1e12
+    # The kernel's own time (profiler), where ``ms``'s event window also
+    # holds the wrapper's host dispatch whenever the card waits for it.
+    fwd["device_ms"] = device_ms(
+        torch, lambda: fa.flash_attention_fwd(q, k, v), flush,
+        "flash_fwd_kernel")
+    del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, out4
+    # B2 at the other head widths the kernel is built for, at T = 1024:
+    # the same checks and yardstick, one entry each under ``cases``.
+    fwd["cases"] = []
+    for c_bh, c_d in ((96, 32), (48, 128)):
+        q, k, v = (torch.randn(c_bh, t, c_d, device=dev, generator=gen).to(
+            torch.bfloat16) for _ in range(3))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v)
+        c_err = err(o, o_ref, f"flash fwd D={c_d}")
+        c_lse = float((lse - lse_ref).abs().max())
+        if c_lse > LSE_ATOL:
+            raise AssertionError(f"flash fwd D={c_d} lse err {c_lse}")
+        q4, k4, v4 = (a.view(1, c_bh, t, c_d) for a in (q, k, v))
+        c_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), flush)
+        c_dev = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v),
+                          flush, "flash_fwd_kernel")
+        c_bound, c_by = bound_entry(4 * c_bh * t * c_d * 2 + c_bh * t * 4,
+                                    flash_work(c_bh, t, c_d, 2), "bfloat16")
+        fwd["cases"].append({
+            "bhtd": [c_bh, t, c_d], "max_abs_err": c_err,
+            "lse_max_abs_err": c_lse, "ms": c_ms, "device_ms": c_dev,
+            "tflops": flash_work(c_bh, t, c_d, 2) / (c_ms * 1e-3) / 1e12,
+            "bound_ms": c_bound, "bound_by": c_by,
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), flush)})
+        del q, k, v, o, lse, o_ref, lse_ref, q4, k4, v4
 
 
 def train_drive(torch, entries, card):

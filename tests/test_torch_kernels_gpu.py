@@ -2,8 +2,9 @@
 an int8 pool, B7 trust epilogue, B8 fused verify tail, B9 paged adapter
 delta; B4 int8 dequant matmul; B1 moment battery; B2/B3 flash attention
 forward and backward)
-against their plain PyTorch twins, on the card, and the detector
-baseline's tensors following the card.
+against their plain PyTorch twins, on the card, the detector baseline's
+tensors following the card, and the serving engine at the kernels' limits
+(B8 past one launch's rows, B9 past its rank refused at construction).
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -140,11 +141,13 @@ def test_moments_kernel_matches_plain(cuda):
                                equal_nan=True)
 
 
-@pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (4, 192, 64),
-                                    (2, 128, 128), (96, 1024, 64)])
+@pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (2, 64, 32), (4, 192, 64),
+                                    (2, 128, 128), (5, 320, 128),
+                                    (96, 1024, 64)])
 def test_flash_kernels_match_plain(cuda, bh, t, d):
     """B2 and B3 (dq, dk/dv) in bf16 against their plain twins: within
-    atol 2e-3 + rtol 2^-7; lse within 1e-3 (f32 over a bf16 product)."""
+    atol 2e-3 + rtol 2^-7; lse within 1e-3 (f32 over a bf16 product).
+    Every D of ``HEAD_DIMS``, a single tile, and an odd tile count."""
     gen = torch.Generator(device=cuda).manual_seed(4)
 
     def mk():
@@ -317,6 +320,93 @@ def test_verify_tail_kernel_matches_plain(cuda, b, d, v):
     torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("b", [100, 144])
+def test_verify_tail_takes_any_row_count(cuda, b):
+    """B8 past one launch's 96 rows: one launch per row group, each writing
+    its rows, against the plain twin as above."""
+    rng = np.random.default_rng(10)
+    d, v = 768, 5000
+    normed = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32).to(
+        device=cuda, dtype=torch.bfloat16)
+    head = torch.tensor(rng.normal(size=(v, d)) * 0.05,
+                        dtype=torch.float32).to(device=cuda,
+                                                dtype=torch.bfloat16)
+    head[v - 1] = head[3]
+    normed[b - 1] = head[3] * 40.0          # a duplicated maximum past row 96
+    before = pa.fused_verify_tail.launches
+    logits, ent, mar = pa.fused_verify_tail(normed, head)
+    torch.cuda.synchronize()
+    assert pa.fused_verify_tail.launches == before + 2
+    ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+    bound = ref.abs() * 2.0 ** -7 \
+        + 1e-5 * (normed.float().abs() @ head.float().abs().T)
+    assert float(((logits - ref).abs() - bound).max()) <= 0.0
+    top2 = torch.topk(logits, 2, dim=-1).values
+    assert torch.equal(mar, top2[:, 0] - top2[:, 1])
+    assert float(mar[b - 1]) == 0.0
+    torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+def _small_bf16(vocab):
+    """A 2-layer, 128-wide bf16 GPT-2 with random weights (seed 0)."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(vocab_size=vocab, n_positions=128, n_layer=2,
+                          n_embd=128, n_head=2, dtype=torch.bfloat16)
+    return cfg, gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_engine_refuses_adapters_past_the_kernel_at_construction(cuda):
+    """B9 takes rank <= 64: an engine at rank 65 on the kernel path raises
+    a ValueError naming the limit before it allocates anything on the
+    card (the plain path on the CPU takes any rank)."""
+    from trustworthy_dl_tpu_torch.serve import ServingEngine
+
+    cfg, params = _small_bf16(256)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="rank 65"):
+        ServingEngine(params, cfg, max_slots=2, max_seq=64, block_size=16,
+                      adapter_rank=65, device="cuda")
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+def test_spec_engine_past_one_verify_launch_serves(cuda):
+    """``max_slots=16, spec_k=8``: the verify feeds B8 16 x 9 = 144 rows,
+    two launches a spec tick.  Four greedy requests complete, and their
+    streams equal ``spec_k=0``'s, or split only where spec off's top-1
+    margin is a near tie (below 0.05: bf16 verify and decode logits may
+    differ in the last bit there)."""
+    from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+
+    cfg, params = _small_bf16(257)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 257, int(n)).tolist() for n in (5, 9, 14, 20)]
+
+    def serve(spec_k):
+        engine = ServingEngine(params, cfg, max_slots=16, max_seq=64,
+                               block_size=16, spec_k=spec_k, device="cuda")
+        for p in prompts:
+            engine.submit(ServeRequest(prompt=p, max_new_tokens=16))
+        results = engine.run_until_idle()
+        torch.cuda.synchronize()
+        return engine, results
+
+    before = pa.fused_verify_tail.launches
+    engine, spec = serve(8)
+    ticks = engine.metrics_summary()["spec_ticks"]
+    assert ticks > 0
+    assert pa.fused_verify_tail.launches - before == 2 * ticks
+    _, off = serve(0)
+    for rid in range(len(prompts)):
+        assert spec[rid].status == "completed"
+        assert len(spec[rid].tokens) == 16
+        for i, (a, b) in enumerate(zip(spec[rid].tokens, off[rid].tokens)):
+            if a != b:
+                assert off[rid].margins[i] < 0.05, (rid, i)
+                break
+
+
 def test_new_wrappers_reject_what_kernels_do_not_take(cuda):
     x32 = torch.zeros(8, 64, device=cuda)
     wq = torch.zeros(64, 64, dtype=torch.int8, device=cuda)
@@ -330,10 +420,10 @@ def test_new_wrappers_reject_what_kernels_do_not_take(cuda):
         pa.fused_verify_tail(torch.zeros(4, 64, device=cuda),
                              torch.zeros(9, 64, device=cuda))    # f32
     with pytest.raises(ValueError):
-        pa.fused_verify_tail(torch.zeros(97, 64, dtype=torch.bfloat16,
+        pa.fused_verify_tail(torch.zeros(97, 48, dtype=torch.bfloat16,
                                          device=cuda),
-                             torch.zeros(9, 64, dtype=torch.bfloat16,
-                                         device=cuda))           # B > 96
+                             torch.zeros(9, 48, dtype=torch.bfloat16,
+                                         device=cuda))      # D % 64 != 0
     q = torch.zeros(1, 2, 1, 16, dtype=torch.bfloat16, device=cuda)
     pool = torch.zeros(3, 2, 8, 16, dtype=torch.bfloat16, device=cuda)
     sc = torch.zeros(3, 2, 8, device=cuda)

@@ -1,0 +1,75 @@
+"""The serving kernels' limits as the port states them on the CPU: the row
+groups the fused verify tail (B8) launches over, the limits of the paged
+adapter delta (B9) that the engine checks when it is built on the card,
+and the plain path, which has neither limit.
+
+These are pure functions of shapes and dtypes (and one tiny CPU engine),
+so they run here; the card's side of both (an engine past B9's limits
+refused at construction, a 16-slot ``spec_k=8`` engine serving through
+two B8 launches a verify) is in ``tests/test_torch_kernels_gpu.py``.
+"""
+
+import pytest
+import torch
+
+from trustworthy_dl_tpu_torch.models import gpt2
+from trustworthy_dl_tpu_torch.ops import paged_attention as pa
+from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+
+pytestmark = pytest.mark.torchport
+
+CFG = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=2, n_embd=32,
+                      n_head=4, dtype=torch.float32)
+
+
+def test_verify_row_groups_of_the_smoke_verify_is_one_launch():
+    assert pa.verify_row_groups(40) == [(0, 40)]
+
+
+def test_verify_row_groups_split_past_the_kernel_limit():
+    assert pa.verify_row_groups(144) == [(0, 96), (96, 144)]
+
+
+@pytest.mark.parametrize("b", [1, 40, 95, 96, 97, 100, 144, 192, 1000])
+def test_verify_row_groups_tile_every_row_once(b):
+    groups = pa.verify_row_groups(b)
+    assert groups[0][0] == 0 and groups[-1][1] == b
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(groups, groups[1:]))
+    assert all(lo % pa.VERIFY_MAX_ROWS == 0 for lo, _ in groups)
+    assert all(1 <= hi - lo <= pa.VERIFY_MAX_ROWS for lo, hi in groups)
+    assert len(groups) == -(-b // pa.VERIFY_MAX_ROWS)
+
+
+@pytest.mark.parametrize("rank,d,dtype,needle", [
+    (65, 768, torch.bfloat16, "rank 65"),
+    (0, 768, torch.bfloat16, "rank 0"),
+    (16, 40, torch.bfloat16, "D=40"),
+    (16, 768, torch.float32, "bf16"),
+    (64, 1024, torch.bfloat16, "shared memory"),
+])
+def test_adapter_kernel_limit_names_what_it_refuses(rank, d, dtype, needle):
+    reason = pa.adapter_kernel_limit(rank, d, dtype)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("rank", [1, 16, 64])
+def test_adapter_kernel_limit_takes_gpt2_small(rank):
+    assert pa.adapter_kernel_limit(rank, 768, torch.bfloat16) is None
+
+
+def test_plain_engine_serves_past_the_kernel_rank_limit():
+    """On the CPU the plain path takes any rank: a rank-128 engine builds
+    and serves one adapter request to completion, launching nothing."""
+    params = gpt2.init_params(CFG, torch.Generator().manual_seed(0))
+    pa.reset_launch_counts()
+    engine = ServingEngine(params, CFG, max_slots=2, max_seq=48,
+                           block_size=8, prefill_chunk=16, device="cpu",
+                           adapter_rank=128, adapter_pool_pages=1,
+                           adapter_map={"t": "ad-t"})
+    rid = engine.submit(ServeRequest(prompt=[3, 1, 4, 1, 5, 9, 2, 6],
+                                     max_new_tokens=5, tenant="t"))
+    results = engine.run_until_idle()
+    assert results[rid].status == "completed"
+    assert results[rid].adapter == "ad-t"
+    assert len(results[rid].tokens) == 5
+    assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)

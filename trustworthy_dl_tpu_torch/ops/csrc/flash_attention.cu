@@ -19,20 +19,42 @@
 // ~50.7 MB (15.1 us at 3.35 TB/s) and does ~12.9 GFLOP of causal work
 // (13.0 us at the 989 TFLOP/s bf16 tensor-core peak), so both limits sit
 // close together and the kernels have to use the tensor cores and read
-// each tile once.  The design, kept simple for a first port:
-//   * 64-row tiles, one CTA of four warps per (query tile, batch*head) for
-//     the forward and dq, per (key tile, batch*head) for dk/dv; each warp
-//     owns 16 rows, so the per-row softmax work needs no CTA barrier;
-//   * Q/K/V/dO tiles are staged in shared memory with 16-byte loads; the
-//     products run on the tensor cores through WMMA (bf16 in, f32 out);
-//   * tiles wholly above the diagonal are never loaded (the TPU kernels'
-//     causal skip), the diagonal tile is masked elementwise;
-//   * the forward keeps (m, l) per row and the output accumulator in f32 in
-//     shared memory (WMMA fragments hide their row mapping, so the online
-//     rescale runs on the staged copy); dq and dk/dv keep their sums in
-//     f32 WMMA accumulators across the whole loop;
-//   * no atomics: dq and dk/dv are separate kernels, each writing only its
-//     own rows, so results are the same on every run.
+// each tile once.  Tiles wholly above the diagonal are never loaded (the
+// TPU kernels' causal skip); the diagonal tile is masked elementwise.
+//
+// The forward (B2) is FlashAttention-2's shape, written out by hand:
+//   * one CTA of four warps per (64-row query tile, batch*head), query
+//     tiles longest-first so the causal triangle balances over the SMs;
+//     each warp owns 16 query rows for the whole K loop;
+//   * Q's A-fragments are loaded once with ldmatrix and stay in registers;
+//     S = Q.K^T and O += P.V run as mma.sync m16n8k16 (bf16 in, f32
+//     accumulate), K's B-fragments from ldmatrix, V's from ldmatrix.trans;
+//   * the O accumulator and the running (max, sum) of its two rows stay in
+//     registers; the row max takes two quad shuffles (the four lanes of a
+//     row), the row sum stays per lane until the end; exp2 with
+//     scale * log2(e) folded in, lse = (m2 + log2 l) * ln 2 at the end;
+//   * P never touches shared memory: two m16n8 C tiles of S, rounded to
+//     bf16 pairs, are the A layout of one m16k16 tile of P.V (the plain
+//     twin rounds P to bf16 before the product too; l sums unrounded P);
+//   * K/V tiles come through a 2-stage ring of cp.async copies (16 bytes
+//     a thread), tile j+1 in flight while tile j's products run; rows are
+//     padded by 16 bytes so that ldmatrix's eight row addresses hit eight
+//     distinct 16-byte bank groups;
+//   * one barrier per K/V tile: tile j + 1's copy is issued after the
+//     barrier that closes tile j - 1, into the stage j - 1 used;
+//   * shared memory: Q plus 2 x (K, V) = 46,080 bytes at D = 64 (87,040 at
+//     D = 128); the epilogue stages each warp's bf16 rows in its own rows
+//     of the Q tile and writes them with 16-byte coalesced stores;
+//   * registers (ptxas, sm_90a, CUDA 12.8): 84 / 104 / 128 / 228 a thread
+//     at D = 16 / 32 / 64 / 128, 0 spill bytes at every D; at D <= 64 the
+//     launch bounds ask for 4 CTAs (16 warps) an SM, at D = 128 for 2.
+//   128-row CTAs of 8 warps and a 3-stage ring measured slower in device
+//   time on the H100 (PERF.md, B2's redesign), so the forward keeps these.
+// dq and dk/dv (B3) keep the first port's design: 64-row tiles staged in
+// shared memory with 16-byte loads, WMMA products (bf16 in, f32 out), the
+// score strips in f32 shared memory, their sums in WMMA accumulators
+// across the whole loop; no atomics: dq and dk/dv are separate kernels,
+// each writing only its own rows, so results are the same on every run.
 // TMA, wgmma and warp specialisation are later work.
 
 #include <cuda_bf16.h>
@@ -61,10 +83,8 @@ struct Dims {
   static constexpr size_t TILE_BYTES = sizeof(bf16) * TILE * LDB;
   static constexpr size_t SCORE_BYTES = sizeof(float) * TILE * LDS;
   static constexpr size_t PROB_BYTES = sizeof(bf16) * TILE * LDP;
-  static constexpr size_t ACC_BYTES = sizeof(float) * TILE * LDO;
   static constexpr size_t ROW_BYTES = sizeof(float) * TILE;
-  static constexpr size_t FWD_SMEM =
-      3 * TILE_BYTES + SCORE_BYTES + PROB_BYTES + ACC_BYTES + 2 * ROW_BYTES;
+  static constexpr size_t FWD_SMEM = 5 * TILE_BYTES;  // Q + 2 x (K, V)
   static constexpr size_t BWD_SMEM =
       4 * TILE_BYTES + 2 * SCORE_BYTES + 2 * PROB_BYTES + 2 * ROW_BYTES;
 };
@@ -128,36 +148,97 @@ __device__ __forceinline__ void strip_pm(FragC* acc, const bf16* p,
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------------------
 // B2: forward.  grid (T/64, BH); query tiles run longest-first.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane i gives the row address of matrix i / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate.  Lane l
+// holds c rows l/4 (c[0], c[1]) and l/4 + 8 (c[2], c[3]), columns
+// 2 (l % 4) + {0, 1}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (flushes results below 2^-126 to 0: probabilities that
+// small vanish against the row's maximum term of 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// [64, D] rows of a [*, D] global array -> shared tile with row stride LDB,
+// 16 bytes a thread per cp.async.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src) {
+  constexpr int VPR = D / 8;
+#pragma unroll
+  for (int it = 0; it < TILE * VPR / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / VPR;
+    const int c = i % VPR;
+    cp_async16(dst + r * Dims<D>::LDB + c * 8, src + (size_t)r * D + c * 8);
+  }
+}
+
+// At D <= 64, four CTAs (16 warps) per SM: at most 128 registers a thread.
+template <int D>
+__global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int T, float scale) {
-  using Dm = Dims<D>;
+                     float* __restrict__ lse, int T, float scale_log2) {
+  constexpr int LD = Dims<D>::LDB;
+  constexpr int KD = D / 16;  // k16 steps over D, and n16 pairs over D
+  constexpr int ND = D / 8;   // n8 tiles of the output
+  constexpr float LN2 = 0.69314718055994531f;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + TILE * Dm::LDB;
-  bf16* v_s = k_s + TILE * Dm::LDB;
-  float* s_s = reinterpret_cast<float*>(v_s + TILE * Dm::LDB);
-  bf16* p_s = reinterpret_cast<bf16*>(s_s + TILE * LDS);
-  float* o_s = reinterpret_cast<float*>(p_s + TILE * LDP);
-  float* m_s = o_s + TILE * Dm::LDO;
-  float* l_s = m_s + TILE;
+  bf16* kv_s = q_s + TILE * LD;  // stage s: K at 2s, V at 2s + 1 tiles
 
   const int nq = T / TILE;
   const int qi = nq - 1 - blockIdx.x;
@@ -165,70 +246,160 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = warp * 16;
+  const int g = lane >> 2;          // fragment row (and row + 8)
+  const int c2 = (lane & 3) * 2;    // fragment column pair
+  // ldmatrix row-address roles of this lane: row within an 8x8 matrix and
+  // which of the four matrices (bit 0 and bit 1 of lane / 8).
+  const int lrow = lane & 7;
+  const int lm0 = (lane >> 3) & 1;
+  const int lm1 = lane >> 4;
 
-  load_tile<D>(q_s, q + head + (size_t)qi * TILE * D);
-  for (int i = threadIdx.x; i < TILE * Dm::LDO; i += THREADS) o_s[i] = 0.f;
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    m_s[i] = NEG_INF;
-    l_s[i] = 0.f;
-  }
+  copy_tile_async<D>(q_s, q + head + (size_t)qi * TILE * D);
+  copy_tile_async<D>(kv_s, k + head);
+  copy_tile_async<D>(kv_s + TILE * LD, v + head);
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max, scaled log2 units
+  float l0 = 0.f, l1 = 0.f;          // this lane's share of the row sums
 
   for (int kj = 0; kj <= qi; ++kj) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(k_s, k + head + (size_t)kj * TILE * D);
-    load_tile<D>(v_s, v + head + (size_t)kj * TILE * D);
-    __syncthreads();
+    cp_async_wait<0>();  // this thread's copies of tile kj have landed
+    __syncthreads();     // everyone's have, and every warp is done with kj - 1
+    if (kj < qi) {       // tile kj + 1 into the stage kj - 1 used
+      bf16* nk = kv_s + ((kj + 1) & 1) * 2 * TILE * LD;
+      copy_tile_async<D>(nk, k + head + (size_t)(kj + 1) * TILE * D);
+      copy_tile_async<D>(nk + TILE * LD,
+                         v + head + (size_t)(kj + 1) * TILE * D);
+      cp_async_commit();
+    }
+    const bf16* k_s = kv_s + (kj & 1) * 2 * TILE * LD;
+    const bf16* v_s = k_s + TILE * LD;
+    if (kj == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qf[kk], q_s + (r0 + lrow + lm0 * 8) * LD + kk * 16 + lm1 * 8);
+    }
 
-    strip_abt<D>(s_s + r0 * LDS, q_s + r0 * Dm::LDB, k_s);
-    __syncwarp();
-
-    // Online softmax over this warp's 16 rows; each lane holds 2 columns.
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r;
-      const int qpos = qi * TILE + row;
-      float s0 = s_s[row * LDS + lane] * scale;
-      float s1 = s_s[row * LDS + lane + 32] * scale;
-      if (kj == qi) {
-        if (kj * TILE + lane > qpos) s0 = NEG_INF;
-        if (kj * TILE + lane + 32 > qpos) s1 = NEG_INF;
-      }
-      const float m_prev = m_s[row];
-      const float m_cur = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_cur);
-      const float p1 = expf(s1 - m_cur);
-      const float sum = warp_sum(p0 + p1);
-      const float corr = expf(m_prev - m_cur);
-      p_s[row * LDP + lane] = __float2bfloat16(p0);
-      p_s[row * LDP + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < D; d += 32) o_s[row * Dm::LDO + d] *= corr;
-      if (lane == 0) {
-        m_s[row] = m_cur;
-        l_s[row] = l_s[row] * corr + sum;
+    // S = Q . K^T over this tile's 64 keys: 8 n8 tiles, two per ldmatrix.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, k_s + (jj * 16 + lrow + lm1 * 8) * LD + kk * 16 + lm0 * 8);
+        mma_bf16(s[2 * jj], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * jj + 1], qf[kk], b[2], b[3]);
       }
     }
-    __syncwarp();
 
-    FragC acc[D / 16];
+    // Online softmax in registers.  Only the diagonal tile is masked.
+    if (kj == qi) {
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::load_matrix_sync(acc[j], o_s + r0 * Dm::LDO + j * 16, Dm::LDO,
-                             wmma::mem_row_major);
-    strip_pm<D>(acc, p_s + r0 * LDP, v_s);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      wmma::store_matrix_sync(o_s + r0 * Dm::LDO + j * 16, acc[j], Dm::LDO,
-                              wmma::mem_row_major);
+        for (int e = 0; e < 4; ++e)
+          if (j * 8 + c2 + (e & 1) > r0 + g + (e >> 1) * 8) s[j][e] = NEG_INF;
+    }
+    float mx0 = s[0][0], mx1 = s[0][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // The running max in scaled log2 units (scale > 0 commutes with max).
+    // m starts at the finite NEG_INF, so the first tile's correction is
+    // exp2(-huge) = 0, never NaN; every row sees its diagonal key, so the
+    // tile's max is a real score.
+    mx0 = fmaxf(m0, mx0 * scale_log2);
+    mx1 = fmaxf(m1, mx1 * scale_log2);
+    const float corr0 = ex2(m0 - mx0);
+    const float corr1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= corr0;
+    l1 *= corr1;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= corr0;
+      acc[n][1] *= corr0;
+      acc[n][2] *= corr1;
+      acc[n][3] *= corr1;
+    }
+    // P = exp2(s * scale_log2 - m), one FFMA and one ex2 each, as bf16
+    // A-fragments: S tiles 2kk and 2kk + 1 are P.V's k16 step kk.
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = ex2(fmaf(s[j][0], scale_log2, -mx0));
+      const float p1 = ex2(fmaf(s[j][1], scale_log2, -mx0));
+      const float p2 = ex2(fmaf(s[j][2], scale_log2, -mx1));
+      const float p3 = ex2(fmaf(s[j][3], scale_log2, -mx1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P . V: V's B-fragments through ldmatrix.trans, two n8 tiles each.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < KD; ++nn) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, v_s + (kk * 16 + lrow + lm0 * 8) * LD + nn * 16 +
+                             lm1 * 8);
+        mma_bf16(acc[2 * nn], pf[kk], b[0], b[1]);
+        mma_bf16(acc[2 * nn + 1], pf[kk], b[2], b[3]);
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
+
+  // Epilogue: this warp's rows of the Q tile (read only by this warp, at
+  // kj == 0) stage the bf16 output for 16-byte coalesced stores.
+  bf16* stage = q_s + r0 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + n * 8 + c2) =
+        pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + n * 8 + c2) =
+        pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
   }
   __syncwarp();
-
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r;
-    const float l = fmaxf(l_s[row], 1e-30f);
-    const size_t out_row = head + (size_t)(qi * TILE + row) * D;
-    for (int d = lane; d < D; d += 32)
-      o[out_row + d] = __float2bfloat16(o_s[row * Dm::LDO + d] / l);
-    if (lane == 0) lse[(size_t)blockIdx.y * T + qi * TILE + row] =
-        m_s[row] + logf(l);
+  constexpr int VPR = D / 8;
+  bf16* out = o + head + (size_t)(qi * TILE + r0) * D;
+#pragma unroll
+  for (int it = 0; it < 16 * VPR / 32; ++it) {
+    const int i = lane + it * 32;
+    const int r = i / VPR;
+    const int c = i % VPR;
+    *reinterpret_cast<uint4*>(out + (size_t)r * D + c * 8) =
+        *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
+  if ((lane & 3) == 0) {
+    float* lrow_out = lse + (size_t)blockIdx.y * T + qi * TILE + r0;
+    lrow_out[g] = (m0 + log2f(l0)) * LN2;
+    lrow_out[g + 8] = (m1 + log2f(l1)) * LN2;
   }
 }
 
@@ -420,7 +591,7 @@ int launch(int which, const void* q, const void* k, const void* v,
     if ((err = prepare(flash_fwd_kernel<D>, Dm::FWD_SMEM))) return err;
     flash_fwd_kernel<D><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
         qb, kb, vb, static_cast<bf16*>(out0), static_cast<float*>(out1), T,
-        scale);
+        scale * 1.4426950408889634f);
   } else if (which == 1) {
     if ((err = prepare(flash_dq_kernel<D>, Dm::BWD_SMEM))) return err;
     flash_dq_kernel<D><<<grid, THREADS, Dm::BWD_SMEM, stream>>>(

@@ -29,7 +29,7 @@ to the last block its window needs, clipped into the table.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -276,8 +276,8 @@ def logit_trust_stats(logits: torch.Tensor
 
 logit_trust_stats.launches = 0
 
-#: Most rows the verify-tail kernel takes (R * (k + 1) <= 8 * 9 on the
-#: serving path).
+#: Most rows one launch of the verify-tail kernel takes; the wrapper
+#: covers any B with one launch per group of at most this many rows.
 VERIFY_MAX_ROWS = 96
 #: The verify-tail kernel's vocab tile and K chunk.
 VERIFY_TILE_COLS = 128
@@ -295,6 +295,15 @@ def fused_verify_tail_plain(normed: torch.Tensor, head: torch.Tensor
     return logits, entropy, margin
 
 
+def verify_row_groups(b: int) -> List[Tuple[int, int]]:
+    """The row slices [start, stop) that cover ``b`` verify rows, one
+    launch of B8 each: at most :data:`VERIFY_MAX_ROWS` rows a slice, every
+    start a multiple of it (96 f32 or bf16 rows keep each slice's base
+    16-byte aligned at any V or D)."""
+    return [(s, min(s + VERIFY_MAX_ROWS, b))
+            for s in range(0, b, VERIFY_MAX_ROWS)]
+
+
 def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The speculative-verify tail (B8) in one pass over the vocab:
@@ -302,8 +311,9 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
     tied head [V, D] -> (f32 logits [B, V], entropy [B], margin [B]).  The
     logits are written (the verify sampler reads whole rows) and reduced
     while on chip; the margin equals top-2 of the returned logits bit for
-    bit.  The kernel takes bf16, B <= :data:`VERIFY_MAX_ROWS` and D a
-    multiple of :data:`VERIFY_K_CHUNK`."""
+    bit.  Rows are independent, so any B runs as one launch per
+    :func:`verify_row_groups` slice, each writing its rows of the outputs.
+    The kernel takes bf16 and D a multiple of :data:`VERIFY_K_CHUNK`."""
     if not on_cuda(normed, "fused_verify_tail"):
         return fused_verify_tail_plain(normed, head)
     if normed.dim() != 2 or head.dim() != 2 or head.shape[1] != normed.shape[1]:
@@ -314,10 +324,9 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
     if normed.dtype != torch.bfloat16 or head.dtype != torch.bfloat16:
         raise ValueError("fused_verify_tail: the kernel takes bf16, got "
                          f"{normed.dtype} and {head.dtype}")
-    if not 1 <= b <= VERIFY_MAX_ROWS or d % VERIFY_K_CHUNK:
-        raise ValueError(f"fused_verify_tail: B={b} must be in [1, "
-                         f"{VERIFY_MAX_ROWS}] and D={d} a multiple of "
-                         f"{VERIFY_K_CHUNK}")
+    if b < 1 or d % VERIFY_K_CHUNK:
+        raise ValueError(f"fused_verify_tail: B={b} must be >= 1 and D={d} "
+                         f"a multiple of {VERIFY_K_CHUNK}")
     for name, a in (("normed", normed), ("head", head)):
         if (a.device != normed.device or not a.is_contiguous()
                 or a.data_ptr() % 16):
@@ -330,13 +339,15 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
     entropy = torch.empty(b, dtype=torch.float32, device=dev)
     margin = torch.empty_like(entropy)
     lib = kernel_library("paged_attention")
-    with torch.cuda.device(dev):
-        err = lib.tddl_verify_tail(normed.data_ptr(), head.data_ptr(),
-                                   logits.data_ptr(), partials.data_ptr(),
-                                   entropy.data_ptr(), margin.data_ptr(), b,
-                                   d, v, stream_handle(dev))
-    check_launch(lib, err, "tddl_verify_tail")
-    fused_verify_tail.launches += 1
+    for lo, hi in verify_row_groups(b):
+        with torch.cuda.device(dev):
+            err = lib.tddl_verify_tail(
+                normed[lo:hi].data_ptr(), head.data_ptr(),
+                logits[lo:hi].data_ptr(), partials[lo:hi].data_ptr(),
+                entropy[lo:hi].data_ptr(), margin[lo:hi].data_ptr(), hi - lo,
+                d, v, stream_handle(dev))
+        check_launch(lib, err, "tddl_verify_tail")
+        fused_verify_tail.launches += 1
     return logits, entropy, margin
 
 
@@ -365,18 +376,36 @@ def adapter_delta_plain(x: torch.Tensor, a_pool: torch.Tensor,
                          None if b_scale is None else b_scale[idx])
 
 
+def adapter_kernel_limit(rank: int, d: int, x_dtype: torch.dtype
+                         ) -> Optional[str]:
+    """Why B9 cannot take an adapter of ``rank`` over width ``d`` with
+    ``x`` in ``x_dtype``, or None when it can: the limits that depend on
+    nothing but these three.  The launch check and the engine's check at
+    construction both read it, so the two cannot drift."""
+    if x_dtype != torch.bfloat16:
+        return f"x must be bf16 on the card, got {x_dtype}"
+    if d < 1 or d % ADAPTER_D_MULTIPLE:
+        return f"D={d} must be a positive multiple of {ADAPTER_D_MULTIPLE}"
+    if not 1 <= rank <= ADAPTER_MAX_RANK:
+        return f"rank {rank} outside [1, {ADAPTER_MAX_RANK}]"
+    smem = 4 * (ADAPTER_TILE_T * d + rank * (d + 1) + ADAPTER_TILE_T * 64)
+    if smem > ADAPTER_SMEM_LIMIT:
+        return (f"D={d}, r={rank} needs {smem} bytes of shared memory "
+                f"(limit {ADAPTER_SMEM_LIMIT})")
+    return None
+
+
 def _check_adapter(x: torch.Tensor, a_pool: torch.Tensor,
                    b_pool: torch.Tensor, pages: torch.Tensor,
                    a_scale: Optional[torch.Tensor],
                    b_scale: Optional[torch.Tensor]) -> None:
     op = "adapter_delta"
-    if x.dtype != torch.bfloat16 or x.dim() != 3:
-        raise ValueError(f"{op}: x must be bf16 [R, T, D] on the card, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if x.dim() != 3:
+        raise ValueError(f"{op}: x must be [R, T, D], got "
+                         f"{tuple(x.shape)}")
     r_rows, t, d = x.shape
-    if r_rows < 1 or t < 1 or d % ADAPTER_D_MULTIPLE:
-        raise ValueError(f"{op}: R={r_rows} and T={t} must be >= 1 and "
-                         f"D={d} a multiple of {ADAPTER_D_MULTIPLE}")
+    if r_rows < 1 or t < 1:
+        raise ValueError(f"{op}: R={r_rows} and T={t} must be >= 1")
     if a_pool.dtype not in _ADAPTER_POOL_CODES or b_pool.dtype != a_pool.dtype:
         raise ValueError(f"{op}: pool pages must be bf16 or int8 (both "
                          f"sides alike), got {a_pool.dtype} / "
@@ -388,13 +417,9 @@ def _check_adapter(x: torch.Tensor, a_pool: torch.Tensor,
     if tuple(b_pool.shape) != (npg, rank, d):
         raise ValueError(f"{op}: b_pool must be [{npg}, {rank}, {d}], got "
                          f"{tuple(b_pool.shape)}")
-    if not 1 <= rank <= ADAPTER_MAX_RANK:
-        raise ValueError(f"{op}: rank {rank} outside [1, "
-                         f"{ADAPTER_MAX_RANK}]")
-    smem = 4 * (ADAPTER_TILE_T * d + rank * (d + 1) + ADAPTER_TILE_T * 64)
-    if smem > ADAPTER_SMEM_LIMIT:
-        raise ValueError(f"{op}: D={d}, r={rank} needs {smem} bytes of "
-                         f"shared memory (limit {ADAPTER_SMEM_LIMIT})")
+    limit = adapter_kernel_limit(rank, d, x.dtype)
+    if limit is not None:
+        raise ValueError(f"{op}: {limit}")
     # A site view of the pool: pages may be strided, each page dense and
     # 16-byte aligned.
     if (a_pool.stride(1), a_pool.stride(2)) != (rank, 1) or \
@@ -481,10 +506,11 @@ def reset_launch_counts() -> None:
 __all__ = [
     "ADAPTER_MAX_RANK", "KERNEL_WRAPPERS", "NEG_INF", "QROWS",
     "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
+    "adapter_kernel_limit",
     "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
     "logit_trust_stats",
     "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",
     "paged_attention_plain", "paged_prefill_attention",
     "paged_prefill_attention_int8", "paged_prefill_attention_plain",
-    "reset_launch_counts",
+    "reset_launch_counts", "verify_row_groups",
 ]

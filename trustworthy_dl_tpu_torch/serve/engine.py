@@ -46,6 +46,7 @@ import torch
 from trustworthy_dl_tpu_torch.detect import baseline as bl
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
+from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
 from trustworthy_dl_tpu_torch.quant import int8 as q8
 from trustworthy_dl_tpu_torch.serve.adapters import AdapterPool
 from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
@@ -175,6 +176,15 @@ class ServingEngine:
         validate_adapters(adapter_rank, adapter_pool_pages, adapter_dtype,
                           True, spec_k)
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and attn_impl == "kernel" \
+                and adapter_rank > 0:
+            # B9's limits, checked before any pool or view is allocated:
+            # the card has no jnp fallback to move the adapter program to.
+            limit = pattn.adapter_kernel_limit(adapter_rank, cfg.n_embd,
+                                               cfg.dtype)
+            if limit is not None:
+                raise ValueError(f"adapter_rank={adapter_rank} is past the "
+                                 f"adapter kernel's limits: {limit}")
         self.cfg = cfg
         self.spec_k = int(spec_k)
         self.kv_fallback_reason: Optional[str] = None
