@@ -17,7 +17,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    kernel, the plain version and a library yardstick (median of
    per-launch CUDA-event timings, L2 flushed before each launch).  B8
    also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
-   with ``tflops``).
+   with ``tflops``), B6-int8 also from position 0 and as a 64-row chunk;
+   B2, B6-int8 and B9 also with the profiler's device time.
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -343,10 +344,14 @@ def check_int8_attention(torch, pa, entries, flush, rng):
     serve_spec path's launch: under int8 KV the chunk is max_seq, so a
     prefix hit resumes at position 128 with one 512-row chunk whose last
     128 rows lie past the 512-position table (checked on the rows inside
-    it, as the engine reads only those)."""
+    it, as the engine reads only those).  B6's bf16-query kernel and SDPA
+    also get the profiler's device time (``device_ms``,
+    ``library_device_ms``), at that launch and at the ``start0`` and
+    ``chunk64`` cases."""
     import torch.nn.functional as F
 
     from trustworthy_dl_tpu_torch.quant import int8 as q8
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
 
     dev = torch.device("cuda")
     r, h, dh, bsz, nbps = 8, 12, 64, 16, 32
@@ -358,7 +363,7 @@ def check_int8_attention(torch, pa, entries, flush, rng):
     kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
     vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
 
-    def case(name, wrapper, q, tab, start_list, timed=True):
+    def case(name, wrapper, q, tab, start_list, timed=True, kernel=None):
         start = torch.tensor(start_list, dtype=torch.int32, device=dev)
         got = wrapper(q, kq, vq, tab, start, ks, vs)
         torch.cuda.synchronize()
@@ -384,15 +389,25 @@ def check_int8_attention(torch, pa, entries, flush, rng):
         n_bytes, flops = attention_bound(start_list, t, h, dh, 1,
                                          nbps * bsz, scale_itemsize=4)
         bound_ms, bound_by = bound_entry(n_bytes, flops, "bfloat16")
+        def kern():
+            return wrapper(q, kq, vq, tab, start, ks, vs)
+
+        def library():
+            return F.scaled_dot_product_attention(q, view_k, view_v,
+                                                  attn_mask=mask)
+
+        if kernel is not None:   # the kernel's and SDPA's own device time
+            numbers["device_ms"] = device_ms(torch, kern, flush, kernel)
+            # SDPA may launch several kernels: all but the flush's count.
+            numbers["library_device_ms"] = kernel_ab.device_ms(library, flush,
+                                                               25)
         return {
             **numbers,
-            "ms": time_ms(torch, lambda: wrapper(q, kq, vq, tab, start, ks,
-                                                 vs), flush),
+            "ms": time_ms(torch, kern, flush),
             "plain_ms": time_ms(torch, lambda: pa.paged_attention_plain(
                 q, kq, vq, tab, start, ks, vs), flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, view_k, view_v, attn_mask=mask), flush),
+            "library_ms": time_ms(torch, library, flush),
             "shape": {"q": list(q.shape), "pool": list(kq.shape),
                       "pool_dtype": "int8", "starts": start_list},
         }
@@ -413,17 +428,24 @@ def check_int8_attention(torch, pa, entries, flush, rng):
         case("int8 verify window", pa.paged_attention_int8,
              torch.randn(r, h, SPEC_K + 1, dh, device=dev).to(bf), table,
              starts, timed=False)["max_abs_err"]
+    prefill_kernel = "prefill_int8_mma_kernel"
     entry("paged_prefill_attention_int8",
           "trustworthy_dl_tpu/ops/paged_attention.py:649 (quantized=True, "
           "kernel branch :556-576)",
           case("int8 prefill", pa.paged_prefill_attention_int8,
                torch.randn(1, h, nbps * bsz, dh, device=dev).to(bf),
-               table[:1], [128]))
-    # Extra cases: a 64-row chunk at position 128 (timed) and a ragged
-    # multi-row prefill, 8 rows of T = 20 with mid-block starts (checked).
+               table[:1], [128], kernel=prefill_kernel))
+    # Extra cases: a fresh 512-row prompt chunk from position 0 and a
+    # 64-row chunk at position 128 (both timed), and a ragged multi-row
+    # prefill, 8 rows of T = 20 with mid-block starts (checked).
+    entries["paged_prefill_attention_int8"]["start0"] = case(
+        "int8 prefill from 0", pa.paged_prefill_attention_int8,
+        torch.randn(1, h, nbps * bsz, dh, device=dev).to(bf), table[:1],
+        [0], kernel=prefill_kernel)
     entries["paged_prefill_attention_int8"]["chunk64"] = case(
         "int8 prefill 64", pa.paged_prefill_attention_int8,
-        torch.randn(1, h, 64, dh, device=dev).to(bf), table[:1], [128])
+        torch.randn(1, h, 64, dh, device=dev).to(bf), table[:1], [128],
+        kernel=prefill_kernel)
     entries["paged_prefill_attention_int8"]["ragged_max_abs_err"] = case(
         "int8 ragged prefill", pa.paged_prefill_attention_int8,
         torch.randn(r, h, 20, dh, device=dev).to(bf), table,

@@ -4,7 +4,8 @@ delta; B4 int8 dequant matmul; B1 moment battery; B2/B3 flash attention
 forward and backward)
 against their plain PyTorch twins, on the card, the detector baseline's
 tensors following the card, and the serving engine at the kernels' limits
-(B8 past one launch's rows, B9 past its rank refused at construction).
+(B8 past one launch's rows, B9 past its rank and an int8-KV engine past
+B6-int8's head width refused at construction).
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -275,6 +276,68 @@ def test_int8_decode_and_prefill_kernels_match_plain(cuda, dtype, atol, rtol):
                 < nbps * bsz)[:, None, :, None].expand_as(got)
         torch.testing.assert_close(got.float()[keep], ref.float()[keep],
                                    rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("bsz", [8, 16, 48])
+def test_int8_prefill_tensor_core_kernel_matches_plain(cuda, dh, bsz):
+    """B6-int8's tensor-core kernel (bf16 q) against the twin with scales:
+    block sizes that divide 64 and one that does not (48), T = 9, 20, 64,
+    65 and 512 over R = 4 rows with mid-block starts, the last rows of
+    every chunk from 5 blocks before the table's end running past it
+    (compared inside the table, finite everywhere), one table block with
+    all-zero int8 rows and scales (exact-zero dequant), one launch a
+    call.  Tolerance: one bf16 step plus 2e-3, the smoke's (the kernel
+    feeds p * v_scale to the P.V product as a hi + lo pair of bf16 terms
+    and sums in another order; the twin stays in f32; both round the
+    output to bf16)."""
+    rng = np.random.default_rng(12)
+    h, r = 2, 4
+    nbps = -(-640 // bsz)
+    cap = nbps * bsz
+    nb = r * nbps + 1
+    kq, vq, ks, vs = _int8_pools(rng, nb, h, bsz, dh, cuda)
+    table = torch.tensor((rng.permutation(r * nbps) + 1).reshape(r, nbps),
+                         dtype=torch.int32, device=cuda)
+    zero = int(table[1, 1])
+    for a in (kq, vq, ks, vs):
+        a[zero] = 0
+    start = torch.tensor([0, bsz // 2 + 1, 3 * bsz + bsz // 2,
+                          cap - 5 * bsz + 3], dtype=torch.int32,
+                         device=cuda)
+    for t in (9, 20, 64, 65, 512):
+        q = torch.tensor(rng.normal(size=(r, h, t, dh)), dtype=torch.float32
+                         ).to(device=cuda, dtype=torch.bfloat16)
+        before = pa.paged_prefill_attention_int8.launches
+        got = pa.paged_prefill_attention_int8(q, kq, vq, table, start, ks, vs)
+        torch.cuda.synchronize()
+        assert pa.paged_prefill_attention_int8.launches == before + 1
+        ref = pa.paged_attention_plain(q, kq, vq, table, start, ks, vs)
+        keep = (torch.arange(t, device=cuda)[None, :] + start.long()[:, None]
+                < cap)[:, None, :, None].expand_as(got)
+        assert bool(torch.isfinite(got).all()), t
+        torch.testing.assert_close(got.float()[keep], ref.float()[keep],
+                                   rtol=2.0 ** -7, atol=2e-3)
+
+
+def test_engine_refuses_int8_kv_past_the_prefill_kernel(cuda):
+    """B6-int8's tensor-core kernel takes Dh a multiple of 16: an int8-KV
+    engine at Dh = 24 on the kernel path raises a ValueError naming the
+    limit before it allocates anything on the card; GPT-2 small's Dh = 64
+    at 16-position blocks is inside the limit."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=263, n_positions=64, n_layer=1,
+                          n_embd=96, n_head=4, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="Dh=24"):
+        ServingEngine(params, cfg, max_slots=2, max_seq=64, block_size=16,
+                      kv_dtype="int8", device="cuda")
+    assert torch.cuda.memory_allocated(cuda) == before
+    assert pa.prefill_int8_kernel_limit(64, 16, torch.bfloat16) is None
 
 
 @pytest.mark.parametrize("m", [1, 8, 15, 64, 100])

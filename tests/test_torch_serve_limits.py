@@ -1,10 +1,12 @@
 """The serving kernels' limits as the port states them on the CPU: the row
 groups the fused verify tail (B8) launches over, the limits of the paged
-adapter delta (B9) that the engine checks when it is built on the card,
-and the plain path, which has neither limit.
+adapter delta (B9) and of the int8 chunked prefill (B6-int8) that the
+engine checks when it is built on the card, and the plain path, which has
+none of these limits.
 
 These are pure functions of shapes and dtypes (and one tiny CPU engine),
 so they run here; the card's side of both (an engine past B9's limits
+refused at construction, an int8-KV engine past B6-int8's head width
 refused at construction, a 16-slot ``spec_k=8`` engine serving through
 two B8 launches a verify) is in ``tests/test_torch_kernels_gpu.py``.
 """
@@ -71,5 +73,58 @@ def test_plain_engine_serves_past_the_kernel_rank_limit():
     results = engine.run_until_idle()
     assert results[rid].status == "completed"
     assert results[rid].adapter == "ad-t"
+    assert len(results[rid].tokens) == 5
+    assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
+
+
+@pytest.mark.parametrize("dh,bsz,dtype,needle", [
+    (40, 16, torch.bfloat16, "multiple of 16"),
+    (8, 16, torch.bfloat16, "multiple of 16"),
+    (0, 16, torch.bfloat16, "Dh=0"),
+    (144, 16, torch.bfloat16, "Dh=144 > 128"),
+    (256, 16, torch.bfloat16, "Dh=256"),
+    (64, 0, torch.bfloat16, "block size 0"),
+    (64, 16, torch.float16, "bf16 or f32"),
+    (512, 16, torch.float32, "shared memory"),
+    (64, 256, torch.float32, "shared memory"),
+])
+def test_prefill_int8_kernel_limit_names_what_it_refuses(dh, bsz, dtype,
+                                                         needle):
+    reason = pa.prefill_int8_kernel_limit(dh, bsz, dtype)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("dh,bsz,dtype", [
+    (64, 16, torch.bfloat16),      # GPT-2 small at the serve block size
+    (64, 8, torch.bfloat16),
+    (64, 48, torch.bfloat16),      # a block size that does not divide 64
+    (64, 1, torch.bfloat16),
+    (16, 16, torch.bfloat16),
+    (128, 512, torch.bfloat16),
+    (64, 16, torch.float32),
+    (10, 8, torch.float32),        # the CUDA-core kernel takes any Dh
+])
+def test_prefill_int8_kernel_limit_takes(dh, bsz, dtype):
+    assert pa.prefill_int8_kernel_limit(dh, bsz, dtype) is None
+
+
+@pytest.mark.parametrize("n_embd,n_head", [(32, 4), (40, 2), (32, 1)])
+def test_plain_int8_engine_serves_at_any_head_width(n_embd, n_head):
+    """On the CPU the int8 pool's plain path takes any Dh (8, 20 and 32
+    here; the first two are past the card kernel's limit): the engine
+    builds, keeps its int8 pool and serves a request to completion,
+    launching nothing."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=2,
+                          n_embd=n_embd, n_head=n_head, dtype=torch.float32)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    pa.reset_launch_counts()
+    engine = ServingEngine(params, cfg, max_slots=2, max_seq=48,
+                           block_size=8, kv_dtype="int8",
+                           kv_parity_check=False, device="cpu")
+    rid = engine.submit(ServeRequest(prompt=[3, 1, 4, 1, 5, 9, 2, 6],
+                                     max_new_tokens=5))
+    results = engine.run_until_idle()
+    assert engine.kv_dtype == "int8"
+    assert results[rid].status == "completed"
     assert len(results[rid].tokens) == 5
     assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)

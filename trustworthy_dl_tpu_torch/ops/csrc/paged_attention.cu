@@ -46,6 +46,52 @@
 // paged_attention_reference.  Their bound is bytes again: half the bf16
 // pool's K/V bytes plus 8 bytes of scales per (head, position).
 //
+// B6-int8 with bf16 queries (every launch of the serving path) has a
+// tensor-core kernel of its own, prefill_int8_mma_kernel.  It replaces the
+// int8 branch of trustworthy_dl_tpu/ops/paged_attention.py:
+// _paged_prefill_kernel (lines 556-576; pallas_call in _paged_prefill_call).
+// Under int8 KV a prompt is one max_seq-row chunk, up to 512 query rows
+// against up to 512 keys: at GPT-2 small's [1, 12, 512, 64] from position
+// 128 that is 0.58 GFLOP of causal work (0.59 us at 989 TFLOP/s) against
+// 2.4 MB of q, out, int8 K/V and scales (0.72 us at 3.35 TB/s), so the
+// bound is bytes, but only just, and the CUDA-core kernel above re-reads
+// every K/V stage for each 8-row tile.  The design is B2's
+// (flash_attention.cu) over the paged int8 pool:
+//   * one CTA of PF_WARPS (4) warps per (row, head, 16 * PF_WARPS-row
+//     query tile), tiles longest-first; Q's A-fragments come once by
+//     ldmatrix and stay in registers; S = Q.K^T and O += P.V are mma.sync
+//     m16n8k16 (bf16 in, f32 accumulate); the online softmax, O and P stay
+//     in registers;
+//   * the K/V walk gathers by key row, 64 keys a stage: key kpos is row
+//     kpos % BLOCK of block table[kpos / BLOCK], Dh contiguous int8 bytes,
+//     so any block size works; the rows and their f32 scales arrive by
+//     cp.async (16 and 4 bytes) in a PF_STAGES (3)-deep ring, half a bf16
+//     copy's bytes, the next stages in flight while stage st computes;
+//   * one pass a stage widens the int8 rows to bf16 tiles (exact) padded
+//     by 16 bytes a row, which ldmatrix (K) and ldmatrix.trans (V) read:
+//     two barriers a stage (rows landed; tiles widened);
+//   * scales in the reference's order, in f32 registers: each S column
+//     times scale * k_scale[key], then the mask; l sums the unscaled p;
+//     P.V takes x = p * v_scale[key] in bf16 - the one rounding the f32
+//     twin does not make.  One bf16 copy of x (B2's P is rounded so) put
+//     errors of a few output steps on peaked rows, past the bf16
+//     tolerance, so x goes in as two bf16 terms, hi = bf16(x) and lo =
+//     bf16(x - hi): twice P.V's products, and x carried to ~2^-17;
+//   * the causal and ragged bounds are per tile in absolute positions:
+//     the tile stops at kend = min(last query position, table end), so no
+//     table entry past nbps is read and rows past the table see the whole
+//     table and stay finite; only a stage that crosses the diagonal band
+//     or kend is masked, and a warp whose rows all precede a stage skips
+//     its products;
+//   * registers (ptxas, sm_90a, CUDA 12.8): 152 a thread at Dh = 64, 209
+//     at 128, 0 spill bytes at every Dh; shared memory 53,760 bytes at
+//     Dh = 64 (96 CTAs for the serve_spec launch: one an SM).
+// What bounds it in practice is one warp a scheduler walking up to eight
+// dependent stages; 32-row CTAs, a 2-stage ring, widening stage st + 1
+// between stage st's products (one barrier a stage) and reading the table
+// a stage ahead measured no faster on the H100 (PERF.md, B6-int8's
+// redesign).  Split-K over the key axis is later work.
+//
 // B7 replaces _trust_stats_kernel (_trust_stats_call): for each row of
 // f32 logits [B, V] it returns the softmax entropy logZ - sum(x p) and the
 // top-1 margin top1 - top2 in one read of the row.  Bound: bytes (one read
@@ -81,7 +127,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace mma_sm90;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int ATTN_THREADS = 128;
@@ -291,6 +341,390 @@ int dispatch_attn(int dtype, const void* q, const void* pool_k,
         q, pool_k, pool_v, k_scale, v_scale, table, start, out, R, H, Tq, Dh,
         bsz, nbps, q_tile, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// B6-int8 with bf16 queries: chunked prefill over the int8 pool on the
+// tensor cores (see the note at the top).  One CTA of PF_WARPS warps per
+// (row, head, PF_WARPS * 16-row query tile); each warp owns 16 query rows.
+// ---------------------------------------------------------------------------
+constexpr int PF_WARPS = 4;   // warps a CTA, 16 query rows each
+constexpr int PF_STAGES = 3;  // depth of the int8 K/V ring
+constexpr int PF_KEYS = 64;   // keys a stage of the K/V walk
+constexpr int PF_THREADS = PF_WARPS * 32;
+constexpr int PF_QT = PF_WARPS * 16;
+
+// Shared memory of one CTA at head width D: the Q tile and the widened K
+// and V tiles (bf16, rows padded by 16 bytes), a PF_STAGES-deep ring of
+// int8 K and V rows and of their f32 scales.
+template <int D>
+constexpr size_t pf_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(PF_QT + 2 * PF_KEYS) * (D + 8) +
+         (size_t)PF_STAGES * 2 * PF_KEYS * (D + sizeof(float));
+}
+
+// Bytes b and b + 1 of w (signed) as a bf16 pair: exact, an int8 value
+// has at most 8 significant bits.
+__device__ __forceinline__ uint32_t widen2(uint32_t w, int b) {
+  return pack_bf16((float)((int32_t)(w << (24 - 8 * b)) >> 24),
+                   (float)((int32_t)(w << (16 - 8 * b)) >> 24));
+}
+
+// 16 int8 values -> 16 bf16, one 16-byte read and two 16-byte writes.
+__device__ __forceinline__ void widen16(__nv_bfloat16* dst,
+                                        const int8_t* src) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(
+      widen2(w.x, 0), widen2(w.x, 2), widen2(w.y, 0), widen2(w.y, 2));
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(
+      widen2(w.z, 0), widen2(w.z, 2), widen2(w.w, 0), widen2(w.w, 2));
+}
+
+// (a, b) as the bf16 pairs hi = bf16(a, b) and lo = bf16((a, b) - hi):
+// hi + lo carries each value to about 2^-17 relative.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+template <int D>
+__global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ pool_k,
+    const int8_t* __restrict__ pool_v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ table,
+    const int32_t* __restrict__ start, __nv_bfloat16* __restrict__ out,
+    int RH, int H, int Tq, int bsz, int nbps, int n_tiles,
+    float scale_log2) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;   // bf16 tile row stride
+  constexpr int KD = D / 16;  // k16 steps over D, and n16 pairs over D
+  constexpr int ND = D / 8;   // n8 tiles of the output
+  constexpr int CPR = D / 16; // 16-byte int8 chunks a key row
+  constexpr int VPR = D / 8;  // 16-byte bf16 chunks a query row
+  extern __shared__ __align__(128) unsigned char pf_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(pf_smem);
+  bf16* k_s = q_s + PF_QT * LD;
+  bf16* v_s = k_s + PF_KEYS * LD;
+  int8_t* ring = reinterpret_cast<int8_t*>(v_s + PF_KEYS * LD);
+  float* sc_ring =
+      reinterpret_cast<float*>(ring + PF_STAGES * 2 * PF_KEYS * D);
+
+  const int tid = threadIdx.x;
+  const int ti = n_tiles - 1 - (int)(blockIdx.x / RH);  // longest first
+  const int rh = blockIdx.x % RH;
+  const int h = rh % H;
+  const int r = rh / H;
+  const int t0 = ti * PF_QT;
+  const int rows = min(PF_QT, Tq - t0);
+  const int qpos0 = start[r] + t0;
+  // Last key any row of the tile reads, clipped into the table: a padded
+  // chunk's rows past the slot's allocation see the whole table and stay
+  // finite (the engine drops them); no table entry past nbps is read.
+  const int kend = min(qpos0 + rows - 1, nbps * bsz - 1);
+  const int n_stages = kend / PF_KEYS + 1;
+  const int32_t* trow = table + (size_t)r * nbps;
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r0 = warp * 16;
+  const int g = lane >> 2;        // fragment row (and row + 8)
+  const int c2 = (lane & 3) * 2;  // fragment column pair
+  const int lrow = lane & 7;
+  const int lm0 = (lane >> 3) & 1;
+  const int lm1 = lane >> 4;
+  const bool live = r0 < rows;    // the warp holds a real query row
+  const int warp_qlast = qpos0 + min(r0 + 15, rows - 1);
+
+  // Q rows of the tile; rows past T load as zeros (never stored).
+  const bf16* q_rows = q + ((size_t)rh * Tq + t0) * D;
+  for (int i = tid; i < PF_QT * VPR; i += PF_THREADS) {
+    const int row = i / VPR;
+    const int c = i % VPR;
+    bf16* dst = q_s + row * LD + c * 8;
+    if (row < rows)
+      cp_async16(dst, q_rows + (size_t)row * D + c * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // Stage st's 64 keys [st * 64, st * 64 + 63] into ring slot
+  // st % PF_STAGES: key kpos is row kpos % bsz of physical block
+  // table[kpos / bsz], D contiguous int8 bytes, so any block size works.
+  // Keys past kend are zero rows with zero scales.
+  auto issue = [&](int st) {
+    const int k0 = st * PF_KEYS;
+    int8_t* k8 = ring + (st % PF_STAGES) * 2 * PF_KEYS * D;
+    int8_t* v8 = k8 + PF_KEYS * D;
+    for (int i = tid; i < PF_KEYS * CPR; i += PF_THREADS) {
+      const int key = i / CPR;
+      const int c = i % CPR;
+      const int kpos = k0 + key;
+      int8_t* kd = k8 + key * D + c * 16;
+      int8_t* vd = v8 + key * D + c * 16;
+      if (kpos <= kend) {
+        const size_t row =
+            ((size_t)trow[kpos / bsz] * H + h) * bsz + kpos % bsz;
+        cp_async16(kd, pool_k + row * D + c * 16);
+        cp_async16(vd, pool_v + row * D + c * 16);
+      } else {
+        *reinterpret_cast<int4*>(kd) = make_int4(0, 0, 0, 0);
+        *reinterpret_cast<int4*>(vd) = make_int4(0, 0, 0, 0);
+      }
+    }
+    float* sc = sc_ring + (st % PF_STAGES) * 2 * PF_KEYS;  // [K | V][64]
+    for (int i = tid; i < 2 * PF_KEYS; i += PF_THREADS) {
+      const int kpos = k0 + i % PF_KEYS;
+      if (kpos <= kend) {
+        const size_t row =
+            ((size_t)trow[kpos / bsz] * H + h) * bsz + kpos % bsz;
+        cp_async4(sc + i, (i < PF_KEYS ? k_scale : v_scale) + row);
+      } else {
+        sc[i] = 0.f;
+      }
+    }
+  };
+
+  // One commit group a stage (empty past the last): group st is stage st.
+  issue(0);
+  cp_async_commit();  // group 0: Q and stage 0
+#pragma unroll
+  for (int st = 1; st < PF_STAGES - 1; ++st) {
+    if (st < n_stages) issue(st);
+    cp_async_commit();
+  }
+
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max, scaled log2 units
+  float l0 = 0.f, l1 = 0.f;          // this lane's share of the row sums
+  const int qa = qpos0 + r0 + g;     // absolute positions of the two rows
+  const int qb = qa + 8;
+
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<PF_STAGES - 2>();  // this thread's stage st has landed
+    __syncthreads();  // everyone's, and every warp is done with st - 1
+    // Stage st + PF_STAGES - 1 into the ring slot stage st - 1 used.
+    if (st + PF_STAGES - 1 < n_stages) issue(st + PF_STAGES - 1);
+    cp_async_commit();
+    // Widen stage st's int8 rows into the bf16 tiles ldmatrix reads.
+    const int8_t* k8 = ring + (st % PF_STAGES) * 2 * PF_KEYS * D;
+    const int8_t* v8 = k8 + PF_KEYS * D;
+    for (int i = tid; i < PF_KEYS * CPR; i += PF_THREADS) {
+      const int key = i / CPR;
+      const int c = i % CPR;
+      widen16(k_s + key * LD + c * 16, k8 + key * D + c * 16);
+      widen16(v_s + key * LD + c * 16, v8 + key * D + c * 16);
+    }
+    __syncthreads();
+    if (st == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qf[kk], q_s + (r0 + lrow + lm0 * 8) * LD + kk * 16 + lm1 * 8);
+    }
+    const int k0 = st * PF_KEYS;
+    // A warp whose rows all precede this stage (or that holds no real
+    // row) has nothing to add: every key here is masked for it.
+    if (!live || k0 > warp_qlast) continue;
+    const float* ksc = sc_ring + (st % PF_STAGES) * 2 * PF_KEYS;
+    const float* vsc = ksc + PF_KEYS;
+
+    // S = Q . K^T over the stage's 64 keys: 8 n8 tiles, two per ldmatrix.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, k_s + (jj * 16 + lrow + lm1 * 8) * LD + kk * 16 + lm0 * 8);
+        mma_bf16(s[2 * jj], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * jj + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // Scale each column by scale * k_scale[key] (log2 units), then mask:
+    // key k0 + col is visible to a row at qpos iff k0 + col <= min(qpos,
+    // kend).  Only a stage that reaches past the warp's first row or past
+    // kend needs the mask.
+    const bool masked = k0 + PF_KEYS - 1 > min(qpos0 + r0, kend);
+    const int lim0 = min(qa, kend) - k0;
+    const int lim1 = min(qb, kend) - k0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 ks = *reinterpret_cast<const float2*>(ksc + j * 8 + c2);
+      const float f0 = ks.x * scale_log2;
+      const float f1 = ks.y * scale_log2;
+      s[j][0] *= f0;
+      s[j][1] *= f1;
+      s[j][2] *= f0;
+      s[j][3] *= f1;
+      if (masked) {
+        const int col = j * 8 + c2;
+        if (col > lim0) s[j][0] = NEG_INF;
+        if (col + 1 > lim0) s[j][1] = NEG_INF;
+        if (col > lim1) s[j][2] = NEG_INF;
+        if (col + 1 > lim1) s[j][3] = NEG_INF;
+      }
+    }
+
+    // Online softmax in registers (B2's): the row max over the quad's
+    // four lanes; the first stage always holds key 0 <= qpos, so m is a
+    // real score from then on and masked keys give exactly 0.
+    float mx0 = s[0][0], mx1 = s[0][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0);
+    mx1 = fmaxf(m1, mx1);
+    const float corr0 = ex2(m0 - mx0);
+    const float corr1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= corr0;
+    l1 *= corr1;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= corr0;
+      acc[n][1] *= corr0;
+      acc[n][2] *= corr1;
+      acc[n][3] *= corr1;
+    }
+    // l sums the unscaled p.  P.V takes x = p * v_scale[key] as two bf16
+    // A-fragments, hi = bf16(x) and lo = bf16(x - hi), so the product
+    // carries x to about 2^-17 relative where one bf16 copy would carry it
+    // to 2^-9 (a few output steps on a peaked row).  S tiles 2kk and
+    // 2kk + 1 are P.V's k16 step kk.
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 vs = *reinterpret_cast<const float2*>(vsc + j * 8 + c2);
+      const float p0 = ex2(s[j][0] - mx0);
+      const float p1 = ex2(s[j][1] - mx0);
+      const float p2 = ex2(s[j][2] - mx1);
+      const float p3 = ex2(s[j][3] - mx1);
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      split_bf16(p0 * vs.x, p1 * vs.y, ph[j >> 1][(j & 1) * 2],
+                 pl[j >> 1][(j & 1) * 2]);
+      split_bf16(p2 * vs.x, p3 * vs.y, ph[j >> 1][(j & 1) * 2 + 1],
+                 pl[j >> 1][(j & 1) * 2 + 1]);
+    }
+
+    // O += P . V: V's B-fragments through ldmatrix.trans, two n8 tiles
+    // each, times both halves of P.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < KD; ++nn) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, v_s + (kk * 16 + lrow + lm0 * 8) * LD + nn * 16 +
+                             lm1 * 8);
+        mma_bf16(acc[2 * nn], ph[kk], b[0], b[1]);
+        mma_bf16(acc[2 * nn + 1], ph[kk], b[2], b[3]);
+        mma_bf16(acc[2 * nn], pl[kk], b[0], b[1]);
+        mma_bf16(acc[2 * nn + 1], pl[kk], b[2], b[3]);
+      }
+    }
+  }
+  if (!live) return;
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+
+  // Epilogue: this warp's rows of the Q tile (read only by this warp, at
+  // stage 0) stage the bf16 output for 16-byte coalesced stores of the
+  // rows inside T.
+  bf16* stage = q_s + r0 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + n * 8 + c2) =
+        pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + n * 8 + c2) =
+        pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  __syncwarp();
+  bf16* o_rows = out + ((size_t)rh * Tq + t0 + r0) * D;
+#pragma unroll
+  for (int it = 0; it < 16 * VPR / 32; ++it) {
+    const int i = lane + it * 32;
+    const int row = i / VPR;
+    const int c = i % VPR;
+    if (r0 + row < rows)
+      *reinterpret_cast<uint4*>(o_rows + (size_t)row * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + row * LD + c * 8);
+  }
+}
+
+template <int D>
+int launch_prefill_int8_mma(const void* q, const void* pool_k,
+                            const void* pool_v, const void* k_scale,
+                            const void* v_scale, const void* table,
+                            const void* start, void* out, int R, int H,
+                            int Tq, int bsz, int nbps, cudaStream_t stream) {
+  constexpr size_t smem = pf_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_int8_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (Tq + PF_QT - 1) / PF_QT;
+  const long long grid = (long long)R * H * n_tiles;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float scale_log2 =
+      (float)(1.0 / sqrt((double)D) * 1.4426950408889634);
+  prefill_int8_mma_kernel<D><<<(unsigned)grid, PF_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int8_t*>(pool_k), static_cast<const int8_t*>(pool_v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(start),
+      static_cast<__nv_bfloat16*>(out), R * H, H, Tq, bsz, nbps, n_tiles,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// Head widths the kernel is built for: multiples of 16 up to 128.
+int dispatch_prefill_int8_mma(const void* q, const void* pool_k,
+                              const void* pool_v, const void* k_scale,
+                              const void* v_scale, const void* table,
+                              const void* start, void* out, int R, int H,
+                              int Tq, int Dh, int bsz, int nbps,
+                              void* stream) {
+  if (R < 1 || H < 1 || Tq < 1 || bsz < 1 || nbps < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PF_CASE(DV)                                                          \
+  case DV:                                                                   \
+    return launch_prefill_int8_mma<DV>(q, pool_k, pool_v, k_scale, v_scale, \
+                                       table, start, out, R, H, Tq, bsz,    \
+                                       nbps, s);
+  switch (Dh) {
+    PF_CASE(16)
+    PF_CASE(32)
+    PF_CASE(48)
+    PF_CASE(64)
+    PF_CASE(80)
+    PF_CASE(96)
+    PF_CASE(112)
+    PF_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PF_CASE
 }
 
 struct TrustAcc {
@@ -543,7 +977,9 @@ int tddl_paged_prefill(const void* q, const void* pool_k, const void* pool_v,
                        start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
 }
 
-// B6, int8 pool (layouts as tddl_paged_decode_int8).
+// B6, int8 pool (layouts as tddl_paged_decode_int8).  bf16 q runs the
+// tensor-core kernel (Dh a multiple of 16, at most 128; q, pools and out
+// 16-byte aligned); f32 q the CUDA-core kernel with q_tile-row tiles.
 int tddl_paged_prefill_int8(const void* q, const void* pool_k,
                             const void* pool_v, const void* k_scale,
                             const void* v_scale, const void* table,
@@ -552,6 +988,10 @@ int tddl_paged_prefill_int8(const void* q, const void* pool_k,
                             int dtype, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1)  // bf16 q: the tensor-core kernel (q_tile unused)
+    return dispatch_prefill_int8_mma(q, pool_k, pool_v, k_scale, v_scale,
+                                     table, start, out, R, H, T, Dh, bsz,
+                                     nbps, stream);
   return dispatch_attn(dtype, q, pool_k, pool_v, k_scale, v_scale, table,
                        start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
 }

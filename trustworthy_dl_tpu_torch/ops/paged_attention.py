@@ -221,17 +221,66 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
 paged_prefill_attention.launches = 0
 
 
+#: Head widths B6-int8's tensor-core kernel (bf16 q) is built for; its
+#: shared memory (at most 102,912 bytes, at Dh = 128) always fits.
+PREFILL_INT8_DH_MULTIPLE = 16
+PREFILL_INT8_MAX_DH = 128
+#: The CUDA-core kernel (f32 q, B5, B6) takes 48 KB of shared memory.
+STATIC_SMEM_LIMIT = 48 * 1024
+
+
+def prefill_int8_kernel_limit(dh: int, bsz: int, q_dtype: torch.dtype
+                              ) -> Optional[str]:
+    """Why B6-int8 cannot take head width ``dh`` over ``bsz``-position
+    blocks with queries in ``q_dtype``, or None when it can.  bf16 q runs
+    the tensor-core kernel (Dh a multiple of 16, at most 128, any block
+    size); f32 q the CUDA-core kernel (its shared memory at one block a
+    stage).  The launch check and ``ServingEngine``'s check at
+    construction both read it."""
+    if bsz < 1:
+        return f"block size {bsz} must be >= 1"
+    if q_dtype == torch.bfloat16:
+        if dh < 1 or dh % PREFILL_INT8_DH_MULTIPLE:
+            return (f"Dh={dh} must be a positive multiple of "
+                    f"{PREFILL_INT8_DH_MULTIPLE}")
+        if dh > PREFILL_INT8_MAX_DH:
+            return f"Dh={dh} > {PREFILL_INT8_MAX_DH}"
+        return None
+    if q_dtype != torch.float32:
+        return f"q must be bf16 or f32 on the card, got {q_dtype}"
+    if dh < 1:
+        return f"Dh={dh} must be >= 1"
+    smem = 4 * (2 * QROWS * dh + bsz * (dh + 1) + bsz * dh
+                + QROWS * bsz + 3 * QROWS + 2 * bsz)
+    if smem > STATIC_SMEM_LIMIT:
+        return (f"Dh={dh}, block size {bsz} needs {smem} bytes of shared "
+                f"memory (limit {STATIC_SMEM_LIMIT})")
+    return None
+
+
 def paged_prefill_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
                                  pool_v: torch.Tensor, table: torch.Tensor,
                                  start: Start, k_scale: torch.Tensor,
                                  v_scale: torch.Tensor) -> torch.Tensor:
-    """B6 over an int8 pool with f32 scales [NB, H, BLOCK]."""
+    """B6 over an int8 pool with f32 scales [NB, H, BLOCK].  On the card,
+    bf16 q launches the tensor-core kernel (64-row query tiles, int8 K/V
+    staged by ``cp.async`` and widened in shared memory, ``mma.sync``
+    products); f32 q launches the CUDA-core kernel with :data:`QROWS`-row
+    tiles.  Both are hand-written (``csrc/paged_attention.cu``); their
+    limits are :func:`prefill_int8_kernel_limit`."""
     if not on_cuda(q, "paged_prefill_attention_int8"):
         return paged_prefill_attention_plain(q, pool_k, pool_v, table, start,
                                              k_scale, v_scale)
+    op = "paged_prefill_attention_int8"
     start = _start_vector(start, q.shape[0], q.device)
-    _check_attention(q, pool_k, pool_v, table, start,
-                     "paged_prefill_attention_int8", k_scale, v_scale)
+    _check_attention(q, pool_k, pool_v, table, start, op, k_scale, v_scale)
+    limit = prefill_int8_kernel_limit(q.shape[3], pool_k.shape[2], q.dtype)
+    if limit is not None:
+        raise ValueError(f"{op}: {limit}")
+    if q.dtype == torch.bfloat16 and any(
+            a.data_ptr() % 16 for a in (q, pool_k, pool_v)):
+        raise ValueError(f"{op}: q, pool_k and pool_v must be 16-byte "
+                         "aligned")
     out = _launch_attention("tddl_paged_prefill_int8", q, pool_k, pool_v,
                             table, start, QROWS, scales=(k_scale, v_scale))
     paged_prefill_attention_int8.launches += 1
@@ -505,12 +554,12 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "ADAPTER_MAX_RANK", "KERNEL_WRAPPERS", "NEG_INF", "QROWS",
-    "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
-    "adapter_kernel_limit",
+    "PREFILL_INT8_MAX_DH", "VERIFY_MAX_ROWS", "adapter_delta",
+    "adapter_delta_plain", "adapter_kernel_limit",
     "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
     "logit_trust_stats",
     "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",
     "paged_attention_plain", "paged_prefill_attention",
     "paged_prefill_attention_int8", "paged_prefill_attention_plain",
-    "reset_launch_counts", "verify_row_groups",
+    "prefill_int8_kernel_limit", "reset_launch_counts", "verify_row_groups",
 ]

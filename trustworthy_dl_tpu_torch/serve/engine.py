@@ -185,6 +185,15 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"adapter_rank={adapter_rank} is past the "
                                  f"adapter kernel's limits: {limit}")
+        if self.device.type == "cuda" and attn_impl == "kernel" \
+                and kv_dtype == "int8":
+            # B6-int8's limits, read the same way: every prompt under int8
+            # KV goes through it, so refuse before any pool is allocated.
+            limit = pattn.prefill_int8_kernel_limit(cfg.head_dim, block_size,
+                                                    cfg.dtype)
+            if limit is not None:
+                raise ValueError(f"kv_dtype='int8' is past the int8 prefill "
+                                 f"kernel's limits: {limit}")
         self.cfg = cfg
         self.spec_k = int(spec_k)
         self.kv_fallback_reason: Optional[str] = None

@@ -21,34 +21,13 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
 SHAPES = ((96, 1024, 64), (96, 1024, 32), (48, 1024, 128))
-
-
-def _other_library(source: Path):
-    from trustworthy_dl_tpu_torch import ops
-
-    ops.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = ops.BUILD_DIR / f"flash_ab_{source.stem}.so"
-    out = subprocess.run([ops.nvcc_path(), *ops.NVCC_FLAGS, "-o",
-                          str(target), str(source)], capture_output=True,
-                         text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{out.stdout}"
-                           f"{out.stderr}")
-    lib = ctypes.CDLL(str(target))
-    argtypes, restype = ops.SIGNATURES["flash_attention"]["tddl_flash_fwd"]
-    lib.tddl_flash_fwd.argtypes = argtypes
-    lib.tddl_flash_fwd.restype = restype
-    return lib
 
 
 def main(argv=None) -> int:
@@ -60,15 +39,13 @@ def main(argv=None) -> int:
         print("flash_ab: needs a CUDA card", file=sys.stderr)
         return 1
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from trustworthy_dl_tpu_torch.ops import flash_attention as fa
-    from trustworthy_dl_tpu_torch.utils.serve_profile import device_us
+    from trustworthy_dl_tpu_torch.utils import kernel_ab as ab
 
-    lib = _other_library(args.other)
+    lib = ab.other_library(args.other, "flash_attention")
     dev = torch.device("cuda")
-    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    flush = ab.flush_buffer(dev)
 
     def other_fwd(q, k, v):
         o = torch.empty_like(q)
@@ -79,34 +56,6 @@ def main(argv=None) -> int:
         if err:
             raise RuntimeError(f"{args.other}: CUDA error {err}")
         return o, lse
-
-    def event_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(args.reps):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-    def device_ms(fn):
-        """Device time per call of every kernel but the flush's."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        return sum(device_us(e) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and "FillFunctor" not in e.key) / args.reps / 1e3
 
     gen = torch.Generator(device=dev).manual_seed(4)
     for bh, t, d in SHAPES:
@@ -126,17 +75,13 @@ def main(argv=None) -> int:
         q4, k4, v4 = (a.view(1, bh, t, d) for a in (q, k, v))
         arms["sdpa"] = lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True)
-        for name in ("this", "other", "other", "this", "sdpa"):
-            record.setdefault(f"{name}_ms", []).append(event_ms(arms[name]))
-            record.setdefault(f"{name}_device_ms", []).append(
-                device_ms(arms[name]))
+        record.update(ab.in_turns(arms, ("this", "other", "other", "this",
+                                         "sdpa"), flush, args.reps))
         flops = 2 * bh * d * (t * (t + 1) // 2) * 2
         record["this_device_tflops"] = flops / (
             min(record["this_device_ms"]) * 1e-3) / 1e12
         print(json.dumps(record), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print(ab.card_line())
     return 0
 
 
