@@ -17,8 +17,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    kernel, the plain version and a library yardstick (median of
    per-launch CUDA-event timings, L2 flushed before each launch).  B8
    also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
-   with ``tflops``), B6-int8 also from position 0 and as a 64-row chunk;
-   B2, B6-int8 and B9 also with the profiler's device time.
+   with ``tflops``), B6-int8 also from position 0 and as a 64-row chunk,
+   B5-int8 also at the verify window (T = 5); B2, B5 (both pools), B6-int8
+   and B9 also with the profiler's device time.
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -104,6 +105,8 @@ FLASH_VS_FULL_LOSS_ATOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/paged_attention.cu"
+# B5's bf16-query kernel, by the name the profiler reports.
+DECODE_KERNEL = "decode_split_kernel"
 STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
 DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
@@ -224,6 +227,8 @@ def check_kernels(torch, pa):
     import numpy as np
     import torch.nn.functional as F
 
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
@@ -235,7 +240,8 @@ def check_kernels(torch, pa):
                          dtype=torch.int32, device=dev)
     entries = {}
 
-    def attn_case(name, wrapper, plain, q, tab, start_list, replaces):
+    def attn_case(name, wrapper, plain, q, tab, start_list, replaces,
+                  kernel=None):
         start = torch.tensor(start_list, dtype=torch.int32, device=dev)
         got = wrapper(q, pool_k, pool_v, tab, start)
         torch.cuda.synchronize()
@@ -258,26 +264,38 @@ def check_kernels(torch, pa):
         n_bytes, flops = attention_bound(start_list, t, h, dh, 2,
                                          nbps * bsz)
         bound_ms, bound_by = bound_entry(n_bytes, flops, "bfloat16")
+
+        def kern():
+            return wrapper(q, pool_k, pool_v, tab, start)
+
+        def library():
+            return F.scaled_dot_product_attention(q, view_k, view_v,
+                                                  attn_mask=mask)
+
         entries[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": 0,
             "max_abs_err": float(err.max()),
-            "ms": time_ms(torch, lambda: wrapper(q, pool_k, pool_v, tab,
-                                                 start), flush),
+            "ms": time_ms(torch, kern, flush),
             "plain_ms": time_ms(torch, lambda: plain(q, pool_k, pool_v, tab,
                                                      start), flush),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, view_k, view_v, attn_mask=mask), flush),
+            "library_ms": time_ms(torch, library, flush),
             "shape": {"q": list(q.shape), "pool": list(pool_k.shape),
                       "starts": start_list},
         }
+        if kernel is not None:   # the kernel's and SDPA's own device time
+            entries[name]["device_ms"] = device_ms(torch, kern, flush, kernel)
+            # SDPA may launch several kernels: all but the flush's count.
+            entries[name]["library_device_ms"] = kernel_ab.device_ms(
+                library, flush, 25)
 
     starts = [int(s) for s in rng.integers(0, nbps * bsz, size=r)]
     q1 = torch.randn(r, h, 1, dh, device=dev).to(torch.bfloat16)
     attn_case("paged_decode_attention", pa.paged_attention,
               pa.paged_attention_plain, q1, table, starts,
-              "trustworthy_dl_tpu/ops/paged_attention.py:429")
+              "trustworthy_dl_tpu/ops/paged_attention.py:429",
+              kernel=DECODE_KERNEL)
     # Prefill: one 64-position chunk resuming after a 128-token prefix
     # hit, the shape the serve path gives it (R = 1).
     q64 = torch.randn(1, h, 64, dh, device=dev).to(torch.bfloat16)
@@ -344,10 +362,11 @@ def check_int8_attention(torch, pa, entries, flush, rng):
     serve_spec path's launch: under int8 KV the chunk is max_seq, so a
     prefix hit resumes at position 128 with one 512-row chunk whose last
     128 rows lie past the 512-position table (checked on the rows inside
-    it, as the engine reads only those).  B6's bf16-query kernel and SDPA
-    also get the profiler's device time (``device_ms``,
-    ``library_device_ms``), at that launch and at the ``start0`` and
-    ``chunk64`` cases."""
+    it, as the engine reads only those).  The bf16-query kernels of B5
+    and B6 and SDPA also get the profiler's device time (``device_ms``,
+    ``library_device_ms``): B5 at the draft's T = 1 and at the verify
+    window (T = 5, ``verify_window``), B6 at that launch and at the
+    ``start0`` and ``chunk64`` cases."""
     import torch.nn.functional as F
 
     from trustworthy_dl_tpu_torch.quant import int8 as q8
@@ -422,12 +441,13 @@ def check_int8_attention(torch, pa, entries, flush, rng):
           "trustworthy_dl_tpu/ops/paged_attention.py:429 (quantized=True, "
           "kernel branch :328-352)",
           case("int8 decode", pa.paged_attention_int8,
-               torch.randn(r, h, 1, dh, device=dev).to(bf), table, starts))
-    # The verify window (T = k + 1) through the same kernel, checked.
-    entries["paged_decode_attention_int8"]["verify_window_max_abs_err"] = \
-        case("int8 verify window", pa.paged_attention_int8,
-             torch.randn(r, h, SPEC_K + 1, dh, device=dev).to(bf), table,
-             starts, timed=False)["max_abs_err"]
+               torch.randn(r, h, 1, dh, device=dev).to(bf), table, starts,
+               kernel=DECODE_KERNEL))
+    # The verify window (T = k + 1) through the same kernel, timed.
+    entries["paged_decode_attention_int8"]["verify_window"] = case(
+        "int8 verify window", pa.paged_attention_int8,
+        torch.randn(r, h, SPEC_K + 1, dh, device=dev).to(bf), table, starts,
+        kernel=DECODE_KERNEL)
     prefill_kernel = "prefill_int8_mma_kernel"
     entry("paged_prefill_attention_int8",
           "trustworthy_dl_tpu/ops/paged_attention.py:649 (quantized=True, "

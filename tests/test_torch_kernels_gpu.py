@@ -1,11 +1,13 @@
 """The port's CUDA kernels (B5 decode, B6 prefill, each over a bf16/f32 or
-an int8 pool, B7 trust epilogue, B8 fused verify tail, B9 paged adapter
-delta; B4 int8 dequant matmul; B1 moment battery; B2/B3 flash attention
+an int8 pool, B5's bf16-query split-K kernel at the edges of its spans,
+B7 trust epilogue, B8 fused verify tail, B9 paged adapter delta; B4 int8
+dequant matmul; B1 moment battery; B2/B3 flash attention
 forward and backward)
 against their plain PyTorch twins, on the card, the detector baseline's
 tensors following the card, and the serving engine at the kernels' limits
-(B8 past one launch's rows, B9 past its rank and an int8-KV engine past
-B6-int8's head width refused at construction).
+(B8 past one launch's rows, B9 past its rank, an int8-KV engine past
+B6-int8's head width and a bf16-pool engine past B5's refused at
+construction).
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -338,6 +340,106 @@ def test_engine_refuses_int8_kv_past_the_prefill_kernel(cuda):
                       kv_dtype="int8", device="cuda")
     assert torch.cuda.memory_allocated(cuda) == before
     assert pa.prefill_int8_kernel_limit(64, 16, torch.bfloat16) is None
+
+
+def _split_boundary_start(dh, t, cap):
+    """A start whose T-query window straddles the last split of B5's
+    cluster: at T > 1 the kernel gives rank c of a (row, head)'s 4 CTAs
+    keys [c * span, (c + 1) * span) of the window [0, start + T), span =
+    ceil((start + T) / 4) rounded up to a warp load's key rows (32 over
+    D / 8 lanes rounded up to a power of two), so queries before 3 * span
+    see no key of rank 3 and the later ones do.  T = 1 has no such start:
+    a mid-table one."""
+    lanes = 1 << (dh // 8 - 1).bit_length()
+    kpw = 32 // lanes
+    for s in range(cap - t, 0, -1):
+        span = -(-(s + t) // 4)
+        span = -(-span // kpw) * kpw
+        if s < 3 * span < s + t:
+            return s
+    return cap // 2 + 3
+
+
+@pytest.mark.parametrize("t", [1, 5, 8])
+@pytest.mark.parametrize("bsz", [8, 16, 48])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_split_decode_kernel_matches_plain(cuda, pool, dh, bsz, t):
+    """B5's split-K cluster kernel (bf16 q) over a bf16 or an int8 pool
+    against the twin: 64-block tables, so a full window's span runs past
+    one pass of a CTA's loads; starts 0 (a one-key window at T = 1),
+    BLOCK - 1, a window straddling the last split (for T > 1), the table's
+    last T positions, and the last position (the later queries of that
+    row past the table: compared inside it, finite everywhere); one launch
+    a call.  Tolerance: one bf16 step plus 2e-3, the smoke's (split-K only
+    reorders f32 sums; both round the output to bf16)."""
+    rng = np.random.default_rng(21)
+    h, nbps = 2, 64
+    cap = nbps * bsz
+    starts = [0, bsz - 1, _split_boundary_start(dh, t, cap), cap - t,
+              cap - 1]
+    r = len(starts)
+    nb = r * nbps + 1
+    if pool == "int8":
+        kq, vq, ks, vs = _int8_pools(rng, nb, h, bsz, dh, cuda)
+        wrapper, scales = pa.paged_attention_int8, (ks, vs)
+    else:
+        kq, vq, _ = _pools(rng, nb, h, bsz, dh, torch.bfloat16, cuda)
+        wrapper, scales = pa.paged_attention, ()
+    table = torch.tensor((rng.permutation(r * nbps) + 1).reshape(r, nbps),
+                         dtype=torch.int32, device=cuda)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    q = torch.tensor(rng.normal(size=(r, h, t, dh)), dtype=torch.float32
+                     ).to(device=cuda, dtype=torch.bfloat16)
+    before = wrapper.launches
+    got = wrapper(q, kq, vq, table, start, *scales)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = pa.paged_attention_plain(q, kq, vq, table, start, *scales)
+    keep = (torch.arange(t, device=cuda)[None, :] + start.long()[:, None]
+            < cap)[:, None, :, None].expand_as(got)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float()[keep], ref.float()[keep],
+                               rtol=2.0 ** -7, atol=2e-3)
+
+
+def test_decode_wrappers_reject_past_the_kernel_limit(cuda):
+    """bf16 q with Dh = 20 or T = 9 is past B5's limits: ValueError naming
+    the limit, nothing launched."""
+    table = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    for t, dh, needle in ((1, 20, "Dh=20"), (9, 64, "T=9")):
+        q = torch.zeros(1, 2, t, dh, dtype=torch.bfloat16, device=cuda)
+        pool = torch.zeros(3, 2, 8, dh, dtype=torch.bfloat16, device=cuda)
+        pool8 = pool.to(torch.int8)
+        sc = torch.zeros(3, 2, 8, device=cuda)
+        before = (pa.paged_attention.launches,
+                  pa.paged_attention_int8.launches)
+        with pytest.raises(ValueError, match=needle):
+            pa.paged_attention(q, pool, pool, table, 0)
+        with pytest.raises(ValueError, match=needle):
+            pa.paged_attention_int8(q, pool8, pool8, table, 0, sc, sc)
+        assert (pa.paged_attention.launches,
+                pa.paged_attention_int8.launches) == before
+
+
+def test_engine_refuses_bf16_pool_past_the_decode_kernel(cuda):
+    """B5's bf16-query kernel takes Dh a multiple of 16: a bf16-pool
+    engine at Dh = 20 on the kernel path raises a ValueError naming the
+    limit before it allocates anything on the card; GPT-2 small's Dh = 64
+    is inside the limit."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=269, n_positions=64, n_layer=1,
+                          n_embd=80, n_head=4, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="Dh=20"):
+        ServingEngine(params, cfg, max_slots=2, max_seq=64, block_size=16,
+                      device="cuda")
+    assert torch.cuda.memory_allocated(cuda) == before
+    assert pa.decode_kernel_limit(64, pa.QROWS, torch.bfloat16) is None
 
 
 @pytest.mark.parametrize("m", [1, 8, 15, 64, 100])

@@ -196,6 +196,41 @@ def test_int8_decode_plain_matches_interpret_kernel_ragged(t):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("pool", ["model", "int8"])
+@pytest.mark.parametrize("t,starts", [
+    (1, [0, 7, 15, 31]),     # a one-key window; windows ending on a block
+    (5, [3, 5, 12, 27]),     # across a block boundary; ending on one
+    (8, [0, 1, 8, 24]),
+])
+def test_decode_plain_matches_interpret_kernel_at_window_edges(pool, t,
+                                                               starts):
+    """The window edges B5's split-K kernel meets on the card, over both
+    pools: a one-key window (start 0, T = 1), windows whose last position
+    is a block's last (7, 15, 31 at T = 1; 27 + 5 - 1 = 31), and T = 5 and
+    8 windows across block boundaries, each query ending at its own key,
+    8-position blocks, 4-block tables."""
+    rng = np.random.default_rng(9)
+    nb, h, bsz, dh = 9, 3, 8, 16
+    if pool == "int8":
+        kq, vq, ks, vs = _int8_pools(rng, nb, h, bsz, dh)
+        jscales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        tscales = (_t(ks), _t(vs))
+        wrapper = pa.paged_attention_int8
+    else:
+        kq = rng.normal(size=(nb, h, bsz, dh)).astype(np.float32)
+        vq = rng.normal(size=(nb, h, bsz, dh)).astype(np.float32)
+        jscales, tscales, wrapper = {}, (), pa.paged_attention
+    table = rng.integers(0, nb, size=(4, 4)).astype(np.int32)
+    start = np.asarray(starts, np.int32)
+    q = rng.normal(size=(4, h, t, dh)).astype(np.float32)
+    ref = jpa.paged_attention(jnp.asarray(q), jnp.asarray(kq),
+                              jnp.asarray(vq), jnp.asarray(table),
+                              jnp.asarray(start), interpret=True, **jscales)
+    got = wrapper(_t(q), _t(kq), _t(vq), _t(table), _t(start), *tscales)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_int8_prefill_plain_matches_interpret_kernel_ragged():
     """Two rows of a T = 20 chunk starting mid-block (ragged starts 3 and
     12), three query tiles each."""

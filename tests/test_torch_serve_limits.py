@@ -1,14 +1,15 @@
 """The serving kernels' limits as the port states them on the CPU: the row
 groups the fused verify tail (B8) launches over, the limits of the paged
-adapter delta (B9) and of the int8 chunked prefill (B6-int8) that the
-engine checks when it is built on the card, and the plain path, which has
-none of these limits.
+adapter delta (B9), of the int8 chunked prefill (B6-int8) and of the
+paged decode (B5) that the engine checks when it is built on the card,
+and the plain path, which has none of these limits.
 
-These are pure functions of shapes and dtypes (and one tiny CPU engine),
-so they run here; the card's side of both (an engine past B9's limits
-refused at construction, an int8-KV engine past B6-int8's head width
-refused at construction, a 16-slot ``spec_k=8`` engine serving through
-two B8 launches a verify) is in ``tests/test_torch_kernels_gpu.py``.
+These are pure functions of shapes and dtypes (and tiny CPU engines),
+so they run here; the card's side (an engine past B9's limits refused at
+construction, an int8-KV engine past B6-int8's head width and a bf16-pool
+engine past B5's refused at construction, a 16-slot ``spec_k=8`` engine
+serving through two B8 launches a verify) is in
+``tests/test_torch_kernels_gpu.py``.
 """
 
 import pytest
@@ -125,6 +126,57 @@ def test_plain_int8_engine_serves_at_any_head_width(n_embd, n_head):
                                      max_new_tokens=5))
     results = engine.run_until_idle()
     assert engine.kv_dtype == "int8"
+    assert results[rid].status == "completed"
+    assert len(results[rid].tokens) == 5
+    assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
+
+
+@pytest.mark.parametrize("dh,t,dtype,needle", [
+    (20, 1, torch.bfloat16, "Dh=20"),
+    (144, 1, torch.bfloat16, "Dh=144 > 128"),
+    (0, 1, torch.bfloat16, "Dh=0"),
+    (64, 9, torch.bfloat16, "T=9"),
+    (64, 9, torch.float32, "T=9"),
+    (64, 0, torch.bfloat16, "T=0"),
+    (64, 1, torch.float16, "bf16 or f32"),
+    (64, 1, torch.int8, "bf16 or f32"),
+    (0, 1, torch.float32, "Dh=0"),
+])
+def test_decode_kernel_limit_names_what_it_refuses(dh, t, dtype, needle):
+    reason = pa.decode_kernel_limit(dh, t, dtype)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("dh,t,dtype", [
+    (64, 1, torch.bfloat16),       # GPT-2 small's decode tick
+    (64, 5, torch.bfloat16),       # its spec_k=4 verify window
+    (64, pa.QROWS, torch.bfloat16),
+    (16, 1, torch.bfloat16),
+    (128, pa.QROWS, torch.bfloat16),
+    (20, 1, torch.float32),        # the CUDA-core kernel takes any Dh
+    (64, pa.QROWS, torch.float32),
+])
+def test_decode_kernel_limit_takes(dh, t, dtype):
+    assert pa.decode_kernel_limit(dh, t, dtype) is None
+
+
+def test_plain_bf16_engine_serves_past_the_decode_kernel_limit():
+    """Dh = 20 is past B5's bf16-query kernel (a card engine refuses it at
+    construction); on the CPU the plain path serves it over a bf16 pool,
+    launching nothing."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=2,
+                          n_embd=40, n_head=2, dtype=torch.bfloat16)
+    assert "Dh=20" in pa.decode_kernel_limit(cfg.head_dim, pa.QROWS,
+                                             cfg.dtype)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    pa.reset_launch_counts()
+    engine = ServingEngine(params, cfg, max_slots=2, max_seq=48,
+                           block_size=8, device="cpu")
+    rid = engine.submit(ServeRequest(prompt=[3, 1, 4, 1, 5, 9, 2, 6],
+                                     max_new_tokens=5))
+    results = engine.run_until_idle()
+    assert engine.kv_dtype == "model"
+    assert engine.scheduler.kv.k.dtype == torch.bfloat16
     assert results[rid].status == "completed"
     assert len(results[rid].tokens) == 5
     assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)

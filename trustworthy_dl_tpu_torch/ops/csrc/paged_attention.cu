@@ -19,8 +19,55 @@
 //
 // What bounds them on this card: bytes.  A decode step reads every cached
 // K and V position of every (row, head) once, ~2 * len * Dh * 2 bytes in
-// bf16 against 4 * len * Dh flops - far under the ~295 flop/byte ridge.
-// The design therefore aims only at reading each needed byte once:
+// bf16 against 4 * len * Dh flops per query - about 4 flops a K/V byte at
+// T <= 8, far under the ~295 flop/byte ridge.  The int8 branches (the
+// quantized=True instances of the same two TPU kernels) read int8 K/V and
+// f32 per-(head, position) scales [NB, H, BLOCK] through the same table
+// walk: the K scale multiplies the score after the dot (it is constant
+// along the contracted Dh axis), the V scale multiplies the probability
+// before the PV contraction, and the running sum l keeps the unscaled
+// probabilities - the algebra of paged_attention_reference.  Their bound
+// is bytes again: half the bf16 pool's K/V bytes plus 8 bytes of scales
+// per (head, position).
+//
+// B5 with bf16 queries (every decode launch of the serving path, over the
+// bf16 and the int8 pool) is decode_split_kernel: flash-decoding over a
+// thread-block cluster.  A decode launch is tiny (the serve drive's: 96
+// (row, head) windows of up to 512 keys, 6.3 MB of bf16 K/V), so what
+// bounds it in practice is latency: how many dependent trips to device
+// memory the longest window takes, and how few SMs walk it.  The design:
+//   * one cluster of 8 CTAs (the portable maximum) per (row, head) at
+//     T = 1, of 4 at T > 1; CTA rank c takes a contiguous span of the row's
+//     window [0, min(start + T, table end)), so the longest row is read by
+//     8 SMs at once instead of walked by one (768 CTAs of 4 warps at the
+//     serve shape, at most 64 keys each, one wave: see DcRows);
+//   * every lane holds 8 head dims of a key row - one 16-byte load (bf16)
+//     or 8-byte load (int8) - so a key row is D / 8 lanes (padded to a
+//     power of two) and a warp load covers 32 / that many consecutive keys,
+//     gathered by key row through the table (key kpos is row kpos % BLOCK
+//     of block table[kpos / BLOCK]: any block size works); all of a pass's
+//     K and V loads (DcRows::nk rows a lane) and scales are issued before
+//     any arithmetic, and q is staged in shared memory (f32) while they fly;
+//   * scores, the partial softmax and P.V run on the CUDA cores in f32: at
+//     4 flops a byte the tensor cores would idle.  The key lanes' partial
+//     dots meet by shuffle-xor; scale, then the K scale, then the mask;
+//     masked p is exactly 0 (a span past a query's position has m =
+//     NEG_INF, where 2^(s - m) would be 1); l sums p, P.V takes p *
+//     v_scale; the CTA folds its key rows by shuffles and its warps in
+//     shared memory into one partial (m, l, acc) a query;
+//   * the CTAs' partials meet in distributed shared memory: cluster.sync(),
+//     then each rank folds its share of the output's 8-dim chunks from all
+//     the cluster's partials (M = max m_c, out = sum 2^(m_c - M) acc_c /
+//     sum 2^(m_c - M) l_c, an empty partial weighing 0) and writes bf16; a
+//     second cluster.sync() keeps every CTA's shared memory alive until its
+//     peers have read it.  One launch, no workspace.
+// Issuing the next pass's loads before this pass's arithmetic measured
+// slower (the extra registers spill under the one-wave bounds).
+// f32 queries keep paged_attn_kernel below (the choice is by dtype).
+//
+// paged_attn_kernel (B5 with f32 queries, B6 with bf16 or f32 queries, B6
+// over an int8 pool with f32 queries) aims only at reading each needed
+// byte once:
 //   * one CTA per (row, head) [B5] or (row, head, query tile) [B6]; the CTA
 //     reads its own table row and start (the TPU's scalar prefetch) and
 //     stops at its last useful logical block jmax - no block past the
@@ -32,19 +79,9 @@
 //     products hit distinct banks;
 //   * q stays resident in shared memory; scores, probabilities and the
 //     accumulator never leave the SM.
-// Dot products run on the CUDA cores in f32 (no wgmma/TMA yet): with at
-// most 8 query rows per CTA the tensor cores would idle on a 64-row tile,
-// and the work is memory-bound either way.  Faster staging (cp.async/TMA,
-// split-K over long caches) is later work.
-//
-// The int8 branches (the quantized=True instances of the same two TPU
-// kernels) read int8 K/V tiles and f32 per-(head, position) scales
-// [NB, H, BLOCK] through the same table walk: the K scale multiplies the
-// score after the dot (it is constant along the contracted Dh axis), the
-// V scale multiplies the probability before the PV contraction, and the
-// running sum l keeps the unscaled probabilities - the algebra of
-// paged_attention_reference.  Their bound is bytes again: half the bf16
-// pool's K/V bytes plus 8 bytes of scales per (head, position).
+// Dot products run on the CUDA cores in f32: with at most 8 query rows per
+// CTA the tensor cores would idle on a 64-row tile, and the work is
+// memory-bound either way.
 //
 // B6-int8 with bf16 queries (every launch of the serving path) has a
 // tensor-core kernel of its own, prefill_int8_mma_kernel.  It replaces the
@@ -120,6 +157,7 @@
 // so the bits repeat, and the top-2 merge is B7's, so the margin equals
 // top-k over the kernel's own logits bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -315,7 +353,9 @@ int launch_attn(const void* q, const void* pool_k, const void* pool_v,
   return (int)cudaGetLastError();
 }
 
-// k_scale == nullptr: model-dtype pool (KV = T); else int8 pool.
+// k_scale == nullptr: model-dtype pool (KV = T); else int8 pool.  bf16 q
+// over an int8 pool never comes here: decode_split_kernel (B5) and
+// prefill_int8_mma_kernel (B6) take it.
 int dispatch_attn(int dtype, const void* q, const void* pool_k,
                   const void* pool_v, const void* k_scale,
                   const void* v_scale, const void* table, const void* start,
@@ -336,11 +376,392 @@ int dispatch_attn(int dtype, const void* q, const void* pool_k,
     return launch_attn<float, int8_t, true>(q, pool_k, pool_v, k_scale,
                                             v_scale, table, start, out, R, H,
                                             Tq, Dh, bsz, nbps, q_tile, s);
-  if (dtype == 1 && quant)
-    return launch_attn<__nv_bfloat16, int8_t, true>(
-        q, pool_k, pool_v, k_scale, v_scale, table, start, out, R, H, Tq, Dh,
-        bsz, nbps, q_tile, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// B5 with bf16 queries: split-K paged decode over a thread-block cluster
+// (see the note at the top).  One cluster of DcRows::cluster CTAs per
+// (row, head); CTA rank c walks a contiguous span of the row's window.
+// ---------------------------------------------------------------------------
+constexpr int DC_WARPS = 4;
+constexpr int DC_THREADS = DC_WARPS * 32;
+constexpr int DC_MAX_DH = 128;
+
+// Per query-row instance (T <= TQ): CTAs a cluster, key rows a lane loads
+// a pass, and the CTAs an SM the register budget is set for.  A cluster's
+// CTAs share one GPC (16-18 SMs), so the serve shape's 96 clusters of 8
+// make one wave only with room for 7 CTAs an SM: at most 72 registers at
+// T = 1.  Past one query row the scores and accumulators take more
+// registers, 3 CTAs an SM, and clusters of 4 keep the launch one wave.
+template <int TQ>
+struct DcRows {
+  static constexpr int cluster = TQ > 1 ? 4 : 8;
+  static constexpr int nk = TQ > 4 ? 2 : 4;
+  static constexpr int min_blocks = TQ > 1 ? 3 : 7;
+};
+
+// 8 head dims of one key row, as one load: 16 bytes of bf16, 8 of int8.
+template <typename KV>
+struct Row8;
+template <>
+struct Row8<__nv_bfloat16> {
+  using raw = uint4;
+};
+template <>
+struct Row8<int8_t> {
+  using raw = uint2;
+};
+
+__device__ __forceinline__ void unpack8(const uint4& w, float (&f)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack8(const uint2& w, float (&f)[8]) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    f[b] = (float)((int32_t)(w.x << (24 - 8 * b)) >> 24);
+    f[4 + b] = (float)((int32_t)(w.y << (24 - 8 * b)) >> 24);
+  }
+}
+
+// P: lanes a key row takes (D / 8 rounded up to a power of two; lanes
+// past D / 8 hold zeros).  TQ: query rows the registers are sized for
+// (T <= TQ; rows past T compute on zeros and are never stored).
+template <typename KV, bool QUANT, int P, int TQ>
+__global__ void __cluster_dims__(DcRows<TQ>::cluster, 1, 1)
+    __launch_bounds__(DC_THREADS, DcRows<TQ>::min_blocks) decode_split_kernel(
+        const __nv_bfloat16* __restrict__ q, const KV* __restrict__ pool_k,
+        const KV* __restrict__ pool_v, const float* __restrict__ k_scale,
+        const float* __restrict__ v_scale, const int32_t* __restrict__ table,
+        const int32_t* __restrict__ start, __nv_bfloat16* __restrict__ out,
+        int H, int Tq, int D, int bsz, int nbps, float scale_log2) {
+  namespace cg = cooperative_groups;
+  using Raw = typename Row8<KV>::raw;
+  constexpr int C = DcRows<TQ>::cluster;
+  constexpr int NK = DcRows<TQ>::nk;
+  constexpr int KPW = 32 / P;            // key rows a warp load covers
+  constexpr int SLOTS = DC_WARPS * KPW;  // key rows a CTA load covers
+  constexpr int PASS = NK * SLOTS;       // key rows a pass
+  __shared__ __align__(16) float q_s[TQ][DC_MAX_DH];
+  // Each warp's folded acc; after the CTA's fold, row 0 is the partial
+  // the cluster reads.
+  __shared__ __align__(16) float acc_s[DC_WARPS][TQ][DC_MAX_DH];
+  __shared__ float max_s[2][DC_WARPS][TQ];
+  __shared__ float l_s[DC_WARPS][TQ];
+  __shared__ float m_s[TQ];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int rh = blockIdx.x / C;
+  const int h = rh % H;
+  const int r = rh / H;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int slice = lane % P;                // this lane's 8 dims
+  const int slot = warp * KPW + lane / P;    // this lane's key row
+  const bool dims = slice * 8 < D;
+
+  // The row's window, clipped into the table: rows past the table see the
+  // whole table (and stay finite); no table entry past it is read.
+  const int qpos0 = start[r];
+  const int len = min(qpos0 + Tq, nbps * bsz);
+  int span = (len + C - 1) / C;
+  span = (span + KPW - 1) / KPW * KPW;
+  const int kbeg = min(rank * span, len);
+  const int kend = min(kbeg + span, len);
+  const int32_t* trow = table + (size_t)r * nbps;
+
+  Raw kr[NK], vr[NK];
+  float ksc[NK], vsc[NK];
+  // Key rows k0 + n * SLOTS + slot of a pass; rows past the span are
+  // zeros with zero scales (and masked).
+  auto issue = [&](int k0) {
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      const int kpos = k0 + n * SLOTS + slot;
+      kr[n] = Raw{};
+      vr[n] = Raw{};
+      ksc[n] = 0.f;
+      vsc[n] = 0.f;
+      if (kpos < kend) {
+        const size_t row =
+            ((size_t)trow[kpos / bsz] * H + h) * bsz + kpos % bsz;
+        if (dims) {
+          kr[n] = __ldg(reinterpret_cast<const Raw*>(pool_k + row * D) +
+                        slice);
+          vr[n] = __ldg(reinterpret_cast<const Raw*>(pool_v + row * D) +
+                        slice);
+        }
+        if (QUANT) {
+          ksc[n] = __ldg(k_scale + row);
+          vsc[n] = __ldg(v_scale + row);
+        }
+      }
+    }
+  };
+  if (kbeg < kend) issue(kbeg);
+
+  // q in f32, zero past T and past D up to the lanes' padded width.
+  const __nv_bfloat16* qh = q + (size_t)rh * Tq * D;
+  for (int i = tid; i < TQ * P * 8; i += DC_THREADS) {
+    const int t = i / (P * 8);
+    const int d = i % (P * 8);
+    q_s[t][d] = (t < Tq && d < D) ? __bfloat162float(qh[t * D + d]) : 0.f;
+  }
+  __syncthreads();
+
+  float m_run[TQ], l_run[TQ], acc[TQ][8];
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+    m_run[t] = NEG_INF;
+    l_run[t] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[t][e] = 0.f;
+  }
+
+  int pass = 0;
+  for (int k0 = kbeg; k0 < kend; k0 += PASS, ++pass) {
+    if (k0 != kbeg) issue(k0);
+    // Scores: this lane's 8-dim slice of each key row, then the sum over
+    // the row's P lanes.
+    float s[NK][TQ];
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      const float4 qa = *reinterpret_cast<const float4*>(&q_s[t][slice * 8]);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(&q_s[t][slice * 8 + 4]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        float kf[8];
+        unpack8(kr[n], kf);
+        float dot = qa.x * kf[0];
+        dot = fmaf(qa.y, kf[1], dot);
+        dot = fmaf(qa.z, kf[2], dot);
+        dot = fmaf(qa.w, kf[3], dot);
+        dot = fmaf(qb.x, kf[4], dot);
+        dot = fmaf(qb.y, kf[5], dot);
+        dot = fmaf(qb.z, kf[6], dot);
+        dot = fmaf(qb.w, kf[7], dot);
+        s[n][t] = dot;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int t = 0; t < TQ; ++t)
+#pragma unroll
+        for (int off = 1; off < P; off <<= 1)
+          s[n][t] += __shfl_xor_sync(0xffffffffu, s[n][t], off);
+
+    // Scale (log2 units), then the K scale, then the causal mask; the
+    // pass's maximum of each query over the CTA.
+    float mx[TQ];
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) mx[t] = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      const int kpos = k0 + n * SLOTS + slot;
+      const float f = QUANT ? scale_log2 * ksc[n] : scale_log2;
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const bool seen = kpos < kend && kpos <= qpos0 + t;
+        s[n][t] = seen ? s[n][t] * f : NEG_INF;
+        mx[t] = fmaxf(mx[t], s[n][t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+#pragma unroll
+      for (int off = P; off < 32; off <<= 1)
+        mx[t] = fmaxf(mx[t], __shfl_xor_sync(0xffffffffu, mx[t], off));
+      if (lane == 0) max_s[pass & 1][warp][t] = mx[t];
+    }
+    __syncthreads();  // max_s is double-buffered by pass: one barrier a pass
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      float m_new = m_run[t];
+#pragma unroll
+      for (int w = 0; w < DC_WARPS; ++w)
+        m_new = fmaxf(m_new, max_s[pass & 1][w][t]);
+      const float corr = ex2(m_run[t] - m_new);
+      m_run[t] = m_new;
+      l_run[t] *= corr;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[t][e] *= corr;
+    }
+    // p exactly 0 where masked (m may still be NEG_INF here); l sums the
+    // unscaled p; P.V takes p * v_scale.
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      float vf[8];
+      unpack8(vr[n], vf);
+#pragma unroll
+      for (int t = 0; t < TQ; ++t) {
+        const float p = s[n][t] <= NEG_INF ? 0.f : ex2(s[n][t] - m_run[t]);
+        l_run[t] += p;
+        const float pv = QUANT ? p * vsc[n] : p;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[t][e] = fmaf(pv, vf[e], acc[t][e]);
+      }
+    }
+  }
+
+  // The CTA's partial: key rows of a warp by shuffles (m is CTA-uniform),
+  // then the warps in shared memory.
+#pragma unroll
+  for (int t = 0; t < TQ; ++t) {
+#pragma unroll
+    for (int off = P; off < 32; off <<= 1) {
+      l_run[t] += __shfl_xor_sync(0xffffffffu, l_run[t], off);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[t][e] += __shfl_xor_sync(0xffffffffu, acc[t][e], off);
+    }
+  }
+  if (lane < P && dims) {
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) {
+      float* dst = &acc_s[warp][t][slice * 8];
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(acc[t][4], acc[t][5], acc[t][6], acc[t][7]);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) l_s[warp][t] = l_run[t];
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int t = 0; t < TQ; ++t) m_s[t] = m_run[t];
+  }
+  __syncthreads();
+  for (int i = tid; i < TQ * D; i += DC_THREADS) {
+    const int t = i / D;
+    const int d = i % D;
+    float a = acc_s[0][t][d];
+#pragma unroll
+    for (int w = 1; w < DC_WARPS; ++w) a += acc_s[w][t][d];
+    acc_s[0][t][d] = a;
+  }
+  if (tid < TQ) {
+    float l = l_s[0][tid];
+#pragma unroll
+    for (int w = 1; w < DC_WARPS; ++w) l += l_s[w][tid];
+    l_s[0][tid] = l;
+  }
+  cluster.sync();  // every CTA's partial is in its shared memory
+
+  // Fold the cluster's partials: output chunk i (8 dims of one query) is
+  // rank i % C's; an empty partial (m = NEG_INF) weighs 0.
+  const int chunks = D / 8;
+  for (int i = tid * C + rank; i < Tq * chunks; i += C * DC_THREADS) {
+    const int t = i / chunks;
+    const int c8 = i % chunks;
+    float mc[C];
+    float M = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      mc[c] = *cluster.map_shared_rank(&m_s[t], c);
+      M = fmaxf(M, mc[c]);
+    }
+    float lsum = 0.f;
+    float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float w = mc[c] <= NEG_INF ? 0.f : ex2(mc[c] - M);
+      lsum = fmaf(w, *cluster.map_shared_rank(&l_s[0][t], c), lsum);
+      const float4* a = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(&acc_s[0][t][c8 * 8], c));
+      const float4 a0 = a[0];
+      const float4 a1 = a[1];
+      o[0] = fmaf(w, a0.x, o[0]);
+      o[1] = fmaf(w, a0.y, o[1]);
+      o[2] = fmaf(w, a0.z, o[2]);
+      o[3] = fmaf(w, a0.w, o[3]);
+      o[4] = fmaf(w, a1.x, o[4]);
+      o[5] = fmaf(w, a1.y, o[5]);
+      o[6] = fmaf(w, a1.z, o[6]);
+      o[7] = fmaf(w, a1.w, o[7]);
+    }
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    *reinterpret_cast<uint4*>(out + ((size_t)rh * Tq + t) * D + c8 * 8) =
+        make_uint4(pack_bf16(o[0] * inv, o[1] * inv),
+                   pack_bf16(o[2] * inv, o[3] * inv),
+                   pack_bf16(o[4] * inv, o[5] * inv),
+                   pack_bf16(o[6] * inv, o[7] * inv));
+  }
+  cluster.sync();  // no CTA leaves while a peer may still read its partial
+}
+
+template <typename KV, bool QUANT, int P, int TQ>
+int launch_decode_split(const void* q, const void* pool_k, const void* pool_v,
+                        const void* k_scale, const void* v_scale,
+                        const void* table, const void* start, void* out,
+                        int R, int H, int Tq, int D, int bsz, int nbps,
+                        cudaStream_t stream) {
+  const long long grid = (long long)R * H * DcRows<TQ>::cluster;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float scale_log2 =
+      (float)(1.0 / sqrt((double)D) * 1.4426950408889634);
+  decode_split_kernel<KV, QUANT, P, TQ>
+      <<<(unsigned)grid, DC_THREADS, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(pool_k),
+          static_cast<const KV*>(pool_v), static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale),
+          static_cast<const int32_t*>(table),
+          static_cast<const int32_t*>(start),
+          static_cast<__nv_bfloat16*>(out), H, Tq, D, bsz, nbps, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <typename KV, bool QUANT, int P>
+int launch_decode_split_rows(const void* q, const void* pool_k,
+                             const void* pool_v, const void* k_scale,
+                             const void* v_scale, const void* table,
+                             const void* start, void* out, int R, int H,
+                             int Tq, int D, int bsz, int nbps,
+                             cudaStream_t s) {
+#define DC_ROWS(TQ)                                                        \
+  return launch_decode_split<KV, QUANT, P, TQ>(q, pool_k, pool_v, k_scale, \
+                                               v_scale, table, start, out, \
+                                               R, H, Tq, D, bsz, nbps, s)
+  if (Tq <= 1) DC_ROWS(1);
+  if (Tq <= 4) DC_ROWS(4);
+  DC_ROWS(8);
+#undef DC_ROWS
+}
+
+// bf16 q, T <= 8, Dh a multiple of 16 up to 128, any block size; q and the
+// pools 16-byte aligned.  KV: bf16 pool, or int8 pool with scales.
+template <typename KV, bool QUANT>
+int dispatch_decode_split(const void* q, const void* pool_k,
+                          const void* pool_v, const void* k_scale,
+                          const void* v_scale, const void* table,
+                          const void* start, void* out, int R, int H, int Tq,
+                          int D, int bsz, int nbps, void* stream) {
+  if (R < 1 || H < 1 || Tq < 1 || Tq > 8 || bsz < 1 || nbps < 1 || D < 16 ||
+      D > DC_MAX_DH || D % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int lanes = D / 8;
+#define DC_LANES(P)                                                         \
+  return launch_decode_split_rows<KV, QUANT, P>(q, pool_k, pool_v, k_scale, \
+                                                v_scale, table, start, out, \
+                                                R, H, Tq, D, bsz, nbps, s)
+  if (lanes <= 2) DC_LANES(2);
+  if (lanes <= 4) DC_LANES(4);
+  if (lanes <= 8) DC_LANES(8);
+  DC_LANES(16);
+#undef DC_LANES
 }
 
 // ---------------------------------------------------------------------------
@@ -945,17 +1366,23 @@ __global__ void __launch_bounds__(32) verify_fold_kernel(
 
 extern "C" {
 
-// B5: q [R, H, T, Dh] (T <= 8), one query tile per (row, head).
+// B5: q [R, H, T, Dh] (T <= 8).  bf16 q runs the split-K cluster kernel
+// (Dh a multiple of 16, at most 128; q and pools 16-byte aligned); f32 q
+// the CUDA-core kernel, one query tile per (row, head).
 int tddl_paged_decode(const void* q, const void* pool_k, const void* pool_v,
                       const void* table, const void* start, void* out, int R,
                       int H, int T, int Dh, int bsz, int nbps, int dtype,
                       void* stream) {
+  if (dtype == 1)
+    return dispatch_decode_split<__nv_bfloat16, false>(
+        q, pool_k, pool_v, nullptr, nullptr, table, start, out, R, H, T, Dh,
+        bsz, nbps, stream);
   return dispatch_attn(dtype, q, pool_k, pool_v, nullptr, nullptr, table,
                        start, out, R, H, T, Dh, bsz, nbps, T, stream);
 }
 
 // B5, int8 pool: pool_k/pool_v int8 [NB, H, BLOCK, Dh], scales f32
-// [NB, H, BLOCK].
+// [NB, H, BLOCK]; kernels chosen by q's dtype as tddl_paged_decode's.
 int tddl_paged_decode_int8(const void* q, const void* pool_k,
                            const void* pool_v, const void* k_scale,
                            const void* v_scale, const void* table,
@@ -964,6 +1391,10 @@ int tddl_paged_decode_int8(const void* q, const void* pool_k,
                            void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return dispatch_decode_split<int8_t, true>(q, pool_k, pool_v, k_scale,
+                                               v_scale, table, start, out, R,
+                                               H, T, Dh, bsz, nbps, stream);
   return dispatch_attn(dtype, q, pool_k, pool_v, k_scale, v_scale, table,
                        start, out, R, H, T, Dh, bsz, nbps, T, stream);
 }

@@ -153,22 +153,69 @@ def _launch_attention(entry: str, q: torch.Tensor, pool_k: torch.Tensor,
     return out
 
 
-def _decode_rows(q: torch.Tensor, op: str) -> None:
-    if q.shape[2] > QROWS:
-        raise ValueError(f"{op}: T={q.shape[2]} > {QROWS}; chunks go "
-                         "through paged_prefill_attention")
+#: Head widths the bf16-query kernels (B5's split-K decode, B6-int8's
+#: tensor-core prefill) are built for: multiples of 16 up to 128.
+BF16_KERNEL_DH_MULTIPLE = 16
+BF16_KERNEL_MAX_DH = 128
+
+
+def _bf16_head_width_limit(dh: int) -> Optional[str]:
+    if dh < 1 or dh % BF16_KERNEL_DH_MULTIPLE:
+        return (f"Dh={dh} must be a positive multiple of "
+                f"{BF16_KERNEL_DH_MULTIPLE}")
+    if dh > BF16_KERNEL_MAX_DH:
+        return f"Dh={dh} > {BF16_KERNEL_MAX_DH}"
+    return None
+
+
+def decode_kernel_limit(dh: int, t: int, q_dtype: torch.dtype
+                        ) -> Optional[str]:
+    """Why B5 cannot take head width ``dh`` and ``t`` query rows with
+    queries in ``q_dtype``, or None when it can.  bf16 q runs the split-K
+    cluster kernel (Dh a multiple of 16, at most 128, over a bf16 or an
+    int8 pool, any block size); f32 q the CUDA-core kernel.  Both take
+    1 <= T <= :data:`QROWS` (longer chunks go through
+    ``paged_prefill_attention``).  The launch check and ``ServingEngine``'s
+    check at construction both read it."""
+    if not 1 <= t <= QROWS:
+        return (f"T={t} is outside [1, {QROWS}]; chunks go through "
+                "paged_prefill_attention")
+    if q_dtype == torch.bfloat16:
+        return _bf16_head_width_limit(dh)
+    if q_dtype != torch.float32:
+        return f"q must be bf16 or f32 on the card, got {q_dtype}"
+    if dh < 1:
+        return f"Dh={dh} must be >= 1"
+    return None
+
+
+def _check_kernel_limit(limit: Optional[str], q: torch.Tensor,
+                        pools: Tuple[torch.Tensor, ...], op: str) -> None:
+    """Raise on a limit; bf16 q's kernels load q and the pools 16 bytes
+    at a time."""
+    if limit is not None:
+        raise ValueError(f"{op}: {limit}")
+    if q.dtype == torch.bfloat16 and any(
+            a.data_ptr() % 16 for a in (q, *pools)):
+        raise ValueError(f"{op}: q, pool_k and pool_v must be 16-byte "
+                         "aligned")
 
 
 def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                     pool_v: torch.Tensor, table: torch.Tensor,
                     start: Start) -> torch.Tensor:
     """Ragged paged-decode attention (B5) over one layer's block pool,
-    T <= :data:`QROWS`.  Returns [R, H, T, Dh] in q's dtype."""
+    T <= :data:`QROWS`.  Returns [R, H, T, Dh] in q's dtype.  On the card,
+    bf16 q launches the split-K cluster kernel, f32 q the CUDA-core
+    kernel (``csrc/paged_attention.cu``); their limits are
+    :func:`decode_kernel_limit`."""
     if not on_cuda(q, "paged_attention"):
         return paged_attention_plain(q, pool_k, pool_v, table, start)
-    _decode_rows(q, "paged_attention")
+    op = "paged_attention"
     start = _start_vector(start, q.shape[0], q.device)
-    _check_attention(q, pool_k, pool_v, table, start, "paged_attention")
+    _check_attention(q, pool_k, pool_v, table, start, op)
+    _check_kernel_limit(decode_kernel_limit(q.shape[3], q.shape[2], q.dtype),
+                        q, (pool_k, pool_v), op)
     out = _launch_attention("tddl_paged_decode", q, pool_k, pool_v, table,
                             start)
     paged_attention.launches += 1
@@ -182,14 +229,16 @@ def paged_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
                          pool_v: torch.Tensor, table: torch.Tensor,
                          start: Start, k_scale: torch.Tensor,
                          v_scale: torch.Tensor) -> torch.Tensor:
-    """B5 over an int8 pool with f32 scales [NB, H, BLOCK]."""
+    """B5 over an int8 pool with f32 scales [NB, H, BLOCK]; kernels and
+    limits as :func:`paged_attention`'s."""
     if not on_cuda(q, "paged_attention_int8"):
         return paged_attention_plain(q, pool_k, pool_v, table, start,
                                      k_scale, v_scale)
-    _decode_rows(q, "paged_attention_int8")
+    op = "paged_attention_int8"
     start = _start_vector(start, q.shape[0], q.device)
-    _check_attention(q, pool_k, pool_v, table, start, "paged_attention_int8",
-                     k_scale, v_scale)
+    _check_attention(q, pool_k, pool_v, table, start, op, k_scale, v_scale)
+    _check_kernel_limit(decode_kernel_limit(q.shape[3], q.shape[2], q.dtype),
+                        q, (pool_k, pool_v), op)
     out = _launch_attention("tddl_paged_decode_int8", q, pool_k, pool_v,
                             table, start, scales=(k_scale, v_scale))
     paged_attention_int8.launches += 1
@@ -221,10 +270,6 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
 paged_prefill_attention.launches = 0
 
 
-#: Head widths B6-int8's tensor-core kernel (bf16 q) is built for; its
-#: shared memory (at most 102,912 bytes, at Dh = 128) always fits.
-PREFILL_INT8_DH_MULTIPLE = 16
-PREFILL_INT8_MAX_DH = 128
 #: The CUDA-core kernel (f32 q, B5, B6) takes 48 KB of shared memory.
 STATIC_SMEM_LIMIT = 48 * 1024
 
@@ -239,13 +284,8 @@ def prefill_int8_kernel_limit(dh: int, bsz: int, q_dtype: torch.dtype
     construction both read it."""
     if bsz < 1:
         return f"block size {bsz} must be >= 1"
-    if q_dtype == torch.bfloat16:
-        if dh < 1 or dh % PREFILL_INT8_DH_MULTIPLE:
-            return (f"Dh={dh} must be a positive multiple of "
-                    f"{PREFILL_INT8_DH_MULTIPLE}")
-        if dh > PREFILL_INT8_MAX_DH:
-            return f"Dh={dh} > {PREFILL_INT8_MAX_DH}"
-        return None
+    if q_dtype == torch.bfloat16:   # its shared memory always fits
+        return _bf16_head_width_limit(dh)
     if q_dtype != torch.float32:
         return f"q must be bf16 or f32 on the card, got {q_dtype}"
     if dh < 1:
@@ -274,13 +314,9 @@ def paged_prefill_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
     op = "paged_prefill_attention_int8"
     start = _start_vector(start, q.shape[0], q.device)
     _check_attention(q, pool_k, pool_v, table, start, op, k_scale, v_scale)
-    limit = prefill_int8_kernel_limit(q.shape[3], pool_k.shape[2], q.dtype)
-    if limit is not None:
-        raise ValueError(f"{op}: {limit}")
-    if q.dtype == torch.bfloat16 and any(
-            a.data_ptr() % 16 for a in (q, pool_k, pool_v)):
-        raise ValueError(f"{op}: q, pool_k and pool_v must be 16-byte "
-                         "aligned")
+    _check_kernel_limit(
+        prefill_int8_kernel_limit(q.shape[3], pool_k.shape[2], q.dtype), q,
+        (pool_k, pool_v), op)
     out = _launch_attention("tddl_paged_prefill_int8", q, pool_k, pool_v,
                             table, start, QROWS, scales=(k_scale, v_scale))
     paged_prefill_attention_int8.launches += 1
@@ -553,9 +589,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "ADAPTER_MAX_RANK", "KERNEL_WRAPPERS", "NEG_INF", "QROWS",
-    "PREFILL_INT8_MAX_DH", "VERIFY_MAX_ROWS", "adapter_delta",
-    "adapter_delta_plain", "adapter_kernel_limit",
+    "ADAPTER_MAX_RANK", "BF16_KERNEL_MAX_DH", "KERNEL_WRAPPERS", "NEG_INF",
+    "QROWS", "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
+    "adapter_kernel_limit", "decode_kernel_limit",
     "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
     "logit_trust_stats",
     "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",

@@ -194,6 +194,14 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"kv_dtype='int8' is past the int8 prefill "
                                  f"kernel's limits: {limit}")
+        if self.device.type == "cuda" and attn_impl == "kernel":
+            # B5's limits, for both pools: every decode tick (up to QROWS
+            # rows) goes through it.
+            limit = pattn.decode_kernel_limit(cfg.head_dim, pattn.QROWS,
+                                              cfg.dtype)
+            if limit is not None:
+                raise ValueError(f"the paged decode kernel's limits refuse "
+                                 f"this model: {limit}")
         self.cfg = cfg
         self.spec_k = int(spec_k)
         self.kv_fallback_reason: Optional[str] = None
