@@ -17,9 +17,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    kernel, the plain version and a library yardstick (median of
    per-launch CUDA-event timings, L2 flushed before each launch).  B8
    also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
-   with ``tflops``), B6-int8 also from position 0 and as a 64-row chunk,
-   B5-int8 also at the verify window (T = 5); B2, B5 (both pools), B6-int8
-   and B9 also with the profiler's device time.
+   with ``tflops``), B6 also over 128-position blocks (``block128``),
+   B6-int8 also from position 0 and as a 64-row chunk, B5-int8 also at
+   the verify window (T = 5); B2, B5 and B6 (both pools) and B9 also with
+   the profiler's device time.
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -105,8 +106,10 @@ FLASH_VS_FULL_LOSS_ATOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/paged_attention.cu"
-# B5's bf16-query kernel, by the name the profiler reports.
+# B5's and B6's bf16-query kernels (each over both pools), by the name the
+# profiler reports.
 DECODE_KERNEL = "decode_split_kernel"
+PREFILL_KERNEL = "prefill_mma_kernel"
 STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
 DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
@@ -301,7 +304,10 @@ def check_kernels(torch, pa):
     q64 = torch.randn(1, h, 64, dh, device=dev).to(torch.bfloat16)
     attn_case("paged_prefill_attention", pa.paged_prefill_attention,
               pa.paged_prefill_attention_plain, q64, table[:1], [128],
-              "trustworthy_dl_tpu/ops/paged_attention.py:649")
+              "trustworthy_dl_tpu/ops/paged_attention.py:649",
+              kernel=PREFILL_KERNEL)
+    entries["paged_prefill_attention"]["block128"] = block128_case(
+        torch, pa, flush, rng)
     # A ragged multi-row prefill check (not timed): 8 rows, mid-block
     # starts, chunks crossing block boundaries.
     q20 = torch.randn(r, h, 20, dh, device=dev).to(torch.bfloat16)
@@ -352,6 +358,52 @@ def check_kernels(torch, pa):
     check_verify_tail(torch, pa, entries, flush)
     check_adapter_delta(torch, pa, entries, flush)
     return entries
+
+
+def block128_case(torch, pa, flush, rng):
+    """B6 over a bf16 pool of 128-position blocks, the geometry the old
+    CUDA-core kernel refused at Dh = 64: one 128-row chunk (an engine's
+    chunk at that block size) from position 128 over 4-block tables,
+    checked against the twin and given its device time; then a chunk as
+    long as the table from three starts over 8 rows (checked on the rows
+    inside each table, finite everywhere)."""
+    dev = torch.device("cuda")
+    r, h, dh, bsz, nbps = 8, 12, 64, 128, 4
+    cap = nbps * bsz
+    nb = r * nbps + 1
+    pool_k = torch.randn(nb, h, bsz, dh, device=dev).to(torch.bfloat16)
+    pool_v = torch.randn(nb, h, bsz, dh, device=dev).to(torch.bfloat16)
+    table = torch.tensor((rng.permutation(r * nbps) + 1).reshape(r, nbps),
+                         dtype=torch.int32, device=dev)
+
+    def check(q, tab, start_list):
+        start = torch.tensor(start_list, dtype=torch.int32, device=dev)
+        got = pa.paged_prefill_attention(q, pool_k, pool_v, tab, start)
+        torch.cuda.synchronize()
+        ref = pa.paged_prefill_attention_plain(q, pool_k, pool_v, tab, start)
+        t = q.shape[2]
+        keep = (torch.arange(t, device=dev)[None, :] + start.long()[:, None]
+                < cap)[:, None, :, None].expand_as(got)
+        err = (got.float() - ref.float()).abs()
+        within = err <= ATTN_ATOL + ATTN_RTOL * ref.float().abs()
+        if not bool(within[keep].all()) or not torch.isfinite(got).all():
+            raise AssertionError("block128 prefill: kernel disagrees with "
+                                 f"plain (max abs err "
+                                 f"{float(err[keep].max())})")
+        return float(err[keep].max()), start
+
+    q128 = torch.randn(1, h, bsz, dh, device=dev).to(torch.bfloat16)
+    err, start = check(q128, table[:1], [128])
+    err_long, _ = check(torch.randn(r, h, cap, dh, device=dev).to(
+        torch.bfloat16), table, [0, 77, 300] * 2 + [0, 450])
+    return {"max_abs_err": max(err, err_long),
+            "device_ms": device_ms(torch, lambda: pa.paged_prefill_attention(
+                q128, pool_k, pool_v, table[:1], start), flush,
+                PREFILL_KERNEL),
+            "shape": {"q": list(q128.shape), "pool": list(pool_k.shape),
+                      "starts": [128],
+                      "also_checked": {"q": [r, h, cap, dh],
+                                       "starts": [0, 77, 300] * 2 + [0, 450]}}}
 
 
 def check_int8_attention(torch, pa, entries, flush, rng):
@@ -448,7 +500,7 @@ def check_int8_attention(torch, pa, entries, flush, rng):
         "int8 verify window", pa.paged_attention_int8,
         torch.randn(r, h, SPEC_K + 1, dh, device=dev).to(bf), table, starts,
         kernel=DECODE_KERNEL)
-    prefill_kernel = "prefill_int8_mma_kernel"
+    prefill_kernel = PREFILL_KERNEL
     entry("paged_prefill_attention_int8",
           "trustworthy_dl_tpu/ops/paged_attention.py:649 (quantized=True, "
           "kernel branch :556-576)",
@@ -734,6 +786,10 @@ def serve_drive(torch, pa, entries, card):
     if launches["paged_attention"] != cfg.n_layer * summary["decode_ticks"]:
         raise AssertionError(f"decode launches {launches} != n_layer x "
                              f"{summary['decode_ticks']} ticks")
+    if launches["paged_prefill_attention"] != \
+            cfg.n_layer * summary["prefill_chunks"]:
+        raise AssertionError(f"prefill launches {launches} != n_layer x "
+                             f"{summary['prefill_chunks']} chunks")
     if summary["prefix_hits"] == 0:
         raise AssertionError("traffic produced no prefix-cache hit")
 

@@ -6,8 +6,9 @@ forward and backward)
 against their plain PyTorch twins, on the card, the detector baseline's
 tensors following the card, and the serving engine at the kernels' limits
 (B8 past one launch's rows, B9 past its rank, an int8-KV engine past
-B6-int8's head width and a bf16-pool engine past B5's refused at
-construction).
+B6-int8's head width, a bf16-pool engine past B5's and an f32 engine past
+the CUDA-core kernel's shared memory refused at construction, a bf16
+engine at 128-position blocks serving).
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -342,6 +343,124 @@ def test_engine_refuses_int8_kv_past_the_prefill_kernel(cuda):
     assert pa.prefill_int8_kernel_limit(64, 16, torch.bfloat16) is None
 
 
+@pytest.mark.parametrize("bsz", [8, 16, 48, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_bf16_prefill_tensor_core_kernel_matches_plain(cuda, dh, bsz):
+    """B6's tensor-core kernel over a bf16 pool (bf16 q) against the twin:
+    block sizes that divide 64, one that does not (48) and one past the
+    CUDA-core kernel's shared memory (128); over R = 3 rows, a 20-row
+    chunk from mid-block starts, a 64-row chunk from 128 (the serve
+    path's), and a chunk as long as the table from starts 0, mid-block
+    and 3 blocks before the table's end (its later rows run past the
+    table: compared inside it, finite everywhere); one launch a call.
+    Tolerance: one bf16 step plus 2e-3, the smoke's (the kernel feeds p to
+    the P.V product as a hi + lo pair of bf16 terms and sums in another
+    order; the twin stays in f32; both round the output to bf16)."""
+    rng = np.random.default_rng(31)
+    h, r = 2, 3
+    nbps = -(-640 // bsz)
+    cap = nbps * bsz
+    nb = r * nbps + 1
+    pk, pv, _ = _pools(rng, nb, h, bsz, dh, torch.bfloat16, cuda)
+    table = torch.tensor((rng.permutation(r * nbps) + 1).reshape(r, nbps),
+                         dtype=torch.int32, device=cuda)
+    mid = bsz // 2 + 1
+    for t, starts in ((20, [mid, 3 * bsz + mid, cap - 20]),
+                      (64, [128, 128, 128]),
+                      (cap, [0, mid, cap - 3 * bsz])):
+        start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+        q = torch.tensor(rng.normal(size=(r, h, t, dh)), dtype=torch.float32
+                         ).to(device=cuda, dtype=torch.bfloat16)
+        before = pa.paged_prefill_attention.launches
+        got = pa.paged_prefill_attention(q, pk, pv, table, start)
+        torch.cuda.synchronize()
+        assert pa.paged_prefill_attention.launches == before + 1
+        ref = pa.paged_prefill_attention_plain(q, pk, pv, table, start)
+        keep = (torch.arange(t, device=cuda)[None, :] + start.long()[:, None]
+                < cap)[:, None, :, None].expand_as(got)
+        assert bool(torch.isfinite(got).all()), t
+        torch.testing.assert_close(got.float()[keep], ref.float()[keep],
+                                   rtol=2.0 ** -7, atol=2e-3)
+
+
+def test_prefill_wrapper_rejects_past_the_kernel_limit(cuda):
+    """bf16 q at Dh = 20, and f32 q at Dh = 64 over 128-position blocks
+    (75,360 bytes of the CUDA-core kernel's 48 KB), are past B6's limits:
+    ValueError naming the limit, nothing launched."""
+    table = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    for dtype, dh, bsz, needle in ((torch.bfloat16, 20, 16, "Dh=20"),
+                                   (torch.float32, 64, 128, "shared memory")):
+        q = torch.zeros(1, 2, 16, dh, dtype=dtype, device=cuda)
+        pool = torch.zeros(3, 2, bsz, dh, dtype=dtype, device=cuda)
+        before = pa.paged_prefill_attention.launches
+        with pytest.raises(ValueError, match=needle):
+            pa.paged_prefill_attention(q, pool, pool, table, 0)
+        assert pa.paged_prefill_attention.launches == before
+
+
+def test_bf16_engine_at_block_128_serves(cuda):
+    """A bf16 GPT-2-shaped engine (2 layers, 768 wide, 12 heads of 64) over
+    128-position blocks serves four greedy requests on the card, each
+    prompt chunk through B6's tensor-core kernel (n_layer launches a
+    chunk), and its streams equal the plain path's, or split only where
+    the plain path's top-1 margin is a near tie (below 0.05: bf16
+    attention outputs may differ in the last bit between the two)."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=281, n_positions=512, n_layer=2,
+                          n_embd=768, n_head=12, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, 281, int(n)).tolist()
+               for n in (7, 130, 200, 300)]
+
+    def serve(attn_impl):
+        engine = ServingEngine(params, cfg, max_slots=4, max_seq=512,
+                               block_size=128, attn_impl=attn_impl,
+                               device="cuda")
+        for p in prompts:
+            engine.submit(ServeRequest(prompt=p, max_new_tokens=12))
+        results = engine.run_until_idle()
+        torch.cuda.synchronize()
+        return engine, results
+
+    before = pa.paged_prefill_attention.launches
+    engine, got = serve("kernel")
+    chunks = engine.metrics_summary()["prefill_chunks"]
+    assert chunks > 0
+    assert pa.paged_prefill_attention.launches - before == \
+        cfg.n_layer * chunks
+    _, ref = serve("plain")
+    for rid in range(len(prompts)):
+        assert got[rid].status == "completed"
+        assert len(got[rid].tokens) == 12
+        for i, (a, b) in enumerate(zip(got[rid].tokens, ref[rid].tokens)):
+            if a != b:
+                assert ref[rid].margins[i] < 0.05, (rid, i)
+                break
+
+
+def test_engine_refuses_f32_past_the_template(cuda):
+    """f32 queries run the CUDA-core kernel, which stages one block a stage
+    in 48 KB: an f32 engine at Dh = 64 over 128-position blocks (75,360
+    bytes at 8 query rows) raises a ValueError naming the limit before it
+    allocates anything on the card; 16-position blocks are inside it."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=283, n_positions=256, n_layer=1,
+                          n_embd=128, n_head=2, dtype=torch.float32)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ServingEngine(params, cfg, max_slots=2, max_seq=256, block_size=128,
+                      device="cuda")
+    assert torch.cuda.memory_allocated(cuda) == before
+    assert pa.prefill_kernel_limit(64, 16, torch.float32) is None
+
+
 def _split_boundary_start(dh, t, cap):
     """A start whose T-query window straddles the last split of B5's
     cluster: at T > 1 the kernel gives rank c of a (row, head)'s 4 CTAs
@@ -439,7 +558,7 @@ def test_engine_refuses_bf16_pool_past_the_decode_kernel(cuda):
         ServingEngine(params, cfg, max_slots=2, max_seq=64, block_size=16,
                       device="cuda")
     assert torch.cuda.memory_allocated(cuda) == before
-    assert pa.decode_kernel_limit(64, pa.QROWS, torch.bfloat16) is None
+    assert pa.decode_kernel_limit(64, pa.QROWS, torch.bfloat16, 16) is None
 
 
 @pytest.mark.parametrize("m", [1, 8, 15, 64, 100])

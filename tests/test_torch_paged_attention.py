@@ -94,6 +94,32 @@ def test_prefill_plain_matches_interpret_kernel():
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("bsz", [48, 128])
+@pytest.mark.parametrize("t", [20, 70])
+def test_prefill_plain_matches_interpret_kernel_at_large_blocks(bsz, t):
+    """Block sizes the card's bf16 prefill takes and its old CUDA-core
+    template did not (48 does not divide the kernel's 64-key stages; 128
+    is past the template's shared memory at Dh = 64): a ragged chunk over
+    three rows, one starting at 0, one mid-block, one whose last rows run
+    past its 3-block table (both sides see the whole table there)."""
+    rng = np.random.default_rng(14)
+    nbps, h, dh, r = 3, 2, 16, 3
+    cap = nbps * bsz
+    nb = r * nbps + 1
+    pool_k = rng.normal(size=(nb, h, bsz, dh)).astype(np.float32)
+    pool_v = rng.normal(size=(nb, h, bsz, dh)).astype(np.float32)
+    table = (rng.permutation(r * nbps) + 1).reshape(r, nbps).astype(np.int32)
+    start = np.asarray([0, bsz + bsz // 2 - 3, cap - t + 5], np.int32)
+    q = rng.normal(size=(r, h, t, dh)).astype(np.float32)
+    ref = jpa.paged_prefill_attention(
+        jnp.asarray(q), jnp.asarray(pool_k), jnp.asarray(pool_v),
+        jnp.asarray(table), jnp.asarray(start), interpret=True)
+    got = pa.paged_prefill_attention(_t(q), _t(pool_k), _t(pool_v),
+                                     _t(table), _t(start))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_trust_plain_matches_interpret_kernel():
     """B = 5 rows, V = 700 (not a multiple of the TPU vocab tile), row 2
     with a duplicated maximum: margins exactly equal, entropy 1e-5."""

@@ -1,15 +1,16 @@
 """The serving kernels' limits as the port states them on the CPU: the row
 groups the fused verify tail (B8) launches over, the limits of the paged
-adapter delta (B9), of the int8 chunked prefill (B6-int8) and of the
-paged decode (B5) that the engine checks when it is built on the card,
-and the plain path, which has none of these limits.
+adapter delta (B9), of the chunked prefill over either pool (B6, B6-int8)
+and of the paged decode (B5) that the engine checks when it is built on
+the card, and the plain path, which has none of these limits.
 
 These are pure functions of shapes and dtypes (and tiny CPU engines),
 so they run here; the card's side (an engine past B9's limits refused at
-construction, an int8-KV engine past B6-int8's head width and a bf16-pool
-engine past B5's refused at construction, a 16-slot ``spec_k=8`` engine
-serving through two B8 launches a verify) is in
-``tests/test_torch_kernels_gpu.py``.
+construction, an int8-KV engine past B6-int8's head width, a bf16-pool
+engine past B5's and an f32 engine past the CUDA-core kernel's shared
+memory refused at construction, a bf16 engine at 128-position blocks
+serving, a 16-slot ``spec_k=8`` engine serving through two B8 launches a
+verify) is in ``tests/test_torch_kernels_gpu.py``.
 """
 
 import pytest
@@ -143,7 +144,7 @@ def test_plain_int8_engine_serves_at_any_head_width(n_embd, n_head):
     (0, 1, torch.float32, "Dh=0"),
 ])
 def test_decode_kernel_limit_names_what_it_refuses(dh, t, dtype, needle):
-    reason = pa.decode_kernel_limit(dh, t, dtype)
+    reason = pa.decode_kernel_limit(dh, t, dtype, 16)
     assert reason is not None and needle in reason
 
 
@@ -157,7 +158,7 @@ def test_decode_kernel_limit_names_what_it_refuses(dh, t, dtype, needle):
     (64, pa.QROWS, torch.float32),
 ])
 def test_decode_kernel_limit_takes(dh, t, dtype):
-    assert pa.decode_kernel_limit(dh, t, dtype) is None
+    assert pa.decode_kernel_limit(dh, t, dtype, 16) is None
 
 
 def test_plain_bf16_engine_serves_past_the_decode_kernel_limit():
@@ -167,7 +168,7 @@ def test_plain_bf16_engine_serves_past_the_decode_kernel_limit():
     cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=2,
                           n_embd=40, n_head=2, dtype=torch.bfloat16)
     assert "Dh=20" in pa.decode_kernel_limit(cfg.head_dim, pa.QROWS,
-                                             cfg.dtype)
+                                             cfg.dtype, 8)
     params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
     pa.reset_launch_counts()
     engine = ServingEngine(params, cfg, max_slots=2, max_seq=48,
@@ -177,6 +178,115 @@ def test_plain_bf16_engine_serves_past_the_decode_kernel_limit():
     results = engine.run_until_idle()
     assert engine.kv_dtype == "model"
     assert engine.scheduler.kv.k.dtype == torch.bfloat16
+    assert results[rid].status == "completed"
+    assert len(results[rid].tokens) == 5
+    assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
+
+
+# B6 over a model-dtype pool: the bf16-query tensor-core kernel
+# takes any block size; the CUDA-core kernel (f32 q) stages at least one
+# block a stage in 48 KB, and B5's f32 branch reads the same bytes.
+
+
+def _attn_smem_bytes_formula(q_tile, dh, kt):
+    """``attn_smem_bytes`` of ``csrc/paged_attention.cu``, spelled as the
+    CUDA source spells it: sizeof(float) * (2 * q_tile * Dh + kt * (Dh + 1)
+    + kt * Dh + q_tile * kt + 3 * q_tile + 2 * kt)."""
+    return 4 * (2 * q_tile * dh + kt * (dh + 1) + kt * dh + q_tile * kt
+                + 3 * q_tile + 2 * kt)
+
+
+@pytest.mark.parametrize("q_tile,dh,kt", [(8, 64, 16), (8, 64, 64),
+                                          (1, 128, 128), (5, 20, 48),
+                                          (8, 512, 16)])
+def test_template_smem_bytes_match_the_cuda_formula(q_tile, dh, kt):
+    assert pa.attn_template_smem_bytes(q_tile, dh, kt) == \
+        _attn_smem_bytes_formula(q_tile, dh, kt)
+
+
+def test_template_limit_edges_at_dh64_and_dh128():
+    """The CUDA-core kernel at QROWS rows: Dh = 64 fits blocks up to 80
+    positions, Dh = 128 up to 38, and the limit functions refuse exactly
+    past those."""
+    for dh, largest in ((64, 80), (128, 38)):
+        fits = [b for b in range(1, 200)
+                if _attn_smem_bytes_formula(pa.QROWS, dh, b)
+                <= pa.STATIC_SMEM_LIMIT]
+        assert max(fits) == largest and fits == list(range(1, largest + 1))
+        assert pa.prefill_kernel_limit(dh, largest, torch.float32) is None
+        assert "shared memory" in pa.prefill_kernel_limit(dh, largest + 1,
+                                                          torch.float32)
+        assert pa.decode_kernel_limit(dh, pa.QROWS, torch.float32,
+                                      largest) is None
+        assert "shared memory" in pa.decode_kernel_limit(
+            dh, pa.QROWS, torch.float32, largest + 1)
+
+
+@pytest.mark.parametrize("dh,bsz,dtype,needle", [
+    (40, 16, torch.bfloat16, "multiple of 16"),
+    (144, 128, torch.bfloat16, "Dh=144 > 128"),
+    (64, 0, torch.bfloat16, "block size 0"),
+    (64, 16, torch.float16, "bf16 or f32"),
+    (0, 16, torch.float32, "Dh=0"),
+    (64, 128, torch.float32, "75360 bytes"),    # past the 48 KB template
+    (128, 39, torch.float32, "shared memory"),
+])
+def test_prefill_kernel_limit_names_what_it_refuses(dh, bsz, dtype, needle):
+    reason = pa.prefill_kernel_limit(dh, bsz, dtype)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("dh,bsz,dtype", [
+    (64, 16, torch.bfloat16),      # GPT-2 small at the serve block size
+    (64, 128, torch.bfloat16),     # past the old template's 80 positions
+    (128, 128, torch.bfloat16),
+    (64, 48, torch.bfloat16),      # a block size that does not divide 64
+    (16, 1, torch.bfloat16),
+    (64, 16, torch.float32),       # the CUDA-core kernel at its blocks
+    (10, 8, torch.float32),
+])
+def test_prefill_kernel_limit_takes(dh, bsz, dtype):
+    assert pa.prefill_kernel_limit(dh, bsz, dtype) is None
+
+
+@pytest.mark.parametrize("dh,t,bsz,needle", [
+    (64, pa.QROWS, 128, "75360 bytes"),
+    (128, 1, 128, "shared memory"),
+    (64, pa.QROWS, 88, "shared memory"),
+    (64, 1, 0, "block size 0"),
+])
+def test_decode_kernel_limit_f32_names_what_it_refuses(dh, t, bsz, needle):
+    reason = pa.decode_kernel_limit(dh, t, torch.float32, bsz)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("dh,t,dtype,bsz", [
+    (64, pa.QROWS, torch.float32, 16),
+    (64, 1, torch.float32, 88),    # one row fits where QROWS rows do not
+    (64, pa.QROWS, torch.float32, 80),
+    (20, 3, torch.float32, 48),
+    (64, pa.QROWS, torch.bfloat16, 1),   # the split-K kernel: any block
+    (64, pa.QROWS, torch.bfloat16, 48),
+    (64, pa.QROWS, torch.bfloat16, 128),
+    (128, 1, torch.bfloat16, 512),
+])
+def test_decode_kernel_limit_takes_at_block_sizes(dh, t, dtype, bsz):
+    assert pa.decode_kernel_limit(dh, t, dtype, bsz) is None
+
+
+def test_plain_bf16_engine_serves_at_block_128():
+    """On the CPU the plain path serves a bf16 model over 128-position
+    blocks (the card's kernels take them too), launching nothing."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=256, n_layer=2,
+                          n_embd=64, n_head=2, dtype=torch.bfloat16)
+    assert pa.prefill_kernel_limit(cfg.head_dim, 128, cfg.dtype) is None
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    pa.reset_launch_counts()
+    engine = ServingEngine(params, cfg, max_slots=2, max_seq=256,
+                           block_size=128, device="cpu")
+    rid = engine.submit(ServeRequest(prompt=list(range(3, 140)),
+                                     max_new_tokens=5))
+    results = engine.run_until_idle()
     assert results[rid].status == "completed"
     assert len(results[rid].tokens) == 5
     assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)

@@ -65,9 +65,8 @@
 // slower (the extra registers spill under the one-wave bounds).
 // f32 queries keep paged_attn_kernel below (the choice is by dtype).
 //
-// paged_attn_kernel (B5 with f32 queries, B6 with bf16 or f32 queries, B6
-// over an int8 pool with f32 queries) aims only at reading each needed
-// byte once:
+// paged_attn_kernel (B5 and B6 with f32 queries, over an f32 or an int8
+// pool) aims only at reading each needed byte once:
 //   * one CTA per (row, head) [B5] or (row, head, query tile) [B6]; the CTA
 //     reads its own table row and start (the TPU's scalar prefetch) and
 //     stops at its last useful logical block jmax - no block past the
@@ -81,53 +80,62 @@
 //     accumulator never leave the SM.
 // Dot products run on the CUDA cores in f32: with at most 8 query rows per
 // CTA the tensor cores would idle on a 64-row tile, and the work is
-// memory-bound either way.
+// memory-bound either way.  Its 48 KB of shared memory hold at least one
+// whole block a stage (attn_smem_bytes at q_tile rows): past that (Dh =
+// 64 and blocks above 80 positions at 8 rows, say) the launch is refused,
+// and the Python side reads the same bytes before it launches.
 //
-// B6-int8 with bf16 queries (every launch of the serving path) has a
-// tensor-core kernel of its own, prefill_int8_mma_kernel.  It replaces the
-// int8 branch of trustworthy_dl_tpu/ops/paged_attention.py:
-// _paged_prefill_kernel (lines 556-576; pallas_call in _paged_prefill_call).
-// Under int8 KV a prompt is one max_seq-row chunk, up to 512 query rows
-// against up to 512 keys: at GPT-2 small's [1, 12, 512, 64] from position
-// 128 that is 0.58 GFLOP of causal work (0.59 us at 989 TFLOP/s) against
-// 2.4 MB of q, out, int8 K/V and scales (0.72 us at 3.35 TB/s), so the
-// bound is bytes, but only just, and the CUDA-core kernel above re-reads
-// every K/V stage for each 8-row tile.  The design is B2's
-// (flash_attention.cu) over the paged int8 pool:
+// B6 with bf16 queries (every prefill launch of the serving path, over the
+// bf16 and the int8 pool) is prefill_mma_kernel<D, QUANT>, one kernel body
+// for both pools.  It replaces trustworthy_dl_tpu/ops/paged_attention.py:
+// _paged_prefill_kernel (pallas_call in _paged_prefill_call; QUANT is its
+// quantized branch, lines 556-576).  Under int8 KV a prompt is one
+// max_seq-row chunk, up to 512 query rows against up to 512 keys: at GPT-2
+// small's [1, 12, 512, 64] from position 128 that is 0.58 GFLOP of causal
+// work (0.59 us at 989 TFLOP/s) against 2.4 MB of q, out, int8 K/V and
+// scales (0.72 us at 3.35 TB/s).  Over the bf16 pool the serve path's
+// chunks are 64 rows: [1, 12, 64, 64] from 128 is 0.79 MB (0.24 us)
+// against 32 MFLOP.  Both are bound by bytes, and the CUDA-core kernel
+// above re-reads every K/V stage for each 8-row tile.  The design is B2's
+// (flash_attention.cu) over the paged pool:
 //   * one CTA of PF_WARPS (4) warps per (row, head, 16 * PF_WARPS-row
 //     query tile), tiles longest-first; Q's A-fragments come once by
 //     ldmatrix and stay in registers; S = Q.K^T and O += P.V are mma.sync
 //     m16n8k16 (bf16 in, f32 accumulate); the online softmax, O and P stay
 //     in registers;
 //   * the K/V walk gathers by key row, 64 keys a stage: key kpos is row
-//     kpos % BLOCK of block table[kpos / BLOCK], Dh contiguous int8 bytes,
-//     so any block size works; the rows and their f32 scales arrive by
-//     cp.async (16 and 4 bytes) in a PF_STAGES (3)-deep ring, half a bf16
-//     copy's bytes, the next stages in flight while stage st computes;
-//   * one pass a stage widens the int8 rows to bf16 tiles (exact) padded
-//     by 16 bytes a row, which ldmatrix (K) and ldmatrix.trans (V) read:
-//     two barriers a stage (rows landed; tiles widened);
+//     kpos % BLOCK of block table[kpos / BLOCK], Dh contiguous pool
+//     elements, so any block size works; the rows (and the int8 pool's f32
+//     scales) arrive by cp.async (16 and 4 bytes) in a PF_STAGES (3)-deep
+//     ring, the next stages in flight while stage st computes;
+//   * bf16 pool: the rows land in ring slots padded by 16 bytes a row,
+//     which ldmatrix (K) and ldmatrix.trans (V) read in place: one barrier
+//     a stage.  int8 pool: half the bytes, and one pass a stage widens the
+//     rows into bf16 tiles (exact) laid out the same way: two barriers a
+//     stage (rows landed; tiles widened);
 //   * scales in the reference's order, in f32 registers: each S column
-//     times scale * k_scale[key], then the mask; l sums the unscaled p;
-//     P.V takes x = p * v_scale[key] in bf16 - the one rounding the f32
-//     twin does not make.  One bf16 copy of x (B2's P is rounded so) put
-//     errors of a few output steps on peaked rows, past the bf16
-//     tolerance, so x goes in as two bf16 terms, hi = bf16(x) and lo =
-//     bf16(x - hi): twice P.V's products, and x carried to ~2^-17;
+//     times scale (times k_scale[key] over the int8 pool), then the mask;
+//     l sums the unscaled p; P.V takes x = p (times v_scale[key]) in bf16
+//     - the one rounding the f32 twin does not make.  One bf16 copy of x
+//     (B2's P is rounded so) put errors of a few output steps on peaked
+//     rows, past the bf16 tolerance, over either pool, so x goes in as two
+//     bf16 terms, hi = bf16(x) and lo = bf16(x - hi): twice P.V's
+//     products, and x carried to ~2^-17;
 //   * the causal and ragged bounds are per tile in absolute positions:
 //     the tile stops at kend = min(last query position, table end), so no
 //     table entry past nbps is read and rows past the table see the whole
 //     table and stay finite; only a stage that crosses the diagonal band
 //     or kend is masked, and a warp whose rows all precede a stage skips
 //     its products;
-//   * registers (ptxas, sm_90a, CUDA 12.8): 152 a thread at Dh = 64, 209
-//     at 128, 0 spill bytes at every Dh; shared memory 53,760 bytes at
-//     Dh = 64 (96 CTAs for the serve_spec launch: one an SM).
+//   * registers (ptxas, sm_90a, CUDA 12.8): 152 a thread at Dh = 64 and
+//     209 at 128 over the int8 pool, 149 and 207 over the bf16 pool, 0
+//     spill bytes at every Dh; shared memory at Dh = 64 53,760 bytes
+//     (int8) and 64,512 (bf16: 9 KB of Q, 55 KB of ring), one CTA an SM.
 // What bounds it in practice is one warp a scheduler walking up to eight
 // dependent stages; 32-row CTAs, a 2-stage ring, widening stage st + 1
 // between stage st's products (one barrier a stage) and reading the table
-// a stage ahead measured no faster on the H100 (PERF.md, B6-int8's
-// redesign).  Split-K over the key axis is later work.
+// a stage ahead measured no faster on the H100 for the int8 pool (PERF.md,
+// B6-int8's redesign).  Split-K over the key axis is later work.
 //
 // B7 replaces _trust_stats_kernel (_trust_stats_call): for each row of
 // f32 logits [B, V] it returns the softmax entropy logZ - sum(x p) and the
@@ -179,28 +187,17 @@ constexpr int STAGE_KEYS = 64;
 constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // One CTA = (row r, head h, query tile ti).  Decode is the one-tile case.
-// KV is T (model-dtype pool) or int8_t (QUANT: scales [NB, H, BLOCK]).
-template <typename T, typename KV, bool QUANT>
+// f32 q and out; KV is float (model-dtype pool) or int8_t (QUANT: scales
+// [NB, H, BLOCK]).
+template <typename KV, bool QUANT>
 __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
-    const T* __restrict__ q, const KV* __restrict__ pool_k,
+    const float* __restrict__ q, const KV* __restrict__ pool_k,
     const KV* __restrict__ pool_v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ start, T* __restrict__ out, int H, int Tq,
+    const int32_t* __restrict__ start, float* __restrict__ out, int H, int Tq,
     int Dh, int bsz, int nbps, int q_tile, int n_tiles, int stage_blocks,
     float scale) {
   const int tid = threadIdx.x;
@@ -231,9 +228,9 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
   float* vs_s = ks_s + kt;           // [kt] (QUANT)
 
   const size_t head_row = (size_t)(r * H + h) * Tq + t0;
-  const T* q_rows = q + head_row * Dh;
+  const float* q_rows = q + head_row * Dh;
   for (int i = tid; i < rows * Dh; i += blockDim.x) {
-    q_s[i] = to_f(q_rows[i]);
+    q_s[i] = q_rows[i];
     acc[i] = 0.f;
   }
   for (int t = tid; t < rows; t += blockDim.x) {
@@ -316,9 +313,9 @@ __global__ void __launch_bounds__(ATTN_THREADS) paged_attn_kernel(
     __syncthreads();
   }
 
-  T* o_rows = out + head_row * Dh;
+  float* o_rows = out + head_row * Dh;
   for (int i = tid; i < rows * Dh; i += blockDim.x) {
-    o_rows[i] = from_f<T>(acc[i] / fmaxf(l_s[i / Dh], 1e-30f));
+    o_rows[i] = acc[i] / fmaxf(l_s[i / Dh], 1e-30f);
   }
 }
 
@@ -328,7 +325,7 @@ size_t attn_smem_bytes(int q_tile, int Dh, int kt) {
                           2 * (size_t)kt);
 }
 
-template <typename T, typename KV, bool QUANT>
+template <typename KV, bool QUANT>
 int launch_attn(const void* q, const void* pool_k, const void* pool_v,
                 const void* k_scale, const void* v_scale, const void* table,
                 const void* start, void* out, int R, int H, int Tq, int Dh,
@@ -343,19 +340,19 @@ int launch_attn(const void* q, const void* pool_k, const void* pool_v,
   if (smem > STATIC_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int n_tiles = (Tq + q_tile - 1) / q_tile;
   const float scale = (float)(1.0 / sqrt((double)Dh));
-  paged_attn_kernel<T, KV, QUANT>
+  paged_attn_kernel<KV, QUANT>
       <<<R * H * n_tiles, ATTN_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(pool_k),
+      static_cast<const float*>(q), static_cast<const KV*>(pool_k),
       static_cast<const KV*>(pool_v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(start), static_cast<T*>(out), H, Tq, Dh, bsz,
-      nbps, q_tile, n_tiles, stage_blocks, scale);
+      static_cast<const int32_t*>(start), static_cast<float*>(out), H, Tq, Dh,
+      bsz, nbps, q_tile, n_tiles, stage_blocks, scale);
   return (int)cudaGetLastError();
 }
 
-// k_scale == nullptr: model-dtype pool (KV = T); else int8 pool.  bf16 q
-// over an int8 pool never comes here: decode_split_kernel (B5) and
-// prefill_int8_mma_kernel (B6) take it.
+// f32 q only (dtype 0): bf16 q runs decode_split_kernel (B5) and
+// prefill_mma_kernel (B6) over either pool.  k_scale == nullptr: f32
+// pool; else int8 pool.
 int dispatch_attn(int dtype, const void* q, const void* pool_k,
                   const void* pool_v, const void* k_scale,
                   const void* v_scale, const void* table, const void* start,
@@ -363,20 +360,15 @@ int dispatch_attn(int dtype, const void* q, const void* pool_k,
                   int q_tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool quant = k_scale != nullptr;
-  if (quant && v_scale == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && !quant)
-    return launch_attn<float, float, false>(q, pool_k, pool_v, k_scale,
-                                            v_scale, table, start, out, R, H,
-                                            Tq, Dh, bsz, nbps, q_tile, s);
-  if (dtype == 1 && !quant)
-    return launch_attn<__nv_bfloat16, __nv_bfloat16, false>(
-        q, pool_k, pool_v, k_scale, v_scale, table, start, out, R, H, Tq, Dh,
-        bsz, nbps, q_tile, s);
-  if (dtype == 0 && quant)
-    return launch_attn<float, int8_t, true>(q, pool_k, pool_v, k_scale,
-                                            v_scale, table, start, out, R, H,
-                                            Tq, Dh, bsz, nbps, q_tile, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || (quant && v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!quant)
+    return launch_attn<float, false>(q, pool_k, pool_v, k_scale, v_scale,
+                                     table, start, out, R, H, Tq, Dh, bsz,
+                                     nbps, q_tile, s);
+  return launch_attn<int8_t, true>(q, pool_k, pool_v, k_scale, v_scale,
+                                   table, start, out, R, H, Tq, Dh, bsz, nbps,
+                                   q_tile, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -765,23 +757,37 @@ int dispatch_decode_split(const void* q, const void* pool_k,
 }
 
 // ---------------------------------------------------------------------------
-// B6-int8 with bf16 queries: chunked prefill over the int8 pool on the
-// tensor cores (see the note at the top).  One CTA of PF_WARPS warps per
-// (row, head, PF_WARPS * 16-row query tile); each warp owns 16 query rows.
+// B6 with bf16 queries, over either pool: chunked prefill on the tensor
+// cores (see the note at the top).  One CTA of PF_WARPS warps per (row,
+// head, PF_WARPS * 16-row query tile); each warp owns 16 query rows.
 // ---------------------------------------------------------------------------
 constexpr int PF_WARPS = 4;   // warps a CTA, 16 query rows each
-constexpr int PF_STAGES = 3;  // depth of the int8 K/V ring
+constexpr int PF_STAGES = 3;  // depth of the K/V ring
 constexpr int PF_KEYS = 64;   // keys a stage of the K/V walk
 constexpr int PF_THREADS = PF_WARPS * 32;
 constexpr int PF_QT = PF_WARPS * 16;
 
-// Shared memory of one CTA at head width D: the Q tile and the widened K
-// and V tiles (bf16, rows padded by 16 bytes), a PF_STAGES-deep ring of
-// int8 K and V rows and of their f32 scales.
-template <int D>
+// The pool's element type: int8 with f32 scales (QUANT), else bf16.
+template <bool QUANT>
+struct PfPool {
+  using kv = __nv_bfloat16;
+};
+template <>
+struct PfPool<true> {
+  using kv = int8_t;
+};
+
+// Shared memory of one CTA at head width D; bf16 tile rows are padded by
+// 16 bytes.  QUANT: the Q tile and the widened K and V tiles (bf16), a
+// PF_STAGES-deep ring of int8 K and V rows and of their f32 scales.  Else:
+// the Q tile and a PF_STAGES-deep ring of bf16 K and V tiles.
+template <int D, bool QUANT>
 constexpr size_t pf_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(PF_QT + 2 * PF_KEYS) * (D + 8) +
-         (size_t)PF_STAGES * 2 * PF_KEYS * (D + sizeof(float));
+  return QUANT ? sizeof(__nv_bfloat16) * (size_t)(PF_QT + 2 * PF_KEYS) *
+                         (D + 8) +
+                     (size_t)PF_STAGES * 2 * PF_KEYS * (D + sizeof(float))
+               : sizeof(__nv_bfloat16) *
+                     (size_t)(PF_QT + PF_STAGES * 2 * PF_KEYS) * (D + 8);
 }
 
 // Bytes b and b + 1 of w (signed) as a bf16 pair: exact, an int8 value
@@ -810,27 +816,33 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
-template <int D>
-__global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ pool_k,
-    const int8_t* __restrict__ pool_v, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int32_t* __restrict__ table,
-    const int32_t* __restrict__ start, __nv_bfloat16* __restrict__ out,
-    int RH, int H, int Tq, int bsz, int nbps, int n_tiles,
-    float scale_log2) {
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(PF_THREADS, 1) prefill_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const typename PfPool<QUANT>::kv* __restrict__ pool_k,
+    const typename PfPool<QUANT>::kv* __restrict__ pool_v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int32_t* __restrict__ table, const int32_t* __restrict__ start,
+    __nv_bfloat16* __restrict__ out, int RH, int H, int Tq, int bsz,
+    int nbps, int n_tiles, float scale_log2) {
   using bf16 = __nv_bfloat16;
+  using KV = typename PfPool<QUANT>::kv;
   constexpr int LD = D + 8;   // bf16 tile row stride
   constexpr int KD = D / 16;  // k16 steps over D, and n16 pairs over D
   constexpr int ND = D / 8;   // n8 tiles of the output
-  constexpr int CPR = D / 16; // 16-byte int8 chunks a key row
+  constexpr int EPC = 16 / (int)sizeof(KV);  // pool elements a 16 bytes
+  constexpr int CPR = D / EPC;               // 16-byte chunks a key row
+  constexpr int RLD = QUANT ? D : LD;        // ring row stride, elements
   constexpr int VPR = D / 8;  // 16-byte bf16 chunks a query row
   extern __shared__ __align__(128) unsigned char pf_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(pf_smem);
+  // QUANT: the widened tiles k_s and v_s, then the int8 ring and its
+  // scales.  Else the bf16 ring starts where k_s would.
   bf16* k_s = q_s + PF_QT * LD;
   bf16* v_s = k_s + PF_KEYS * LD;
-  int8_t* ring = reinterpret_cast<int8_t*>(v_s + PF_KEYS * LD);
+  KV* ring = reinterpret_cast<KV*>(QUANT ? v_s + PF_KEYS * LD : k_s);
   float* sc_ring =
-      reinterpret_cast<float*>(ring + PF_STAGES * 2 * PF_KEYS * D);
+      reinterpret_cast<float*>(ring + PF_STAGES * 2 * PF_KEYS * RLD);
 
   const int tid = threadIdx.x;
   const int ti = n_tiles - 1 - (int)(blockIdx.x / RH);  // longest first
@@ -872,37 +884,39 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
 
   // Stage st's 64 keys [st * 64, st * 64 + 63] into ring slot
   // st % PF_STAGES: key kpos is row kpos % bsz of physical block
-  // table[kpos / bsz], D contiguous int8 bytes, so any block size works.
-  // Keys past kend are zero rows with zero scales.
+  // table[kpos / bsz], D contiguous pool elements, so any block size
+  // works.  Keys past kend are zero rows (with zero scales).
   auto issue = [&](int st) {
     const int k0 = st * PF_KEYS;
-    int8_t* k8 = ring + (st % PF_STAGES) * 2 * PF_KEYS * D;
-    int8_t* v8 = k8 + PF_KEYS * D;
+    KV* kd0 = ring + (st % PF_STAGES) * 2 * PF_KEYS * RLD;
+    KV* vd0 = kd0 + PF_KEYS * RLD;
     for (int i = tid; i < PF_KEYS * CPR; i += PF_THREADS) {
       const int key = i / CPR;
       const int c = i % CPR;
       const int kpos = k0 + key;
-      int8_t* kd = k8 + key * D + c * 16;
-      int8_t* vd = v8 + key * D + c * 16;
+      KV* kd = kd0 + key * RLD + c * EPC;
+      KV* vd = vd0 + key * RLD + c * EPC;
       if (kpos <= kend) {
         const size_t row =
             ((size_t)trow[kpos / bsz] * H + h) * bsz + kpos % bsz;
-        cp_async16(kd, pool_k + row * D + c * 16);
-        cp_async16(vd, pool_v + row * D + c * 16);
+        cp_async16(kd, pool_k + row * D + c * EPC);
+        cp_async16(vd, pool_v + row * D + c * EPC);
       } else {
         *reinterpret_cast<int4*>(kd) = make_int4(0, 0, 0, 0);
         *reinterpret_cast<int4*>(vd) = make_int4(0, 0, 0, 0);
       }
     }
-    float* sc = sc_ring + (st % PF_STAGES) * 2 * PF_KEYS;  // [K | V][64]
-    for (int i = tid; i < 2 * PF_KEYS; i += PF_THREADS) {
-      const int kpos = k0 + i % PF_KEYS;
-      if (kpos <= kend) {
-        const size_t row =
-            ((size_t)trow[kpos / bsz] * H + h) * bsz + kpos % bsz;
-        cp_async4(sc + i, (i < PF_KEYS ? k_scale : v_scale) + row);
-      } else {
-        sc[i] = 0.f;
+    if constexpr (QUANT) {
+      float* sc = sc_ring + (st % PF_STAGES) * 2 * PF_KEYS;  // [K | V][64]
+      for (int i = tid; i < 2 * PF_KEYS; i += PF_THREADS) {
+        const int kpos = k0 + i % PF_KEYS;
+        if (kpos <= kend) {
+          const size_t row =
+              ((size_t)trow[kpos / bsz] * H + h) * bsz + kpos % bsz;
+          cp_async4(sc + i, (i < PF_KEYS ? k_scale : v_scale) + row);
+        } else {
+          sc[i] = 0.f;
+        }
       }
     }
   };
@@ -932,16 +946,27 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
     // Stage st + PF_STAGES - 1 into the ring slot stage st - 1 used.
     if (st + PF_STAGES - 1 < n_stages) issue(st + PF_STAGES - 1);
     cp_async_commit();
-    // Widen stage st's int8 rows into the bf16 tiles ldmatrix reads.
-    const int8_t* k8 = ring + (st % PF_STAGES) * 2 * PF_KEYS * D;
-    const int8_t* v8 = k8 + PF_KEYS * D;
-    for (int i = tid; i < PF_KEYS * CPR; i += PF_THREADS) {
-      const int key = i / CPR;
-      const int c = i % CPR;
-      widen16(k_s + key * LD + c * 16, k8 + key * D + c * 16);
-      widen16(v_s + key * LD + c * 16, v8 + key * D + c * 16);
+    // The bf16 K and V tiles ldmatrix reads: the ring slot itself (bf16
+    // pool), or the slot's int8 rows widened (int8 pool, a second
+    // barrier).
+    const KV* kr = ring + (st % PF_STAGES) * 2 * PF_KEYS * RLD;
+    const bf16* kt;
+    const bf16* vt;
+    if constexpr (QUANT) {
+      const int8_t* vr = kr + PF_KEYS * D;
+      for (int i = tid; i < PF_KEYS * CPR; i += PF_THREADS) {
+        const int key = i / CPR;
+        const int c = i % CPR;
+        widen16(k_s + key * LD + c * 16, kr + key * D + c * 16);
+        widen16(v_s + key * LD + c * 16, vr + key * D + c * 16);
+      }
+      __syncthreads();
+      kt = k_s;
+      vt = v_s;
+    } else {
+      kt = kr;
+      vt = kr + PF_KEYS * LD;
     }
-    __syncthreads();
     if (st == 0) {
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk)
@@ -963,24 +988,27 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
         uint32_t b[4];
-        ldsm_x4(b, k_s + (jj * 16 + lrow + lm1 * 8) * LD + kk * 16 + lm0 * 8);
+        ldsm_x4(b, kt + (jj * 16 + lrow + lm1 * 8) * LD + kk * 16 + lm0 * 8);
         mma_bf16(s[2 * jj], qf[kk], b[0], b[1]);
         mma_bf16(s[2 * jj + 1], qf[kk], b[2], b[3]);
       }
     }
 
-    // Scale each column by scale * k_scale[key] (log2 units), then mask:
-    // key k0 + col is visible to a row at qpos iff k0 + col <= min(qpos,
-    // kend).  Only a stage that reaches past the warp's first row or past
-    // kend needs the mask.
+    // Scale each column by scale (times k_scale[key] over the int8 pool;
+    // log2 units), then mask: key k0 + col is visible to a row at qpos
+    // iff k0 + col <= min(qpos, kend).  Only a stage that reaches past
+    // the warp's first row or past kend needs the mask.
     const bool masked = k0 + PF_KEYS - 1 > min(qpos0 + r0, kend);
     const int lim0 = min(qa, kend) - k0;
     const int lim1 = min(qb, kend) - k0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float2 ks = *reinterpret_cast<const float2*>(ksc + j * 8 + c2);
-      const float f0 = ks.x * scale_log2;
-      const float f1 = ks.y * scale_log2;
+      float f0 = scale_log2, f1 = scale_log2;
+      if constexpr (QUANT) {
+        const float2 ks = *reinterpret_cast<const float2*>(ksc + j * 8 + c2);
+        f0 = ks.x * scale_log2;
+        f1 = ks.y * scale_log2;
+      }
       s[j][0] *= f0;
       s[j][1] *= f1;
       s[j][2] *= f0;
@@ -1022,24 +1050,30 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
       acc[n][2] *= corr1;
       acc[n][3] *= corr1;
     }
-    // l sums the unscaled p.  P.V takes x = p * v_scale[key] as two bf16
-    // A-fragments, hi = bf16(x) and lo = bf16(x - hi), so the product
-    // carries x to about 2^-17 relative where one bf16 copy would carry it
-    // to 2^-9 (a few output steps on a peaked row).  S tiles 2kk and
-    // 2kk + 1 are P.V's k16 step kk.
+    // l sums the unscaled p.  P.V takes x = p (times v_scale[key] over
+    // the int8 pool) as two bf16 A-fragments, hi = bf16(x) and lo =
+    // bf16(x - hi), so the product carries x to about 2^-17 relative
+    // where one bf16 copy would carry it to 2^-9 (a few output steps on a
+    // peaked row).  S tiles 2kk and 2kk + 1 are P.V's k16 step kk.
     uint32_t ph[4][4], pl[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float2 vs = *reinterpret_cast<const float2*>(vsc + j * 8 + c2);
       const float p0 = ex2(s[j][0] - mx0);
       const float p1 = ex2(s[j][1] - mx0);
       const float p2 = ex2(s[j][2] - mx1);
       const float p3 = ex2(s[j][3] - mx1);
       l0 += p0 + p1;
       l1 += p2 + p3;
-      split_bf16(p0 * vs.x, p1 * vs.y, ph[j >> 1][(j & 1) * 2],
-                 pl[j >> 1][(j & 1) * 2]);
-      split_bf16(p2 * vs.x, p3 * vs.y, ph[j >> 1][(j & 1) * 2 + 1],
+      float x0 = p0, x1 = p1, x2 = p2, x3 = p3;
+      if constexpr (QUANT) {
+        const float2 vs = *reinterpret_cast<const float2*>(vsc + j * 8 + c2);
+        x0 = p0 * vs.x;
+        x1 = p1 * vs.y;
+        x2 = p2 * vs.x;
+        x3 = p3 * vs.y;
+      }
+      split_bf16(x0, x1, ph[j >> 1][(j & 1) * 2], pl[j >> 1][(j & 1) * 2]);
+      split_bf16(x2, x3, ph[j >> 1][(j & 1) * 2 + 1],
                  pl[j >> 1][(j & 1) * 2 + 1]);
     }
 
@@ -1050,7 +1084,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
 #pragma unroll
       for (int nn = 0; nn < KD; ++nn) {
         uint32_t b[4];
-        ldsm_x4_trans(b, v_s + (kk * 16 + lrow + lm0 * 8) * LD + nn * 16 +
+        ldsm_x4_trans(b, vt + (kk * 16 + lrow + lm0 * 8) * LD + nn * 16 +
                              lm1 * 8);
         mma_bf16(acc[2 * nn], ph[kk], b[0], b[1]);
         mma_bf16(acc[2 * nn + 1], ph[kk], b[2], b[3]);
@@ -1092,47 +1126,47 @@ __global__ void __launch_bounds__(PF_THREADS, 1) prefill_int8_mma_kernel(
   }
 }
 
-template <int D>
-int launch_prefill_int8_mma(const void* q, const void* pool_k,
-                            const void* pool_v, const void* k_scale,
-                            const void* v_scale, const void* table,
-                            const void* start, void* out, int R, int H,
-                            int Tq, int bsz, int nbps, cudaStream_t stream) {
-  constexpr size_t smem = pf_smem_bytes<D>();
+template <int D, bool QUANT>
+int launch_prefill_mma(const void* q, const void* pool_k, const void* pool_v,
+                       const void* k_scale, const void* v_scale,
+                       const void* table, const void* start, void* out,
+                       int R, int H, int Tq, int bsz, int nbps,
+                       cudaStream_t stream) {
+  using KV = typename PfPool<QUANT>::kv;
+  constexpr size_t smem = pf_smem_bytes<D, QUANT>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_int8_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      prefill_mma_kernel<D, QUANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (Tq + PF_QT - 1) / PF_QT;
   const long long grid = (long long)R * H * n_tiles;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float scale_log2 =
       (float)(1.0 / sqrt((double)D) * 1.4426950408889634);
-  prefill_int8_mma_kernel<D><<<(unsigned)grid, PF_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const int8_t*>(pool_k), static_cast<const int8_t*>(pool_v),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(start),
-      static_cast<__nv_bfloat16*>(out), R * H, H, Tq, bsz, nbps, n_tiles,
-      scale_log2);
+  prefill_mma_kernel<D, QUANT><<<(unsigned)grid, PF_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(pool_k),
+      static_cast<const KV*>(pool_v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(start), static_cast<__nv_bfloat16*>(out),
+      R * H, H, Tq, bsz, nbps, n_tiles, scale_log2);
   return (int)cudaGetLastError();
 }
 
 // Head widths the kernel is built for: multiples of 16 up to 128.
-int dispatch_prefill_int8_mma(const void* q, const void* pool_k,
-                              const void* pool_v, const void* k_scale,
-                              const void* v_scale, const void* table,
-                              const void* start, void* out, int R, int H,
-                              int Tq, int Dh, int bsz, int nbps,
-                              void* stream) {
+template <bool QUANT>
+int dispatch_prefill_mma(const void* q, const void* pool_k,
+                         const void* pool_v, const void* k_scale,
+                         const void* v_scale, const void* table,
+                         const void* start, void* out, int R, int H, int Tq,
+                         int Dh, int bsz, int nbps, void* stream) {
   if (R < 1 || H < 1 || Tq < 1 || bsz < 1 || nbps < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PF_CASE(DV)                                                          \
-  case DV:                                                                   \
-    return launch_prefill_int8_mma<DV>(q, pool_k, pool_v, k_scale, v_scale, \
-                                       table, start, out, R, H, Tq, bsz,    \
-                                       nbps, s);
+#define PF_CASE(DV)                                                      \
+  case DV:                                                               \
+    return launch_prefill_mma<DV, QUANT>(q, pool_k, pool_v, k_scale,     \
+                                         v_scale, table, start, out, R, \
+                                         H, Tq, bsz, nbps, s);
   switch (Dh) {
     PF_CASE(16)
     PF_CASE(32)
@@ -1399,11 +1433,18 @@ int tddl_paged_decode_int8(const void* q, const void* pool_k,
                        start, out, R, H, T, Dh, bsz, nbps, T, stream);
 }
 
-// B6: q [R, H, T, Dh] split into ceil(T / q_tile) query tiles per (row, head).
+// B6: q [R, H, T, Dh].  bf16 q runs the tensor-core kernel (64-row query
+// tiles, q_tile unused; Dh a multiple of 16, at most 128, any block size;
+// q, pools and out 16-byte aligned); f32 q the CUDA-core kernel with
+// q_tile-row tiles.
 int tddl_paged_prefill(const void* q, const void* pool_k, const void* pool_v,
                        const void* table, const void* start, void* out, int R,
                        int H, int T, int Dh, int bsz, int nbps, int q_tile,
                        int dtype, void* stream) {
+  if (dtype == 1)
+    return dispatch_prefill_mma<false>(q, pool_k, pool_v, nullptr, nullptr,
+                                       table, start, out, R, H, T, Dh, bsz,
+                                       nbps, stream);
   return dispatch_attn(dtype, q, pool_k, pool_v, nullptr, nullptr, table,
                        start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
 }
@@ -1420,9 +1461,9 @@ int tddl_paged_prefill_int8(const void* q, const void* pool_k,
   if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)  // bf16 q: the tensor-core kernel (q_tile unused)
-    return dispatch_prefill_int8_mma(q, pool_k, pool_v, k_scale, v_scale,
-                                     table, start, out, R, H, T, Dh, bsz,
-                                     nbps, stream);
+    return dispatch_prefill_mma<true>(q, pool_k, pool_v, k_scale, v_scale,
+                                      table, start, out, R, H, T, Dh, bsz,
+                                      nbps, stream);
   return dispatch_attn(dtype, q, pool_k, pool_v, k_scale, v_scale, table,
                        start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
 }

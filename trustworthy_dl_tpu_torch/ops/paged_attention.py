@@ -153,10 +153,13 @@ def _launch_attention(entry: str, q: torch.Tensor, pool_k: torch.Tensor,
     return out
 
 
-#: Head widths the bf16-query kernels (B5's split-K decode, B6-int8's
-#: tensor-core prefill) are built for: multiples of 16 up to 128.
+#: Head widths the bf16-query kernels (B5's split-K decode, B6's
+#: tensor-core prefill over either pool) are built for: multiples of 16 up
+#: to 128.
 BF16_KERNEL_DH_MULTIPLE = 16
 BF16_KERNEL_MAX_DH = 128
+#: The CUDA-core kernel (f32 q, B5, B6) takes 48 KB of shared memory.
+STATIC_SMEM_LIMIT = 48 * 1024
 
 
 def _bf16_head_width_limit(dh: int) -> Optional[str]:
@@ -168,25 +171,63 @@ def _bf16_head_width_limit(dh: int) -> Optional[str]:
     return None
 
 
-def decode_kernel_limit(dh: int, t: int, q_dtype: torch.dtype
-                        ) -> Optional[str]:
-    """Why B5 cannot take head width ``dh`` and ``t`` query rows with
-    queries in ``q_dtype``, or None when it can.  bf16 q runs the split-K
-    cluster kernel (Dh a multiple of 16, at most 128, over a bf16 or an
-    int8 pool, any block size); f32 q the CUDA-core kernel.  Both take
-    1 <= T <= :data:`QROWS` (longer chunks go through
-    ``paged_prefill_attention``).  The launch check and ``ServingEngine``'s
-    check at construction both read it."""
-    if not 1 <= t <= QROWS:
-        return (f"T={t} is outside [1, {QROWS}]; chunks go through "
-                "paged_prefill_attention")
+def attn_template_smem_bytes(q_tile: int, dh: int, keys: int) -> int:
+    """Shared memory of the CUDA-core kernel (f32 q) at ``q_tile`` query
+    rows, head width ``dh`` and ``keys`` staged keys: ``attn_smem_bytes``
+    in ``csrc/paged_attention.cu`` (q and acc [q_tile, Dh], K [keys, Dh +
+    1], V [keys, Dh], scores [q_tile, keys], m, l and the correction
+    [q_tile], two scale rows [keys], all f32)."""
+    return 4 * (2 * q_tile * dh + keys * (dh + 1) + keys * dh
+                + q_tile * keys + 3 * q_tile + 2 * keys)
+
+
+def _attn_kernel_limit(dh: int, bsz: int, q_dtype: torch.dtype,
+                       q_tile: int) -> Optional[str]:
+    """Why B5 or B6 cannot take head width ``dh`` over ``bsz``-position
+    blocks with queries in ``q_dtype``: bf16 q's kernels take Dh a
+    multiple of 16, at most 128, at any block size; the CUDA-core kernel
+    (f32 q) stages at least one whole block a stage and ``q_tile`` query
+    rows in :data:`STATIC_SMEM_LIMIT` bytes."""
+    if bsz < 1:
+        return f"block size {bsz} must be >= 1"
     if q_dtype == torch.bfloat16:
         return _bf16_head_width_limit(dh)
     if q_dtype != torch.float32:
         return f"q must be bf16 or f32 on the card, got {q_dtype}"
     if dh < 1:
         return f"Dh={dh} must be >= 1"
+    smem = attn_template_smem_bytes(q_tile, dh, bsz)
+    if smem > STATIC_SMEM_LIMIT:
+        return (f"Dh={dh}, block size {bsz} needs {smem} bytes of shared "
+                f"memory (limit {STATIC_SMEM_LIMIT})")
     return None
+
+
+def decode_kernel_limit(dh: int, t: int, q_dtype: torch.dtype, bsz: int
+                        ) -> Optional[str]:
+    """Why B5 cannot take head width ``dh``, ``t`` query rows and
+    ``bsz``-position blocks with queries in ``q_dtype``, or None when it
+    can.  bf16 q runs the split-K cluster kernel (Dh a multiple of 16, at
+    most 128, over a bf16 or an int8 pool, any block size); f32 q the
+    CUDA-core kernel (its shared memory at one block a stage and ``t``
+    rows).  Both take 1 <= T <= :data:`QROWS` (longer chunks go through
+    ``paged_prefill_attention``).  The launch check and ``ServingEngine``'s
+    check at construction both read it."""
+    if not 1 <= t <= QROWS:
+        return (f"T={t} is outside [1, {QROWS}]; chunks go through "
+                "paged_prefill_attention")
+    return _attn_kernel_limit(dh, bsz, q_dtype, t)
+
+
+def prefill_kernel_limit(dh: int, bsz: int, q_dtype: torch.dtype
+                         ) -> Optional[str]:
+    """Why B6 over a model-dtype pool cannot take head width ``dh`` over
+    ``bsz``-position blocks with queries in ``q_dtype``, or None when it
+    can.  bf16 q runs the tensor-core kernel (Dh a multiple of 16, at most
+    128, any block size); f32 q the CUDA-core kernel (its shared memory at
+    one block a stage and :data:`QROWS`-row tiles).  The launch check and
+    ``ServingEngine``'s check at construction both read it."""
+    return _attn_kernel_limit(dh, bsz, q_dtype, QROWS)
 
 
 def _check_kernel_limit(limit: Optional[str], q: torch.Tensor,
@@ -214,7 +255,8 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     op = "paged_attention"
     start = _start_vector(start, q.shape[0], q.device)
     _check_attention(q, pool_k, pool_v, table, start, op)
-    _check_kernel_limit(decode_kernel_limit(q.shape[3], q.shape[2], q.dtype),
+    _check_kernel_limit(decode_kernel_limit(q.shape[3], q.shape[2], q.dtype,
+                                            pool_k.shape[2]),
                         q, (pool_k, pool_v), op)
     out = _launch_attention("tddl_paged_decode", q, pool_k, pool_v, table,
                             start)
@@ -237,7 +279,8 @@ def paged_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
     op = "paged_attention_int8"
     start = _start_vector(start, q.shape[0], q.device)
     _check_attention(q, pool_k, pool_v, table, start, op, k_scale, v_scale)
-    _check_kernel_limit(decode_kernel_limit(q.shape[3], q.shape[2], q.dtype),
+    _check_kernel_limit(decode_kernel_limit(q.shape[3], q.shape[2], q.dtype,
+                                            pool_k.shape[2]),
                         q, (pool_k, pool_v), op)
     out = _launch_attention("tddl_paged_decode_int8", q, pool_k, pool_v,
                             table, start, scales=(k_scale, v_scale))
@@ -252,15 +295,23 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
                             pool_v: torch.Tensor, table: torch.Tensor,
                             start: Start) -> torch.Tensor:
     """Query-tiled chunked-prefill attention (B6): T query rows split into
-    :data:`QROWS`-row tiles, each reading the pool only up to the last
-    block its own causal window reaches.  Same contract as
-    :func:`paged_attention`."""
+    tiles, each reading the pool only up to the last key its own causal
+    window reaches.  Same contract as :func:`paged_attention`.  On the
+    card, bf16 q launches the tensor-core kernel (64-row query tiles, K/V
+    rows gathered through the table by ``cp.async`` into a ring that
+    ``ldmatrix`` reads in place, ``mma.sync`` products); f32 q launches
+    the CUDA-core kernel with :data:`QROWS`-row tiles.  Both are
+    hand-written (``csrc/paged_attention.cu``); their limits are
+    :func:`prefill_kernel_limit`."""
     if not on_cuda(q, "paged_prefill_attention"):
         return paged_prefill_attention_plain(q, pool_k, pool_v, table,
                                              start)
+    op = "paged_prefill_attention"
     start = _start_vector(start, q.shape[0], q.device)
-    _check_attention(q, pool_k, pool_v, table, start,
-                     "paged_prefill_attention")
+    _check_attention(q, pool_k, pool_v, table, start, op)
+    _check_kernel_limit(
+        prefill_kernel_limit(q.shape[3], pool_k.shape[2], q.dtype), q,
+        (pool_k, pool_v), op)
     out = _launch_attention("tddl_paged_prefill", q, pool_k, pool_v, table,
                             start, QROWS)
     paged_prefill_attention.launches += 1
@@ -270,32 +321,10 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
 paged_prefill_attention.launches = 0
 
 
-#: The CUDA-core kernel (f32 q, B5, B6) takes 48 KB of shared memory.
-STATIC_SMEM_LIMIT = 48 * 1024
-
-
-def prefill_int8_kernel_limit(dh: int, bsz: int, q_dtype: torch.dtype
-                              ) -> Optional[str]:
-    """Why B6-int8 cannot take head width ``dh`` over ``bsz``-position
-    blocks with queries in ``q_dtype``, or None when it can.  bf16 q runs
-    the tensor-core kernel (Dh a multiple of 16, at most 128, any block
-    size); f32 q the CUDA-core kernel (its shared memory at one block a
-    stage).  The launch check and ``ServingEngine``'s check at
-    construction both read it."""
-    if bsz < 1:
-        return f"block size {bsz} must be >= 1"
-    if q_dtype == torch.bfloat16:   # its shared memory always fits
-        return _bf16_head_width_limit(dh)
-    if q_dtype != torch.float32:
-        return f"q must be bf16 or f32 on the card, got {q_dtype}"
-    if dh < 1:
-        return f"Dh={dh} must be >= 1"
-    smem = 4 * (2 * QROWS * dh + bsz * (dh + 1) + bsz * dh
-                + QROWS * bsz + 3 * QROWS + 2 * bsz)
-    if smem > STATIC_SMEM_LIMIT:
-        return (f"Dh={dh}, block size {bsz} needs {smem} bytes of shared "
-                f"memory (limit {STATIC_SMEM_LIMIT})")
-    return None
+#: B6's limits are the same over the int8 pool: the bf16-query kernel is
+#: one body for both pools, and the CUDA-core kernel stages the two scale
+#: rows whatever the pool.
+prefill_int8_kernel_limit = prefill_kernel_limit
 
 
 def paged_prefill_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
@@ -591,11 +620,12 @@ def reset_launch_counts() -> None:
 __all__ = [
     "ADAPTER_MAX_RANK", "BF16_KERNEL_MAX_DH", "KERNEL_WRAPPERS", "NEG_INF",
     "QROWS", "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
-    "adapter_kernel_limit", "decode_kernel_limit",
+    "adapter_kernel_limit", "attn_template_smem_bytes", "decode_kernel_limit",
     "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
     "logit_trust_stats",
     "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",
     "paged_attention_plain", "paged_prefill_attention",
     "paged_prefill_attention_int8", "paged_prefill_attention_plain",
-    "prefill_int8_kernel_limit", "reset_launch_counts", "verify_row_groups",
+    "prefill_int8_kernel_limit", "prefill_kernel_limit",
+    "reset_launch_counts", "verify_row_groups",
 ]

@@ -185,20 +185,20 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"adapter_rank={adapter_rank} is past the "
                                  f"adapter kernel's limits: {limit}")
-        if self.device.type == "cuda" and attn_impl == "kernel" \
-                and kv_dtype == "int8":
-            # B6-int8's limits, read the same way: every prompt under int8
-            # KV goes through it, so refuse before any pool is allocated.
-            limit = pattn.prefill_int8_kernel_limit(cfg.head_dim, block_size,
-                                                    cfg.dtype)
-            if limit is not None:
-                raise ValueError(f"kv_dtype='int8' is past the int8 prefill "
-                                 f"kernel's limits: {limit}")
         if self.device.type == "cuda" and attn_impl == "kernel":
+            # B6's limits, the same over both pools: every prompt chunk
+            # goes through it (an int8 pool whose parity probe fails falls
+            # back to a model-dtype one), so refuse before any pool is
+            # allocated.
+            limit = pattn.prefill_kernel_limit(cfg.head_dim, block_size,
+                                               cfg.dtype)
+            if limit is not None:
+                raise ValueError(f"the paged prefill kernel's limits refuse "
+                                 f"this model: {limit}")
             # B5's limits, for both pools: every decode tick (up to QROWS
             # rows) goes through it.
             limit = pattn.decode_kernel_limit(cfg.head_dim, pattn.QROWS,
-                                              cfg.dtype)
+                                              cfg.dtype, block_size)
             if limit is not None:
                 raise ValueError(f"the paged decode kernel's limits refuse "
                                  f"this model: {limit}")
