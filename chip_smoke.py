@@ -15,7 +15,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    for B4-B9 and the int8 branches of B5/B6, training's for B1-B3), hold
    it against its plain PyTorch version on the same inputs, and time the
    kernel, the plain version and a library yardstick (median of
-   per-launch CUDA-event timings, L2 flushed before each launch).  B8
+   per-launch CUDA-event timings, L2 flushed before each launch).  B4 at
+   M = 1, 8, 16 and 64 on GPT-2 small's four block matrices and n_embd
+   96's qkv at M = 8 (``cases``, each with the profiler's device time of
+   the kernel and of the yardstick).  B8
    also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
    with ``tflops``), B6 also over 128-position blocks (``block128``),
    B6-int8 also from position 0 and as a 64-row chunk, B5-int8 also at
@@ -36,7 +39,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    against ``spec_k=0``.
 4c. serve_int8_weights: ``weight_dtype="int8"``, ``spec_k=0``, the same
    traffic; B4's launch count exact; greedy streams against the plain
-   path.
+   path.  Then serve_int8_weights_d96: the same tier on a bf16 GPT-2 at
+   n_embd 96 (2 heads of 48; block matrices multiples of 16, not of 64)
+   over 8 of the requests, launch counts exact, greedy streams against
+   the same engine on the CPU (every kernel its plain twin).
 4d. serve_adapters, serve_adapters_int8: the same traffic from 8 tenants
    through rank-16 adapters (bf16 pages, then int8 pages with scales), the
    pool one page short of the adapters the tenants' Zipf map assigns; B9's
@@ -113,6 +119,7 @@ PREFILL_KERNEL = "prefill_mma_kernel"
 STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
 DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
+DQ_KERNEL = "dq_split_kernel"
 ADAPTER_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/adapter_delta.cu"
 # B9: f32 sums of bf16 or int8 x bf16 products in another order than the
 # plain twin's einsum: within 1e-5 of the plain output's largest
@@ -128,9 +135,12 @@ ADAPTER_RANK = 16
 DQ_RTOL = 1e-5
 SPEC_K = 4
 # GPT-2 small's four block matrices (K, N): qkv, attention proj, fc, mlp
-# proj.
+# proj; then n_embd 96's qkv (K and N multiples of 16, not of 64).
 DQ_SHAPES = {"qkv": (768, 2304), "attn_proj": (768, 768),
-             "fc": (768, 3072), "mlp_proj": (3072, 768)}
+             "fc": (768, 3072), "mlp_proj": (3072, 768),
+             "d96_qkv": (96, 288)}
+# B4's rows: decode batch 1, a draft step's 8, 16, a prefill chunk's 64.
+DQ_ROWS = (1, 8, 16, 64)
 # Train phase geometry (GPT-2 small at full width).
 TRAIN_NODES, TRAIN_BATCH, TRAIN_T = 4, 32, 1024
 OFF_WARMUP, OFF_TIMED = 2, 6
@@ -175,31 +185,16 @@ def time_ms(torch, fn, flush, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, flush, kernel: str, reps: int = 25) -> float:
+def device_ms(fn, flush, kernel: str, reps: int = 25) -> float:
     """Mean device time of one call's ``kernel`` (a substring of the CUDA
-    kernel's name) over ``reps`` calls with the L2 flushed before each,
-    from ``torch.profiler``: the kernel's own time, where ``time_ms``'s
-    event window also holds the host's dispatch of the call whenever the
-    card waits for it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    kernel's name, launched once a call) over ``reps`` calls with the L2
+    flushed before each, from ``torch.profiler``
+    (``utils/kernel_ab.device_ms``, which counts the launches): the
+    kernel's own time, where ``time_ms``'s event window also holds the
+    host's dispatch of the call whenever the card waits for it."""
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
 
-    from trustworthy_dl_tpu_torch.utils.serve_profile import device_us
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key]
-    calls = sum(e.count for e in found)
-    if calls != reps:
-        raise AssertionError(f"profiler saw {calls} launches of {kernel}, "
-                             f"want {reps}")
-    return sum(device_us(e) for e in found) / calls / 1e3
+    return kernel_ab.device_ms(fn, flush, reps, kernel=kernel, launches=1)
 
 
 def attention_bound(starts, t, h, dh, kv_itemsize, cap, scale_itemsize=0):
@@ -288,7 +283,7 @@ def check_kernels(torch, pa):
                       "starts": start_list},
         }
         if kernel is not None:   # the kernel's and SDPA's own device time
-            entries[name]["device_ms"] = device_ms(torch, kern, flush, kernel)
+            entries[name]["device_ms"] = device_ms(kern, flush, kernel)
             # SDPA may launch several kernels: all but the flush's count.
             entries[name]["library_device_ms"] = kernel_ab.device_ms(
                 library, flush, 25)
@@ -397,7 +392,7 @@ def block128_case(torch, pa, flush, rng):
     err_long, _ = check(torch.randn(r, h, cap, dh, device=dev).to(
         torch.bfloat16), table, [0, 77, 300] * 2 + [0, 450])
     return {"max_abs_err": max(err, err_long),
-            "device_ms": device_ms(torch, lambda: pa.paged_prefill_attention(
+            "device_ms": device_ms(lambda: pa.paged_prefill_attention(
                 q128, pool_k, pool_v, table[:1], start), flush,
                 PREFILL_KERNEL),
             "shape": {"q": list(q128.shape), "pool": list(pool_k.shape),
@@ -468,7 +463,7 @@ def check_int8_attention(torch, pa, entries, flush, rng):
                                                   attn_mask=mask)
 
         if kernel is not None:   # the kernel's and SDPA's own device time
-            numbers["device_ms"] = device_ms(torch, kern, flush, kernel)
+            numbers["device_ms"] = device_ms(kern, flush, kernel)
             # SDPA may launch several kernels: all but the flush's count.
             numbers["library_device_ms"] = kernel_ab.device_ms(library, flush,
                                                                25)
@@ -525,13 +520,15 @@ def check_int8_attention(torch, pa, entries, flush, rng):
 
 
 def check_dequant_matmul(torch, entries, flush):
-    """B4 at M = 8 (a draft step's rows) and M = 64 (a prefill chunk) for
-    each of GPT-2 small's four block matrices; the entry's numbers are the
-    fc matrix at M = 8 (the largest decode launch), every case in
-    ``cases``.  Yardstick: ``x @ w_bf16 * scale`` with the weight cast to
-    bf16 beforehand (not timed)."""
+    """B4 at M = 1, 8 (a draft step's rows), 16 and 64 (a prefill chunk)
+    for each of GPT-2 small's four block matrices and n_embd 96's qkv; the
+    entry's numbers are the fc matrix at M = 8 (the largest decode
+    launch), every case in ``cases`` with the profiler's device time of
+    the kernel and of the yardstick.  Yardstick: ``x @ w_bf16 * scale``
+    with the weight cast to bf16 beforehand (not timed)."""
     from trustworthy_dl_tpu_torch.ops import fused_dequant_matmul as fdm
     from trustworthy_dl_tpu_torch.quant import int8 as q8
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -541,7 +538,7 @@ def check_dequant_matmul(torch, entries, flush):
             torch.randn(k, n, device=dev, generator=gen) * 0.02, axis=0)
         wq, scale = wq.contiguous(), scale.contiguous()
         w_bf = (wq.float()).to(torch.bfloat16)
-        for m in (8, 64):
+        for m in DQ_ROWS if label != "d96_qkv" else (8,):
             x = torch.randn(m, k, device=dev, generator=gen).to(
                 torch.bfloat16)
             got = fdm.dequant_matmul(x, wq, scale)
@@ -556,16 +553,23 @@ def check_dequant_matmul(torch, entries, flush):
             bound_ms, bound_by = bound_entry(
                 k * n + n * 4 + m * k * 2 + m * n * 4, 2 * m * k * n,
                 "bfloat16")
+            def kern():
+                return fdm.dequant_matmul(x, wq, scale)
+
+            def library():
+                return (x @ w_bf).float() * scale
+
             cases.append({
                 "matrix": label, "m": m, "k": k, "n": n,
                 "max_abs_err": float(err.max()),
-                "ms": time_ms(torch, lambda: fdm.dequant_matmul(x, wq, scale),
-                              flush),
+                "ms": time_ms(torch, kern, flush),
                 "plain_ms": time_ms(torch, lambda: fdm.dequant_matmul_plain(
                     x, wq, scale), flush),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": time_ms(torch, lambda: (x @ w_bf).float()
-                                      * scale, flush)})
+                "library_ms": time_ms(torch, library, flush),
+                "device_ms": device_ms(kern, flush, DQ_KERNEL),
+                "library_device_ms": kernel_ab.device_ms(library, flush,
+                                                         25)})
     main = next(c for c in cases if c["matrix"] == "fc" and c["m"] == 8)
     entries["dequant_matmul"] = {
         "name": "dequant_matmul", "route": "cuda", "source": DQ_SOURCE,
@@ -573,7 +577,8 @@ def check_dequant_matmul(torch, entries, flush):
         "launches": 0,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")},
+                                      "bound_by", "library_ms", "device_ms",
+                                      "library_device_ms")},
         "shape": {"x": [8, 768], "w_q": [768, 3072], "dtype": "bfloat16"},
         "cases": cases,
     }
@@ -734,7 +739,7 @@ def check_adapter_delta(torch, pa, entries, flush):
                 "pages": page_list, "max_abs_err": err,
                 "plain_max_abs": float(ref.abs().max()),
                 "ms": time_ms(torch, lambda: pa.adapter_delta(*args), flush),
-                "device_ms": device_ms(torch, lambda: pa.adapter_delta(*args),
+                "device_ms": device_ms(lambda: pa.adapter_delta(*args),
                                        flush, "adapter_delta_kernel"),
                 "plain_ms": time_ms(torch,
                                     lambda: pa.adapter_delta_plain(*args),
@@ -1037,6 +1042,54 @@ def serve_tiers_drive(torch, entries, card):
           "expected_launches": want, "vs_plain_path": vs_plain})
 
 
+def serve_d96_drive(torch, entries, card):
+    """Phase 4c, second drive: the weight-only int8 tier on a bf16 GPT-2 at
+    n_embd 96 with 2 heads of 48 (12 layers, vocab 50257, random weights
+    from seed 0), whose block matrices (96 x 288, 96 x 96, 96 x 384,
+    384 x 96) are multiples of 16 and not of 64, over the first 8 smoke
+    requests: B4's launches exact, the greedy streams against the same
+    engine on the CPU, where every kernel is its plain twin."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (serve_smoke,
+                                                              smoke_traffic)
+
+    cfg = gpt2.GPT2Config(vocab_size=50257, n_positions=1024, n_layer=12,
+                          n_embd=96, n_head=2, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    requests = smoke_traffic(cfg.vocab_size)[:8]
+    weights = dict(weight_dtype="int8")
+    serve_smoke(cfg, params, "kernel", requests[:1], **weights)  # warm-up
+    ops.reset_launch_counts()
+    engine, results, wall = serve_smoke(cfg, params, "kernel", requests,
+                                        **weights)
+    launches = ops.launch_counts()
+    s = engine.metrics_summary()
+    check_completed(results, requests)
+    n_layer = cfg.n_layer
+    forwards = s["decode_ticks"] + s["local_prefills"] + s["prefill_chunks"]
+    want = {"dequant_matmul": 4 * n_layer * forwards,
+            "paged_attention": n_layer * s["decode_ticks"],
+            "paged_prefill_attention": n_layer * s["prefill_chunks"],
+            "logit_trust_stats": len(requests) + s["decode_ticks"]}
+    expect_launches(launches, want, "serve_int8_weights_d96")
+    _, cpu_results, cpu_wall = serve_smoke(cfg, params, "kernel", requests,
+                                           device="cpu", **weights)
+    vs_cpu = compare_greedy(requests, results, cpu_results,
+                            "n_embd 96 int8 weights card vs CPU twins")
+    entries["dequant_matmul"]["launches_int8_weights_d96_drive"] = \
+        launches["dequant_matmul"]
+    emit({"phase": "serve_int8_weights_d96", "card": card,
+          "model": "gpt2 (12L, 96, 2H, V50257, bf16, random init seed 0)",
+          "weight_dtype": "int8", "requests": len(requests), "wall_s": wall,
+          "cpu_wall_s": cpu_wall,
+          **{key: s.get(key) for key in (
+              "tokens_per_s", "decode_ticks", "local_prefills",
+              "prefill_chunks", "prefix_hits")},
+          "launches": {k: launches[k] for k in want},
+          "expected_launches": want, "vs_cpu_plain": vs_cpu})
+
+
 def serve_adapters_drive(torch, entries, card, base_results):
     """Phase 4d: the smoke traffic from 8 tenants through rank-16 adapters,
     bf16 pages (serve_adapters) then int8 pages (serve_adapters_int8), on
@@ -1274,9 +1327,8 @@ def check_train_kernels(torch, entries):
     fwd["tflops"] = flash_work(bh, t, d, 2) / (fwd["ms"] * 1e-3) / 1e12
     # The kernel's own time (profiler), where ``ms``'s event window also
     # holds the wrapper's host dispatch whenever the card waits for it.
-    fwd["device_ms"] = device_ms(
-        torch, lambda: fa.flash_attention_fwd(q, k, v), flush,
-        "flash_fwd_kernel")
+    fwd["device_ms"] = device_ms(lambda: fa.flash_attention_fwd(q, k, v),
+                                 flush, "flash_fwd_kernel")
     del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, out4
     # B2 at the other head widths the kernel is built for, at T = 1024:
     # the same checks and yardstick, one entry each under ``cases``.
@@ -1293,7 +1345,7 @@ def check_train_kernels(torch, entries):
             raise AssertionError(f"flash fwd D={c_d} lse err {c_lse}")
         q4, k4, v4 = (a.view(1, c_bh, t, c_d) for a in (q, k, v))
         c_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), flush)
-        c_dev = device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v),
+        c_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v),
                           flush, "flash_fwd_kernel")
         c_bound, c_by = bound_entry(4 * c_bh * t * c_d * 2 + c_bh * t * 4,
                                     flash_work(c_bh, t, c_d, 2), "bfloat16")
@@ -1507,6 +1559,7 @@ def main() -> int:
     emit({"phase": "kernel_checks", "ok": True})
     base_results = serve_drive(torch, pa, entries, smi)
     serve_tiers_drive(torch, entries, smi)
+    serve_d96_drive(torch, entries, smi)
     serve_adapters_drive(torch, entries, smi, base_results)
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)

@@ -561,21 +561,61 @@ def test_engine_refuses_bf16_pool_past_the_decode_kernel(cuda):
     assert pa.decode_kernel_limit(64, pa.QROWS, torch.bfloat16, 16) is None
 
 
-@pytest.mark.parametrize("m", [1, 8, 15, 64, 100])
-@pytest.mark.parametrize("k,n", [(768, 2304), (3072, 768), (128, 64)])
-def test_dequant_matmul_kernel_matches_plain(cuda, m, k, n):
-    rng = np.random.default_rng(7)
+def _dq_inputs(rng, m, k, n, device):
     x = torch.tensor(rng.normal(size=(m, k)), dtype=torch.float32).to(
-        device=cuda, dtype=torch.bfloat16)
+        device=device, dtype=torch.bfloat16)
     w = torch.tensor(rng.normal(size=(k, n)) * 0.02, dtype=torch.float32)
-    wq, scale = (a.to(cuda) for a in q8.quantize_int8(w, axis=0))
+    wq, scale = (a.to(device).contiguous()
+                 for a in q8.quantize_int8(w, axis=0))
+    return x, wq, scale
+
+
+@pytest.mark.parametrize("m", [1, 8, 15, 16, 64, 100, 320])
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072),
+                                 (3072, 768), (96, 288), (384, 96),
+                                 (128, 64)])
+def test_dequant_matmul_kernel_matches_plain(cuda, m, k, n):
+    """B4 against its twin at GPT-2 small's four block matrices, n_embd
+    96's qkv and mlp proj (K and N multiples of 16, not of 64) and a
+    small square-ish case, at decode, draft, chunk and local-prefill row
+    counts; one launch a call."""
+    rng = np.random.default_rng(7)
+    x, wq, scale = _dq_inputs(rng, m, k, n, cuda)
     before = fdm.dequant_matmul.launches
-    got = fdm.dequant_matmul(x, wq.contiguous(), scale.contiguous())
+    got = fdm.dequant_matmul(x, wq, scale)
     torch.cuda.synchronize()
     assert fdm.dequant_matmul.launches == before + 1
     ref = fdm.dequant_matmul_plain(x, wq, scale)
     mag = (x.float().abs() @ wq.float().abs()) * scale
+    assert bool(torch.isfinite(got).all())
     assert bool(((got - ref).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 3072, 768), (64, 768, 2304),
+                                   (15, 96, 288)])
+def test_dequant_matmul_kernel_is_deterministic(cuda, m, k, n):
+    """The split's partials meet in a fixed order (warps, then cluster
+    ranks): two calls give the same bits."""
+    rng = np.random.default_rng(9)
+    x, wq, scale = _dq_inputs(rng, m, k, n, cuda)
+    first = fdm.dequant_matmul(x, wq, scale)
+    second = fdm.dequant_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_dequant_matmul_rejects_misaligned_x(cuda):
+    """x, w_q and scale are copied 16 bytes at a time: a contiguous x two
+    elements into its buffer raises ValueError, nothing launched."""
+    rng = np.random.default_rng(12)
+    _, wq, scale = _dq_inputs(rng, 8, 768, 768, cuda)
+    buf = torch.zeros(8 * 768 + 2, dtype=torch.bfloat16, device=cuda)
+    x = buf[2:].view(8, 768)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = fdm.dequant_matmul.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fdm.dequant_matmul(x, wq, scale)
+    assert fdm.dequant_matmul.launches == before
 
 
 @pytest.mark.parametrize("b,d,v", [(40, 768, 50257), (5, 64, 700),
@@ -598,6 +638,32 @@ def test_verify_tail_kernel_matches_plain(cuda, b, d, v):
         + 1e-5 * (normed.float().abs() @ head.float().abs().T)
     excess = float(((logits - ref).abs() - bound).max())
     assert excess <= 0.0, excess
+    top2 = torch.topk(logits, 2, dim=-1).values
+    assert torch.equal(mar, top2[:, 0] - top2[:, 1])
+    assert float(mar[0]) == 0.0
+    torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,d", [(40, 96), (100, 48), (8, 16)])
+def test_verify_tail_takes_d_multiple_of_16(cuda, b, d):
+    """B8 at widths that are multiples of 16 but not of 64 (n_embd 96's
+    spec verify is 40 x 96): the last K chunk is short; against the twin
+    as above."""
+    rng = np.random.default_rng(13)
+    v = 3000
+    normed = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32).to(
+        device=cuda, dtype=torch.bfloat16)
+    head = torch.tensor(rng.normal(size=(v, d)) * 0.05,
+                        dtype=torch.float32).to(device=cuda,
+                                                dtype=torch.bfloat16)
+    head[v - 1] = head[3]
+    normed[0] = head[3] * 40.0
+    logits, ent, mar = pa.fused_verify_tail(normed, head)
+    torch.cuda.synchronize()
+    ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+    bound = ref.abs() * 2.0 ** -7 \
+        + 1e-5 * (normed.float().abs() @ head.float().abs().T)
+    assert float(((logits - ref).abs() - bound).max()) <= 0.0
     top2 = torch.topk(logits, 2, dim=-1).values
     assert torch.equal(mar, top2[:, 0] - top2[:, 1])
     assert float(mar[0]) == 0.0
@@ -655,6 +721,76 @@ def test_engine_refuses_adapters_past_the_kernel_at_construction(cuda):
     assert torch.cuda.memory_allocated(cuda) == before
 
 
+@pytest.mark.parametrize("knobs", [dict(weight_dtype="int8"),
+                                   dict(spec_k=4)])
+def test_engine_refuses_f32_int8_matrices_at_construction(cuda, knobs):
+    """B4 takes bf16 x only: an f32 GPT-2 engine that would run its block
+    matrices through it (int8 weights, or the int8 self-draft of
+    ``spec_k=4``) raises a ValueError naming the limit before it
+    allocates anything on the card."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=269, n_positions=64, n_layer=1,
+                          n_embd=128, n_head=2, dtype=torch.float32)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match="x must be bf16"):
+        ServingEngine(params, cfg, max_slots=2, max_seq=64, block_size=16,
+                      device="cuda", **knobs)
+    assert torch.cuda.memory_allocated(cuda) == before
+
+
+@pytest.mark.parametrize("knobs", [dict(weight_dtype="int8"),
+                                   dict(spec_k=4)])
+def test_bf16_d96_engine_serves_int8_matrices(cuda, knobs):
+    """n_embd = 96 (K = 96 and N = 288 are not multiples of 64): a bf16
+    engine with int8 weights, and one drafting through the int8 weights
+    (``spec_k=4``), serve four greedy requests on the card with every
+    block matrix through B4 (4 x n_layer launches a forward or a draft
+    step), and their streams equal the same engine's on the CPU, where
+    every kernel is its plain twin, or split only where the CPU engine's
+    top-1 margin is a near tie (below 0.05: bf16 outputs may differ in
+    the last bit between the two)."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=271, n_positions=128, n_layer=2,
+                          n_embd=96, n_head=2, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, 271, int(n)).tolist() for n in (5, 17, 30, 41)]
+
+    def serve(device):
+        engine = ServingEngine(params, cfg, max_slots=4, max_seq=96,
+                               block_size=16, device=device, **knobs)
+        for p in prompts:
+            engine.submit(ServeRequest(prompt=p, max_new_tokens=12))
+        results = engine.run_until_idle()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return engine, results
+
+    before = fdm.dequant_matmul.launches
+    engine, got = serve("cuda")
+    s = engine.metrics_summary()
+    forwards = (cfg.n_layer * 4 * knobs["spec_k"] * s["spec_ticks"]
+                if "spec_k" in knobs else
+                cfg.n_layer * 4 * (s["decode_ticks"] + s["local_prefills"]
+                                   + s["prefill_chunks"]))
+    assert forwards > 0
+    assert fdm.dequant_matmul.launches - before == forwards
+    _, ref = serve("cpu")
+    for rid in range(len(prompts)):
+        assert got[rid].status == "completed"
+        assert len(got[rid].tokens) == 12
+        for i, (a, b) in enumerate(zip(got[rid].tokens, ref[rid].tokens)):
+            if a != b:
+                assert ref[rid].margins[i] < 0.05, (rid, i)
+                break
+
+
 def test_spec_engine_past_one_verify_launch_serves(cuda):
     """``max_slots=16, spec_k=8``: the verify feeds B8 16 x 9 = 144 rows,
     two launches a spec tick.  Four greedy requests complete, and their
@@ -698,16 +834,16 @@ def test_new_wrappers_reject_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         fdm.dequant_matmul(x32, wq, scale)             # f32 x on the card
     with pytest.raises(ValueError):
-        fdm.dequant_matmul(x32.bfloat16()[:, :48].contiguous(), wq[:48],
-                           scale)                      # K not a multiple
+        fdm.dequant_matmul(x32.bfloat16()[:, :40].contiguous(),
+                           wq[:40].contiguous(), scale)  # K not a multiple
     with pytest.raises(ValueError):
         pa.fused_verify_tail(torch.zeros(4, 64, device=cuda),
                              torch.zeros(9, 64, device=cuda))    # f32
     with pytest.raises(ValueError):
-        pa.fused_verify_tail(torch.zeros(97, 48, dtype=torch.bfloat16,
+        pa.fused_verify_tail(torch.zeros(97, 40, dtype=torch.bfloat16,
                                          device=cuda),
-                             torch.zeros(9, 48, dtype=torch.bfloat16,
-                                         device=cuda))      # D % 64 != 0
+                             torch.zeros(9, 40, dtype=torch.bfloat16,
+                                         device=cuda))      # D % 16 != 0
     q = torch.zeros(1, 2, 1, 16, dtype=torch.bfloat16, device=cuda)
     pool = torch.zeros(3, 2, 8, 16, dtype=torch.bfloat16, device=cuda)
     sc = torch.zeros(3, 2, 8, device=cuda)

@@ -124,6 +124,51 @@ def test_dequant_matmul_plain_matches_interpret_kernel(m):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("m", [1, 8, 15])
+def test_dequant_matmul_plain_matches_jax_at_d96(m):
+    """n_embd 96's qkv (K = 96, N = 288): shapes the JAX Pallas tile does
+    not take, so JAX runs its jnp contraction; the port's twin (and, on the
+    card, B4, which takes K and N multiples of 16) within 1e-5."""
+    rng = np.random.default_rng(2)
+    k, n = 96, 288
+    assert not jfdm.dequant_matmul_tiles(m, k, n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    wq, scale = jq8.quantize_int8(jnp.asarray(
+        rng.normal(size=(k, n)).astype(np.float32) * 0.05), axis=0)
+    ref = jfdm.dequant_matmul(jnp.asarray(x), wq, scale)
+    got = fdm.dequant_matmul(_t(x), _t(wq), _t(scale))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_d96_int8_weight_engine_greedy_streams_match_jax():
+    """A GPT-2 at n_embd 96 with 2 heads (its block matrices multiples of
+    16, not of 64) on the weight-only int8 tier: the port's greedy streams
+    on both attention paths equal the JAX engine's."""
+    jcfg = jgpt2.GPT2Config(vocab_size=233, n_positions=64, n_layer=2,
+                            n_embd=96, n_head=2, dtype=jnp.float32)
+    cfg = gpt2.GPT2Config(vocab_size=233, n_positions=64, n_layer=2,
+                          n_embd=96, n_head=2, dtype=torch.float32)
+    jparams = jgpt2.init_params(jax.random.PRNGKey(4), jcfg)
+    tparams = convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams))
+    knobs = dict(weight_dtype="int8", kv_parity_check=False)
+    jengine = JEngine(jparams, jcfg, paged=True, attn_impl="jnp",
+                      enable_monitor=False, **knobs, **ENGINE)
+    for prompt, new in _traffic():
+        jengine.submit(JRequest(prompt=prompt, max_new_tokens=new))
+    ref = jengine.run_until_idle()
+    for impl in ("kernel", "plain"):
+        engine = ServingEngine(tparams, cfg, attn_impl=impl, device="cpu",
+                               enable_monitor=False, **knobs, **ENGINE)
+        for prompt, new in _traffic():
+            engine.submit(ServeRequest(prompt=prompt, max_new_tokens=new))
+        got = engine.run_until_idle()
+        assert engine.metrics_summary()["weight_dtype"] == "int8"
+        assert {r: v.tokens for r, v in got.items()} \
+            == {r: v.tokens for r, v in ref.items()}
+
+
 def test_int8_dense_cache_logits_match_jax(params):
     """A prompt then three greedy decode steps through an int8 KV cache:
     logits within 1e-5, cache values and scales (dequantized) within one

@@ -1,8 +1,9 @@
 """The serving kernels' limits as the port states them on the CPU: the row
 groups the fused verify tail (B8) launches over, the limits of the paged
 adapter delta (B9), of the chunked prefill over either pool (B6, B6-int8)
-and of the paged decode (B5) that the engine checks when it is built on
-the card, and the plain path, which has none of these limits.
+of the paged decode (B5), of the int8 dequant matmul (B4) and of the
+verify tail's width (B8) that the engine checks when it is built on the
+card, and the plain path, which has none of these limits.
 
 These are pure functions of shapes and dtypes (and tiny CPU engines),
 so they run here; the card's side (an engine past B9's limits refused at
@@ -17,8 +18,11 @@ import pytest
 import torch
 
 from trustworthy_dl_tpu_torch.models import gpt2
+from trustworthy_dl_tpu_torch.ops import fused_dequant_matmul as fdm
 from trustworthy_dl_tpu_torch.ops import paged_attention as pa
+from trustworthy_dl_tpu_torch.quant import int8 as q8
 from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+from trustworthy_dl_tpu_torch.utils import dequant_ab
 
 pytestmark = pytest.mark.torchport
 
@@ -290,3 +294,131 @@ def test_plain_bf16_engine_serves_at_block_128():
     assert results[rid].status == "completed"
     assert len(results[rid].tokens) == 5
     assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
+
+
+# B4: bf16 x, K and N multiples of 16; the engine reads the same function
+# for each of its four block matrices whenever it reaches B4.
+
+
+@pytest.mark.parametrize("k,n,dtype,needle", [
+    (768, 768, torch.float32, "x must be bf16"),
+    (768, 768, torch.float16, "x must be bf16"),
+    (40, 768, torch.bfloat16, "K=40"),
+    (768, 40, torch.bfloat16, "N=40"),
+    (0, 768, torch.bfloat16, "K=0"),
+    (768, 8, torch.bfloat16, "N=8"),
+    (100, 400, torch.bfloat16, "K=100"),
+])
+def test_dequant_kernel_limit_names_what_it_refuses(k, n, dtype, needle):
+    reason = fdm.dequant_kernel_limit(k, n, dtype)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("n_embd", [32, 64, 80, 96, 768])
+def test_dequant_kernel_limit_takes_the_block_matrices(n_embd):
+    """GPT-2 small's four matrices and n_embd 32/64/80/96 (80 and 96 are
+    not multiples of 64, which the previous kernel needed) at bf16."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=1,
+                          n_embd=n_embd, n_head=2, dtype=torch.bfloat16)
+    shapes = q8.block_matrix_shapes(cfg)
+    assert sorted(shapes.values()) == sorted(
+        [(n_embd, 3 * n_embd), (n_embd, n_embd), (n_embd, 4 * n_embd),
+         (4 * n_embd, n_embd)])
+    for k, n in shapes.values():
+        assert fdm.dequant_kernel_limit(k, n, torch.bfloat16) is None
+
+
+@pytest.mark.parametrize("n_embd,n_head,dtype", [
+    (768, 12, torch.bfloat16), (96, 2, torch.bfloat16),
+    (96, 2, torch.float32), (40, 2, torch.bfloat16), (72, 4, torch.bfloat16),
+])
+@pytest.mark.parametrize("weight_dtype,spec_k", [("model", 0), ("int8", 0),
+                                                 ("model", 4), ("int8", 4)])
+def test_dequant_engine_limit_refuses_exactly_what_the_wrapper_would(
+        n_embd, n_head, dtype, weight_dtype, spec_k):
+    """The engine's predicate is None when the engine never reaches B4
+    (model-dtype weights, no draft) and otherwise names the first block
+    matrix the wrapper's limit refuses, or None when it refuses none."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=1,
+                          n_embd=n_embd, n_head=n_head, dtype=dtype)
+    got = q8.dequant_engine_limit(cfg, weight_dtype, spec_k)
+    if weight_dtype == "model" and spec_k == 0:
+        assert got is None
+        return
+    refused = [(name, fdm.dequant_kernel_limit(k, n, dtype))
+               for name, (k, n) in q8.block_matrix_shapes(cfg).items()
+               if fdm.dequant_kernel_limit(k, n, dtype) is not None]
+    if not refused:
+        assert got is None
+    else:
+        name, reason = refused[0]
+        assert got.startswith(name) and got.endswith(reason)
+
+
+@pytest.mark.parametrize("d,dtype,needle", [
+    (768, torch.float32, "bf16"), (40, torch.bfloat16, "D=40"),
+    (0, torch.bfloat16, "D=0"), (8, torch.bfloat16, "D=8"),
+])
+def test_verify_kernel_limit_names_what_it_refuses(d, dtype, needle):
+    reason = pa.verify_kernel_limit(d, dtype)
+    assert reason is not None and needle in reason
+
+
+@pytest.mark.parametrize("d", [16, 48, 96, 768, 1024])
+def test_verify_kernel_limit_takes_multiples_of_16(d):
+    assert pa.verify_kernel_limit(d, torch.bfloat16) is None
+
+
+@pytest.mark.parametrize("n_embd,dtype", [
+    (768, torch.bfloat16), (96, torch.bfloat16), (40, torch.bfloat16),
+    (72, torch.bfloat16), (768, torch.float32), (96, torch.float16),
+])
+def test_spec_engine_that_b4_takes_b8_takes(n_embd, dtype):
+    """A ``spec_k > 0`` engine reaches B8 with D = n_embd; the engine checks
+    only B4's limits at construction, which already hold B8's: every
+    configuration B4's predicate takes, B8's limit takes too."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=1,
+                          n_embd=n_embd, n_head=2, dtype=dtype)
+    if q8.dequant_engine_limit(cfg, "model", 4) is None:
+        assert pa.verify_kernel_limit(n_embd, dtype) is None
+
+
+def test_dequant_ab_cases_and_tolerance():
+    """``utils/dequant_ab``'s cases import without a card: GPT-2 small's
+    four matrices at M = 1, 8, 16, 64 and 320, n_embd 96's two at M = 8
+    (shapes the parent's 64-multiple kernel refused), the smoke's bound,
+    and a bound that is the weight's bytes at M = 8."""
+    labels = [c[0] for c in dequant_ab.CASES]
+    assert len(labels) == len(set(labels)) == 4 * 5 + 2
+    for _, k, n, m in dequant_ab.CASES:
+        assert fdm.dequant_kernel_limit(k, n, torch.bfloat16) is None
+        assert m >= 1
+    d96 = [(k, n) for label, k, n, _ in dequant_ab.CASES
+           if label.startswith("d96")]
+    assert d96 == [(96, 288), (384, 96)]
+    assert all(k % 64 or n % 64 for k, n in d96)
+    assert dequant_ab.DQ_RTOL == 1e-5
+    assert dequant_ab.bound_ms(8, 3072, 768) == pytest.approx(
+        (3072 * 768 + 4 * 768 + 2 * 8 * 3072 + 4 * 8 * 768) / 3.35e12 * 1e3)
+
+
+def test_plain_engine_serves_d96_int8_weights_and_spec():
+    """On the CPU the plain twins take any width; a bf16 n_embd 96 engine
+    with int8 weights and one with ``spec_k=4`` build and serve, launching
+    nothing (the card's kernels take these widths too)."""
+    cfg = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=2,
+                          n_embd=96, n_head=2, dtype=torch.bfloat16)
+    assert q8.dequant_engine_limit(cfg, "int8", 4) is None
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    for knobs in (dict(weight_dtype="int8"), dict(spec_k=4)):
+        pa.reset_launch_counts()
+        fdm.dequant_matmul.launches = 0
+        engine = ServingEngine(params, cfg, max_slots=2, max_seq=48,
+                               block_size=8, device="cpu", **knobs)
+        rid = engine.submit(ServeRequest(prompt=[3, 1, 4, 1, 5, 9, 2, 6],
+                                         max_new_tokens=5))
+        results = engine.run_until_idle()
+        assert results[rid].status == "completed"
+        assert len(results[rid].tokens) == 5
+        assert all(fn.launches == 0 for fn in pa.KERNEL_WRAPPERS)
+        assert fdm.dequant_matmul.launches == 0

@@ -156,7 +156,8 @@
 // GFLOP, ~3 us at 989 TFLOP/s against ~26 us of bytes.  Design: a CTA
 // keeps all B (<= 96) rows of normed resident in shared memory and walks
 // 128-column vocab tiles (grid-stride, as many CTAs as fit on the card);
-// each tile's head rows stream in 64-deep K chunks through WMMA bf16
+// each tile's head rows stream in 64-deep K chunks (the last one shorter
+// where D is a multiple of 16 but not of 64) through WMMA bf16
 // products with f32 accumulation (8 warps, 16 columns each); the tile is
 // staged in shared memory, rounded to bf16, written, and reduced per row
 // into partials (m, sum e, sum x e, top1, top2) - columns at or past V are
@@ -1315,11 +1316,14 @@ __global__ void __launch_bounds__(VT_THREADS) verify_tail_kernel(
 #pragma unroll
     for (int f = 0; f < VT_MAX_FR; ++f) wmma::fill_fragment(acc[f], 0.f);
     for (int k0 = 0; k0 < D; k0 += VT_KC) {
-      // Head rows v0.. of this K chunk: [VT_COLS, VT_KC] bf16; rows at or
-      // past V load as zeros (their columns never reach the output).
-      for (int i = tid; i < VT_COLS * (VT_KC / 8); i += VT_THREADS) {
-        const int c = i / (VT_KC / 8);
-        const int kk = (i % (VT_KC / 8)) * 8;
+      // Head rows v0.. of this K chunk: [VT_COLS, kc] bf16 (the last chunk
+      // of a D that is not a multiple of VT_KC is short); rows at or past
+      // V load as zeros (their columns never reach the output).
+      const int kc = min(VT_KC, D - k0);
+      const int vpr = kc / 8;
+      for (int i = tid; i < VT_COLS * vpr; i += VT_THREADS) {
+        const int c = i / vpr;
+        const int kk = (i % vpr) * 8;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (v0 + c < V)
           v = *reinterpret_cast<const uint4*>(head + (size_t)(v0 + c) * D +
@@ -1329,6 +1333,7 @@ __global__ void __launch_bounds__(VT_THREADS) verify_tail_kernel(
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < VT_KC; kk += 16) {
+        if (kk >= kc) break;
         // B = head^T: element (k, n) = w_s[n * VT_LDW + k], column-major.
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                        wmma::col_major> bf;
@@ -1480,11 +1485,11 @@ int tddl_trust_stats(const void* logits, void* entropy, void* margin, int B,
 
 // B8: normed bf16 [B, D] x head bf16 [V, D] -> logits f32 [B, V] (rounded
 // through bf16), entropy [B], margin [B]; partials f32 [B, ntiles, 5] is
-// scratch.  B <= 96, D % 64 == 0.
+// scratch.  B <= 96, D % 16 == 0.
 int tddl_verify_tail(const void* normed, const void* head, void* logits,
                      void* partials, void* entropy, void* margin, int B,
                      int D, int V, void* stream) {
-  if (B < 1 || B > 16 * VT_MAX_FR || D < VT_KC || D % VT_KC || V < 1)
+  if (B < 1 || B > 16 * VT_MAX_FR || D < 16 || D % 16 || V < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bp = (B + 15) / 16 * 16;

@@ -393,9 +393,10 @@ logit_trust_stats.launches = 0
 #: Most rows one launch of the verify-tail kernel takes; the wrapper
 #: covers any B with one launch per group of at most this many rows.
 VERIFY_MAX_ROWS = 96
-#: The verify-tail kernel's vocab tile and K chunk.
+#: The verify-tail kernel's vocab tile, and the multiple D must be (its
+#: K chunks are 64 deep, the last one shorter).
 VERIFY_TILE_COLS = 128
-VERIFY_K_CHUNK = 64
+VERIFY_D_MULTIPLE = 16
 
 
 def fused_verify_tail_plain(normed: torch.Tensor, head: torch.Tensor
@@ -418,6 +419,20 @@ def verify_row_groups(b: int) -> List[Tuple[int, int]]:
             for s in range(0, b, VERIFY_MAX_ROWS)]
 
 
+def verify_kernel_limit(d: int, dtype: torch.dtype) -> Optional[str]:
+    """Why B8 cannot take width ``d`` with ``normed`` and the head in
+    ``dtype``, or None when it can: bf16, D a positive multiple of
+    :data:`VERIFY_D_MULTIPLE` (any B, one launch per row group).  A
+    ``spec_k > 0`` engine on the card passes it whenever it passes B4's
+    limits at construction (``quant.int8.dequant_engine_limit``: bf16,
+    n_embd a multiple of 16)."""
+    if dtype != torch.bfloat16:
+        return f"the verify tail takes bf16 on the card, got {dtype}"
+    if d < 1 or d % VERIFY_D_MULTIPLE:
+        return f"D={d} must be a positive multiple of {VERIFY_D_MULTIPLE}"
+    return None
+
+
 def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The speculative-verify tail (B8) in one pass over the vocab:
@@ -427,7 +442,7 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
     while on chip; the margin equals top-2 of the returned logits bit for
     bit.  Rows are independent, so any B runs as one launch per
     :func:`verify_row_groups` slice, each writing its rows of the outputs.
-    The kernel takes bf16 and D a multiple of :data:`VERIFY_K_CHUNK`."""
+    The kernel's limits are :func:`verify_kernel_limit`."""
     if not on_cuda(normed, "fused_verify_tail"):
         return fused_verify_tail_plain(normed, head)
     if normed.dim() != 2 or head.dim() != 2 or head.shape[1] != normed.shape[1]:
@@ -435,12 +450,14 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
                          f"got {tuple(normed.shape)} and {tuple(head.shape)}")
     b, d = normed.shape
     v = head.shape[0]
-    if normed.dtype != torch.bfloat16 or head.dtype != torch.bfloat16:
-        raise ValueError("fused_verify_tail: the kernel takes bf16, got "
-                         f"{normed.dtype} and {head.dtype}")
-    if b < 1 or d % VERIFY_K_CHUNK:
-        raise ValueError(f"fused_verify_tail: B={b} must be >= 1 and D={d} "
-                         f"a multiple of {VERIFY_K_CHUNK}")
+    if head.dtype != normed.dtype:
+        raise ValueError("fused_verify_tail: normed and head must share a "
+                         f"dtype, got {normed.dtype} and {head.dtype}")
+    limit = verify_kernel_limit(d, normed.dtype)
+    if limit is not None:
+        raise ValueError(f"fused_verify_tail: {limit}")
+    if b < 1:
+        raise ValueError(f"fused_verify_tail: B={b} must be >= 1")
     for name, a in (("normed", normed), ("head", head)):
         if (a.device != normed.device or not a.is_contiguous()
                 or a.data_ptr() % 16):
@@ -627,5 +644,5 @@ __all__ = [
     "paged_attention_plain", "paged_prefill_attention",
     "paged_prefill_attention_int8", "paged_prefill_attention_plain",
     "prefill_int8_kernel_limit", "prefill_kernel_limit",
-    "reset_launch_counts", "verify_row_groups",
+    "reset_launch_counts", "verify_kernel_limit", "verify_row_groups",
 ]

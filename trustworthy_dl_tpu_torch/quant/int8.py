@@ -28,7 +28,8 @@ import torch
 
 from trustworthy_dl_tpu_torch.models import gpt2
 from trustworthy_dl_tpu_torch.models import layers as L
-from trustworthy_dl_tpu_torch.ops.fused_dequant_matmul import dequant_matmul
+from trustworthy_dl_tpu_torch.ops.fused_dequant_matmul import (
+    dequant_kernel_limit, dequant_matmul)
 
 logger = logging.getLogger(__name__)
 
@@ -130,6 +131,29 @@ def qdense(d: Params, x: torch.Tensor,
 
 _MATRICES = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc"),
              ("mlp", "proj"))
+
+
+def block_matrix_shapes(cfg: gpt2.GPT2Config) -> Dict[str, Tuple[int, int]]:
+    """``[in, out]`` of the four block matrices the int8 tier quantizes."""
+    d = cfg.n_embd
+    return {"qkv": (d, 3 * d), "attn_proj": (d, d), "fc": (d, 4 * d),
+            "mlp_proj": (4 * d, d)}
+
+
+def dequant_engine_limit(cfg: gpt2.GPT2Config, weight_dtype: str,
+                         spec_k: int) -> Optional[str]:
+    """Why an engine on the card cannot run B4, or None when it can or
+    never reaches it.  B4 runs every int8 block matrix: under
+    ``weight_dtype="int8"`` and in the int8 self-draft of ``spec_k > 0``,
+    with ``x`` in the compute dtype.  A pure function of its arguments
+    (``ServingEngine`` reads it before it allocates anything)."""
+    if weight_dtype != "int8" and spec_k <= 0:
+        return None
+    for name, (k, n) in block_matrix_shapes(cfg).items():
+        limit = dequant_kernel_limit(k, n, cfg.dtype)
+        if limit is not None:
+            return f"{name} [{k}, {n}]: {limit}"
+    return None
 
 
 def quantize_decode_view(params: Params, cfg: gpt2.GPT2Config,
@@ -245,7 +269,8 @@ def kv_parity_probe(view: Params, cfg: gpt2.GPT2Config, prompt_len: int = 8,
 
 __all__ = [
     "KV_DTYPES", "PARITY_MARGIN_TOL", "QMAX", "WEIGHT_DTYPES",
-    "dequantize_int8", "draft_decode_view", "is_quantized_dense",
+    "block_matrix_shapes", "dequant_engine_limit", "dequantize_int8",
+    "draft_decode_view", "is_quantized_dense",
     "kv_parity_probe", "kv_parity_report", "qdense", "quantize_decode_view",
     "quantize_dense", "quantize_int8", "quantize_kv", "resolve_kv_dtype",
     "validate_dtypes", "weight_roundtrip_errors",

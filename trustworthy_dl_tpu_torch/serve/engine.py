@@ -202,6 +202,13 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"the paged decode kernel's limits refuse "
                                  f"this model: {limit}")
+        if self.device.type == "cuda":
+            # B4's limits: every int8 block matrix (the int8 weight tier
+            # and the int8 self-draft) goes through it whatever attn_impl.
+            limit = q8.dequant_engine_limit(cfg, weight_dtype, spec_k)
+            if limit is not None:
+                raise ValueError(f"the int8 dequant matmul's limits refuse "
+                                 f"this model: {limit}")
         self.cfg = cfg
         self.spec_k = int(spec_k)
         self.kv_fallback_reason: Optional[str] = None

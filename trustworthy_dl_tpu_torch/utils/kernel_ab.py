@@ -9,7 +9,8 @@ order (this, other, other, this, ...) with the L2 cache flushed before
 every launch: the median of per-launch CUDA-event timings (``ms``, which
 also holds the host's dispatch whenever the card waits for it) and the
 profiler's device time of every kernel of one call but the flush's
-(``device_ms``).  Needs a CUDA card.
+(``device_ms``), from a session that recorded every launch.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import statistics
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -81,33 +82,69 @@ def event_ms(fn: Callable, flush: torch.Tensor, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn: Callable, flush: torch.Tensor, reps: int) -> float:
-    """Device ms per call of every kernel but the flush's (profiler)."""
+#: Profiler sessions a device time may take: a session now and then
+#: records none of a cluster-launched kernel's runs (seen with B4's
+#: ``cudaLaunchKernelEx`` launches), and is then taken again.
+PROFILE_ATTEMPTS = 4
+
+
+def device_ms(fn: Callable, flush: torch.Tensor, reps: int,
+              kernel: Optional[str] = None,
+              launches: Optional[int] = None) -> float:
+    """Device ms per call over ``reps`` calls, the L2 flushed before each
+    (profiler): of the kernels whose name holds ``kernel``, else of every
+    kernel but the flush's.  A session counts only when it recorded every
+    launch: exactly ``launches`` a call, or, where ``launches`` is None (a
+    library call, whose kernels are the library's choice), each kernel a
+    whole number of times a call and as often as in the session before
+    it.  A session that does not count is taken again, up to
+    :data:`PROFILE_ATTEMPTS` sessions; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_us(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and "FillFunctor" not in e.key) / reps / 1e3
+    previous = None
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and (kernel in e.key if kernel is not None
+                      else "FillFunctor" not in e.key)]
+        counts = {e.key: e.count for e in found}
+        if launches is not None:
+            whole = sum(counts.values()) == reps * launches
+        else:
+            whole = (bool(counts) and counts == previous
+                     and all(c % reps == 0 for c in counts.values()))
+            previous = counts
+        if whole:
+            return sum(device_us(e) for e in found) / reps / 1e3
+    want = (f"{launches} a call" if launches is not None
+            else "the same in two sessions running")
+    raise RuntimeError(f"the profiler recorded {counts} over {reps} calls "
+                       f"of {kernel or 'the call'}, want {want}, in "
+                       f"{PROFILE_ATTEMPTS} sessions")
 
 
 def in_turns(arms: Dict[str, Callable], order: Iterable[str],
-             flush: torch.Tensor, reps: int) -> Dict[str, List[float]]:
+             flush: torch.Tensor, reps: int,
+             launches: Optional[Dict[str, int]] = None
+             ) -> Dict[str, List[float]]:
     """``{name}_ms`` and ``{name}_device_ms``, one entry per turn of
-    ``name`` in ``order``."""
+    ``name`` in ``order``; ``launches`` gives an arm's kernel launches a
+    call where it is known (see :func:`device_ms`)."""
+    launches = launches or {}
     record: Dict[str, List[float]] = {}
     for name in order:
         record.setdefault(f"{name}_ms", []).append(
             event_ms(arms[name], flush, reps))
         record.setdefault(f"{name}_device_ms", []).append(
-            device_ms(arms[name], flush, reps))
+            device_ms(arms[name], flush, reps, launches=launches.get(name)))
     return record
 
 
@@ -118,5 +155,5 @@ def card_line() -> str:
                           text=True).stdout.strip()
 
 
-__all__ = ["FLUSH_BYTES", "card_line", "device_ms", "event_ms",
-           "flush_buffer", "in_turns", "other_library"]
+__all__ = ["FLUSH_BYTES", "PROFILE_ATTEMPTS", "card_line", "device_ms",
+           "event_ms", "flush_buffer", "in_turns", "other_library"]
