@@ -22,8 +22,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
    with ``tflops``), B6 also over 128-position blocks (``block128``),
    B6-int8 also from position 0 and as a 64-row chunk, B5-int8 also at
-   the verify window (T = 5); B2, B5 and B6 (both pools) and B9 also with
-   the profiler's device time.
+   the verify window (T = 5); B2, B3, B5 and B6 (both pools) and B9 also
+   with the profiler's device time (B3's beside SDPA's whole backward's).
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -1193,12 +1193,14 @@ def check_train_kernels(torch, entries):
     """Phase 3, training kernels: B1 over the 16 gradient leaves of GPT-2
     small on each of 4 nodes (one launch, 64 segments), B2 and B3 at one
     node's attention shape [96, 1024, 64] bf16 (B3 from the new B2's
-    ``lse``), and B2 at D = 32 and 128 (``cases``, T = 1024)."""
+    ``lse``; each with the profiler's ``device_ms``, B3's beside SDPA's
+    whole backward), and B2 at D = 32 and 128 (``cases``, T = 1024)."""
     import torch.nn.functional as F
 
     from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.ops import flash_attention as fa
     from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
     from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
     dev = torch.device("cuda")
@@ -1290,8 +1292,12 @@ def check_train_kernels(torch, entries):
     q4, k4, v4 = (a.reshape(1, bh, t, d).clone().requires_grad_()
                   for a in (q, k, v))
     out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out4, (q4, k4, v4), do.view(1, bh, t, d), retain_graph=True), flush)
+
+    def sdpa_bwd_call():
+        return torch.autograd.grad(out4, (q4, k4, v4), do.view(1, bh, t, d),
+                                   retain_graph=True)
+
+    sdpa_bwd = time_ms(torch, sdpa_bwd_call, flush)
     sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q4.detach(), k4.detach(), v4.detach(), is_causal=True), flush)
     tile = bh * t * d * 2
@@ -1329,6 +1335,16 @@ def check_train_kernels(torch, entries):
     # holds the wrapper's host dispatch whenever the card waits for it.
     fwd["device_ms"] = device_ms(lambda: fa.flash_attention_fwd(q, k, v),
                                  flush, "flash_fwd_kernel")
+    # B3 likewise; the yardstick is SDPA's whole backward (every kernel of
+    # it), which computes dq, dk and dv together.
+    sdpa_bwd_device = kernel_ab.device_ms(sdpa_bwd_call, flush, 25)
+    for name, kernel, fn in (
+            ("flash_attention_bwd_dq", "flash_dq_kernel",
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+            ("flash_attention_bwd_dkv", "flash_dkv_kernel",
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
+        entries[name]["device_ms"] = device_ms(fn, flush, kernel)
+        entries[name]["library_device_ms"] = sdpa_bwd_device
     del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, out4
     # B2 at the other head widths the kernel is built for, at T = 1024:
     # the same checks and yardstick, one entry each under ``cases``.

@@ -7,7 +7,12 @@ Inputs are made with numpy from a seed and fed to both packages.
 Tolerances: o within 2e-5 and lse within 1e-5 of the JAX forward kernel
 (f32, only the summation order differs: one softmax over the row against
 the kernel's online rescaling across key tiles); dq, dk, dv within 1e-4 of
-``jax.grad`` through the JAX kernels (three chained products).
+``jax.grad`` through the JAX kernels (three chained products).  The bf16
+backward twins against ``_flash_bwd``'s two kernels given the same bf16
+inputs, o and lse: atol 2e-3 + rtol 2^-7, the card's kernel-vs-twin
+tolerance (both round P and dS to bf16 before the same products; only the
+f32 summation order differs), so a kernel held to the twin on the card is
+held to the JAX kernels too.
 """
 
 import importlib
@@ -72,6 +77,31 @@ def test_autograd_matches_jax_grad_through_pallas(shape):
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("bh,t,d", [(2, 128, 16), (2, 192, 64)])
+def test_bf16_backward_twins_match_pallas_kernels(bh, t, d):
+    rng = np.random.default_rng(3)
+    # bf16 values, rounded once by torch and handed to both packages.
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, t, d)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    as_jax = lambda a: jnp.asarray(a.float().numpy()).astype(  # noqa: E731
+        jnp.bfloat16)
+    jq, jk, jv, jdo = (as_jax(a) for a in (q, k, v, do))
+    bq, bk = jfa._blocks_for(t)
+    jo, jlse = jfa._flash_fwd(jq, jk, jv, True, bq, bk, True)
+    ref = jfa._flash_bwd(jq, jk, jv, jo, jlse, jdo, True, bq, bk, True)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).to(
+        torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    for got, want in zip((dq, dk, dv), ref):
+        want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want, atol=2e-3,
+                                   rtol=2.0 ** -7)
 
 
 def test_auto_predicate_around_the_threshold():

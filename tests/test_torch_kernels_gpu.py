@@ -2,7 +2,7 @@
 an int8 pool, B5's bf16-query split-K kernel at the edges of its spans,
 B7 trust epilogue, B8 fused verify tail, B9 paged adapter delta; B4 int8
 dequant matmul; B1 moment battery; B2/B3 flash attention
-forward and backward)
+forward and backward, B3 also run twice for the same bits)
 against their plain PyTorch twins, on the card, the detector baseline's
 tensors following the card, and the serving engine at the kernels' limits
 (B8 past one launch's rows, B9 past its rank, an int8-KV engine past
@@ -145,20 +145,22 @@ def test_moments_kernel_matches_plain(cuda):
                                equal_nan=True)
 
 
+def _flash_inputs(device, bh, t, d, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(bh, t, d, device=device, generator=gen).to(
+        torch.bfloat16) for _ in range(4)]
+
+
 @pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (2, 64, 32), (4, 192, 64),
                                     (2, 128, 128), (5, 320, 128),
-                                    (96, 1024, 64)])
+                                    (96, 1024, 64), (3, 320, 16),
+                                    (2, 1024, 128)])
 def test_flash_kernels_match_plain(cuda, bh, t, d):
     """B2 and B3 (dq, dk/dv) in bf16 against their plain twins: within
     atol 2e-3 + rtol 2^-7; lse within 1e-3 (f32 over a bf16 product).
-    Every D of ``HEAD_DIMS``, a single tile, and an odd tile count."""
-    gen = torch.Generator(device=cuda).manual_seed(4)
-
-    def mk():
-        return torch.randn(bh, t, d, device=cuda, generator=gen).to(
-            torch.bfloat16)
-
-    q, k, v, do = mk(), mk(), mk(), mk()
+    Every D of ``HEAD_DIMS``, a single tile, odd tile counts (at the
+    smallest and the largest D), and D = 128 at the train length."""
+    q, k, v, do = _flash_inputs(cuda, bh, t, d, 4)
     counts = [fa.flash_attention_fwd.launches,
               fa.flash_attention_bwd_dq.launches,
               fa.flash_attention_bwd_dkv.launches]
@@ -179,6 +181,22 @@ def test_flash_kernels_match_plain(cuda, bh, t, d):
                                                            delta))):
         torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
                                    rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("bh,t,d", [(4, 192, 64), (2, 1024, 128)])
+def test_flash_backward_kernels_are_deterministic(cuda, bh, t, d):
+    """dq and dk/dv take no atomics and each writes only its own rows:
+    two calls on the same inputs give the same bits."""
+    q, k, v, do = _flash_inputs(cuda, bh, t, d, 6)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    first = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    second = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+              *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_matches_full_attention(cuda):

@@ -50,16 +50,38 @@
 //     launch bounds ask for 4 CTAs (16 warps) an SM, at D = 128 for 2.
 //   128-row CTAs of 8 warps and a 3-stage ring measured slower in device
 //   time on the H100 (PERF.md, B2's redesign), so the forward keeps these.
-// dq and dk/dv (B3) keep the first port's design: 64-row tiles staged in
-// shared memory with 16-byte loads, WMMA products (bf16 in, f32 out), the
-// score strips in f32 shared memory, their sums in WMMA accumulators
-// across the whole loop; no atomics: dq and dk/dv are separate kernels,
-// each writing only its own rows, so results are the same on every run.
+// dq and dk/dv (B3) are two kernels of the same shape, as the TPU package
+// splits them: no atomics, each writes only its own rows, so results are
+// the same bit for bit on every run.  Both recompute S and dP (7 products
+// against a fused backward's 5).  At [96, 1024, 64] the products bound them:
+// ~19.4 us (dq, 3 products) and ~25.9 us (dk/dv, 4) at 989 TFLOP/s.
+//   * dq: one CTA of four warps per (64-row query tile, batch*head), tiles
+//     longest-first; each warp's Q and dO A-fragments, and its two rows'
+//     lse (log2 units) and Delta, stay in registers; K and V come through
+//     the 2-stage cp.async ring.  S = Q.K^T and dP = dO.V^T on mma.sync
+//     (K's and V's B-fragments by ldmatrix); P = exp2(fma(s, scale log2 e,
+//     -lse log2 e)) and dS = P o (dP - Delta) in registers; dS's C tiles,
+//     rounded to bf16 pairs, are the A-fragments of dQ += dS.K (K by
+//     ldmatrix.trans).  dq stays in f32 registers and is scaled once.
+//   * dk/dv: one CTA per (64-row key tile, batch*head), key tile 0 (the
+//     longest walk) first; K and V A-fragments in registers; Q, dO and
+//     the query tile's 64 lse and 64 Delta values through the ring.  The
+//     scores are transposed (S^T = K.Q^T, dP^T = V.dO^T), so a lane reads
+//     lse and Delta for its fragment columns as float2 from the staged
+//     rows, and the diagonal tile masks key row > query column.  P^T
+//     (rounded to bf16, as the plain twin rounds P before P^T.dO) and
+//     dS^T are the A-fragments of dV += P^T.dO and dK += dS^T.Q (dO and Q
+//     by ldmatrix.trans); both accumulators stay in f32 registers.
+//   * D = 128 does not fit that in 255 registers: there the fixed
+//     fragments are read again from their tile each step, and dk/dv runs
+//     a tile's 64 queries as two groups of 32 (Bwd below; PERF.md has
+//     ptxas's registers and spills for every instance).
+//   * both epilogues stage bf16 rows in the warp's own rows of a tile it
+//     alone reads and write 16-byte coalesced rows.
 // TMA, wgmma and warp specialisation are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <math.h>
 #include <stdint.h>
@@ -69,87 +91,21 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 using namespace mma_sm90;
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TILE = 64;        // query and key tile rows
 constexpr int WARPS = 4;        // 16 rows each
 constexpr int THREADS = WARPS * 32;
-constexpr int LDS = TILE + 4;   // f32 [64 x 64] score row stride
-constexpr int LDP = TILE + 8;   // bf16 [64 x 64] probability row stride
 
 template <int D>
 struct Dims {
   static constexpr int LDB = D + 8;  // bf16 [64 x D] tile row stride
-  static constexpr int LDO = D + 4;  // f32 [64 x D] accumulator row stride
   static constexpr size_t TILE_BYTES = sizeof(bf16) * TILE * LDB;
-  static constexpr size_t SCORE_BYTES = sizeof(float) * TILE * LDS;
-  static constexpr size_t PROB_BYTES = sizeof(bf16) * TILE * LDP;
   static constexpr size_t ROW_BYTES = sizeof(float) * TILE;
   static constexpr size_t FWD_SMEM = 5 * TILE_BYTES;  // Q + 2 x (K, V)
-  static constexpr size_t BWD_SMEM =
-      4 * TILE_BYTES + 2 * SCORE_BYTES + 2 * PROB_BYTES + 2 * ROW_BYTES;
 };
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow =
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// [64, D] rows of a [*, D] global array -> shared tile with row stride LDB.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < TILE * VPR; i += THREADS) {
-    const int r = i / VPR;
-    const int c = i % VPR;
-    *reinterpret_cast<uint4*>(dst + r * Dims<D>::LDB + c * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
-  }
-}
-
-// out[16 x 64] (f32, stride LDS) = A[16 x D] . B[64 x D]^T, A and B row-major
-// bf16 tiles with stride LDB: one warp's strip of a score-shaped product.
-template <int D>
-__device__ __forceinline__ void strip_abt(float* out, const bf16* a,
-                                          const bf16* b) {
-  constexpr int LDB = Dims<D>::LDB;
-#pragma unroll
-  for (int j = 0; j < TILE / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDB);
-      wmma::load_matrix_sync(fb, b + (j * 16) * LDB + kk * 16, LDB);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[j] += P[16 x 64] (bf16, stride LDP) . M[64 x D] (bf16, stride LDB).
-template <int D>
-__device__ __forceinline__ void strip_pm(FragC* acc, const bf16* p,
-                                         const bf16* m) {
-  constexpr int LDB = Dims<D>::LDB;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, p + kk * 16, LDP);
-      wmma::load_matrix_sync(fb, m + (kk * 16) * LDB + j * 16, LDB);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // B2: forward.  grid (T/64, BH); query tiles run longest-first.
@@ -165,6 +121,22 @@ __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src) {
     const int r = i / VPR;
     const int c = i % VPR;
     cp_async16(dst + r * Dims<D>::LDB + c * 8, src + (size_t)r * D + c * 8);
+  }
+}
+
+// Writes 16 rows of bf16 staged at `stage` (row stride D + 8) to a [*, D]
+// global array with 16-byte coalesced stores; one warp.
+template <int D>
+__device__ __forceinline__ void store_staged(bf16* dst, const bf16* stage,
+                                             int lane) {
+  constexpr int VPR = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * VPR / 32; ++it) {
+    const int i = lane + it * 32;
+    const int r = i / VPR;
+    const int c = i % VPR;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * D + c * 8) =
+        *reinterpret_cast<const uint4*>(stage + r * Dims<D>::LDB + c * 8);
   }
 }
 
@@ -328,16 +300,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
         pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
   }
   __syncwarp();
-  constexpr int VPR = D / 8;
-  bf16* out = o + head + (size_t)(qi * TILE + r0) * D;
-#pragma unroll
-  for (int it = 0; it < 16 * VPR / 32; ++it) {
-    const int i = lane + it * 32;
-    const int r = i / VPR;
-    const int c = i % VPR;
-    *reinterpret_cast<uint4*>(out + (size_t)r * D + c * 8) =
-        *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
-  }
+  store_staged<D>(o + head + (size_t)(qi * TILE + r0) * D, stage, lane);
   if ((lane & 3) == 0) {
     float* lrow_out = lse + (size_t)blockIdx.y * T + qi * TILE + r0;
     lrow_out[g] = (m0 + log2f(l0)) * LN2;
@@ -345,171 +308,371 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
   }
 }
 
-// Writes a warp's 16 x D f32 accumulator rows, times `mul`, as bf16 rows of
-// a [*, D] global array, staging them through `stage` (stride LDO).
+// ---------------------------------------------------------------------------
+// B3: backward, as two kernels of B2's shape.  Each warp owns 16 rows for
+// the whole loop; its fixed A-fragments (Q and dO in dq, K and V in dk/dv)
+// sit in registers where they fit (Bwd::HOLD) and are read again from their
+// shared tile each step where they do not; the streamed operand comes
+// through a 2-stage cp.async ring with one barrier a tile.
+// ---------------------------------------------------------------------------
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, FragC* acc, float mul,
-                                           float* stage) {
-  using Dm = Dims<D>;
-  const int lane = threadIdx.x & 31;
+struct Bwd {
+  // D = 128's accumulators alone are 64 (dq) or 128 (dk/dv) f32 a thread:
+  // its fixed fragments are reloaded by ldmatrix each step, and dk/dv runs
+  // the tile's 64 queries as two groups of 32 to halve its live scores.
+  // ptxas (CUDA 12.8): dq 114 / 128 / 166 / 242 and dk/dv 132 / 158 / 242
+  // / 255 registers at D = 16 / 32 / 64 / 128, 0 spill bytes.  On the
+  // H100, dq at D = 64 with 2 CTAs an SM (224 registers) took 9% longer,
+  // and dk/dv with K and V reloaded at 3 CTAs 5% longer (PERF.md, B3).
+  static constexpr bool HOLD = D <= 64;
+  static constexpr int DKV_GROUPS = D == 128 ? 2 : 1;
+  static constexpr int DQ_MINB = D <= 32 ? 4 : (D == 64 ? 3 : 2);
+  static constexpr int DKV_MINB = D <= 32 ? 3 : 2;
+  // dq: Q + dO + 2 x (K, V); dk/dv: K + V + 2 x (Q, dO, lse and Delta).
+  static constexpr size_t DQ_SMEM = 6 * Dims<D>::TILE_BYTES;
+  static constexpr size_t DKV_SMEM =
+      6 * Dims<D>::TILE_BYTES + 4 * Dims<D>::ROW_BYTES;
+};
+
+// acc[n] x `mul` as bf16 into this warp's 16 staged rows (C-tile layout).
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* stage, float (*acc)[4],
+                                           float mul, int g, int c2) {
+  constexpr int LD = Dims<D>::LDB;
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    for (int i = 0; i < acc[j].num_elements; ++i) acc[j].x[i] *= mul;
-    wmma::store_matrix_sync(stage + j * 16, acc[j], Dm::LDO,
-                            wmma::mem_row_major);
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + n * 8 + c2) =
+        pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + n * 8 + c2) =
+        pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
   }
-  __syncwarp();
-  for (int r = 0; r < 16; ++r)
-    for (int d = lane; d < D; d += 32)
-      dst[(size_t)r * D + d] = __float2bfloat16(stage[r * Dm::LDO + d]);
-  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
-// B3, dq: grid (T/64, BH).  dQ = scale * (P o (dO.V^T - Delta)) . K.
+// B3, dq: grid (T/64, BH), query tiles longest-first.
+// dQ = scale * (P o (dO.V^T - Delta)) . K over the key tiles at and below
+// the diagonal; K and V through the ring.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int T, float scale) {
-  using Dm = Dims<D>;
+  constexpr int LD = Dims<D>::LDB;
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  constexpr bool HOLD = Bwd<D>::HOLD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + TILE * Dm::LDB;
-  bf16* k_s = do_s + TILE * Dm::LDB;
-  bf16* v_s = k_s + TILE * Dm::LDB;
-  float* s_s = reinterpret_cast<float*>(v_s + TILE * Dm::LDB);
-  float* dp_s = s_s + TILE * LDS;
-  bf16* ds_s = reinterpret_cast<bf16*>(dp_s + TILE * LDS);
-  float* lse_s = reinterpret_cast<float*>(ds_s + 2 * TILE * LDP);
-  float* delta_s = lse_s + TILE;
+  bf16* do_s = q_s + TILE * LD;
+  bf16* kv_s = do_s + TILE * LD;  // stage s: K at 2s, V at 2s + 1 tiles
 
   const int nq = T / TILE;
   const int qi = nq - 1 - blockIdx.x;
   const size_t head = (size_t)blockIdx.y * T * D;
-  const size_t rows = (size_t)blockIdx.y * T + qi * TILE;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = warp * 16;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int lrow = lane & 7;
+  const int lm0 = (lane >> 3) & 1;
+  const int lm1 = lane >> 4;
 
-  load_tile<D>(q_s, q + head + (size_t)qi * TILE * D);
-  load_tile<D>(do_s, dout + head + (size_t)qi * TILE * D);
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    lse_s[i] = lse[rows + i];
-    delta_s[i] = delta[rows + i];
-  }
-  FragC acc[D / 16];
+  copy_tile_async<D>(q_s, q + head + (size_t)qi * TILE * D);
+  copy_tile_async<D>(do_s, dout + head + (size_t)qi * TILE * D);
+  copy_tile_async<D>(kv_s, k + head);
+  copy_tile_async<D>(kv_s + TILE * LD, v + head);
+  cp_async_commit();
+
+  // This lane's two rows (g, g + 8): lse in log2 units, and Delta.
+  const size_t row = (size_t)blockIdx.y * T + qi * TILE + r0 + g;
+  const float nl0 = -lse[row] * LOG2E, nl1 = -lse[row + 8] * LOG2E;
+  const float dl0 = delta[row], dl1 = delta[row + 8];
+  const float scale_log2 = scale * LOG2E;
+  // The A-fragment row address of this lane in the warp's rows.
+  const int arow = (r0 + lrow + lm0 * 8) * LD + lm1 * 8;
+
+  uint32_t qf[HOLD ? KD : 1][4], dof[HOLD ? KD : 1][4];
+  float acc[ND][4];
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int kj = 0; kj <= qi; ++kj) {
+    cp_async_wait<0>();
     __syncthreads();
-    load_tile<D>(k_s, k + head + (size_t)kj * TILE * D);
-    load_tile<D>(v_s, v + head + (size_t)kj * TILE * D);
-    __syncthreads();
-
-    strip_abt<D>(s_s + r0 * LDS, q_s + r0 * Dm::LDB, k_s);
-    strip_abt<D>(dp_s + r0 * LDS, do_s + r0 * Dm::LDB, v_s);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r;
-      const int qpos = qi * TILE + row;
-      for (int c = lane; c < TILE; c += 32) {
-        float p = 0.f;
-        if (!(kj == qi && kj * TILE + c > qpos))
-          p = expf(s_s[row * LDS + c] * scale - lse_s[row]);
-        const float ds = p * (dp_s[row * LDS + c] - delta_s[row]);
-        ds_s[row * LDP + c] = __float2bfloat16(ds);
+    if (kj < qi) {
+      bf16* nk = kv_s + ((kj + 1) & 1) * 2 * TILE * LD;
+      copy_tile_async<D>(nk, k + head + (size_t)(kj + 1) * TILE * D);
+      copy_tile_async<D>(nk + TILE * LD,
+                         v + head + (size_t)(kj + 1) * TILE * D);
+      cp_async_commit();
+    }
+    const bf16* k_s = kv_s + (kj & 1) * 2 * TILE * LD;
+    const bf16* v_s = k_s + TILE * LD;
+    if constexpr (HOLD) {
+      if (kj == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          ldsm_x4(qf[kk], q_s + arow + kk * 16);
+          ldsm_x4(dof[kk], do_s + arow + kk * 16);
+        }
       }
     }
-    __syncwarp();
-    strip_pm<D>(acc, ds_s + r0 * LDP, k_s);
+
+    // S = Q.K^T and dP = dO.V^T over this tile's 64 keys (8 n8 tiles).
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (HOLD) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[kk][i];
+          da[i] = dof[kk][i];
+        }
+      } else {
+        ldsm_x4(qa, q_s + arow + kk * 16);
+        ldsm_x4(da, do_s + arow + kk * 16);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int boff = (jj * 16 + lrow + lm1 * 8) * LD + kk * 16 + lm0 * 8;
+        uint32_t b[4];
+        ldsm_x4(b, k_s + boff);
+        mma_bf16(s[2 * jj], qa, b[0], b[1]);
+        mma_bf16(s[2 * jj + 1], qa, b[2], b[3]);
+        ldsm_x4(b, v_s + boff);
+        mma_bf16(dp[2 * jj], da, b[0], b[1]);
+        mma_bf16(dp[2 * jj + 1], da, b[2], b[3]);
+      }
+    }
+
+    // P = exp2(s * scale log2 e - lse log2 e), masked to 0 above the
+    // diagonal; dS = P o (dP - Delta), packed to bf16 pairs: n8 tiles 2kk
+    // and 2kk + 1 are dS.K's k16 step kk.
+    const bool diag = kj == qi;
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[j][e], scale_log2, e < 2 ? nl0 : nl1));
+        if (diag && j * 8 + c2 + (e & 1) > r0 + g + (e >> 1) * 8) p = 0.f;
+        ds[e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1));
+      }
+      dsf[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS . K: K's B-fragments through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < KD; ++nn) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, k_s + (kk * 16 + lrow + lm0 * 8) * LD + nn * 16 +
+                             lm1 * 8);
+        mma_bf16(acc[2 * nn], dsf[kk], b[0], b[1]);
+        mma_bf16(acc[2 * nn + 1], dsf[kk], b[2], b[3]);
+      }
+    }
   }
-  __syncthreads();  // s_s/dp_s become the output staging area
-  store_rows<D>(dq + head + (size_t)(qi * TILE + r0) * D, acc, scale,
-                s_s + r0 * Dm::LDO);
+
+  // Epilogue: this warp's rows of the Q tile (read only by this warp)
+  // stage the bf16 rows for 16-byte coalesced stores.
+  bf16* stage = q_s + r0 * LD;
+  __syncwarp();
+  stage_rows<D>(stage, acc, scale, g, c2);
+  __syncwarp();
+  store_staged<D>(dq + head + (size_t)(qi * TILE + r0) * D, stage, lane);
 }
 
 // ---------------------------------------------------------------------------
-// B3, dk/dv: grid (T/64, BH), one key tile each, walking the query tiles at
-// and below the diagonal.  dV = P^T . dO, dK = scale * dS^T . Q.
+// B3, dk/dv: grid (T/64, BH), one key tile each (tile 0, the longest walk,
+// first), walking the query tiles at and below the diagonal.
+// dV = P^T . dO, dK = scale * dS^T . Q; Q, dO and the tile's lse and Delta
+// through the ring.  The scores are transposed (keys are the warp's rows,
+// queries its columns), so a lane reads lse and Delta for its columns.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
     flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int T, float scale) {
-  using Dm = Dims<D>;
+  constexpr int LD = Dims<D>::LDB;
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  constexpr bool HOLD = Bwd<D>::HOLD;
+  constexpr int NJ = 8 / Bwd<D>::DKV_GROUPS;  // n8 query tiles a group
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + TILE * Dm::LDB;
-  bf16* q_s = v_s + TILE * Dm::LDB;
-  bf16* do_s = q_s + TILE * Dm::LDB;
-  float* st_s = reinterpret_cast<float*>(do_s + TILE * Dm::LDB);
-  float* dpt_s = st_s + TILE * LDS;
-  bf16* pt_s = reinterpret_cast<bf16*>(dpt_s + TILE * LDS);
-  bf16* dst_s = pt_s + TILE * LDP;
-  float* lse_s = reinterpret_cast<float*>(dst_s + TILE * LDP);
-  float* delta_s = lse_s + TILE;
+  bf16* v_s = k_s + TILE * LD;
+  bf16* ring = v_s + TILE * LD;  // stage s: Q at 2s, dO at 2s + 1 tiles
+  // stage s: lse at 2s, Delta at 2s + 1 rows of 64.
+  float* rows_s = reinterpret_cast<float*>(ring + 4 * TILE * LD);
 
   const int nq = T / TILE;
   const int kj = blockIdx.x;
   const size_t head = (size_t)blockIdx.y * T * D;
+  const size_t head_rows = (size_t)blockIdx.y * T;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int r0 = warp * 16;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+  const int lrow = lane & 7;
+  const int lm0 = (lane >> 3) & 1;
+  const int lm1 = lane >> 4;
 
-  load_tile<D>(k_s, k + head + (size_t)kj * TILE * D);
-  load_tile<D>(v_s, v + head + (size_t)kj * TILE * D);
-  FragC dk_acc[D / 16];
-  FragC dv_acc[D / 16];
+  // Query tile qi's Q, dO, lse and Delta into ring stage st; the rows are
+  // 16 copies of 16 bytes each, by the first warp.
+  auto copy_stage = [&](int st, int qi) {
+    bf16* dst = ring + st * 2 * TILE * LD;
+    copy_tile_async<D>(dst, q + head + (size_t)qi * TILE * D);
+    copy_tile_async<D>(dst + TILE * LD, dout + head + (size_t)qi * TILE * D);
+    if (threadIdx.x < 32) {
+      const int i = (threadIdx.x & 15) * 4;
+      const float* src = threadIdx.x < 16 ? lse : delta;
+      cp_async16(rows_s + (2 * st + (threadIdx.x >> 4)) * TILE + i,
+                 src + head_rows + qi * TILE + i);
+    }
+  };
+
+  copy_tile_async<D>(k_s, k + head + (size_t)kj * TILE * D);
+  copy_tile_async<D>(v_s, v + head + (size_t)kj * TILE * D);
+  copy_stage(0, kj);
+  cp_async_commit();
+
+  const float scale_log2 = scale * LOG2E;
+  const int arow = (r0 + lrow + lm0 * 8) * LD + lm1 * 8;
+  uint32_t kf[HOLD ? KD : 1][4], vf[HOLD ? KD : 1][4];
+  float dka[ND][4], dva[ND][4];
 #pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
-  }
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
   for (int qi = kj; qi < nq; ++qi) {
+    const int st = (qi - kj) & 1;
+    cp_async_wait<0>();
     __syncthreads();
-    load_tile<D>(q_s, q + head + (size_t)qi * TILE * D);
-    load_tile<D>(do_s, dout + head + (size_t)qi * TILE * D);
-    const size_t rows = (size_t)blockIdx.y * T + qi * TILE;
-    for (int i = threadIdx.x; i < TILE; i += THREADS) {
-      lse_s[i] = lse[rows + i];
-      delta_s[i] = delta[rows + i];
+    if (qi + 1 < nq) {
+      copy_stage(st ^ 1, qi + 1);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    // S^T and dP^T strips: this warp's 16 keys against the 64 queries.
-    strip_abt<D>(st_s + r0 * LDS, k_s + r0 * Dm::LDB, q_s);
-    strip_abt<D>(dpt_s + r0 * LDS, v_s + r0 * Dm::LDB, do_s);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r;
-      const int kpos = kj * TILE + row;
-      for (int c = lane; c < TILE; c += 32) {
-        float p = 0.f;
-        if (!(qi == kj && kpos > qi * TILE + c))
-          p = expf(st_s[row * LDS + c] * scale - lse_s[c]);
-        const float ds = p * (dpt_s[row * LDS + c] - delta_s[c]);
-        pt_s[row * LDP + c] = __float2bfloat16(p);
-        dst_s[row * LDP + c] = __float2bfloat16(ds);
+    const bf16* q_s = ring + st * 2 * TILE * LD;
+    const bf16* do_s = q_s + TILE * LD;
+    const float* lse_s = rows_s + 2 * st * TILE;
+    const float* dl_s = lse_s + TILE;
+    if constexpr (HOLD) {
+      if (qi == kj) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          ldsm_x4(kf[kk], k_s + arow + kk * 16);
+          ldsm_x4(vf[kk], v_s + arow + kk * 16);
+        }
       }
     }
-    __syncwarp();
-    strip_pm<D>(dv_acc, pt_s + r0 * LDP, do_s);
-    strip_pm<D>(dk_acc, dst_s + r0 * LDP, q_s);
+    const bool diag = qi == kj;
+
+#pragma unroll
+    for (int grp = 0; grp < Bwd<D>::DKV_GROUPS; ++grp) {
+      const int col0 = grp * NJ * 8;  // the group's first query column
+      // S^T = K.Q^T and dP^T = V.dO^T over the group's queries.
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t ka[4], va[4];
+        if constexpr (HOLD) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            ka[i] = kf[kk][i];
+            va[i] = vf[kk][i];
+          }
+        } else {
+          ldsm_x4(ka, k_s + arow + kk * 16);
+          ldsm_x4(va, v_s + arow + kk * 16);
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJ / 2; ++jj) {
+          const int boff = (col0 + jj * 16 + lrow + lm1 * 8) * LD + kk * 16 +
+                           lm0 * 8;
+          uint32_t b[4];
+          ldsm_x4(b, q_s + boff);
+          mma_bf16(s[2 * jj], ka, b[0], b[1]);
+          mma_bf16(s[2 * jj + 1], ka, b[2], b[3]);
+          ldsm_x4(b, do_s + boff);
+          mma_bf16(dp[2 * jj], va, b[0], b[1]);
+          mma_bf16(dp[2 * jj + 1], va, b[2], b[3]);
+        }
+      }
+
+      // P^T and dS^T, packed to bf16 pairs as A-fragments (k over queries).
+      uint32_t pf[NJ / 2][4], dsf[NJ / 2][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = col0 + j * 8 + c2;
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
+        const float2 dl = *reinterpret_cast<const float2*>(dl_s + col);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lc = (e & 1) ? l.y : l.x;
+          p[e] = ex2(fmaf(s[j][e], scale_log2, -lc * LOG2E));
+          if (diag && r0 + g + (e >> 1) * 8 > col + (e & 1)) p[e] = 0.f;
+          ds[e] = p[e] * (dp[j][e] - ((e & 1) ? dl.y : dl.x));
+        }
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+        dsf[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T . dO and dK += dS^T . Q: dO's and Q's B-fragments
+      // through ldmatrix.trans.
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+#pragma unroll
+        for (int nn = 0; nn < KD; ++nn) {
+          const int boff = (col0 + kk * 16 + lrow + lm0 * 8) * LD + nn * 16 +
+                           lm1 * 8;
+          uint32_t b[4];
+          ldsm_x4_trans(b, do_s + boff);
+          mma_bf16(dva[2 * nn], pf[kk], b[0], b[1]);
+          mma_bf16(dva[2 * nn + 1], pf[kk], b[2], b[3]);
+          ldsm_x4_trans(b, q_s + boff);
+          mma_bf16(dka[2 * nn], dsf[kk], b[0], b[1]);
+          mma_bf16(dka[2 * nn + 1], dsf[kk], b[2], b[3]);
+        }
+      }
+    }
   }
-  __syncthreads();
+
+  // Epilogue: dV stages in this warp's rows of the K tile, dK in its rows
+  // of the V tile (each read only by this warp).
   const size_t out = head + (size_t)(kj * TILE + r0) * D;
-  store_rows<D>(dv + out, dv_acc, 1.f, st_s + r0 * Dm::LDO);
-  store_rows<D>(dk + out, dk_acc, scale, st_s + r0 * Dm::LDO);
+  __syncwarp();
+  stage_rows<D>(k_s + r0 * LD, dva, 1.f, g, c2);
+  stage_rows<D>(v_s + r0 * LD, dka, scale, g, c2);
+  __syncwarp();
+  store_staged<D>(dv + out, k_s + r0 * LD, lane);
+  store_staged<D>(dk + out, v_s + r0 * LD, lane);
 }
 
 template <typename Kernel>
@@ -533,16 +696,16 @@ int launch(int which, const void* q, const void* k, const void* v,
     if ((err = prepare(flash_fwd_kernel<D>, Dm::FWD_SMEM))) return err;
     flash_fwd_kernel<D><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
         qb, kb, vb, static_cast<bf16*>(out0), static_cast<float*>(out1), T,
-        scale * 1.4426950408889634f);
+        scale * LOG2E);
   } else if (which == 1) {
-    if ((err = prepare(flash_dq_kernel<D>, Dm::BWD_SMEM))) return err;
-    flash_dq_kernel<D><<<grid, THREADS, Dm::BWD_SMEM, stream>>>(
+    if ((err = prepare(flash_dq_kernel<D>, Bwd<D>::DQ_SMEM))) return err;
+    flash_dq_kernel<D><<<grid, THREADS, Bwd<D>::DQ_SMEM, stream>>>(
         qb, kb, vb, static_cast<const bf16*>(o_or_do),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(out0), T, scale);
   } else {
-    if ((err = prepare(flash_dkv_kernel<D>, Dm::BWD_SMEM))) return err;
-    flash_dkv_kernel<D><<<grid, THREADS, Dm::BWD_SMEM, stream>>>(
+    if ((err = prepare(flash_dkv_kernel<D>, Bwd<D>::DKV_SMEM))) return err;
+    flash_dkv_kernel<D><<<grid, THREADS, Bwd<D>::DKV_SMEM, stream>>>(
         qb, kb, vb, static_cast<const bf16*>(o_or_do),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, scale);

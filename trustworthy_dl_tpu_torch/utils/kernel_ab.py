@@ -9,8 +9,9 @@ order (this, other, other, this, ...) with the L2 cache flushed before
 every launch: the median of per-launch CUDA-event timings (``ms``, which
 also holds the host's dispatch whenever the card waits for it) and the
 profiler's device time of every kernel of one call but the flush's
-(``device_ms``), from a session that recorded every launch.  Needs a CUDA
-card.
+(``device_ms``), from a session that recorded every launch.
+:func:`kernel_names` lists the kernels one call launches (which a library
+call picked).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -131,6 +132,23 @@ def device_ms(fn: Callable, flush: torch.Tensor, reps: int,
                        f"{PROFILE_ATTEMPTS} sessions")
 
 
+def kernel_names(fn: Callable, flush: torch.Tensor) -> List[str]:
+    """The CUDA kernels one call of ``fn`` launches (profiler), by name,
+    the flush's left out: which kernels a library call picked."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush.zero_()
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.key for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "FillFunctor" not in e.key)
+
+
 def in_turns(arms: Dict[str, Callable], order: Iterable[str],
              flush: torch.Tensor, reps: int,
              launches: Optional[Dict[str, int]] = None
@@ -156,4 +174,5 @@ def card_line() -> str:
 
 
 __all__ = ["FLUSH_BYTES", "PROFILE_ATTEMPTS", "card_line", "device_ms",
-           "event_ms", "flush_buffer", "in_turns", "other_library"]
+           "event_ms", "flush_buffer", "in_turns", "kernel_names",
+           "other_library"]
