@@ -22,8 +22,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    also at 144 rows (two launches), B2 also at D = 32 and 128 (``cases``,
    with ``tflops``), B6 also over 128-position blocks (``block128``),
    B6-int8 also from position 0 and as a 64-row chunk, B5-int8 also at
-   the verify window (T = 5); B2, B3, B5 and B6 (both pools) and B9 also
-   with the profiler's device time (B3's beside SDPA's whole backward's).
+   the verify window (T = 5), B9 also at GPT-2 medium's width and rank
+   64 (``cases``); B2, B3, B5, B6 (both pools), B7, B8 and B9 also with
+   the profiler's device time of the kernel and of the yardstick (B3's
+   beside SDPA's whole backward's).
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -120,6 +122,10 @@ STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
 DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
 DQ_KERNEL = "dq_split_kernel"
+# B7's kernel, and the substring of B8's two (verify_tail_kernel, then
+# verify_fold_kernel), by the names the profiler reports.
+TRUST_KERNEL = "trust_stats_kernel"
+VERIFY_KERNELS = "verify_"
 ADAPTER_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/adapter_delta.cu"
 # B9: f32 sums of bf16 or int8 x bf16 products in another order than the
 # plain twin's einsum: within 1e-5 of the plain output's largest
@@ -346,6 +352,13 @@ def check_kernels(torch, pa):
         # logZ and the margin (entropy has no single library call).
         "library_ms": time_ms(torch, lambda: (
             torch.logsumexp(logits, -1), torch.topk(logits, 2, -1)), flush),
+        # The kernel's and the library calls' own device time: the event
+        # window holds the host's dispatch whenever the card waits for it.
+        "device_ms": device_ms(lambda: pa.logit_trust_stats(logits), flush,
+                               TRUST_KERNEL),
+        "library_device_ms": kernel_ab.device_ms(lambda: (
+            torch.logsumexp(logits, -1), torch.topk(logits, 2, -1)), flush,
+            25),
         "shape": {"logits": [b, v]},
     }
     check_int8_attention(torch, pa, entries, flush, rng)
@@ -590,6 +603,8 @@ def check_verify_tail(torch, pa, entries, flush):
     the 16 x 9 = 144 rows of ``max_slots=16, spec_k=8``, which the wrapper
     runs as two launches (rows 0-95, 96-143).  Yardstick: ``torch.matmul``
     + ``logsumexp`` + ``topk``."""
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     d, v = 768, 50257
@@ -649,6 +664,12 @@ def check_verify_tail(torch, pa, entries, flush):
             normed, head), flush),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(torch, library, flush),
+        # Device time of the call's two kernels (the head tiles, then the
+        # per-row fold) and of the library calls.
+        "device_ms": kernel_ab.device_ms(
+            lambda: pa.fused_verify_tail(normed, head), flush, 25,
+            kernel=VERIFY_KERNELS, launches=2),
+        "library_device_ms": kernel_ab.device_ms(library, flush, 25),
         "shape": {"normed": [b, d], "head": [v, d], "dtype": "bfloat16"},
     }
 
@@ -659,93 +680,57 @@ def check_adapter_delta(torch, pa, entries, flush):
     view, as the engine passes it), bf16 pages and int8 pages with
     per-page scales: decode rows R = 8, T = 1 over pages [0, 1, 2, 2, 3, 0,
     4, 1] (zero page and duplicates), a 64-position chunk, and a ragged
-    T = 20 over pages [3, 0].  Yardstick: the page gather and two
-    ``torch.bmm`` in bf16, scaled.  The entry's numbers are the bf16
-    decode case (the path's most frequent launch); every case is in
-    ``cases``."""
+    T = 20 over pages [3, 0]; then the decode launch at GPT-2 medium's
+    width and rank 64 (pool [2, 5, 2, 1024, 64]).  Yardstick: the page
+    gather and two ``torch.bmm`` in bf16, scaled, with its events ``ms``
+    and profiler ``device_ms`` (every kernel of the call).  The entry's
+    numbers are the bf16 decode case (the path's most frequent launch);
+    every case is in ``cases``."""
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    n_layer, pages, d, rank = 12, 4, 768, ADAPTER_RANK
-    shape_a = (n_layer, pages + 1, 2, d, rank)
-    shape_b = (n_layer, pages + 1, 2, rank, d)
-    tiers = {}
-    a = (torch.randn(shape_a, device=dev, generator=gen) * 0.02).to(
-        torch.bfloat16)
-    b = (torch.randn(shape_b, device=dev, generator=gen) * 0.02).to(
-        torch.bfloat16)
-    a[:, 0] = 0
-    b[:, 0] = 0
-    tiers["bf16"] = (a, b, None, None)
-    qa = torch.randint(-127, 128, shape_a, device=dev, generator=gen,
-                       dtype=torch.int8)
-    qb = torch.randint(-127, 128, shape_b, device=dev, generator=gen,
-                       dtype=torch.int8)
-    qa[:, 0] = 0
-    qb[:, 0] = 0
-    sa = torch.rand(n_layer, pages + 1, 2, device=dev, generator=gen) * 1e-3
-    sb = torch.rand(n_layer, pages + 1, 2, device=dev, generator=gen) * 1e-3
-    sa[:, 0] = 1.0
-    sb[:, 0] = 1.0
-    tiers["int8"] = (qa, qb, sa, sb)
-    layer, site = 3, 1
+    pages = 4
+    decode = ("decode", 8, 1, [0, 1, 2, 2, 3, 0, 4, 1])
+    # (label suffix, layers, D, rank, launches)
+    geometries = (("", 12, 768, ADAPTER_RANK,
+                   (decode, ("chunk", 1, 64, [2]), ("ragged", 2, 20, [3, 0]))),
+                  ("_d1024_r64", 2, 1024, 64, (decode,)))
     cases = []
-    for tier, (pa_, pb_, psa, psb) in tiers.items():
-        a_site, b_site = pa_[layer][:, site], pb_[layer][:, site]
-        sa_site = None if psa is None else psa[layer][:, site]
-        sb_site = None if psb is None else psb[layer][:, site]
-        for label, rows, t, page_list in (
-                ("decode", 8, 1, [0, 1, 2, 2, 3, 0, 4, 1]),
-                ("chunk", 1, 64, [2]), ("ragged", 2, 20, [3, 0])):
-            x = torch.randn(rows, t, d, device=dev, generator=gen).to(
-                torch.bfloat16)
-            pg = torch.tensor(page_list, dtype=torch.int32, device=dev)
-            args = (x, a_site, b_site, pg, sa_site, sb_site)
-            got = pa.adapter_delta(*args)
-            torch.cuda.synchronize()
-            ref = pa.adapter_delta_plain(*args)
-            err = float((got - ref).abs().max())
-            zero_rows = [i for i, p_ in enumerate(page_list) if p_ == 0]
-            if err > ADAPTER_RTOL * float(ref.abs().max()) \
-                    or not torch.isfinite(got).all() \
-                    or any(bool((got[i] != 0.0).any()) for i in zero_rows):
-                raise AssertionError(
-                    f"adapter_delta {tier} {label}: max abs err {err} "
-                    f"(limit {ADAPTER_RTOL} x {float(ref.abs().max())}), "
-                    f"zero-page rows {zero_rows} exact "
-                    f"{[bool((got[i] == 0.0).all()) for i in zero_rows]}")
-
-            def library(x=x, pg=pg, a_site=a_site, b_site=b_site,
-                        sa_site=sa_site, sb_site=sb_site):
-                idx = pg.long()
-                h = torch.bmm(x, a_site[idx].to(torch.bfloat16)).float()
-                if sa_site is not None:
-                    h = h * sa_site[idx][:, None, None]
-                out = torch.bmm(h.to(torch.bfloat16),
-                                b_site[idx].to(torch.bfloat16)).float()
-                if sb_site is not None:
-                    out = out * sb_site[idx][:, None, None]
-                return out
-
-            distinct = len(set(page_list))
-            itemsize = a_site.element_size()
-            n_bytes = (rows * t * d * 2 + rows * t * d * 4 + rows * 4
-                       + distinct * 2 * d * rank * itemsize
-                       + (distinct * 8 if sa_site is not None else 0))
-            bound_ms, bound_by = bound_entry(n_bytes,
-                                             4 * rows * t * d * rank,
-                                             "bfloat16")
-            cases.append({
-                "tier": tier, "case": label, "rows": rows, "t": t,
-                "pages": page_list, "max_abs_err": err,
-                "plain_max_abs": float(ref.abs().max()),
-                "ms": time_ms(torch, lambda: pa.adapter_delta(*args), flush),
-                "device_ms": device_ms(lambda: pa.adapter_delta(*args),
-                                       flush, "adapter_delta_kernel"),
-                "plain_ms": time_ms(torch,
-                                    lambda: pa.adapter_delta_plain(*args),
-                                    flush),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": time_ms(torch, library, flush)})
+    for suffix, n_layer, d, rank, launches in geometries:
+        shape_a = (n_layer, pages + 1, 2, d, rank)
+        shape_b = (n_layer, pages + 1, 2, rank, d)
+        tiers = {}
+        a = (torch.randn(shape_a, device=dev, generator=gen) * 0.02).to(
+            torch.bfloat16)
+        b = (torch.randn(shape_b, device=dev, generator=gen) * 0.02).to(
+            torch.bfloat16)
+        a[:, 0] = 0
+        b[:, 0] = 0
+        tiers["bf16"] = (a, b, None, None)
+        qa = torch.randint(-127, 128, shape_a, device=dev, generator=gen,
+                           dtype=torch.int8)
+        qb = torch.randint(-127, 128, shape_b, device=dev, generator=gen,
+                           dtype=torch.int8)
+        qa[:, 0] = 0
+        qb[:, 0] = 0
+        sa = torch.rand(n_layer, pages + 1, 2, device=dev,
+                        generator=gen) * 1e-3
+        sb = torch.rand(n_layer, pages + 1, 2, device=dev,
+                        generator=gen) * 1e-3
+        sa[:, 0] = 1.0
+        sb[:, 0] = 1.0
+        tiers["int8"] = (qa, qb, sa, sb)
+        layer, site = min(3, n_layer - 1), 1
+        for tier, (pa_, pb_, psa, psb) in tiers.items():
+            a_site, b_site = pa_[layer][:, site], pb_[layer][:, site]
+            sa_site = None if psa is None else psa[layer][:, site]
+            sb_site = None if psb is None else psb[layer][:, site]
+            for label, rows, t, page_list in launches:
+                cases.append(adapter_case(
+                    torch, pa, kernel_ab, flush, gen, tier, label + suffix,
+                    rows, t, d, rank, page_list,
+                    (a_site, b_site, sa_site, sb_site)))
     main = cases[0]
     entries["adapter_delta"] = {
         "name": "adapter_delta", "route": "cuda", "source": ADAPTER_SOURCE,
@@ -753,12 +738,66 @@ def check_adapter_delta(torch, pa, entries, flush):
         "launches": 0,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         **{key: main[key] for key in ("ms", "device_ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")},
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "library_device_ms")},
         "library_calls": "page gather + 2 x torch.bmm (bf16), scaled",
-        "shape": {"x": [8, 1, d], "pool": list(shape_a), "rank": rank,
-                  "dtype": "bfloat16", "site": "layer 3, site 1 view"},
+        "shape": {"x": [8, 1, 768], "pool": [12, pages + 1, 2, 768,
+                                             ADAPTER_RANK],
+                  "rank": ADAPTER_RANK, "dtype": "bfloat16",
+                  "site": "layer 3, site 1 view"},
         "cases": cases,
     }
+
+
+def adapter_case(torch, pa, kernel_ab, flush, gen, tier, label, rows, t, d,
+                 rank, page_list, site):
+    """One B9 launch against its twin (within ADAPTER_RTOL of the plain
+    output's largest magnitude, zero-page rows exactly 0.0), then timed
+    beside its plain twin and the library call (``utils/adapter_ab``'s
+    ``library_delta``)."""
+    from trustworthy_dl_tpu_torch.utils import adapter_ab
+
+    dev = torch.device("cuda")
+    a_site, b_site, sa_site, sb_site = site
+    x = torch.randn(rows, t, d, device=dev, generator=gen).to(torch.bfloat16)
+    pg = torch.tensor(page_list, dtype=torch.int32, device=dev)
+    args = (x, a_site, b_site, pg, sa_site, sb_site)
+    got = pa.adapter_delta(*args)
+    torch.cuda.synchronize()
+    ref = pa.adapter_delta_plain(*args)
+    err = float((got - ref).abs().max())
+    zero_rows = [i for i, p_ in enumerate(page_list) if p_ == 0]
+    if err > ADAPTER_RTOL * float(ref.abs().max()) \
+            or not torch.isfinite(got).all() \
+            or any(bool((got[i] != 0.0).any()) for i in zero_rows):
+        raise AssertionError(
+            f"adapter_delta {tier} {label}: max abs err {err} "
+            f"(limit {ADAPTER_RTOL} x {float(ref.abs().max())}), "
+            f"zero-page rows {zero_rows} exact "
+            f"{[bool((got[i] == 0.0).all()) for i in zero_rows]}")
+
+    def library():
+        return adapter_ab.library_delta(*args)
+
+    distinct = len(set(page_list))
+    itemsize = a_site.element_size()
+    n_bytes = (rows * t * d * 2 + rows * t * d * 4 + rows * 4
+               + distinct * 2 * d * rank * itemsize
+               + (distinct * 8 if sa_site is not None else 0))
+    bound_ms, bound_by = bound_entry(n_bytes, 4 * rows * t * d * rank,
+                                     "bfloat16")
+    return {
+        "tier": tier, "case": label, "rows": rows, "t": t, "d": d,
+        "rank": rank, "pages": page_list, "max_abs_err": err,
+        "plain_max_abs": float(ref.abs().max()),
+        "ms": time_ms(torch, lambda: pa.adapter_delta(*args), flush),
+        "device_ms": device_ms(lambda: pa.adapter_delta(*args), flush,
+                               "adapter_delta_kernel"),
+        "plain_ms": time_ms(torch, lambda: pa.adapter_delta_plain(*args),
+                            flush),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(torch, library, flush),
+        "library_device_ms": kernel_ab.device_ms(library, flush, 25)}
 
 
 def serve_drive(torch, pa, entries, card):

@@ -739,6 +739,34 @@ def test_engine_refuses_adapters_past_the_kernel_at_construction(cuda):
     assert torch.cuda.memory_allocated(cuda) == before
 
 
+def test_engine_takes_rank_64_adapters_at_gpt2_medium_width(cuda):
+    """GPT-2 medium's width (n_embd 1024, 16 heads; 2 layers) at adapter
+    rank 64, which B9's shared memory refused before: the engine builds
+    on the card's kernel path and serves an adapter request to the end,
+    every adapter site of every chunk and tick through one B9 launch."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+
+    cfg = gpt2.GPT2Config(vocab_size=283, n_positions=64, n_layer=2,
+                          n_embd=1024, n_head=16, dtype=torch.bfloat16)
+    params = gpt2.init_params(cfg, torch.Generator().manual_seed(0))
+    engine = ServingEngine(params, cfg, max_slots=2, max_seq=64,
+                           block_size=16, prefill_chunk=16, adapter_rank=64,
+                           adapter_pool_pages=1, adapter_map={"t": "ad-t"},
+                           device="cuda")
+    engine.adapter_pool.init_scale = 0.5
+    before = pa.adapter_delta.launches
+    rid = engine.submit(ServeRequest(
+        prompt=[3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3],
+        max_new_tokens=6, tenant="t"))
+    result = engine.run_until_idle()[rid]
+    torch.cuda.synchronize()
+    assert result.status == "completed" and len(result.tokens) == 6
+    s = engine.metrics_summary()
+    assert pa.adapter_delta.launches - before == \
+        2 * cfg.n_layer * (s["decode_ticks"] + s["prefill_chunks"]) > 0
+
+
 @pytest.mark.parametrize("knobs", [dict(weight_dtype="int8"),
                                    dict(spec_k=4)])
 def test_engine_refuses_f32_int8_matrices_at_construction(cuda, knobs):
@@ -873,11 +901,56 @@ def test_new_wrappers_reject_what_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("tier", ["bf16", "int8"])
 @pytest.mark.parametrize("rows,t,rank,d", [(8, 1, 16, 768), (1, 64, 16, 768),
                                            (2, 20, 4, 64), (3, 9, 64, 768),
-                                           (1, 3, 33, 128)])
+                                           (1, 3, 33, 128), (8, 1, 64, 1024),
+                                           (2, 5, 64, 1600), (1, 16, 16, 768),
+                                           (1, 17, 16, 768), (16, 1, 16, 768)])
 def test_adapter_delta_kernel_matches_plain(cuda, tier, rows, t, rank, d):
     """B9 on one site of one layer of a pool [3, 5, 2, D, r] (the strided
     view the engine passes), bf16 pages or int8 pages with per-page
-    scales; row 0 on the zero page, duplicates where rows allow."""
+    scales; row 0 on the zero page, duplicates where rows allow; GPT-2
+    medium's and XL's widths at rank 64, T either side of a tile's 8 and
+    16 positions, and a 16-slot decode."""
+    args = _adapter_args(cuda, tier, rows, t, rank, d)
+    before = pa.adapter_delta.launches
+    got = pa.adapter_delta(*args)
+    torch.cuda.synchronize()
+    assert pa.adapter_delta.launches == before + 1
+    ref = pa.adapter_delta_plain(*args)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert bool((got[0] == 0.0).all())
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("rows,t", [(8, 1), (2, 20)])
+def test_adapter_delta_kernel_gives_the_same_bits_twice(cuda, tier, rows, t):
+    """B9 sums in a fixed order with no atomics: two launches on the same
+    inputs give the same bits."""
+    args = _adapter_args(cuda, tier, rows, t, 64, 768)
+    first = pa.adapter_delta(*args)
+    second = pa.adapter_delta(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+def test_adapter_delta_kernel_gives_nan_rows_for_a_page_outside_the_pool(
+        cuda, tier):
+    """A page index outside [0, P] gives that row NaN (the kernel reads
+    nothing outside the pool) and leaves the other rows right."""
+    x, a, b, pages, sa, sb = _adapter_args(cuda, tier, 4, 3, 16, 768)
+    bad = torch.tensor([1, 5, 2, -1], dtype=torch.int32, device=cuda)
+    got = pa.adapter_delta(x, a, b, bad, sa, sb)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[1]).all()) and bool(torch.isnan(got[3]).all())
+    good = torch.tensor([0, 2], device=cuda)
+    ref = pa.adapter_delta_plain(x[good], a, b, bad[good], sa, sb)
+    assert float((got[good] - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+
+
+def _adapter_args(cuda, tier, rows, t, rank, d):
+    """(x, A site, B site, pages, a_scale, b_scale) on one site of one
+    layer of a pool [3, 5, 2, D, r], page 0 all zeros, row 0 on it."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     npg = 5
     shape_a, shape_b = (3, npg, 2, d, rank), (3, npg, 2, rank, d)
@@ -900,16 +973,9 @@ def test_adapter_delta_kernel_matches_plain(cuda, tier, rows, t, rank, d):
                          dtype=torch.int32, device=cuda)
     x = torch.randn(rows, t, d, device=cuda, generator=gen).to(
         torch.bfloat16)
-    args = (x, a[1][:, 0], b[1][:, 0], pages,
+    return (x, a[1][:, 0], b[1][:, 0], pages,
             None if sa is None else sa[1][:, 0],
             None if sb is None else sb[1][:, 0])
-    before = pa.adapter_delta.launches
-    got = pa.adapter_delta(*args)
-    torch.cuda.synchronize()
-    assert pa.adapter_delta.launches == before + 1
-    ref = pa.adapter_delta_plain(*args)
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
-    assert bool((got[0] == 0.0).all())
 
 
 def test_adapter_delta_rejects_what_the_kernel_does_not_take(cuda):

@@ -22,7 +22,7 @@ from trustworthy_dl_tpu_torch.ops import fused_dequant_matmul as fdm
 from trustworthy_dl_tpu_torch.ops import paged_attention as pa
 from trustworthy_dl_tpu_torch.quant import int8 as q8
 from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
-from trustworthy_dl_tpu_torch.utils import dequant_ab
+from trustworthy_dl_tpu_torch.utils import adapter_ab, dequant_ab
 
 pytestmark = pytest.mark.torchport
 
@@ -53,7 +53,7 @@ def test_verify_row_groups_tile_every_row_once(b):
     (0, 768, torch.bfloat16, "rank 0"),
     (16, 40, torch.bfloat16, "D=40"),
     (16, 768, torch.float32, "bf16"),
-    (64, 1024, torch.bfloat16, "shared memory"),
+    (64, 11344, torch.bfloat16, "shared memory"),
 ])
 def test_adapter_kernel_limit_names_what_it_refuses(rank, d, dtype, needle):
     reason = pa.adapter_kernel_limit(rank, d, dtype)
@@ -63,6 +63,43 @@ def test_adapter_kernel_limit_names_what_it_refuses(rank, d, dtype, needle):
 @pytest.mark.parametrize("rank", [1, 16, 64])
 def test_adapter_kernel_limit_takes_gpt2_small(rank):
     assert pa.adapter_kernel_limit(rank, 768, torch.bfloat16) is None
+
+
+@pytest.mark.parametrize("rank", [1, 16, 64])
+@pytest.mark.parametrize("name", ["gpt2-medium", "gpt2-large", "gpt2-xl"])
+def test_adapter_kernel_limit_takes_every_gpt2_width(name, rank):
+    """Every width the port defines (n_embd 1024, 1280, 1600; 768 above)
+    at every rank up to 64."""
+    d = gpt2.GPT2_SIZES[name]["n_embd"]
+    assert pa.adapter_kernel_limit(rank, d, torch.bfloat16) is None
+
+
+def test_adapter_kernel_limit_edge_at_rank_64():
+    """Past the GPT-2 widths, shared memory bounds D through the x tile:
+    rank 64 takes D = 11,328 and refuses the next multiple of 16."""
+    assert pa.adapter_kernel_limit(64, 11328, torch.bfloat16) is None
+    assert "shared memory" in pa.adapter_kernel_limit(64, 11344,
+                                                      torch.bfloat16)
+
+
+def _adapter_smem_bytes_formula(rank, d, tile_t, itemsize):
+    """``smem_bytes`` of ``csrc/adapter_delta.cu``, spelled as the CUDA
+    source spells it: sizeof(float) * (WARPS * TT * RPAD + RPAD * TT) +
+    sizeof(bf16) * TT * D + sizeof(P) * r * NCOL, with 8 warps, 256
+    columns and RPAD the instance dispatch_rank picks (8, 16, 32, 64)."""
+    rpad = 8 if rank <= 8 else 16 if rank <= 16 else 32 if rank <= 32 \
+        else 64
+    return 4 * (8 * tile_t * rpad + rpad * tile_t) + 2 * tile_t * d \
+        + itemsize * rank * 256
+
+
+@pytest.mark.parametrize("rank,d,tile_t,itemsize", [
+    (16, 768, 1, 2), (16, 768, 8, 1), (64, 1600, 8, 2), (4, 64, 8, 2),
+    (33, 128, 1, 1), (1, 16, 1, 2)])
+def test_adapter_smem_bytes_match_the_cuda_formula(rank, d, tile_t,
+                                                   itemsize):
+    assert pa.adapter_smem_bytes(rank, d, tile_t, itemsize) == \
+        _adapter_smem_bytes_formula(rank, d, tile_t, itemsize)
 
 
 def test_plain_engine_serves_past_the_kernel_rank_limit():
@@ -400,6 +437,44 @@ def test_dequant_ab_cases_and_tolerance():
     assert dequant_ab.DQ_RTOL == 1e-5
     assert dequant_ab.bound_ms(8, 3072, 768) == pytest.approx(
         (3072 * 768 + 4 * 768 + 2 * 8 * 3072 + 4 * 8 * 768) / 3.35e12 * 1e3)
+
+
+def test_adapter_ab_cases_and_bound():
+    """``utils/adapter_ab``'s cases import without a card: the smoke's
+    three launches and the 16-row decode at rank 16, rank 64 at GPT-2
+    small's, medium's and XL's widths, every one inside B9's limits (the
+    parent's kernel refused rank 64 past D = 768); the smoke's tolerance
+    and its bound for the decode launch."""
+    labels = [c[0] for c in adapter_ab.CASES]
+    assert len(labels) == len(set(labels)) == 8
+    for _, d, rank, t, pages in adapter_ab.CASES:
+        assert pa.adapter_kernel_limit(rank, d, torch.bfloat16) is None
+        assert t >= 1 and all(0 <= p < adapter_ab.POOL_PAGES for p in pages)
+    assert {(d, r) for _, d, r, _, _ in adapter_ab.CASES} == {
+        (768, 16), (768, 64), (1024, 64), (1600, 64)}
+    assert adapter_ab.ADAPTER_RTOL == 1e-5
+    assert adapter_ab.bound_ms(8, 1, 768, 16, adapter_ab.SMOKE_PAGES, 2,
+                               False) == pytest.approx(
+        (8 * 768 * 6 + 8 * 4 + 5 * 2 * 768 * 16 * 2) / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_adapter_ab_library_call_is_the_delta_in_bf16(scaled):
+    """The yardstick computes the twin's function: the page gather and two
+    bf16 products, scaled, within bf16 rounding of ``adapter_delta_plain``
+    (it rounds h to bf16, which the kernel may not), zero-page rows
+    exactly 0.0."""
+    gen = torch.Generator().manual_seed(3)
+    a, b, sa, sb = adapter_ab.site_pools(64, 8, "int8" if scaled else "bf16",
+                                         gen, torch.device("cpu"))
+    x = torch.randn(3, 5, 64, generator=gen).to(torch.bfloat16)
+    pages = torch.tensor([2, 0, 4], dtype=torch.int32)
+    got = adapter_ab.library_delta(x, a, b, pages, sa, sb)
+    ref = pa.adapter_delta_plain(x, a, b, pages, sa, sb)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert bool((got[1] == 0.0).all())
+    torch.testing.assert_close(got, ref, rtol=2.0 ** -6,
+                               atol=2.0 ** -6 * float(ref.abs().max()))
 
 
 def test_plain_engine_serves_d96_int8_weights_and_spec():

@@ -484,12 +484,14 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
 
 fused_verify_tail.launches = 0
 
-#: B9's largest rank, the multiple D must be (x and the pool pages are
-#: read in 16-byte vectors, 16 int8 values each) and its positions of T
-#: per CTA.
+#: B9's largest rank, the multiple D must be (x, the pool pages and B's
+#: columns are read in 16-byte vectors, 16 int8 values each), its
+#: positions of T per CTA past T = 1, its output columns and warps per CTA.
 ADAPTER_MAX_RANK = 64
 ADAPTER_D_MULTIPLE = 16
 ADAPTER_TILE_T = 8
+ADAPTER_COLUMNS = 256
+ADAPTER_WARPS = 8
 #: Shared memory one B9 CTA may use (the H100's 227 KB per block).
 ADAPTER_SMEM_LIMIT = 232448
 _ADAPTER_POOL_CODES = {torch.bfloat16: 1, torch.int8: 2}
@@ -507,19 +509,33 @@ def adapter_delta_plain(x: torch.Tensor, a_pool: torch.Tensor,
                          None if b_scale is None else b_scale[idx])
 
 
+def adapter_smem_bytes(rank: int, d: int, tile_t: int = ADAPTER_TILE_T,
+                       itemsize: int = 2) -> int:
+    """Bytes of shared memory of one B9 CTA (``smem_bytes`` of
+    ``csrc/adapter_delta.cu``): the partial sums [warps][tile_t][rpad] and
+    h [rpad][tile_t] in f32, the x tile [tile_t][d] in bf16 and B's
+    columns [rank][ADAPTER_COLUMNS] in pages of ``itemsize`` bytes; rpad
+    is ``rank`` rounded up to a power of two, at least 8."""
+    rpad = max(8, 1 << (rank - 1).bit_length())
+    return (4 * (ADAPTER_WARPS * tile_t * rpad + rpad * tile_t)
+            + 2 * tile_t * d + itemsize * rank * ADAPTER_COLUMNS)
+
+
 def adapter_kernel_limit(rank: int, d: int, x_dtype: torch.dtype
                          ) -> Optional[str]:
     """Why B9 cannot take an adapter of ``rank`` over width ``d`` with
     ``x`` in ``x_dtype``, or None when it can: the limits that depend on
     nothing but these three.  The launch check and the engine's check at
-    construction both read it, so the two cannot drift."""
+    construction both read it, so the two cannot drift.  Shared memory
+    grows with D only through the x tile (bf16 pages, the larger, at the
+    8-position tile): rank 64 takes D up to 11,328."""
     if x_dtype != torch.bfloat16:
         return f"x must be bf16 on the card, got {x_dtype}"
     if d < 1 or d % ADAPTER_D_MULTIPLE:
         return f"D={d} must be a positive multiple of {ADAPTER_D_MULTIPLE}"
     if not 1 <= rank <= ADAPTER_MAX_RANK:
         return f"rank {rank} outside [1, {ADAPTER_MAX_RANK}]"
-    smem = 4 * (ADAPTER_TILE_T * d + rank * (d + 1) + ADAPTER_TILE_T * 64)
+    smem = adapter_smem_bytes(rank, d)
     if smem > ADAPTER_SMEM_LIMIT:
         return (f"D={d}, r={rank} needs {smem} bytes of shared memory "
                 f"(limit {ADAPTER_SMEM_LIMIT})")
@@ -557,9 +573,10 @@ def _check_adapter(x: torch.Tensor, a_pool: torch.Tensor,
             (b_pool.stride(1), b_pool.stride(2)) != (d, 1):
         raise ValueError(f"{op}: each pool page must be dense (strides "
                          f"{a_pool.stride()} / {b_pool.stride()})")
-    if a_pool.data_ptr() % 16 or a_pool.stride(0) * a_pool.element_size() \
-            % 16:
-        raise ValueError(f"{op}: a_pool's pages must be 16-byte aligned")
+    for name, pool in (("a_pool", a_pool), ("b_pool", b_pool)):
+        if pool.data_ptr() % 16 or pool.stride(0) * pool.element_size() % 16:
+            raise ValueError(f"{op}: {name}'s pages must be 16-byte "
+                             "aligned")
     if (a_scale is None) != (b_scale is None):
         raise ValueError(f"{op}: give both scales or neither")
     for name, s in (("a_scale", a_scale), ("b_scale", b_scale)):
@@ -637,7 +654,8 @@ def reset_launch_counts() -> None:
 __all__ = [
     "ADAPTER_MAX_RANK", "BF16_KERNEL_MAX_DH", "KERNEL_WRAPPERS", "NEG_INF",
     "QROWS", "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
-    "adapter_kernel_limit", "attn_template_smem_bytes", "decode_kernel_limit",
+    "adapter_kernel_limit", "adapter_smem_bytes",
+    "attn_template_smem_bytes", "decode_kernel_limit",
     "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
     "logit_trust_stats",
     "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",

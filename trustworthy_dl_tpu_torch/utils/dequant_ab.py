@@ -61,24 +61,6 @@ def bound_ms(m: int, k: int, n: int) -> float:
     return max(n_bytes / HBM_BYTES_PER_S, 2 * m * k * n / BF16_FLOPS) * 1e3
 
 
-def host_us(fn, calls: int = 200, batches: int = 5) -> float:
-    """Median host microseconds to enqueue one call, over ``batches`` runs
-    of ``calls`` back-to-back calls (the card drained before each run):
-    the launch's cost on the host, which the serve loops wait on."""
-    import statistics
-    import time
-
-    times = []
-    for _ in range(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        times.append((time.perf_counter() - t0) / calls * 1e6)
-    torch.cuda.synchronize()
-    return statistics.median(times)
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path,
@@ -137,7 +119,7 @@ def main(argv=None) -> int:
                 and torch.isfinite(got).all())
             record[f"{name}_max_abs_err"] = float(err.max())
         for name in list(arms):
-            record[f"{name}_host_us"] = host_us(arms[name])
+            record[f"{name}_host_us"] = ab.host_us(arms[name])
         arms["library"] = lambda: (x @ w_bf).float() * scale
         order = [name for name in ("this", "other", "other", "this",
                                    "library") if name in arms]

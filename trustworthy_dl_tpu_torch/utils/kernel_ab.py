@@ -11,7 +11,8 @@ also holds the host's dispatch whenever the card waits for it) and the
 profiler's device time of every kernel of one call but the flush's
 (``device_ms``), from a session that recorded every launch.
 :func:`kernel_names` lists the kernels one call launches (which a library
-call picked).  Needs a CUDA card.
+call picked); :func:`host_us` times the host's enqueue of one call.  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import hashlib
 import os
 import statistics
 import subprocess
+import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -166,6 +168,21 @@ def in_turns(arms: Dict[str, Callable], order: Iterable[str],
     return record
 
 
+def host_us(fn, calls: int = 200, batches: int = 5) -> float:
+    """Median host microseconds to enqueue one call, over ``batches`` runs
+    of ``calls`` back-to-back calls (the card drained before each run):
+    the launch's cost on the host, which the serve loops wait on."""
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` prints them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -174,5 +191,5 @@ def card_line() -> str:
 
 
 __all__ = ["FLUSH_BYTES", "PROFILE_ATTEMPTS", "card_line", "device_ms",
-           "event_ms", "flush_buffer", "in_turns", "kernel_names",
+           "event_ms", "flush_buffer", "host_us", "in_turns", "kernel_names",
            "other_library"]
