@@ -25,7 +25,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the verify window (T = 5), B9 also at GPT-2 medium's width and rank
    64 (``cases``); B2, B3, B5, B6 (both pools), B7, B8 and B9 also with
    the profiler's device time of the kernel and of the yardstick (B3's
-   beside SDPA's whole backward's).
+   beside SDPA's whole backward's); B7 at the decode tick's 8 rows and a
+   prompt's last chunk, 1 row (``cases``).
 4. serve: drive ``ServingEngine`` at the full width of GPT-2 small (12
    layers, 768 wide, 12 heads, vocab 50257, bf16; random weights from
    seed 0) over 16 requests, with every kernel launch counter set to 0
@@ -122,10 +123,10 @@ STATS_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_stats.cu"
 FLASH_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/flash_attention.cu"
 DQ_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/fused_dequant_matmul.cu"
 DQ_KERNEL = "dq_split_kernel"
-# B7's kernel, and the substring of B8's two (verify_tail_kernel, then
-# verify_fold_kernel), by the names the profiler reports.
-TRUST_KERNEL = "trust_stats_kernel"
-VERIFY_KERNELS = "verify_"
+# B7's kernel and B8's (one launch: the vocab stream and the fold), by the
+# names the profiler reports.
+TRUST_KERNEL = "trust_cluster_kernel"
+VERIFY_KERNEL = "verify_stream_kernel"
 ADAPTER_SOURCE = "trustworthy_dl_tpu_torch/ops/csrc/adapter_delta.cu"
 # B9: f32 sums of bf16 or int8 x bf16 products in another order than the
 # plain twin's einsum: within 1e-5 of the plain output's largest
@@ -326,46 +327,70 @@ def check_kernels(torch, pa):
         raise AssertionError("ragged prefill: max abs err "
                              f"{float(err[inside].max())}")
 
-    b, v = 8, 50257
-    logits = torch.randn(b, v, device=dev) * 2.0
-    logits[0, 11] = logits[0, 4000] = float(logits[0].max()) + 1.0
-    ent, mar = pa.logit_trust_stats(logits)
-    torch.cuda.synchronize()
-    ent_ref, mar_ref = pa.logit_trust_stats_plain(logits)
-    ent_err = float((ent - ent_ref).abs().max())
-    if not torch.equal(mar, mar_ref) or ent_err > ENTROPY_ATOL \
-            or float(mar[0]) != 0.0:
-        raise AssertionError(f"trust epilogue disagrees: entropy err "
-                             f"{ent_err}, margins equal "
-                             f"{torch.equal(mar, mar_ref)}")
-    bound_ms, bound_by = bound_entry(b * v * 4 + 2 * b * 4, b * v * 6,
-                                     "float32")
-    entries["logit_trust_stats"] = {
-        "name": "logit_trust_stats", "route": "cuda", "source": SOURCE,
-        "replaces": "trustworthy_dl_tpu/ops/paged_attention.py:787",
-        "launches": 0, "max_abs_err": ent_err,
-        "ms": time_ms(torch, lambda: pa.logit_trust_stats(logits), flush),
-        "plain_ms": time_ms(torch, lambda: pa.logit_trust_stats_plain(
-            logits), flush),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        # Yardstick: logsumexp + top-2, the two library calls that give
-        # logZ and the margin (entropy has no single library call).
-        "library_ms": time_ms(torch, lambda: (
-            torch.logsumexp(logits, -1), torch.topk(logits, 2, -1)), flush),
-        # The kernel's and the library calls' own device time: the event
-        # window holds the host's dispatch whenever the card waits for it.
-        "device_ms": device_ms(lambda: pa.logit_trust_stats(logits), flush,
-                               TRUST_KERNEL),
-        "library_device_ms": kernel_ab.device_ms(lambda: (
-            torch.logsumexp(logits, -1), torch.topk(logits, 2, -1)), flush,
-            25),
-        "shape": {"logits": [b, v]},
-    }
+    check_trust_stats(torch, pa, entries, flush)
     check_int8_attention(torch, pa, entries, flush, rng)
     check_dequant_matmul(torch, entries, flush)
     check_verify_tail(torch, pa, entries, flush)
     check_adapter_delta(torch, pa, entries, flush)
     return entries
+
+
+def check_trust_stats(torch, pa, entries, flush):
+    """B7 at the serve path's two launches: a decode tick's 8 rows (the
+    entry's numbers) and a prompt's last chunk, 1 row (``cases``), f32
+    logits [B, 50257] with row 0's maximum duplicated (margin 0), each
+    against its plain twin, timed beside the library calls that give logZ
+    and the margin (``logsumexp`` + ``topk``), with the kernel's and the
+    library calls' own device time."""
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
+    dev = torch.device("cuda")
+    v = 50257
+
+    def case(b):
+        logits = torch.randn(b, v, device=dev) * 2.0
+        logits[0, 11] = logits[0, 4000] = float(logits[0].max()) + 1.0
+        ent, mar = pa.logit_trust_stats(logits)
+        torch.cuda.synchronize()
+        ent_ref, mar_ref = pa.logit_trust_stats_plain(logits)
+        ent_err = float((ent - ent_ref).abs().max())
+        if not torch.equal(mar, mar_ref) or ent_err > ENTROPY_ATOL \
+                or float(mar[0]) != 0.0:
+            raise AssertionError(f"trust epilogue at B={b} disagrees: "
+                                 f"entropy err {ent_err}, margins equal "
+                                 f"{torch.equal(mar, mar_ref)}")
+        bound_ms, bound_by = bound_entry(b * v * 4 + 2 * b * 4, b * v * 6,
+                                         "float32")
+
+        def library():
+            return torch.logsumexp(logits, -1), torch.topk(logits, 2, -1)
+
+        return {
+            "rows": b, "max_abs_err": ent_err,
+            "ms": time_ms(torch, lambda: pa.logit_trust_stats(logits),
+                          flush),
+            "plain_ms": time_ms(torch, lambda: pa.logit_trust_stats_plain(
+                logits), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # Yardstick: logsumexp + top-2 (entropy has no single library
+            # call).
+            "library_ms": time_ms(torch, library, flush),
+            # The kernel's and the library calls' own device time: the
+            # event window holds the host's dispatch whenever the card
+            # waits for it.
+            "device_ms": device_ms(lambda: pa.logit_trust_stats(logits),
+                                   flush, TRUST_KERNEL),
+            "library_device_ms": kernel_ab.device_ms(library, flush, 25),
+            "shape": {"logits": [b, v]},
+        }
+
+    decode = case(8)
+    entries["logit_trust_stats"] = {
+        "name": "logit_trust_stats", "route": "cuda", "source": SOURCE,
+        "replaces": "trustworthy_dl_tpu/ops/paged_attention.py:787",
+        "launches": 0, **{k: val for k, val in decode.items() if k != "rows"},
+        "cases": [case(1)],
+    }
 
 
 def block128_case(torch, pa, flush, rng):
@@ -664,11 +689,11 @@ def check_verify_tail(torch, pa, entries, flush):
             normed, head), flush),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(torch, library, flush),
-        # Device time of the call's two kernels (the head tiles, then the
-        # per-row fold) and of the library calls.
+        # Device time of the call's one kernel (the vocab stream with the
+        # fold in its last CTA) and of the library calls.
         "device_ms": kernel_ab.device_ms(
             lambda: pa.fused_verify_tail(normed, head), flush, 25,
-            kernel=VERIFY_KERNELS, launches=2),
+            kernel=VERIFY_KERNEL, launches=1),
         "library_device_ms": kernel_ab.device_ms(library, flush, 25),
         "shape": {"normed": [b, d], "head": [v, d], "dtype": "bfloat16"},
     }

@@ -2,7 +2,9 @@
 an int8 pool, B5's bf16-query split-K kernel at the edges of its spans,
 B7 trust epilogue, B8 fused verify tail, B9 paged adapter delta; B4 int8
 dequant matmul; B1 moment battery; B2/B3 flash attention
-forward and backward, B3 also run twice for the same bits)
+forward and backward; B3, B7 and B8 also run twice for the same bits;
+B7 at odd V, one column and duplicated maxima across its CTAs' shares;
+B8 100 times over poisoned scratch and on two streams at once)
 against their plain PyTorch twins, on the card, the detector baseline's
 tensors following the card, and the serving engine at the kernels' limits
 (B8 past one launch's rows, B9 past its rank, an int8-KV engine past
@@ -98,18 +100,74 @@ def test_prefill_kernel_matches_plain(cuda, dtype, atol, rtol, t, start):
                                atol=atol)
 
 
-@pytest.mark.parametrize("b,v", [(5, 700), (8, 50257)])
+@pytest.mark.parametrize("b,v", [(5, 700), (8, 50257), (1, 50257),
+                                 (16, 50257), (9, 50257), (3, 37)])
 def test_trust_kernel_matches_plain(cuda, b, v):
+    """B7 at the serve path's decode tick (8 rows: clusters of 16) and a
+    prompt's last chunk (1 row), past 8 rows (clusters of 8), and at odd V,
+    where every other row starts off a 16-byte boundary; V = 37 is fewer
+    16-byte vectors than a cluster has CTAs, so some shares are empty."""
     rng = np.random.default_rng(2)
     x = rng.normal(size=(b, v)).astype(np.float32) * 3
     x[0, 17] = x[0, 650 % v] = x[0].max() + 1.0     # duplicated maximum
     logits = torch.tensor(x, device=cuda)
+    before = pa.logit_trust_stats.launches
     ent, mar = pa.logit_trust_stats(logits)
     torch.cuda.synchronize()
+    assert pa.logit_trust_stats.launches == before + 1
     ent_ref, mar_ref = pa.logit_trust_stats_plain(logits)
     assert float(mar[0]) == 0.0
     assert torch.equal(mar, mar_ref)
     torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_trust_kernel_duplicated_maximum_across_slices(cuda, b):
+    """Each row's maximum twice, in two CTAs' shares of the row: row 0 at
+    its first and last columns (rank 0's scalar head or first vectors,
+    the last rank's tail), row r > 0 six columns either side of the r-th
+    sixteenth of the row (where shares meet, give or take the alignment
+    head): margin 0, bit-equal to the plain version."""
+    v = 50257
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(b, v)).astype(np.float32) * 3
+    for r in range(b):
+        cols = (0, v - 1) if r == 0 else \
+            (v * ((r - 1) % 15 + 1) // 16 - 6, v * ((r - 1) % 15 + 1) // 16 + 6)
+        x[r, list(cols)] = x[r].max() + 1.0
+    logits = torch.tensor(x, device=cuda)
+    ent, mar = pa.logit_trust_stats(logits)
+    torch.cuda.synchronize()
+    ent_ref, mar_ref = pa.logit_trust_stats_plain(logits)
+    assert torch.equal(mar, torch.zeros_like(mar))
+    assert torch.equal(mar, mar_ref)
+    torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+def test_trust_kernel_single_column(cuda):
+    """V = 1: one value a row (aligned, then off a 16-byte boundary), every
+    CTA but one empty: entropy exactly 0 and the margin against the empty
+    runner-up, x - NEG_INF in f32, as the JAX kernel's NEG_INF-padded tile
+    gives (the plain version's top-2 needs two columns)."""
+    logits = torch.tensor([[0.5], [-3.0], [7.25]], device=cuda)
+    ent, mar = pa.logit_trust_stats(logits)
+    torch.cuda.synchronize()
+    assert torch.equal(ent, torch.zeros(3, device=cuda))
+    assert torch.equal(mar, logits[:, 0] - torch.tensor(-1e30, device=cuda))
+
+
+@pytest.mark.parametrize("b,v", [(1, 50257), (8, 50257), (5, 700)])
+def test_trust_kernel_is_deterministic(cuda, b, v):
+    """Two launches on the same logits give the same bits: every merge
+    (lanes, warps, cluster ranks) runs in a fixed order, no atomics."""
+    rng = np.random.default_rng(22)
+    logits = torch.tensor(rng.normal(size=(b, v)).astype(np.float32) * 3,
+                          device=cuda)
+    first = pa.logit_trust_stats(logits)
+    second = pa.logit_trust_stats(logits)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_moments_kernel_matches_plain(cuda):
@@ -662,6 +720,84 @@ def test_verify_tail_kernel_matches_plain(cuda, b, d, v):
     torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("b,d,v", [(40, 768, 50257), (96, 768, 50257),
+                                   (3, 96, 701)])
+def test_verify_tail_kernel_is_deterministic(cuda, b, d, v):
+    """Two launches on the same inputs give the same bits for the logits,
+    the entropy and the margin, whichever CTA arrives last to fold: the
+    fold reads every CTA's partial in CTA order."""
+    rng = np.random.default_rng(23)
+    normed = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32).to(
+        device=cuda, dtype=torch.bfloat16)
+    head = torch.tensor(rng.normal(size=(v, d)) * 0.05,
+                        dtype=torch.float32).to(device=cuda,
+                                                dtype=torch.bfloat16)
+    first = pa.fused_verify_tail(normed, head)
+    second = pa.fused_verify_tail(normed, head)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def _verify_inputs(rng, b, d, v, device):
+    normed = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32).to(
+        device=device, dtype=torch.bfloat16)
+    head = torch.tensor(rng.normal(size=(v, d)) * 0.05,
+                        dtype=torch.float32).to(device=device,
+                                                dtype=torch.bfloat16)
+    head[v - 1] = head[3]
+    normed[b - 1] = head[3] * 40.0
+    return normed, head
+
+
+def test_verify_tail_kernel_holds_the_twin_launch_after_launch(cuda):
+    """The last CTA folds the other CTAs' partials as soon as their counts
+    arrive, so a count that got ahead of its CTA's stores would fold a
+    stale partial now and then.  100 launches at 96 rows (rows 32-95 come
+    from warps past the first), each after a block of the scratch's size
+    was filled with NaN and freed (the allocator's next block of that
+    size), each held to the twin: entropy within 1e-4, the margin exactly
+    top-2 of the launch's logits."""
+    rng = np.random.default_rng(31)
+    b, d, v = 96, 768, 50257
+    normed, head = _verify_inputs(rng, b, d, v, cuda)
+    _, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+    scratch = (b * -(-v // pa.VERIFY_TILE_COLS) + 1, 4)
+    for _ in range(100):
+        torch.full(scratch, float("nan"), device=cuda)
+        logits, ent, mar = pa.fused_verify_tail(normed, head)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        assert torch.equal(mar, top2[:, 0] - top2[:, 1])
+        assert float(mar[b - 1]) == 0.0
+        torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+def test_verify_tail_kernel_on_two_streams_at_once(cuda):
+    """Each launch counts its CTAs on a word of its own call's scratch, so
+    launches on two streams that overlap on the card fold apart: 20 calls
+    a stream, each against the twin as above."""
+    rng = np.random.default_rng(32)
+    d, v = 768, 50257
+    cases = [_verify_inputs(rng, b, d, v, cuda) for b in (40, 96)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(20):
+        for (normed, head), s, out in zip(cases, streams, outs):
+            with torch.cuda.stream(s):
+                out.append(pa.fused_verify_tail(normed, head))
+    torch.cuda.synchronize()
+    for (normed, head), out in zip(cases, outs):
+        ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+        bound = ref.abs() * 2.0 ** -7 \
+            + 1e-5 * (normed.float().abs() @ head.float().abs().T)
+        for logits, ent, mar in out:
+            assert float(((logits - ref).abs() - bound).max()) <= 0.0
+            top2 = torch.topk(logits, 2, dim=-1).values
+            assert torch.equal(mar, top2[:, 0] - top2[:, 1])
+            torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("b,d", [(40, 96), (100, 48), (8, 16)])
 def test_verify_tail_takes_d_multiple_of_16(cuda, b, d):
     """B8 at widths that are multiples of 16 but not of 64 (n_embd 96's
@@ -685,6 +821,35 @@ def test_verify_tail_takes_d_multiple_of_16(cuda, b, d):
     top2 = torch.topk(logits, 2, dim=-1).values
     assert torch.equal(mar, top2[:, 0] - top2[:, 1])
     assert float(mar[0]) == 0.0
+    torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,d,launches", [(96, 1024, 2), (48, 1600, 1),
+                                           (49, 1600, 2)])
+def test_verify_tail_fits_rows_to_shared_memory(cuda, b, d, launches):
+    """At GPT-2 medium's and XL's widths a launch takes the rows that fit
+    beside the ring (80 and 48, ``verify_group_rows``): 96 rows at 1024
+    are two launches, against the plain twin as above."""
+    rng = np.random.default_rng(24)
+    v = 2000
+    normed = torch.tensor(rng.normal(size=(b, d)), dtype=torch.float32).to(
+        device=cuda, dtype=torch.bfloat16)
+    head = torch.tensor(rng.normal(size=(v, d)) * 0.05,
+                        dtype=torch.float32).to(device=cuda,
+                                                dtype=torch.bfloat16)
+    head[v - 1] = head[3]
+    normed[b - 1] = head[3] * 40.0
+    before = pa.fused_verify_tail.launches
+    logits, ent, mar = pa.fused_verify_tail(normed, head)
+    torch.cuda.synchronize()
+    assert pa.fused_verify_tail.launches == before + launches
+    ref, ent_ref, _ = pa.fused_verify_tail_plain(normed, head)
+    bound = ref.abs() * 2.0 ** -7 \
+        + 1e-5 * (normed.float().abs() @ head.float().abs().T)
+    assert float(((logits - ref).abs() - bound).max()) <= 0.0
+    top2 = torch.topk(logits, 2, dim=-1).values
+    assert torch.equal(mar, top2[:, 0] - top2[:, 1])
+    assert float(mar[b - 1]) == 0.0
     torch.testing.assert_close(ent, ent_ref, rtol=0, atol=1e-4)
 
 

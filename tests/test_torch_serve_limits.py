@@ -3,7 +3,8 @@ groups the fused verify tail (B8) launches over, the limits of the paged
 adapter delta (B9), of the chunked prefill over either pool (B6, B6-int8)
 of the paged decode (B5), of the int8 dequant matmul (B4) and of the
 verify tail's width (B8) that the engine checks when it is built on the
-card, and the plain path, which has none of these limits.
+card, the plain path, which has none of these limits, and the cases and
+checks of the A/B tools for B4, B7, B8 and B9.
 
 These are pure functions of shapes and dtypes (and tiny CPU engines),
 so they run here; the card's side (an engine past B9's limits refused at
@@ -22,7 +23,7 @@ from trustworthy_dl_tpu_torch.ops import fused_dequant_matmul as fdm
 from trustworthy_dl_tpu_torch.ops import paged_attention as pa
 from trustworthy_dl_tpu_torch.quant import int8 as q8
 from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
-from trustworthy_dl_tpu_torch.utils import adapter_ab, dequant_ab
+from trustworthy_dl_tpu_torch.utils import adapter_ab, dequant_ab, trust_ab
 
 pytestmark = pytest.mark.torchport
 
@@ -31,21 +32,55 @@ CFG = gpt2.GPT2Config(vocab_size=251, n_positions=64, n_layer=2, n_embd=32,
 
 
 def test_verify_row_groups_of_the_smoke_verify_is_one_launch():
-    assert pa.verify_row_groups(40) == [(0, 40)]
+    assert pa.verify_row_groups(40, 768) == [(0, 40)]
 
 
 def test_verify_row_groups_split_past_the_kernel_limit():
-    assert pa.verify_row_groups(144) == [(0, 96), (96, 144)]
+    assert pa.verify_row_groups(144, 768) == [(0, 96), (96, 144)]
 
 
 @pytest.mark.parametrize("b", [1, 40, 95, 96, 97, 100, 144, 192, 1000])
 def test_verify_row_groups_tile_every_row_once(b):
-    groups = pa.verify_row_groups(b)
+    groups = pa.verify_row_groups(b, 768)
     assert groups[0][0] == 0 and groups[-1][1] == b
     assert all(hi == lo2 for (_, hi), (lo2, _) in zip(groups, groups[1:]))
     assert all(lo % pa.VERIFY_MAX_ROWS == 0 for lo, _ in groups)
     assert all(1 <= hi - lo <= pa.VERIFY_MAX_ROWS for lo, hi in groups)
     assert len(groups) == -(-b // pa.VERIFY_MAX_ROWS)
+
+
+def _verify_smem_bytes_formula(rows, d, kc):
+    """``vt_smem_bytes`` of ``csrc/paged_attention.cu``, spelled as the
+    CUDA source spells it: rows16 * (D + 8) * 2 + VT_STAGES * VT_COLS *
+    (KC + 8) * 2, normed's rows padded to 16, 3 stages of 128 columns."""
+    return -(-rows // 16) * 16 * (d + 8) * 2 + 3 * 128 * (kc + 8) * 2
+
+
+@pytest.mark.parametrize("d", [16, 96, 768, 1024, 1280, 1600, 4096, 5520,
+                               5536])
+def test_verify_group_rows_fit_the_kernels_shared_memory(d):
+    """A B8 launch's rows at width D fit beside the kernel's smallest ring
+    (three 64-deep stages) in the 227 KB a block may use, and 16 more would
+    not (or the group is the 96-row maximum)."""
+    rows = pa.verify_group_rows(d)
+    limit = pa.VERIFY_SMEM_LIMIT
+    assert rows % 16 == 0 and 0 <= rows <= pa.VERIFY_MAX_ROWS
+    if rows:
+        assert _verify_smem_bytes_formula(rows, d, 64) <= limit
+    if rows < pa.VERIFY_MAX_ROWS:
+        assert _verify_smem_bytes_formula(rows + 16, d, 64) > limit
+    assert (pa.verify_kernel_limit(d, torch.bfloat16) is None) == (rows > 0)
+
+
+def test_verify_group_rows_at_gpt2_widths():
+    """GPT-2 small keeps 96 rows a launch (the smoke's verify is one
+    launch); medium, large and XL take 80, 64 and 48."""
+    assert [pa.verify_group_rows(d) for d in (768, 1024, 1280, 1600)] == \
+        [96, 80, 64, 48]
+    assert pa.verify_row_groups(96, 1024) == [(0, 80), (80, 96)]
+    assert pa.verify_row_groups(40, 1600) == [(0, 40)]
+    assert pa.verify_row_groups(160, 1280) == [(0, 64), (64, 128),
+                                               (128, 160)]
 
 
 @pytest.mark.parametrize("rank,d,dtype,needle", [
@@ -395,6 +430,7 @@ def test_dequant_engine_limit_refuses_exactly_what_the_wrapper_would(
 @pytest.mark.parametrize("d,dtype,needle", [
     (768, torch.float32, "bf16"), (40, torch.bfloat16, "D=40"),
     (0, torch.bfloat16, "D=0"), (8, torch.bfloat16, "D=8"),
+    (5536, torch.bfloat16, "shared memory"),
 ])
 def test_verify_kernel_limit_names_what_it_refuses(d, dtype, needle):
     reason = pa.verify_kernel_limit(d, dtype)
@@ -475,6 +511,77 @@ def test_adapter_ab_library_call_is_the_delta_in_bf16(scaled):
     assert bool((got[1] == 0.0).all())
     torch.testing.assert_close(got, ref, rtol=2.0 ** -6,
                                atol=2.0 ** -6 * float(ref.abs().max()))
+
+
+def test_trust_ab_cases_and_bounds():
+    """``utils/trust_ab``'s cases import without a card: B7 at the serve
+    path's two launches (a decode tick's 8 rows and a prompt's last
+    chunk's 1 of GPT-2's vocab), 4 and 16 rows and an odd V; B8 at the
+    smoke's spec verify, 8 and 96 rows (one launch's most) and n_embd 96,
+    each one launch inside B8's limits; the smoke's tolerance and its
+    bounds at B7's and B8's main launches."""
+    labels = [c[0] for c in trust_ab.TRUST_CASES] + \
+        [c[0] for c in trust_ab.VERIFY_CASES]
+    assert len(labels) == len(set(labels)) == 9
+    shapes = {(b, v) for _, b, v in trust_ab.TRUST_CASES}
+    assert {(8, 50257), (1, 50257)} <= shapes
+    assert any(v % 2 and b > 1 for b, v in shapes)
+    for _, b, d, v in trust_ab.VERIFY_CASES:
+        assert pa.verify_kernel_limit(d, torch.bfloat16) is None
+        assert pa.verify_row_groups(b, d) == [(0, b)]
+    assert {d for _, _, d, _ in trust_ab.VERIFY_CASES} == {768, 96}
+    assert trust_ab.ENTROPY_ATOL == 1e-4
+    assert trust_ab.trust_bound_ms(8, 50257) == pytest.approx(
+        (8 * 50257 * 4 + 2 * 8 * 4) / 3.35e12 * 1e3)
+    assert trust_ab.verify_bound_ms(40, 768, 50257) == pytest.approx(
+        (50257 * 768 * 2 + 40 * 768 * 2 + 40 * 50257 * 4 + 2 * 40 * 4)
+        / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("kernel", ["B7", "B8"])
+def test_trust_ab_checks_take_the_twin_and_refuse_a_moved_margin(kernel):
+    """``utils/trust_ab`` holds a build's outputs as ``chip_smoke.py``
+    does: the plain twin's own outputs on its inputs (each case's maximum
+    duplicated, margin 0) pass, and the same outputs with one margin moved
+    by one f32 step fail."""
+    gen = torch.Generator().manual_seed(7)
+    cpu = torch.device("cpu")
+    if kernel == "B7":
+        logits = trust_ab.trust_inputs(5, 700, gen, cpu)
+        got = pa.logit_trust_stats_plain(logits)
+
+        def check(out):
+            return trust_ab.trust_check(out, logits)
+    else:
+        normed, head = trust_ab.verify_inputs(3, 64, 700, gen, cpu)
+        got = pa.fused_verify_tail_plain(normed, head)
+
+        def check(out):
+            return trust_ab.verify_check(out, normed, head)
+    margin = got[-1]
+    assert float(margin[0 if kernel == "B7" else -1]) == 0.0
+    assert check(got)["within_tolerance"]
+    moved = margin.clone()
+    moved[0] = torch.nextafter(moved[0], torch.tensor(1.0))
+    assert not check((*got[:-1], moved))["within_tolerance"]
+
+
+def test_trust_ab_library_calls_give_the_margin():
+    """The yardsticks compute the twins' statistics: top-2 of the same
+    logits gives the twin's margin exactly, and logsumexp its logZ; B8's
+    takes the bf16 product first."""
+    gen = torch.Generator().manual_seed(8)
+    logits = trust_ab.trust_inputs(4, 300, gen, torch.device("cpu"))
+    lse, top2 = trust_ab.library_trust(logits)
+    _, margin = pa.logit_trust_stats_plain(logits)
+    assert torch.equal(top2.values[:, 0] - top2.values[:, 1], margin)
+    torch.testing.assert_close(
+        lse, torch.log(torch.exp(logits.double()).sum(-1)).float())
+    normed, head = trust_ab.verify_inputs(2, 32, 300, gen,
+                                          torch.device("cpu"))
+    _, top2 = trust_ab.library_verify(normed, head.T)
+    assert top2.values.dtype == torch.float32
+    assert top2.values.shape == (2, 2)
 
 
 def test_plain_engine_serves_d96_int8_weights_and_spec():

@@ -140,36 +140,79 @@
 // B7 replaces _trust_stats_kernel (_trust_stats_call): for each row of
 // f32 logits [B, V] it returns the softmax entropy logZ - sum(x p) and the
 // top-1 margin top1 - top2 in one read of the row.  Bound: bytes (one read
-// of B * V * 4).  One CTA per row; each thread strides over V keeping the
-// online (m, sum e^{x-m}, sum x e^{x-m}) and an exact top-2 pair, then
-// warps merge by shuffles and warp 0 merges the warps.  The top-2 merge
-// keeps a duplicated maximum (top2 == top1, margin 0) and uses only
-// max/min, so the margin is bit-exact against top-k of the same values.
-// The row is bounds-checked against V instead of being padded.
+// of B * V * 4: 1.6 MB, 0.48 us at B = 8).  The serve path launches it at
+// B = 8 (a decode tick) and B = 1 (a prompt's last chunk), so one CTA a
+// row would leave the card idle and walk each row in dependent steps;
+// what bounds a launch in practice is latency.  trust_cluster_kernel<C>:
+//   * one cluster of C CTAs a row (C = 16, non-portable, at B <= 4; 8
+//     past it: 8 measured faster at B = 8, 16 at B = 1 and 4); rank c
+//     reads a contiguous, even share of the row's 16-byte vectors.  Row r
+//     starts at byte 4 r V and V = 50257 is odd, so every other row is
+//     misaligned: the (at most 3) floats before the row's first 16-byte
+//     boundary go to rank 0 as scalars and those after its last to rank
+//     C - 1; nothing is padded.  An empty share (V < C vectors) is the
+//     empty accumulator;
+//   * each thread issues all of a round's 16-byte loads (8 a thread) into
+//     registers before any arithmetic, takes their max first, then one
+//     e^{x - m} a value - no running rescale, no dependent chain - and
+//     keeps top-2 with max/min only (a duplicated maximum gives top2 ==
+//     top1, margin 0, bit-exact against top-k).  Any V loops over rounds
+//     (GPT-2's is one), so there is no vocab limit;
+//   * (m = top1, top2, sum e^{x-m}, sum x e^{x-m}) merge by fixed shuffle
+//     trees, then warps in shared memory, then ranks: each rank writes its
+//     partial into rank 0's shared memory (distributed shared memory,
+//     after a cluster barrier split around the loads), and rank 0 merges
+//     them in rank order and writes.  One launch, no atomics, no global
+//     scratch: the same bits every launch.
 //
-// B8 replaces _verify_tail_kernel (_verify_tail_call): logits [B, V] f32 =
-// normed [B, D] bf16 @ head [V, D]^T, rounded through bf16 (the tail's
-// matmul runs in the compute dtype and upcasts after it), plus the entropy
-// and top-1 margin of every row folded in the same vocab pass.  Bound:
-// bytes - the head (V * D * 2 = 77.2 MB for GPT-2 small) read once plus
-// the [B, V] f32 logits written once; at B = 40 the products are 3.1
-// GFLOP, ~3 us at 989 TFLOP/s against ~26 us of bytes.  Design: a CTA
-// keeps all B (<= 96) rows of normed resident in shared memory and walks
-// 128-column vocab tiles (grid-stride, as many CTAs as fit on the card);
-// each tile's head rows stream in 64-deep K chunks (the last one shorter
-// where D is a multiple of 16 but not of 64) through WMMA bf16
-// products with f32 accumulation (8 warps, 16 columns each); the tile is
-// staged in shared memory, rounded to bf16, written, and reduced per row
-// into partials (m, sum e, sum x e, top1, top2) - columns at or past V are
-// left out of the reductions, never counted as 0.  A second one-warp-per-
-// row launch folds each row's partials in fixed tile order: no atomics,
-// so the bits repeat, and the top-2 merge is B7's, so the margin equals
-// top-k over the kernel's own logits bit for bit.
+// B8 replaces _verify_tail_kernel (_verify_tail_call, _trust_update):
+// logits [B, V] f32 = normed [B, D] bf16 @ head [V, D]^T, rounded through
+// bf16 (the tail's matmul runs in the compute dtype and upcasts after
+// it), plus B7's entropy and margin of every row, folded in the same
+// pass.  Bound: bytes - the head (V * D * 2 = 77.2 MB for GPT-2 small)
+// read once plus the [B, V] f32 logits written once (8.0 MB at B = 40):
+// 25.5 us; the products are 3.1 GFLOP at B = 40, ~3 us at 989 TFLOP/s.
+// So the head has to stream at the card's memory rate with every SM
+// busy to the end.  verify_stream_kernel<MT, KC>:
+//   * one persistent CTA of 8 warps an SM; CTA i takes an even,
+//     contiguous share of the vocab's 16-column groups (23 or 24 of 3142
+//     for GPT-2 on 132 SMs) and walks it in 128-column tiles, warp w on
+//     group w, so no SM takes more than one group over another's share;
+//   * normed [B <= 96, D] stays resident in shared memory (rows padded to
+//     16 with zeros); its rows arrive K chunk by K chunk with the first
+//     tile's stages, so the first products wait for one chunk of it.  The
+//     head's rows stream through a 3-stage ring of KC-deep K chunks by
+//     16-byte cp.async: KC = 128 (34 KB stages) wherever the ring fits
+//     beside normed, else 64; two stages in flight while one multiplies,
+//     across tile boundaries too.  Half the stages of 64-deep ones halve
+//     the per-stage bookkeeping, which measured as costly as the products;
+//   * logits = normed . head^T by mma.sync m16n8k16 (bf16 in, f32
+//     accumulate), normed's MT = ceil(B / 16) m16 tiles the A operand, the
+//     warp's 16 head rows the two n8 B tiles, both by ldmatrix;
+//   * the epilogue works on the fragments: each accumulator rounded
+//     through bf16 and stored, then folded into the lane's running
+//     (top1, top2, sum 2^x, sum x 2^x) of its row - the tile's top-2 by
+//     max/min, one rescale and one 2^x a value against the new max - so
+//     no shuffle runs until the CTA's columns are done.  Columns at or
+//     past V stay out of the reductions, never counted as 0; no f32 tile
+//     is staged;
+//   * the fold is in the same launch: a row's 4 lanes merge by shuffles,
+//     the 8 warps in order through shared memory; each CTA writes one
+//     partial a row, each thread fences its stores, a barrier, then one
+//     thread counts the CTA on the call's own arrival word (in its
+//     scratch, after the partials, zeroed on the stream before the
+//     launch); the last CTA to arrive folds every row's partials in CTA
+//     order (8 lanes a row: the max first, then one 2^{m_c - M} a partial,
+//     fixed xor trees).  No atomics touch the values, so the bits repeat,
+//     and the margin equals top-k over the kernel's own logits bit for
+//     bit.
+// What bounds it in practice (PERF.md, row B8): the stream's cp.async
+// (LDGSTS) issue rate and, at 40 rows, products and epilogue that do not
+// all hide under it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <math.h>
 #include <stdint.h>
@@ -182,7 +225,6 @@ using namespace mma_sm90;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int ATTN_THREADS = 128;
-constexpr int TRUST_THREADS = 1024;
 // Keys staged per iteration of the attention loop (whole blocks).
 constexpr int STAGE_KEYS = 64;
 constexpr size_t STATIC_SMEM_LIMIT = 48 * 1024;
@@ -1183,222 +1225,572 @@ int dispatch_prefill_mma(const void* q, const void* pool_k,
 #undef PF_CASE
 }
 
+// Trust accumulators of B7 and B8: over some values x of a row, their
+// maximum m (which is also the top-1), the runner-up t2 (a duplicated
+// maximum gives t2 == m), s = sum e^{x - m} and w = sum x e^{x - m}.  The
+// empty set is (NEG_INF, NEG_INF, 0, 0); e^{NEG_INF - m} flushes to 0, so
+// it weighs nothing in a merge.
 struct TrustAcc {
-  float m, s, w, t1, t2;
+  float m, t2, s, w;
 };
 
 __device__ __forceinline__ TrustAcc trust_empty() {
-  return TrustAcc{NEG_INF, 0.f, 0.f, NEG_INF, NEG_INF};
+  return TrustAcc{NEG_INF, NEG_INF, 0.f, 0.f};
 }
 
-__device__ __forceinline__ void trust_push(TrustAcc& a, float x) {
-  if (x > a.m) {
-    const float c = expf(a.m - x);
-    a.s = a.s * c + 1.f;
-    a.w = a.w * c + x;
-    a.m = x;
-  } else {
-    const float e = expf(x - a.m);
-    a.s += e;
-    a.w += x * e;
-  }
-  if (x > a.t1) {
-    a.t2 = a.t1;
-    a.t1 = x;
-  } else if (x > a.t2) {
-    a.t2 = x;  // a duplicated maximum lands here: top2 == top1
-  }
+// max/min only, so a margin is bit-exact against top-k of the same values.
+__device__ __forceinline__ void top2_push(float& t1, float& t2, float x) {
+  t2 = fmaxf(t2, fminf(t1, x));
+  t1 = fmaxf(t1, x);
 }
 
 __device__ __forceinline__ TrustAcc trust_merge(const TrustAcc& a,
                                                 const TrustAcc& b) {
   TrustAcc o;
   o.m = fmaxf(a.m, b.m);
+  o.t2 = fmaxf(fminf(a.m, b.m), fmaxf(a.t2, b.t2));
   const float ca = expf(a.m - o.m);
   const float cb = expf(b.m - o.m);
   o.s = a.s * ca + b.s * cb;
   o.w = a.w * ca + b.w * cb;
-  o.t1 = fmaxf(a.t1, b.t1);
-  o.t2 = fmaxf(fminf(a.t1, b.t1), fmaxf(a.t2, b.t2));
   return o;
 }
 
+// The fixed xor tree over a warp's lanes: every lane ends with the merge.
 __device__ __forceinline__ TrustAcc trust_warp_merge(TrustAcc a) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     TrustAcc b;
     b.m = __shfl_xor_sync(0xffffffffu, a.m, off);
+    b.t2 = __shfl_xor_sync(0xffffffffu, a.t2, off);
     b.s = __shfl_xor_sync(0xffffffffu, a.s, off);
     b.w = __shfl_xor_sync(0xffffffffu, a.w, off);
-    b.t1 = __shfl_xor_sync(0xffffffffu, a.t1, off);
-    b.t2 = __shfl_xor_sync(0xffffffffu, a.t2, off);
     a = trust_merge(a, b);
   }
   return a;
 }
 
-__global__ void __launch_bounds__(TRUST_THREADS)
-    trust_stats_kernel(const float* __restrict__ logits,
-                       float* __restrict__ entropy, float* __restrict__ margin,
-                       int V) {
-  __shared__ TrustAcc warp_acc[TRUST_THREADS / 32];
-  const float* x = logits + (size_t)blockIdx.x * V;
+// entropy = -sum p log p = logZ - sum p x, p = e^{x - m} / s; margin =
+// top1 - top2.
+__device__ __forceinline__ void trust_write(const TrustAcc& a, float* ent,
+                                            float* mar) {
+  const float s = fmaxf(a.s, 1e-30f);
+  *ent = (a.m + logf(s)) - a.w / s;
+  *mar = a.m - a.t2;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// B7: the trust epilogue, one row over a thread-block cluster.
+// ---------------------------------------------------------------------------
+
+constexpr int TS_THREADS = 256;
+constexpr int TS_WARPS = TS_THREADS / 32;
+constexpr int TS_VECS = 8;  // 16-byte loads a thread holds a round
+constexpr int TS_MAX_CLUSTER = 16;
+// Rows up to which a row takes TS_MAX_CLUSTER CTAs; past it, 8.
+constexpr int TS_WIDE_ROWS = 4;
+constexpr int MAX_DEVICES = 64;
+
+// One CTA of row blockIdx.x / C: cluster rank c reads the row's aligned
+// float4s [c n4 / C, (c + 1) n4 / C); rank 0 also the (at most 3) floats
+// before the first 16-byte boundary and rank C - 1 those after the last.
+template <int C>
+__global__ void __launch_bounds__(TS_THREADS) trust_cluster_kernel(
+    const float* __restrict__ logits, float* __restrict__ entropy,
+    float* __restrict__ margin, int V) {
+  namespace cg = cooperative_groups;
+  __shared__ TrustAcc warp_acc[TS_WARPS];
+  __shared__ TrustAcc rank_acc[C];
+  cg::cluster_group cluster = cg::this_cluster();
+  // Arrive now, wait before rank 0's shared memory is written: the peers
+  // have started by then, and the barrier costs nothing meanwhile.
+  cluster_arrive_relaxed();
+  const int rank = (int)cluster.block_rank();
+  const int row = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const float* x = logits + (size_t)row * V;
+  // Row r starts at byte 4 r V: with V odd, every other row is not
+  // 16-byte aligned.  No padding: a scalar head and tail.
+  const int head =
+      min(V, (int)(((16u - ((unsigned)(uintptr_t)x & 15u)) & 15u) >> 2));
+  const int n4 = (V - head) >> 2;
+  const int tail0 = head + 4 * n4;
+  const int v0 = (int)((long long)rank * n4 / C);
+  const int v1 = (int)((long long)(rank + 1) * n4 / C);
+  const float4* xv = reinterpret_cast<const float4*>(x + head);
+
+  float sx = 0.f;
+  bool sok = false;
+  if (rank == 0 && tid < head) {
+    sx = x[tid];
+    sok = true;
+  } else if (rank == C - 1 && tid >= 4 && tid - 4 < V - tail0) {
+    sx = x[tail0 + tid - 4];
+    sok = true;
+  }
+
+  // Rounds of TS_VECS float4s a thread: every load of a round is issued
+  // before any arithmetic; the round's max first, then one e^{x - m} a
+  // value (no running rescale), then one merge.  GPT-2's 50257 columns are
+  // one round at C >= 8; any V loops.
   TrustAcc a = trust_empty();
-  for (int i = threadIdx.x; i < V; i += blockDim.x) trust_push(a, x[i]);
+  for (int base = v0; base < v1; base += TS_VECS * TS_THREADS) {
+    float4 buf[TS_VECS];
+#pragma unroll
+    for (int k = 0; k < TS_VECS; ++k) {
+      const int i = base + k * TS_THREADS + tid;
+      buf[k] = i < v1 ? __ldg(xv + i)
+                      : make_float4(NEG_INF, NEG_INF, NEG_INF, NEG_INF);
+    }
+    float t1 = NEG_INF, t2 = NEG_INF;
+#pragma unroll
+    for (int k = 0; k < TS_VECS; ++k) {
+      top2_push(t1, t2, buf[k].x);
+      top2_push(t1, t2, buf[k].y);
+      top2_push(t1, t2, buf[k].z);
+      top2_push(t1, t2, buf[k].w);
+    }
+    float s = 0.f, w = 0.f;
+#pragma unroll
+    for (int k = 0; k < TS_VECS; ++k) {
+      if (base + k * TS_THREADS + tid < v1) {
+        const float e0 = expf(buf[k].x - t1);
+        const float e1 = expf(buf[k].y - t1);
+        const float e2 = expf(buf[k].z - t1);
+        const float e3 = expf(buf[k].w - t1);
+        s += (e0 + e1) + (e2 + e3);
+        w += (buf[k].x * e0 + buf[k].y * e1) + (buf[k].z * e2 + buf[k].w * e3);
+      }
+    }
+    a = trust_merge(a, TrustAcc{t1, t2, s, w});
+  }
+  if (sok) a = trust_merge(a, TrustAcc{sx, NEG_INF, 1.f, sx});
+
+  // Lanes, then warps, then ranks, each in a fixed order: the same bits
+  // every launch.
   a = trust_warp_merge(a);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   if (lane == 0) warp_acc[warp] = a;
   __syncthreads();
   if (warp == 0) {
-    a = lane < (int)(blockDim.x >> 5) ? warp_acc[lane] : trust_empty();
+    a = lane < TS_WARPS ? warp_acc[lane] : trust_empty();
     a = trust_warp_merge(a);
-    if (lane == 0) {
-      const float s = fmaxf(a.s, 1e-30f);
-      // entropy = -sum p log p = logZ - sum p x, with p = e^{x-m} / s.
-      entropy[blockIdx.x] = (a.m + logf(s)) - a.w / s;
-      margin[blockIdx.x] = a.t1 - a.t2;
-    }
+  }
+  cluster_wait();
+  if (tid == 0) *cluster.map_shared_rank(&rank_acc[rank], 0) = a;
+  cluster.sync();  // every rank's partial is in rank 0's shared memory
+  if (rank == 0 && warp == 0) {
+    a = lane < C ? rank_acc[lane] : trust_empty();
+    a = trust_warp_merge(a);
+    if (lane == 0) trust_write(a, entropy + row, margin + row);
   }
 }
 
+template <int C>
+int launch_trust(const float* logits, float* entropy, float* margin, int B,
+                 int V, cudaStream_t stream) {
+  // The non-portable cluster size's opt-in, once a device.
+  static bool ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (C > 8 && !ready[dev]) {
+    err = cudaFuncSetAttribute(trust_cluster_kernel<C>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C * B), 1, 1);
+  cfg.blockDim = dim3(TS_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, trust_cluster_kernel<C>, logits, entropy,
+                           margin, V);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // B8: fused speculative-verify tail.
 // ---------------------------------------------------------------------------
 
-constexpr int VT_COLS = 128;     // vocab columns per tile
-constexpr int VT_KC = 64;        // head K chunk
-constexpr int VT_WARPS = 8;      // each warp owns 16 columns of a tile
+constexpr int VT_WARPS = 8;
 constexpr int VT_THREADS = VT_WARPS * 32;
-constexpr int VT_MAX_FR = 6;     // row fragments: B <= 96
-constexpr int VT_LDW = VT_KC + 8;
-constexpr int VT_LDS = VT_COLS + 4;
-constexpr int VT_PARTS = 5;      // m, sum e, sum x e, top1, top2
+// Vocab columns a tile: a 16-column group (two n8 tiles) a warp.
+constexpr int VT_COLS = 16 * VT_WARPS;
+constexpr int VT_MAX_MT = 6;     // m16 tiles of rows: B <= 96
+// The ring's depth: two stages in flight while one multiplies (3 and 7
+// measured the same: the cp.async issue, not the depth, limits it).
+constexpr int VT_STAGES = 3;
+constexpr int VT_SMEM_LIMIT = 232448;  // the H100's 227 KB a block
+// The fold: 8 lanes a row, VT_FOLD partials a lane, so a launch may take
+// up to 8 VT_FOLD CTAs (one an SM).
+constexpr int VT_FOLD = 20;
+constexpr int VT_MAX_CTAS = 8 * VT_FOLD;
+constexpr float LOG2E = 1.4426950408889634f;
 
-size_t vt_smem_bytes(int bp, int D) {
-  const size_t x_bytes = (size_t)bp * (D + 8) * sizeof(__nv_bfloat16);
-  const size_t w_bytes = (size_t)VT_COLS * VT_LDW * sizeof(__nv_bfloat16);
-  const size_t st_bytes = (size_t)bp * VT_LDS * sizeof(float);
-  // The head chunk buffer and the output stage are never live together.
-  return x_bytes + (w_bytes > st_bytes ? w_bytes : st_bytes);
+// normed's rows padded to 16 ([rows16, D + 8] bf16) and the ring.
+// A ring stage is [VT_COLS, KC] of the head (K depth KC, 128 or 64), its
+// rows padded by 16 bytes for ldmatrix.
+size_t vt_smem_bytes(int rows16, int D, int kc) {
+  return (size_t)rows16 * (D + 8) * 2 +
+         (size_t)VT_STAGES * VT_COLS * (kc + 8) * 2;
 }
 
-__global__ void __launch_bounds__(VT_THREADS) verify_tail_kernel(
+// One persistent CTA (one an SM): columns [16 g0, 16 g1) of the vocab, an
+// even share of its 16-column groups, walked in 128-column tiles, warp w
+// on group w of a tile.  Products: logits = normed . head^T with mma.sync
+// m16n8k16, normed rows the A operand (MT m16 tiles), the warp's 16 head
+// rows the B operand (two n8 tiles).  C fragment element e of m16 tile i
+// and n8 tile n is row 16 i + g + 8 (e >> 1) and column 8 n + 2 t + (e &
+// 1) of the warp's group, g = lane / 4, t = lane % 4: a lane holds 4
+// columns of each of its 2 MT rows a tile.
+template <int MT, int KC>
+__global__ void __launch_bounds__(VT_THREADS, 1) verify_stream_kernel(
     const __nv_bfloat16* __restrict__ normed,
     const __nv_bfloat16* __restrict__ head, float* __restrict__ logits,
-    float* __restrict__ partials, int B, int bp, int D, int V, int ntiles) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char vt_smem[];
+    float4* __restrict__ part, float* __restrict__ entropy,
+    float* __restrict__ margin, unsigned int* __restrict__ arrivals, int B,
+    int D, int V) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char vt_smem[];
   const int ldx = D + 8;
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(vt_smem);
-  unsigned char* tail = vt_smem + (size_t)bp * ldx * sizeof(__nv_bfloat16);
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(tail);
-  float* st = reinterpret_cast<float*>(tail);
+  bf16* x_s = reinterpret_cast<bf16*>(vt_smem);
+  bf16* ring = reinterpret_cast<bf16*>(vt_smem + (size_t)MT * 16 * ldx * 2);
 
+  const int G = (int)gridDim.x;
+  const int cta = blockIdx.x;
+  const int ngroups = (V + 15) / 16;
+  const int g0 = (int)((long long)cta * ngroups / G);
+  const int g1 = (int)((long long)(cta + 1) * ngroups / G);
+  constexpr int WP = KC + 8;  // bf16 pitch of a stage's head row
+  const int nkc = (D + KC - 1) / KC;
+  const int nq = (g1 - g0 + VT_WARPS - 1) / VT_WARPS * nkc;  // ring stages
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int nfr = bp / 16;
-  const int vec_per_row = D / 8;
-  for (int i = tid; i < bp * vec_per_row; i += VT_THREADS) {
-    const int r = i / vec_per_row;
-    const int c = (i % vec_per_row) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < B)
-      v = *reinterpret_cast<const uint4*>(normed + (size_t)r * D + c);
-    *reinterpret_cast<uint4*>(x_s + r * ldx + c) = v;
-  }
-  __syncthreads();
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow = lane & 7;
+  const int lm0 = (lane >> 3) & 1;
+  const int lm1 = lane >> 4;
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int v0 = tile * VT_COLS;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[VT_MAX_FR];
+  // normed's padding rows are zeros; its rows arrive a K chunk at a time
+  // with the first tile's stages, so the first products wait for one
+  // chunk of normed, not all of it.
+  for (int i = tid; i < (16 * MT - B) * (D / 8); i += VT_THREADS) {
+    const int r = B + i / (D / 8);
+    *reinterpret_cast<uint4*>(x_s + r * ldx + (i % (D / 8)) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // Thread tid copies 16-byte vector tid % VPR of stage rows tid / VPR +
+  // RSTEP j.
+  constexpr int VPR = KC / 8;
+  constexpr int RSTEP = VT_THREADS / VPR;
+  const int lr = tid / VPR;
+  const int lv = (tid % VPR) * 8;
+  // Stage (tile ti, K chunk kc) into ring slot `slot`: the tile's head
+  // rows inside [16 g0, 16 g1) (whole groups; rows at or past V are
+  // zeros), K columns [k0, k0 + kw); in the first tile also normed's rows
+  // of the same K columns.
+  auto load = [&](int ti, int kc, int slot) {
+    const int k0 = kc * KC;
+    const int kw = min(KC, D - k0);
+    const int col0 = (g0 + VT_WARPS * ti) * 16;
+    const int rows = min(VT_WARPS, g1 - g0 - VT_WARPS * ti) * 16;
+    bf16* ws = ring + (size_t)slot * VT_COLS * WP + lr * WP + lv;
+    const bf16* src = head + (size_t)(col0 + lr) * D + k0 + lv;
+    if (lv < kw) {
 #pragma unroll
-    for (int f = 0; f < VT_MAX_FR; ++f) wmma::fill_fragment(acc[f], 0.f);
-    for (int k0 = 0; k0 < D; k0 += VT_KC) {
-      // Head rows v0.. of this K chunk: [VT_COLS, kc] bf16 (the last chunk
-      // of a D that is not a multiple of VT_KC is short); rows at or past
-      // V load as zeros (their columns never reach the output).
-      const int kc = min(VT_KC, D - k0);
-      const int vpr = kc / 8;
-      for (int i = tid; i < VT_COLS * vpr; i += VT_THREADS) {
-        const int c = i / vpr;
-        const int kk = (i % vpr) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (v0 + c < V)
-          v = *reinterpret_cast<const uint4*>(head + (size_t)(v0 + c) * D +
-                                              k0 + kk);
-        *reinterpret_cast<uint4*>(w_s + c * VT_LDW + kk) = v;
+      for (int j = 0; j < VT_COLS / RSTEP; ++j) {
+        const int r = lr + RSTEP * j;
+        if (r < rows) {
+          if (col0 + r < V)
+            cp_async16(ws + RSTEP * j * WP, src + (size_t)RSTEP * j * D);
+          else
+            *reinterpret_cast<uint4*>(ws + RSTEP * j * WP) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
       }
-      __syncthreads();
+      if (ti == 0)
+        for (int r = lr; r < B; r += RSTEP)
+          cp_async16(x_s + r * ldx + k0 + lv,
+                     normed + (size_t)r * D + k0 + lv);
+    }
+  };
+
+  float acc[MT][2][4];
+  // The lane's running statistics of its rows 16 i + g + 8 h over every
+  // column it has held: no shuffle until the CTA's columns are done.
+  TrustAcc run[MT][2];
 #pragma unroll
-      for (int kk = 0; kk < VT_KC; kk += 16) {
-        if (kk >= kc) break;
-        // B = head^T: element (k, n) = w_s[n * VT_LDW + k], column-major.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bf;
-        wmma::load_matrix_sync(bf, w_s + warp * 16 * VT_LDW + kk, VT_LDW);
+  for (int i = 0; i < MT; ++i) run[i][0] = run[i][1] = trust_empty();
+
+  // The stage being loaded: (tile, chunk, slot), advanced without
+  // division.
+  int lti = 0, lkc = 0, lslot = 0;
+  auto advance = [&]() {
+    if (++lkc == nkc) {
+      lkc = 0;
+      ++lti;
+    }
+    if (++lslot == VT_STAGES) lslot = 0;
+  };
+  for (int s = 0; s < VT_STAGES - 1; ++s) {
+    if (s < nq) {
+      load(lti, lkc, lslot);
+      advance();
+    }
+    cp_async_commit();
+  }
+  int ti = 0, kc = 0, slot = 0;
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<VT_STAGES - 2>();
+    __syncthreads();  // stage q landed; the slot before it is free
+    if (q + VT_STAGES - 1 < nq) {
+      load(lti, lkc, lslot);
+      advance();
+    }
+    cp_async_commit();
+
+    const int gw = g0 + VT_WARPS * ti + warp;  // the warp's group
+    if (gw < g1) {
+      if (kc == 0) {
 #pragma unroll
-        for (int f = 0; f < VT_MAX_FR; ++f) {
-          if (f < nfr) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> af;
-            wmma::load_matrix_sync(af, x_s + f * 16 * ldx + k0 + kk, ldx);
-            wmma::mma_sync(acc[f], af, bf, acc[f]);
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+      }
+      const bf16* ws = ring + (size_t)slot * VT_COLS * WP;
+      const int k0 = kc * KC;
+      const int kb = min(KC, D - k0) / 16;
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        if (kk < kb) {
+          uint32_t b[4];
+          ldsm_x4(b, ws + (16 * warp + lrow + lm1 * 8) * WP + kk * 16 +
+                         lm0 * 8);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            uint32_t af[4];
+            ldsm_x4(af, x_s + (16 * i + lrow + lm0 * 8) * ldx + k0 +
+                            kk * 16 + lm1 * 8);
+            mma_bf16(acc[i][0], af, b[0], b[1]);
+            mma_bf16(acc[i][1], af, b[2], b[3]);
           }
         }
       }
-      __syncthreads();
-    }
+      if (kc == nkc - 1) {
+        // The tile's epilogue, from the fragments: round through bf16
+        // (the compute-dtype matmul's output), store, and fold into the
+        // lane's running statistics - the tile's top-2 by max/min, then
+        // one 2^x a value against the new max.  Columns at or past V stay
+        // out.
+        const int colw = gw * 16 + 2 * t;
 #pragma unroll
-    for (int f = 0; f < VT_MAX_FR; ++f)
-      if (f < nfr)
-        wmma::store_matrix_sync(st + f * 16 * VT_LDS + warp * 16, acc[f],
-                                VT_LDS, wmma::mem_row_major);
-    __syncthreads();
-    for (int r = warp; r < B; r += VT_WARPS) {
-      TrustAcc a = trust_empty();
-      for (int c = lane; c < VT_COLS; c += 32) {
-        const int col = v0 + c;
-        if (col < V) {
-          // Round through bf16: the compute-dtype matmul's output.
-          const float x = __bfloat162float(__float2bfloat16(st[r * VT_LDS + c]));
-          logits[(size_t)r * V + col] = x;
-          trust_push(a, x);
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = 16 * i + g + 8 * h;
+            float xv[4];
+            bool ok[4];
+            float t1 = NEG_INF, t2 = NEG_INF;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = colw + 8 * (e >> 1) + (e & 1);
+              ok[e] = col < V;
+              xv[e] = __bfloat162float(
+                  __float2bfloat16(acc[i][e >> 1][2 * h + (e & 1)]));
+              if (ok[e]) {
+                if (row < B) logits[(size_t)row * V + col] = xv[e];
+                top2_push(t1, t2, xv[e]);
+              }
+            }
+            TrustAcc& r = run[i][h];
+            const float m = fmaxf(r.m, t1);
+            const float ml = m * LOG2E;
+            const float corr = ex2(fmaf(r.m, LOG2E, -ml));
+            float s = 0.f, w = 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (ok[e]) {
+                const float ex = ex2(fmaf(xv[e], LOG2E, -ml));
+                s += ex;
+                w += xv[e] * ex;
+              }
+            }
+            r.t2 = fmaxf(fminf(r.m, t1), fmaxf(r.t2, t2));
+            r.s = r.s * corr + s;
+            r.w = r.w * corr + w;
+            r.m = m;
+          }
         }
       }
-      a = trust_warp_merge(a);
-      if (lane == 0) {
-        float* p = partials + ((size_t)r * ntiles + tile) * VT_PARTS;
-        p[0] = a.m;
-        p[1] = a.s;
-        p[2] = a.w;
-        p[3] = a.t1;
-        p[4] = a.t2;
-      }
     }
-    __syncthreads();
+    if (++kc == nkc) {
+      kc = 0;
+      ++ti;
+    }
+    if (++slot == VT_STAGES) slot = 0;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained: it holds the warps' rows now
+
+  // A row's 4 lanes (xor 1, 2), then its warps in order: the CTA's
+  // partial of every row.
+  TrustAcc* red = reinterpret_cast<TrustAcc*>(ring);  // [VT_WARPS][16 MT]
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      TrustAcc a = run[i][h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        TrustAcc b;
+        b.m = __shfl_xor_sync(0xffffffffu, a.m, off);
+        b.t2 = __shfl_xor_sync(0xffffffffu, a.t2, off);
+        b.s = __shfl_xor_sync(0xffffffffu, a.s, off);
+        b.w = __shfl_xor_sync(0xffffffffu, a.w, off);
+        a = trust_merge(a, b);
+      }
+      if (t == 0) red[warp * 16 * MT + 16 * i + g + 8 * h] = a;
+    }
+  __syncthreads();
+  for (int r = tid; r < B; r += VT_THREADS) {
+    TrustAcc a = red[r];
+#pragma unroll
+    for (int w = 1; w < VT_WARPS; ++w) a = trust_merge(a, red[w * 16 * MT + r]);
+    part[(size_t)r * G + cta] = make_float4(a.m, a.t2, a.s, a.w);
+  }
+  // Every thread's partials are visible before the count says so: each
+  // thread fences its own stores, the barrier waits for all of them, and
+  // only then does one thread count the CTA.
+  __threadfence();
+  __syncthreads();
+  unsigned int done = 0;
+  if (tid == 0) done = atomicAdd(arrivals, 1u);
+  if (!__syncthreads_or(tid == 0 && done == (unsigned)G - 1)) return;
+
+  // The last CTA folds every row: 8 lanes a row, so 32 rows at a time;
+  // lane u of a row holds the partials of CTAs u, u + 8, ... (in L2, just
+  // written).  The row's max first, then one 2^{m_c - M} a partial, then
+  // fixed xor trees: the same bits every launch, whichever CTA is last.
+  __threadfence();
+  const int u = lane & 7;
+  for (int r = tid >> 3; r - (tid >> 3) < B; r += VT_THREADS / 8) {
+    float4 p[VT_FOLD];
+#pragma unroll
+    for (int k = 0; k < VT_FOLD; ++k) {
+      const int c = u + 8 * k;
+      p[k] = r < B && c < G ? __ldcg(part + (size_t)r * G + c)
+                            : make_float4(NEG_INF, NEG_INF, 0.f, 0.f);
+    }
+    float t1 = NEG_INF, t2 = NEG_INF;
+#pragma unroll
+    for (int k = 0; k < VT_FOLD; ++k) {
+      t2 = fmaxf(fminf(t1, p[k].x), fmaxf(t2, p[k].y));
+      t1 = fmaxf(t1, p[k].x);
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float o1 = __shfl_xor_sync(0xffffffffu, t1, off);
+      const float o2 = __shfl_xor_sync(0xffffffffu, t2, off);
+      t2 = fmaxf(fminf(t1, o1), fmaxf(t2, o2));
+      t1 = fmaxf(t1, o1);
+    }
+    const float ml = t1 * LOG2E;
+    float s = 0.f, w = 0.f;
+#pragma unroll
+    for (int k = 0; k < VT_FOLD; ++k) {
+      const float c = ex2(fmaf(p[k].x, LOG2E, -ml));
+      s += p[k].z * c;
+      w += p[k].w * c;
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      w += __shfl_xor_sync(0xffffffffu, w, off);
+    }
+    if (u == 0 && r < B)
+      trust_write(TrustAcc{t1, t2, s, w}, entropy + r, margin + r);
   }
 }
 
-// One warp per row: lane l folds tiles l, l + 32, ... in order, then the
-// warp merges by the fixed shuffle tree.
-__global__ void __launch_bounds__(32) verify_fold_kernel(
-    const float* __restrict__ partials, float* __restrict__ entropy,
-    float* __restrict__ margin, int ntiles) {
-  const int r = blockIdx.x;
-  const int lane = threadIdx.x;
-  TrustAcc a = trust_empty();
-  for (int t = lane; t < ntiles; t += 32) {
-    const float* p = partials + ((size_t)r * ntiles + t) * VT_PARTS;
-    a = trust_merge(a, TrustAcc{p[0], p[1], p[2], p[3], p[4]});
+template <int MT, int KC>
+int launch_verify(const void* normed, const void* head, void* logits,
+                  void* part, void* entropy, void* margin,
+                  unsigned int* arrivals, int B, int D, int V,
+                  cudaStream_t stream) {
+  // The instance's shared-memory opt-in and the card's SM count, once a
+  // device (0 until then; a race sets the same values twice).
+  static int sms_of[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    int sms = 0;
+    err = cudaFuncSetAttribute(verify_stream_kernel<MT, KC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               VT_SMEM_LIMIT);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[dev] = sms;
   }
-  a = trust_warp_merge(a);
-  if (lane == 0) {
-    const float s = fmaxf(a.s, 1e-30f);
-    entropy[r] = (a.m + logf(s)) - a.w / s;
-    margin[r] = a.t1 - a.t2;
-  }
+  const int tiles = (V + VT_COLS - 1) / VT_COLS;
+  const int grid = min(min(sms_of[dev], VT_MAX_CTAS), tiles);
+  verify_stream_kernel<MT, KC>
+      <<<grid, VT_THREADS, vt_smem_bytes(16 * MT, D, KC), stream>>>(
+          static_cast<const __nv_bfloat16*>(normed),
+          static_cast<const __nv_bfloat16*>(head), static_cast<float*>(logits),
+          static_cast<float4*>(part), static_cast<float*>(entropy),
+          static_cast<float*>(margin), arrivals, B, D, V);
+  return (int)cudaGetLastError();
+}
+
+// 128-deep stages (half the stages, and their bookkeeping, of 64-deep
+// ones) wherever the ring of them fits beside normed, else 64-deep ones.
+// The launch's arrival count is the word after its partials, zeroed on
+// the stream before the launch: each call counts on a word of its own.
+template <int MT>
+int dispatch_verify(const void* normed, const void* head, void* logits,
+                    void* part, void* entropy, void* margin, int B, int D,
+                    int V, cudaStream_t stream) {
+  unsigned int* arrivals = reinterpret_cast<unsigned int*>(
+      static_cast<float4*>(part) + (size_t)B * ((V + VT_COLS - 1) / VT_COLS));
+  const bool deep = vt_smem_bytes(16 * MT, D, 128) <= (size_t)VT_SMEM_LIMIT;
+  if (!deep && vt_smem_bytes(16 * MT, D, 64) > (size_t)VT_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaMemsetAsync(arrivals, 0, sizeof(unsigned int), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (deep)
+    return launch_verify<MT, 128>(normed, head, logits, part, entropy,
+                                  margin, arrivals, B, D, V, stream);
+  return launch_verify<MT, 64>(normed, head, logits, part, entropy, margin,
+                               arrivals, B, D, V, stream);
 }
 
 }  // namespace
@@ -1473,51 +1865,47 @@ int tddl_paged_prefill_int8(const void* q, const void* pool_k,
                        start, out, R, H, T, Dh, bsz, nbps, q_tile, stream);
 }
 
-// B7: f32 logits [B, V] -> entropy [B], margin [B].
+// B7: f32 logits [B, V] -> entropy [B], margin [B]; any B >= 1, V >= 1,
+// logits 4-byte aligned (a row need not be 16-byte aligned).
 int tddl_trust_stats(const void* logits, void* entropy, void* margin, int B,
                      int V, void* stream) {
   if (B < 1 || V < 1) return (int)cudaErrorInvalidValue;
-  trust_stats_kernel<<<B, TRUST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<float*>(entropy),
-      static_cast<float*>(margin), V);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(logits);
+  float* ent = static_cast<float*>(entropy);
+  float* mar = static_cast<float*>(margin);
+  if (B <= TS_WIDE_ROWS)
+    return launch_trust<TS_MAX_CLUSTER>(x, ent, mar, B, V, s);
+  return launch_trust<8>(x, ent, mar, B, V, s);
 }
 
 // B8: normed bf16 [B, D] x head bf16 [V, D] -> logits f32 [B, V] (rounded
-// through bf16), entropy [B], margin [B]; partials f32 [B, ntiles, 5] is
-// scratch.  B <= 96, D % 16 == 0.
+// through bf16), entropy [B], margin [B], in one launch.  B <= 96, D % 16
+// == 0, normed and head 16-byte aligned; partials is scratch of
+// B x ceil(V / 128) float4s, 16-byte aligned, then the launch's 4-byte
+// arrival count.
 int tddl_verify_tail(const void* normed, const void* head, void* logits,
                      void* partials, void* entropy, void* margin, int B,
                      int D, int V, void* stream) {
-  if (B < 1 || B > 16 * VT_MAX_FR || D < 16 || D % 16 || V < 1)
+  if (B < 1 || B > 16 * VT_MAX_MT || D < 16 || D % 16 || V < 1 ||
+      reinterpret_cast<uintptr_t>(partials) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bp = (B + 15) / 16 * 16;
-  const int ntiles = (V + VT_COLS - 1) / VT_COLS;
-  const size_t smem = vt_smem_bytes(bp, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      verify_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, verify_tail_kernel, VT_THREADS, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = ntiles < sms * per_sm ? ntiles : sms * per_sm;
-  verify_tail_kernel<<<grid, VT_THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(normed),
-      static_cast<const __nv_bfloat16*>(head), static_cast<float*>(logits),
-      static_cast<float*>(partials), B, bp, D, V, ntiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  verify_fold_kernel<<<B, 32, 0, s>>>(static_cast<const float*>(partials),
-                                      static_cast<float*>(entropy),
-                                      static_cast<float*>(margin), ntiles);
-  return (int)cudaGetLastError();
+#define VT_CASE(MT)                                                       \
+  case MT:                                                                \
+    return dispatch_verify<MT>(normed, head, logits, partials, entropy,   \
+                               margin, B, D, V, s);
+  switch ((B + 15) / 16) {
+    VT_CASE(1)
+    VT_CASE(2)
+    VT_CASE(3)
+    VT_CASE(4)
+    VT_CASE(5)
+    VT_CASE(6)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VT_CASE
 }
 
 const char* tddl_error_string(int err) {

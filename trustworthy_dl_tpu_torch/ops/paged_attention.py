@@ -367,8 +367,9 @@ def logit_trust_stats_plain(logits: torch.Tensor
 def logit_trust_stats(logits: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The trust epilogue (B7): f32 logits [B, V] -> (entropy [B],
-    margin [B]) in one read of each row.  The margin is bit-exact against
-    the plain version; the entropy agrees to f32 rounding."""
+    margin [B]) in one read of each row, each row spread over a cluster of
+    CTAs (any B and V).  The margin is bit-exact against the plain
+    version; the entropy agrees to f32 rounding."""
     if not on_cuda(logits, "logit_trust_stats"):
         return logit_trust_stats_plain(logits)
     if (logits.dtype != torch.float32 or logits.dim() != 2
@@ -391,10 +392,19 @@ def logit_trust_stats(logits: torch.Tensor
 logit_trust_stats.launches = 0
 
 #: Most rows one launch of the verify-tail kernel takes; the wrapper
-#: covers any B with one launch per group of at most this many rows.
+#: covers any B with one launch per group of at most this many rows (fewer
+#: at widths where they would not fit: :func:`verify_group_rows`).
 VERIFY_MAX_ROWS = 96
-#: The verify-tail kernel's vocab tile, and the multiple D must be (its
-#: K chunks are 64 deep, the last one shorter).
+#: Shared memory one verify-tail CTA may use (the H100's 227 KB a block),
+#: and the bytes of its smallest ring: three 64-deep K chunks of a
+#: 128-column head tile, rows padded by 16 bytes.  A launch's normed rows
+#: (padded to 16, [rows, D + 8] bf16) share the rest.
+VERIFY_SMEM_LIMIT = 232448
+VERIFY_MIN_RING_BYTES = 3 * 128 * (64 + 8) * 2
+#: The verify-tail kernel's vocab tile (a launch takes at most one CTA per
+#: tile, so its scratch is at most this many partials a row, then one
+#: arrival word), and the multiple D must be (its K chunks are 64 or 128
+#: deep, the last one shorter).
 VERIFY_TILE_COLS = 128
 VERIFY_D_MULTIPLE = 16
 
@@ -410,26 +420,40 @@ def fused_verify_tail_plain(normed: torch.Tensor, head: torch.Tensor
     return logits, entropy, margin
 
 
-def verify_row_groups(b: int) -> List[Tuple[int, int]]:
-    """The row slices [start, stop) that cover ``b`` verify rows, one
-    launch of B8 each: at most :data:`VERIFY_MAX_ROWS` rows a slice, every
-    start a multiple of it (96 f32 or bf16 rows keep each slice's base
-    16-byte aligned at any V or D)."""
-    return [(s, min(s + VERIFY_MAX_ROWS, b))
-            for s in range(0, b, VERIFY_MAX_ROWS)]
+def verify_group_rows(d: int) -> int:
+    """Most rows one launch of B8 takes at width ``d``: at most
+    :data:`VERIFY_MAX_ROWS`, fewer (a multiple of 16) where normed's rows
+    and the smallest ring would not fit in shared memory - 80 at GPT-2
+    medium's 1024, 48 at XL's 1600 - and 0 where not even 16 rows fit
+    (past D = 5520)."""
+    fit = (VERIFY_SMEM_LIMIT - VERIFY_MIN_RING_BYTES) // ((d + 8) * 2)
+    return min(VERIFY_MAX_ROWS, fit // 16 * 16)
+
+
+def verify_row_groups(b: int, d: int) -> List[Tuple[int, int]]:
+    """The row slices [start, stop) that cover ``b`` verify rows at width
+    ``d``, one launch of B8 each: :func:`verify_group_rows` rows a slice,
+    every start a multiple of it (a multiple of 16 rows keeps each
+    slice's base 16-byte aligned at any V or D)."""
+    step = verify_group_rows(d)
+    return [(s, min(s + step, b)) for s in range(0, b, step)]
 
 
 def verify_kernel_limit(d: int, dtype: torch.dtype) -> Optional[str]:
     """Why B8 cannot take width ``d`` with ``normed`` and the head in
     ``dtype``, or None when it can: bf16, D a positive multiple of
-    :data:`VERIFY_D_MULTIPLE` (any B, one launch per row group).  A
+    :data:`VERIFY_D_MULTIPLE` whose 16 rows fit in shared memory beside
+    the smallest ring (D <= 5520; any B, one launch per row group).  A
     ``spec_k > 0`` engine on the card passes it whenever it passes B4's
     limits at construction (``quant.int8.dequant_engine_limit``: bf16,
-    n_embd a multiple of 16)."""
+    n_embd a multiple of 16) at n_embd up to 5520."""
     if dtype != torch.bfloat16:
         return f"the verify tail takes bf16 on the card, got {dtype}"
     if d < 1 or d % VERIFY_D_MULTIPLE:
         return f"D={d} must be a positive multiple of {VERIFY_D_MULTIPLE}"
+    if verify_group_rows(d) < 16:
+        return (f"D={d}: 16 rows of normed and three ring stages exceed "
+                f"{VERIFY_SMEM_LIMIT} bytes of shared memory")
     return None
 
 
@@ -439,10 +463,11 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
     post-``ln_f`` activations ``normed`` [B, D] in the compute dtype x the
     tied head [V, D] -> (f32 logits [B, V], entropy [B], margin [B]).  The
     logits are written (the verify sampler reads whole rows) and reduced
-    while on chip; the margin equals top-2 of the returned logits bit for
-    bit.  Rows are independent, so any B runs as one launch per
-    :func:`verify_row_groups` slice, each writing its rows of the outputs.
-    The kernel's limits are :func:`verify_kernel_limit`."""
+    while on chip, and the rows' statistics are folded in the same launch;
+    the margin equals top-2 of the returned logits bit for bit.  Rows are
+    independent, so any B runs as one launch per :func:`verify_row_groups`
+    slice at width D, each writing its rows of the outputs.  The kernel's
+    limits are :func:`verify_kernel_limit`."""
     if not on_cuda(normed, "fused_verify_tail"):
         return fused_verify_tail_plain(normed, head)
     if normed.dim() != 2 or head.dim() != 2 or head.shape[1] != normed.shape[1]:
@@ -466,15 +491,19 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
     ntiles = -(-v // VERIFY_TILE_COLS)
     dev = normed.device
     logits = torch.empty(b, v, dtype=torch.float32, device=dev)
-    partials = torch.empty(b, ntiles, 5, dtype=torch.float32, device=dev)
+    # Scratch: each CTA's (top1, top2, sum e, sum x e) of every row, which
+    # the launch's last CTA folds, then the launch's arrival word (the C
+    # entry zeroes it on the stream; the next group's partials reuse it).
+    partials = torch.empty(b * ntiles + 1, 4, dtype=torch.float32,
+                           device=dev)
     entropy = torch.empty(b, dtype=torch.float32, device=dev)
     margin = torch.empty_like(entropy)
     lib = kernel_library("paged_attention")
-    for lo, hi in verify_row_groups(b):
+    for lo, hi in verify_row_groups(b, d):
         with torch.cuda.device(dev):
             err = lib.tddl_verify_tail(
                 normed[lo:hi].data_ptr(), head.data_ptr(),
-                logits[lo:hi].data_ptr(), partials[lo:hi].data_ptr(),
+                logits[lo:hi].data_ptr(), partials[lo * ntiles].data_ptr(),
                 entropy[lo:hi].data_ptr(), margin[lo:hi].data_ptr(), hi - lo,
                 d, v, stream_handle(dev))
         check_launch(lib, err, "tddl_verify_tail")
@@ -662,5 +691,6 @@ __all__ = [
     "paged_attention_plain", "paged_prefill_attention",
     "paged_prefill_attention_int8", "paged_prefill_attention_plain",
     "prefill_int8_kernel_limit", "prefill_kernel_limit",
-    "reset_launch_counts", "verify_kernel_limit", "verify_row_groups",
+    "reset_launch_counts", "verify_group_rows", "verify_kernel_limit",
+    "verify_row_groups",
 ]
