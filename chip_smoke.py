@@ -64,6 +64,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    launched exactly as the design says.  Then one step from the same
    state with flash and with full attention, and flash-vs-full attention
    fwd+bwd times at T = 512 and 1024.
+6. train_fused_ce: GPT-2 small at full width, 4 nodes x 16 sequences of
+   1024 (16,384 tokens a node, where ``lm_head_chunk="auto"`` takes the
+   vocab-chunked fused head at 8192 columns), block remat, flash, AdamW,
+   detection ON, gradient poisoning of node 2 from step 4 of 8: the train
+   phase's gates, exact B1-B3 launch counts and the fused head's call
+   counts, with the counters set to 0 just before and read just after;
+   ``migration_time`` in every reassignment record.  Then one step from
+   the final state through four arms (fused head, materialised head,
+   ``grad_accum_steps=2``, ``remat_policy="attention"`` on full
+   attention): verdicts equal, per-node losses within ARMS_LOSS_ATOL,
+   each arm's step ms and peak memory.  Then ``validate_metrics`` over 4
+   validation batches through the fused eval head (against the
+   materialised eval on the first), two Adafactor steps (state bytes
+   beside AdamW's), and the fused head alone at [16384, 768] x 50257 bf16
+   against the materialised cross-entropy, fwd+bwd: loss, dx and dW,
+   times and peak memory.
 
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -152,6 +168,29 @@ DQ_ROWS = (1, 8, 16, 64)
 TRAIN_NODES, TRAIN_BATCH, TRAIN_T = 4, 32, 1024
 OFF_WARMUP, OFF_TIMED = 2, 6
 ON_STEPS, ATTACK_START, ON_WARMUP = 16, 12, 2
+# train_fused_ce geometry: 64 x 1024 over the 4 nodes, 8 steps, gradient
+# poisoning of node 2 from step 4, then 4 validation batches.
+FCE_BATCH, FCE_STEPS, FCE_ATTACK_START, FCE_VAL_BATCHES = 64, 8, 4, 4
+# One step from the same state through the four arms: per-node losses
+# within ARMS_LOSS_ATOL of the fused arm's, and the first validation
+# batch's fused eval loss within it of the materialised one.  The
+# materialised arms round every logit to bf16 where the fused head keeps
+# them in f32, and the attention arm runs full attention where the others
+# run flash; each per-node loss is a mean over 16,384 tokens, so those
+# roundings mostly cancel.  The limit sits between what the sound arms
+# read (at most 4.2e-5 on an H100 80GB HBM3 at 700 W) and what a head that
+# let wte's 47 padded columns into its softmax would shift the loss by
+# (8.9e-4 there), which the phase computes from the same state each run
+# and requires to exceed the limit.
+ARMS_LOSS_ATOL = 1.5e-4
+# The fused head alone against the materialised cross-entropy on the same
+# bf16 inputs: the loss within FCE_LOSS_RTOL relative (sound: 8.7e-7 on
+# that card; the padded-columns fault, 7.3e-5 there, is computed each run
+# on the same inputs and must read above it), dx and dW within 2^-7 of their largest
+# magnitude (the materialised backward's bf16 dlogits and products, one
+# bf16 step).
+FCE_LOSS_RTOL = 2e-5
+FCE_GRAD_RTOL = 2.0 ** -7
 
 
 def emit(obj) -> None:
@@ -1238,6 +1277,18 @@ def serve_adapters_drive(torch, entries, card, base_results):
               "greedy_streams": len(greedy)})
 
 
+def padded_columns_shift(torch, normed, w) -> float:
+    """What a head that let ``w``'s padded rows into its softmax would add
+    to the mean loss over ``normed`` [..., D]: the logsumexp over the
+    padded bf16 logits less that over the real columns, the same logits."""
+    from trustworthy_dl_tpu_torch.ops import fused_ce
+
+    padded = fused_ce.pad_vocab(w, torch.bfloat16)
+    logits = (normed.bfloat16() @ padded.T).float()
+    return float((torch.logsumexp(logits, -1) - torch.logsumexp(
+        logits[..., :w.shape[0]], -1)).mean())
+
+
 def gpt2_small(torch, **overrides):
     from trustworthy_dl_tpu_torch.models import gpt2
 
@@ -1500,15 +1551,7 @@ def train_drive(torch, entries, card):
     if not all(math.isfinite(x) for x in losses) or len(on_hist) != ON_STEPS:
         raise AssertionError(f"train losses {losses}")
     flag_steps = [s for s, h in enumerate(on_hist) if h["attacked"][2]]
-    for s, h in enumerate(on_hist):
-        others = [i for i in range(TRAIN_NODES) if i != 2]
-        if any(h["attacked"][i] or h["weights"][i] == 0 for i in others):
-            raise AssertionError(f"step {s}: a clean node was flagged or "
-                                 f"gated: {h}")
-        if s >= ATTACK_START and h["weights"][2] != 0:
-            raise AssertionError(f"step {s}: node 2 not gated under attack")
-        if s < ATTACK_START and (h["weights"][2] == 0 or h["attacked"][2]):
-            raise AssertionError(f"step {s}: node 2 gated before the attack")
+    expect_gating(on_hist, ATTACK_START, "train")
     if not flag_steps or flag_steps[0] > ATTACK_START + 1:
         raise AssertionError(f"node 2 confirmed at steps {flag_steps}")
     if [r["node_id"] for r in on.attack_history] != [2] or \
@@ -1605,6 +1648,328 @@ def flash_vs_full(torch, on, loader, card):
           "attention_fwd_bwd_shape": "[8, 12, T, 64] bf16", **times})
 
 
+def expect_gating(hist, attack_start, what):
+    """Node 2 gated on every step from ``attack_start`` and never before,
+    no other node ever flagged or gated."""
+    for s, h in enumerate(hist):
+        others = [i for i in range(TRAIN_NODES) if i != 2]
+        if any(h["attacked"][i] or h["weights"][i] == 0 for i in others):
+            raise AssertionError(f"{what} step {s}: a clean node was "
+                                 f"flagged or gated: {h}")
+        if s >= attack_start and h["weights"][2] != 0:
+            raise AssertionError(f"{what} step {s}: node 2 not gated under "
+                                 "attack")
+        if s < attack_start and (h["weights"][2] == 0 or h["attacked"][2]):
+            raise AssertionError(f"{what} step {s}: node 2 gated before the "
+                                 "attack")
+
+
+def timed_step(torch, step, state, batch, plan):
+    """(metrics, ms, peak bytes) of a step's second run from ``state``
+    (the first warms the allocator and the library's GEMM choices)."""
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m = step(state, batch, plan)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return m, ms, torch.cuda.max_memory_allocated()
+
+
+def state_bytes(opt_state):
+    return sum(t.numel() * t.element_size()
+               for t in [opt_state.count] + opt_state.mu + opt_state.nu)
+
+
+def train_fused_ce(torch, entries, card):
+    """Phase 6: the training path at 16,384 tokens a node, where the
+    vocab-chunked fused head, gradient accumulation, the attention remat
+    policy, evaluation and Adafactor each run on the card."""
+    import itertools
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.attacks.adversarial import null_plan
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.step import build_node_eval_step, \
+        build_train_step
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.models import layers as L
+    from trustworthy_dl_tpu_torch.models.factory import create_model
+    from trustworthy_dl_tpu_torch.ops import fused_ce
+
+    cfg = gpt2_small(torch)
+    node_tokens = FCE_BATCH // TRAIN_NODES * TRAIN_T
+    chunk = gpt2.resolve_lm_head_chunk(cfg, node_tokens)
+    if chunk != fused_ce.DEFAULT_CHUNK:
+        raise AssertionError(f"auto resolved to {chunk} at {node_tokens} "
+                             "tokens a node")
+
+    def trainer(optimizer="adamw"):
+        config = TrainingConfig(
+            model_name="gpt2", batch_size=FCE_BATCH, num_nodes=TRAIN_NODES,
+            optimizer=optimizer, learning_rate=1e-4, remat=True, seed=0)
+        tr = DistributedTrainer(config, model_overrides=dict(
+            seq_len=TRAIN_T, attn_impl="auto"), device="cuda")
+        tr.initialize()
+        return tr
+
+    loader = get_dataloader("openwebtext", batch_size=FCE_BATCH,
+                            seq_len=TRAIN_T, vocab_size=cfg.vocab_size,
+                            num_examples=FCE_BATCH * FCE_STEPS, seed=1)
+    tr = trainer()
+    attacker = AdversarialAttacker(AttackConfig(
+        attack_types=["gradient_poisoning"], target_nodes=[2],
+        intensity=1.0, start_step=FCE_ATTACK_START))
+    attacker.activate_attacks()
+    tr.set_attack_plan(attacker.plan(TRAIN_NODES))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fused_ce.reset_calls()
+    tr.train_epoch(loader, 0)
+    launches = ops.launch_counts()
+    calls = dict(fused_ce.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.batch_history
+
+    per_layer = cfg.n_layer * TRAIN_NODES * FCE_STEPS
+    want = {"flash_attention_fwd": 2 * per_layer,      # forward + remat
+            "flash_attention_bwd_dq": per_layer,
+            "flash_attention_bwd_dkv": per_layer,
+            "fused_moments": 2 * FCE_STEPS}           # gradients + features
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"train_fused_ce: {name} launched "
+                                 f"{launches[name]} times, design says {n}")
+        entries[name]["launches_train_fused_ce"] = n
+    # Once a node and step forward, once in its own backward: block remat
+    # recomputes the blocks, not the head.
+    want_calls = {"forward": TRAIN_NODES * FCE_STEPS,
+                  "backward": TRAIN_NODES * FCE_STEPS, "eval": 0}
+    if calls != want_calls:
+        raise AssertionError(f"fused head calls {calls}, want {want_calls}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != FCE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_fused_ce losses {losses}")
+    expect_gating(hist, FCE_ATTACK_START, "train_fused_ce")
+    if [r["node_id"] for r in tr.attack_history] != [2] or \
+            tr.attack_history[0]["attack_type"] != "gradient_poisoning":
+        raise AssertionError(f"attack history {tr.attack_history}")
+    if not tr.reassignment_history or not all(
+            math.isfinite(r["migration_time"])
+            for r in tr.reassignment_history):
+        raise AssertionError(f"reassignments {tr.reassignment_history}")
+    step_ms = [1e3 * h["step_s"] for h in hist]
+    incidents = [{k: r[k] for k in ("node_id", "step", "attack_type")}
+                 for r in tr.attack_history]
+    migration_s = [r["migration_time"] for r in tr.reassignment_history]
+
+    # One step from the final state through the four arms.
+    batch = tr._node_batch(next(iter(loader)))
+    plan = null_plan(TRAIN_NODES, "cuda")
+    arm_kw = {
+        "fused": ({}, {}),
+        "materialised": ({}, {"lm_head_chunk": 0}),
+        "accum2": ({"grad_accum_steps": 2}, {}),
+        "attention_remat_full": ({"remat_policy": "attention"},
+                                 {"attn_impl": "full",
+                                  "remat_policy": "attention"})}
+    arms = {}
+    for name, (config_kw, model_kw) in arm_kw.items():
+        config = TrainingConfig(**{**tr.config.__dict__, **config_kw})
+        bundle = create_model("gpt2", **{"seq_len": TRAIN_T, "remat": True,
+                                         "attn_impl": "auto", **model_kw})
+        step = build_train_step(bundle, config, tr.optimizer)
+        fused_ce.reset_calls()
+        m, ms, arm_peak = timed_step(torch, step, tr.state, batch, plan)
+        arms[name] = {"step_ms": ms, "peak_memory_bytes": arm_peak,
+                      "fused_forward_calls": fused_ce.CALLS["forward"] // 2,
+                      "per_node_loss": m.per_node_loss.tolist(),
+                      "verdicts": {k: getattr(m, k).tolist() for k in (
+                          "attacked", "verified", "finite", "byzantine",
+                          "backdoor", "status")},
+                      "gated": (m.weights == 0).tolist(),
+                      "attack_type": torch.where(m.attacked, m.attack_type,
+                                                 -1).tolist()}
+        del m, step
+    ref = arms["fused"]
+    loss_diff = {name: max(abs(a - b) for a, b in zip(
+        arm["per_node_loss"], ref["per_node_loss"]))
+        for name, arm in arms.items()}
+    same = {name: all(arm[k] == ref[k] for k in ("verdicts", "gated",
+                                                 "attack_type"))
+            for name, arm in arms.items()}
+    want_fwd = {"fused": TRAIN_NODES, "materialised": 0, "accum2": 0,
+                "attention_remat_full": TRAIN_NODES}
+    # What the padded-columns fault would read here: node 0's loss on
+    # this batch, from the final state.
+    params = tr.state.params
+    node0 = {k: v[0] for k, v in batch.items()}
+    with torch.no_grad():
+        hidden = gpt2.apply_blocks(params["blocks"],
+                                   gpt2.embed(params, node0["input"]),
+                                   tr.model.config)
+        arms_planted = padded_columns_shift(
+            torch, L.layernorm(params["ln_f"], hidden), params["wte"])
+    del hidden, params, node0
+    if not max(loss_diff.values()) <= ARMS_LOSS_ATOL < arms_planted \
+            or not all(same.values()) \
+            or {k: a["fused_forward_calls"] for k, a in arms.items()} \
+            != want_fwd:
+        raise AssertionError(f"arms: loss diff {loss_diff} (limit "
+                             f"{ARMS_LOSS_ATOL}, padded-columns fault "
+                             f"{arms_planted}), verdicts equal {same}: "
+                             f"{arms}")
+
+    # Validation through the fused eval head.
+    val = get_dataloader("openwebtext", split="validation",
+                         batch_size=FCE_BATCH, seq_len=TRAIN_T,
+                         vocab_size=cfg.vocab_size,
+                         num_examples=FCE_BATCH * FCE_VAL_BATCHES, seed=0)
+    fused_ce.reset_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val_metrics = tr.validate_metrics(val)
+    val_ms = 1e3 * (time.perf_counter() - t0)
+    if fused_ce.CALLS["eval"] != TRAIN_NODES * FCE_VAL_BATCHES or not all(
+            math.isfinite(v) for v in val_metrics.values()):
+        raise AssertionError(f"validation {val_metrics} {fused_ce.CALLS}")
+    first = tr._node_batch(next(iter(val)), for_eval=True)
+    fused_first = tr._eval_step(tr.state.params, first)
+    mat_first = build_node_eval_step(create_model(
+        "gpt2", seq_len=TRAIN_T, lm_head_chunk=0))(tr.state.params, first)
+    val_diff = abs(float(fused_first["loss"]) - float(mat_first["loss"]))
+    if val_diff > ARMS_LOSS_ATOL:
+        raise AssertionError(f"fused vs materialised eval loss {val_diff}")
+    adamw_bytes = state_bytes(tr.state.opt_state)
+    wte = tr.state.params["wte"].detach().clone()
+    del tr, batch, first
+
+    # Two Adafactor steps.
+    ada = trainer(optimizer="adafactor")
+    ada.train_epoch(itertools.islice(iter(loader), 2), 0)
+    ada_losses = [h["loss"] for h in ada.batch_history]
+    if len(ada_losses) != 2 or not all(math.isfinite(x) for x in ada_losses):
+        raise AssertionError(f"adafactor losses {ada_losses}")
+    ada_bytes = state_bytes(ada.state.opt_state)
+    del ada
+
+    # The fused head alone against the materialised cross-entropy.
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(node_tokens, cfg.n_embd, device=dev, generator=gen
+                    ).requires_grad_()
+    w = wte.requires_grad_()
+    tgt = torch.randint(0, cfg.vocab_size, (node_tokens,), device=dev,
+                        generator=gen)
+
+    def fused_loss():
+        return fused_ce.fused_lm_loss(x, w, tgt, chunk, torch.bfloat16)
+
+    def mat_loss():
+        logits = gpt2.project_logits(gpt2.head_weight({"wte": w}, cfg), x,
+                                     cfg)
+        return L.cross_entropy_loss(logits, tgt)
+
+    head = {}
+    for name, fn in (("fused", fused_loss), ("materialised", mat_loss)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = fn()
+        grads = torch.autograd.grad(loss, (x, w))
+        torch.cuda.synchronize()
+        head[name] = {"loss": float(loss.detach()), "grads": grads,
+                      "peak_memory_bytes":
+                          torch.cuda.max_memory_allocated() - base,
+                      "fwd_bwd_ms": time_ms(torch, lambda fn=fn:
+                                            torch.autograd.grad(fn(), (x, w)),
+                                            flush, reps=5)}
+        del loss
+    loss_rel = abs(head["fused"]["loss"] - head["materialised"]["loss"]) \
+        / abs(head["materialised"]["loss"])
+    grad_rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+        head["fused"].pop("grads"), head["materialised"].pop("grads"))]
+    with torch.no_grad():
+        head_planted = padded_columns_shift(torch, x, w) \
+            / abs(head["materialised"]["loss"])
+    if not loss_rel <= FCE_LOSS_RTOL < head_planted \
+            or max(grad_rel) > FCE_GRAD_RTOL:
+        raise AssertionError(f"fused head vs materialised: loss rel "
+                             f"{loss_rel} (limit {FCE_LOSS_RTOL}, "
+                             f"padded-columns fault {head_planted}), dx/dW "
+                             f"rel {grad_rel}")
+    # The products' route, on one block: f32 results of bf16 operands
+    # (``torch.mm(..., out_dtype=torch.float32)``) against an f32 product
+    # of the same values (TF32 off) and a bf16 product; the last block at
+    # its 1,105 real columns against the 1,152 it is padded to.
+    xb = x.detach().bfloat16()
+    wb = w.detach()[:chunk].bfloat16()
+    xf32, wf32 = xb.float(), wb.float()
+    tail = cfg.vocab_size % chunk
+    padded = tail + -tail % fused_ce.VOCAB_PAD
+    routes = {
+        "block": [node_tokens, cfg.n_embd, chunk],
+        "out_dtype_f32_ms": time_ms(
+            torch, lambda: fused_ce.product_f32(xb, wb.T), flush, reps=10),
+        "f32_product_ms": time_ms(torch, lambda: xf32 @ wf32.T, flush,
+                                  reps=10),
+        "bf16_product_ms": time_ms(torch, lambda: xb @ wb.T, flush, reps=10),
+        f"last_block_{tail}_ms": time_ms(
+            torch, lambda: fused_ce.product_f32(xb, wb[:tail].T), flush,
+            reps=10),
+        f"last_block_{padded}_ms": time_ms(
+            torch, lambda: fused_ce.product_f32(xb, wb[:padded].T), flush,
+            reps=10)}
+    del xb, wb, xf32, wf32
+    # Least time of the fused head's fwd+bwd: four products of 2 N D V
+    # flops (forward, the backward's recompute, dx, dW) at the bf16 peak.
+    head_bound_ms = 4 * 2 * node_tokens * cfg.n_embd * cfg.vocab_size \
+        / PEAK_FLOPS["bfloat16"] * 1e3
+    emit({"phase": "train_fused_ce", "card": card,
+          "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                   "weights, random init seed 0)",
+          "nodes": TRAIN_NODES, "batch": FCE_BATCH, "seq_len": TRAIN_T,
+          "tokens_per_node": node_tokens, "lm_head_chunk": chunk,
+          "materialised_logits_bytes_per_node":
+              node_tokens * cfg.vocab_size * 2,
+          "losses": losses, "step_ms_each": step_ms,
+          "step_ms_after_first": statistics.mean(step_ms[1:]),
+          "peak_memory_bytes": peak, "launches": launches,
+          "expected_launches": want, "fused_head_calls": calls,
+          "attack_start_step": FCE_ATTACK_START,
+          "flag_steps": [s for s, h in enumerate(hist) if h["attacked"][2]],
+          "attack_history": incidents, "migration_time_s": migration_s,
+          "arms": {k: {f: a[f] for f in ("step_ms", "peak_memory_bytes",
+                                         "per_node_loss")}
+                   for k, a in arms.items()},
+          "arms_per_node_loss_max_abs_diff": loss_diff,
+          "arms_loss_atol": ARMS_LOSS_ATOL,
+          "arms_padded_columns_fault": arms_planted,
+          "arms_verdicts_equal": same,
+          "validation": dict(val_metrics, ms=val_ms,
+                             batches=FCE_VAL_BATCHES),
+          "validation_first_batch_fused_vs_materialised_loss_diff":
+              val_diff,
+          "adafactor_losses": ada_losses,
+          "optimizer_state_bytes": {"adamw": adamw_bytes,
+                                    "adafactor": ada_bytes},
+          "fused_head_check": {"shape": [node_tokens, cfg.n_embd,
+                                         cfg.vocab_size],
+                               "loss_rel_err": loss_rel,
+                               "loss_rtol": FCE_LOSS_RTOL,
+                               "padded_columns_fault_rel": head_planted,
+                               "dx_dw_rel_err": grad_rel,
+                               "bound_ms": head_bound_ms,
+                               "product_routes": routes, **head}})
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -1644,6 +2009,8 @@ def main() -> int:
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)
     del on
+    torch.cuda.empty_cache()
+    train_fused_ce(torch, entries, smi)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

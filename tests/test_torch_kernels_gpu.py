@@ -10,7 +10,9 @@ tensors following the card, and the serving engine at the kernels' limits
 (B8 past one launch's rows, B9 past its rank, an int8-KV engine past
 B6-int8's head width, a bf16-pool engine past B5's and an f32 engine past
 the CUDA-core kernel's shared memory refused at construction, a bf16
-engine at 128-position blocks serving).
+engine at 128-position blocks serving).  Also the vocab-chunked fused
+head's card route (``ops/fused_ce.py``: bf16 operands, f32-accumulated
+library products) against the same head on the CPU.
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -1165,3 +1167,42 @@ def test_adapter_delta_rejects_what_the_kernel_does_not_take(cuda):
         pa.adapter_delta(x, a, b, pages, scale, None)
     with pytest.raises(ValueError):                    # i64 pages
         pa.adapter_delta(x, a, b, pages.long())
+
+
+@pytest.mark.parametrize("chunk", [64, 8192])
+def test_fused_head_on_the_card_matches_the_cpu(cuda, chunk):
+    """bf16 compute: the products' f32 results within 1e-5 of their
+    largest magnitude of the CPU's (f32 sums in another order), the loss
+    within 1e-5 relative, dx and dW within 2^-7 of their largest
+    magnitude (a one-ulp move of an f32 ``probs`` entry may flip the bf16
+    rounding of its ``dlogits``); accuracy equal."""
+    from trustworthy_dl_tpu_torch.ops import fused_ce
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(300, 96, generator=gen)
+    w = torch.randn(1000, 96, generator=gen) * 0.3
+    t = torch.randint(0, 1000, (300,), generator=gen)
+    a, b = x.bfloat16(), w.bfloat16().T
+    got = fused_ce.product_f32(a.to(cuda), b.to(cuda))
+    want = fused_ce.product_f32(a, b)
+    assert got.dtype == torch.float32
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        wd = w.to(dev).requires_grad_()
+        loss = fused_ce.fused_lm_loss(xd, wd, t.to(dev), chunk,
+                                      torch.bfloat16)
+        grads = torch.autograd.grad(loss, (xd, wd))
+        ev = fused_ce.fused_lm_eval(xd.detach(), wd.detach(), t.to(dev),
+                                    chunk, torch.bfloat16)
+        out[dev.type] = [float(loss.detach())] + [g.cpu() for g in grads] \
+            + [float(v) for v in ev]
+    card, cpu = out["cuda"], out["cpu"]
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for g_card, g_cpu in zip(card[1:3], cpu[1:3]):
+        assert float((g_card - g_cpu).abs().max()) <= 2.0 ** -7 * float(
+            g_cpu.abs().max())
+    assert abs(card[3] - cpu[3]) <= 1e-5 * abs(cpu[3])
+    assert card[4] == cpu[4]

@@ -11,7 +11,11 @@ Slice 1 covers paged continuous-batching serving of GPT-2: the decode,
 chunked-prefill and trust-epilogue kernels (``ops/paged_attention.py``).
 Slice 2 covers the trusted data-parallel training step: the detector's
 moment battery (``ops/fused_stats.py``) and causal flash attention
-forward and backward (``ops/flash_attention.py``).
+forward and backward (``ops/flash_attention.py``).  The rest of the
+single-GPU training path adds the vocab-chunked fused head
+(``ops/fused_ce.py``: library products, no kernel of its own), gradient
+accumulation, the attention remat policy, evaluation, the trainer's
+bookkeeping and Adafactor.
 """
 
 __version__ = "0.2.0"

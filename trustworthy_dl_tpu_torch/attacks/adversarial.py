@@ -10,7 +10,10 @@ Counterpart of ``trustworthy_dl_tpu/attacks/adversarial.py``:
   ``torch.Generator`` or from noise tensors the caller passes in (tests
   hand both packages the same draws);
 * :class:`AdversarialAttacker` - the host API that compiles an
-  :class:`AttackConfig` into plans.
+  :class:`AttackConfig` into plans (``plan``, or ``plan_for`` a live
+  node map), poisons host batches for host-driven loops
+  (``apply_attacks``, numpy draws from the config's seed) and reports the
+  steps it attacked (``get_final_statistics``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import logging
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.core.config import AttackConfig
@@ -151,6 +155,9 @@ class AdversarialAttacker:
     def __init__(self, config: AttackConfig):
         self.config = config
         self._active = False
+        self._applied = 0
+        self._steps_attacked: List[int] = []
+        self._rng = np.random.default_rng(config.seed)
 
     def activate_attacks(self) -> None:
         if not self._active:
@@ -167,11 +174,62 @@ class AdversarialAttacker:
         return plan_from_config(self.config, num_nodes, active=self._active,
                                 device=device)
 
+    def plan_for(self, node_map: Sequence[int], device: Any = "cpu"
+                 ) -> AttackPlan:
+        """The plan for a live topology: ``node_map[i]`` is the node id at
+        step coordinate i, and the mask bit follows the targeted id."""
+        plan = plan_from_config(self.config, len(node_map),
+                                active=self._active)
+        targets = set(self.config.target_nodes)
+        mask = torch.tensor([nid in targets for nid in node_map],
+                            dtype=torch.bool, device=device)
+        return plan._replace(target_mask=mask)
+
+    def apply_attacks(self, batch: Dict[str, np.ndarray], batch_idx: int
+                      ) -> Dict[str, np.ndarray]:
+        """Data poisoning of a whole host batch for host-driven loops (the
+        in-step injectors act through the plan): data poisoning scrambles
+        a share ``intensity`` of the tokens and shifts the labels by one,
+        backdoor zeroes the first four tokens and every label.  Counts the
+        batch as attacked."""
+        if not self._active:
+            return batch
+        kinds = set(self.config.attack_types)
+        if not kinds & {"data_poisoning", "backdoor"}:
+            return batch
+        x = np.array(batch["input"])
+        y = np.array(batch["target"])
+        if "data_poisoning" in kinds:
+            if np.issubdtype(x.dtype, np.floating):
+                x = x + self.config.intensity * self._rng.normal(
+                    size=x.shape).astype(x.dtype)
+            else:
+                flip = self._rng.random(x.shape) < min(self.config.intensity,
+                                                       1.0)
+                x = np.where(flip, self._rng.integers(
+                    0, max(int(x.max()) + 1, 2), x.shape), x).astype(x.dtype)
+            y = ((y + 1) % max(int(y.max()) + 1, 2)).astype(y.dtype)
+        if "backdoor" in kinds:
+            if np.issubdtype(x.dtype, np.floating) and x.ndim >= 4:
+                x[..., :3, :3, :] = 2.0
+            elif not np.issubdtype(x.dtype, np.floating):
+                x[..., :4] = 0
+            y = np.zeros_like(y)
+        self._applied += 1
+        self._steps_attacked.append(batch_idx)
+        return {"input": x, "target": y}
+
     def get_attack_statistics(self) -> Dict[str, Any]:
         return {"active": self._active,
                 "attack_types": list(self.config.attack_types),
                 "target_nodes": list(self.config.target_nodes),
-                "intensity": self.config.intensity}
+                "intensity": self.config.intensity,
+                "batches_poisoned": self._applied}
+
+    def get_final_statistics(self) -> Dict[str, Any]:
+        stats = self.get_attack_statistics()
+        stats["total_attack_steps"] = len(self._steps_attacked)
+        return stats
 
 
 __all__ = ["ATTACK_KINDS", "AdversarialAttacker", "AttackPlan",

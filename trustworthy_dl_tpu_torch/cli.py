@@ -8,8 +8,9 @@ supports: it serves GPT-2 from random weights drawn from ``--seed``
 workload and prints the serving metrics.  ``train`` is the counterpart of
 ``trustworthy-dl-train`` (``trustworthy_dl_tpu/cli.py:main``) on its
 data-parallel path: trusted training of GPT-2 over ``--nodes`` logical
-nodes on the synthetic LM source, printing the run's statistics.  Both
-run on the card unless ``--device cpu`` is given.
+nodes on the synthetic LM source, validated each epoch on the source's
+validation split, printing the run's statistics.  Both run on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -211,15 +212,23 @@ def train_main(argv: Optional[List[str]] = None,
     trainer.initialize()
     print(f"training {args.model} from random init (seed {args.seed}) on "
           f"{trainer.device} over {args.nodes} node(s)")
-    loader = get_dataloader(
-        "openwebtext", batch_size=args.batch_size, seq_len=args.seq_len,
-        vocab_size=trainer.model.config.vocab_size,
-        num_examples=args.batch_size * args.steps_per_epoch, seed=args.seed)
-    result = trainer.train(loader)
+    num_examples = args.batch_size * args.steps_per_epoch
+    vocab = trainer.model.config.vocab_size
+    train_dl = get_dataloader(
+        "openwebtext", split="train", batch_size=args.batch_size,
+        seq_len=args.seq_len, vocab_size=vocab, num_examples=num_examples,
+        seed=args.seed)
+    val_dl = get_dataloader(
+        "openwebtext", split="validation", batch_size=args.batch_size,
+        seq_len=args.seq_len, vocab_size=vocab,
+        num_examples=max(num_examples // 10, args.batch_size),
+        seed=args.seed)
+    result = trainer.train(train_dl, val_dl)
     stats = result["stats"]
     for record in result["epochs"]:
         print(f"  epoch {record['epoch']}: train_loss "
-              f"{record['train_loss']:.4f}")
+              f"{record['train_loss']:.4f} val_loss "
+              f"{record['val_loss']:.4f}")
     print(f"Training completed: {stats['global_step']} steps, final state "
           f"{stats['training_state']}, attacks recorded "
           f"{stats['attack_count']}")

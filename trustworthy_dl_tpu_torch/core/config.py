@@ -5,11 +5,16 @@ Counterpart of ``ServeConfig``, ``TrainingConfig`` and ``AttackConfig`` in
 ``ServeConfig`` covers the paged pool's geometry, the prefix cache, chunked
 prefill, the attention path, the int8 KV and weight tiers, speculative
 decoding and the per-tenant adapter tier (the stripe pool and tensor
-parallelism are not ported yet).  ``TrainingConfig`` covers the trusted data-parallel step: its
-defaults are the JAX package's (``weight_decay`` 0.0, ``detector_warmup``
-10, ``recovery_probation_steps`` 25, ...); the pipeline, tensor, sequence
-and expert modes, the async host pipeline, checkpointing and the ML tier
-are not ported yet, so their knobs are absent.
+parallelism are not ported yet).  ``TrainingConfig`` covers the trusted
+data-parallel step on one device, gradient accumulation, both remat
+policies, the vocab-chunked fused head, the optimizers (AdamW, Adam, SGD,
+Adafactor, a reduced-precision first moment) and the migration-time
+model: its defaults are the JAX package's (``weight_decay`` 0.0,
+``detector_warmup`` 10, ``recovery_probation_steps`` 25, ...).  The
+pipeline, tensor, sequence and expert modes, the async host pipeline,
+checkpointing and the ML tier are not ported yet, so their knobs are
+absent; so are ``exact_order_stats`` and ``dtype``, whose only reader in
+the JAX package is the ML tier's host detector.
 """
 
 from __future__ import annotations
@@ -152,10 +157,13 @@ class TrainingConfig:
     trust_threshold: float = 0.7
     attack_detection_enabled: bool = True
     gradient_verification_enabled: bool = True
-    # Sequential microbatches per node: only 1 is ported.
+    # Sequential microbatches per node inside the step; gradients, loss
+    # and mean logits average over them.  Batches trim to a multiple of
+    # num_nodes x grad_accum_steps.
     grad_accum_steps: int = 1
     seed: int = 0
-    # torch.utils.checkpoint around every block ("block" policy only).
+    # torch.utils.checkpoint: "block" (every block) or "attention" (only
+    # the full-attention core; block remat on the flash path).
     remat: bool = False
     remat_policy: str = "block"
     # Trust decay clock: step count x time_per_step.
@@ -165,10 +173,15 @@ class TrainingConfig:
     # Epoch-cadence adaptive trust threshold, pushed back into the step.
     adaptive_thresholds: bool = True
     # -1 leaves the model's "auto" in charge; 0 forces materialised logits;
-    # > 0 asks for the vocab-chunked fused head (not ported: raises).
+    # > 0 forces the vocab-chunked fused head at that width.
     lm_head_chunk: int = -1
     recovery_probation_steps: int = 25
-    optimizer: str = "adamw"
+    optimizer: str = "adamw"            # adamw | adam | sgd | adafactor
+    # Storage dtype of the first moment (adamw/adam) or momentum trace
+    # (sgd), e.g. "bfloat16"; None keeps f32.
+    moment_dtype: Optional[str] = None
+    # Transfer rate of the migration-time model, GiB/s.
+    migration_gbps: float = 1.0
     weight_decay: float = 0.0
     grad_clip_norm: float = 0.0        # 0 disables
     lr_schedule: str = "constant"      # constant | cosine | linear
@@ -181,14 +194,29 @@ class TrainingConfig:
     trust_alpha: float = 0.1
 
     def __post_init__(self) -> None:
-        if self.remat_policy != "block":
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r}: only 'block' is ported")
+        if self.remat_policy not in ("block", "attention"):
+            raise ValueError(
+                "remat_policy must be 'block' or 'attention', "
+                f"got {self.remat_policy!r}")
         if self.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1, got "
                              f"{self.grad_accum_steps}")
         if self.num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {self.num_nodes}")
+
+
+@dataclass
+class NodeConfig:
+    """One logical node of the trainer (the JAX package's
+    ``NodeConfig``); ``model_partition`` names the data shards it owns
+    after task reassignment."""
+
+    node_id: int
+    rank: int
+    world_size: int
+    device_id: int = 0
+    model_partition: str = ""
+    trust_score: float = 1.0
 
 
 @dataclass

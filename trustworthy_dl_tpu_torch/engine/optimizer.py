@@ -1,8 +1,8 @@
 """Optimizers with optax's numerics, as plain tensor updates.
 
-Counterpart of ``trustworthy_dl_tpu/engine/optimizer.py``.  AdamW, Adam and
-SGD (momentum 0.9) follow optax's arithmetic step for step, not
-``torch.optim``'s defaults (``torch.optim.AdamW`` decays by 1e-2 unless
+Counterpart of ``trustworthy_dl_tpu/engine/optimizer.py``.  AdamW, Adam,
+SGD (momentum 0.9) and Adafactor follow optax's arithmetic step for step,
+not ``torch.optim``'s defaults (``torch.optim.AdamW`` decays by 1e-2 unless
 told otherwise; the training config's ``weight_decay`` is 0.0):
 
 * optional clip by global norm (``optax.clip_by_global_norm``);
@@ -11,7 +11,17 @@ told otherwise; the training config's ``weight_decay`` is 0.0):
   ``mu_hat / (sqrt(nu_hat) + 1e-8)`` (epsilon outside the root);
 * AdamW's decoupled decay adds ``wd * p`` to that update;
 * the step ``-lr(count) * update``, the schedule evaluated at the count of
-  updates applied before this one.
+  updates applied before this one;
+* ``moment_dtype`` stores Adam's first moment or SGD's trace in a reduced
+  precision (optax's ``mu_dtype`` / ``accumulator_dtype``): the moment is
+  updated in f32 from the stored one (``b * m`` in the stored dtype, as
+  JAX's weakly typed scalar gives), used unrounded, then stored rounded;
+* Adafactor (``optax.adafactor`` with the JAX package's arguments): a
+  factored second moment (row and column means of ``g^2 + 1e-30``) for
+  leaves whose two largest dims are >= 128, a full one otherwise, decay
+  ``1 - (count + 1)^-0.8``, each leaf's update clipped to rms 1, scaled by
+  the learning rate and by the parameter's rms (at least 1e-3), plus
+  ``weight_decay * p``, then negated.  No momentum.
 
 The optimizer works on lists of parameter leaves (``utils.tree`` order).
 Its state lives on the parameters' device; the update count is a device
@@ -22,8 +32,10 @@ host sync.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, NamedTuple, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, \
+    Union
 
+import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.core.config import TrainingConfig
@@ -34,7 +46,9 @@ Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 class OptState(NamedTuple):
     count: torch.Tensor           # i32 [] updates applied
     mu: List[torch.Tensor]        # Adam first moment / SGD momentum trace
-    nu: List[torch.Tensor]        # Adam second moment ([] for SGD)
+    # Adam second moment ([] for SGD); Adafactor's, per leaf in order
+    # (v_row, v_col) where factored, else (v,).
+    nu: List[torch.Tensor]
 
 
 def _linear(init: float, end: float, steps: int):
@@ -78,6 +92,31 @@ def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in leaves))
 
 
+def _weak(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``: what a JAX weakly typed Python scalar
+    becomes against an array of that dtype."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+#: optax.adafactor's defaults, the JAX package's arguments.
+AF_MIN_DIM_TO_FACTOR = 128
+AF_DECAY_RATE = 0.8
+AF_EPS = 1e-30
+AF_CLIP = 1.0
+AF_MIN_PARAM_SCALE = 1e-3
+
+
+def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's choice: the (second largest, largest) dims when the second
+    largest is >= 128, else None (a full second moment)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < AF_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
 class Optimizer:
     """``init(params) -> state``; ``update(grads, state, params) ->
     (new_params, new_state)``, both on lists of leaves."""
@@ -85,23 +124,38 @@ class Optimizer:
     def __init__(self, name: str, schedule: Schedule,
                  weight_decay: float = 0.0, clip_norm: float = 0.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9,
+                 moment_dtype: Optional[torch.dtype] = None):
         name = name.lower()
-        if name not in ("adamw", "adam", "sgd"):
-            raise ValueError(f"unknown or not yet ported optimizer {name!r}")
+        if name not in ("adamw", "adam", "sgd", "adafactor"):
+            raise ValueError(f"unknown optimizer {name!r}")
         self.name = name
         self.schedule = schedule
-        self.weight_decay = weight_decay if name == "adamw" else 0.0
+        self.weight_decay = (weight_decay if name in ("adamw", "adafactor")
+                             else 0.0)
         self.clip_norm = clip_norm
         self.b1, self.b2, self.eps, self.momentum = b1, b2, eps, momentum
+        # Adafactor runs without momentum, so it has no first moment.
+        self.moment_dtype = None if name == "adafactor" else moment_dtype
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         device = params[0].device
-        mu = [torch.zeros_like(p) for p in params]
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        if self.name == "adafactor":
+            nu = []
+            for p in params:
+                dims = factored_dims(p.shape)
+                if dims is None:
+                    nu.append(torch.zeros_like(p))
+                else:
+                    shape = np.array(p.shape)
+                    nu += [p.new_zeros(tuple(np.delete(shape, dims[1]))),
+                           p.new_zeros(tuple(np.delete(shape, dims[0])))]
+            return OptState(count, [], nu)
+        mu = [torch.zeros_like(p, dtype=self.moment_dtype) for p in params]
         nu = [] if self.name == "sgd" else [torch.zeros_like(p)
                                             for p in params]
-        return OptState(torch.zeros((), dtype=torch.int32, device=device),
-                        mu, nu)
+        return OptState(count, mu, nu)
 
     def _step_size(self, count: torch.Tensor) -> Union[float, torch.Tensor]:
         if callable(self.schedule):
@@ -117,35 +171,78 @@ class Optimizer:
             grads = [torch.where(g_norm < self.clip_norm, g,
                                  (g / g_norm) * self.clip_norm)
                      for g in grads]
+        if self.name == "adafactor":
+            return self._adafactor(grads, state, params)
         step = self._step_size(state.count)
         count = state.count + 1
         new_params, mu, nu = [], [], []
         if self.name == "sgd":
             for g, t, p in zip(grads, state.mu, params):
-                tr = g + self.momentum * t
-                mu.append(tr)
+                tr = g + _weak(self.momentum, t.dtype) * t
+                mu.append(tr.to(t.dtype))
                 new_params.append(p + tr * step)
             return new_params, OptState(count, mu, nu)
         bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=count.device),
                               count.float())
         bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=count.device),
                               count.float())
-        for g, m, v, p in zip(grads, state.mu, state.nu, params):
-            m = (1.0 - self.b1) * g + self.b1 * m
+        for g, m_old, v, p in zip(grads, state.mu, state.nu, params):
+            m = (1.0 - self.b1) * g + _weak(self.b1, m_old.dtype) * m_old
             v = (1.0 - self.b2) * (g * g) + self.b2 * v
             upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if self.weight_decay:
                 upd = upd + self.weight_decay * p
-            mu.append(m)
+            mu.append(m.to(m_old.dtype))
             nu.append(v)
             new_params.append(p + upd * step)
         return new_params, OptState(count, mu, nu)
 
+    def _adafactor(self, grads: List[torch.Tensor], state: OptState,
+                   params: Sequence[torch.Tensor]
+                   ) -> Tuple[List[torch.Tensor], OptState]:
+        lr = (self.schedule(state.count.float()) if callable(self.schedule)
+              else self.schedule)
+        t = (state.count + 1).float()
+        decay = 1.0 - t ** -AF_DECAY_RATE
+        new_params, nu = [], []
+        slots = iter(state.nu)
+        for g, p in zip(grads, params):
+            g_sq = g * g + AF_EPS
+            dims = factored_dims(p.shape)
+            if dims is None:
+                v = decay * next(slots) + (1.0 - decay) * g_sq
+                nu.append(v)
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                v_row = decay * next(slots) + (1.0 - decay) * g_sq.mean(d0)
+                v_col = decay * next(slots) + (1.0 - decay) * g_sq.mean(d1)
+                nu += [v_row, v_col]
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)
+                              ) ** -0.5
+                u = (g * row_factor.unsqueeze(d0)
+                     * (v_col ** -0.5).unsqueeze(d1))
+            u = u / torch.clamp(torch.sqrt((u * u).mean()) / AF_CLIP,
+                                min=1.0)
+            u = u * lr
+            rms = torch.sqrt((p * p).mean())
+            u = u * torch.where(rms <= AF_MIN_PARAM_SCALE,
+                                torch.full_like(rms, AF_MIN_PARAM_SCALE),
+                                rms)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            new_params.append(p + u * -1.0)
+        return new_params, OptState(state.count + 1, [], nu)
+
 
 def build_optimizer(config: TrainingConfig) -> Optimizer:
+    moment_dtype = (getattr(torch, config.moment_dtype)
+                    if config.moment_dtype else None)
     return Optimizer(config.optimizer, build_schedule(config),
                      weight_decay=config.weight_decay,
-                     clip_norm=config.grad_clip_norm)
+                     clip_norm=config.grad_clip_norm,
+                     moment_dtype=moment_dtype)
 
 
 def guarded_update(do_update: torch.Tensor, optimizer: Optimizer,
@@ -168,4 +265,4 @@ def guarded_update(do_update: torch.Tensor, optimizer: Optimizer,
 
 
 __all__ = ["OptState", "Optimizer", "build_optimizer", "build_schedule",
-           "global_norm", "guarded_update"]
+           "factored_dims", "global_norm", "guarded_update"]

@@ -20,9 +20,19 @@ and its helpers).  One call runs, in the JAX package's order:
 
 The JAX step vmaps the node axis; here the per-node gradients come from a
 Python loop over the nodes (forward, loss, ``torch.autograd.grad``),
-stacked into [n, ...] leaves.  The statistic batteries run on detached
-tensors under ``torch.no_grad``: one moment-battery launch (kernel B1)
-covers every gradient leaf of every node, one more every node's features.
+stacked into [n, ...] leaves.  With ``grad_accum_steps`` = a > 1 each
+node's batch runs as a sequential microbatches (JAX's ``lax.scan``): loss,
+gradients and mean logits average over them, the output batteries combine
+per microbatch (``stats.combine_microbatch_stats``) and the feature
+mean/std average.  The batch is poisoned before the split and the
+gradients after the average, as in JAX.  The statistic batteries run on
+detached tensors under ``torch.no_grad``: one moment-battery launch
+(kernel B1) covers every gradient leaf of every node, one more every
+node's (every microbatch's) features.
+
+:func:`build_eval_step` and :func:`build_node_eval_step` are the
+validation steps: loss and accuracy, through the fused eval head where
+``lm_head_chunk`` resolves to a width.
 Medians follow ``jnp.median`` (the two middle values averaged, NaN if any
 input is NaN) and standard deviations are population ones, as in JAX.
 """
@@ -175,41 +185,57 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
                      optimizer: Optimizer, max_sort: int = 16384) -> StepFn:
     """The step for ``config.num_nodes`` nodes: ``step(state, batch, plan,
     grad_noise=None, batch_noise=None) -> (state, metrics)``, with batches
-    {'input': [n, b, T], 'target': [n, b, T]} on the state's device.
-    ``grad_noise`` / ``batch_noise`` hand the attack injectors their draws
-    (else they draw from ``state.rng``)."""
-    if config.grad_accum_steps > 1:
-        raise NotImplementedError(
-            "grad_accum_steps > 1 (sequential microbatches inside the step) "
-            "is not ported yet")
+    {'input': [n, b, T], 'target': [n, b, T]} on the state's device (b a
+    multiple of ``config.grad_accum_steps``).  ``grad_noise`` /
+    ``batch_noise`` hand the attack injectors their draws (else they draw
+    from ``state.rng``)."""
     n_nodes = config.num_nodes
+    accum = config.grad_accum_steps
     detection = config.attack_detection_enabled
     verification = config.gradient_verification_enabled
     num_classes = bundle.input_spec.get("vocab_size", 2)
 
     def node_passes(params: Any, batch: Dict[str, Tensor]):
-        """Per node: forward + loss + grads.  Returns (losses [n], features
-        (detached, one per node), mean_logits [n, V], grads as [n, ...]
-        leaves in tree order)."""
+        """Per node, per microbatch: forward + loss + grads.  Returns
+        (losses [n], features (detached, n lists of ``accum``),
+        mean_logits [n, V], grads as [n, ...] leaves in tree order), each
+        node's loss, mean logits and grads the mean over its
+        microbatches."""
         template = tree_leaves(params)
         losses, feats, mean_logits = [], [], []
         grads: List[Tensor] = []
+        inv = 1.0 / accum
         for i in range(n_nodes):
             leaves = [p.detach().requires_grad_(True) for p in template]
             node_params = tree_unflatten(params, leaves)
-            node_batch = {k: v[i] for k, v in batch.items()}
-            with torch.enable_grad():
-                loss, f, ml = bundle.loss_monitor(node_params, node_batch)
-                g = torch.autograd.grad(loss, leaves)
-            if i == 0:
-                grads = [torch.empty((n_nodes,) + x.shape, dtype=x.dtype,
-                                     device=x.device) for x in g]
-            for dst, src in zip(grads, g):
-                dst[i].copy_(src)
-            del g
-            losses.append(loss.detach())
-            feats.append(f.detach())
-            mean_logits.append(ml.detach())
+            micro = {k: v[i].chunk(accum) for k, v in batch.items()}
+            loss_sum = ml_sum = None
+            node_feats = []
+            for a in range(accum):
+                mb = {k: v[a] for k, v in micro.items()}
+                with torch.enable_grad():
+                    loss, f, ml = bundle.loss_monitor(node_params, mb)
+                    g = torch.autograd.grad(loss, leaves)
+                if i == 0 and a == 0:
+                    grads = [torch.empty((n_nodes,) + x.shape, dtype=x.dtype,
+                                         device=x.device) for x in g]
+                for dst, src in zip(grads, g):
+                    if a == 0:
+                        dst[i].copy_(src)
+                    else:
+                        dst[i].add_(src)
+                del g
+                loss, ml = loss.detach(), ml.detach()
+                loss_sum = loss if a == 0 else loss_sum + loss
+                ml_sum = ml if a == 0 else ml_sum + ml
+                node_feats.append(f.detach())
+            if accum > 1:
+                for dst in grads:
+                    dst[i].mul_(inv)
+                loss_sum, ml_sum = loss_sum * inv, ml_sum * inv
+            losses.append(loss_sum)
+            feats.append(node_feats)
+            mean_logits.append(ml_sum)
         return (torch.stack(losses), feats, torch.stack(mean_logits), grads)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
@@ -242,14 +268,19 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
         n = n_nodes
         device = losses.device
         with record_function("tddl.detection"):     # stages 4-7
-            # Output batteries: one B1 launch over every node's features.
-            flat_feats = [f.reshape(-1) for f in feats]
+            # Output batteries: one B1 launch over every node's (every
+            # microbatch's) features; microbatch batteries combine per node.
+            flat_feats = [f.reshape(-1) for node in feats for f in node]
             feat_moments = _moments(flat_feats)
-            out_stats = torch.stack([
-                output_stat_vector(flat_feats[i], feat_moments[i:i + 1],
-                                   max_sort) for i in range(n)])
-            out_mean = torch.stack([f.mean() for f in feats])
-            out_std = torch.stack([f.std(correction=0) for f in feats])
+            mb_stats = torch.stack([
+                output_stat_vector(x, feat_moments[j:j + 1], max_sort)
+                for j, x in enumerate(flat_feats)]).reshape(n, accum, -1)
+            out_stats = torch.stack([st.combine_microbatch_stats(m)
+                                     for m in mb_stats])
+            out_mean = torch.stack([f.mean() for f in flat_feats]
+                                   ).reshape(n, accum).mean(dim=1)
+            out_std = torch.stack([f.std(correction=0) for f in flat_feats]
+                                  ).reshape(n, accum).mean(dim=1)
             del feats, flat_feats
 
             # Gradient batteries: one B1 launch over every leaf of every node.
@@ -411,8 +442,57 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
     return train_step
 
 
+EvalFn = Callable[[Any, Dict[str, Tensor]], Dict[str, Tensor]]
+
+
+def build_eval_step(bundle: ModelBundle) -> EvalFn:
+    """Validation step on an un-noded batch: {'loss', 'accuracy'}, no
+    detection.  GPT-2 takes the fused eval head where ``lm_head_chunk``
+    resolves to a width for this batch (the training dispatch), so the
+    [B, T, V] logits never materialise."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.models import layers as L
+    from trustworthy_dl_tpu_torch.ops.fused_ce import fused_lm_eval
+
+    cfg = bundle.config
+
+    @torch.no_grad()
+    def eval_step(params: Any, batch: Dict[str, Tensor]
+                  ) -> Dict[str, Tensor]:
+        chunk = gpt2.resolve_lm_head_chunk(cfg, batch["target"].numel())
+        if not chunk:
+            logits = bundle.apply(params, batch["input"])
+            return {"loss": L.cross_entropy_loss(logits, batch["target"]),
+                    "accuracy": L.accuracy(logits, batch["target"])}
+        x = gpt2.apply_blocks(params["blocks"],
+                              gpt2.embed(params, batch["input"]), cfg)
+        normed = L.layernorm(params["ln_f"], x)
+        loss, acc = fused_lm_eval(normed, params["wte"], batch["target"],
+                                  chunk, cfg.dtype)
+        return {"loss": loss, "accuracy": acc}
+
+    return eval_step
+
+
+def build_node_eval_step(bundle: ModelBundle) -> EvalFn:
+    """Validation over the node axis: [rows, b, ...] batches, one eval per
+    row; rows are equal-sized, so the mean of the row means is the
+    batch mean."""
+    eval_step = build_eval_step(bundle)
+
+    def node_eval_step(params: Any, node_batch: Dict[str, Tensor]
+                       ) -> Dict[str, Tensor]:
+        rows = next(iter(node_batch.values())).shape[0]
+        outs = [eval_step(params, {k: v[i] for k, v in node_batch.items()})
+                for i in range(rows)]
+        return {k: torch.stack([o[k] for o in outs]).mean()
+                for k in outs[0]}
+
+    return node_eval_step
+
+
 __all__ = [
     "CROSS_SECTIONAL_THRESHOLD", "HARD_CROSS_Z", "LOSS_CROSS_Z",
-    "NORM_CROSS_Z", "StepMetrics", "build_train_step",
-    "gradient_stat_vector", "output_stat_vector",
+    "NORM_CROSS_Z", "StepMetrics", "build_eval_step", "build_node_eval_step",
+    "build_train_step", "gradient_stat_vector", "output_stat_vector",
 ]

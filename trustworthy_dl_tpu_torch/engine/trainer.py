@@ -6,15 +6,19 @@ one :func:`engine.step.build_train_step` call; the host reads the step's
 metrics in one device-to-host copy per step (the step's one sync), records
 confirmed incidents (``attack_history``), mirrors compromises into the
 host :class:`TrustManager`, hands the flagged node's work to the most
-trusted node (``reassignment_history``) and, at epoch cadence, absorbs the
-device trust state and pushes the adaptive threshold back.
+trusted node (``reassignment_history``, with the migration-time model's
+estimate) and counts each detection as a true or false positive against
+the attack plan (``detection_stats``).  At epoch cadence it absorbs the
+device trust and monitor state (``trust_manager``, ``node_monitor``),
+pushes the adaptive threshold back, and, given a validation loader,
+evaluates (``validate_metrics``).
 
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
 runs its plain PyTorch version.  Not ported yet: the async host pipeline,
 checkpointing, the supervisor, chaos injection, telemetry, elastic
-eviction and readmission, the ML detector tier, validation, and the
-pipeline, tensor, sequence and expert modes.
+eviction and readmission, the ML detector tier, and the pipeline, tensor,
+sequence and expert modes.
 """
 
 from __future__ import annotations
@@ -22,25 +26,28 @@ from __future__ import annotations
 import enum
 import logging
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from collections import defaultdict
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     null_plan
-from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+from trustworthy_dl_tpu_torch.core.config import NodeConfig, \
+    TrainingConfig
 from trustworthy_dl_tpu_torch.detect.detector import AttackType
 from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
 from trustworthy_dl_tpu_torch.engine.optimizer import build_optimizer
 from trustworthy_dl_tpu_torch.engine.state import TrainState, \
     init_train_state
 from trustworthy_dl_tpu_torch.engine.step import StepMetrics, \
-    build_train_step
+    build_node_eval_step, build_train_step
 from trustworthy_dl_tpu_torch.models.factory import create_model
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
 from trustworthy_dl_tpu_torch.trust.state import NodeStatus
+from trustworthy_dl_tpu_torch.utils.monitor import NodeMonitor
 from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
 
 logger = logging.getLogger(__name__)
@@ -74,15 +81,20 @@ class DistributedTrainer:
             overrides.setdefault("lm_head_chunk", config.lm_head_chunk)
         if config.remat:
             overrides.setdefault("remat", True)
+            overrides.setdefault("remat_policy", config.remat_policy)
         self.model = create_model(config.model_name, **overrides)
         self.optimizer = build_optimizer(config)
         self._train_step = build_train_step(self.model, config,
                                             self.optimizer)
+        self._eval_step = build_node_eval_step(self.model)
         self.state: Optional[TrainState] = None
         self.training_state = TrainingState.INITIALIZING
         self._init_host_state()
 
     def _init_host_state(self) -> None:
+        """Per-run host world-view, shared by the constructor and
+        :meth:`reset_for_run`: any host attribute a run mutates is
+        (re)initialised here."""
         config = self.config
         self.current_epoch = 0
         self.global_step = 0
@@ -93,6 +105,15 @@ class DistributedTrainer:
             decay_rate=config.trust_decay_rate,
             recovery_rate=config.trust_recovery_rate,
             alpha=config.trust_alpha)
+        self.node_monitor = NodeMonitor()
+        # Detections against the attack plan's ground truth.
+        self.detection_stats: Dict[str, Any] = {
+            "total_detections": 0, "false_positives": 0,
+            "true_positives": 0, "attack_types": defaultdict(int)}
+        self.node_configs: Dict[int, NodeConfig] = {
+            i: NodeConfig(node_id=i, rank=i, world_size=config.num_nodes,
+                          device_id=i, model_partition=f"shard_{i}")
+            for i in range(config.num_nodes)}
         self.attack_history: List[Dict] = []
         self.reassignment_history: List[Dict] = []
         self._fleet_tracker = FleetEpisodeTracker()
@@ -105,6 +126,8 @@ class DistributedTrainer:
         self.batch_history: List[Dict] = []
         self.attack_plan: AttackPlan = null_plan(config.num_nodes,
                                                  self.device)
+        # Per original id, the attack plan's injection bit.
+        self._plan_bits: Dict[int, bool] = {}
 
     # ------------------------------------------------------------------
     # Setup
@@ -133,22 +156,57 @@ class DistributedTrainer:
         self.training_state = TrainingState.TRAINING
         return self.state
 
-    def set_attack_plan(self, plan: AttackPlan) -> None:
-        """Install the experiment's fault-injection schedule."""
+    def reset_for_run(self, seed: Optional[int] = None) -> TrainState:
+        """A fresh run on the same built steps: device state (params,
+        optimizer, trust, detector baselines) and the host world-view
+        (trust manager, monitor, incident records, detection counts, step
+        counter, attack plan) start over."""
+        self._init_host_state()
+        return self.initialize(seed=seed)
+
+    def set_attack_plan(self, plan: AttackPlan,
+                        target_ids: Optional[Sequence[int]] = None) -> None:
+        """Install the experiment's fault-injection schedule.
+        ``target_ids`` names the targeted original ids outright; otherwise
+        they are read from the plan's mask through ``node_map``."""
         self.attack_plan = plan._replace(
             target_mask=plan.target_mask.to(self.device))
+        if target_ids is not None:
+            targets = {int(i) for i in target_ids}
+            self._plan_bits = {nid: nid in targets
+                               for nid in set(self.node_map) | targets}
+        else:
+            mask = plan.target_mask.tolist()
+            self._plan_bits = {
+                self.node_map[i]: bool(mask[i])
+                for i in range(min(len(mask), len(self.node_map)))}
 
-    def _node_batch(self, batch: Dict[str, np.ndarray]
-                    ) -> Dict[str, torch.Tensor]:
-        """[B, ...] -> [n, B // n, ...] on the device, trimming B to a
-        multiple of the node count."""
+    def _node_batch(self, batch: Dict[str, np.ndarray],
+                    for_eval: bool = False
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+        """[B, ...] -> [n, B // n, ...] on the device.  Training trims B
+        to a multiple of num_nodes x grad_accum_steps and raises below it.
+        Validation
+        (``for_eval``) drops nothing: a batch that does not split evenly
+        over the nodes is one row of B; an empty batch gives None."""
         n = self.config.num_nodes
         lead = min(arr.shape[0] for arr in batch.values())
-        b = (lead // n) * n
+        if for_eval:
+            if lead == 0:
+                return None
+            rows = n if lead % n == 0 else 1
+            return self._rows(batch, lead, rows)
+        quantum = n * self.config.grad_accum_steps
+        b = (lead // quantum) * quantum
         if b == 0:
-            raise ValueError(f"batch size {lead} < num_nodes = {n}")
+            raise ValueError(f"batch size {lead} < num_nodes x "
+                             f"grad_accum_steps = {quantum}")
+        return self._rows(batch, b, n)
+
+    def _rows(self, batch: Dict[str, np.ndarray], b: int, rows: int
+              ) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(arr[:b]).reshape(
-                    (n, b // n) + arr.shape[1:]), dtype=torch.long
+                    (rows, b // rows) + arr.shape[1:]), dtype=torch.long
                 ).to(self.device) for k, arr in batch.items()}
 
     # ------------------------------------------------------------------
@@ -270,10 +328,19 @@ class DistributedTrainer:
     def _handle_detected_attack(self, node_id: int, attack_type: str,
                                 host: Dict[str, Any], coord: int,
                                 exclude: set) -> None:
-        """Record the incident, mirror the compromise into the host trust
-        manager and hand the node's work to the most trusted node.  The
-        in-step gating already happened."""
+        """Record the incident, count it against the attack plan's ground
+        truth, mirror the compromise into the host trust manager and hand
+        the node's work to the most trusted node.  The in-step gating
+        already happened."""
         logger.error("Attack detected on node %d (%s)", node_id, attack_type)
+        plan = self.attack_plan
+        live = bool(plan.active) and self.global_step - 1 >= plan.start_step
+        is_tp = live and coord < len(plan.target_mask) and bool(
+            plan.target_mask[coord])
+        ds = self.detection_stats
+        ds["total_detections"] += 1
+        ds["attack_types"][attack_type] += 1
+        ds["true_positives" if is_tp else "false_positives"] += 1
         self.attack_history.append({
             "node_id": node_id, "timestamp": time.time(),
             "step": self.global_step, "attack_type": attack_type,
@@ -293,12 +360,38 @@ class DistributedTrainer:
             logger.error("No trusted nodes available for reassignment")
             return
         best = max(trusted, key=self.trust_manager.get_trust_score)
+        migration_time = self.estimate_migration_time(compromised_node_id,
+                                                      best)
+        self.perform_task_reassignment(compromised_node_id, best)
         self.reassignment_history.append({
             "from_node": compromised_node_id, "to_node": best,
-            "timestamp": time.time(), "step": self.global_step})
+            "timestamp": time.time(), "migration_time": migration_time,
+            "step": self.global_step})
+
+    def estimate_migration_time(self, source_node: int, target_node: int
+                                ) -> float:
+        """Seconds to move a node's share of the f32 parameters at
+        ``migration_gbps`` GiB/s, plus a 2 s setup (the JAX package's
+        model)."""
+        if self.state is None:
+            return 2.0
+        n_params = self.model.num_params(self.state.params)
+        shard = n_params / max(self.config.num_nodes, 1)
+        return shard * 4 / (self.config.migration_gbps * 1024 ** 3) + 2.0
+
+    def perform_task_reassignment(self, source_node: int, target_node: int
+                                  ) -> None:
+        """The flagged node's contribution is already zero-weighted in the
+        step; reassignment relabels its data shard onto the target."""
+        target = self.node_configs[target_node]
+        target.model_partition = (f"shard_{source_node}+"
+                                  f"{target.model_partition}")
+        logger.info("Task reassignment completed: %d -> %d", source_node,
+                    target_node)
 
     def train(self, train_dataloader: Iterable[Dict[str, np.ndarray]],
-              num_epochs: Optional[int] = None) -> Dict[str, Any]:
+              val_dataloader: Optional[Iterable[Dict[str, np.ndarray]]]
+              = None, num_epochs: Optional[int] = None) -> Dict[str, Any]:
         if num_epochs is None:
             num_epochs = self.config.num_epochs
         if self.state is None:
@@ -306,18 +399,55 @@ class DistributedTrainer:
         self.training_state = TrainingState.TRAINING
         history = []
         for epoch in range(num_epochs):
-            avg = self.train_epoch(train_dataloader, epoch)
+            record = {"epoch": epoch,
+                      "train_loss": self.train_epoch(train_dataloader,
+                                                     epoch)}
+            if val_dataloader is not None:
+                record["val_loss"] = self.validate(val_dataloader)
+                logger.info("Validation loss: %.4f", record["val_loss"])
             if self.training_state == TrainingState.UNDER_ATTACK:
                 self.training_state = TrainingState.RECOVERING
-            history.append({"epoch": epoch, "train_loss": avg})
+            history.append(record)
         self.training_state = TrainingState.COMPLETED
         return {"epochs": history, "stats": self.get_training_stats()}
 
+    def validate(self, val_dataloader: Iterable[Dict[str, np.ndarray]]
+                 ) -> float:
+        """Mean validation loss."""
+        return self.validate_metrics(val_dataloader)["loss"]
+
+    def validate_metrics(self, val_dataloader: Iterable[Dict[str, np.ndarray]]
+                         ) -> Dict[str, float]:
+        """Loss, accuracy and (for LMs) perplexity, each an
+        example-weighted mean over the loader's batches (a ragged tail
+        counts by its size)."""
+        total = acc = 0.0
+        examples = 0
+        for batch in val_dataloader:
+            batch = self._node_batch(batch, for_eval=True)
+            if batch is None:
+                continue
+            out = self._eval_step(self.state.params, batch)
+            first = next(iter(batch.values()))
+            weight = int(first.shape[0] * first.shape[1])
+            pulled = torch.stack([out["loss"], out["accuracy"]]).tolist()
+            total += pulled[0] * weight
+            acc += pulled[1] * weight
+            examples += weight
+        n = max(examples, 1)
+        metrics = {"loss": total / n, "accuracy": acc / n}
+        if self.model.kind == "lm":
+            metrics["perplexity"] = float(np.exp(min(metrics["loss"], 30.0)))
+        return metrics
+
     def sync_host_state(self) -> None:
-        """Epoch-cadence absorption of the device trust state."""
+        """Epoch-cadence absorption of the device trust and monitor
+        state."""
         if self.state is not None:
             self.trust_manager.sync_from_device(self.state.trust,
                                                 node_ids=self.node_map)
+            self.node_monitor.sync_from_device(self.state.monitor,
+                                               node_ids=self.node_map)
 
     def get_training_stats(self) -> Dict[str, Any]:
         losses = [b["loss"] for b in self.batch_history]

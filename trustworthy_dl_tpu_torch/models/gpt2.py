@@ -7,9 +7,11 @@ plain dict laid out like the JAX pytree: ``wte`` [V, D], ``wpe`` [P, D],
 Attention goes through a registry: ``full`` (softmax over the whole score
 matrix), ``flash`` (kernels B2/B3, ``ops/flash_attention``) and ``auto``
 (flash at T >= :data:`AUTO_FLASH_MIN_T` where the kernel takes the shape,
-full below).  ``remat`` checkpoints every block (policy ``block``).  The
-ring and Ulysses variants, the ``attention`` remat policy and the
-vocab-chunked fused head (``ops/fused_ce.py``) are not ported yet.
+full below).  ``remat`` checkpoints every block (policy ``block``) or,
+with policy ``attention`` on the effectively-full attention path, only
+the attention core.  The loss takes the vocab-chunked fused head
+(``ops/fused_ce.py``) where ``lm_head_chunk`` resolves to a width.  The
+ring and Ulysses variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from trustworthy_dl_tpu_torch.models import layers as L
+from trustworthy_dl_tpu_torch.ops import fused_ce
 from trustworthy_dl_tpu_torch.utils.tree import map_tree
 
 Params = Dict[str, Any]
@@ -47,8 +50,11 @@ class GPT2Config:
     # full | flash | auto (see the module docstring).
     attn_impl: str = "auto"
     remat: bool = False
+    # "block" checkpoints each block; "attention" checkpoints only the
+    # attention core where it is full attention (block remat elsewhere).
+    remat_policy: str = "block"
     # 0 materialises the logits; "auto" or an int > 0 may pick the
-    # vocab-chunked fused head (resolve_lm_head_chunk), not ported yet.
+    # vocab-chunked fused head (resolve_lm_head_chunk).
     lm_head_chunk: Any = "auto"
 
     @property
@@ -195,14 +201,21 @@ def get_attention(name: str) -> AttnFn:
     return ATTENTION[name]
 
 
-def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config
-                  ) -> torch.Tensor:
-    """One transformer block on f32 [B, T, D] activations."""
+def _checkpointed_full_attention(q, k, v):
+    """Full attention whose O(T^2) scores and probs are recomputed in the
+    backward instead of saved (the ``attention`` remat policy)."""
+    return checkpoint(full_attention, q, k, v, use_reentrant=False)
+
+
+def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config,
+                  attn: Optional[AttnFn] = None) -> torch.Tensor:
+    """One transformer block on f32 [B, T, D] activations; ``attn``
+    overrides the registry's ``cfg.attn_impl``."""
     dtype = cfg.dtype
     b, t, d = x.shape
     y = L.layernorm(block["ln_1"], x).to(dtype)
     q, k, v = L.dense(block["attn"]["qkv"], y, dtype).split(d, dim=-1)
-    attn = get_attention(cfg.attn_impl)
+    attn = attn or get_attention(cfg.attn_impl)
     out = attn(*(split_heads(a, cfg.n_head) for a in (q, k, v)))
     out = out.permute(0, 2, 1, 3).reshape(b, t, d)
     x = x + L.dense(block["attn"]["proj"], out, dtype).to(x.dtype)
@@ -211,13 +224,27 @@ def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config
 
 def apply_blocks(blocks: Params, x: torch.Tensor, cfg: GPT2Config
                  ) -> torch.Tensor:
-    """Every block in turn; with ``cfg.remat`` each block is checkpointed
-    (its forward re-runs in the backward, flash kernels included)."""
+    """Every block in turn.  With ``cfg.remat`` each block is checkpointed
+    (its forward re-runs in the backward, flash kernels included), except
+    under ``remat_policy="attention"`` where attention is effectively full
+    (``full``, or ``auto`` where it does not pick flash): there only the
+    attention core is checkpointed, so its O(T^2) scores and probs are
+    recomputed and every other activation is saved.  The flash kernels
+    never hold those, so elsewhere the policy falls through to block
+    remat, as the JAX package's does."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    attn = None
+    if remat and cfg.remat_policy == "attention":
+        t, d_head = x.shape[-2], cfg.n_embd // cfg.n_head
+        if cfg.attn_impl == "full" or (cfg.attn_impl == "auto" and not
+                                       auto_picks_flash(t, d_head,
+                                                        cfg.dtype)):
+            attn = _checkpointed_full_attention
     for block in unstack_blocks(blocks, cfg.n_layer):
-        if cfg.remat and torch.is_grad_enabled():
+        if remat and attn is None:
             x = checkpoint(block_forward, block, x, cfg, use_reentrant=False)
         else:
-            x = block_forward(block, x, cfg)
+            x = block_forward(block, x, cfg, attn)
     return x
 
 
@@ -229,19 +256,11 @@ def embed(params: Params, tokens: torch.Tensor,
     return (params["wte"][tokens] + params["wpe"][pos]).float()
 
 
-#: The head's vocab axis is padded to a multiple of this inside the
-#: product.  GPT-2's 50257 is odd, and cuBLAS then falls back to its
-#: 1-element-aligned GEMMs, several times slower than the aligned ones; the
-#: padded rows are zero and their logits are sliced off before use.
-HEAD_PAD = 64
-
-
 def head_weight(params: Params, cfg: GPT2Config) -> torch.Tensor:
     """The tied head's weight: ``wte`` cast to the compute dtype, its vocab
-    axis zero-padded to a multiple of :data:`HEAD_PAD`.  Built once per
+    axis zero-padded by :func:`fused_ce.pad_vocab`.  Built once per
     forward and shared by its products."""
-    w = params["wte"].to(cfg.dtype)
-    return F.pad(w, (0, 0, 0, -w.shape[0] % HEAD_PAD))
+    return fused_ce.pad_vocab(params["wte"], cfg.dtype)
 
 
 def project_logits(w_head: torch.Tensor, normed: torch.Tensor,
@@ -306,18 +325,23 @@ def forward_with_monitor(params: Params, tokens: torch.Tensor,
 def head_loss_and_signature(params: Params, x: torch.Tensor,
                             targets: torch.Tensor, cfg: GPT2Config
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ln_f + tied head on [B, T, D] hiddens -> (mean CE, mean_logits)."""
-    if resolve_lm_head_chunk(cfg, targets.numel()):
-        raise NotImplementedError(
-            "lm_head_chunk resolves to the vocab-chunked fused head "
-            "(trustworthy_dl_tpu/ops/fused_ce.py), which is not ported yet; "
-            "use lm_head_chunk=0 or a smaller per-node batch")
+    """ln_f + tied head on [B, T, D] hiddens -> (mean CE, mean_logits).
+    Where ``lm_head_chunk`` resolves to a width the CE goes through the
+    vocab-chunked fused head, fed the unpadded ``wte`` (padded rows would
+    join its softmax); ``mean_logits`` stays exact either way, the tied
+    projection being linear."""
     normed = L.layernorm(params["ln_f"], x)
     mean_normed = normed.mean(dim=tuple(range(normed.dim() - 1)))
     w_head = head_weight(params, cfg)
     mean_logits = project_logits(w_head, mean_normed, cfg)
-    logits = project_logits(w_head, normed, cfg)
-    return L.cross_entropy_loss(logits, targets), mean_logits
+    chunk = resolve_lm_head_chunk(cfg, targets.numel())
+    if chunk:
+        loss = fused_ce.fused_lm_loss(normed, params["wte"], targets, chunk,
+                                      cfg.dtype)
+    else:
+        loss = L.cross_entropy_loss(project_logits(w_head, normed, cfg),
+                                    targets)
+    return loss, mean_logits
 
 
 def loss_with_monitor(params: Params, batch: Dict[str, torch.Tensor],

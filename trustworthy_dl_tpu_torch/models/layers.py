@@ -39,3 +39,8 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (lse - tgt).mean()
+
+
+def accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Share of positions whose argmax is the target (f32 [])."""
+    return (logits.argmax(dim=-1) == targets).float().mean()

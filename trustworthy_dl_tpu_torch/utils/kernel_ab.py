@@ -87,8 +87,9 @@ def event_ms(fn: Callable, flush: torch.Tensor, reps: int) -> float:
 
 #: Profiler sessions a device time may take: a session now and then
 #: records none of a cluster-launched kernel's runs (seen with B4's
-#: ``cudaLaunchKernelEx`` launches), and is then taken again.
-PROFILE_ATTEMPTS = 4
+#: ``cudaLaunchKernelEx`` launches), or only some of a library call's
+#: kernels, and is then taken again.
+PROFILE_ATTEMPTS = 6
 
 
 def device_ms(fn: Callable, flush: torch.Tensor, reps: int,
@@ -99,15 +100,15 @@ def device_ms(fn: Callable, flush: torch.Tensor, reps: int,
     kernel but the flush's.  A session counts only when it recorded every
     launch: exactly ``launches`` a call, or, where ``launches`` is None (a
     library call, whose kernels are the library's choice), each kernel a
-    whole number of times a call and as often as in the session before
-    it.  A session that does not count is taken again, up to
+    whole number of times a call and as often as in an earlier session.
+    A session that does not count is taken again, up to
     :data:`PROFILE_ATTEMPTS` sessions; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    previous = None
+    seen: List[Dict[str, int]] = []
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -122,13 +123,13 @@ def device_ms(fn: Callable, flush: torch.Tensor, reps: int,
         if launches is not None:
             whole = sum(counts.values()) == reps * launches
         else:
-            whole = (bool(counts) and counts == previous
+            whole = (bool(counts) and counts in seen
                      and all(c % reps == 0 for c in counts.values()))
-            previous = counts
+            seen.append(counts)
         if whole:
             return sum(device_us(e) for e in found) / reps / 1e3
     want = (f"{launches} a call" if launches is not None
-            else "the same in two sessions running")
+            else "the same in two sessions")
     raise RuntimeError(f"the profiler recorded {counts} over {reps} calls "
                        f"of {kernel or 'the call'}, want {want}, in "
                        f"{PROFILE_ATTEMPTS} sessions")
