@@ -80,6 +80,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
    beside AdamW's), and the fused head alone at [16384, 768] x 50257 bf16
    against the materialised cross-entropy, fwd+bwd: loss, dx and dW,
    times and peak memory.
+7. experiment: ``ExperimentRunner`` at GPT-2 small's full width (T = 1024,
+   ``attn_impl="auto"``, 4 nodes x 8 sequences, 4 steps an epoch, 5
+   epochs, a validation batch after each), gradient poisoning of node 2
+   at intensity 0.5 from epoch 3 (step 12), artifacts in a temporary
+   directory: the results JSON loads, the CSV has ``trust_node_0..3``,
+   the report exists, detection quality exact (targets [2], precision and
+   recall 1, no false positive, node 2 confirmed within 2 steps), B1-B3
+   launched exactly as 20 steps and 5 validations make them, with the
+   counters set to 0 just before the run and read just after.
+8. survival: the JAX package's scripted drill (a lost batch at step 3, a
+   0.01 s stall at 7, the step-10 checkpoint corrupted after its commit,
+   NaN params after step 12, a preemption at 18) at the same geometry,
+   checkpoints every 5 steps, 4 epochs of 8 steps, through
+   ``TrainingSupervisor(max_retries=2, rollback_after=2,
+   max_restarts=2)``: the report equal to ``FaultPlan.predict``, every
+   fault fired, the rollback at step 5 (past the corrupt step 10), the run
+   completed with its last epoch's loss finite and under its first's, and
+   B1-B3 launched exactly as the drill's step executions make them.
+   Then the newest checkpoint corrupted: a fresh trainer's
+   ``load_checkpoint()`` lands on the prior verified step with params
+   bit-equal to its files, and two restores of it each take one step on
+   the same batch with bit-equal per-node losses.  Each save's bytes and
+   seconds (host copy, write, CRC), each restore's (read, copy to the
+   card) and each integrity check's.  The drill's directory is removed
+   at the end of the phase.
 
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -90,9 +115,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Kernel-vs-plain tolerances.  bf16 attention outputs: the kernel and the
@@ -191,6 +218,16 @@ ARMS_LOSS_ATOL = 1.5e-4
 # bf16 step).
 FCE_LOSS_RTOL = 2e-5
 FCE_GRAD_RTOL = 2.0 ** -7
+# experiment geometry: the train phase's 4 nodes x 8 sequences of 1024, 4
+# steps an epoch, 5 epochs, node 2 poisoned from epoch 3 (step 12, past
+# detector_warmup 10) at intensity 0.5.
+EXP_STEPS_PER_EPOCH, EXP_EPOCHS, EXP_ATTACK_EPOCH = 4, 5, 3
+# survival: the JAX package's scripted drill (tests/test_survival.py).
+DRILL_EPOCHS, DRILL_STEPS_PER_EPOCH, DRILL_INTERVAL = 4, 8, 5
+DRILL_SCRIPT = ((3, "data_loss", 1.0), (7, "stall", 0.01),
+                (10, "ckpt_corrupt", 1.0), (12, "grad_nan", 1.0),
+                (18, "preempt", 1.0))
+DRILL_RETRIES, DRILL_ROLLBACK_AFTER, DRILL_RESTARTS = 2, 2, 2
 
 
 def emit(obj) -> None:
@@ -1970,6 +2007,253 @@ def train_fused_ce(torch, entries, card):
                                "product_routes": routes, **head}})
 
 
+def flash_b1_launches(cfg, steps, remat, validations=0, val_rows=0):
+    """B1-B3 launches of ``steps`` step executions and ``validations``
+    validation batches of ``val_rows`` rows: per step, one flash forward
+    a layer and node (two with block remat), one dq and one dk/dv, and
+    two moment batteries; per validation row, one forward a layer."""
+    per_layer = cfg.n_layer * TRAIN_NODES * steps
+    return {"flash_attention_fwd": (2 if remat else 1) * per_layer
+            + cfg.n_layer * val_rows * validations,
+            "flash_attention_bwd_dq": per_layer,
+            "flash_attention_bwd_dkv": per_layer,
+            "fused_moments": 2 * steps}
+
+
+def experiment_drive(torch, entries, card):
+    """Phase 7: ``ExperimentRunner`` on GPT-2 small at full width."""
+    import csv
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.core.config import ExperimentConfig
+    from trustworthy_dl_tpu_torch.experiments import ExperimentRunner
+
+    cfg = gpt2_small(torch)
+    out_dir = tempfile.mkdtemp(prefix="tddl_experiment_")
+    t0 = time.perf_counter()
+    try:
+        config = ExperimentConfig(
+            experiment_name="gpt2_small_attack", model_name="gpt2",
+            dataset_name="openwebtext", num_nodes=TRAIN_NODES,
+            num_epochs=EXP_EPOCHS, batch_size=TRAIN_BATCH,
+            learning_rate=1e-4, attack_enabled=True,
+            attack_start_epoch=EXP_ATTACK_EPOCH, attack_intensity=0.5,
+            target_nodes=[2], attack_types=["gradient_poisoning"],
+            steps_per_epoch=EXP_STEPS_PER_EPOCH, output_dir=out_dir)
+        runner = ExperimentRunner(
+            config, model_overrides=dict(seq_len=TRAIN_T, attn_impl="auto"),
+            data_overrides=dict(seq_len=TRAIN_T,
+                                vocab_size=cfg.vocab_size),
+            device="cuda")
+        runner.setup_experiment()
+        val_batches = len(runner.val_loader)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        results = runner.run_experiment()
+        launches = ops.launch_counts()
+        steps = EXP_STEPS_PER_EPOCH * EXP_EPOCHS
+        want = flash_b1_launches(cfg, steps, runner.training_config.remat,
+                                 EXP_EPOCHS * val_batches, TRAIN_NODES)
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"experiment: {name} launched "
+                                     f"{launches[name]} times, design says "
+                                     f"{n}")
+            entries[name]["launches_experiment"] = n
+        with open(runner.output_dir / "experiment_results.json") as f:
+            loaded = json.load(f)
+        with open(runner.output_dir / "training_metrics.csv",
+                  newline="") as f:
+            header = next(csv.reader(f))
+        if any(f"trust_node_{i}" not in header for i in range(TRAIN_NODES)):
+            raise AssertionError(f"experiment: CSV header {header}")
+        if not (runner.output_dir / "experiment_report.md").exists():
+            raise AssertionError("experiment: no report")
+        summary = results["experiment_summary"]
+        quality = summary["detection_quality"]
+        want_quality = {"target_nodes": [2], "detected_nodes": [2],
+                        "true_positives": [2], "false_positives": [],
+                        "missed": [], "precision": 1.0, "recall": 1.0}
+        got_quality = {k: quality[k] for k in want_quality}
+        if got_quality != want_quality or \
+                not 0 < quality["steps_to_detection"][2] <= 2:
+            raise AssertionError(f"experiment: detection quality {quality}")
+        if summary["total_steps"] != steps or \
+                loaded["experiment_summary"]["total_steps"] != steps:
+            raise AssertionError(f"experiment: {summary['total_steps']} "
+                                 "steps")
+        records = results["epoch_records"]
+        losses = [r["training_loss"] for r in records]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"experiment: losses {losses}")
+        plots = sorted(p.name for p in runner.output_dir.glob("*.png"))
+        emit({"phase": "experiment", "card": card,
+              "seconds": time.perf_counter() - t0,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                       "weights, random init seed 0)",
+              "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+              "seq_len": TRAIN_T, "steps": steps,
+              "validation_batches_per_epoch": val_batches,
+              "epoch_s": [r["epoch_time_s"] for r in records],
+              "samples_per_sec": [r["system_metrics"].get("samples_per_sec")
+                                  for r in records],
+              "device_memory_utilization": [
+                  r["system_metrics"].get("device_memory_utilization")
+                  for r in records],
+              "training_loss": losses,
+              "validation_loss": [r["validation_loss"] for r in records],
+              "trust_last": records[-1]["trust_scores"],
+              "detection_quality": quality, "plots": plots,
+              "launches": launches, "expected_launches": want,
+              "experiment_time_s": results["experiment_time_s"]})
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def io_rates(timings):
+    """Each checkpoint operation's bytes, seconds and GB/s."""
+    out = []
+    for t in timings:
+        row = dict(t)
+        for key in ("snapshot_s", "write_s", "crc_s", "read_s",
+                    "to_device_s", "s"):
+            if key in t and t[key] > 0:
+                row[key.replace("_s", "_gbps") if key != "s"
+                    else "gbps"] = t["bytes"] / t[key] / 1e9
+        out.append(row)
+    return out
+
+
+def survival_drive(torch, entries, card):
+    """Phase 8: the scripted chaos drill through the supervisor, then a
+    fall-back restore and two bit-equal restored steps."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.chaos import FaultEvent, FaultInjector, \
+        FaultKind, FaultPlan, corrupt_file
+    from trustworthy_dl_tpu_torch.chaos.injector import _largest_file
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.checkpoint import _leaves
+    from trustworthy_dl_tpu_torch.engine.supervisor import \
+        TrainingSupervisor
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    cfg = gpt2_small(torch)
+    plan = FaultPlan.scripted([FaultEvent(step=s, kind=FaultKind(k),
+                                          severity=v)
+                               for s, k, v in DRILL_SCRIPT])
+    ckpt_dir = tempfile.mkdtemp(prefix="tddl_survival_")
+    t0 = time.perf_counter()
+
+    def trainer():
+        config = TrainingConfig(
+            model_name="gpt2", batch_size=TRAIN_BATCH,
+            num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
+            remat=True, seed=0, checkpoint_interval=DRILL_INTERVAL,
+            checkpoint_dir=ckpt_dir, num_epochs=DRILL_EPOCHS)
+        tr = DistributedTrainer(config, model_overrides=dict(
+            seq_len=TRAIN_T, attn_impl="auto"), device="cuda")
+        tr.initialize()
+        return tr
+
+    try:
+        loader = get_dataloader(
+            "openwebtext", batch_size=TRAIN_BATCH, seq_len=TRAIN_T,
+            vocab_size=cfg.vocab_size,
+            num_examples=TRAIN_BATCH * DRILL_STEPS_PER_EPOCH, seed=2)
+        tr = trainer()
+        sup = TrainingSupervisor(
+            tr, max_retries=DRILL_RETRIES,
+            rollback_after=DRILL_ROLLBACK_AFTER,
+            max_restarts=DRILL_RESTARTS, chaos=FaultInjector(plan))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_drill = time.perf_counter()
+        result = sup.run(loader, num_epochs=DRILL_EPOCHS)
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t_drill
+        launches = ops.launch_counts()
+        report = result["supervisor"]
+        predicted = plan.predict(DRILL_RETRIES, DRILL_ROLLBACK_AFTER)
+        if {k: report[k] for k in predicted} != predicted:
+            raise AssertionError(f"survival: report {report}, plan "
+                                 f"predicts {predicted}")
+        if sum(report["faults_fired"].values()) != len(plan.events):
+            raise AssertionError(f"survival: fired {report['faults_fired']}")
+        if report["rollback_steps"] != [5]:
+            raise AssertionError(f"survival: rolled back to "
+                                 f"{report['rollback_steps']}")
+        if result["stats"]["training_state"] != "completed":
+            raise AssertionError(f"survival: {result['stats']}")
+        losses = [e["train_loss"] for e in result["epochs"]]
+        if not math.isfinite(losses[-1]) or not losses[-1] < losses[0]:
+            raise AssertionError(f"survival: epoch losses {losses}")
+        # Every accepted step ran once; each bad step once and once a
+        # retry; a preemption raises before its step runs.
+        executions = len(tr.batch_history) + report["bad_steps"] * (
+            1 + DRILL_RETRIES)
+        want = flash_b1_launches(cfg, executions, True)
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"survival: {name} launched "
+                                     f"{launches[name]} times, design says "
+                                     f"{n}")
+            entries[name]["launches_survival"] = n
+        drill_timings = io_rates(tr.checkpointer.timings)
+        ckpt_bytes = next(t["bytes"] for t in drill_timings
+                          if t["op"] == "save")
+        del tr, sup
+        torch.cuda.empty_cache()
+
+        # The newest checkpoint rots: a fresh trainer lands on the prior
+        # verified step, with params bit-equal to that step's files.
+        fresh = trainer()
+        mgr = fresh.checkpointer
+        mgr.timings.clear()
+        latest = mgr.latest_step()
+        corrupt_file(_largest_file(mgr.path_for(latest)))
+        fresh.load_checkpoint()
+        prior = fresh.global_step
+        if prior != mgr.latest_step() or not prior < latest:
+            raise AssertionError(f"survival: restored step {prior}, latest "
+                                 f"was {latest}")
+        saved = torch.load(os.path.join(mgr.path_for(prior), "params.pt"),
+                           weights_only=True)
+        live = {"/".join(k): v
+                for k, v in _leaves(fresh.state.params, ("params",))}
+        if saved.keys() != live.keys() or not all(
+                torch.equal(saved[k].to(v.device), v)
+                for k, v in live.items()):
+            raise AssertionError("survival: restored params differ from "
+                                 "the checkpoint's tensors")
+        batch = next(iter(loader))
+        per_node = []
+        for _ in range(2):
+            fresh.load_checkpoint(prior)
+            per_node.append(fresh.train_step(batch, 0)["per_node_loss"])
+        if per_node[0] != per_node[1] or not all(
+                math.isfinite(x) for x in per_node[0]):
+            raise AssertionError(f"survival: restored steps {per_node}")
+        restore_timings = io_rates(mgr.timings)
+        emit({"phase": "survival", "card": card,
+              "seconds": time.perf_counter() - t0, "drill_s": drill_s,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                       "weights, random init seed 0)",
+              "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+              "seq_len": TRAIN_T, "report": report, "predicted": predicted,
+              "epoch_losses": losses, "step_executions": executions,
+              "launches": launches, "expected_launches": want,
+              "checkpoint_bytes": ckpt_bytes,
+              "param_leaves": len(tree_leaves(fresh.state.params)),
+              "drill_io": drill_timings,
+              "corrupted_step": latest, "restored_step": prior,
+              "restored_per_node_loss": per_node[0],
+              "restore_io": restore_timings})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -2011,6 +2295,10 @@ def main() -> int:
     del on
     torch.cuda.empty_cache()
     train_fused_ce(torch, entries, smi)
+    torch.cuda.empty_cache()
+    experiment_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
+    survival_drive(torch, entries, smi)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,321 @@
+"""The port's experiment runner against the JAX package's on the CPU.
+
+One module-scoped run of each runner on ``tests/test_experiments.py``'s
+configuration (tiny GPT-2: 2 layers, 32 wide, 4 heads, vocab 128, T 16;
+4 nodes, 5 epochs of 8 steps, gradient poisoning of node 2 from epoch 2),
+the port's trainer given the JAX trainer's initial params
+(``models/convert``); the two loaders are the same bit for bit.  Both
+models compute in f32, where the training contract's tolerances are
+defined (bf16 products on the CPU round differently in XLA and in torch:
+the first epoch's loss already differs by 2.2e-5 there).
+
+Equal: the incidents (node, step, type), the reassignments' source and
+target, ``detection_quality``, each epoch's node statuses, the step count,
+the CSV header and ``PRESETS``.  Within the training contract's 1e-5:
+epoch and validation losses, each epoch's trust scores, each step's CSV
+loss and trust, the final system trust and the predicted reliability.
+The attacked node's gradient noise is each package's own draw (JAX's
+``jax.random``, the port's ``torch.Generator``), but node 2 is gated from
+its first attacked step and its poisoned leaf norms clamp its gradient
+consistency at 1, so its trust holds the same 1e-5.  Then the runner's
+own contract: the artifacts, the refusal
+of an unported preset, ``main`` with ``--device cpu``, and the
+``MetricsCollector`` and ``predict_reliability`` against the JAX
+package's on the same inputs.
+"""
+
+import copy
+import csv
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trustworthy_dl_tpu.core.config import ExperimentConfig as JConfig
+from trustworthy_dl_tpu.experiments.runner import PRESETS as JPRESETS
+from trustworthy_dl_tpu.experiments.runner import \
+    ExperimentRunner as JRunner
+from trustworthy_dl_tpu_torch.core.config import ExperimentConfig
+from trustworthy_dl_tpu_torch.experiments import PRESETS, \
+    ExperimentRunner, preset_config
+from trustworthy_dl_tpu_torch.models import convert
+
+pytestmark = pytest.mark.torchport
+
+TINY_GPT = dict(n_layer=2, n_embd=32, n_head=4, vocab_size=128,
+                n_positions=32, seq_len=16)
+TINY_DATA = dict(seq_len=16, vocab_size=128, num_examples=64)
+CONFIG = dict(
+    experiment_name="tiny_gpt_attack", model_name="gpt2",
+    dataset_name="openwebtext", num_nodes=4, num_epochs=5, batch_size=8,
+    learning_rate=3e-3, attack_enabled=True, attack_start_epoch=2,
+    attack_intensity=0.5, target_nodes=[2],
+    attack_types=["gradient_poisoning"], steps_per_epoch=8,
+)
+ATOL = 1e-5
+ATTACKED = 2
+
+
+def _first_batch(loader):
+    return next(iter(copy.deepcopy(loader)))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("exp")
+    jrunner = JRunner(JConfig(output_dir=str(root / "jax"), **CONFIG),
+                      model_overrides=dict(TINY_GPT, dtype=jnp.float32),
+                      data_overrides=dict(TINY_DATA))
+    jrunner.setup_experiment()
+    jparams = jax.tree_util.tree_map(np.asarray,
+                                     jax.device_get(jrunner.trainer.state
+                                                    .params))
+    jfirst = _first_batch(jrunner.train_loader)
+    jresults = jrunner.run_experiment()
+
+    runner = ExperimentRunner(
+        ExperimentConfig(output_dir=str(root / "port"), **CONFIG),
+        model_overrides=dict(TINY_GPT, dtype=torch.float32),
+        data_overrides=dict(TINY_DATA),
+        device="cpu")
+    runner.setup_experiment()
+    runner.trainer.initialize(params=convert.params_from_jax(jparams))
+    first = _first_batch(runner.train_loader)
+    results = runner.run_experiment()
+    return dict(jrunner=jrunner, jresults=jresults, jfirst=jfirst,
+                runner=runner, results=results, first=first)
+
+
+def _csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def test_same_data_and_decisions_as_jax(runs):
+    for key in ("input", "target"):
+        np.testing.assert_array_equal(runs["first"][key],
+                                      runs["jfirst"][key])
+    res, jres = runs["results"], runs["jresults"]
+
+    def incidents(history):
+        return [(r["node_id"], r["step"], r["attack_type"])
+                for r in history]
+
+    assert incidents(res["attack_history"]) == \
+        incidents(jres["attack_history"])
+    assert [r["node_id"] for r in res["attack_history"]] == [ATTACKED]
+    assert [(r["from_node"], r["to_node"])
+            for r in res["reassignment_history"]] == \
+        [(r["from_node"], r["to_node"]) for r in jres["reassignment_history"]]
+    summary, jsummary = res["experiment_summary"], jres["experiment_summary"]
+    assert summary["detection_quality"] == jsummary["detection_quality"]
+    assert summary["detection_quality"]["recall"] == 1.0
+    for key in ("total_steps", "total_epochs", "compromised_nodes",
+                "total_attacks_detected", "total_reassignments",
+                "total_evictions", "total_readmissions", "final_live_nodes",
+                "recovered_nodes"):
+        assert summary[key] == jsummary[key], key
+    assert summary["total_steps"] == 5 * 8
+    assert [r["node_statuses"] for r in res["epoch_records"]] == \
+        [r["node_statuses"] for r in jres["epoch_records"]]
+    assert res["obs_report"] is None
+
+
+def test_losses_and_trust_within_the_training_contract(runs):
+    res, jres = runs["results"], runs["jresults"]
+    recs, jrecs = res["epoch_records"], jres["epoch_records"]
+    assert len(recs) == len(jrecs) == 5
+    for rec, jrec in zip(recs, jrecs):
+        for key in ("training_loss", "validation_loss", "system_trust"):
+            assert abs(rec[key] - jrec[key]) <= ATOL, (key, rec["epoch"])
+        for node in range(4):
+            assert abs(rec["trust_scores"][node]
+                       - jrec["trust_scores"][node]) <= ATOL, (
+                node, rec["epoch"])
+    summary, jsummary = res["experiment_summary"], jres["experiment_summary"]
+    for key in ("final_system_trust", "average_loss", "final_loss"):
+        assert abs(summary[key] - jsummary[key]) <= ATOL, key
+    pred = res["training_stats"]["predicted_reliability"]
+    jpred = jres["training_stats"]["predicted_reliability"]
+    for node in range(4):
+        assert abs(pred[node] - jpred[node]) <= ATOL, node
+
+
+def test_csv_matches_jax_step_by_step(runs):
+    header, rows = _csv(runs["runner"].output_dir / "training_metrics.csv")
+    jheader, jrows = _csv(runs["jrunner"].output_dir /
+                          "training_metrics.csv")
+    assert header == jheader
+    assert [f"trust_node_{i}" for i in range(4)] == header[4:]
+    assert len(rows) == len(jrows) == 40
+    for row, jrow in zip(rows, jrows):
+        assert row[:2] == jrow[:2]                     # step, epoch
+        assert abs(float(row[2]) - float(jrow[2])) <= ATOL, row[0]
+        for node in range(4):
+            assert abs(float(row[4 + node]) - float(jrow[4 + node])) <= \
+                ATOL, (row[0], node)
+    assert float(rows[-1][4 + ATTACKED]) < 0.3
+
+
+def test_artifact_contract(runs):
+    runner = runs["runner"]
+    expected = ["experiment_results.json", "training_metrics.csv",
+                "experiment_report.md", "intermediate_epoch_4.json"]
+    try:
+        import matplotlib  # noqa: F401
+        expected += ["training_loss.png", "trust_evolution.png",
+                     "attack_impact.png", "system_metrics.png"]
+    except ImportError:
+        pass
+    for name in expected:
+        path = runner.output_dir / name
+        assert path.exists() and path.stat().st_size > 0, name
+    assert not (runner.output_dir / "obs").exists()
+    with open(runner.output_dir / "experiment_results.json") as f:
+        loaded = json.load(f)
+    assert loaded["experiment_config"]["experiment_name"] == \
+        "tiny_gpt_attack"
+    from trustworthy_dl_tpu_torch.obs.meta import RUN_METADATA_KEYS, \
+        run_metadata
+
+    assert set(RUN_METADATA_KEYS) <= set(loaded["run_metadata"])
+    assert loaded["run_metadata"]["torch_version"] == torch.__version__
+    assert loaded["run_metadata"]["platform"] == "cpu"
+    assert run_metadata(host_only=True)["platform"] == "unprobed"
+    assert loaded["experiment_summary"]["total_attacks_detected"] == 1
+    text = (runner.output_dir / "experiment_report.md").read_text()
+    assert "detection precision: 1.00 / recall: 1.00" in text
+    assert "tiny_gpt_attack" in text
+    # The CPU has no device memory to report; the card does.
+    assert "device_memory_utilization" not in \
+        runs["results"]["epoch_records"][-1]["system_metrics"]
+
+
+def test_presets_equal_jax_and_unported_ones_refuse(tmp_path):
+    assert PRESETS == JPRESETS
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExperimentRunner(preset_config("gpt2_medium_reassignment",
+                                       output_dir=str(tmp_path)))
+    for name in ("resnet32_cifar10_clean", "vgg16_cifar10_poisoning",
+                 "resnet101_byzantine"):
+        runner = ExperimentRunner(preset_config(
+            name, num_epochs=1, output_dir=str(tmp_path)), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            runner.setup_experiment()
+    for name, item in (("gpt2_small_pipeline_clean", "parallel/"),
+                       ("gpt2_transient_recovery", "elastic/")):
+        runner = ExperimentRunner(preset_config(
+            name, output_dir=str(tmp_path)), device="cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            runner.setup_experiment()
+    cfg = preset_config("gpt2_medium_reassignment", num_epochs=1)
+    assert cfg.model_name == "gpt2-medium" and cfg.attack_enabled
+
+
+def test_main_runs_on_the_cpu(tmp_path, capsys):
+    from trustworthy_dl_tpu_torch.cli import main as cli_main
+    from trustworthy_dl_tpu_torch.experiments.runner import main
+
+    rc = main(["--name", "cli_smoke", "--nodes", "4", "--epochs", "1",
+               "--batch-size", "8", "--steps-per-epoch", "4", "--attack",
+               "--output-dir", str(tmp_path), "--device", "cpu"],
+              model_overrides=dict(TINY_GPT), data_overrides=dict(
+                  seq_len=16, vocab_size=128))
+    assert rc == 0
+    out = tmp_path / "cli_smoke"
+    assert (out / "experiment_results.json").exists()
+    assert (out / "experiment_report.md").exists()
+    assert "Experiment completed: cli_smoke" in capsys.readouterr().out
+    for flag in ("--envelope", "--serve-envelope"):
+        with pytest.raises(SystemExit):
+            cli_main(["experiment", flag])
+        assert "not ported yet" in capsys.readouterr().err
+
+
+def test_load_experiment_config_reads_the_readme_schema(tmp_path):
+    from trustworthy_dl_tpu.core.config import \
+        load_experiment_config as jload
+    from trustworthy_dl_tpu_torch.core.config import load_experiment_config
+
+    path = tmp_path / "exp.json"
+    path.write_text(json.dumps({
+        "model": {"name": "gpt2", "size": "medium"},
+        "training": {"batch_size": 16, "num_epochs": 3},
+        "distributed": {"num_nodes": 8},
+        "security": {"trust_threshold": 0.6},
+        "attack_intensity": 0.9, "unknown_key": 1}))
+    mine = load_experiment_config(str(path), steps_per_epoch=7,
+                                  experiment_name=None)
+    ref = jload(str(path), steps_per_epoch=7, experiment_name=None)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.model_name == "gpt2-medium" and mine.num_nodes == 8
+    assert dataclasses.asdict(mine.to_training_config()).items() >= {
+        "num_nodes": 8, "trust_threshold": 0.6, "batch_size": 16}.items()
+
+
+def test_metrics_collector_matches_jax():
+    from trustworthy_dl_tpu.obs.registry import MetricsRegistry
+    from trustworthy_dl_tpu.utils.metrics import \
+        MetricsCollector as JCollector
+    from trustworthy_dl_tpu_torch.utils.metrics import MetricsCollector
+
+    rng = np.random.default_rng(0)
+    mine, ref = MetricsCollector(max_records=5), JCollector(
+        max_records=5, registry=MetricsRegistry())
+    for c in (mine, ref):
+        assert c.get_summary() == {"num_batches": 0, "num_epochs": 0}
+        assert c.step_time_stats() == {}
+    for step in range(8):
+        record = {"loss": float(rng.random()), "step": step, "epoch": 0,
+                  "timestamp": float(step),
+                  "trust_scores": {i: float(rng.random()) for i in range(4)}}
+        mine.collect_batch_metrics(record)
+        ref.collect_batch_metrics(record)
+    mine.collect_epoch_metrics({"epoch": 0, "avg_loss": 1.0,
+                                "timestamp": 1.0})
+    ref.collect_epoch_metrics({"epoch": 0, "avg_loss": 1.0,
+                               "timestamp": 1.0})
+    assert mine.batch_metrics == ref.batch_metrics
+    assert len(mine.batch_metrics) == 5
+    assert mine.epoch_metrics == ref.epoch_metrics
+    assert mine.get_summary() == ref.get_summary()
+    times = [0.5, 0.25, 1.0, 0.125]
+    for c in (mine, ref):
+        c._step_times.extend(times)
+    assert mine.step_time_stats() == ref.step_time_stats()
+    assert mine.get_summary() == ref.get_summary()
+    for c in (mine, ref):
+        c.tick()
+        c.tick()
+        c.flush()
+        c.close()
+        c.reset()
+        assert c.get_summary() == {"num_batches": 0, "num_epochs": 0}
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_predict_reliability_matches_jax(seed):
+    from trustworthy_dl_tpu.trust.state import \
+        predict_reliability as jpredict
+    from trustworthy_dl_tpu_torch.trust.state import predict_reliability
+
+    rng = np.random.default_rng(seed)
+    n, window = 7, 10
+    counts = rng.integers(1, window + 1, n)
+    counts[0], counts[1] = 4, 5           # either side of the trend floor
+    hist = np.zeros((n, window), np.float32)
+    for i, c in enumerate(counts):
+        hist[i, window - c:] = np.clip(
+            rng.random() + np.cumsum(rng.normal(0, 0.1, c)), 0, 1)
+    for horizon in (1, 10):
+        want = np.asarray(jpredict(jnp.asarray(hist), jnp.asarray(counts),
+                                   horizon=horizon))
+        got = predict_reliability(torch.from_numpy(hist),
+                                  torch.from_numpy(counts),
+                                  horizon=horizon).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)

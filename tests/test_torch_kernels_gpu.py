@@ -12,7 +12,9 @@ B6-int8's head width, a bf16-pool engine past B5's and an f32 engine past
 the CUDA-core kernel's shared memory refused at construction, a bf16
 engine at 128-position blocks serving).  Also the vocab-chunked fused
 head's card route (``ops/fused_ce.py``: bf16 operands, f32-accumulated
-library products) against the same head on the CPU.
+library products) against the same head on the CPU; NaN params (the chaos
+drill's GRAD_NAN) through B1-B3 tripping the supervisor's guard as on the
+CPU; and a checkpoint of a card trainer restored bit-exactly.
 
 These need an NVIDIA card and skip without one.  Run them there with
 ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q``
@@ -1206,3 +1208,89 @@ def test_fused_head_on_the_card_matches_the_cpu(cuda, chunk):
             g_cpu.abs().max())
     assert abs(card[3] - cpu[3]) <= 1e-5 * abs(cpu[3])
     assert card[4] == cpu[4]
+
+
+_CARD_GPT = dict(n_layer=2, n_embd=64, n_head=4, vocab_size=128,
+                 n_positions=64, seq_len=64, attn_impl="flash")
+
+
+def _card_trainer(device, ckpt_dir="checkpoints"):
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+
+    config = TrainingConfig(model_name="gpt2", batch_size=8, num_nodes=4,
+                            learning_rate=3e-3, detector_warmup=2,
+                            checkpoint_dir=str(ckpt_dir))
+    return DistributedTrainer(config, model_overrides=dict(_CARD_GPT),
+                              device=device)
+
+
+def _card_batches(n):
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+
+    return list(get_dataloader("openwebtext", batch_size=8, seq_len=64,
+                               vocab_size=128, num_examples=8 * n))
+
+
+def test_nan_params_trip_the_guard_through_b1_b3(cuda):
+    """NaN state (the drill's GRAD_NAN) through B1-B3 on the card: the
+    step reports no finite node and the supervisor's guard rejects it, as
+    the plain twins do on the CPU from the same params and batch."""
+    from trustworthy_dl_tpu_torch.chaos.injector import \
+        _corrupt_largest_leaf
+    from trustworthy_dl_tpu_torch.engine.supervisor import \
+        TrainingSupervisor
+    from trustworthy_dl_tpu_torch.ops import launch_counts
+
+    batch = _card_batches(1)[0]
+    verdicts = {}
+    card = _card_trainer(cuda)
+    card.initialize()
+    params = {k: v for k, v in card.state.params.items()}
+    for name, tr in (("cuda", card), ("cpu", _card_trainer("cpu"))):
+        if name == "cpu":
+            from trustworthy_dl_tpu_torch.utils.tree import map_tree
+
+            tr.initialize(params=map_tree(lambda a: a.cpu(), params))
+        tr.state = tr.state._replace(
+            params=_corrupt_largest_leaf(tr.state.params))
+        before = launch_counts()
+        tr.state, metrics = tr._train_step(tr.state, tr._node_batch(batch),
+                                           tr.attack_plan)
+        after = launch_counts()
+        verdicts[name] = (metrics.finite.cpu().tolist(),
+                          TrainingSupervisor._is_bad(metrics))
+        if name == "cuda":
+            for kernel in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "fused_moments"):
+                assert after[kernel] > before[kernel], kernel
+    assert verdicts["cuda"] == verdicts["cpu"] == ([False] * 4, True)
+
+
+def test_checkpoint_round_trip_on_the_card_is_bit_exact(cuda, tmp_path):
+    """A ``block=False`` save on the card is a host snapshot: the step
+    taken while it is written does not reach it.  A fresh trainer restored
+    from it (params, optimizer, trust, the card's generator) takes the
+    same next step bit for bit."""
+    batches = _card_batches(4)
+    a = _card_trainer(cuda, tmp_path / "ck")
+    a.initialize()
+    for b in batches[:2]:
+        a.train_step(b, 0)
+    a.checkpointer.save(a.state, a.global_step, block=False)
+    want = a.train_step(batches[2], 0)
+    a.checkpointer.wait()
+    restored = _card_trainer(cuda, tmp_path / "ck")
+    restored.load_checkpoint()
+    assert restored.global_step == 2
+    assert restored.state.rng.device.type == "cuda"
+    got = restored.train_step(batches[2], 0)
+    assert got["per_node_loss"] == want["per_node_loss"]
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    for x, y in zip(tree_leaves(restored.state.params),
+                    tree_leaves(a.state.params)):
+        assert torch.equal(x, y)
+    assert torch.equal(torch.rand(3, device=cuda, generator=a.state.rng),
+                       torch.rand(3, device=cuda,
+                                  generator=restored.state.rng))

@@ -1,7 +1,7 @@
-"""The port imports neither JAX nor the JAX package: checked in a fresh
-process by importing every module of ``trustworthy_dl_tpu_torch`` and
-reading ``sys.modules``, and statically by walking every module's imports
-(``chip_smoke.py`` included)."""
+"""The port imports neither JAX, orbax nor the JAX package: checked in a
+fresh process by importing every module of ``trustworthy_dl_tpu_torch``
+and reading ``sys.modules``, and statically by walking every module's
+imports (``chip_smoke.py`` included)."""
 
 import ast
 import subprocess
@@ -13,7 +13,7 @@ import pytest
 pytestmark = pytest.mark.torchport
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "trustworthy_dl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "trustworthy_dl_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -26,7 +26,7 @@ def test_importing_the_port_loads_no_jax():
         "import trustworthy_dl_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "roots = ('jax', 'jaxlib', 'trustworthy_dl_tpu')\n"
+        "roots = ('jax', 'jaxlib', 'orbax', 'trustworthy_dl_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules\n"

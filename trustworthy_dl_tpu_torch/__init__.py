@@ -3,7 +3,8 @@
 The port mirrors the JAX package's module paths.  It imports ``torch`` and
 numpy only, never ``jax`` nor ``trustworthy_dl_tpu``.  Its entry points
 (``serve.ServingEngine``, ``engine.trainer.DistributedTrainer``,
-``cli.serve_main``, ``cli.train_main``) run on the card by default and
+``experiments.ExperimentRunner``, ``cli.serve_main``, ``cli.train_main``,
+``experiments.main``) run on the card by default and
 take ``device="cpu"`` only when the caller asks for it; on the CPU each
 kernel wrapper runs its plain PyTorch version.
 
@@ -15,7 +16,12 @@ forward and backward (``ops/flash_attention.py``).  The rest of the
 single-GPU training path adds the vocab-chunked fused head
 (``ops/fused_ce.py``: library products, no kernel of its own), gradient
 accumulation, the attention remat policy, evaluation, the trainer's
-bookkeeping and Adafactor.
+bookkeeping and Adafactor.  Durable training adds verified checkpoints
+(``engine/checkpoint.py``, a format of the port's own), seeded fault
+injection (``chaos/``) and the self-healing supervisor
+(``engine/supervisor.py``); the experiment runner
+(``experiments/runner.py``) drives the trainer end to end and writes its
+artifacts.
 """
 
 __version__ = "0.2.0"

@@ -231,6 +231,10 @@ class AdversarialAttacker:
         stats["total_attack_steps"] = len(self._steps_attacked)
         return stats
 
+    def cleanup(self) -> None:
+        self._active = False
+        logger.info("AdversarialAttacker cleanup completed")
+
 
 __all__ = ["ATTACK_KINDS", "AdversarialAttacker", "AttackPlan",
            "null_plan", "plan_from_config", "poison_batch",

@@ -1,0 +1,182 @@
+"""Fault injector: executes a ``FaultPlan`` at explicit hook points.
+
+Counterpart of the training and checkpoint half of
+``trustworthy_dl_tpu/chaos/injector.py``.  Hook points, all on the host:
+
+* ``DistributedTrainer.train_epoch``: :meth:`FaultInjector.on_batch`
+  (data-iterator failures), :meth:`~FaultInjector.on_step_start` (stalls,
+  preemption signals), :meth:`~FaultInjector.on_step_end` (state
+  corruption, so every later loss is genuinely non-finite);
+* ``CheckpointManager``: :meth:`~FaultInjector.on_checkpoint_commit`
+  (crash before the COMMIT marker), :meth:`~FaultInjector.on_checkpoint_saved`
+  (bit-rot of a committed payload).
+
+Each event fires exactly once (``fired``), so when the supervisor rolls
+global steps back past a fired event the replayed steps run clean.
+``counts()`` reports fired events by kind for the supervisor's report.
+The serving and fleet hooks wait for the port's serving fleet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from trustworthy_dl_tpu_torch.chaos.plan import FaultEvent, FaultKind, \
+    FaultPlan
+from trustworthy_dl_tpu_torch.utils.tree import tree_leaves, \
+    tree_unflatten
+
+logger = logging.getLogger(__name__)
+
+
+class SimulatedPreemption(Exception):
+    """Raised at a PREEMPT event's hook point, standing in for the
+    termination notice a preemptible host receives.  The supervisor
+    catches it, checkpoints and resumes."""
+
+
+class FaultInjector:
+    """Consumes a :class:`FaultPlan`; one instance per run.  ``sleep_fn``
+    is injectable so tests run STALL events without wall-clock cost;
+    ``max_stall_s`` caps a stall."""
+
+    def __init__(self, plan: FaultPlan,
+                 sleep_fn: Callable[[float], None] = time.sleep,
+                 max_stall_s: float = 30.0):
+        self.plan = plan
+        self._sleep = sleep_fn
+        self._max_stall_s = max_stall_s
+        self.fired: List[FaultEvent] = []
+
+    # -- bookkeeping -------------------------------------------------------
+
+    def _take_at(self, step: int, kind: FaultKind) -> Optional[FaultEvent]:
+        """Fire-once event scheduled exactly at ``step``."""
+        for event in self.plan.at(step, kind):
+            if event not in self.fired:
+                self.fired.append(event)
+                return event
+        return None
+
+    def _take_due(self, step: int, kind: FaultKind) -> Optional[FaultEvent]:
+        """Fire-once event whose schedule step has been reached (the
+        checkpoint kinds fire on the first save at or after it)."""
+        for event in self.plan.of_kind(kind):
+            if event.step <= step and event not in self.fired:
+                self.fired.append(event)
+                return event
+        return None
+
+    def counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for event in self.fired:
+            out[event.kind.value] = out.get(event.kind.value, 0) + 1
+        return out
+
+    # -- trainer hooks -----------------------------------------------------
+
+    def on_batch(self, step: int, batch: Any) -> Optional[Any]:
+        """DATA_LOSS: the batch for this step is lost; None makes the
+        trainer skip it without counting a step."""
+        if self._take_at(step, FaultKind.DATA_LOSS) is not None:
+            logger.warning("chaos: data-iterator failure at step %d "
+                           "(batch dropped)", step)
+            return None
+        return batch
+
+    def on_step_start(self, step: int) -> None:
+        """STALL: block the host like a straggling peer (capped).
+        PREEMPT: raise the simulated preemption signal."""
+        stall = self._take_at(step, FaultKind.STALL)
+        if stall is not None:
+            seconds = min(float(stall.severity), self._max_stall_s)
+            logger.warning("chaos: host stall %.2fs at step %d", seconds,
+                           step)
+            self._sleep(seconds)
+        if self._take_at(step, FaultKind.PREEMPT) is not None:
+            logger.warning("chaos: simulated preemption at step %d", step)
+            raise SimulatedPreemption(f"preempted at step {step}")
+
+    def on_step_end(self, step: int, state: Any, metrics: Any
+                    ) -> Tuple[Any, Any]:
+        """GRAD_NAN: NaN the largest parameter leaf after this step
+        commits, so every later step's gradients are non-finite and the
+        in-step gate freezes the params: only a rollback recovers."""
+        if self._take_at(step, FaultKind.GRAD_NAN) is not None:
+            logger.warning("chaos: corrupting params with NaN after "
+                           "step %d", step)
+            state = state._replace(params=_corrupt_largest_leaf(state.params))
+        return state, metrics
+
+    # -- checkpoint hooks --------------------------------------------------
+
+    def on_checkpoint_commit(self, step: int) -> bool:
+        """CKPT_CRASH: False simulates dying between the payload write and
+        the COMMIT marker; the save stays uncommitted."""
+        if self._take_due(step, FaultKind.CKPT_CRASH) is not None:
+            logger.warning("chaos: simulated crash before COMMIT of "
+                           "checkpoint step %d", step)
+            return False
+        return True
+
+    def on_checkpoint_saved(self, step: int, path: str) -> None:
+        """CKPT_CORRUPT: flip bytes in the committed payload's largest
+        file, so its manifest checksum no longer matches."""
+        if self._take_due(step, FaultKind.CKPT_CORRUPT) is None:
+            return
+        target = _largest_file(path)
+        if target is None:
+            logger.warning("chaos: no payload file to corrupt in %s", path)
+            return
+        logger.warning("chaos: corrupting checkpoint file %s (step %d)",
+                       target, step)
+        corrupt_file(target)
+
+
+def _corrupt_largest_leaf(params: Any) -> Any:
+    """NaN-out the largest parameter leaf of a nested dict (GPT-2's tied
+    embedding and head, on every step's path).  Leaves are taken in
+    ``tree_leaves`` order and the first of equal sizes wins, as
+    ``np.argmax`` picks it in the JAX package.  A new tensor replaces the
+    leaf; the old one is not written."""
+    leaves = tree_leaves(params)
+    idx = int(np.argmax([leaf.numel() for leaf in leaves]))
+    leaves[idx] = leaves[idx] * float("nan")
+    return tree_unflatten(params, leaves)
+
+
+def _largest_file(root: str) -> Optional[str]:
+    best, best_size = None, -1
+    for dirpath, _, names in os.walk(root):
+        for name in sorted(names):
+            p = os.path.join(dirpath, name)
+            size = os.path.getsize(p)
+            if size > best_size:
+                best, best_size = p, size
+    return best
+
+
+def corrupt_file(path: str, offset: int = 0, nbytes: int = 64) -> None:
+    """Flip bytes in place (XOR 0xFF): deterministic, size-preserving
+    corruption that a checksum catches and a directory listing does
+    not."""
+    size = os.path.getsize(path)
+    if size == 0:
+        with open(path, "wb") as f:
+            f.write(b"\xff")
+        return
+    offset = min(offset, size - 1)
+    nbytes = min(nbytes, size - offset)
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        chunk = f.read(nbytes)
+        f.seek(offset)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+
+
+__all__ = ["FaultInjector", "SimulatedPreemption", "corrupt_file"]

@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m trustworthy_dl_tpu_torch.cli
-serve|train``.
+serve|train|experiment``.
 
 ``serve`` is the counterpart of ``trustworthy-dl-serve``
 (``trustworthy_dl_tpu/cli.py:serve_main``) with the flags the port
@@ -9,7 +9,11 @@ workload and prints the serving metrics.  ``train`` is the counterpart of
 ``trustworthy-dl-train`` (``trustworthy_dl_tpu/cli.py:main``) on its
 data-parallel path: trusted training of GPT-2 over ``--nodes`` logical
 nodes on the synthetic LM source, validated each epoch on the source's
-validation split, printing the run's statistics.  Both run on the card
+validation split, printing the run's statistics; it checkpoints under
+``--checkpoint-dir`` (and at the end), resumes with ``--resume``, and
+with ``--supervise`` (or ``--chaos-seed``, a seeded fault plan) runs
+under the self-healing supervisor.  ``experiment`` forwards to the
+experiment runner (``experiments/runner.main``).  All run on the card
 unless ``--device cpu`` is given.
 """
 
@@ -189,6 +193,32 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="cpu runs every kernel's plain PyTorch version")
+    parser.add_argument("--checkpoint-dir", type=str, default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="restore the latest checkpoint before training")
+    # The self-healing supervisor (engine/supervisor.py) and chaos drills.
+    parser.add_argument("--supervise", action="store_true",
+                        help="wrap training in the self-healing supervisor: "
+                             "non-finite step guard, bounded retries, "
+                             "verified-checkpoint rollback, SIGTERM "
+                             "save-on-signal and capped auto-resume")
+    parser.add_argument("--max-retries", type=int, default=2,
+                        help="per-step retry budget before a step counts "
+                             "as bad (supervisor)")
+    parser.add_argument("--rollback-after", type=int, default=3,
+                        help="consecutive bad steps before rolling back to "
+                             "the last verified checkpoint (supervisor)")
+    parser.add_argument("--max-restarts", type=int, default=3,
+                        help="auto-resume budget after preemptions "
+                             "(supervisor)")
+    parser.add_argument("--chaos-seed", type=int, default=None,
+                        help="run under a seeded chaos fault plan (implies "
+                             "--supervise): non-finite state, stalls, lost "
+                             "batches, preemptions, checkpoint crashes and "
+                             "corruption (chaos/plan.py)")
+    parser.add_argument("--chaos-rate", type=float, default=0.02,
+                        help="per-step probability of each drill fault "
+                             "kind under --chaos-seed")
     return parser
 
 
@@ -205,13 +235,18 @@ def train_main(argv: Optional[List[str]] = None,
         model_name=args.model, num_nodes=args.nodes,
         num_epochs=args.epochs, batch_size=args.batch_size,
         learning_rate=args.learning_rate, remat=args.remat, seed=args.seed,
-        attack_detection_enabled=not args.no_detection)
+        attack_detection_enabled=not args.no_detection,
+        **({"checkpoint_dir": args.checkpoint_dir}
+           if args.checkpoint_dir else {}))
     overrides = {"seq_len": args.seq_len, **(model_overrides or {})}
     trainer = DistributedTrainer(config, model_overrides=overrides,
                                  device=args.device)
     trainer.initialize()
     print(f"training {args.model} from random init (seed {args.seed}) on "
           f"{trainer.device} over {args.nodes} node(s)")
+    if args.resume:
+        trainer.load_checkpoint()
+        print(f"resumed from checkpoint step {trainer.global_step}")
     num_examples = args.batch_size * args.steps_per_epoch
     vocab = trainer.model.config.vocab_size
     train_dl = get_dataloader(
@@ -223,7 +258,40 @@ def train_main(argv: Optional[List[str]] = None,
         seq_len=args.seq_len, vocab_size=vocab,
         num_examples=max(num_examples // 10, args.batch_size),
         seed=args.seed)
-    result = trainer.train(train_dl, val_dl)
+    if args.supervise or args.chaos_seed is not None:
+        from trustworthy_dl_tpu_torch.chaos import FaultInjector, \
+            FaultKind, FaultPlan
+        from trustworthy_dl_tpu_torch.engine.supervisor import \
+            TrainingSupervisor
+
+        injector = None
+        max_restarts = args.max_restarts
+        if args.chaos_seed is not None:
+            horizon = args.steps_per_epoch * config.num_epochs
+            rate = args.chaos_rate
+            plan = FaultPlan.generate(args.chaos_seed, horizon, {
+                FaultKind.GRAD_NAN: rate,
+                FaultKind.DATA_LOSS: rate,
+                FaultKind.STALL: rate,
+                FaultKind.PREEMPT: rate / 4,
+                FaultKind.CKPT_CRASH: rate / 4,
+                FaultKind.CKPT_CORRUPT: rate / 4,
+            }, severity=0.05)
+            injector = FaultInjector(plan)
+            # Every planned preemption costs a restart; keep the budget
+            # above the plan so the drill exercises resume, not give-up.
+            max_restarts = max(max_restarts,
+                               plan.count(FaultKind.PREEMPT) + 1)
+            print(f"chaos drill: seed {args.chaos_seed}, "
+                  f"{len(plan.events)} fault(s) over {horizon} steps")
+        supervisor = TrainingSupervisor(
+            trainer, max_retries=args.max_retries,
+            rollback_after=args.rollback_after, max_restarts=max_restarts,
+            chaos=injector, handle_signals=True)
+        result = supervisor.run(train_dl, val_dl)
+        print(f"supervisor report: {result['supervisor']}")
+    else:
+        result = trainer.train(train_dl, val_dl)
     stats = result["stats"]
     for record in result["epochs"]:
         print(f"  epoch {record['epoch']}: train_loss "
@@ -232,17 +300,28 @@ def train_main(argv: Optional[List[str]] = None,
     print(f"Training completed: {stats['global_step']} steps, final state "
           f"{stats['training_state']}, attacks recorded "
           f"{stats['attack_count']}")
+    trainer.save_checkpoint()
+    trainer.cleanup()
     return 0
 
 
-COMMANDS = {"serve": serve_main, "train": train_main}
+def experiment_main(argv: Optional[List[str]] = None) -> int:
+    """Entry point of ``experiment``: the experiment runner's command
+    line."""
+    from trustworthy_dl_tpu_torch.experiments.runner import main as run_main
+
+    return run_main(argv)
+
+
+COMMANDS = {"serve": serve_main, "train": train_main,
+            "experiment": experiment_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in COMMANDS:
-        print("usage: python -m trustworthy_dl_tpu_torch.cli serve|train "
-              "[--help | options]", file=sys.stderr)
+        print("usage: python -m trustworthy_dl_tpu_torch.cli "
+              "serve|train|experiment [--help | options]", file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])
 

@@ -9,22 +9,34 @@ parallelism are not ported yet).  ``TrainingConfig`` covers the trusted
 data-parallel step on one device, gradient accumulation, both remat
 policies, the vocab-chunked fused head, the optimizers (AdamW, Adam, SGD,
 Adafactor, a reduced-precision first moment) and the migration-time
-model: its defaults are the JAX package's (``weight_decay`` 0.0,
-``detector_warmup`` 10, ``recovery_probation_steps`` 25, ...).  The
-pipeline, tensor, sequence and expert modes, the async host pipeline,
-checkpointing and the ML tier are not ported yet, so their knobs are
-absent; so are ``exact_order_stats`` and ``dtype``, whose only reader in
-the JAX package is the ML tier's host detector.
+model, checkpointing (``checkpoint_interval``, ``checkpoint_dir``,
+``async_checkpoint``) and TensorBoard export: its defaults are the JAX
+package's (``weight_decay`` 0.0, ``detector_warmup`` 10,
+``recovery_probation_steps`` 25, ``checkpoint_interval`` 100, ...).
+``parallelism``, ``num_microbatches``, ``elastic_resharding`` and
+``readmit_after_steps`` are carried with the JAX defaults so that
+:class:`ExperimentConfig` forwards them; ``DistributedTrainer`` refuses a
+value that asks for a mode not ported yet (the pipeline, tensor, sequence
+and expert modes, elastic eviction and readmission).  The async host
+pipeline and the ML tier are not ported yet, so their knobs are absent;
+so are ``exact_order_stats`` and ``dtype``, whose only reader in the JAX
+package is the ML tier's host detector.  :func:`load_experiment_config`
+reads an :class:`ExperimentConfig` from a YAML or JSON file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 from trustworthy_dl_tpu_torch.models.generate import ATTN_IMPLS
 from trustworthy_dl_tpu_torch.quant.int8 import validate_dtypes
 from trustworthy_dl_tpu_torch.serve.kv_slots import validate_paged_geometry
+
+#: The JAX package's parallelism modes; the port trains "data" only.
+PARALLELISM_MODES = ("data", "model", "tensor", "sequence", "expert",
+                     "hybrid")
 
 #: Largest accepted ``ServeConfig.spec_k``: the draft depth; acceptance
 #: past a handful of tokens decays geometrically.
@@ -157,6 +169,12 @@ class TrainingConfig:
     trust_threshold: float = 0.7
     attack_detection_enabled: bool = True
     gradient_verification_enabled: bool = True
+    checkpoint_interval: int = 100
+    max_reassignment_attempts: int = 3
+    # One of PARALLELISM_MODES; the trainer takes "data" only.
+    parallelism: str = "data"
+    # Pipeline schedule depth (the "model" mode, not ported); 0 = auto.
+    num_microbatches: int = 0
     # Sequential microbatches per node inside the step; gradients, loss
     # and mean logits average over them.  Batches trim to a multiple of
     # num_nodes x grad_accum_steps.
@@ -180,8 +198,18 @@ class TrainingConfig:
     # Storage dtype of the first moment (adamw/adam) or momentum trace
     # (sgd), e.g. "bfloat16"; None keeps f32.
     moment_dtype: Optional[str] = None
+    checkpoint_dir: str = "checkpoints"
+    # save() returns after the host snapshot; the write runs on a
+    # background thread and commits at the next join point.
+    async_checkpoint: bool = False
+    # TensorBoard event files of the batch and epoch metrics.
+    tensorboard_dir: Optional[str] = None
     # Transfer rate of the migration-time model, GiB/s.
     migration_gbps: float = 1.0
+    # Elastic eviction and readmission (not ported: the trainer refuses
+    # True and > 0).
+    elastic_resharding: bool = False
+    readmit_after_steps: int = 0
     weight_decay: float = 0.0
     grad_clip_norm: float = 0.0        # 0 disables
     lr_schedule: str = "constant"      # constant | cosine | linear
@@ -194,6 +222,10 @@ class TrainingConfig:
     trust_alpha: float = 0.1
 
     def __post_init__(self) -> None:
+        if self.parallelism not in PARALLELISM_MODES:
+            raise ValueError(
+                f"parallelism must be one of {PARALLELISM_MODES}, "
+                f"got {self.parallelism!r}")
         if self.remat_policy not in ("block", "attention"):
             raise ValueError(
                 "remat_policy must be 'block' or 'attention', "
@@ -203,6 +235,58 @@ class TrainingConfig:
                              f"{self.grad_accum_steps}")
         if self.num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {self.num_nodes}")
+
+
+@dataclass
+class ExperimentConfig:
+    """One experiment of the runner (the JAX package's
+    ``ExperimentConfig``, field for field)."""
+
+    experiment_name: str
+    model_name: str = "gpt2"
+    dataset_name: str = "openwebtext"
+    num_nodes: int = 4
+    num_epochs: int = 10
+    batch_size: int = 32
+    learning_rate: float = 5e-5
+    attack_enabled: bool = True
+    attack_start_epoch: int = 2
+    # Transient attacks: injection stops from this epoch on (None =
+    # sustained for the rest of the run).
+    attack_end_epoch: Optional[int] = None
+    attack_intensity: float = 0.5
+    trust_threshold: float = 0.7
+    save_interval: int = 100
+    output_dir: str = "results"
+    parallelism: str = "data"
+    steps_per_epoch: int = 50
+    seed: int = 0
+    attack_types: List[str] = field(
+        default_factory=lambda: ["gradient_poisoning", "data_poisoning"])
+    target_nodes: List[int] = field(default_factory=lambda: [1, 3])
+    num_microbatches: int = 0
+    elastic_resharding: bool = False
+    readmit_after_steps: int = 0
+    recovery_probation_steps: int = 25
+
+    def to_training_config(self) -> TrainingConfig:
+        """The trainer's configuration, built as the JAX runner builds
+        it."""
+        return TrainingConfig(
+            model_name=self.model_name,
+            dataset_name=self.dataset_name,
+            batch_size=self.batch_size,
+            learning_rate=self.learning_rate,
+            num_epochs=self.num_epochs,
+            num_nodes=self.num_nodes,
+            trust_threshold=self.trust_threshold,
+            parallelism=self.parallelism,
+            num_microbatches=self.num_microbatches,
+            seed=self.seed,
+            elastic_resharding=self.elastic_resharding,
+            readmit_after_steps=self.readmit_after_steps,
+            recovery_probation_steps=self.recovery_probation_steps,
+        )
 
 
 @dataclass
@@ -231,3 +315,89 @@ class AttackConfig:
     seed: int = 0
     intensity_ramp: float = 0.0
     collude: bool = False
+
+
+_MODEL_SIZE_SUFFIX = {"small": "", "medium": "-medium", "large": "-large",
+                      "xl": "-xl"}
+
+
+def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
+    """Flatten the README schema's nested mapping (model / training /
+    distributed / security sections) into TrainingConfig keyword
+    arguments; flat TrainingConfig field names pass straight through."""
+    out: Dict[str, Any] = {}
+    model = raw.get("model", {})
+    if isinstance(model, dict):
+        name = model.get("name")
+        if name:
+            size = str(model.get("size", "")).lower()
+            suffix = _MODEL_SIZE_SUFFIX.get(size, "")
+            out["model_name"] = (f"{name}{suffix}" if name.startswith("gpt")
+                                 else name)
+    training = raw.get("training", {})
+    if isinstance(training, dict):
+        for key in ("batch_size", "learning_rate", "num_epochs",
+                    "lr_schedule", "warmup_steps", "lr_decay_steps",
+                    "min_lr_ratio", "optimizer", "weight_decay",
+                    "grad_clip_norm"):
+            if key in training:
+                out[key] = training[key]
+    distributed = raw.get("distributed", {})
+    if isinstance(distributed, dict):
+        for key in ("num_nodes", "parallelism", "num_microbatches"):
+            if key in distributed:
+                out[key] = distributed[key]
+    security = raw.get("security", {})
+    if isinstance(security, dict):
+        if "trust_threshold" in security:
+            out["trust_threshold"] = security["trust_threshold"]
+        if "attack_detection" in security:
+            out["attack_detection_enabled"] = bool(
+                security["attack_detection"])
+        if "gradient_verification" in security:
+            out["gradient_verification_enabled"] = bool(
+                security["gradient_verification"])
+    if "dataset" in raw:
+        out["dataset_name"] = raw["dataset"]
+    valid = {f.name for f in dataclasses.fields(TrainingConfig)}
+    for key, value in raw.items():
+        if key in valid:
+            out[key] = value
+    return out
+
+
+def _load_mapping(path: str) -> Dict[str, Any]:
+    """Parse a YAML (or, without pyyaml, JSON) config file to a mapping."""
+    import json
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        import yaml  # type: ignore
+
+        raw = yaml.safe_load(text)
+    except ImportError:
+        try:
+            raw = json.loads(text)
+        except json.JSONDecodeError as e:
+            raise RuntimeError(
+                f"pyyaml unavailable and {path} is not JSON: {e}") from e
+    if not isinstance(raw, dict):
+        raise ValueError(f"config file {path} did not parse to a mapping")
+    return raw
+
+
+def load_experiment_config(path: str, **overrides: Any) -> ExperimentConfig:
+    """An ExperimentConfig from a YAML/JSON file: the nested README schema
+    or flat ExperimentConfig field names; unknown keys are ignored, and
+    ``overrides`` that are not None win over the file."""
+    raw = _load_mapping(path)
+    flat = _config_from_mapping(raw)
+    valid = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    kwargs = {k: v for k, v in flat.items() if k in valid}
+    for key, value in raw.items():
+        if key in valid:
+            kwargs[key] = value
+    kwargs.update({k: v for k, v in overrides.items() if v is not None})
+    kwargs.setdefault("experiment_name", "experiment")
+    return ExperimentConfig(**kwargs)

@@ -1,2 +1,3 @@
 """The trusted training step (``step``), its state (``state``), optimizers
-(``optimizer``) and the host loop (``trainer``)."""
+(``optimizer``), the host loop (``trainer``), verified checkpoints
+(``checkpoint``) and the self-healing supervisor (``supervisor``)."""

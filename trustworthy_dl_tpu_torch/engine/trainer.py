@@ -4,21 +4,31 @@ Counterpart of ``trustworthy_dl_tpu/engine/trainer.py`` on its synchronous
 data-parallel path: every batch is split over the logical nodes and runs
 one :func:`engine.step.build_train_step` call; the host reads the step's
 metrics in one device-to-host copy per step (the step's one sync), records
-confirmed incidents (``attack_history``), mirrors compromises into the
-host :class:`TrustManager`, hands the flagged node's work to the most
-trusted node (``reassignment_history``, with the migration-time model's
-estimate) and counts each detection as a true or false positive against
-the attack plan (``detection_stats``).  At epoch cadence it absorbs the
-device trust and monitor state (``trust_manager``, ``node_monitor``),
-pushes the adaptive threshold back, and, given a validation loader,
-evaluates (``validate_metrics``).
+them in its :class:`MetricsCollector`, records confirmed incidents
+(``attack_history``), mirrors compromises into the host
+:class:`TrustManager`, hands the flagged node's work to the most trusted
+node (``reassignment_history``, with the migration-time model's estimate)
+and counts each detection as a true or false positive against the attack
+plan (``detection_stats``).  At epoch cadence it absorbs the device trust
+and monitor state (``trust_manager``, ``node_monitor``), pushes the
+adaptive threshold back, and, given a validation loader, evaluates
+(``validate_metrics``).
+
+Durability, as in the JAX package: ``save_checkpoint`` /
+``load_checkpoint`` through :class:`engine.checkpoint.CheckpointManager`
+(every ``checkpoint_interval`` steps, never from non-finite params), and
+two per-run hooks that a reset detaches: ``chaos`` (a
+``chaos.FaultInjector`` consulted before and after every step) and
+``step_guard`` (``engine.supervisor.TrainingSupervisor``, whose
+``after_step`` may reject a step or roll back).
 
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
 runs its plain PyTorch version.  Not ported yet: the async host pipeline,
-checkpointing, the supervisor, chaos injection, telemetry, elastic
-eviction and readmission, the ML detector tier, and the pipeline, tensor,
-sequence and expert modes.
+telemetry, elastic eviction and readmission (so a resume onto another
+node count), the ML detector tier, and the pipeline, tensor, sequence and
+expert modes; a configuration that asks for one raises
+``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from trustworthy_dl_tpu_torch.core.config import NodeConfig, \
     TrainingConfig
 from trustworthy_dl_tpu_torch.detect.detector import AttackType
 from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
+from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
 from trustworthy_dl_tpu_torch.engine.optimizer import build_optimizer
 from trustworthy_dl_tpu_torch.engine.state import TrainState, \
     init_train_state
@@ -47,6 +58,7 @@ from trustworthy_dl_tpu_torch.models.factory import create_model
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
 from trustworthy_dl_tpu_torch.trust.state import NodeStatus
+from trustworthy_dl_tpu_torch.utils.metrics import MetricsCollector
 from trustworthy_dl_tpu_torch.utils.monitor import NodeMonitor
 from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
 
@@ -74,6 +86,7 @@ class DistributedTrainer:
     def __init__(self, config: TrainingConfig,
                  model_overrides: Optional[Dict[str, Any]] = None,
                  device: Any = "cuda"):
+        _refuse_unported(config)
         self.config = config
         self.device = resolve_device(device)
         overrides = dict(model_overrides or {})
@@ -87,6 +100,7 @@ class DistributedTrainer:
         self._train_step = build_train_step(self.model, config,
                                             self.optimizer)
         self._eval_step = build_node_eval_step(self.model)
+        self.checkpointer = CheckpointManager(config.checkpoint_dir)
         self.state: Optional[TrainState] = None
         self.training_state = TrainingState.INITIALIZING
         self._init_host_state()
@@ -123,11 +137,32 @@ class DistributedTrainer:
         # Nodes in a recorded-compromised episode: an incident is recorded
         # on the clean -> compromised transition only.
         self._open_incidents: set = set()
-        self.batch_history: List[Dict] = []
+        self.metrics_collector = MetricsCollector(
+            tensorboard_dir=config.tensorboard_dir)
         self.attack_plan: AttackPlan = null_plan(config.num_nodes,
                                                  self.device)
         # Per original id, the attack plan's injection bit.
         self._plan_bits: Dict[int, bool] = {}
+        # Durability hooks, per run so that a reset detaches them:
+        # ``chaos`` is a chaos.FaultInjector consulted in the step loop;
+        # ``step_guard`` implements ``after_step(trainer, node_batch,
+        # metrics) -> Optional[StepMetrics]``, None rejecting the step
+        # (the trainer must not account it).  A supervisor also wires its
+        # injector into the checkpointer's commit hooks: detach that too,
+        # or a previous run's unfired checkpoint faults would fire in the
+        # next run.
+        self.chaos: Any = None
+        self.step_guard: Any = None
+        # When the last accepted step's host copy landed (step_s).
+        self._t_prev: Optional[float] = None
+        if hasattr(self, "checkpointer"):
+            self.checkpointer.chaos = None
+
+    @property
+    def batch_history(self) -> List[Dict[str, Any]]:
+        """The per-step records: a view of the collector's
+        ``batch_metrics``."""
+        return self.metrics_collector.batch_metrics
 
     # ------------------------------------------------------------------
     # Setup
@@ -219,35 +254,69 @@ class DistributedTrainer:
             self.initialize()
         self.current_epoch = epoch
         epoch_loss, num_batches = 0.0, 0
-        t_prev = time.perf_counter()
+        self._t_prev = time.perf_counter()
         for batch_idx, batch in enumerate(dataloader):
-            record = self.train_step(batch, epoch)
-            now = time.perf_counter()
-            # Wall time since the previous step ended: drawing the batch,
-            # copying it to the device, the step, its sync and the
-            # record-keeping.  Summed, the steps tile the epoch's wall.
-            record["step_s"] = now - t_prev
-            t_prev = now
+            self.global_step += 1
+            if self.chaos is not None:
+                # A lost batch is not a step; a stall sleeps; a simulated
+                # preemption raises for the supervisor to catch.
+                batch = self.chaos.on_batch(self.global_step, batch)
+                if batch is None:
+                    self.global_step -= 1
+                    continue
+                self.chaos.on_step_start(self.global_step)
+            node_batch = self._node_batch(batch)
+            self.state, metrics = self._train_step(self.state, node_batch,
+                                                   self.attack_plan)
+            if self.chaos is not None:
+                self.state, metrics = self.chaos.on_step_end(
+                    self.global_step, self.state, metrics)
+            if self.step_guard is not None:
+                metrics = self.step_guard.after_step(self, node_batch,
+                                                     metrics)
+                if metrics is None:
+                    # Rejected (and perhaps rolled back, global_step then
+                    # restored): nothing to account.
+                    continue
+            record = self._account(metrics, epoch)
             epoch_loss += record["loss"]
             num_batches += 1
+            if self.global_step % self.config.checkpoint_interval == 0:
+                self.save_checkpoint()
             if batch_idx % 10 == 0:
                 logger.info("Epoch %d, Batch %d, Loss: %.4f", epoch,
                             batch_idx, record["loss"])
         self.sync_host_state()
         self._epoch_intelligence()
         avg = epoch_loss / max(num_batches, 1)
+        self.metrics_collector.collect_epoch_metrics({
+            "epoch": epoch, "avg_loss": avg, "num_batches": num_batches,
+            "system_trust": self.trust_manager.calculate_system_trust()})
         logger.info("Epoch %d completed. Average loss: %.4f", epoch, avg)
         return avg
 
     def train_step(self, batch: Dict[str, np.ndarray], epoch: int
                    ) -> Dict[str, Any]:
-        """One trusted step on a host batch; returns its
-        ``batch_history`` record."""
+        """One trusted step on a host batch, without the durability hooks;
+        returns its ``batch_history`` record."""
         self.global_step += 1
         node_batch = self._node_batch(batch)
         self.state, metrics = self._train_step(self.state, node_batch,
                                                self.attack_plan)
-        return self._record_batch(self._host_view(metrics), epoch)
+        return self._account(metrics, epoch)
+
+    def _account(self, metrics: StepMetrics, epoch: int) -> Dict[str, Any]:
+        """Host view, step time and records of an accepted step.  A
+        record's ``step_s`` is the wall since the previous accepted step's
+        host copy landed (the previous step's record-keeping, this step's
+        batch in, its step and its host copy), so the steps tile the
+        epoch."""
+        self.metrics_collector.tick()
+        host = self._host_view(metrics)
+        now = time.perf_counter()
+        t_prev, self._t_prev = self._t_prev, now
+        return self._record_batch(host, epoch,
+                                  None if t_prev is None else now - t_prev)
 
     def _epoch_intelligence(self) -> None:
         """Adaptive trust threshold, pushed back into the step's state."""
@@ -282,20 +351,21 @@ class DistributedTrainer:
         host["fleet_streak"] = int(flat[-1]) if fleet else None
         return host
 
-    def _record_batch(self, host: Dict[str, Any], epoch: int
-                      ) -> Dict[str, Any]:
+    def _record_batch(self, host: Dict[str, Any], epoch: int,
+                      step_s: Optional[float] = None) -> Dict[str, Any]:
         attacked, finite = host["attacked"], host["finite"]
         status, trust = host["status"], host["trust_scores"]
         id_of = self.node_map
         record = {
             "step": self.global_step, "epoch": epoch, "loss": host["loss"],
-            "step_s": None,
+            "step_s": step_s,
             "per_node_loss": host["per_node_loss"].tolist(),
             "weights": host["weights"].tolist(),
             "attacked": attacked.tolist(),
             "trust_scores": {id_of[i]: float(trust[i])
                              for i in range(len(trust))}}
-        self.batch_history.append(record)
+        self.metrics_collector.collect_batch_metrics(record)
+        record = self.metrics_collector.batch_metrics[-1]
 
         if host["fleet_alert"] is not None:
             opened = self._fleet_tracker.update(
@@ -450,7 +520,6 @@ class DistributedTrainer:
                                                node_ids=self.node_map)
 
     def get_training_stats(self) -> Dict[str, Any]:
-        losses = [b["loss"] for b in self.batch_history]
         return {
             "current_epoch": self.current_epoch,
             "global_step": self.global_step,
@@ -460,11 +529,115 @@ class DistributedTrainer:
             "attack_count": len(self.attack_history),
             "reassignment_count": len(self.reassignment_history),
             "fleet_alert_count": len(self.fleet_alerts),
+            "metrics": self.metrics_collector.get_summary(),
             "trust_threshold": self.trust_manager.trust_threshold,
-            "metrics": {"num_batches": len(losses),
-                        "mean_loss": float(np.mean(losses)) if losses
-                        else None},
+            "predicted_reliability": {
+                i: self.trust_manager.predict_node_reliability(i)
+                for i in range(self.config.num_nodes)},
         }
+
+    # ------------------------------------------------------------------
+    # Checkpointing
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self) -> Optional[str]:
+        """Save the whole state as ``global_step``, with its topology
+        sidecar.  Non-finite params are never saved: "verified" means
+        integrity-verified and taken from sane state, so corruption on a
+        save step cannot poison the rollback target."""
+        if self.state is None:
+            return None
+        leaves = [leaf for leaf in tree_leaves(self.state.params)
+                  if leaf.is_floating_point()]
+        if not bool(torch.stack([torch.isfinite(leaf).all()
+                                 for leaf in leaves]).all()):
+            logger.error("Refusing to checkpoint non-finite params at step "
+                         "%d; keeping the last good checkpoint",
+                         self.global_step)
+            return None
+        # A committed payload at this step is skipped by save(), so its
+        # sidecar stays; uncommitted junk is rewritten with its sidecar.
+        already = self.checkpointer.check_integrity(self.global_step,
+                                                    verify=False)[0]
+        path = self.checkpointer.save(
+            self.state, self.global_step,
+            block=not self.config.async_checkpoint)
+        if already:
+            logger.warning("Checkpoint step %d already existed; keeping its "
+                           "sidecar (payload was not rewritten)",
+                           self.global_step)
+            return path
+        self.checkpointer.save_metadata(self.global_step, {
+            "num_nodes": self.config.num_nodes,
+            "node_map": list(self.node_map),
+            "parallelism": self.config.parallelism,
+            "compromised_nodes": sorted(
+                int(i) for i in self.trust_manager.get_compromised_nodes()),
+            # Elastic bookkeeping, empty until elastic/ is ported.
+            "evicted_at": {}, "evicted_devices": {}, "idle_pool": {},
+        })
+        return path
+
+    def load_checkpoint(self, step: Optional[int] = None) -> TrainState:
+        """Restore the whole world-view (weights, optimizer, trust,
+        detector baselines, step, epoch and the generator), then mirror it
+        into the host objects.  ``step=None`` takes the newest verified
+        step.  A checkpoint of another node count waits for elastic/."""
+        if step is None:
+            step = self.checkpointer.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoints under {self.config.checkpoint_dir}")
+        meta = self.checkpointer.load_metadata(step)
+        if meta and int(meta["num_nodes"]) != self.config.num_nodes:
+            raise NotImplementedError(
+                f"checkpoint step {step} was saved with "
+                f"{meta['num_nodes']} node(s), the config has "
+                f"{self.config.num_nodes}: a resume onto another node "
+                "count needs elastic/ (ROADMAP Slice 4), not ported yet")
+        if self.state is None:
+            self.initialize()
+        self.state = self.checkpointer.restore(self.state, step)
+        if meta:
+            self.node_map = [int(i) for i in meta["node_map"]]
+            live = set(self.node_map)
+            for node_id in meta.get("compromised_nodes", []):
+                node_id = int(node_id)
+                if node_id not in live and (
+                        self.trust_manager.get_node_status(node_id)
+                        != NodeStatus.COMPROMISED):
+                    # No device row to sync from: restore the host-side
+                    # standing directly, once.
+                    self.trust_manager.mark_compromised(
+                        node_id, attack_type="restored_from_checkpoint")
+        self.global_step = int(self.state.step)
+        self.sync_host_state()
+        return self.state
+
+    def cleanup(self) -> None:
+        """Join any in-flight save, close the collector, drop the
+        state."""
+        self.checkpointer.wait()
+        self.metrics_collector.close()
+        self.state = None
+        logger.info("Distributed training cleanup completed")
+
+
+def _refuse_unported(config: TrainingConfig) -> None:
+    """A configuration that asks for what the port has not got raises
+    here, naming the ROADMAP item."""
+    if config.parallelism != "data":
+        raise NotImplementedError(
+            f"parallelism={config.parallelism!r} is not ported yet (ROADMAP "
+            "Slice 4: parallel/); the port trains 'data'")
+    if config.elastic_resharding:
+        raise NotImplementedError(
+            "elastic_resharding=True is not ported yet (ROADMAP Slice 4: "
+            "elastic/)")
+    if config.readmit_after_steps > 0:
+        raise NotImplementedError(
+            "readmit_after_steps > 0 is not ported yet (ROADMAP Slice 4: "
+            "elastic/)")
 
 
 __all__ = ["DistributedTrainer", "TrainingState"]

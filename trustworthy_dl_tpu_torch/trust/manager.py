@@ -112,6 +112,9 @@ class TrustManager:
     def adaptive_threshold_adjustment(self) -> None:
         self._state = ts.adaptive_threshold(self._state)
 
+    def cleanup(self) -> None:
+        logger.info("trust: manager released")
+
     # -- queries ----------------------------------------------------------
 
     def get_trust_score(self, node_id: int) -> float:
@@ -144,6 +147,22 @@ class TrustManager:
 
     def calculate_system_trust(self) -> float:
         return float(ts.system_trust(self._state))
+
+    def predict_node_reliability(self, node_id: int, horizon: int = 10
+                                 ) -> float:
+        """Trend extrapolation through ``ts.predict_reliability`` over the
+        node's last 10 logged scores (at least 5 for a trend)."""
+        entries = [e["trust_score"]
+                   for e in self.trust_history.get(node_id, ())][-10:]
+        window = 10
+        hist = np.zeros((1, window), np.float32)
+        if entries:
+            hist[0, -len(entries):] = entries
+        else:
+            hist[0, -1] = self.get_trust_score(node_id)
+        count = torch.tensor([max(len(entries), 1)])
+        return float(ts.predict_reliability(torch.from_numpy(hist), count,
+                                            horizon=horizon)[0])
 
     def get_trust_statistics(self) -> Dict:
         scores = self._state.scores.numpy()

@@ -243,9 +243,41 @@ def adaptive_threshold(state: TrustState, default: float = 0.7
     return state._replace(threshold=new)
 
 
+def predict_reliability(history: torch.Tensor, valid_count: torch.Tensor,
+                        horizon: int = 10) -> torch.Tensor:
+    """Degree-1 least-squares trend over each node's recent trust samples,
+    extrapolated ``horizon`` steps.  ``history`` is f32 [n, window] (most
+    recent last, left-padded), ``valid_count`` [n] the number of valid
+    entries; a node with fewer than 5 samples keeps its latest score.  The
+    JAX package's arithmetic, in f32."""
+    history = history.float()
+    n, window = history.shape
+    count = valid_count.float()
+    x = torch.arange(window, dtype=torch.float32, device=history.device)
+    first = (window - count)[:, None]
+    mask = x[None, :] >= first
+    cnt = mask.sum(dim=1).float().clamp(min=1.0)
+    # Re-indexed so the first valid sample sits at x = 0.
+    zero = torch.zeros_like(history)
+    x_local = torch.where(mask, x[None, :] - first, zero)
+    y = torch.where(mask, history, zero)
+    xm = x_local.sum(dim=1) / cnt
+    ym = y.sum(dim=1) / cnt
+    cov = torch.where(mask, (x_local - xm[:, None]) * (history - ym[:, None]),
+                      zero).sum(dim=1)
+    var = torch.where(mask, (x_local - xm[:, None]) ** 2, zero).sum(dim=1)
+    slope = torch.where(var > 0, cov / var.clamp(min=1e-12),
+                        torch.zeros_like(var))
+    intercept = ym - slope * xm
+    pred = slope * (count + horizon) + intercept
+    return torch.where(valid_count >= 5, pred, history[:, -1]).clamp(0.0,
+                                                                      1.0)
+
+
 __all__ = [
     "METRIC_NAMES", "NodeStatus", "TrustState", "adaptive_threshold",
     "can_assign_task", "contribution_weights", "init_trust_state",
     "initiate_recovery", "instantaneous_trust", "mark_compromised",
-    "next_status", "probation_recovery", "system_trust", "update_trust",
+    "next_status", "predict_reliability", "probation_recovery",
+    "system_trust", "update_trust",
 ]

@@ -1,17 +1,133 @@
-"""Serving metrics: the part of ``trustworthy_dl_tpu/utils/metrics.py`` and
-of the JAX engine's rollups that ``ServingEngine.metrics_summary`` reads.
+"""Training and serving metrics.
 
-Latencies are kept whole and their percentiles computed exactly with
-numpy (the JAX engine uses streaming P-square estimators); occupancy is
-the mean share of decode rows holding a request, sampled once per engine
-step.
+:class:`MetricsCollector` is the counterpart of the JAX package's
+(``trustworthy_dl_tpu/utils/metrics.py``): per-batch and per-epoch
+records, a step-time series from :meth:`MetricsCollector.tick`, and their
+summary.  It keeps no metrics registry (``obs/registry`` is not ported).
+Given a ``tensorboard_dir`` it writes the scalars as TensorBoard events
+through ``torch.utils.tensorboard`` when that imports, and otherwise
+degrades to in-memory records with a warning, as the JAX collector does.
+
+:class:`ServeMetrics` is the part of the JAX engine's rollups that
+``ServingEngine.metrics_summary`` reads.  Latencies are kept whole and
+their percentiles computed exactly with numpy (the JAX engine uses
+streaming P-square estimators); occupancy is the mean share of decode
+rows holding a request, sampled once per engine step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import logging
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+def _make_tb_writer(logdir: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(logdir)
+    except Exception as exc:  # tensorboard optional: degrade, don't fail
+        logger.warning("TensorBoard writer unavailable (%s); metrics stay "
+                       "in-memory only", exc)
+        return None
+
+
+class MetricsCollector:
+    """Accumulates per-batch metric dicts and summarises them."""
+
+    def __init__(self, max_records: int = 100_000,
+                 tensorboard_dir: Optional[str] = None):
+        self.max_records = max_records
+        self.batch_metrics: List[Dict[str, Any]] = []
+        self.epoch_metrics: List[Dict[str, Any]] = []
+        self._step_times: List[float] = []
+        self._last_tick: Optional[float] = None
+        self._tb = _make_tb_writer(tensorboard_dir) if tensorboard_dir \
+            else None
+
+    def _tb_scalars(self, prefix: str, record: Dict[str, Any],
+                    step: int) -> None:
+        if self._tb is None:
+            return
+        for key, value in record.items():
+            if isinstance(value, (int, float)) and key != "timestamp":
+                self._tb.add_scalar(f"{prefix}/{key}", value, step)
+            elif isinstance(value, dict):  # e.g. per-node trust scores
+                for sub, v in value.items():
+                    if isinstance(v, (int, float)):
+                        self._tb.add_scalar(f"{prefix}/{key}/{sub}", v,
+                                            step)
+
+    def collect_batch_metrics(self, metrics: Dict[str, Any]) -> None:
+        if len(self.batch_metrics) >= self.max_records:
+            self.batch_metrics.pop(0)
+        record = dict(metrics)
+        record.setdefault("timestamp", time.time())
+        self.batch_metrics.append(record)
+        self._tb_scalars("batch", record,
+                         int(record.get("step", len(self.batch_metrics))))
+
+    def collect_epoch_metrics(self, metrics: Dict[str, Any]) -> None:
+        record = dict(metrics)
+        record.setdefault("timestamp", time.time())
+        self.epoch_metrics.append(record)
+        self._tb_scalars("epoch", record,
+                         int(record.get("epoch", len(self.epoch_metrics))))
+
+    def flush(self) -> None:
+        if self._tb is not None:
+            self._tb.flush()
+
+    def close(self) -> None:
+        """Flush and release the event-file writer (thread + fd)."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
+    def tick(self) -> None:
+        """One step's wall time: the time since the previous tick."""
+        now = time.perf_counter()
+        if self._last_tick is not None:
+            self._step_times.append(now - self._last_tick)
+        self._last_tick = now
+
+    def step_time_stats(self) -> Dict[str, float]:
+        if not self._step_times:
+            return {}
+        arr = np.array(self._step_times)
+        return {
+            "mean_s": float(arr.mean()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p95_s": float(np.percentile(arr, 95)),
+            "max_s": float(arr.max()),
+            "count": int(arr.size),
+        }
+
+    def get_summary(self) -> Dict[str, Any]:
+        summary: Dict[str, Any] = {
+            "num_batches": len(self.batch_metrics),
+            "num_epochs": len(self.epoch_metrics),
+        }
+        losses = [m["loss"] for m in self.batch_metrics if "loss" in m]
+        if losses:
+            summary["mean_loss"] = float(np.mean(losses))
+            summary["final_loss"] = float(losses[-1])
+            summary["min_loss"] = float(np.min(losses))
+        st = self.step_time_stats()
+        if st:
+            summary["step_time"] = st
+        return summary
+
+    def reset(self) -> None:
+        self.batch_metrics.clear()
+        self.epoch_metrics.clear()
+        self._step_times.clear()
+        self._last_tick = None
 
 
 def percentile_ms(values: Sequence[float], q: float) -> Optional[float]:
