@@ -104,7 +104,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the same batch with bit-equal per-node losses.  Each save's bytes and
    seconds (host copy, write, CRC), each restore's (read, copy to the
    card) and each integrity check's.  The drill's directory is removed
-   at the end of the phase.
+   at the end of the phase.  The drill runs at ``async_host_depth=0``:
+   ``FaultPlan.predict``'s retry counts are the synchronous guard's.
+9. async_host: the train geometry, detection ON, node 2 poisoned from
+   step 4: runs of 8 steps at ``async_host_depth`` 0, 2, 2, 0 from the
+   same state (each arm's step ms over its last 6 steps a run), then a
+   12-step epoch of each depth with steps 3-10 under the profiler (the
+   device's busy share in a steady window,
+   ``utils/train_profile.busy_window``); losses, per-node losses,
+   trust, weights, statuses and incidents bit-equal in every run, B1-B3
+   exact.  Then a GRAD_NAN drill at depth 2 (checkpoints every 4 steps,
+   NaN params after step 5, ``rollback_after=1``): the report equals the
+   lagged arithmetic (no retry, the rollback to step 4, steps 7-8 in
+   flight discarded, steps 1-5 accounted).
+10. elastic: the train geometry with ``elastic_resharding`` and
+   ``readmit_after_steps=8``, node 2 poisoned from step 6: confirmed at
+   step 8 and evicted at 10 (the depth-2 drain), the loader re-sized to 3
+   x 8, the eviction record timed (``migration_time_s``,
+   ``measured_gbps``); a save, and a fresh 4-node trainer's resume onto
+   the 3-node topology with its node map and cool-off; the attack
+   cleared, node 2 readmitted at step 18 on probation (recovery rate
+   0.02, fresh baselines), the loader back to 4 x 8; B1-B3 exact for each
+   step's node count, every loss finite.
 
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -228,6 +249,18 @@ DRILL_SCRIPT = ((3, "data_loss", 1.0), (7, "stall", 0.01),
                 (10, "ckpt_corrupt", 1.0), (12, "grad_nan", 1.0),
                 (18, "preempt", 1.0))
 DRILL_RETRIES, DRILL_ROLLBACK_AFTER, DRILL_RESTARTS = 2, 2, 2
+# async_host: detection-ON runs of ASYNC_STEPS steps at async_host_depth 0
+# and 2, in the order ASYNC_ORDER (the first ASYNC_WARMUP steps of each
+# run untimed), node 2 poisoned from step ASYNC_ATTACK (detector_warmup
+# 2); then the GRAD_NAN drill at depth 2: checkpoints every 4 steps, NaN
+# params after step 5, rollback_after 1, one epoch of 8 steps.
+ASYNC_ORDER, ASYNC_STEPS, ASYNC_WARMUP, ASYNC_ATTACK = (0, 2, 2, 0), 8, 2, 4
+NAN_INTERVAL, NAN_STEP, NAN_STEPS = 4, 5, 8
+# elastic: node 2 poisoned from step 6 (detector_warmup 4), readmission
+# after 8 steps; epoch 0 12 steps at 4 x 8, then, after a save and a
+# resume onto the saved topology, 10 steps of 3 x 8 rows with the attack
+# cleared.
+ELASTIC_ATTACK, ELASTIC_READMIT, ELASTIC_STEPS = 6, 8, (12, 10)
 
 
 def emit(obj) -> None:
@@ -2147,11 +2180,14 @@ def survival_drive(torch, entries, card):
     t0 = time.perf_counter()
 
     def trainer():
+        # Depth 0: FaultPlan.predict's retry counts are the synchronous
+        # guard's (the async_host phase drills the lagged one).
         config = TrainingConfig(
             model_name="gpt2", batch_size=TRAIN_BATCH,
             num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
             remat=True, seed=0, checkpoint_interval=DRILL_INTERVAL,
-            checkpoint_dir=ckpt_dir, num_epochs=DRILL_EPOCHS)
+            checkpoint_dir=ckpt_dir, num_epochs=DRILL_EPOCHS,
+            async_host_depth=0)
         tr = DistributedTrainer(config, model_overrides=dict(
             seq_len=TRAIN_T, attn_impl="auto"), device="cuda")
         tr.initialize()
@@ -2254,6 +2290,325 @@ def survival_drive(torch, entries, card):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def record_status(tr):
+    """Wrap ``tr._record_batch`` so that every recorded step's node
+    statuses land in the returned list (the records do not keep them)."""
+    statuses = []
+    record = tr._record_batch
+
+    def wrapped(host, epoch, step_s=None):
+        statuses.append(host["status"].tolist())
+        return record(host, epoch, step_s)
+
+    tr._record_batch = wrapped
+    return statuses
+
+
+def step_launches(cfg, nodes_per_step, remat=True):
+    """B1-B3 launches of step executions with the given node counts."""
+    return {"flash_attention_fwd": (2 if remat else 1) * cfg.n_layer
+            * sum(nodes_per_step),
+            "flash_attention_bwd_dq": cfg.n_layer * sum(nodes_per_step),
+            "flash_attention_bwd_dkv": cfg.n_layer * sum(nodes_per_step),
+            "fused_moments": 2 * len(nodes_per_step)}
+
+
+def expect_launches_equal(launches, want, what):
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} "
+                                 f"times, design says {n}")
+
+
+def async_host_drive(torch, entries, card):
+    """Phase 9: the async host pipeline at depth 2 against depth 0 on the
+    train geometry (runs in turns, bit-equal trajectories, busy shares),
+    then a GRAD_NAN drill inside the in-flight window."""
+    import dataclasses
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.chaos import FaultEvent, FaultInjector, \
+        FaultKind, FaultPlan
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
+    from trustworthy_dl_tpu_torch.engine.supervisor import \
+        TrainingSupervisor
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.utils.train_profile import BUSY_STEPS, \
+        busy_window
+
+    cfg = gpt2_small(torch)
+    t0 = time.perf_counter()
+    tr = DistributedTrainer(TrainingConfig(
+        model_name="gpt2", batch_size=TRAIN_BATCH, num_nodes=TRAIN_NODES,
+        optimizer="adamw", learning_rate=1e-4, remat=True, seed=0,
+        detector_warmup=2), model_overrides=dict(
+            seq_len=TRAIN_T, attn_impl="auto"), device="cuda")
+    attacker = AdversarialAttacker(AttackConfig(
+        attack_types=["gradient_poisoning"], target_nodes=[2],
+        intensity=1.0, start_step=ASYNC_ATTACK))
+    attacker.activate_attacks()
+
+    def run(depth, steps):
+        tr.config = dataclasses.replace(tr.config, async_host_depth=depth)
+        tr.reset_for_run(0)
+        tr.set_attack_plan(attacker.plan(TRAIN_NODES))
+        return get_dataloader("openwebtext", batch_size=TRAIN_BATCH,
+                              seq_len=TRAIN_T, vocab_size=cfg.vocab_size,
+                              num_examples=TRAIN_BATCH * steps, seed=0)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    runs = []
+    for depth in ASYNC_ORDER:
+        loader = run(depth, ASYNC_STEPS)
+        statuses = record_status(tr)
+        tr.train_epoch(loader, 0)
+        del tr._record_batch
+        hist = tr.batch_history
+        runs.append({
+            "depth": depth,
+            "step_ms": [1e3 * h["step_s"] for h in hist[ASYNC_WARMUP:]],
+            "trajectory": {
+                "loss": [h["loss"] for h in hist],
+                "per_node_loss": [h["per_node_loss"] for h in hist],
+                "trust": [h["trust_scores"] for h in hist],
+                "weights": [h["weights"] for h in hist],
+                "status": statuses,
+                "incidents": [(r["node_id"], r["step"], r["attack_type"])
+                              for r in tr.attack_history]}})
+    busy = {}
+    for depth in (0, 2):
+        busy[depth] = busy_window(tr, run(depth, BUSY_STEPS))
+    launches = ops.launch_counts()
+    executed = len(ASYNC_ORDER) * ASYNC_STEPS + 2 * BUSY_STEPS
+    want = step_launches(cfg, [TRAIN_NODES] * executed)
+    expect_launches_equal(launches, want, "async_host")
+    ref = runs[0]["trajectory"]
+    if not ref["incidents"] or any(r["trajectory"] != ref for r in runs):
+        raise AssertionError("async_host: trajectories differ between "
+                             "depth 0 and depth 2 (or no incident): "
+                             f"{[r['trajectory'] for r in runs]}")
+    if not all(math.isfinite(x) for x in ref["loss"]):
+        raise AssertionError(f"async_host: losses {ref['loss']}")
+    arm_ms = {d: [ms for r in runs if r["depth"] == d for ms in r["step_ms"]]
+              for d in (0, 2)}
+
+    # GRAD_NAN inside the window at depth 2: the lagged guard runs no
+    # retry and rolls back to the checkpoint before the window.
+    ckpt_dir = tempfile.mkdtemp(prefix="tddl_async_drill_")
+    try:
+        tr.config = dataclasses.replace(
+            tr.config, async_host_depth=2, checkpoint_interval=NAN_INTERVAL,
+            checkpoint_dir=ckpt_dir)
+        tr.checkpointer = CheckpointManager(ckpt_dir)
+        tr.reset_for_run(0)
+        plan = FaultPlan.scripted([FaultEvent(step=NAN_STEP,
+                                              kind=FaultKind.GRAD_NAN)])
+        sup = TrainingSupervisor(tr, max_retries=DRILL_RETRIES,
+                                 rollback_after=1, max_restarts=0,
+                                 chaos=FaultInjector(plan))
+        loader = get_dataloader("openwebtext", batch_size=TRAIN_BATCH,
+                                seq_len=TRAIN_T, vocab_size=cfg.vocab_size,
+                                num_examples=TRAIN_BATCH * NAN_STEPS, seed=2)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t_drill = time.perf_counter()
+        result = sup.run(loader, num_epochs=1)
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t_drill
+        drill_launches = ops.launch_counts()
+        report = result["supervisor"]
+        # The bad step NAN_STEP + 1 drains when NAN_STEP + 3 is pushed (the
+        # window holds 2); it rolls back to the save at NAN_INTERVAL, and
+        # the two steps in flight are discarded.
+        lagged = {"retries": 0, "rollbacks": 1,
+                  "rollback_steps": [NAN_INTERVAL], "restarts": 0,
+                  "preemptions": 0, "bad_steps": 1}
+        accounted = [h["step"] for h in tr.batch_history]
+        if {k: report[k] for k in lagged} != lagged or \
+                report["faults_fired"] != {"grad_nan": 1} or \
+                accounted != list(range(1, NAN_STEP + 1)) or \
+                tr.global_step != NAN_INTERVAL:
+            raise AssertionError(f"async_host drill: report {report}, "
+                                 f"accounted steps {accounted}, global "
+                                 f"step {tr.global_step}; the lagged "
+                                 f"arithmetic says {lagged}")
+        expect_launches_equal(drill_launches,
+                              step_launches(cfg, [TRAIN_NODES] * NAN_STEPS),
+                              "async_host drill")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for name in want:
+        entries[name]["launches_async_host"] = want[name]
+    emit({"phase": "async_host", "card": card,
+          "seconds": time.perf_counter() - t0,
+          "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                   "weights, random init seed 0)",
+          "nodes": TRAIN_NODES, "batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+          "order": list(ASYNC_ORDER),
+          "step_ms_median": {d: statistics.median(v)
+                             for d, v in arm_ms.items()},
+          "step_ms": {d: v for d, v in arm_ms.items()},
+          "depth2_over_depth0": statistics.median(arm_ms[2])
+          / statistics.median(arm_ms[0]),
+          "busy": busy, "trajectories_bit_equal": True,
+          "incidents": ref["incidents"], "launches": launches,
+          "expected_launches": want, "drill_report": report,
+          "drill_lagged_arithmetic": lagged, "drill_s": drill_s,
+          "drill_accounted_steps": accounted,
+          "drill_launches": drill_launches})
+    del tr, sup
+    torch.cuda.empty_cache()
+
+
+def elastic_drive(torch, entries, card):
+    """Phase 10: eviction of a poisoned node, a save and a resume onto
+    the 3-node topology, and readmission on probation after the
+    cool-off."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.attacks.adversarial import null_plan
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+
+    cfg = gpt2_small(torch)
+    ckpt_dir = tempfile.mkdtemp(prefix="tddl_elastic_")
+    t0 = time.perf_counter()
+
+    def trainer():
+        tr = DistributedTrainer(TrainingConfig(
+            model_name="gpt2", batch_size=TRAIN_BATCH,
+            num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
+            remat=True, seed=0, detector_warmup=4, elastic_resharding=True,
+            readmit_after_steps=ELASTIC_READMIT, checkpoint_interval=10 ** 6,
+            checkpoint_dir=ckpt_dir), model_overrides=dict(
+                seq_len=TRAIN_T, attn_impl="auto"), device="cuda")
+        tr.initialize()
+        return tr
+
+    try:
+        tr = trainer()
+        attacker = AdversarialAttacker(AttackConfig(
+            attack_types=["gradient_poisoning"], target_nodes=[2],
+            intensity=1.0, start_step=ELASTIC_ATTACK))
+        attacker.activate_attacks()
+        tr.set_attack_plan(attacker.plan(TRAIN_NODES))
+        per_node = TRAIN_BATCH // TRAIN_NODES
+        loader = get_dataloader(
+            "openwebtext", batch_size=TRAIN_BATCH, seq_len=TRAIN_T,
+            vocab_size=cfg.vocab_size,
+            num_examples=TRAIN_BATCH * ELASTIC_STEPS[0], seed=0)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        tr.train_epoch(loader, 0)
+        hist = list(tr.batch_history)
+        incident = ELASTIC_ATTACK + 2      # the second attacked step
+        evict_step = incident + 2          # drained two steps later
+        evictions = [r for r in tr.reassignment_history
+                     if "evicted_nodes" in r]
+        if [(r["node_id"], r["step"]) for r in tr.attack_history] != \
+                [(2, incident)] or len(evictions) != 1 or \
+                evictions[0]["step"] != evict_step or \
+                evictions[0]["evicted_nodes"] != [2] or \
+                not evictions[0]["migration_time_s"] > 0 or \
+                not evictions[0]["measured_gbps"] > 0:
+            raise AssertionError(f"elastic: incidents {tr.attack_history}, "
+                                 f"records {tr.reassignment_history}")
+        if loader.batch_size != 3 * per_node or \
+                tr.config.batch_size != 3 * per_node or \
+                tr.node_map != [0, 1, 3]:
+            raise AssertionError(f"elastic: loader {loader.batch_size}, "
+                                 f"config {tr.config.batch_size}, node map "
+                                 f"{tr.node_map}")
+        saved_step = tr.global_step
+        t_save = time.perf_counter()
+        tr.save_checkpoint()
+        save_s = time.perf_counter() - t_save
+        eviction = dict(evictions[0])
+        del tr
+        torch.cuda.empty_cache()
+
+        # A fresh process's trainer, built for 4 nodes, resumes onto the
+        # saved 3-node topology with the pending cool-off.
+        resumed = trainer()
+        t_load = time.perf_counter()
+        resumed.load_checkpoint()
+        load_s = time.perf_counter() - t_load
+        if resumed.config.num_nodes != 3 or resumed.node_map != [0, 1, 3] \
+                or resumed._evicted_at != {2: evict_step} or \
+                resumed.global_step != saved_step:
+            raise AssertionError(
+                f"elastic resume: {resumed.config.num_nodes} nodes, map "
+                f"{resumed.node_map}, evicted {resumed._evicted_at}, step "
+                f"{resumed.global_step}")
+        resumed.set_attack_plan(null_plan(3, "cuda"))
+        loader2 = get_dataloader(
+            "openwebtext", batch_size=3 * per_node, seq_len=TRAIN_T,
+            vocab_size=cfg.vocab_size,
+            num_examples=3 * per_node * ELASTIC_STEPS[1], seed=1)
+        resumed.train_epoch(loader2, 1)
+        launches = ops.launch_counts()
+        hist += resumed.batch_history
+        readmits = [r for r in resumed.reassignment_history
+                    if "readmitted_nodes" in r]
+        readmit_step = evict_step + ELASTIC_READMIT
+        coord = resumed.node_map.index(2) if 2 in resumed.node_map else -1
+        trust = resumed.state.trust
+        if len(readmits) != 1 or readmits[0]["step"] != readmit_step or \
+                resumed.node_map != [0, 1, 3, 2] or \
+                float(trust.recovery_rate[coord]) != \
+                float(torch.tensor(0.02)) or \
+                loader2.batch_size != TRAIN_BATCH or \
+                not int(resumed.state.out_baseline.count[coord]) < \
+                int(resumed.state.out_baseline.count[0]):
+            raise AssertionError(
+                f"elastic readmission: records {readmits}, node map "
+                f"{resumed.node_map}, recovery "
+                f"{trust.recovery_rate.tolist()}, loader "
+                f"{loader2.batch_size}")
+        nodes = [len(h["per_node_loss"]) for h in hist]
+        steps = [h["step"] for h in hist]
+        want_nodes = [TRAIN_NODES if s <= evict_step or s > readmit_step
+                      else 3 for s in steps]
+        losses = [h["loss"] for h in hist]
+        if nodes != want_nodes or not all(math.isfinite(x)
+                                          for x in losses):
+            raise AssertionError(f"elastic: nodes a step {nodes} (want "
+                                 f"{want_nodes}), losses {losses}")
+        want = step_launches(cfg, nodes)
+        expect_launches_equal(launches, want, "elastic")
+        for name in want:
+            entries[name]["launches_elastic"] = want[name]
+        emit({"phase": "elastic", "card": card,
+              "seconds": time.perf_counter() - t0,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                       "weights, random init seed 0)",
+              "rows_per_node": per_node, "seq_len": TRAIN_T,
+              "attack_start_step": ELASTIC_ATTACK, "incident_step": incident,
+              "eviction": {k: v for k, v in eviction.items()
+                           if k != "timestamp"},
+              "readmission": {k: v for k, v in readmits[0].items()
+                              if k != "timestamp"},
+              "save_s": save_s, "resume_load_s": load_s,
+              "resumed_at_step": saved_step,
+              "nodes_per_step": nodes, "steps": steps,
+              "step_ms": [1e3 * h["step_s"] for h in hist],
+              "losses": losses, "launches": launches,
+              "expected_launches": want,
+              "readmitted_recovery_rate": float(trust.recovery_rate[coord]),
+              "readmitted_status": int(trust.status[coord])})
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -2299,6 +2654,9 @@ def main() -> int:
     experiment_drive(torch, entries, smi)
     torch.cuda.empty_cache()
     survival_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
+    async_host_drive(torch, entries, smi)
+    elastic_drive(torch, entries, smi)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

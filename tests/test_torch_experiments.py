@@ -207,14 +207,82 @@ def test_presets_equal_jax_and_unported_ones_refuse(tmp_path):
             name, num_epochs=1, output_dir=str(tmp_path)), device="cpu")
         with pytest.raises(NotImplementedError, match="item 10"):
             runner.setup_experiment()
-    for name, item in (("gpt2_small_pipeline_clean", "parallel/"),
-                       ("gpt2_transient_recovery", "elastic/")):
-        runner = ExperimentRunner(preset_config(
-            name, output_dir=str(tmp_path)), device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            runner.setup_experiment()
+    # gpt2_transient_recovery runs (test_transient_recovery_preset_...).
+    runner = ExperimentRunner(preset_config(
+        "gpt2_small_pipeline_clean", output_dir=str(tmp_path)), device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        runner.setup_experiment()
     cfg = preset_config("gpt2_medium_reassignment", num_epochs=1)
     assert cfg.model_name == "gpt2-medium" and cfg.attack_enabled
+
+
+def test_transient_recovery_preset_matches_jax(tmp_path):
+    """``gpt2_transient_recovery`` at tiny width, as JAX's
+    ``tests/test_experiments.py`` runs it (8 nodes x 2 sequences, 5 epochs
+    of 6 steps, node 5 poisoned in epoch 1, readmission after 8 steps,
+    detector warm-up 4), both packages in f32 from the same params and
+    without the prefetch thread (the re-sized loader's step count
+    otherwise follows the thread's timing): the eviction, the readmission
+    and every decision equal, losses and trust within the contract."""
+    from trustworthy_dl_tpu.experiments.runner import \
+        preset_config as jpreset_config
+
+    kw = dict(experiment_name="tiny_recovery", num_epochs=5, batch_size=16,
+              learning_rate=3e-3, steps_per_epoch=6, attack_start_epoch=1,
+              attack_end_epoch=2, readmit_after_steps=8)
+    data = dict(seq_len=16, vocab_size=128, num_examples=96)
+    knobs = dict(detector_warmup=4, prefetch_depth=0)
+    jrunner = JRunner(jpreset_config("gpt2_transient_recovery",
+                                     output_dir=str(tmp_path / "jax"), **kw),
+                      model_overrides=dict(TINY_GPT, dtype=jnp.float32),
+                      data_overrides=dict(data))
+    jrunner.training_config = dataclasses.replace(jrunner.training_config,
+                                                  **knobs)
+    jrunner.setup_experiment()
+    jparams = jax.tree_util.tree_map(
+        np.asarray, jax.device_get(jrunner.trainer.state.params))
+    jres = jrunner.run_experiment()
+
+    runner = ExperimentRunner(
+        preset_config("gpt2_transient_recovery",
+                      output_dir=str(tmp_path / "port"), **kw),
+        model_overrides=dict(TINY_GPT, dtype=torch.float32),
+        data_overrides=dict(data), device="cpu")
+    runner.training_config = dataclasses.replace(runner.training_config,
+                                                 **knobs)
+    runner.setup_experiment()
+    runner.trainer.initialize(params=convert.params_from_jax(jparams))
+    res = runner.run_experiment()
+
+    summary, jsummary = res["experiment_summary"], jres["experiment_summary"]
+    for key in ("total_steps", "total_evictions", "total_readmissions",
+                "final_live_nodes", "recovered_nodes", "compromised_nodes",
+                "total_attacks_detected", "detection_quality"):
+        assert summary[key] == jsummary[key], key
+    assert summary["total_evictions"] >= 1
+    assert summary["total_readmissions"] >= 1
+    assert summary["final_live_nodes"] == 8
+    assert summary["recovered_nodes"] == [5]
+    live = [r["live_nodes"] for r in res["epoch_records"]]
+    assert live == [r["live_nodes"] for r in jres["epoch_records"]]
+    assert min(live) == 7 and live[-1] == 8
+
+    def decisions(history):
+        return [{k: v for k, v in r.items()
+                 if k in ("evicted_nodes", "surviving_nodes",
+                          "readmitted_nodes", "all_nodes", "step")}
+                for r in history]
+
+    assert decisions(res["reassignment_history"]) == \
+        decisions(jres["reassignment_history"])
+    assert [(r["node_id"], r["step"]) for r in res["attack_history"]] == \
+        [(r["node_id"], r["step"]) for r in jres["attack_history"]]
+    for rec, jrec in zip(res["epoch_records"], jres["epoch_records"],
+                         strict=True):
+        for key in ("training_loss", "validation_loss", "system_trust"):
+            assert abs(rec[key] - jrec[key]) <= ATOL, (key, rec["epoch"])
+    assert (runner.output_dir / "topology_timeline.png").exists() == \
+        (jrunner.output_dir / "topology_timeline.png").exists()
 
 
 def test_main_runs_on_the_cpu(tmp_path, capsys):

@@ -1,7 +1,9 @@
 """The port imports neither JAX, orbax nor the JAX package: checked in a
 fresh process by importing every module of ``trustworthy_dl_tpu_torch``
 and reading ``sys.modules``, and statically by walking every module's
-imports (``chip_smoke.py`` included)."""
+imports (``chip_smoke.py`` included).  The walk is checked to reach the
+modules added since it was written (the async host pipeline and
+``elastic/``)."""
 
 import ast
 import subprocess
@@ -14,6 +16,9 @@ pytestmark = pytest.mark.torchport
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "orbax", "trustworthy_dl_tpu")
+NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
+               "trustworthy_dl_tpu_torch.elastic",
+               "trustworthy_dl_tpu_torch.elastic.reassignment")
 
 
 def _forbidden(name: str) -> bool:
@@ -22,6 +27,7 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_the_port_loads_no_jax():
     code = (
+        f"NEW_MODULES = {NEW_MODULES!r}\n"
         "import importlib, pkgutil, sys\n"
         "import trustworthy_dl_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
@@ -29,6 +35,8 @@ def test_importing_the_port_loads_no_jax():
         "roots = ('jax', 'jaxlib', 'orbax', 'trustworthy_dl_tpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
         "assert not bad, bad\n"
+        "for m in NEW_MODULES:\n"
+        "    assert m in sys.modules, m\n"
         "print(len([m for m in sys.modules\n"
         "           if m.startswith('trustworthy_dl_tpu_torch.')]))\n"
     )
@@ -52,6 +60,11 @@ def test_no_port_module_imports_jax():
     files = sorted((REPO / "trustworthy_dl_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 16
+    walked = {str(p.relative_to(REPO)) for p in files}
+    for name in NEW_MODULES:
+        path = name.replace(".", "/")
+        assert f"{path}.py" in walked or f"{path}/__init__.py" in walked, \
+            name
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p) if _forbidden(name)]
     assert not bad, bad

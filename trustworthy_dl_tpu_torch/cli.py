@@ -196,6 +196,14 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-dir", type=str, default=None)
     parser.add_argument("--resume", action="store_true",
                         help="restore the latest checkpoint before training")
+    parser.add_argument("--async-host-depth", type=int, default=None,
+                        help="steps kept in flight by the async host "
+                             "pipeline (engine/async_host.py): dispatch "
+                             "runs up to this many steps ahead of the "
+                             "host bookkeeping, which reads one packed "
+                             "device-to-host copy a step; 0 = "
+                             "synchronous (config default: 2).  Chaos "
+                             "drills asserting exact retry counts need 0")
     # The self-healing supervisor (engine/supervisor.py) and chaos drills.
     parser.add_argument("--supervise", action="store_true",
                         help="wrap training in the self-healing supervisor: "
@@ -237,7 +245,9 @@ def train_main(argv: Optional[List[str]] = None,
         learning_rate=args.learning_rate, remat=args.remat, seed=args.seed,
         attack_detection_enabled=not args.no_detection,
         **({"checkpoint_dir": args.checkpoint_dir}
-           if args.checkpoint_dir else {}))
+           if args.checkpoint_dir else {}),
+        **({"async_host_depth": args.async_host_depth}
+           if args.async_host_depth is not None else {}))
     overrides = {"seq_len": args.seq_len, **(model_overrides or {})}
     trainer = DistributedTrainer(config, model_overrides=overrides,
                                  device=args.device)

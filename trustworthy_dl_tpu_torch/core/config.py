@@ -13,14 +13,15 @@ model, checkpointing (``checkpoint_interval``, ``checkpoint_dir``,
 ``async_checkpoint``) and TensorBoard export: its defaults are the JAX
 package's (``weight_decay`` 0.0, ``detector_warmup`` 10,
 ``recovery_probation_steps`` 25, ``checkpoint_interval`` 100, ...).
-``parallelism``, ``num_microbatches``, ``elastic_resharding`` and
-``readmit_after_steps`` are carried with the JAX defaults so that
-:class:`ExperimentConfig` forwards them; ``DistributedTrainer`` refuses a
-value that asks for a mode not ported yet (the pipeline, tensor, sequence
-and expert modes, elastic eviction and readmission).  The async host
-pipeline and the ML tier are not ported yet, so their knobs are absent;
-so are ``exact_order_stats`` and ``dtype``, whose only reader in the JAX
-package is the ML tier's host detector.  :func:`load_experiment_config`
+The input prefetch (``prefetch_depth``) and the async host pipeline
+(``async_host_depth``) default to 2 as in JAX; elastic eviction and
+readmission (``elastic_resharding``, ``readmit_after_steps``) run in data
+mode.  ``parallelism`` and ``num_microbatches`` are carried with the JAX
+defaults so that :class:`ExperimentConfig` forwards them;
+``DistributedTrainer`` refuses a mode not ported yet (the pipeline,
+tensor, sequence and expert modes).  The ML tier is not ported yet, so
+its knobs are absent; so are ``exact_order_stats`` and ``dtype``, whose
+only reader in the JAX package is the ML tier's host detector.  :func:`load_experiment_config`
 reads an :class:`ExperimentConfig` from a YAML or JSON file.
 """
 
@@ -206,10 +207,19 @@ class TrainingConfig:
     tensorboard_dir: Optional[str] = None
     # Transfer rate of the migration-time model, GiB/s.
     migration_gbps: float = 1.0
-    # Elastic eviction and readmission (not ported: the trainer refuses
-    # True and > 0).
+    # Elastic eviction (confirmed nodes leave the node axis) and
+    # readmission after this many steps (0: never), data mode.
     elastic_resharding: bool = False
     readmit_after_steps: int = 0
+    # Input prefetch: batches assembled on a host thread ahead of the
+    # step (data/loader.PrefetchLoader).  0 disables.
+    prefetch_depth: int = 2
+    # Async host pipeline (engine/async_host.py): up to this many steps in
+    # flight, each step's host-facing metrics one packed device-to-host
+    # copy read lagged by up to this many steps.  0 is the synchronous
+    # loop.  Drills that assert FaultPlan.predict's exact retry counts
+    # need 0: the lagged guard runs no in-place retry.
+    async_host_depth: int = 2
     weight_decay: float = 0.0
     grad_clip_norm: float = 0.0        # 0 disables
     lr_schedule: str = "constant"      # constant | cosine | linear
@@ -235,6 +245,9 @@ class TrainingConfig:
                              f"{self.grad_accum_steps}")
         if self.num_nodes < 1:
             raise ValueError(f"num_nodes must be >= 1, got {self.num_nodes}")
+        if self.async_host_depth < 0:
+            raise ValueError("async_host_depth must be >= 0 (0 = "
+                             f"synchronous), got {self.async_host_depth}")
 
 
 @dataclass

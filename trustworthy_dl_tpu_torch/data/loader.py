@@ -5,15 +5,20 @@ Counterpart of the LM branch of ``trustworthy_dl_tpu/data/loader.py`` and
 of the numpy half of ``trustworthy_dl_tpu/native`` (splitmix64 streams,
 the affine next-token chain, Fisher-Yates permutations, window gathers),
 bit for bit: the same seed gives the same batches as the JAX package.
-Real corpora load from ``data_dir`` (``<name>.bin``, a flat uint16 token
-memmap); otherwise the synthetic source stands in.  The vision datasets
-are not ported yet.
+Real corpora load from ``data_dir`` or ``$TDDL_DATA_DIR``: ``<name>.bin``
+(a flat uint16 token memmap) first, else ``<name>.txt`` read as raw UTF-8
+bytes (byte-level ids, ``vocab_size`` >= 256), each split 95/5 into train
+and validation; otherwise the synthetic source stands in.
+:class:`PrefetchLoader` assembles the next batches on a background
+thread.  The vision datasets are not ported yet.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Optional
+import queue
+import threading
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -107,9 +112,16 @@ class ArrayDataLoader:
         else:
             idx = np.arange(len(self.inputs), dtype=np.int64)
         self._epoch += 1
-        for start in range(0, len(idx) - self.batch_size + 1,
-                           self.batch_size):
-            sel = idx[start:start + self.batch_size]
+        # ``batch_size`` is read again for every batch, so a re-size after
+        # an elastic topology change (``DistributedTrainer._resize_loader``)
+        # takes effect on the next batch, as in the JAX package.
+        start = 0
+        while start < len(idx):
+            bs = self.batch_size
+            sel = idx[start:start + bs]
+            start += bs
+            if len(sel) < bs:
+                break
             yield {"input": self.inputs[sel], "target": self.targets[sel]}
 
 
@@ -146,6 +158,68 @@ class TokenStreamLoader:
             yield {"input": inputs, "target": targets}
 
 
+class PrefetchLoader:
+    """Background-thread prefetch over any batch iterable: batch k + 1 is
+    assembled on the host while step k runs on the card.  The thread
+    yields the wrapped loader's numpy batches and holds no torch state; at
+    most ``depth`` batches wait in its bounded queue."""
+
+    def __init__(self, loader: Any, depth: int = 2):
+        self.loader = loader
+        self.depth = max(1, depth)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        sentinel = object()
+        errbox: list = []
+
+        def put(item: Any) -> bool:
+            """A bounded put that notices the consumer leaving: a plain
+            ``q.put`` would block forever on a full queue nobody reads."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+            except BaseException as exc:  # re-raised in the consumer
+                errbox.append(exc)
+            finally:
+                put(sentinel)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                yield item
+        finally:
+            # Normal exhaustion and early exit alike: release the producer
+            # and reap the thread.
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            worker.join(timeout=5)
+        if errbox:
+            raise errbox[0]
+
+
 def get_dataloader(dataset_name: str, split: str = "train",
                    batch_size: int = 32, seq_len: int = 128,
                    vocab_size: int = 50257,
@@ -153,7 +227,9 @@ def get_dataloader(dataset_name: str, split: str = "train",
                    data_dir: Optional[str] = None,
                    sampling: str = "epoch"):
     """LM loaders: "epoch" partitions the stream into fixed shuffled
-    windows, "windows" draws fresh random windows every batch."""
+    windows, "windows" draws fresh random windows every batch.  The
+    corpus comes from ``data_dir``, else ``$TDDL_DATA_DIR`` (module
+    docstring); nothing is fetched."""
     name = dataset_name.lower()
     if name not in ("openwebtext", "wikitext", "lm", "synthetic_lm"):
         raise ValueError(f"unknown or not yet ported dataset "
@@ -161,14 +237,28 @@ def get_dataloader(dataset_name: str, split: str = "train",
     if sampling not in ("epoch", "windows"):
         raise ValueError(f"sampling must be 'epoch' or 'windows', got "
                          f"{sampling!r}")
+    data_dir = data_dir or os.environ.get("TDDL_DATA_DIR", "")
     split_seed = seed + (0 if split == "train" else 10_000)
     n = num_examples or (2048 if split == "train" else 256)
     bin_path = os.path.join(data_dir, f"{name}.bin") if data_dir else ""
+    txt_path = os.path.join(data_dir, f"{name}.txt") if data_dir else ""
     if bin_path and os.path.exists(bin_path):
         tokens = np.memmap(bin_path, dtype=np.uint16, mode="r")
         cut = int(len(tokens) * 0.95)
         tokens = np.asarray(tokens[:cut] if split == "train"
                             else tokens[cut:], np.int32)
+    elif txt_path and os.path.exists(txt_path):
+        # Byte-level tier: any plain-text corpus trains without a
+        # tokenizer, its ids the raw UTF-8 bytes.
+        if vocab_size < 256:
+            raise ValueError(
+                f"byte-level corpus {txt_path} needs vocab_size >= 256 "
+                f"(got {vocab_size}): byte ids would exceed the "
+                "embedding table")
+        raw = np.memmap(txt_path, dtype=np.uint8, mode="r")
+        cut = int(len(raw) * 0.95)
+        tokens = np.asarray(raw[:cut] if split == "train" else raw[cut:],
+                            np.int32)
     else:
         tokens = synthetic_tokens(n * (seq_len + 1) + 1,
                                   min(vocab_size, 512), split_seed)
@@ -188,6 +278,6 @@ def get_dataloader(dataset_name: str, split: str = "train",
                            seed=split_seed)
 
 
-__all__ = ["ArrayDataLoader", "TokenStreamLoader", "get_dataloader",
-           "permutation", "splitmix_fill", "synthetic_tokens",
-           "window_gather"]
+__all__ = ["ArrayDataLoader", "PrefetchLoader", "TokenStreamLoader",
+           "get_dataloader", "permutation", "splitmix_fill",
+           "synthetic_tokens", "window_gather"]

@@ -11,6 +11,7 @@ after the warm-up.  The epoch-cadence ML tier and the host
 from __future__ import annotations
 
 import enum
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -94,6 +95,17 @@ def _rule_fired(z: torch.Tensor, evidence_mask: torch.Tensor
     return l2_hit | std_hit | shape_hit
 
 
+@functools.lru_cache(maxsize=None)
+def _family_types(device: torch.device) -> torch.Tensor:
+    """i32 [3]: the attack code of each evidence family, built once per
+    device (a fresh ``torch.tensor`` on a card is a blocking copy in
+    every step).  Read only."""
+    return torch.tensor([int(AttackType.GRADIENT_POISONING),
+                         int(AttackType.DATA_POISONING),
+                         int(AttackType.ADVERSARIAL_INPUT)],
+                        dtype=torch.int32, device=device)
+
+
 def classify_attack_dominant(z_grad: torch.Tensor, z_out: torch.Tensor
                              ) -> torch.Tensor:
     """The family whose signature columns carry the dominant z (norm ->
@@ -109,10 +121,7 @@ def classify_attack_dominant(z_grad: torch.Tensor, z_out: torch.Tensor
         torch.maximum(z_grad[..., i["skewness"]],
                       z_grad[..., i["kurtosis"]]))
     fams = torch.stack([norm_sig, data_sig, shape_sig], dim=-1)
-    types = torch.tensor([int(AttackType.GRADIENT_POISONING),
-                          int(AttackType.DATA_POISONING),
-                          int(AttackType.ADVERSARIAL_INPUT)],
-                         dtype=torch.int32, device=z_grad.device)
+    types = _family_types(z_grad.device)
     best = fams.argmax(dim=-1)
     return torch.where(fams.amax(dim=-1) >= 1.0, types[best],
                        _codes(norm_sig, AttackType.BYZANTINE))

@@ -133,7 +133,7 @@ def chunked_cosine_mean(flat: torch.Tensor, chunks: int = 4) -> torch.Tensor:
     vector (the step's O(P) stand-in for the pairwise battery)."""
     n = flat.shape[0] // chunks
     if n == 0:
-        return torch.tensor(1.0, device=flat.device)
+        return torch.ones((), device=flat.device)
     mat = flat[: n * chunks].reshape(chunks, n)
     norms = (mat * mat).sum(dim=1).sqrt()
     normed = mat / norms.clamp(min=1e-12)[:, None]

@@ -155,8 +155,9 @@ def _adopt(template: Any, saved: Any) -> Any:
             raise ValueError(
                 f"checkpoint leaf shape {tuple(saved.shape)} does not match "
                 f"template {tuple(template.shape)}: topology drift, not "
-                "structure drift (resume onto another node count waits "
-                "for elastic/)")
+                "structure drift (a resume onto another node count goes "
+                "through DistributedTrainer.load_checkpoint, which adopts "
+                "the saved topology first)")
         return saved.to(device=template.device, dtype=template.dtype)
     if isinstance(template, _SCALARS):
         return type(template)(saved)

@@ -182,9 +182,11 @@ class Optimizer:
                 mu.append(tr.to(t.dtype))
                 new_params.append(p + tr * step)
             return new_params, OptState(count, mu, nu)
-        bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=count.device),
+        # torch.full fills on the device: torch.tensor(x, device=...) is a
+        # blocking host-to-device copy inside every step.
+        bc1 = 1.0 - torch.pow(torch.full((), self.b1, device=count.device),
                               count.float())
-        bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=count.device),
+        bc2 = 1.0 - torch.pow(torch.full((), self.b2, device=count.device),
                               count.float())
         for g, m_old, v, p in zip(grads, state.mu, state.nu, params):
             m = (1.0 - self.b1) * g + _weak(self.b1, m_old.dtype) * m_old

@@ -141,7 +141,7 @@ def gradient_stat_vector(leaves: Sequence[Tensor], moments: Tensor,
     base, leaf_norms, finite, sample = st.leafwise_statistics(
         leaves, max_sort, moments)
     extra = torch.stack([
-        torch.tensor(float(len(leaves)), device=base.device),
+        torch.full((), float(len(leaves)), device=base.device),
         leaf_norms.mean(), leaf_norms.std(correction=0), leaf_norms.max(),
         st.chunked_cosine_mean(sample)])
     return torch.cat([base, extra]), leaf_norms, finite
@@ -176,6 +176,89 @@ class StepMetrics(NamedTuple):
     grad_stats: Tensor      # f32 [n, 17]
     model_aux: Optional[Dict[str, Tensor]] = None
     fleet_alert: Any = None  # bool [] debounced fleet norm surge
+
+
+class PackedMetrics(NamedTuple):
+    """One step's packed metrics: the fresh device vector, its host copy
+    (pinned, possibly still in flight on a card) and the event recorded
+    after the copy (None on the CPU)."""
+
+    device: Tensor
+    host: Tensor
+    event: Any
+
+
+class HostMetricsPacker:
+    """Packs every field of a step's :class:`StepMetrics` (and the
+    post-step ``fleet_raw_streak``, which the host must see at its value
+    of that step) into one fresh f32 device vector, and starts that
+    vector's one device-to-host copy at dispatch (``pack``).  ``unpack``
+    waits for the copy and restores each field's dtype and shape, so the
+    host reads what a synchronous read would have.  bool and the small
+    int32 codes survive f32 exactly.  The layout is fixed from a template
+    step; ``matches`` fails when the node count changed (an elastic
+    transition), and the pipeline builds a new packer.  Counterpart of
+    JAX's ``engine/step.py`` ``HostMetricsPacker``."""
+
+    def __init__(self, metrics: StepMetrics, fleet_streak: Any = None):
+        self._layout = []   # (key, shape, size, numpy dtype)
+        for key, leaf in self._leaves(metrics, fleet_streak):
+            np_dtype = torch.empty(0, dtype=leaf.dtype).numpy().dtype
+            self._layout.append((key, tuple(leaf.shape), leaf.numel(),
+                                 np_dtype))
+        self.total = sum(size for _, _, size, _ in self._layout)
+
+    @staticmethod
+    def _leaves(metrics: StepMetrics, fleet_streak: Any):
+        """(key, tensor) in field order, shared by layout and pack (the
+        port's steps leave ``model_aux`` None)."""
+        for name in StepMetrics._fields:
+            value = getattr(metrics, name)
+            if value is not None:
+                yield name, value
+        if fleet_streak is not None:
+            yield "fleet_raw_streak", fleet_streak
+
+    def matches(self, metrics: StepMetrics, fleet_streak: Any = None
+                ) -> bool:
+        """The template's fields and shapes?"""
+        probe = [(k, tuple(v.shape))
+                 for k, v in self._leaves(metrics, fleet_streak)]
+        return probe == [(k, shape) for k, shape, _, _ in self._layout]
+
+    def pack(self, metrics: StepMetrics, fleet_streak: Any = None
+             ) -> PackedMetrics:
+        """The packed vector and its host copy.  On a card the copy goes
+        to pinned memory without blocking, and an event is recorded after
+        it on the current stream; nothing here waits for the card."""
+        flat = torch.cat([leaf.float().reshape(-1)
+                          for _, leaf in self._leaves(metrics, fleet_streak)])
+        if flat.device.type != "cuda":
+            return PackedMetrics(flat, flat, None)
+        host = flat.to("cpu", non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PackedMetrics(flat, host, event)
+
+    def unpack(self, packed: PackedMetrics
+               ) -> Tuple[StepMetrics, Optional[Any]]:
+        """(StepMetrics of numpy arrays, fleet_raw_streak or None), after
+        the copy's event completes: a pinned buffer read before it holds
+        whatever was there."""
+        if packed.event is not None:
+            packed.event.synchronize()
+        flat = packed.host.numpy()
+        fields: Dict[str, Any] = {"model_aux": None, "fleet_alert": None}
+        streak = None
+        offset = 0
+        for key, shape, size, dtype in self._layout:
+            chunk = flat[offset:offset + size].astype(dtype).reshape(shape)
+            offset += size
+            if key == "fleet_raw_streak":
+                streak = chunk
+            else:
+                fields[key] = chunk
+        return StepMetrics(**fields), streak
 
 
 StepFn = Callable[..., Tuple[TrainState, StepMetrics]]
@@ -493,6 +576,7 @@ def build_node_eval_step(bundle: ModelBundle) -> EvalFn:
 
 __all__ = [
     "CROSS_SECTIONAL_THRESHOLD", "HARD_CROSS_Z", "LOSS_CROSS_Z",
-    "NORM_CROSS_Z", "StepMetrics", "build_eval_step", "build_node_eval_step",
-    "build_train_step", "gradient_stat_vector", "output_stat_vector",
+    "NORM_CROSS_Z", "HostMetricsPacker", "PackedMetrics", "StepMetrics",
+    "build_eval_step", "build_node_eval_step", "build_train_step",
+    "gradient_stat_vector", "output_stat_vector",
 ]

@@ -1,8 +1,8 @@
 """Self-healing training supervisor: keeps a run alive through the
 failures the trust stack does not cover.
 
-Counterpart of ``trustworthy_dl_tpu/engine/supervisor.py`` on the
-synchronous loop.  The in-step machinery neutralises a lying node, but the
+Counterpart of ``trustworthy_dl_tpu/engine/supervisor.py``.  The in-step
+machinery neutralises a lying node, but the
 run itself still dies or wedges on systemic faults: fleet-wide non-finite
 state, preempted hosts, truncated checkpoints.  The supervisor wraps
 :class:`DistributedTrainer` with the recovery ladder:
@@ -20,10 +20,13 @@ state, preempted hosts, truncated checkpoints.  The supervisor wraps
    checkpoint, at most ``max_restarts`` times.
 
 The guard only accepts steps, so periodic checkpoints are taken from sane
-state.  :meth:`TrainingSupervisor.report` carries the counters, keyed like
-``FaultPlan.predict``.  Not ported: the metrics-registry counter, the trace
-events and flight dumps (``obs/``), and the lagged guard of the async host
-pipeline.
+state.  Under the async host pipeline (``async_host_depth`` > 0) the
+verdict on a step arrives up to K steps late (``after_step(...,
+lagged=True)``): the in-place retries are skipped and a bad step counts
+straight toward the rollback, whose target predates the in-flight window.
+:meth:`TrainingSupervisor.report` carries the counters, keyed like
+``FaultPlan.predict``, which assumes depth 0.  Not ported: the
+metrics-registry counter, the trace events and flight dumps (``obs/``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import math
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.chaos.injector import FaultInjector, \
@@ -95,15 +99,22 @@ class TrainingSupervisor:
 
     @staticmethod
     def _verdict(metrics: StepMetrics) -> Dict[str, Any]:
-        """Loss, gradient norm and finite-node count, in one
-        device-to-host copy."""
-        flat = torch.cat([metrics.loss.reshape(1).float(),
-                          metrics.grad_norm.reshape(1).float(),
-                          metrics.finite.reshape(-1).float()]).cpu()
+        """Loss, gradient norm and finite-node count: one device-to-host
+        copy of device metrics, none of a lagged step's unpacked ones."""
+        if isinstance(metrics.loss, torch.Tensor):
+            flat = torch.cat([metrics.loss.reshape(1).float(),
+                              metrics.grad_norm.reshape(1).float(),
+                              metrics.finite.reshape(-1).float()]
+                             ).cpu().numpy()
+        else:
+            flat = np.concatenate([
+                np.asarray(metrics.loss, np.float32).reshape(1),
+                np.asarray(metrics.grad_norm, np.float32).reshape(1),
+                np.asarray(metrics.finite, np.float32).reshape(-1)])
         finite = flat[2:]
         return {"loss": float(flat[0]), "grad_norm": float(flat[1]),
                 "finite_nodes": int(finite.sum()),
-                "nodes": int(finite.numel())}
+                "nodes": int(finite.size)}
 
     @staticmethod
     def _bad(v: Dict[str, Any]) -> bool:
@@ -119,10 +130,18 @@ class TrainingSupervisor:
         return cls._bad(cls._verdict(metrics))
 
     def after_step(self, trainer: DistributedTrainer, node_batch: Any,
-                   metrics: StepMetrics) -> Optional[StepMetrics]:
+                   metrics: StepMetrics, lagged: bool = False
+                   ) -> Optional[StepMetrics]:
         """The trainer's step-guard hook: the metrics to account, or None
         when the step was rejected (and perhaps rolled back, with
-        ``trainer.global_step`` then at the restored step)."""
+        ``trainer.global_step`` then at the restored step).
+
+        ``lagged=True``: the verdict arrives up to K steps after the step
+        ran, with ``trainer.state`` already at the dispatch frontier.
+        Re-running a K-step-old batch against that state is another
+        computation, so no retry runs and the bad step counts toward the
+        rollback at once; the newest verified checkpoint predates the
+        window (saves drain fully first)."""
         if self._preempt_flag:
             self._preempt_flag = False
             raise PreemptionSignal("SIGTERM received")
@@ -130,12 +149,15 @@ class TrainingSupervisor:
         if not self._bad(v):
             self._bad_streak = 0
             return metrics
+        retries = 0 if lagged else self.max_retries
         logger.warning(
             "Supervisor: bad step %d (loss=%s, grad_norm=%s, "
-            "finite_nodes=%d/%d): retrying up to %d time(s)",
+            "finite_nodes=%d/%d)%s: retrying up to %d time(s)",
             trainer.global_step, v["loss"], v["grad_norm"],
-            v["finite_nodes"], v["nodes"], self.max_retries)
-        for attempt in range(self.max_retries):
+            v["finite_nodes"], v["nodes"],
+            " [lagged verdict: no in-place retry]" if lagged else "",
+            retries)
+        for attempt in range(retries):
             self.retries += 1
             if self.backoff_base_s > 0:
                 time.sleep(self.backoff_base_s * (2 ** attempt))

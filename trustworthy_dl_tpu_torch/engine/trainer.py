@@ -1,10 +1,10 @@
 """DistributedTrainer: the host loop around the trusted training step.
 
-Counterpart of ``trustworthy_dl_tpu/engine/trainer.py`` on its synchronous
+Counterpart of ``trustworthy_dl_tpu/engine/trainer.py`` on its
 data-parallel path: every batch is split over the logical nodes and runs
 one :func:`engine.step.build_train_step` call; the host reads the step's
-metrics in one device-to-host copy per step (the step's one sync), records
-them in its :class:`MetricsCollector`, records confirmed incidents
+metrics in one packed device-to-host copy per step, records them in its
+:class:`MetricsCollector`, records confirmed incidents
 (``attack_history``), mirrors compromises into the host
 :class:`TrustManager`, hands the flagged node's work to the most trusted
 node (``reassignment_history``, with the migration-time model's estimate)
@@ -13,6 +13,18 @@ plan (``detection_stats``).  At epoch cadence it absorbs the device trust
 and monitor state (``trust_manager``, ``node_monitor``), pushes the
 adaptive threshold back, and, given a validation loader, evaluates
 (``validate_metrics``).
+
+The loop, as in JAX: batches are assembled on a host thread
+(``prefetch_depth``, :class:`data.loader.PrefetchLoader`), and at
+``async_host_depth`` = K > 0 up to K steps are in flight while the host
+reads each step's packed metrics K steps late
+(:mod:`engine.async_host`); depth 0 reads every step before the next.
+With ``elastic_resharding`` a confirmed node leaves the node axis
+(:mod:`elastic.reassignment`: its per-node rows compacted, the steps
+rebuilt, the loader re-sized) and, with ``readmit_after_steps`` > 0,
+returns on probation after that many steps; a checkpoint's sidecar
+carries the topology and the pending cool-offs, and a resume adopts
+them.
 
 Durability, as in the JAX package: ``save_checkpoint`` /
 ``load_checkpoint`` through :class:`engine.checkpoint.CheckpointManager`
@@ -24,15 +36,16 @@ two per-run hooks that a reset detaches: ``chaos`` (a
 
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
-runs its plain PyTorch version.  Not ported yet: the async host pipeline,
-telemetry, elastic eviction and readmission (so a resume onto another
-node count), the ML detector tier, and the pipeline, tensor, sequence and
-expert modes; a configuration that asks for one raises
-``NotImplementedError`` at construction.
+runs its plain PyTorch version.  Not ported yet: telemetry (the obs
+events and step-timer laps), the ML detector tier, and the pipeline,
+tensor, sequence and expert modes (with their elastic forms); a
+configuration that asks for one raises ``NotImplementedError`` at
+construction.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import logging
 import time
@@ -46,14 +59,18 @@ from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     null_plan
 from trustworthy_dl_tpu_torch.core.config import NodeConfig, \
     TrainingConfig
+from trustworthy_dl_tpu_torch.data.loader import PrefetchLoader
 from trustworthy_dl_tpu_torch.detect.detector import AttackType
 from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
+from trustworthy_dl_tpu_torch.elastic.reassignment import \
+    evict_and_reshard, readmit_and_reshard
+from trustworthy_dl_tpu_torch.engine.async_host import AsyncHostPipeline
 from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
 from trustworthy_dl_tpu_torch.engine.optimizer import build_optimizer
 from trustworthy_dl_tpu_torch.engine.state import TrainState, \
     init_train_state
-from trustworthy_dl_tpu_torch.engine.step import StepMetrics, \
-    build_node_eval_step, build_train_step
+from trustworthy_dl_tpu_torch.engine.step import HostMetricsPacker, \
+    StepMetrics, build_node_eval_step, build_train_step
 from trustworthy_dl_tpu_torch.models.factory import create_model
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
@@ -64,7 +81,7 @@ from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
 
 logger = logging.getLogger(__name__)
 
-#: The [n] step metrics the host reads every step (see ``_host_view``).
+#: The [n] step metrics the host records every step (``_host_record``).
 _HOST_FIELDS = ("per_node_loss", "weights", "trust_scores", "out_score",
                 "grad_score", "attacked", "finite", "status", "attack_type")
 
@@ -87,7 +104,6 @@ class DistributedTrainer:
                  model_overrides: Optional[Dict[str, Any]] = None,
                  device: Any = "cuda"):
         _refuse_unported(config)
-        self.config = config
         self.device = resolve_device(device)
         overrides = dict(model_overrides or {})
         if config.lm_head_chunk >= 0:
@@ -97,13 +113,22 @@ class DistributedTrainer:
             overrides.setdefault("remat_policy", config.remat_policy)
         self.model = create_model(config.model_name, **overrides)
         self.optimizer = build_optimizer(config)
-        self._train_step = build_train_step(self.model, config,
-                                            self.optimizer)
-        self._eval_step = build_node_eval_step(self.model)
+        self._rebuild_steps(config)
         self.checkpointer = CheckpointManager(config.checkpoint_dir)
+        # The built steps are shaped for this node count (reset_for_run).
+        self._constructed_num_nodes = config.num_nodes
         self.state: Optional[TrainState] = None
         self.training_state = TrainingState.INITIALIZING
         self._init_host_state()
+
+    def _rebuild_steps(self, config: TrainingConfig) -> None:
+        """Adopt ``config`` and build its train and eval steps: a step
+        reads the node count when built, so a topology change rebuilds
+        them."""
+        self.config = config
+        self._train_step = build_train_step(self.model, config,
+                                            self.optimizer)
+        self._eval_step = build_node_eval_step(self.model)
 
     def _init_host_state(self) -> None:
         """Per-run host world-view, shared by the constructor and
@@ -132,7 +157,8 @@ class DistributedTrainer:
         self.reassignment_history: List[Dict] = []
         self._fleet_tracker = FleetEpisodeTracker()
         self.fleet_alerts: List[Dict] = self._fleet_tracker.episodes
-        # Step coordinate -> node id (identity: eviction is not ported).
+        # Step coordinate -> original node id: identity until an elastic
+        # eviction removes coordinates; host bookkeeping keys on ids.
         self.node_map: List[int] = list(range(config.num_nodes))
         # Nodes in a recorded-compromised episode: an incident is recorded
         # on the clean -> compromised transition only.
@@ -141,16 +167,31 @@ class DistributedTrainer:
             tensorboard_dir=config.tensorboard_dir)
         self.attack_plan: AttackPlan = null_plan(config.num_nodes,
                                                  self.device)
-        # Per original id, the attack plan's injection bit.
+        # Per original id, the attack plan's injection bit (a readmitted
+        # node's schedule survives the mask's compaction and expansion).
         self._plan_bits: Dict[int, bool] = {}
+        # Elastic bookkeeping: original id -> eviction step, and the
+        # devices it left (always [] on one card; the sidecar's shape).
+        self._evicted_at: Dict[int, int] = {}
+        self._evicted_devices: Dict[int, List[Any]] = {}
+        # The live loader, re-sized after a topology change; the per-node
+        # batch is taken from each epoch's first batch.  ``_trim_grace``
+        # counts the old-size batches still queued after a re-size.
+        self._active_loader: Any = None
+        self._per_node_batch: Optional[int] = None
+        self._trim_grace = 0
+        # While a lagged step drains (engine/async_host.py): its
+        # DrainContext, which defers elastic evictions to the frontier.
+        self._drain_ctx: Any = None
         # Durability hooks, per run so that a reset detaches them:
         # ``chaos`` is a chaos.FaultInjector consulted in the step loop;
         # ``step_guard`` implements ``after_step(trainer, node_batch,
-        # metrics) -> Optional[StepMetrics]``, None rejecting the step
-        # (the trainer must not account it).  A supervisor also wires its
-        # injector into the checkpointer's commit hooks: detach that too,
-        # or a previous run's unfired checkpoint faults would fire in the
-        # next run.
+        # metrics, lagged=False) -> Optional[StepMetrics]``, None
+        # rejecting the step (the trainer must not account it); the
+        # async drain calls it with ``lagged=True`` and no batch.  A
+        # supervisor also wires its injector into the checkpointer's
+        # commit hooks: detach that too, or a previous run's unfired
+        # checkpoint faults would fire in the next run.
         self.chaos: Any = None
         self.step_guard: Any = None
         # When the last accepted step's host copy landed (step_s).
@@ -195,7 +236,12 @@ class DistributedTrainer:
         """A fresh run on the same built steps: device state (params,
         optimizer, trust, detector baselines) and the host world-view
         (trust manager, monitor, incident records, detection counts, step
-        counter, attack plan) start over."""
+        counter, attack plan) start over.  Raises after a topology change:
+        the steps were rebuilt for another node count."""
+        if self.config.num_nodes != self._constructed_num_nodes or \
+                self.node_map != list(range(self._constructed_num_nodes)):
+            raise RuntimeError("reset_for_run after a topology change; "
+                               "rebuild the trainer instead")
         self._init_host_state()
         return self.initialize(seed=seed)
 
@@ -220,10 +266,12 @@ class DistributedTrainer:
                     for_eval: bool = False
                     ) -> Optional[Dict[str, torch.Tensor]]:
         """[B, ...] -> [n, B // n, ...] on the device.  Training trims B
-        to a multiple of num_nodes x grad_accum_steps and raises below it.
-        Validation
-        (``for_eval``) drops nothing: a batch that does not split evenly
-        over the nodes is one row of B; an empty batch gives None."""
+        to a multiple of num_nodes x grad_accum_steps and raises below it,
+        except for an old-size batch still queued after a topology grew
+        (``_trim_grace``), which gives None: the caller skips it.
+        Validation (``for_eval``) drops nothing: a batch that does not
+        split evenly over the nodes is one row of B; an empty batch gives
+        None."""
         n = self.config.num_nodes
         lead = min(arr.shape[0] for arr in batch.values())
         if for_eval:
@@ -233,6 +281,10 @@ class DistributedTrainer:
             return self._rows(batch, lead, rows)
         quantum = n * self.config.grad_accum_steps
         b = (lead // quantum) * quantum
+        if b < lead and self._trim_grace > 0:
+            self._trim_grace -= 1
+            if b == 0:
+                return None
         if b == 0:
             raise ValueError(f"batch size {lead} < num_nodes x "
                              f"grad_accum_steps = {quantum}")
@@ -240,9 +292,18 @@ class DistributedTrainer:
 
     def _rows(self, batch: Dict[str, np.ndarray], b: int, rows: int
               ) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(arr[:b]).reshape(
-                    (rows, b // rows) + arr.shape[1:]), dtype=torch.long
-                ).to(self.device) for k, arr in batch.items()}
+        """Host rows to the device.  On a card the rows go through pinned
+        memory with a copy that does not block the host (a pageable
+        ``.to`` waits for every queued step); the step that reads them
+        runs after the copy on the same stream."""
+        out = {}
+        for k, arr in batch.items():
+            t = torch.as_tensor(np.asarray(arr[:b]).reshape(
+                (rows, b // rows) + arr.shape[1:]), dtype=torch.long)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t.to(self.device)
+        return out
 
     # ------------------------------------------------------------------
     # Training
@@ -254,38 +315,86 @@ class DistributedTrainer:
             self.initialize()
         self.current_epoch = epoch
         epoch_loss, num_batches = 0.0, 0
+        # The per-node batch is taken again from this loader's first
+        # batch, so a later epoch's loader is never re-sized against a
+        # stale capture.
+        self._per_node_batch = None
+        if self.config.prefetch_depth > 0 and not isinstance(
+                dataloader, PrefetchLoader):
+            dataloader = PrefetchLoader(dataloader,
+                                        depth=self.config.prefetch_depth)
+        self._active_loader = dataloader
+        depth = self.config.async_host_depth
+        pipe = AsyncHostPipeline(self, depth) if depth > 0 else None
         self._t_prev = time.perf_counter()
-        for batch_idx, batch in enumerate(dataloader):
-            self.global_step += 1
-            if self.chaos is not None:
-                # A lost batch is not a step; a stall sleeps; a simulated
-                # preemption raises for the supervisor to catch.
-                batch = self.chaos.on_batch(self.global_step, batch)
-                if batch is None:
+        try:
+            for batch_idx, batch in enumerate(dataloader):
+                self.global_step += 1
+                if self._per_node_batch is None:
+                    lead = min(arr.shape[0] for arr in batch.values())
+                    per = lead // (self.config.num_nodes
+                                   * self.config.grad_accum_steps)
+                    if per > 0:
+                        self._per_node_batch = per
+                if self.chaos is not None:
+                    # A lost batch is not a step; a stall sleeps; a
+                    # simulated preemption raises for the supervisor.
+                    batch = self.chaos.on_batch(self.global_step, batch)
+                    if batch is None:
+                        self.global_step -= 1
+                        continue
+                    self.chaos.on_step_start(self.global_step)
+                node_batch = self._node_batch(batch)
+                if node_batch is None:      # a stale undersized batch
                     self.global_step -= 1
                     continue
-                self.chaos.on_step_start(self.global_step)
-            node_batch = self._node_batch(batch)
-            self.state, metrics = self._train_step(self.state, node_batch,
-                                                   self.attack_plan)
-            if self.chaos is not None:
-                self.state, metrics = self.chaos.on_step_end(
-                    self.global_step, self.state, metrics)
-            if self.step_guard is not None:
-                metrics = self.step_guard.after_step(self, node_batch,
-                                                     metrics)
-                if metrics is None:
-                    # Rejected (and perhaps rolled back, global_step then
-                    # restored): nothing to account.
+                self.state, metrics = self._train_step(
+                    self.state, node_batch, self.attack_plan)
+                if self.chaos is not None:
+                    self.state, metrics = self.chaos.on_step_end(
+                        self.global_step, self.state, metrics)
+                if pipe is not None:
+                    # Pack and start the host copy, then drain what fell
+                    # out of the window.  A record's step_s is the wall
+                    # between two dispatches.
+                    now = time.perf_counter()
+                    pipe.push(epoch, batch_idx, metrics, self.state,
+                              now - self._t_prev)
+                    self._t_prev = now
+                    dispatched = self.global_step
+                    pipe.drain()
+                    if dispatched % self.config.checkpoint_interval == 0:
+                        pipe.drain(0)   # a full drain before a save
+                        # Save only a frontier that survived its drain: a
+                        # rollback moved the counter, and a rejected step
+                        # must not become "verified".
+                        if self.global_step == dispatched and \
+                                pipe.last_rejected_step != dispatched:
+                            self.save_checkpoint()
                     continue
-            record = self._account(metrics, epoch)
-            epoch_loss += record["loss"]
-            num_batches += 1
-            if self.global_step % self.config.checkpoint_interval == 0:
-                self.save_checkpoint()
-            if batch_idx % 10 == 0:
-                logger.info("Epoch %d, Batch %d, Loss: %.4f", epoch,
-                            batch_idx, record["loss"])
+                if self.step_guard is not None:
+                    metrics = self.step_guard.after_step(self, node_batch,
+                                                         metrics)
+                    if metrics is None:
+                        # Rejected (and perhaps rolled back, global_step
+                        # then restored): nothing to account.
+                        continue
+                record = self._account(metrics, epoch)
+                self._maybe_readmit()
+                epoch_loss += record["loss"]
+                num_batches += 1
+                if self.global_step % self.config.checkpoint_interval == 0:
+                    self.save_checkpoint()
+                if batch_idx % 10 == 0:
+                    logger.info("Epoch %d, Batch %d, Loss: %.4f", epoch,
+                                batch_idx, record["loss"])
+        finally:
+            if pipe is not None:
+                # The full drain that epoch aggregation, the host sync
+                # below and a preemption's save all need.
+                pipe.drain(0)
+                epoch_loss += pipe.epoch_loss
+                num_batches += pipe.num_batches
         self.sync_host_state()
         self._epoch_intelligence()
         avg = epoch_loss / max(num_batches, 1)
@@ -297,8 +406,8 @@ class DistributedTrainer:
 
     def train_step(self, batch: Dict[str, np.ndarray], epoch: int
                    ) -> Dict[str, Any]:
-        """One trusted step on a host batch, without the durability hooks;
-        returns its ``batch_history`` record."""
+        """One trusted step on a host batch, synchronously and without the
+        durability hooks; returns its ``batch_history`` record."""
         self.global_step += 1
         node_batch = self._node_batch(batch)
         self.state, metrics = self._train_step(self.state, node_batch,
@@ -306,11 +415,11 @@ class DistributedTrainer:
         return self._account(metrics, epoch)
 
     def _account(self, metrics: StepMetrics, epoch: int) -> Dict[str, Any]:
-        """Host view, step time and records of an accepted step.  A
-        record's ``step_s`` is the wall since the previous accepted step's
-        host copy landed (the previous step's record-keeping, this step's
-        batch in, its step and its host copy), so the steps tile the
-        epoch."""
+        """Host view, step time and records of an accepted step on the
+        synchronous loop.  A record's ``step_s`` is the wall since the
+        previous accepted step's host copy landed (the previous step's
+        record-keeping, this step's batch in, its step and its host
+        copy), so the steps tile the epoch."""
         self.metrics_collector.tick()
         host = self._host_view(metrics)
         now = time.perf_counter()
@@ -322,34 +431,31 @@ class DistributedTrainer:
         """Adaptive trust threshold, pushed back into the step's state."""
         if self.config.adaptive_thresholds:
             self.trust_manager.adaptive_threshold_adjustment()
-            threshold = torch.tensor(self.trust_manager.trust_threshold,
-                                     dtype=torch.float32, device=self.device)
+            threshold = torch.full((), self.trust_manager.trust_threshold,
+                                   dtype=torch.float32, device=self.device)
             self.state = self.state._replace(
                 trust=self.state.trust._replace(threshold=threshold))
 
     def _host_view(self, metrics: StepMetrics) -> Dict[str, Any]:
-        """The metrics the host reads, in the step's one device-to-host
-        copy: every field packed into one f32 vector (the ints and bools
-        are small, so f32 holds them exactly)."""
-        parts = [metrics.loss.reshape(1)] + [getattr(metrics, k)
-                                             for k in _HOST_FIELDS]
+        """The synchronous read of a step: pack (with the post-step fleet
+        streak), wait for the one host copy, unpack."""
+        streak = self.state.fleet_raw_streak
+        packer = HostMetricsPacker(metrics, streak)
+        return self._host_record(*packer.unpack(packer.pack(metrics,
+                                                            streak)))
+
+    @staticmethod
+    def _host_record(metrics: StepMetrics, streak: Any) -> Dict[str, Any]:
+        """The fields ``_record_batch`` reads, from unpacked (numpy)
+        metrics."""
+        out: Dict[str, Any] = {"loss": float(metrics.loss)}
+        for key in _HOST_FIELDS:
+            out[key] = np.asarray(getattr(metrics, key))
         fleet = metrics.fleet_alert is not None
-        if fleet:
-            parts += [metrics.fleet_alert.reshape(1),
-                      self.state.fleet_raw_streak]
-        flat = torch.cat([p.float().reshape(-1) for p in parts]
-                         ).cpu().numpy()
-        n = self.config.num_nodes
-        host: Dict[str, Any] = {"loss": float(flat[0])}
-        for i, key in enumerate(_HOST_FIELDS):
-            host[key] = flat[1 + i * n:1 + (i + 1) * n]
-        for key in ("attacked", "finite"):
-            host[key] = host[key] != 0
-        for key in ("status", "attack_type"):
-            host[key] = host[key].astype(np.int64)
-        host["fleet_alert"] = bool(flat[-2]) if fleet else None
-        host["fleet_streak"] = int(flat[-1]) if fleet else None
-        return host
+        out["fleet_alert"] = bool(metrics.fleet_alert) if fleet else None
+        out["fleet_streak"] = int(np.asarray(streak).reshape(-1)[0]) \
+            if fleet and streak is not None else None
+        return out
 
     def _record_batch(self, host: Dict[str, Any], epoch: int,
                       step_s: Optional[float] = None) -> Dict[str, Any]:
@@ -377,11 +483,14 @@ class DistributedTrainer:
                 self.training_state = TrainingState.UNDER_ATTACK
 
         flagged = attacked | ~finite
+        # Evicted nodes have no coordinate: their incidents stay open.
+        coord_of = {orig: i for i, orig in enumerate(id_of)}
         for orig in list(self._open_incidents):
-            coord = id_of.index(orig)
-            if not flagged[coord] and status[coord] != int(
-                    NodeStatus.COMPROMISED):
+            coord = coord_of.get(orig)
+            if coord is not None and not flagged[coord] and status[coord] \
+                    != int(NodeStatus.COMPROMISED):
                 self._open_incidents.discard(orig)
+        evict_coords: List[int] = []
         if flagged.any():
             flagged_ids = {id_of[int(c)] for c in np.nonzero(flagged)[0]}
             for coord in np.nonzero(flagged)[0]:
@@ -393,7 +502,81 @@ class DistributedTrainer:
                     orig, AttackType(int(host["attack_type"][coord])).label
                     if attacked[coord] else "gradient_verification_failure",
                     host, int(coord), flagged_ids)
+                evict_coords.append(int(coord))
+        if self._drain_ctx is not None:
+            # A lagged drain: the entries still in flight were packed for
+            # this node count, so the eviction waits for the frontier.
+            self._drain_ctx.evict_coords.update(evict_coords)
+        else:
+            self._apply_evictions(evict_coords)
         return record
+
+    # ------------------------------------------------------------------
+    # Elasticity (data mode on one card; elastic/reassignment.py)
+    # ------------------------------------------------------------------
+
+    def _apply_evictions(self, evict_coords: Sequence[int]) -> None:
+        """Evict confirmed coordinates and re-size the loader; a lagged
+        drain defers this to a full-drain point, the synchronous loop
+        calls it at once."""
+        evict_coords = list(evict_coords)
+        if not (evict_coords and self.config.elastic_resharding
+                and len(evict_coords) < self.config.num_nodes):
+            return
+        record = evict_and_reshard(self, evict_coords)
+        record["step"] = self.global_step
+        self.reassignment_history.append(record)
+        for orig in record["evicted_nodes"]:
+            self._evicted_at[int(orig)] = self.global_step
+        self._resize_loader()
+
+    def _readmit_due(self) -> bool:
+        """Would :meth:`_maybe_readmit` act now?  The pipeline polls this
+        to know when a readmission needs a full drain."""
+        cfg = self.config
+        if not (cfg.elastic_resharding and cfg.readmit_after_steps > 0
+                and self._evicted_at):
+            return False
+        return any(self.global_step - when >= cfg.readmit_after_steps
+                   for when in self._evicted_at.values())
+
+    def _maybe_readmit(self) -> None:
+        """Readmit the evicted nodes whose cool-off
+        (``readmit_after_steps``) has passed, on probation: without it a
+        false-positive eviction costs 1/n of the fleet for the rest of the
+        run."""
+        if not self._readmit_due():
+            return
+        cfg = self.config
+        due = sorted(nid for nid, when in self._evicted_at.items()
+                     if self.global_step - when >= cfg.readmit_after_steps)
+        record = readmit_and_reshard(self, due)
+        record["step"] = self.global_step
+        self.reassignment_history.append(record)
+        self._resize_loader()
+
+    def _resize_loader(self) -> None:
+        """Re-size the live loader after a topology change so its batch
+        divides nodes x accumulation again (otherwise every later batch is
+        trimmed).  Works on a loader with a ``batch_size`` attribute (both
+        of the package's); another keeps the trimming."""
+        loader = self._active_loader
+        if loader is None or self._per_node_batch is None:
+            return
+        new_bs = (self._per_node_batch * self.config.num_nodes
+                  * self.config.grad_accum_steps)
+        target = loader.loader if isinstance(loader, PrefetchLoader) \
+            else loader
+        if hasattr(target, "batch_size") and target.batch_size != new_bs:
+            logger.info("Loader re-sized for the new topology: batch %d -> "
+                        "%d (%d nodes x %d a node x %d accumulation)",
+                        target.batch_size, new_bs, self.config.num_nodes,
+                        self._per_node_batch, self.config.grad_accum_steps)
+            target.batch_size = new_bs
+            self.config = dataclasses.replace(self.config,
+                                              batch_size=new_bs)
+            # Old-size batches may already wait in the prefetch queue.
+            self._trim_grace = max(self.config.prefetch_depth, 1) + 1
 
     def _handle_detected_attack(self, node_id: int, attack_type: str,
                                 host: Dict[str, Any], coord: int,
@@ -418,7 +601,9 @@ class DistributedTrainer:
                 "anomaly_score": float(host["out_score"][coord]),
                 "gradient_score": float(host["grad_score"][coord])}})
         self.trust_manager.mark_compromised(node_id, attack_type)
-        self.reassign_node_tasks(node_id, exclude)
+        if not self.config.elastic_resharding:
+            # The greedy hand-off; elastic mode evicts the node instead.
+            self.reassign_node_tasks(node_id, exclude)
         self.training_state = TrainingState.UNDER_ATTACK
 
     def reassign_node_tasks(self, compromised_node_id: int,
@@ -571,18 +756,40 @@ class DistributedTrainer:
             "num_nodes": self.config.num_nodes,
             "node_map": list(self.node_map),
             "parallelism": self.config.parallelism,
+            # Evicted ids have no device row: their standing survives the
+            # resume on the host.
             "compromised_nodes": sorted(
                 int(i) for i in self.trust_manager.get_compromised_nodes()),
-            # Elastic bookkeeping, empty until elastic/ is ported.
-            "evicted_at": {}, "evicted_devices": {}, "idle_pool": {},
+            # Pending cool-offs survive a resume, or an eviction would
+            # silently become permanent.  No device leaves one card, and
+            # the idle pool belongs to the pipeline restaff (Slice 4).
+            "evicted_at": {str(nid): int(step)
+                           for nid, step in self._evicted_at.items()},
+            "evicted_devices": {str(nid): []
+                                for nid in self._evicted_devices},
+            "idle_pool": {},
         })
         return path
+
+    def _adopt_topology(self, meta: Dict[str, Any]) -> None:
+        """Rebuild the steps and the state's template for a checkpoint
+        saved on another node count (after an eviction)."""
+        n = int(meta["num_nodes"])
+        logger.info("Checkpoint topology has %d node(s) (config says %d): "
+                    "adopting the saved topology", n, self.config.num_nodes)
+        self._rebuild_steps(dataclasses.replace(self.config, num_nodes=n))
+        self.node_map = [int(i) for i in meta["node_map"]]
+        # The attack plan was shaped for the old node count: reset it
+        # (the caller plans again).
+        self.attack_plan = null_plan(n, self.device)
+        self.state = None   # the template takes the new shapes
 
     def load_checkpoint(self, step: Optional[int] = None) -> TrainState:
         """Restore the whole world-view (weights, optimizer, trust,
         detector baselines, step, epoch and the generator), then mirror it
         into the host objects.  ``step=None`` takes the newest verified
-        step.  A checkpoint of another node count waits for elastic/."""
+        step.  A checkpoint saved after an eviction restores onto its
+        saved topology, with its pending cool-offs."""
         if step is None:
             step = self.checkpointer.latest_step()
             if step is None:
@@ -590,16 +797,18 @@ class DistributedTrainer:
                     f"no checkpoints under {self.config.checkpoint_dir}")
         meta = self.checkpointer.load_metadata(step)
         if meta and int(meta["num_nodes"]) != self.config.num_nodes:
-            raise NotImplementedError(
-                f"checkpoint step {step} was saved with "
-                f"{meta['num_nodes']} node(s), the config has "
-                f"{self.config.num_nodes}: a resume onto another node "
-                "count needs elastic/ (ROADMAP Slice 4), not ported yet")
+            self._adopt_topology(meta)
         if self.state is None:
             self.initialize()
         self.state = self.checkpointer.restore(self.state, step)
         if meta:
             self.node_map = [int(i) for i in meta["node_map"]]
+            # Ids may exceed the constructor's node count (a trainer built
+            # with the post-eviction count): grow the host bookkeeping.
+            max_id = max(self.node_map + [int(i) for i in
+                                          meta.get("compromised_nodes", [])],
+                         default=-1)
+            self.trust_manager.grow_to(max_id + 1)
             live = set(self.node_map)
             for node_id in meta.get("compromised_nodes", []):
                 node_id = int(node_id)
@@ -610,6 +819,10 @@ class DistributedTrainer:
                     # standing directly, once.
                     self.trust_manager.mark_compromised(
                         node_id, attack_type="restored_from_checkpoint")
+            self._evicted_at = {int(k): int(v) for k, v in
+                                meta.get("evicted_at", {}).items()}
+            self._evicted_devices = {int(k): [] for k in
+                                     meta.get("evicted_devices", {})}
         self.global_step = int(self.state.step)
         self.sync_host_state()
         return self.state
@@ -630,14 +843,6 @@ def _refuse_unported(config: TrainingConfig) -> None:
         raise NotImplementedError(
             f"parallelism={config.parallelism!r} is not ported yet (ROADMAP "
             "Slice 4: parallel/); the port trains 'data'")
-    if config.elastic_resharding:
-        raise NotImplementedError(
-            "elastic_resharding=True is not ported yet (ROADMAP Slice 4: "
-            "elastic/)")
-    if config.readmit_after_steps > 0:
-        raise NotImplementedError(
-            "readmit_after_steps > 0 is not ported yet (ROADMAP Slice 4: "
-            "elastic/)")
 
 
 __all__ = ["DistributedTrainer", "TrainingState"]

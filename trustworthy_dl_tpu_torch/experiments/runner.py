@@ -81,8 +81,8 @@ class ExperimentRunner:
     # ------------------------------------------------------------------
 
     def setup_experiment(self) -> None:
-        # The trainer refuses the modes the port has not got (parallel/,
-        # elastic/); the runner refuses the models.
+        # The trainer refuses the modes the port has not got (parallel/);
+        # the runner refuses the models.
         if not self.config.model_name.startswith("gpt2"):
             raise NotImplementedError(
                 f"model {self.config.model_name!r} is not ported yet "

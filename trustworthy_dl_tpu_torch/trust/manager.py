@@ -35,6 +35,8 @@ class TrustManager:
                  alpha: float = 0.1):
         self.num_nodes = num_nodes
         self.initial_trust = initial_trust
+        self.default_decay_rate = decay_rate
+        self.default_recovery_rate = recovery_rate
         self.alpha = alpha
         # Clock for standalone updates: wall seconds since construction
         # (f32 keeps sub-ms resolution there, not at epoch magnitudes).
@@ -104,6 +106,22 @@ class TrustManager:
             "previous_trust": prior})
         logger.warning("trust: node %d compromised (%s)", node_id,
                        attack_type)
+
+    def grow_to(self, num_nodes: int) -> None:
+        """Fresh rows for ids up to ``num_nodes - 1`` (a resume whose node
+        map names ids the constructor did not)."""
+        if num_nodes <= self.num_nodes:
+            return
+        old, n_old = self._state, self.num_nodes
+        fresh = ts.init_trust_state(
+            num_nodes, trust_threshold=self.trust_threshold,
+            initial_trust=self.initial_trust,
+            decay_rate=self.default_decay_rate,
+            recovery_rate=self.default_recovery_rate, now=self._now())
+        self._state = fresh._replace(**{
+            key: torch.cat([getattr(old, key), getattr(fresh, key)[n_old:]])
+            for key in TrustState._fields if key != "threshold"})
+        self.num_nodes = num_nodes
 
     def initiate_recovery(self, node_id: int) -> None:
         self._state = ts.initiate_recovery(self._state,

@@ -20,6 +20,7 @@ Every function keeps its inputs' device.
 from __future__ import annotations
 
 import enum
+import functools
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -105,9 +106,15 @@ def instantaneous_trust(metrics: torch.Tensor) -> torch.Tensor:
         one - torch.minimum(one, metrics[..., 4]),
         metrics[..., 5],
     ], dim=-1)
-    weights = torch.tensor(TRUST_WEIGHTS, dtype=torch.float32,
-                           device=metrics.device)
-    return (components @ weights).clamp(0.0, 1.0)
+    return (components @ _trust_weights(metrics.device)).clamp(0.0, 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _trust_weights(device: torch.device) -> torch.Tensor:
+    """f32 [6] ``TRUST_WEIGHTS``, built once per device (a fresh
+    ``torch.tensor`` on a card is a blocking copy in every step).  Read
+    only."""
+    return torch.tensor(TRUST_WEIGHTS, dtype=torch.float32, device=device)
 
 
 def next_status(status: torch.Tensor, trust: torch.Tensor,
@@ -138,8 +145,11 @@ def update_trust(state: TrustState, output_deviation: torch.Tensor,
     """One trust update for all nodes at once.  ``extra_metrics`` ([n, 4])
     supplies columns 2..5; ``update_mask`` ([n] bool) leaves masked-out
     nodes untouched."""
-    now = torch.as_tensor(now, dtype=torch.float32,
-                          device=state.scores.device)
+    if not isinstance(now, torch.Tensor):
+        # A fill on the device, not a blocking host-to-device copy.
+        now = torch.full((), now, dtype=torch.float32,
+                         device=state.scores.device)
+    now = now.to(device=state.scores.device, dtype=torch.float32)
     metrics = state.metrics.clone()
     metrics[:, 0] = output_deviation.float()
     metrics[:, 1] = gradient_consistency.float()

@@ -29,7 +29,14 @@ backward (``sdpa_bwd``: ``torch.autograd.grad`` through causal SDPA,
 every kernel of it; ``sdpa_bwd_kernels`` names them, so the record says
 which backend torch picked).  Then the card's name and power limit.
 About a minute for both passes, the other build's nvcc included.
-Needs a CUDA card.
+
+    python -m trustworthy_dl_tpu_torch.utils.flash_ab --f64
+
+prints instead one JSON line (:func:`f64_record`): the checkout's dk at
+[48, 1024, 128], from the inputs the A/B draws there, against the f32
+twin, an f64 twin, a twin with the kernel's own exp2 formula, one-ulp
+perturbations of that twin's P and dP, and the exact f64 dk.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -39,19 +46,30 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SHAPES = ((96, 1024, 64), (96, 1024, 32), (48, 1024, 128))
+#: f32 ulps by which :func:`f64_record` moves P and dP at most.
+ULP_MOVES = (1, 4, 16)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("other", type=Path, help="another flash_attention.cu")
+    parser.add_argument("other", type=Path, nargs="?",
+                        help="another flash_attention.cu")
     parser.add_argument("--reps", type=int, default=25)
+    parser.add_argument("--f64", action="store_true",
+                        help="only the dk record against f64 twins")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ab: needs a CUDA card", file=sys.stderr)
         return 1
+    if args.f64:
+        print(json.dumps(f64_record()), flush=True)
+        return 0
+    if args.other is None:
+        parser.error("give another flash_attention.cu, or --f64")
     import torch.nn.functional as F
 
     from trustworthy_dl_tpu_torch.ops import flash_attention as fa
@@ -193,6 +211,125 @@ def backward_record(fa, ab, F, flush, reps, gen, bh, t, d, other_dq,
             best[f"{build}_pair"] / best["sdpa_bwd"])
     record["other_over_this_dq"] = best["other_dq"] / best["this_dq"]
     record["other_over_this_dkv"] = best["other_dkv"] / best["this_dkv"]
+    return record
+
+
+def f64_record(shape=(48, 1024, 128), perturbations: int = 8) -> dict:
+    """dk of B3 at ``shape`` from the inputs :func:`main` draws there
+    (generator seed 4: every shape's forward q, k, v, then each earlier
+    shape's backward q, k, v, dO), against references that all round dS
+    through bf16 before the product with Q, as the kernel does, but differ
+    in how dS is computed before that rounding:
+
+    * ``twin32``: ``flash_bwd_dkv_plain`` (f32, P = exp(S / sqrt(D) - lse));
+    * ``twin64``: the same formula in f64 on the same o, lse and Delta;
+    * ``twin32_exp2``: the kernel's own formula in f32, P = exp2(S * scale
+      log2 e - lse log2 e) on unscaled scores, the product with Q in f64;
+    * ``perturbed``: ``twin32_exp2`` with P and dP each moved by a random
+      whole number of f32 ulps an element, at most 1, 4 or 16
+      (``ULP_MOVES``), ``perturbations`` draws each: the size of the
+      differences the kernel's own accumulation order and ``ex2.approx``
+      make;
+
+    and ``exact64``, f64 throughout from q, k, v and dO, nothing rounded.
+    Each error is over the card tolerance (atol 2e-3 + rtol 2^-7 of the
+    reference), with the values at the element where the kernel and the
+    f32 twin differ most over it.  If moves of P and dP by a few ulps
+    shift that element by about as much as the kernel differs from the
+    twins, the difference is the bf16 rounding of dS flipping, not a
+    fault in the kernel's arithmetic."""
+    import math
+
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def draw(n, bh, t, d):
+        return [torch.randn(bh, t, d, device=dev, generator=gen).to(
+            torch.bfloat16) for _ in range(n)]
+
+    for dims in SHAPES:
+        draw(3, *dims)
+    for dims in SHAPES[:SHAPES.index(tuple(shape))]:
+        draw(4, *dims)
+    q, k, v, do = draw(4, *shape)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    kernel = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)[0].float()
+    twin32 = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)[0].float()
+    t, d = shape[1], shape[2]
+    scale = 1.0 / math.sqrt(d)
+    q64, k64, v64, do64 = (a.double() for a in (q, k, v, do))
+    mask = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+
+    def dk_of(ds, rounded):
+        """scale * dS^T . Q in f64, dS rounded through bf16 first or not."""
+        if rounded:
+            ds = ds.to(torch.bfloat16)
+        return torch.einsum("bts,btd->bsd", ds.double(), q64) * scale
+
+    s = torch.einsum("btd,bsd->bts", q64, k64) * scale
+    s = torch.where(mask, s, torch.full_like(s, -math.inf))
+    dp = torch.einsum("btd,bsd->bts", do64, v64)
+    p = torch.exp(s - lse.double()[..., None])
+    twin64 = dk_of(p * (dp - delta.double()[..., None]), True)
+    lse64 = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse64[..., None])
+    o64 = torch.einsum("bts,bsd->btd", p, v64)
+    exact64 = dk_of(p * (dp - (do64 * o64).sum(dim=-1)[..., None]), False)
+    del s, dp, p
+
+    # The kernel's formula in f32 (TF32 off: products of bf16 values are
+    # exact in f32, as in the kernel's mma).
+    log2e = 1.4426950408889634
+    s32 = torch.einsum("btd,bsd->bts", q.float(), k.float())
+    s32 = torch.where(mask, s32, torch.full_like(s32, -math.inf))
+    p32 = torch.exp2(s32 * (scale * log2e) - (lse * log2e)[..., None])
+    del s32
+    dp32 = torch.einsum("btd,bsd->bts", do.float(), v.float())
+    twin32_exp2 = dk_of(p32 * (dp32 - delta[..., None]), True)
+
+    def over(got, ref):
+        ref = ref.double()
+        return (got.double() - ref).abs() / (2e-3 + 2.0 ** -7 * ref.abs())
+
+    worst = over(kernel, twin32)
+    idx = np.unravel_index(int(worst.argmax()), worst.shape)
+    record = {"bhtd": list(shape), "element": [int(i) for i in idx]}
+    for name, got, ref in (("kernel_vs_twin32", kernel, twin32),
+                           ("kernel_vs_twin64", kernel, twin64),
+                           ("twin32_vs_twin64", twin32, twin64),
+                           ("kernel_vs_twin32_exp2", kernel, twin32_exp2),
+                           ("twin32_exp2_vs_twin64", twin32_exp2, twin64),
+                           ("kernel_vs_exact64", kernel, exact64),
+                           ("twin32_vs_exact64", twin32, exact64),
+                           ("twin64_vs_exact64", twin64, exact64)):
+        record[f"{name}_over_tolerance"] = float(over(got, ref).max())
+    at_element = {name: float(x[idx]) for name, x in (
+        ("kernel", kernel), ("twin32", twin32), ("twin64", twin64),
+        ("twin32_exp2", twin32_exp2), ("exact64", exact64))}
+
+    # Moves of P and dP by up to 1, 4 or 16 f32 ulps: how far they carry
+    # the element, and the whole dk, from twin64.
+    pgen = torch.Generator(device=dev).manual_seed(5)
+    moved, moved_any = {}, {}
+    for ulps in ULP_MOVES:
+        def nudge(x):
+            u = torch.randint(-ulps, ulps + 1, x.shape, device=dev,
+                              generator=pgen)
+            return x * (1.0 + 2.0 ** -23 * u.float())
+        for _ in range(perturbations):
+            dk = dk_of(nudge(p32) * (nudge(dp32) - delta[..., None]), True)
+            moved.setdefault(ulps, []).append(
+                float(over(dk[idx], twin64[idx])))
+            moved_any.setdefault(ulps, []).append(
+                float(over(dk, twin64).max()))
+    record["values_at_element"] = at_element
+    record["kernel_vs_twin64_at_element"] = float(
+        over(kernel[idx], twin64[idx]))
+    record["perturbed_vs_twin64_at_element"] = moved
+    record["perturbed_vs_twin64_over_tolerance"] = moved_any
     return record
 
 

@@ -15,7 +15,10 @@ record-keeping, and tokens/s of each, their ratio
 summed over kernels, its share of that step's wall (the rest is the
 device's idle share), device time per step phase (the ``tddl.*`` ranges of
 ``engine/step.py``: per-node forward/backward, detection, update) and the
-top kernels by device time.  Needs a CUDA card.
+top kernels by device time.  :func:`busy_window` profiles a steady window
+of steps inside a ``train_epoch`` the same way (``chip_smoke.py``'s
+``async_host`` phase and ``utils/async_ab`` read the busy share of each
+pipeline depth from it).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +37,64 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+#: :func:`busy_window`'s steady window: from the dispatch of the epoch's
+#: step BUSY_FIRST to that of step BUSY_LAST + 1 (1-based), inside an
+#: epoch of BUSY_STEPS steps, clear of the prefetch thread's start, the
+#: pipeline's fill and the epoch's closing drain and bookkeeping.
+BUSY_FIRST, BUSY_LAST, BUSY_STEPS = 3, 10, 12
+
+
+def busy_window(trainer, loader, epoch: int = 0, first: int = BUSY_FIRST,
+                last: int = BUSY_LAST) -> dict:
+    """``trainer.train_epoch(loader, epoch)`` with the profiler (device
+    activity only) recording from the dispatch of step ``first`` to the
+    dispatch of step ``last + 1`` of the epoch: the window's wall, the
+    device time summed over the kernels and copies that ran in it, and
+    their ratio, the device's busy share.  The loader must give more than
+    ``last`` steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    if not 2 <= first <= last:
+        raise ValueError(f"busy_window: want 2 <= first <= last, got "
+                         f"{first}, {last}")
+    found = {}
+
+    def ready(prof):
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("tddl.")]
+        found["device_s"] = sum(_device_us(e) for e in kernels) / 1e6
+
+    # Device activity only: tracing every host op would slow the very
+    # enqueue the window measures.  The trace is prepared one step ahead
+    # (warmup), so the window does not pay for it.
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=first - 1, warmup=1,
+                                     active=last - first + 1, repeat=1),
+                   on_trace_ready=ready)
+    step_fn, marks = trainer._train_step, []
+
+    def stepped(*args):
+        marks.append(time.perf_counter())
+        prof.step()         # step i of the epoch is profiler step i
+        return step_fn(*args)
+
+    trainer._train_step = stepped
+    try:
+        with prof:
+            trainer.train_epoch(loader, epoch)
+    finally:
+        trainer._train_step = step_fn
+    if len(marks) <= last or "device_s" not in found:
+        raise RuntimeError(f"busy_window: the epoch ran {len(marks)} "
+                           f"steps; the window needs more than {last}")
+    wall = marks[last] - marks[first - 1]
+    return {"steps": [first, last], "wall_s": wall,
+            "device_kernel_s": found["device_s"],
+            "busy_share": found["device_s"] / wall}
 
 
 def main(argv=None) -> int:
@@ -84,7 +145,7 @@ def main(argv=None) -> int:
         tr.state, metrics = tr._train_step(tr.state, node_batch,
                                            tr.attack_plan)
         t.append(time.perf_counter())
-        host = tr._host_view(metrics)
+        host = tr._host_view(metrics)     # pack, wait for the copy, unpack
         t.append(time.perf_counter())
         tr._record_batch(host, 0)
         t.append(time.perf_counter())
