@@ -127,12 +127,36 @@ Phases (each prints one JSON line; any failure exits non-zero):
    0.02, fresh baselines), the loader back to 4 x 8; B1-B3 exact for each
    step's node count, every loss finite.
 
+11. vision: ``ExperimentRunner`` on the three vision presets at their
+   own configuration (8 nodes, batch 32, synthetic CIFAR-10 32x32x3
+   images of 10 classes, bf16, full published widths; random weights
+   from seed 0), epochs cut: ``vgg16_cifar10_poisoning`` (gradient and
+   data poisoning of nodes 1 and 3 from step 12 of 18) and
+   ``resnet101_byzantine`` (418 leaves, 42.5M params; Byzantine nodes 1
+   and 3 from step 12 of 18): the targets gated on every attacked step and
+   confirmed after the start, no other node flagged or gated, every loss
+   finite; ``resnet32_cifar10_clean`` 52 steps, no node flagged, and,
+   where scikit-learn imports, ``ml_flags`` for all 8 nodes after the
+   second epoch's refit (else the tier off, nothing fed: JAX's gate, and
+   the line says so).  B1 launched exactly ceil(8 L / 128) + 1 times a
+   step for L leaves (28 for ResNet-101, 5 for VGG-16, 10 for ResNet-32),
+   no other kernel; B1 at each drive's gradient mix against its plain
+   twin, timed (ResNet-101's with the twin, bound and library calls);
+   each drive's step ms, samples/s, peak memory, the host's
+   record-keeping ms a step (the ML tier's feed included), busy share and
+   the host's enqueue ms (``busy_window`` over steps 3-5 of a fresh
+   6-step epoch), and one step's host time by ``tddl.*`` range.  The
+   host ``AttackDetector`` on the card: the exact battery of ResNet-101's
+   concatenated gradient against numpy, the Byzantine and backdoor
+   checks on card tensors.
+
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -261,6 +285,28 @@ NAN_INTERVAL, NAN_STEP, NAN_STEPS = 4, 5, 8
 # resume onto the saved topology, 10 steps of 3 x 8 rows with the attack
 # cleared.
 ELASTIC_ATTACK, ELASTIC_READMIT, ELASTIC_STEPS = 6, 8, (12, 10)
+# vision: the runner's three vision presets at their own configuration (8
+# nodes, batch 32, CIFAR-10's 32x32x3 images and 10 classes, bf16, full
+# published widths), epochs cut to fit: (preset, epochs, steps an epoch,
+# attack start epoch).  VGG-16 and ResNet-101 are attacked on nodes 1
+# and 3 from step 12 (past detector_warmup 10); ResNet-32 runs 52 clean
+# steps, so that the ML tier's refit after its second epoch has 52
+# samples a node (its floor is 50).
+VISION_NODES, VISION_BATCH, VISION_TARGETS = 8, 32, (1, 3)
+VISION_DRIVES = (("vgg16_cifar10_poisoning", 3, 6, 2),
+                 ("resnet101_byzantine", 3, 6, 2),
+                 ("resnet32_cifar10_clean", 2, 26, None))
+# Each drive's busy share and host enqueue: ``busy_window`` over steps
+# 3-5 of a fresh 6-step epoch (a ResNet-101 step takes ~2 s).
+VISION_BUSY_FIRST, VISION_BUSY_LAST, VISION_BUSY_STEPS = 3, 5, 6
+# The host detector on the card, over ResNet-101's concatenated gradient
+# (42.5M f32 values), against numpy on the same values: median and
+# quartiles within ORDER_RTOL relative (the sort picks the same elements;
+# the interpolation rounds in f32 on the card and in f64 in numpy), min
+# and max exact, the mean within MOMENT_RTOL of the std and the std and L2
+# norm within MOMENT_RTOL relative (f32 sums of 42.5M terms in another
+# order than numpy's f64 sums).
+ORDER_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -1718,20 +1764,23 @@ def flash_vs_full(torch, on, loader, card):
           "attention_fwd_bwd_shape": "[8, 12, T, 64] bf16", **times})
 
 
-def expect_gating(hist, attack_start, what):
-    """Node 2 gated on every step from ``attack_start`` and never before,
-    no other node ever flagged or gated."""
+def expect_gating(hist, attack_start, what, targets=(2,),
+                  nodes=TRAIN_NODES):
+    """The ``targets`` gated on every step from ``attack_start`` and never
+    before, no other node ever flagged or gated."""
+    others = [i for i in range(nodes) if i not in targets]
     for s, h in enumerate(hist):
-        others = [i for i in range(TRAIN_NODES) if i != 2]
         if any(h["attacked"][i] or h["weights"][i] == 0 for i in others):
             raise AssertionError(f"{what} step {s}: a clean node was "
                                  f"flagged or gated: {h}")
-        if s >= attack_start and h["weights"][2] != 0:
-            raise AssertionError(f"{what} step {s}: node 2 not gated under "
-                                 "attack")
-        if s < attack_start and (h["weights"][2] == 0 or h["attacked"][2]):
-            raise AssertionError(f"{what} step {s}: node 2 gated before the "
-                                 "attack")
+        for t in targets:
+            if s >= attack_start and h["weights"][t] != 0:
+                raise AssertionError(f"{what} step {s}: node {t} not gated "
+                                     "under attack")
+            if s < attack_start and (h["weights"][t] == 0
+                                     or h["attacked"][t]):
+                raise AssertionError(f"{what} step {s}: node {t} gated "
+                                     "before the attack")
 
 
 def timed_step(torch, step, state, batch, plan):
@@ -2609,6 +2658,334 @@ def elastic_drive(torch, entries, card):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def b1_at_mix(torch, shapes, nodes, flush, full=False):
+    """B1 over a drive's gradient battery (every leaf of every node, at
+    most ``MAX_SEGMENTS`` a launch, split as the step splits it) on random
+    gradients of the drive's leaf shapes, against the plain twin: the sums
+    within MOMENT_RTOL of their magnitude sums, the extrema exact.  The
+    battery's ms and ms a launch; with ``full`` also the plain twin's,
+    the bound's and the library calls'."""
+    from trustworthy_dl_tpu_torch.engine.step import _moments
+    from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    grads = [torch.randn((nodes,) + tuple(s), device=dev, generator=gen)
+             * 1e-3 for s in shapes]
+    segs = [g[i].reshape(-1) for i in range(nodes) for g in grads]
+    got = _moments(segs)
+    torch.cuda.synchronize()
+    ref = fs.fused_moments_plain(segs)
+    sums = [fs.S1, fs.S2, fs.S3, fs.S4, fs.L1]
+    mag = torch.stack([torch.stack([x.abs().sum(), (x * x).sum(),
+                                    (x.abs() ** 3).sum(), (x ** 4).sum(),
+                                    x.abs().sum()]) for x in segs])
+    sum_err = (got[:, sums] - ref[:, sums]).abs()
+    exact = [fs.MIN, fs.MAX, fs.LINF]
+    if not bool((sum_err <= MOMENT_RTOL * mag).all()) or not torch.equal(
+            got[:, exact], ref[:, exact]):
+        raise AssertionError(
+            f"fused_moments at {len(segs)} segments disagrees with plain: "
+            f"worst sum error / magnitude {float((sum_err / mag).max())}")
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
+    launches = -(-len(segs) // fs.MAX_SEGMENTS)
+    n_el = sum(x.numel() for x in segs)
+    ms = time_ms(torch, lambda: _moments(segs), flush, reps=10)
+    # The events also hold the wrapper's host work (its segment table,
+    # built in Python), which the card waits on: the battery's launches
+    # replayed as one CUDA graph (the card's own time, with the gaps
+    # between kernels), and the host's enqueue of one launch.
+    dev_ms = kernel_ab.graph_ms(lambda: _moments(segs), flush, reps=10)
+    first = segs[:fs.MAX_SEGMENTS]
+    out = {"segments": len(segs), "elements": n_el,
+           "launches_per_battery": launches, "ms": ms,
+           "ms_per_launch": ms / launches, "graph_ms": dev_ms,
+           "graph_ms_per_launch": dev_ms / launches,
+           "host_us_per_launch": kernel_ab.host_us(
+               lambda: fs.fused_moments(first), calls=20),
+           "max_abs_err": float(sum_err.max())}
+    if full:
+        def library_moments():
+            for x in segs:
+                x.sum()
+                for order in (1, 2, 4, float("inf")):
+                    torch.linalg.vector_norm(x, order)
+                torch.aminmax(x)
+                x.pow(3).sum()
+
+        bound_ms, bound_by = bound_entry(n_el * 4 + len(segs) * 32,
+                                         n_el * 12, "float32")
+        out.update(plain_ms=time_ms(torch, lambda: fs.fused_moments_plain(
+            segs), flush, reps=2), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(torch, library_moments, flush, reps=2))
+    del grads, segs, got, ref, mag
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_phase_ms(torch, tr, loader):
+    """One step's host time by the step's ``tddl.*`` ranges
+    (``torch.profiler``, CPU activity: the recording adds to every op's
+    host cost alike), from the trainer's state; the state moves on.  The
+    step's whole enqueue is ``busy_window``'s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = tr._node_batch(next(iter(loader)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.state, _ = tr._train_step(tr.state, batch, tr.attack_plan)
+    torch.cuda.synchronize()
+    ranges = {e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+              if e.key.startswith("tddl.")}
+    return {"ranges_ms_profiled": ranges, "work_units": tr.work_units(batch)}
+
+
+def host_detector_on_card(torch, shapes):
+    """The host ``AttackDetector`` on the card: the exact battery of
+    ResNet-101's concatenated gradient against numpy on the same values,
+    and the Byzantine and backdoor checks on card tensors."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch.detect.detector import AttackDetector
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flat = torch.cat([torch.randn(math.prod(s), device=dev, generator=gen)
+                      for s in shapes]) * 1e-3
+    det = AttackDetector(device="cuda")
+    t0 = time.perf_counter()
+    stats = det.calculate_gradient_statistics([flat])
+    battery_s = time.perf_counter() - t0
+    x = flat.cpu().numpy()
+    x64 = x.astype(np.float64)
+    want = {"median": float(np.median(x)),
+            "percentile_25": float(np.percentile(x, 25)),
+            "percentile_75": float(np.percentile(x, 75))}
+    std = float(x64.std())
+    errors = {k: abs(stats[k] - v) / abs(v) for k, v in want.items()}
+    errors.update(
+        mean=abs(stats["mean"] - float(x64.mean())) / std,
+        std=abs(stats["std"] - std) / std,
+        norm_l2=abs(stats["norm_l2"] - float(np.sqrt((x64 * x64).sum())))
+        / float(np.sqrt((x64 * x64).sum())))
+    limits = {"median": ORDER_RTOL, "percentile_25": ORDER_RTOL,
+              "percentile_75": ORDER_RTOL, "mean": MOMENT_RTOL,
+              "std": MOMENT_RTOL, "norm_l2": MOMENT_RTOL}
+    if any(errors[k] > limits[k] for k in limits) or \
+            stats["min"] != float(x.min()) or stats["max"] != float(x.max()):
+        raise AssertionError(f"host detector on the card: relative errors "
+                             f"{errors} against {limits}, min/max "
+                             f"{stats['min']}/{stats['max']} vs "
+                             f"{x.min()}/{x.max()}")
+    base = torch.randn(512, device=dev, generator=gen)
+    outputs = {i: base + 0.01 * torch.randn(512, device=dev, generator=gen)
+               for i in range(VISION_NODES)}
+    for i in VISION_TARGETS:
+        outputs[i] = torch.randn(512, device=dev, generator=gen)
+    byzantine = det.detect_byzantine_behavior(outputs, 0)
+    m = torch.randn(32, 10, device=dev, generator=gen)
+    backdoor = [det.detect_backdoor_attack(m, e, 0) for e in (m, -8 * m)]
+    if byzantine != list(VISION_TARGETS) or backdoor != [False, True]:
+        raise AssertionError(f"host detector on the card: Byzantine "
+                             f"{byzantine}, backdoor {backdoor}")
+    return {"elements": int(flat.numel()), "battery_s": battery_s,
+            "relative_errors": errors, "limits": limits,
+            "median": stats["median"], "byzantine": byzantine,
+            "backdoor": backdoor}
+
+
+def vision_drive(torch, entries, card):
+    """Phase 11: the runner's three vision presets on the card (VGG-16
+    and ResNet-101 under attack, ResNet-32 clean through the ML tier),
+    B1 at each drive's gradient mix, and the host detector's API on card
+    tensors."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import _sklearn_available
+    from trustworthy_dl_tpu_torch.experiments import ExperimentRunner, \
+        preset_config
+    from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+    from trustworthy_dl_tpu_torch.utils.train_profile import busy_window
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    sklearn = _sklearn_available()
+    out_dir = tempfile.mkdtemp(prefix="tddl_vision_")
+    t_phase = time.perf_counter()
+    b1_total = 0
+    try:
+        for preset, epochs, per_epoch, attack_epoch in VISION_DRIVES:
+            # What earlier phases left allocated (and the flush buffer),
+            # once their garbage is collected: the drive's peak is counted
+            # above it.
+            gc.collect()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            kw = dict(num_epochs=epochs, steps_per_epoch=per_epoch,
+                      output_dir=out_dir, experiment_name=preset)
+            if attack_epoch is not None:
+                kw["attack_start_epoch"] = attack_epoch
+            config = preset_config(preset, **kw)
+            runner = ExperimentRunner(config, device="cuda")
+            runner.setup_experiment()
+            tr = runner.trainer
+            parts = {"setup_s": time.perf_counter() - t0}
+            if config.num_nodes != VISION_NODES or \
+                    config.batch_size != VISION_BATCH or \
+                    tr.model.input_spec != {"image_shape": (32, 32, 3),
+                                            "num_classes": 10} or \
+                    tr.model.config.dtype != torch.bfloat16:
+                raise AssertionError(f"{preset}: {config}, "
+                                     f"{tr.model.input_spec}")
+            shapes = [tuple(p.shape) for p in tree_leaves(tr.state.params)]
+            n_params = sum(math.prod(s) for s in shapes)
+            t1 = time.perf_counter()
+            mix = b1_at_mix(torch, shapes, VISION_NODES, flush,
+                            full=preset.startswith("resnet101"))
+            parts["b1_mix_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            host_api = host_detector_on_card(torch, shapes) \
+                if preset.startswith("resnet101") else None
+            parts["host_api_s"] = time.perf_counter() - t1
+            refits = []
+            detector = tr.attack_detector
+            refit = detector.update_detection_models
+
+            def timed_refit(*args, refit=refit, **kwargs):
+                t = time.perf_counter()
+                refit(*args, **kwargs)
+                refits.append(time.perf_counter() - t)
+
+            detector.update_detection_models = timed_refit
+            record, record_s = tr._record_batch, []
+
+            def timed_record(host, epoch, step_s=None, record=record,
+                             record_s=record_s):
+                t = time.perf_counter()
+                out = record(host, epoch, step_s)
+                record_s.append(time.perf_counter() - t)
+                return out
+
+            tr._record_batch = timed_record
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            results = runner.run_experiment()
+            parts["run_s"] = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() - resident
+            steps = epochs * per_epoch
+            per_step = mix["launches_per_battery"] + 1   # + the features
+            want = {name: 0 for name in launches}
+            want["fused_moments"] = steps * per_step
+            expect_launches_equal(launches, want, preset)
+            b1_total += want["fused_moments"]
+            hist = list(tr.batch_history)
+            losses = [h["loss"] for h in hist]
+            if len(hist) != steps or not all(math.isfinite(x)
+                                             for x in losses):
+                raise AssertionError(f"{preset}: {len(hist)} steps, losses "
+                                     f"{losses}")
+            incidents = [(r["node_id"], r["step"], r["attack_type"])
+                         for r in tr.attack_history]
+            if attack_epoch is None:
+                expect_gating(hist, steps, preset, targets=(),
+                              nodes=VISION_NODES)
+                if incidents:
+                    raise AssertionError(f"{preset}: incidents {incidents}")
+            else:
+                start = attack_epoch * per_epoch
+                expect_gating(hist, start, preset, targets=VISION_TARGETS,
+                              nodes=VISION_NODES)
+                if sorted(i[0] for i in incidents) != list(VISION_TARGETS) \
+                        or any(i[1] <= start for i in incidents):
+                    raise AssertionError(f"{preset}: incidents {incidents}")
+            if sklearn:
+                ml_tier = "on"
+                if len(refits) != epochs:
+                    raise AssertionError(f"{preset}: {len(refits)} refits")
+                # Past the 50-sample floor every node has a fitted model
+                # and a verdict (below it a node's verdict is False).
+                fitted = sorted(detector.anomaly_detectors)
+                nodes = list(range(VISION_NODES))
+                if sorted(tr.ml_flags) != nodes or fitted != (
+                        nodes if steps >= detector.ML_MIN_SAMPLES else []):
+                    raise AssertionError(f"{preset}: ML flags "
+                                         f"{tr.ml_flags}, models {fitted}")
+            else:
+                ml_tier = "off: scikit-learn not installed"
+                if tr._ml_enabled or detector.output_history or refits or \
+                        tr.ml_flags:
+                    raise AssertionError(f"{preset}: the ML tier ran "
+                                         "without scikit-learn")
+            del tr._record_batch
+            step_ms = [1e3 * h["step_s"] for h in hist[2:]
+                       if h["step_s"] is not None]
+            median_ms = statistics.median(step_ms)
+            t1 = time.perf_counter()
+            tr.initialize()
+
+            def loader(steps, seed):
+                return get_dataloader("cifar10", batch_size=VISION_BATCH,
+                                      num_examples=VISION_BATCH * steps,
+                                      seed=seed)
+
+            busy = busy_window(tr, loader(VISION_BUSY_STEPS, 3),
+                               first=VISION_BUSY_FIRST,
+                               last=VISION_BUSY_LAST)
+            phases = host_phase_ms(torch, tr, loader(1, 4))
+            parts["profile_s"] = time.perf_counter() - t1
+            emit({"phase": "vision", "drive": preset, "card": card,
+                  "seconds": time.perf_counter() - t0,
+                  "model": f"{tr.model.name} ({n_params} params, "
+                           f"{len(shapes)} leaves, bf16 over f32 master "
+                           "weights, random init seed 0)",
+                  "nodes": VISION_NODES, "batch": VISION_BATCH,
+                  "image_shape": [32, 32, 3], "steps": steps,
+                  "attack": None if attack_epoch is None else {
+                      "types": list(config.attack_types),
+                      "targets": list(VISION_TARGETS),
+                      "start_step": attack_epoch * per_epoch},
+                  "step_ms_median": median_ms, "step_ms": step_ms,
+                  "samples_per_s": phases["work_units"] * 1e3 / median_ms,
+                  "peak_memory_bytes": peak,
+                  "resident_before_bytes": resident, "busy": busy,
+                  "enqueue_ms_median": busy["enqueue_ms_median"],
+                  "host_phases": phases, "parts_s": parts,
+                  "b1": {"launches": launches["fused_moments"],
+                         "per_step": per_step, "at_mix": mix},
+                  "losses": losses, "incidents": incidents,
+                  "ml_tier": ml_tier, "refit_s": refits[:epochs],
+                  "record_ms_median": 1e3 * statistics.median(record_s),
+                  "ml_flags": {str(k): v for k, v in tr.ml_flags.items()},
+                  "ml_models": sorted(detector.anomaly_detectors),
+                  "host_api": host_api,
+                  "epoch_s": [r["epoch_time_s"]
+                              for r in results["epoch_records"]]})
+            if preset.startswith("resnet101"):
+                entries["fused_moments"]["resnet101_mix"] = {
+                    k: mix[k] for k in ("segments", "elements",
+                                        "launches_per_battery", "ms",
+                                        "ms_per_launch", "graph_ms",
+                                        "graph_ms_per_launch",
+                                        "host_us_per_launch", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "max_abs_err")}
+            # The wrappers hold the trainer and the detector too.
+            del runner, tr, detector, refit, timed_refit, record, timed_record
+            torch.cuda.empty_cache()
+        entries["fused_moments"]["launches_vision"] = b1_total
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "vision_done", "seconds": time.perf_counter() - t_phase,
+          "ml_tier": "on" if sklearn else "off: scikit-learn not installed",
+          "b1_launches": b1_total, "b1_max_segments": fs.MAX_SEGMENTS})
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -2657,6 +3034,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     async_host_drive(torch, entries, smi)
     elastic_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
+    vision_drive(torch, entries, smi)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -140,7 +140,8 @@ def test_detection_bookkeeping_matches_jax(tmp_path):
                                          JMetrics, node, {node})
         trainer._handle_detected_attack(node, "gradient_poisoning", host,
                                         node, {node})
-    ds, jds = trainer.detection_stats, jtrainer.attack_detector.detection_stats
+    ds = trainer.attack_detector.detection_stats
+    jds = jtrainer.attack_detector.detection_stats
     assert (ds["true_positives"], ds["false_positives"],
             ds["total_detections"]) == (jds["true_positives"],
                                         jds["false_positives"],
@@ -248,7 +249,7 @@ def test_reset_for_run_starts_over():
                                        seq_len=16, vocab_size=100,
                                        num_examples=64), 0)
     assert trainer.global_step == 8 and trainer.attack_history
-    assert trainer.detection_stats["true_positives"] >= 1
+    assert trainer.attack_detector.detection_stats["true_positives"] >= 1
     state = trainer.reset_for_run(seed=3)
     fresh = DistributedTrainer(TrainingConfig(**kw),
                                model_overrides=dict(TINY), device="cpu")
@@ -256,7 +257,7 @@ def test_reset_for_run_starts_over():
     assert trainer.global_step == 0 and trainer.state is state
     assert not (trainer.attack_history or trainer.reassignment_history
                 or trainer.batch_history)
-    assert trainer.detection_stats["total_detections"] == 0
+    assert trainer.attack_detector.detection_stats["total_detections"] == 0
     assert not bool(trainer.attack_plan.active) and not trainer._plan_bits
     assert all(trainer.trust_manager.get_trust_score(i) == 1.0
                for i in range(4))

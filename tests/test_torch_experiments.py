@@ -18,8 +18,8 @@ The attacked node's gradient noise is each package's own draw (JAX's
 ``jax.random``, the port's ``torch.Generator``), but node 2 is gated from
 its first attacked step and its poisoned leaf norms clamp its gradient
 consistency at 1, so its trust holds the same 1e-5.  Then the runner's
-own contract: the artifacts, the refusal
-of an unported preset, ``main`` with ``--device cpu``, and the
+own contract: the artifacts, the refusal of an unported preset and the
+set-up of the vision presets, ``main`` with ``--device cpu``, and the
 ``MetricsCollector`` and ``predict_reliability`` against the JAX
 package's on the same inputs.
 """
@@ -201,12 +201,24 @@ def test_presets_equal_jax_and_unported_ones_refuse(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ExperimentRunner(preset_config("gpt2_medium_reassignment",
                                        output_dir=str(tmp_path)))
-    for name in ("resnet32_cifar10_clean", "vgg16_cifar10_poisoning",
-                 "resnet101_byzantine"):
+    # The vision presets set up (they run in tests/test_torch_vision.py).
+    for name, model in (("resnet32_cifar10_clean", "resnet32"),
+                        ("vgg16_cifar10_poisoning", "vgg16"),
+                        ("resnet101_byzantine", "resnet101")):
         runner = ExperimentRunner(preset_config(
-            name, num_epochs=1, output_dir=str(tmp_path)), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            runner.setup_experiment()
+            name, num_epochs=1, batch_size=8, output_dir=str(tmp_path)),
+            model_overrides=dict(image_shape=(8, 8, 3)),
+            data_overrides=dict(image_size=8, num_examples=8),
+            device="cpu")
+        if model == "resnet101":
+            runner.model_overrides.update(stage_sizes=(1, 1, 1, 1),
+                                          widths=(4, 4, 4, 4), stem_width=8)
+        runner.setup_experiment()
+        assert runner.trainer.model.kind == "vision"
+        assert runner.trainer.model.name == model
+        assert runner.trainer.config.num_nodes == 8
+        batch = next(iter(runner.train_loader))
+        assert batch["input"].shape == (8, 8, 8, 3)
     # gpt2_transient_recovery runs (test_transient_recovery_preset_...).
     runner = ExperimentRunner(preset_config(
         "gpt2_small_pipeline_clean", output_dir=str(tmp_path)), device="cpu")

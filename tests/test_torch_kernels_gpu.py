@@ -1,7 +1,8 @@
 """The port's CUDA kernels (B5 decode, B6 prefill, each over a bf16/f32 or
 an int8 pool, B5's bf16-query split-K kernel at the edges of its spans,
 B7 trust epilogue, B8 fused verify tail, B9 paged adapter delta; B4 int8
-dequant matmul; B1 moment battery; B2/B3 flash attention
+dequant matmul; B1 moment battery, also at ResNet-101's 3,344-segment
+gradient mix in 27 launches; B2/B3 flash attention
 forward and backward; B3, B7 and B8 also run twice for the same bits;
 B7 at odd V, one column and duplicated maxima across its CTAs' shares;
 B8 100 times over poisoned scratch and on two streams at once)
@@ -205,6 +206,40 @@ def test_moments_kernel_matches_plain(cuda):
     exact = [fs.MIN, fs.MAX, fs.LINF]
     torch.testing.assert_close(got[:, exact], ref[:, exact], rtol=0, atol=0,
                                equal_nan=True)
+
+
+def test_moments_kernel_at_resnet101_segment_mix(cuda):
+    """B1 through the step's split (``engine.step._moments``, at most 128
+    segments a launch) over ResNet-101's 418 gradient leaves on each of 8
+    nodes: 3,344 segments in 27 launches, against the plain twin: the sums
+    within 2e-5 of their magnitude sums with no absolute floor (at 1e-3
+    gradients a floor would swallow the short segments' S3 and S4), the
+    extrema exact."""
+    from trustworthy_dl_tpu_torch.engine.step import _moments
+    from trustworthy_dl_tpu_torch.models.factory import create_model
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shapes = [tuple(p.shape) for p in tree_leaves(
+        create_model("resnet101").init(gen, cuda))]
+    assert len(shapes) == 418
+    grads = [torch.randn((8,) + s, device=cuda, generator=gen) * 1e-3
+             for s in shapes]
+    segs = [g[i].reshape(-1) for i in range(8) for g in grads]
+    before = fs.fused_moments.launches
+    got = _moments(segs)
+    torch.cuda.synchronize()
+    assert fs.fused_moments.launches == before + 27
+    assert got.shape == (3344, 8)
+    ref = fs.fused_moments_plain(segs)
+    sums = [fs.S1, fs.S2, fs.S3, fs.S4, fs.L1]
+    mag = torch.stack([torch.stack([a.sum(), (a ** 2).sum(), (a ** 3).sum(),
+                                    (a ** 4).sum(), a.sum()])
+                       for a in (s.abs() for s in segs)])
+    err = (got[:, sums] - ref[:, sums]).abs()
+    assert bool((err <= 2e-5 * mag).all())
+    exact = [fs.MIN, fs.MAX, fs.LINF]
+    assert torch.equal(got[:, exact], ref[:, exact])
 
 
 def _flash_inputs(device, bh, t, d, seed):

@@ -2,8 +2,11 @@
 fresh process by importing every module of ``trustworthy_dl_tpu_torch``
 and reading ``sys.modules``, and statically by walking every module's
 imports (``chip_smoke.py`` included).  The walk is checked to reach the
-modules added since it was written (the async host pipeline and
-``elastic/``)."""
+modules added since it was written (the async host pipeline,
+``elastic/``, and the ResNet and VGG families).  scikit-learn, the ML
+tier's optional dependency, is imported only inside functions (behind
+the trainer's ``_sklearn_available`` gate, as in JAX), never when a module
+is imported."""
 
 import ast
 import subprocess
@@ -18,7 +21,9 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "orbax", "trustworthy_dl_tpu")
 NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.elastic",
-               "trustworthy_dl_tpu_torch.elastic.reassignment")
+               "trustworthy_dl_tpu_torch.elastic.reassignment",
+               "trustworthy_dl_tpu_torch.models.resnet",
+               "trustworthy_dl_tpu_torch.models.vgg")
 
 
 def _forbidden(name: str) -> bool:
@@ -68,3 +73,34 @@ def test_no_port_module_imports_jax():
     bad = [(str(p.relative_to(REPO)), name) for p in files
            for name in _imports(p) if _forbidden(name)]
     assert not bad, bad
+
+
+def test_scikit_learn_is_imported_only_inside_functions():
+    """No module of the port imports sklearn at import time; the imports
+    that exist sit in function bodies of the ML tier's two modules."""
+    inside = {}
+    for path in sorted((REPO / "trustworthy_dl_tpu_torch").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module or "" for n in top
+                  if isinstance(n, ast.ImportFrom)]
+        assert not any(n.split(".")[0] == "sklearn" for n in names), path
+        for func in ast.walk(tree):
+            if isinstance(func, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(func):
+                    mods = [a.name for a in node.names] \
+                        if isinstance(node, ast.Import) else \
+                        [node.module or ""] \
+                        if isinstance(node, ast.ImportFrom) else []
+                    if any(m.split(".")[0] == "sklearn" for m in mods):
+                        inside.setdefault(
+                            str(path.relative_to(REPO)), set()).add(
+                                func.name)
+    assert inside == {
+        "trustworthy_dl_tpu_torch/detect/detector.py":
+            {"update_detection_models"},
+        "trustworthy_dl_tpu_torch/engine/trainer.py":
+            {"_sklearn_available"}}

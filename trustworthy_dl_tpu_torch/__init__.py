@@ -21,7 +21,10 @@ bookkeeping and Adafactor.  Durable training adds verified checkpoints
 injection (``chaos/``) and the self-healing supervisor
 (``engine/supervisor.py``); the experiment runner
 (``experiments/runner.py``) drives the trainer end to end and writes its
-artifacts.
+artifacts.  The vision family (ResNet-32/50/101, VGG-11/13/16 on the
+CIFAR-10 loader) trains through the same step, and the host
+``detect.detector.AttackDetector`` carries the epoch-cadence ML tier
+(behind scikit-learn).
 """
 
 __version__ = "0.2.0"

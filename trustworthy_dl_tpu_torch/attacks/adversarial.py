@@ -84,29 +84,43 @@ def poison_batch(plan: AttackPlan, batch: Dict[str, torch.Tensor], step: int,
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[Dict[str, torch.Tensor]] = None
                  ) -> Dict[str, torch.Tensor]:
-    """Corrupt the per-node batch {'input': [n, b, T], 'target': [n, b, T]}
-    of attacked nodes.  Data poisoning scrambles a share ``intensity`` of
-    the tokens and shifts the labels by one; backdoor zeroes the first four
-    tokens and sets every label to 0.  ``noise`` may hold the draws:
-    'flip' (bool, x's shape) and 'scramble' (ints in [0, vocab_guess))."""
+    """Corrupt the per-node batch {'input': [n, b, ...], 'target':
+    [n, b, ...]} of attacked nodes.  Data poisoning adds ``intensity``
+    times standard-normal noise to float inputs, or scrambles a share
+    ``intensity`` of the tokens, and shifts the labels by one.  Backdoor
+    sets a 3x3 corner patch of every image to 2.0 (float [n, b, H, W, C]
+    inputs), or zeroes the first four tokens, and sets every label to 0.
+    ``noise`` may hold the draws: 'gauss' (float, x's shape), or 'flip'
+    (bool, x's shape) and 'scramble' (ints in [0, vocab_guess))."""
     if not plan.is_live(step):
         return batch
     intensity = plan.effective_intensity(step)
     x, y = batch["input"], batch["target"]
     mask_x, mask_y = _node_mask(plan, x), _node_mask(plan, y)
-    trig = x.clone()         # the backdoor trigger on the clean tokens
-    trig[..., :4] = 0
+    floating = x.is_floating_point()
+    trig = x.clone()         # the backdoor trigger on the clean input
+    if not floating:
+        trig[..., :4] = 0
+    elif x.dim() >= 4:
+        trig[..., :3, :3, :] = 2.0
     if plan.data_poison:
-        if noise is None:
-            vocab_guess = torch.clamp(x.max() + 1, min=num_classes)
-            u = torch.rand(x.shape, generator=generator, device=x.device)
-            scramble = torch.minimum((u * vocab_guess).long(),
-                                     vocab_guess - 1).to(x.dtype)
-            flip = torch.rand(x.shape, generator=generator,
-                              device=x.device) < min(intensity, 1.0)
+        if floating:
+            gauss = noise["gauss"].to(x.dtype) if noise is not None else \
+                torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=x.dtype)
+            noisy = x + intensity * gauss
         else:
-            scramble, flip = noise["scramble"].to(x.dtype), noise["flip"]
-        x = torch.where(mask_x, torch.where(flip, scramble, x), x)
+            if noise is None:
+                vocab_guess = torch.clamp(x.max() + 1, min=num_classes)
+                u = torch.rand(x.shape, generator=generator, device=x.device)
+                scramble = torch.minimum((u * vocab_guess).long(),
+                                         vocab_guess - 1).to(x.dtype)
+                flip = torch.rand(x.shape, generator=generator,
+                                  device=x.device) < min(intensity, 1.0)
+            else:
+                scramble, flip = noise["scramble"].to(x.dtype), noise["flip"]
+            noisy = torch.where(flip, scramble, x)
+        x = torch.where(mask_x, noisy, x)
         y = torch.where(mask_y, (y + 1) % max(num_classes, 2), y)
     if plan.backdoor:
         x = torch.where(mask_x, trig, x)

@@ -7,9 +7,11 @@ supports: it serves GPT-2 from random weights drawn from ``--seed``
 (checkpoint loading is not ported yet), drives a synthetic heterogeneous
 workload and prints the serving metrics.  ``train`` is the counterpart of
 ``trustworthy-dl-train`` (``trustworthy_dl_tpu/cli.py:main``) on its
-data-parallel path: trusted training of GPT-2 over ``--nodes`` logical
-nodes on the synthetic LM source, validated each epoch on the source's
-validation split, printing the run's statistics; it checkpoints under
+data-parallel path: trusted training of GPT-2, ResNet or VGG over
+``--nodes`` logical nodes on ``--dataset`` (default the config's,
+``openwebtext``; the synthetic source stands in for a corpus or image file
+that is absent), validated each epoch on the dataset's validation split,
+printing the run's statistics; it checkpoints under
 ``--checkpoint-dir`` (and at the end), resumes with ``--resume``, and
 with ``--supervise`` (or ``--chaos-seed``, a seeded fault plan) runs
 under the self-healing supervisor.  ``experiment`` forwards to the
@@ -175,14 +177,20 @@ def serve_main(argv: Optional[List[str]] = None,
 def build_train_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m trustworthy_dl_tpu_torch.cli train",
-        description="Trust-gated data-parallel training of GPT-2 (random "
-                    "init) on the synthetic LM source, on the card.")
-    parser.add_argument("--model", type=str, default="gpt2")
+        description="Trust-gated data-parallel training of GPT-2, ResNet "
+                    "or VGG (random init) on the card.")
+    parser.add_argument("--model", type=str, default="gpt2",
+                        help="gpt2[-medium|-large|-xl], resnet32/50/101, "
+                             "vgg11/13/16")
+    parser.add_argument("--dataset", type=str, default=None,
+                        help="openwebtext, wikitext, cifar10, cifar100, "
+                             "imagenet, ... (default: the config's)")
     parser.add_argument("--nodes", type=int, default=4)
     parser.add_argument("--epochs", type=int, default=1)
     parser.add_argument("--batch-size", type=int, default=32)
     parser.add_argument("--learning-rate", type=float, default=5e-5)
-    parser.add_argument("--seq-len", type=int, default=128)
+    parser.add_argument("--seq-len", type=int, default=128,
+                        help="token window (language models)")
     parser.add_argument("--no-detection", action="store_true",
                         help="disable the in-step attack detector")
     parser.add_argument("--steps-per-epoch", type=int, default=50,
@@ -241,6 +249,7 @@ def train_main(argv: Optional[List[str]] = None,
     args = build_train_parser().parse_args(argv)
     config = TrainingConfig(
         model_name=args.model, num_nodes=args.nodes,
+        **({"dataset_name": args.dataset} if args.dataset else {}),
         num_epochs=args.epochs, batch_size=args.batch_size,
         learning_rate=args.learning_rate, remat=args.remat, seed=args.seed,
         attack_detection_enabled=not args.no_detection,
@@ -248,7 +257,9 @@ def train_main(argv: Optional[List[str]] = None,
            if args.checkpoint_dir else {}),
         **({"async_host_depth": args.async_host_depth}
            if args.async_host_depth is not None else {}))
-    overrides = {"seq_len": args.seq_len, **(model_overrides or {})}
+    lm = not args.model.lower().startswith(("resnet", "vgg"))
+    overrides = {**({"seq_len": args.seq_len} if lm else {}),
+                 **(model_overrides or {})}
     trainer = DistributedTrainer(config, model_overrides=overrides,
                                  device=args.device)
     trainer.initialize()
@@ -258,16 +269,17 @@ def train_main(argv: Optional[List[str]] = None,
         trainer.load_checkpoint()
         print(f"resumed from checkpoint step {trainer.global_step}")
     num_examples = args.batch_size * args.steps_per_epoch
-    vocab = trainer.model.config.vocab_size
+    # The loader by model kind: token windows need the LM's geometry.
+    geometry = dict(seq_len=args.seq_len,
+                    vocab_size=trainer.model.config.vocab_size) \
+        if trainer.model.kind == "lm" else {}
     train_dl = get_dataloader(
-        "openwebtext", split="train", batch_size=args.batch_size,
-        seq_len=args.seq_len, vocab_size=vocab, num_examples=num_examples,
-        seed=args.seed)
+        config.dataset_name, split="train", batch_size=args.batch_size,
+        num_examples=num_examples, seed=args.seed, **geometry)
     val_dl = get_dataloader(
-        "openwebtext", split="validation", batch_size=args.batch_size,
-        seq_len=args.seq_len, vocab_size=vocab,
+        config.dataset_name, split="validation", batch_size=args.batch_size,
         num_examples=max(num_examples // 10, args.batch_size),
-        seed=args.seed)
+        seed=args.seed, **geometry)
     if args.supervise or args.chaos_seed is not None:
         from trustworthy_dl_tpu_torch.chaos import FaultInjector, \
             FaultKind, FaultPlan

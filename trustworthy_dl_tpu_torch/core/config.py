@@ -19,9 +19,12 @@ readmission (``elastic_resharding``, ``readmit_after_steps``) run in data
 mode.  ``parallelism`` and ``num_microbatches`` are carried with the JAX
 defaults so that :class:`ExperimentConfig` forwards them;
 ``DistributedTrainer`` refuses a mode not ported yet (the pipeline,
-tensor, sequence and expert modes).  The ML tier is not ported yet, so
-its knobs are absent; so are ``exact_order_stats`` and ``dtype``, whose
-only reader in the JAX package is the ML tier's host detector.  :func:`load_experiment_config`
+tensor, sequence and expert modes).  ``ml_detectors`` turns on the
+epoch-cadence ML tier (behind scikit-learn, as in JAX) and
+``exact_order_stats`` picks the host detector's order statistics.
+``dtype`` is the model's compute dtype (``COMPUTE_DTYPES``; the
+parameters stay f32): the trainer hands it to the model config unless the
+caller's ``model_overrides`` names a dtype.  :func:`load_experiment_config`
 reads an :class:`ExperimentConfig` from a YAML or JSON file.
 """
 
@@ -31,9 +34,14 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from trustworthy_dl_tpu_torch.models.generate import ATTN_IMPLS
 from trustworthy_dl_tpu_torch.quant.int8 import validate_dtypes
 from trustworthy_dl_tpu_torch.serve.kv_slots import validate_paged_geometry
+
+#: ``TrainingConfig.dtype``'s names and the torch dtypes they stand for.
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: The JAX package's parallelism modes; the port trains "data" only.
 PARALLELISM_MODES = ("data", "model", "tensor", "sequence", "expert",
@@ -180,6 +188,9 @@ class TrainingConfig:
     # and mean logits average over them.  Batches trim to a multiple of
     # num_nodes x grad_accum_steps.
     grad_accum_steps: int = 1
+    # Compute dtype (params stay f32), a key of COMPUTE_DTYPES; a dtype
+    # in the trainer's model_overrides wins.
+    dtype: str = "bfloat16"
     seed: int = 0
     # torch.utils.checkpoint: "block" (every block) or "attention" (only
     # the full-attention core; block remat on the flash path).
@@ -187,10 +198,16 @@ class TrainingConfig:
     remat_policy: str = "block"
     # Trust decay clock: step count x time_per_step.
     time_per_step: float = 1.0
+    # The host detector's order statistics (median/percentiles): exact
+    # (a sort) or the Gaussian approximation.
+    exact_order_stats: bool = True
     detector_history: int = 1000       # rolling window
     detector_warmup: int = 10          # min history before verdicts
     # Epoch-cadence adaptive trust threshold, pushed back into the step.
     adaptive_thresholds: bool = True
+    # Epoch-cadence ML tier: per-node IsolationForests refit on the host
+    # detector's battery histories (needs scikit-learn; off without it).
+    ml_detectors: bool = True
     # -1 leaves the model's "auto" in charge; 0 forces materialised logits;
     # > 0 forces the vocab-chunked fused head at that width.
     lm_head_chunk: int = -1
@@ -240,6 +257,9 @@ class TrainingConfig:
             raise ValueError(
                 "remat_policy must be 'block' or 'attention', "
                 f"got {self.remat_policy!r}")
+        if self.dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}"
+                             f", got {self.dtype!r}")
         if self.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1, got "
                              f"{self.grad_accum_steps}")

@@ -1,3 +1,3 @@
-"""Language-model data loaders (``loader``)."""
+"""Language-model and vision data loaders (``loader``)."""
 
 from trustworthy_dl_tpu_torch.data.loader import get_dataloader  # noqa: F401

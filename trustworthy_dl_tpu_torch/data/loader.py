@@ -1,16 +1,18 @@
-"""Language-model data: the learnable synthetic token source and the
-window loaders.
+"""Training data: the learnable synthetic sources and the loaders.
 
-Counterpart of the LM branch of ``trustworthy_dl_tpu/data/loader.py`` and
-of the numpy half of ``trustworthy_dl_tpu/native`` (splitmix64 streams,
-the affine next-token chain, Fisher-Yates permutations, window gathers),
-bit for bit: the same seed gives the same batches as the JAX package.
-Real corpora load from ``data_dir`` or ``$TDDL_DATA_DIR``: ``<name>.bin``
-(a flat uint16 token memmap) first, else ``<name>.txt`` read as raw UTF-8
+Counterpart of ``trustworthy_dl_tpu/data/loader.py`` and of the numpy half
+of ``trustworthy_dl_tpu/native`` (splitmix64 streams, the affine
+next-token chain, Fisher-Yates permutations, window gathers), bit for
+bit: the same seed gives the same batches as the JAX package.  Real
+corpora load from ``data_dir`` or ``$TDDL_DATA_DIR``: ``<name>.bin`` (a
+flat uint16 token memmap) first, else ``<name>.txt`` read as raw UTF-8
 bytes (byte-level ids, ``vocab_size`` >= 256), each split 95/5 into train
-and validation; otherwise the synthetic source stands in.
-:class:`PrefetchLoader` assembles the next batches on a background
-thread.  The vision datasets are not ported yet.
+and validation; otherwise the synthetic source stands in.  The vision
+datasets (``cifar10``, ``cifar-10``, ``cifar100``, ``imagenet``,
+``synthetic_vision``) read ``cifar10/cifar10.npz`` under the same
+directory where it is present (CIFAR-10 only), else the class-conditional
+synthetic images; nothing is fetched.  :class:`PrefetchLoader` assembles
+the next batches on a background thread.
 """
 
 from __future__ import annotations
@@ -23,6 +25,11 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 
 _GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+
+#: The dataset names of the two branches of :func:`get_dataloader`.
+LM_DATASETS = ("openwebtext", "wikitext", "lm", "synthetic_lm")
+VISION_DATASETS = ("cifar10", "cifar-10", "cifar100", "imagenet",
+                   "synthetic_vision")
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:
@@ -61,6 +68,21 @@ def synthetic_tokens(n: int, vocab: int, seed: int) -> np.ndarray:
         t = tok_l[i] if reset_l[i] else (a * t + b) % vocab
         out[i] = t
     return out
+
+
+def synthetic_images(num: int, num_classes: int, shape, seed: int
+                     ) -> "tuple[np.ndarray, np.ndarray]":
+    """(f32 [num, H, W, C] images, i32 [num] labels): a fixed normal
+    prototype per class plus normal(0.7) noise, linearly separable, from
+    the JAX package's numpy stream."""
+    rng = np.random.default_rng(seed)
+    h, w, c = shape
+    prototypes = rng.normal(0, 1, size=(num_classes, h, w, c)).astype(
+        np.float32)
+    labels = rng.integers(0, num_classes, num).astype(np.int32)
+    images = prototypes[labels] + rng.normal(
+        0, 0.7, size=(num, h, w, c)).astype(np.float32)
+    return images, labels
 
 
 def permutation(seed: int, n: int) -> np.ndarray:
@@ -225,18 +247,22 @@ def get_dataloader(dataset_name: str, split: str = "train",
                    vocab_size: int = 50257,
                    num_examples: Optional[int] = None, seed: int = 0,
                    data_dir: Optional[str] = None,
-                   sampling: str = "epoch"):
+                   sampling: str = "epoch",
+                   image_size: Optional[int] = None):
     """LM loaders: "epoch" partitions the stream into fixed shuffled
-    windows, "windows" draws fresh random windows every batch.  The
-    corpus comes from ``data_dir``, else ``$TDDL_DATA_DIR`` (module
-    docstring); nothing is fetched."""
+    windows, "windows" draws fresh random windows every batch.  Vision
+    loaders shuffle images every epoch; ``image_size`` is the synthetic
+    images' side (the real file keeps its own).  The data come from
+    ``data_dir``, else ``$TDDL_DATA_DIR`` (module docstring)."""
     name = dataset_name.lower()
-    if name not in ("openwebtext", "wikitext", "lm", "synthetic_lm"):
-        raise ValueError(f"unknown or not yet ported dataset "
-                         f"{dataset_name!r} (the port has the LM branch)")
     if sampling not in ("epoch", "windows"):
         raise ValueError(f"sampling must be 'epoch' or 'windows', got "
                          f"{sampling!r}")
+    if name in VISION_DATASETS:
+        return _vision_loader(name, split, batch_size, num_examples, seed,
+                              data_dir, sampling, image_size)
+    if name not in LM_DATASETS:
+        raise ValueError(f"unknown dataset {dataset_name!r}")
     data_dir = data_dir or os.environ.get("TDDL_DATA_DIR", "")
     split_seed = seed + (0 if split == "train" else 10_000)
     n = num_examples or (2048 if split == "train" else 256)
@@ -278,6 +304,39 @@ def get_dataloader(dataset_name: str, split: str = "train",
                            seed=split_seed)
 
 
+def _vision_loader(name: str, split: str, batch_size: int,
+                   num_examples: Optional[int], seed: int,
+                   data_dir: Optional[str], sampling: str,
+                   image_size: Optional[int]) -> ArrayDataLoader:
+    """The vision branch of :func:`get_dataloader`: CIFAR-10 from
+    ``<data_dir>/cifar10/cifar10.npz`` (``x_train``/``y_train``,
+    ``x_test``/``y_test``, scaled to [-1, 1]) where present, else
+    synthetic images (100 classes for CIFAR-100, 1000 at side 224 for
+    ImageNet, 10 at side 32 otherwise)."""
+    if sampling == "windows":
+        raise ValueError("sampling='windows' is a token-stream sampler; "
+                         "vision datasets use epoch sampling")
+    data_dir = data_dir or os.environ.get("TDDL_DATA_DIR", "")
+    split_seed = seed + (0 if split == "train" else 10_000)
+    num_classes = 100 if "100" in name else (
+        1000 if "imagenet" in name else 10)
+    side = image_size or (224 if "imagenet" in name else 32)
+    n = num_examples or (2048 if split == "train" else 512)
+    npz_path = os.path.join(data_dir, "cifar10", "cifar10.npz") \
+        if data_dir else ""
+    if name.startswith("cifar10") and npz_path and os.path.exists(npz_path):
+        blob = np.load(npz_path)
+        key = "train" if split == "train" else "test"
+        images = blob[f"x_{key}"].astype(np.float32) / 127.5 - 1.0
+        labels = blob[f"y_{key}"].reshape(-1).astype(np.int32)
+    else:
+        images, labels = synthetic_images(n, num_classes, (side, side, 3),
+                                          split_seed)
+    return ArrayDataLoader(images, labels, batch_size, shuffle=True,
+                           seed=split_seed)
+
+
 __all__ = ["ArrayDataLoader", "PrefetchLoader", "TokenStreamLoader",
-           "get_dataloader", "permutation", "splitmix_fill",
-           "synthetic_tokens", "window_gather"]
+           "LM_DATASETS", "VISION_DATASETS", "get_dataloader", "permutation",
+           "splitmix_fill", "synthetic_images", "synthetic_tokens",
+           "window_gather"]

@@ -1,20 +1,30 @@
-"""Tensor and gradient statistic batteries of the in-step detector.
+"""Tensor and gradient statistic batteries of the detector.
 
-Counterpart of ``trustworthy_dl_tpu/detect/stats.py`` (the parts the
-training step runs).  The battery of a list of flattened f32 leaves is
-built from per-leaf raw moments (kernel B1, ``ops/fused_stats``) combined
-across leaves, plus order statistics over a deterministic subsample, so
-the concatenated vector is never materialised.  Stat order is fixed and
-indexed by name so the rule-based classifier can address columns.
+Counterpart of ``trustworthy_dl_tpu/detect/stats.py``.  The training
+step's battery of a list of flattened f32 leaves is built from per-leaf
+raw moments (kernel B1, ``ops/fused_stats``) combined across leaves, plus
+order statistics over a deterministic subsample, so the concatenated
+vector is never materialised.  The host detector's batteries
+(:func:`tensor_statistics`, :func:`gradient_statistics`) are the direct,
+centred formulas over the whole tensor.  Stat order is fixed and indexed
+by name so the rule-based classifier can address columns.
+
+Order statistics follow ``jnp.median`` / ``jnp.percentile``: linear
+interpolation between the two neighbours of a sorted vector, so an even
+count's median is the mean of the two middle values (``torch.median``
+returns the lower one), and a sort stands in for ``torch.quantile``, which
+refuses inputs past 2^24 elements.  Standard deviations are population
+ones (``correction=0``), as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
 TENSOR_STAT_NAMES: Tuple[str, ...] = (
     "mean", "std", "min", "max", "median", "skewness", "kurtosis",
@@ -27,6 +37,63 @@ GRADIENT_STAT_NAMES: Tuple[str, ...] = TENSOR_STAT_NAMES + (
 NUM_TENSOR_STATS = len(TENSOR_STAT_NAMES)      # 12
 NUM_GRADIENT_STATS = len(GRADIENT_STAT_NAMES)  # 17
 STAT_INDEX = {name: i for i, name in enumerate(GRADIENT_STAT_NAMES)}
+
+
+def _order_stats(x: torch.Tensor) -> List[torch.Tensor]:
+    """(p25, median, p75) of a flat vector, from one sort."""
+    return quantiles_from_sorted(torch.sort(x).values, (25, 50, 75))
+
+
+def tensor_statistics(x: torch.Tensor, exact_order_stats: bool = True
+                      ) -> torch.Tensor:
+    """f32 [12] statistics of a flattened tensor.  Skewness and kurtosis
+    are the biased (population) estimators, kurtosis Fisher's.  Without
+    ``exact_order_stats`` the median is the mean and the quartiles
+    mean -/+ 0.6745 std (the Gaussian approximation)."""
+    x = x.reshape(-1).float()
+    mean = x.mean()
+    centered = x - mean
+    # Integer powers as products, XLA's rounding of ``x ** k``.
+    c2 = centered * centered
+    std = c2.mean().sqrt()
+    safe = torch.where(std > 0, std, torch.ones_like(std))
+    safe2 = safe * safe
+    m3 = (c2 * centered).mean()
+    m4 = (c2 * c2).mean()
+    skew = torch.where(std > 0, m3 / (safe2 * safe), torch.zeros_like(std))
+    kurt = torch.where(std > 0, m4 / (safe2 * safe2) - 3.0,
+                       torch.full_like(std, -3.0))
+    if exact_order_stats:
+        p25, median, p75 = _order_stats(x)
+    else:
+        median = mean
+        p25 = mean - 0.6744898 * std
+        p75 = mean + 0.6744898 * std
+    absx = x.abs()
+    return torch.stack([mean, std, x.min(), x.max(), median, skew, kurt,
+                        p25, p75, absx.sum(), (x * x).sum().sqrt(),
+                        absx.max()])
+
+
+def tensor_statistics_sampled(x: torch.Tensor, max_sort: int = 65536
+                              ) -> torch.Tensor:
+    """f32 [12]: moments, extrema and norms over the whole tensor, order
+    statistics over a strided subsample of at most ``max_sort`` elements
+    (every ``n // max_sort``-th element from the first)."""
+    x = x.reshape(-1).float()
+    full = tensor_statistics(x, exact_order_stats=False)
+    n = x.shape[0]
+    if n <= max_sort:
+        sample = x
+    else:
+        stride = n // max_sort
+        sample = x[:max_sort * stride:stride]
+    p25, median, p75 = _order_stats(sample)
+    out = full.clone()
+    out[TENSOR_STAT_NAMES.index("median")] = median
+    out[TENSOR_STAT_NAMES.index("percentile_25")] = p25
+    out[TENSOR_STAT_NAMES.index("percentile_75")] = p75
+    return out
 
 
 def _stats_from_raw_moments(s1, s2, s3, s4, mn, mx, l1, linf, count,
@@ -170,10 +237,63 @@ def backdoor_divergence(model_outputs: torch.Tensor,
     return kl.sum() / batch
 
 
+def _pairwise_cosine_mean(flat_grads: Sequence[torch.Tensor]
+                          ) -> torch.Tensor:
+    """Mean cosine similarity over every pair of flat tensors (1.0 for
+    fewer than two)."""
+    k = len(flat_grads)
+    if k < 2:
+        return torch.ones((), device=flat_grads[0].device if k else None)
+    norms = [(g * g).sum().sqrt() for g in flat_grads]
+    sims = [(flat_grads[i] * flat_grads[j]).sum()
+            / (norms[i] * norms[j]).clamp(min=1e-12)
+            for i in range(k) for j in range(i + 1, k)]
+    return torch.stack(sims).mean()
+
+
+def gradient_statistics(gradients: Any, exact_order_stats: bool = True,
+                        max_cosine_pairs_tensors: int = 8) -> torch.Tensor:
+    """f32 [17] statistics over gradient tensors (a list or a parameter
+    tree, leaves in sorted-key order): the 12-stat battery of their
+    concatenation, then the tensor count, the mean, population std and
+    max of the per-tensor L2 norms, and the mean pairwise cosine
+    similarity of the first ``max_cosine_pairs_tensors`` tensors."""
+    tree = gradients if isinstance(gradients, dict) else list(gradients)
+    grads = [g.reshape(-1).float() for g in tree_leaves(tree)]
+    if not grads:
+        return torch.zeros(NUM_GRADIENT_STATS)
+    base = tensor_statistics(torch.cat(grads), exact_order_stats)
+    norms = torch.stack([(g * g).sum().sqrt() for g in grads])
+    cos = _pairwise_cosine_mean(grads[:max_cosine_pairs_tensors])
+    extra = torch.stack([
+        torch.full((), float(len(grads)), device=base.device),
+        norms.mean(), norms.std(correction=0), norms.max(), cos])
+    return torch.cat([base, extra])
+
+
+def padded_tensor_statistics(x: torch.Tensor, exact_order_stats: bool = True
+                             ) -> torch.Tensor:
+    """f32 [17]: the tensor battery padded with zeros to the gradient
+    battery's width (one baseline layout for both)."""
+    base = tensor_statistics(x, exact_order_stats)
+    pad = torch.zeros(NUM_GRADIENT_STATS - NUM_TENSOR_STATS,
+                      device=base.device)
+    return torch.cat([base, pad])
+
+
+def detect_backdoor(model_outputs: torch.Tensor,
+                    expected_outputs: torch.Tensor, threshold: float = 2.0
+                    ) -> torch.Tensor:
+    """bool []: the batch-mean KL divergence above ``threshold``."""
+    return backdoor_divergence(model_outputs, expected_outputs) > threshold
+
+
 __all__ = [
     "GRADIENT_STAT_NAMES", "NUM_GRADIENT_STATS", "NUM_TENSOR_STATS",
     "STAT_INDEX", "TENSOR_STAT_NAMES", "backdoor_divergence",
     "byzantine_verdicts", "chunked_cosine_mean", "combine_microbatch_stats",
-    "leafwise_statistics", "pairwise_cosine_matrix", "quantiles_from_sorted",
-    "strided_sample_of_leaves",
+    "detect_backdoor", "gradient_statistics", "leafwise_statistics",
+    "padded_tensor_statistics", "pairwise_cosine_matrix",
+    "quantiles_from_sorted", "strided_sample_of_leaves", "tensor_statistics",
+    "tensor_statistics_sampled",
 ]

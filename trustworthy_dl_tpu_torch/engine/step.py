@@ -264,19 +264,40 @@ class HostMetricsPacker:
 StepFn = Callable[..., Tuple[TrainState, StepMetrics]]
 
 
+def _node_loss(bundle: ModelBundle) -> Callable:
+    """(params, batch) -> (loss, features, mean_logits): the bundle's
+    ``loss_monitor``, else (the vision models) ``apply`` and the
+    cross-entropy, with the logits as the features and their f32 mean
+    over every axis but the class axis as the mean logits."""
+    if bundle.loss_monitor is not None:
+        return bundle.loss_monitor
+    from trustworthy_dl_tpu_torch.models import layers as L
+
+    def plain(params: Any, batch: Dict[str, Tensor]):
+        logits = bundle.apply(params, batch["input"])
+        lead = tuple(range(logits.dim() - 1))
+        return (L.cross_entropy_loss(logits, batch["target"]), logits,
+                logits.float().mean(dim=lead))
+
+    return plain
+
+
 def build_train_step(bundle: ModelBundle, config: TrainingConfig,
                      optimizer: Optimizer, max_sort: int = 16384) -> StepFn:
     """The step for ``config.num_nodes`` nodes: ``step(state, batch, plan,
     grad_noise=None, batch_noise=None) -> (state, metrics)``, with batches
     {'input': [n, b, T], 'target': [n, b, T]} on the state's device (b a
-    multiple of ``config.grad_accum_steps``).  ``grad_noise`` /
-    ``batch_noise`` hand the attack injectors their draws (else they draw
-    from ``state.rng``)."""
+    multiple of ``config.grad_accum_steps``), or {'input': [n, b, H, W,
+    C] f32 images, 'target': [n, b] labels} for a vision model.
+    ``grad_noise`` / ``batch_noise`` hand the attack injectors their draws
+    (else they draw from ``state.rng``)."""
     n_nodes = config.num_nodes
     accum = config.grad_accum_steps
     detection = config.attack_detection_enabled
     verification = config.gradient_verification_enabled
-    num_classes = bundle.input_spec.get("vocab_size", 2)
+    num_classes = bundle.input_spec.get(
+        "num_classes", bundle.input_spec.get("vocab_size", 2))
+    node_loss = _node_loss(bundle)
 
     def node_passes(params: Any, batch: Dict[str, Tensor]):
         """Per node, per microbatch: forward + loss + grads.  Returns
@@ -297,7 +318,7 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
             for a in range(accum):
                 mb = {k: v[a] for k, v in micro.items()}
                 with torch.enable_grad():
-                    loss, f, ml = bundle.loss_monitor(node_params, mb)
+                    loss, f, ml = node_loss(node_params, mb)
                     g = torch.autograd.grad(loss, leaves)
                 if i == 0 and a == 0:
                     grads = [torch.empty((n_nodes,) + x.shape, dtype=x.dtype,
@@ -532,17 +553,20 @@ def build_eval_step(bundle: ModelBundle) -> EvalFn:
     """Validation step on an un-noded batch: {'loss', 'accuracy'}, no
     detection.  GPT-2 takes the fused eval head where ``lm_head_chunk``
     resolves to a width for this batch (the training dispatch), so the
-    [B, T, V] logits never materialise."""
+    [B, T, V] logits never materialise; the vision models take ``apply``
+    and the cross-entropy."""
     from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.models import layers as L
     from trustworthy_dl_tpu_torch.ops.fused_ce import fused_lm_eval
 
     cfg = bundle.config
+    lm = bundle.kind == "lm"
 
     @torch.no_grad()
     def eval_step(params: Any, batch: Dict[str, Tensor]
                   ) -> Dict[str, Tensor]:
-        chunk = gpt2.resolve_lm_head_chunk(cfg, batch["target"].numel())
+        chunk = lm and gpt2.resolve_lm_head_chunk(cfg,
+                                                  batch["target"].numel())
         if not chunk:
             logits = bundle.apply(params, batch["input"])
             return {"loss": L.cross_entropy_loss(logits, batch["target"]),

@@ -9,10 +9,17 @@ metrics in one packed device-to-host copy per step, records them in its
 :class:`TrustManager`, hands the flagged node's work to the most trusted
 node (``reassignment_history``, with the migration-time model's estimate)
 and counts each detection as a true or false positive against the attack
-plan (``detection_stats``).  At epoch cadence it absorbs the device trust
-and monitor state (``trust_manager``, ``node_monitor``), pushes the
-adaptive threshold back, and, given a validation loader, evaluates
-(``validate_metrics``).
+plan (the host detector's ``detection_stats``).  With the ML tier on
+(``ml_detectors`` and scikit-learn importable, as in JAX) every step's
+output and gradient batteries feed the host
+:class:`detect.detector.AttackDetector`'s histories.  At epoch cadence it
+absorbs the device trust and monitor state (``trust_manager``,
+``node_monitor``), pushes the adaptive threshold back, refits the ML
+tier's per-node IsolationForests and scores each node's newest features
+(``ml_flags``), and, given a validation loader, evaluates
+(``validate_metrics``).  The GPT-2 family trains on token windows, the
+ResNet and VGG families on f32 NHWC images with class labels.  The model
+computes in ``config.dtype`` unless ``model_overrides`` names a dtype.
 
 The loop, as in JAX: batches are assembled on a host thread
 (``prefetch_depth``, :class:`data.loader.PrefetchLoader`), and at
@@ -37,10 +44,9 @@ two per-run hooks that a reset detaches: ``chaos`` (a
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
 runs its plain PyTorch version.  Not ported yet: telemetry (the obs
-events and step-timer laps), the ML detector tier, and the pipeline,
-tensor, sequence and expert modes (with their elastic forms); a
-configuration that asks for one raises ``NotImplementedError`` at
-construction.
+events and step-timer laps) and the pipeline, tensor, sequence and
+expert modes (with their elastic forms); a configuration that asks for
+one of the modes raises ``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -49,7 +55,6 @@ import dataclasses
 import enum
 import logging
 import time
-from collections import defaultdict
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -57,10 +62,13 @@ import torch
 
 from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     null_plan
-from trustworthy_dl_tpu_torch.core.config import NodeConfig, \
-    TrainingConfig
+from trustworthy_dl_tpu_torch.core.config import COMPUTE_DTYPES, \
+    NodeConfig, TrainingConfig
 from trustworthy_dl_tpu_torch.data.loader import PrefetchLoader
-from trustworthy_dl_tpu_torch.detect.detector import AttackType
+from trustworthy_dl_tpu_torch.detect.detector import AttackDetector, \
+    AttackType
+from trustworthy_dl_tpu_torch.detect.stats import GRADIENT_STAT_NAMES, \
+    NUM_TENSOR_STATS, TENSOR_STAT_NAMES
 from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
 from trustworthy_dl_tpu_torch.elastic.reassignment import \
     evict_and_reshard, readmit_and_reshard
@@ -81,9 +89,19 @@ from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
 
 logger = logging.getLogger(__name__)
 
-#: The [n] step metrics the host records every step (``_host_record``).
+#: The step metrics the host records every step (``_host_record``).
 _HOST_FIELDS = ("per_node_loss", "weights", "trust_scores", "out_score",
-                "grad_score", "attacked", "finite", "status", "attack_type")
+                "grad_score", "attacked", "finite", "status", "attack_type",
+                "out_stats", "grad_stats")
+
+
+def _sklearn_available() -> bool:
+    """The ML tier's gate, JAX's: scikit-learn importable."""
+    try:
+        import sklearn  # noqa: F401
+        return True
+    except ImportError:
+        return False
 
 
 class TrainingState(enum.Enum):
@@ -105,7 +123,11 @@ class DistributedTrainer:
                  device: Any = "cuda"):
         _refuse_unported(config)
         self.device = resolve_device(device)
+        # The epoch-cadence ML tier, gated once: without scikit-learn the
+        # refit is a no-op, so the per-step battery feed would be waste.
+        self._ml_enabled = config.ml_detectors and _sklearn_available()
         overrides = dict(model_overrides or {})
+        overrides.setdefault("dtype", COMPUTE_DTYPES[config.dtype])
         if config.lm_head_chunk >= 0:
             overrides.setdefault("lm_head_chunk", config.lm_head_chunk)
         if config.remat:
@@ -145,10 +167,13 @@ class DistributedTrainer:
             recovery_rate=config.trust_recovery_rate,
             alpha=config.trust_alpha)
         self.node_monitor = NodeMonitor()
-        # Detections against the attack plan's ground truth.
-        self.detection_stats: Dict[str, Any] = {
-            "total_detections": 0, "false_positives": 0,
-            "true_positives": 0, "attack_types": defaultdict(int)}
+        # The host detector: the ML tier's battery histories and models,
+        # and the detections counted against the attack plan's ground
+        # truth (``detection_stats``).
+        self.attack_detector = AttackDetector(
+            exact_order_stats=config.exact_order_stats, device=self.device)
+        # Epoch-cadence ML-tier verdicts (original node id -> bool).
+        self.ml_flags: Dict[int, bool] = {}
         self.node_configs: Dict[int, NodeConfig] = {
             i: NodeConfig(node_id=i, rank=i, world_size=config.num_nodes,
                           device_id=i, model_partition=f"shard_{i}")
@@ -298,8 +323,12 @@ class DistributedTrainer:
         runs after the copy on the same stream."""
         out = {}
         for k, arr in batch.items():
-            t = torch.as_tensor(np.asarray(arr[:b]).reshape(
-                (rows, b // rows) + arr.shape[1:]), dtype=torch.long)
+            arr = np.asarray(arr)
+            # Images stay f32; token and label ids become int64.
+            dtype = torch.float32 if np.issubdtype(arr.dtype, np.floating) \
+                else torch.long
+            t = torch.as_tensor(arr[:b].reshape(
+                (rows, b // rows) + arr.shape[1:]), dtype=dtype)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t.to(self.device)
@@ -428,13 +457,37 @@ class DistributedTrainer:
                                   None if t_prev is None else now - t_prev)
 
     def _epoch_intelligence(self) -> None:
-        """Adaptive trust threshold, pushed back into the step's state."""
+        """Adaptive trust threshold, pushed back into the step's state;
+        the ML tier's refit and each live node's verdict on its newest
+        features."""
         if self.config.adaptive_thresholds:
             self.trust_manager.adaptive_threshold_adjustment()
             threshold = torch.full((), self.trust_manager.trust_threshold,
                                    dtype=torch.float32, device=self.device)
             self.state = self.state._replace(
                 trust=self.state.trust._replace(threshold=threshold))
+        if self._ml_enabled:
+            detector = self.attack_detector
+            detector.update_detection_models()
+            self.ml_flags = {}
+            for orig in self.node_map:
+                features = detector.latest_features(orig)
+                if features:
+                    self.ml_flags[orig] = detector.detect_with_ml_models(
+                        features, orig)
+            if any(self.ml_flags.values()):
+                logger.warning("ML detectors flagged nodes: %s",
+                               [n for n, v in self.ml_flags.items() if v])
+
+    def work_units(self, node_batch: Dict[str, Any]) -> int:
+        """Work per step of a node-split batch: tokens for an LM, samples
+        for a vision model."""
+        first = node_batch.get("input")
+        if first is None:
+            first = next(iter(node_batch.values()))
+        if self.model.kind == "lm":
+            return int(np.prod(first.shape))
+        return int(first.shape[0] * first.shape[1])
 
     def _host_view(self, metrics: StepMetrics) -> Dict[str, Any]:
         """The synchronous read of a step: pack (with the post-step fleet
@@ -472,6 +525,16 @@ class DistributedTrainer:
                              for i in range(len(trust))}}
         self.metrics_collector.collect_batch_metrics(record)
         record = self.metrics_collector.batch_metrics[-1]
+        if self._ml_enabled:
+            # The ML tier's corpus.  An output battery is 12 real stats and
+            # 5 zero pads; only the real columns are named.
+            detector = self.attack_detector
+            for coord, orig in enumerate(id_of):
+                detector.output_history[orig].append({"stats": dict(zip(
+                    TENSOR_STAT_NAMES,
+                    host["out_stats"][coord][:NUM_TENSOR_STATS]))})
+                detector.gradient_history[orig].append({"stats": dict(zip(
+                    GRADIENT_STAT_NAMES, host["grad_stats"][coord]))})
 
         if host["fleet_alert"] is not None:
             opened = self._fleet_tracker.update(
@@ -590,7 +653,7 @@ class DistributedTrainer:
         live = bool(plan.active) and self.global_step - 1 >= plan.start_step
         is_tp = live and coord < len(plan.target_mask) and bool(
             plan.target_mask[coord])
-        ds = self.detection_stats
+        ds = self.attack_detector.detection_stats
         ds["total_detections"] += 1
         ds["attack_types"][attack_type] += 1
         ds["true_positives" if is_tp else "false_positives"] += 1
@@ -716,6 +779,7 @@ class DistributedTrainer:
             "fleet_alert_count": len(self.fleet_alerts),
             "metrics": self.metrics_collector.get_summary(),
             "trust_threshold": self.trust_manager.trust_threshold,
+            "ml_flags": dict(self.ml_flags),
             "predicted_reliability": {
                 i: self.trust_manager.predict_node_reliability(i)
                 for i in range(self.config.num_nodes)},

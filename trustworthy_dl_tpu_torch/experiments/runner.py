@@ -14,8 +14,9 @@ experiment_report.md, and intermediate_epoch_N.json every 5 epochs.  One
 deliberate difference from the JAX runner: no telemetry session (the
 port has no ``obs/`` session), so ``obs_report`` is None and no ``obs/``
 directory is written.  The runner trains on the card
-(``device="cuda"``) unless given ``device="cpu"``; a preset whose model
-or mode is not ported raises at ``setup_experiment``.
+(``device="cuda"``) unless given ``device="cpu"``.  It runs the GPT-2,
+ResNet and VGG presets in data mode; a preset whose mode is not ported
+raises at ``setup_experiment``.
 """
 
 from __future__ import annotations
@@ -81,13 +82,7 @@ class ExperimentRunner:
     # ------------------------------------------------------------------
 
     def setup_experiment(self) -> None:
-        # The trainer refuses the modes the port has not got (parallel/);
-        # the runner refuses the models.
-        if not self.config.model_name.startswith("gpt2"):
-            raise NotImplementedError(
-                f"model {self.config.model_name!r} is not ported yet "
-                "(ROADMAP Queue A item 10: ResNet and VGG); the port trains "
-                "GPT-2")
+        # The trainer refuses the modes the port has not got (parallel/).
         self.trainer = DistributedTrainer(
             self.training_config, model_overrides=self.model_overrides,
             device=self.device,

@@ -1,1 +1,2 @@
-"""GPT-2, its weight converter and the cached/paged generation paths."""
+"""GPT-2, ResNet and VGG, the weight converter and the cached/paged
+generation paths."""

@@ -10,6 +10,7 @@ every launch: the median of per-launch CUDA-event timings (``ms``, which
 also holds the host's dispatch whenever the card waits for it) and the
 profiler's device time of every kernel of one call but the flush's
 (``device_ms``), from a session that recorded every launch.
+:func:`graph_ms` times a call's launches replayed as one CUDA graph.
 :func:`kernel_names` lists the kernels one call launches (which a library
 call picked); :func:`host_us` times the host's enqueue of one call.  Needs
 a CUDA card.
@@ -82,6 +83,36 @@ def event_ms(fn: Callable, flush: torch.Tensor, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn: Callable, flush: torch.Tensor, reps: int) -> float:
+    """Median CUDA-event ms of one replay of ``fn``'s launches captured as
+    one CUDA graph, the L2 flushed before each: the card's time for a call
+    whose host work (between its launches) would otherwise hold the card
+    idle, the gaps between its kernels included.  No profiler, so no
+    launch record can go missing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
     return statistics.median(times)
 
 

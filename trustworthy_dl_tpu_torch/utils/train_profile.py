@@ -52,7 +52,9 @@ def busy_window(trainer, loader, epoch: int = 0, first: int = BUSY_FIRST,
     activity only) recording from the dispatch of step ``first`` to the
     dispatch of step ``last + 1`` of the epoch: the window's wall, the
     device time summed over the kernels and copies that ran in it, and
-    their ratio, the device's busy share.  The loader must give more than
+    their ratio, the device's busy share; and the host's time to enqueue
+    each of the window's steps (the step call, which returns before the
+    card finishes), their median.  The loader must give more than
     ``last`` steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -75,12 +77,15 @@ def busy_window(trainer, loader, epoch: int = 0, first: int = BUSY_FIRST,
                    schedule=schedule(wait=first - 1, warmup=1,
                                      active=last - first + 1, repeat=1),
                    on_trace_ready=ready)
-    step_fn, marks = trainer._train_step, []
+    step_fn, marks, enqueue = trainer._train_step, [], []
 
     def stepped(*args):
         marks.append(time.perf_counter())
         prof.step()         # step i of the epoch is profiler step i
-        return step_fn(*args)
+        t = time.perf_counter()
+        out = step_fn(*args)
+        enqueue.append(time.perf_counter() - t)
+        return out
 
     trainer._train_step = stepped
     try:
@@ -92,9 +97,12 @@ def busy_window(trainer, loader, epoch: int = 0, first: int = BUSY_FIRST,
         raise RuntimeError(f"busy_window: the epoch ran {len(marks)} "
                            f"steps; the window needs more than {last}")
     wall = marks[last] - marks[first - 1]
+    window = enqueue[first - 1:last]
     return {"steps": [first, last], "wall_s": wall,
             "device_kernel_s": found["device_s"],
-            "busy_share": found["device_s"] / wall}
+            "busy_share": found["device_s"] / wall,
+            "enqueue_ms_median": 1e3 * statistics.median(window),
+            "enqueue_ms": [1e3 * x for x in window]}
 
 
 def main(argv=None) -> int:

@@ -1,11 +1,12 @@
-"""Nested-dict parameter trees: map, flatten and rebuild.
+"""Parameter trees of nested dicts and lists: map, flatten and rebuild.
 
 Leaves are flattened in ``jax.tree_util.tree_leaves`` order, which sorts
 dict keys at every level (GPT-2: ``blocks`` before ``ln_f`` before ``wpe``
-before ``wte``, ``attn/proj`` before ``attn/qkv``).  That order fixes the
-per-leaf gradient norms the monitor expects, the order-statistics sample
-and the leaf count, so the port's batteries line up with the JAX
-package's column for column.
+before ``wte``, ``attn/proj`` before ``attn/qkv``) and keeps a list's
+order (the ResNet and VGG ``blocks``).  A tuple is a leaf here.  That
+order fixes the per-leaf gradient norms the monitor expects, the
+order-statistics sample and the leaf count, so the port's batteries line
+up with the JAX package's column for column.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ from typing import Any, Callable, List
 
 
 def map_tree(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of a nested dict or list."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -27,6 +30,8 @@ def tree_leaves(tree: Any) -> List[Any]:
         for k in sorted(tree):
             out.extend(tree_leaves(tree[k]))
         return out
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -37,6 +42,8 @@ def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     def build(node: Any) -> Any:
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
         return next(it)
 
     out = build(like)
