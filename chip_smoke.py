@@ -150,6 +150,32 @@ Phases (each prints one JSON line; any failure exits non-zero):
    concatenated gradient against numpy, the Byzantine and backdoor
    checks on card tensors.
 
+12. text: raw text to served text through ``cli.main``, in a temporary
+   directory.  The checkout's Markdown documents and the port package's
+   .py sources, read as text and repeated to 4 MB, become
+   ``openwebtext.txt``; ``prepare --vocab-size 8192`` writes the ``.bin``
+   and the tokenizer (gates: decode(encode(corpus)) is the corpus, every
+   id under 8192, the ``.bin``'s bytes the uint16 ids, the 5% holdout
+   holds a validation batch; the BPE training and encoding seconds and
+   which pre-tokenizer ran).  ``train --config`` (the nested README
+   schema in JSON, and in YAML where pyyaml imports: both resolve equal;
+   ``profile_dir`` set) with ``--seq-len 1024 --epochs 1
+   --steps-per-epoch 4`` and ``TDDL_DATA_DIR`` on the corpus: the train
+   phase's 4 nodes x 8 sequences of 1024, block remat, detection ON
+   (gates: the file's values applied and the flag's epochs over the
+   file's, batches with ids >= 512, finite losses, B1-B3 exact for 4 steps
+   and the validation batch, a Chrome trace with the 4 ``train_step#N``
+   annotations and kernel events, the checkpoint committed).  ``serve
+   --checkpoint-dir`` over 8 requests of 32-128 prompt tokens, greedy,
+   then sampled (gates:
+   "restored step 4", B5 and B6 exact from the engine's counters, B7
+   launched, the restored params bit-equal to the trainer's final ones,
+   the greedy streams equal to an engine built in-process on those
+   params).  ``generate --prompt-text --tokenizer-dir`` at the defaults
+   (top-k 40), with ``--top-p 0.9``, with ``--top-k 1`` and greedy (gates:
+   every draw inside the keep-set the CPU computes from the same logits,
+   top-k 1 equal to greedy, the decoded text printed).
+
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
 """
@@ -307,6 +333,19 @@ VISION_BUSY_FIRST, VISION_BUSY_LAST, VISION_BUSY_STEPS = 3, 5, 6
 # norm within MOMENT_RTOL relative (f32 sums of 42.5M terms in another
 # order than numpy's f64 sums).
 ORDER_RTOL = 1e-6
+# text: the corpus (the checkout's Markdown and the port's .py sources)
+# repeated to at least TEXT_CORPUS_BYTES, so that the loader's 5% holdout
+# holds one validation batch of TRAIN_BATCH windows of TRAIN_T tokens (the
+# validation loader takes at most TEXT_VAL_WINDOWS: max(32 x 4 / 10, 32));
+# a BPE of TEXT_VOCAB ids (JAX's default); TEXT_STEPS train steps at the
+# train phase's geometry, then TEXT_SERVE_REQUESTS served requests and
+# four generate runs of 32 tokens from TEXT_PROMPT.
+TEXT_CORPUS_BYTES = 4_000_000
+TEXT_VAL_WINDOWS = 32
+TEXT_VOCAB = 8192
+TEXT_STEPS = 4
+TEXT_SERVE_REQUESTS = 8
+TEXT_PROMPT = "The trusted training step gates every node by"
 
 
 def emit(obj) -> None:
@@ -2986,6 +3025,421 @@ def vision_drive(torch, entries, card):
           "b1_launches": b1_total, "b1_max_segments": fs.MAX_SEGMENTS})
 
 
+def run_cli(args, out_lines):
+    """``cli.main(args)`` with its standard output captured into
+    ``out_lines``; fails on a non-zero exit code."""
+    import contextlib
+    import io
+
+    from trustworthy_dl_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    out_lines.extend(buf.getvalue().splitlines())
+    if rc != 0:
+        raise AssertionError(f"text: cli {args[0]} exited {rc}: "
+                             f"{buf.getvalue()[-2000:]}")
+    return buf.getvalue()
+
+
+def text_corpus(root):
+    """The corpus of the text phase: the checkout's Markdown documents and
+    the port package's .py sources (read as text, never imported),
+    repeated to at least TEXT_CORPUS_BYTES."""
+    import glob
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(here, "*.md"))) + sorted(
+        glob.glob(os.path.join(here, "trustworthy_dl_tpu_torch", "**",
+                               "*.py"), recursive=True))
+    parts = []
+    for path in paths:
+        with open(path, encoding="utf-8", errors="replace") as f:
+            parts.append(f.read())
+    base = "\n".join(parts)
+    copies = max(1, math.ceil(TEXT_CORPUS_BYTES / len(base.encode())))
+    text = "\n".join([base] * copies)
+    path = os.path.join(root, "openwebtext.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+    # The corpus as ``prepare`` reads it (universal newlines).
+    with open(path, encoding="utf-8", errors="replace") as f:
+        text = f.read()
+    return path, text, {"files": len(paths), "copies": copies,
+                        "bytes": len(text.encode())}
+
+
+def text_drive(torch, entries, card):
+    """Phase 12: raw text to served text through the port's command line:
+    ``prepare`` on a corpus from the checkout, ``train --config`` on it at
+    the train phase's geometry with a trace, ``serve`` and ``generate``
+    from the checkpoint it committed."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig, \
+        load_config
+    from trustworthy_dl_tpu_torch.data import tokenizer as tok_mod
+    from trustworthy_dl_tpu_torch.engine import trainer as trainer_mod
+    from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
+    from trustworthy_dl_tpu_torch.models import generate as gen_mod
+    from trustworthy_dl_tpu_torch.serve import engine as engine_mod
+    from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
+
+    cfg = gpt2_small(torch)
+    root = tempfile.mkdtemp(prefix="tddl_text_")
+    t_phase = time.perf_counter()
+    seconds, out, gates = {}, [], []
+    patched = []
+
+    def patch(owner, name, value):
+        patched.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, value)
+
+    try:
+        # -- 1. the corpus --------------------------------------------------
+        t = time.perf_counter()
+        corpus, text, corpus_info = text_corpus(root)
+        seconds["corpus"] = time.perf_counter() - t
+
+        # -- 2. prepare ---------------------------------------------------------
+        bpe = {"train_bpe_s": 0.0, "encode_s": 0.0}
+        train_fn = tok_mod.BPETokenizer.__dict__["train"].__func__
+        encode_fn = tok_mod.BPETokenizer.encode
+
+        def timed_train(klass, corpus_text, vocab_size=8192):
+            t0 = time.perf_counter()
+            tok = train_fn(klass, corpus_text, vocab_size)
+            bpe["train_bpe_s"] += time.perf_counter() - t0
+            return tok
+
+        def timed_encode(self, corpus_text):
+            t0 = time.perf_counter()
+            ids = encode_fn(self, corpus_text)
+            bpe["encode_s"] += time.perf_counter() - t0
+            return ids
+
+        patch(tok_mod.BPETokenizer, "train", classmethod(timed_train))
+        patch(tok_mod.BPETokenizer, "encode", timed_encode)
+        t = time.perf_counter()
+        run_cli(["prepare", corpus, "--vocab-size", str(TEXT_VOCAB)], out)
+        seconds["prepare"] = time.perf_counter() - t
+        for owner, name, value in reversed(patched):
+            setattr(owner, name, value)
+        patched.clear()
+        tok = tok_mod.BPETokenizer.load(os.path.join(root, "tokenizer"))
+        ids = tok.encode(text)
+        if tok.decode(ids) != text:
+            raise AssertionError("text: decode(encode(corpus)) != corpus")
+        if max(ids) >= TEXT_VOCAB or tok.vocab_size != TEXT_VOCAB:
+            raise AssertionError(f"text: ids up to {max(ids)}, vocab "
+                                 f"{tok.vocab_size}")
+        with open(os.path.join(root, "openwebtext.bin"), "rb") as f:
+            written = f.read()
+        if written != np.asarray(ids, np.uint16).tobytes():
+            raise AssertionError("text: the .bin's bytes are not the ids")
+        holdout = len(ids) - int(len(ids) * 0.95)
+        val_windows = min((holdout - 1) // TRAIN_T, TEXT_VAL_WINDOWS)
+        if val_windows < TRAIN_BATCH:
+            raise AssertionError(f"text: the holdout's {holdout} tokens "
+                                 "hold no validation batch")
+        gates += ["round_trip", "ids_below_vocab", "bin_bytes",
+                  "validation_batch"]
+
+        # -- 3. train --config ---------------------------------------------------
+        ckpt = os.path.join(root, "ckpt")
+        prof = os.path.join(root, "profile")
+        file_config = {
+            "model": {"name": "gpt2", "size": "small"},
+            "training": {"batch_size": TRAIN_BATCH, "learning_rate": 0.0001,
+                         "num_epochs": 3, "optimizer": "adamw"},
+            "distributed": {"num_nodes": TRAIN_NODES, "parallelism": "data"},
+            "security": {"trust_threshold": 0.7, "attack_detection": True,
+                         "gradient_verification": True},
+            "dataset": "openwebtext", "remat": True, "seed": 0,
+            "checkpoint_dir": ckpt, "profile_dir": prof}
+        config_path = os.path.join(root, "config.json")
+        with open(config_path, "w") as f:
+            json.dump(file_config, f)
+        resolved = load_config(config_path)
+        try:
+            import yaml
+
+            yaml_path = os.path.join(root, "config.yaml")
+            with open(yaml_path, "w") as f:
+                yaml.safe_dump(file_config, f)
+            if load_config(yaml_path) != resolved:
+                raise AssertionError("text: the YAML and JSON configs "
+                                     "resolve differently")
+            yaml_state = "yaml and json resolve equal"
+        except ImportError:
+            yaml_state = "pyyaml not installed: json only"
+        made, batch_max = [], []
+        saved_params = {}
+
+        class Recording(trainer_mod.DistributedTrainer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+            def _node_batch(self, batch, for_eval=False):
+                if not for_eval:
+                    batch_max.append(int(np.asarray(batch["input"]).max()))
+                return super()._node_batch(batch, for_eval)
+
+            def save_checkpoint(self):
+                path = super().save_checkpoint()
+                saved_params["params"] = map_tree(
+                    lambda a: a.detach().clone(), self.state.params)
+                return path
+
+        patch(trainer_mod, "DistributedTrainer", Recording)
+        previous_dir = os.environ.get("TDDL_DATA_DIR")
+        os.environ["TDDL_DATA_DIR"] = root
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            run_cli(["train", "--config", config_path, "--seq-len",
+                     str(TRAIN_T), "--epochs", "1", "--steps-per-epoch",
+                     str(TEXT_STEPS)], out)
+        finally:
+            if previous_dir is None:
+                os.environ.pop("TDDL_DATA_DIR")
+            else:
+                os.environ["TDDL_DATA_DIR"] = previous_dir
+        seconds["train"] = time.perf_counter() - t
+        launches = ops.launch_counts()
+        tr = made[0]
+        applied = {k: getattr(tr.config, k) for k in (
+            "model_name", "batch_size", "learning_rate", "num_epochs",
+            "num_nodes", "attack_detection_enabled", "remat",
+            "profile_dir", "checkpoint_dir")}
+        want_applied = {"model_name": "gpt2", "batch_size": TRAIN_BATCH,
+                        "learning_rate": 0.0001, "num_epochs": 1,
+                        "num_nodes": TRAIN_NODES,
+                        "attack_detection_enabled": True, "remat": True,
+                        "profile_dir": prof, "checkpoint_dir": ckpt}
+        if applied != want_applied or resolved.num_epochs != 3:
+            raise AssertionError(f"text: config applied {applied}, want "
+                                 f"{want_applied} (the file says 3 epochs, "
+                                 "the flag 1)")
+        if len(batch_max) != TEXT_STEPS or max(batch_max) < 512:
+            raise AssertionError(f"text: train batches' max ids {batch_max}"
+                                 ": not the corpus's")
+        losses = [r["loss"] for r in tr.batch_history]
+        if len(losses) != TEXT_STEPS or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"text: losses {losses}")
+        want = flash_b1_launches(cfg, TEXT_STEPS, True,
+                                 val_windows // TRAIN_BATCH, TRAIN_NODES)
+        expect_launches_equal(launches, want, "text train")
+        for name, n in want.items():
+            entries[name]["launches_text"] = n
+        traces = [os.path.join(prof, n) for n in os.listdir(prof)
+                  if n.endswith(".json")]
+        if len(traces) != 1:
+            raise AssertionError(f"text: traces {traces}")
+        t = time.perf_counter()
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        seconds["trace_read"] = time.perf_counter() - t
+        steps = [e["name"] for e in events
+                 if e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith("train_step#")]
+        if steps != [f"train_step#{i}" for i in range(1, TEXT_STEPS + 1)]:
+            raise AssertionError(f"text: trace step annotations {steps}")
+        device_events = sum(1 for e in events
+                            if e.get("cat") == "kernel")
+        if device_events == 0:
+            raise AssertionError("text: the trace holds no kernel")
+        if CheckpointManager(ckpt).latest_step() != TEXT_STEPS:
+            raise AssertionError("text: no committed checkpoint at step "
+                                 f"{TEXT_STEPS}")
+        final = saved_params["params"]
+        gates += ["config_applied", "flag_wins", "corpus_batches",
+                  "losses_finite", "b1_b3_exact", "trace_steps",
+                  "checkpoint_committed"]
+        for owner, name, value in reversed(patched):
+            setattr(owner, name, value)
+        patched.clear()
+        del tr, made[:]
+        torch.cuda.empty_cache()
+
+        # -- 4. serve --checkpoint-dir -----------------------------------------
+        engines, served_params, submitted = [], [], []
+        from_config = engine_mod.ServingEngine.__dict__["from_config"]
+
+        def recording_from_config(klass, params, *a, **kw):
+            served_params.append(params)
+            engine = from_config.__func__(klass, params, *a, **kw)
+            submit = engine.submit
+
+            def recording_submit(request):
+                submitted.append(request)
+                return submit(request)
+
+            engine.submit = recording_submit
+            engines.append((engine, a, kw))
+            return engine
+
+        patch(engine_mod.ServingEngine, "from_config",
+              classmethod(recording_from_config))
+        # Prompts of 32-128 tokens: those past the 64-position chunk take
+        # the chunked prefill (B6), the rest the local one.
+        serve_args = ["serve", "--checkpoint-dir", ckpt, "--num-requests",
+                      str(TEXT_SERVE_REQUESTS), "--max-new-tokens", "32",
+                      "--prompt-len", "64"]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        greedy_out = run_cli(serve_args + ["--temperature", "0"], out)
+        seconds["serve_greedy"] = time.perf_counter() - t
+        serve_launches = ops.launch_counts()
+        engine, e_args, e_kw = engines[0]
+        summary = engine.metrics_summary()
+        if f"restored step {TEXT_STEPS} from {ckpt}" not in greedy_out:
+            raise AssertionError("text: serve did not restore the "
+                                 "checkpoint")
+        if summary["requests_completed"] != TEXT_SERVE_REQUESTS or \
+                summary["prefill_chunks"] == 0:
+            raise AssertionError(f"text: serve summary {summary}")
+        serve_want = {
+            "paged_attention": cfg.n_layer * summary["decode_ticks"],
+            "paged_prefill_attention": cfg.n_layer
+            * summary["prefill_chunks"]}
+        expect_launches_equal(serve_launches, serve_want, "text serve")
+        if serve_launches["logit_trust_stats"] == 0:
+            raise AssertionError("text: B7 never launched")
+        for name, n in serve_launches.items():
+            if name in ("paged_attention", "paged_prefill_attention",
+                        "logit_trust_stats"):
+                key = {"paged_attention": "paged_decode_attention"}.get(
+                    name, name)
+                entries[key]["launches_text"] = n
+        for a, b in zip(tree_leaves(served_params[0]), tree_leaves(final),
+                        strict=True):
+            if not torch.equal(a.to(b.device), b):
+                raise AssertionError("text: restored params differ from "
+                                     "the trainer's final params")
+        greedy_requests = list(submitted)
+        cli_streams = [engine.results[rid].tokens
+                       for rid in sorted(engine.results)]
+        in_process = from_config.__func__(engine_mod.ServingEngine, final,
+                                          *e_args, **e_kw)
+        for request in greedy_requests:
+            in_process.submit(request)
+        ref = in_process.run_until_idle()
+        ref_streams = [ref[rid].tokens for rid in sorted(ref)]
+        if cli_streams != ref_streams:
+            raise AssertionError("text: cli serve's greedy streams differ "
+                                 "from the in-process engine's")
+        del in_process, ref
+        engines.clear()
+        submitted.clear()
+        t = time.perf_counter()
+        sampled_out = run_cli(serve_args + ["--temperature", "0.8"], out)
+        seconds["serve_sampled"] = time.perf_counter() - t
+        sampled_summary = engines[0][0].metrics_summary()
+        if f"restored step {TEXT_STEPS}" not in sampled_out or \
+                sampled_summary["requests_completed"] != TEXT_SERVE_REQUESTS:
+            raise AssertionError(f"text: sampled serve {sampled_summary}")
+        engines.clear()
+        served_params.clear()
+        gates += ["serve_restored", "b5_b6_exact_b7_launched",
+                  "restored_params_bitwise", "greedy_streams_in_process"]
+        for owner, name, value in reversed(patched):
+            setattr(owner, name, value)
+        patched.clear()
+
+        # -- 5. generate --prompt-text -------------------------------------------
+        draws = []
+        sample_fn = gen_mod._sample
+
+        def recording_sample(logits, temperature, top_k=0, top_p=1.0,
+                             generator=None):
+            token = sample_fn(logits, temperature, top_k, top_p, generator)
+            draws.append((logits.float().cpu(), token.cpu(), temperature,
+                          top_k, top_p))
+            return token
+
+        patch(gen_mod, "_sample", recording_sample)
+        gen_args = ["generate", "--checkpoint-dir", ckpt, "--prompt-text",
+                    TEXT_PROMPT, "--tokenizer-dir",
+                    os.path.join(root, "tokenizer")]
+        runs = {}
+        for label, extra in (("top_k_40", []), ("top_p_0.9", ["--top-p",
+                                                                "0.9"]),
+                             ("top_k_1", ["--top-k", "1"]),
+                             ("greedy", ["--temperature", "0"])):
+            draws.clear()
+            t = time.perf_counter()
+            printed = run_cli(gen_args + extra, out)
+            seconds[f"generate_{label}"] = time.perf_counter() - t
+            if f"restored step {TEXT_STEPS}" not in printed:
+                raise AssertionError(f"text: generate {label} did not "
+                                     "restore the checkpoint")
+            kept, tokens = 0, []
+            for logits, token, temp, k, p in draws:
+                tokens.append(int(token[0]))
+                if temp <= 0:
+                    if int(token[0]) != int(logits.argmax(dim=-1)[0]):
+                        raise AssertionError("text: greedy not argmax")
+                    continue
+                keep = torch.isfinite(gen_mod._filter_logits(
+                    logits / max(temp, 1e-6), k, p))
+                if not bool(keep.gather(1, token[:, None].long()).all()):
+                    raise AssertionError(f"text: generate {label} drew "
+                                         "outside its keep-set")
+                kept = max(kept, int(keep.sum()))
+            text_line = [ln for ln in printed.splitlines()
+                         if ln.startswith("generated:")]
+            if len(tokens) != 32 or not text_line:
+                raise AssertionError(f"text: generate {label} printed "
+                                     f"{printed[-500:]}")
+            runs[label] = {"tokens": tokens, "largest_keep_set": kept,
+                           "text": text_line[0][len("generated:"):].strip(),
+                           "replacement_chars":
+                               text_line[0].count("�")}
+        if runs["top_k_1"]["tokens"] != runs["greedy"]["tokens"]:
+            raise AssertionError("text: --top-k 1 differs from greedy")
+        gates += ["draws_in_keep_sets", "top_k_1_is_greedy",
+                  "text_printed"]
+        for owner, name, value in reversed(patched):
+            setattr(owner, name, value)
+        patched.clear()
+        emit({"phase": "text", "card": card,
+              "seconds": time.perf_counter() - t_phase,
+              "step_seconds": seconds,
+              "corpus": corpus_info, "pretokenizer": tok_mod.PRETOKENIZER,
+              "tokens": len(ids), "validation_tokens": holdout,
+              "vocab": tok.vocab_size, **bpe,
+              "encode_tokens_per_s": len(ids) / bpe["encode_s"],
+              "config": yaml_state,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                       "weights, random init seed 0)",
+              "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+              "seq_len": TRAIN_T, "steps": TEXT_STEPS,
+              "train_loss": losses, "train_batch_max_id": batch_max,
+              "train_launches": {k: launches[k] for k in want},
+              "trace_events": len(events),
+              "trace_kernel_events": device_events,
+              "trace_bytes": os.path.getsize(traces[0]),
+              "serve": {k: summary.get(k) for k in (
+                  "tokens_per_s", "decode_ticks", "prefill_chunks",
+                  "ttft_p50_ms", "itl_p50_ms", "requests_flagged")},
+              "serve_launches": {k: serve_launches[k] for k in (
+                  "paged_attention", "paged_prefill_attention",
+                  "logit_trust_stats")},
+              "serve_sampled_tokens_per_s": sampled_summary["tokens_per_s"],
+              "generate": runs, "gates": gates})
+    finally:
+        for owner, name, value in reversed(patched):
+            setattr(owner, name, value)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -3036,6 +3490,8 @@ def main() -> int:
     elastic_drive(torch, entries, smi)
     torch.cuda.empty_cache()
     vision_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
+    text_drive(torch, entries, smi)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -593,8 +593,9 @@ def test_engine_rejects_adapters_it_cannot_serve(params):
     assert explicit.run_until_idle()[rid].adapter == "ad-z"
 
 
-def test_cli_serves_tenants_through_adapters_on_cpu(capsys):
+def test_cli_serves_tenants_through_adapters_on_cpu(capsys, tmp_path):
     rc = serve_main(["--device", "cpu", "--num-requests", "6",
+                     "--checkpoint-dir", str(tmp_path / "none"),
                      "--max-seq", "32", "--max-new-tokens", "4",
                      "--prompt-len", "6", "--block-size", "8",
                      "--adapter-rank", "2", "--adapter-pool-pages", "2",

@@ -302,7 +302,7 @@ def test_deferred_evictions_never_empty_the_fleet():
     assert not pipe.pending_evicts
 
 
-def test_config_and_cli_take_the_depth(capsys):
+def test_config_and_cli_take_the_depth(capsys, tmp_path):
     from trustworthy_dl_tpu_torch.cli import build_train_parser, train_main
 
     assert TrainingConfig().async_host_depth == \
@@ -317,6 +317,8 @@ def test_config_and_cli_take_the_depth(capsys):
     for depth in ("0", "3"):
         assert train_main(["--device", "cpu", "--nodes", "4",
                            "--batch-size", "8", "--seq-len", "16",
-                           "--steps-per-epoch", "5", "--async-host-depth",
-                           depth], model_overrides=tiny) == 0
+                           "--steps-per-epoch", "5", "--epochs", "1",
+                           "--checkpoint-dir", str(tmp_path / depth),
+                           "--async-host-depth", depth],
+                          model_overrides=tiny) == 0
         assert "Training completed: 5 steps" in capsys.readouterr().out

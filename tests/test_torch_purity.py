@@ -3,10 +3,14 @@ fresh process by importing every module of ``trustworthy_dl_tpu_torch``
 and reading ``sys.modules``, and statically by walking every module's
 imports (``chip_smoke.py`` included).  The walk is checked to reach the
 modules added since it was written (the async host pipeline,
-``elastic/``, and the ResNet and VGG families).  scikit-learn, the ML
-tier's optional dependency, is imported only inside functions (behind
-the trainer's ``_sklearn_available`` gate, as in JAX), never when a module
-is imported."""
+``elastic/``, the ResNet and VGG families, the tokenizer and the
+profiling hooks).  scikit-learn, the ML tier's optional dependency, is
+imported only inside functions (behind the trainer's
+``_sklearn_available`` gate, as in JAX), never when a module is imported.
+Beyond torch and numpy the port imports only optional modules that the
+JAX package's counterparts also import optionally (``regex``, ``yaml``,
+``matplotlib``, ``sklearn``), each inside a function or a ``try`` that
+catches ``ImportError``."""
 
 import ast
 import subprocess
@@ -23,7 +27,11 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.elastic",
                "trustworthy_dl_tpu_torch.elastic.reassignment",
                "trustworthy_dl_tpu_torch.models.resnet",
-               "trustworthy_dl_tpu_torch.models.vgg")
+               "trustworthy_dl_tpu_torch.models.vgg",
+               "trustworthy_dl_tpu_torch.data.tokenizer",
+               "trustworthy_dl_tpu_torch.utils.profiling")
+REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
+OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 
 
 def _forbidden(name: str) -> bool:
@@ -104,3 +112,56 @@ def test_scikit_learn_is_imported_only_inside_functions():
             {"update_detection_models"},
         "trustworthy_dl_tpu_torch/engine/trainer.py":
             {"_sklearn_available"}}
+
+
+def _catches_import_error(handler: ast.ExceptHandler) -> bool:
+    types = handler.type.elts if isinstance(handler.type, ast.Tuple) \
+        else [handler.type]
+    return any(isinstance(t, ast.Name) and t.id in ("ImportError",
+                                                    "ModuleNotFoundError")
+               for t in types)
+
+
+def _guarded_imports(path: Path):
+    """(root module, guarded) for every third-party import of a file:
+    guarded when it sits in a function or in the body of a ``try`` that
+    catches ImportError."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, guarded):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            guarded = True
+        if isinstance(node, ast.Try) and any(
+                _catches_import_error(h) for h in node.handlers):
+            for child in node.body:
+                yield from walk(child, True)
+            for child in node.handlers + node.orelse + node.finalbody:
+                yield from walk(child, guarded)
+            return
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            root = name.split(".")[0]
+            if root not in sys.stdlib_module_names:
+                yield root, guarded
+        for child in ast.iter_child_nodes(node):
+            yield from walk(child, guarded)
+
+    return list(walk(tree, False))
+
+
+def test_other_imports_are_optional_and_guarded():
+    found = {}
+    for path in sorted((REPO / "trustworthy_dl_tpu_torch").rglob("*.py")):
+        for root, guarded in _guarded_imports(path):
+            if root in REQUIRED:
+                continue
+            rel = str(path.relative_to(REPO))
+            assert root in OPTIONAL, (rel, root)
+            assert guarded, (rel, root)
+            found.setdefault(root, set()).add(rel)
+    assert found["regex"] == {"trustworthy_dl_tpu_torch/data/tokenizer.py"}
+    assert found["yaml"] == {"trustworthy_dl_tpu_torch/core/config.py"}

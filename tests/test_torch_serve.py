@@ -238,10 +238,11 @@ def test_config_and_submit_validation(params):
     assert engine.submit(ServeRequest(prompt=[1], max_new_tokens=1)) is None
 
 
-def test_cli_serves_on_cpu(capsys):
+def test_cli_serves_on_cpu(capsys, tmp_path):
     from trustworthy_dl_tpu_torch.cli import serve_main
 
     rc = serve_main(["--device", "cpu", "--num-requests", "4",
+                     "--checkpoint-dir", str(tmp_path / "none"),
                      "--max-seq", "32", "--max-new-tokens", "4",
                      "--prompt-len", "6", "--block-size", "8"],
                     model_overrides=dict(n_layer=1, n_embd=16, n_head=2,

@@ -209,10 +209,11 @@ def test_from_config_threads_knobs_and_builds_the_int8_draft(params):
     assert "spec_k" not in off.metrics_summary()
 
 
-def test_cli_serves_spec_and_int8_tiers_on_cpu(capsys):
+def test_cli_serves_spec_and_int8_tiers_on_cpu(capsys, tmp_path):
     overrides = dict(n_layer=1, n_embd=16, n_head=2, vocab_size=64,
                      n_positions=32, dtype=torch.float32)
     base = ["--device", "cpu", "--num-requests", "3", "--max-seq", "32",
+            "--checkpoint-dir", str(tmp_path / "none"),
             "--max-new-tokens", "5", "--prompt-len", "6", "--block-size", "8"]
     assert serve_main(base + ["--spec-k", "3", "--kv-dtype", "int8"],
                       model_overrides=overrides) == 0

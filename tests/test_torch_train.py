@@ -568,12 +568,14 @@ def test_trainer_reads_each_step_in_one_copy_and_times_the_whole_step():
     assert 0.9 * wall < sum(step_s) <= wall
 
 
-def test_train_cli_runs_on_the_cpu(capsys):
+def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
     from trustworthy_dl_tpu_torch.cli import train_main
 
     tiny = {k: v for k, v in CANON.items() if k != "seq_len"}
     rc = train_main(["--device", "cpu", "--nodes", "4", "--batch-size", "8",
-                     "--seq-len", "16", "--steps-per-epoch", "2"],
+                     "--seq-len", "16", "--steps-per-epoch", "2",
+                     "--epochs", "1",
+                     "--checkpoint-dir", str(tmp_path / "ck")],
                     model_overrides=tiny)
     assert rc == 0
     assert "Training completed: 2 steps" in capsys.readouterr().out

@@ -385,7 +385,8 @@ def test_cli_train_takes_dataset(capsys, tmp_path):
 
     rc = cli_main(["train", "--model", "resnet32", "--dataset", "cifar10",
                    "--device", "cpu", "--nodes", "4", "--batch-size", "8",
-                   "--steps-per-epoch", "2", "--checkpoint-dir",
+                   "--steps-per-epoch", "2", "--epochs", "1",
+                   "--checkpoint-dir",
                    str(tmp_path / "ck")], )
     assert rc == 0
     out = capsys.readouterr().out

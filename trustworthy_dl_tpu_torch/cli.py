@@ -1,40 +1,273 @@
 """Command line of the port: ``python -m trustworthy_dl_tpu_torch.cli
-serve|train|experiment``.
+prepare|generate|serve|train|experiment``.
 
-``serve`` is the counterpart of ``trustworthy-dl-serve``
-(``trustworthy_dl_tpu/cli.py:serve_main``) with the flags the port
-supports: it serves GPT-2 from random weights drawn from ``--seed``
-(checkpoint loading is not ported yet), drives a synthetic heterogeneous
-workload and prints the serving metrics.  ``train`` is the counterpart of
-``trustworthy-dl-train`` (``trustworthy_dl_tpu/cli.py:main``) on its
-data-parallel path: trusted training of GPT-2, ResNet or VGG over
-``--nodes`` logical nodes on ``--dataset`` (default the config's,
-``openwebtext``; the synthetic source stands in for a corpus or image file
-that is absent), validated each epoch on the dataset's validation split,
-printing the run's statistics; it checkpoints under
-``--checkpoint-dir`` (and at the end), resumes with ``--resume``, and
+``prepare`` is the counterpart of ``trustworthy-dl-prepare-data``
+(``trustworthy_dl_tpu/cli.py:prepare_main``), host-only: a ``.txt``
+corpus to the loader's uint16 ``.bin`` and GPT-2-format tokenizer files
+(``data/tokenizer.py``).  ``generate`` is the counterpart of
+``trustworthy-dl-generate`` (``generate_main``): it restores the newest
+checkpoint under ``--checkpoint-dir`` (random init, said so, when there
+is none) and samples a continuation of ``--prompt`` token ids or of
+``--prompt-text`` through ``--tokenizer-dir``, top-k 40 at temperature
+0.8 by default.  ``serve`` is the counterpart of ``trustworthy-dl-serve``
+(``serve_main``) with the flags the port supports: the same restore as
+``generate``, then a synthetic heterogeneous workload through the paged
+engine and the serving metrics.  Both refuse the non-GPT-2 and MoE
+families and a checkpoint trained with pipeline parallelism (rc 2), and
+fail loudly on a checkpoint whose weights do not fit the model.
+``train`` is the counterpart of ``trustworthy-dl-train``
+(``trustworthy_dl_tpu/cli.py:main``) on its data-parallel path: trusted
+training of GPT-2, ResNet or VGG over logical nodes on the configured
+dataset (the synthetic source stands in for a corpus or image file that
+is absent), validated each epoch on the dataset's validation split,
+printing the run's statistics.  Its configuration is
+``core.config.load_config(--config)`` or the ``TrainingConfig``
+defaults, with only the flags given on top; it checkpoints under the
+configured directory (and at the end), resumes with ``--resume``, and
 with ``--supervise`` (or ``--chaos-seed``, a seeded fault plan) runs
 under the self-healing supervisor.  ``experiment`` forwards to the
-experiment runner (``experiments/runner.main``).  All run on the card
-unless ``--device cpu`` is given.
+experiment runner (``experiments/runner.main``).  All but ``prepare`` run
+on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
+
+
+def _dense_gpt2(model: str) -> bool:
+    return model.startswith("gpt") and not model.endswith("-moe")
+
+
+def _refuses_pipeline_checkpoint(checkpoint_dir: str, what: str) -> bool:
+    """True (after saying why) when the newest checkpoint under
+    ``checkpoint_dir`` was trained with pipeline parallelism: its block
+    params are stage-stacked, another tree than the decoder's.  Reads the
+    topology sidecar alone; the restore checks the payload."""
+    from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
+
+    probe = CheckpointManager(checkpoint_dir)
+    latest = probe.latest_step(verified=False)
+    if latest is None:
+        return False
+    meta = probe.load_metadata(latest) or {}
+    if meta.get("parallelism") == "model":
+        print("checkpoint was trained with pipeline (stage) parallelism; "
+              f"{what} needs a data-parallel checkpoint (params "
+              "stage-stacked)")
+        return True
+    return False
+
+
+def _restore_for_inference(trainer: Any, checkpoint_dir: str,
+                           what: str) -> Any:
+    """The params of the newest verified checkpoint under
+    ``checkpoint_dir`` (the trainer adopts the saved node count), or of a
+    random init when there is none.  Raises ``ValueError`` when the saved
+    weights do not fit the trainer's model: such a checkpoint never turns
+    into random weights."""
+    step = trainer.checkpointer.latest_step()
+    if step is None:
+        print(f"no checkpoint under {checkpoint_dir!r}; {what} from random "
+              "init")
+        trainer.initialize()
+        return trainer.state.params
+    try:
+        trainer.load_checkpoint(step)
+    except (ValueError, RuntimeError, KeyError) as exc:
+        raise ValueError(f"the checkpoint under {checkpoint_dir!r} does not "
+                         f"fit this model: {exc}") from exc
+    from trustworthy_dl_tpu_torch.engine.checkpoint import leaf_shapes
+
+    # A checkpoint of another structure restores by name, keeping the
+    # template's values where it lacks a weight: compare the saved leaf
+    # table with the model's weights.
+    saved = trainer.checkpointer.saved_shapes(step, "params")
+    ours = leaf_shapes(trainer.state.params)
+    if saved != ours:
+        differ = sorted(set(saved.items()) ^ set(ours.items()))
+        raise ValueError(
+            f"the checkpoint under {checkpoint_dir!r} (step {step}) does "
+            f"not fit this model: weights (path, shape) not in both "
+            f"{differ[:4]}")
+    print(f"restored step {step} from {checkpoint_dir}")
+    return trainer.state.params
+
+
+def _inference_trainer(args: Any, model_overrides: Optional[dict]) -> Any:
+    """A one-node trainer for ``args.model`` over ``args.checkpoint_dir``
+    (JAX's ``TrainingConfig(num_nodes=1, batch_size=1)``): the model
+    config and the checkpoint restore of ``generate`` and ``serve``."""
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+
+    config = TrainingConfig(model_name=args.model, num_nodes=1,
+                            batch_size=1,
+                            checkpoint_dir=args.checkpoint_dir,
+                            seed=args.seed)
+    return DistributedTrainer(config, model_overrides=model_overrides,
+                              device=args.device)
+
+
+def build_prepare_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m trustworthy_dl_tpu_torch.cli prepare",
+        description="Tokenize a raw .txt corpus into the loader's .bin "
+                    "token memmap (byte-level BPE, trained on the corpus "
+                    "or loaded from GPT-2-format vocab.json/merges.txt)")
+    parser.add_argument("txt", type=str, help="input UTF-8 text file")
+    parser.add_argument("--out", type=str, default=None,
+                        help="output .bin path (default: alongside input)")
+    parser.add_argument("--vocab-size", type=int, default=8192)
+    parser.add_argument("--tokenizer-dir", type=str, default=None,
+                        help="directory holding (or to receive) "
+                             "vocab.json + merges.txt")
+    parser.add_argument("--val-fraction", type=float, default=0.0,
+                        help="also write a *_val.bin holdout split")
+    return parser
+
+
+def prepare_main(argv: Optional[List[str]] = None) -> int:
+    """Entry point of ``prepare``: the offline .txt -> .bin step, on the
+    host."""
+    import os
+
+    from trustworthy_dl_tpu_torch.data.tokenizer import prepare_data
+
+    args = build_prepare_parser().parse_args(argv)
+    if not os.path.exists(args.txt):
+        print(f"no such file: {args.txt}")
+        return 2
+    info = prepare_data(args.txt, out_path=args.out,
+                        vocab_size=args.vocab_size,
+                        tokenizer_dir=args.tokenizer_dir,
+                        val_fraction=args.val_fraction)
+    print(f"wrote {info['num_tokens']} tokens (vocab {info['vocab_size']}) "
+          f"to {info['out_path']}"
+          + (f" + val split {info['val_path']}" if info["val_path"] else ""))
+    print(f"tokenizer files in {info['tokenizer_dir']}")
+    return 0
+
+
+def build_generate_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m trustworthy_dl_tpu_torch.cli generate",
+        description="Sample from a trained GPT-2 checkpoint with the "
+                    "KV-cache decoder on the card.")
+    parser.add_argument("--model", type=str, default="gpt2")
+    parser.add_argument("--checkpoint-dir", type=str, default="checkpoints",
+                        help="restore the latest checkpoint from here "
+                             "(falls back to a random init, said so, when "
+                             "there is none)")
+    parser.add_argument("--prompt", type=str, default="1,2,3,4",
+                        help="comma-separated token ids")
+    parser.add_argument("--prompt-text", type=str, default=None,
+                        help="raw text prompt; needs --tokenizer-dir "
+                             "(output is decoded back to text)")
+    parser.add_argument("--tokenizer-dir", type=str, default=None,
+                        help="vocab.json + merges.txt directory (the "
+                             "prepare command writes one)")
+    parser.add_argument("--max-new-tokens", type=int, default=32)
+    parser.add_argument("--temperature", type=float, default=0.8)
+    parser.add_argument("--top-k", type=int, default=40)
+    parser.add_argument("--top-p", type=float, default=1.0)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the sampling torch.Generator (and of "
+                             "the random init without a checkpoint)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="cpu runs the decoder on the CPU")
+    return parser
+
+
+def generate_main(argv: Optional[List[str]] = None,
+                  model_overrides: Optional[dict] = None) -> int:
+    """Entry point of ``generate``; ``model_overrides`` shrinks the model
+    (tests), the command line restores what the checkpoint was trained
+    as."""
+    import torch
+
+    from trustworthy_dl_tpu_torch.models.generate import generate
+
+    args = build_generate_parser().parse_args(argv)
+    if not _dense_gpt2(args.model):
+        print("generation supports the dense GPT-2 family")
+        return 2
+    if _refuses_pipeline_checkpoint(args.checkpoint_dir, "generation"):
+        return 2
+    # The prompt is checked before the restore: the int parse needs
+    # nothing, the vocab bound only the model config.
+    tokenizer = None
+    if args.prompt_text is not None:
+        if not args.tokenizer_dir:
+            print("--prompt-text requires --tokenizer-dir")
+            return 2
+        from trustworthy_dl_tpu_torch.data.tokenizer import BPETokenizer
+
+        try:
+            tokenizer = BPETokenizer.load(args.tokenizer_dir)
+        except (OSError, ValueError) as exc:
+            print(f"could not load tokenizer from {args.tokenizer_dir!r}: "
+                  f"{exc}")
+            return 2
+        tokens = tokenizer.encode(args.prompt_text)
+    else:
+        try:
+            tokens = [int(t) for t in args.prompt.split(",") if t.strip()]
+        except ValueError:
+            print(f"--prompt must be comma-separated token ids, got "
+                  f"{args.prompt!r}")
+            return 2
+    trainer = _inference_trainer(args, model_overrides)
+    vocab = trainer.model.config.vocab_size
+    if not tokens or any(not 0 <= t < vocab for t in tokens):
+        if tokenizer is not None:
+            print(f"--prompt-text encoded to {len(tokens)} token id(s); "
+                  f"the model accepts ids in [0, {vocab}) — the tokenizer "
+                  f"(vocab {tokenizer.vocab_size}) and model vocabularies "
+                  "must be compatible and the prompt non-empty")
+        else:
+            print(f"--prompt needs at least one token id in [0, {vocab})")
+        return 2
+    try:
+        params = _restore_for_inference(trainer, args.checkpoint_dir,
+                                        "sampling")
+    except ValueError as exc:
+        print(exc)
+        return 1
+    generator = torch.Generator(device=trainer.device).manual_seed(
+        args.seed)
+    out = generate(params, trainer.model.config,
+                   torch.tensor([tokens], device=trainer.device),
+                   max_new_tokens=args.max_new_tokens,
+                   temperature=args.temperature, top_k=args.top_k,
+                   top_p=args.top_p, generator=generator)
+    new_ids = out[0, len(tokens):].tolist()
+    if tokenizer is not None:
+        print("prompt:    ", args.prompt_text)
+        print("generated: ", tokenizer.decode(new_ids))
+    else:
+        print("prompt:    ", tokens)
+        print("generated: ", new_ids)
+    trainer.cleanup()
+    return 0
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m trustworthy_dl_tpu_torch.cli serve",
-        description="Serve GPT-2 (random weights) with the paged "
+        description="Serve a GPT-2 checkpoint with the paged "
                     "continuous-batching engine on the card and print "
                     "serving metrics for a synthetic workload.")
     parser.add_argument("--model", type=str, default="gpt2")
+    parser.add_argument("--checkpoint-dir", type=str, default="checkpoints",
+                        help="restore the latest checkpoint from here "
+                             "(falls back to a random init from --seed, "
+                             "said so, when there is none)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="cpu runs every kernel's plain PyTorch version")
@@ -80,16 +313,15 @@ def serve_main(argv: Optional[List[str]] = None,
                model_overrides: Optional[dict] = None) -> int:
     """Entry point of ``serve``; ``model_overrides`` shrinks the model
     (tests)."""
-    import torch
-
     from trustworthy_dl_tpu_torch.core.config import ServeConfig
-    from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
-    from trustworthy_dl_tpu_torch.serve.engine import resolve_device
     from trustworthy_dl_tpu_torch.serve.workload import (
         make_tenant_population, zipf_adapter_assignments)
 
     args = build_serve_parser().parse_args(argv)
+    if not _dense_gpt2(args.model):
+        print("serving supports the dense GPT-2 family")
+        return 2
     serve_config = ServeConfig(
         max_slots=args.max_slots, max_seq=args.max_seq,
         queue_limit=args.queue_limit, block_size=args.block_size,
@@ -99,7 +331,10 @@ def serve_main(argv: Optional[List[str]] = None,
         adapter_rank=args.adapter_rank,
         adapter_pool_pages=args.adapter_pool_pages,
         adapter_dtype=args.adapter_dtype)
-    cfg = gpt2.GPT2Config.from_name(args.model, **(model_overrides or {}))
+    if _refuses_pipeline_checkpoint(args.checkpoint_dir, "serving"):
+        return 2
+    trainer = _inference_trainer(args, model_overrides)
+    cfg = trainer.model.config
     if args.max_seq > cfg.n_positions:
         print(f"--max-seq {args.max_seq} exceeds the model's "
               f"n_positions={cfg.n_positions}")
@@ -109,11 +344,17 @@ def serve_main(argv: Optional[List[str]] = None,
               f"{args.prompt_len + args.max_new_tokens} exceeds "
               f"--max-seq {args.max_seq}")
         return 2
-    device = resolve_device(args.device)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    params = gpt2.init_params(cfg, generator, device=device)
-    print(f"serving {args.model} from random init (seed {args.seed}) on "
-          f"{device}")
+    try:
+        params = _restore_for_inference(trainer, args.checkpoint_dir,
+                                        "serving")
+    except ValueError as exc:
+        print(exc)
+        return 1
+    device = trainer.device
+    # Only the weights go on: the optimizer, trust and detector state of
+    # the restored checkpoint are dropped here.
+    trainer.cleanup()
+    print(f"serving {args.model} on {device}")
     tenant_names: List[str] = []
     adapter_map = None
     if serve_config.adapter_rank > 0:
@@ -128,6 +369,7 @@ def serve_main(argv: Optional[List[str]] = None,
         params, cfg, serve_config, seed=args.seed,
         enable_monitor=not args.no_monitor, device=device,
         adapter_map=adapter_map)
+    del params
     rng = np.random.default_rng(args.seed)
     deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     submitted = 0
@@ -178,17 +420,23 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m trustworthy_dl_tpu_torch.cli train",
         description="Trust-gated data-parallel training of GPT-2, ResNet "
-                    "or VGG (random init) on the card.")
-    parser.add_argument("--model", type=str, default="gpt2",
+                    "or VGG (random init) on the card.  The configuration "
+                    "is --config's file or the TrainingConfig defaults; "
+                    "a flag given on the command line wins over both.")
+    parser.add_argument("--config", type=str, default=None,
+                        help="YAML/JSON config: the nested README schema "
+                             "(model / training / distributed / security) "
+                             "or flat TrainingConfig field names")
+    parser.add_argument("--model", type=str, default=None,
                         help="gpt2[-medium|-large|-xl], resnet32/50/101, "
-                             "vgg11/13/16")
+                             "vgg11/13/16 (default: the config's)")
     parser.add_argument("--dataset", type=str, default=None,
                         help="openwebtext, wikitext, cifar10, cifar100, "
                              "imagenet, ... (default: the config's)")
-    parser.add_argument("--nodes", type=int, default=4)
-    parser.add_argument("--epochs", type=int, default=1)
-    parser.add_argument("--batch-size", type=int, default=32)
-    parser.add_argument("--learning-rate", type=float, default=5e-5)
+    parser.add_argument("--nodes", type=int, default=None)
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--learning-rate", type=float, default=None)
     parser.add_argument("--seq-len", type=int, default=128,
                         help="token window (language models)")
     parser.add_argument("--no-detection", action="store_true",
@@ -197,7 +445,9 @@ def build_train_parser() -> argparse.ArgumentParser:
                         help="synthetic-data epoch length")
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint every transformer block")
-    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=None,
+                        help="init, generator and loader seed (default: "
+                             "the config's)")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="cpu runs every kernel's plain PyTorch version")
@@ -242,44 +492,56 @@ def train_main(argv: Optional[List[str]] = None,
                model_overrides: Optional[dict] = None) -> int:
     """Entry point of ``train``; ``model_overrides`` shrinks the model
     (tests)."""
-    from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig, \
+        load_config
     from trustworthy_dl_tpu_torch.data import get_dataloader
     from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
 
     args = build_train_parser().parse_args(argv)
-    config = TrainingConfig(
-        model_name=args.model, num_nodes=args.nodes,
-        **({"dataset_name": args.dataset} if args.dataset else {}),
-        num_epochs=args.epochs, batch_size=args.batch_size,
-        learning_rate=args.learning_rate, remat=args.remat, seed=args.seed,
-        attack_detection_enabled=not args.no_detection,
-        **({"checkpoint_dir": args.checkpoint_dir}
-           if args.checkpoint_dir else {}),
-        **({"async_host_depth": args.async_host_depth}
-           if args.async_host_depth is not None else {}))
-    lm = not args.model.lower().startswith(("resnet", "vgg"))
-    overrides = {**({"seq_len": args.seq_len} if lm else {}),
-                 **(model_overrides or {})}
-    trainer = DistributedTrainer(config, model_overrides=overrides,
+    overrides = {k: v for k, v in {
+        "model_name": args.model,
+        "dataset_name": args.dataset,
+        "num_nodes": args.nodes,
+        "num_epochs": args.epochs,
+        "batch_size": args.batch_size,
+        "learning_rate": args.learning_rate,
+        "seed": args.seed,
+        "checkpoint_dir": args.checkpoint_dir,
+        "async_host_depth": args.async_host_depth,
+    }.items() if v is not None}
+    if args.no_detection:
+        overrides["attack_detection_enabled"] = False
+    if args.remat:
+        overrides["remat"] = True
+    if args.config:
+        config = load_config(args.config, **overrides)
+    else:
+        config = TrainingConfig(**overrides)
+    lm = not config.model_name.lower().startswith(("resnet", "vgg"))
+    model_kw = {**({"seq_len": args.seq_len} if lm else {}),
+                **(model_overrides or {})}
+    trainer = DistributedTrainer(config, model_overrides=model_kw,
                                  device=args.device)
     trainer.initialize()
-    print(f"training {args.model} from random init (seed {args.seed}) on "
-          f"{trainer.device} over {args.nodes} node(s)")
+    print(f"training {config.model_name} from random init (seed "
+          f"{config.seed}) on {trainer.device} over {config.num_nodes} "
+          "node(s)")
     if args.resume:
         trainer.load_checkpoint()
         print(f"resumed from checkpoint step {trainer.global_step}")
-    num_examples = args.batch_size * args.steps_per_epoch
+    num_examples = config.batch_size * args.steps_per_epoch
     # The loader by model kind: token windows need the LM's geometry.
     geometry = dict(seq_len=args.seq_len,
                     vocab_size=trainer.model.config.vocab_size) \
         if trainer.model.kind == "lm" else {}
     train_dl = get_dataloader(
-        config.dataset_name, split="train", batch_size=args.batch_size,
-        num_examples=num_examples, seed=args.seed, **geometry)
+        config.dataset_name, split="train", batch_size=config.batch_size,
+        num_examples=num_examples, seed=config.seed, **geometry)
     val_dl = get_dataloader(
-        config.dataset_name, split="validation", batch_size=args.batch_size,
-        num_examples=max(num_examples // 10, args.batch_size),
-        seed=args.seed, **geometry)
+        config.dataset_name, split="validation",
+        batch_size=config.batch_size,
+        num_examples=max(num_examples // 10, config.batch_size),
+        seed=config.seed, **geometry)
     if args.supervise or args.chaos_seed is not None:
         from trustworthy_dl_tpu_torch.chaos import FaultInjector, \
             FaultKind, FaultPlan
@@ -335,7 +597,8 @@ def experiment_main(argv: Optional[List[str]] = None) -> int:
     return run_main(argv)
 
 
-COMMANDS = {"serve": serve_main, "train": train_main,
+COMMANDS = {"prepare": prepare_main, "generate": generate_main,
+            "serve": serve_main, "train": train_main,
             "experiment": experiment_main}
 
 
@@ -343,7 +606,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in COMMANDS:
         print("usage: python -m trustworthy_dl_tpu_torch.cli "
-              "serve|train|experiment [--help | options]", file=sys.stderr)
+              "prepare|generate|serve|train|experiment [--help | options]",
+              file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])
 

@@ -24,13 +24,18 @@ epoch-cadence ML tier (behind scikit-learn, as in JAX) and
 ``exact_order_stats`` picks the host detector's order statistics.
 ``dtype`` is the model's compute dtype (``COMPUTE_DTYPES``; the
 parameters stay f32): the trainer hands it to the model config unless the
-caller's ``model_overrides`` names a dtype.  :func:`load_experiment_config`
-reads an :class:`ExperimentConfig` from a YAML or JSON file.
+caller's ``model_overrides`` names a dtype.  ``profile_dir`` and
+``debug_nans`` are the profiling and NaN-trapping switches of
+``utils/profiling.py``.  :func:`load_config` reads a
+:class:`TrainingConfig` and :func:`load_experiment_config` an
+:class:`ExperimentConfig` from a YAML or JSON file (JSON where pyyaml is
+not installed).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -39,6 +44,8 @@ import torch
 from trustworthy_dl_tpu_torch.models.generate import ATTN_IMPLS
 from trustworthy_dl_tpu_torch.quant.int8 import validate_dtypes
 from trustworthy_dl_tpu_torch.serve.kv_slots import validate_paged_geometry
+
+logger = logging.getLogger(__name__)
 
 #: ``TrainingConfig.dtype``'s names and the torch dtypes they stand for.
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -222,6 +229,13 @@ class TrainingConfig:
     async_checkpoint: bool = False
     # TensorBoard event files of the batch and epoch metrics.
     tensorboard_dir: Optional[str] = None
+    # A torch.profiler trace (CPU and CUDA activity, Chrome format) of
+    # train() under this directory, each step annotated ``train_step#N``.
+    profile_dir: Optional[str] = None
+    # Trap the first op that makes a NaN, forward or backward, with a
+    # FloatingPointError naming it (a developer mode: it checks every op,
+    # and it also trips on an attack's injected NaN).
+    debug_nans: bool = False
     # Transfer rate of the migration-time model, GiB/s.
     migration_gbps: float = 1.0
     # Elastic eviction (confirmed nodes leave the node axis) and
@@ -353,11 +367,22 @@ class AttackConfig:
 _MODEL_SIZE_SUFFIX = {"small": "", "medium": "-medium", "large": "-large",
                       "xl": "-xl"}
 
+#: The JAX package's ``TrainingConfig`` fields that the port's lacks, with
+#: their JAX defaults: a config file may set them, and :func:`load_config`
+#: refuses (or, for the XLA compile cache, warns about) any value other
+#: than the default instead of dropping it.
+JAX_ONLY_FIELDS = {"mesh_shape": None, "dcn_mesh_shape": None,
+                   "compilation_cache_dir": None, "canary_tokens": 8,
+                   "shard_opt_state": False, "shard_params": False}
+_SLICE_4_FIELDS = ("mesh_shape", "dcn_mesh_shape", "shard_opt_state",
+                   "shard_params")
+
 
 def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
     """Flatten the README schema's nested mapping (model / training /
     distributed / security sections) into TrainingConfig keyword
-    arguments; flat TrainingConfig field names pass straight through."""
+    arguments; flat field names of either package's TrainingConfig pass
+    straight through (the JAX package's mapping, key for key)."""
     out: Dict[str, Any] = {}
     model = raw.get("model", {})
     if isinstance(model, dict):
@@ -380,6 +405,9 @@ def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
         for key in ("num_nodes", "parallelism", "num_microbatches"):
             if key in distributed:
                 out[key] = distributed[key]
+        for key in ("mesh_shape", "dcn_mesh_shape"):
+            if key in distributed:
+                out[key] = dict(distributed[key])
     security = raw.get("security", {})
     if isinstance(security, dict):
         if "trust_threshold" in security:
@@ -392,11 +420,51 @@ def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
                 security["gradient_verification"])
     if "dataset" in raw:
         out["dataset_name"] = raw["dataset"]
-    valid = {f.name for f in dataclasses.fields(TrainingConfig)}
+    valid = {f.name for f in dataclasses.fields(TrainingConfig)} \
+        | set(JAX_ONLY_FIELDS)
     for key, value in raw.items():
         if key in valid:
             out[key] = value
     return out
+
+
+def _take_jax_only_fields(kwargs: Dict[str, Any]) -> None:
+    """Remove the JAX-only keys from ``kwargs``: a value at the JAX
+    default asks for nothing the port lacks; the mesh and the parameter
+    and optimizer sharding raise naming Slice 4, the XLA compile cache
+    warns (it has no counterpart), any other value raises by name."""
+    for key, default in JAX_ONLY_FIELDS.items():
+        if key not in kwargs:
+            continue
+        value = kwargs.pop(key)
+        if value == default:
+            continue
+        if key in _SLICE_4_FIELDS:
+            raise NotImplementedError(
+                f"{key}={value!r} is not ported yet (ROADMAP Slice 4: "
+                "core/mesh.py and core/sharding.py on torch.distributed); "
+                "the port trains data-parallel on one card")
+        if key == "compilation_cache_dir":
+            logger.warning(
+                "compilation_cache_dir=%r ignored: it is XLA's persistent "
+                "compile cache, which the port has no counterpart of",
+                value)
+            continue
+        raise NotImplementedError(
+            f"{key}={value!r} is not ported yet: the port's TrainingConfig "
+            f"has no {key}")
+
+
+def load_config(path: str, **overrides: Any) -> TrainingConfig:
+    """A TrainingConfig from a YAML/JSON file (the nested README schema or
+    flat field names; unknown keys are ignored, as in JAX), then every
+    override that is not None on top (the command line's flags).  A key
+    the JAX package would apply and the port cannot is refused by name
+    (:func:`_take_jax_only_fields`), never dropped in silence."""
+    kwargs = _config_from_mapping(_load_mapping(path))
+    kwargs.update({k: v for k, v in overrides.items() if v is not None})
+    _take_jax_only_fields(kwargs)
+    return TrainingConfig(**kwargs)
 
 
 def _load_mapping(path: str) -> Dict[str, Any]:

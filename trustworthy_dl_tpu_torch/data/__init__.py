@@ -1,3 +1,8 @@
-"""Language-model and vision data loaders (``loader``)."""
+"""Language-model and vision data loaders (``loader``) and the byte-level
+BPE tokenizer with the ``.txt`` to ``.bin`` step (``tokenizer``)."""
 
-from trustworthy_dl_tpu_torch.data.loader import get_dataloader  # noqa: F401
+from trustworthy_dl_tpu_torch.data.loader import get_dataloader
+from trustworthy_dl_tpu_torch.data.tokenizer import BPETokenizer, \
+    prepare_data, train_bpe
+
+__all__ = ["BPETokenizer", "get_dataloader", "prepare_data", "train_bpe"]

@@ -118,6 +118,13 @@ def _leaves(node: Any, prefix: Tuple[str, ...] = ()
                         f"{'/'.join(prefix)}")
 
 
+def leaf_shapes(tree: Any) -> Dict[str, Tuple[int, ...]]:
+    """The shape of every tensor leaf of ``tree``, keyed by its "a/b/c"
+    path, as :meth:`CheckpointManager.saved_shapes` keys a saved field."""
+    return {"/".join(p): tuple(leaf.shape) for p, leaf in _leaves(tree)
+            if isinstance(leaf, torch.Tensor)}
+
+
 def _template_paths(node: Any) -> set:
     """Key paths of a live state (None leaves carry nothing)."""
     return {p for p, leaf in _leaves(node) if leaf is not None}
@@ -541,6 +548,17 @@ class CheckpointManager:
             raise ValueError(f"{path}: not a {FORMAT} checkpoint")
         return meta["leaves"]
 
+    def saved_shapes(self, step: int, field: str
+                     ) -> Dict[str, Tuple[int, ...]]:
+        """The saved shapes of one state field's tensor leaves at
+        ``step`` (``field="params"``: the weights), keyed by their path
+        under the field, from the leaf table alone."""
+        head = field + "/"
+        return {key[len(head):]: tuple(info["shape"])
+                for key, info in self._saved_tree(self.path_for(step))
+                .items()
+                if key.startswith(head) and info.get("kind") == "tensor"}
+
     def verified_steps(self) -> List[int]:
         """Every restorable step, newest first: the rollback candidates."""
         self._join()
@@ -563,4 +581,4 @@ class CheckpointManager:
         return None
 
 
-__all__ = ["CheckpointManager", "FORMAT"]
+__all__ = ["CheckpointManager", "FORMAT", "leaf_shapes"]

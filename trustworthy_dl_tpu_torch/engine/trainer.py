@@ -33,6 +33,11 @@ returns on probation after that many steps; a checkpoint's sidecar
 carries the topology and the pending cool-offs, and a resume adopts
 them.
 
+Profiling and debugging, as in JAX (``utils/profiling.py``):
+``config.profile_dir`` traces ``train()`` with ``torch.profiler``, each
+step's dispatch annotated ``train_step#N``; ``config.debug_nans`` installs
+the NaN trap at construction.
+
 Durability, as in the JAX package: ``save_checkpoint`` /
 ``load_checkpoint`` through :class:`engine.checkpoint.CheckpointManager`
 (every ``checkpoint_interval`` steps, never from non-finite params), and
@@ -85,6 +90,8 @@ from trustworthy_dl_tpu_torch.trust.manager import TrustManager
 from trustworthy_dl_tpu_torch.trust.state import NodeStatus
 from trustworthy_dl_tpu_torch.utils.metrics import MetricsCollector
 from trustworthy_dl_tpu_torch.utils.monitor import NodeMonitor
+from trustworthy_dl_tpu_torch.utils.profiling import enable_nan_debugging, \
+    step_annotation, trace
 from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
 
 logger = logging.getLogger(__name__)
@@ -123,6 +130,8 @@ class DistributedTrainer:
                  device: Any = "cuda"):
         _refuse_unported(config)
         self.device = resolve_device(device)
+        if config.debug_nans:
+            enable_nan_debugging()
         # The epoch-cadence ML tier, gated once: without scikit-learn the
         # refit is a no-op, so the per-step battery feed would be waste.
         self._ml_enabled = config.ml_detectors and _sklearn_available()
@@ -377,8 +386,9 @@ class DistributedTrainer:
                 if node_batch is None:      # a stale undersized batch
                     self.global_step -= 1
                     continue
-                self.state, metrics = self._train_step(
-                    self.state, node_batch, self.attack_plan)
+                with step_annotation(self.global_step):
+                    self.state, metrics = self._train_step(
+                        self.state, node_batch, self.attack_plan)
                 if self.chaos is not None:
                     self.state, metrics = self.chaos.on_step_end(
                         self.global_step, self.state, metrics)
@@ -716,16 +726,17 @@ class DistributedTrainer:
             self.initialize()
         self.training_state = TrainingState.TRAINING
         history = []
-        for epoch in range(num_epochs):
-            record = {"epoch": epoch,
-                      "train_loss": self.train_epoch(train_dataloader,
-                                                     epoch)}
-            if val_dataloader is not None:
-                record["val_loss"] = self.validate(val_dataloader)
-                logger.info("Validation loss: %.4f", record["val_loss"])
-            if self.training_state == TrainingState.UNDER_ATTACK:
-                self.training_state = TrainingState.RECOVERING
-            history.append(record)
+        with trace(self.config.profile_dir):
+            for epoch in range(num_epochs):
+                record = {"epoch": epoch,
+                          "train_loss": self.train_epoch(train_dataloader,
+                                                         epoch)}
+                if val_dataloader is not None:
+                    record["val_loss"] = self.validate(val_dataloader)
+                    logger.info("Validation loss: %.4f", record["val_loss"])
+                if self.training_state == TrainingState.UNDER_ATTACK:
+                    self.training_state = TrainingState.RECOVERING
+                history.append(record)
         self.training_state = TrainingState.COMPLETED
         return {"epochs": history, "stats": self.get_training_stats()}
 

@@ -454,36 +454,103 @@ def _apply_with_cache_paged(view: Params, tokens: torch.Tensor,
     return _final_logits(view, x, cfg, last_pos)
 
 
-def _sample(logits: torch.Tensor, temperature: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """[B, V] -> [B]: argmax when ``temperature <= 0``, else one draw per
-    row from softmax(logits / temperature)."""
+def _exact_topk(logits: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, V] -> (values [B, k], indices [B, k]), equal to the first k of
+    a stable descending sort: equal values in index order, and of the
+    values tied at the k-th, the lowest indices (the order of JAX's
+    ``lax.top_k``, whose hierarchical split ``_exact_topk`` in JAX keeps).
+    One ``torch.topk`` finds the k-th value; the kept set and its order
+    are then fixed without a sort of the vocab or a host sync."""
+    b, v = logits.shape
+    kth = torch.topk(logits, k, dim=-1).values[:, -1:]
+    above = logits > kth
+    tied = logits == kth
+    room = k - above.sum(dim=-1, keepdim=True)
+    keep = above | (tied & (tied.cumsum(dim=-1) <= room))
+    # Each row keeps exactly k entries: scatter their vocab indices, in
+    # index order, into k columns (the rest into a spare column k).
+    slot = torch.where(keep, keep.cumsum(dim=-1) - 1, k)
+    cols = torch.arange(v, device=logits.device).expand(b, v)
+    idx = torch.zeros(b, k + 1, dtype=torch.long, device=logits.device)
+    idx = idx.scatter(1, slot, cols)[:, :k]
+    vals = logits.gather(1, idx)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return vals.gather(1, order), idx.gather(1, order)
+
+
+def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float
+                   ) -> torch.Tensor:
+    """The logits outside the sampling set set to -inf (JAX's masks):
+    top-k masks ``logits < kth``, so every value tied at the k-th stays
+    in; then the nucleus keeps the smallest prefix of the sorted
+    distribution whose mass reaches ``top_p`` (``cum - p < top_p``),
+    mapped back by comparing each probability with the last kept one."""
+    if top_k > 0:
+        kth = _exact_topk(logits, top_k)[0][:, -1:]
+        logits = torch.where(logits < kth, -math.inf, logits)
+    if top_p < 1.0:
+        probs = torch.softmax(logits, dim=-1)
+        sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+        cum = torch.cumsum(sorted_probs, dim=-1)
+        keep_sorted = cum - sorted_probs < top_p
+        threshold = torch.where(keep_sorted, sorted_probs,
+                                math.inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(probs >= threshold, logits, -math.inf)
+    return logits
+
+
+def _sample(logits: torch.Tensor, temperature: float, top_k: int = 0,
+            top_p: float = 1.0,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """[B, V] -> [B]: argmax when ``temperature <= 0``; else one draw per
+    row from softmax(logits / temperature) restricted to the top ``top_k``
+    (0: all) and then to the nucleus of mass ``top_p`` (1: all).  Pure
+    top-k draws among the k candidates, the same distribution as the
+    masked vocab."""
     if temperature <= 0.0:
         return logits.argmax(dim=-1)
-    probs = torch.softmax(logits / temperature, dim=-1)
+    logits = logits / max(temperature, 1e-6)
+    if top_k > 0 and top_p >= 1.0:
+        vals, idx = _exact_topk(logits, top_k)
+        choice = torch.multinomial(torch.softmax(vals, dim=-1), 1,
+                                   generator=generator)
+        return idx.gather(1, choice)[:, 0]
+    probs = torch.softmax(_filter_logits(logits, top_k, top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 @torch.no_grad()
 def generate(params: Params, cfg: gpt2.GPT2Config, prompt: torch.Tensor,
-             max_new_tokens: int, temperature: float = 0.0,
+             max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
+             top_p: float = 1.0,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Continue ``prompt`` [B, T] by ``max_new_tokens`` tokens through the
     dense KV cache; returns [B, T + max_new_tokens].  ``temperature=0``
-    decodes greedily.  Runs on the device ``params`` live on."""
+    decodes greedily; ``top_k > 0`` samples among the k most likely
+    tokens and ``top_p < 1`` within the nucleus of that mass (top-k
+    first, then top-p).  Draws come from ``generator`` (JAX's PRNG
+    stream is not reproduced).  Runs on the device ``params`` live on."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     b, t = prompt.shape
     if t + max_new_tokens > cfg.n_positions:
         raise ValueError(f"prompt+new = {t + max_new_tokens} exceeds "
                          f"n_positions={cfg.n_positions}")
+    if not 0 <= top_k <= cfg.vocab_size:
+        raise ValueError(f"top_k={top_k} out of range [0, vocab_size="
+                         f"{cfg.vocab_size}]")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p={top_p} out of range (0, 1]")
     view = _decode_view(params, cfg)
     device = params["wte"].device
     prompt = prompt.to(device)
     cache = init_cache(cfg, b, t + max_new_tokens, device)
     logits, cache = _apply_with_cache(view, prompt, cache, cfg)
-    out = [prompt, _sample(logits, temperature, generator)[:, None]]
+    out = [prompt, _sample(logits, temperature, top_k, top_p,
+                           generator)[:, None]]
     for _ in range(max_new_tokens - 1):
         logits, cache = _apply_with_cache(view, out[-1], cache, cfg)
-        out.append(_sample(logits, temperature, generator)[:, None])
+        out.append(_sample(logits, temperature, top_k, top_p,
+                           generator)[:, None])
     return torch.cat(out, dim=1)
