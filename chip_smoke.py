@@ -176,6 +176,39 @@ Phases (each prints one JSON line; any failure exits non-zero):
    every draw inside the keep-set the CPU computes from the same logits,
    top-k 1 equal to greedy, the decoded text printed).
 
+13. obs: the telemetry plane (``trustworthy_dl_tpu_torch/obs``) on the
+   card.  Serve: the serve phase's GPT-2 small geometry over the 16 smoke
+   requests, driven closed-loop (at most 8 open, so a watcher can never
+   shed one), once bare and once under an ``ObsSession`` (spans, the
+   attribution ledger, the default SLO rules, the anomaly watcher, the HBM
+   monitor); gates: every stream, entropy and margin bit-identical between
+   the arms, B5-B7 launched the same counts, every trace line valid, one
+   attribution record per request whose ``token_hash`` is its stream's and
+   ``verify_attribution`` clean, one ``serve.request`` span per request in
+   ``trace_events.json``, ``tddl_serve_tokens_total`` the tokens emitted;
+   both arms' tokens/s, the events and their bytes, and a trace bus's
+   per-event emit cost.  Open loop: the 16 requests queued whole, as ``cli
+   serve`` queues them, under such a session, whose watchers may shed
+   queued requests; gates: every request completed or shed (the summary's
+   ``requests_shed_slo`` the count), the completed ones whole with greedy
+   streams following the bare arm's by the near-tie rule, one attribution
+   record each (shed ones not admitted) and ``verify_attribution`` clean;
+   the shed count printed.  HBM gate: an engine under an ``HbmMonitor``
+   whose budget is the allocated bytes plus half the KV pool's: the pool
+   shrunk to what the gate computed, one ``hbm_pressure`` event and
+   ``tddl_hbm_pressure_total`` 1, 4 requests served as in the bare arm, the
+   watermark between the pool's bytes and ``max_memory_allocated``. Train:
+   the train geometry (4 nodes x 8 x 1024, detection ON, node 2 poisoned
+   from step 4), 8 batches supervised at depth 0 with NaN params after step
+   7 (the bad step 8, two retries, a rollback to step 0), once bare and
+   once under a session; gates: trajectories and B1-B3 launches equal
+   between the arms and as the 10 step executions make them, ``train_step``
+   per accounted step, ``detection_verdict`` naming node 2, ``guard_trip``,
+   ``supervisor_retry``, ``chaos_fault``, ``ckpt_commit``, flight dumps
+   beside the checkpoints, and ``obs_report.json``'s mean step within 10%
+   of the steps' wall and its MFU against the H100 peak; the phase
+   fractions printed.
+
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
 """
@@ -346,6 +379,15 @@ TEXT_VOCAB = 8192
 TEXT_STEPS = 4
 TEXT_SERVE_REQUESTS = 8
 TEXT_PROMPT = "The trusted training step gates every node by"
+# obs: OBS_STEPS batches of the train geometry, node 2 poisoned from step
+# OBS_ATTACK (detector_warmup 2), NaN params after step OBS_NAN_STEP; the
+# bad step retried DRILL_RETRIES times, then rolled back (rollback_after
+# 1) to the step-0 checkpoint with the loader spent.  The report's mean
+# step within OBS_STEP_RTOL of the accounted steps' wall; OBS_EMITS emits
+# time the trace bus.
+OBS_STEPS, OBS_ATTACK, OBS_NAN_STEP = 8, 4, 7
+OBS_STEP_RTOL = 0.10
+OBS_EMITS = 5000
 
 
 def emit(obj) -> None:
@@ -1083,8 +1125,9 @@ def serve_drive(torch, pa, entries, card):
 
 
 def compare_greedy(requests, results, ref_results, what,
-                   either_margin=False):
-    """The near-tie rule: walk each greedy stream while its tokens agree
+                   either_margin=False, only=None):
+    """The near-tie rule (over the requests whose ids are in ``only``,
+    when given): walk each greedy stream while its tokens agree
     with the reference's; at the first split the reference's top-1 margin
     (with ``either_margin``, the lesser of the two streams' margins there)
     must be below NEAR_TIE_MARGIN; at every agreeing position the entropies
@@ -1093,7 +1136,7 @@ def compare_greedy(requests, results, ref_results, what,
     compared = near_ties = 0
     ent_err = mar_err = 0.0
     for rid, (_, temp) in enumerate(requests):
-        if temp > 0.0:
+        if temp > 0.0 or (only is not None and rid not in only):
             continue
         mine, ref = results[rid], ref_results[rid]
         for i, (a, b) in enumerate(zip(mine.tokens, ref.tokens)):
@@ -3440,6 +3483,414 @@ def text_drive(torch, entries, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def trace_files(path):
+    """The trace file and its rotated segments."""
+    from trustworthy_dl_tpu_torch.obs.events import rotated_segments
+
+    return [p for p, _ in rotated_segments(path)] + [path]
+
+
+def emit_cost_us():
+    """Host microseconds a trace bus takes per ``serve_retire`` emit into a
+    JSONL file, a flight recorder and the events counter, and per span
+    recorded through it."""
+    from trustworthy_dl_tpu_torch.obs import EventType, FlightRecorder, \
+        MetricsRegistry, SpanTracker, TraceBus
+
+    root = tempfile.mkdtemp(prefix="tddl_emit_")
+    try:
+        bus = TraceBus(os.path.join(root, "trace.jsonl"),
+                       recorder=FlightRecorder(), registry=MetricsRegistry())
+        spans = SpanTracker(trace=bus)
+        t0 = time.perf_counter()
+        for i in range(OBS_EMITS):
+            bus.emit(EventType.SERVE_RETIRE, request_id=i,
+                     status="completed", tokens=32, flagged=False,
+                     monitor_z=0.5)
+        t1 = time.perf_counter()
+        for i in range(OBS_EMITS):
+            spans.add("serve.decode_tick", t1, t1 + 1e-3, kind="serve",
+                      tokens=8, active=8)
+        t2 = time.perf_counter()
+        bus.close()
+        return {"event_us": 1e6 * (t1 - t0) / OBS_EMITS,
+                "span_us": 1e6 * (t2 - t1) / OBS_EMITS,
+                "bytes_per_event": os.path.getsize(
+                    os.path.join(root, "trace.jsonl")) / (2 * OBS_EMITS)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_trace(root):
+    """Every event of ``root``'s trace validates; returns them."""
+    from trustworthy_dl_tpu_torch.obs import read_jsonl_rotated
+    from trustworthy_dl_tpu_torch.obs.events import validate_event
+
+    events = read_jsonl_rotated(os.path.join(root, "trace.jsonl"))
+    for event in events:
+        validate_event(event)
+    return events
+
+
+def obs_open_loop(torch, root, params, cfg, requests, ref_results):
+    """The traffic queued whole up front, as ``cli serve`` submits it,
+    under a session with the default watchers, which may shed queued
+    requests while an SLO rule burns or an anomaly episode is open.  Every
+    request must end completed or shed, each with its attribution record;
+    the completed greedy streams follow the bare arm's by the near-tie
+    rule."""
+    from trustworthy_dl_tpu_torch.obs import token_hash
+    from trustworthy_dl_tpu_torch.utils.obs_ab import serve_session
+    from trustworthy_dl_tpu_torch.utils.serve_profile import drive_smoke, \
+        smoke_engine
+
+    session = serve_session(root)
+    engine = smoke_engine(cfg, params, "kernel", obs=session)
+    results, wall = drive_smoke(engine, requests)
+    summary = engine.metrics_summary()
+    status = {rid: r.status for rid, r in results.items()}
+    shed = sorted(rid for rid, s in status.items() if s == "shed_slo")
+    done = {rid for rid, s in status.items() if s == "completed"}
+    if sorted(status) != list(range(len(requests))) or \
+            len(done) + len(shed) != len(requests) or \
+            summary["requests_shed_slo"] != len(shed):
+        raise AssertionError(f"obs open loop: statuses {status}, summary "
+                             f"shed {summary['requests_shed_slo']}")
+    check_completed({rid: results[rid] for rid in done},
+                    [requests[rid] for rid in done])
+    greedy = compare_greedy(requests, results, ref_results,
+                            "obs open loop", only=done) \
+        if any(requests[rid][1] == 0.0 for rid in done) else {}
+    records = session.ledger.records()
+    verdict = engine.verify_attribution()
+    if sorted(r["request_id"] for r in records) != sorted(status) or \
+            verdict != (True, []) or any(
+                r["admitted"] != (r["request_id"] in done) or
+                r["token_hash"] != token_hash(results[r["request_id"]]
+                                              .tokens) for r in records):
+        raise AssertionError(f"obs open loop: {len(records)} records, "
+                             f"verification {verdict}")
+    session.finalize()
+    check_trace(root)
+    tokens = sum(len(r.tokens) for r in results.values())
+    return {"requests": len(requests), "completed": len(done),
+            "shed_slo": len(shed), "shed_request_ids": shed,
+            "anomaly_events": session.anomaly.event_total,
+            "slo_breaches": session.slo.breach_total,
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_p50_ms": summary.get("ttft_p50_ms"),
+            "itl_p50_ms": summary.get("itl_p50_ms"),
+            "itl_p99_ms": summary.get("itl_p99_ms"), **greedy}
+
+
+def obs_serve(torch, root, params, cfg):
+    """Phase 13, serving: the bare arm and the arm under a session, both
+    closed-loop; the traffic open-loop under a session; and the HBM gate's
+    shrunk engine."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.obs import ObsSession, token_hash
+    from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
+    from trustworthy_dl_tpu_torch.utils.obs_ab import serve_session
+    from trustworthy_dl_tpu_torch.utils.serve_profile import \
+        drive_closed_loop, smoke_engine, smoke_traffic
+
+    requests = smoke_traffic(cfg.vocab_size)
+    kernels = ("paged_attention", "paged_prefill_attention",
+               "logit_trust_stats")
+    # One request first, so that neither arm pays the first engine's
+    # warm-up.
+    drive_closed_loop(smoke_engine(cfg, params, "kernel"),
+                      requests[:1])
+    arms = {}
+    session = None
+    for arm in ("off", "on"):
+        if arm == "on":
+            session = serve_session(os.path.join(root, "serve"))
+        engine = smoke_engine(cfg, params, "kernel", obs=session)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        results, wall = drive_closed_loop(engine, requests)
+        counts = ops.launch_counts()
+        launches = {name: counts.pop(name) for name in kernels}
+        if any(counts.values()) or min(launches.values()) == 0:
+            raise AssertionError(f"obs serve {arm}: launches {launches}, "
+                                 f"off this path {counts}")
+        check_completed(results, requests)
+        tokens = sum(len(r.tokens) for r in results.values())
+        arms[arm] = {"engine": engine, "results": results, "wall": wall,
+                     "launches": launches, "tokens": tokens,
+                     "summary": engine.metrics_summary()}
+    off, on = arms["off"], arms["on"]
+    for rid, ref in off["results"].items():
+        got = on["results"][rid]
+        if (got.tokens, got.entropies, got.margins) != \
+                (ref.tokens, ref.entropies, ref.margins):
+            raise AssertionError(f"obs serve: request {rid} differs under "
+                                 "the session")
+    if on["launches"] != off["launches"]:
+        raise AssertionError(f"obs serve: launches {on['launches']} under "
+                             f"the session, {off['launches']} bare")
+    engine = on["engine"]
+    records = session.ledger.records()
+    verdict = engine.verify_attribution()
+    if len(records) != len(requests) or verdict != (True, []) or any(
+            rec["token_hash"] != token_hash(on["results"][rec["request_id"]]
+                                            .tokens) for rec in records):
+        raise AssertionError(f"obs serve: {len(records)} records, "
+                             f"verification {verdict}")
+    if on["summary"]["requests_shed_slo"]:
+        raise AssertionError(f"obs serve: {on['summary']}")
+    session.finalize()
+    path = os.path.join(root, "serve", "trace.jsonl")
+    events = check_trace(os.path.join(root, "serve"))
+    with open(os.path.join(root, "serve", "trace_events.json")) as f:
+        chrome = json.load(f)["traceEvents"]
+    roots = sorted(e["tid"] for e in chrome if e["name"] == "serve.request")
+    if roots != sorted(on["results"]):
+        raise AssertionError(f"obs serve: serve.request spans for {roots}")
+    with open(os.path.join(root, "serve", "metrics.prom")) as f:
+        prom = f.read().splitlines()
+    if f"tddl_serve_tokens_total {float(on['tokens'])!r}" not in prom:
+        raise AssertionError("obs serve: tddl_serve_tokens_total is not "
+                             f"the {on['tokens']} tokens emitted")
+    by_type = {}
+    for event in events:
+        by_type[event["type"]] = by_type.get(event["type"], 0) + 1
+    serve = {
+        "requests": len(requests), "tokens": on["tokens"],
+        "tokens_per_s_off": off["tokens"] / off["wall"],
+        "tokens_per_s_on": on["tokens"] / on["wall"],
+        "on_over_off": off["wall"] / on["wall"],
+        "wall_s_off": off["wall"], "wall_s_on": on["wall"],
+        "launches": on["launches"], "events": len(events),
+        "events_by_type": by_type,
+        "trace_bytes": sum(os.path.getsize(p) for p in trace_files(path)),
+        "ledger_bytes": os.path.getsize(os.path.join(root, "serve",
+                                                     "attribution.jsonl")),
+        "anomaly_events": session.anomaly.event_total,
+        "slo_breaches": session.slo.breach_total,
+        "ttft_p50_ms": on["summary"].get("ttft_p50_ms"),
+        "itl_p50_ms": on["summary"].get("itl_p50_ms"),
+        "itl_p99_ms": on["summary"].get("itl_p99_ms"),
+        "emit_cost": emit_cost_us()}
+    del engine
+    serve["open_loop"] = obs_open_loop(
+        torch, os.path.join(root, "open"), params, cfg, requests,
+        off["results"])
+    del arms
+
+    # The HBM gate: a budget of the allocated bytes plus half the pool's.
+    gc.collect()
+    torch.cuda.empty_cache()
+    block, bpt = 16, kv_bytes_per_token(cfg)
+    requested = 8 * (512 // block) * block * bpt
+    budget = torch.cuda.memory_allocated() + requested // 2
+    hsession = ObsSession(None)
+    monitor = hsession.enable_hbm(budget_bytes=budget)
+    small = smoke_engine(cfg, params, "kernel", obs=hsession)
+    want = max(monitor.last_headroom // (block * bpt), 512 // block)
+    got = small.scheduler.num_blocks
+    pressure = [e for e in hsession.recorder.events()
+                if e["type"] == "hbm_pressure"]
+    counter = hsession.registry.get("tddl_hbm_pressure_total").value()
+    if got != want or not got < requested // (block * bpt) or \
+            len(pressure) != 1 or counter != 1.0:
+        raise AssertionError(f"obs hbm: {got} blocks (the gate computed "
+                             f"{want}), {len(pressure)} pressure events, "
+                             f"counter {counter}")
+    shrunk, _ = drive_closed_loop(small, requests[:4])
+    for rid, res in shrunk.items():
+        if res.tokens != off["results"][rid].tokens:
+            raise AssertionError(f"obs hbm: request {rid} differs on the "
+                                 "shrunk pool")
+    sweep = monitor.sweep(emit=True)
+    pool = small.scheduler.kv.pool_bytes
+    peak = torch.cuda.max_memory_allocated()
+    if not pool <= monitor.watermark_bytes <= peak:
+        raise AssertionError(f"obs hbm: watermark {monitor.watermark_bytes}"
+                             f" outside [{pool}, {peak}]")
+    hbm = {"requested_bytes": requested, "budget_bytes": budget,
+           "headroom_bytes": monitor.last_headroom,
+           "blocks_requested": requested // (block * bpt),
+           "blocks_granted": got, "pool_bytes": pool,
+           "watermark_bytes": monitor.watermark_bytes,
+           "live_bytes": sweep["total_bytes"],
+           "max_memory_allocated": peak}
+    del small
+    return serve, hbm
+
+
+def obs_train(torch, root):
+    """Phase 13, training: the supervised GRAD_NAN run bare and under a
+    session, from the same state."""
+    import dataclasses
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.chaos import FaultEvent, FaultInjector, \
+        FaultKind, FaultPlan
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
+    from trustworthy_dl_tpu_torch.engine.supervisor import \
+        TrainingSupervisor
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.obs import PHASES, ObsSession, \
+        read_jsonl_rotated
+    from trustworthy_dl_tpu_torch.obs.events import validate_event
+
+    cfg = gpt2_small(torch)
+    tr = DistributedTrainer(TrainingConfig(
+        model_name="gpt2", batch_size=TRAIN_BATCH, num_nodes=TRAIN_NODES,
+        optimizer="adamw", learning_rate=1e-4, remat=True, seed=0,
+        detector_warmup=2, async_host_depth=0, checkpoint_interval=1000),
+        model_overrides=dict(seq_len=TRAIN_T, attn_impl="auto"),
+        device="cuda")
+    attacker = AdversarialAttacker(AttackConfig(
+        attack_types=["gradient_poisoning"], target_nodes=[2],
+        intensity=1.0, start_step=OBS_ATTACK))
+    attacker.activate_attacks()
+    arms = {}
+    session = None
+    for arm in ("off", "on"):
+        ckpt = os.path.join(root, f"ckpt_{arm}")
+        tr.config = dataclasses.replace(tr.config, checkpoint_dir=ckpt)
+        tr.checkpointer = CheckpointManager(ckpt)
+        tr.reset_for_run(0)
+        tr.set_attack_plan(attacker.plan(TRAIN_NODES))
+        if arm == "on":
+            session = ObsSession(os.path.join(root, "train"))
+            session.enable_spans()
+            session.install_watchers(slo_rules=())
+            session.enable_hbm()
+        sup = TrainingSupervisor(
+            tr, max_retries=DRILL_RETRIES, rollback_after=1, max_restarts=0,
+            chaos=FaultInjector(FaultPlan.scripted([FaultEvent(
+                step=OBS_NAN_STEP, kind=FaultKind.GRAD_NAN)])), obs=session)
+        loader = get_dataloader("openwebtext", batch_size=TRAIN_BATCH,
+                                seq_len=TRAIN_T, vocab_size=cfg.vocab_size,
+                                num_examples=TRAIN_BATCH * OBS_STEPS, seed=0)
+        statuses = record_status(tr)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = sup.run(loader, num_epochs=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        del tr._record_batch
+        hist = tr.batch_history
+        arms[arm] = {
+            "wall": wall, "launches": launches,
+            "report": result["supervisor"],
+            "step_s": [h["step_s"] for h in hist],
+            "trajectory": {
+                "loss": [h["loss"] for h in hist],
+                "per_node_loss": [h["per_node_loss"] for h in hist],
+                "trust": [h["trust_scores"] for h in hist],
+                "weights": [h["weights"] for h in hist],
+                "status": statuses,
+                "incidents": [(r["node_id"], r["step"], r["attack_type"])
+                              for r in tr.attack_history]}}
+    off, on = arms["off"], arms["on"]
+    if on["trajectory"] != off["trajectory"]:
+        raise AssertionError("obs train: the trajectory moved under the "
+                             f"session: {on['trajectory']} vs "
+                             f"{off['trajectory']}")
+    accounted = len(on["trajectory"]["loss"])
+    executions = accounted + 1 + DRILL_RETRIES
+    want = step_launches(cfg, [TRAIN_NODES] * executions)
+    for arm in arms.values():
+        expect_launches_equal(arm["launches"], want, "obs train")
+    lagless = {"retries": DRILL_RETRIES, "rollbacks": 1,
+               "rollback_steps": [0], "bad_steps": 1}
+    if accounted != OBS_NAN_STEP or \
+            {k: on["report"][k] for k in lagless} != lagless or \
+            not off["trajectory"]["incidents"]:
+        raise AssertionError(f"obs train: {accounted} accounted steps, "
+                             f"report {on['report']}, incidents "
+                             f"{off['trajectory']['incidents']}")
+    session.finalize()
+    events = read_jsonl_rotated(os.path.join(root, "train", "trace.jsonl"))
+    for event in events:
+        validate_event(event)
+    by_type = {}
+    for event in events:
+        by_type[event["type"]] = by_type.get(event["type"], 0) + 1
+    verdicts = [e["node"] for e in events
+                if e["type"] == "detection_verdict"]
+    needed = ("guard_trip", "supervisor_retry", "chaos_fault",
+              "ckpt_commit", "supervisor_rollback")
+    if by_type.get("train_step") != accounted or verdicts != [2] or \
+            not all(by_type.get(t) for t in needed):
+        raise AssertionError(f"obs train: events {by_type}, verdicts "
+                             f"{verdicts}")
+    dumps = sorted(n for n in os.listdir(os.path.join(root, "ckpt_on"))
+                   if n.startswith("flight_"))
+    if not dumps:
+        raise AssertionError("obs train: no flight dump beside the "
+                             "checkpoints")
+    with open(os.path.join(root, "train", "obs_report.json")) as f:
+        report = json.load(f)
+    mean = report["step_time_s"]["mean"]
+    wall_per_step = statistics.mean(on["step_s"])
+    fractions = {k: v["fraction"] for k, v in report["phases"].items()}
+    if report["num_steps"] != accounted or not set(fractions) <= \
+            set(PHASES) or abs(sum(fractions.values()) - 1.0) > 1e-6 or \
+            abs(mean - wall_per_step) > OBS_STEP_RTOL * wall_per_step or \
+            not report["mfu"]["peak_flops_source"].startswith(
+                "bf16-peak-table:h100"):
+        raise AssertionError(f"obs train: report {report}, wall per step "
+                             f"{wall_per_step}")
+    train = {"steps_accounted": accounted, "step_executions": executions,
+             "wall_s_off": off["wall"], "wall_s_on": on["wall"],
+             "step_s_mean_off": statistics.mean(off["step_s"]),
+             "step_s_mean_on": wall_per_step,
+             "report_step_s": report["step_time_s"],
+             "wall_per_step_s": wall_per_step,
+             "phase_fractions": fractions,
+             "phase_mean_s": {k: v["mean_s"]
+                              for k, v in report["phases"].items()},
+             "mfu": report["mfu"], "events": len(events),
+             "events_by_type": by_type, "flight_dumps": dumps,
+             "launches": on["launches"], "expected_launches": want,
+             "supervisor": on["report"],
+             "incidents": off["trajectory"]["incidents"]}
+    del tr, sup
+    return train
+
+
+def obs_drive(torch, entries, card):
+    """Phase 13: the telemetry plane through serving, the HBM gate and
+    supervised training."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tddl_obs_")
+    try:
+        cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = gpt2.init_params(cfg, gen, device="cuda")
+        serve, hbm = obs_serve(torch, root, params, cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = obs_train(torch, root)
+        for name, n in {**serve["launches"], **train["launches"]}.items():
+            key = {"paged_attention": "paged_decode_attention"}.get(name,
+                                                                    name)
+            if key in entries and n:
+                entries[key]["launches_obs"] = n
+        emit({"phase": "obs", "card": card,
+              "seconds": time.perf_counter() - t0,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16; training over "
+                       "f32 master weights; random init seed 0)",
+              "serve": serve, "hbm": hbm, "train": train})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     card = one_card()
     try:
@@ -3492,6 +3943,9 @@ def main() -> int:
     vision_drive(torch, entries, smi)
     torch.cuda.empty_cache()
     text_drive(torch, entries, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs_drive(torch, entries, smi)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

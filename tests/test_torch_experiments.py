@@ -11,7 +11,9 @@ the first epoch's loss already differs by 2.2e-5 there).
 
 Equal: the incidents (node, step, type), the reassignments' source and
 target, ``detection_quality``, each epoch's node statuses, the step count,
-the CSV header and ``PRESETS``.  Within the training contract's 1e-5:
+the CSV header, ``PRESETS``, the ``obs_report`` keys (less JAX's
+analyzed-FLOPs blocks) and the ``obs/`` artifacts (less JAX's perf
+ledger).  Within the training contract's 1e-5:
 epoch and validation losses, each epoch's trust scores, each step's CSV
 loss and trust, the final system trust and the predicted reliability.
 The attacked node's gradient noise is each package's own draw (JAX's
@@ -123,7 +125,13 @@ def test_same_data_and_decisions_as_jax(runs):
     assert summary["total_steps"] == 5 * 8
     assert [r["node_statuses"] for r in res["epoch_records"]] == \
         [r["node_statuses"] for r in jres["epoch_records"]]
-    assert res["obs_report"] is None
+    # Both runners carry a telemetry session; the port's report lacks
+    # only the analyzed-FLOPs blocks it does not port.
+    report, jreport = res["obs_report"], jres["obs_report"]
+    assert report["num_steps"] == jreport["num_steps"] == 5 * 8
+    assert set(report) == set(jreport) - {"cost_ledger", "mfu_analyzed"}
+    assert set(report["phases"]) == set(jreport["phases"])
+    assert report["mfu"].keys() == jreport["mfu"].keys()
 
 
 def test_losses_and_trust_within_the_training_contract(runs):
@@ -175,7 +183,12 @@ def test_artifact_contract(runs):
     for name in expected:
         path = runner.output_dir / name
         assert path.exists() and path.stat().st_size > 0, name
-    assert not (runner.output_dir / "obs").exists()
+    obs = sorted(p.name for p in (runner.output_dir / "obs").iterdir())
+    jobs = sorted(p.name for p in (runs["jrunner"].output_dir /
+                                   "obs").iterdir())
+    assert obs == [n for n in jobs if n != "PERF_LEDGER.jsonl"]
+    assert {"trace.jsonl", "metrics_snapshot.json", "metrics.prom",
+            "obs_report.json"} <= set(obs)
     with open(runner.output_dir / "experiment_results.json") as f:
         loaded = json.load(f)
     assert loaded["experiment_config"]["experiment_name"] == \

@@ -3,8 +3,11 @@ fresh process by importing every module of ``trustworthy_dl_tpu_torch``
 and reading ``sys.modules``, and statically by walking every module's
 imports (``chip_smoke.py`` included).  The walk is checked to reach the
 modules added since it was written (the async host pipeline,
-``elastic/``, the ResNet and VGG families, the tokenizer and the
-profiling hooks).  scikit-learn, the ML tier's optional dependency, is
+``elastic/``, the ResNet and VGG families, the tokenizer, the profiling
+hooks and the telemetry plane, ``obs/``).  No ``obs`` module imports
+torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
+``torch.cuda`` only inside functions, so importing ``obs`` never
+initialises CUDA.  scikit-learn, the ML tier's optional dependency, is
 imported only inside functions (behind the trainer's
 ``_sklearn_available`` gate, as in JAX), never when a module is imported.
 Beyond torch and numpy the port imports only optional modules that the
@@ -29,7 +32,10 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.models.resnet",
                "trustworthy_dl_tpu_torch.models.vgg",
                "trustworthy_dl_tpu_torch.data.tokenizer",
-               "trustworthy_dl_tpu_torch.utils.profiling")
+               "trustworthy_dl_tpu_torch.utils.profiling",
+               *(f"trustworthy_dl_tpu_torch.obs.{m}" for m in (
+                   "registry", "events", "recorder", "report", "spans",
+                   "slo", "anomaly", "attribution", "hbm", "session")))
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 
@@ -165,3 +171,22 @@ def test_other_imports_are_optional_and_guarded():
             found.setdefault(root, set()).add(rel)
     assert found["regex"] == {"trustworthy_dl_tpu_torch/data/tokenizer.py"}
     assert found["yaml"] == {"trustworthy_dl_tpu_torch/core/config.py"}
+
+
+def test_obs_touches_torch_only_inside_functions():
+    """Every ``obs`` module imports torch, if at all, inside a function;
+    ``hbm.py`` does (its live bytes and budget read ``torch.cuda``)."""
+    inside = set()
+    for path in sorted((REPO / "trustworthy_dl_tpu_torch" / "obs")
+                       .glob("*.py")):
+        for root, guarded in _guarded_imports(path):
+            if root == "torch":
+                assert guarded, path.name
+                inside.add(path.name)
+    assert {"hbm.py", "meta.py"} <= inside
+    code = ("import torch, trustworthy_dl_tpu_torch.obs as obs\n"
+            "obs.ObsSession(None).enable_hbm().sweep()\n"
+            "assert not torch.cuda.is_initialized()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -13,7 +13,10 @@ Counterpart of the training and checkpoint half of
 
 Each event fires exactly once (``fired``), so when the supervisor rolls
 global steps back past a fired event the replayed steps run clean.
-``counts()`` reports fired events by kind for the supervisor's report.
+``counts()`` reports fired events by kind for the supervisor's report,
+and with ``trace`` (an obs ``TraceBus``) every fired fault is a
+``chaos_fault`` event, so a flight dump can be diffed against
+``FaultPlan.predict``.
 The serving and fleet hooks wait for the port's serving fleet.
 """
 
@@ -52,15 +55,30 @@ class FaultInjector:
         self._sleep = sleep_fn
         self._max_stall_s = max_stall_s
         self.fired: List[FaultEvent] = []
+        self.trace: Any = None
 
     # -- bookkeeping -------------------------------------------------------
+
+    def _fire(self, event: FaultEvent, at_step: int) -> FaultEvent:
+        self.fired.append(event)
+        if self.trace is not None:
+            from trustworthy_dl_tpu_torch.obs.events import EventType
+
+            self.trace.emit(EventType.CHAOS_FAULT, step=at_step,
+                            kind=event.kind.value,
+                            scheduled_step=event.step,
+                            severity=event.severity,
+                            target=(event.target if event.target >= 0
+                                    else None),
+                            **({"tenant": event.tenant}
+                               if event.tenant else {}))
+        return event
 
     def _take_at(self, step: int, kind: FaultKind) -> Optional[FaultEvent]:
         """Fire-once event scheduled exactly at ``step``."""
         for event in self.plan.at(step, kind):
             if event not in self.fired:
-                self.fired.append(event)
-                return event
+                return self._fire(event, step)
         return None
 
     def _take_due(self, step: int, kind: FaultKind) -> Optional[FaultEvent]:
@@ -68,8 +86,7 @@ class FaultInjector:
         checkpoint kinds fire on the first save at or after it)."""
         for event in self.plan.of_kind(kind):
             if event.step <= step and event not in self.fired:
-                self.fired.append(event)
-                return event
+                return self._fire(event, step)
         return None
 
     def counts(self) -> Dict[str, int]:

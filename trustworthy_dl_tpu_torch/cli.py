@@ -26,8 +26,19 @@ defaults, with only the flags given on top; it checkpoints under the
 configured directory (and at the end), resumes with ``--resume``, and
 with ``--supervise`` (or ``--chaos-seed``, a seeded fault plan) runs
 under the self-healing supervisor.  ``experiment`` forwards to the
-experiment runner (``experiments/runner.main``).  All but ``prepare`` run
-on the card unless ``--device cpu`` is given.
+experiment runner (``experiments/runner.main``), which always writes its
+telemetry under ``<output_dir>/<name>/obs``.  All but ``prepare`` run on
+the card unless ``--device cpu`` is given.
+
+``train --obs-dir DIR`` and ``serve --obs-dir DIR`` attach an
+``obs.ObsSession`` and write its artifacts there, as the JAX commands do:
+``trace.jsonl`` (rotated past ``--trace-max-bytes``),
+``metrics_snapshot.json`` and ``metrics.prom``, ``obs_report.json``,
+``slo_status.json``, ``trace_events.json`` (Chrome/Perfetto), and for
+``serve`` ``attribution.jsonl``; the supervisor's flight dumps land beside
+the checkpoints.  ``serve``'s SLO rules take ``--slo-ttft-ms`` and
+``--slo-itl-ms``.  The JAX commands' compile watcher, forensics and perf
+sentinel are not ported yet.
 """
 
 from __future__ import annotations
@@ -305,6 +316,28 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         help="resident adapter pages (default max-slots)")
     parser.add_argument("--adapter-dtype", type=str, default="model",
                         choices=["model", "int8"])
+    parser.add_argument("--obs-dir", type=str, default=None,
+                        help="write serving telemetry here: trace.jsonl "
+                             "(request lifecycle events + spans "
+                             "correlated by request id), "
+                             "attribution.jsonl (per-request ledger: "
+                             "slot/blocks/weight-tier/verdict), "
+                             "slo_status.json, trace_events.json "
+                             "(Chrome/Perfetto timeline) + metrics "
+                             "snapshot/Prometheus export")
+    parser.add_argument("--slo-ttft-ms", type=float, default=2000.0,
+                        help="TTFT SLO target per request (needs "
+                             "--obs-dir); breaches emit slo_breach "
+                             "events, burn the tddl_slo_burn_rate gauge "
+                             "and shed lowest-priority admissions")
+    parser.add_argument("--slo-itl-ms", type=float, default=250.0,
+                        help="inter-token-latency SLO target (needs "
+                             "--obs-dir)")
+    parser.add_argument("--trace-max-bytes", type=int, default=0,
+                        help="rotate trace.jsonl once it exceeds this "
+                             "many bytes (trace.1.jsonl, ...; 0 = no "
+                             "rotation; env TDDL_TRACE_MAX_BYTES is the "
+                             "default)")
     parser.add_argument("--seed", type=int, default=0)
     return parser
 
@@ -365,10 +398,23 @@ def serve_main(argv: Optional[List[str]] = None,
         pages = args.adapter_pool_pages or args.max_slots
         adapter_map = zipf_adapter_assignments(tenant_names, pages + 1,
                                                seed=args.seed)
+    obs_session = None
+    if args.obs_dir:
+        from trustworthy_dl_tpu_torch.obs import ObsSession
+        from trustworthy_dl_tpu_torch.obs.slo import default_serve_rules
+
+        obs_session = ObsSession(args.obs_dir,
+                                 trace_max_bytes=args.trace_max_bytes)
+        obs_session.enable_spans()
+        obs_session.open_ledger()
+        obs_session.enable_hbm()
+        obs_session.install_watchers(slo_rules=default_serve_rules(
+            ttft_target_s=args.slo_ttft_ms / 1e3,
+            itl_target_s=args.slo_itl_ms / 1e3))
     engine = ServingEngine.from_config(
         params, cfg, serve_config, seed=args.seed,
         enable_monitor=not args.no_monitor, device=device,
-        adapter_map=adapter_map)
+        adapter_map=adapter_map, obs=obs_session)
     del params
     rng = np.random.default_rng(args.seed)
     deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
@@ -393,7 +439,7 @@ def serve_main(argv: Optional[List[str]] = None,
     summary = engine.metrics_summary()
     print(f"served {submitted} request(s) on {args.max_slots} slot(s)")
     for key in ("requests_completed", "requests_deadline_exceeded",
-                "requests_flagged", "tokens_emitted", "tokens_per_s",
+                "requests_shed_slo", "requests_flagged", "tokens_emitted", "tokens_per_s",
                 "itl_p50_ms", "itl_p99_ms", "ttft_p50_ms", "ttft_p99_ms",
                 "mean_occupancy", "peak_tokens_in_flight", "blocks_in_use",
                 "prefix_hits", "prefix_hit_rate", "kv_dtype", "weight_dtype",
@@ -413,6 +459,18 @@ def serve_main(argv: Optional[List[str]] = None,
               f"hit_rate={adapters['hit_rate']:.3f} "
               f"evictions={adapters['evictions']} "
               f"uploads={adapters['uploads']}")
+    if obs_session is not None:
+        ok, problems = engine.verify_attribution()
+        print(f"attribution: {engine.ledger.total} record(s), "
+              f"block-lifecycle reconciliation "
+              f"{'OK' if ok else 'FAILED'}")
+        for problem in problems[:5]:
+            print(f"  !! {problem}")
+        if obs_session.slo.active:
+            print(f"SLO breaches active: {obs_session.slo.active}")
+        obs_session.hbm.sweep(emit=True)
+        obs_session.finalize()
+        print(f"obs artifacts in {args.obs_dir}")
     return 0
 
 
@@ -485,6 +543,21 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--chaos-rate", type=float, default=0.02,
                         help="per-step probability of each drill fault "
                              "kind under --chaos-seed")
+    parser.add_argument("--obs-dir", type=str, default=None,
+                        help="write run telemetry here: trace.jsonl "
+                             "(structured events with step correlation "
+                             "ids), metrics_snapshot.json + metrics.prom "
+                             "(registry export), obs_report.json "
+                             "(per-phase step-time breakdown + MFU), "
+                             "slo_status.json and trace_events.json")
+    parser.add_argument("--metrics-snapshot-every", type=int, default=0,
+                        help="re-write the metrics snapshot every N steps "
+                             "(0 = only at run end); needs --obs-dir")
+    parser.add_argument("--trace-max-bytes", type=int, default=0,
+                        help="rotate trace.jsonl once it exceeds this "
+                             "many bytes (trace.1.jsonl, trace.2.jsonl, "
+                             "...; 0 = no rotation; env "
+                             "TDDL_TRACE_MAX_BYTES is the default)")
     return parser
 
 
@@ -526,6 +599,21 @@ def train_main(argv: Optional[List[str]] = None,
     print(f"training {config.model_name} from random init (seed "
           f"{config.seed}) on {trainer.device} over {config.num_nodes} "
           "node(s)")
+    obs_session = None
+    if args.obs_dir:
+        from trustworthy_dl_tpu_torch.obs import ObsSession
+
+        obs_session = ObsSession(
+            args.obs_dir,
+            metrics_snapshot_every=args.metrics_snapshot_every,
+            trace_max_bytes=args.trace_max_bytes)
+        # Per-step spans (train.step and its phases) and the anomaly
+        # watcher on step time, loss and gradient norm; no serving SLO
+        # rules, but the step_time_s sketch lands in slo_status.json.
+        obs_session.enable_spans()
+        obs_session.install_watchers(slo_rules=())
+        obs_session.enable_hbm()
+        trainer.attach_obs(obs_session)
     if args.resume:
         trainer.load_checkpoint()
         print(f"resumed from checkpoint step {trainer.global_step}")
@@ -571,7 +659,7 @@ def train_main(argv: Optional[List[str]] = None,
         supervisor = TrainingSupervisor(
             trainer, max_retries=args.max_retries,
             rollback_after=args.rollback_after, max_restarts=max_restarts,
-            chaos=injector, handle_signals=True)
+            chaos=injector, handle_signals=True, obs=obs_session)
         result = supervisor.run(train_dl, val_dl)
         print(f"supervisor report: {result['supervisor']}")
     else:
@@ -585,6 +673,11 @@ def train_main(argv: Optional[List[str]] = None,
           f"{stats['training_state']}, attacks recorded "
           f"{stats['attack_count']}")
     trainer.save_checkpoint()
+    if obs_session is not None:
+        obs_session.hbm.sweep(emit=True)
+        obs_session.finalize()
+        print(f"obs artifacts in {args.obs_dir}: trace.jsonl, "
+              "metrics_snapshot.json, metrics.prom, obs_report.json")
     trainer.cleanup()
     return 0
 

@@ -25,9 +25,9 @@ node still in the attack's target set attacks again and is evicted again.
 
 Host bookkeeping keeps original node ids throughout: ``trainer.node_map``
 maps a coordinate to its id.  The tensor, sequence, expert and hybrid
-modes and ``restaff.py`` (pipeline stages) wait for ROADMAP Slice 4; the
-JAX package's ``ELASTIC_EVICT`` and ``ELASTIC_READMIT`` events wait for
-the obs hooks.
+modes and ``restaff.py`` (pipeline stages) wait for ROADMAP Slice 4.  The
+trainer emits ``elastic_evict`` and ``elastic_readmit`` trace events after
+each transition, as in JAX.
 """
 
 from __future__ import annotations

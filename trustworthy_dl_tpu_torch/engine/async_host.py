@@ -36,8 +36,9 @@ Drain contract, as in the JAX package:
 
 Depth 0 does not use this module (the synchronous loop).  Drills that
 assert ``FaultPlan.predict``'s exact retry counts must run at depth 0.
-The JAX package's trace events and step-timer laps (``obs/``) wait for
-the obs hooks item of the ROADMAP.
+The trace events of a lagged step are emitted as it drains, under its own
+step number; :meth:`AsyncHostPipeline.consume_rejection` tells the
+trainer's step timer to discard a window in which a step was rejected.
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ class AsyncHostPipeline:
         self.epoch_loss = 0.0
         self.num_batches = 0
         self.last_rejected_step: Optional[int] = None
+        self._rejected_since_check = False
 
     # -- dispatch side -----------------------------------------------------
 
@@ -118,6 +120,14 @@ class AsyncHostPipeline:
         self._drain_until(self.depth if depth is None else int(depth))
         self._maybe_apply_topology()
 
+    def consume_rejection(self) -> bool:
+        """True when an entry was guard-rejected since the last check: the
+        trainer then discards the frontier step's timer laps, as the
+        synchronous loop does for a rejected step."""
+        rejected = self._rejected_since_check
+        self._rejected_since_check = False
+        return rejected
+
     def _drain_until(self, target: int) -> None:
         while len(self.entries) > target:
             # Peek, then pop: when the guard raises mid-drain (a
@@ -142,6 +152,7 @@ class AsyncHostPipeline:
             if guard is not None and guard.after_step(
                     trainer, None, metrics, lagged=True) is None:
                 self.last_rejected_step = entry.step
+                self._rejected_since_check = True
                 if trainer.global_step != entry.step:
                     # Rollback: an older verified checkpoint was restored.
                     # What is still in flight ran on the abandoned

@@ -52,6 +52,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from trustworthy_dl_tpu_torch.obs.events import EventType
 from trustworthy_dl_tpu_torch.utils.io import atomic_write_json
 
 logger = logging.getLogger(__name__)
@@ -253,11 +254,15 @@ def _snapshot(state: Any) -> Tuple[Dict[str, Dict[str, torch.Tensor]],
 class CheckpointManager:
     """Step-addressed, verified checkpoints under ``directory``
     (``checkpoint_step_{N}``, the reference's naming).  ``chaos``
-    optionally wires a ``chaos.FaultInjector`` into the commit path."""
+    optionally wires a ``chaos.FaultInjector`` into the commit path;
+    ``trace`` (an obs ``TraceBus``, set by the trainer's ``attach_obs``)
+    receives each COMMIT outcome as a ``ckpt_commit`` event: only the
+    manager knows whether the manifest landed."""
 
     def __init__(self, directory: str = "checkpoints", chaos: Any = None):
         self.directory = os.path.abspath(directory)
         self.chaos = chaos
+        self.trace: Any = None
         # One in-flight save awaiting its COMMIT: the writer thread, its
         # error if it raised, and where it writes.
         self._pending: Optional[Dict[str, Any]] = None
@@ -386,6 +391,10 @@ class CheckpointManager:
                                pending["final"])
         if self.chaos is not None and not self.chaos.on_checkpoint_commit(
                 step):
+            if self.trace is not None:
+                self.trace.emit(EventType.CKPT_COMMIT, step=step,
+                                committed=False,
+                                reason="chaos_crash_before_commit")
             return  # drill: died before COMMIT, payload left uncommitted
         if target != final:
             # Retire the old checkpoint only now that its replacement is
@@ -401,6 +410,9 @@ class CheckpointManager:
         record["crc_s"] = time.perf_counter() - t0
         self.timings.append(record)
         _unlink(self._inflight_path(step))
+        if self.trace is not None:
+            self.trace.emit(EventType.CKPT_COMMIT, step=step,
+                            committed=True)
         if self.chaos is not None:
             self.chaos.on_checkpoint_saved(step, final)
 

@@ -25,8 +25,16 @@ verdict on a step arrives up to K steps late (``after_step(...,
 lagged=True)``): the in-place retries are skipped and a bad step counts
 straight toward the rollback, whose target predates the in-flight window.
 :meth:`TrainingSupervisor.report` carries the counters, keyed like
-``FaultPlan.predict``, which assumes depth 0.  Not ported: the
-metrics-registry counter, the trace events and flight dumps (``obs/``).
+``FaultPlan.predict``, which assumes depth 0.
+
+Telemetry, as in JAX: every ladder action counts in
+``tddl_supervisor_actions_total{action=}`` (on the session's registry,
+else the process-wide one).  With ``obs`` (an ``ObsSession``) each guard
+trip, retry, rollback, preemption and restart is a trace event, a
+rejected step's loss and gradient norm feed the anomaly watcher, the
+flight recorder is dumped next to the checkpoints at the first bad step
+of a streak, at a rollback and at a preemption, and ``report`` carries
+the watchers' active anomalies and SLO breaches.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from trustworthy_dl_tpu_torch.chaos.injector import FaultInjector, \
 from trustworthy_dl_tpu_torch.engine.step import StepMetrics
 from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer, \
     TrainingState
+from trustworthy_dl_tpu_torch.obs.events import EventType
+from trustworthy_dl_tpu_torch.obs.registry import get_registry
 
 logger = logging.getLogger(__name__)
 
@@ -62,13 +72,14 @@ class TrainingSupervisor:
 
     ``backoff_base_s`` is the first retry's sleep (doubled per attempt; 0
     sleeps not at all).  ``handle_signals=True`` installs a SIGTERM
-    handler (main thread only)."""
+    handler (main thread only).  ``obs`` (an ``ObsSession``) is attached
+    to the trainer too, so both sides' events share one trace."""
 
     def __init__(self, trainer: DistributedTrainer, *,
                  max_retries: int = 2, rollback_after: int = 3,
                  max_restarts: int = 3, backoff_base_s: float = 0.0,
                  chaos: Optional[FaultInjector] = None,
-                 handle_signals: bool = False):
+                 handle_signals: bool = False, obs: Any = None):
         if max_retries < 0 or rollback_after < 1 or max_restarts < 0:
             raise ValueError(
                 "max_retries >= 0, rollback_after >= 1, max_restarts >= 0")
@@ -79,6 +90,7 @@ class TrainingSupervisor:
         self.backoff_base_s = backoff_base_s
         self.chaos = chaos
         self.handle_signals = handle_signals
+        self.obs = obs
 
         self.retries = 0
         self.rollbacks = 0
@@ -90,10 +102,18 @@ class TrainingSupervisor:
         self._preempt_flag = False
         self._old_handler: Any = None
 
+        registry = obs.registry if obs is not None else get_registry()
+        self._counters = registry.counter(
+            "tddl_supervisor_actions_total",
+            "Supervisor recovery-ladder actions, by action",
+            labels=("action",))
+
         trainer.step_guard = self
         if chaos is not None:
             trainer.chaos = chaos
             trainer.checkpointer.chaos = chaos
+        if obs is not None:
+            trainer.attach_obs(obs)
 
     # -- step guard --------------------------------------------------------
 
@@ -157,8 +177,27 @@ class TrainingSupervisor:
             v["finite_nodes"], v["nodes"],
             " [lagged verdict: no in-place retry]" if lagged else "",
             retries)
+        if self.obs is not None:
+            self.obs.trace.emit(
+                EventType.GUARD_TRIP, step=trainer.global_step,
+                loss=v["loss"], grad_norm=v["grad_norm"],
+                finite_nodes=v["finite_nodes"])
+            if self.obs.anomaly is not None:
+                # Rejected steps never reach the trainer's accepted-step
+                # feed: the bad observations (a NaN loss IS the anomaly)
+                # go to the watcher here.
+                self.obs.anomaly.observe("loss", v["loss"],
+                                         step=trainer.global_step)
+                self.obs.anomaly.observe("grad_norm", v["grad_norm"],
+                                         step=trainer.global_step)
+        self._counters.inc(action="guard_trip")
         for attempt in range(retries):
             self.retries += 1
+            self._counters.inc(action="retry")
+            if self.obs is not None:
+                self.obs.trace.emit(EventType.SUPERVISOR_RETRY,
+                                    step=trainer.global_step,
+                                    attempt=attempt + 1)
             if self.backoff_base_s > 0:
                 time.sleep(self.backoff_base_s * (2 ** attempt))
             trainer.state, metrics = trainer._train_step(
@@ -170,6 +209,12 @@ class TrainingSupervisor:
                 return metrics
         self.bad_steps += 1
         self._bad_streak += 1
+        self._counters.inc(action="bad_step")
+        if self.obs is not None and self._bad_streak == 1:
+            # One dump per incident (the streak's first bad step); a
+            # rollback writes its own.
+            self.obs.dump_flight("guard_trip", step=trainer.global_step,
+                                 directory=trainer.config.checkpoint_dir)
         if self._bad_streak >= self.rollback_after:
             self._rollback(trainer)
         return None
@@ -178,6 +223,7 @@ class TrainingSupervisor:
         """Restore the newest restorable checkpoint and clear the bad
         streak: the verified candidates newest-first, falling to the next
         older one when a restore fails."""
+        bad_step = trainer.global_step   # where the run was when it broke
         candidates = trainer.checkpointer.verified_steps()
         if not candidates:
             raise RuntimeError(
@@ -205,6 +251,18 @@ class TrainingSupervisor:
         self.rollbacks += 1
         self.rollback_steps.append(trainer.global_step)
         self._bad_streak = 0
+        self._counters.inc(action="rollback")
+        if self.obs is not None:
+            self.obs.trace.emit(EventType.SUPERVISOR_ROLLBACK, step=bad_step,
+                                restored_step=trainer.global_step)
+            self.obs.dump_flight(
+                "rollback", step=trainer.global_step,
+                directory=trainer.config.checkpoint_dir,
+                extra={"bad_step": bad_step,
+                       "restored_step": trainer.global_step,
+                       "rollbacks": self.rollbacks,
+                       "retries": self.retries,
+                       "bad_steps": self.bad_steps})
 
     # -- restart loop ------------------------------------------------------
 
@@ -241,20 +299,34 @@ class TrainingSupervisor:
                     avg_loss = trainer.train_epoch(train_dataloader, epoch)
                 except (SimulatedPreemption, PreemptionSignal) as exc:
                     self.preemptions += 1
+                    self._counters.inc(action="preemption")
                     logger.warning("Supervisor: preemption during epoch %d "
                                    "(%s): saving state", epoch, exc)
                     # The signal came before the pending step ran: align
                     # the label with the state, or the save would take the
                     # next step's slot.
                     trainer.global_step = int(trainer.state.step)
+                    if self.obs is not None:
+                        self.obs.trace.emit(EventType.PREEMPTION,
+                                            step=trainer.global_step,
+                                            epoch=epoch)
                     trainer.save_checkpoint()
                     trainer.checkpointer.wait()
+                    if self.obs is not None:
+                        self.obs.dump_flight(
+                            "preemption", step=trainer.global_step,
+                            directory=trainer.config.checkpoint_dir)
                     if self.restarts >= self.max_restarts:
                         raise RuntimeError(
                             f"restart budget exhausted ({self.max_restarts})"
                             f"; last preemption: {exc}") from exc
                     self.restarts += 1
+                    self._counters.inc(action="restart")
                     trainer.load_checkpoint()
+                    if self.obs is not None:
+                        self.obs.trace.emit(EventType.SUPERVISOR_RESTART,
+                                            step=trainer.global_step,
+                                            restart=self.restarts)
                     logger.info("Supervisor: auto-resume %d/%d from step %d",
                                 self.restarts, self.max_restarts,
                                 trainer.global_step)
@@ -292,6 +364,15 @@ class TrainingSupervisor:
             out["faults_fired"] = counts
             out["dropped_batches"] = counts.get("data_loss", 0)
             out["stalls"] = counts.get("stall", 0)
+        # What is anomalous or burning budget NOW, beside the lifetime
+        # counters.
+        if self.obs is not None:
+            if self.obs.anomaly is not None:
+                out["anomalies_active"] = self.obs.anomaly.active
+                out["anomaly_events"] = self.obs.anomaly.event_total
+            if self.obs.slo is not None:
+                out["slo_breaches_active"] = self.obs.slo.active
+                out["slo_breach_total"] = self.obs.slo.breach_total
         return out
 
     # -- signals -----------------------------------------------------------

@@ -33,6 +33,20 @@ returns on probation after that many steps; a checkpoint's sidecar
 carries the topology and the pending cool-offs, and a resume adopts
 them.
 
+Telemetry, as in JAX (``obs/``): :meth:`DistributedTrainer.attach_obs`
+installs an ``ObsSession``.  The loop then times each accounted step's
+phases on the session's step timer (``data``, ``compute``, ``detection``,
+``checkpoint``; at ``async_host_depth`` > 0 ``compute`` is the dispatch
+and ``host`` the time blocked on lagged metrics plus the host
+bookkeeping), feeds its anomaly watcher each accepted step's loss and
+gradient norm, and emits ``train_step``, ``trust_transition``,
+``fleet_alert``, ``detection_verdict``, ``elastic_evict``,
+``elastic_readmit``, ``ckpt_save`` and ``ckpt_restore`` on its trace;
+the checkpointer, the metrics collector and a chaos injector are wired to
+the same session.  Telemetry reads host copies the loop makes anyway: the
+trajectory is bit-identical with or without it.  The JAX trainer's
+analyzed-FLOPs cost ledger and compile watcher are not ported (ROADMAP).
+
 Profiling and debugging, as in JAX (``utils/profiling.py``):
 ``config.profile_dir`` traces ``train()`` with ``torch.profiler``, each
 step's dispatch annotated ``train_step#N``; ``config.debug_nans`` installs
@@ -48,10 +62,10 @@ two per-run hooks that a reset detaches: ``chaos`` (a
 
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
-runs its plain PyTorch version.  Not ported yet: telemetry (the obs
-events and step-timer laps) and the pipeline, tensor, sequence and
-expert modes (with their elastic forms); a configuration that asks for
-one of the modes raises ``NotImplementedError`` at construction.
+runs its plain PyTorch version.  Not ported yet: the pipeline, tensor,
+sequence and expert modes (with their elastic forms); a configuration
+that asks for one of the modes raises ``NotImplementedError`` at
+construction.
 """
 
 from __future__ import annotations
@@ -85,6 +99,7 @@ from trustworthy_dl_tpu_torch.engine.state import TrainState, \
 from trustworthy_dl_tpu_torch.engine.step import HostMetricsPacker, \
     StepMetrics, build_node_eval_step, build_train_step
 from trustworthy_dl_tpu_torch.models.factory import create_model
+from trustworthy_dl_tpu_torch.obs.events import EventType
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
 from trustworthy_dl_tpu_torch.trust.state import NodeStatus
@@ -149,6 +164,8 @@ class DistributedTrainer:
         # The built steps are shaped for this node count (reset_for_run).
         self._constructed_num_nodes = config.num_nodes
         self.state: Optional[TrainState] = None
+        # Telemetry: an obs.ObsSession installed by ``attach_obs``.
+        self.obs: Any = None
         self.training_state = TrainingState.INITIALIZING
         self._init_host_state()
 
@@ -198,7 +215,11 @@ class DistributedTrainer:
         # on the clean -> compromised transition only.
         self._open_incidents: set = set()
         self.metrics_collector = MetricsCollector(
-            tensorboard_dir=config.tensorboard_dir)
+            tensorboard_dir=config.tensorboard_dir,
+            registry=self.obs.registry if self.obs is not None else None)
+        # The previous accounted step's statuses: trust transitions are
+        # emitted on change.
+        self._last_status: Optional[np.ndarray] = None
         self.attack_plan: AttackPlan = null_plan(config.num_nodes,
                                                  self.device)
         # Per original id, the attack plan's injection bit (a readmitted
@@ -296,6 +317,28 @@ class DistributedTrainer:
                 self.node_map[i]: bool(mask[i])
                 for i in range(min(len(mask), len(self.node_map)))}
 
+    def attach_obs(self, session: Any) -> None:
+        """Install an ``obs.ObsSession``: step, trust, detection and
+        checkpoint events flow to its trace bus (and flight recorder),
+        the loop feeds its step timer, and the checkpointer, an installed
+        chaos injector and the metrics collector (re-bound to the
+        session's per-run registry) report to it too."""
+        self.obs = session
+        self.checkpointer.trace = session.trace
+        self.metrics_collector.bind_registry(session.registry)
+        if self.chaos is not None:
+            self.chaos.trace = session.trace
+
+    def _obs_note_model_info(self, node_batch: Dict[str, Any]) -> None:
+        """Give the step timer what the nominal MFU needs, once: the
+        parameter count and the work units a step (tokens for an LM,
+        samples for a vision model)."""
+        timer = self.obs.step_timer
+        if not timer.has_model_info:
+            timer.set_model_info(self.model.num_params(self.state.params),
+                                 self.work_units(node_batch),
+                                 model_kind=self.model.kind)
+
     def _node_batch(self, batch: Dict[str, np.ndarray],
                     for_eval: bool = False
                     ) -> Optional[Dict[str, torch.Tensor]]:
@@ -364,6 +407,9 @@ class DistributedTrainer:
         self._active_loader = dataloader
         depth = self.config.async_host_depth
         pipe = AsyncHostPipeline(self, depth) if depth > 0 else None
+        timer = self.obs.step_timer if self.obs is not None else None
+        if timer is not None:
+            timer.discard_step()    # anchor the first step's "data" lap
         self._t_prev = time.perf_counter()
         try:
             for batch_idx, batch in enumerate(dataloader):
@@ -385,7 +431,12 @@ class DistributedTrainer:
                 node_batch = self._node_batch(batch)
                 if node_batch is None:      # a stale undersized batch
                     self.global_step -= 1
+                    if timer is not None:
+                        timer.discard_step()
                     continue
+                if timer is not None:
+                    self._obs_note_model_info(node_batch)
+                    timer.lap("data")  # loader, host assembly, the copy
                 with step_annotation(self.global_step):
                     self.state, metrics = self._train_step(
                         self.state, node_batch, self.attack_plan)
@@ -401,29 +452,55 @@ class DistributedTrainer:
                               now - self._t_prev)
                     self._t_prev = now
                     dispatched = self.global_step
+                    if timer is not None:
+                        timer.lap("compute")    # the dispatch, no sync
                     pipe.drain()
-                    if dispatched % self.config.checkpoint_interval == 0:
+                    ckpt_step = \
+                        dispatched % self.config.checkpoint_interval == 0
+                    if ckpt_step:
                         pipe.drain(0)   # a full drain before a save
-                        # Save only a frontier that survived its drain: a
-                        # rollback moved the counter, and a rejected step
-                        # must not become "verified".
-                        if self.global_step == dispatched and \
-                                pipe.last_rejected_step != dispatched:
-                            self.save_checkpoint()
+                    if timer is not None:
+                        # Both drains: blocked on lagged metrics plus the
+                        # host bookkeeping.
+                        timer.lap("host")
+                    # Save only a frontier that survived its drain: a
+                    # rollback moved the counter, and a rejected step
+                    # must not become "verified".
+                    if ckpt_step and self.global_step == dispatched and \
+                            pipe.last_rejected_step != dispatched:
+                        self.save_checkpoint()
+                    if timer is not None:
+                        timer.lap("checkpoint")
+                        if pipe.consume_rejection():
+                            # A rejected step's retry or rollback time
+                            # would poison the phase distribution.
+                            timer.discard_step()
+                        else:
+                            timer.finish_step(step=self.global_step)
+                        self.obs.on_step(self.global_step)
                     continue
                 if self.step_guard is not None:
                     metrics = self.step_guard.after_step(self, node_batch,
                                                          metrics)
                     if metrics is None:
                         # Rejected (and perhaps rolled back, global_step
-                        # then restored): nothing to account.
+                        # then restored): nothing to account, and its
+                        # wall time would poison the phase distribution.
+                        if timer is not None:
+                            timer.discard_step()
                         continue
-                record = self._account(metrics, epoch)
+                record = self._account(metrics, epoch, timer)
                 self._maybe_readmit()
+                if timer is not None:
+                    timer.lap("detection")  # host verdicts and records
                 epoch_loss += record["loss"]
                 num_batches += 1
                 if self.global_step % self.config.checkpoint_interval == 0:
                     self.save_checkpoint()
+                if timer is not None:
+                    timer.lap("checkpoint")
+                    timer.finish_step(step=self.global_step)
+                    self.obs.on_step(self.global_step)
                 if batch_idx % 10 == 0:
                     logger.info("Epoch %d, Batch %d, Loss: %.4f", epoch,
                                 batch_idx, record["loss"])
@@ -453,14 +530,18 @@ class DistributedTrainer:
                                                self.attack_plan)
         return self._account(metrics, epoch)
 
-    def _account(self, metrics: StepMetrics, epoch: int) -> Dict[str, Any]:
+    def _account(self, metrics: StepMetrics, epoch: int,
+                 timer: Any = None) -> Dict[str, Any]:
         """Host view, step time and records of an accepted step on the
         synchronous loop.  A record's ``step_s`` is the wall since the
         previous accepted step's host copy landed (the previous step's
         record-keeping, this step's batch in, its step and its host
-        copy), so the steps tile the epoch."""
+        copy), so the steps tile the epoch.  ``timer`` (a step timer)
+        closes its ``compute`` lap when the host copy has landed."""
         self.metrics_collector.tick()
         host = self._host_view(metrics)
+        if timer is not None:
+            timer.lap("compute")    # dispatch, the step, its host copy
         now = time.perf_counter()
         t_prev, self._t_prev = self._t_prev, now
         return self._record_batch(host, epoch,
@@ -511,7 +592,9 @@ class DistributedTrainer:
     def _host_record(metrics: StepMetrics, streak: Any) -> Dict[str, Any]:
         """The fields ``_record_batch`` reads, from unpacked (numpy)
         metrics."""
-        out: Dict[str, Any] = {"loss": float(metrics.loss)}
+        out: Dict[str, Any] = {"loss": float(metrics.loss),
+                               "grad_norm": float(metrics.grad_norm),
+                               "system_trust": float(metrics.system_trust)}
         for key in _HOST_FIELDS:
             out[key] = np.asarray(getattr(metrics, key))
         fleet = metrics.fleet_alert is not None
@@ -525,6 +608,8 @@ class DistributedTrainer:
         attacked, finite = host["attacked"], host["finite"]
         status, trust = host["status"], host["trust_scores"]
         id_of = self.node_map
+        if self.obs is not None:
+            self._obs_record(host, epoch)
         record = {
             "step": self.global_step, "epoch": epoch, "loss": host["loss"],
             "step_s": step_s,
@@ -549,11 +634,16 @@ class DistributedTrainer:
         if host["fleet_alert"] is not None:
             opened = self._fleet_tracker.update(
                 host["fleet_alert"], host["fleet_streak"], self.global_step,
-                extra={"epoch": epoch})
+                extra={"epoch": epoch,
+                       "median_grad_norm": host["grad_norm"]})
             if opened is not None:
                 logger.error("fleet-level norm surge at step %d",
                              self.global_step)
                 self.training_state = TrainingState.UNDER_ATTACK
+                if self.obs is not None:
+                    self.obs.trace.emit(
+                        EventType.FLEET_ALERT, step=self.global_step,
+                        median_grad_norm=opened.get("median_grad_norm"))
 
         flagged = attacked | ~finite
         # Evicted nodes have no coordinate: their incidents stay open.
@@ -584,6 +674,33 @@ class DistributedTrainer:
             self._apply_evictions(evict_coords)
         return record
 
+    def _obs_record(self, host: Dict[str, Any], epoch: int) -> None:
+        """An accounted step's telemetry: the ``train_step`` event, the
+        anomaly watcher's loss and gradient-norm feed (accepted steps
+        only, so its baseline is the healthy run; a rejected step's
+        values reach it through the supervisor), and a
+        ``trust_transition`` per node whose status changed."""
+        trace = self.obs.trace
+        trace.emit(EventType.TRAIN_STEP, step=self.global_step, epoch=epoch,
+                   loss=host["loss"], grad_norm=host["grad_norm"],
+                   system_trust=host["system_trust"])
+        if self.obs.anomaly is not None:
+            self.obs.anomaly.observe("loss", host["loss"],
+                                     step=self.global_step)
+            self.obs.anomaly.observe("grad_norm", host["grad_norm"],
+                                     step=self.global_step)
+        status, trust = host["status"], host["trust_scores"]
+        prev = self._last_status
+        if prev is not None and len(prev) == len(status):
+            for coord in np.nonzero(status != prev)[0]:
+                trace.emit(
+                    EventType.TRUST_TRANSITION, step=self.global_step,
+                    node=int(self.node_map[int(coord)]),
+                    from_status=NodeStatus(int(prev[coord])).name,
+                    to_status=NodeStatus(int(status[coord])).name,
+                    trust=float(trust[int(coord)]))
+        self._last_status = status.copy()
+
     # ------------------------------------------------------------------
     # Elasticity (data mode on one card; elastic/reassignment.py)
     # ------------------------------------------------------------------
@@ -602,6 +719,11 @@ class DistributedTrainer:
         for orig in record["evicted_nodes"]:
             self._evicted_at[int(orig)] = self.global_step
         self._resize_loader()
+        if self.obs is not None:
+            self.obs.trace.emit(
+                EventType.ELASTIC_EVICT, step=self.global_step,
+                nodes=[int(n) for n in record["evicted_nodes"]],
+                live_nodes=self.config.num_nodes)
 
     def _readmit_due(self) -> bool:
         """Would :meth:`_maybe_readmit` act now?  The pipeline polls this
@@ -627,6 +749,11 @@ class DistributedTrainer:
         record["step"] = self.global_step
         self.reassignment_history.append(record)
         self._resize_loader()
+        if self.obs is not None:
+            self.obs.trace.emit(
+                EventType.ELASTIC_READMIT, step=self.global_step,
+                nodes=[int(n) for n in due],
+                live_nodes=self.config.num_nodes)
 
     def _resize_loader(self) -> None:
         """Re-size the live loader after a topology change so its batch
@@ -667,6 +794,13 @@ class DistributedTrainer:
         ds["total_detections"] += 1
         ds["attack_types"][attack_type] += 1
         ds["true_positives" if is_tp else "false_positives"] += 1
+        if self.obs is not None:
+            self.obs.trace.emit(
+                EventType.DETECTION_VERDICT, step=self.global_step,
+                node=int(node_id), attack_type=attack_type,
+                ground_truth_positive=is_tp,
+                out_score=float(host["out_score"][coord]),
+                grad_score=float(host["grad_score"][coord]))
         self.attack_history.append({
             "node_id": node_id, "timestamp": time.time(),
             "step": self.global_step, "attack_type": attack_type,
@@ -822,6 +956,10 @@ class DistributedTrainer:
         path = self.checkpointer.save(
             self.state, self.global_step,
             block=not self.config.async_checkpoint)
+        if self.obs is not None:
+            self.obs.trace.emit(EventType.CKPT_SAVE, step=self.global_step,
+                                path=path,
+                                blocking=not self.config.async_checkpoint)
         if already:
             logger.warning("Checkpoint step %d already existed; keeping its "
                            "sidecar (payload was not rewritten)",
@@ -899,6 +1037,11 @@ class DistributedTrainer:
             self._evicted_devices = {int(k): [] for k in
                                      meta.get("evicted_devices", {})}
         self.global_step = int(self.state.step)
+        # A restore redraws the status rows: transitions re-anchor.
+        self._last_status = None
+        if self.obs is not None:
+            self.obs.trace.emit(EventType.CKPT_RESTORE, step=step,
+                                restored_step=self.global_step)
         self.sync_host_state()
         return self.state
 

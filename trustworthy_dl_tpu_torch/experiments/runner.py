@@ -10,10 +10,11 @@ time-to-detection.
 Artifact contract: ``<output_dir>/<name>/`` gets experiment_results.json,
 training_metrics.csv, four PNGs (training_loss, trust_evolution,
 attack_impact, system_metrics) where ``matplotlib`` imports,
-experiment_report.md, and intermediate_epoch_N.json every 5 epochs.  One
-deliberate difference from the JAX runner: no telemetry session (the
-port has no ``obs/`` session), so ``obs_report`` is None and no ``obs/``
-directory is written.  The runner trains on the card
+experiment_report.md, and intermediate_epoch_N.json every 5 epochs.  As in
+JAX, every run carries an ``ObsSession`` under ``<name>/obs`` (trace,
+metrics snapshot and Prometheus text, ``obs_report.json``), and
+experiment_results.json embeds the step-time/MFU report as
+``obs_report``.  The runner trains on the card
 (``device="cuda"``) unless given ``device="cpu"``.  It runs the GPT-2,
 ResNet and VGG presets in data mode; a preset whose mode is not ported
 raises at ``setup_experiment``.
@@ -35,6 +36,7 @@ from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
     ExperimentConfig
 from trustworthy_dl_tpu_torch.data import get_dataloader
 from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+from trustworthy_dl_tpu_torch.obs.session import ObsSession
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.utils.io import atomic_write_json, \
     atomic_write_text
@@ -75,6 +77,7 @@ class ExperimentRunner:
         self.val_loader = None
         self.epoch_records: List[Dict[str, Any]] = []
         self._step_records_cache: Optional[List[Dict[str, Any]]] = None
+        self.obs: Optional[ObsSession] = None
         logger.info("ExperimentRunner initialized: %s", config.experiment_name)
 
     # ------------------------------------------------------------------
@@ -87,6 +90,10 @@ class ExperimentRunner:
             self.training_config, model_overrides=self.model_overrides,
             device=self.device,
         )
+        # Telemetry: a trace, a metrics snapshot and the step-time/MFU
+        # report of this run under <output_dir>/obs.
+        self.obs = ObsSession(str(self.output_dir / "obs"))
+        self.trainer.attach_obs(self.obs)
         if self.config.attack_enabled:
             attack_config = AttackConfig(
                 attack_types=list(self.config.attack_types),
@@ -331,8 +338,10 @@ class ExperimentRunner:
             "final_attack_statistics": attack_stats,
             "training_stats": self.trainer.get_training_stats(),
             "experiment_summary": summary,
-            # No telemetry session in the port (obs/ is not ported).
-            "obs_report": None,
+            # Step-time breakdown + MFU of THIS run (obs/report.py); the
+            # standalone copy lands at <output_dir>/obs/.
+            "obs_report": (self.obs.step_timer.report()
+                           if self.obs is not None else None),
         }
 
     def _step_records(self) -> List[Dict[str, Any]]:
@@ -664,6 +673,8 @@ class ExperimentRunner:
         logger.info("Experiment report generated")
 
     def _cleanup(self) -> None:
+        if self.obs is not None:
+            self.obs.finalize()   # snapshot, obs_report.json, trace closed
         if self.trainer is not None:
             self.trainer.cleanup()
         if self.attacker is not None:

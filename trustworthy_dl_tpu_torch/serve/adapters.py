@@ -25,8 +25,9 @@ considers only pages at refcount 1 (no live request); a quarantined
 adapter's page is impounded through ``release(quarantine=True)`` when its
 last request drains.  Adapter weights are materialised deterministically
 from the adapter id (:func:`materialize_adapter`), bit for bit the JAX
-package's draws.  Sharding specs, the trace event and the gauges of the
-JAX pool are not ported yet.
+package's draws.  As in JAX, every residency change is an
+``adapter_swap`` trace event and the engine binds the pool's pages-in-use
+gauge and evictions counter.  Sharding specs are not ported yet.
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ class AdapterPool:
     def __init__(self, cfg: gpt2.GPT2Config, rank: int, pages: int,
                  adapter_dtype: str = "model",
                  init_scale: float = DEFAULT_INIT_SCALE,
-                 device: Any = "cpu"):
+                 device: Any = "cpu", trace: Any = None):
         if pages < 1:
             raise ValueError(f"pages must be >= 1, got {pages}")
         if rank < 1:
@@ -172,6 +173,12 @@ class AdapterPool:
         self.misses = 0
         self.evictions = 0
         self.uploads = 0
+        # Telemetry: an obs TraceBus for every residency change
+        # (``adapter_swap``); the engine binds the pages-in-use gauge and
+        # the evictions counter by evicted adapter.
+        self.pages_gauge: Any = None
+        self.evictions_counter: Any = None
+        self.trace = trace
 
     # -- device upload -----------------------------------------------------
 
@@ -215,6 +222,8 @@ class AdapterPool:
                 self._lru.pop(name)
                 self.alloc.release(page)           # residency ref -> freed
                 self.evictions += 1
+                if self.evictions_counter is not None:
+                    self.evictions_counter.inc(tenant=name)
                 return name
         return None
 
@@ -229,11 +238,14 @@ class AdapterPool:
             self.hits += 1
             self.alloc.incref(page)
             self._touch(name)
+            self._set_gauge()
             return page
         self.misses += 1
         got = self.alloc.alloc(1)
+        evicted: Optional[str] = None
         if got is None:
-            if self._evict_cold() is None:
+            evicted = self._evict_cold()
+            if evicted is None:
                 return None
             got = self.alloc.alloc(1)
             if got is None:
@@ -243,7 +255,13 @@ class AdapterPool:
         self._page_of[name] = page
         self._adapter_of[page] = name
         self._touch(name)
+        if self.trace is not None:
+            from trustworthy_dl_tpu_torch.obs.events import EventType
+
+            self.trace.emit(EventType.ADAPTER_SWAP, adapter=name,
+                            page=page, evicted=evicted)
         self.alloc.incref(page)                    # the request's ref
+        self._set_gauge()
         return page
 
     def release(self, name: str) -> None:
@@ -256,6 +274,7 @@ class AdapterPool:
         self.alloc.release(page)
         if name in self._quarantined and self.alloc.refcount(page) == 1:
             self._impound(name, page)
+        self._set_gauge()
 
     def _impound(self, name: str, page: int) -> None:
         self._page_of.pop(name)
@@ -272,6 +291,7 @@ class AdapterPool:
         page = self._page_of.get(name)
         if page is not None and self.alloc.refcount(page) == 1:
             self._impound(name, page)
+        self._set_gauge()
 
     def unquarantine(self, name: str) -> None:
         """Operator action: lift the verdict.  The impounded page returns
@@ -280,6 +300,11 @@ class AdapterPool:
         page = self._impounded.pop(name, None)
         if page is not None:
             self.alloc.unquarantine(page)
+        self._set_gauge()
+
+    def _set_gauge(self) -> None:
+        if self.pages_gauge is not None:
+            self.pages_gauge.set(float(self.pages_in_use))
 
     # -- introspection -----------------------------------------------------
 

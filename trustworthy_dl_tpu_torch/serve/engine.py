@@ -25,11 +25,27 @@ score first, absorb only if clean).  A flagged request is marked and the
 row it ran on is QUARANTINED, with its private blocks, until an operator
 releases it.
 
+Telemetry, as in JAX (``obs/``), all host-side and none of it touching
+the device programs, so streams are bit-identical with or without it.
+It comes from ``obs``, an ``ObsSession``: ``tddl_serve_*`` counters,
+gauges and histograms on its registry (the process-wide one without a
+session); through its trace the request lifecycle events
+(``serve_submit``, ``serve_admit``, ``serve_retire``,
+``serve_quarantine``, ``attribution``); with its spans a
+``serve.request`` span per request with its queued, prefill, decode and
+monitor children; with its ledger one attribution record per terminal
+request, checkable against the block allocator's journal
+(:meth:`ServingEngine.verify_attribution`); with its watchers the
+TTFT/ITL/occupancy SLO rules and the ITL anomaly detector, whose breach
+sheds the lowest-priority queued request (status ``shed_slo``) while the
+queue is longer than the free rows; with its HBM monitor the headroom
+gate, which shrinks the paged KV pool and then the adapter pool to what
+the device's free memory allows before either is allocated.
+
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
-where every kernel wrapper runs its plain PyTorch version.  Observability
-spans, the attribution ledger, SLO watchers, chaos hooks, fleets, tensor
-parallelism and the adapter pool's HBM gate are not ported yet.
+where every kernel wrapper runs its plain PyTorch version.  Chaos hooks,
+fleets, tensor parallelism and the compile watcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,15 +62,43 @@ import torch
 from trustworthy_dl_tpu_torch.detect import baseline as bl
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
+from trustworthy_dl_tpu_torch.obs import attribution
+from trustworthy_dl_tpu_torch.obs.events import EventType
+from trustworthy_dl_tpu_torch.obs.registry import get_registry
 from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
 from trustworthy_dl_tpu_torch.quant import int8 as q8
-from trustworthy_dl_tpu_torch.serve.adapters import AdapterPool
+from trustworthy_dl_tpu_torch.serve.adapters import (AdapterPool,
+                                                     adapter_bytes_per_page,
+                                                     adapter_pool_bytes)
 from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
 from trustworthy_dl_tpu_torch.serve.scheduler import (PagedBatchingScheduler,
                                                       SlotTask)
-from trustworthy_dl_tpu_torch.utils.metrics import ServeMetrics
+from trustworthy_dl_tpu_torch.utils.metrics import MetricsCollector, \
+    ServeMetrics
 
 logger = logging.getLogger(__name__)
+
+#: The serving programs of the ``tddl_serve_attn_kernel`` gauge (JAX's
+#: ``ops.paged_attention.PAGED_PROGRAMS``); each runs ``attn_impl``.
+PAGED_PROGRAMS = ("decode", "prefill", "verify", "adapter")
+
+
+class _NullMetric:
+    """No-op stand-in when a registry rejects a (re-)registration under
+    another label shape: the engine's own rollups stay exact, only its
+    export series is dropped."""
+
+    def inc(self, *a: Any, **kw: Any) -> None:
+        pass
+
+    def set(self, *a: Any, **kw: Any) -> None:
+        pass
+
+    def observe(self, *a: Any, **kw: Any) -> None:
+        pass
+
+    def value(self, *a: Any, **kw: Any) -> None:
+        return None
 
 
 def resolve_device(device: Any) -> torch.device:
@@ -80,7 +124,8 @@ class ServeRequest:
     submission; ``on_token(request_id, token)`` streams.  ``tenant`` is
     the request's tenant; ``adapter`` names its adapter (None: the
     engine's ``adapter_map`` entry for the tenant, else the base
-    model)."""
+    model).  ``priority`` orders load shedding under an SLO breach: the
+    lowest-priority queued request is shed first (ties: newest first)."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -91,13 +136,14 @@ class ServeRequest:
     on_token: Optional[Callable[[int, int], None]] = None
     tenant: Optional[str] = None
     adapter: Optional[str] = None
+    priority: int = 0
 
 
 @dataclasses.dataclass
 class ServeResult:
     request_id: int
     tokens: List[int]
-    # completed | deadline_exceeded | no_capacity
+    # completed | deadline_exceeded | shed_slo | no_capacity
     status: str
     ttft_s: Optional[float]
     itl_s: List[float]
@@ -150,7 +196,9 @@ class ServingEngine:
     until ``drain_results()`` takes them.  ``kv_dtype``, ``weight_dtype``,
     ``kv_parity_check``, ``spec_k``, ``adapter_rank``,
     ``adapter_pool_pages`` and ``adapter_dtype`` are ``ServeConfig``'s
-    knobs; ``adapter_map`` routes tenant -> adapter id."""
+    knobs; ``adapter_map`` routes tenant -> adapter id.  ``obs`` is an
+    ``ObsSession``: the engine uses what it has enabled (its trace and
+    registry always; spans, ledger, watchers and HBM monitor when on)."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config,
                  max_slots: int = 8, max_seq: int = 256,
@@ -166,7 +214,8 @@ class ServingEngine:
                  adapter_rank: int = 0,
                  adapter_pool_pages: Optional[int] = None,
                  adapter_dtype: str = "model",
-                 adapter_map: Optional[Dict[str, str]] = None):
+                 adapter_map: Optional[Dict[str, str]] = None,
+                 obs: Any = None):
         # core.config imports serve (its pool geometry check): late import.
         from trustworthy_dl_tpu_torch.core.config import (validate_adapters,
                                                           validate_spec)
@@ -209,9 +258,35 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"the int8 dequant matmul's limits refuse "
                                  f"this model: {limit}")
+        trace, registry, spans, ledger, slo, anomaly, hbm = (
+            (obs.trace, obs.registry, obs.spans, obs.ledger, obs.slo,
+             obs.anomaly, obs.hbm) if obs is not None else (None,) * 7)
         self.cfg = cfg
         self.spec_k = int(spec_k)
         self.kv_fallback_reason: Optional[str] = None
+        # HBM headroom gate (obs/hbm.py): consult the monitor BEFORE the
+        # KV pool is allocated and shrink it to what the live budget has
+        # room for (floor: one full sequence), instead of finding the
+        # out-of-memory error at allocation.  The denial is attributable:
+        # an ``hbm_pressure`` event and ``tddl_hbm_pressure_total``.
+        self.hbm = hbm
+        if hbm is not None:
+            if num_blocks is None:
+                num_blocks = max_slots * (max_seq // block_size)
+            bpt = (kv_bytes_per_token(cfg, torch.int8)
+                   if kv_dtype == "int8" else kv_bytes_per_token(cfg))
+            requested = num_blocks * block_size * bpt
+            if not hbm.admit(requested, what="serve_paged_pool"):
+                # Size the shrunk pool from the SAME sweep that made the
+                # decision (admit() stored it).
+                headroom = max(hbm.last_headroom or 0, 0)
+                allowed = max(int(headroom // (block_size * bpt)),
+                              max_seq // block_size)
+                logger.warning(
+                    "HBM headroom gate: paged pool shrunk %d -> %d blocks "
+                    "(requested %d bytes, headroom %d)", num_blocks,
+                    allowed, requested, headroom)
+                num_blocks = allowed
         params = gpt2.map_tree(lambda a: a.to(self.device), params)
         # The decode view, built once and shared by the parity probe, the
         # scheduler and the int8 self-draft (one walk of the weights each).
@@ -247,9 +322,26 @@ class ServingEngine:
         if self.adapter_rank > 0:
             pages = (adapter_pool_pages if adapter_pool_pages is not None
                      else max_slots)
+            if hbm is not None:
+                # The second paged resource, through the same gate and
+                # after the KV pool: it shrinks into what remains (floor:
+                # one usable page).
+                bpp = adapter_bytes_per_page(cfg, self.adapter_rank,
+                                             adapter_dtype)
+                requested = adapter_pool_bytes(cfg, pages, self.adapter_rank,
+                                               adapter_dtype)
+                if not hbm.admit(requested, what="serve_adapter_pool"):
+                    # Headroom over bytes per page, less the zero page.
+                    headroom = max(hbm.last_headroom or 0, 0)
+                    allowed = max(int(headroom // bpp) - 1, 1)
+                    logger.warning(
+                        "HBM headroom gate: adapter pool shrunk %d -> %d "
+                        "pages (requested %d bytes, headroom %d)", pages,
+                        allowed, requested, headroom)
+                    pages = allowed
             self.adapter_pool = AdapterPool(cfg, self.adapter_rank, pages,
                                             adapter_dtype=adapter_dtype,
-                                            device=self.device)
+                                            device=self.device, trace=trace)
         self.scheduler = PagedBatchingScheduler(
             params, cfg, max_slots, max_seq, self.device,
             block_size=block_size, num_blocks=num_blocks,
@@ -262,6 +354,14 @@ class ServingEngine:
         self.monitor = monitor if monitor is not None else (
             OutputMonitor() if enable_monitor else None)
         self.metrics = ServeMetrics()
+        self._init_telemetry(registry, trace, params, view)
+        self.spans = spans
+        self.ledger = ledger
+        self.slo = slo
+        self.anomaly = anomaly
+        self.scheduler.spans = spans
+        self._req_spans: Dict[int, Dict[str, int]] = {}  # rid -> open ids
+        self.shed_slo = 0
         self._queue: Deque[tuple] = deque()     # (task, request)
         self._inflight: Dict[int, tuple] = {}   # request_id -> (task, req)
         self._timing: Dict[int, List[float]] = {}
@@ -277,6 +377,94 @@ class ServingEngine:
         self.decode_tick_s = 0.0
         self.peak_active = 0
         self.peak_tokens_in_flight = 0
+
+    def _init_telemetry(self, registry: Any, trace: Any, params: Any,
+                        view: Any) -> None:
+        """The ``tddl_serve_*`` registry surface, as in JAX: counters and
+        latency histograms, the pool's capacity gauges, the per-iteration
+        gauges of a ``serve`` collector."""
+        self.trace = trace
+        if registry is None:
+            registry = get_registry()
+        self.collector = MetricsCollector(namespace="serve",
+                                          registry=registry)
+
+        def metric(register, name, help, labels=(), **kw):
+            try:
+                return register(name, help, labels=labels, **kw)
+            except ValueError:
+                logger.debug("serve metrics: registry rejected %s%s",
+                             name, labels, exc_info=True)
+                return _NullMetric()
+
+        self._req_counter = metric(
+            registry.counter, "tddl_serve_requests_total",
+            "Requests retired/shed, by terminal status",
+            labels=("status",))
+        self._tok_counter = metric(registry.counter,
+                                   "tddl_serve_tokens_total",
+                                   "Tokens emitted")
+        self._ttft_hist = metric(registry.histogram,
+                                 "tddl_serve_ttft_seconds",
+                                 "Submit -> first token")
+        self._itl_hist = metric(registry.histogram,
+                                "tddl_serve_itl_seconds",
+                                "Inter-token latency")
+        kv = self.scheduler.kv
+        metric(registry.gauge, "tddl_serve_kv_bytes",
+               "KV slot-pool HBM footprint (values + quant scales)"
+               ).set(float(kv.pool_bytes))
+        metric(registry.gauge, "tddl_serve_slots_total",
+               "KV slots in the pool, by storage dtype", labels=("dtype",)
+               ).set(float(self.scheduler.allocator.max_slots),
+                     dtype=str(kv.k.dtype).replace("torch.", ""))
+        quant_err = metric(
+            registry.histogram, "tddl_serve_quant_error",
+            "Relative quantization error (weight roundtrip, per matrix)",
+            buckets=(1e-5, 1e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 1.0))
+        if self.weight_dtype == "int8":
+            for err in q8.weight_roundtrip_errors(params, self.cfg,
+                                                  qview=view):
+                quant_err.observe(err)
+        self._blocks_gauge = metric(
+            registry.gauge, "tddl_serve_blocks_in_use",
+            "Paged-KV blocks currently referenced (requests + prefix "
+            "cache); 0 on the legacy stripe pool")
+        self._tif_gauge = metric(
+            registry.gauge, "tddl_serve_tokens_in_flight",
+            "Cached tokens currently backing live sequences")
+        self._prefix_counter = metric(
+            registry.counter, "tddl_serve_prefix_hits_total",
+            "Admissions that reused cached prefix blocks")
+        self._prefix_hits_seen = 0
+        pages_gauge = metric(
+            registry.gauge, "tddl_serve_adapter_pages_in_use",
+            "Adapter-pool pages resident (live + warm + impounded); 0 "
+            "when the adapter tier is off")
+        pages_gauge.set(0.0)
+        evictions = metric(
+            registry.counter, "tddl_serve_adapter_evictions_total",
+            "Cold adapters LRU-evicted from the pool, by evicted tenant",
+            labels=("tenant",))
+        if self.adapter_pool is not None:
+            self.adapter_pool.pages_gauge = pages_gauge
+            self.adapter_pool.evictions_counter = evictions
+        attn_gauge = metric(
+            registry.gauge, "tddl_serve_attn_kernel",
+            "Active serving-kernel path per paged program (1 = in use): "
+            "the hand-written kernel or its plain PyTorch version",
+            labels=("path", "program"))
+        for program in PAGED_PROGRAMS:
+            for path in gen.ATTN_IMPLS:
+                attn_gauge.set(1.0 if path == self.scheduler.attn_impl
+                               else 0.0, path=path, program=program)
+        self._spec_proposed_counter = metric(
+            registry.counter, "tddl_serve_spec_proposed_total",
+            "Draft tokens proposed by the speculative int8 self-draft")
+        self._spec_accepted_counter = metric(
+            registry.counter, "tddl_serve_spec_accepted_total",
+            "Draft tokens accepted by the batched model-dtype verify")
+        self._spec_seen = (0, 0)   # (proposed, accepted) already counted
 
     @classmethod
     def from_config(cls, params: Any, cfg: gpt2.GPT2Config,
@@ -329,6 +517,7 @@ class ServingEngine:
                 "would silently misattribute the stream")
         if len(self._queue) >= self.queue_limit:
             self.rejected += 1
+            self._req_counter.inc(status="rejected")
             return None
         request_id = self._next_id
         self._next_id += 1
@@ -341,7 +530,94 @@ class ServingEngine:
                         adapter=adapter)
         self._queue.append((task, request))
         self._submit_t[request_id] = time.perf_counter()
+        if self.trace is not None:
+            self.trace.emit(EventType.SERVE_SUBMIT, request_id=request_id,
+                            prompt_len=int(prompt.size),
+                            max_new_tokens=int(request.max_new_tokens))
+        if self.spans is not None:
+            root = self.spans.start("serve.request", kind="serve",
+                                    request_id=request_id,
+                                    tenant=request.tenant,
+                                    prompt_len=int(prompt.size),
+                                    max_new_tokens=int(
+                                        request.max_new_tokens))
+            queued = self.spans.start("serve.queued", kind="serve",
+                                      parent_id=root,
+                                      request_id=request_id)
+            self._req_spans[request_id] = {"root": root, "queued": queued}
         return request_id
+
+    # -- terminal bookkeeping ----------------------------------------------
+
+    def _close_request_spans(self, rid: int, status: str,
+                             **attrs: Any) -> None:
+        handles = self._req_spans.pop(rid, None)
+        if handles is None or self.spans is None:
+            return
+        for name in ("queued", "prefill", "decode", "monitor"):
+            sid = handles.get(name)
+            if sid is not None:
+                self.spans.end(sid)
+        self.spans.end(handles["root"], status=status, **attrs)
+
+    def _span_first_token(self, rid: int) -> None:
+        """prefill -> decode span transition at the request's first
+        token."""
+        handles = self._req_spans.get(rid)
+        if handles is None or self.spans is None:
+            return
+        sid = handles.pop("prefill", None)
+        if sid is not None:
+            self.spans.end(sid)
+        handles["decode"] = self.spans.start(
+            "serve.decode", kind="serve", parent_id=handles["root"],
+            request_id=rid)
+
+    def _retire_unadmitted(self, task: SlotTask, request: ServeRequest,
+                           status: str) -> None:
+        """A request that ends without ever holding a row: its result,
+        ``serve_retire`` event, spans and ledger record."""
+        rid = task.request_id
+        self._submit_t.pop(rid, None)
+        self._record_result(ServeResult(
+            request_id=rid, tokens=[], status=status, ttft_s=None,
+            itl_s=[]))
+        if self.trace is not None:
+            self.trace.emit(EventType.SERVE_RETIRE, request_id=rid,
+                            status=status, tokens=0, admitted=False)
+        self._close_request_spans(rid, status)
+        if self.ledger is not None:
+            self.ledger.append({
+                "request_id": rid, "status": status, "admitted": False,
+                "slot": -1, "layout": "paged",
+                "block_ids": [], "prefix_block_ids": [],
+                "prefix_publishers": {},
+                "kv_dtype": self.kv_dtype, "weight_dtype": self.weight_dtype,
+                "kv_fallback_reason": self.kv_fallback_reason,
+                "flagged": False, "monitor_z": 0.0,
+                "tokens": 0, "token_hash": attribution.token_hash([]),
+                "tenant": request.tenant,
+            })
+
+    def _shed_for_slo(self) -> None:
+        """The watchers' shed hook: while an SLO rule burns budget (or an
+        anomaly is active), drop the LOWEST-priority queued request
+        (ties: newest first), but only when the queue exceeds the free
+        rows, so shedding relieves real pressure.  At most one a step."""
+        breached = ((self.slo is not None and self.slo.breached)
+                    or (self.anomaly is not None
+                        and self.anomaly.any_active))
+        if not breached or not self._queue:
+            return
+        if len(self._queue) <= self.scheduler.allocator.free_count:
+            return
+        idx = min(range(len(self._queue)),
+                  key=lambda i: (self._queue[i][1].priority,
+                                 -self._queue[i][0].request_id))
+        task, request = self._queue[idx]
+        del self._queue[idx]
+        self.shed_slo += 1
+        self._retire_unadmitted(task, request, "shed_slo")
 
     # -- iteration loop ----------------------------------------------------
 
@@ -354,15 +630,34 @@ class ServingEngine:
             self._t_start = now
         self._iteration += 1
         self._expire_queued(now)
+        self._shed_for_slo()
         while self._queue and self.scheduler.has_free_slot:
             task, request = self._queue.popleft()
             if not self.scheduler.admit(task):
                 self._queue.appendleft((task, request))
                 break
-            self._inflight[task.request_id] = (task, request)
+            rid = task.request_id
+            self._inflight[rid] = (task, request)
+            if self.trace is not None:
+                self.trace.emit(EventType.SERVE_ADMIT, request_id=rid,
+                                slot=int(task.slot))
+            handles = self._req_spans.get(rid)
+            if handles is not None:
+                sid = handles.pop("queued", None)
+                if sid is not None:
+                    self.spans.end(sid, slot=int(task.slot))
+                handles["prefill"] = self.spans.start(
+                    "serve.prefill", kind="serve",
+                    parent_id=handles["root"], request_id=rid,
+                    slot=int(task.slot))
         t_tick = time.perf_counter()
         ticked = self.scheduler.decode_tick()
         self.decode_tick_s += time.perf_counter() - t_tick
+        if self.spans is not None and ticked:
+            self.spans.add("serve.decode_tick", t_tick,
+                           time.perf_counter(), kind="serve",
+                           tokens=len(ticked),
+                           active=self.scheduler.active_count)
         emitted = 0
         for task in ticked:
             rid = task.request_id
@@ -373,6 +668,8 @@ class ServingEngine:
             # timed.  A speculative tick can add several at once (their
             # ITLs are honest near-zeros: they landed together).
             times = self._timing.setdefault(rid, [])
+            if not times:
+                self._span_first_token(rid)
             new_tokens = task.emitted[len(times):]
             for token in new_tokens:
                 times.append(time.perf_counter())
@@ -389,10 +686,38 @@ class ServingEngine:
             if not task.emitted and self._expired(request, rid):
                 self._finish(task, request, "deadline_exceeded")
         self._tokens_emitted += emitted
-        self.peak_active = max(self.peak_active, self.scheduler.active_count)
-        self.peak_tokens_in_flight = max(self.peak_tokens_in_flight,
-                                         self.scheduler.tokens_in_flight)
-        self.metrics.observe_step(self.scheduler.occupancy)
+        if emitted:
+            self._tok_counter.inc(emitted)
+        sched = self.scheduler
+        tif = sched.tokens_in_flight
+        self.peak_active = max(self.peak_active, sched.active_count)
+        self.peak_tokens_in_flight = max(self.peak_tokens_in_flight, tif)
+        self.metrics.observe_step(sched.occupancy)
+        self._tif_gauge.set(float(tif))
+        if self.slo is not None:
+            self.slo.observe("occupancy", sched.occupancy)
+        self._blocks_gauge.set(float(sched.blocks_in_use))
+        if sched.prefix_hits > self._prefix_hits_seen:
+            self._prefix_counter.inc(sched.prefix_hits
+                                     - self._prefix_hits_seen)
+            self._prefix_hits_seen = sched.prefix_hits
+        if self.spec_k:
+            seen_p, seen_a = self._spec_seen
+            if sched.spec_proposed > seen_p:
+                self._spec_proposed_counter.inc(sched.spec_proposed - seen_p)
+            if sched.spec_accepted > seen_a:
+                self._spec_accepted_counter.inc(sched.spec_accepted - seen_a)
+            self._spec_seen = (sched.spec_proposed, sched.spec_accepted)
+        self.collector.collect_batch_metrics({
+            "step": self._iteration,
+            "active_slots": sched.active_count,
+            "slot_occupancy": sched.occupancy,
+            "queue_depth": len(self._queue),
+            "tokens_emitted": emitted,
+            "tokens_in_flight": tif,
+            "slots_in_service": sched.allocator.capacity,
+        })
+        self.collector.tick()
         return emitted
 
     def run_until_idle(self, max_iterations: int = 100_000
@@ -410,11 +735,8 @@ class ServingEngine:
             if (idle_before and not self._inflight and self._queue
                     and len(self._queue) == qlen):
                 while self._queue:
-                    task, _ = self._queue.popleft()
-                    self._submit_t.pop(task.request_id, None)
-                    self._record_result(ServeResult(
-                        request_id=task.request_id, tokens=[],
-                        status="no_capacity", ttft_s=None, itl_s=[]))
+                    task, request = self._queue.popleft()
+                    self._retire_unadmitted(task, request, "no_capacity")
                 break
             if it >= max_iterations:
                 raise RuntimeError(f"serving loop did not drain in "
@@ -435,10 +757,7 @@ class ServingEngine:
             rid = task.request_id
             if (request.deadline_s is not None
                     and now - self._submit_t[rid] > request.deadline_s):
-                self._submit_t.pop(rid, None)
-                self._record_result(ServeResult(
-                    request_id=rid, tokens=[], status="deadline_exceeded",
-                    ttft_s=None, itl_s=[]))
+                self._retire_unadmitted(task, request, "deadline_exceeded")
             else:
                 keep.append((task, request))
         self._queue = keep
@@ -449,26 +768,82 @@ class ServingEngine:
         if result.flagged:
             self._flagged_total += 1
         self.results[result.request_id] = result
+        self._req_counter.inc(status=result.status)
 
     def _finish(self, task: SlotTask, request: ServeRequest,
                 status: str) -> None:
         """Score the request with the monitor, retire its row (quarantined
-        when flagged) and record the result."""
+        when flagged) and record the result, its telemetry and its
+        attribution record."""
         rid = task.request_id
+        # The placement snapshot BEFORE retire() clears the row's table:
+        # the record must name the blocks the stream decoded from.
+        placement = (self.scheduler.attribution_info(task)
+                     if self.ledger is not None else None)
         flagged, z = False, 0.0
+        t_mon = time.perf_counter()
         if self.monitor is not None and task.entropies:
             flagged, z = self.monitor.observe(task.entropies, task.margins)
+            if self.spans is not None and rid in self._req_spans:
+                self.spans.add("serve.monitor", t_mon, time.perf_counter(),
+                               kind="serve",
+                               parent_id=self._req_spans[rid]["root"],
+                               request_id=rid, flagged=flagged,
+                               monitor_z=float(z))
         self.scheduler.retire(task, quarantine=flagged)
         times = self._timing.pop(rid, [])
         t0 = self._submit_t.pop(rid, None)
         ttft = (times[0] - t0) if times and t0 is not None else None
         itl = [b - a for a, b in zip(times, times[1:])]
-        self.metrics.observe_request(ttft, itl)
         self._record_result(ServeResult(
             request_id=rid, tokens=list(task.emitted), status=status,
             ttft_s=ttft, itl_s=itl, flagged=flagged, monitor_z=z,
             entropies=list(task.entropies), margins=list(task.margins),
             adapter=task.adapter))
+        self.metrics.observe_request(ttft, itl)
+        if ttft is not None:
+            self._ttft_hist.observe(ttft)
+            if self.slo is not None:
+                self.slo.observe("ttft_s", ttft)
+        for dt in itl:
+            self._itl_hist.observe(dt)
+            if self.slo is not None:
+                self.slo.observe("itl_s", dt)
+            if self.anomaly is not None:
+                self.anomaly.observe("itl", dt)
+        if self.trace is not None:
+            self.trace.emit(EventType.SERVE_RETIRE, request_id=rid,
+                            status=status, tokens=len(task.emitted),
+                            flagged=flagged, monitor_z=z)
+            if flagged:
+                self.trace.emit(EventType.SERVE_QUARANTINE, request_id=rid,
+                                slot=int(task.slot))
+        if self.ledger is not None:
+            thash = attribution.token_hash(task.emitted)
+            self.ledger.append({
+                "request_id": rid, "status": status, "admitted": True,
+                **placement,
+                "kv_dtype": self.kv_dtype,
+                "weight_dtype": self.weight_dtype,
+                "kv_fallback_reason": self.kv_fallback_reason,
+                "flagged": bool(flagged), "monitor_z": float(z),
+                "tokens": len(task.emitted), "token_hash": thash,
+                "ttft_s": ttft, "tenant": request.tenant,
+            })
+            if self.trace is not None:
+                self.trace.emit(EventType.ATTRIBUTION, request_id=rid,
+                                slot=int(task.slot),
+                                n_blocks=len(placement["block_ids"]),
+                                token_hash=thash, flagged=bool(flagged),
+                                adapter=placement.get("adapter"),
+                                adapter_page=placement.get(
+                                    "adapter_page", 0))
+        self._close_request_spans(rid, status, tokens=len(task.emitted),
+                                  flagged=bool(flagged))
+        self.collector.collect_batch_metrics({
+            "step": self._iteration, "request_id": rid,
+            "ttft_s": ttft if ttft is not None else -1.0,
+            "tokens": len(task.emitted), "flagged": int(flagged)})
         self._inflight.pop(rid, None)
 
     # -- reporting ---------------------------------------------------------
@@ -532,6 +907,7 @@ class ServingEngine:
             "requests_deadline_exceeded":
                 self._status_counts.get("deadline_exceeded", 0),
             "requests_rejected": self.rejected,
+            "requests_shed_slo": self.shed_slo,
             "requests_flagged": self._flagged_total,
             "quarantined_slots": sorted(self.quarantined_slots),
             "tokens_emitted": self._tokens_emitted,
@@ -572,4 +948,22 @@ class ServingEngine:
                                "dtype": self.adapter_dtype,
                                **self.adapter_pool.metrics()}
         out.update(self.metrics.summary())
+        if self.slo is not None:
+            # JAX's summary block: the watcher's streaming P-square
+            # estimates, beside the exact percentiles above.
+            out["streaming"] = {}
+            for name, signal in (("ttft", "ttft_s"), ("itl", "itl_s")):
+                p50 = self.slo.quantile(signal, 0.5)
+                if p50 is not None:
+                    out["streaming"][f"{name}_p50_ms"] = float(p50 * 1e3)
+                    out["streaming"][f"{name}_p99_ms"] = float(
+                        self.slo.quantile(signal, 0.99) * 1e3)
         return out
+
+    def verify_attribution(self) -> "tuple[bool, list]":
+        """Reconcile the attached ledger's records against the paged
+        pool's block-lifecycle journal (``obs.attribution``)."""
+        if self.ledger is None:
+            raise ValueError("engine has no attribution ledger attached")
+        return attribution.verify_attribution(self.ledger.records(),
+                                              self.scheduler.blocks)

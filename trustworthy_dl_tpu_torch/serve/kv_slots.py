@@ -18,7 +18,9 @@ H, BLOCK]`` beside the int8 values, block for block.
 from __future__ import annotations
 
 import heapq
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
+from collections import deque
+from typing import Any, Deque, Dict, List, NamedTuple, Optional, Sequence, \
+    Set, Tuple
 
 import torch
 
@@ -26,6 +28,9 @@ from trustworthy_dl_tpu_torch.models import gpt2
 
 #: Physical block reserved as the sink for garbage writes; never handed out.
 TRASH_BLOCK = 0
+
+#: Entries kept in a block allocator's lifecycle journal (JAX's default).
+JOURNAL_CAPACITY = 65536
 
 
 class PagedKV(NamedTuple):
@@ -49,6 +54,15 @@ class PagedKV(NamedTuple):
     @property
     def block_size(self) -> int:
         return self.k.shape[3]
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device bytes the pool holds (values + scales, the trash block
+        included): what ``tddl_serve_kv_bytes`` reports."""
+        total = self.k.nbytes + self.v.nbytes
+        if self.k_scale is not None:
+            total += self.k_scale.nbytes + self.v_scale.nbytes
+        return total
 
 
 def kv_bytes_per_token(cfg: gpt2.GPT2Config,
@@ -170,7 +184,11 @@ class SlotAllocator:
 
 class BlockAllocator:
     """Physical blocks: LIFO free list over ids [1, num_blocks], reference
-    counts and a quarantine set."""
+    counts and a quarantine set, with the lifecycle evidence
+    ``obs.attribution.verify_attribution`` reads: ``journal``, a bounded
+    ring of (op, block, seq[, outcome]) tuples, and ``lifetime``, exact
+    cumulative per-block op counts (bounded by the pool size, so a
+    long-pinned block's alloc never rotates out of the evidence)."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 1:
@@ -179,6 +197,17 @@ class BlockAllocator:
         self._free: List[int] = list(range(num_blocks, 0, -1))
         self._ref: Dict[int, int] = {}
         self._quarantined: Set[int] = set()
+        self.journal: Deque[tuple] = deque(maxlen=JOURNAL_CAPACITY)
+        self._journal_seq = 0
+        self.lifetime: Dict[int, Dict[str, int]] = {}
+
+    def _journal_add(self, op: str, block: int, *extra: Any) -> None:
+        self._journal_seq += 1
+        self.journal.append((op, block, self._journal_seq, *extra))
+        counts = self.lifetime.setdefault(
+            block, {"alloc": 0, "incref": 0, "release": 0,
+                    "unquarantine": 0})
+        counts[op] += 1
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Claim ``n`` blocks at refcount 1, or None when the pool cannot
@@ -190,12 +219,14 @@ class BlockAllocator:
         out = [self._free.pop() for _ in range(n)]
         for b in out:
             self._ref[b] = 1
+            self._journal_add("alloc", b)
         return out
 
     def incref(self, block: int) -> None:
         if block not in self._ref:
             raise ValueError(f"incref of unallocated block {block}")
         self._ref[block] += 1
+        self._journal_add("incref", block)
 
     def refcount(self, block: int) -> int:
         return self._ref.get(block, 0)
@@ -207,18 +238,22 @@ class BlockAllocator:
             raise ValueError(f"double free / bad block {block}")
         self._ref[block] -= 1
         if self._ref[block] > 0:
+            self._journal_add("release", block, "shared")
             return "shared"
         del self._ref[block]
         if quarantine:
             self._quarantined.add(block)
+            self._journal_add("release", block, "quarantined")
             return "quarantined"
         self._free.append(block)
+        self._journal_add("release", block, "freed")
         return "freed"
 
     def unquarantine(self, block: int) -> None:
         if block in self._quarantined:
             self._quarantined.discard(block)
             self._free.append(block)
+            self._journal_add("unquarantine", block)
 
     def claim_speculative(self, blocks: Sequence[int]) -> None:
         """Pin the blocks a speculative draft window is about to write: one
@@ -284,6 +319,9 @@ class PrefixCache:
         self._by_id: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
         # scope -> root id; adapter scopes get negative ids, never node ids.
         self._roots: Dict[Optional[str], int] = {None: 0}
+        # block id -> the request id that PUBLISHED it (attribution: a
+        # prefix hit records whose prefill it is trusting).
+        self._publisher: Dict[int, int] = {}
         self._next_id = 1
         self._clock = 0
 
@@ -321,9 +359,11 @@ class PrefixCache:
         return out
 
     def insert(self, tokens: Sequence[int], block_ids: Sequence[int],
-               scope: Optional[str] = None) -> List[int]:
+               scope: Optional[str] = None,
+               publisher: Optional[int] = None) -> List[int]:
         """Cache ``tokens``' full blocks (backed by ``block_ids``) under
-        ``scope``; returns the newly cached ids."""
+        ``scope``, remembering ``publisher`` (the owning request id) per
+        newly cached block; returns the newly cached ids."""
         n = min(len(tokens) // self.block_size, len(block_ids))
         added: List[int] = []
         parent = self._root(scope)
@@ -339,14 +379,23 @@ class PrefixCache:
             self._nodes[key] = [block_ids[i], self._bump(), nid, 0]
             self._by_id[nid] = key
             self._blocks.incref(block_ids[i])
+            if publisher is not None:
+                self._publisher[block_ids[i]] = publisher
             if parent > 0:
                 self._nodes[self._by_id[parent]][3] += 1
             added.append(block_ids[i])
             parent = nid
         return added
 
+    def publishers(self, block_ids: Sequence[int]) -> Dict[int, int]:
+        """Publisher request id per cached block (blocks with no recorded
+        publisher are omitted)."""
+        return {b: self._publisher[b] for b in block_ids
+                if b in self._publisher}
+
     def _remove(self, key: Tuple[int, Tuple[int, ...]]) -> List[int]:
         block, _, nid, _ = self._nodes.pop(key)
+        self._publisher.pop(block, None)
         del self._by_id[nid]
         if key[0] and key[0] in self._by_id:
             self._nodes[self._by_id[key[0]]][3] -= 1

@@ -45,8 +45,15 @@ when the pool is full of live pages); an adapter-carrying prompt always
 prefills through the chunk path, and every chunk and decode tick carries
 the pool and the per-slot page row (adapterless and inactive slots on
 ``ZERO_PAGE``, an exactly-zero delta).  Prefix reuse is scoped by adapter
-(``kv_slots.PrefixCache``).  Migration, the stripe scheduler and the
-compile watcher are not ported yet.
+(``kv_slots.PrefixCache``).
+
+Telemetry, as in JAX: ``spans`` (an ``obs.spans.SpanTracker``, set by the
+engine) times each prefix lookup (``serve.prefix_lookup``), prefill chunk
+(``serve.prefill_chunk``) and speculative verify (``serve.spec_verify``);
+admission records each request's placement (block table, prefix blocks and
+their publishers, adapter page) for the attribution ledger
+(:meth:`PagedBatchingScheduler.attribution_info`).  Migration, the stripe
+scheduler and the compile watcher are not ported yet.
 """
 
 from __future__ import annotations
@@ -401,6 +408,10 @@ class PagedBatchingScheduler:
         self._prefill: Dict[int, _PrefillProgress] = {}
         self._q_blocks_by_slot: Dict[int, List[int]] = {}
         self._published: Dict[int, List[int]] = {}
+        # slot -> the admission-time placement snapshot the attribution
+        # ledger reads at retirement, after retire() cleared the table.
+        self._attrib: Dict[int, Dict[str, Any]] = {}
+        self.spans: Any = None   # an obs.spans.SpanTracker (the engine's)
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
@@ -457,6 +468,22 @@ class PagedBatchingScheduler:
         return (self.spec_accepted / self.spec_proposed
                 if self.spec_proposed else 0.0)
 
+    def attribution_info(self, task: SlotTask) -> Dict[str, Any]:
+        """The admission-time placement snapshot for the attribution
+        ledger: physical block table, which blocks came from the prefix
+        cache, and their publisher request ids.  Read it BEFORE
+        ``retire`` (which drops the snapshot with the row)."""
+        info = self._attrib.get(task.slot)
+        if info is None or self.tasks.get(task.slot) is not task:
+            return {"layout": "paged", "slot": int(task.slot),
+                    "block_ids": [], "prefix_block_ids": [],
+                    "prefix_publishers": {},
+                    "adapter": task.adapter,
+                    "adapter_page": int(task.adapter_page)}
+        return {**info, "prefix_publishers": dict(info["prefix_publishers"]),
+                "block_ids": list(info["block_ids"]),
+                "prefix_block_ids": list(info["prefix_block_ids"])}
+
     def admit(self, task: SlotTask) -> bool:
         """Claim a decode row and the request's blocks (reusing cached
         prefix blocks) and queue its chunked prefill.  Host work only.
@@ -474,6 +501,7 @@ class PagedBatchingScheduler:
         shared: List[int] = []
         if self.prefix is not None:
             self.prefix_lookups += 1
+            t0 = time.perf_counter()
             # At least one prompt token always prefills, so the first
             # sampled token has fresh logits.
             # Reuse only K/V the same model computed: the lookup is
@@ -481,6 +509,11 @@ class PagedBatchingScheduler:
             shared = self.prefix.lookup(task.prompt.tolist(),
                                         (p - 1) // self.block_size,
                                         scope=task.adapter)
+            if self.spans is not None:
+                self.spans.add("serve.prefix_lookup", t0,
+                               time.perf_counter(), kind="serve",
+                               request_id=task.request_id,
+                               hit=bool(shared), shared_blocks=len(shared))
         n_new = -(-total // self.block_size) - len(shared)
         fresh = self.blocks.alloc(n_new)
         if fresh is None and self.prefix is not None:
@@ -509,6 +542,15 @@ class PagedBatchingScheduler:
         self.lengths[slot] = 0
         task.slot = slot
         self.tasks[slot] = task
+        self._attrib[slot] = {
+            "layout": "paged", "slot": slot,
+            "block_ids": list(shared + fresh),
+            "prefix_block_ids": list(shared),
+            "prefix_publishers": (self.prefix.publishers(shared)
+                                  if self.prefix is not None else {}),
+            "adapter": task.adapter,
+            "adapter_page": int(task.adapter_page),
+        }
         self._prefill[slot] = _PrefillProgress(
             task=task, pos=len(shared) * self.block_size, plen=p)
         return True
@@ -527,6 +569,7 @@ class PagedBatchingScheduler:
         st = self._prefill[slot]
         task = st.task
         c = self.chunk
+        t_chunk = time.perf_counter()
         n_real = min(st.plen - st.pos, c)
         chunk = np.zeros(c, np.int32)
         chunk[:n_real] = task.prompt[st.pos:st.pos + n_real]
@@ -557,6 +600,11 @@ class PagedBatchingScheduler:
                 last_idx, final, task.seed, temp, task.greedy,
                 self.attn_impl, self._adapter_args(pages))
             self.prefill_chunks += 1
+        if self.spans is not None:
+            self.spans.add("serve.prefill_chunk", t_chunk,
+                           time.perf_counter(), kind="serve",
+                           request_id=task.request_id, pos=int(st.pos),
+                           tokens=int(n_real), final=bool(final))
         if not final:
             st.pos += c
             return None
@@ -570,7 +618,7 @@ class PagedBatchingScheduler:
             self._published[slot] = self.prefix.insert(
                 task.prompt.tolist(),
                 self.tables[slot][:st.plen // self.block_size],
-                scope=task.adapter)
+                scope=task.adapter, publisher=task.request_id)
         return task
 
     def _adapter_row(self, page_by_slot: Dict[int, int],
@@ -753,6 +801,11 @@ class PagedBatchingScheduler:
             ticked.append(task)
         self.spec_proposed += tick_proposed
         self.spec_accepted += tick_accepted
+        if self.spans is not None:
+            self.spans.add("serve.spec_verify", t1, time.perf_counter(),
+                           kind="serve", slots=len(active),
+                           proposed=tick_proposed,
+                           accepted=tick_accepted)
         return ticked
 
     # -- retirement --------------------------------------------------------
@@ -769,6 +822,7 @@ class PagedBatchingScheduler:
             return
         del self.tasks[slot]
         self._prefill.pop(slot, None)
+        self._attrib.pop(slot, None)
         if task.adapter is not None and self.adapters is not None \
                 and task.adapter_page != ZERO_PAGE:
             # Drop the request's reference on its adapter page; the pool's

@@ -3,27 +3,48 @@
 :class:`MetricsCollector` is the counterpart of the JAX package's
 (``trustworthy_dl_tpu/utils/metrics.py``): per-batch and per-epoch
 records, a step-time series from :meth:`MetricsCollector.tick`, and their
-summary.  It keeps no metrics registry (``obs/registry`` is not ported).
-Given a ``tensorboard_dir`` it writes the scalars as TensorBoard events
-through ``torch.utils.tensorboard`` when that imports, and otherwise
-degrades to in-memory records with a warning, as the JAX collector does.
+summary.  Given a ``tensorboard_dir`` it writes the scalars as TensorBoard
+events through ``torch.utils.tensorboard`` when that imports, and
+otherwise degrades to in-memory records with a warning, as the JAX
+collector does.
+
+The collector also feeds a metrics registry (``obs/registry.py``, the
+process-wide one unless given another): numeric batch metrics become
+``tddl_<namespace>_<key>`` gauges (per-node dicts gain a ``node``
+label), and ``tick()`` observes ``tddl_<namespace>_step_time_seconds``.
+``bind_registry`` re-points it (the trainer's ``attach_obs``).
 
 :class:`ServeMetrics` is the part of the JAX engine's rollups that
 ``ServingEngine.metrics_summary`` reads.  Latencies are kept whole and
 their percentiles computed exactly with numpy (the JAX engine uses
-streaming P-square estimators); occupancy is the mean share of decode
+streaming P-square estimators; the port's SLO watcher keeps those, and
+the summary reports them apart); occupancy is the mean share of decode
 rows holding a request, sampled once per engine step.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from trustworthy_dl_tpu_torch.obs.registry import get_registry
+
 logger = logging.getLogger(__name__)
+
+# Correlation ids and bookkeeping keys that would be nonsense as gauges.
+_NON_METRIC_KEYS = frozenset({"timestamp", "step", "epoch", "request_id"})
+_KEY_SANITIZE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+class _NullHist:
+    """No-op histogram stand-in after a registration conflict."""
+
+    def observe(self, *a: Any, **kw: Any) -> None:
+        pass
 
 
 def _make_tb_writer(logdir: str):
@@ -41,7 +62,8 @@ class MetricsCollector:
     """Accumulates per-batch metric dicts and summarises them."""
 
     def __init__(self, max_records: int = 100_000,
-                 tensorboard_dir: Optional[str] = None):
+                 tensorboard_dir: Optional[str] = None,
+                 registry: Any = None, namespace: str = "train"):
         self.max_records = max_records
         self.batch_metrics: List[Dict[str, Any]] = []
         self.epoch_metrics: List[Dict[str, Any]] = []
@@ -49,6 +71,46 @@ class MetricsCollector:
         self._last_tick: Optional[float] = None
         self._tb = _make_tb_writer(tensorboard_dir) if tensorboard_dir \
             else None
+        self._ns = _KEY_SANITIZE.sub("_", namespace)
+        self.bind_registry(registry if registry is not None
+                           else get_registry())
+
+    def bind_registry(self, registry: Any) -> None:
+        """Re-point the export surface at ``registry`` (an ObsSession's
+        per-run registry, so its snapshots describe that run alone)."""
+        self._registry = registry
+        self._gauges: Dict[Any, Any] = {}
+        try:
+            self._tick_hist = registry.histogram(
+                f"tddl_{self._ns}_step_time_seconds",
+                "step/iteration wall time")
+        except ValueError:
+            # A kind clash with a series registered first under the name:
+            # degrade this collector's export, keep the record lists.
+            logger.debug("metrics: registry rejected "
+                         "tddl_%s_step_time_seconds", self._ns,
+                         exc_info=True)
+            self._tick_hist = _NullHist()
+
+    def _registry_gauge(self, key: str, value: Any,
+                        node: Optional[Any] = None) -> None:
+        name = f"tddl_{self._ns}_{_KEY_SANITIZE.sub('_', key)}"
+        cache_key = (name, node is not None)
+        gauge = self._gauges.get(cache_key)
+        try:
+            if gauge is None:
+                labels = ("node",) if node is not None else ()
+                gauge = self._registry.gauge(name, labels=labels)
+                self._gauges[cache_key] = gauge
+            if node is not None:
+                gauge.set(float(value), node=node)
+            else:
+                gauge.set(float(value))
+        except ValueError:
+            # Name/kind collision or cardinality bound: the record list
+            # is the source of truth; export never stops a run.
+            logger.debug("metrics: registry rejected %s", name,
+                         exc_info=True)
 
     def _tb_scalars(self, prefix: str, record: Dict[str, Any],
                     step: int) -> None:
@@ -71,6 +133,15 @@ class MetricsCollector:
         self.batch_metrics.append(record)
         self._tb_scalars("batch", record,
                          int(record.get("step", len(self.batch_metrics))))
+        for key, value in record.items():
+            if key in _NON_METRIC_KEYS:
+                continue
+            if isinstance(value, (int, float)):
+                self._registry_gauge(key, value)
+            elif isinstance(value, dict):  # per-node maps -> node label
+                for sub, v in value.items():
+                    if isinstance(v, (int, float)):
+                        self._registry_gauge(key, v, node=sub)
 
     def collect_epoch_metrics(self, metrics: Dict[str, Any]) -> None:
         record = dict(metrics)
@@ -93,7 +164,9 @@ class MetricsCollector:
         """One step's wall time: the time since the previous tick."""
         now = time.perf_counter()
         if self._last_tick is not None:
-            self._step_times.append(now - self._last_tick)
+            dt = now - self._last_tick
+            self._step_times.append(dt)
+            self._tick_hist.observe(dt)
         self._last_tick = now
 
     def step_time_stats(self) -> Dict[str, float]:

@@ -33,12 +33,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from trustworthy_dl_tpu_torch.obs.report import PHASES
+
 logger = logging.getLogger(__name__)
 
-#: The canonical phase names of the JAX package's step-time breakdown
-#: (``trustworthy_dl_tpu/obs/report.py``), the port's own copy.
-PHASES = ("data", "forward", "backward", "optimizer", "detection",
-          "host", "host_sync", "compute", "checkpoint", "other")
 
 
 @contextlib.contextmanager

@@ -104,6 +104,28 @@ def drive_smoke(engine, requests, max_new: int = 32, tenants=None):
     return results, time.perf_counter() - t0
 
 
+def drive_closed_loop(engine, requests, max_new: int = 32):
+    """Submit ``requests`` in order, at most one a free row (so a queue
+    never outgrows the free rows and an SLO or anomaly watcher has nothing
+    to shed), stepping ``engine`` until idle.  Returns (results, wall
+    seconds)."""
+    from trustworthy_dl_tpu_torch.serve import ServeRequest
+
+    pending = list(requests)
+    rows = engine.scheduler.allocator.max_slots
+    t0 = time.perf_counter()
+    while pending or engine.busy:
+        while pending and engine.open_requests < rows:
+            prompt, temp = pending.pop(0)
+            if engine.submit(ServeRequest(prompt=prompt,
+                                          max_new_tokens=max_new,
+                                          temperature=temp)) is None:
+                raise RuntimeError("request shed by backpressure")
+        engine.step()
+    torch.cuda.synchronize()
+    return engine.results, time.perf_counter() - t0
+
+
 def device_us(evt) -> float:
     """Device microseconds of a profiler row (the attribute's name differs
     between PyTorch versions)."""
