@@ -181,8 +181,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    requests, driven closed-loop (at most 8 open, so a watcher can never
    shed one), once bare and once under an ``ObsSession`` (spans, the
    attribution ledger, the default SLO rules, the anomaly watcher, the HBM
-   monitor); gates: every stream, entropy and margin bit-identical between
-   the arms, B5-B7 launched the same counts, every trace line valid, one
+   monitor, the compile watcher and forensics: what ``cli serve --obs-dir``
+   opens); gates: every stream, entropy and margin bit-identical between
+   the arms, B5-B7 launched the same counts, no library loaded and no
+   compile storm under the watch, every trace line valid, one
    attribution record per request whose ``token_hash`` is its stream's and
    ``verify_attribution`` clean, one ``serve.request`` span per request in
    ``trace_events.json``, ``tddl_serve_tokens_total`` the tokens emitted;
@@ -193,7 +195,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``requests_shed_slo`` the count), the completed ones whole with greedy
    streams following the bare arm's by the near-tie rule, one attribution
    record each (shed ones not admitted) and ``verify_attribution`` clean;
-   the shed count printed.  HBM gate: an engine under an ``HbmMonitor``
+   the shed count printed.  Forced storm: the same traffic under such a
+   session, with the paged-attention library dropped from the loaded set
+   inside the third guarded decode, so that its next launch loads it again
+   through ``ops.kernel_library``; gates: exactly one load, one storm
+   episode, one ``compile_storm`` flight dump and its paired incident,
+   which ``cli obs incident list --dir`` prints, streams equal to the bare
+   arm's; the load's seconds printed.  The two sessions share one
+   temporary perf ledger: the second's sentinel verdict and ``cli obs
+   diff`` over the two directories printed, with ``analyze_programs``'
+   decode and prefill counts.  HBM gate: an engine under an ``HbmMonitor``
    whose budget is the allocated bytes plus half the KV pool's: the pool
    shrunk to what the gate computed, one ``hbm_pressure`` event and
    ``tddl_hbm_pressure_total`` 1, 4 requests served as in the bare arm, the
@@ -205,9 +216,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
    between the arms and as the 10 step executions make them, ``train_step``
    per accounted step, ``detection_verdict`` naming node 2, ``guard_trip``,
    ``supervisor_retry``, ``chaos_fault``, ``ckpt_commit``, flight dumps
-   beside the checkpoints, and ``obs_report.json``'s mean step within 10%
-   of the steps' wall and its MFU against the H100 peak; the phase
-   fractions printed.
+   beside the checkpoints, each with its paired incident (forensics on),
+   no compile storm, and ``obs_report.json``'s mean step within 10% of the
+   steps' wall, its MFU against the H100 peak and ``mfu_analyzed`` between
+   0 and 1 (the session's first step counted: library products through
+   ``FlopCounterMode``, B1-B3 through their shape counts, every one of them
+   non-zero but B1's; its rate over the other steps), and the counter's
+   count of an f32-out product (``aten::mm.dtype``, the fused head's) exact;
+   the phase fractions, both MFUs, ``flops_per_step`` and the counted first
+   step's wall beside step 2's (both arms) printed.  Every session's perf
+   ledger and verdict store is an explicit path under the phase's temporary
+   root, whatever the environment names.
 
 The line before the last two is the ``kernels`` summary, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -388,6 +407,8 @@ TEXT_PROMPT = "The trusted training step gates every node by"
 OBS_STEPS, OBS_ATTACK, OBS_NAN_STEP = 8, 4, 7
 OBS_STEP_RTOL = 0.10
 OBS_EMITS = 5000
+# The guarded decode inside which the forced-storm arm drops a library.
+FORCED_STORM_DECODE = 3
 
 
 def emit(obj) -> None:
@@ -3544,7 +3565,9 @@ def obs_open_loop(torch, root, params, cfg, requests, ref_results):
     from trustworthy_dl_tpu_torch.utils.serve_profile import drive_smoke, \
         smoke_engine
 
-    session = serve_session(root)
+    session = serve_session(
+        root, perf_ledger=os.path.join(root, "PERF_LEDGER.jsonl"),
+        verdict_path=os.path.join(root, "VERDICTS.jsonl"))
     engine = smoke_engine(cfg, params, "kernel", obs=session)
     results, wall = drive_smoke(engine, requests)
     summary = engine.metrics_summary()
@@ -3583,6 +3606,85 @@ def obs_open_loop(torch, root, params, cfg, requests, ref_results):
             "itl_p99_ms": summary.get("itl_p99_ms"), **greedy}
 
 
+def run_obs_cli(args):
+    """``python -m trustworthy_dl_tpu_torch.cli obs ARGS`` in a process of
+    its own; returns its standard output (a failure raises)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "trustworthy_dl_tpu_torch.cli", "obs",
+         *args], capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"cli obs {args}: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+def obs_forced_storm(torch, root, params, cfg, requests, ref_results):
+    """Phase 13, the compile watch's contract: the smoke traffic under a
+    session as ``cli serve --obs-dir`` opens it, with the paged-attention
+    library dropped from the loaded set inside the third guarded decode,
+    so that its wrapper's next launch loads it again through
+    ``ops.kernel_library`` (the hook the watch listens to) after warmup.
+    One load, one storm episode, one flight dump and its incident; the
+    session shares the serve arm's temporary perf ledger."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.serve import scheduler
+    from trustworthy_dl_tpu_torch.utils.obs_ab import serve_session
+    from trustworthy_dl_tpu_torch.utils.serve_profile import \
+        drive_closed_loop, smoke_engine
+
+    storm_dir = os.path.join(root, "storm")
+    session = serve_session(
+        storm_dir, perf_ledger=os.path.join(root, "PERF_LEDGER.jsonl"),
+        verdict_path=os.path.join(storm_dir, "VERDICTS.jsonl"))
+    real = scheduler._paged_decode_impl
+    calls = []
+
+    def decode(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == FORCED_STORM_DECODE:
+            # The loaded set's entry only: the next kernel_library call
+            # loads the built library again and reports it.
+            ops._LIBS.pop("paged_attention")
+        return real(*args, **kwargs)
+
+    scheduler._paged_decode_impl = decode
+    try:
+        engine = smoke_engine(cfg, params, "kernel", obs=session)
+        results, _ = drive_closed_loop(engine, requests)
+    finally:
+        scheduler._paged_decode_impl = real
+    for rid, ref in ref_results.items():
+        if results[rid].tokens != ref.tokens:
+            raise AssertionError(f"obs storm: request {rid} differs")
+    compiles = session.compiles.summary()
+    watch = session.compilewatch
+    engine.analyze_programs(session.cost_ledger)
+    session.finalize()
+    names = sorted(os.listdir(storm_dir))
+    dumps = [n for n in names if n.startswith("flight_")
+             and "_compile_storm" in n]
+    incidents = [n for n in names if n.startswith("incident_")
+                 and n.endswith("_compile_storm.json")]
+    if compiles["total"] != 1 or watch.storm_total != 1 or \
+            watch.status()["serve_decode"]["storms"] != 1 or \
+            len(dumps) != 1 or len(incidents) != 1 or \
+            dumps[0].split("_")[1] != incidents[0].split("_")[1]:
+        raise AssertionError(f"obs storm: compiles {compiles}, watch "
+                             f"{watch.status()}, files {names}")
+    listing = run_obs_cli(["incident", "list", "--dir", storm_dir])
+    if incidents[0][:-len(".json")] not in listing:
+        raise AssertionError(f"obs storm: cli obs lists {listing!r}")
+    diff = run_obs_cli(["diff", os.path.join(root, "serve"), storm_dir])
+    return {"decodes": len(calls), "compiles": compiles,
+            "load_s": compiles["by_stage"]["library_load"]["seconds"],
+            "storms": watch.storm_total, "status": watch.status(),
+            "flight_dumps": dumps, "incidents": incidents,
+            "cli_incident_list": listing.strip().splitlines(),
+            "perf_verdict": session.perf_verdict,
+            "cli_obs_diff": diff.strip().splitlines()}
+
+
 def obs_serve(torch, root, params, cfg):
     """Phase 13, serving: the bare arm and the arm under a session, both
     closed-loop; the traffic open-loop under a session; and the HBM gate's
@@ -3605,7 +3707,10 @@ def obs_serve(torch, root, params, cfg):
     session = None
     for arm in ("off", "on"):
         if arm == "on":
-            session = serve_session(os.path.join(root, "serve"))
+            session = serve_session(
+                os.path.join(root, "serve"),
+                perf_ledger=os.path.join(root, "PERF_LEDGER.jsonl"),
+                verdict_path=os.path.join(root, "serve", "VERDICTS.jsonl"))
         engine = smoke_engine(cfg, params, "kernel", obs=session)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -3640,6 +3745,13 @@ def obs_serve(torch, root, params, cfg):
                              f"verification {verdict}")
     if on["summary"]["requests_shed_slo"]:
         raise AssertionError(f"obs serve: {on['summary']}")
+    watch = session.compilewatch.status().get("serve_decode", {})
+    if session.compiles.total or session.compilewatch.storm_total or \
+            watch.get("calls", 0) < 2:
+        raise AssertionError(f"obs serve: compiles "
+                             f"{session.compiles.summary()}, watch "
+                             f"{session.compilewatch.status()}")
+    engine.analyze_programs(session.cost_ledger)
     session.finalize()
     path = os.path.join(root, "serve", "trace.jsonl")
     events = check_trace(os.path.join(root, "serve"))
@@ -3672,11 +3784,17 @@ def obs_serve(torch, root, params, cfg):
         "ttft_p50_ms": on["summary"].get("ttft_p50_ms"),
         "itl_p50_ms": on["summary"].get("itl_p50_ms"),
         "itl_p99_ms": on["summary"].get("itl_p99_ms"),
-        "emit_cost": emit_cost_us()}
+        "emit_cost": emit_cost_us(),
+        "compile_watch": {"compiles": session.compiles.summary(),
+                          "status": session.compilewatch.status(),
+                          "storms": session.compilewatch.storm_total},
+        "cost_ledger": session.cost_ledger.to_dict()}
     del engine
     serve["open_loop"] = obs_open_loop(
         torch, os.path.join(root, "open"), params, cfg, requests,
         off["results"])
+    serve["forced_storm"] = obs_forced_storm(
+        torch, root, params, cfg, requests, off["results"])
     del arms
 
     # The HBM gate: a budget of the allocated bytes plus half the pool's.
@@ -3739,6 +3857,7 @@ def obs_train(torch, root):
     from trustworthy_dl_tpu_torch.obs import PHASES, ObsSession, \
         read_jsonl_rotated
     from trustworthy_dl_tpu_torch.obs.events import validate_event
+    from trustworthy_dl_tpu_torch.obs.hbm import count_flops
 
     cfg = gpt2_small(torch)
     tr = DistributedTrainer(TrainingConfig(
@@ -3760,9 +3879,14 @@ def obs_train(torch, root):
         tr.reset_for_run(0)
         tr.set_attack_plan(attacker.plan(TRAIN_NODES))
         if arm == "on":
-            session = ObsSession(os.path.join(root, "train"))
+            train_dir = os.path.join(root, "train")
+            session = ObsSession(train_dir, perf_ledger=os.path.join(
+                train_dir, "PERF_LEDGER.jsonl"))
             session.enable_spans()
             session.install_watchers(slo_rules=())
+            session.enable_forensics(
+                verdict_path=os.path.join(train_dir, "VERDICTS.jsonl"))
+            session.enable_compile_watch()
             session.enable_hbm()
         sup = TrainingSupervisor(
             tr, max_retries=DRILL_RETRIES, rollback_after=1, max_restarts=0,
@@ -3826,11 +3950,16 @@ def obs_train(torch, root):
             not all(by_type.get(t) for t in needed):
         raise AssertionError(f"obs train: events {by_type}, verdicts "
                              f"{verdicts}")
-    dumps = sorted(n for n in os.listdir(os.path.join(root, "ckpt_on"))
-                   if n.startswith("flight_"))
-    if not dumps:
-        raise AssertionError("obs train: no flight dump beside the "
-                             "checkpoints")
+    ckpt_files = os.listdir(os.path.join(root, "ckpt_on"))
+    dumps = sorted(n for n in ckpt_files if n.startswith("flight_"))
+    paired = sorted(n for n in ckpt_files if n.startswith("incident_"))
+    if not dumps or [d.split("_")[1] for d in dumps] != \
+            [i.split("_")[1] for i in paired]:
+        raise AssertionError(f"obs train: flight dumps {dumps}, incidents "
+                             f"{paired} beside the checkpoints")
+    if session.compilewatch.storm_total:
+        raise AssertionError(f"obs train: compile storms "
+                             f"{session.compilewatch.status()}")
     with open(os.path.join(root, "train", "obs_report.json")) as f:
         report = json.load(f)
     mean = report["step_time_s"]["mean"]
@@ -3843,6 +3972,28 @@ def obs_train(torch, root):
                 "bf16-peak-table:h100"):
         raise AssertionError(f"obs train: report {report}, wall per step "
                              f"{wall_per_step}")
+    analyzed = report.get("mfu_analyzed") or {}
+    cost = report.get("cost_ledger", {}).get("train_step", {})
+    kernels = cost.get("kernel_flops", {})
+    counted = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+    if not 0.0 < (analyzed.get("mfu") or 0.0) < 1.0 or \
+            analyzed.get("flops_per_step") != cost.get("flops") or \
+            set(kernels) != {"fused_moments", *counted} or \
+            kernels["fused_moments"] != 0 or \
+            not all(kernels[k] > 0 for k in counted) or \
+            cost.get("library_flops", 0) <= 0:
+        raise AssertionError(f"obs train: mfu_analyzed {analyzed}, cost "
+                             f"ledger {cost}")
+    # The fused head's f32-out product (``aten::mm.dtype``) is counted by
+    # the library counter itself, on this card's torch.
+    with count_flops() as head:
+        torch.mm(torch.ones(64, 768, dtype=torch.bfloat16, device="cuda"),
+                 torch.ones(768, 512, dtype=torch.bfloat16, device="cuda"),
+                 out_dtype=torch.float32)
+    if head["library_flops"] != 2 * 64 * 768 * 512:
+        raise AssertionError(f"obs train: the f32-out product counted "
+                             f"{head}")
     train = {"steps_accounted": accounted, "step_executions": executions,
              "wall_s_off": off["wall"], "wall_s_on": on["wall"],
              "step_s_mean_off": statistics.mean(off["step_s"]),
@@ -3852,7 +4003,16 @@ def obs_train(torch, root):
              "phase_fractions": fractions,
              "phase_mean_s": {k: v["mean_s"]
                               for k, v in report["phases"].items()},
-             "mfu": report["mfu"], "events": len(events),
+             "mfu": report["mfu"], "mfu_analyzed": analyzed,
+             "cost_ledger": cost,
+             "mm_dtype_flops": head["library_flops"],
+             "counted_step_s": on["step_s"][0],
+             "step2_s": on["step_s"][1],
+             "first_step_s_off": off["step_s"][0],
+             "step2_s_off": off["step_s"][1],
+             "flight_incidents": paired,
+             "compile_watch": session.compilewatch.status(),
+             "events": len(events),
              "events_by_type": by_type, "flight_dumps": dumps,
              "launches": on["launches"], "expected_launches": want,
              "supervisor": on["report"],

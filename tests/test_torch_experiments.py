@@ -125,11 +125,13 @@ def test_same_data_and_decisions_as_jax(runs):
     assert summary["total_steps"] == 5 * 8
     assert [r["node_statuses"] for r in res["epoch_records"]] == \
         [r["node_statuses"] for r in jres["epoch_records"]]
-    # Both runners carry a telemetry session; the port's report lacks
-    # only the analyzed-FLOPs blocks it does not port.
+    # Both runners carry a telemetry session with a cost ledger: the
+    # same report blocks, the analyzed-FLOPs MFU from the counted step.
     report, jreport = res["obs_report"], jres["obs_report"]
     assert report["num_steps"] == jreport["num_steps"] == 5 * 8
-    assert set(report) == set(jreport) - {"cost_ledger", "mfu_analyzed"}
+    assert set(report) == set(jreport)
+    assert report["mfu_analyzed"]["flops_per_step"] == \
+        report["cost_ledger"]["train_step"]["flops"] > 0
     assert set(report["phases"]) == set(jreport["phases"])
     assert report["mfu"].keys() == jreport["mfu"].keys()
 
@@ -186,7 +188,7 @@ def test_artifact_contract(runs):
     obs = sorted(p.name for p in (runner.output_dir / "obs").iterdir())
     jobs = sorted(p.name for p in (runs["jrunner"].output_dir /
                                    "obs").iterdir())
-    assert obs == [n for n in jobs if n != "PERF_LEDGER.jsonl"]
+    assert obs == jobs
     assert {"trace.jsonl", "metrics_snapshot.json", "metrics.prom",
             "obs_report.json"} <= set(obs)
     with open(runner.output_dir / "experiment_results.json") as f:

@@ -18,8 +18,9 @@ operations, made from a numpy seed, through both packages' modules.
   alike).
 * Attribution: the allocators' journals and ``verify_attribution``'s
   verdicts equal.
-* Sessions: the port's artifacts are JAX's less the deferred tiers, whose
-  switches raise ``NotImplementedError``.
+* Sessions: the port's artifacts and event types are JAX's; an in-memory
+  session's compile watch, forensics and perf tiers switch on without a
+  file.
 * Lint: every ``.emit(`` of the port names an ``EventType`` member, and
   every metric the port registers is named ``tddl_*``.
 """
@@ -615,16 +616,17 @@ def test_session_artifacts_are_jax_less_the_deferred_tiers(tmp_path,
                  mods["events"].read_jsonl(str(root / "trace.jsonl"))]
         return sorted(os.listdir(root)), types
     out = _both(run)
-    deferred = {"PERF_LEDGER.jsonl"}
-    assert set(out["port"][0]) == set(out["jax"][0]) - deferred
-    assert [t for t in out["port"][1]] == \
-        [t for t in out["jax"][1] if t != "perf_regression"]
+    assert set(out["port"][0]) == set(out["jax"][0])
+    assert "PERF_LEDGER.jsonl" in out["port"][0]
+    assert out["port"][1] == out["jax"][1]
     s = tsession.ObsSession(None)
-    for call in (s.enable_compile_watch, s.enable_forensics, s.write_perf):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    assert s.enable_compile_watch() is s.compilewatch
+    assert s.enable_forensics() is s.forensics and s.verdicts is None
+    assert s.write_perf() is None and s.cost_ledger is None
     assert s.snapshot_metrics() is None and s.dump_flight("manual") is None
+    assert s.forensics.incidents == []
     assert s.write_report()["num_steps"] == 0
+    s.finalize()
 
 
 # ---------------------------------------------------------------------------

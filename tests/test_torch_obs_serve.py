@@ -16,8 +16,8 @@ no other test file uses, so this file's JAX programs are its own).
 * The HBM gate's decisions and the shrunk KV and adapter pools equal
   JAX's, with the live bytes stubbed alike; the shrunk engine serves the
   same streams.
-* ``cli serve --obs-dir`` writes the artifact set JAX's writes, less the
-  tiers not ported yet.
+* ``cli serve --obs-dir`` writes the artifact set JAX's writes (the perf
+  ledger included) and prints the compile watch's verdict.
 """
 
 import json
@@ -262,9 +262,9 @@ SERVE = ["--num-requests", "4", "--max-seq", "32", "--max-new-tokens", "6",
          "--prompt-len", "6", "--block-size", "8", "--temperature", "0"]
 TINY = dict(n_layer=2, n_embd=32, n_head=4, vocab_size=307, n_positions=48,
             seq_len=16)
-#: Artifacts of tiers not ported yet (ROADMAP), and the flight dumps and
-#: incidents a slow first compile may trigger.
-DEFERRED = ("PERF_LEDGER.jsonl", "VERDICTS.jsonl")
+#: What only an episode writes (a slow first compile may trigger one): the
+#: verdict store's rows, the flight dumps and their incidents.
+DEFERRED = ("VERDICTS.jsonl",)
 
 
 def _artifacts(root):
@@ -292,6 +292,8 @@ def test_cli_serve_obs_dir_writes_the_jax_artifacts(tmp_path, capsys,
     # What the watchers shed is printed, so telemetry never drops a
     # request unseen.
     assert "  requests_shed_slo: 0\n" in out
+    assert "compiles: 0 (0.00s), decode storms: 0\n" in out
+    assert "perf sentinel: within the noise band" in out
     assert _artifacts(tmp_path / "t") == _artifacts(tmp_path / "j")
     assert "attribution.jsonl" in _artifacts(tmp_path / "t")
     events = read_jsonl(str(tmp_path / "t" / "trace.jsonl"))

@@ -18,8 +18,8 @@ layers, 32 wide, 4 heads, vocab 311, a size no other test file uses;
   dumps, anomaly episodes and ladder counters through both packages.
 * The runner's ``experiment_results.json`` carries a non-null
   ``obs_report`` and its ``obs/`` artifacts; ``cli train --obs-dir``
-  writes the artifact set JAX's ``main`` writes, less the tiers not
-  ported yet.
+  writes the artifact set JAX's ``main`` writes (the perf ledger
+  included).
 """
 
 import json
@@ -374,7 +374,9 @@ def test_the_runner_embeds_its_obs_report(tmp_path):
     assert types.count("train_step") == 8
 
 
-DEFERRED = ("PERF_LEDGER.jsonl", "VERDICTS.jsonl")
+#: What only an episode writes: the verdict store's rows, the flight
+#: dumps and their incidents.
+DEFERRED = ("VERDICTS.jsonl",)
 
 
 def _artifacts(root):
@@ -406,7 +408,9 @@ def test_cli_train_obs_dir_writes_the_jax_artifacts(tmp_path, capsys,
                                    "--device", "cpu", "--seq-len", "16"],
                           model_overrides=dict(TINY,
                                                dtype=torch.float32)) == 0
-    assert "obs artifacts in" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "obs artifacts in" in out
+    assert "train-step storms: 0\n" in out
     assert _artifacts(tmp_path / "t") == _artifacts(tmp_path / "j")
     events = read_jsonl(str(tmp_path / "t" / "trace.jsonl"))
     for event in events:

@@ -4,7 +4,8 @@ and reading ``sys.modules``, and statically by walking every module's
 imports (``chip_smoke.py`` included).  The walk is checked to reach the
 modules added since it was written (the async host pipeline,
 ``elastic/``, the ResNet and VGG families, the tokenizer, the profiling
-hooks and the telemetry plane, ``obs/``).  No ``obs`` module imports
+hooks and the telemetry plane, ``obs/``, with its compile watcher,
+forensics, verdict store and perf sentinel).  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
 ``torch.cuda`` only inside functions, so importing ``obs`` never
 initialises CUDA.  scikit-learn, the ML tier's optional dependency, is
@@ -35,7 +36,8 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.utils.profiling",
                *(f"trustworthy_dl_tpu_torch.obs.{m}" for m in (
                    "registry", "events", "recorder", "report", "spans",
-                   "slo", "anomaly", "attribution", "hbm", "session")))
+                   "slo", "anomaly", "attribution", "hbm", "session",
+                   "compilewatch", "forensics", "verdicts", "sentinel")))
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m trustworthy_dl_tpu_torch.cli
-prepare|generate|serve|train|experiment``.
+prepare|generate|serve|train|experiment|obs``.
 
 ``prepare`` is the counterpart of ``trustworthy-dl-prepare-data``
 (``trustworthy_dl_tpu/cli.py:prepare_main``), host-only: a ``.txt``
@@ -33,12 +33,21 @@ the card unless ``--device cpu`` is given.
 ``train --obs-dir DIR`` and ``serve --obs-dir DIR`` attach an
 ``obs.ObsSession`` and write its artifacts there, as the JAX commands do:
 ``trace.jsonl`` (rotated past ``--trace-max-bytes``),
-``metrics_snapshot.json`` and ``metrics.prom``, ``obs_report.json``,
-``slo_status.json``, ``trace_events.json`` (Chrome/Perfetto), and for
-``serve`` ``attribution.jsonl``; the supervisor's flight dumps land beside
-the checkpoints.  ``serve``'s SLO rules take ``--slo-ttft-ms`` and
-``--slo-itl-ms``.  The JAX commands' compile watcher, forensics and perf
-sentinel are not ported yet.
+``metrics_snapshot.json`` and ``metrics.prom``, ``obs_report.json`` (with
+the cost ledger and the analyzed-FLOPs MFU), ``slo_status.json``,
+``trace_events.json`` (Chrome/Perfetto), ``PERF_LEDGER.jsonl`` (the perf
+sentinel's fingerprints; ``TDDL_PERF_LEDGER`` names another file), with
+forensics ``incident_*.json`` beside each flight dump and
+``VERDICTS.jsonl``, and for ``serve`` ``attribution.jsonl``; the
+supervisor's flight dumps and their incidents land beside the
+checkpoints.  Both run under the compile watcher and print the compile
+count, the storms and the sentinel's verdict.  ``serve``'s SLO rules take
+``--slo-ttft-ms`` and ``--slo-itl-ms``.
+
+``obs`` is the counterpart of ``trustworthy-dl-obs`` (``obs_main``), the
+reader of such a directory: tail and filter the trace, a Chrome timeline,
+the report and the SLO status, ``obs diff A B`` and ``obs incident
+list|show|blast``.  It runs on the host and imports no torch.
 """
 
 from __future__ import annotations
@@ -407,6 +416,14 @@ def serve_main(argv: Optional[List[str]] = None,
                                  trace_max_bytes=args.trace_max_bytes)
         obs_session.enable_spans()
         obs_session.open_ledger()
+        # Forensics: every flight-dump-grade episode gets a paired
+        # incident_NNN_<reason>.json (causal timeline + blast radius) and
+        # a VERDICTS.jsonl row, what 'obs incident' renders offline.
+        obs_session.enable_forensics()
+        # Performance tier: the compile watcher (the decode loop's
+        # compile-once contract held live), the memory gauges and the
+        # pool headroom gate, the cost ledger and the perf fingerprint.
+        obs_session.enable_compile_watch()
         obs_session.enable_hbm()
         obs_session.install_watchers(slo_rules=default_serve_rules(
             ttft_target_s=args.slo_ttft_ms / 1e3,
@@ -468,9 +485,17 @@ def serve_main(argv: Optional[List[str]] = None,
             print(f"  !! {problem}")
         if obs_session.slo.active:
             print(f"SLO breaches active: {obs_session.slo.active}")
+        # The cost ledger's serve programs, a final memory sweep, and the
+        # compile watch's verdict (zero storms: the contract held).
+        engine.analyze_programs(obs_session.cost_ledger)
         obs_session.hbm.sweep(emit=True)
+        compiles = obs_session.compiles.summary()
+        print(f"compiles: {compiles['total']} "
+              f"({compiles['seconds']:.2f}s), decode storms: "
+              f"{obs_session.compilewatch.storm_total}")
         obs_session.finalize()
         print(f"obs artifacts in {args.obs_dir}")
+        _print_perf_verdict(obs_session)
     return 0
 
 
@@ -612,6 +637,13 @@ def train_main(argv: Optional[List[str]] = None,
         # rules, but the step_time_s sketch lands in slo_status.json.
         obs_session.enable_spans()
         obs_session.install_watchers(slo_rules=())
+        # Forensics: the supervisor's guard-trip/rollback/preemption dumps
+        # each get a paired incident with the causal ladder.
+        obs_session.enable_forensics()
+        # Performance tier: every library load metered and the train
+        # step's compile-once contract held live, the memory watermark,
+        # the counted first step (the analyzed MFU) and the fingerprint.
+        obs_session.enable_compile_watch()
         obs_session.enable_hbm()
         trainer.attach_obs(obs_session)
     if args.resume:
@@ -675,11 +707,318 @@ def train_main(argv: Optional[List[str]] = None,
     trainer.save_checkpoint()
     if obs_session is not None:
         obs_session.hbm.sweep(emit=True)
+        compiles = obs_session.compiles.summary()
+        print(f"compiles: {compiles['total']} "
+              f"({compiles['seconds']:.2f}s), train-step storms: "
+              f"{obs_session.compilewatch.storm_total}")
         obs_session.finalize()
         print(f"obs artifacts in {args.obs_dir}: trace.jsonl, "
               "metrics_snapshot.json, metrics.prom, obs_report.json")
+        _print_perf_verdict(obs_session)
     trainer.cleanup()
     return 0
+
+
+def _print_perf_verdict(obs_session) -> None:
+    """One-line sentinel summary at the end of an instrumented run."""
+    verdict = obs_session.perf_verdict
+    if verdict is None:
+        return
+    if verdict["regressed"]:
+        bad = [f"{c['metric']} {c.get('delta_pct', 0):+.1f}%"
+               for c in verdict["checks"] if c.get("regressed")]
+        print(f"perf sentinel: REGRESSION vs {verdict['baseline_n']} "
+              f"baseline run(s): {', '.join(bad)}")
+    else:
+        print(f"perf sentinel: within the noise band "
+              f"({verdict['baseline_n']} baseline run(s), ledger "
+              f"{obs_session.perf_ledger_path})")
+
+
+def build_obs_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m trustworthy_dl_tpu_torch.cli obs",
+        description="Render an obs directory: tail/filter trace.jsonl by "
+                    "request/step id (rotated trace.N.jsonl segments are "
+                    "walked in order), convert spans to a Chrome/Perfetto "
+                    "timeline, pretty-print obs_report.json and the "
+                    "SLO/anomaly status.  With no action flags, prints a "
+                    "summary of everything the directory holds.  The "
+                    "'diff' subcommand (obs diff A B) "
+                    "renders two obs_report/perf-ledger artifacts side "
+                    "by side with deltas; the 'incident' subcommand "
+                    "(obs incident list|show|blast) "
+                    "renders assembled incident forensics.",
+    )
+    parser.add_argument("obs_dir", type=str,
+                        help="directory a run wrote with --obs-dir")
+    parser.add_argument("--tail", type=int, default=None, metavar="N",
+                        help="print the last N trace events (after any "
+                             "filters)")
+    parser.add_argument("--request-id", type=int, default=None,
+                        help="only events correlated to this request id")
+    parser.add_argument("--step", type=int, default=None,
+                        help="only events correlated to this step id")
+    parser.add_argument("--type", type=str, default=None,
+                        help="only events of this type (e.g. span, "
+                             "anomaly, serve_retire)")
+    parser.add_argument("--chrome", type=str, default=None, metavar="OUT",
+                        help="convert the trace's span events to a Chrome/"
+                             "Perfetto trace_events JSON at OUT (load in "
+                             "chrome://tracing or ui.perfetto.dev)")
+    parser.add_argument("--report", action="store_true",
+                        help="pretty-print obs_report.json (step-time "
+                             "breakdown + MFU)")
+    parser.add_argument("--slo", action="store_true",
+                        help="print SLO burn rates / anomaly status "
+                             "(slo_status.json + snapshot gauges)")
+    return parser
+
+
+def obs_main(argv: Optional[List[str]] = None) -> int:
+    """Entry point of ``obs``: the reader side of an obs directory
+    (host-only; imports no torch)."""
+    import json
+    import os
+    import sys as _sys
+
+    from trustworthy_dl_tpu_torch.obs.events import read_jsonl_rotated
+    from trustworthy_dl_tpu_torch.obs.spans import chrome_trace_from_events
+
+    if argv is None:
+        argv = _sys.argv[1:]
+    if argv and argv[0] == "diff":
+        return _obs_diff(argv[1:])
+    if argv and argv[0] == "incident":
+        return _obs_incident(argv[1:])
+    args = build_obs_parser().parse_args(argv)
+    if not os.path.isdir(args.obs_dir):
+        print(f"no such obs directory: {args.obs_dir}")
+        return 2
+    trace_path = os.path.join(args.obs_dir, "trace.jsonl")
+    # Rotated segments (trace.1.jsonl, ...) are walked oldest-first so a
+    # size-capped long run reads exactly like an uncapped one.
+    events = read_jsonl_rotated(trace_path)
+
+    filtered = events
+    if args.request_id is not None:
+        filtered = [e for e in filtered
+                    if e.get("request_id") == args.request_id]
+    if args.step is not None:
+        filtered = [e for e in filtered if e.get("step") == args.step]
+    if args.type is not None:
+        filtered = [e for e in filtered if e.get("type") == args.type]
+
+    acted = False
+    if args.tail is not None or args.request_id is not None \
+            or args.step is not None or args.type is not None:
+        acted = True
+        for e in filtered[-(args.tail or 20):]:
+            print(json.dumps(e))
+    if args.chrome is not None:
+        acted = True
+        payload = chrome_trace_from_events(events, args.chrome)
+        print(f"wrote {len(payload['traceEvents'])} span event(s) to "
+              f"{args.chrome}")
+    if args.report:
+        acted = True
+        path = os.path.join(args.obs_dir, "obs_report.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                print(json.dumps(json.load(f), indent=2))
+        else:
+            print(f"no obs_report.json under {args.obs_dir}")
+    if args.slo:
+        acted = True
+        _print_slo_status(args.obs_dir)
+    if not acted:
+        _print_obs_summary(args.obs_dir, events)
+    return 0
+
+
+def _obs_diff(argv: List[str]) -> int:
+    """``obs diff A B`` — two obs artifact sets side by side (obs dirs,
+    obs_report.json files, or PERF_LEDGER.jsonl files; host-only, imports
+    no torch)."""
+    import argparse as _argparse
+
+    from trustworthy_dl_tpu_torch.obs.sentinel import (
+        load_perf_artifact,
+        render_diff,
+    )
+
+    parser = _argparse.ArgumentParser(
+        prog="python -m trustworthy_dl_tpu_torch.cli obs diff",
+        description="Pretty-print two obs_report/perf-ledger artifacts "
+                    "side by side: step time, phase fractions, MFU "
+                    "(nominal + analyzed), per-program FLOPs/temp "
+                    "bytes, compile counts, HBM watermark — with "
+                    "relative deltas.",
+    )
+    parser.add_argument("a", type=str, help="first artifact (obs dir, "
+                                            "obs_report.json, or "
+                                            "PERF_LEDGER.jsonl)")
+    parser.add_argument("b", type=str, help="second artifact")
+    args = parser.parse_args(argv)
+    try:
+        view_a = load_perf_artifact(args.a)
+        view_b = load_perf_artifact(args.b)
+    except FileNotFoundError as exc:
+        print(f"diff: {exc}")
+        return 2
+    print(render_diff(view_a, view_b))
+    return 0
+
+
+def _obs_incident(argv: List[str]) -> int:
+    """``obs incident list|show|blast`` — render the forensic incident
+    artifacts a run assembled next to its flight dumps (obs/forensics.py;
+    host-only, imports no torch)."""
+    import argparse as _argparse
+
+    from trustworthy_dl_tpu_torch.obs.forensics import (
+        find_incident,
+        load_incidents,
+        render_blast,
+        render_incident,
+    )
+
+    parser = _argparse.ArgumentParser(
+        prog="python -m trustworthy_dl_tpu_torch.cli obs incident",
+        description="Offline incident forensics: 'list' the assembled "
+                    "incident_NNN_<reason>.json reports in a directory, "
+                    "'show' one causal timeline (trigger event -> "
+                    "contributing signals -> actions taken, each with "
+                    "trace seq ids), or 'blast' one blast radius (every "
+                    "request that decoded off the suspect's KV blocks "
+                    "or adapter page, with per-journal block sets).",
+    )
+    parser.add_argument("action", choices=("list", "show", "blast"))
+    parser.add_argument("ident", nargs="?", default=None,
+                        help="incident id, bare index, or reason "
+                             "substring (show/blast)")
+    parser.add_argument("--dir", dest="directory", default=".",
+                        help="directory holding the incident artifacts "
+                             "(an obs dir or a checkpoint dir; "
+                             "default: cwd)")
+    args = parser.parse_args(argv)
+    if args.action == "list":
+        incidents = load_incidents(args.directory)
+        if not incidents:
+            print(f"no incident artifacts under {args.directory}")
+            return 0
+        for inc in incidents:
+            radius = inc.get("blast_radius") or {}
+            print(f"{inc.get('incident_id'):<40} "
+                  f"tick={str(inc.get('tick')):<6} "
+                  f"suspects={inc.get('suspect_replicas')} "
+                  f"actions={len(inc.get('actions') or [])} "
+                  f"blast={len(radius.get('requests') or [])}")
+        return 0
+    if args.ident is None:
+        print(f"incident {args.action}: an incident id (or index, or "
+              f"reason substring) is required")
+        return 2
+    inc = find_incident(args.directory, args.ident)
+    if inc is None:
+        print(f"no incident matching {args.ident!r} under "
+              f"{args.directory}")
+        return 2
+    print(render_incident(inc) if args.action == "show"
+          else render_blast(inc))
+    return 0
+
+
+def _print_slo_status(obs_dir: str) -> None:
+    import json
+    import os
+
+    path = os.path.join(obs_dir, "slo_status.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            status = json.load(f)
+        for rule in status.get("slo", {}).get("rules", ()):
+            flag = " BREACHED" if rule["active"] else ""
+            print(f"  slo {rule['name']:<12} ({rule['signal']} <= "
+                  f"{rule['target']:g}): burn {rule['burn_rate']:.2f}"
+                  f"{flag}")
+        anomaly = status.get("anomaly", {})
+        if anomaly:
+            print(f"  anomaly events: {anomaly.get('event_total', 0)}, "
+                  f"active: {anomaly.get('active', [])}")
+        return
+    # Fall back to the burn-rate gauges in the metrics snapshot (a run
+    # that died before finalize still snapshotted on cadence).
+    snap_path = os.path.join(obs_dir, "metrics_snapshot.json")
+    if not os.path.exists(snap_path):
+        print(f"  no slo_status.json or metrics_snapshot.json under "
+              f"{obs_dir}")
+        return
+    with open(snap_path) as f:
+        snap = json.load(f)
+    for name in ("tddl_slo_burn_rate", "tddl_anomaly_active"):
+        metric = snap.get("metrics", {}).get(name)
+        if not metric:
+            continue
+        for row in metric.get("series", ()):
+            labels = ",".join(f"{k}={v}" for k, v in row["labels"].items())
+            print(f"  {name}{{{labels}}} = {row['value']}")
+
+
+def _print_obs_summary(obs_dir: str, events: list) -> None:
+    import json
+    import os
+
+    print(f"obs dir: {obs_dir}")
+    counts: dict = {}
+    for e in events:
+        counts[e.get("type", "?")] = counts.get(e.get("type", "?"), 0) + 1
+    if counts:
+        print(f"trace.jsonl: {len(events)} event(s)")
+        for etype, n in sorted(counts.items()):
+            print(f"  {etype}: {n}")
+    report_path = os.path.join(obs_dir, "obs_report.json")
+    if os.path.exists(report_path):
+        with open(report_path) as f:
+            report = json.load(f)
+        line = f"obs_report.json: {report.get('num_steps', 0)} step(s)"
+        mfu = report.get("mfu", {})
+        if isinstance(mfu, dict) and mfu.get("mfu") is not None:
+            line += f", MFU {mfu['mfu']:.1%} ({mfu['peak_flops_source']})"
+        print(line)
+    ledger_path = os.path.join(obs_dir, "attribution.jsonl")
+    if os.path.exists(ledger_path):
+        from trustworthy_dl_tpu_torch.obs.attribution import read_ledger
+
+        _, records = read_ledger(ledger_path)
+        flagged = sum(1 for r in records if r.get("flagged"))
+        print(f"attribution.jsonl: {len(records)} record(s), "
+              f"{flagged} flagged")
+    _print_slo_status(obs_dir)
+    dumps = sorted(p for p in os.listdir(obs_dir)
+                   if p.startswith("flight_") and p.endswith(".json"))
+    if dumps:
+        print(f"flight dumps: {', '.join(dumps)}")
+    incidents = sorted(p for p in os.listdir(obs_dir)
+                       if p.startswith("incident_")
+                       and p.endswith(".json"))
+    if incidents:
+        print(f"incidents: {', '.join(incidents)} "
+              f"(render with 'python -m trustworthy_dl_tpu_torch.cli obs "
+              f"incident list --dir {obs_dir}')")
+    verdicts_path = os.path.join(obs_dir, "VERDICTS.jsonl")
+    if os.path.exists(verdicts_path):
+        from trustworthy_dl_tpu_torch.obs.verdicts import VerdictStore
+
+        rows = VerdictStore(verdicts_path).read()
+        kinds: dict = {}
+        for row in rows:
+            key = f"{row.get('kind')}:{row.get('outcome')}"
+            kinds[key] = kinds.get(key, 0) + 1
+        print(f"VERDICTS.jsonl: {len(rows)} row(s)"
+              + (" — " + ", ".join(f"{k}={n}" for k, n in
+                                   sorted(kinds.items()))
+                 if kinds else ""))
 
 
 def experiment_main(argv: Optional[List[str]] = None) -> int:
@@ -692,14 +1031,15 @@ def experiment_main(argv: Optional[List[str]] = None) -> int:
 
 COMMANDS = {"prepare": prepare_main, "generate": generate_main,
             "serve": serve_main, "train": train_main,
-            "experiment": experiment_main}
+            "experiment": experiment_main, "obs": obs_main}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in COMMANDS:
         print("usage: python -m trustworthy_dl_tpu_torch.cli "
-              "prepare|generate|serve|train|experiment [--help | options]",
+              "prepare|generate|serve|train|experiment|obs "
+              "[--help | options]",
               file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

@@ -44,8 +44,13 @@ gradient norm, and emits ``train_step``, ``trust_transition``,
 ``elastic_readmit``, ``ckpt_save`` and ``ckpt_restore`` on its trace;
 the checkpointer, the metrics collector and a chaos injector are wired to
 the same session.  Telemetry reads host copies the loop makes anyway: the
-trajectory is bit-identical with or without it.  The JAX trainer's
-analyzed-FLOPs cost ledger and compile watcher are not ported (ROADMAP).
+trajectory is bit-identical with or without it.  With the session's
+compile watcher each step's dispatch runs under its ``train_step`` guard
+(the first step's library loads are warmup; a topology change that
+rebuilds the step resets the scope), and with its cost ledger the first
+step the session sees runs under ``obs.hbm.count_flops`` (the ledger's
+``train_step`` entry, the report's ``mfu_analyzed``): the counter reads
+each op's shapes and changes nothing the step computes or launches.
 
 Profiling and debugging, as in JAX (``utils/profiling.py``):
 ``config.profile_dir`` traces ``train()`` with ``torch.profiler``, each
@@ -70,6 +75,7 @@ construction.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import logging
@@ -99,6 +105,7 @@ from trustworthy_dl_tpu_torch.engine.state import TrainState, \
 from trustworthy_dl_tpu_torch.engine.step import HostMetricsPacker, \
     StepMetrics, build_node_eval_step, build_train_step
 from trustworthy_dl_tpu_torch.models.factory import create_model
+from trustworthy_dl_tpu_torch.obs.compilewatch import guarded
 from trustworthy_dl_tpu_torch.obs.events import EventType
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
@@ -177,6 +184,11 @@ class DistributedTrainer:
         self._train_step = build_train_step(self.model, config,
                                             self.optimizer)
         self._eval_step = build_node_eval_step(self.model)
+        watcher = getattr(getattr(self, "obs", None), "compilewatch", None)
+        if watcher is not None:
+            # The step was legitimately rebuilt for a new topology: its
+            # next library load is warmup, not a storm.
+            watcher.reset("train_step")
 
     def _init_host_state(self) -> None:
         """Per-run host world-view, shared by the constructor and
@@ -329,6 +341,24 @@ class DistributedTrainer:
         if self.chaos is not None:
             self.chaos.trace = session.trace
 
+    def _dispatch(self, node_batch: Dict[str, Any]) -> Any:
+        """One step's dispatch, under the session's ``train_step`` compile
+        guard and, for the first step the session sees, its cost
+        ledger's count (``obs.hbm.CostLedger.count``), which the step
+        timer marks so that the analyzed MFU leaves that step out."""
+        obs = self.obs
+        watcher = getattr(obs, "compilewatch", None)
+        ledger = getattr(obs, "cost_ledger", None)
+        counting = ledger is not None and "train_step" not in ledger.programs
+        with step_annotation(self.global_step), \
+                guarded(watcher, "train_step", step=self.global_step), \
+                (ledger.count("train_step") if counting
+                 else contextlib.nullcontext()):
+            out = self._train_step(self.state, node_batch, self.attack_plan)
+        if counting:
+            obs.step_timer.note_counted()
+        return out
+
     def _obs_note_model_info(self, node_batch: Dict[str, Any]) -> None:
         """Give the step timer what the nominal MFU needs, once: the
         parameter count and the work units a step (tokens for an LM,
@@ -437,9 +467,7 @@ class DistributedTrainer:
                 if timer is not None:
                     self._obs_note_model_info(node_batch)
                     timer.lap("data")  # loader, host assembly, the copy
-                with step_annotation(self.global_step):
-                    self.state, metrics = self._train_step(
-                        self.state, node_batch, self.attack_plan)
+                self.state, metrics = self._dispatch(node_batch)
                 if self.chaos is not None:
                     self.state, metrics = self.chaos.on_step_end(
                         self.global_step, self.state, metrics)
@@ -526,8 +554,7 @@ class DistributedTrainer:
         durability hooks; returns its ``batch_history`` record."""
         self.global_step += 1
         node_batch = self._node_batch(batch)
-        self.state, metrics = self._train_step(self.state, node_batch,
-                                               self.attack_plan)
+        self.state, metrics = self._dispatch(node_batch)
         return self._account(metrics, epoch)
 
     def _account(self, metrics: StepMetrics, epoch: int,

@@ -1,8 +1,9 @@
-"""Live device-memory accounting and the pool headroom gate.
+"""Live device-memory accounting, the pool headroom gate and the
+per-program cost ledger.
 
-Counterpart of the ``HbmMonitor`` part of ``trustworthy_dl_tpu/obs/hbm.py``:
-*how much device memory is live right now* (and at peak), and whether a
-pool the serving engine is about to allocate fits.
+Counterpart of ``trustworthy_dl_tpu/obs/hbm.py``: *how much device memory
+is live right now* (and at peak), whether a pool the serving engine is
+about to allocate fits, and what each named program costs.
 
 * :func:`live_buffer_bytes` — the caching allocator's allocated bytes
   (``torch.cuda.memory_allocated``) of every CUDA device; ``{}`` on a
@@ -19,16 +20,30 @@ pool the serving engine is about to allocate fits.
   card's ``total_memory``, else None (no CUDA: the gate always admits,
   as the JAX gate does on a CPU backend).
 
-The JAX module's per-program cost ledger (``CostLedger``,
-``analyze_program``) is not ported (ROADMAP).  ``torch.cuda`` is touched
-only inside functions, so importing ``obs`` never initialises CUDA.
+* :class:`CostLedger` — named programs -> cost blocks, stamped into
+  ``obs_report.json`` (the report's ``cost_ledger`` and its
+  ``mfu_analyzed`` read ``train_step``).  The JAX ledger asks XLA
+  (``lower().cost_analysis()``); the port cannot lower a program, so it
+  counts the work a program launches (:func:`count_flops`): library ops
+  through ``torch.utils.flop_counter.FlopCounterMode``, and each
+  hand-written kernel, which the counter cannot see, through its
+  wrapper's shape count (``ops.count_kernel_flops``).  Both count
+  products only — XLA's figure also counts elementwise work, so the two
+  packages' numbers differ by design — and ``bytes_accessed`` is None
+  (the port has no byte count of a whole program).  The trainer counts
+  its first step, which it runs anyway; ``ServingEngine.analyze_programs``
+  works its programs' counts out from the engine's shapes.
+
+``torch`` is imported only inside functions, so importing ``obs`` never
+initialises CUDA.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Optional
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, Optional
 
 from trustworthy_dl_tpu_torch.obs.events import EventType
 
@@ -169,4 +184,70 @@ class HbmMonitor:
         return False
 
 
-__all__ = ["HbmMonitor", "device_budget_bytes", "live_buffer_bytes"]
+# ---------------------------------------------------------------------------
+# Per-program cost ledger
+# ---------------------------------------------------------------------------
+
+#: How the port's analyzed FLOPs are counted (``flops_source``).
+FLOPS_SOURCE = "flop-counter+kernel-shapes"
+
+
+@contextmanager
+def count_flops() -> Iterator[Dict[str, Any]]:
+    """Count the products of the work dispatched inside the block; the
+    yielded dict is filled on exit with ``flops`` (their sum),
+    ``library_flops`` (``FlopCounterMode``), ``kernel_flops`` (by kernel
+    wrapper, from the launches' shapes), ``flops_source`` and
+    ``bytes_accessed`` (None).  On the CPU the wrappers run their plain
+    twins, which the counter counts instead (each twin's count equals its
+    kernel's shape count), so the total does not depend on the device.
+    Counting changes no result: the counter only reads each op's shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from trustworthy_dl_tpu_torch import ops
+
+    cost: Dict[str, Any] = {}
+    counter = FlopCounterMode(display=False)
+    with ops.count_kernel_flops() as kernels, counter:
+        yield cost
+    library = int(counter.get_total_flops())
+    kernel = int(sum(kernels.values()))
+    cost.update(flops=float(library + kernel), library_flops=library,
+                kernel_flops=dict(sorted(kernels.items())),
+                flops_source=FLOPS_SOURCE, bytes_accessed=None)
+
+
+class CostLedger:
+    """Named programs -> cost blocks, stamped into ``obs_report.json``
+    (StepTimeReporter reads ``programs``)."""
+
+    def __init__(self) -> None:
+        self.programs: Dict[str, Dict[str, Any]] = {}
+
+    def note(self, name: str, cost: Dict[str, Any]) -> None:
+        self.programs[str(name)] = dict(cost)
+
+    @contextmanager
+    def count(self, name: str) -> Iterator[Dict[str, Any]]:
+        """Run the block under :func:`count_flops` and note its cost as
+        ``name``."""
+        with count_flops() as cost:
+            yield cost
+        self.note(name, cost)
+
+    def flops(self, name: str) -> Optional[float]:
+        entry = self.programs.get(name)
+        if entry and entry.get("flops"):
+            return float(entry["flops"])
+        return None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {name: dict(entry)
+                for name, entry in sorted(self.programs.items())}
+
+    def __bool__(self) -> bool:
+        return bool(self.programs)
+
+
+__all__ = ["CostLedger", "FLOPS_SOURCE", "HbmMonitor", "count_flops",
+           "device_budget_bytes", "live_buffer_bytes"]

@@ -4,7 +4,9 @@ Counterpart of ``trustworthy_dl_tpu/obs/meta.py``: the same schema string
 and keys, except that ``jax_version`` becomes ``torch_version`` and
 ``cuda_version`` (the CUDA that torch was built for, None on a CPU
 build).  ``device_kind`` is ``torch.cuda.get_device_name`` on the card
-and "cpu" without CUDA.  Device discovery is cached per process and
+and "cpu" without CUDA.  ``run_metadata(host_only=True)`` imports nothing:
+the offline readers (forensics, verdicts, the obs command) stamp their
+artifacts in processes that never load torch.  Device discovery is cached per process and
 degrades to ``platform: "unavailable"`` instead of raising: a metadata
 stamp must never be the reason an artifact is lost.
 """
@@ -12,6 +14,7 @@ stamp must never be the reason an artifact is lost.
 from __future__ import annotations
 
 import functools
+import importlib.metadata
 import platform as _platform
 import sys
 import time
@@ -35,6 +38,19 @@ def _versions() -> Dict[str, Any]:
                 "cuda_version": torch.version.cuda}
     except Exception:
         return {"torch_version": "unknown", "cuda_version": None}
+
+
+def _host_versions() -> Dict[str, Any]:
+    """The versions without importing torch: the loaded module's when a
+    caller already imported it, else the installed distribution's (no
+    CUDA version then: only the module knows what it was built for)."""
+    if "torch" in sys.modules:
+        return _versions()
+    try:
+        version = importlib.metadata.version("torch")
+    except importlib.metadata.PackageNotFoundError:
+        version = "unknown"
+    return {"torch_version": version, "cuda_version": None}
 
 
 @functools.lru_cache(maxsize=1)
@@ -70,8 +86,8 @@ def run_metadata(host_only: bool = False) -> Dict[str, Any]:
         "timestamp": time.time(),
     }
     if host_only:
-        meta.update(_versions(), platform="unprobed", device_kind="unknown",
-                    num_devices=0)
+        meta.update(_host_versions(), platform="unprobed",
+                    device_kind="unknown", num_devices=0)
         return meta
     meta.update(_device_info())
     return meta

@@ -27,10 +27,15 @@ port's own: NVIDIA's published dense bf16 peak of the H100, matched on
 "H100" in ``torch.cuda.get_device_name``.  Unknown devices fall back to
 ``TDDL_PEAK_FLOPS_PER_CHIP`` or a nominal CPU estimate — the figure is
 always computed, and ``peak_flops_source`` says how much to trust it.
-The JAX report's analyzed-FLOPs MFU (``cost_ledger``, ``mfu_analyzed``)
-is not ported: the port's step updates its state in place, so counting
-its FLOPs means running it, and a hand-written kernel is invisible to
-``torch.utils.flop_counter``.
+With a cost ledger attached (``obs.hbm.CostLedger``, an ``ObsSession``
+with an ``obs_dir``), the report also carries ``cost_ledger`` and
+``mfu_analyzed``: the ``train_step`` entry's counted FLOPs per step over
+the mean time of the other steps (the counted step's wall, counter
+overhead included, stands apart as ``counted_step_s``).  The count is the products the step really
+launched (``flops_source`` ``"flop-counter+kernel-shapes"``: library ops
+through ``torch.utils.flop_counter``, each kernel through its wrapper's
+shape count), where JAX's is XLA's ``cost_analysis`` of the lowered step,
+which also counts elementwise work.
 """
 
 from __future__ import annotations
@@ -134,6 +139,14 @@ class StepTimeReporter:
         self.tokens_per_step: Optional[int] = None
         self.model_kind: str = "lm"
         self.num_chips: int = 1
+        #: Optional obs.hbm.CostLedger (ObsSession sets it): its entries
+        #: land in the report as ``cost_ledger``, its ``train_step``
+        #: FLOPs give ``mfu_analyzed``.
+        self.cost_ledger: Any = None
+        #: Wall of the step whose dispatch the cost ledger counted (the
+        #: counter's overhead is in it); None until that step finishes.
+        self.counted_step_s: Optional[float] = None
+        self._counting = False
         self._phase_hist = None
         if registry is not None:
             self._phase_hist = registry.histogram(
@@ -180,15 +193,24 @@ class StepTimeReporter:
             self._laps.append((name, t0, t1))
             self._mark = time.perf_counter()
 
+    def note_counted(self) -> None:
+        """Mark the accumulating step as the one the cost ledger counted:
+        :attr:`steady_step_time_mean` leaves it out."""
+        self._counting = True
+
     def finish_step(self, step: Optional[int] = None) -> None:
         record = self._current
         laps = self._laps
+        counted, self._counting = self._counting, False
         self._current = {}
         self._laps = []
         self._mark = time.perf_counter()
         if not record:
             return
         record["_total"] = sum(record.values())
+        if counted:
+            record["_counted"] = 1.0
+            self.counted_step_s = record["_total"]
         self.last_step_total = record["_total"]
         self._steps.append(record)
         if self._phase_hist is not None:
@@ -212,6 +234,7 @@ class StepTimeReporter:
         would poison the per-phase distribution)."""
         self._current = {}
         self._laps = []
+        self._counting = False
         self.last_step_total = None  # nothing fresh for watcher feeds
         self._mark = time.perf_counter()
 
@@ -224,6 +247,16 @@ class StepTimeReporter:
         if not self._steps:
             return None
         return float(np.mean([s["_total"] for s in self._steps]))
+
+    @property
+    def steady_step_time_mean(self) -> Optional[float]:
+        """The mean over the accounted steps other than the counted one
+        (all of them when it is the only one): the analyzed MFU's and the
+        perf fingerprint's step time."""
+        totals = [s["_total"] for s in self._steps if "_counted" not in s]
+        if not totals:
+            return self.step_time_mean
+        return float(np.mean(totals))
 
     def phase_fractions(self) -> Dict[str, float]:
         """Per-phase share of the accounted wall time (the fingerprint's
@@ -292,7 +325,45 @@ class StepTimeReporter:
                     "note": "MFU defined for LM (6 FLOPs/param/token) "
                             "only",
                 }
+        ledger = self.cost_ledger
+        if ledger:
+            out["cost_ledger"] = ledger.to_dict()
+            analyzed = self._analyzed_mfu(out)
+            if analyzed is not None:
+                out["mfu_analyzed"] = analyzed
         return out
+
+    def _analyzed_mfu(self, out: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """MFU from the counted FLOPs of one train step
+        (``cost_ledger['train_step']``) over the mean time of the steps
+        the counter did not run in (``step_time_s``; the counted step's
+        wall is ``counted_step_s``): no 6 FLOPs/param/token model, and it
+        covers the remat recompute and the detection products the nominal
+        estimate ignores.  The peak denominator is the per-device table
+        (its source named)."""
+        entry = self.cost_ledger.programs.get("train_step") or {}
+        flops = self.cost_ledger.flops("train_step")
+        mean_step = self.steady_step_time_mean
+        if not flops or not mean_step:
+            return None
+        from trustworthy_dl_tpu_torch.obs.meta import run_metadata
+
+        device_kind = run_metadata()["device_kind"]
+        peak, source = peak_flops_per_chip(device_kind)
+        achieved = flops / mean_step / max(self.num_chips, 1)
+        return {
+            "flops_per_step": flops,
+            "flops_source": entry.get("flops_source"),
+            "achieved_flops_per_s_per_chip": achieved,
+            "peak_flops_per_chip": peak,
+            "peak_flops_source": source,
+            "num_chips": self.num_chips,
+            "mfu": achieved / peak if peak > 0 else None,
+            "step_time_s": mean_step,
+            "counted_step_s": self.counted_step_s,
+            "note": "products only; attention over the full [T, T] "
+                    "score matrix, whose causal half the kernels skip",
+        }
 
     def write(self, path: str) -> Dict[str, Any]:
         report = self.report()

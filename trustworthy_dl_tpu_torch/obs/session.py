@@ -1,11 +1,11 @@
 """ObsSession — the one handle a run threads through its layers.
 
-Counterpart of ``trustworthy_dl_tpu/obs/session.py``, less what the port
-has not got yet (ROADMAP, the rest of obs/ on one card): the compile watcher, the
-forensics tier and the perf sentinel (``enable_compile_watch``,
-``enable_forensics`` and ``write_perf`` raise ``NotImplementedError``),
-and the per-program cost ledger (so no ``cost_ledger`` block and no
-``PERF_LEDGER.jsonl``).
+Counterpart of ``trustworthy_dl_tpu/obs/session.py``, whole: the passive
+recorder, the active plane (spans, watchers, attribution ledger), the
+performance tier (the compile watcher over the kernel-library builds, the
+device-memory monitor, the cost ledger, the perf sentinel) and the
+forensics tier (an incident paired with every flight dump, the verdict
+store).
 
 Bundles the four telemetry pieces with a shared output directory::
 
@@ -28,6 +28,13 @@ Artifacts under ``obs_dir``:
 * ``flight_*.json`` — flight-recorder dumps (obs/recorder.py); the
   supervisor writes its incident dumps next to the *checkpoints*
   instead, via ``dump_flight(directory=...)``
+* ``incident_*.json`` — with forensics on, the post-mortem paired with
+  each flight dump, in the dump's directory (obs/forensics.py), and
+  ``VERDICTS.jsonl``, the verdict store (obs/verdicts.py)
+* ``PERF_LEDGER.jsonl`` — the rolling perf-fingerprint ledger the
+  sentinel bands against (obs/sentinel.py); the path is the
+  ``perf_ledger`` argument, else ``TDDL_PERF_LEDGER``, else this file
+  under ``obs_dir``
 
 ``obs_dir=None`` is a valid in-memory mode: events still flow to the
 flight recorder and metrics to the registry; only the files are skipped.
@@ -62,18 +69,14 @@ logger = logging.getLogger(__name__)
 #: ``trace_events.json`` (Chrome/Perfetto span timeline at finalize).
 
 
-#: The ROADMAP item the session's unported tiers wait for.
-_NEXT_ITEM = ("ROADMAP: the rest of obs/ on one card (compilewatch, "
-              "forensics, verdicts, sentinel, cli obs)")
-
-
 class ObsSession:
     def __init__(self, obs_dir: Optional[str] = None, *,
                  registry: Optional[MetricsRegistry] = None,
                  recorder_capacity: int = 2048,
                  metrics_snapshot_every: int = 0,
                  validate_events: bool = True,
-                 trace_max_bytes: int = 0):
+                 trace_max_bytes: int = 0,
+                 perf_ledger: Optional[str] = None):
         self.obs_dir = str(obs_dir) if obs_dir else None
         if self.obs_dir:
             os.makedirs(self.obs_dir, exist_ok=True)
@@ -102,7 +105,33 @@ class ObsSession:
         self.slo: Any = None              # obs.slo.SLOWatcher
         self.anomaly: Any = None          # obs.anomaly.AnomalyWatcher
         self.ledger: Any = None           # obs.attribution.AttributionLedger
+        # Performance tier (None until enabled): the compile registry/
+        # watcher pair and the device-memory monitor.  The cost ledger is
+        # kept by artifact-producing sessions (obs_dir set) only.
+        self.compiles: Any = None         # obs.compilewatch.CompileRegistry
+        self.compilewatch: Any = None     # obs.compilewatch.CompileWatcher
         self.hbm: Any = None              # obs.hbm.HbmMonitor
+        # Forensics tier (None until enabled): the incident assembler
+        # pairs a structured post-mortem with every flight dump; the
+        # verdict store is the durable cross-run trust history.
+        self.forensics: Any = None        # obs.forensics.IncidentAssembler
+        self.verdicts: Any = None         # obs.verdicts.VerdictStore
+        self.cost_ledger: Any = None
+        if self.obs_dir:
+            from trustworthy_dl_tpu_torch.obs.hbm import CostLedger
+
+            self.cost_ledger = CostLedger()
+        self.step_timer.cost_ledger = self.cost_ledger
+        # Perf-fingerprint ledger path: explicit arg, else
+        # TDDL_PERF_LEDGER (the cross-run trajectory file), else a
+        # run-local PERF_LEDGER.jsonl beside the other artifacts.
+        if perf_ledger is None:
+            perf_ledger = os.environ.get("TDDL_PERF_LEDGER") or (
+                os.path.join(self.obs_dir, "PERF_LEDGER.jsonl")
+                if self.obs_dir else None
+            )
+        self.perf_ledger_path = perf_ledger
+        self.perf_verdict: Optional[Dict[str, Any]] = None
         self.trace.emit(EventType.RUN_START, obs_dir=self.obs_dir)
 
     # -- active plane ------------------------------------------------------
@@ -142,10 +171,24 @@ class ObsSession:
         return self.slo, self.anomaly
 
     def enable_compile_watch(self, warmup_calls: int = 1) -> Any:
-        """The compile watcher (JAX ``obs/compilewatch.py``) is not
-        ported yet."""
-        raise NotImplementedError(
-            f"the compile watcher is not ported yet ({_NEXT_ITEM})")
+        """Install the kernel-library compile listener and the run-time
+        compile-once watcher (obs/compilewatch.py).  Hot loops that
+        received this session guard their dispatch; idempotent.  Imports
+        ``ops`` (and torch)."""
+        if self.compilewatch is None:
+            from trustworthy_dl_tpu_torch.obs.compilewatch import (
+                CompileRegistry,
+                CompileWatcher,
+            )
+
+            self.compiles = CompileRegistry(
+                trace=self.trace, registry=self.registry
+            ).install()
+            self.compilewatch = CompileWatcher(
+                self.compiles, trace=self.trace, registry=self.registry,
+                dump=self.dump_flight, warmup_calls=warmup_calls,
+            )
+        return self.compilewatch
 
     def enable_hbm(self, budget_bytes: Optional[int] = None,
                    reserve_fraction: float = 0.0) -> Any:
@@ -163,10 +206,33 @@ class ObsSession:
 
     def enable_forensics(self, verdict_path: Optional[str] = None,
                          directory: Optional[str] = None) -> Any:
-        """The incident assembler and verdict store (JAX
-        ``obs/forensics.py``, ``obs/verdicts.py``) are not ported yet."""
-        raise NotImplementedError(
-            f"the forensics tier is not ported yet ({_NEXT_ITEM})")
+        """Attach the incident assembler and the durable verdict store.
+        Each flight dump then gets a paired ``incident_NNN_<reason>.json``
+        assembled from this session's trace/ledger artifacts.  Verdict
+        path resolution mirrors the perf ledger: explicit arg, else
+        ``TDDL_VERDICT_STORE``, else a run-local ``VERDICTS.jsonl`` beside
+        the other artifacts (None ⇒ in-memory incidents only).
+        Idempotent."""
+        if self.forensics is None:
+            from trustworthy_dl_tpu_torch.obs.forensics import \
+                IncidentAssembler
+            from trustworthy_dl_tpu_torch.obs.verdicts import VerdictStore
+
+            if verdict_path is None:
+                verdict_path = os.environ.get("TDDL_VERDICT_STORE") or (
+                    os.path.join(self.obs_dir, "VERDICTS.jsonl")
+                    if self.obs_dir else None
+                )
+            if verdict_path:
+                self.verdicts = VerdictStore(
+                    verdict_path, registry=self.registry, trace=self.trace)
+            self.forensics = IncidentAssembler(
+                directory or self.obs_dir, trace=self.trace,
+                trace_path=self.trace.jsonl_path,
+                ledger=self.ledger, perf_ledger=None,
+                verdicts=self.verdicts, registry=self.registry,
+            )
+        return self.forensics
 
     def open_ledger(self, keep: int = 4096) -> Any:
         """Open the per-request attribution ledger (JSONL beside the
@@ -179,6 +245,10 @@ class ObsSession:
                 os.path.join(self.obs_dir, "attribution.jsonl")
                 if self.obs_dir else None, keep=keep,
             )
+            if self.forensics is not None:
+                # Enable order is free: a ledger opened after forensics
+                # still feeds blast-radius computation.
+                self.forensics.ledger = self.ledger
         return self.ledger
 
     # -- cadence hooks -----------------------------------------------------
@@ -225,6 +295,11 @@ class ObsSession:
         # announcement but the trace records where it went.
         self.trace.emit(EventType.FLIGHT_DUMP, step=step, path=path,
                         reason=reason)
+        if self.forensics is not None:
+            # The paired post-mortem: same index as the flight dump,
+            # assembled from whatever the trace has recorded so far.
+            self.forensics.assemble(reason, step=step, flight_path=path,
+                                    directory=directory, extra=extra)
         return path
 
     def write_report(self) -> Optional[Dict[str, Any]]:
@@ -238,7 +313,7 @@ class ObsSession:
 
     def write_slo_status(self) -> Optional[Dict[str, Any]]:
         """Watcher rollup (SLO burn + anomaly baselines) as
-        ``slo_status.json``."""
+        ``slo_status.json`` — what the obs command pretty-prints."""
         if self.slo is None and self.anomaly is None:
             return None
         status: Dict[str, Any] = {}
@@ -251,11 +326,64 @@ class ObsSession:
                 os.path.join(self.obs_dir, "slo_status.json"), status)
         return status
 
+    def perf_fingerprint(self) -> Dict[str, Any]:
+        """The compact perf fingerprint this run appends to the rolling
+        ledger (obs/sentinel.py): step time and tokens/s (when the timer
+        knows the model) over the steps the cost ledger did not count,
+        compile counts/seconds, memory watermark."""
+        from trustworthy_dl_tpu_torch.obs.meta import run_metadata
+        from trustworthy_dl_tpu_torch.obs.sentinel import fingerprint
+
+        timer = self.step_timer
+        mean = timer.steady_step_time_mean
+        tokens_per_s = None
+        if mean and timer.has_model_info and timer.tokens_per_step \
+                and timer.model_kind == "lm":
+            tokens_per_s = timer.tokens_per_step / mean
+        compiles = self.compiles
+        hbm = self.hbm
+        if hbm is not None:
+            hbm.sweep()
+        return fingerprint(
+            "session",
+            metric=timer.model_kind if timer.has_model_info else None,
+            tokens_per_s=tokens_per_s,
+            step_time_s=mean,
+            phase_fractions=timer.phase_fractions() or None,
+            compile_total=compiles.total if compiles else None,
+            compile_seconds=(round(compiles.total_seconds, 6)
+                             if compiles else None),
+            hbm_watermark_bytes=(hbm.watermark_bytes or None)
+            if hbm is not None else None,
+            run_metadata=run_metadata(),
+            extra={"num_steps": timer.num_steps},
+        )
+
     def write_perf(self) -> Optional[Dict[str, Any]]:
-        """The perf sentinel (JAX ``obs/sentinel.py``) is not ported
-        yet."""
-        raise NotImplementedError(
-            f"the perf sentinel is not ported yet ({_NEXT_ITEM})")
+        """Sentinel pass + ledger append: compare this run's fingerprint
+        against the rolling ledger's noise band (typed
+        ``perf_regression`` events on breach), then append the
+        fingerprint — verdict stamped on it — as the newest entry."""
+        if not self.perf_ledger_path:
+            return None
+        from trustworthy_dl_tpu_torch.obs.sentinel import PerfLedger, \
+            PerfSentinel
+
+        ledger = PerfLedger(self.perf_ledger_path)
+        fp = self.perf_fingerprint()
+        sentinel = PerfSentinel(ledger, trace=self.trace,
+                                registry=self.registry)
+        self.perf_verdict = sentinel.check(fp)
+        fp["regressed"] = self.perf_verdict["regressed"]
+        ledger.append(fp)
+        if self.perf_verdict["regressed"]:
+            logger.warning("perf sentinel: regression outside the noise "
+                           "band — %s", [
+                               c["metric"] for c in
+                               self.perf_verdict["checks"]
+                               if c.get("regressed")
+                           ])
+        return self.perf_verdict
 
     def finalize(self) -> None:
         """Final snapshot + report + active-plane artifacts + close the
@@ -266,12 +394,17 @@ class ObsSession:
         self.snapshot_metrics()
         self.write_report()
         self.write_slo_status()
+        self.write_perf()
         if self.spans is not None and self.obs_dir:
             self.spans.export_chrome(
                 os.path.join(self.obs_dir, "trace_events.json")
             )
         if self.ledger is not None:
             self.ledger.close()
+        if self.compiles is not None:
+            # Stop the process-global dispatcher from feeding a finished
+            # session (a dead registry must not count other runs' loads).
+            self.compiles.uninstall()
         self.trace.emit(EventType.RUN_END)  # last event in the trace
         self.trace.close()
 

@@ -12,6 +12,14 @@ PyTorch version (that is how the tests run here, on machines without a
 card); given CUDA tensors it launches the kernel or raises.  There is no
 switch between the two and no fallback from a CUDA tensor to the plain
 version: a kernel that fails to build or launch is an error.
+
+Two hooks serve the telemetry plane (``obs/``).  :data:`compile_listener`
+is called with (stage, library, seconds) for every ``nvcc`` build
+(``nvcc_build``) and every library load (``library_load``): the port's
+compilations, which ``obs.compilewatch`` meters.  :func:`count_kernel_flops`
+opens a tally, to which every wrapper adds its kernel's products where it
+launches it (:func:`tally_flops`), for the cost ledger's analyzed FLOPs
+(``obs.hbm.count_flops``).
 """
 
 from __future__ import annotations
@@ -23,8 +31,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import torch
 
@@ -76,6 +85,48 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+#: The one listener of kernel-library compilations, (stage, library,
+#: seconds) with stage ``nvcc_build`` or ``library_load``: set by
+#: ``obs.compilewatch``, which fans it out to its installed registries.
+compile_listener: Optional[Callable[[str, str, float], None]] = None
+
+
+def note_compile(stage: str, name: str, seconds: float) -> None:
+    """Report one build or load of library ``name`` to the listener."""
+    listener = compile_listener
+    if listener is not None:
+        listener(stage, name, seconds)
+
+
+#: Open FLOP tallies.  Process-wide, not per thread: on the card the
+#: autograd engine runs a backward (B3's launches) on its own thread.
+_TALLIES: list = []
+_TALLY_LOCK = threading.Lock()
+
+
+@contextmanager
+def count_kernel_flops() -> Iterator[Dict[str, int]]:
+    """Open a FLOP tally: inside the block every kernel launch adds its
+    kernel's products to the yielded dict, by wrapper name (CPU tensors
+    launch nothing and add nothing)."""
+    tally: Dict[str, int] = {}
+    with _TALLY_LOCK:
+        _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        with _TALLY_LOCK:
+            _TALLIES.remove(tally)
+
+
+def tally_flops(name: str, flops: int) -> None:
+    """Add one launch of wrapper ``name`` to every open tally."""
+    if not _TALLIES:
+        return
+    with _TALLY_LOCK:
+        for tally in _TALLIES:
+            tally[name] = tally.get(name, 0) + int(flops)
 
 
 def nvcc_path() -> str:
@@ -136,6 +187,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                             f"(rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, target)
+        note_compile("nvcc_build", name, out[name])
     if failures:
         raise RuntimeError("\n".join(failures))
     return out
@@ -148,11 +200,13 @@ def kernel_library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _LIBS[name] = lib
+            note_compile("library_load", name, time.perf_counter() - t0)
         return lib
 
 
@@ -203,7 +257,8 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "BUILD_DIR", "CSRC", "DTYPE_CODES", "SIGNATURES", "build",
-    "check_launch", "kernel_library", "kernel_wrappers", "launch_counts",
-    "library_path", "nvcc_path", "on_cuda", "reset_launch_counts",
-    "stream_handle",
+    "check_launch", "compile_listener", "count_kernel_flops",
+    "kernel_library", "kernel_wrappers", "launch_counts", "library_path",
+    "note_compile", "nvcc_path", "on_cuda",
+    "reset_launch_counts", "stream_handle", "tally_flops",
 ]

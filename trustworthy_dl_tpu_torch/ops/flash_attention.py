@@ -12,7 +12,8 @@ note there for what each kernel replaces, its bound and its design):
 * :func:`flash_attention_bwd_dkv` -> (dk, dv),
 
 each with a plain integer ``launches`` that it increments where it launches
-its kernel and nowhere else.  The backward takes Delta = sum(dO * O) per
+its kernel and nowhere else; there it also adds its kernel's products
+(``flash_*_flops``) to an open FLOP tally (``ops.count_kernel_flops``).  The backward takes Delta = sum(dO * O) per
 row from a plain reduction, as the JAX package leaves it to XLA.
 
 The kernels take bf16 on the card, T a multiple of 64 and D in
@@ -30,7 +31,7 @@ from typing import Tuple
 import torch
 
 from trustworthy_dl_tpu_torch.ops import check_launch, kernel_library, \
-    on_cuda, stream_handle
+    on_cuda, stream_handle, tally_flops
 
 NEG_INF = -1e30
 #: Query/key tile of the kernels: T must be a multiple of it.
@@ -100,6 +101,26 @@ def flash_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_fwd_flops(bh: int, t: int, d: int) -> int:
+    """Product FLOPs of B2 at [BH, T, D]: the plain twin's two [T, T] x D
+    products (QK^T and PV), as ``torch.utils.flop_counter`` counts
+    :func:`flash_fwd_plain`.  The function is counted over the whole score
+    matrix; the causal kernel skips the tiles above the diagonal."""
+    return 4 * bh * t * t * d
+
+
+def flash_bwd_dq_flops(bh: int, t: int, d: int) -> int:
+    """Product FLOPs of B3's dq half: S, dP and dS.K (three [T, T] x D
+    products of :func:`flash_bwd_dq_plain`)."""
+    return 6 * bh * t * t * d
+
+
+def flash_bwd_dkv_flops(bh: int, t: int, d: int) -> int:
+    """Product FLOPs of B3's dk/dv half: S, dP, dS^T.Q and P^T.dO (four
+    [T, T] x D products of :func:`flash_bwd_dkv_plain`)."""
+    return 8 * bh * t * t * d
+
+
 def _check(op: str, *tensors: torch.Tensor) -> None:
     q = tensors[0]
     if q.dim() != 3:
@@ -142,6 +163,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch("tddl_flash_fwd", q, k, v, o, lse)
     flash_attention_fwd.launches += 1
+    tally_flops("flash_attention_fwd", flash_fwd_flops(*q.shape))
     return o, lse
 
 
@@ -159,6 +181,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     dq = torch.empty_like(q)
     _launch("tddl_flash_bwd_dq", q, k, v, do, lse, delta, dq)
     flash_attention_bwd_dq.launches += 1
+    tally_flops("flash_attention_bwd_dq", flash_bwd_dq_flops(*q.shape))
     return dq
 
 
@@ -177,6 +200,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     dv = torch.empty_like(v)
     _launch("tddl_flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv)
     flash_attention_bwd_dkv.launches += 1
+    tally_flops("flash_attention_bwd_dkv", flash_bwd_dkv_flops(*q.shape))
     return dk, dv
 
 
@@ -230,6 +254,7 @@ KERNEL_WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq,
 __all__ = [
     "FlashAttention", "HEAD_DIMS", "KERNEL_WRAPPERS", "NEG_INF", "TILE",
     "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-    "flash_attention_fwd", "flash_bwd_dkv_plain", "flash_bwd_dq_plain",
+    "flash_attention_fwd", "flash_bwd_dkv_flops", "flash_bwd_dkv_plain",
+    "flash_bwd_dq_flops", "flash_bwd_dq_plain", "flash_fwd_flops",
     "flash_fwd_plain", "supports_flash",
 ]

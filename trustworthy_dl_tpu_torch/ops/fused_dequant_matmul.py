@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from trustworthy_dl_tpu_torch.ops import (check_launch, kernel_library,
-                                          on_cuda, stream_handle)
+                                          on_cuda, stream_handle,
+                                          tally_flops)
 
 #: The kernel's K and N granularity: K in k16 blocks of the tensor-core
 #: product, N in 16-byte copies of int8 weight columns.
@@ -39,6 +40,12 @@ def dequant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
                          scale: torch.Tensor) -> torch.Tensor:
     """f32 ``x @ w_q`` times the column scales."""
     return (x.float() @ w_q.float()) * scale.float()
+
+
+def dequant_matmul_flops(m: int, k: int, n: int) -> int:
+    """Product FLOPs of B4 at [M, K] x [K, N]: 2 M K N, as
+    ``torch.utils.flop_counter`` counts :func:`dequant_matmul_plain`."""
+    return 2 * m * k * n
 
 
 def dequant_kernel_limit(k: int, n: int, x_dtype: torch.dtype
@@ -93,6 +100,7 @@ def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
                                       n, stream_handle(x.device))
     check_launch(lib, err, "tddl_dequant_matmul")
     dequant_matmul.launches += 1
+    tally_flops("dequant_matmul", dequant_matmul_flops(m, k, n))
     return out
 
 
@@ -123,4 +131,5 @@ def lowrank_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 KERNEL_WRAPPERS = (dequant_matmul,)
 
 __all__ = ["KERNEL_WRAPPERS", "MAX_ROWS", "MULTIPLE", "dequant_kernel_limit",
-           "dequant_matmul", "dequant_matmul_plain", "lowrank_delta"]
+           "dequant_matmul", "dequant_matmul_flops", "dequant_matmul_plain",
+           "lowrank_delta"]

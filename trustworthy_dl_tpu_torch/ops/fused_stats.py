@@ -14,7 +14,9 @@ The statistics are diagnostics and constant under differentiation: the
 inputs are detached and the twin runs under ``torch.no_grad``.
 
 :func:`fused_moments` carries a plain integer ``launches`` that it
-increments where it launches its kernel and nowhere else.
+increments where it launches its kernel and nowhere else; there it also
+adds its products, :func:`fused_moments_flops` (none: the battery is
+reductions), to an open FLOP tally (``ops.count_kernel_flops``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Sequence
 import torch
 
 from trustworthy_dl_tpu_torch.ops import check_launch, kernel_library, \
-    on_cuda, stream_handle
+    on_cuda, stream_handle, tally_flops
 
 #: Elements per CTA in the kernel's first pass (a multiple of 4).
 CHUNK = 32768
@@ -54,6 +56,13 @@ def fused_moments_plain(segments: Sequence[torch.Tensor]) -> torch.Tensor:
                                      (x2 * x2).sum(), x.min(), x.max(),
                                      ax.sum(), ax.max()]))
     return torch.stack(rows)
+
+
+def fused_moments_flops(sizes: Sequence[int]) -> int:
+    """Product FLOPs of the battery over segments of ``sizes`` elements:
+    0, as ``torch.utils.flop_counter`` counts :func:`fused_moments_plain`
+    (sums, minima and maxima are not products)."""
+    return 0
 
 
 def fused_moments(segments: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -90,6 +99,7 @@ def fused_moments(segments: Sequence[torch.Tensor]) -> torch.Tensor:
                                      stream_handle(device))
     check_launch(lib, err, "tddl_fused_moments")
     fused_moments.launches += 1
+    tally_flops("fused_moments", fused_moments_flops(lens))
     return out
 
 
@@ -99,4 +109,4 @@ fused_moments.launches = 0
 KERNEL_WRAPPERS = (fused_moments,)
 
 __all__ = ["CHUNK", "KERNEL_WRAPPERS", "MAX_SEGMENTS", "fused_moments",
-           "fused_moments_plain"]
+           "fused_moments_flops", "fused_moments_plain"]

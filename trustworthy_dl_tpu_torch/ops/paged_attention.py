@@ -13,7 +13,9 @@ JAX package's ``paged_attention_reference`` and
 and ``chip_smoke.py`` holds the kernels against them on the card.
 
 Each wrapper carries a plain integer ``launches`` that it increments where
-it launches its kernel and nowhere else.  The int8 instances of B5 and B6
+it launches its kernel and nowhere else; there it also adds its kernel's
+products (``*_flops``, the products of its plain twin) to an open FLOP
+tally (``ops.count_kernel_flops``).  The int8 instances of B5 and B6
 have wrappers of their own (``paged_attention_int8``,
 ``paged_prefill_attention_int8``), so their launches count apart.
 
@@ -35,7 +37,7 @@ import torch
 
 from trustworthy_dl_tpu_torch.ops import (DTYPE_CODES, check_launch,
                                           kernel_library, on_cuda,
-                                          stream_handle)
+                                          stream_handle, tally_flops)
 from trustworthy_dl_tpu_torch.ops.fused_dequant_matmul import lowrank_delta
 
 NEG_INF = -1e30
@@ -91,6 +93,23 @@ def paged_attention_plain(q: torch.Tensor, pool_k: torch.Tensor,
 
 #: The prefill kernel computes the same function as the decode kernel.
 paged_prefill_attention_plain = paged_attention_plain
+
+
+def paged_attention_flops(r: int, h: int, t: int, dh: int, keys: int
+                          ) -> int:
+    """Product FLOPs of B5 or B6 (either pool) for q [R, H, T, Dh] over a
+    gathered view of ``keys`` positions (table width x block size): the
+    plain twin's QK^T and PV, as ``torch.utils.flop_counter`` counts
+    :func:`paged_attention_plain`.  The function is counted over the
+    whole view; the kernels stop at each row's causal window."""
+    return 4 * r * h * t * keys * dh
+
+
+def _attention_flops(q: torch.Tensor, pool_k: torch.Tensor,
+                     table: torch.Tensor) -> int:
+    r, h, t, dh = q.shape
+    return paged_attention_flops(r, h, t, dh,
+                                 table.shape[1] * pool_k.shape[2])
 
 
 def _check_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -261,6 +280,7 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     out = _launch_attention("tddl_paged_decode", q, pool_k, pool_v, table,
                             start)
     paged_attention.launches += 1
+    tally_flops("paged_attention", _attention_flops(q, pool_k, table))
     return out
 
 
@@ -285,6 +305,8 @@ def paged_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
     out = _launch_attention("tddl_paged_decode_int8", q, pool_k, pool_v,
                             table, start, scales=(k_scale, v_scale))
     paged_attention_int8.launches += 1
+    tally_flops("paged_attention_int8",
+                _attention_flops(q, pool_k, table))
     return out
 
 
@@ -315,6 +337,8 @@ def paged_prefill_attention(q: torch.Tensor, pool_k: torch.Tensor,
     out = _launch_attention("tddl_paged_prefill", q, pool_k, pool_v, table,
                             start, QROWS)
     paged_prefill_attention.launches += 1
+    tally_flops("paged_prefill_attention",
+                _attention_flops(q, pool_k, table))
     return out
 
 
@@ -349,6 +373,8 @@ def paged_prefill_attention_int8(q: torch.Tensor, pool_k: torch.Tensor,
     out = _launch_attention("tddl_paged_prefill_int8", q, pool_k, pool_v,
                             table, start, QROWS, scales=(k_scale, v_scale))
     paged_prefill_attention_int8.launches += 1
+    tally_flops("paged_prefill_attention_int8",
+                _attention_flops(q, pool_k, table))
     return out
 
 
@@ -362,6 +388,13 @@ def logit_trust_stats_plain(logits: torch.Tensor
     entropy = -(logp.exp() * logp).sum(dim=-1)
     top2 = torch.topk(logits, 2, dim=-1).values
     return entropy, top2[:, 0] - top2[:, 1]
+
+
+def logit_trust_stats_flops(b: int, v: int) -> int:
+    """Product FLOPs of B7 over [B, V]: 0, as ``torch.utils.flop_counter``
+    counts :func:`logit_trust_stats_plain` (a softmax and a top-2 are not
+    products)."""
+    return 0
 
 
 def logit_trust_stats(logits: torch.Tensor
@@ -386,6 +419,7 @@ def logit_trust_stats(logits: torch.Tensor
                                    stream_handle(logits.device))
     check_launch(lib, err, "tddl_trust_stats")
     logit_trust_stats.launches += 1
+    tally_flops("logit_trust_stats", logit_trust_stats_flops(b, v))
     return entropy, margin
 
 
@@ -418,6 +452,13 @@ def fused_verify_tail_plain(normed: torch.Tensor, head: torch.Tensor
     logits = (normed.float() @ head.float().T).to(normed.dtype).float()
     entropy, margin = logit_trust_stats_plain(logits)
     return logits, entropy, margin
+
+
+def fused_verify_tail_flops(b: int, d: int, v: int) -> int:
+    """Product FLOPs of B8 for ``normed`` [B, D] and the head [V, D]: the
+    logits' 2 B D V (the trust epilogue adds none), as
+    ``torch.utils.flop_counter`` counts :func:`fused_verify_tail_plain`."""
+    return 2 * b * d * v
 
 
 def verify_group_rows(d: int) -> int:
@@ -508,6 +549,7 @@ def fused_verify_tail(normed: torch.Tensor, head: torch.Tensor
                 d, v, stream_handle(dev))
         check_launch(lib, err, "tddl_verify_tail")
         fused_verify_tail.launches += 1
+    tally_flops("fused_verify_tail", fused_verify_tail_flops(b, d, v))
     return logits, entropy, margin
 
 
@@ -536,6 +578,13 @@ def adapter_delta_plain(x: torch.Tensor, a_pool: torch.Tensor,
     return lowrank_delta(x, a_pool[idx], b_pool[idx],
                          None if a_scale is None else a_scale[idx],
                          None if b_scale is None else b_scale[idx])
+
+
+def adapter_delta_flops(r: int, t: int, d: int, rank: int) -> int:
+    """Product FLOPs of B9 for ``x`` [R, T, D] through rank-``rank``
+    pages: (x A) then (h B), 2 R T D r each, as ``torch.utils.
+    flop_counter`` counts :func:`adapter_delta_plain`."""
+    return 4 * r * t * d * rank
 
 
 def adapter_smem_bytes(rank: int, d: int, tile_t: int = ADAPTER_TILE_T,
@@ -662,6 +711,7 @@ def adapter_delta(x: torch.Tensor, a_pool: torch.Tensor,
             stream_handle(x.device))
     check_launch(lib, err, "tddl_adapter_delta")
     adapter_delta.launches += 1
+    tally_flops("adapter_delta", adapter_delta_flops(r_rows, t, d, rank))
     return out
 
 
@@ -682,12 +732,13 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "ADAPTER_MAX_RANK", "BF16_KERNEL_MAX_DH", "KERNEL_WRAPPERS", "NEG_INF",
-    "QROWS", "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_plain",
-    "adapter_kernel_limit", "adapter_smem_bytes",
+    "QROWS", "VERIFY_MAX_ROWS", "adapter_delta", "adapter_delta_flops",
+    "adapter_delta_plain", "adapter_kernel_limit", "adapter_smem_bytes",
     "attn_template_smem_bytes", "decode_kernel_limit",
-    "fused_verify_tail", "fused_verify_tail_plain", "gather_pool",
-    "logit_trust_stats",
-    "logit_trust_stats_plain", "paged_attention", "paged_attention_int8",
+    "fused_verify_tail", "fused_verify_tail_flops",
+    "fused_verify_tail_plain", "gather_pool", "logit_trust_stats",
+    "logit_trust_stats_flops", "logit_trust_stats_plain",
+    "paged_attention", "paged_attention_flops", "paged_attention_int8",
     "paged_attention_plain", "paged_prefill_attention",
     "paged_prefill_attention_int8", "paged_prefill_attention_plain",
     "prefill_int8_kernel_limit", "prefill_kernel_limit",

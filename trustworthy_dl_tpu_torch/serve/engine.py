@@ -40,12 +40,18 @@ TTFT/ITL/occupancy SLO rules and the ITL anomaly detector, whose breach
 sheds the lowest-priority queued request (status ``shed_slo``) while the
 queue is longer than the free rows; with its HBM monitor the headroom
 gate, which shrinks the paged KV pool and then the adapter pool to what
-the device's free memory allows before either is allocated.
+the device's free memory allows before either is allocated; with its
+compile watcher the decode, draft and verify dispatches run under their
+guards.  On the card the engine loads every kernel library its
+configuration can launch when it is built (:func:`engine_libraries`), so
+no load in the hot loop is a first one and a clean run shows no storm.
+:meth:`ServingEngine.analyze_programs` notes the decode step's and a
+prefill chunk's product counts in a cost ledger.
 
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
 where every kernel wrapper runs its plain PyTorch version.  Chaos hooks,
-fleets, tensor parallelism and the compile watcher are not ported yet.
+fleets and tensor parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from trustworthy_dl_tpu_torch import ops
 from trustworthy_dl_tpu_torch.detect import baseline as bl
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
@@ -81,6 +88,22 @@ logger = logging.getLogger(__name__)
 #: The serving programs of the ``tddl_serve_attn_kernel`` gauge (JAX's
 #: ``ops.paged_attention.PAGED_PROGRAMS``); each runs ``attn_impl``.
 PAGED_PROGRAMS = ("decode", "prefill", "verify", "adapter")
+
+
+def engine_libraries(attn_impl: str, weight_dtype: str, spec_k: int,
+                     adapter_rank: int) -> List[str]:
+    """The kernel libraries an engine of this configuration can launch on
+    the card: the paged-attention library (B5-B8) and, with adapters,
+    B9's on the kernel path; B4's with int8 weights or a speculative
+    draft, whatever ``attn_impl``."""
+    names = []
+    if attn_impl == "kernel":
+        names.append("paged_attention")
+        if adapter_rank > 0:
+            names.append("adapter_delta")
+    if weight_dtype == "int8" or spec_k > 0:
+        names.append("fused_dequant_matmul")
+    return names
 
 
 class _NullMetric:
@@ -258,6 +281,15 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"the int8 dequant matmul's limits refuse "
                                  f"this model: {limit}")
+        if self.device.type == "cuda":
+            # Every library this configuration can launch, loaded now:
+            # B9's would first load on the first tick with an adapter row
+            # and B4's on the first int8-weight tick, inside a guarded
+            # dispatch after warmup, a storm the compile watcher would
+            # report.
+            for name in engine_libraries(attn_impl, weight_dtype, spec_k,
+                                         adapter_rank):
+                ops.kernel_library(name)
         trace, registry, spans, ledger, slo, anomaly, hbm = (
             (obs.trace, obs.registry, obs.spans, obs.ledger, obs.slo,
              obs.anomaly, obs.hbm) if obs is not None else (None,) * 7)
@@ -360,6 +392,8 @@ class ServingEngine:
         self.slo = slo
         self.anomaly = anomaly
         self.scheduler.spans = spans
+        self.compilewatch = obs.compilewatch if obs is not None else None
+        self.scheduler.compilewatch = self.compilewatch
         self._req_spans: Dict[int, Dict[str, int]] = {}  # rid -> open ids
         self.shed_slo = 0
         self._queue: Deque[tuple] = deque()     # (task, request)
@@ -959,6 +993,14 @@ class ServingEngine:
                     out["streaming"][f"{name}_p99_ms"] = float(
                         self.slo.quantile(signal, 0.99) * 1e3)
         return out
+
+    def analyze_programs(self, ledger: Any) -> Any:
+        """Note this engine's serve programs (``serve.decode``,
+        ``serve.prefill``) in an ``obs.hbm.CostLedger``: their product
+        counts, worked out from the engine's shapes without running
+        anything (``PagedBatchingScheduler.analyze_costs``)."""
+        self.scheduler.analyze_costs(ledger)
+        return ledger
 
     def verify_attribution(self) -> "tuple[bool, list]":
         """Reconcile the attached ledger's records against the paged

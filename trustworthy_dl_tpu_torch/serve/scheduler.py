@@ -52,8 +52,12 @@ engine) times each prefix lookup (``serve.prefix_lookup``), prefill chunk
 (``serve.prefill_chunk``) and speculative verify (``serve.spec_verify``);
 admission records each request's placement (block table, prefix blocks and
 their publishers, adapter page) for the attribution ledger
-(:meth:`PagedBatchingScheduler.attribution_info`).  Migration, the stripe
-scheduler and the compile watcher are not ported yet.
+(:meth:`PagedBatchingScheduler.attribution_info`); with a compile watcher
+(``compilewatch``, an ``obs.compilewatch.CompileWatcher`` set by the
+engine) each decode step, draft step and verify pass runs under its
+``serve_decode``, ``serve_spec_draft`` and ``serve_spec_verify`` guard, so
+a kernel library loaded inside one after its first call is a storm.
+Migration and the stripe scheduler are not ported yet.
 """
 
 from __future__ import annotations
@@ -68,6 +72,10 @@ import torch
 
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
+from trustworthy_dl_tpu_torch.obs.compilewatch import guarded
+from trustworthy_dl_tpu_torch.obs.hbm import FLOPS_SOURCE
+from trustworthy_dl_tpu_torch.ops.fused_dequant_matmul import \
+    dequant_matmul_flops
 from trustworthy_dl_tpu_torch.ops import paged_attention as pattn
 from trustworthy_dl_tpu_torch.quant import int8 as q8
 from trustworthy_dl_tpu_torch.serve.adapters import (ZERO_PAGE, AdapterPool,
@@ -412,6 +420,9 @@ class PagedBatchingScheduler:
         # ledger reads at retirement, after retire() cleared the table.
         self._attrib: Dict[int, Dict[str, Any]] = {}
         self.spans: Any = None   # an obs.spans.SpanTracker (the engine's)
+        # An obs.compilewatch.CompileWatcher (the engine's): the decode,
+        # draft and verify dispatches run under its guards.
+        self.compilewatch: Any = None
         self.prefix_lookups = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
@@ -435,6 +446,73 @@ class PagedBatchingScheduler:
         # token copy, the verify at its packed copy).
         self.spec_draft_s = 0.0
         self.spec_verify_s = 0.0
+
+    # -- cost ledger ---------------------------------------------------------
+
+    def _program_cost(self, rows: int, t: int, head_rows: int
+                      ) -> Dict[str, Any]:
+        """Products of one paged program over ``rows`` rows of ``t`` new
+        positions at the full table width, projecting ``head_rows`` rows
+        to logits: the view's block matrices (B4's shape count on the int8
+        weight tier), the attention kernel's and B9's shape counts, the
+        tied head.  The cost block of ``obs.hbm.count_flops``."""
+        cfg = self.cfg
+        kernels: Dict[str, int] = {}
+        library = 0
+
+        def add(name: Optional[str], flops: int) -> None:
+            nonlocal library
+            if name is None:
+                library += flops
+            else:
+                kernels[name] = kernels.get(name, 0) + flops
+
+        on_kernels = self.attn_impl == "kernel"
+        for block in self.view["layers"]:
+            for part, name in (("attn", "qkv"), ("attn", "proj"),
+                               ("mlp", "fc"), ("mlp", "proj")):
+                d = block[part][name]
+                if q8.is_quantized_dense(d):
+                    k, n = d["w_q"].shape
+                    add("dequant_matmul",
+                        dequant_matmul_flops(rows * t, k, n))
+                else:
+                    k, n = d["w"].shape
+                    add(None, 2 * rows * t * k * n)
+        attend = "paged_prefill_attention" if t > pattn.QROWS \
+            else "paged_attention"
+        if self.kv.quantized:
+            attend += "_int8"
+        add(attend if on_kernels else None, cfg.n_layer *
+            pattn.paged_attention_flops(rows, cfg.n_head, t, cfg.head_dim,
+                                        self.nbps * self.block_size))
+        if self.adapters is not None:
+            # Two sites a layer (the attention output, the ln_2 output).
+            add("adapter_delta" if on_kernels else None, 2 * cfg.n_layer *
+                pattn.adapter_delta_flops(rows, t, cfg.n_embd,
+                                          self.adapters.rank))
+        v, d = self.view["wte_head"].shape
+        library += 2 * head_rows * d * v
+        total = library + sum(kernels.values())
+        return {"flops": float(total), "library_flops": library,
+                "kernel_flops": dict(sorted(kernels.items())),
+                "flops_source": FLOPS_SOURCE, "bytes_accessed": None,
+                "rows": rows, "positions": t,
+                "keys": self.nbps * self.block_size}
+
+    def analyze_costs(self, ledger: Any) -> None:
+        """Note the decode step (``serve.decode``: every one of
+        ``max_slots`` rows, one position each) and one prefill chunk
+        (``serve.prefill``: a full chunk of one row, the prompt's final
+        chunk, which projects its last position) in an
+        ``obs.hbm.CostLedger``, worked out from the engine's shapes
+        without running anything.  Both attend over the full table width,
+        as the attention kernels' plain twins do, so the counts do not
+        depend on the rows' current lengths; each equals what
+        ``count_flops`` counts over one run of the program."""
+        ms = self.allocator.max_slots
+        ledger.note("serve.decode", self._program_cost(ms, 1, ms))
+        ledger.note("serve.prefill", self._program_cost(1, self.chunk, 1))
 
     # -- admission ---------------------------------------------------------
 
@@ -683,10 +761,11 @@ class PagedBatchingScheduler:
                  if self.adapters is not None else [])
         tokens_dev, tables_dev, lengths_dev, *pages = _device_i32(
             self.device, tokens, tables, self.lengths, *extra)
-        packed = _paged_decode_impl(
-            self.cfg, self.kv, self.view, tokens_dev.long(), tables_dev,
-            lengths_dev, seeds, indices, temps, greedy, self.attn_impl,
-            self._adapter_args(pages))
+        with guarded(self.compilewatch, "serve_decode"):
+            packed = _paged_decode_impl(
+                self.cfg, self.kv, self.view, tokens_dev.long(), tables_dev,
+                lengths_dev, seeds, indices, temps, greedy, self.attn_impl,
+                self._adapter_args(pages))
         self.decode_ticks += 1
         host = packed.cpu().numpy()      # the tick's one device-to-host copy
         next_tok, ent, margin = host[0], host[1], host[2]
@@ -744,10 +823,11 @@ class PagedBatchingScheduler:
         t0 = time.perf_counter()
         draft_dev = []
         for j in range(k):
-            cur = _spec_draft_impl(self.cfg, self.kv, self.draft_view, cur,
-                                   tables_dev, draft_lengths[j], seeds,
-                                   indices[:, j], temps, greedy,
-                                   self.attn_impl)
+            with guarded(self.compilewatch, "serve_spec_draft"):
+                cur = _spec_draft_impl(self.cfg, self.kv, self.draft_view,
+                                       cur, tables_dev, draft_lengths[j],
+                                       seeds, indices[:, j], temps, greedy,
+                                       self.attn_impl)
             draft_dev.append(cur)
         # One host copy for the whole draft chain.
         drafts = torch.stack(draft_dev, dim=1).cpu().numpy()
@@ -755,10 +835,11 @@ class PagedBatchingScheduler:
         self.spec_draft_s += t1 - t0
         window = torch.cat([dev[0].long()[:, None],
                             torch.stack(draft_dev, dim=1)], dim=1)
-        packed = _spec_verify_impl(self.cfg, self.kv, self.view, window,
-                                   tables_dev, lengths_dev, seeds,
-                                   indices.reshape(-1), temps, greedy,
-                                   self.attn_impl)
+        with guarded(self.compilewatch, "serve_spec_verify"):
+            packed = _spec_verify_impl(self.cfg, self.kv, self.view, window,
+                                       tables_dev, lengths_dev, seeds,
+                                       indices.reshape(-1), temps, greedy,
+                                       self.attn_impl)
         host = packed.cpu().numpy()                      # [3, ms, k+1]
         self.spec_verify_s += time.perf_counter() - t1
         self.spec_ticks += 1

@@ -71,7 +71,8 @@ ARMS = ("off", "on")
 #: The serve arms, each a session with one attachment more than the arm
 #: before it: none (bare), the trace bus and registry alone, then spans,
 #: the attribution ledger, the SLO and anomaly watchers, and the HBM
-#: monitor (``on``: what ``cli serve --obs-dir`` opens).
+#: monitor with the compile watcher and forensics (``on``: what ``cli
+#: serve --obs-dir`` opens).
 SERVE_LADDER = ("off", "trace", "spans", "ledger", "watchers", "on")
 #: ... and ``on`` kept in memory (``ObsSession(None)``: no file written),
 #: which tells the session's file I/O from its other work.
@@ -179,14 +180,19 @@ def tree_rounds(parent: str) -> dict:
             "change_vs_parent": verdict(walls["change"], walls["parent"])}
 
 
-def serve_session(root: Optional[str], upto: str = "on"):
+def serve_session(root: Optional[str], upto: str = "on", *,
+                  perf_ledger: Optional[str] = None,
+                  verdict_path: Optional[str] = None):
     """A session writing to ``root`` with the attachments of
     :data:`SERVE_LADDER` up to ``upto``; by default as ``cli serve
     --obs-dir`` opens it: spans, the attribution ledger, the default SLO
-    rules and anomaly watcher, the HBM monitor."""
+    rules and anomaly watcher, the HBM monitor, the compile watcher and
+    forensics.  ``perf_ledger`` and ``verdict_path`` name the session's
+    cross-run files; left None they resolve as ``cli serve``'s do (the
+    environment, then ``root``)."""
     from trustworthy_dl_tpu_torch.obs import ObsSession
 
-    session = ObsSession(root)
+    session = ObsSession(root, perf_ledger=perf_ledger)
     steps = SERVE_LADDER[:SERVE_LADDER.index(upto) + 1]
     if "spans" in steps:
         session.enable_spans()
@@ -195,6 +201,8 @@ def serve_session(root: Optional[str], upto: str = "on"):
     if "watchers" in steps:
         session.install_watchers()
     if "on" in steps:
+        session.enable_forensics(verdict_path=verdict_path)
+        session.enable_compile_watch()
         session.enable_hbm()
     return session
 
@@ -221,7 +229,11 @@ def serve_rounds(rounds: int, root: str) -> dict:
         if arm == "on_memory":
             session = serve_session(None)
         elif arm != "off":
-            session = serve_session(tempfile.mkdtemp(dir=root), arm)
+            arm_dir = tempfile.mkdtemp(dir=root)
+            session = serve_session(
+                arm_dir, arm,
+                perf_ledger=os.path.join(arm_dir, "PERF_LEDGER.jsonl"),
+                verdict_path=os.path.join(arm_dir, "VERDICTS.jsonl"))
         engine = smoke_engine(cfg, params, "kernel", obs=session)
         collections = _collections()
         with _GcClock() as clock:
