@@ -53,6 +53,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
    plain path; greedy streams against the plain path; at least one
    eviction, no leaked page or block, and some greedy stream moved from
    the rank-0 serve drive's.
+4e. serve_stripe, serve_stripe_int8_weights: the legacy stripe engine
+   (``paged=False``, 8 slots of 512 positions, 151 MB in bf16) over the
+   same traffic, model-dtype then int8 weights; B7 launched once per
+   admission and once per decode tick, B4 4 x 12 times per forward at
+   int8, nothing else; greedy streams against the paged drive of the same
+   tier by the near-tie rule; tokens/s, TTFT and ITL, and the device's
+   busy share over engine steps 12-27 of a fresh run
+   (``utils/serve_profile.busy_window``).
+4f. serve_migrate: two paged engines in one process; requests 1 and 2
+   (greedy) and 3 (sampled) migrate mid-decode (``serve/migrate.py``),
+   2 with ``quarantine_src=True``, then request 5 between two engines over
+   int8 pools.  Migrated streams token for token the unmigrated drive's,
+   the others by the near-tie rule; the source's free blocks up by the
+   request's private blocks (unchanged under quarantine, those impounded);
+   ``verify_attribution()`` on both engines; B5-B7 exact from both
+   engines' counters; the copy's ms per request and per block.
+4g. serve_chaos: the SERVE_POISON drill on one paged and one stripe
+   engine: request 15 alone flagged, one slot quarantined, capacity back
+   after the release, the kernels of each layout exact.
 5. train: ``DistributedTrainer.train_epoch`` on GPT-2 small at full width
    (T = 1024, 4 nodes x 8 sequences, AdamW lr 1e-4, block remat, flash
    attention through ``attn_impl="auto"``, synthetic tokens from seed 0),
@@ -1362,6 +1381,7 @@ def serve_tiers_drive(torch, entries, card):
               "prefill_chunks", "prefix_hits")},
           "launches": {k: launches[k] for k in want},
           "expected_launches": want, "vs_plain_path": vs_plain})
+    return {"int8_kv": off_results, "int8_weights": results}
 
 
 def serve_d96_drive(torch, entries, card):
@@ -1494,6 +1514,323 @@ def serve_adapters_drive(torch, entries, card, base_results):
               "expected_launches": want, "vs_plain_path": vs_plain,
               "greedy_streams_moved_from_rank0": len(moved),
               "greedy_streams": len(greedy)})
+
+
+def serve_stripe_drive(torch, entries, card, base_results, tier_results):
+    """Phase 4e: the legacy stripe engine (``paged=False``, 8 slots of 512
+    positions) over the smoke traffic, in the model-dtype tier and at
+    ``weight_dtype="int8"``, with the launch counters set to 0 just before
+    and read just after: B7 once per admission (the stripe prefill samples
+    the first token) and once per decode tick; at int8, B4 once per block
+    matrix a forward (4 x 12 per admission and per tick); nothing else.
+    The greedy streams held against the paged drive's of the same tier by
+    the near-tie rule; then a fresh run with engine steps 12-27 (steady
+    decode ticks) profiled for the device's busy share."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (
+        busy_window, serve_smoke, smoke_engine, smoke_traffic)
+
+    cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2.init_params(cfg, gen_, device="cuda")
+    requests = smoke_traffic(cfg.vocab_size)
+    n_layer = cfg.n_layer
+    for tier, phase, ref in (("model", "serve_stripe", base_results),
+                             ("int8", "serve_stripe_int8_weights",
+                              tier_results["int8_weights"])):
+        t_phase = time.perf_counter()
+        knobs = dict(paged=False, weight_dtype=tier)
+        serve_smoke(cfg, params, "kernel", requests[:1], **knobs)  # warm-up
+        ops.reset_launch_counts()
+        engine, results, wall = serve_smoke(cfg, params, "kernel", requests,
+                                            **knobs)
+        launches = ops.launch_counts()
+        s = engine.metrics_summary()
+        check_completed(results, requests)
+        if s["layout"] != "stripe" or s["local_prefills"] != len(requests):
+            raise AssertionError(f"{phase}: {s['layout']} engine, "
+                                 f"{s['local_prefills']} prefills")
+        forwards = s["local_prefills"] + s["decode_ticks"]
+        want = {"logit_trust_stats": forwards}
+        if tier == "int8":
+            want["dequant_matmul"] = 4 * n_layer * forwards
+        expect_launches(launches, want, phase)
+        pool = engine.scheduler.kv
+        vs_paged = compare_greedy(requests, results, ref,
+                                  f"{phase} vs the paged drive")
+        busy = busy_window(smoke_engine(cfg, params, "kernel", **knobs),
+                           requests)
+        key = "launches_stripe_drive" if tier == "model" \
+            else "launches_stripe_int8_weights_drive"
+        entries["logit_trust_stats"][key] = launches["logit_trust_stats"]
+        if tier == "int8":
+            entries["dequant_matmul"]["launches_stripe_drive"] = \
+                launches["dequant_matmul"]
+        emit({"phase": phase, "card": card,
+              "seconds": time.perf_counter() - t_phase,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16, random init "
+              "seed 0)", "layout": "stripe", "weight_dtype": tier,
+              "max_slots": pool.max_slots, "max_seq": pool.max_seq,
+              "pool_bytes": pool.pool_bytes, "requests": len(requests),
+              "buckets": list(engine.scheduler.buckets), "wall_s": wall,
+              **{key_: s.get(key_) for key_ in (
+                  "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                  "itl_p50_ms", "itl_p99_ms", "decode_ticks",
+                  "local_prefills", "decode_tick_fraction",
+                  "mean_occupancy", "attn_kernel_paths")},
+              "busy_window": busy,
+              "launches": launches_of(launches, want),
+              "expected_launches": want, "vs_paged_drive": vs_paged})
+
+
+def launches_of(launches, want):
+    return {k: launches[k] for k in want}
+
+
+def migrate_pair(torch, cfg, params, requests, moves, **knobs):
+    """Two smoke engines of one configuration on the card: every request
+    submitted to the source, the source stepped until each request of
+    ``moves`` ({request id: quarantine the source}) has 4 tokens, each
+    then migrated to the destination, both run until idle.  A record
+    times the whole hand-off (``migrate_request``: export, claim, copy,
+    adopt, the source's cancel) and, within it, the pool copy alone
+    (``serve.migrate._copy_pools``, the card synchronized around it).
+    Returns (source, destination, {request id: its stream across both},
+    [per-migration record])."""
+    from trustworthy_dl_tpu_torch.obs.attribution import AttributionLedger
+    from trustworthy_dl_tpu_torch.serve import ServeRequest, migrate_request
+    from trustworthy_dl_tpu_torch.serve import migrate as migrate_mod
+    from trustworthy_dl_tpu_torch.utils.serve_profile import smoke_engine
+
+    copy_ms = []
+    real_copy = migrate_mod._copy_pools
+
+    def timed_copy(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_copy(*args)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+
+    src = smoke_engine(cfg, params, "kernel", **knobs)
+    dst = smoke_engine(cfg, params, "kernel", **knobs)
+    for engine in (src, dst):
+        engine.ledger = AttributionLedger()
+    for prompt, temp in requests:
+        if src.submit(ServeRequest(prompt=prompt, max_new_tokens=32,
+                                   temperature=temp)) is None:
+            raise RuntimeError("request shed by backpressure")
+    pending, records, new_ids = dict(moves), [], {}
+    migrate_mod._copy_pools = timed_copy
+    try:
+        for _ in range(400):
+            if not pending:
+                break
+            src.step()
+            ready = [r for r in pending if r in src._inflight
+                     and len(src._inflight[r][0].emitted) >= 4]
+            for rid in ready:
+                quarantine = pending.pop(rid)
+                snap = src.export_request(rid)
+                private = sum(src.scheduler.blocks.refcount(b) == 1
+                              for b in snap["block_ids"])
+                free = src.scheduler.blocks.free_count
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n_copies = len(copy_ms)
+                moved = migrate_request(src, dst, rid,
+                                        quarantine_src=quarantine)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if moved is None:
+                    raise AssertionError(
+                        f"migration of request {rid} refused")
+                freed = src.scheduler.blocks.free_count - free
+                if freed != (0 if quarantine else private):
+                    raise AssertionError(
+                        f"request {rid}: the source freed {freed} blocks, "
+                        f"expected {0 if quarantine else private} of "
+                        f"{moved['blocks']}")
+                if quarantine and not set(snap["block_ids"]) >= \
+                        src.scheduler.blocks.quarantined:
+                    raise AssertionError("quarantined blocks outside the "
+                                         "migrated table")
+                new_ids[rid] = moved["local_id"]
+                copied = sum(copy_ms[n_copies:])
+                records.append({"request_id": rid,
+                                "tokens_at_move": len(snap["task"].emitted),
+                                "blocks": moved["blocks"],
+                                "private_blocks": private,
+                                "quarantine_src": quarantine,
+                                "handoff_ms": ms, "copy_ms": copied,
+                                "copy_ms_per_block":
+                                    copied / moved["blocks"]})
+    finally:
+        migrate_mod._copy_pools = real_copy
+    if pending:
+        raise AssertionError(f"requests {sorted(pending)} never reached "
+                             "mid-decode")
+    src_results = dict(src.run_until_idle())
+    dst_results = dict(dst.run_until_idle())
+    torch.cuda.synchronize()
+    streams = {}
+    for rid in range(len(requests)):
+        res = dst_results[new_ids[rid]] if rid in new_ids \
+            else src_results[rid]
+        streams[rid] = res
+        if rid in new_ids and src_results[rid].status != "migrated":
+            raise AssertionError(f"request {rid}: source status "
+                                 f"{src_results[rid].status}")
+    for name, engine in (("source", src), ("destination", dst)):
+        ok, problems = engine.verify_attribution()
+        if not ok:
+            raise AssertionError(f"{name} attribution: {problems[:3]}")
+    return src, dst, streams, records
+
+
+def serve_migrate_drive(torch, entries, card, base_results, tier_results):
+    """Phase 4f: live migration between two paged engines in one process
+    on the card.  Of the 16 smoke requests, 1 and 2 (greedy) and 3
+    (sampled) move mid-decode from one engine to another, 2 with
+    ``quarantine_src=True``; then 5 moves between two engines over int8
+    pools.  Gates: every stream (across the hand-off) equal to the
+    unmigrated drive's, the migrated ones token for token, the others by
+    the near-tie rule (admission timing on the source moves with the freed
+    rows, so a prefix hit may change); the source's free blocks up by the
+    migrated request's private blocks (unchanged under quarantine, those
+    impounded); ``verify_attribution()`` on both engines; B5-B7 launched
+    exactly as both engines' counters make them."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.utils.serve_profile import smoke_traffic
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2.init_params(cfg, gen_, device="cuda")
+    requests = smoke_traffic(cfg.vocab_size)
+    n_layer = cfg.n_layer
+    out = {"phase": "serve_migrate", "card": card, "requests":
+           len(requests)}
+    for arm, moves, knobs, ref, suffix in (
+            ("model", {1: False, 2: True, 3: False}, {}, base_results, ""),
+            ("int8", {5: False}, dict(kv_dtype="int8", prefill_chunk=None),
+             tier_results["int8_kv"], "_int8")):
+        ops.reset_launch_counts()
+        src, dst, streams, records = migrate_pair(torch, cfg, params,
+                                                  requests, moves, **knobs)
+        launches = ops.launch_counts()
+        for rid in moves:
+            if streams[rid].tokens != ref[rid].tokens:
+                raise AssertionError(f"{arm}: migrated request {rid} "
+                                     "diverged from the unmigrated stream")
+        check_completed(streams, requests)
+        vs_ref = compare_greedy(requests, streams, ref,
+                                f"{arm} migrated vs unmigrated")
+        ticks = sum(e.metrics_summary()["decode_ticks"] for e in (src, dst))
+        chunks = sum(e.metrics_summary()["prefill_chunks"]
+                     for e in (src, dst))
+        want = {f"paged_attention{suffix}": n_layer * ticks,
+                f"paged_prefill_attention{suffix}": n_layer * chunks,
+                "logit_trust_stats": len(requests) + ticks}
+        expect_launches(launches, want, f"serve_migrate {arm}")
+        if src.in_service_capacity != 8 - sum(moves.values()):
+            raise AssertionError(f"{arm}: source capacity "
+                                 f"{src.in_service_capacity}")
+        out[arm] = {"migrations": records,
+                    "blocks_moved": sum(r["blocks"] for r in records),
+                    "copy_ms_per_request": statistics.mean(
+                        r["copy_ms"] for r in records),
+                    "copy_ms_per_block": sum(r["copy_ms"] for r in records)
+                    / sum(r["blocks"] for r in records),
+                    "handoff_ms_per_request": statistics.mean(
+                        r["handoff_ms"] for r in records),
+                    "handoff_ms_per_block":
+                        sum(r["handoff_ms"] for r in records)
+                    / sum(r["blocks"] for r in records),
+                    "source_quarantined_blocks":
+                        len(src.scheduler.blocks.quarantined),
+                    "launches": launches_of(launches, want),
+                    "expected_launches": want, "vs_unmigrated": vs_ref}
+    emit({**out, "seconds": time.perf_counter() - t_phase})
+
+
+def serve_chaos_drive(torch, entries, card):
+    """Phase 4g: the SERVE_POISON drill of the JAX package's
+    ``tests/test_survival.py`` at full width, on one paged and one stripe
+    engine over the smoke traffic: request 15's signals poisoned at its
+    retirement, a monitor that absorbs 4 clean requests first and flags
+    at z > 1000 (far above what random weights' requests reach, far below
+    the poison's: margins of 1000), launch counters set to 0 just before
+    and read just after.  Gates: request 15 alone flagged, exactly one
+    slot quarantined (capacity 7), capacity 8 after the operator's release
+    (the impounded blocks back too on the paged engine), one fault fired,
+    the kernels of each layout launched exactly."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.chaos import (FaultEvent, FaultInjector,
+                                                FaultKind, FaultPlan)
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import OutputMonitor
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (drive_smoke,
+                                                              smoke_engine,
+                                                              smoke_traffic)
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2.init_params(cfg, gen_, device="cuda")
+    requests = smoke_traffic(cfg.vocab_size)
+    n_layer = cfg.n_layer
+    poisoned = len(requests) - 1
+    out = {"phase": "serve_chaos", "card": card, "poisoned_request":
+           poisoned}
+    for layout in ("paged", "stripe"):
+        injector = FaultInjector(FaultPlan.scripted(
+            [FaultEvent(step=poisoned, kind=FaultKind.SERVE_POISON)]))
+        engine = smoke_engine(cfg, params, "kernel",
+                              paged=layout == "paged", chaos=injector,
+                              monitor=OutputMonitor(warmup=4,
+                                                    z_threshold=1000.0))
+        ops.reset_launch_counts()
+        results, wall = drive_smoke(engine, requests)
+        launches = ops.launch_counts()
+        s = engine.metrics_summary()
+        check_completed(results, requests)
+        flagged = sorted(r for r, res in results.items() if res.flagged)
+        if flagged != [poisoned] or injector.counts() != \
+                {"serve_poison": 1}:
+            raise AssertionError(f"{layout}: flagged {flagged}, fired "
+                                 f"{injector.counts()}")
+        quarantined = sorted(engine.quarantined_slots)
+        if len(quarantined) != 1 or engine.in_service_capacity != 7:
+            raise AssertionError(f"{layout}: quarantined {quarantined}, "
+                                 f"capacity {engine.in_service_capacity}")
+        impounded = (len(engine.scheduler.blocks.quarantined)
+                     if layout == "paged" else 0)
+        engine.release_quarantine(quarantined[0])
+        if engine.in_service_capacity != 8 or (
+                layout == "paged" and engine.scheduler.blocks.quarantined):
+            raise AssertionError(f"{layout}: release left capacity "
+                                 f"{engine.in_service_capacity}")
+        ticks = s["decode_ticks"]
+        if layout == "paged":
+            want = {"paged_attention": n_layer * ticks,
+                    "paged_prefill_attention": n_layer * s["prefill_chunks"],
+                    "logit_trust_stats": len(requests) + ticks}
+        else:
+            want = {"logit_trust_stats": s["local_prefills"] + ticks}
+        expect_launches(launches, want, f"serve_chaos {layout}")
+        out[layout] = {"wall_s": wall, "flagged": flagged,
+                       "monitor_z": results[poisoned].monitor_z,
+                       "max_clean_z": max(res.monitor_z for r, res in
+                                          results.items()
+                                          if r != poisoned),
+                       "quarantined_slot": quarantined[0],
+                       "impounded_blocks": impounded,
+                       "launches": launches_of(launches, want),
+                       "expected_launches": want}
+    emit({**out, "seconds": time.perf_counter() - t_phase})
 
 
 def padded_columns_shift(torch, normed, w) -> float:
@@ -4084,9 +4421,13 @@ def main() -> int:
     check_train_kernels(torch, entries)
     emit({"phase": "kernel_checks", "ok": True})
     base_results = serve_drive(torch, pa, entries, smi)
-    serve_tiers_drive(torch, entries, smi)
+    tier_results = serve_tiers_drive(torch, entries, smi)
     serve_d96_drive(torch, entries, smi)
     serve_adapters_drive(torch, entries, smi, base_results)
+    serve_stripe_drive(torch, entries, smi, base_results, tier_results)
+    serve_migrate_drive(torch, entries, smi, base_results, tier_results)
+    serve_chaos_drive(torch, entries, smi)
+    del tier_results
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)
     del on

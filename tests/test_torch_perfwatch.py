@@ -420,9 +420,14 @@ def test_count_flops_tallies_launches_and_counts_the_f32_out_product():
     ids=["model", "int8", "adapters"])
 def test_analyze_programs_equal_the_counted_programs(params, monkeypatch,
                                                      knobs):
-    counted = {"decode": [], "prefill": []}
+    """The paged engine's programs under JAX's names: the decode step, a
+    prompt's final chunk and the dense local prefill (the last request's
+    prompt fits one chunk and has no adapter), each equal to
+    ``count_flops`` over one run."""
+    counted = {"decode": [], "chunk": [], "prefill": []}
     real_decode = tscheduler._paged_decode_impl
     real_chunk = tscheduler._paged_chunk_impl
+    real_prefill = tscheduler._paged_prefill_impl
 
     def decode(*args, **kwargs):
         with thbm.count_flops() as cost:
@@ -434,27 +439,38 @@ def test_analyze_programs_equal_the_counted_programs(params, monkeypatch,
         with thbm.count_flops() as cost:
             out = real_chunk(*args, **kwargs)
         if out is not None:             # a prompt's final chunk
-            counted["prefill"].append(cost)
+            counted["chunk"].append(cost)
+        return out
+
+    def prefill(*args, **kwargs):
+        with thbm.count_flops() as cost:
+            out = real_prefill(*args, **kwargs)
+        counted["prefill"].append(cost)
         return out
 
     monkeypatch.setattr(tscheduler, "_paged_decode_impl", decode)
     monkeypatch.setattr(tscheduler, "_paged_chunk_impl", chunk)
+    monkeypatch.setattr(tscheduler, "_paged_prefill_impl", prefill)
     engine = ServingEngine(params, CFG, **ENGINE, **knobs)
     for i, (prompt, new) in enumerate(_traffic(n=4, seed=6)):
         engine.submit(ServeRequest(prompt=prompt, max_new_tokens=new,
                                    temperature=0.0,
                                    tenant="ta" if i % 2 else "tb"))
+    short = np.random.default_rng(7).integers(0, VOCAB, 10).tolist()
+    engine.submit(ServeRequest(prompt=short, max_new_tokens=3,
+                               temperature=0.0))
     engine.run_until_idle()
     ledger = engine.analyze_programs(thbm.CostLedger())
-    assert set(ledger.programs) == {"serve.decode", "serve.prefill"}
-    assert counted["decode"] and counted["prefill"]
-    for program, runs in (("decode", counted["decode"]),
-                          ("prefill", counted["prefill"])):
-        entry = ledger.programs[f"serve.{program}"]
+    assert set(ledger.programs) == {"serve.paged_decode",
+                                    "serve.paged_chunk",
+                                    "serve.paged_prefill"}
+    assert counted["decode"] and counted["chunk"] and counted["prefill"]
+    for program, runs in counted.items():
+        entry = ledger.programs[f"serve.paged_{program}"]
         assert {c["flops"] for c in runs} == {entry["flops"]}, program
         assert entry["flops_source"] == thbm.FLOPS_SOURCE
         assert entry["bytes_accessed"] is None
-    decode = ledger.programs["serve.decode"]
+    decode = ledger.programs["serve.paged_decode"]
     assert decode["rows"] == 2 and decode["positions"] == 1
     assert decode["keys"] == 48
     kernels = set(decode["kernel_flops"])
@@ -755,7 +771,7 @@ def test_obs_command_prints_what_jax_prints(obs_dirs, capsys, tmp_path,
         assert "incidents: incident_001_drill.json" in port[1]
         assert "VERDICTS.jsonl: 1 row(s) — incident:recorded=1" in port[1]
     if case == "diff":
-        assert "flops[serve.decode]" in port[1]
+        assert "flops[serve.paged_decode]" in port[1]
 
 
 def test_obs_command_never_imports_torch(obs_dirs):

@@ -5,7 +5,8 @@ imports (``chip_smoke.py`` included).  The walk is checked to reach the
 modules added since it was written (the async host pipeline,
 ``elastic/``, the ResNet and VGG families, the tokenizer, the profiling
 hooks and the telemetry plane, ``obs/``, with its compile watcher,
-forensics, verdict store and perf sentinel).  No ``obs`` module imports
+forensics, verdict store and perf sentinel; the stripe pool, the chaos
+injector's serve hooks and live migration, ``serve/migrate.py``).  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
 ``torch.cuda`` only inside functions, so importing ``obs`` never
 initialises CUDA.  scikit-learn, the ML tier's optional dependency, is
@@ -37,7 +38,11 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                *(f"trustworthy_dl_tpu_torch.obs.{m}" for m in (
                    "registry", "events", "recorder", "report", "spans",
                    "slo", "anomaly", "attribution", "hbm", "session",
-                   "compilewatch", "forensics", "verdicts", "sentinel")))
+                   "compilewatch", "forensics", "verdicts", "sentinel")),
+               "trustworthy_dl_tpu_torch.serve.kv_slots",
+               "trustworthy_dl_tpu_torch.serve.scheduler",
+               "trustworthy_dl_tpu_torch.serve.migrate",
+               "trustworthy_dl_tpu_torch.chaos.injector")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

@@ -21,8 +21,13 @@ test file uses, so this file's JAX programs are its own).
   contract), the batches the corpus's.
 * The flags default to None, so ``cli train`` with no ``--epochs`` runs
   ``TrainingConfig``'s 10 epochs, as JAX's does.
+* ``serve --spec-k`` past ``--max-new-tokens`` exits 2 with JAX's line;
+  ``serve --no-spec-decode`` and ``serve --legacy-stripe`` give JAX's
+  engine knobs and streams; ``train --parallelism data`` reaches the
+  config as in JAX and trains, the modes the port has not got exit 2.
 """
 
+import contextlib
 import json
 import re
 
@@ -402,3 +407,104 @@ def test_train_takes_its_defaults_from_the_config(tmp_path, capsys):
     assert "Training completed: 10 steps" in out
     assert len(re.findall(r"epoch \d+: train_loss", out)) == 10
     assert "over 4 node(s)" in out
+
+
+# ---------------------------------------------------------------------------
+# The serve and train flags JAX has (ROADMAP Queue C 3) and --legacy-stripe
+# ---------------------------------------------------------------------------
+
+
+def test_spec_k_past_max_new_tokens_is_refused_as_jax(tmp_path, capsys):
+    """``--spec-k 7 --max-new-tokens 6``: both exit 2 with the same line,
+    before any model is built; ``--no-spec-decode`` forces spec off first,
+    so the same depth then passes the check."""
+    none = str(tmp_path / "none")
+    argv = ["--spec-k", "7", "--max-new-tokens", "6", "--checkpoint-dir",
+            none]
+    assert jcli.serve_main(argv) == 2
+    jout = capsys.readouterr().out
+    assert cli.serve_main(argv + ["--device", "cpu"]) == 2
+    out = capsys.readouterr().out
+    assert out == jout
+    assert "--spec-k 7 exceeds --max-new-tokens 6" in out
+    parsed = cli.build_serve_parser().parse_args(argv + ["--no-spec-decode"])
+    jparsed = jcli.build_serve_parser().parse_args(
+        argv + ["--no-spec-decode"])
+    assert parsed.no_spec_decode is jparsed.no_spec_decode is True
+    assert parsed.legacy_stripe is jparsed.legacy_stripe is False
+
+
+@pytest.mark.parametrize("flags", [["--spec-k", "2", "--no-spec-decode"],
+                                   ["--legacy-stripe"]],
+                         ids=["no_spec_decode", "legacy_stripe"])
+def test_serve_flags_match_jax_serve_main(checkpoints, capsys, monkeypatch,
+                                          flags):
+    """The same requests through both packages' ``serve_main`` with the
+    flag: the same engine knobs (spec off; the stripe pool), exit 0 and
+    every greedy stream equal."""
+    jengines = _capture_engines(monkeypatch, jengine_mod.ServingEngine)
+    engines = _capture_engines(monkeypatch, engine_mod.ServingEngine)
+    # --block-size on the stripe pool warns in both packages.
+    with pytest.warns(UserWarning) if "--legacy-stripe" in flags else \
+            contextlib.nullcontext():
+        assert jcli.serve_main(SERVE + flags + ["--checkpoint-dir",
+                                                checkpoints["jax"]],
+                               model_overrides=dict(JTINY)) == 0
+    with pytest.warns(UserWarning) if "--legacy-stripe" in flags else \
+            contextlib.nullcontext():
+        assert cli.serve_main(SERVE + flags + ["--checkpoint-dir",
+                                               checkpoints["port"],
+                                               "--device", "cpu"],
+                              model_overrides=dict(TTINY)) == 0
+    out = capsys.readouterr().out
+    assert out.count("requests_completed: 4") == 2
+    jengine, engine = jengines[0], engines[0]
+    assert engine.spec_k == jengine.spec_k == 0
+    assert engine.paged is jengine.paged is ("--legacy-stripe" not in flags)
+    jres, res = jengine.results, engine.results
+    assert sorted(res) == sorted(jres) == [0, 1, 2, 3]
+    for rid in res:
+        assert res[rid].tokens == list(jres[rid].tokens), rid
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
+    """``--parallelism data`` reaches the config in both packages and the
+    port trains it; a mode the port has not got exits 2 naming Slice 4
+    (JAX trains it: ROADMAP item 23)."""
+    seen = {}
+
+    class JTrainer(jtrainer_mod.DistributedTrainer):
+        def __init__(self, config, **kw):
+            seen["jax"] = config.parallelism
+            raise _Stop
+
+    monkeypatch.setattr(jtrainer_mod, "DistributedTrainer", JTrainer)
+    with pytest.raises(_Stop):
+        jcli.main(["--parallelism", "data", "--nodes", "4",
+                   "--batch-size", "8", "--checkpoint-dir",
+                   str(tmp_path / "j")])
+    assert seen["jax"] == "data"
+    tiny = {k: v for k, v in TTINY.items() if k != "seq_len"}
+    rc = cli.train_main(["--parallelism", "data", "--device", "cpu",
+                         "--batch-size", "8", "--seq-len", "16",
+                         "--steps-per-epoch", "1", "--epochs", "1",
+                         "--checkpoint-dir", str(tmp_path / "t")],
+                        model_overrides=tiny)
+    out = capsys.readouterr().out
+    assert rc == 0 and "Training completed: 1 steps" in out
+    for mode in ("tensor", "model"):
+        rc = cli.train_main(["--parallelism", mode, "--device", "cpu",
+                             "--batch-size", "8", "--checkpoint-dir",
+                             str(tmp_path / mode)], model_overrides=tiny)
+        out = capsys.readouterr().out
+        assert rc == 2
+        assert f"parallelism={mode!r} is not ported yet" in out
+        assert "Slice 4" in out
+    parsed = cli.build_train_parser()._option_string_actions[
+        "--parallelism"]
+    jparsed = jcli.build_parser()._option_string_actions["--parallelism"]
+    assert parsed.choices == jparsed.choices

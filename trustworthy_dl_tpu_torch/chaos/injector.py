@@ -9,7 +9,9 @@ Counterpart of the training and checkpoint half of
   corruption, so every later loss is genuinely non-finite);
 * ``CheckpointManager``: :meth:`~FaultInjector.on_checkpoint_commit`
   (crash before the COMMIT marker), :meth:`~FaultInjector.on_checkpoint_saved`
-  (bit-rot of a committed payload).
+  (bit-rot of a committed payload);
+* ``serve.ServingEngine``: :meth:`~FaultInjector.on_serve_retire` (a
+  poisoned request's output signals, before the monitor scores them).
 
 Each event fires exactly once (``fired``), so when the supervisor rolls
 global steps back past a fired event the replayed steps run clean.
@@ -17,7 +19,15 @@ global steps back past a fired event the replayed steps run clean.
 and with ``trace`` (an obs ``TraceBus``) every fired fault is a
 ``chaos_fault`` event, so a flight dump can be diffed against
 ``FaultPlan.predict``.
-The serving and fleet hooks wait for the port's serving fleet.
+
+The serve hook's compromises, in JAX's order: an active ADAPTER_POISON on
+the request's adapter, then an adaptive or a plain replica compromise of
+the retiring engine's replica, then a SERVE_POISON event of the plan at
+the request id (replica-gated).  The persistent states are armed by the
+fleet hooks (``on_fleet_tick``, ``on_flag_observed``), which come with the
+port's serving fleet; until then only SERVE_POISON fires on a standalone
+engine, as in JAX.  :meth:`~FaultInjector.heal_replica` and
+:meth:`~FaultInjector.heal_adapter` are the operator's clears.
 """
 
 from __future__ import annotations
@@ -56,6 +66,16 @@ class FaultInjector:
         self._max_stall_s = max_stall_s
         self.fired: List[FaultEvent] = []
         self.trace: Any = None
+        # Replicas with an active REPLICA_POISON (replica -> severity): the
+        # event fires once, the compromise lasts until heal_replica.
+        self._poisoned_replicas: Dict[int, float] = {}
+        # The adaptive counterpart: replica -> an attacker object with
+        # ``corrupt(task)`` and ``deactivate()``, armed by a
+        # REPLICA_ADAPTIVE_POISON event.
+        self._adaptive_replicas: Dict[int, Any] = {}
+        # Adapters with an active ADAPTER_POISON (adapter id -> severity),
+        # replica-blind: every request retiring under the adapter.
+        self._poisoned_adapters: Dict[str, float] = {}
 
     # -- bookkeeping -------------------------------------------------------
 
@@ -153,6 +173,75 @@ class FaultInjector:
         logger.warning("chaos: corrupting checkpoint file %s (step %d)",
                        target, step)
         corrupt_file(target)
+
+
+    # -- serving hooks -------------------------------------------------------
+
+    def _poison_signals(self, task: Any, severity: float) -> None:
+        """A collapsed-entropy, inflated-margin profile: a poisoned replica
+        looping on one token."""
+        n = max(len(task.entropies), 1)
+        task.entropies[:] = [0.0] * n
+        task.margins[:] = [1e3 * float(severity)] * n
+
+    def on_serve_retire(self, task: Any,
+                        replica: Optional[int] = None) -> None:
+        """Overwrite a retiring request's output signals when a compromise
+        covers it, so the engine's monitor must flag it and quarantine its
+        slot.  ``replica`` is the engine's ``replica_id`` (None
+        standalone).  Checked in order: an active ADAPTER_POISON on the
+        task's adapter (first, so the flag lands in the adapter's window
+        whatever replica hosted it); an adaptive compromise of this replica
+        (delegated to the attacker); a REPLICA_POISON of this replica; then
+        the plan's SERVE_POISON event at this request id, whose target,
+        when set, must be this replica (request ids are replica-local)."""
+        if self._poisoned_adapters:
+            adapter = getattr(task, "adapter", None)
+            severity = (self._poisoned_adapters.get(adapter)
+                        if adapter is not None else None)
+            if severity is not None:
+                self._poison_signals(task, severity)
+                return
+        key = -1 if replica is None else replica
+        adversary = self._adaptive_replicas.get(key)
+        if adversary is not None:
+            adversary.corrupt(task)
+            return
+        severity = self._poisoned_replicas.get(key)
+        if severity is not None:
+            self._poison_signals(task, severity)
+            return
+        for event in self.plan.at(int(task.request_id),
+                                  FaultKind.SERVE_POISON):
+            if event in self.fired:
+                continue
+            if event.target >= 0 and event.target != replica:
+                continue
+            self._fire(event, int(task.request_id))
+            logger.warning("chaos: poisoning serve output of request %d%s",
+                           task.request_id, "" if replica is None
+                           else f" on replica {replica}")
+            self._poison_signals(task, event.severity)
+            return
+
+    def heal_replica(self, replica: int) -> None:
+        """Operator action: clear an active REPLICA_POISON or adaptive
+        compromise of ``replica``."""
+        self._poisoned_replicas.pop(replica, None)
+        adversary = self._adaptive_replicas.pop(replica, None)
+        if adversary is not None:
+            adversary.deactivate()
+
+    def replica_poisoned(self, replica: int) -> bool:
+        return (replica in self._poisoned_replicas
+                or replica in self._adaptive_replicas)
+
+    def heal_adapter(self, adapter: str) -> None:
+        """Operator action: clear an active ADAPTER_POISON."""
+        self._poisoned_adapters.pop(adapter, None)
+
+    def adapter_poisoned(self, adapter: str) -> bool:
+        return adapter in self._poisoned_adapters
 
 
 def _corrupt_largest_leaf(params: Any) -> Any:

@@ -12,15 +12,18 @@ is none) and samples a continuation of ``--prompt`` token ids or of
 0.8 by default.  ``serve`` is the counterpart of ``trustworthy-dl-serve``
 (``serve_main``) with the flags the port supports: the same restore as
 ``generate``, then a synthetic heterogeneous workload through the paged
-engine and the serving metrics.  Both refuse the non-GPT-2 and MoE
-families and a checkpoint trained with pipeline parallelism (rc 2), and
-fail loudly on a checkpoint whose weights do not fit the model.
+engine (the legacy stripe pool with ``--legacy-stripe``) and the serving
+metrics; ``--no-spec-decode`` forces ``--spec-k`` to 0, and a ``--spec-k``
+past ``--max-new-tokens`` is refused (rc 2).  Both refuse the non-GPT-2
+and MoE families and a checkpoint trained with pipeline parallelism (rc
+2), and fail loudly on a checkpoint whose weights do not fit the model.
 ``train`` is the counterpart of ``trustworthy-dl-train``
 (``trustworthy_dl_tpu/cli.py:main``) on its data-parallel path: trusted
 training of GPT-2, ResNet or VGG over logical nodes on the configured
 dataset (the synthetic source stands in for a corpus or image file that
 is absent), validated each epoch on the dataset's validation split,
-printing the run's statistics.  Its configuration is
+printing the run's statistics; ``--parallelism`` takes JAX's modes and
+the trainer refuses all but ``data`` (rc 2).  Its configuration is
 ``core.config.load_config(--config)`` or the ``TrainingConfig``
 defaults, with only the flags given on top; it checkpoints under the
 configured directory (and at the end), resumes with ``--resume``, and
@@ -303,6 +306,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--deadline-ms", type=float, default=None)
     parser.add_argument("--no-monitor", action="store_true",
                         help="disable the trust-aware output monitor")
+    parser.add_argument("--legacy-stripe", action="store_true",
+                        help="serve from the legacy per-request stripe KV "
+                             "pool instead of the paged block pool")
     parser.add_argument("--block-size", type=int, default=16)
     parser.add_argument("--num-blocks", type=int, default=None)
     parser.add_argument("--no-prefix-cache", action="store_true")
@@ -317,6 +323,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--spec-k", type=int, default=0,
                         help="speculative decoding: draft tokens per tick "
                              "with the int8 weight tier (0 = off)")
+    parser.add_argument("--no-spec-decode", action="store_true",
+                        help="force speculative decoding off even when "
+                             "--spec-k is set (the A/B switch)")
     parser.add_argument("--adapter-rank", type=int, default=0,
                         help="per-tenant low-rank adapters of this rank "
                              "(0 = off); the synthetic traffic then comes "
@@ -364,12 +373,19 @@ def serve_main(argv: Optional[List[str]] = None,
     if not _dense_gpt2(args.model):
         print("serving supports the dense GPT-2 family")
         return 2
+    spec_k = 0 if args.no_spec_decode else args.spec_k
+    if spec_k > args.max_new_tokens:
+        print(f"--spec-k {spec_k} exceeds --max-new-tokens "
+              f"{args.max_new_tokens}: every draft past the request "
+              "budget is discarded; lower --spec-k")
+        return 2
     serve_config = ServeConfig(
         max_slots=args.max_slots, max_seq=args.max_seq,
-        queue_limit=args.queue_limit, block_size=args.block_size,
+        queue_limit=args.queue_limit, paged=not args.legacy_stripe,
+        block_size=args.block_size,
         num_blocks=args.num_blocks, prefix_cache=not args.no_prefix_cache,
         prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
-        weight_dtype=args.weight_dtype, spec_k=args.spec_k,
+        weight_dtype=args.weight_dtype, spec_k=spec_k,
         adapter_rank=args.adapter_rank,
         adapter_pool_pages=args.adapter_pool_pages,
         adapter_dtype=args.adapter_dtype)
@@ -520,6 +536,11 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--learning-rate", type=float, default=None)
+    parser.add_argument("--parallelism", type=str, default=None,
+                        choices=["data", "model", "tensor", "sequence",
+                                 "expert", "hybrid"],
+                        help="the port trains 'data'; the other modes are "
+                             "refused (rc 2)")
     parser.add_argument("--seq-len", type=int, default=128,
                         help="token window (language models)")
     parser.add_argument("--no-detection", action="store_true",
@@ -603,6 +624,7 @@ def train_main(argv: Optional[List[str]] = None,
         "num_epochs": args.epochs,
         "batch_size": args.batch_size,
         "learning_rate": args.learning_rate,
+        "parallelism": args.parallelism,
         "seed": args.seed,
         "checkpoint_dir": args.checkpoint_dir,
         "async_host_depth": args.async_host_depth,
@@ -618,8 +640,12 @@ def train_main(argv: Optional[List[str]] = None,
     lm = not config.model_name.lower().startswith(("resnet", "vgg"))
     model_kw = {**({"seq_len": args.seq_len} if lm else {}),
                 **(model_overrides or {})}
-    trainer = DistributedTrainer(config, model_overrides=model_kw,
-                                 device=args.device)
+    try:
+        trainer = DistributedTrainer(config, model_overrides=model_kw,
+                                     device=args.device)
+    except NotImplementedError as exc:
+        print(exc)
+        return 2
     trainer.initialize()
     print(f"training {config.model_name} from random init (seed "
           f"{config.seed}) on {trainer.device} over {config.num_nodes} "

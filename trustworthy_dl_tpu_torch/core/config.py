@@ -2,10 +2,11 @@
 
 Counterpart of ``ServeConfig``, ``TrainingConfig`` and ``AttackConfig`` in
 ``trustworthy_dl_tpu/core/config.py``, with the fields the port reads.
-``ServeConfig`` covers the paged pool's geometry, the prefix cache, chunked
-prefill, the attention path, the int8 KV and weight tiers, speculative
-decoding and the per-tenant adapter tier (the stripe pool and tensor
-parallelism are not ported yet).  ``TrainingConfig`` covers the trusted
+``ServeConfig`` covers the pool layout (``paged``, default True; False is
+the legacy stripe pool), the paged pool's geometry, the prefix cache,
+chunked prefill, the attention path, the int8 KV and weight tiers,
+speculative decoding and the per-tenant adapter tier (tensor parallelism
+is not ported yet).  ``TrainingConfig`` covers the trusted
 data-parallel step on one device, gradient accumulation, both remat
 policies, the vocab-chunked fused head, the optimizers (AdamW, Adam, SGD,
 Adafactor, a reduced-precision first moment) and the migration-time
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -54,6 +56,11 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 PARALLELISM_MODES = ("data", "model", "tensor", "sequence", "expert",
                      "hybrid")
 
+#: ``ServeConfig``'s knobs of the paged pool: set away from their defaults
+#: on ``paged=False`` they warn (the stripe pool has no use for them).
+PAGED_KNOBS = ("block_size", "num_blocks", "prefix_cache", "prefill_chunk",
+               "attn_impl")
+
 #: Largest accepted ``ServeConfig.spec_k``: the draft depth; acceptance
 #: past a handful of tokens decays geometrically.
 SPEC_K_MAX = 8
@@ -62,7 +69,8 @@ SPEC_K_MAX = 8
 def validate_spec(spec_k: int, paged: bool, weight_dtype: str) -> None:
     """Construction-time validation of the speculative-decoding knob,
     shared by ``ServeConfig`` and the engine (the JAX package's checks and
-    wording; the port's pool is always paged)."""
+    wording): 0 <= ``spec_k`` <= SPEC_K_MAX; > 0 needs the paged pool and
+    ``weight_dtype="model"``."""
     if not 0 <= int(spec_k) <= SPEC_K_MAX:
         raise ValueError(
             f"spec_k must be in [0, {SPEC_K_MAX}], got {spec_k}"
@@ -88,8 +96,8 @@ def validate_adapters(adapter_rank: int,
                       adapter_dtype: str, paged: bool,
                       spec_k: int) -> None:
     """Construction-time validation of the adapter-tier knobs, shared by
-    ``ServeConfig`` and the engine (the JAX package's checks and wording;
-    the port's pool is always paged).  ``adapter_rank`` 0 disables the
+    ``ServeConfig`` and the engine (the JAX package's checks and
+    wording).  ``adapter_rank`` 0 disables the
     tier; > 0 needs the paged pool and ``spec_k == 0`` (the int8 draft
     carries no adapter deltas); ``adapter_dtype`` is "model" or "int8";
     ``adapter_pool_pages``, when given, is at least 1."""
@@ -137,8 +145,11 @@ class ServeConfig:
     > 0 turns on the per-tenant adapter tier: rank-r deltas on the
     attention output and the MLP in a second paged pool of
     ``adapter_pool_pages`` pages (default ``max_slots``) stored in
-    ``adapter_dtype`` ("model" or "int8").  Bad values fail here, at
-    construction."""
+    ``adapter_dtype`` ("model" or "int8").  ``paged=False`` selects the
+    legacy stripe pool, which has no block pool, prefix cache or chunked
+    prefill: a paged knob set away from its default then warns (and
+    ``spec_k`` or ``adapter_rank`` > 0 is refused).  Bad values fail here,
+    at construction."""
 
     max_slots: int = 8
     max_seq: int = 256
@@ -151,6 +162,7 @@ class ServeConfig:
     kv_dtype: str = "model"
     weight_dtype: str = "model"
     kv_parity_check: bool = True
+    paged: bool = True
     spec_k: int = 0
     adapter_rank: int = 0
     adapter_pool_pages: Optional[int] = None
@@ -164,12 +176,25 @@ class ServeConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")
-        validate_paged_geometry(self.max_seq, self.block_size,
-                                self.num_blocks, self.prefill_chunk)
         validate_dtypes(self.kv_dtype, self.weight_dtype)
-        validate_spec(self.spec_k, True, self.weight_dtype)
+        validate_spec(self.spec_k, self.paged, self.weight_dtype)
         validate_adapters(self.adapter_rank, self.adapter_pool_pages,
-                          self.adapter_dtype, True, self.spec_k)
+                          self.adapter_dtype, self.paged, self.spec_k)
+        if self.paged:
+            validate_paged_geometry(self.max_seq, self.block_size,
+                                    self.num_blocks, self.prefill_chunk)
+            return
+        # The knobs' own dataclass defaults, not a second table of them.
+        ignored = [f.name for f in dataclasses.fields(self)
+                   if f.name in PAGED_KNOBS
+                   and getattr(self, f.name) != f.default]
+        if ignored:
+            warnings.warn(
+                f"ServeConfig(paged=False) ignores paged-pool knob(s) "
+                f"{', '.join(ignored)}: the legacy stripe pool has no "
+                f"block pool, no prefix cache and no chunked prefill. "
+                f"Drop paged=False or drop the knob(s).",
+                UserWarning, stacklevel=2)
 
 
 @dataclass

@@ -2,10 +2,12 @@
 stream, with deadlines, backpressure, serving metrics and trust-aware
 output monitoring.
 
-Counterpart of ``trustworthy_dl_tpu/serve/engine.py`` over the paged pool.
-``step()`` expires queued requests past their deadline, admits queued
-requests into free rows, runs one scheduler tick (prefill chunks + the
-fused decode step), streams the new tokens and retires finished requests.
+Counterpart of ``trustworthy_dl_tpu/serve/engine.py``, over the paged pool
+(default) or, with ``paged=False``, the legacy stripe pool.  ``step()``
+expires queued requests past their deadline, admits queued requests into
+free rows (a stripe admission prefills and emits the first token at
+once), runs one scheduler tick (prefill chunks + the fused decode step),
+streams the new tokens and retires finished requests.
 
 The int8 tiers and speculative decoding (``kv_dtype``, ``weight_dtype``,
 ``spec_k``) follow the JAX engine: the decode view is built once and
@@ -48,10 +50,20 @@ no load in the hot loop is a first one and a clean run shows no storm.
 :meth:`ServingEngine.analyze_programs` notes the decode step's and a
 prefill chunk's product counts in a cost ledger.
 
+Chaos (``chaos``, a ``chaos.FaultInjector``): at every retirement the
+injector may overwrite the request's trust signals before the monitor
+scores them (SERVE_POISON, gated on ``replica_id``), the drill for the
+monitor -> quarantine path.  ``cancel`` ends a queued or in-flight request
+at once (its slot and blocks freed, or impounded under ``quarantine``);
+``export_request`` and ``adopt_request`` are the two halves of a live
+migration between engines (``serve/migrate.py``); ``queued_ids``,
+``inflight_ids``, ``decode_ready_ids``, ``load`` and
+``in_service_capacity`` are what a router reads.
+
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
-where every kernel wrapper runs its plain PyTorch version.  Chaos hooks,
-fleets and tensor parallelism are not ported yet.
+where every kernel wrapper runs its plain PyTorch version.  Fleets, the
+retire hook and tensor parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,8 +90,8 @@ from trustworthy_dl_tpu_torch.serve.adapters import (AdapterPool,
                                                      adapter_bytes_per_page,
                                                      adapter_pool_bytes)
 from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
-from trustworthy_dl_tpu_torch.serve.scheduler import (PagedBatchingScheduler,
-                                                      SlotTask)
+from trustworthy_dl_tpu_torch.serve.scheduler import (
+    ContinuousBatchingScheduler, PagedBatchingScheduler, SlotTask)
 from trustworthy_dl_tpu_torch.utils.metrics import MetricsCollector, \
     ServeMetrics
 
@@ -212,7 +224,10 @@ class OutputMonitor:
 
 
 class ServingEngine:
-    """Continuous-batching serving over the paged block pool.
+    """Continuous-batching serving over the paged block pool, or over the
+    stripe pool with ``paged=False`` (``buckets``: its prefill widths;
+    ``attn_impl`` "kernel" or "plain" picks where its trust signals come
+    from, B7 or its twin).
 
     ``queue_limit`` bounds the admission queue: ``submit`` returns None
     (shed) when it is full.  Finished results accumulate in ``results``
@@ -221,7 +236,9 @@ class ServingEngine:
     ``adapter_pool_pages`` and ``adapter_dtype`` are ``ServeConfig``'s
     knobs; ``adapter_map`` routes tenant -> adapter id.  ``obs`` is an
     ``ObsSession``: the engine uses what it has enabled (its trace and
-    registry always; spans, ledger, watchers and HBM monitor when on)."""
+    registry always; spans, ledger, watchers and HBM monitor when on).
+    ``chaos`` is a ``chaos.FaultInjector``; ``replica_id`` names the
+    engine for replica-addressed chaos and tags its trace events."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config,
                  max_slots: int = 8, max_seq: int = 256,
@@ -238,16 +255,23 @@ class ServingEngine:
                  adapter_pool_pages: Optional[int] = None,
                  adapter_dtype: str = "model",
                  adapter_map: Optional[Dict[str, str]] = None,
-                 obs: Any = None):
+                 obs: Any = None, paged: bool = True,
+                 buckets: Optional[Sequence[int]] = None,
+                 chaos: Any = None, replica_id: Optional[int] = None):
         # core.config imports serve (its pool geometry check): late import.
         from trustworthy_dl_tpu_torch.core.config import (validate_adapters,
                                                           validate_spec)
 
         q8.validate_dtypes(kv_dtype, weight_dtype)
-        validate_spec(spec_k, True, weight_dtype)
+        validate_spec(spec_k, paged, weight_dtype)
         validate_adapters(adapter_rank, adapter_pool_pages, adapter_dtype,
-                          True, spec_k)
+                          paged, spec_k)
         self.device = resolve_device(device)
+        self.paged = bool(paged)
+        if paged and buckets is not None:
+            raise ValueError("buckets are the stripe pool's prefill widths "
+                             "(paged=False); the paged pool prefills in "
+                             "chunks")
         if self.device.type == "cuda" and attn_impl == "kernel" \
                 and adapter_rank > 0:
             # B9's limits, checked before any pool or view is allocated:
@@ -257,7 +281,7 @@ class ServingEngine:
             if limit is not None:
                 raise ValueError(f"adapter_rank={adapter_rank} is past the "
                                  f"adapter kernel's limits: {limit}")
-        if self.device.type == "cuda" and attn_impl == "kernel":
+        if self.device.type == "cuda" and attn_impl == "kernel" and paged:
             # B6's limits, the same over both pools: every prompt chunk
             # goes through it (an int8 pool whose parity probe fails falls
             # back to a model-dtype one), so refuse before any pool is
@@ -303,10 +327,22 @@ class ServingEngine:
         # an ``hbm_pressure`` event and ``tddl_hbm_pressure_total``.
         self.hbm = hbm
         if hbm is not None:
-            if num_blocks is None:
-                num_blocks = max_slots * (max_seq // block_size)
             bpt = (kv_bytes_per_token(cfg, torch.int8)
                    if kv_dtype == "int8" else kv_bytes_per_token(cfg))
+        if hbm is not None and not paged:
+            # The stripe pool shrinks by slots (floor: one).
+            requested = max_slots * max_seq * bpt
+            if not hbm.admit(requested, what="serve_stripe_pool"):
+                headroom = max(hbm.last_headroom or 0, 0)
+                allowed = max(int(headroom // (max_seq * bpt)), 1)
+                logger.warning(
+                    "HBM headroom gate: stripe pool shrunk %d -> %d slots "
+                    "(requested %d bytes, headroom %d)", max_slots,
+                    allowed, requested, headroom)
+                max_slots = allowed
+        elif hbm is not None:
+            if num_blocks is None:
+                num_blocks = max_slots * (max_seq // block_size)
             requested = num_blocks * block_size * bpt
             if not hbm.admit(requested, what="serve_paged_pool"):
                 # Size the shrunk pool from the SAME sweep that made the
@@ -332,19 +368,29 @@ class ServingEngine:
                 self.kv_fallback_reason = "kv_parity_probe_failed"
                 kv_dtype = "model"
                 # Keep the HBM budget the int8 pool planned for: the
-                # model-dtype pool shrinks to what those bytes buy.
-                if num_blocks is None:
-                    num_blocks = max_slots * (max_seq // block_size)
-                fallback = max(
-                    max_seq // block_size,
-                    num_blocks * kv_bytes_per_token(cfg, torch.int8)
-                    // kv_bytes_per_token(cfg))
-                logger.warning(
-                    "int8 KV parity probe failed: falling back to the "
-                    "model-dtype paged pool, shrinking %d -> %d blocks to "
-                    "stay inside the int8 pool's byte budget", num_blocks,
-                    fallback)
-                num_blocks = fallback
+                # model-dtype pool shrinks to what those bytes buy (slots
+                # on the stripe pool, blocks on the paged one).
+                int8_bpt = kv_bytes_per_token(cfg, torch.int8)
+                model_bpt = kv_bytes_per_token(cfg)
+                if not paged:
+                    fallback = max(1, max_slots * int8_bpt // model_bpt)
+                    logger.warning(
+                        "int8 KV parity probe failed: falling back to the "
+                        "model-dtype KV pool, shrinking %d -> %d slots to "
+                        "stay inside the int8 pool's byte budget",
+                        max_slots, fallback)
+                    max_slots = fallback
+                else:
+                    if num_blocks is None:
+                        num_blocks = max_slots * (max_seq // block_size)
+                    fallback = max(max_seq // block_size,
+                                   num_blocks * int8_bpt // model_bpt)
+                    logger.warning(
+                        "int8 KV parity probe failed: falling back to the "
+                        "model-dtype paged pool, shrinking %d -> %d blocks "
+                        "to stay inside the int8 pool's byte budget",
+                        num_blocks, fallback)
+                    num_blocks = fallback
         self.kv_dtype = kv_dtype
         self.weight_dtype = weight_dtype
         self.adapter_rank = int(adapter_rank)
@@ -374,13 +420,25 @@ class ServingEngine:
             self.adapter_pool = AdapterPool(cfg, self.adapter_rank, pages,
                                             adapter_dtype=adapter_dtype,
                                             device=self.device, trace=trace)
-        self.scheduler = PagedBatchingScheduler(
-            params, cfg, max_slots, max_seq, self.device,
-            block_size=block_size, num_blocks=num_blocks,
-            prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
-            attn_impl=attn_impl, view=view, kv_dtype=kv_dtype,
-            weight_dtype=weight_dtype, spec_k=self.spec_k,
-            draft_view=draft_view, adapters=self.adapter_pool)
+        if paged:
+            self.scheduler: Any = PagedBatchingScheduler(
+                params, cfg, max_slots, max_seq, self.device,
+                block_size=block_size, num_blocks=num_blocks,
+                prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+                attn_impl=attn_impl, view=view, kv_dtype=kv_dtype,
+                weight_dtype=weight_dtype, spec_k=self.spec_k,
+                draft_view=draft_view, adapters=self.adapter_pool)
+        else:
+            self.scheduler = ContinuousBatchingScheduler(
+                params, cfg, max_slots, max_seq, self.device,
+                buckets=buckets, kv_dtype=kv_dtype,
+                weight_dtype=weight_dtype, view=view, attn_impl=attn_impl)
+        self.chaos = chaos
+        self.replica_id = replica_id
+        # Every trace event carries the replica in a fleet: request ids
+        # are replica-local.
+        self._trace_tags = ({"replica": replica_id}
+                            if replica_id is not None else {})
         self.queue_limit = queue_limit
         self.seed = int(seed)
         self.monitor = monitor if monitor is not None else (
@@ -488,10 +546,11 @@ class ServingEngine:
             "Active serving-kernel path per paged program (1 = in use): "
             "the hand-written kernel or its plain PyTorch version",
             labels=("path", "program"))
+        paths = self.attn_kernel_paths
         for program in PAGED_PROGRAMS:
             for path in gen.ATTN_IMPLS:
-                attn_gauge.set(1.0 if path == self.scheduler.attn_impl
-                               else 0.0, path=path, program=program)
+                attn_gauge.set(1.0 if path == paths[program] else 0.0,
+                               path=path, program=program)
         self._spec_proposed_counter = metric(
             registry.counter, "tddl_serve_spec_proposed_total",
             "Draft tokens proposed by the speculative int8 self-draft")
@@ -508,6 +567,7 @@ class ServingEngine:
         return cls(params, cfg, max_slots=serve_config.max_slots,
                    max_seq=serve_config.max_seq,
                    queue_limit=serve_config.queue_limit,
+                   paged=serve_config.paged,
                    block_size=serve_config.block_size,
                    num_blocks=serve_config.num_blocks,
                    prefix_cache=serve_config.prefix_cache,
@@ -538,6 +598,11 @@ class ServingEngine:
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             raise ValueError("prompt token ids must be in "
                              f"[0, {self.cfg.vocab_size})")
+        if not self.paged and prompt.size > max(self.scheduler.buckets):
+            # Refused here, not mid-flight at admission.
+            raise ValueError(f"prompt of {prompt.size} tokens exceeds the "
+                             f"largest prefill bucket "
+                             f"{max(self.scheduler.buckets)}")
         # An explicit adapter wins, else the tenant's entry.  Loud when the
         # tier is off: serving the base model under the tenant's name
         # would misattribute the stream.
@@ -567,10 +632,12 @@ class ServingEngine:
         if self.trace is not None:
             self.trace.emit(EventType.SERVE_SUBMIT, request_id=request_id,
                             prompt_len=int(prompt.size),
-                            max_new_tokens=int(request.max_new_tokens))
+                            max_new_tokens=int(request.max_new_tokens),
+                            **self._trace_tags)
         if self.spans is not None:
             root = self.spans.start("serve.request", kind="serve",
                                     request_id=request_id,
+                                    replica=self.replica_id,
                                     tenant=request.tenant,
                                     prompt_len=int(prompt.size),
                                     max_new_tokens=int(
@@ -618,12 +685,13 @@ class ServingEngine:
             itl_s=[]))
         if self.trace is not None:
             self.trace.emit(EventType.SERVE_RETIRE, request_id=rid,
-                            status=status, tokens=0, admitted=False)
+                            status=status, tokens=0, admitted=False,
+                            **self._trace_tags)
         self._close_request_spans(rid, status)
         if self.ledger is not None:
             self.ledger.append({
                 "request_id": rid, "status": status, "admitted": False,
-                "slot": -1, "layout": "paged",
+                "slot": -1, "layout": "paged" if self.paged else "stripe",
                 "block_ids": [], "prefix_block_ids": [],
                 "prefix_publishers": {},
                 "kv_dtype": self.kv_dtype, "weight_dtype": self.weight_dtype,
@@ -665,6 +733,7 @@ class ServingEngine:
         self._iteration += 1
         self._expire_queued(now)
         self._shed_for_slo()
+        emitted = 0
         while self._queue and self.scheduler.has_free_slot:
             task, request = self._queue.popleft()
             if not self.scheduler.admit(task):
@@ -674,7 +743,7 @@ class ServingEngine:
             self._inflight[rid] = (task, request)
             if self.trace is not None:
                 self.trace.emit(EventType.SERVE_ADMIT, request_id=rid,
-                                slot=int(task.slot))
+                                slot=int(task.slot), **self._trace_tags)
             handles = self._req_spans.get(rid)
             if handles is not None:
                 sid = handles.pop("queued", None)
@@ -684,6 +753,11 @@ class ServingEngine:
                     "serve.prefill", kind="serve",
                     parent_id=handles["root"], request_id=rid,
                     slot=int(task.slot))
+            if task.emitted:
+                # A stripe admission prefilled: its first token is out.
+                emitted += self._stream_new(task, request)
+                if task.done:
+                    self._finish(task, request, "completed")
         t_tick = time.perf_counter()
         ticked = self.scheduler.decode_tick()
         self.decode_tick_s += time.perf_counter() - t_tick
@@ -692,24 +766,12 @@ class ServingEngine:
                            time.perf_counter(), kind="serve",
                            tokens=len(ticked),
                            active=self.scheduler.active_count)
-        emitted = 0
         for task in ticked:
             rid = task.request_id
             if rid not in self._inflight:
                 continue
             _, request = self._inflight[rid]
-            # The tokens this tick added: those past the ones already
-            # timed.  A speculative tick can add several at once (their
-            # ITLs are honest near-zeros: they landed together).
-            times = self._timing.setdefault(rid, [])
-            if not times:
-                self._span_first_token(rid)
-            new_tokens = task.emitted[len(times):]
-            for token in new_tokens:
-                times.append(time.perf_counter())
-                if request.on_token is not None:
-                    request.on_token(rid, token)
-            emitted += len(new_tokens)
+            emitted += self._stream_new(task, request)
             if task.done:
                 self._finish(task, request, "completed")
             elif self._expired(request, rid):
@@ -730,11 +792,12 @@ class ServingEngine:
         self._tif_gauge.set(float(tif))
         if self.slo is not None:
             self.slo.observe("occupancy", sched.occupancy)
-        self._blocks_gauge.set(float(sched.blocks_in_use))
-        if sched.prefix_hits > self._prefix_hits_seen:
-            self._prefix_counter.inc(sched.prefix_hits
-                                     - self._prefix_hits_seen)
-            self._prefix_hits_seen = sched.prefix_hits
+        if self.paged:
+            self._blocks_gauge.set(float(sched.blocks_in_use))
+            if sched.prefix_hits > self._prefix_hits_seen:
+                self._prefix_counter.inc(sched.prefix_hits
+                                         - self._prefix_hits_seen)
+                self._prefix_hits_seen = sched.prefix_hits
         if self.spec_k:
             seen_p, seen_a = self._spec_seen
             if sched.spec_proposed > seen_p:
@@ -779,6 +842,22 @@ class ServingEngine:
 
     # -- internals ---------------------------------------------------------
 
+    def _stream_new(self, task: SlotTask, request: ServeRequest) -> int:
+        """Time and stream the tokens the task gained since the last call
+        (those past the ones already timed; a speculative tick can add
+        several at once, whose ITLs are honest near-zeros).  Returns how
+        many."""
+        rid = task.request_id
+        times = self._timing.setdefault(rid, [])
+        if not times:
+            self._span_first_token(rid)
+        new_tokens = task.emitted[len(times):]
+        for token in new_tokens:
+            times.append(time.perf_counter())
+            if request.on_token is not None:
+                request.on_token(rid, token)
+        return len(new_tokens)
+
     def _expired(self, request: ServeRequest, rid: int) -> bool:
         return (request.deadline_s is not None
                 and time.perf_counter() - self._submit_t[rid]
@@ -804,12 +883,128 @@ class ServingEngine:
         self.results[result.request_id] = result
         self._req_counter.inc(status=result.status)
 
+    def cancel(self, request_id: int, status: str = "cancelled",
+               quarantine: bool = False) -> bool:
+        """End a queued or in-flight request now with ``status``, unscored
+        by the monitor: a live migration's source half after the
+        destination committed, a drained queue, a lost hedge.  Its slot
+        and blocks free at once (``quarantine``: impounded instead, the
+        source of a migration off a suspect replica); the tokens so far
+        ride the result.  False when the id is unknown or already
+        terminal."""
+        for i, (task, request) in enumerate(self._queue):
+            if task.request_id == request_id:
+                del self._queue[i]
+                self._retire_unadmitted(task, request, status)
+                return True
+        pair = self._inflight.pop(request_id, None)
+        if pair is None:
+            return False
+        task, request = pair
+        placement = (self.scheduler.attribution_info(task)
+                     if self.ledger is not None else None)
+        self.scheduler.retire(task, quarantine=quarantine)
+        times = self._timing.pop(request_id, [])
+        t0 = self._submit_t.pop(request_id, None)
+        ttft = (times[0] - t0) if times and t0 is not None else None
+        self._record_result(ServeResult(
+            request_id=request_id, tokens=list(task.emitted), status=status,
+            ttft_s=ttft, itl_s=[b - a for a, b in zip(times, times[1:])],
+            entropies=list(task.entropies), margins=list(task.margins),
+            adapter=task.adapter))
+        if self.trace is not None:
+            self.trace.emit(EventType.SERVE_RETIRE, request_id=request_id,
+                            status=status, tokens=len(task.emitted),
+                            **self._trace_tags)
+            if quarantine:
+                self.trace.emit(EventType.SERVE_QUARANTINE,
+                                request_id=request_id, slot=int(task.slot),
+                                **self._trace_tags)
+        if self.ledger is not None:
+            self.ledger.append({
+                "request_id": request_id, "status": status,
+                "admitted": True, **placement,
+                "kv_dtype": self.kv_dtype, "weight_dtype": self.weight_dtype,
+                "kv_fallback_reason": self.kv_fallback_reason,
+                "flagged": False, "monitor_z": 0.0,
+                "tokens": len(task.emitted),
+                "token_hash": attribution.token_hash(task.emitted),
+                "ttft_s": ttft, "tenant": request.tenant,
+            })
+        self._close_request_spans(request_id, status,
+                                  tokens=len(task.emitted))
+        return True
+
+    # -- live migration (serve/migrate.py orchestrates) --------------------
+
+    def export_request(self, request_id: int) -> Optional[Dict[str, Any]]:
+        """Source half of a live migration: the scheduler's block-table
+        snapshot of a decode-phase request (None, nothing touched, for an
+        unknown id, mid-prefill, or on the stripe pool) with the timing
+        that must travel for TTFT, ITL and deadlines to stay exact.  The
+        request keeps decoding here until ``cancel(..., "migrated")``
+        releases it after the destination commits."""
+        pair = self._inflight.get(request_id)
+        if pair is None or not self.paged:
+            return None
+        task, request = pair
+        snap = self.scheduler.export_migration(task)
+        if snap is None:
+            return None
+        snap["request"] = request
+        snap["submit_t"] = self._submit_t.get(request_id)
+        snap["times"] = list(self._timing.get(request_id, []))
+        snap["replica"] = self.replica_id
+        return snap
+
+    def adopt_request(self, snapshot: Dict[str, Any],
+                      claim: Dict[str, Any], *,
+                      on_token: Optional[Callable[[int, int], None]] = None,
+                      migrated_from: Optional[Dict[str, Any]] = None
+                      ) -> int:
+        """Destination half, COMMIT: register the migrated stream under a
+        fresh local id on the claimed row (host bookkeeping: the block copy
+        has landed, so it cannot fail).  The task carries the source's
+        tokens, trust signals and seed (the next draw index is
+        ``len(emitted)``); the submit time and token times carry over, so
+        deadlines, TTFT and ITL read as one request.  ``on_token`` replaces
+        the request's stream callback."""
+        src: SlotTask = snapshot["task"]
+        rid = self._next_id
+        self._next_id += 1
+        task = SlotTask(request_id=rid,
+                        prompt=np.asarray(src.prompt, np.int32),
+                        max_new_tokens=int(src.max_new_tokens),
+                        temperature=float(src.temperature), seed=src.seed,
+                        eos_id=src.eos_id, adapter=src.adapter)
+        task.emitted = list(src.emitted)
+        task.next_token = src.next_token
+        task.entropies = list(src.entropies)
+        task.margins = list(src.margins)
+        request = snapshot["request"]
+        if on_token is not None:
+            request = dataclasses.replace(request, on_token=on_token)
+        self.scheduler.commit_migration(task, claim, snapshot["length"],
+                                        migrated_from=migrated_from)
+        self._inflight[rid] = (task, request)
+        t0 = snapshot.get("submit_t")
+        self._submit_t[rid] = t0 if t0 is not None else time.perf_counter()
+        self._timing[rid] = list(snapshot.get("times", []))
+        if self.trace is not None:
+            self.trace.emit(EventType.SERVE_ADMIT, request_id=rid,
+                            slot=int(task.slot), migrated=True,
+                            **self._trace_tags)
+        return rid
+
     def _finish(self, task: SlotTask, request: ServeRequest,
                 status: str) -> None:
         """Score the request with the monitor, retire its row (quarantined
         when flagged) and record the result, its telemetry and its
-        attribution record."""
+        attribution record.  The chaos injector goes first: a poisoned
+        request's signals are rewritten before the monitor reads them."""
         rid = task.request_id
+        if self.chaos is not None:
+            self.chaos.on_serve_retire(task, replica=self.replica_id)
         # The placement snapshot BEFORE retire() clears the row's table:
         # the record must name the blocks the stream decoded from.
         placement = (self.scheduler.attribution_info(task)
@@ -848,10 +1043,10 @@ class ServingEngine:
         if self.trace is not None:
             self.trace.emit(EventType.SERVE_RETIRE, request_id=rid,
                             status=status, tokens=len(task.emitted),
-                            flagged=flagged, monitor_z=z)
+                            flagged=flagged, monitor_z=z, **self._trace_tags)
             if flagged:
                 self.trace.emit(EventType.SERVE_QUARANTINE, request_id=rid,
-                                slot=int(task.slot))
+                                slot=int(task.slot), **self._trace_tags)
         if self.ledger is not None:
             thash = attribution.token_hash(task.emitted)
             self.ledger.append({
@@ -871,7 +1066,8 @@ class ServingEngine:
                                 token_hash=thash, flagged=bool(flagged),
                                 adapter=placement.get("adapter"),
                                 adapter_page=placement.get(
-                                    "adapter_page", 0))
+                                    "adapter_page", 0),
+                                **self._trace_tags)
         self._close_request_spans(rid, status, tokens=len(task.emitted),
                                   flagged=bool(flagged))
         self.collector.collect_batch_metrics({
@@ -915,10 +1111,48 @@ class ServingEngine:
         return bool(self._queue or self._inflight)
 
     @property
+    def queued_ids(self) -> List[int]:
+        """Request ids awaiting admission."""
+        return [task.request_id for task, _ in self._queue]
+
+    @property
+    def inflight_ids(self) -> List[int]:
+        """Request ids holding a row."""
+        return list(self._inflight)
+
+    @property
+    def decode_ready_ids(self) -> List[int]:
+        """In-flight ids past prefill with tokens emitted: exactly those a
+        migration snapshot exists for."""
+        prefilling = getattr(self.scheduler, "_prefill", {})
+        return [rid for rid, (task, _) in self._inflight.items()
+                if task.emitted and not task.done
+                and task.slot not in prefilling]
+
+    @property
+    def load(self) -> int:
+        """Queued + in flight: a router's least-loaded key."""
+        return len(self._queue) + len(self._inflight)
+
+    @property
     def open_requests(self) -> int:
         """Accepted-but-unfinished requests (the closed-loop driver's
         in-flight count)."""
-        return len(self._queue) + len(self._inflight)
+        return self.load
+
+    @property
+    def in_service_capacity(self) -> int:
+        """Rows in service (total minus quarantined)."""
+        return self.scheduler.allocator.capacity
+
+    @property
+    def attn_kernel_paths(self) -> Dict[str, str]:
+        """The serving-kernel path of each paged program
+        (``PAGED_PROGRAMS``): the scheduler's ``attn_impl`` on the paged
+        pool; "plain" for every program on the stripe pool, which has
+        none of them."""
+        path = self.scheduler.attn_impl if self.paged else "plain"
+        return {program: path for program in PAGED_PROGRAMS}
 
     def drain_results(self) -> Dict[int, ServeResult]:
         out = self.results
@@ -951,18 +1185,23 @@ class ServingEngine:
             "iterations": self._iteration,
             "decode_ticks": sched.decode_ticks,
             "local_prefills": sched.local_prefills,
-            "prefill_chunks": sched.prefill_chunks,
             "decode_tick_fraction": (self.decode_tick_s / elapsed
                                      if elapsed > 0 else 0.0),
             "peak_active_requests": self.peak_active,
             "peak_tokens_in_flight": self.peak_tokens_in_flight,
-            "blocks_in_use": sched.blocks_in_use,
-            "prefix_lookups": sched.prefix_lookups,
-            "prefix_hits": sched.prefix_hits,
-            "prefix_tokens_reused": sched.prefix_tokens_reused,
-            "prefix_hit_rate": (sched.prefix_hits / sched.prefix_lookups
-                                if sched.prefix_lookups else 0.0),
+            "layout": "paged" if self.paged else "stripe",
+            "attn_kernel_paths": self.attn_kernel_paths,
         }
+        if self.paged:
+            out.update({
+                "prefill_chunks": sched.prefill_chunks,
+                "blocks_in_use": sched.blocks_in_use,
+                "prefix_lookups": sched.prefix_lookups,
+                "prefix_hits": sched.prefix_hits,
+                "prefix_tokens_reused": sched.prefix_tokens_reused,
+                "prefix_hit_rate": (sched.prefix_hits / sched.prefix_lookups
+                                    if sched.prefix_lookups else 0.0),
+            })
         if self.spec_k:
             out.update({
                 "spec_k": self.spec_k,
@@ -995,17 +1234,22 @@ class ServingEngine:
         return out
 
     def analyze_programs(self, ledger: Any) -> Any:
-        """Note this engine's serve programs (``serve.decode``,
-        ``serve.prefill``) in an ``obs.hbm.CostLedger``: their product
-        counts, worked out from the engine's shapes without running
-        anything (``PagedBatchingScheduler.analyze_costs``)."""
+        """Note this engine's serve programs in an ``obs.hbm.CostLedger``
+        under JAX's names (paged: ``serve.paged_decode``,
+        ``serve.paged_chunk``, ``serve.paged_prefill``; stripe:
+        ``serve.decode``, ``serve.prefill``): their product counts, worked
+        out from the engine's shapes without running anything (the
+        scheduler's ``analyze_costs``)."""
         self.scheduler.analyze_costs(ledger)
         return ledger
 
     def verify_attribution(self) -> "tuple[bool, list]":
         """Reconcile the attached ledger's records against the paged
-        pool's block-lifecycle journal (``obs.attribution``)."""
+        pool's block-lifecycle journal (``obs.attribution``); stripe
+        records carry no block ids and verify trivially."""
         if self.ledger is None:
             raise ValueError("engine has no attribution ledger attached")
+        allocator = (self.scheduler.blocks if self.paged
+                     else self.scheduler.allocator)
         return attribution.verify_attribution(self.ledger.records(),
-                                              self.scheduler.blocks)
+                                              allocator)

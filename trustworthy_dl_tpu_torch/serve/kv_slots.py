@@ -1,12 +1,21 @@
-"""The paged KV pool and its host-side bookkeeping.
+"""The KV pools of the serving engine and their host-side bookkeeping.
 
-Counterpart of the paged half of ``trustworthy_dl_tpu/serve/kv_slots.py``
-(the stripe pool ``SlotKV``/``init_slots`` is not ported yet).
+Counterpart of ``trustworthy_dl_tpu/serve/kv_slots.py``: the legacy
+stripe pool (``SlotKV``, ``init_slots``) and the paged pool (the default).
 
-Layout ``[L, NUM_BLOCKS + 1, H, BLOCK, Dh]`` per K and V, physical block 0
-reserved as the trash block: inactive decode rows and padded prefill tails
-write there, never into a block another request could own.  Per-slot block
-tables are host lists of physical ids; the ``BlockAllocator`` keeps
+The stripe pool holds one cache SLOT per in-flight sequence,
+``[L, MAX_SLOTS, H, MAX_SEQ, Dh]`` per K and V (int8 tier: f32 scale
+planes ``[L, MAX_SLOTS, H, MAX_SEQ]`` beside them), with the per-slot
+lengths on the host.  A freed slot's rows are not scrubbed: the decode
+step keeps writing at the stale slot's position, but a slot is reused only
+after its prefill rewrites positions [0, prompt), and a row attends only
+to positions it has written.
+
+The paged pool's layout is ``[L, NUM_BLOCKS + 1, H, BLOCK, Dh]`` per K and
+V, physical block 0 reserved as the trash block: inactive decode rows and
+padded prefill tails write there, never into a block another request could
+own.  Per-slot block tables are host lists of physical ids; the
+``BlockAllocator`` keeps
 reference counts so prompt prefixes shared through the radix
 ``PrefixCache`` free only when their last holder lets go, and the
 quarantine set impounds the private blocks of a flagged request.  A
@@ -31,6 +40,42 @@ TRASH_BLOCK = 0
 
 #: Entries kept in a block allocator's lifecycle journal (JAX's default).
 JOURNAL_CAPACITY = 65536
+
+
+class SlotKV(NamedTuple):
+    """Slot-pooled K/V ``[L, MAX_SLOTS, H, MAX_SEQ, Dh]`` each; on the
+    int8 tier ``k_scale``/``v_scale`` ``[L, MAX_SLOTS, H, MAX_SEQ]``.
+    Lengths live on the host (the scheduler)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def max_slots(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device bytes the pool holds (values + scales): what
+        ``tddl_serve_kv_bytes`` reports."""
+        total = self.k.nbytes + self.v.nbytes
+        if self.k_scale is not None:
+            total += self.k_scale.nbytes + self.v_scale.nbytes
+        return total
+
+    @property
+    def bytes_per_slot(self) -> int:
+        return self.pool_bytes // self.max_slots
 
 
 class PagedKV(NamedTuple):
@@ -76,6 +121,35 @@ def kv_bytes_per_token(cfg: gpt2.GPT2Config,
         return 2 * heads * (cfg.head_dim + 4)
     itemsize = torch.empty((), dtype=dtype).element_size()
     return 2 * heads * cfg.head_dim * itemsize
+
+
+def kv_bytes_per_slot(cfg: gpt2.GPT2Config, max_seq: int,
+                      dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes one stripe slot costs: ``max_seq`` cached positions."""
+    return max_seq * kv_bytes_per_token(cfg, dtype)
+
+
+def init_slots(cfg: gpt2.GPT2Config, max_slots: int, max_seq: int,
+               device: Any = "cpu",
+               kv_dtype: Optional[torch.dtype] = None) -> SlotKV:
+    """Allocate the stripe pool: zeros in ``kv_dtype`` (default the model
+    dtype); ``torch.int8`` adds zero scale planes, so an untouched row
+    dequantizes to exact zeros."""
+    if max_seq > cfg.n_positions:
+        raise ValueError(
+            f"max_seq={max_seq} exceeds the model's position table "
+            f"(n_positions={cfg.n_positions})")
+    kv_dtype = cfg.dtype if kv_dtype is None else kv_dtype
+    shape = (cfg.n_layer, max_slots, cfg.n_head, max_seq, cfg.head_dim)
+    pool = SlotKV(k=torch.zeros(shape, dtype=kv_dtype, device=device),
+                  v=torch.zeros(shape, dtype=kv_dtype, device=device))
+    if kv_dtype == torch.int8:
+        return pool._replace(
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device))
+    return pool
 
 
 def validate_paged_geometry(max_seq: int, block_size: int,

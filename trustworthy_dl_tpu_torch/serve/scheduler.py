@@ -1,7 +1,19 @@
-"""Continuous (iteration-level) batching over the paged KV pool.
+"""Continuous (iteration-level) batching over the two KV pools.
 
-Counterpart of the paged half of ``trustworthy_dl_tpu/serve/scheduler.py``.
-Each engine tick advances every mid-prefill slot by one chunk, then runs
+Counterpart of ``trustworthy_dl_tpu/serve/scheduler.py``.
+
+The legacy stripe scheduler (:class:`ContinuousBatchingScheduler`, one
+pool slot a request) prefills a prompt at admission, padded to a power-of-
+two bucket (``default_buckets``), through the same full-precision local
+cache as the paged prefill (``_local_prefill``, quantized once at the slot
+write on an int8 pool): ``_prefill_impl``.  Its decode step
+(``_decode_impl``) runs the dense cache path of ``models/generate`` over
+every slot at per-slot lengths, one token each, with one host copy of the
+packed outputs a tick.  Its trust signals come from ``_logit_signals``
+like the paged engine's (B7 on the kernel path).
+
+The paged scheduler (:class:`PagedBatchingScheduler`, the default):
+each engine tick advances every mid-prefill slot by one chunk, then runs
 one decode step for every decode-phase slot: the fused single-token step,
 or with ``spec_k`` > 0 a speculative tick.  The device programs, as in the
 JAX package:
@@ -57,7 +69,14 @@ their publishers, adapter page) for the attribution ledger
 engine) each decode step, draft step and verify pass runs under its
 ``serve_decode``, ``serve_spec_draft`` and ``serve_spec_verify`` guard, so
 a kernel library loaded inside one after its first call is a storm.
-Migration and the stripe scheduler are not ported yet.
+
+Live migration (``serve/migrate.py``) goes through the paged scheduler's
+``export_migration`` / ``claim_migration`` / ``abort_migration`` /
+``commit_migration``: a decode-phase request's block table, length and
+placement leave the source, the destination claims a row, fresh blocks
+and the adapter page through its normal allocators, and the commit
+registers the task with a ``migrated_from`` record.  The seed travels with
+the task and the next draw index is ``len(emitted)``.
 """
 
 from __future__ import annotations
@@ -86,8 +105,10 @@ from trustworthy_dl_tpu_torch.serve.kv_slots import (
     PagedKV,
     PrefixCache,
     SlotAllocator,
+    SlotKV,
     blocks_for_span,
     init_paged_pool,
+    init_slots,
     resolve_prefill_chunk,
     validate_paged_geometry,
 )
@@ -95,6 +116,28 @@ from trustworthy_dl_tpu_torch.serve.kv_slots import (
 logger = logging.getLogger(__name__)
 
 _MASK64 = (1 << 64) - 1
+
+
+def default_buckets(max_seq: int, smallest: int = 16) -> Tuple[int, ...]:
+    """Power-of-two prefill buckets up to ``max_seq`` (inclusive): the
+    stripe prefill pads each prompt to one of O(log max_seq) widths."""
+    out: List[int] = []
+    b = smallest
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    out.append(max_seq)
+    return tuple(out)
+
+
+def choose_bucket(buckets: Sequence[int], prompt_len: int) -> int:
+    """Smallest bucket holding ``prompt_len`` tokens."""
+    for b in sorted(buckets):
+        if b >= prompt_len:
+            return b
+    raise ValueError(
+        f"prompt of {prompt_len} tokens exceeds the largest prefill "
+        f"bucket {max(buckets)}")
 
 
 def draw_seed(seed: int, index: int) -> int:
@@ -165,6 +208,41 @@ def _sample_pack(logits: torch.Tensor, seed: int, index: int, temp: float,
     token = _sample_tokens(logits, [seed], [index], [temp], [greedy])
     entropy, margin = _logit_signals(logits, attn_impl)
     return _pack_step_outputs(token, entropy, margin)
+
+
+def _prefill_impl(cfg: gpt2.GPT2Config, kv: SlotKV, view: Any,
+                  tokens: torch.Tensor, real_len: int, slot: int, seed: int,
+                  temp: float, greedy: bool, attn_impl: str) -> torch.Tensor:
+    """Prefill one STRIPE slot: the ``_local_prefill`` prologue over the
+    bucketed prompt [P], then its K/V (and scales, on an int8 pool) written
+    into the slot's row at positions [0, P)."""
+    p = tokens.shape[0]
+    logits, k_rows, v_rows, k_s, v_s = _local_prefill(
+        cfg, view, tokens, real_len, kv.quantized)
+    kv.k[:, slot, :, :p] = k_rows[:, 0].to(kv.k.dtype)
+    kv.v[:, slot, :, :p] = v_rows[:, 0].to(kv.v.dtype)
+    if kv.quantized:
+        kv.k_scale[:, slot, :, :p] = k_s[:, 0]
+        kv.v_scale[:, slot, :, :p] = v_s[:, 0]
+    return _sample_pack(logits, seed, 0, temp, greedy, attn_impl)
+
+
+def _decode_impl(cfg: gpt2.GPT2Config, kv: SlotKV, view: Any,
+                 tokens: torch.Tensor, lengths: torch.Tensor,
+                 seeds: Sequence[int], indices: Sequence[int],
+                 temps: Sequence[float], greedy: Sequence[bool],
+                 attn_impl: str) -> torch.Tensor:
+    """The fused stripe decode step: one token for every slot, live or
+    not, written at the per-slot ``lengths`` (i32 [MAX_SLOTS]) through the
+    dense cache path batch ``generate`` runs (``models/generate.
+    _apply_with_cache`` with a tensor start); returns the packed
+    [3, MAX_SLOTS] outputs."""
+    cache = gen.KVCache(k=kv.k, v=kv.v, length=lengths,
+                        k_scale=kv.k_scale, v_scale=kv.v_scale)
+    logits, _ = gen._apply_with_cache(view, tokens[:, None], cache, cfg)
+    next_tok = _sample_tokens(logits, seeds, indices, temps, greedy)
+    entropy, margin = _logit_signals(logits, attn_impl)
+    return _pack_step_outputs(next_tok, entropy, margin)
 
 
 def _paged_prefill_impl(cfg: gpt2.GPT2Config, kv: PagedKV, view: Any,
@@ -332,6 +410,228 @@ class SlotTask:
             self.done = True
 
 
+def _cost_block(view: Any, rows: int, t: int, head_rows: int, keys: int,
+                extra: Sequence[Tuple[Optional[str], int]]
+                ) -> Dict[str, Any]:
+    """The cost block of ``obs.hbm.count_flops`` for one forward over
+    ``rows`` rows of ``t`` new positions: the view's four block matrices
+    (B4's shape count on the int8 weight tier, library products
+    otherwise), the ``extra`` (kernel name or None for a library product,
+    FLOPs) entries, and the tied head over ``head_rows`` rows."""
+    kernels: Dict[str, int] = {}
+    library = 0
+
+    def add(name: Optional[str], flops: int) -> None:
+        nonlocal library
+        if name is None:
+            library += flops
+        else:
+            kernels[name] = kernels.get(name, 0) + flops
+
+    for block in view["layers"]:
+        for part, name in (("attn", "qkv"), ("attn", "proj"),
+                           ("mlp", "fc"), ("mlp", "proj")):
+            d = block[part][name]
+            if q8.is_quantized_dense(d):
+                k, n = d["w_q"].shape
+                add("dequant_matmul", dequant_matmul_flops(rows * t, k, n))
+            else:
+                k, n = d["w"].shape
+                add(None, 2 * rows * t * k * n)
+    for name, flops in extra:
+        add(name, flops)
+    v, d = view["wte_head"].shape
+    library += 2 * head_rows * d * v
+    total = library + sum(kernels.values())
+    return {"flops": float(total), "library_flops": library,
+            "kernel_flops": dict(sorted(kernels.items())),
+            "flops_source": FLOPS_SOURCE, "bytes_accessed": None,
+            "rows": rows, "positions": t, "keys": keys}
+
+
+def _local_cost(view: Any, cfg: gpt2.GPT2Config, rows: int, t: int,
+                keys: int, head_rows: int) -> Dict[str, Any]:
+    """:func:`_cost_block` of the dense cache path (the local prefill and
+    the stripe programs): QK^T and PV over ``keys`` cached positions are
+    library products, counted as the paged kernels' plain twins count
+    theirs."""
+    return _cost_block(view, rows, t, head_rows, keys, [
+        (None, cfg.n_layer * pattn.paged_attention_flops(
+            rows, cfg.n_head, t, cfg.head_dim, keys))])
+
+
+class ContinuousBatchingScheduler:
+    """Slot admission and the fused decode step over the stripe pool.
+
+    Host state: per-slot lengths (numpy) and the live ``SlotTask`` table.
+    Device state: the ``SlotKV`` pool on ``device``, updated in place.
+    ``admit`` prefills the prompt and records the first token; each
+    ``decode_tick`` gives every live slot one token.  ``attn_impl``
+    "kernel" takes the trust signals through B7 on a CUDA tensor, "plain"
+    through its plain twin (the stripe pool has no attention kernel)."""
+
+    def __init__(self, params: Any, cfg: gpt2.GPT2Config, max_slots: int,
+                 max_seq: int, device: torch.device,
+                 buckets: Optional[Sequence[int]] = None,
+                 kv_dtype: str = "model", weight_dtype: str = "model",
+                 view: Any = None, attn_impl: str = "kernel"):
+        q8.validate_dtypes(kv_dtype, weight_dtype)
+        if attn_impl not in gen.ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {gen.ATTN_IMPLS}, "
+                             f"got {attn_impl!r}")
+        self.cfg = cfg
+        self.device = device
+        self.attn_impl = attn_impl
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
+        if view is None:
+            view = (q8.quantize_decode_view(params, cfg)
+                    if weight_dtype == "int8"
+                    else gen._decode_view(params, cfg))
+        self.view = view
+        self.kv = init_slots(cfg, max_slots, max_seq, device,
+                             kv_dtype=q8.resolve_kv_dtype(kv_dtype, cfg))
+        self.allocator = SlotAllocator(max_slots)
+        self.buckets = tuple(sorted(buckets or default_buckets(max_seq)))
+        if max(self.buckets) > max_seq:
+            raise ValueError("prefill bucket exceeds max_seq")
+        self.lengths = np.zeros(max_slots, np.int32)
+        self.tasks: Dict[int, SlotTask] = {}       # slot -> task
+        self.max_seq = max_seq
+        self.spans: Any = None
+        # An obs.compilewatch.CompileWatcher (the engine's): the decode
+        # dispatch runs under its "serve_decode" guard.
+        self.compilewatch: Any = None
+        # The stripe pool has no adapter tier (validate_adapters pins
+        # adapter_rank > 0 to the paged pool).
+        self.adapters: Any = None
+        self.decode_ticks = 0
+        self.local_prefills = 0
+
+    def attribution_info(self, task: SlotTask) -> Dict[str, Any]:
+        """The attribution ledger's placement: the slot is the whole story
+        (no block table)."""
+        return {"layout": "stripe", "slot": int(task.slot),
+                "block_ids": [], "prefix_block_ids": [],
+                "prefix_publishers": {},
+                "adapter": task.adapter,
+                "adapter_page": int(task.adapter_page)}
+
+    @property
+    def has_free_slot(self) -> bool:
+        return self.allocator.free_count > 0
+
+    @property
+    def active_count(self) -> int:
+        return len(self.tasks)
+
+    @property
+    def occupancy(self) -> float:
+        return len(self.tasks) / max(self.allocator.max_slots, 1)
+
+    @property
+    def tokens_in_flight(self) -> int:
+        """Cached tokens backing live sequences."""
+        return int(sum(int(self.lengths[s]) for s in self.tasks))
+
+    def admit(self, task: SlotTask) -> bool:
+        """Claim a slot, prefill the prompt, record the first token.
+        Returns False, task untouched, when no slot is free.  The bucket is
+        resolved before the slot is claimed: a prompt past the largest
+        bucket raises without leaking a slot."""
+        p = len(task.prompt)
+        total = p + task.max_new_tokens
+        if total > self.max_seq:
+            raise ValueError(
+                f"request {task.request_id}: prompt+new = {total} exceeds "
+                f"max_seq={self.max_seq}")
+        bucket = choose_bucket(self.buckets, p)
+        slot = self.allocator.alloc()
+        if slot is None:
+            return False
+        padded = np.zeros(bucket, np.int32)
+        padded[:p] = task.prompt
+        tokens, = _device_i32(self.device, padded)
+        packed = _prefill_impl(self.cfg, self.kv, self.view, tokens.long(),
+                               p, slot, task.seed,
+                               max(task.temperature, 1e-6), task.greedy,
+                               self.attn_impl)
+        self.local_prefills += 1
+        task.slot = slot
+        token, ent, margin = packed.cpu().numpy()[:, 0]   # one host copy
+        task._record(int(token), float(ent), float(margin))
+        self.lengths[slot] = p
+        self.tasks[slot] = task
+        return True
+
+    def decode_tick(self) -> List[SlotTask]:
+        """One fused decode step for every live slot; returns the tasks
+        that received a token."""
+        if not self.tasks:
+            return []
+        ms = self.allocator.max_slots
+        tokens = np.zeros(ms, np.int32)
+        seeds = [0] * ms
+        indices = [0] * ms
+        temps = [1.0] * ms
+        greedy = [True] * ms
+        for slot, task in self.tasks.items():
+            tokens[slot] = task.next_token
+            seeds[slot] = task.seed
+            indices[slot] = len(task.emitted)
+            temps[slot] = max(task.temperature, 1e-6)
+            greedy[slot] = task.greedy
+        tokens_dev, lengths_dev = _device_i32(self.device, tokens,
+                                              self.lengths)
+        with guarded(self.compilewatch, "serve_decode"):
+            packed = _decode_impl(self.cfg, self.kv, self.view,
+                                  tokens_dev.long(), lengths_dev, seeds,
+                                  indices, temps, greedy, self.attn_impl)
+        self.decode_ticks += 1
+        host = packed.cpu().numpy()      # the tick's one device-to-host copy
+        next_tok, ent, margin = host[0], host[1], host[2]
+        ticked: List[SlotTask] = []
+        for slot, task in list(self.tasks.items()):
+            self.lengths[slot] += 1
+            task._record(int(next_tok[slot]), float(ent[slot]),
+                         float(margin[slot]))
+            ticked.append(task)
+        return ticked
+
+    def retire(self, task: SlotTask, quarantine: bool = False) -> None:
+        """Release the task's slot, or quarantine it (a flagged request:
+        the slot leaves service until an operator releases it)."""
+        slot = task.slot
+        if slot < 0 or self.tasks.get(slot) is not task:
+            return
+        del self.tasks[slot]
+        if quarantine:
+            self.allocator.quarantine(slot)
+            logger.warning(
+                "slot %d quarantined after request %d was flagged "
+                "anomalous (%d slots remain in service)", slot,
+                task.request_id, self.allocator.capacity)
+        else:
+            self.allocator.free(slot)
+
+    def release_quarantine(self, slot: int) -> None:
+        """Operator action: return a quarantined slot to service."""
+        self.allocator.release(slot)
+
+    def analyze_costs(self, ledger: Any) -> None:
+        """Note ``serve.prefill`` (a prompt at the largest bucket) and
+        ``serve.decode`` (every slot, one position each, attending over
+        ``max_seq`` positions) in an ``obs.hbm.CostLedger``, from the
+        shapes; each equals what ``count_flops`` counts over one run."""
+        ms = self.allocator.max_slots
+        bucket = max(self.buckets)
+        ledger.note("serve.prefill",
+                    _local_cost(self.view, self.cfg, 1, bucket, bucket, 1))
+        ledger.note("serve.decode",
+                    _local_cost(self.view, self.cfg, ms, 1, self.max_seq,
+                                ms))
+
+
 @dataclasses.dataclass
 class _PrefillProgress:
     """A slot mid-prefill: ``pos`` is the next prompt position to feed
@@ -453,66 +753,43 @@ class PagedBatchingScheduler:
                       ) -> Dict[str, Any]:
         """Products of one paged program over ``rows`` rows of ``t`` new
         positions at the full table width, projecting ``head_rows`` rows
-        to logits: the view's block matrices (B4's shape count on the int8
-        weight tier), the attention kernel's and B9's shape counts, the
-        tied head.  The cost block of ``obs.hbm.count_flops``."""
+        to logits: :func:`_cost_block` with the attention kernel's and
+        B9's shape counts (library products on the plain path)."""
         cfg = self.cfg
-        kernels: Dict[str, int] = {}
-        library = 0
-
-        def add(name: Optional[str], flops: int) -> None:
-            nonlocal library
-            if name is None:
-                library += flops
-            else:
-                kernels[name] = kernels.get(name, 0) + flops
-
         on_kernels = self.attn_impl == "kernel"
-        for block in self.view["layers"]:
-            for part, name in (("attn", "qkv"), ("attn", "proj"),
-                               ("mlp", "fc"), ("mlp", "proj")):
-                d = block[part][name]
-                if q8.is_quantized_dense(d):
-                    k, n = d["w_q"].shape
-                    add("dequant_matmul",
-                        dequant_matmul_flops(rows * t, k, n))
-                else:
-                    k, n = d["w"].shape
-                    add(None, 2 * rows * t * k * n)
+        keys = self.nbps * self.block_size
         attend = "paged_prefill_attention" if t > pattn.QROWS \
             else "paged_attention"
         if self.kv.quantized:
             attend += "_int8"
-        add(attend if on_kernels else None, cfg.n_layer *
-            pattn.paged_attention_flops(rows, cfg.n_head, t, cfg.head_dim,
-                                        self.nbps * self.block_size))
+        extra = [(attend if on_kernels else None, cfg.n_layer *
+                  pattn.paged_attention_flops(rows, cfg.n_head, t,
+                                              cfg.head_dim, keys))]
         if self.adapters is not None:
             # Two sites a layer (the attention output, the ln_2 output).
-            add("adapter_delta" if on_kernels else None, 2 * cfg.n_layer *
-                pattn.adapter_delta_flops(rows, t, cfg.n_embd,
-                                          self.adapters.rank))
-        v, d = self.view["wte_head"].shape
-        library += 2 * head_rows * d * v
-        total = library + sum(kernels.values())
-        return {"flops": float(total), "library_flops": library,
-                "kernel_flops": dict(sorted(kernels.items())),
-                "flops_source": FLOPS_SOURCE, "bytes_accessed": None,
-                "rows": rows, "positions": t,
-                "keys": self.nbps * self.block_size}
+            extra.append(("adapter_delta" if on_kernels else None,
+                          2 * cfg.n_layer * pattn.adapter_delta_flops(
+                              rows, t, cfg.n_embd, self.adapters.rank)))
+        return _cost_block(self.view, rows, t, head_rows, keys, extra)
 
     def analyze_costs(self, ledger: Any) -> None:
-        """Note the decode step (``serve.decode``: every one of
-        ``max_slots`` rows, one position each) and one prefill chunk
-        (``serve.prefill``: a full chunk of one row, the prompt's final
-        chunk, which projects its last position) in an
-        ``obs.hbm.CostLedger``, worked out from the engine's shapes
-        without running anything.  Both attend over the full table width,
-        as the attention kernels' plain twins do, so the counts do not
-        depend on the rows' current lengths; each equals what
-        ``count_flops`` counts over one run of the program."""
+        """Note the three paged programs in an ``obs.hbm.CostLedger`` under
+        JAX's names, worked out from the engine's shapes without running
+        anything: ``serve.paged_decode`` (every one of ``max_slots`` rows,
+        one position each), ``serve.paged_chunk`` (a full chunk of one row,
+        the prompt's final chunk, which projects its last position) and
+        ``serve.paged_prefill`` (the dense local prefill of a chunk-wide
+        prompt).  The first two attend over the full table width, as the
+        attention kernels' plain twins do, so the counts do not depend on
+        the rows' current lengths; each equals what ``count_flops`` counts
+        over one run of the program."""
         ms = self.allocator.max_slots
-        ledger.note("serve.decode", self._program_cost(ms, 1, ms))
-        ledger.note("serve.prefill", self._program_cost(1, self.chunk, 1))
+        ledger.note("serve.paged_decode", self._program_cost(ms, 1, ms))
+        ledger.note("serve.paged_chunk",
+                    self._program_cost(1, self.chunk, 1))
+        ledger.note("serve.paged_prefill",
+                    _local_cost(self.view, self.cfg, 1, self.chunk,
+                                self.chunk, 1))
 
     # -- admission ---------------------------------------------------------
 
@@ -938,3 +1215,86 @@ class PagedBatchingScheduler:
         self.allocator.release(slot)
         for b in self._q_blocks_by_slot.pop(slot, []):
             self.blocks.unquarantine(b)
+
+    # -- live migration (serve/migrate.py) -----------------------------------
+
+    def export_migration(self, task: SlotTask) -> Optional[Dict[str, Any]]:
+        """Source side of a live hand-off: the decode-phase task's block
+        table, committed length and admission-time placement.  None,
+        nothing touched, mid-prefill or for an unknown task.  Outstanding
+        speculative claims unwind first, so no unverified draft K/V
+        travels (the accepted length already excludes it)."""
+        slot = task.slot
+        if slot < 0 or self.tasks.get(slot) is not task:
+            return None
+        if slot in self._prefill or not task.emitted:
+            return None
+        self.blocks.release_speculative(self._spec_claims.pop(slot, []))
+        return {"task": task, "length": int(self.lengths[slot]),
+                "block_ids": list(self.tables[slot]),
+                "placement": self.attribution_info(task)}
+
+    def claim_migration(self, n_blocks: int, adapter: Optional[str]
+                        ) -> Optional[Dict[str, Any]]:
+        """Destination side, CLAIM: a decode row, ``n_blocks`` fresh blocks
+        (with the prefix-evict retry of ``admit``) and, for an adapter
+        request, its page, all through the normal allocators.  None with
+        nothing claimed on any shortage.  No prefill and no prefix sharing:
+        the blocks' contents arrive by device copy."""
+        slot = self.allocator.alloc()
+        if slot is None:
+            return None
+        fresh = self.blocks.alloc(n_blocks)
+        if fresh is None and self.prefix is not None:
+            self.prefix.evict(n_blocks - self.blocks.free_count)
+            fresh = self.blocks.alloc(n_blocks)
+        if fresh is None:
+            self.allocator.free(slot)
+            return None
+        page = ZERO_PAGE
+        if adapter is not None:
+            page = (self.adapters.acquire(adapter)
+                    if self.adapters is not None else None)
+            if page is None:
+                # Adapterless destination, a pool of live pages or a
+                # quarantined adapter: unwind everything.
+                for b in fresh:
+                    self.blocks.release(b)
+                self.allocator.free(slot)
+                return None
+        return {"slot": slot, "block_ids": list(fresh), "adapter": adapter,
+                "adapter_page": int(page)}
+
+    def abort_migration(self, claim: Dict[str, Any]) -> None:
+        """Unwind a claim that never committed: the exact inverse of
+        :meth:`claim_migration`."""
+        if claim.get("adapter") is not None and self.adapters is not None:
+            self.adapters.release(claim["adapter"])
+        for b in claim["block_ids"]:
+            self.blocks.release(b)
+        self.allocator.free(claim["slot"])
+
+    def commit_migration(self, task: SlotTask, claim: Dict[str, Any],
+                         length: int,
+                         migrated_from: Optional[Dict[str, Any]] = None
+                         ) -> None:
+        """COMMIT: register the migrated task on the claimed row (host
+        bookkeeping only; the block copy has landed).  The placement names
+        the destination's blocks; ``migrated_from`` (the source blocks and
+        journal) rides it for ``verify_attribution``."""
+        slot = claim["slot"]
+        task.slot = slot
+        task.adapter_page = int(claim["adapter_page"])
+        self.tables[slot] = list(claim["block_ids"])
+        self.lengths[slot] = int(length)
+        self.tasks[slot] = task
+        info: Dict[str, Any] = {
+            "layout": "paged", "slot": slot,
+            "block_ids": list(claim["block_ids"]),
+            "prefix_block_ids": [], "prefix_publishers": {},
+            "adapter": task.adapter,
+            "adapter_page": int(claim["adapter_page"]),
+        }
+        if migrated_from is not None:
+            info["migrated_from"] = dict(migrated_from)
+        self._attrib[slot] = info

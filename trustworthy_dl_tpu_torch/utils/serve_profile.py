@@ -126,6 +126,58 @@ def drive_closed_loop(engine, requests, max_new: int = 32):
     return engine.results, time.perf_counter() - t0
 
 
+#: The engine steps ``busy_window`` profiles by default: steady decode
+#: ticks of the smoke traffic (each wave of 8 requests decodes ~31).
+BUSY_FIRST, BUSY_LAST = 12, 27
+
+
+def busy_window(engine, requests, max_new: int = 32, first: int = BUSY_FIRST,
+                last: int = BUSY_LAST) -> dict:
+    """Submit ``requests`` to ``engine`` and step it until idle, with the
+    profiler recording device activity only from the start of step
+    ``first`` to the start of step ``last + 1``: the window's wall, the
+    device time (kernels and copies) in it and their ratio, the device's
+    busy share.  A window, not the whole run: reading a whole serve run's
+    trace back takes the profiler far longer than the run itself."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from trustworthy_dl_tpu_torch.serve import ServeRequest
+
+    found = {}
+
+    def ready(prof):
+        found["device_s"] = sum(
+            device_us(e) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("tddl.")) / 1e6
+
+    for prompt, temp in requests:
+        if engine.submit(ServeRequest(prompt=prompt, max_new_tokens=max_new,
+                                      temperature=temp)) is None:
+            raise RuntimeError("request shed by backpressure")
+    prof = profile(activities=[ProfilerActivity.CUDA],
+                   schedule=schedule(wait=first - 1, warmup=1,
+                                     active=last - first + 1, repeat=1),
+                   on_trace_ready=ready)
+    marks = []
+    with prof:
+        while engine.busy:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            prof.step()          # engine step i is profiler step i
+            engine.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    if len(marks) <= last + 1 or "device_s" not in found:
+        raise RuntimeError(f"busy_window: {len(marks) - 1} steps; the "
+                           f"window needs more than {last + 1}")
+    wall = marks[last] - marks[first - 1]
+    return {"steps": [first, last], "wall_s": wall,
+            "device_kernel_s": found["device_s"],
+            "busy_share": found["device_s"] / wall}
+
+
 def device_us(evt) -> float:
     """Device microseconds of a profiler row (the attribute's name differs
     between PyTorch versions)."""
