@@ -83,6 +83,35 @@ Phases (each prints one JSON line; any failure exits non-zero):
    launched exactly as the design says.  Then one step from the same
    state with flash and with full attention, and flash-vs-full attention
    fwd+bwd times at T = 512 and 1024.
+5b. moe: ``gpt2-moe`` (``models/moe.py``: 8 experts, top-2, capacity
+   factor 1.25, positional dispatch; 12 layers, 768 wide, 12 heads, vocab
+   50257, bf16, random weights from seed 0) through ``DistributedTrainer``
+   in data mode: 4 nodes x 4 sequences of 1024, AdamW lr 1e-4, block
+   remat, flash, detection ON, node 2 gradient-poisoned from step 5 of
+   10 (steps 2-4 under the profiler: the device's kernel time a step and
+   busy share, ``utils/train_profile.busy_window``), then a fresh trainer
+   with ``dispatch="priority"`` at capacity factor 0.5 for 4 clean steps
+   (gate: every step's ``moe_drop_fraction`` >= 0.5, which E C = S k / 2
+   forces), each run with the launch counters set to 0 just before and
+   read just after.  Gates: the train phase's gating of node 2, finite
+   losses, B1-B3 exactly as the steps make them (B1 at most 128 segments a
+   launch: 4 x 17 gradient segments and 4 feature segments a step).  Then
+   B1 over the MoE step's 68-segment gradient battery (2.08e9 values)
+   against its plain twin, timed with its bound and library calls.  Step
+   ms, tokens/s, peak memory and each step's drop fraction.
+5c. envelope: ``experiments.run_detection_envelope`` on the card at GPT-2
+   small's width (``model_overrides``: 12 layers, 768, 12 heads, vocab
+   50257, 1024 positions, T 1024; bf16, no remat, flash; 4 nodes x 2
+   sequences), gradient poisoning and byzantine at intensity 1.0 on node
+   2 after 8 warm-up steps, 12 attacked steps, in a temporary directory,
+   the counters set to 0 just before and read just after.  Gates (the
+   JAX package's floors): every run finite, the clean run and the
+   gradient-poisoning cell without a false positive, gradient poisoning
+   detected at rate 1.0 within 3 steps with family attribution 1.0, the
+   JSON and markdown artifacts written, B1-B3 exactly as the 60 steps make
+   them; the byzantine cell is printed only.  The default targets at 4
+   nodes, (1, 3), attack half the fleet, where the cross-node median can
+   attribute neither (both packages; ``tests/test_torch_envelope.py``).
 6. train_fused_ce: GPT-2 small at full width, 4 nodes x 16 sequences of
    1024 (16,384 tokens a node, where ``lm_head_chunk="auto"`` takes the
    vocab-chunked fused head at 8192 columns), block remat, flash, AdamW,
@@ -156,8 +185,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    confirmed after the start, no other node flagged or gated, every loss
    finite; ``resnet32_cifar10_clean`` 52 steps, no node flagged, and,
    where scikit-learn imports, ``ml_flags`` for all 8 nodes after the
-   second epoch's refit (else the tier off, nothing fed: JAX's gate, and
-   the line says so).  B1 launched exactly ceil(8 L / 128) + 1 times a
+   second epoch's refit (else 26 steps and the tier off, nothing fed:
+   JAX's gate, and the line says so).  B1 launched exactly ceil(8 L / 128) + 1 times a
    step for L leaves (28 for ResNet-101, 5 for VGG-16, 10 for ResNet-32),
    no other kernel; B1 at each drive's gradient mix against its plain
    twin, timed (ResNet-101's with the twin, bound and library calls);
@@ -337,6 +366,17 @@ DQ_ROWS = (1, 8, 16, 64)
 TRAIN_NODES, TRAIN_BATCH, TRAIN_T = 4, 32, 1024
 OFF_WARMUP, OFF_TIMED = 2, 6
 ON_STEPS, ATTACK_START, ON_WARMUP = 16, 12, 2
+# moe geometry: gpt2-moe (8 experts, top-2) at GPT-2 small's width, 4 x
+# 1024 tokens a node, 10 steps with node 2 poisoned from step 5, then 4
+# clean steps of the priority dispatcher at capacity factor 0.5 (E C =
+# S k / 2 slots: at least half the assignments must drop).
+MOE_BATCH, MOE_STEPS, MOE_ATTACK_START = 16, 10, 5
+MOE_PRIORITY_STEPS, MOE_PRIORITY_FACTOR = 4, 0.5
+MOE_BUSY_FIRST, MOE_BUSY_LAST = 2, 4
+# envelope: the detection sweep at GPT-2 small's width, 4 nodes x 2 x 1024
+# tokens, node 2 attacked after 8 warm-up steps, for 12 steps.
+ENVELOPE_WARMUP, ENVELOPE_ATTACK, ENVELOPE_TARGETS = 8, 12, (2,)
+ENVELOPE_TYPES = ("gradient_poisoning", "byzantine")
 # train_fused_ce geometry: 64 x 1024 over the 4 nodes, 8 steps, gradient
 # poisoning of node 2 from step 4, then 4 validation batches.
 FCE_BATCH, FCE_STEPS, FCE_ATTACK_START, FCE_VAL_BATCHES = 64, 8, 4, 4
@@ -388,11 +428,14 @@ ELASTIC_ATTACK, ELASTIC_READMIT, ELASTIC_STEPS = 6, 8, (12, 10)
 # attack start epoch).  VGG-16 and ResNet-101 are attacked on nodes 1
 # and 3 from step 12 (past detector_warmup 10); ResNet-32 runs 52 clean
 # steps, so that the ML tier's refit after its second epoch has 52
-# samples a node (its floor is 50).
+# samples a node (its floor is 50).  Without scikit-learn the tier is off
+# and nothing is fed, so the clean drive runs VISION_CLEAN_PER_EPOCH_NO_ML
+# steps an epoch instead (26 in all, past detector_warmup 10).
 VISION_NODES, VISION_BATCH, VISION_TARGETS = 8, 32, (1, 3)
 VISION_DRIVES = (("vgg16_cifar10_poisoning", 3, 6, 2),
                  ("resnet101_byzantine", 3, 6, 2),
                  ("resnet32_cifar10_clean", 2, 26, None))
+VISION_CLEAN_PER_EPOCH_NO_ML = 13
 # Each drive's busy share and host enqueue: ``busy_window`` over steps
 # 3-5 of a fresh 6-step epoch (a ResNet-101 step takes ~2 s).
 VISION_BUSY_FIRST, VISION_BUSY_LAST, VISION_BUSY_STEPS = 3, 5, 6
@@ -2204,6 +2247,262 @@ def flash_vs_full(torch, on, loader, card):
           "attention_fwd_bwd_shape": "[8, 12, T, 64] bf16", **times})
 
 
+def moe_launches(cfg, steps, leaves, nodes=TRAIN_NODES):
+    """B1-B3 launches of ``steps`` MoE step executions with block remat:
+    B2/B3 as :func:`step_launches`, B1 at most ``MAX_SEGMENTS`` segments
+    a launch, ``nodes x leaves`` gradient segments and ``nodes`` feature
+    segments a step."""
+    from trustworthy_dl_tpu_torch.ops.fused_stats import MAX_SEGMENTS
+
+    want = step_launches(cfg, [nodes] * steps)
+    want["fused_moments"] = steps * (-(-nodes * leaves // MAX_SEGMENTS)
+                                     + -(-nodes // MAX_SEGMENTS))
+    return want
+
+
+def moe_drive(torch, entries, card):
+    """Phase 5b: ``gpt2-moe`` at GPT-2 small's full width through
+    ``DistributedTrainer`` in data mode, detection ON under a
+    gradient-poisoning attack, then the priority dispatcher under capacity
+    pressure, then B1 at the MoE gradient mix."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.models.moe import _capacity
+    from trustworthy_dl_tpu_torch.utils.train_profile import busy_window
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    node_tokens = MOE_BATCH // TRAIN_NODES * TRAIN_T
+
+    def trainer(**overrides):
+        config = TrainingConfig(
+            model_name="gpt2-moe", batch_size=MOE_BATCH,
+            num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
+            remat=True, seed=0)
+        tr = DistributedTrainer(config, model_overrides=dict(
+            seq_len=TRAIN_T, attn_impl="auto", **overrides), device="cuda")
+        tr.initialize()
+        return tr
+
+    def loader(steps, seed):
+        return get_dataloader("openwebtext", batch_size=MOE_BATCH,
+                              seq_len=TRAIN_T, vocab_size=50257,
+                              num_examples=MOE_BATCH * steps, seed=seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer()
+    cfg = tr.model.config
+    shapes = [tuple(p.shape) for p in tree_leaves(tr.state.params)]
+    n_params = sum(math.prod(s) for s in shapes)
+    attacker = AdversarialAttacker(AttackConfig(
+        attack_types=["gradient_poisoning"], target_nodes=[2],
+        intensity=1.0, start_step=MOE_ATTACK_START))
+    attacker.activate_attacks()
+    tr.set_attack_plan(attacker.plan(TRAIN_NODES))
+    ops.reset_launch_counts()
+    busy = busy_window(tr, loader(MOE_STEPS, 0), first=MOE_BUSY_FIRST,
+                       last=MOE_BUSY_LAST)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = list(tr.batch_history)
+    want = moe_launches(cfg, MOE_STEPS, len(shapes))
+    expect_launches_equal(launches, want, "moe")
+    losses = [h["loss"] for h in hist]
+    drops = [h["moe_drop_fraction"] for h in hist]
+    if len(hist) != MOE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe losses {losses}")
+    if not all(0.0 <= d < 1.0 for d in drops):
+        raise AssertionError(f"moe drop fractions {drops}")
+    expect_gating(hist, MOE_ATTACK_START, "moe")
+    flag_steps = [s for s, h in enumerate(hist) if h["attacked"][2]]
+    if [r["node_id"] for r in tr.attack_history] != [2] or \
+            tr.attack_history[0]["attack_type"] != "gradient_poisoning":
+        raise AssertionError(f"moe attack history {tr.attack_history}")
+    incidents = [{k: r[k] for k in ("node_id", "step", "attack_type")}
+                 for r in tr.attack_history]
+    step_ms = [1e3 * h["step_s"] for h in hist]
+    # After the profiled window: its last step's record also holds the
+    # trace's processing.
+    timed = step_ms[MOE_BUSY_LAST + 1:]
+    del tr, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The priority dispatcher under capacity pressure, clean.
+    torch.cuda.reset_peak_memory_stats()
+    pr = trainer(dispatch="priority", capacity_factor=MOE_PRIORITY_FACTOR)
+    ops.reset_launch_counts()
+    pr.train_epoch(loader(MOE_PRIORITY_STEPS, 1), 0)
+    pri_launches = ops.launch_counts()
+    pri_peak = torch.cuda.max_memory_allocated()
+    pri_want = moe_launches(cfg, MOE_PRIORITY_STEPS, len(shapes))
+    expect_launches_equal(pri_launches, pri_want, "moe priority")
+    pri_hist = list(pr.batch_history)
+    pri_losses = [h["loss"] for h in pri_hist]
+    pri_drops = [h["moe_drop_fraction"] for h in pri_hist]
+    if len(pri_hist) != MOE_PRIORITY_STEPS or not all(
+            math.isfinite(x) for x in pri_losses):
+        raise AssertionError(f"moe priority losses {pri_losses}")
+    if not all(d >= 0.5 for d in pri_drops):
+        raise AssertionError(f"moe priority drop fractions {pri_drops}: "
+                             "capacity factor 0.5 forces >= 0.5")
+    pri_flagged = [s for s, h in enumerate(pri_hist) if any(h["attacked"])]
+    pri_ms = [1e3 * h["step_s"] for h in pri_hist]
+    pri_capacity = _capacity(node_tokens, pr.model.config)
+    del pr, pri_hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B1 over the MoE step's gradient battery against its twin.
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8,
+                        device=torch.device("cuda"))
+    mix = b1_at_mix(torch, shapes, TRAIN_NODES, flush, full=True)
+    split = moe_layer_split(torch, cfg, node_tokens, flush)
+    del flush
+    entries["fused_moments"]["moe_mix"] = {
+        k: mix[k] for k in ("segments", "elements", "launches_per_battery",
+                            "ms", "ms_per_launch", "graph_ms",
+                            "host_us_per_launch", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "max_abs_err")}
+    for name in want:
+        entries[name]["launches_moe"] = launches[name] + pri_launches[name]
+    device_ms = 1e3 * busy["device_kernel_s"] / (
+        MOE_BUSY_LAST - MOE_BUSY_FIRST + 1)
+    emit({"phase": "moe", "card": card,
+          "seconds": time.perf_counter() - t_phase,
+          "model": f"gpt2-moe ({n_params} params, {len(shapes)} leaves: "
+                   f"{cfg.n_layer}L, {cfg.n_embd}, {cfg.n_head}H, "
+                   f"V{cfg.vocab_size}, {cfg.n_experts} experts top-"
+                   f"{cfg.top_k}, bf16 over f32 master weights, block "
+                   "remat, random init seed 0)",
+          "nodes": TRAIN_NODES, "batch": MOE_BATCH, "seq_len": TRAIN_T,
+          "tokens_per_step": MOE_BATCH * TRAIN_T,
+          "capacity": _capacity(node_tokens, cfg),
+          "step_ms": step_ms,
+          "timed_steps": [MOE_BUSY_LAST + 1, MOE_STEPS - 1],
+          "step_ms_median": statistics.median(timed),
+          "tokens_per_s": MOE_BATCH * TRAIN_T * len(timed) / sum(timed)
+          * 1e3,
+          "device_ms_per_step": device_ms, "busy": busy,
+          "peak_memory_bytes": peak, "losses": losses,
+          "drop_fraction": drops, "attack_start_step": MOE_ATTACK_START,
+          "flag_steps": flag_steps, "attack_history": incidents,
+          "launches": launches, "expected_launches": want,
+          "priority": {"capacity_factor": MOE_PRIORITY_FACTOR,
+                       "capacity": pri_capacity, "step_ms": pri_ms,
+                       "peak_memory_bytes": pri_peak,
+                       "losses": pri_losses, "drop_fraction": pri_drops,
+                       "flagged_steps": pri_flagged,
+                       "launches": pri_launches},
+          "b1_at_mix": mix, "layer_forward_ms": split})
+
+
+def moe_layer_split(torch, cfg, tokens, flush):
+    """ms of one MoE layer's forward parts at one node's shape (``tokens``
+    tokens, random unit-normal activations and a fresh layer): the
+    routing (router product, softmax, dispatcher), the dispatch product
+    (bf16 [S, E C] x [S, d]), the expert FFN and the f32 combine product,
+    and the whole ``moe_mlp``."""
+    import dataclasses
+
+    from trustworthy_dl_tpu_torch.models import moe
+    from trustworthy_dl_tpu_torch.utils.tree import map_tree
+
+    dev = flush.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    one = dataclasses.replace(cfg, n_layer=1)
+    blk = map_tree(lambda a: a[0], moe.init_block_params(one, gen, dev)
+                   )["moe"]
+    x = torch.randn(tokens, cfg.n_embd, device=dev, generator=gen)
+    cap = moe._capacity(tokens, cfg)
+    dt = cfg.dtype
+
+    def time_part(fn):
+        return time_ms(torch, fn, flush, reps=10)
+
+    # The parts are moe_mlp's own helpers, so the split times its code.
+    with torch.no_grad():
+        combine, _ = moe.route(blk, x, cfg, cap)
+        routed = combine > 0
+        expert_in = moe.dispatch_tokens(routed, x, dt)
+        out = moe.experts(blk, expert_in, dt)
+        return {"tokens": tokens, "capacity": cap,
+                "routing": time_part(lambda: moe.route(blk, x, cfg, cap)),
+                "dispatch_product": time_part(
+                    lambda: moe.dispatch_tokens(routed, x, dt)),
+                "experts": time_part(lambda: moe.experts(blk, expert_in, dt)),
+                "combine_product": time_part(
+                    lambda: moe.combine_outputs(combine, out)),
+                "moe_mlp": time_part(lambda: moe.moe_mlp(blk, x[None], cfg))}
+
+
+def envelope_drive(torch, entries, card):
+    """Phase 5c: ``run_detection_envelope`` at GPT-2 small's width on the
+    card, gated by the JAX package's floors."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.experiments import run_detection_envelope
+
+    cfg = gpt2_small(torch)
+    out_dir = tempfile.mkdtemp(prefix="tddl_envelope_")
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_detection_envelope(
+            output_dir=out_dir, attack_types=ENVELOPE_TYPES,
+            intensities=[1.0], num_nodes=TRAIN_NODES,
+            targets=ENVELOPE_TARGETS, warmup_steps=ENVELOPE_WARMUP,
+            attack_steps=ENVELOPE_ATTACK, device="cuda",
+            model_overrides=dict(n_layer=cfg.n_layer, n_embd=cfg.n_embd,
+                                 n_head=cfg.n_head,
+                                 vocab_size=cfg.vocab_size,
+                                 n_positions=cfg.n_positions,
+                                 seq_len=TRAIN_T))
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        files = sorted(os.listdir(out_dir))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    runs = [res["clean"]] + res["cells"]
+    steps = (ENVELOPE_WARMUP + ENVELOPE_ATTACK) * len(runs)
+    want = step_launches(cfg, [TRAIN_NODES] * steps, remat=False)
+    expect_launches_equal(launches, want, "envelope")
+    for name in want:
+        entries[name]["launches_envelope"] = launches[name]
+    if [r["steps"] for r in runs] != [ENVELOPE_WARMUP + ENVELOPE_ATTACK] \
+            * len(runs) or not all(r["finite"] for r in runs):
+        raise AssertionError(f"envelope runs {runs}")
+    gp = res["cells"][ENVELOPE_TYPES.index("gradient_poisoning")]
+    for run in (res["clean"], gp):
+        if run["fp_rate"] != 0.0 or run["false_positive_incidents"]:
+            raise AssertionError(f"envelope false positives: {run}")
+    if gp["detection_rate"] != 1.0 or gp["median_latency_steps"] > 3 \
+            or gp["attribution_accuracy"] != 1.0:
+        raise AssertionError(f"envelope gradient poisoning floor: {gp}")
+    if not {"detection_envelope.json", "detection_envelope.md"} <= \
+            set(files):
+        raise AssertionError(f"envelope artifacts {files}")
+    keys = ("attack_type", "detection_rate", "detected_nodes",
+            "median_latency_steps", "latencies", "fp_rate",
+            "false_positive_incidents", "attribution_accuracy",
+            "strict_attribution_accuracy", "attributed_types", "finite")
+    emit({"phase": "envelope", "card": card, "seconds": wall,
+          "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                   "weights, no remat, flash; each run from seed 0)",
+          "nodes": TRAIN_NODES, "batch": 2 * TRAIN_NODES,
+          "seq_len": TRAIN_T, "targets": list(ENVELOPE_TARGETS),
+          "warmup_steps": ENVELOPE_WARMUP, "attack_steps": ENVELOPE_ATTACK,
+          "wall_time_s": res["wall_time_s"], "artifacts": files,
+          "clean": {k: res["clean"][k] for k in keys},
+          "cells": [{k: c[k] for k in keys} for c in res["cells"]],
+          "platform": res["run_metadata"]["platform"],
+          "launches": launches, "expected_launches": want})
+
+
 def expect_gating(hist, attack_start, what, targets=(2,),
                   nodes=TRAIN_NODES):
     """The ``targets`` gated on every step from ``attack_start`` and never
@@ -3257,6 +3556,8 @@ def vision_drive(torch, entries, card):
     b1_total = 0
     try:
         for preset, epochs, per_epoch, attack_epoch in VISION_DRIVES:
+            if attack_epoch is None and not sklearn:
+                per_epoch = VISION_CLEAN_PER_EPOCH_NO_ML
             # What earlier phases left allocated (and the flush buffer),
             # once their garbage is collected: the drive's peak is counted
             # above it.
@@ -4431,6 +4732,11 @@ def main() -> int:
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)
     del on
+    torch.cuda.empty_cache()
+    moe_drive(torch, entries, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    envelope_drive(torch, entries, smi)
     torch.cuda.empty_cache()
     train_fused_ce(torch, entries, smi)
     torch.cuda.empty_cache()

@@ -326,10 +326,11 @@ def test_main_runs_on_the_cpu(tmp_path, capsys):
     assert (out / "experiment_results.json").exists()
     assert (out / "experiment_report.md").exists()
     assert "Experiment completed: cli_smoke" in capsys.readouterr().out
-    for flag in ("--envelope", "--serve-envelope"):
-        with pytest.raises(SystemExit):
-            cli_main(["experiment", flag])
-        assert "not ported yet" in capsys.readouterr().err
+    # --envelope runs (tests/test_torch_envelope.py); the serving fleet's
+    # envelope is not ported yet.
+    with pytest.raises(SystemExit):
+        cli_main(["experiment", "--serve-envelope"])
+    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_load_experiment_config_reads_the_readme_schema(tmp_path):

@@ -42,7 +42,9 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.serve.kv_slots",
                "trustworthy_dl_tpu_torch.serve.scheduler",
                "trustworthy_dl_tpu_torch.serve.migrate",
-               "trustworthy_dl_tpu_torch.chaos.injector")
+               "trustworthy_dl_tpu_torch.chaos.injector",
+               "trustworthy_dl_tpu_torch.models.moe",
+               "trustworthy_dl_tpu_torch.experiments.envelope")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

@@ -19,7 +19,7 @@ and MoE families and a checkpoint trained with pipeline parallelism (rc
 2), and fail loudly on a checkpoint whose weights do not fit the model.
 ``train`` is the counterpart of ``trustworthy-dl-train``
 (``trustworthy_dl_tpu/cli.py:main``) on its data-parallel path: trusted
-training of GPT-2, ResNet or VGG over logical nodes on the configured
+training of GPT-2 (dense or MoE), ResNet or VGG over logical nodes on the configured
 dataset (the synthetic source stands in for a corpus or image file that
 is absent), validated each epoch on the dataset's validation split,
 printing the run's statistics; ``--parallelism`` takes JAX's modes and
@@ -518,16 +518,18 @@ def serve_main(argv: Optional[List[str]] = None,
 def build_train_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m trustworthy_dl_tpu_torch.cli train",
-        description="Trust-gated data-parallel training of GPT-2, ResNet "
-                    "or VGG (random init) on the card.  The configuration "
-                    "is --config's file or the TrainingConfig defaults; "
-                    "a flag given on the command line wins over both.")
+        description="Trust-gated data-parallel training of GPT-2 (dense "
+                    "or MoE), ResNet or VGG (random init) on the card.  "
+                    "The configuration is --config's file or the "
+                    "TrainingConfig defaults; a flag given on the command "
+                    "line wins over both.")
     parser.add_argument("--config", type=str, default=None,
                         help="YAML/JSON config: the nested README schema "
                              "(model / training / distributed / security) "
                              "or flat TrainingConfig field names")
     parser.add_argument("--model", type=str, default=None,
-                        help="gpt2[-medium|-large|-xl], resnet32/50/101, "
+                        help="gpt2[-medium|-large|-xl], their MoE variants "
+                             "gpt2[-size]-moe (data mode), resnet32/50/101, "
                              "vgg11/13/16 (default: the config's)")
     parser.add_argument("--dataset", type=str, default=None,
                         help="openwebtext, wikitext, cifar10, cifar100, "

@@ -22,9 +22,11 @@ The JAX step vmaps the node axis; here the per-node gradients come from a
 Python loop over the nodes (forward, loss, ``torch.autograd.grad``),
 stacked into [n, ...] leaves.  With ``grad_accum_steps`` = a > 1 each
 node's batch runs as a sequential microbatches (JAX's ``lax.scan``): loss,
-gradients and mean logits average over them, the output batteries combine
-per microbatch (``stats.combine_microbatch_stats``) and the feature
-mean/std average.  The batch is poisoned before the split and the
+gradients, mean logits and the model's diagnostics (``model_aux``, the
+MoE family's drop fraction) average over them, the output batteries
+combine per microbatch (``stats.combine_microbatch_stats``) and the
+feature mean/std average.  The diagnostics then average over the nodes
+(a fleet-level capacity health, not a detection signal).  The batch is poisoned before the split and the
 gradients after the average, as in JAX.  The statistic batteries run on
 detached tensors under ``torch.no_grad``: one moment-battery launch
 (kernel B1) covers every gradient leaf of every node, one more every
@@ -32,7 +34,7 @@ node's (every microbatch's) features.
 
 :func:`build_eval_step` and :func:`build_node_eval_step` are the
 validation steps: loss and accuracy, through the fused eval head where
-``lm_head_chunk`` resolves to a width.
+``lm_head_chunk`` resolves to a width (dense GPT-2 only, as in JAX).
 Medians follow ``jnp.median`` (the two middle values averaged, NaN if any
 input is NaN) and standard deviations are population ones, as in JAX.
 """
@@ -174,6 +176,9 @@ class StepMetrics(NamedTuple):
     backdoor: Tensor        # bool [n]
     out_stats: Tensor       # f32 [n, 17]
     grad_stats: Tensor      # f32 [n, 17]
+    # Model diagnostics, {"moe_drop_fraction": f32 []} for the MoE family
+    # (the share of routed assignments dropped at expert capacity, mean
+    # over layers, microbatches and nodes); None for the other models.
     model_aux: Optional[Dict[str, Tensor]] = None
     fleet_alert: Any = None  # bool [] debounced fleet norm surge
 
@@ -195,7 +200,8 @@ class HostMetricsPacker:
     vector's one device-to-host copy at dispatch (``pack``).  ``unpack``
     waits for the copy and restores each field's dtype and shape, so the
     host reads what a synchronous read would have.  bool and the small
-    int32 codes survive f32 exactly.  The layout is fixed from a template
+    int32 codes survive f32 exactly; each ``model_aux`` entry packs as
+    ``model_aux:<key>`` in key order.  The layout is fixed from a template
     step; ``matches`` fails when the node count changed (an elastic
     transition), and the pipeline builds a new packer.  Counterpart of
     JAX's ``engine/step.py`` ``HostMetricsPacker``."""
@@ -210,11 +216,13 @@ class HostMetricsPacker:
 
     @staticmethod
     def _leaves(metrics: StepMetrics, fleet_streak: Any):
-        """(key, tensor) in field order, shared by layout and pack (the
-        port's steps leave ``model_aux`` None)."""
+        """(key, tensor) in field order, shared by layout and pack."""
         for name in StepMetrics._fields:
             value = getattr(metrics, name)
-            if value is not None:
+            if name == "model_aux":
+                for k in sorted(value or {}):
+                    yield f"model_aux:{k}", value[k]
+            elif value is not None:
                 yield name, value
         if fleet_streak is not None:
             yield "fleet_raw_streak", fleet_streak
@@ -249,15 +257,20 @@ class HostMetricsPacker:
             packed.event.synchronize()
         flat = packed.host.numpy()
         fields: Dict[str, Any] = {"model_aux": None, "fleet_alert": None}
+        aux: Dict[str, Any] = {}
         streak = None
         offset = 0
         for key, shape, size, dtype in self._layout:
             chunk = flat[offset:offset + size].astype(dtype).reshape(shape)
             offset += size
-            if key == "fleet_raw_streak":
+            if key.startswith("model_aux:"):
+                aux[key.split(":", 1)[1]] = chunk
+            elif key == "fleet_raw_streak":
                 streak = chunk
             else:
                 fields[key] = chunk
+        if aux:
+            fields["model_aux"] = aux
         return StepMetrics(**fields), streak
 
 
@@ -265,8 +278,8 @@ StepFn = Callable[..., Tuple[TrainState, StepMetrics]]
 
 
 def _node_loss(bundle: ModelBundle) -> Callable:
-    """(params, batch) -> (loss, features, mean_logits): the bundle's
-    ``loss_monitor``, else (the vision models) ``apply`` and the
+    """(params, batch) -> (loss, features, mean_logits[, model_aux]): the
+    bundle's ``loss_monitor``, else (the vision models) ``apply`` and the
     cross-entropy, with the logits as the features and their f32 mean
     over every axis but the class axis as the mean logits."""
     if bundle.loss_monitor is not None:
@@ -302,11 +315,12 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
     def node_passes(params: Any, batch: Dict[str, Tensor]):
         """Per node, per microbatch: forward + loss + grads.  Returns
         (losses [n], features (detached, n lists of ``accum``),
-        mean_logits [n, V], grads as [n, ...] leaves in tree order), each
-        node's loss, mean logits and grads the mean over its
-        microbatches."""
+        mean_logits [n, V], grads as [n, ...] leaves in tree order,
+        model_aux or None), each node's loss, mean logits, grads and
+        diagnostics the mean over its microbatches, the diagnostics then
+        the mean over the nodes."""
         template = tree_leaves(params)
-        losses, feats, mean_logits = [], [], []
+        losses, feats, mean_logits, node_aux = [], [], [], []
         grads: List[Tensor] = []
         inv = 1.0 / accum
         for i in range(n_nodes):
@@ -314,12 +328,16 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
             node_params = tree_unflatten(params, leaves)
             micro = {k: v[i].chunk(accum) for k, v in batch.items()}
             loss_sum = ml_sum = None
-            node_feats = []
+            node_feats, micro_aux = [], []
             for a in range(accum):
                 mb = {k: v[a] for k, v in micro.items()}
                 with torch.enable_grad():
-                    loss, f, ml = node_loss(node_params, mb)
+                    out = node_loss(node_params, mb)
+                    loss, f, ml = out[:3]
                     g = torch.autograd.grad(loss, leaves)
+                if len(out) > 3:
+                    micro_aux.append({k: v.detach()
+                                      for k, v in out[3].items()})
                 if i == 0 and a == 0:
                     grads = [torch.empty((n_nodes,) + x.shape, dtype=x.dtype,
                                          device=x.device) for x in g]
@@ -340,7 +358,13 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
             losses.append(loss_sum)
             feats.append(node_feats)
             mean_logits.append(ml_sum)
-        return (torch.stack(losses), feats, torch.stack(mean_logits), grads)
+            if micro_aux:
+                node_aux.append({k: torch.stack([m[k] for m in micro_aux])
+                                 .mean(dim=0) for k in micro_aux[0]})
+        model_aux = ({k: torch.stack([m[k] for m in node_aux]).mean(dim=0)
+                      for k in node_aux[0]} if node_aux else None)
+        return (torch.stack(losses), feats, torch.stack(mean_logits), grads,
+                model_aux)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    plan: AttackPlan,
@@ -358,17 +382,18 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
 
         # 2-3. Per-node forward/backward, then gradient injection.
         with record_function("tddl.forward_backward"):
-            losses, feats, mean_logits, grads = node_passes(state.params,
-                                                            batch)
+            losses, feats, mean_logits, grads, model_aux = node_passes(
+                state.params, batch)
         if live:
             grads = poison_gradients(plan, grads, step, generator=state.rng,
                                      noise=grad_noise)
 
         with torch.no_grad():
             return _after_backward(state, plan, losses, feats, mean_logits,
-                                   grads, now)
+                                   grads, model_aux, now)
 
-    def _after_backward(state, plan, losses, feats, mean_logits, grads, now):
+    def _after_backward(state, plan, losses, feats, mean_logits, grads,
+                        model_aux, now):
         n = n_nodes
         device = losses.device
         with record_function("tddl.detection"):     # stages 4-7
@@ -540,7 +565,7 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
             grad_norm=global_norm(agg), out_score=out_score,
             grad_score=grad_score, attack_type=attack_type, byzantine=byz,
             backdoor=backdoor, out_stats=out_stats, grad_stats=grad_stats,
-            model_aux=None, fleet_alert=fleet_alert)
+            model_aux=model_aux, fleet_alert=fleet_alert)
         return new_state, metrics
 
     return train_step
@@ -551,16 +576,17 @@ EvalFn = Callable[[Any, Dict[str, Tensor]], Dict[str, Tensor]]
 
 def build_eval_step(bundle: ModelBundle) -> EvalFn:
     """Validation step on an un-noded batch: {'loss', 'accuracy'}, no
-    detection.  GPT-2 takes the fused eval head where ``lm_head_chunk``
-    resolves to a width for this batch (the training dispatch), so the
-    [B, T, V] logits never materialise; the vision models take ``apply``
-    and the cross-entropy."""
+    detection.  Dense GPT-2 takes the fused eval head where
+    ``lm_head_chunk`` resolves to a width for this batch (the training
+    dispatch), so the [B, T, V] logits never materialise; a bundle with
+    ``fused_eval_head`` False (the MoE family, as in JAX) and the vision
+    models take ``apply`` and the cross-entropy."""
     from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.models import layers as L
     from trustworthy_dl_tpu_torch.ops.fused_ce import fused_lm_eval
 
     cfg = bundle.config
-    lm = bundle.kind == "lm"
+    lm = bundle.kind == "lm" and bundle.fused_eval_head
 
     @torch.no_grad()
     def eval_step(params: Any, batch: Dict[str, Tensor]

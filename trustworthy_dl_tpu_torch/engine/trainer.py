@@ -17,8 +17,9 @@ absorbs the device trust and monitor state (``trust_manager``,
 ``node_monitor``), pushes the adaptive threshold back, refits the ML
 tier's per-node IsolationForests and scores each node's newest features
 (``ml_flags``), and, given a validation loader, evaluates
-(``validate_metrics``).  The GPT-2 family trains on token windows, the
-ResNet and VGG families on f32 NHWC images with class labels.  The model
+(``validate_metrics``).  The GPT-2 family (dense and MoE, whose records
+carry ``moe_drop_fraction``) trains on token windows, the ResNet and VGG
+families on f32 NHWC images with class labels.  The model
 computes in ``config.dtype`` unless ``model_overrides`` names a dtype.
 
 The loop, as in JAX: batches are assembled on a host thread
@@ -624,6 +625,9 @@ class DistributedTrainer:
                                "system_trust": float(metrics.system_trust)}
         for key in _HOST_FIELDS:
             out[key] = np.asarray(getattr(metrics, key))
+        # Model diagnostics (the MoE drop fraction), absent elsewhere.
+        out["model_aux"] = {k: float(v) for k, v in
+                            (metrics.model_aux or {}).items()}
         fleet = metrics.fleet_alert is not None
         out["fleet_alert"] = bool(metrics.fleet_alert) if fleet else None
         out["fleet_streak"] = int(np.asarray(streak).reshape(-1)[0]) \
@@ -644,7 +648,8 @@ class DistributedTrainer:
             "weights": host["weights"].tolist(),
             "attacked": attacked.tolist(),
             "trust_scores": {id_of[i]: float(trust[i])
-                             for i in range(len(trust))}}
+                             for i in range(len(trust))},
+            **host["model_aux"]}
         self.metrics_collector.collect_batch_metrics(record)
         record = self.metrics_collector.batch_metrics[-1]
         if self._ml_enabled:
@@ -1083,7 +1088,8 @@ class DistributedTrainer:
 
 def _refuse_unported(config: TrainingConfig) -> None:
     """A configuration that asks for what the port has not got raises
-    here, naming the ROADMAP item."""
+    here, naming the ROADMAP item (``expert`` too: the MoE family trains
+    in data mode, its expert mesh is Slice 4's)."""
     if config.parallelism != "data":
         raise NotImplementedError(
             f"parallelism={config.parallelism!r} is not ported yet (ROADMAP "

@@ -17,7 +17,8 @@ experiment_results.json embeds the step-time/MFU report as
 ``obs_report``.  The runner trains on the card
 (``device="cuda"``) unless given ``device="cpu"``.  It runs the GPT-2,
 ResNet and VGG presets in data mode; a preset whose mode is not ported
-raises at ``setup_experiment``.
+raises at ``setup_experiment``.  ``main --envelope`` runs the detection
+envelope (``experiments/envelope.py``).
 """
 
 from __future__ import annotations
@@ -782,7 +783,9 @@ def main(argv: Optional[List[str]] = None,
          data_overrides: Optional[Dict[str, Any]] = None) -> int:
     """``python -m trustworthy_dl_tpu_torch.experiments.runner``: the
     JAX package's ``trustworthy-dl-experiment`` with ``--device``;
-    ``model_overrides`` / ``data_overrides`` shrink the run (tests)."""
+    ``model_overrides`` / ``data_overrides`` shrink the run (tests).
+    ``--envelope`` sweeps its own tiny GPT-2, as JAX's does;
+    ``--serve-envelope`` is refused: the serving fleet is not ported."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -806,7 +809,9 @@ def main(argv: Optional[List[str]] = None,
     parser.add_argument("--sweep-thresholds", type=str, default=None,
                         help="comma-separated trust thresholds (preset 5)")
     parser.add_argument("--envelope", action="store_true",
-                        help="the detection envelope (not ported yet)")
+                        help="measure the detection envelope (attack type "
+                        "x intensity matrix) instead of a single "
+                        "experiment")
     parser.add_argument("--serve-envelope", action="store_true",
                         help="the serve-side detection envelope (not "
                         "ported yet)")
@@ -815,9 +820,44 @@ def main(argv: Optional[List[str]] = None,
                         help="cpu runs every kernel's plain PyTorch version")
     args = parser.parse_args(argv)
 
-    if args.envelope or args.serve_envelope:
-        parser.error("--envelope and --serve-envelope are not ported yet "
-                     "(ROADMAP Slice 4: the envelopes of experiments/)")
+    if args.serve_envelope:
+        parser.error("--serve-envelope is not ported yet (ROADMAP item "
+                     "21: the serving fleet's envelope)")
+
+    if args.envelope:
+        from trustworthy_dl_tpu_torch.experiments.envelope import \
+            run_detection_envelope
+
+        # Refuse flags the sweep would silently ignore: a user passing
+        # --model/--steps must not publish numbers believing they
+        # measured that configuration.
+        unsupported = {
+            "--config": args.config, "--preset": args.preset,
+            "--name": args.name, "--model": args.model,
+            "--dataset": args.dataset, "--epochs": args.epochs,
+            "--batch-size": args.batch_size,
+            "--parallelism": args.parallelism,
+            "--steps-per-epoch": args.steps_per_epoch,
+            "--attack": args.attack or None,
+            "--sweep-thresholds": args.sweep_thresholds,
+        }
+        rejected = [flag for flag, value in unsupported.items()
+                    if value is not None]
+        if rejected:
+            parser.error(
+                f"--envelope does not take {', '.join(rejected)}; it "
+                "sweeps its own fixed matrix (use "
+                "run_detection_envelope(...) for custom shapes)"
+            )
+        kwargs: Dict[str, Any] = {"device": args.device}
+        if args.output_dir:
+            kwargs["output_dir"] = args.output_dir
+        if args.nodes:
+            kwargs["num_nodes"] = args.nodes
+        results = run_detection_envelope(**kwargs)
+        print(f"Detection envelope: {len(results['cells'])} cells in "
+              f"{results['wall_time_s']:.1f}s")
+        return 0
 
     overrides = {
         k: v for k, v in {

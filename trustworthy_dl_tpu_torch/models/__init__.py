@@ -1,2 +1,2 @@
-"""GPT-2, ResNet and VGG, the weight converter and the cached/paged
-generation paths."""
+"""GPT-2 (dense and Mixture-of-Experts), ResNet and VGG, the weight
+converter and the cached/paged generation paths."""

@@ -3,8 +3,9 @@
 ``params_from_jax`` takes a JAX parameter pytree as numpy arrays (nested
 dicts and lists) and returns the port's parameter tree: the same layout,
 as tensors on a given device and dtype.  It takes the dense GPT-2 tree
-(``blocks`` stacked with a leading layer axis) and the ResNet and VGG
-trees (``blocks`` a list of dicts, a ResNet block with or without its
+(``blocks`` stacked with a leading layer axis), the MoE GPT-2 tree (the
+same with ``blocks.mlp`` swapped for ``blocks.moe``: router, expert fc
+and proj) and the ResNet and VGG trees (``blocks`` a list of dicts, a ResNet block with or without its
 ``proj`` / ``gn_proj``), and refuses any other.  The caller turns the JAX
 arrays into numpy (``jax.tree_util.tree_map(np.asarray, params)``), so
 this module needs no JAX.
@@ -29,6 +30,14 @@ GPT2_LEAVES = (
     "blocks.ln_2.scale", "blocks.ln_2.bias",
     "blocks.mlp.fc.w", "blocks.mlp.fc.b",
     "blocks.mlp.proj.w", "blocks.mlp.proj.b",
+)
+
+#: Leaves of the MoE GPT-2 tree: the dense MLP's replaced by the router
+#: [L, d, E] and the experts' fc [L, E, d, 4d] / proj [L, E, 4d, d].
+MOE_LEAVES = tuple(p for p in GPT2_LEAVES if not p.startswith(
+    "blocks.mlp.")) + (
+    "blocks.moe.router.w", "blocks.moe.fc.w", "blocks.moe.fc.b",
+    "blocks.moe.proj.w", "blocks.moe.proj.b",
 )
 
 _CONV = ("w", "b")
@@ -88,13 +97,13 @@ def _is_vision_tree(tree: Any) -> bool:
 def params_from_jax(tree: Any, device: Any = "cpu",
                     dtype: torch.dtype = torch.float32) -> Params:
     """JAX params (numpy leaves) -> the port's params on ``device`` in
-    ``dtype``.  Raises when the tree is neither a dense GPT-2 tree nor a
-    ResNet or VGG tree."""
+    ``dtype``.  Raises when the tree is none of a dense or MoE GPT-2 tree
+    and a ResNet or VGG tree."""
     if not _is_vision_tree(tree):
         got = sorted(_leaf_paths(tree))
-        if got != sorted(GPT2_LEAVES):
-            raise ValueError("not a dense GPT-2, ResNet or VGG parameter "
-                             f"tree: leaves {got}")
+        if got not in (sorted(GPT2_LEAVES), sorted(MOE_LEAVES)):
+            raise ValueError("not a dense or MoE GPT-2, ResNet or VGG "
+                             f"parameter tree: leaves {got}")
     return map_tree(
         lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32).copy()
                                    ).to(device=device, dtype=dtype),

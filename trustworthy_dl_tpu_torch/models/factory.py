@@ -1,10 +1,10 @@
 """Model factory: ``create_model(name)`` -> a :class:`ModelBundle`.
 
 Counterpart of ``trustworthy_dl_tpu/models/factory.py``: a model as plain
-functions over an explicit parameter dict, for the dense GPT-2 family
-(``kind="lm"``) and ResNet-32/50/101 and VGG-11/13/16 (``kind="vision"``,
-NHWC images of ``input_spec["image_shape"]``, ``num_classes`` labels).
-The MoE family is not ported yet.
+functions over an explicit parameter dict, for the GPT-2 family and its
+Mixture-of-Experts variants (``kind="lm"``) and ResNet-32/50/101 and
+VGG-11/13/16 (``kind="vision"``, NHWC images of
+``input_spec["image_shape"]``, ``num_classes`` labels).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from trustworthy_dl_tpu_torch.models import gpt2, resnet, vgg
+from trustworthy_dl_tpu_torch.models import gpt2, moe, resnet, vgg
 from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
 Params = Dict[str, Any]
@@ -34,10 +34,14 @@ class ModelBundle:
     input_spec: Dict[str, Any]
     # (params, tokens) -> (logits, features, mean_logits)
     apply_monitor: Optional[Callable] = None
-    # (params, batch) -> (loss, features, mean_logits): the step's hot path.
-    # None (the vision models): the step takes ``apply`` and the
+    # (params, batch) -> (loss, features, mean_logits[, model_aux]): the
+    # step's hot path; the MoE family adds its diagnostics dict.  None
+    # (the vision models): the step takes ``apply`` and the
     # cross-entropy, with the logits as the monitored features.
     loss_monitor: Optional[Callable] = None
+    # Whether an LM's validation may take the fused head (logits never
+    # materialized); False for a family whose loss carries diagnostics.
+    fused_eval_head: bool = True
 
     def example_batch(self, batch_size: int,
                       generator: Optional[torch.Generator] = None,
@@ -61,31 +65,34 @@ class ModelBundle:
 
 
 class ModelFactory:
-    """Creates models by name: gpt2[-medium|-large|-xl], resnet32/50/101,
-    vgg11/13/16.  ``overrides`` reach the family config (``seq_len`` sets
+    """Creates models by name: gpt2[-medium|-large|-xl], their MoE
+    variants gpt2[-size]-moe, resnet32/50/101, vgg11/13/16.  ``overrides`` reach the family config (``seq_len`` sets
     an LM's input contract; ``image_shape`` and ``num_classes`` a vision
     model's, a side up to 64 taking the small-input ResNet stem)."""
 
     def create_model(self, model_name: str, **overrides: Any) -> ModelBundle:
         name = model_name.lower()
-        if name.startswith("gpt") and name.endswith("-moe"):
-            raise ValueError(f"model {model_name!r} is not ported yet "
-                             "(the port has no MoE family)")
         if name.startswith("gpt"):
+            # gpt2[-size]-moe swaps the dense MLP for the expert layer;
+            # its diagnostics rule out the fused eval head.
+            is_moe = name.endswith("-moe")
+            mod, config_cls = ((moe, moe.MoEConfig) if is_moe
+                               else (gpt2, gpt2.GPT2Config))
             seq_len = overrides.pop("seq_len", 128)
-            cfg = gpt2.GPT2Config.from_name(name, **overrides)
+            cfg = config_cls.from_name(name, **overrides)
             return ModelBundle(
                 name=name, kind="lm", config=cfg,
-                init=lambda gen, device="cpu", c=cfg: gpt2.init_params(
+                init=lambda gen, device="cpu", c=cfg: mod.init_params(
                     c, gen, device),
-                apply=lambda p, x, c=cfg: gpt2.forward(p, x, c),
-                loss=lambda p, b, c=cfg: gpt2.loss_fn(p, b, c),
+                apply=lambda p, x, c=cfg: mod.forward(p, x, c),
+                loss=lambda p, b, c=cfg: mod.loss_fn(p, b, c),
                 num_blocks=cfg.n_layer,
                 input_spec={"seq_len": seq_len, "vocab_size": cfg.vocab_size},
-                apply_monitor=lambda p, x, c=cfg: gpt2.forward_with_monitor(
+                apply_monitor=lambda p, x, c=cfg: mod.forward_with_monitor(
                     p, x, c),
-                loss_monitor=lambda p, b, c=cfg: gpt2.loss_with_monitor(
+                loss_monitor=lambda p, b, c=cfg: mod.loss_with_monitor(
                     p, b, c),
+                fused_eval_head=not is_moe,
             )
         if name.startswith("resnet"):
             num_classes = overrides.pop("num_classes", 10)

@@ -74,10 +74,29 @@ class GPT2Config:
 def init_params(cfg: GPT2Config, generator: torch.Generator,
                 device: Any = "cpu") -> Params:
     """f32 master weights drawn from ``generator`` with the JAX package's
-    scheme: normal(0.02) embeddings and qkv/fc weights, normal(0.02 /
-    sqrt(2 L)) output projections, zero biases, unit LayerNorms.  The draws
-    differ from the JAX init's (another generator); tests that compare the
-    two packages convert JAX weights with ``models.convert``."""
+    scheme: normal(0.02) embeddings, the blocks of
+    :func:`init_block_params`, a unit final LayerNorm.  The draws differ
+    from the JAX init's (another generator); tests that compare the two
+    packages convert JAX weights with ``models.convert``."""
+    d = cfg.n_embd
+    wte = torch.randn(cfg.vocab_size, d, generator=generator,
+                      device=device) * 0.02
+    wpe = torch.randn(cfg.n_positions, d, generator=generator,
+                      device=device) * 0.02
+    return {
+        "wte": wte,
+        "wpe": wpe,
+        "blocks": init_block_params(cfg, generator, device),
+        "ln_f": {"scale": torch.ones(d, device=device),
+                 "bias": torch.zeros(d, device=device)},
+    }
+
+
+def init_block_params(cfg: GPT2Config, generator: torch.Generator,
+                      device: Any = "cpu") -> Params:
+    """The stacked blocks (every leaf [n_layer, ...]): normal(0.02) qkv and
+    fc weights, normal(0.02 / sqrt(2 L)) output projections, zero biases,
+    unit LayerNorms."""
     d, n = cfg.n_embd, cfg.n_layer
 
     def normal(*shape: int, std: float) -> torch.Tensor:
@@ -87,31 +106,24 @@ def init_params(cfg: GPT2Config, generator: torch.Generator,
     def zeros(*shape: int) -> torch.Tensor:
         return torch.zeros(*shape, device=device)
 
-    def ln(*lead: int) -> Params:
-        return {"scale": torch.ones(*lead, d, device=device),
-                "bias": zeros(*lead, d)}
+    def ln() -> Params:
+        return {"scale": torch.ones(n, d, device=device), "bias": zeros(n, d)}
 
     proj_std = 0.02 / math.sqrt(2 * n)
     return {
-        "wte": normal(cfg.vocab_size, d, std=0.02),
-        "wpe": normal(cfg.n_positions, d, std=0.02),
-        "blocks": {
-            "ln_1": ln(n),
-            "attn": {
-                "qkv": {"w": normal(n, d, 3 * d, std=0.02),
-                        "b": zeros(n, 3 * d)},
-                "proj": {"w": normal(n, d, d, std=proj_std),
-                         "b": zeros(n, d)},
-            },
-            "ln_2": ln(n),
-            "mlp": {
-                "fc": {"w": normal(n, d, 4 * d, std=0.02),
-                       "b": zeros(n, 4 * d)},
-                "proj": {"w": normal(n, 4 * d, d, std=proj_std),
-                         "b": zeros(n, d)},
-            },
+        "ln_1": ln(),
+        "attn": {
+            "qkv": {"w": normal(n, d, 3 * d, std=0.02),
+                    "b": zeros(n, 3 * d)},
+            "proj": {"w": normal(n, d, d, std=proj_std), "b": zeros(n, d)},
         },
-        "ln_f": ln(),
+        "ln_2": ln(),
+        "mlp": {
+            "fc": {"w": normal(n, d, 4 * d, std=0.02),
+                   "b": zeros(n, 4 * d)},
+            "proj": {"w": normal(n, 4 * d, d, std=proj_std),
+                     "b": zeros(n, d)},
+        },
     }
 
 
@@ -207,10 +219,12 @@ def _checkpointed_full_attention(q, k, v):
     return checkpoint(full_attention, q, k, v, use_reentrant=False)
 
 
-def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config,
-                  attn: Optional[AttnFn] = None) -> torch.Tensor:
-    """One transformer block on f32 [B, T, D] activations; ``attn``
-    overrides the registry's ``cfg.attn_impl``."""
+def attention_residual(block: Params, x: torch.Tensor, cfg: Any,
+                       attn: Optional[AttnFn] = None) -> torch.Tensor:
+    """A block's first half on f32 [B, T, D] activations: ln_1, causal
+    self-attention through the registry (``attn`` overrides
+    ``cfg.attn_impl``) and the residual add.  Shared with the MoE
+    family's block."""
     dtype = cfg.dtype
     b, t, d = x.shape
     y = L.layernorm(block["ln_1"], x).to(dtype)
@@ -218,8 +232,15 @@ def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config,
     attn = attn or get_attention(cfg.attn_impl)
     out = attn(*(split_heads(a, cfg.n_head) for a in (q, k, v)))
     out = out.permute(0, 2, 1, 3).reshape(b, t, d)
-    x = x + L.dense(block["attn"]["proj"], out, dtype).to(x.dtype)
-    return x + mlp(block, x, dtype).to(x.dtype)
+    return x + L.dense(block["attn"]["proj"], out, dtype).to(x.dtype)
+
+
+def block_forward(block: Params, x: torch.Tensor, cfg: GPT2Config,
+                  attn: Optional[AttnFn] = None) -> torch.Tensor:
+    """One transformer block on f32 [B, T, D] activations; ``attn``
+    overrides the registry's ``cfg.attn_impl``."""
+    x = attention_residual(block, x, cfg, attn)
+    return x + mlp(block, x, cfg.dtype).to(x.dtype)
 
 
 def apply_blocks(blocks: Params, x: torch.Tensor, cfg: GPT2Config
@@ -312,9 +333,16 @@ def forward_with_monitor(params: Params, tokens: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens [B, T] -> (logits [B, T, V], features [B, T, D],
     mean_logits [V]).  ``features`` are the final hidden activations
-    before ln_f (the node-boundary output the detector watches);
+    before ln_f (the node-boundary output the detector watches)."""
+    return monitor_head(params,
+                        apply_blocks(params["blocks"], embed(params, tokens),
+                                     cfg), cfg)
+
+
+def monitor_head(params: Params, x: torch.Tensor, cfg: GPT2Config
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ln_f + tied head on [B, T, D] hiddens -> (logits, x, mean_logits);
     ``mean_logits`` is exact because the tied projection is linear."""
-    x = apply_blocks(params["blocks"], embed(params, tokens), cfg)
     normed = L.layernorm(params["ln_f"], x)
     w_head = head_weight(params, cfg)
     mean_normed = normed.mean(dim=tuple(range(normed.dim() - 1)))
