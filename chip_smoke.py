@@ -72,6 +72,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
 4g. serve_chaos: the SERVE_POISON drill on one paged and one stripe
    engine: request 15 alone flagged, one slot quarantined, capacity back
    after the release, the kernels of each layout exact.
+4h. serve_fleet: a ``ServingFleet`` of 3 smoke engines on the card over
+   the serve traffic (fleet seed 0), the launch counters set to 0 just
+   before each drill and read just after.  The JAX package's acceptance
+   plan (REPLICA_POISON on replica 2 at tick 1, REPLICA_CRASH on 0 at 3,
+   REPLICA_STALL on 1 at 6 for 10 ticks) under one monitor shared by the
+   replicas (warm-up 4, primed with 4 clean serve requests, flags at z >
+   1000): counters equal to ``predict_fleet()``; every request completed,
+   greedy streams against the serve drive's by the near-tie rule, sampled
+   ones token for token against one engine given the same seeds; states
+   ``{0: healthy, 1: healthy, 2: quarantined}``; ``verify_attribution()``
+   with a record spanning two journals; B5, B6 and B7 exactly n_layer x
+   the decode ticks, n_layer x the prefill chunks, and the prefilled
+   prompts plus the decode ticks, summed over every replica generation
+   (the crashed one included, each generation's summary kept).  Then
+   REPLICA_PREEMPT on replica 0 at tick 8 (at JAX's tick 3 every request
+   there is still prefilling): migrations and preempts equal
+   to ``predict_fleet(preempt_inflight=)`` at the decode-ready requests
+   the replica held, every stream token for token the one engine's.  Then
+   ``cli serve --fleet-replicas 2`` exits 0 with the fleet summary.  The
+   line: each drill's wall and tokens/s beside the one engine's, the
+   host's ms a tick outside the replicas' ``step()``, the ticks and ms
+   from the crash until its requests are back in rows, a migration's
+   hand-off ms.
 5. train: ``DistributedTrainer.train_epoch`` on GPT-2 small at full width
    (T = 1024, 4 nodes x 8 sequences, AdamW lr 1e-4, block remat, flash
    attention through ``attn_impl="auto"``, synthetic tokens from seed 0),
@@ -406,6 +429,19 @@ FCE_GRAD_RTOL = 2.0 ** -7
 EXP_STEPS_PER_EPOCH, EXP_EPOCHS, EXP_ATTACK_EPOCH = 4, 5, 3
 # survival: the JAX package's scripted drill (tests/test_survival.py).
 DRILL_EPOCHS, DRILL_STEPS_PER_EPOCH, DRILL_INTERVAL = 4, 8, 5
+# The serve_fleet phase: JAX's acceptance plan (tick, kind, replica,
+# severity), its FleetConfig, and the preempt drill's event.  The preempt
+# fires at tick 8, not JAX's 3: the smoke's prompts take 2-5 chunks, so at
+# tick 3 every request replica 0 holds is still prefilling and nothing
+# could move as a block copy; by tick 8 all of them decode.
+FLEET_DRILL = ((1, "REPLICA_POISON", 2, 1.0), (3, "REPLICA_CRASH", 0, 1.0),
+               (6, "REPLICA_STALL", 1, 10.0))
+FLEET_PREEMPT = ((8, "REPLICA_PREEMPT", 0, 1.0),)
+FLEET_CONFIG = dict(num_replicas=3, max_retries=6, heartbeat_miss_limit=3,
+                    restart_ticks=2, drain_grace_ticks=4,
+                    quarantine_cooloff_ticks=10_000)
+FLEET_MAX_TICKS = 400
+
 DRILL_SCRIPT = ((3, "data_loss", 1.0), (7, "stall", 0.01),
                 (10, "ckpt_corrupt", 1.0), (12, "grad_nan", 1.0),
                 (18, "preempt", 1.0))
@@ -1873,6 +1909,320 @@ def serve_chaos_drive(torch, entries, card):
                        "impounded_blocks": impounded,
                        "launches": launches_of(launches, want),
                        "expected_launches": want}
+    emit({**out, "seconds": time.perf_counter() - t_phase})
+
+
+def fleet_drill(torch, cfg, params, requests, events, **engine_kwargs):
+    """One ``ServingFleet`` drill on the card: 3 smoke engines (every
+    generation kept, each ``step()`` timed), the plan of ``events``, the
+    requests submitted with the fleet's seeds, the launch counters set to
+    0 just before the ticks and read just after.  Returns (fleet, plan,
+    record), the record holding the results, the kept engines, the crash
+    and preemption snapshots and each migration's hand-off ms."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.chaos import (FaultEvent, FaultInjector,
+                                                FaultKind, FaultPlan)
+    from trustworthy_dl_tpu_torch.obs.attribution import AttributionLedger
+    from trustworthy_dl_tpu_torch.serve import (FleetConfig, ServeRequest,
+                                                ServingEngine, ServingFleet)
+    from trustworthy_dl_tpu_torch.serve import fleet as fleet_mod
+
+    plan = FaultPlan.scripted([
+        FaultEvent(step=tick, kind=getattr(FaultKind, kind), target=replica,
+                   severity=severity)
+        for tick, kind, replica, severity in events])
+    generations, step_s, handoff_ms = [], [0.0], []
+
+    def factory(index, **kwargs):
+        engine = ServingEngine(params, cfg, **kwargs)
+        real_step = engine.step
+
+        def timed_step():
+            t0 = time.perf_counter()
+            try:
+                return real_step()
+            finally:
+                step_s[0] += time.perf_counter() - t0
+
+        engine.step = timed_step
+        generations.append((index, engine))
+        return engine
+
+    fleet = ServingFleet(
+        fleet_config=FleetConfig(**FLEET_CONFIG),
+        chaos=FaultInjector(plan), ledger=AttributionLedger(), seed=0,
+        engine_factory=factory, device="cuda", max_slots=8, max_seq=512,
+        block_size=16, prefill_chunk=64, prefix_cache=True,
+        attn_impl="kernel", **engine_kwargs)
+    crash, preempt = {}, {}
+    real_crash, real_preempt = fleet._crash_replica, fleet._preempt_replica
+
+    def crash_replica(rep):
+        crash.update(replica=rep.index, tick=fleet.tick,
+                     t=time.perf_counter(),
+                     victims=[fid for (r, _), fid in
+                              fleet._local2fleet.items() if r == rep.index])
+        real_crash(rep)
+
+    def preempt_replica(rep):
+        preempt.update(replica=rep.index, tick=fleet.tick,
+                       inflight=len(rep.engine.inflight_ids),
+                       decode_ready=len(rep.engine.decode_ready_ids),
+                       queued=len(rep.engine.queued_ids))
+        real_preempt(rep)
+
+    real_migrate = fleet_mod.migrate_request
+
+    def timed_migrate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = real_migrate(*args, **kwargs)
+        torch.cuda.synchronize()
+        if moved is not None:
+            handoff_ms.append((time.perf_counter() - t0) * 1e3)
+        return moved
+
+    def in_rows(fid):
+        """A crash victim back in a row of a live replica (or done)."""
+        rec = fleet.requests.get(fid)
+        if rec is None:
+            return fid in fleet.results
+        return any(fleet.replicas[r].engine is not None
+                   and att.local_id in fleet.replicas[r].engine._inflight
+                   for r, att in rec.live.items())
+
+    fleet._crash_replica, fleet._preempt_replica = crash_replica, \
+        preempt_replica
+    seeds = []
+    for prompt, temp in requests:
+        fid = fleet.submit(ServeRequest(prompt=prompt, max_new_tokens=32,
+                                        temperature=temp))
+        if fid is None:
+            raise RuntimeError("fleet shed a request by backpressure")
+        seeds.append(fleet.requests[fid].seed)
+    fleet_mod.migrate_request = timed_migrate
+    tick_s = 0.0
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        while fleet.busy:
+            t_tick = time.perf_counter()
+            fleet.step()
+            tick_s += time.perf_counter() - t_tick
+            if crash and "readmitted_tick" not in crash and all(
+                    map(in_rows, crash["victims"])):
+                crash["readmitted_tick"] = fleet.tick
+                crash["readmitted_ms"] = (time.perf_counter()
+                                          - crash["t"]) * 1e3
+            if fleet.tick > FLEET_MAX_TICKS:
+                raise AssertionError(f"fleet did not drain in "
+                                     f"{FLEET_MAX_TICKS} ticks: "
+                                     f"{fleet.states()}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        fleet_mod.migrate_request = real_migrate
+    return fleet, plan, {"wall": wall, "launches": launches,
+                         "seeds": seeds, "generations": generations,
+                         "crash": crash, "preempt": preempt,
+                         "handoff_ms": handoff_ms,
+                         "host_ms_per_tick": (tick_s - step_s[0])
+                         / fleet.tick * 1e3}
+
+
+def fleet_streams(fleet, generations):
+    """Each fleet request's winning ``ServeResult`` (trust signals
+    included), read from the engine generation and local id its canonical
+    ledger record names."""
+    engines, seen = {}, {}
+    for index, engine in generations:
+        engines[f"{index}:{seen.get(index, 0)}"] = engine
+        seen[index] = seen.get(index, 0) + 1
+    out = {}
+    for rec in fleet.ledger.records():
+        if rec.get("admitted") and rec["status"] == "completed":
+            winner = rec["attempts"][-1]
+            out[rec["request_id"]] = \
+                engines[rec["journal"]].results[winner["local_id"]]
+    return out
+
+
+def fleet_launch_check(generations, launches, n_layer, what):
+    """B5, B6 and B7 exactly as every replica generation's counters make
+    them; returns each generation's summary."""
+    gens, seen = [], {}
+    for index, engine in generations:
+        s = engine.metrics_summary()
+        gens.append({"replica": index, "gen": seen.get(index, 0),
+                     **{k: s[k] for k in (
+                         "decode_ticks", "prefill_chunks",
+                         "prompts_prefilled", "local_prefills",
+                         "tokens_emitted", "prefix_hits")}})
+        seen[index] = seen.get(index, 0) + 1
+    ticks = sum(g["decode_ticks"] for g in gens)
+    want = {"paged_attention": n_layer * ticks,
+            "paged_prefill_attention":
+                n_layer * sum(g["prefill_chunks"] for g in gens),
+            "logit_trust_stats":
+                sum(g["prompts_prefilled"] for g in gens) + ticks}
+    expect_launches(launches, want, what)
+    return gens, want
+
+
+def serve_fleet_drive(torch, entries, card, base_results):
+    """Phase 4h: the serving fleet on the card (module docstring)."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.serve import OutputMonitor, ServeRequest
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (smoke_engine,
+                                                              smoke_traffic)
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.GPT2Config.from_name("gpt2", dtype=torch.bfloat16)
+    gen_ = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2.init_params(cfg, gen_, device="cuda")
+    requests = smoke_traffic(cfg.vocab_size)
+    n_layer = cfg.n_layer
+    out = {"phase": "serve_fleet", "card": card, "replicas":
+           FLEET_CONFIG["num_replicas"], "requests": len(requests)}
+
+    # -- 1. the acceptance plan --------------------------------------------
+    monitor = OutputMonitor(warmup=4, z_threshold=1000.0)
+    for rid in range(4):
+        monitor.observe(base_results[rid].entropies,
+                        base_results[rid].margins)
+    fleet, plan, rec = fleet_drill(torch, cfg, params, requests,
+                                   FLEET_DRILL, monitor=monitor)
+    seeds = rec["seeds"]
+
+    # One engine, the same traffic and seeds, in the same call: the
+    # sampled streams' reference and the wall the fleet is read beside.
+    engine = smoke_engine(cfg, params, "kernel")
+    for (prompt, temp), seed in zip(requests, seeds):
+        engine.submit(ServeRequest(prompt=prompt, max_new_tokens=32,
+                                   temperature=temp, seed=seed))
+    t0 = time.perf_counter()
+    one = dict(engine.run_until_idle())
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_tokens = sum(len(r.tokens) for r in one.values())
+    out["one_engine"] = {"wall_s": one_wall,
+                         "tokens_per_s": one_tokens / one_wall}
+
+    predicted = plan.predict_fleet(
+        horizon=fleet.tick,
+        cooloff_ticks=FLEET_CONFIG["quarantine_cooloff_ticks"])
+    observed = {k: fleet.counters[k] for k in predicted}
+    if observed != predicted:
+        raise AssertionError(f"fleet drill: counters {observed}, "
+                             f"predict_fleet {predicted}")
+    if fleet.states() != {0: "healthy", 1: "healthy", 2: "quarantined"}:
+        raise AssertionError(f"fleet drill: states {fleet.states()}")
+    ok, problems = fleet.verify_attribution()
+    if not ok:
+        raise AssertionError(f"fleet attribution: {problems[:3]}")
+    admitted = [r for r in fleet.ledger.records() if r.get("admitted")]
+    spanning = [r["request_id"] for r in admitted
+                if len({a["journal"] for a in r["attempts"]}) > 1]
+    if not spanning or not {"0:0", "0:1"} <= set(fleet.journals):
+        raise AssertionError(f"fleet drill: spanning records {spanning}, "
+                             f"journals {sorted(fleet.journals)}")
+    streams = fleet_streams(fleet, rec["generations"])
+    check_completed(streams, requests)
+    if sorted(fleet.results) != list(range(len(requests))) or any(
+            r.tokens != streams[f].tokens
+            for f, r in fleet.results.items()):
+        raise AssertionError("fleet results differ from their engines'")
+    # The poison rewrote the signals of the streams replica 2 retired
+    # (not their tokens): those go by their tokens alone.
+    poisoned = {f for f, r in fleet.results.items() if r.flagged}
+    vs_serve = compare_greedy(requests, streams, base_results,
+                              "fleet drill vs the serve drive",
+                              only=set(streams) - poisoned)
+    for rid in sorted(poisoned):
+        if requests[rid][1] > 0.0:
+            continue           # sampled: against one engine below
+        ref = base_results[rid]
+        for i, (a, b) in enumerate(zip(streams[rid].tokens, ref.tokens)):
+            if a != b and ref.margins[i] >= NEAR_TIE_MARGIN:
+                raise AssertionError(f"fleet drill: poisoned request {rid} "
+                                     f"token {i}: {a} != {b} at reference "
+                                     f"margin {ref.margins[i]}")
+            if a != b:
+                break
+    for rid, (_, temp) in enumerate(requests):
+        if temp > 0.0 and streams[rid].tokens != one[rid].tokens:
+            raise AssertionError(f"fleet drill: sampled request {rid} "
+                                 "differs from one engine's")
+    gens, want = fleet_launch_check(rec["generations"], rec["launches"],
+                                    n_layer, "serve_fleet drill")
+    tokens = sum(len(r.tokens) for r in fleet.results.values())
+    crash = rec["crash"]
+    out["drill"] = {
+        "wall_s": rec["wall"], "tokens_per_s": tokens / rec["wall"],
+        "ticks": fleet.tick, "host_ms_per_tick": rec["host_ms_per_tick"],
+        "counters": observed, "states": fleet.states(),
+        "crash_victims": len(crash["victims"]),
+        "crash_to_readmitted_ticks":
+            crash["readmitted_tick"] - crash["tick"],
+        "crash_to_readmitted_ms": crash["readmitted_ms"],
+        "migrations": fleet.counters["migrations"],
+        "handoff_ms": rec["handoff_ms"],
+        "spanning_records": len(spanning),
+        "flagged": sorted(poisoned),
+        "generations": gens, "launches": launches_of(rec["launches"], want),
+        "expected_launches": want, "vs_serve": vs_serve,
+        "sampled_equal_one_engine": sum(t > 0.0 for _, t in requests)}
+    del fleet, rec, streams
+
+    # -- 2. REPLICA_PREEMPT ------------------------------------------------
+    fleet, plan, rec = fleet_drill(torch, cfg, params, requests,
+                                   FLEET_PREEMPT)
+    pre = rec["preempt"]
+    predicted = plan.predict_fleet(preempt_inflight=pre["decode_ready"])
+    observed = {k: fleet.counters[k] for k in predicted}
+    if observed != predicted:
+        raise AssertionError(f"fleet preempt: counters {observed}, "
+                             f"predict_fleet {predicted}")
+    ok, problems = fleet.verify_attribution()
+    if not ok:
+        raise AssertionError(f"fleet preempt attribution: {problems[:3]}")
+    for fid, res in one.items():
+        if fleet.results[fid].tokens != res.tokens:
+            raise AssertionError(f"fleet preempt: request {fid} differs "
+                                 "from one engine's")
+    gens, want = fleet_launch_check(rec["generations"], rec["launches"],
+                                    n_layer, "serve_fleet preempt")
+    tokens = sum(len(r.tokens) for r in fleet.results.values())
+    out["preempt"] = {
+        "wall_s": rec["wall"], "tokens_per_s": tokens / rec["wall"],
+        "ticks": fleet.tick, "host_ms_per_tick": rec["host_ms_per_tick"],
+        "at_preemption": pre, "counters": observed,
+        "failovers": fleet.counters["failovers"],
+        "handoff_ms": rec["handoff_ms"],
+        "handoff_ms_mean": (statistics.mean(rec["handoff_ms"])
+                            if rec["handoff_ms"] else None),
+        "generations": gens, "launches": launches_of(rec["launches"], want),
+        "expected_launches": want}
+    del fleet, rec, params
+    torch.cuda.empty_cache()
+
+    # -- 3. cli serve --fleet-replicas 2 -----------------------------------
+    lines = []
+    with tempfile.TemporaryDirectory() as empty:
+        t0 = time.perf_counter()
+        printed = run_cli(["serve", "--fleet-replicas", "2",
+                           "--num-requests", "8", "--max-new-tokens", "16",
+                           "--prompt-len", "32", "--max-seq", "256",
+                           "--checkpoint-dir", empty, "--seed", "0"], lines)
+    if "fleet served" not in printed or "  statuses:" not in printed:
+        raise AssertionError(f"cli serve --fleet-replicas: {printed[-800:]}")
+    out["cli"] = {"seconds": time.perf_counter() - t0,
+                  "summary": [ln.strip() for ln in lines
+                              if ln.startswith("fleet served")
+                              or ln.startswith("  statuses")
+                              or ln.startswith("  replica_states")
+                              or ln.startswith("  completed_tokens")]}
     emit({**out, "seconds": time.perf_counter() - t_phase})
 
 
@@ -4728,6 +5078,7 @@ def main() -> int:
     serve_stripe_drive(torch, entries, smi, base_results, tier_results)
     serve_migrate_drive(torch, entries, smi, base_results, tier_results)
     serve_chaos_drive(torch, entries, smi)
+    serve_fleet_drive(torch, entries, smi, base_results)
     del tier_results
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)

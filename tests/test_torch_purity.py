@@ -6,7 +6,8 @@ modules added since it was written (the async host pipeline,
 ``elastic/``, the ResNet and VGG families, the tokenizer, the profiling
 hooks and the telemetry plane, ``obs/``, with its compile watcher,
 forensics, verdict store and perf sentinel; the stripe pool, the chaos
-injector's serve hooks and live migration, ``serve/migrate.py``).  No ``obs`` module imports
+injector's serve hooks and live migration, ``serve/migrate.py``; the
+serving fleet, ``serve/fleet.py``).  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
 ``torch.cuda`` only inside functions, so importing ``obs`` never
 initialises CUDA.  scikit-learn, the ML tier's optional dependency, is
@@ -42,6 +43,7 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.serve.kv_slots",
                "trustworthy_dl_tpu_torch.serve.scheduler",
                "trustworthy_dl_tpu_torch.serve.migrate",
+               "trustworthy_dl_tpu_torch.serve.fleet",
                "trustworthy_dl_tpu_torch.chaos.injector",
                "trustworthy_dl_tpu_torch.models.moe",
                "trustworthy_dl_tpu_torch.experiments.envelope")

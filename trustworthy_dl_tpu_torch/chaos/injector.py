@@ -11,7 +11,12 @@ Counterpart of the training and checkpoint half of
   (crash before the COMMIT marker), :meth:`~FaultInjector.on_checkpoint_saved`
   (bit-rot of a committed payload);
 * ``serve.ServingEngine``: :meth:`~FaultInjector.on_serve_retire` (a
-  poisoned request's output signals, before the monitor scores them).
+  poisoned request's output signals, before the monitor scores them);
+* ``serve.ServingFleet``: :meth:`~FaultInjector.on_fleet_tick` (the
+  fleet-granularity events due at a tick, whose mechanics the fleet
+  applies) and :meth:`~FaultInjector.on_flag_observed` (a replica's public
+  flag rate after each scored retirement, the adaptive attacker's
+  feedback).
 
 Each event fires exactly once (``fired``), so when the supervisor rolls
 global steps back past a fired event the replayed steps run clean.
@@ -23,10 +28,12 @@ and with ``trace`` (an obs ``TraceBus``) every fired fault is a
 The serve hook's compromises, in JAX's order: an active ADAPTER_POISON on
 the request's adapter, then an adaptive or a plain replica compromise of
 the retiring engine's replica, then a SERVE_POISON event of the plan at
-the request id (replica-gated).  The persistent states are armed by the
-fleet hooks (``on_fleet_tick``, ``on_flag_observed``), which come with the
-port's serving fleet; until then only SERVE_POISON fires on a standalone
-engine, as in JAX.  :meth:`~FaultInjector.heal_replica` and
+the request id (replica-gated).  The persistent states are armed by
+``on_fleet_tick``: REPLICA_POISON and ADAPTER_POISON here; a
+REPLICA_ADAPTIVE_POISON needs an attached adversary, which the port does
+not have yet (ROADMAP Queue A item 21): ``adversary=`` other than None is
+refused with ``NotImplementedError``, and the event firing without one
+raises JAX's ``ValueError``.  :meth:`~FaultInjector.heal_replica` and
 :meth:`~FaultInjector.heal_adapter` are the operator's clears.
 """
 
@@ -39,8 +46,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from trustworthy_dl_tpu_torch.chaos.plan import FaultEvent, FaultKind, \
-    FaultPlan
+from trustworthy_dl_tpu_torch.chaos.plan import FLEET_KINDS, FaultEvent, \
+    FaultKind, FaultPlan
 from trustworthy_dl_tpu_torch.utils.tree import tree_leaves, \
     tree_unflatten
 
@@ -56,12 +63,19 @@ class SimulatedPreemption(Exception):
 class FaultInjector:
     """Consumes a :class:`FaultPlan`; one instance per run.  ``sleep_fn``
     is injectable so tests run STALL events without wall-clock cost;
-    ``max_stall_s`` caps a stall."""
+    ``max_stall_s`` caps a stall.  ``adversary`` (JAX's adaptive attacker)
+    is not ported: anything but None raises."""
 
     def __init__(self, plan: FaultPlan,
                  sleep_fn: Callable[[float], None] = time.sleep,
-                 max_stall_s: float = 30.0):
+                 max_stall_s: float = 30.0, adversary: Any = None):
+        if adversary is not None:
+            raise NotImplementedError(
+                "FaultInjector(adversary=...) is not ported yet (ROADMAP "
+                "Queue A item 21: chaos/adversary.py, the adaptive "
+                "attacker of REPLICA_ADAPTIVE_POISON)")
         self.plan = plan
+        self.adversary = None
         self._sleep = sleep_fn
         self._max_stall_s = max_stall_s
         self.fired: List[FaultEvent] = []
@@ -223,6 +237,61 @@ class FaultInjector:
                            else f" on replica {replica}")
             self._poison_signals(task, event.severity)
             return
+
+    # -- fleet hooks -------------------------------------------------------
+
+    def on_fleet_tick(self, tick: int) -> List[FaultEvent]:
+        """Fire every fleet event scheduled at or before ``tick`` (each
+        once) and return them in ``FLEET_KINDS`` order; the fleet applies
+        the mechanics (kill, wedge, warm-up, flood), the injector keeps
+        the persistent compromises."""
+        out: List[FaultEvent] = []
+        for kind in FLEET_KINDS:
+            for event in self.plan.of_kind(kind):
+                if event.step > tick or event in self.fired:
+                    continue
+                self._fire(event, tick)
+                if kind is FaultKind.TENANT_FLOOD:
+                    # The fleet runs the burst through its admission path.
+                    logger.warning(
+                        "chaos: tenant flood (%d requests from %r) at "
+                        "tick %d", max(int(event.severity), 1),
+                        event.tenant or "flood", tick)
+                    out.append(event)
+                    continue
+                if kind is FaultKind.ADAPTER_POISON:
+                    # Artifact-addressed: the adapter id rides ``tenant``.
+                    name = event.tenant or "adapter"
+                    logger.warning("chaos: adapter poison on %r at tick "
+                                   "%d", name, tick)
+                    self._poisoned_adapters[name] = float(event.severity)
+                    out.append(event)
+                    continue
+                logger.warning("chaos: %s on replica %d at tick %d",
+                               kind.value, event.target, tick)
+                if kind is FaultKind.REPLICA_POISON:
+                    self._poisoned_replicas[event.target] = \
+                        float(event.severity)
+                elif kind is FaultKind.REPLICA_ADAPTIVE_POISON:
+                    # Loud: without an attacker the drill would silently
+                    # run no fault at all.  (No adversary can be attached
+                    # in the port yet, ROADMAP item 21.)
+                    raise ValueError(
+                        "REPLICA_ADAPTIVE_POISON fired but no adversary "
+                        "is attached — build the injector with "
+                        "FaultInjector(plan, adversary=AdaptivePoison"
+                        "Attacker(...))")
+                out.append(event)
+        return out
+
+    def on_flag_observed(self, replica: int, flagged: bool,
+                         flag_rate: float) -> None:
+        """The fleet's feedback: ``replica``'s public flag rate after a
+        scored retirement, handed to an active adaptive attacker's
+        controller (a no-op without one)."""
+        adversary = self._adaptive_replicas.get(replica)
+        if adversary is not None:
+            adversary.observe(flagged, flag_rate)
 
     def heal_replica(self, replica: int) -> None:
         """Operator action: clear an active REPLICA_POISON or adaptive

@@ -14,7 +14,14 @@ is none) and samples a continuation of ``--prompt`` token ids or of
 ``generate``, then a synthetic heterogeneous workload through the paged
 engine (the legacy stripe pool with ``--legacy-stripe``) and the serving
 metrics; ``--no-spec-decode`` forces ``--spec-k`` to 0, and a ``--spec-k``
-past ``--max-new-tokens`` is refused (rc 2).  Both refuse the non-GPT-2
+past ``--max-new-tokens`` is refused (rc 2).  ``serve --fleet-replicas N``
+(N > 1) serves the seeded workload generator's traffic through a
+``serve.ServingFleet`` of N replicas (``--hedge-deadline-ms``,
+``--vote-k``, ``--vote-outvote-limit``, ``--no-live-migration``) and prints
+JAX's fleet summary; the control plane's flags (``--autoscale-min``,
+``--autoscale-max``, ``--tenant-quota``, ``--tenant-quota-refill``,
+``--slo-class``, ``--pool-roles``) parse with JAX's defaults and any other
+value exits 2 naming ROADMAP item 20.  Both refuse the non-GPT-2
 and MoE families and a checkpoint trained with pipeline parallelism (rc
 2), and fail loudly on a checkpoint whose weights do not fit the model.
 ``train`` is the counterpart of ``trustworthy-dl-train``
@@ -351,6 +358,40 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--slo-itl-ms", type=float, default=250.0,
                         help="inter-token-latency SLO target (needs "
                              "--obs-dir)")
+    parser.add_argument("--fleet-replicas", type=int, default=1,
+                        help="serve through a ServingFleet of N engine "
+                             "replicas on the card (lifecycle "
+                             "supervision, trust-aware routing, fail-over "
+                             "with bounded retries, drain and "
+                             "quarantine); 1 = one engine (default)")
+    parser.add_argument("--pool-roles", type=str, default=None,
+                        metavar="ROLE[,ROLE...]",
+                        help="fleet: prefill/decode pools (the control "
+                             "plane, not ported yet: refused)")
+    parser.add_argument("--no-live-migration", action="store_true",
+                        help="fleet: no live KV block migration (drains "
+                             "run out, failures replay from the prompt)")
+    parser.add_argument("--hedge-deadline-ms", type=float, default=None,
+                        help="fleet: launch a hedged duplicate on a "
+                             "second replica when a request's remaining "
+                             "deadline drops below this")
+    parser.add_argument("--vote-k", type=int, default=0,
+                        help="fleet: replay a suspected replica's "
+                             "completed requests on this many others and "
+                             "majority-vote the streams (0 = off)")
+    parser.add_argument("--vote-outvote-limit", type=int, default=2,
+                        help="fleet: outvoted verdicts before the suspect "
+                             "enters the drain -> quarantine ladder")
+    for flag, kind in (("--autoscale-min", int), ("--autoscale-max", int),
+                       ("--tenant-quota", int),
+                       ("--tenant-quota-refill", float)):
+        parser.add_argument(flag, type=kind, default=None,
+                            help="fleet control plane (not ported yet: "
+                                 "refused)")
+    parser.add_argument("--slo-class", action="append", default=None,
+                        metavar="NAME:PRIO:TTFT_MS:ITL_MS:WEIGHT",
+                        help="fleet control plane (not ported yet: "
+                             "refused)")
     parser.add_argument("--trace-max-bytes", type=int, default=0,
                         help="rotate trace.jsonl once it exceeds this "
                              "many bytes (trace.1.jsonl, ...; 0 = no "
@@ -358,6 +399,11 @@ def build_serve_parser() -> argparse.ArgumentParser:
                              "default)")
     parser.add_argument("--seed", type=int, default=0)
     return parser
+
+
+#: ``serve``'s control-plane flags (ROADMAP Queue A item 20), by dest.
+CONTROL_PLANE_FLAGS = ("autoscale_min", "autoscale_max", "tenant_quota",
+                       "tenant_quota_refill", "slo_class", "pool_roles")
 
 
 def serve_main(argv: Optional[List[str]] = None,
@@ -372,6 +418,12 @@ def serve_main(argv: Optional[List[str]] = None,
     args = build_serve_parser().parse_args(argv)
     if not _dense_gpt2(args.model):
         print("serving supports the dense GPT-2 family")
+        return 2
+    given = [f"--{d.replace('_', '-')}" for d in CONTROL_PLANE_FLAGS
+             if getattr(args, d) is not None]
+    if given:
+        print(f"{', '.join(given)}: the fleet's control plane is not "
+              "ported yet (ROADMAP Queue A item 20: serve/control.py)")
         return 2
     spec_k = 0 if args.no_spec_decode else args.spec_k
     if spec_k > args.max_new_tokens:
@@ -441,9 +493,19 @@ def serve_main(argv: Optional[List[str]] = None,
         # pool headroom gate, the cost ledger and the perf fingerprint.
         obs_session.enable_compile_watch()
         obs_session.enable_hbm()
+        if args.fleet_replicas > 1:
+            # A fleet builds per-replica watchers from the SLO flags (a
+            # breach is a replica-local signal).
+            return _serve_fleet(args, params, cfg, serve_config,
+                                obs_session, device, default_serve_rules(
+                                    ttft_target_s=args.slo_ttft_ms / 1e3,
+                                    itl_target_s=args.slo_itl_ms / 1e3))
         obs_session.install_watchers(slo_rules=default_serve_rules(
             ttft_target_s=args.slo_ttft_ms / 1e3,
             itl_target_s=args.slo_itl_ms / 1e3))
+    elif args.fleet_replicas > 1:
+        return _serve_fleet(args, params, cfg, serve_config, None, device,
+                            None)
     engine = ServingEngine.from_config(
         params, cfg, serve_config, seed=args.seed,
         enable_monitor=not args.no_monitor, device=device,
@@ -504,6 +566,85 @@ def serve_main(argv: Optional[List[str]] = None,
         # The cost ledger's serve programs, a final memory sweep, and the
         # compile watch's verdict (zero storms: the contract held).
         engine.analyze_programs(obs_session.cost_ledger)
+        obs_session.hbm.sweep(emit=True)
+        compiles = obs_session.compiles.summary()
+        print(f"compiles: {compiles['total']} "
+              f"({compiles['seconds']:.2f}s), decode storms: "
+              f"{obs_session.compilewatch.storm_total}")
+        obs_session.finalize()
+        print(f"obs artifacts in {args.obs_dir}")
+        _print_perf_verdict(obs_session)
+    return 0
+
+
+def _serve_fleet(args: Any, params: Any, cfg: Any, serve_config: Any,
+                 obs_session: Any, device: Any, slo_rules: Any) -> int:
+    """``serve --fleet-replicas N``: a ``ServingFleet`` over the seeded
+    workload generator's traffic (bursty arrivals, heavy-tailed lengths,
+    tenant priorities), replayed open loop; JAX's summary lines."""
+    from trustworthy_dl_tpu_torch.serve import (FleetConfig, ServeRequest,
+                                                ServingFleet)
+    from trustworthy_dl_tpu_torch.serve.workload import (
+        DEFAULT_TENANTS, WorkloadConfig, generate_workload, replay_workload,
+        zipf_adapter_assignments)
+
+    adapter_map = None
+    if serve_config.adapter_rank > 0:
+        # The workload's own tenants, Zipf-mapped onto one adapter more
+        # than the pool holds, so the run churns residency.
+        adapter_map = zipf_adapter_assignments(
+            [t.name for t in DEFAULT_TENANTS],
+            (args.adapter_pool_pages or 4) + 1, seed=args.seed)
+    fleet = ServingFleet.from_config(
+        params, cfg, serve_config,
+        fleet_config=FleetConfig(
+            num_replicas=args.fleet_replicas,
+            hedge_deadline_s=(args.hedge_deadline_ms / 1e3
+                              if args.hedge_deadline_ms else None),
+            vote_k=args.vote_k,
+            vote_outvote_limit=args.vote_outvote_limit,
+            live_migration=not args.no_live_migration),
+        seed=args.seed, obs=obs_session, slo_rules=slo_rules,
+        enable_monitor=not args.no_monitor, device=device,
+        adapter_map=adapter_map)
+    del params
+    workload = generate_workload(
+        WorkloadConfig(seed=args.seed, num_requests=args.num_requests,
+                       prompt_median=args.prompt_len,
+                       output_median=max(args.max_new_tokens // 2, 1),
+                       max_output=args.max_new_tokens),
+        cfg.vocab_size, args.max_seq)
+    deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
+    submitted = replay_workload(fleet, workload, lambda item: ServeRequest(
+        prompt=list(item.prompt), max_new_tokens=item.max_new_tokens,
+        temperature=args.temperature, priority=item.priority,
+        deadline_s=(deadline if deadline is not None
+                    else item.deadline_s),
+        tenant=item.tenant))
+    summary = fleet.metrics_summary()
+    print(f"fleet served {submitted} request(s) on "
+          f"{args.fleet_replicas} replica(s) x {args.max_slots} slot(s)")
+    for key in ("statuses", "completed_tokens", "replica_states", "ticks",
+                "fleet_failovers", "fleet_migrations", "fleet_preempts",
+                "fleet_hedges", "fleet_drains",
+                "fleet_quarantines", "fleet_restarts",
+                "fleet_suspicions", "fleet_votes", "fleet_outvotes",
+                "fleet_tenant_floods", "fleet_throttles",
+                "fleet_scale_ups", "fleet_scale_downs",
+                "replica_suspicion", "replica_slo_active"):
+        if key in summary:
+            print(f"  {key}: {summary[key]}")
+    if obs_session is not None:
+        ok, problems = fleet.verify_attribution()
+        print(f"attribution: {fleet.ledger.total} record(s), "
+              f"fleet block-lifecycle reconciliation "
+              f"{'OK' if ok else 'FAILED'}")
+        for problem in problems[:5]:
+            print(f"  !! {problem}")
+        engine = next((r.engine for r in fleet.replicas
+                       if r.engine is not None), None)
+        if engine is not None:
+            engine.analyze_programs(obs_session.cost_ledger)
         obs_session.hbm.sweep(emit=True)
         compiles = obs_session.compiles.summary()
         print(f"compiles: {compiles['total']} "

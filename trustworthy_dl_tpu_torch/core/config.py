@@ -148,8 +148,10 @@ class ServeConfig:
     ``adapter_dtype`` ("model" or "int8").  ``paged=False`` selects the
     legacy stripe pool, which has no block pool, prefix cache or chunked
     prefill: a paged knob set away from its default then warns (and
-    ``spec_k`` or ``adapter_rank`` > 0 is refused).  Bad values fail here,
-    at construction."""
+    ``spec_k`` or ``adapter_rank`` > 0 is refused).  ``tp_size`` is the
+    replica's tensor-parallel width: 1 (JAX's default) is the one-card
+    engine; wider engines are refused naming ROADMAP Slice 4.  Bad values
+    fail here, at construction."""
 
     max_slots: int = 8
     max_seq: int = 256
@@ -167,8 +169,16 @@ class ServeConfig:
     adapter_rank: int = 0
     adapter_pool_pages: Optional[int] = None
     adapter_dtype: str = "model"
+    tp_size: int = 1
 
     def __post_init__(self) -> None:
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
+        if self.tp_size > 1:
+            raise NotImplementedError(
+                f"tp_size={self.tp_size} is not ported yet (ROADMAP Slice "
+                "4: tensor-parallel serving replicas across several "
+                "GPUs); the port serves on one card")
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_seq < 1:

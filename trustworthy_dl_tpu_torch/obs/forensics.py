@@ -18,12 +18,14 @@ allocator journals, flight dumps, the perf ledger); the
   provenance;
 * **counters** — the counter snapshot the caller passes at assembly.
 
-On one card the port's episodes are the supervisor's (``guard_trip``,
-``rollback``, ``preemption``), the watchers' (``slo_breach``,
-``anomaly``, ``compile_storm``) and the operator's (``drill``,
-``manual``).  The fleet-only parts — suspect replicas, ``migrated_from``
-provenance, votes — are read and rendered as in JAX; nothing in the port
-writes them until the fleet is ported.
+The port's episodes are the supervisor's (``guard_trip``, ``rollback``,
+``preemption``), the watchers' (``slo_breach``, ``anomaly``,
+``compile_storm``), the operator's (``drill``, ``manual``) and the serving
+fleet's (``serve/fleet.py``: ``replica_quarantine``, ``replica_preempt``,
+``adapter_quarantine``, ``migration_refused``), whose incidents carry the
+suspect replicas and journals, per-attempt journal keys and
+``migrated_from`` provenance in the blast radius, and the suspicion, vote
+and quarantine rows of the verdict store.
 
 Incident ``reason`` strings come from :data:`ARTIFACT_REASONS`, the port's
 copy of the JAX package's registered vocabulary (a typo'd reason would
@@ -57,7 +59,7 @@ ARTIFACT_REASONS = frozenset({
     "guard_trip", "rollback", "preemption",
     # watcher-driven dumps (obs/slo.py, anomaly.py, compilewatch.py)
     "slo_breach", "anomaly", "compile_storm",
-    # fleet forensic episodes (the JAX package's serve/fleet.py)
+    # fleet forensic episodes (serve/fleet.py)
     "replica_quarantine", "replica_preempt", "adapter_quarantine",
     "migration_refused",
     # operator-initiated artifacts (examples, tests, CLI)

@@ -60,10 +60,22 @@ migration between engines (``serve/migrate.py``); ``queued_ids``,
 ``inflight_ids``, ``decode_ready_ids``, ``load`` and
 ``in_service_capacity`` are what a router reads.
 
+Fleet integration (``serve/fleet.py``): ``retire_hook(result,
+placement)`` fires synchronously at every terminal state, ``placement``
+being the scheduler's attribution snapshot of an admitted request (None
+for one that never held a row), so the fleet sees a failure the moment
+it happens.  With a ``replica_id`` every ``tddl_serve_*`` series carries
+a ``replica=`` label, as in JAX, so N replicas on one registry are read
+apart.  A request's ``first_submit_id`` anchors the shed tie-break at its
+first submission (a fail-over keeps its age), ``span_parent`` re-parents
+its ``serve.request`` span under the fleet's attempt span, and
+``publish_prefix=False`` keeps its prompt blocks out of the prefix cache
+(a fleet's vote replay).
+
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
-where every kernel wrapper runs its plain PyTorch version.  Fleets, the
-retire hook and tensor parallelism are not ported yet.
+where every kernel wrapper runs its plain PyTorch version.  Tensor
+parallelism is not ported (ROADMAP Slice 4).
 """
 
 from __future__ import annotations
@@ -136,6 +148,25 @@ class _NullMetric:
         return None
 
 
+class _BoundMetric:
+    """A registry metric with the engine's fixed labels (``replica=`` in a
+    fleet) bound on, so call sites and the adapter pool's handles call it
+    unlabelled."""
+
+    def __init__(self, metric: Any, labels: Dict[str, str]):
+        self._metric = metric
+        self._labels = labels
+
+    def set(self, *a: Any, **kw: Any) -> None:
+        self._metric.set(*a, **kw, **self._labels)
+
+    def inc(self, *a: Any, **kw: Any) -> None:
+        self._metric.inc(*a, **kw, **self._labels)
+
+    def observe(self, *a: Any, **kw: Any) -> None:
+        self._metric.observe(*a, **kw, **self._labels)
+
+
 def resolve_device(device: Any) -> torch.device:
     """``device`` as a torch.device; a CUDA device on a machine without
     CUDA raises instead of quietly running on the CPU."""
@@ -160,7 +191,12 @@ class ServeRequest:
     the request's tenant; ``adapter`` names its adapter (None: the
     engine's ``adapter_map`` entry for the tenant, else the base
     model).  ``priority`` orders load shedding under an SLO breach: the
-    lowest-priority queued request is shed first (ties: newest first)."""
+    lowest-priority queued request is shed first (ties: newest first, by
+    ``first_submit_id`` where set: a fleet's resubmission carries its
+    first submission's id, so a retry keeps its age).  ``span_parent``
+    re-parents the request's ``serve.request`` span (the fleet's attempt
+    span); ``publish_prefix=False`` keeps its prompt blocks out of the
+    prefix cache (a fleet's vote replay, an audit)."""
 
     prompt: Sequence[int]
     max_new_tokens: int
@@ -172,6 +208,9 @@ class ServeRequest:
     tenant: Optional[str] = None
     adapter: Optional[str] = None
     priority: int = 0
+    first_submit_id: Optional[int] = None
+    span_parent: Optional[int] = None
+    publish_prefix: bool = True
 
 
 @dataclasses.dataclass
@@ -223,6 +262,14 @@ class OutputMonitor:
         return int(self._state.count[0])
 
 
+def _age_id(task: SlotTask, request: ServeRequest) -> int:
+    """A queued request's age for the shed tie-break: its first
+    submission's id when it is a resubmission, else its own."""
+    if request.first_submit_id is not None:
+        return int(request.first_submit_id)
+    return int(task.request_id)
+
+
 class ServingEngine:
     """Continuous-batching serving over the paged block pool, or over the
     stripe pool with ``paged=False`` (``buckets``: its prefill widths;
@@ -238,7 +285,9 @@ class ServingEngine:
     ``ObsSession``: the engine uses what it has enabled (its trace and
     registry always; spans, ledger, watchers and HBM monitor when on).
     ``chaos`` is a ``chaos.FaultInjector``; ``replica_id`` names the
-    engine for replica-addressed chaos and tags its trace events."""
+    engine for replica-addressed chaos, tags its trace events and labels
+    its ``tddl_serve_*`` series; ``retire_hook(result, placement)`` fires
+    at every terminal state (the fleet's seam)."""
 
     def __init__(self, params: Any, cfg: gpt2.GPT2Config,
                  max_slots: int = 8, max_seq: int = 256,
@@ -257,7 +306,8 @@ class ServingEngine:
                  adapter_map: Optional[Dict[str, str]] = None,
                  obs: Any = None, paged: bool = True,
                  buckets: Optional[Sequence[int]] = None,
-                 chaos: Any = None, replica_id: Optional[int] = None):
+                 chaos: Any = None, replica_id: Optional[int] = None,
+                 retire_hook: Optional[Callable[..., None]] = None):
         # core.config imports serve (its pool geometry check): late import.
         from trustworthy_dl_tpu_torch.core.config import (validate_adapters,
                                                           validate_spec)
@@ -435,10 +485,15 @@ class ServingEngine:
                 weight_dtype=weight_dtype, view=view, attn_impl=attn_impl)
         self.chaos = chaos
         self.replica_id = replica_id
+        self.retire_hook = retire_hook
         # Every trace event carries the replica in a fleet: request ids
         # are replica-local.
         self._trace_tags = ({"replica": replica_id}
                             if replica_id is not None else {})
+        # ... and every tddl_serve_* series its label: N replicas share a
+        # registry.
+        self._rlabels = ({"replica": str(replica_id)}
+                         if replica_id is not None else {})
         self.queue_limit = queue_limit
         self.seed = int(seed)
         self.monitor = monitor if monitor is not None else (
@@ -479,15 +534,19 @@ class ServingEngine:
         if registry is None:
             registry = get_registry()
         self.collector = MetricsCollector(namespace="serve",
-                                          registry=registry)
+                                          registry=registry,
+                                          labels=self._rlabels or None)
+        rlabels = self._rlabels
 
         def metric(register, name, help, labels=(), **kw):
+            labels = tuple(labels) + tuple(rlabels)
             try:
-                return register(name, help, labels=labels, **kw)
+                m = register(name, help, labels=labels, **kw)
             except ValueError:
                 logger.debug("serve metrics: registry rejected %s%s",
                              name, labels, exc_info=True)
                 return _NullMetric()
+            return _BoundMetric(m, rlabels) if rlabels else m
 
         self._req_counter = metric(
             registry.counter, "tddl_serve_requests_total",
@@ -626,7 +685,8 @@ class ServingEngine:
                         max_new_tokens=int(request.max_new_tokens),
                         temperature=float(request.temperature),
                         seed=int(seed), eos_id=request.eos_id,
-                        adapter=adapter)
+                        adapter=adapter,
+                        publish_prefix=bool(request.publish_prefix))
         self._queue.append((task, request))
         self._submit_t[request_id] = time.perf_counter()
         if self.trace is not None:
@@ -636,6 +696,7 @@ class ServingEngine:
                             **self._trace_tags)
         if self.spans is not None:
             root = self.spans.start("serve.request", kind="serve",
+                                    parent_id=request.span_parent,
                                     request_id=request_id,
                                     replica=self.replica_id,
                                     tenant=request.tenant,
@@ -715,7 +776,7 @@ class ServingEngine:
             return
         idx = min(range(len(self._queue)),
                   key=lambda i: (self._queue[i][1].priority,
-                                 -self._queue[i][0].request_id))
+                                 -_age_id(*self._queue[i])))
         task, request = self._queue[idx]
         del self._queue[idx]
         self.shed_slo += 1
@@ -875,13 +936,18 @@ class ServingEngine:
                 keep.append((task, request))
         self._queue = keep
 
-    def _record_result(self, result: ServeResult) -> None:
+    def _record_result(self, result: ServeResult,
+                       placement: Optional[Dict[str, Any]] = None) -> None:
+        """Every terminal state's rollup: status counts, ``results``, the
+        registry counter and the fleet's ``retire_hook``."""
         self._status_counts[result.status] = \
             self._status_counts.get(result.status, 0) + 1
         if result.flagged:
             self._flagged_total += 1
         self.results[result.request_id] = result
         self._req_counter.inc(status=result.status)
+        if self.retire_hook is not None:
+            self.retire_hook(result, placement)
 
     def cancel(self, request_id: int, status: str = "cancelled",
                quarantine: bool = False) -> bool:
@@ -902,7 +968,8 @@ class ServingEngine:
             return False
         task, request = pair
         placement = (self.scheduler.attribution_info(task)
-                     if self.ledger is not None else None)
+                     if self.ledger is not None
+                     or self.retire_hook is not None else None)
         self.scheduler.retire(task, quarantine=quarantine)
         times = self._timing.pop(request_id, [])
         t0 = self._submit_t.pop(request_id, None)
@@ -911,7 +978,7 @@ class ServingEngine:
             request_id=request_id, tokens=list(task.emitted), status=status,
             ttft_s=ttft, itl_s=[b - a for a, b in zip(times, times[1:])],
             entropies=list(task.entropies), margins=list(task.margins),
-            adapter=task.adapter))
+            adapter=task.adapter), placement)
         if self.trace is not None:
             self.trace.emit(EventType.SERVE_RETIRE, request_id=request_id,
                             status=status, tokens=len(task.emitted),
@@ -976,7 +1043,8 @@ class ServingEngine:
                         prompt=np.asarray(src.prompt, np.int32),
                         max_new_tokens=int(src.max_new_tokens),
                         temperature=float(src.temperature), seed=src.seed,
-                        eos_id=src.eos_id, adapter=src.adapter)
+                        eos_id=src.eos_id, adapter=src.adapter,
+                        publish_prefix=False)
         task.emitted = list(src.emitted)
         task.next_token = src.next_token
         task.entropies = list(src.entropies)
@@ -1008,7 +1076,8 @@ class ServingEngine:
         # The placement snapshot BEFORE retire() clears the row's table:
         # the record must name the blocks the stream decoded from.
         placement = (self.scheduler.attribution_info(task)
-                     if self.ledger is not None else None)
+                     if self.ledger is not None
+                     or self.retire_hook is not None else None)
         flagged, z = False, 0.0
         t_mon = time.perf_counter()
         if self.monitor is not None and task.entropies:
@@ -1028,7 +1097,7 @@ class ServingEngine:
             request_id=rid, tokens=list(task.emitted), status=status,
             ttft_s=ttft, itl_s=itl, flagged=flagged, monitor_z=z,
             entropies=list(task.entropies), margins=list(task.margins),
-            adapter=task.adapter))
+            adapter=task.adapter), placement)
         self.metrics.observe_request(ttft, itl)
         if ttft is not None:
             self._ttft_hist.observe(ttft)
@@ -1195,6 +1264,7 @@ class ServingEngine:
         if self.paged:
             out.update({
                 "prefill_chunks": sched.prefill_chunks,
+                "prompts_prefilled": sched.prompts_prefilled,
                 "blocks_in_use": sched.blocks_in_use,
                 "prefix_lookups": sched.prefix_lookups,
                 "prefix_hits": sched.prefix_hits,

@@ -389,6 +389,9 @@ class SlotTask:
     eos_id: Optional[int] = None
     adapter: Optional[str] = None  # resolved adapter id (None = base)
     adapter_page: int = ZERO_PAGE  # its pool page while admitted
+    # False: the prompt's blocks are never published to the prefix cache
+    # (a fleet's vote replay, an audit that must not change cache state).
+    publish_prefix: bool = True
     slot: int = -1
     emitted: List[int] = dataclasses.field(default_factory=list)
     next_token: int = -1
@@ -729,6 +732,10 @@ class PagedBatchingScheduler:
         self.decode_ticks = 0
         self.local_prefills = 0
         self.prefill_chunks = 0
+        # Prompts whose prefill finished here (a first token recorded):
+        # each projected its last row's logits once, through B7 on the
+        # kernel path.
+        self.prompts_prefilled = 0
         # -- speculative decoding (spec_k > 0) --------------------------------
         self.spec_k = int(spec_k)
         self.draft_view = draft_view
@@ -965,9 +972,10 @@ class PagedBatchingScheduler:
             return None
         token, ent, margin = packed.cpu().numpy()[:, 0]
         task._record(int(token), float(ent), float(margin))
+        self.prompts_prefilled += 1
         self.lengths[slot] = st.plen
         del self._prefill[slot]
-        if self.prefix is not None:
+        if self.prefix is not None and task.publish_prefix:
             # The prompt's full blocks are authoritative in the pool now:
             # publish them for later same-prefix requests.
             self._published[slot] = self.prefix.insert(

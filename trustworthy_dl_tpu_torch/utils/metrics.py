@@ -63,7 +63,12 @@ class MetricsCollector:
 
     def __init__(self, max_records: int = 100_000,
                  tensorboard_dir: Optional[str] = None,
-                 registry: Any = None, namespace: str = "train"):
+                 registry: Any = None, namespace: str = "train",
+                 labels: Optional[Dict[str, str]] = None):
+        # ``labels``: a constant label set on every registry series (a
+        # fleet replica's ``{"replica": i}``, so N replicas' gauges are
+        # read apart instead of the last writer winning).
+        self._const_labels = {k: str(v) for k, v in (labels or {}).items()}
         self.max_records = max_records
         self.batch_metrics: List[Dict[str, Any]] = []
         self.epoch_metrics: List[Dict[str, Any]] = []
@@ -83,7 +88,7 @@ class MetricsCollector:
         try:
             self._tick_hist = registry.histogram(
                 f"tddl_{self._ns}_step_time_seconds",
-                "step/iteration wall time")
+                "step/iteration wall time", labels=tuple(self._const_labels))
         except ValueError:
             # A kind clash with a series registered first under the name:
             # degrade this collector's export, keep the record lists.
@@ -99,13 +104,15 @@ class MetricsCollector:
         gauge = self._gauges.get(cache_key)
         try:
             if gauge is None:
-                labels = ("node",) if node is not None else ()
+                labels = tuple(self._const_labels)
+                if node is not None:
+                    labels = ("node",) + labels
                 gauge = self._registry.gauge(name, labels=labels)
                 self._gauges[cache_key] = gauge
             if node is not None:
-                gauge.set(float(value), node=node)
+                gauge.set(float(value), node=node, **self._const_labels)
             else:
-                gauge.set(float(value))
+                gauge.set(float(value), **self._const_labels)
         except ValueError:
             # Name/kind collision or cardinality bound: the record list
             # is the source of truth; export never stops a run.
@@ -166,7 +173,7 @@ class MetricsCollector:
         if self._last_tick is not None:
             dt = now - self._last_tick
             self._step_times.append(dt)
-            self._tick_hist.observe(dt)
+            self._tick_hist.observe(dt, **self._const_labels)
         self._last_tick = now
 
     def step_time_stats(self) -> Dict[str, float]:
