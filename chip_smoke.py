@@ -95,6 +95,43 @@ Phases (each prints one JSON line; any failure exits non-zero):
    host's ms a tick outside the replicas' ``step()``, the ticks and ms
    from the crash until its requests are back in rows, a migration's
    hand-off ms.
+4i. serve_fleet_control: the fleet's control plane on GPT-2 small (the
+   launch counters set to 0 just before each drill and read just after).
+   The JAX package's flood and autoscale drill: a 2 -> 3 fleet (4 slots,
+   48 positions, queue 32, monitor off), three SLO classes with 60 s /
+   10 s targets, a 100,000-token tenant bucket without refill and the
+   flood tenant's own (40, 0), the queue-only autoscaler, 20 seeded
+   diurnal requests closed loop at 10 open, a TENANT_FLOOD of 12 at tick
+   8, then 24 idle ticks.  Counters equal to ``predict_fleet(autoscale=
+   True, quota_tokens=40, flood_request_tokens=8)`` (1 scale-up, 1
+   scale-down, 7 throttles); scale events ``[("up", 2, 3), ("down", 3,
+   2)]``, one replica RETIRED with its journal kept; every stream token
+   for token one engine's greedy stream, replica 2 serving at least one;
+   neither ``standard`` nor ``premium`` breached; ``verify_attribution()``;
+   no kernel library loaded and no storm after warmup.  Then JAX's
+   disaggregated pools: ``pool_roles=("prefill", "decode", "decode")``, 5
+   requests, 5 migrations, each ``disagg`` off replica 0, streams equal.
+   B5 and B7 exactly as every replica generation's counters make them;
+   every prompt fits one chunk, so B6 launches no time.  The line:
+   scale-up to re-admission and the retiring replica's drain in ticks and
+   ms, the host's ms a tick outside the replicas' ``step()``, the drill's
+   tokens/s beside one engine's, a pool hand-off's ms.
+4j. serve_adversary: JAX's sub-threshold attacker drill on GPT-2 small: 3
+   replicas (6 slots, queue 4), the adaptive attacker on replica 2 (seed
+   5, safety margin 0.08, signal scale 40, no jitter), a margin-signature
+   monitor at 20.0, vote K 2, closed loop at 30 open requests until
+   replica 2 is quarantined.  Counters equal to ``predict_fleet(vote_k=2)``;
+   the only drain ``verdict_outvoted``; the strength trajectory equal to
+   ``predict_attacker_trajectory`` over the recorded flags; no clean
+   replica quarantined; clean streams token for token one engine's,
+   corrupted ones not; attribution across the vote replays; no storm;
+   the clean requests' largest mean margin printed beside the threshold.
+   Then ``run_serve_envelope(device="cuda")`` at GPT-2 small's widths in
+   bf16 on JAX's grid (3 strengths x 2 thresholds x 2 vote K, 3 replicas,
+   24 requests): every cell completes its 24, no clean replica
+   quarantined, no K = 0 cell reports ``vote``, one cell run twice gives
+   the same record; the matrix (``render_table``) printed, and the sweep's
+   wall.  B5 and B7 exact in both (B6 no time, as in 4i).
 5. train: ``DistributedTrainer.train_epoch`` on GPT-2 small at full width
    (T = 1024, 4 nodes x 8 sequences, AdamW lr 1e-4, block remat, flash
    attention through ``attn_impl="auto"``, synthetic tokens from seed 0),
@@ -441,6 +478,28 @@ FLEET_CONFIG = dict(num_replicas=3, max_retries=6, heartbeat_miss_limit=3,
                     restart_ticks=2, drain_grace_ticks=4,
                     quarantine_cooloff_ticks=10_000)
 FLEET_MAX_TICKS = 400
+# The serve_fleet_control phase: JAX's flood and autoscale drill
+# (tests/test_fleet_control.py) with its knobs, at GPT-2 small's width.
+CONTROL_FLOOD = (8, 12)                # tick, requests of the flood
+CONTROL_ENGINE = dict(max_slots=4, max_seq=48, queue_limit=32,
+                      enable_monitor=False)
+CONTROL_AUTOSCALE = dict(min_replicas=2, max_replicas=3,
+                         scale_up_queue_per_replica=6.0,
+                         scale_down_queue_per_replica=0.5,
+                         scale_up_occupancy=1.1, scale_down_occupancy=1.0,
+                         scale_up_cooldown_ticks=200,
+                         scale_down_cooldown_ticks=8,
+                         scale_down_idle_ticks=6)
+CONTROL_WORKLOAD = dict(seed=5, num_requests=20, mean_rps=16.0,
+                        burstiness=0.6, prompt_median=6, output_median=5,
+                        max_output=8)
+CONTROL_OPEN, CONTROL_IDLE_TICKS, CONTROL_MAX_TICKS = 10, 24, 4000
+# The serve_adversary phase: JAX's sub-threshold attacker drill
+# (tests/test_fleet.py) and its monitor threshold; then the envelope.
+ADVERSARY_THRESHOLD = 20.0
+ADVERSARY_REQUESTS, ADVERSARY_OPEN = 150, 30
+GPT2_SMALL = dict(n_layer=12, n_embd=768, n_head=12, vocab_size=50257,
+                  n_positions=1024)
 
 DRILL_SCRIPT = ((3, "data_loss", 1.0), (7, "stall", 0.01),
                 (10, "ckpt_corrupt", 1.0), (12, "grad_nan", 1.0),
@@ -2048,9 +2107,12 @@ def fleet_streams(fleet, generations):
     return out
 
 
-def fleet_launch_check(generations, launches, n_layer, what):
+def fleet_launch_check(generations, launches, n_layer, what,
+                       prefill_chunks=True):
     """B5, B6 and B7 exactly as every replica generation's counters make
-    them; returns each generation's summary."""
+    them; returns each generation's summary.  ``prefill_chunks=False``:
+    every prompt fits one chunk and takes the engine's local prefill, so
+    B6 must launch no time at all."""
     gens, seen = [], {}
     for index, engine in generations:
         s = engine.metrics_summary()
@@ -2066,6 +2128,9 @@ def fleet_launch_check(generations, launches, n_layer, what):
                 n_layer * sum(g["prefill_chunks"] for g in gens),
             "logit_trust_stats":
                 sum(g["prompts_prefilled"] for g in gens) + ticks}
+    if not prefill_chunks:
+        if want.pop("paged_prefill_attention"):
+            raise AssertionError(f"{what}: a prompt took prefill chunks")
     expect_launches(launches, want, what)
     return gens, want
 
@@ -2223,6 +2288,596 @@ def serve_fleet_drive(torch, entries, card, base_results):
                               or ln.startswith("  statuses")
                               or ln.startswith("  replica_states")
                               or ln.startswith("  completed_tokens")]}
+    emit({**out, "seconds": time.perf_counter() - t_phase})
+
+
+class StampedTrace:
+    """A host trace sink keeping every fleet event with its wall stamp."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, type, **data):
+        self.events.append({"type": getattr(type, "value", type),
+                            "t": time.perf_counter(), **data})
+
+    def of(self, type):
+        return [e for e in self.events if e["type"] == type]
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def recorded_fleet(torch, dev, params, cfg, fleet_config, **kwargs):
+    """A ``ServingFleet`` on ``dev`` whose replica engines are kept (every
+    generation) with their ``step()`` time summed, a stamped trace, an
+    attribution ledger and a compile watcher over the kernel libraries.
+    Returns (fleet, record)."""
+    from types import SimpleNamespace
+
+    from trustworthy_dl_tpu_torch.obs.attribution import AttributionLedger
+    from trustworthy_dl_tpu_torch.obs.compilewatch import (CompileRegistry,
+                                                           CompileWatcher)
+    from trustworthy_dl_tpu_torch.serve import ServingEngine, ServingFleet
+
+    generations, step_s = [], [0.0]
+
+    def factory(index, **kw):
+        engine = ServingEngine(params, cfg, **kw)
+        real_step = engine.step
+
+        def timed_step():
+            t0 = time.perf_counter()
+            try:
+                return real_step()
+            finally:
+                step_s[0] += time.perf_counter() - t0
+
+        engine.step = timed_step
+        generations.append((index, engine))
+        return engine
+
+    compiles = CompileRegistry().install()
+    watcher = CompileWatcher(compiles)
+    trace = StampedTrace()
+    fleet = ServingFleet(fleet_config=fleet_config, ledger=AttributionLedger(),
+                         seed=0, engine_factory=factory, device=dev,
+                         obs=SimpleNamespace(trace=trace,
+                                             compilewatch=watcher),
+                         **kwargs)
+    return fleet, {"generations": generations, "step_s": step_s,
+                   "trace": trace, "compiles": compiles, "watcher": watcher}
+
+
+def drive_ticks(torch, dev, fleet, rec, feed=None, idle_ticks=0,
+                max_ticks=CONTROL_MAX_TICKS):
+    """Tick ``fleet`` until it is idle (``feed()`` submits before each
+    tick), then ``idle_ticks`` more, with the launch counters set to 0
+    just before and read just after; fills ``rec`` with the wall, the
+    launches, the host's ms a tick outside the replicas' ``step()`` and
+    the library loads the compile watch saw."""
+    from trustworthy_dl_tpu_torch import ops
+
+    rec["step_s"][0] = 0.0
+    loads0 = rec["compiles"].total
+    tick_s = 0.0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ticks = 0
+    while True:
+        if feed is not None:
+            feed()
+        if not fleet.busy and (feed is None or feed.done):
+            break
+        t_tick = time.perf_counter()
+        fleet.step()
+        tick_s += time.perf_counter() - t_tick
+        ticks += 1
+        if ticks > max_ticks:
+            raise AssertionError(f"fleet did not drain in {max_ticks} "
+                                 f"ticks: {fleet.states()}")
+    for _ in range(idle_ticks):
+        t_tick = time.perf_counter()
+        fleet.step()
+        tick_s += time.perf_counter() - t_tick
+        ticks += 1
+    sync(torch, dev)
+    rec["wall"] = time.perf_counter() - t0
+    rec["launches"] = ops.launch_counts()
+    rec["host_ms_per_tick"] = (tick_s - rec["step_s"][0]) / ticks * 1e3
+    rec["library_loads"] = rec["compiles"].total - loads0
+    rec["storms"] = rec["watcher"].storm_total
+    rec["compiles"].uninstall()
+
+
+def one_engine_streams(torch, dev, params, cfg, reqs, **kwargs):
+    """Greedy streams of one engine over ``reqs`` ([(prompt, new)]) in one
+    batch, and its tokens/s."""
+    from trustworthy_dl_tpu_torch.serve import ServeRequest, ServingEngine
+
+    engine = ServingEngine(params, cfg, device=dev, queue_limit=len(reqs),
+                           **kwargs)
+    ids = [engine.submit(ServeRequest(prompt=list(p), max_new_tokens=n))
+           for p, n in reqs]
+    t0 = time.perf_counter()
+    out = engine.run_until_idle()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    results = [out[i] for i in ids]
+    return results, sum(len(r.tokens) for r in results) / wall
+
+
+def control_drill(torch, dev, params, cfg):
+    """JAX's flood and autoscale drill: seeded diurnal traffic driven
+    closed loop at CONTROL_OPEN open requests, a TENANT_FLOOD, the whole
+    control plane on a 2 -> 3 fleet.  Returns (fleet, plan, record)."""
+    from trustworthy_dl_tpu_torch.chaos import (FaultEvent, FaultInjector,
+                                                FaultKind, FaultPlan)
+    from trustworthy_dl_tpu_torch.serve import (AutoscalerConfig,
+                                                FleetConfig, SLOClass,
+                                                ServeRequest,
+                                                TenantQuotaConfig)
+    from trustworthy_dl_tpu_torch.serve.workload import (WorkloadConfig,
+                                                         generate_workload)
+
+    tick, severity = CONTROL_FLOOD
+    plan = FaultPlan.scripted([FaultEvent(step=tick,
+                                          kind=FaultKind.TENANT_FLOOD,
+                                          severity=severity,
+                                          tenant="flood")])
+    # 60 s / 10 s targets: the classes' counters depend on ticks alone.
+    classes = (SLOClass("batch", priority=0, weight=1.0),
+               SLOClass("standard", priority=1, weight=2.0,
+                        ttft_target_s=60.0, itl_target_s=10.0),
+               SLOClass("premium", priority=2, weight=4.0,
+                        ttft_target_s=60.0, itl_target_s=10.0))
+    fleet, rec = recorded_fleet(
+        torch, dev, params, cfg, FleetConfig(
+            num_replicas=2, max_retries=6, restart_ticks=2,
+            quarantine_cooloff_ticks=10_000, slo_classes=classes,
+            tenant_quota=TenantQuotaConfig(
+                capacity_tokens=100_000, refill_per_tick=0.0,
+                per_tenant={"flood": (40.0, 0.0)}),
+            autoscale=AutoscalerConfig(**CONTROL_AUTOSCALE)),
+        chaos=FaultInjector(plan), **CONTROL_ENGINE)
+    items = generate_workload(WorkloadConfig(**CONTROL_WORKLOAD),
+                              cfg.vocab_size, CONTROL_ENGINE["max_seq"])
+    reqs = {}
+
+    class Feed:
+        pending = list(items)
+        done = False
+
+        def __call__(self):
+            while self.pending and fleet.open_requests < CONTROL_OPEN:
+                item = self.pending[0]
+                fid = fleet.submit(ServeRequest(
+                    prompt=list(item.prompt),
+                    max_new_tokens=item.max_new_tokens, temperature=0.0,
+                    priority=item.priority, tenant=item.tenant))
+                if fid is None:
+                    break
+                self.pending.pop(0)
+                reqs[fid] = (list(item.prompt), item.max_new_tokens)
+            self.done = not self.pending
+
+    drive_ticks(torch, dev, fleet, rec, feed=Feed(),
+                idle_ticks=CONTROL_IDLE_TICKS)
+    rec["reqs"] = reqs
+    return fleet, plan, rec
+
+
+def scale_timings(trace):
+    """Scale-up to the new replica's re-admission, and the retiring
+    replica's drain, each in ticks and ms, from the stamped events."""
+    ups = [e for e in trace.of("fleet_scale") if e["direction"] == "up"]
+    downs = [e for e in trace.of("fleet_scale") if e["direction"] == "down"]
+    moves = trace.of("replica_transition")
+    out = {}
+    if ups:
+        up = ups[0]
+        back = next(e for e in moves if e["reason"] == "warmup_complete"
+                    and e["t"] >= up["t"])
+        out["scale_up_to_readmitted"] = {"ticks": back["tick"] - up["tick"],
+                                         "ms": (back["t"] - up["t"]) * 1e3,
+                                         "replica": back["replica"]}
+    if downs:
+        start = next(e for e in moves if e["reason"] == "scale_down")
+        retired = next(e for e in moves if e["to_state"] == "retired")
+        out["scale_down_drain"] = {
+            "ticks": retired["tick"] - start["tick"],
+            "ms": (retired["t"] - start["t"]) * 1e3,
+            "replica": retired["replica"]}
+    return out
+
+
+def disagg_drill(torch, dev, params, cfg):
+    """JAX's disaggregated pools (tests/test_migrate.py): one prefill and
+    two decode replicas, 5 requests; each request's hand-off timed."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch.serve import FleetConfig, ServeRequest
+    from trustworthy_dl_tpu_torch.serve import fleet as fleet_mod
+
+    fleet, rec = recorded_fleet(
+        torch, dev, params, cfg,
+        FleetConfig(num_replicas=3,
+                    pool_roles=("prefill", "decode", "decode")),
+        max_slots=2, max_seq=48, queue_limit=32)
+    rng = np.random.default_rng(11)
+    reqs = []
+    for _ in range(5):
+        plen = int(rng.integers(3, 8))
+        new = int(rng.integers(6, 10))
+        reqs.append((rng.integers(0, cfg.vocab_size, plen).tolist(), new))
+        fleet.submit(ServeRequest(prompt=reqs[-1][0], max_new_tokens=new))
+    real, handoff_ms = fleet_mod.migrate_request, []
+
+    def timed_migrate(*args, **kwargs):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        moved = real(*args, **kwargs)
+        sync(torch, dev)
+        if moved is not None:
+            handoff_ms.append((time.perf_counter() - t0) * 1e3)
+        return moved
+
+    fleet_mod.migrate_request = timed_migrate
+    try:
+        drive_ticks(torch, dev, fleet, rec, max_ticks=2000)
+    finally:
+        fleet_mod.migrate_request = real
+    rec["reqs"], rec["handoff_ms"] = reqs, handoff_ms
+    return fleet, rec
+
+
+def smoke_gpt2(torch, dev, n_layer):
+    """GPT-2 small at full width in bf16, ``n_layer`` deep, random weights
+    from seed 0 on ``dev``."""
+    import dataclasses
+
+    from trustworthy_dl_tpu_torch.models import gpt2
+
+    cfg = dataclasses.replace(gpt2.GPT2Config.from_name(
+        "gpt2", dtype=torch.bfloat16), n_layer=n_layer)
+    return cfg, gpt2.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def serve_fleet_control_drive(torch, entries, card, dev="cuda",
+                              n_layer=12):
+    """Phase 4i: the fleet's control plane on the card (module docstring);
+    ``dev`` and ``n_layer`` rehearse it on the CPU."""
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cfg, params = smoke_gpt2(torch, dev, n_layer)
+    out = {"phase": "serve_fleet_control", "card": card}
+
+    # -- 1. flood and autoscale --------------------------------------------
+    fleet, plan, rec = control_drill(torch, dev, params, cfg)
+    reqs = rec["reqs"]
+    predicted = plan.predict_fleet(autoscale=True, quota_tokens=40,
+                                   flood_request_tokens=8)
+    observed = {k: fleet.counters[k] for k in predicted}
+    if observed != predicted or (observed["scale_ups"],
+                                 observed["scale_downs"],
+                                 observed["throttles"]) != (1, 1, 7):
+        raise AssertionError(f"control drill: counters {observed}, "
+                             f"predict_fleet {predicted}")
+    scales = [(e["direction"], e["from_replicas"], e["to_replicas"])
+              for e in rec["trace"].of("fleet_scale")]
+    retired = [r for r in fleet.replicas if r.state.value == "retired"]
+    if scales != [("up", 2, 3), ("down", 3, 2)] or len(retired) != 1 \
+            or f"{retired[0].index}:0" not in fleet.journals:
+        raise AssertionError(f"control drill: scales {scales}, states "
+                             f"{fleet.states()}")
+    results = fleet.results
+    flood = sorted(f for f, r in results.items() if r.tenant == "flood")
+    if len(flood) != 5 or sorted(results) != sorted(list(reqs) + flood) \
+            or any(r.status != "completed" for r in results.values()):
+        raise AssertionError(f"control drill: results {results}")
+    order = sorted(reqs)
+    flood_req = ([0] * fleet.config.flood_prompt_len,
+                 fleet.config.flood_new_tokens)
+    ref, one_tps = one_engine_streams(
+        torch, dev, params, cfg, [reqs[f] for f in order] + [flood_req],
+        max_slots=CONTROL_ENGINE["max_slots"],
+        max_seq=CONTROL_ENGINE["max_seq"], enable_monitor=False)
+    want = {f: r.tokens for f, r in zip(order, ref)}
+    want.update({f: ref[-1].tokens for f in flood})
+    differ = [f for f in results if results[f].tokens != want[f]]
+    if differ:
+        raise AssertionError(f"control drill: requests {differ} differ "
+                             "from one engine's greedy streams")
+    served_by_new = sum(1 for r in results.values() if r.replica == 2)
+    per_class = fleet.metrics_summary()["per_class"]
+    if served_by_new < 1 or per_class["standard"]["breached"] \
+            or per_class["premium"]["breached"]:
+        raise AssertionError(f"control drill: replica 2 served "
+                             f"{served_by_new}, classes {per_class}")
+    ok, problems = fleet.verify_attribution()
+    if not ok:
+        raise AssertionError(f"control drill attribution: {problems[:3]}")
+    if rec["library_loads"] or rec["storms"]:
+        raise AssertionError(f"control drill: {rec['library_loads']} "
+                             f"library loads, {rec['storms']} storms after "
+                             "warmup")
+    gens, want_launches = fleet_launch_check(
+        rec["generations"], rec["launches"], cfg.n_layer, "control drill",
+        prefill_chunks=False)
+    tokens = sum(len(r.tokens) for r in results.values())
+    out["drill"] = {
+        "wall_s": rec["wall"], "tokens_per_s": tokens / rec["wall"],
+        "one_engine_tokens_per_s": one_tps, "ticks": fleet.tick,
+        "host_ms_per_tick": rec["host_ms_per_tick"],
+        "counters": observed, "scales": scales,
+        "replica_trace": fleet.replica_trace,
+        **scale_timings(rec["trace"]),
+        "served_by_scaled_up_replica": served_by_new,
+        "per_class": {c: {k: v for k, v in s.items()
+                          if k in ("completed", "tokens", "shed",
+                                   "breached")}
+                      for c, s in per_class.items()},
+        "library_loads_after_warmup": rec["library_loads"],
+        "storms": rec["storms"], "generations": gens,
+        "launches": launches_of(rec["launches"], want_launches),
+        "expected_launches": want_launches}
+    del fleet, rec
+
+    # -- 2. disaggregated pools --------------------------------------------
+    fleet, rec = disagg_drill(torch, dev, params, cfg)
+    migs = rec["trace"].of("kv_migration")
+    if fleet.counters["migrations"] != 5 or len(migs) != 5 or any(
+            e["reason"] != "disagg" or e["from_replica"] != 0
+            for e in migs):
+        raise AssertionError(f"disagg drill: migrations {migs}")
+    ref, one_tps = one_engine_streams(torch, dev, params, cfg, rec["reqs"],
+                                      max_slots=2, max_seq=48)
+    if sorted(fleet.results) != list(range(5)) or any(
+            fleet.results[f].tokens != ref[f].tokens for f in range(5)):
+        raise AssertionError("disagg drill: streams differ from one "
+                             "engine's")
+    ok, problems = fleet.verify_attribution()
+    if not ok or rec["library_loads"] or rec["storms"]:
+        raise AssertionError(f"disagg drill: attribution {problems[:3]}, "
+                             f"{rec['library_loads']} loads")
+    gens, want_launches = fleet_launch_check(
+        rec["generations"], rec["launches"], cfg.n_layer, "disagg drill",
+        prefill_chunks=False)
+    out["pools"] = {
+        "wall_s": rec["wall"], "ticks": fleet.tick,
+        "host_ms_per_tick": rec["host_ms_per_tick"],
+        "migrations": fleet.counters["migrations"],
+        "handoff_ms": rec["handoff_ms"],
+        "handoff_ms_mean": statistics.mean(rec["handoff_ms"]),
+        "generations": gens,
+        "launches": launches_of(rec["launches"], want_launches),
+        "expected_launches": want_launches}
+    emit({**out, "seconds": time.perf_counter() - t_phase})
+
+
+def adversary_drill(torch, dev, params, cfg):
+    """JAX's sub-threshold attacker drill: 3 replicas, the adaptive
+    attacker on replica 2, a margin-signature monitor, vote K 2, closed
+    loop at ADVERSARY_OPEN open requests until replica 2 is quarantined.
+    Returns (fleet, plan, attacker, record)."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch.chaos import (AdaptivePoisonAttacker,
+                                                AdversaryConfig, FaultEvent,
+                                                FaultInjector, FaultKind,
+                                                FaultPlan,
+                                                MarginSignatureMonitor)
+    from trustworthy_dl_tpu_torch.serve import FleetConfig, ServeRequest
+
+    adv_cfg = AdversaryConfig(
+        target=2, seed=5, flag_rate_quarantine=0.25, safety_margin=0.08,
+        initial_strength=0.3, step_up=0.1, backoff=0.5, min_strength=0.05,
+        max_strength=1.0, signal_scale=40.0, signal_jitter=0.0,
+        vocab_size=cfg.vocab_size)
+    attacker = AdaptivePoisonAttacker(adv_cfg)
+    plan = FaultPlan.scripted([FaultEvent(
+        step=1, kind=FaultKind.REPLICA_ADAPTIVE_POISON, target=2)])
+    fleet, rec = recorded_fleet(
+        torch, dev, params, cfg, FleetConfig(
+            num_replicas=3, max_retries=6, flag_window=16,
+            flag_min_count=4, flag_rate_quarantine=0.25,
+            suspicion_threshold=0.1, suspicion_min_flags=2, vote_k=2,
+            vote_outvote_limit=2, quarantine_cooloff_ticks=10_000),
+        chaos=FaultInjector(plan, adversary=attacker), max_slots=6,
+        max_seq=48, queue_limit=4,
+        monitor=MarginSignatureMonitor(ADVERSARY_THRESHOLD))
+    rng = np.random.default_rng(1)
+    prepared = []
+    for _ in range(ADVERSARY_REQUESTS):
+        plen = int(rng.integers(3, 10))
+        new = int(rng.integers(4, 10))
+        prepared.append((rng.integers(0, cfg.vocab_size, plen).tolist(),
+                         int(new)))
+    reqs = {}
+
+    class Feed:
+        done = False
+
+        def __call__(self):
+            if fleet.replicas[2].state.value == "quarantined":
+                self.done = True
+                return
+            while prepared and sum(1 for r in fleet.requests.values()
+                                   if not r.done) < ADVERSARY_OPEN:
+                prompt, new = prepared.pop(0)
+                fid = fleet.submit(ServeRequest(prompt=prompt,
+                                                max_new_tokens=new))
+                if fid is None:
+                    prepared.insert(0, (prompt, new))
+                    break
+                reqs[fid] = (prompt, new)
+            self.done = not prepared
+
+    drive_ticks(torch, dev, fleet, rec, feed=Feed())
+    rec["reqs"] = reqs
+    return fleet, plan, attacker, rec
+
+
+def envelope_launches(torch, dev, run):
+    """``run()`` with every replica engine a fleet builds kept and the
+    launch counters set to 0 just before and read just after; returns
+    (its result, the engines, the launches)."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.serve import fleet as fleet_mod
+
+    engines = []
+    real = fleet_mod.ServingFleet._default_factory
+
+    def keep(self, index, **kwargs):
+        engine = real(self, index, **kwargs)
+        engines.append((index, engine))
+        return engine
+
+    fleet_mod.ServingFleet._default_factory = keep
+    try:
+        ops.reset_launch_counts()
+        result = run()
+        sync(torch, dev)
+        launches = ops.launch_counts()
+    finally:
+        fleet_mod.ServingFleet._default_factory = real
+    return result, engines, launches
+
+
+def serve_adversary_drive(torch, entries, card, dev="cuda", n_layer=12):
+    """Phase 4j: the adaptive adversary and the serve envelope on the card
+    (module docstring); ``dev`` and ``n_layer`` rehearse it on the CPU."""
+    from trustworthy_dl_tpu_torch.chaos import predict_attacker_trajectory
+    from trustworthy_dl_tpu_torch.experiments import serve_envelope
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cfg, params = smoke_gpt2(torch, dev, n_layer)
+    out = {"phase": "serve_adversary", "card": card}
+
+    # -- 1. the sub-threshold attacker -------------------------------------
+    fleet, plan, attacker, rec = adversary_drill(torch, dev, params, cfg)
+    reasons = {e["reason"] for e in rec["trace"].of("replica_transition")
+               if e["to_state"] == "draining"}
+    if reasons != {"verdict_outvoted"} or fleet.states() != {
+            0: "healthy", 1: "healthy", 2: "quarantined"} \
+            or fleet.replicas[2].flag_rate >= 0.25:
+        raise AssertionError(f"adversary drill: drains {reasons}, states "
+                             f"{fleet.states()}")
+    predicted = plan.predict_fleet(vote_k=2, vote_outvote_limit=2,
+                                   horizon=fleet.tick, cooloff_ticks=10_000)
+    observed = {k: fleet.counters[k] for k in predicted}
+    if observed != predicted:
+        raise AssertionError(f"adversary drill: counters {observed}, "
+                             f"predict_fleet {predicted}")
+    flags = [f for f, _ in attacker.flag_observations]
+    trajectory = predict_attacker_trajectory(attacker.config, flags,
+                                             flag_window=16)
+    if sum(flags) < 2 or attacker.strength_history != trajectory:
+        raise AssertionError(f"adversary drill: trajectory "
+                             f"{attacker.strength_history} != {trajectory}")
+    reqs, results = rec["reqs"], fleet.results
+    if sorted(results) != sorted(reqs) or any(
+            r.status != "completed" for r in results.values()):
+        raise AssertionError("adversary drill: an accepted request did not "
+                             "complete")
+    order = sorted(reqs)
+    ref, one_tps = one_engine_streams(
+        torch, dev, params, cfg, [reqs[f] for f in order], max_slots=6,
+        max_seq=48, enable_monitor=False)
+    corrupted = clean = 0
+    clean_margin = 0.0
+    for f, want in zip(order, ref):
+        if results[f].replica == 2:
+            if results[f].tokens == want.tokens:
+                raise AssertionError(f"adversary drill: request {f} served "
+                                     "by the attacker is not corrupted")
+            corrupted += 1
+        else:
+            if results[f].tokens != want.tokens:
+                raise AssertionError(f"adversary drill: clean request {f} "
+                                     "differs from one engine's")
+            clean += 1
+            clean_margin = max(clean_margin, results[f].monitor_z)
+    ok, problems = fleet.verify_attribution()
+    replays = [r for r in fleet.ledger.records()
+               if r.get("status") == "vote_replay"]
+    if corrupted < 2 or clean < 2 or not ok \
+            or len(replays) != 2 * fleet.counters["votes"] \
+            or rec["library_loads"] or rec["storms"]:
+        raise AssertionError(f"adversary drill: {corrupted} corrupted, "
+                             f"{clean} clean, attribution {problems[:3]}, "
+                             f"{rec['library_loads']} loads, "
+                             f"{rec['storms']} storms")
+    if clean_margin >= ADVERSARY_THRESHOLD:
+        raise AssertionError(f"adversary drill: a clean request's mean "
+                             f"margin {clean_margin} reaches the threshold")
+    gens, want_launches = fleet_launch_check(
+        rec["generations"], rec["launches"], cfg.n_layer, "adversary drill",
+        prefill_chunks=False)
+    tokens = sum(len(r.tokens) for r in results.values())
+    out["drill"] = {
+        "wall_s": rec["wall"], "tokens_per_s": tokens / rec["wall"],
+        "one_engine_tokens_per_s": one_tps, "ticks": fleet.tick,
+        "host_ms_per_tick": rec["host_ms_per_tick"],
+        "requests": len(reqs), "counters": observed,
+        "flags": sum(flags), "observations": len(flags),
+        "final_strength": attacker.strength,
+        "target_flag_rate": fleet.replicas[2].flag_rate,
+        "corrupted_streams": corrupted, "clean_streams": clean,
+        "clean_max_mean_margin": clean_margin,
+        "monitor_threshold": ADVERSARY_THRESHOLD,
+        "vote_replays": len(replays), "storms": rec["storms"],
+        "generations": gens,
+        "launches": launches_of(rec["launches"], want_launches),
+        "expected_launches": want_launches}
+    del fleet, rec, params
+
+    # -- 2. the serve envelope at GPT-2 small's width ----------------------
+    widths = dict(GPT2_SMALL, n_layer=n_layer)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res, engines, launches = envelope_launches(
+            torch, dev, lambda: serve_envelope.run_serve_envelope(
+                output_dir=tmp, model_overrides=widths, dtype="bfloat16",
+                device=dev))
+        wall = time.perf_counter() - t0
+        table = serve_envelope.render_table(res)
+        again, _, _ = envelope_launches(
+            torch, dev, lambda: serve_envelope.run_serve_envelope(
+                output_dir=tmp, strengths=(0.45,), thresholds=(24.0,),
+                vote_ks=(2,), model_overrides=widths, dtype="bfloat16",
+                device=dev, make_figure=False))
+    cells = res["cells"]
+    if len(cells) != 12 or any(
+            c["completed"] != c["requests"] or c["requests"] != 24
+            or c["clean_replica_quarantines"] for c in cells) \
+            or any(c["detected_by"] == "vote" for c in cells
+                   if c["vote_k"] == 0):
+        raise AssertionError(f"serve envelope: cells {cells}")
+    first = next(c for c in cells if (c["strength"], c["threshold"],
+                                      c["vote_k"]) == (0.45, 24.0, 2))
+    strip = (lambda c: {k: v for k, v in c.items() if k != "wall_time_s"})
+    if strip(again["cells"][0]) != strip(first):
+        raise AssertionError(f"serve envelope: a cell run twice differs: "
+                             f"{again['cells'][0]} vs {first}")
+    gens, want_launches = fleet_launch_check(engines, launches, cfg.n_layer,
+                                             "serve envelope",
+        prefill_chunks=False)
+    print(table, flush=True)
+    out["envelope"] = {
+        "wall_s": wall, "sweep_wall_time_s": res["wall_time_s"],
+        "cells": [{k: c[k] for k in (
+            "strength", "threshold", "vote_k", "detected_by",
+            "corrupted_served", "completed", "target_flag_rate",
+            "suspicions", "votes", "outvotes", "ticks", "wall_time_s")}
+            for c in cells],
+        "engines": len(engines),
+        "launches": launches_of(launches, want_launches),
+        "expected_launches": want_launches}
     emit({**out, "seconds": time.perf_counter() - t_phase})
 
 
@@ -5079,6 +5734,10 @@ def main() -> int:
     serve_migrate_drive(torch, entries, smi, base_results, tier_results)
     serve_chaos_drive(torch, entries, smi)
     serve_fleet_drive(torch, entries, smi, base_results)
+    serve_fleet_control_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
+    serve_adversary_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
     del tier_results
     on, loader = train_drive(torch, entries, smi)
     flash_vs_full(torch, on, loader, smi)

@@ -19,7 +19,7 @@ detected at rate 1.0 within 3 steps with family attribution 1.0 and no
 false positive, a clean run with none, every run finite, the artifacts
 written; ``reset_for_run`` isolates cells.  Then the runner's
 ``--envelope``: the flags it refuses, against JAX's parser, and what it
-hands the sweep.
+hands the sweep, and what ``--serve-envelope`` hands its own.
 """
 
 import json
@@ -262,6 +262,19 @@ def test_runner_hands_the_sweep_its_flags(monkeypatch, tmp_path, capsys):
     assert seen == {"device": "cpu", "output_dir": str(tmp_path),
                     "num_nodes": 4}
     assert "Detection envelope: 2 cells in 1.5s" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        main(["--serve-envelope"])
-    assert "ROADMAP item 21" in capsys.readouterr().err
+    # --serve-envelope hands its sweep the device and the directory.
+    from trustworthy_dl_tpu_torch.experiments import serve_envelope
+
+    seen.clear()
+
+    def fake_serve(**kwargs):
+        seen.update(kwargs)
+        return {"cells": [{"detected_by": "vote"}, {"detected_by": "none"}],
+                "wall_time_s": 2.5}
+
+    monkeypatch.setattr(serve_envelope, "run_serve_envelope", fake_serve)
+    assert main(["--serve-envelope", "--device", "cpu", "--output-dir",
+                 str(tmp_path)]) == 0
+    assert seen == {"device": "cpu", "output_dir": str(tmp_path)}
+    assert "Serve envelope: 2 cells (1 detected) in 2.5s" in \
+        capsys.readouterr().out

@@ -326,11 +326,20 @@ def test_main_runs_on_the_cpu(tmp_path, capsys):
     assert (out / "experiment_results.json").exists()
     assert (out / "experiment_report.md").exists()
     assert "Experiment completed: cli_smoke" in capsys.readouterr().out
-    # --envelope runs (tests/test_torch_envelope.py); the serving fleet's
-    # envelope is not ported yet.
-    with pytest.raises(SystemExit):
-        cli_main(["experiment", "--serve-envelope"])
-    assert "not ported yet" in capsys.readouterr().err
+    # --envelope runs (tests/test_torch_envelope.py); --serve-envelope
+    # writes its JSON and table (one cell of the grid here).
+    from trustworthy_dl_tpu_torch.experiments import serve_envelope
+
+    real = serve_envelope.run_serve_envelope
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serve_envelope, "run_serve_envelope",
+                   lambda **kw: real(strengths=(0.15,), thresholds=(24.0,),
+                                     vote_ks=(0,), make_figure=False, **kw))
+        assert cli_main(["experiment", "--serve-envelope", "--device",
+                         "cpu", "--output-dir", str(tmp_path / "se")]) == 0
+    assert "Serve envelope: 1 cells (0 detected)" in capsys.readouterr().out
+    assert (tmp_path / "se" / "serve_envelope.json").exists()
+    assert (tmp_path / "se" / "serve_envelope.md").exists()
 
 
 def test_load_experiment_config_reads_the_readme_schema(tmp_path):

@@ -14,10 +14,11 @@ attribution ledger's records (attempts, statuses, ``hedge_lost`` and
 ``vote_replay`` rows; ``ttft_s`` and the stamp ``t`` left out, they are
 wall time) and the registry values the case reads.
 
-Beside them: the refusals (the control-plane fields name ROADMAP item 20,
-``tp_size``/``tp_max`` Slice 4, an injector's ``adversary=`` item 21), the
-injector's fleet hooks against JAX's (fire-once, persistence, heal, the
-adaptive event without an adversary), the engine's fleet surface
+Beside them: the control-plane fields accepted with JAX's validation, the
+refusals that stay (``tp_size``/``tp_max``, Slice 4), an attacker attached
+to the injector, the injector's fleet hooks against JAX's (fire-once,
+persistence, heal, the adaptive event without an adversary), the engine's
+fleet surface
 (``retire_hook``, replica-labelled series, ``first_submit_id``,
 ``publish_prefix``), and ``ServingFleet`` raising on a host without CUDA
 unless ``device="cpu"`` is passed.
@@ -739,13 +740,33 @@ def test_fleet_config_defaults_equal_jax():
     assert fleet.counters == jfleet.counters
 
 
-@pytest.mark.parametrize("field,value", [
-    ("slo_classes", ("batch",)), ("tenant_quota", object()),
-    ("adapter_quota", object()), ("autoscale", object()),
-    ("pool_roles", ("prefill", "decode"))])
-def test_control_plane_fields_are_refused_naming_item_20(field, value):
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tserve.FleetConfig(num_replicas=2, **{field: value})
+@pytest.mark.parametrize("field", ["slo_classes", "tenant_quota",
+                                   "adapter_quota", "autoscale",
+                                   "pool_roles"])
+def test_control_plane_fields_are_accepted_with_jax_validation(field):
+    """Each field builds a fleet config that takes it, and a value JAX
+    refuses is refused with JAX's message."""
+    good, bad = {
+        "slo_classes": (lambda s: s.DEFAULT_SLO_CLASSES, None),
+        "tenant_quota": (lambda s: s.TenantQuotaConfig(40.0), None),
+        "adapter_quota": (lambda s: s.TenantQuotaConfig(10.0), None),
+        "autoscale": (lambda s: s.AutoscalerConfig(min_replicas=2,
+                                                   max_replicas=3),
+                      lambda s: s.AutoscalerConfig(min_replicas=3,
+                                                   max_replicas=4)),
+        "pool_roles": (lambda s: ("prefill", "decode"),
+                       lambda s: ("decode", "decode")),
+    }[field]
+    value = good(tserve)
+    assert getattr(tserve.FleetConfig(num_replicas=2, **{field: value}),
+                   field) is value
+    if bad is not None:
+        errors = []
+        for serve in (tserve, jserve):
+            with pytest.raises(ValueError) as exc:
+                serve.FleetConfig(num_replicas=2, **{field: bad(serve)})
+            errors.append(str(exc.value))
+        assert errors[0] == errors[1]
 
 
 @pytest.mark.parametrize("kwargs", [dict(tp_size=2), dict(tp_max=2)])
@@ -767,11 +788,28 @@ def test_tp_size_through_the_serve_config_is_refused_naming_slice_4():
                             device="cpu", tp_size=2)
 
 
-def test_injector_adversary_is_refused_naming_item_21():
-    plan = tchaos.FaultPlan.scripted([])
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tchaos.FaultInjector(plan, adversary=object())
-    assert tchaos.FaultInjector(plan, adversary=None).adversary is None
+def test_injector_adversary_attaches_and_activates():
+    """An attacker attaches to the injector; the adaptive event activates
+    it on its replica, whose retirements it then corrupts, and a heal
+    deactivates it."""
+    plan = tchaos.FaultPlan.scripted([tchaos.FaultEvent(
+        step=1, kind=tchaos.FaultKind.REPLICA_ADAPTIVE_POISON, target=2)])
+    attacker = tchaos.AdaptivePoisonAttacker(tchaos.AdversaryConfig(
+        target=2, vocab_size=50))
+    inj = tchaos.FaultInjector(plan, adversary=attacker)
+    assert inj.adversary is attacker and not attacker.active
+    assert [e.kind for e in inj.on_fleet_tick(1)] == \
+        [tchaos.FaultKind.REPLICA_ADAPTIVE_POISON]
+    assert attacker.active and inj.replica_poisoned(2)
+    task = _Task(4)
+    task.emitted = [3, 4, 5, 6]
+    inj.on_serve_retire(task, replica=2)
+    assert attacker.corrupted_ids == [4] and task.margins[0] > 10.0
+    inj.on_flag_observed(2, True, 0.5)
+    assert len(attacker.strength_history) == 2
+    inj.heal_replica(2)
+    assert not attacker.active and not inj.replica_poisoned(2)
+    assert tchaos.FaultInjector(plan).adversary is None
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks a host "

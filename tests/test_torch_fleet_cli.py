@@ -8,9 +8,14 @@ in f32 (tiny GPT-2: 2 layers, 32 wide, 4 heads, vocab 107).
   replayed open loop against the wall clock), and each request's greedy
   stream equal to JAX's.
 * The fleet flags reach the ``FleetConfig`` as in JAX.
-* The control plane's flags parse with JAX's defaults, and any value
-  exits 2 naming ROADMAP item 20.
+* The control plane's six flags parse with JAX's defaults to JAX's
+  values (``_parse_slo_classes``, ``_parse_autoscale``, the quota and the
+  pool roles) and refuse what JAX refuses with JAX's message, and a tiny
+  autoscaled, quota'd, class-scheduled fleet run completes.
 """
+
+import dataclasses
+
 
 import jax
 import numpy as np
@@ -91,14 +96,89 @@ def test_fleet_serve_matches_jax_serve_main(tmp_path, capsys, monkeypatch):
     assert jfleets[0].config.hedge_deadline_s == cfg.hedge_deadline_s
 
 
-@pytest.mark.parametrize("flag", [
+def _jax_control_plane(args):
+    """What JAX's ``_serve_fleet`` hands its ``FleetConfig`` from the
+    flags."""
+    quota = None
+    if args.tenant_quota is not None:
+        from trustworthy_dl_tpu.serve import TenantQuotaConfig
+
+        quota = TenantQuotaConfig(
+            capacity_tokens=args.tenant_quota,
+            refill_per_tick=(args.tenant_quota_refill
+                             if args.tenant_quota_refill is not None
+                             else args.tenant_quota / 64.0))
+    roles = (tuple(r.strip() for r in args.pool_roles.split(","))
+             if args.pool_roles else None)
+    return dict(slo_classes=jcli._parse_slo_classes(args.slo_class),
+                autoscale=jcli._parse_autoscale(args),
+                tenant_quota=quota, pool_roles=roles)
+
+
+def _plain(value):
+    if dataclasses.is_dataclass(value):
+        return dataclasses.asdict(value)
+    if isinstance(value, tuple):
+        return tuple(_plain(v) for v in value)
+    return value
+
+
+@pytest.mark.parametrize("flags", [
     ["--autoscale-min", "1"], ["--autoscale-max", "3"],
-    ["--tenant-quota", "100"], ["--tenant-quota-refill", "2.0"],
-    ["--slo-class", "default"], ["--pool-roles", "prefill,decode"]])
-def test_control_plane_flags_exit_2_naming_item_20(flag, capsys):
-    assert cli.serve_main(["--device", "cpu", "--fleet-replicas", "2"]
-                          + flag) == 2
-    assert "item 20" in capsys.readouterr().out
+    ["--tenant-quota", "100"], ["--tenant-quota", "100",
+                                "--tenant-quota-refill", "2.0"],
+    ["--slo-class", "default"],
+    ["--slo-class", "bulk:0:-:-:1", "--slo-class", "gold:2:500:40:3.5",
+     "--pool-roles", "prefill, decode", "--obs-dir", "x"]],
+    ids=["autoscale-min", "autoscale-max", "tenant-quota",
+         "tenant-quota-refill", "slo-class", "classes-and-pools"])
+def test_control_plane_flags_parse_to_jax_values(flags):
+    base = ["--fleet-replicas", "2", "--max-slots", "4"]
+    args = cli.build_serve_parser().parse_args(base + flags)
+    jargs = jcli.build_serve_parser().parse_args(base + flags)
+    got, want = cli._control_plane(args), _jax_control_plane(jargs)
+    assert {k: _plain(v) for k, v in got.items()} == \
+        {k: _plain(v) for k, v in want.items()}
+    assert any(v is not None for v in got.values())
+
+
+@pytest.mark.parametrize("flags", [
+    ["--slo-class", "gold:2:500"], ["--slo-class", "gold:x:1:1:1"],
+    ["--slo-class", "gold:1:-:-:0"], ["--autoscale-min", "3"],
+    ["--autoscale-max", "1"]])
+def test_control_plane_flags_refuse_with_jax_message(flags):
+    base = ["--fleet-replicas", "2"]
+    errors = []
+    for parse, build in ((cli._control_plane, cli.build_serve_parser),
+                         (_jax_control_plane, jcli.build_serve_parser)):
+        with pytest.raises(ValueError) as exc:
+            parse(build().parse_args(base + flags))
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+
+
+def test_control_plane_fleet_run_completes(tmp_path, capsys):
+    """A tiny ``--fleet-replicas 2 --autoscale-min 2 --autoscale-max 3
+    --tenant-quota ... --slo-class default`` run serves every request and
+    prints the control plane's summary keys; a bad value exits 2."""
+    torch.set_num_threads(1)
+    run = FLEET[:-6] + ["--checkpoint-dir", str(tmp_path / "none"),
+                        "--device", "cpu", "--autoscale-min", "2",
+                        "--autoscale-max", "3", "--tenant-quota", "10000",
+                        "--tenant-quota-refill", "1.0", "--slo-class",
+                        "default"]
+    assert cli.serve_main(run, model_overrides=dict(
+        TINY, dtype=torch.float32)) == 0
+    out = capsys.readouterr().out
+    assert "  statuses: {'completed': 6}" in out
+    for key in ("replicas_in_service", "replica_trace", "per_class",
+                "class_queue_depth", "fleet_throttles: 0"):
+        assert f"  {key}" in out
+    assert cli.serve_main(run + ["--autoscale-min", "3"],
+                          model_overrides=dict(TINY,
+                                               dtype=torch.float32)) == 2
+    assert "control plane: --fleet-replicas 2 must start inside" in \
+        capsys.readouterr().out
 
 
 def test_fleet_flags_parse_with_jax_defaults():
@@ -110,4 +190,3 @@ def test_fleet_flags_parse_with_jax_defaults():
     jargs = jcli.build_serve_parser().parse_args([])
     assert {d: getattr(args, d) for d in dests} == \
         {d: getattr(jargs, d) for d in dests}
-    assert set(cli.CONTROL_PLANE_FLAGS) <= set(dests)

@@ -7,7 +7,10 @@ modules added since it was written (the async host pipeline,
 hooks and the telemetry plane, ``obs/``, with its compile watcher,
 forensics, verdict store and perf sentinel; the stripe pool, the chaos
 injector's serve hooks and live migration, ``serve/migrate.py``; the
-serving fleet, ``serve/fleet.py``).  No ``obs`` module imports
+serving fleet, ``serve/fleet.py``; its control plane ``serve/control.py``,
+the adaptive adversary ``chaos/adversary.py`` and the serve envelope).
+``serve/control.py`` and ``chaos/adversary.py`` import no torch at all,
+as their JAX counterparts import no jax.  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
 ``torch.cuda`` only inside functions, so importing ``obs`` never
 initialises CUDA.  scikit-learn, the ML tier's optional dependency, is
@@ -46,7 +49,10 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.serve.fleet",
                "trustworthy_dl_tpu_torch.chaos.injector",
                "trustworthy_dl_tpu_torch.models.moe",
-               "trustworthy_dl_tpu_torch.experiments.envelope")
+               "trustworthy_dl_tpu_torch.experiments.envelope",
+               "trustworthy_dl_tpu_torch.serve.control",
+               "trustworthy_dl_tpu_torch.chaos.adversary",
+               "trustworthy_dl_tpu_torch.experiments.serve_envelope")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 
@@ -201,3 +207,15 @@ def test_obs_touches_torch_only_inside_functions():
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["serve/control.py", "chaos/adversary.py"])
+def test_host_only_modules_import_no_torch(module):
+    """The control plane and the adversary are host code: no import of
+    torch anywhere in them, inside functions included (the control plane
+    reads ``obs/slo.py``, which imports no torch either)."""
+    path = REPO / "trustworthy_dl_tpu_torch" / module
+    roots = {root for root, _ in _guarded_imports(path)}
+    assert roots <= {"numpy", "trustworthy_dl_tpu_torch"}, roots
+    slo = REPO / "trustworthy_dl_tpu_torch" / "obs" / "slo.py"
+    assert "torch" not in {root for root, _ in _guarded_imports(slo)}

@@ -29,12 +29,12 @@ The serve hook's compromises, in JAX's order: an active ADAPTER_POISON on
 the request's adapter, then an adaptive or a plain replica compromise of
 the retiring engine's replica, then a SERVE_POISON event of the plan at
 the request id (replica-gated).  The persistent states are armed by
-``on_fleet_tick``: REPLICA_POISON and ADAPTER_POISON here; a
-REPLICA_ADAPTIVE_POISON needs an attached adversary, which the port does
-not have yet (ROADMAP Queue A item 21): ``adversary=`` other than None is
-refused with ``NotImplementedError``, and the event firing without one
-raises JAX's ``ValueError``.  :meth:`~FaultInjector.heal_replica` and
-:meth:`~FaultInjector.heal_adapter` are the operator's clears.
+``on_fleet_tick``: REPLICA_POISON and ADAPTER_POISON here, and a
+REPLICA_ADAPTIVE_POISON activates the attached adversary
+(``chaos.adversary.AdaptivePoisonAttacker``; the event firing without one,
+or with one configured for another replica, raises JAX's ``ValueError``).
+:meth:`~FaultInjector.heal_replica` and :meth:`~FaultInjector.heal_adapter`
+are the operator's clears.
 """
 
 from __future__ import annotations
@@ -63,19 +63,14 @@ class SimulatedPreemption(Exception):
 class FaultInjector:
     """Consumes a :class:`FaultPlan`; one instance per run.  ``sleep_fn``
     is injectable so tests run STALL events without wall-clock cost;
-    ``max_stall_s`` caps a stall.  ``adversary`` (JAX's adaptive attacker)
-    is not ported: anything but None raises."""
+    ``max_stall_s`` caps a stall.  ``adversary`` is the
+    ``AdaptivePoisonAttacker`` a REPLICA_ADAPTIVE_POISON event activates."""
 
     def __init__(self, plan: FaultPlan,
                  sleep_fn: Callable[[float], None] = time.sleep,
                  max_stall_s: float = 30.0, adversary: Any = None):
-        if adversary is not None:
-            raise NotImplementedError(
-                "FaultInjector(adversary=...) is not ported yet (ROADMAP "
-                "Queue A item 21: chaos/adversary.py, the adaptive "
-                "attacker of REPLICA_ADAPTIVE_POISON)")
         self.plan = plan
-        self.adversary = None
+        self.adversary = adversary
         self._sleep = sleep_fn
         self._max_stall_s = max_stall_s
         self.fired: List[FaultEvent] = []
@@ -83,9 +78,10 @@ class FaultInjector:
         # Replicas with an active REPLICA_POISON (replica -> severity): the
         # event fires once, the compromise lasts until heal_replica.
         self._poisoned_replicas: Dict[int, float] = {}
-        # The adaptive counterpart: replica -> an attacker object with
-        # ``corrupt(task)`` and ``deactivate()``, armed by a
-        # REPLICA_ADAPTIVE_POISON event.
+        # The adaptive counterpart: replica -> the attached adversary,
+        # armed by a REPLICA_ADAPTIVE_POISON event.  It owns the
+        # corruption and its strength controller; the fleet feeds the
+        # replica's public flag rate back through on_flag_observed.
         self._adaptive_replicas: Dict[int, Any] = {}
         # Adapters with an active ADAPTER_POISON (adapter id -> severity),
         # replica-blind: every request retiring under the adapter.
@@ -252,7 +248,9 @@ class FaultInjector:
                     continue
                 self._fire(event, tick)
                 if kind is FaultKind.TENANT_FLOOD:
-                    # The fleet runs the burst through its admission path.
+                    # The fleet runs the burst through its admission
+                    # path: the tenant's token bucket throttles what it
+                    # cannot pay for, the class queues schedule the rest.
                     logger.warning(
                         "chaos: tenant flood (%d requests from %r) at "
                         "tick %d", max(int(event.severity), 1),
@@ -273,14 +271,22 @@ class FaultInjector:
                     self._poisoned_replicas[event.target] = \
                         float(event.severity)
                 elif kind is FaultKind.REPLICA_ADAPTIVE_POISON:
-                    # Loud: without an attacker the drill would silently
-                    # run no fault at all.  (No adversary can be attached
-                    # in the port yet, ROADMAP item 21.)
-                    raise ValueError(
-                        "REPLICA_ADAPTIVE_POISON fired but no adversary "
-                        "is attached — build the injector with "
-                        "FaultInjector(plan, adversary=AdaptivePoison"
-                        "Attacker(...))")
+                    # Loud: without an attacker (or with a mis-targeted
+                    # one) the drill would silently run no fault at all.
+                    if self.adversary is None:
+                        raise ValueError(
+                            "REPLICA_ADAPTIVE_POISON fired but no "
+                            "adversary is attached — build the injector "
+                            "with FaultInjector(plan, adversary="
+                            "AdaptivePoisonAttacker(...))")
+                    if self.adversary.config.target != event.target:
+                        raise ValueError(
+                            f"REPLICA_ADAPTIVE_POISON targets replica "
+                            f"{event.target} but the attached adversary "
+                            f"is configured for replica "
+                            f"{self.adversary.config.target}")
+                    self._adaptive_replicas[event.target] = self.adversary
+                    self.adversary.activate()
                 out.append(event)
         return out
 

@@ -20,8 +20,9 @@ past ``--max-new-tokens`` is refused (rc 2).  ``serve --fleet-replicas N``
 ``--vote-k``, ``--vote-outvote-limit``, ``--no-live-migration``) and prints
 JAX's fleet summary; the control plane's flags (``--autoscale-min``,
 ``--autoscale-max``, ``--tenant-quota``, ``--tenant-quota-refill``,
-``--slo-class``, ``--pool-roles``) parse with JAX's defaults and any other
-value exits 2 naming ROADMAP item 20.  Both refuse the non-GPT-2
+``--slo-class``, ``--pool-roles``) parse with JAX's defaults and errors
+(rc 2), and any of the first four serves through a fleet even at one
+replica.  Both refuse the non-GPT-2
 and MoE families and a checkpoint trained with pipeline parallelism (rc
 2), and fail loudly on a checkpoint whose weights do not fit the model.
 ``train`` is the counterpart of ``trustworthy-dl-train``
@@ -64,7 +65,7 @@ from __future__ import annotations
 
 import argparse
 import sys
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -366,8 +367,13 @@ def build_serve_parser() -> argparse.ArgumentParser:
                              "quarantine); 1 = one engine (default)")
     parser.add_argument("--pool-roles", type=str, default=None,
                         metavar="ROLE[,ROLE...]",
-                        help="fleet: prefill/decode pools (the control "
-                             "plane, not ported yet: refused)")
+                        help="fleet: disaggregate the replicas into "
+                             "prefill and decode pools, one comma-"
+                             "separated role per replica ('prefill' or "
+                             "'decode', at least one of each); requests "
+                             "prefill on a prefill replica and move to a "
+                             "decode replica at their first decode token "
+                             "as a live KV block copy")
     parser.add_argument("--no-live-migration", action="store_true",
                         help="fleet: no live KV block migration (drains "
                              "run out, failures replay from the prompt)")
@@ -382,16 +388,30 @@ def build_serve_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vote-outvote-limit", type=int, default=2,
                         help="fleet: outvoted verdicts before the suspect "
                              "enters the drain -> quarantine ladder")
-    for flag, kind in (("--autoscale-min", int), ("--autoscale-max", int),
-                       ("--tenant-quota", int),
-                       ("--tenant-quota-refill", float)):
-        parser.add_argument(flag, type=kind, default=None,
-                            help="fleet control plane (not ported yet: "
-                                 "refused)")
+    parser.add_argument("--autoscale-min", type=int, default=None,
+                        help="fleet: autoscaler floor; with "
+                             "--autoscale-max it enables the autoscaler "
+                             "(scale-up builds a replica, scale-down "
+                             "drains one); --fleet-replicas is the "
+                             "starting count inside [min, max] (default "
+                             "min: --fleet-replicas)")
+    parser.add_argument("--autoscale-max", type=int, default=None,
+                        help="fleet: autoscaler ceiling")
+    parser.add_argument("--tenant-quota", type=int, default=None,
+                        help="fleet: per-tenant token-bucket capacity (a "
+                             "submission costs prompt + max_new tokens; "
+                             "over-budget submissions are throttled)")
+    parser.add_argument("--tenant-quota-refill", type=float, default=None,
+                        help="fleet: bucket refill in tokens per fleet "
+                             "tick (default: capacity / 64)")
     parser.add_argument("--slo-class", action="append", default=None,
                         metavar="NAME:PRIO:TTFT_MS:ITL_MS:WEIGHT",
-                        help="fleet control plane (not ported yet: "
-                             "refused)")
+                        help="fleet, repeatable: an SLO class (priority "
+                             "orders shedding, higher sheds last; weight "
+                             "scales its DRR share; '-' leaves a target "
+                             "untracked); the single value 'default' "
+                             "installs the batch/standard/premium "
+                             "ladder")
     parser.add_argument("--trace-max-bytes", type=int, default=0,
                         help="rotate trace.jsonl once it exceeds this "
                              "many bytes (trace.1.jsonl, ...; 0 = no "
@@ -401,9 +421,81 @@ def build_serve_parser() -> argparse.ArgumentParser:
     return parser
 
 
-#: ``serve``'s control-plane flags (ROADMAP Queue A item 20), by dest.
-CONTROL_PLANE_FLAGS = ("autoscale_min", "autoscale_max", "tenant_quota",
-                       "tenant_quota_refill", "slo_class", "pool_roles")
+def _parse_slo_classes(specs: Optional[List[str]]) -> Any:
+    """``--slo-class NAME:PRIO:TTFT_MS:ITL_MS:WEIGHT`` (repeatable; '-'
+    leaves a latency target untracked; the single spec 'default' installs
+    the built-in ladder).  Raises ValueError naming the offending spec."""
+    if not specs:
+        return None
+    from trustworthy_dl_tpu_torch.serve import DEFAULT_SLO_CLASSES, \
+        SLOClass
+
+    if len(specs) == 1 and specs[0].strip().lower() == "default":
+        return DEFAULT_SLO_CLASSES
+    classes = []
+    for spec in specs:
+        parts = spec.split(":")
+        if len(parts) != 5:
+            raise ValueError(
+                f"--slo-class {spec!r}: expected "
+                "NAME:PRIO:TTFT_MS:ITL_MS:WEIGHT (use '-' for an "
+                "untracked target), or the single value 'default'")
+        name, prio, ttft, itl, weight = (p.strip() for p in parts)
+        try:
+            classes.append(SLOClass(
+                name=name, priority=int(prio),
+                ttft_target_s=(None if ttft in ("-", "")
+                               else float(ttft) / 1e3),
+                itl_target_s=(None if itl in ("-", "")
+                              else float(itl) / 1e3),
+                weight=float(weight)))
+        except ValueError as exc:
+            raise ValueError(f"--slo-class {spec!r}: {exc}")
+    return tuple(classes)
+
+
+def _parse_autoscale(args: Any) -> Any:
+    """``--autoscale-min/--autoscale-max`` -> ``AutoscalerConfig`` (None
+    when neither is given); ``--fleet-replicas`` is the starting count and
+    must sit inside the bounds."""
+    if args.autoscale_min is None and args.autoscale_max is None:
+        return None
+    from trustworthy_dl_tpu_torch.serve import AutoscalerConfig
+
+    lo = (args.autoscale_min if args.autoscale_min is not None
+          else args.fleet_replicas)
+    hi = (args.autoscale_max if args.autoscale_max is not None
+          else max(args.fleet_replicas, lo))
+    if not lo <= args.fleet_replicas <= hi:
+        raise ValueError(
+            f"--fleet-replicas {args.fleet_replicas} must start inside "
+            f"the autoscale bounds [{lo}, {hi}]")
+    return AutoscalerConfig(
+        min_replicas=lo, max_replicas=hi,
+        scale_up_queue_per_replica=float(args.max_slots),
+        scale_down_queue_per_replica=max(args.max_slots / 8.0, 0.5),
+        itl_p99_target_s=(args.slo_itl_ms / 1e3
+                          if args.obs_dir else None))
+
+
+def _control_plane(args: Any) -> Dict[str, Any]:
+    """The fleet's control-plane fields from ``serve``'s flags (ValueError
+    on a bad value)."""
+    tenant_quota = None
+    if args.tenant_quota is not None:
+        from trustworthy_dl_tpu_torch.serve import TenantQuotaConfig
+
+        refill = (args.tenant_quota_refill
+                  if args.tenant_quota_refill is not None
+                  else args.tenant_quota / 64.0)
+        tenant_quota = TenantQuotaConfig(capacity_tokens=args.tenant_quota,
+                                         refill_per_tick=refill)
+    pool_roles = None
+    if args.pool_roles:
+        pool_roles = tuple(r.strip() for r in args.pool_roles.split(","))
+    return dict(slo_classes=_parse_slo_classes(args.slo_class),
+                autoscale=_parse_autoscale(args),
+                tenant_quota=tenant_quota, pool_roles=pool_roles)
 
 
 def serve_main(argv: Optional[List[str]] = None,
@@ -418,12 +510,6 @@ def serve_main(argv: Optional[List[str]] = None,
     args = build_serve_parser().parse_args(argv)
     if not _dense_gpt2(args.model):
         print("serving supports the dense GPT-2 family")
-        return 2
-    given = [f"--{d.replace('_', '-')}" for d in CONTROL_PLANE_FLAGS
-             if getattr(args, d) is not None]
-    if given:
-        print(f"{', '.join(given)}: the fleet's control plane is not "
-              "ported yet (ROADMAP Queue A item 20: serve/control.py)")
         return 2
     spec_k = 0 if args.no_spec_decode else args.spec_k
     if spec_k > args.max_new_tokens:
@@ -476,6 +562,11 @@ def serve_main(argv: Optional[List[str]] = None,
         adapter_map = zipf_adapter_assignments(tenant_names, pages + 1,
                                                seed=args.seed)
     obs_session = None
+    # Any control-plane knob serves through a fleet, even at one replica:
+    # quotas, classes and the autoscaler live in the fleet's tick loop.
+    fleet = args.fleet_replicas > 1 or (
+        args.autoscale_min is not None or args.autoscale_max is not None
+        or args.tenant_quota is not None or bool(args.slo_class))
     if args.obs_dir:
         from trustworthy_dl_tpu_torch.obs import ObsSession
         from trustworthy_dl_tpu_torch.obs.slo import default_serve_rules
@@ -493,7 +584,7 @@ def serve_main(argv: Optional[List[str]] = None,
         # pool headroom gate, the cost ledger and the perf fingerprint.
         obs_session.enable_compile_watch()
         obs_session.enable_hbm()
-        if args.fleet_replicas > 1:
+        if fleet:
             # A fleet builds per-replica watchers from the SLO flags (a
             # breach is a replica-local signal).
             return _serve_fleet(args, params, cfg, serve_config,
@@ -503,7 +594,7 @@ def serve_main(argv: Optional[List[str]] = None,
         obs_session.install_watchers(slo_rules=default_serve_rules(
             ttft_target_s=args.slo_ttft_ms / 1e3,
             itl_target_s=args.slo_itl_ms / 1e3))
-    elif args.fleet_replicas > 1:
+    elif fleet:
         return _serve_fleet(args, params, cfg, serve_config, None, device,
                             None)
     engine = ServingEngine.from_config(
@@ -581,12 +672,19 @@ def _serve_fleet(args: Any, params: Any, cfg: Any, serve_config: Any,
                  obs_session: Any, device: Any, slo_rules: Any) -> int:
     """``serve --fleet-replicas N``: a ``ServingFleet`` over the seeded
     workload generator's traffic (bursty arrivals, heavy-tailed lengths,
-    tenant priorities), replayed open loop; JAX's summary lines."""
+    tenant priorities), replayed open loop, with the control plane's
+    flags; JAX's summary lines."""
     from trustworthy_dl_tpu_torch.serve import (FleetConfig, ServeRequest,
                                                 ServingFleet)
     from trustworthy_dl_tpu_torch.serve.workload import (
         DEFAULT_TENANTS, WorkloadConfig, generate_workload, replay_workload,
         zipf_adapter_assignments)
+
+    try:
+        control = _control_plane(args)
+    except ValueError as exc:
+        print(f"control plane: {exc}")
+        return 2
 
     adapter_map = None
     if serve_config.adapter_rank > 0:
@@ -603,7 +701,7 @@ def _serve_fleet(args: Any, params: Any, cfg: Any, serve_config: Any,
                               if args.hedge_deadline_ms else None),
             vote_k=args.vote_k,
             vote_outvote_limit=args.vote_outvote_limit,
-            live_migration=not args.no_live_migration),
+            live_migration=not args.no_live_migration, **control),
         seed=args.seed, obs=obs_session, slo_rules=slo_rules,
         enable_monitor=not args.no_monitor, device=device,
         adapter_map=adapter_map)
@@ -621,6 +719,10 @@ def _serve_fleet(args: Any, params: Any, cfg: Any, serve_config: Any,
         deadline_s=(deadline if deadline is not None
                     else item.deadline_s),
         tenant=item.tenant))
+    if fleet.autoscaler is not None:
+        # Room for a trailing scale-down: the replay ends at drain.
+        for _ in range(64):
+            fleet.step()
     summary = fleet.metrics_summary()
     print(f"fleet served {submitted} request(s) on "
           f"{args.fleet_replicas} replica(s) x {args.max_slots} slot(s)")
@@ -631,6 +733,8 @@ def _serve_fleet(args: Any, params: Any, cfg: Any, serve_config: Any,
                 "fleet_suspicions", "fleet_votes", "fleet_outvotes",
                 "fleet_tenant_floods", "fleet_throttles",
                 "fleet_scale_ups", "fleet_scale_downs",
+                "replicas_in_service", "replica_trace",
+                "per_class", "class_queue_depth",
                 "replica_suspicion", "replica_slo_active"):
         if key in summary:
             print(f"  {key}: {summary[key]}")

@@ -18,7 +18,8 @@ experiment_results.json embeds the step-time/MFU report as
 (``device="cuda"``) unless given ``device="cpu"``.  It runs the GPT-2,
 ResNet and VGG presets in data mode; a preset whose mode is not ported
 raises at ``setup_experiment``.  ``main --envelope`` runs the detection
-envelope (``experiments/envelope.py``).
+envelope (``experiments/envelope.py``), ``main --serve-envelope`` the
+serve-side one (``experiments/serve_envelope.py``).
 """
 
 from __future__ import annotations
@@ -784,8 +785,8 @@ def main(argv: Optional[List[str]] = None,
     """``python -m trustworthy_dl_tpu_torch.experiments.runner``: the
     JAX package's ``trustworthy-dl-experiment`` with ``--device``;
     ``model_overrides`` / ``data_overrides`` shrink the run (tests).
-    ``--envelope`` sweeps its own tiny GPT-2, as JAX's does;
-    ``--serve-envelope`` is refused: the serving fleet is not ported."""
+    ``--envelope`` and ``--serve-envelope`` sweep their own tiny GPT-2,
+    as JAX's do, on ``--device``."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -813,16 +814,28 @@ def main(argv: Optional[List[str]] = None,
                         "x intensity matrix) instead of a single "
                         "experiment")
     parser.add_argument("--serve-envelope", action="store_true",
-                        help="the serve-side detection envelope (not "
-                        "ported yet)")
+                        help="measure the serve-side detection envelope "
+                        "(adaptive attacker strength x monitor threshold "
+                        "x vote K against a ServingFleet) instead of a "
+                        "single experiment")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="cpu runs every kernel's plain PyTorch version")
     args = parser.parse_args(argv)
 
     if args.serve_envelope:
-        parser.error("--serve-envelope is not ported yet (ROADMAP item "
-                     "21: the serving fleet's envelope)")
+        from trustworthy_dl_tpu_torch.experiments.serve_envelope import \
+            run_serve_envelope
+
+        kwargs: Dict[str, Any] = {"device": args.device}
+        if args.output_dir:
+            kwargs["output_dir"] = args.output_dir
+        results = run_serve_envelope(**kwargs)
+        caught = sum(1 for c in results["cells"]
+                     if c["detected_by"] != "none")
+        print(f"Serve envelope: {len(results['cells'])} cells "
+              f"({caught} detected) in {results['wall_time_s']:.1f}s")
+        return 0
 
     if args.envelope:
         from trustworthy_dl_tpu_torch.experiments.envelope import \

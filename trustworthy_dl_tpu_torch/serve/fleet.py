@@ -33,6 +33,23 @@ reuses the training trust stack at replica granularity:
 * **Adapter trust** -- an adapter's flags pool fleet-wide; a trip
   quarantines the adapter on every replica while the replicas stay in
   service.
+* **The control plane** (``serve/control.py``, every piece opt-in through
+  ``FleetConfig``) -- SLO classes: submissions queue at the fleet in
+  per-class deficit-round-robin queues dispatched each tick, and under a
+  per-class latency breach the lowest class sheds first.  Tenant and
+  adapter token buckets: a submission costs prompt + max_new tokens
+  against its tenant's bucket (and its adapter's); a flooding tenant
+  throttles itself, loudly, and a submission the fleet rejects afterwards,
+  or a request that dies unserved, is refunded once.  The autoscaler:
+  queue depth per replica, pool occupancy, the fleet-wide ITL p99, SLO
+  burn and the predictive arm drive the replica count between its bounds;
+  a scale-up builds a replica mid-run and warms it through RESTARTING, a
+  scale-down drains its replica (the queue moves, in-flight work moves as
+  live copies or runs out) into RETIRED, whose journal is kept and whose
+  index the next scale-up revives as a new generation.  Disaggregated
+  pools (``pool_roles``): submissions prefer prefill replicas, and a
+  request that has emitted its first decode token moves to a decode
+  replica as a live block copy; each pool scales on its own signals.
 
 Time is counted in ticks (``step()`` = chaos -> step each live replica ->
 retirements -> supervision -> retries and hedges), so drills are
@@ -63,12 +80,10 @@ attempt, hedge and vote replay, so a survivor's stream equals a single
 engine's given that seed; replica engines take seeds mixed from the fleet
 seed and their index.  Greedy streams equal JAX's bit for bit.
 
-Not ported here: the control plane (ROADMAP Queue A item 20:
-``serve/control.py``, SLO classes, tenant and adapter token buckets, the
-autoscaler and the RETIRED state it drains into, disaggregated pools) and
-tensor-parallel replicas (Slice 4).  A ``FleetConfig`` asking for either
-raises ``NotImplementedError``; a TENANT_FLOOD goes through the plain
-admission path, where nothing throttles, as in JAX without buckets.
+Not ported here: tensor-parallel replicas (ROADMAP Slice 4).  A
+``FleetConfig`` with ``tp_size`` above 1 or a ``tp_max`` (the autoscaler's
+scale-up to a doubled TP group) raises ``NotImplementedError``; every
+scale-up adds a replica of one card's width.
 """
 
 from __future__ import annotations
@@ -84,6 +99,14 @@ from trustworthy_dl_tpu_torch.chaos.plan import FaultKind
 from trustworthy_dl_tpu_torch.obs import attribution
 from trustworthy_dl_tpu_torch.obs.events import EventType
 from trustworthy_dl_tpu_torch.obs.registry import get_registry
+from trustworthy_dl_tpu_torch.obs.slo import StreamingPercentiles
+from trustworthy_dl_tpu_torch.serve.control import (Autoscaler,
+                                                    ClassLatencyTracker,
+                                                    ClassQueues,
+                                                    ScaleSignals,
+                                                    TenantBuckets,
+                                                    class_for_priority,
+                                                    predicted_replicas)
 from trustworthy_dl_tpu_torch.serve.engine import (ServeRequest, ServeResult,
                                                    ServingEngine,
                                                    resolve_device)
@@ -102,7 +125,7 @@ class ReplicaState(str, enum.Enum):
     DRAINING = "draining"        # no admissions; work runs out or moves
     QUARANTINED = "quarantined"  # out of service, cool-off running
     RESTARTING = "restarting"    # warming up (restart, probe, slow-start)
-    RETIRED = "retired"          # scaled in (the control plane, item 20)
+    RETIRED = "retired"          # scaled in: pool released, journal kept
 
 
 #: States the router may place new work on.
@@ -113,17 +136,13 @@ ADMITTING = (ReplicaState.HEALTHY, ReplicaState.DEGRADED)
 TERMINAL_STATUSES = ("completed", "deadline_exceeded", "shed_slo",
                      "no_capacity", "failover_exhausted")
 
-#: The control-plane fields of ``FleetConfig`` (ROADMAP Queue A item 20).
-CONTROL_PLANE_FIELDS = ("slo_classes", "tenant_quota", "adapter_quota",
-                        "autoscale", "pool_roles")
-
 
 @dataclasses.dataclass
 class FleetConfig:
-    """Host-side fleet knobs, JAX's fields and defaults.  Tick-denominated
-    fields follow the fleet clock (one ``step()`` = one tick).  The
-    control-plane fields (``CONTROL_PLANE_FIELDS``) and ``tp_size`` /
-    ``tp_max`` past their defaults are refused after JAX's checks."""
+    """Host-side fleet knobs, JAX's fields, defaults and validation.
+    Tick-denominated fields follow the fleet clock (one ``step()`` = one
+    tick).  ``tp_size`` / ``tp_max`` past their defaults are refused after
+    JAX's checks (ROADMAP Slice 4)."""
 
     num_replicas: int = 2
     # trust: the monitor's flag rate over a window of retirements
@@ -153,23 +172,31 @@ class FleetConfig:
     # cross-replica verdict voting (0 = off)
     vote_k: int = 0
     vote_outvote_limit: int = 2
-    # the control plane (item 20): refused unless at the defaults
+    # the control plane (serve/control.py), every piece opt-in:
+    # SLO classes (control.SLOClass): submissions queue at the fleet in
+    # per-class DRR queues; None submits straight to a replica
     slo_classes: Optional[Tuple[Any, ...]] = None
     class_queue_limit: int = 256
     drr_quantum_tokens: int = 32
     class_latency_min_count: int = 8
+    # token-bucket admission (control.TenantQuotaConfig), by tenant and by
+    # adapter id; tenant None and unadapted requests bypass them
     tenant_quota: Optional[Any] = None
     adapter_quota: Optional[Any] = None
+    # the autoscaler (control.AutoscalerConfig); None = a static fleet
     autoscale: Optional[Any] = None
     # TENANT_FLOOD request shape: prompt [0] * flood_prompt_len,
     # flood_new_tokens new tokens
     flood_prompt_len: int = 4
     flood_new_tokens: int = 4
+    # disaggregated pools: one role per initial replica, "prefill" or
+    # "decode", at least one of each; None = a unified fleet
     pool_roles: Optional[Tuple[str, ...]] = None
     # False: no live migration anywhere (drains run out or replay,
     # preemptions replay)
     live_migration: bool = True
-    # tensor-parallel replicas (Slice 4): refused past 1 / 0
+    # tensor-parallel replicas and the autoscaler's scale-up to a doubled
+    # TP group (Slice 4): refused past 1 / 0
     tp_size: int = 1
     tp_max: int = 0
 
@@ -209,12 +236,26 @@ class FleetConfig:
         if self.flood_prompt_len < 1 or self.flood_new_tokens < 1:
             raise ValueError("flood_prompt_len and flood_new_tokens "
                              "must be >= 1")
-        for name in CONTROL_PLANE_FIELDS:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"FleetConfig.{name} is not ported yet (ROADMAP Queue "
-                    "A item 20: the fleet's control plane, "
-                    "serve/control.py)")
+        if self.autoscale is not None and not (
+                self.autoscale.min_replicas <= self.num_replicas
+                <= self.autoscale.max_replicas):
+            raise ValueError(
+                f"num_replicas={self.num_replicas} must start inside "
+                f"the autoscale bounds [{self.autoscale.min_replicas}, "
+                f"{self.autoscale.max_replicas}]")
+        if self.pool_roles is not None:
+            roles = tuple(self.pool_roles)
+            if len(roles) != self.num_replicas:
+                raise ValueError(
+                    f"pool_roles needs one role per replica: got "
+                    f"{len(roles)} for num_replicas={self.num_replicas}")
+            bad = sorted(set(roles) - {"prefill", "decode"})
+            if bad:
+                raise ValueError(f"pool_roles must be 'prefill' or "
+                                 f"'decode', got {bad}")
+            if not ({"prefill", "decode"} <= set(roles)):
+                raise ValueError("pool_roles needs at least one prefill "
+                                 "AND one decode replica")
         if self.tp_size > 1 or self.tp_max:
             raise NotImplementedError(
                 f"tp_size={self.tp_size}, tp_max={self.tp_max}: "
@@ -243,7 +284,7 @@ class FleetResult:
     flagged: bool = False
     monitor_z: float = 0.0
     tenant: Optional[str] = None
-    slo_class: Optional[str] = None  # always None without item 20
+    slo_class: Optional[str] = None  # class it was scheduled under
     adapter: Optional[str] = None
 
 
@@ -309,7 +350,9 @@ class _FleetRequest:
     done: bool = False
     span_root: Optional[int] = None
     tenant: Optional[str] = None
+    slo_class: Optional[str] = None
     adapter: Optional[str] = None  # resolved at the fleet boundary
+    cost: int = 0                  # prompt + max_new (bucket and DRR tokens)
 
 
 class _Replica:
@@ -319,6 +362,7 @@ class _Replica:
         self.index = index
         self.engine = engine
         self.gen = 0
+        self.role = "mixed"         # pool role; "mixed" = a unified fleet
         self.state = ReplicaState.HEALTHY
         self.last_progress_tick = 0
         self.stalled_until = -1     # chaos wedge: step() skipped until
@@ -327,6 +371,7 @@ class _Replica:
         self.cooloff_ticks = 0      # current cool-off length (doubles)
         self.drain_deadline = -1
         self.quarantine_pending = False
+        self.retire_pending = False  # scale-down drain: retire when empty
         self.reason = ""
         self.flags: Deque[int] = deque(maxlen=flag_window)
         self.suspicion = 0.0
@@ -452,14 +497,36 @@ class ServingFleet:
         self._queue_gauge = reg.gauge(
             "tddl_fleet_queue_depth",
             "Queued + in-flight requests, summed over live replicas")
+        # The control plane: throttles by tenant and adapter, scale events
+        # by direction, per-class fleet queue depth.
+        self._throttle_counter = reg.counter(
+            "tddl_fleet_tenant_throttled_total",
+            "Submissions throttled by the per-tenant token bucket",
+            labels=("tenant",))
+        self._adapter_throttle_counter = reg.counter(
+            "tddl_fleet_adapter_throttled_total",
+            "Submissions throttled by the per-adapter token bucket",
+            labels=("adapter",))
+        self._scale_counter = reg.counter(
+            "tddl_fleet_scale_events_total",
+            "Autoscaler replica-count changes, by direction",
+            labels=("direction",))
         self._migration_counter = reg.counter(
             "tddl_fleet_migrations_total",
             "In-flight requests live-migrated as KV block copies",
             labels=("reason",))
+        self._pool_gauge = reg.gauge(
+            "tddl_fleet_pool_replicas",
+            "In-service replicas per disaggregated pool role",
+            labels=("role",))
         self._chips_gauge = reg.gauge(
             "tddl_fleet_chips",
             "Devices occupied: in-service replicas weighted by their "
             "tensor-parallel group width")
+        self._classq_gauge = reg.gauge(
+            "tddl_fleet_class_queue_depth",
+            "Fleet admission-queue depth, by SLO class",
+            labels=("slo_class",))
         self.tick = 0
         self._next_fid = 0
         self.rejected = 0
@@ -476,8 +543,8 @@ class ServingFleet:
         #: journal key ("replica:gen") -> block allocator, kept across
         #: restarts so records naming a dead generation's blocks reconcile.
         self.journals: Dict[str, Any] = {}
-        # Drill counters (diffed against predict_fleet), JAX's keys; the
-        # control plane's stay 0 until item 20.
+        # Drill counters (diffed against predict_fleet), JAX's keys;
+        # tp_scale_ups stays 0 (scale-up to a TP group is Slice 4's).
         self.counters: Dict[str, int] = {
             "crashes": 0, "restarts": 0, "stalls": 0, "poisons": 0,
             "adaptive_poisons": 0, "slowstarts": 0,
@@ -497,6 +564,41 @@ class ServingFleet:
         # Deferred drain resubmissions: a vote-triggered drain queues
         # moves from terminal processing, so the list outlives one pass.
         self._drain_moves: List[Tuple[int, int, str]] = []
+        # -- the control plane (serve/control.py; every piece opt-in) --
+        cfgc = self.config
+        self._classes = (tuple(cfgc.slo_classes) if cfgc.slo_classes
+                         else None)
+        self._classq: Optional[ClassQueues] = None
+        self._class_latency: Optional[ClassLatencyTracker] = None
+        self._class_stats: Dict[str, Dict[str, int]] = {}
+        if self._classes:
+            self._classq = ClassQueues(
+                self._classes, quantum_tokens=cfgc.drr_quantum_tokens,
+                per_class_limit=cfgc.class_queue_limit)
+            self._class_latency = ClassLatencyTracker(
+                self._classes, min_count=cfgc.class_latency_min_count)
+            self._class_stats = {
+                c.name: {"completed": 0, "tokens": 0, "shed": 0}
+                for c in self._classes}
+        self._buckets = (TenantBuckets(cfgc.tenant_quota)
+                         if cfgc.tenant_quota is not None else None)
+        # The same buckets keyed by adapter id: QoS follows the artifact
+        # served, not only who asked.
+        self._adapter_buckets = (TenantBuckets(cfgc.adapter_quota)
+                                 if cfgc.adapter_quota is not None else None)
+        self.autoscaler = (Autoscaler(cfgc.autoscale)
+                           if cfgc.autoscale is not None else None)
+        self._roles_active = cfgc.pool_roles is not None
+        #: role -> Autoscaler: each pool keeps its own hysteresis and
+        #: cool-downs; the config's bounds apply per pool.
+        self._pool_scalers: Dict[str, Autoscaler] = {}
+        if self._roles_active and cfgc.autoscale is not None:
+            self._pool_scalers = {role: Autoscaler(cfgc.autoscale)
+                                  for role in ("prefill", "decode")}
+        # Completed requests' ITL sketch: the autoscaler's latency signal.
+        self._itl_est = StreamingPercentiles()
+        #: (tick, in-service replicas) at every change, bounded.
+        self.replica_trace: List[Tuple[int, int]] = []
         # -- adapter trust plane --
         #: tenant -> adapter, mirroring the engines' map so submit() can
         #: refuse a quarantined adapter before picking a replica.
@@ -512,6 +614,7 @@ class ServingFleet:
         self.replicas: List[_Replica] = []
         for i in range(self.config.num_replicas):
             self.replicas.append(self._build_replica(i))
+        self._note_replica_trace()
         self._set_state_gauge()
 
     @classmethod
@@ -572,11 +675,19 @@ class ServingFleet:
         return kwargs
 
     def _build_replica(self, index: int,
-                       prev: Optional[_Replica] = None) -> _Replica:
+                       prev: Optional[_Replica] = None,
+                       role: Optional[str] = None) -> _Replica:
         engine = self._factory(index, **self._engine_build_kwargs(index))
         rep = prev if prev is not None else _Replica(
             index, engine, self.config.flag_window)
         rep.engine = engine
+        # The pool role belongs to the index (its initial assignment) or to
+        # the scale-up that made it; a rebuild keeps it.
+        if role is not None:
+            rep.role = role
+        elif prev is None and self._roles_active \
+                and index < len(self.config.pool_roles):
+            rep.role = self.config.pool_roles[index]
         rep.reset_trust_window()
         # A rebuilt replica inherits the fleet's standing adapter verdicts.
         for name in self.quarantined_adapters:
@@ -603,9 +714,10 @@ class ServingFleet:
 
     def submit(self, request: ServeRequest) -> Optional[int]:
         """Enqueue one request; returns its fleet id, or None when every
-        admitting replica's queue shed it (backpressure) or its adapter is
-        quarantined.  A fleet with no admitting replica right now parks
-        the request and resubmits as capacity returns."""
+        admitting replica's queue (or its class queue) shed it
+        (backpressure), its tenant's or adapter's bucket throttled it, or
+        its adapter is quarantined.  A fleet with no admitting replica
+        right now parks the request and resubmits as capacity returns."""
         now = time.perf_counter()
         # Impossible requests fail here, with the engine's semantics: a
         # parked request must never raise inside the tick loop.
@@ -624,6 +736,7 @@ class ServingFleet:
                 raise ValueError(
                     f"prompt of {prompt_len} tokens exceeds the largest "
                     f"prefill bucket {self._max_bucket}")
+        cost = prompt_len + int(request.max_new_tokens)
         tenant = request.tenant
         # The adapter resolves at the fleet boundary (explicit wins, else
         # the tenant map), so a quarantine refuses before any replica.
@@ -635,6 +748,42 @@ class ServingFleet:
                 "fleet: adapter %r is quarantined fleet-wide; "
                 "submission for tenant %r refused", adapter, tenant)
             return None
+        # The tenant's bucket refuses a flood's overflow, loudly, before
+        # any fleet state is touched; untagged traffic bypasses quotas.
+        if self._buckets is not None and tenant is not None:
+            if not self._buckets.try_spend(tenant, cost, self.tick):
+                self.counters["throttles"] += 1
+                self._throttle_counter.inc(tenant=tenant)
+                level = self._buckets.level(tenant, self.tick)
+                logger.warning(
+                    "fleet: tenant %r throttled (%d tokens, bucket at "
+                    "%.1f)", tenant, cost, level)
+                if self.trace is not None:
+                    self.trace.emit(EventType.TENANT_THROTTLE,
+                                    tenant=tenant, tokens=cost,
+                                    bucket_level=round(level, 2),
+                                    tick=self.tick)
+                return None
+        # The adapter's bucket second: its refusal hands the tenant's
+        # spend back (a throttled submission does no work).
+        if self._adapter_buckets is not None and adapter is not None:
+            if not self._adapter_buckets.try_spend(adapter, cost,
+                                                   self.tick):
+                if self._buckets is not None and tenant is not None:
+                    self._buckets.refund(tenant, cost, self.tick)
+                self.counters["adapter_throttles"] += 1
+                self._adapter_throttle_counter.inc(adapter=adapter)
+                level = self._adapter_buckets.level(adapter, self.tick)
+                logger.warning(
+                    "fleet: adapter %r throttled (%d tokens, bucket at "
+                    "%.1f)", adapter, cost, level)
+                if self.trace is not None:
+                    self.trace.emit(EventType.TENANT_THROTTLE,
+                                    tenant=tenant, adapter=adapter,
+                                    tokens=cost,
+                                    bucket_level=round(level, 2),
+                                    tick=self.tick)
+                return None
         fid = self._next_fid
         self._next_fid += 1
         seed = (int(request.seed) if request.seed is not None
@@ -647,31 +796,56 @@ class ServingFleet:
             on_token=request.on_token,
             deadline_at=(now + request.deadline_s
                          if request.deadline_s is not None else None),
-            submit_t=now, tenant=tenant, adapter=adapter)
+            submit_t=now, tenant=tenant, adapter=adapter, cost=cost)
+        if self._classes:
+            rec.slo_class = class_for_priority(self._classes,
+                                               rec.priority).name
         if self.spans is not None:
             rec.span_root = self.spans.start(
                 "fleet.request", kind="serve", request_id=fid,
                 prompt_len=len(rec.prompt),
                 max_new_tokens=rec.max_new_tokens, tenant=tenant,
-                slo_class=None)
+                slo_class=rec.slo_class)
         self.requests[fid] = rec
+        if self._classq is not None:
+            # Class-scheduled admission: the request queues at the fleet
+            # and the DRR dispatcher places it.
+            if not self._classq.push(rec.slo_class, fid, cost):
+                del self.requests[fid]
+                self.rejected += 1
+                self._refund_bucket(rec)
+                if self.spans is not None and rec.span_root is not None:
+                    self.spans.end(rec.span_root, status="rejected")
+                return None
+            return fid
         try:
             outcome = self._try_submit(rec)
         except Exception:
             # No orphaned record behind an engine-side raise.
             del self.requests[fid]
+            self._refund_bucket(rec)
             if self.spans is not None and rec.span_root is not None:
                 self.spans.end(rec.span_root, status="error")
             raise
         if outcome == "full":
             del self.requests[fid]
             self.rejected += 1
+            self._refund_bucket(rec)
             if self.spans is not None and rec.span_root is not None:
                 self.spans.end(rec.span_root, status="rejected")
             return None
         if outcome == "none_admitting":
             rec.retry_due = self.tick
         return fid
+
+    def _refund_bucket(self, rec: _FleetRequest) -> None:
+        """Hand back the bucket spend of a submission the fleet rejected
+        after the quota check passed, or of a request that died unserved:
+        it did no work."""
+        if self._buckets is not None and rec.tenant is not None:
+            self._buckets.refund(rec.tenant, rec.cost, self.tick)
+        if self._adapter_buckets is not None and rec.adapter is not None:
+            self._adapter_buckets.refund(rec.adapter, rec.cost, self.tick)
 
     def _pick_replicas(self, rec: _FleetRequest,
                        exclude: Set[int] = frozenset()) -> List[_Replica]:
@@ -686,8 +860,13 @@ class ServingFleet:
         picked = [r for r in candidates if r.index not in avoid]
         if not picked:
             picked = [r for r in candidates if r.index not in live_on]
+        # Disaggregated pools: every (re)submission replays from the
+        # prompt, so prefill replicas come first; decode ones stay as the
+        # fallback (availability beats specialization).
+        roles = self._roles_active
         return sorted(picked,
-                      key=lambda r: (r.state is not ReplicaState.HEALTHY,
+                      key=lambda r: (roles and r.role == "decode",
+                                     r.state is not ReplicaState.HEALTHY,
                                      r.engine.load, r.index))
 
     def _try_submit(self, rec: _FleetRequest,
@@ -752,11 +931,13 @@ class ServingFleet:
     # -- the fleet tick ----------------------------------------------------
 
     def step(self) -> int:
-        """One tick: chaos -> step live replicas -> retirements ->
-        supervision -> due retries and hedges.  Returns the tokens emitted
-        across the fleet."""
+        """One tick: chaos -> class dispatch -> step live replicas -> pool
+        hand-offs -> retirements -> supervision -> the autoscaler -> due
+        retries and hedges.  Returns the tokens emitted across the
+        fleet."""
         self.tick += 1
         self._apply_chaos()
+        self._dispatch_classes()
         emitted = 0
         for rep in self.replicas:
             if rep.engine is None or rep.state is ReplicaState.QUARANTINED:
@@ -765,8 +946,10 @@ class ServingFleet:
                 continue  # chaos wedge: no progress; the heartbeat sees it
             emitted += rep.engine.step()
             rep.last_progress_tick = self.tick
+        self._rebalance_pools()
         self._process_terminals()
         self._supervise()
+        self._autoscale()
         self._run_retries_and_hedges()
         self._set_state_gauge()
         # Done records with every attempt settled leave the working set.
@@ -846,6 +1029,12 @@ class ServingFleet:
         dead generation's journal stays.  A crash never launders trust: a
         quarantined replica stays quarantined, and a trust drain in
         progress completes as a quarantine."""
+        if rep.state is ReplicaState.RETIRED:
+            # Scaled in: no engine to crash, and the event must not
+            # resurrect retired capacity.
+            logger.warning("chaos: crash on retired replica %d ignored",
+                           rep.index)
+            return
         self.counters["crashes"] += 1
         if rep.state is ReplicaState.QUARANTINED:
             rep.engine = None   # the probe rebuilds; the cool-off stays
@@ -878,6 +1067,9 @@ class ServingFleet:
         # is gone with its generation).
         self._abandon_votes_targeting(rep.index)
         rep.engine = None
+        # A crash voids a pending scale-in: the autoscaler decides again
+        # against what is left.
+        rep.retire_pending = False
         if rep.quarantine_pending:
             # Died mid trust drain: the quarantine it earned still lands.
             rep.quarantine_pending = False
@@ -895,7 +1087,7 @@ class ServingFleet:
         cannot move replays.  A preemption that moves everything is no
         fail-over episode and no drain; the replica warms back through
         RESTARTING (``predict_fleet``: 1 preempt + 1 restart)."""
-        if rep.engine is None:
+        if rep.state is ReplicaState.RETIRED or rep.engine is None:
             logger.warning("chaos: preempt on replica %d ignored "
                            "(no engine)", rep.index)
             return
@@ -917,6 +1109,7 @@ class ServingFleet:
         # moved attempts close before the engine goes.
         self._process_terminals()
         self._abandon_votes_targeting(rep.index)
+        rep.retire_pending = False
         if rep.quarantine_pending:
             rep.quarantine_pending = False
             rep.cooloff_ticks = max(rep.cooloff_ticks * 2,
@@ -935,11 +1128,14 @@ class ServingFleet:
         self._forensic_incident("replica_preempt", rep=rep,
                                 trigger_type="replica_transition")
 
+    # -- the control plane: floods, class dispatch, autoscaling -----------
+
     def _run_flood(self, event: Any) -> None:
         """A TENANT_FLOOD: ``severity`` requests from the tenant through
-        the plain admission path in one tick (no buckets without the
-        control plane, so nothing throttles); admitted ones serve to
-        completion like any other."""
+        the normal admission path in one tick.  The tenant's bucket
+        throttles what it cannot pay for, the class queues schedule the
+        rest, and the admitted burst drives the autoscaler like any
+        overload; admitted ones serve to completion like any other."""
         n = max(int(event.severity), 1)
         tenant = event.tenant or "flood"
         cfgc = self.config
@@ -953,6 +1149,233 @@ class ServingFleet:
                 admitted += 1
         logger.warning("fleet: tenant flood from %r — %d/%d admitted at "
                        "tick %d", tenant, admitted, n, self.tick)
+
+    def _classq_alive(self, fid: int) -> bool:
+        rec = self.requests.get(fid)
+        return rec is not None and not rec.done and not rec.live \
+            and rec.retry_due is None
+
+    def _free_engine_queue_slots(self) -> int:
+        free = 0
+        for rep in self.replicas:
+            if rep.state in ADMITTING and rep.engine is not None:
+                free += max(int(rep.engine.queue_limit)
+                            - len(rep.engine.queued_ids), 0)
+        return free
+
+    def _dispatch_classes(self) -> None:
+        """One pass a tick (no-op without SLO classes): while a class's
+        latency target is breached and the backlog exceeds the engines'
+        free queue room, shed the newest entry of the lowest class (one a
+        tick); then release queued requests by token-cost DRR."""
+        if self._classq is None:
+            return
+        free = self._free_engine_queue_slots()
+        if (self._class_latency.any_breached()
+                and self._classq.depth() > free):
+            cand = self._classq.shed_candidate(self._classq_alive)
+            if cand is not None:
+                name, fid = cand
+                rec = self.requests.get(fid)
+                if rec is not None and not rec.done:
+                    self._class_stats[name]["shed"] += 1
+                    self._finalize_unserved(rec, "shed_slo")
+        batch = self._classq.take(free, self._classq_alive)
+        for i, (name, fid, cost) in enumerate(batch):
+            rec = self.requests.get(fid)
+            if rec is None or rec.done:
+                continue
+            try:
+                outcome = self._try_submit(rec)
+            except BaseException:
+                # An engine-side raise mid-batch re-queues the rest (this
+                # entry included) before the caller sees it.
+                for name2, fid2, cost2 in reversed(batch[i:]):
+                    self._classq.push_front(name2, fid2, cost2)
+                raise
+            if outcome != "submitted":
+                # Engine backpressure: every entry not yet placed goes
+                # back in order, or it would be orphaned.
+                for name2, fid2, cost2 in reversed(batch[i:]):
+                    self._classq.push_front(name2, fid2, cost2)
+                break
+
+    def _rebalance_pools(self) -> None:
+        """The disaggregated pools' hand-off (no-op without
+        ``pool_roles``): a request that has emitted its first decode token
+        on a prefill replica moves to a decode replica as a live block
+        copy.  A refusal leaves it decoding where it is; the sweep tries
+        again next tick."""
+        if not self._roles_active:
+            return
+        moved = 0
+        for rep in self.replicas:
+            if (rep.role != "prefill" or rep.engine is None
+                    or rep.state not in ADMITTING):
+                continue
+            for local in list(getattr(rep.engine, "decode_ready_ids",
+                                      ())):
+                fid = self._local2fleet.get((rep.index, local))
+                if fid is None:
+                    continue  # a vote replay: audits never move
+                if self._live_migrate(rep, fid, "disagg"):
+                    moved += 1
+        if moved and self.trace is not None:
+            self.trace.emit(
+                EventType.POOL_REBALANCE, role="prefill", moved=moved,
+                replicas=sum(1 for r in self.replicas
+                             if r.role == "decode"
+                             and r.engine is not None))
+
+    def _in_service(self) -> List[_Replica]:
+        """Replicas that exist as capacity (all but RETIRED): the count
+        the autoscaler's bounds govern."""
+        return [r for r in self.replicas
+                if r.state is not ReplicaState.RETIRED]
+
+    def _note_replica_trace(self) -> None:
+        n = len(self._in_service())
+        if len(self.replica_trace) < 4096 and (
+                not self.replica_trace
+                or self.replica_trace[-1][1] != n):
+            self.replica_trace.append((self.tick, n))
+
+    def _autoscale(self) -> None:
+        """One decision a tick (no-op without an autoscaler); with pools,
+        each pool decides on its own signals."""
+        if self.autoscaler is None:
+            return
+        if self._pool_scalers:
+            for role in ("prefill", "decode"):
+                sig = self._scale_signals(role)
+                decision = self._pool_scalers[role].observe(sig)
+                if decision > 0:
+                    self._scale_up(sig, role=role)
+                elif decision < 0:
+                    self._scale_down(sig, role=role)
+            return
+        sig = self._scale_signals(None)
+        decision = self.autoscaler.observe(sig)
+        if decision > 0:
+            self._scale_up(sig)
+        elif decision < 0:
+            self._scale_down(sig)
+
+    def _scale_signals(self, role: Optional[str]) -> ScaleSignals:
+        """One tick's autoscaler inputs, fleet-wide (``role`` None) or of
+        one pool.  A replica draining toward RETIRED is leaving and a
+        QUARANTINED one serves nothing: neither counts (otherwise repeated
+        scale-downs could walk below ``min_replicas``, and quarantines
+        would dilute the queue per replica); RESTARTING is warming
+        capacity and counts."""
+        staying = [r for r in self._in_service()
+                   if r.state is not ReplicaState.QUARANTINED
+                   and not (r.state is ReplicaState.DRAINING
+                            and r.retire_pending)
+                   and (role is None or r.role == role)]
+        engines = [r.engine for r in staying if r.engine is not None]
+        queue = sum(e.load for e in engines)
+        if self._classq is not None and role in (None, "prefill"):
+            # Class-queued work dispatches to the prefill pool first.
+            queue += self._classq.depth()
+        occ = 0.0
+        pools = [getattr(e, "scheduler", None) for e in engines]
+        pools = [p for p in pools if p is not None]
+        if pools:
+            occ = sum(p.occupancy for p in pools) / len(pools)
+        burning = any(
+            getattr(e, "slo", None) is not None and e.slo.breached
+            for e in engines)
+        itl = (self._itl_est.quantile(0.99)
+               if self._itl_est.count else None)
+        cfg = self.autoscaler.cfg
+        # A pool reads the predictive arm only where the config declares
+        # its share of the demand.
+        pred = None
+        if cfg.predictive is not None:
+            if role is None:
+                pred = predicted_replicas(cfg.predictive, self.tick)
+            elif role in dict(cfg.predictive.role_share or ()):
+                pred = predicted_replicas(cfg.predictive, self.tick,
+                                          role=role)
+        return ScaleSignals(
+            tick=self.tick, in_service=len(staying),
+            queue_per_replica=queue / max(len(staying), 1),
+            occupancy=occ, itl_p99=itl, slo_burning=burning,
+            predicted_replicas=pred,
+            down_candidates=any(r.state in ADMITTING
+                                and r.engine is not None
+                                and (role is None or r.role == role)
+                                for r in self.replicas))
+
+    def _emit_scale(self, direction: str, frm: int, to: int,
+                    reason: str) -> None:
+        self.counters[f"scale_{direction}s"] += 1
+        self._scale_counter.inc(direction=direction)
+        self._note_replica_trace()
+        if self.trace is not None:
+            self.trace.emit(EventType.FLEET_SCALE, direction=direction,
+                            from_replicas=frm, to_replicas=to,
+                            reason=reason, tick=self.tick)
+
+    def _scale_up(self, sig: ScaleSignals,
+                  role: Optional[str] = None) -> None:
+        """Add capacity: revive a RETIRED index as a new generation (its
+        journals kept) or append a replica.  The engine is built mid-run
+        through the engine's HBM headroom gate and warms through
+        RESTARTING.  ``role`` pins it to one pool; with none retired there,
+        a replica retired from the other pool changes pools.  Every
+        scale-up here adds a replica at one card's width: the scale-up to
+        a doubled TP group (``control.choose_scale_action``'s ``"up"``)
+        needs ``tp_max``, refused until Slice 4."""
+        frm = len(self._in_service())
+        rep = next((r for r in self.replicas
+                    if r.state is ReplicaState.RETIRED
+                    and (role is None or r.role == role)), None)
+        if rep is None and role is not None:
+            rep = next((r for r in self.replicas
+                        if r.state is ReplicaState.RETIRED), None)
+        if rep is not None:
+            rep.gen += 1
+            self._build_replica(rep.index, prev=rep, role=role)
+        else:
+            rep = self._build_replica(len(self.replicas), role=role)
+            self.replicas.append(rep)
+        rep.warm_until = self.tick + self.config.restart_ticks
+        rep.last_progress_tick = self.tick
+        self._transition(rep, ReplicaState.RESTARTING, "scale_up")
+        logger.warning("fleet: scale-out -> replica %d (queue/replica "
+                       "%.1f, occupancy %.2f)", rep.index,
+                       sig.queue_per_replica, sig.occupancy)
+        self._emit_scale("up", frm, len(self._in_service()), "scale_up")
+
+    def _scale_down(self, sig: ScaleSignals,
+                    role: Optional[str] = None) -> None:
+        """Shed capacity without shedding work: drain the least-loaded
+        admitting replica (ties: the newest index), move its queue now and
+        its in-flight requests as live copies; what cannot move runs out
+        where it is (never force-migrated at the grace deadline, never
+        killed).  The drain completes into RETIRED."""
+        cands = [r for r in self.replicas
+                 if r.state in ADMITTING and r.engine is not None
+                 and (role is None or r.role == role)]
+        if not cands:
+            return
+        frm = len(self._in_service())
+        rep = min(cands, key=lambda r: (r.engine.load, -r.index))
+        rep.retire_pending = True
+        rep.quarantine_pending = False
+        self._transition(rep, ReplicaState.DRAINING, "scale_down")
+        self._migrate(rep, rep.engine.queued_ids,
+                      status="migrated", reason="scale_down")
+        for local in list(rep.engine.inflight_ids):
+            fid = self._local2fleet.get((rep.index, local))
+            if fid is not None:
+                self._live_migrate(rep, fid, "scale_down")
+        logger.warning("fleet: scale-down draining replica %d "
+                       "(queue/replica %.1f, occupancy %.2f)",
+                       rep.index, sig.queue_per_replica, sig.occupancy)
+        self._emit_scale("down", frm, frm - 1, "scale_down")
 
     # -- terminal processing -----------------------------------------------
 
@@ -1081,7 +1504,16 @@ class ServingFleet:
             status=result.status, replica=att.replica,
             attempts=rec.submissions, ttft_s=ttft,
             flagged=result.flagged, monitor_z=result.monitor_z,
-            tenant=rec.tenant, adapter=rec.adapter)
+            tenant=rec.tenant, slo_class=rec.slo_class, adapter=rec.adapter)
+        if result.status == "completed":
+            for dt in result.itl_s:
+                self._itl_est.observe(dt)
+            if rec.slo_class is not None:
+                stats = self._class_stats[rec.slo_class]
+                stats["completed"] += 1
+                stats["tokens"] += len(result.tokens)
+                self._class_latency.observe(rec.slo_class, ttft_s=ttft,
+                                            itl_s=result.itl_s)
         self._ledger_canonical(rec, result, att, ttft)
         if self.spans is not None and rec.span_root is not None:
             self.spans.end(rec.span_root, status=result.status,
@@ -1097,11 +1529,15 @@ class ServingFleet:
             return
         rec.done = True
         rec.retry_due = None
+        # The bucket spend landed once at submit and rode every move
+        # un-recharged; a request that dies unserved gets it back, once
+        # (``rec.done`` guards a second refund).
+        self._refund_bucket(rec)
         self._cancel_siblings(rec, status="hedge_lost")
         self.results[rec.fid] = FleetResult(
             request_id=rec.fid, tokens=[], status=status, replica=None,
             attempts=rec.submissions, ttft_s=None, tenant=rec.tenant,
-            adapter=rec.adapter)
+            slo_class=rec.slo_class, adapter=rec.adapter)
         if self.ledger is not None:
             self.ledger.append({
                 "request_id": rec.fid, "status": status,
@@ -1110,7 +1546,7 @@ class ServingFleet:
                 "flagged": False, "monitor_z": 0.0, "tokens": 0,
                 "token_hash": attribution.token_hash([]),
                 "ttft_s": None, "submissions": rec.submissions,
-                "tenant": rec.tenant, "slo_class": None,
+                "tenant": rec.tenant, "slo_class": rec.slo_class,
             })
         if self.trace is not None:
             self.trace.emit(EventType.SERVE_RETIRE, request_id=rec.fid,
@@ -1143,7 +1579,7 @@ class ServingFleet:
             "tokens": len(result.tokens),
             "token_hash": attribution.token_hash(result.tokens),
             "ttft_s": ttft, "submissions": rec.submissions,
-            "tenant": rec.tenant, "slo_class": None,
+            "tenant": rec.tenant, "slo_class": rec.slo_class,
             "adapter": rec.adapter,
             "adapter_page": winner.get("adapter_page", 0),
         })
@@ -1254,6 +1690,10 @@ class ServingFleet:
         cands = [r for r in self.replicas
                  if r.index != rep.index and r.state in ADMITTING
                  and r.engine is not None and r.index not in rec.live]
+        if self._roles_active:
+            decode = [r for r in cands if r.role == "decode"]
+            if decode:
+                cands = decode
         cands.sort(key=lambda r: (r.state is not ReplicaState.HEALTHY,
                                   r.engine.load, r.index))
         refusals: List[Dict[str, Any]] = []
@@ -1319,6 +1759,8 @@ class ServingFleet:
         # _drain_moves is not reset here: a vote-triggered drain queues
         # moves from terminal processing before this pass.
         for rep in self.replicas:
+            if rep.state is ReplicaState.RETIRED:
+                continue  # scaled in: no engine, no signals, no ladder
             if rep.state is ReplicaState.RESTARTING:
                 if self.tick >= rep.warm_until:
                     if rep.engine is None:
@@ -1393,17 +1835,38 @@ class ServingFleet:
                     self._transition(rep, ReplicaState.HEALTHY,
                                      "recovered")
             if rep.state is ReplicaState.DRAINING:
-                if rep.engine.load and self.tick >= rep.drain_deadline:
+                # A scale-down drain lets in-flight work run out where it
+                # is, past the grace deadline, while the engine ticks; one
+                # that stops making progress falls back to the move after
+                # heartbeat_miss_limit silent ticks, or the work would be
+                # stranded.
+                stalled_retire = (
+                    rep.retire_pending and rep.engine.load
+                    and self.tick - rep.last_progress_tick
+                    >= cfg.heartbeat_miss_limit)
+                if stalled_retire or (
+                        not rep.retire_pending and rep.engine.load
+                        and self.tick >= rep.drain_deadline):
+                    why = ("scale_down_stall" if stalled_retire
+                           else "drain_grace")
                     self._migrate(rep, rep.engine.queued_ids,
                                   status="migrated", reason="drain")
                     for local in list(rep.engine.inflight_ids):
                         fid = self._local2fleet.get((rep.index, local))
                         if fid is None or not self._live_migrate(
-                                rep, fid, "drain_grace"):
+                                rep, fid, why):
                             self._migrate(rep, [local], status="failover",
-                                          reason="drain_grace")
+                                          reason=why)
                 if rep.engine.load == 0:
-                    if rep.quarantine_pending:
+                    if rep.retire_pending:
+                        # Scale-in complete: release the pool, keep the
+                        # journal, leave the index for a revival.
+                        rep.retire_pending = False
+                        rep.engine = None
+                        self._transition(rep, ReplicaState.RETIRED,
+                                         "scale_down_complete")
+                        self._note_replica_trace()
+                    elif rep.quarantine_pending:
                         rep.quarantine_pending = False
                         rep.cooloff_ticks = max(
                             rep.cooloff_ticks * 2,
@@ -1768,20 +2231,27 @@ class ServingFleet:
                     tif += sched.tokens_in_flight
         for state, n in by_state.items():
             self._replicas_gauge.set(float(n), state=state.value)
+        if self._roles_active:
+            for role in ("prefill", "decode"):
+                n = sum(1 for r in self.replicas if r.role == role
+                        and r.state is not ReplicaState.RETIRED)
+                self._pool_gauge.set(float(n), role=role)
         self._tif_gauge.set(float(tif))
         self._queue_gauge.set(float(load))
         self._chips_gauge.set(float(self.chips_in_service()))
+        if self._classq is not None:
+            for name, depth in self._classq.depth_by_class().items():
+                self._classq_gauge.set(float(depth), slo_class=name)
 
     def chips_in_service(self) -> int:
-        """Devices the fleet occupies: one a replica at ``tp_size`` 1
-        (every replica is in service: only the control plane's scale-in,
-        item 20, retires one)."""
-        return len(self.replicas)
+        """Devices the fleet occupies: its replicas in service (all but
+        RETIRED), each one card wide at ``tp_size`` 1."""
+        return len(self._in_service())
 
     @property
     def open_requests(self) -> int:
-        """Accepted-but-unfinished fleet requests (the closed-loop
-        driver's in-flight count)."""
+        """Accepted-but-unfinished fleet requests (class-queued, live or
+        between retries): the closed-loop driver's in-flight count."""
         return sum(1 for r in self.requests.values() if not r.done)
 
     @property
@@ -1835,6 +2305,15 @@ class ServingFleet:
         }
         if slo_active:
             out["replica_slo_active"] = slo_active
+        if self._classes:
+            out["per_class"] = {
+                c.name: {**self._class_stats[c.name],
+                         **self._class_latency.summary(c.name)}
+                for c in self._classes}
+            out["class_queue_depth"] = self._classq.depth_by_class()
+        if self.autoscaler is not None:
+            out["replicas_in_service"] = len(self._in_service())
+            out["replica_trace"] = list(self.replica_trace)
         if self._adapter_flags or self.quarantined_adapters:
             out["adapter_flag_rates"] = {
                 name: round(self.adapter_flag_rate(name), 4)
@@ -1843,6 +2322,6 @@ class ServingFleet:
         return out
 
 
-__all__ = ["ADMITTING", "CONTROL_PLANE_FIELDS", "FleetConfig", "FleetResult",
-           "ReplicaObs", "ReplicaState", "ServingFleet", "TERMINAL_STATUSES",
+__all__ = ["ADMITTING", "FleetConfig", "FleetResult", "ReplicaObs",
+           "ReplicaState", "ServingFleet", "TERMINAL_STATUSES",
            "backoff_ticks"]

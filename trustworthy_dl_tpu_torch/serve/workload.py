@@ -24,6 +24,10 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+# The envelope is the control plane's, the one spelling its predictive arm
+# reads, so anticipating the envelope is anticipating this generator.
+from trustworthy_dl_tpu_torch.serve.control import diurnal_rate
+
 logger = logging.getLogger(__name__)
 
 
@@ -115,15 +119,6 @@ class WorkloadItem:
     tenant: str
     deadline_s: Optional[float]
     adapter: Optional[str] = None  # tenant's assigned adapter (None = base)
-
-
-def diurnal_rate(mean_rps: float, burstiness: float,
-                 burst_period_s: float, t_s: float) -> float:
-    """The arrival-rate envelope at time ``t_s`` (the JAX package keeps it
-    in ``serve/control.py``, where its autoscaler reads it too)."""
-    rate = mean_rps * (1.0 + burstiness * math.sin(
-        2.0 * math.pi * t_s / burst_period_s))
-    return max(rate, mean_rps * (1.0 - burstiness), 1e-6)
 
 
 def _lognormal_len(rng: np.random.Generator, median: int, sigma: float,
