@@ -234,6 +234,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
    cleared, node 2 readmitted at step 18 on probation (recovery rate
    0.02, fresh baselines), the loader back to 4 x 8; B1-B3 exact for each
    step's node count, every loss finite.
+10b. pipeline: GPT-2 small at full width through
+   ``DistributedTrainer(parallelism="model")``: 4 stages of 3 layers, 4
+   microbatches of 2 x 1024 tokens, AdamW.  The pipelined loss and every
+   block gradient against the sequential forward over the unstacked
+   blocks (JAX's test tolerance, rtol 5e-2, atol 5e-3).  A trusted run
+   (``elastic_resharding``, ``readmit_after_steps=4``): stage 2 poisoned
+   from step 5, confirmed at 7, gated from its first attacked step,
+   restaffed 4 -> 3 at 9 (``choose_stage_count(12, 3)``), the attack
+   cleared, node 2 back in the pool at 13 and the pipeline regrown 3 -> 4;
+   every layer's params move after the restaff, the survivors' trust
+   rows carry over, no clean stage flagged, every loss finite.  The
+   restaffed checkpoint restored by a fresh 4-stage trainer: its next
+   step's loss equals the running trainer's.  Byzantine compute on stage
+   1 after a clean epoch (its busy window: busy share, host enqueue):
+   flagged by the canary at the first attacked step, no other stage.
+   B1-B3 exact in both runs (M x L = 48 of B2, dq and dk/dv a step at
+   any stage count, one B1), and each against its plain twin at the
+   pipeline's shapes (``pipeline_case``).  The schedule study at S = 4,
+   M in (1, 2, 4, 8), batch 16, one layer a stage at GPT-2 small's
+   width: step time, bubble fraction, peak bytes above the state.
 
 11. vision: ``ExperimentRunner`` on the three vision presets at their
    own configuration (8 nodes, batch 32, synthetic CIFAR-10 32x32x3
@@ -252,8 +272,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    twin, timed (ResNet-101's with the twin, bound and library calls);
    each drive's step ms, samples/s, peak memory, the host's
    record-keeping ms a step (the ML tier's feed included), busy share and
-   the host's enqueue ms (``busy_window`` over steps 3-5 of a fresh
-   6-step epoch), and one step's host time by ``tddl.*`` range.  The
+   the host's enqueue ms (``busy_window`` over step 3 of a fresh 4-step
+   epoch), and one step's host time by ``tddl.*`` range.  The
    host ``AttackDetector`` on the card: the exact battery of ResNet-101's
    concatenated gradient against numpy, the Byzantine and backdoor
    checks on card tensors.
@@ -517,6 +537,25 @@ NAN_INTERVAL, NAN_STEP, NAN_STEPS = 4, 5, 8
 # resume onto the saved topology, 10 steps of 3 x 8 rows with the attack
 # cleared.
 ELASTIC_ATTACK, ELASTIC_READMIT, ELASTIC_STEPS = 6, 8, (12, 10)
+# pipeline: GPT-2 small in 4 stages of 3 layers, 4 microbatches of 2 x
+# 1024 tokens (batch 8), AdamW at 1e-4, detector_warmup 4.  The trusted
+# run: stage 2 poisoned from step PIPE_ATTACK, confirmed two steps later
+# and restaffed 4 -> 3 two steps after that (the async pipeline's drain);
+# the attack is cleared at the end of the first epoch (PIPE_EPOCHS[0]
+# steps) and the evicted id re-enters after PIPE_READMIT steps, regrowing
+# 3 -> 4.  The Byzantine run: a clean epoch of PIPE_BUSY_STEPS steps (the
+# busy window over its steps PIPE_BUSY_FIRST-PIPE_BUSY_LAST), then
+# Byzantine compute on stage 1 for PIPE_BYZ_STEPS steps.  The study: S =
+# 4, M in PIPE_STUDY_MICRO, batch 16, one layer a stage at GPT-2 small's
+# width, 2 timed steps a cell.
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH = 4, 4, 8
+PIPE_ATTACK, PIPE_READMIT, PIPE_EPOCHS = 5, 4, (10, 6)
+PIPE_BUSY_STEPS, PIPE_BUSY_FIRST, PIPE_BUSY_LAST = 5, 3, 4
+PIPE_BYZ_STEPS = 4
+PIPE_STUDY_MICRO, PIPE_STUDY_BATCH, PIPE_STUDY_STEPS = (1, 2, 4, 8), 16, 2
+# JAX's own pipeline test tolerance (tests/test_pipeline.py) for the
+# pipelined loss and block gradients against the sequential forward.
+PIPE_RTOL, PIPE_ATOL = 5e-2, 5e-3
 # vision: the runner's three vision presets at their own configuration (8
 # nodes, batch 32, CIFAR-10's 32x32x3 images and 10 classes, bf16, full
 # published widths), epochs cut to fit: (preset, epochs, steps an epoch,
@@ -531,9 +570,10 @@ VISION_DRIVES = (("vgg16_cifar10_poisoning", 3, 6, 2),
                  ("resnet101_byzantine", 3, 6, 2),
                  ("resnet32_cifar10_clean", 2, 26, None))
 VISION_CLEAN_PER_EPOCH_NO_ML = 13
-# Each drive's busy share and host enqueue: ``busy_window`` over steps
-# 3-5 of a fresh 6-step epoch (a ResNet-101 step takes ~2 s).
-VISION_BUSY_FIRST, VISION_BUSY_LAST, VISION_BUSY_STEPS = 3, 5, 6
+# Each drive's busy share and host enqueue: ``busy_window`` over step 3
+# of a fresh 4-step epoch.  One profiled step, not three: reading a
+# ResNet-101 window's trace back took most of that drive's 122 s.
+VISION_BUSY_FIRST, VISION_BUSY_LAST, VISION_BUSY_STEPS = 3, 3, 4
 # The host detector on the card, over ResNet-101's concatenated gradient
 # (42.5M f32 values), against numpy on the same values: median and
 # quartiles within ORDER_RTOL relative (the sort picks the same elements;
@@ -2908,29 +2948,13 @@ def flash_work(bh, t, d, matmuls):
     return 2 * bh * d * pairs * matmuls
 
 
-def check_train_kernels(torch, entries):
-    """Phase 3, training kernels: B1 over the 16 gradient leaves of GPT-2
-    small on each of 4 nodes (one launch, 64 segments), B2 and B3 at one
-    node's attention shape [96, 1024, 64] bf16 (B3 from the new B2's
-    ``lse``; each with the profiler's ``device_ms``, B3's beside SDPA's
-    whole backward), and B2 at D = 32 and 128 (``cases``, T = 1024)."""
-    import torch.nn.functional as F
-
-    from trustworthy_dl_tpu_torch.models import gpt2
-    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+def moments_case(torch, segs, flush):
+    """B1 over ``segs`` against its plain twin (the sums within
+    MOMENT_RTOL of each segment's magnitudes, the extrema exact), timed
+    beside its bound and the fewest PyTorch reductions that give the
+    eight sums."""
     from trustworthy_dl_tpu_torch.ops import fused_stats as fs
-    from trustworthy_dl_tpu_torch.utils import kernel_ab
-    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
-    dev = torch.device("cuda")
-    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    cfg = gpt2_small(torch)
-    shapes = [tuple(p.shape) for p in tree_leaves(
-        gpt2.init_params(cfg, gen, device=dev))]
-    grads = [torch.randn((TRAIN_NODES,) + s, device=dev, generator=gen)
-             * 1e-3 for s in shapes]
-    segs = [g[i].reshape(-1) for i in range(TRAIN_NODES) for g in grads]
     got = fs.fused_moments(segs)
     torch.cuda.synchronize()
     ref = fs.fused_moments_plain(segs)
@@ -2949,7 +2973,6 @@ def check_train_kernels(torch, entries):
     n_el = sum(x.numel() for x in segs)
 
     def library_moments():
-        # The fewest PyTorch reductions giving the eight sums, per segment.
         for x in segs:
             x.sum()
             for order in (1, 2, 4, float("inf")):
@@ -2959,20 +2982,47 @@ def check_train_kernels(torch, entries):
 
     bound_ms, bound_by = bound_entry(n_el * 4 + len(segs) * 32, n_el * 12,
                                      "float32")
+    return {"max_abs_err": float(sum_err.max()),
+            "ms": time_ms(torch, lambda: fs.fused_moments(segs), flush,
+                          reps=10),
+            "plain_ms": time_ms(torch, lambda: fs.fused_moments_plain(segs),
+                                flush, reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(torch, library_moments, flush, reps=5)}
+
+
+def check_train_kernels(torch, entries):
+    """Phase 3, training kernels: B1 over the 16 gradient leaves of GPT-2
+    small on each of 4 nodes (one launch, 64 segments), B2 and B3 at one
+    node's attention shape [96, 1024, 64] bf16 (B3 from the new B2's
+    ``lse``; each with the profiler's ``device_ms``, B3's beside SDPA's
+    whole backward), and B2 at D = 32 and 128 (``cases``, T = 1024)."""
+    import torch.nn.functional as F
+
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg = gpt2_small(torch)
+    shapes = [tuple(p.shape) for p in tree_leaves(
+        gpt2.init_params(cfg, gen, device=dev))]
+    grads = [torch.randn((TRAIN_NODES,) + s, device=dev, generator=gen)
+             * 1e-3 for s in shapes]
+    segs = [g[i].reshape(-1) for i in range(TRAIN_NODES) for g in grads]
     entries["fused_moments"] = {
         "name": "fused_moments", "route": "cuda", "source": STATS_SOURCE,
         "replaces": "trustworthy_dl_tpu/ops/fused_stats.py:85",
-        "launches": 0, "max_abs_err": float(sum_err.max()),
-        "ms": time_ms(torch, lambda: fs.fused_moments(segs), flush, reps=10),
-        "plain_ms": time_ms(torch, lambda: fs.fused_moments_plain(segs),
-                            flush, reps=5),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(torch, library_moments, flush, reps=5),
+        "launches": 0, **moments_case(torch, segs, flush),
         "library_calls": "per segment: sum, linalg.vector_norm ord 1/2/4/"
                          "inf, aminmax, pow(3).sum",
-        "shape": {"segments": len(segs), "elements": n_el},
+        "shape": {"segments": len(segs),
+                  "elements": sum(x.numel() for x in segs)},
     }
-    del grads, segs, got, ref, mag
+    del grads, segs
 
     bh, t, d = cfg.n_head * TRAIN_BATCH // TRAIN_NODES, TRAIN_T, \
         cfg.head_dim
@@ -4402,6 +4452,392 @@ def elastic_drive(torch, entries, card):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+def pipeline_kernel_cases(torch, entries, flush):
+    """B1, B2 and B3 against their plain twins at the pipeline phase's
+    shapes (``pipeline_case`` in each entry): B2 and B3 at one
+    microbatch's attention [2 x 12, 1024, 64] bf16, B1 over the 48
+    segments of the four stages' block-gradient leaves."""
+    import torch.nn.functional as F
+
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+    from trustworthy_dl_tpu_torch.parallel.pipeline import stack_stages
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cfg = gpt2_small(torch)
+    blocks = stack_stages(gpt2.init_params(cfg, gen, device=dev)["blocks"],
+                          PIPE_STAGES)
+    grads = [torch.randn(x.shape, device=dev, generator=gen) * 1e-3
+             for x in tree_leaves(blocks)]
+    del blocks
+    segs = [g[s].reshape(-1) for s in range(PIPE_STAGES) for g in grads]
+    entries["fused_moments"]["pipeline_case"] = {
+        "segments": len(segs), "elements": sum(x.numel() for x in segs),
+        **moments_case(torch, segs, flush)}
+    del grads, segs
+
+    bh = cfg.n_head * PIPE_BATCH // PIPE_MICRO
+    t, d = TRAIN_T, cfg.head_dim
+    q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    outs = {"flash_attention_fwd": (o,),
+            "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta),),
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta)}
+    torch.cuda.synchronize()
+    refs = {"flash_attention_fwd": (fa.flash_fwd_plain(q, k, v)[0],),
+            "flash_attention_bwd_dq": (fa.flash_bwd_dq_plain(
+                q, k, v, do, lse, delta),),
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta)}
+    q4, k4, v4 = (a.reshape(1, bh, t, d).clone().requires_grad_()
+                  for a in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out4, (q4, k4, v4), do.view(1, bh, t, d),
+                                   retain_graph=True)
+
+    sdpa_bwd_ms = time_ms(torch, sdpa_bwd, flush)
+    sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4.detach(), k4.detach(), v4.detach(), is_causal=True), flush)
+    tile, rows = bh * t * d * 2, bh * t * 4
+    for name, ins, n_out, n_rows, matmuls, kern, plain, lib in (
+            ("flash_attention_fwd", 3, 1, 1, 2,
+             lambda: fa.flash_attention_fwd(q, k, v),
+             lambda: fa.flash_fwd_plain(q, k, v), sdpa_fwd_ms),
+            ("flash_attention_bwd_dq", 4, 1, 2, 3,
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta),
+             sdpa_bwd_ms),
+            ("flash_attention_bwd_dkv", 4, 2, 2, 4,
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
+             sdpa_bwd_ms)):
+        errs = []
+        for a, b in zip(outs[name], refs[name]):
+            e = (a.float() - b.float()).abs()
+            if not bool((e <= ATTN_ATOL + ATTN_RTOL * b.float().abs()).all()):
+                raise AssertionError(f"pipeline: {name} disagrees with plain "
+                                     f"(max abs err {float(e.max())})")
+            errs.append(float(e.max()))
+        b_ms, b_by = bound_entry((ins + n_out) * tile + n_rows * rows,
+                                 flash_work(bh, t, d, matmuls), "bfloat16")
+        entries[name]["pipeline_case"] = {
+            "bhtd": [bh, t, d], "max_abs_err": max(errs),
+            "ms": time_ms(torch, kern, flush),
+            "plain_ms": time_ms(torch, plain, flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    del q, k, v, do, o, lse, delta, outs, refs, q4, k4, v4, out4
+
+
+def pipeline_schedule_check(torch, tr, batch):
+    """The pipelined loss and every block gradient against the sequential
+    forward over the unstacked blocks, on the trainer's params and one
+    batch: JAX's test tolerance."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.parallel import pipeline as pipe
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves, \
+        tree_unflatten
+
+    cfg = tr.model.config
+    fn = pipe.build_pipeline_apply(cfg, tr.mesh, PIPE_STAGES, PIPE_MICRO)
+    stacked = tr.state.params
+    flat = dict(stacked, blocks=pipe.unstack_stages(stacked["blocks"]))
+    tokens, targets = batch["input"], batch["target"]
+
+    def grads(params, forward):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params["blocks"])]
+        p = dict(params, blocks=tree_unflatten(params["blocks"], leaves))
+        y = forward(p)
+        loss, _ = gpt2.head_loss_and_signature(p, y, targets, cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def piped(p):
+        x = gpt2.embed(p, tokens)
+        b, t, d = x.shape
+        y = fn(p["blocks"], x.reshape(PIPE_MICRO, b // PIPE_MICRO, t, d))[0]
+        return y.reshape(b, t, d)
+
+    loss, got = grads(stacked, piped)
+    seq_loss, want = grads(flat, lambda p: gpt2.apply_blocks(
+        p["blocks"], gpt2.embed(p, tokens), cfg))
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.reshape(w.shape).float()
+        err = (g - w.float()).abs()
+        if not bool((err <= PIPE_ATOL + PIPE_RTOL * w.float().abs()).all()):
+            raise AssertionError(f"pipeline schedule: a block gradient off "
+                                 f"by {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    loss_err = abs(float(loss) - float(seq_loss))
+    if not loss_err <= PIPE_ATOL + PIPE_RTOL * abs(float(seq_loss)):
+        raise AssertionError(f"pipeline schedule: loss {float(loss)} vs "
+                             f"sequential {float(seq_loss)}")
+    return {"loss": float(loss), "sequential_loss": float(seq_loss),
+            "loss_abs_err": loss_err, "grad_max_abs_err": worst,
+            "rtol": PIPE_RTOL, "atol": PIPE_ATOL}
+
+
+def pipeline_want(steps):
+    """B1-B3 launches of ``steps`` pipeline steps: M x L stage-layer
+    applications a step (any stage count), each one B2 in the forward
+    and one dq and one dk/dv of B3 in the backward (no remat), and one B1
+    over every stage's block leaves (at most 48 segments)."""
+    n = PIPE_MICRO * GPT2_SMALL["n_layer"] * steps
+    return {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "fused_moments": steps}
+
+
+def pipeline_drive(torch, entries, card):
+    """Phase 10b: pipeline (stage) parallelism on GPT-2 small through
+    ``DistributedTrainer(parallelism="model")``: the schedule against the
+    sequential forward, a trusted run with a restaff 4 -> 3 and the
+    regrowth 3 -> 4, a checkpoint of the restaffed pipeline resumed, the
+    canary against Byzantine compute, exact B1-B3 launches, B1-B3 at the
+    pipeline's shapes, and the schedule study."""
+    import itertools
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.attacks.adversarial import null_plan
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.experiments.pipeline_study import \
+        render_study, run_pipeline_study
+    from trustworthy_dl_tpu_torch.parallel.pipeline import unstack_stages
+    from trustworthy_dl_tpu_torch.utils.train_profile import busy_window
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    cfg = gpt2_small(torch)
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    tmp = tempfile.mkdtemp(prefix="tddl_pipeline_")
+    t0 = time.perf_counter()
+    parts = {}
+
+    def trainer(elastic):
+        tr = DistributedTrainer(TrainingConfig(
+            model_name="gpt2", batch_size=PIPE_BATCH, num_nodes=PIPE_STAGES,
+            parallelism="model", num_microbatches=PIPE_MICRO,
+            optimizer="adamw", learning_rate=1e-4, seed=0,
+            detector_warmup=4, elastic_resharding=elastic,
+            readmit_after_steps=PIPE_READMIT if elastic else 0,
+            checkpoint_interval=10 ** 6, checkpoint_dir=tmp),
+            model_overrides=dict(seq_len=TRAIN_T, attn_impl="auto"),
+            device="cuda")
+        tr.initialize()
+        return tr
+
+    def loader(steps, seed):
+        return get_dataloader("openwebtext", batch_size=PIPE_BATCH,
+                              seq_len=TRAIN_T, vocab_size=cfg.vocab_size,
+                              num_examples=PIPE_BATCH * steps, seed=seed)
+
+    def blocks_of(tr):
+        return [x.detach().clone() for x in tree_leaves(
+            unstack_stages(tr.state.params["blocks"]))]
+
+    try:
+        # 1. The schedule against the sequential forward.
+        tr = trainer(True)
+        t1 = time.perf_counter()
+        schedule = pipeline_schedule_check(
+            torch, tr, tr._node_batch(next(iter(loader(1, 9)))))
+        parts["schedule_s"] = time.perf_counter() - t1
+
+        # 2. The trusted run: restaff 4 -> 3, regrowth 3 -> 4.
+        attacker = AdversarialAttacker(AttackConfig(
+            attack_types=["gradient_poisoning"], target_nodes=[2],
+            intensity=1.0, start_step=PIPE_ATTACK))
+        attacker.activate_attacks()
+        tr.set_attack_plan(attacker.plan(PIPE_STAGES, "cuda"))
+        run_loader = loader(max(PIPE_EPOCHS), 0)
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        tr.train_epoch(itertools.islice(iter(run_loader), PIPE_EPOCHS[0]),
+                       0)
+        restaffed = blocks_of(tr)
+        saved_step, saved_map = tr.global_step, list(tr.node_map)
+        t_save = time.perf_counter()
+        tr.save_checkpoint()
+        save_s = time.perf_counter() - t_save
+        tr.set_attack_plan(null_plan(tr.config.num_nodes, "cuda"))
+        tr.train_epoch(itertools.islice(iter(run_loader), PIPE_EPOCHS[1]),
+                       1)
+        torch.cuda.synchronize()
+        parts["trusted_run_s"] = time.perf_counter() - t1 - save_s
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - resident
+        hist = list(tr.batch_history)
+        steps = [h["step"] for h in hist]
+        losses = [h["loss"] for h in hist]
+        incident = PIPE_ATTACK + 2          # the second attacked step
+        restaff_step = incident + 2         # drained two steps later
+        regrow_step = restaff_step + PIPE_READMIT
+        records = [{k: v for k, v in r.items() if k != "timestamp"}
+                   for r in tr.reassignment_history]
+        stages = [len(h["trust_scores"]) for h in hist]
+        want_stages = [PIPE_STAGES if s <= restaff_step or s > regrow_step
+                       else PIPE_STAGES - 1 for s in steps]
+        if [(r["node_id"], r["step"], r["attack_type"])
+                for r in tr.attack_history] != \
+                [(2, incident, "gradient_poisoning")] or \
+                [(r["step"], r["evicted_nodes"], r["old_num_stages"],
+                  r["new_num_stages"]) for r in records] != \
+                [(restaff_step, [2], 4, 3), (regrow_step, [], 3, 4)] or \
+                saved_map != [0, 1, 3] or tr.node_map != [0, 1, 2, 3] or \
+                tr._idle_pool or stages != want_stages or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(
+                f"pipeline: incidents {tr.attack_history}, records "
+                f"{records}, stages {stages} (want {want_stages}), map "
+                f"{saved_map} -> {tr.node_map}, losses {losses}")
+        for s, h in enumerate(hist):
+            if steps[s] > PIPE_ATTACK and steps[s] <= restaff_step and \
+                    h["weights"][2] != 0:
+                raise AssertionError(f"pipeline: stage 2 not gated at step "
+                                     f"{steps[s]}: {h}")
+            if any(h["attacked"][i] for i in range(len(h["attacked"]))
+                   if not (i == 2 and steps[s] <= restaff_step)):
+                raise AssertionError(f"pipeline: a clean stage flagged at "
+                                     f"step {steps[s]}: {h}")
+        moved = [float((a - b).float().norm()) for a, b in
+                 zip(blocks_of(tr), restaffed)]
+        per_layer = [((a - b).float().reshape(a.shape[0], -1).norm(dim=1)
+                      > 0).all().item()
+                     for a, b in zip(blocks_of(tr), restaffed)]
+        before = hist[steps.index(restaff_step)]["trust_scores"]
+        after = hist[steps.index(restaff_step + 1)]["trust_scores"]
+        if not all(per_layer) or any(
+                abs(after[n] - before[n]) > 0.05 or after[n] <= 0.5
+                for n in (0, 1, 3)):
+            raise AssertionError(f"pipeline: layers moved {per_layer}, "
+                                 f"trust {before} -> {after}")
+        want = pipeline_want(len(hist))
+        expect_launches_equal(launches, want, "pipeline")
+        for name in want:
+            entries[name]["launches_pipeline"] = want[name]
+        step_ms = [1e3 * h["step_s"] for h in hist[2:]
+                   if h["step_s"] is not None]
+
+        # 4. The restaffed checkpoint, restored by a fresh trainer: the
+        # next step equals the running trainer's.
+        tr.cleanup()
+        del tr
+        torch.cuda.empty_cache()
+        fresh = trainer(True)
+        t_load = time.perf_counter()
+        fresh.load_checkpoint(saved_step)
+        load_s = time.perf_counter() - t_load
+        if fresh.config.num_nodes != 3 or fresh.node_map != saved_map or \
+                fresh._evicted_at != {2: restaff_step}:
+            raise AssertionError(f"pipeline resume: {fresh.config.num_nodes}"
+                                 f" stages, map {fresh.node_map}, evicted "
+                                 f"{fresh._evicted_at}")
+        fresh.set_attack_plan(null_plan(3, "cuda"))
+        resume_loader = loader(max(PIPE_EPOCHS), 0)
+        for _ in resume_loader:     # the running trainer's epoch 0
+            pass
+        record = fresh.train_step(next(iter(resume_loader)), 1)
+        running = hist[steps.index(saved_step + 1)]["loss"]
+        if abs(record["loss"] - running) > 1e-6:
+            raise AssertionError(f"pipeline resume: next loss "
+                                 f"{record['loss']} vs running {running}")
+        resume = {"save_s": save_s, "load_s": load_s,
+                  "saved_step": saved_step, "next_loss": record["loss"],
+                  "running_loss": running}
+        del fresh
+        torch.cuda.empty_cache()
+
+        # 3. The canary against Byzantine compute on stage 1, after a
+        # clean epoch whose steps 3-4 are the busy window.
+        tr = trainer(False)
+        busy = busy_window(tr, loader(PIPE_BUSY_STEPS, 3),
+                           first=PIPE_BUSY_FIRST, last=PIPE_BUSY_LAST)
+        onset = tr.global_step
+        byz = AdversarialAttacker(AttackConfig(
+            attack_types=["byzantine"], target_nodes=[1], intensity=0.5,
+            start_step=onset))
+        byz.activate_attacks()
+        tr.set_attack_plan(byz.plan(PIPE_STAGES, "cuda"))
+        ops.reset_launch_counts()
+        tr.train_epoch(loader(PIPE_BYZ_STEPS, 4), 1)
+        byz_launches = ops.launch_counts()
+        byz_hist = tr.batch_history[-PIPE_BYZ_STEPS:]
+        if [(r["node_id"], r["step"], r["attack_type"])
+                for r in tr.attack_history] != [(1, onset + 1, "byzantine")] \
+                or not all(h["attacked"][1] for h in byz_hist) or any(
+                    h["attacked"][i] for h in tr.batch_history
+                    for i in (0, 2, 3)) or not all(
+                    math.isfinite(h["loss"]) for h in tr.batch_history):
+            raise AssertionError(f"pipeline byzantine: incidents "
+                                 f"{tr.attack_history}, attacked "
+                                 f"{[h['attacked'] for h in byz_hist]}")
+        expect_launches_equal(byz_launches, pipeline_want(PIPE_BYZ_STEPS),
+                              "pipeline byzantine")
+        del tr
+        torch.cuda.empty_cache()
+
+        # 5. B1-B3 at the pipeline's shapes.
+        t1 = time.perf_counter()
+        pipeline_kernel_cases(torch, entries, flush)
+        parts["kernel_cases_s"] = time.perf_counter() - t1
+
+        # 6. The schedule study.
+        t1 = time.perf_counter()
+        study = run_pipeline_study(
+            output_dir=os.path.join(tmp, "study"),
+            stage_counts=(PIPE_STAGES,), microbatches=PIPE_STUDY_MICRO,
+            batch=PIPE_STUDY_BATCH, steps=PIPE_STUDY_STEPS,
+            model_overrides=dict(n_embd=cfg.n_embd, n_head=cfg.n_head,
+                                 vocab_size=cfg.vocab_size,
+                                 n_positions=cfg.n_positions,
+                                 seq_len=TRAIN_T),
+            device="cuda")
+        parts["study_s"] = time.perf_counter() - t1
+        if [c["num_microbatches"] for c in study["cells"]] != \
+                list(PIPE_STUDY_MICRO) or not all(
+                    c["step_time_s"] > 0 and c["temp_bytes"] > 0
+                    for c in study["cells"]):
+            raise AssertionError(f"pipeline study: {study['cells']}")
+        emit({"phase": "pipeline", "card": card,
+              "seconds": time.perf_counter() - t0, "parts_s": parts,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                       "weights, random init seed 0)",
+              "stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+              "batch": PIPE_BATCH, "seq_len": TRAIN_T,
+              "schedule": schedule,
+              "step_ms_median": statistics.median(step_ms),
+              "step_ms": step_ms, "busy": busy,
+              "enqueue_ms_median": busy["enqueue_ms_median"],
+              "busy_share": busy["busy_share"],
+              "peak_memory_bytes": peak, "resident_before_bytes": resident,
+              "losses": losses, "stages_per_step": stages,
+              "incidents": [(2, incident, "gradient_poisoning")],
+              "restaff": records, "layers_moved_norm": moved,
+              "resume": resume, "launches": launches,
+              "expected_launches": want,
+              "byzantine": {"onset_step": onset + 1,
+                            "launches": byz_launches},
+              "study": {"cells": study["cells"],
+                        "table": render_study(study).splitlines()}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def b1_at_mix(torch, shapes, nodes, flush, full=False):
     """B1 over a drive's gradient battery (every leaf of every node, at
     most ``MAX_SEGMENTS`` a launch, split as the step splits it) on random
@@ -5756,6 +6192,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     async_host_drive(torch, entries, smi)
     elastic_drive(torch, entries, smi)
+    torch.cuda.empty_cache()
+    pipeline_drive(torch, entries, smi)
+    gc.collect()
     torch.cuda.empty_cache()
     vision_drive(torch, entries, smi)
     torch.cuda.empty_cache()

@@ -235,9 +235,14 @@ def test_presets_equal_jax_and_unported_ones_refuse(tmp_path):
         batch = next(iter(runner.train_loader))
         assert batch["input"].shape == (8, 8, 8, 3)
     # gpt2_transient_recovery runs (test_transient_recovery_preset_...).
+    # The pipeline preset's 8 stages do not divide GPT-2 small's 12
+    # layers: refused at initialisation, as in JAX (narrow widths here).
     runner = ExperimentRunner(preset_config(
-        "gpt2_small_pipeline_clean", output_dir=str(tmp_path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+        "gpt2_small_pipeline_clean", output_dir=str(tmp_path)),
+        model_overrides=dict(n_embd=32, n_head=4, vocab_size=128,
+                             n_positions=32),
+        data_overrides=dict(seq_len=16, num_examples=32), device="cpu")
+    with pytest.raises(ValueError, match="12 layers not divisible by 8"):
         runner.setup_experiment()
     cfg = preset_config("gpt2_medium_reassignment", num_epochs=1)
     assert cfg.model_name == "gpt2-medium" and cfg.attack_enabled

@@ -8,7 +8,10 @@ hooks and the telemetry plane, ``obs/``, with its compile watcher,
 forensics, verdict store and perf sentinel; the stripe pool, the chaos
 injector's serve hooks and live migration, ``serve/migrate.py``; the
 serving fleet, ``serve/fleet.py``; its control plane ``serve/control.py``,
-the adaptive adversary ``chaos/adversary.py`` and the serve envelope).
+the adaptive adversary ``chaos/adversary.py`` and the serve envelope;
+pipeline parallelism: ``core/mesh.py``, ``core/sharding.py``,
+``parallel/pipeline.py``, ``elastic/restaff.py`` and the schedule study
+``experiments/pipeline_study.py``).
 ``serve/control.py`` and ``chaos/adversary.py`` import no torch at all,
 as their JAX counterparts import no jax.  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
@@ -52,7 +55,13 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.experiments.envelope",
                "trustworthy_dl_tpu_torch.serve.control",
                "trustworthy_dl_tpu_torch.chaos.adversary",
-               "trustworthy_dl_tpu_torch.experiments.serve_envelope")
+               "trustworthy_dl_tpu_torch.experiments.serve_envelope",
+               "trustworthy_dl_tpu_torch.core.mesh",
+               "trustworthy_dl_tpu_torch.core.sharding",
+               "trustworthy_dl_tpu_torch.parallel",
+               "trustworthy_dl_tpu_torch.parallel.pipeline",
+               "trustworthy_dl_tpu_torch.elastic.restaff",
+               "trustworthy_dl_tpu_torch.experiments.pipeline_study")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

@@ -149,7 +149,7 @@ def test_save_checkpoint_refuses_non_finite_params(tmp_path):
 def test_resume_onto_another_node_count_waits_for_elastic(tmp_path):
     """Elastic data mode is ported: a trainer built for 2 nodes resumes a
     4-node checkpoint onto its saved topology, and the elastic knobs
-    construct.  The pipeline mode still raises, naming its item."""
+    construct.  A mode not ported still raises, naming its item."""
     ckpt = str(tmp_path / "ckpt")
     trainer = DistributedTrainer(_config(ckpt), model_overrides=dict(TINY),
                                  device="cpu")
@@ -168,7 +168,7 @@ def test_resume_onto_another_node_count_waits_for_elastic(tmp_path):
         DistributedTrainer(_config(ckpt, **kw), model_overrides=dict(TINY),
                            device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        DistributedTrainer(_config(ckpt, parallelism="model"),
+        DistributedTrainer(_config(ckpt, parallelism="tensor"),
                            model_overrides=dict(TINY), device="cpu")
 
 
@@ -224,8 +224,10 @@ def test_resume_is_bit_exact(tmp_path):
             continue
         got = tree_leaves(_as_tree(getattr(b_tr.state, field)))
         want = tree_leaves(_as_tree(getattr(a.state, field)))
+        # ``canary`` (pipeline mode's) is None in data mode, in both.
         assert len(got) == len(want) and all(
-            torch.equal(x, y) for x, y in zip(got, want)), field
+            (x is None and y is None) or torch.equal(x, y)
+            for x, y in zip(got, want)), field
     assert torch.equal(torch.rand(4, generator=a.state.rng),
                        torch.rand(4, generator=b_tr.state.rng))
 

@@ -472,9 +472,10 @@ class _Stop(Exception):
 
 
 def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
-    """``--parallelism data`` reaches the config in both packages and the
-    port trains it; a mode the port has not got exits 2 naming Slice 4
-    (JAX trains it: ROADMAP item 23)."""
+    """``--parallelism data`` and ``model`` reach the config in both
+    packages and the port trains both (pipeline stages: 4 stages of the
+    tiny model's 2 layers do not divide, so 2 nodes here); a mode the
+    port has not got exits 2 naming Slice 4b (JAX trains it)."""
     seen = {}
 
     class JTrainer(jtrainer_mod.DistributedTrainer):
@@ -496,14 +497,20 @@ def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
                         model_overrides=tiny)
     out = capsys.readouterr().out
     assert rc == 0 and "Training completed: 1 steps" in out
-    for mode in ("tensor", "model"):
-        rc = cli.train_main(["--parallelism", mode, "--device", "cpu",
-                             "--batch-size", "8", "--checkpoint-dir",
-                             str(tmp_path / mode)], model_overrides=tiny)
-        out = capsys.readouterr().out
-        assert rc == 2
-        assert f"parallelism={mode!r} is not ported yet" in out
-        assert "Slice 4" in out
+    rc = cli.train_main(["--parallelism", "model", "--nodes", "2",
+                         "--device", "cpu", "--batch-size", "8",
+                         "--seq-len", "16", "--steps-per-epoch", "1",
+                         "--epochs", "1", "--checkpoint-dir",
+                         str(tmp_path / "model")], model_overrides=tiny)
+    out = capsys.readouterr().out
+    assert rc == 0 and "Training completed: 1 steps" in out
+    rc = cli.train_main(["--parallelism", "tensor", "--device", "cpu",
+                         "--batch-size", "8", "--checkpoint-dir",
+                         str(tmp_path / "tensor")], model_overrides=tiny)
+    out = capsys.readouterr().out
+    assert rc == 2
+    assert "parallelism='tensor' is not ported yet" in out
+    assert "Slice 4b" in out
     parsed = cli.build_train_parser()._option_string_actions[
         "--parallelism"]
     jparsed = jcli.build_parser()._option_string_actions["--parallelism"]

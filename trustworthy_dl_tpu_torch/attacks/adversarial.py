@@ -5,7 +5,8 @@ Counterpart of ``trustworthy_dl_tpu/attacks/adversarial.py``:
 * :class:`AttackPlan` - the schedule the training step reads: a per-node
   target mask (a tensor on the step's device) and host scalars, so
   ``plan.is_live(step)`` with the step's host counter needs no device sync;
-* :func:`poison_batch` / :func:`poison_gradients` - the in-step injectors,
+* :func:`poison_batch` / :func:`poison_gradients` /
+  :func:`corrupt_stage_compute` (pipeline stages) - the in-step injectors,
   the JAX package's arithmetic.  Their random draws come from a
   ``torch.Generator`` or from noise tensors the caller passes in (tests
   hand both packages the same draws);
@@ -163,6 +164,31 @@ def poison_gradients(plan: AttackPlan, grads: Sequence[torch.Tensor],
     return out
 
 
+
+def corrupt_stage_compute(plan: AttackPlan, blocks: Sequence[torch.Tensor],
+                          step: int,
+                          generator: Optional[torch.Generator] = None,
+                          noise: Optional[Sequence[torch.Tensor]] = None
+                          ) -> List[torch.Tensor]:
+    """Byzantine compute corruption of stage-stacked block leaves ([S,
+    ...]): the attacked stages' forward blocks get ``noise * rms(leaf) *
+    (1 + 10 * intensity)`` added for this step, while the stored params
+    stay clean (the pipeline's canary probe exists to catch this).  The
+    noise per leaf is standard normal of the leaf's shape, from
+    ``generator`` or ``noise``."""
+    if not (plan.is_live(step) and plan.byzantine):
+        return list(blocks)
+    intensity = plan.effective_intensity(step)
+    out = []
+    for i, leaf in enumerate(blocks):
+        z = noise[i].to(leaf.dtype) if noise is not None else torch.randn(
+            leaf.shape, generator=generator, device=leaf.device,
+            dtype=leaf.dtype)
+        rms = torch.sqrt(torch.mean(leaf.float() ** 2)) + 1e-8
+        scaled = z * (rms * (1.0 + 10.0 * intensity)).to(leaf.dtype)
+        out.append(torch.where(_node_mask(plan, leaf), leaf + scaled, leaf))
+    return out
+
 class AdversarialAttacker:
     """Host-facing attacker: activation switch and plan compilation."""
 
@@ -251,5 +277,5 @@ class AdversarialAttacker:
 
 
 __all__ = ["ATTACK_KINDS", "AdversarialAttacker", "AttackPlan",
-           "null_plan", "plan_from_config", "poison_batch",
-           "poison_gradients"]
+           "corrupt_stage_compute", "null_plan", "plan_from_config",
+           "poison_batch", "poison_gradients"]

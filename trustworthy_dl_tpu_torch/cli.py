@@ -26,12 +26,13 @@ replica.  Both refuse the non-GPT-2
 and MoE families and a checkpoint trained with pipeline parallelism (rc
 2), and fail loudly on a checkpoint whose weights do not fit the model.
 ``train`` is the counterpart of ``trustworthy-dl-train``
-(``trustworthy_dl_tpu/cli.py:main``) on its data-parallel path: trusted
-training of GPT-2 (dense or MoE), ResNet or VGG over logical nodes on the configured
-dataset (the synthetic source stands in for a corpus or image file that
-is absent), validated each epoch on the dataset's validation split,
-printing the run's statistics; ``--parallelism`` takes JAX's modes and
-the trainer refuses all but ``data`` (rc 2).  Its configuration is
+(``trustworthy_dl_tpu/cli.py:main``): trusted training of GPT-2 (dense or
+MoE), ResNet or VGG over logical nodes on the configured dataset (the
+synthetic source stands in for a corpus or image file that is absent),
+validated each epoch on the dataset's validation split, printing the
+run's statistics; ``--parallelism`` takes JAX's modes: ``data`` and
+``model`` (pipeline stages of the dense GPT-2 family) train, the others
+exit 2 naming ROADMAP Slice 4b.  Its configuration is
 ``core.config.load_config(--config)`` or the ``TrainingConfig``
 defaults, with only the flags given on top; it checkpoints under the
 configured directory (and at the end), resumes with ``--resume``, and
@@ -763,8 +764,9 @@ def _serve_fleet(args: Any, params: Any, cfg: Any, serve_config: Any,
 def build_train_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m trustworthy_dl_tpu_torch.cli train",
-        description="Trust-gated data-parallel training of GPT-2 (dense "
-                    "or MoE), ResNet or VGG (random init) on the card.  "
+        description="Trust-gated training of GPT-2 (dense or MoE), "
+                    "ResNet or VGG (random init) on the card, data-"
+                    "parallel or in pipeline stages.  "
                     "The configuration is --config's file or the "
                     "TrainingConfig defaults; a flag given on the command "
                     "line wins over both.")
@@ -786,8 +788,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--parallelism", type=str, default=None,
                         choices=["data", "model", "tensor", "sequence",
                                  "expert", "hybrid"],
-                        help="the port trains 'data'; the other modes are "
-                             "refused (rc 2)")
+                        help="'data' or 'model' (pipeline stages, dense "
+                             "GPT-2); the other modes are refused (rc 2)")
     parser.add_argument("--seq-len", type=int, default=128,
                         help="token window (language models)")
     parser.add_argument("--no-detection", action="store_true",

@@ -17,10 +17,11 @@ package's (``weight_decay`` 0.0, ``detector_warmup`` 10,
 The input prefetch (``prefetch_depth``) and the async host pipeline
 (``async_host_depth``) default to 2 as in JAX; elastic eviction and
 readmission (``elastic_resharding``, ``readmit_after_steps``) run in data
-mode.  ``parallelism`` and ``num_microbatches`` are carried with the JAX
-defaults so that :class:`ExperimentConfig` forwards them;
-``DistributedTrainer`` refuses a mode not ported yet (the pipeline,
-tensor, sequence and expert modes).  ``ml_detectors`` turns on the
+mode, and restaff a pipeline stage in model mode.  ``parallelism`` takes
+JAX's modes: ``DistributedTrainer`` trains "data" and "model" (pipeline
+stages, ``num_microbatches`` deep, 0 the auto depth, the canary probe
+``canary_tokens`` wide) and refuses the others (tensor, sequence, expert,
+hybrid: ROADMAP Slice 4b).  ``ml_detectors`` turns on the
 epoch-cadence ML tier (behind scikit-learn, as in JAX) and
 ``exact_order_stats`` picks the host detector's order statistics.
 ``dtype`` is the model's compute dtype (``COMPUTE_DTYPES``; the
@@ -52,7 +53,7 @@ logger = logging.getLogger(__name__)
 #: ``TrainingConfig.dtype``'s names and the torch dtypes they stand for.
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-#: The JAX package's parallelism modes; the port trains "data" only.
+#: The JAX package's parallelism modes; the port trains "data" and "model".
 PARALLELISM_MODES = ("data", "model", "tensor", "sequence", "expert",
                      "hybrid")
 
@@ -150,7 +151,7 @@ class ServeConfig:
     prefill: a paged knob set away from its default then warns (and
     ``spec_k`` or ``adapter_rank`` > 0 is refused).  ``tp_size`` is the
     replica's tensor-parallel width: 1 (JAX's default) is the one-card
-    engine; wider engines are refused naming ROADMAP Slice 4.  Bad values
+    engine; wider engines are refused naming ROADMAP Slice 4c.  Bad values
     fail here, at construction."""
 
     max_slots: int = 8
@@ -177,7 +178,7 @@ class ServeConfig:
         if self.tp_size > 1:
             raise NotImplementedError(
                 f"tp_size={self.tp_size} is not ported yet (ROADMAP Slice "
-                "4: tensor-parallel serving replicas across several "
+                "4c: tensor-parallel serving replicas across several "
                 "GPUs); the port serves on one card")
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
@@ -222,10 +223,13 @@ class TrainingConfig:
     gradient_verification_enabled: bool = True
     checkpoint_interval: int = 100
     max_reassignment_attempts: int = 3
-    # One of PARALLELISM_MODES; the trainer takes "data" only.
+    # One of PARALLELISM_MODES; the trainer takes "data" and "model".
     parallelism: str = "data"
-    # Pipeline schedule depth (the "model" mode, not ported); 0 = auto.
+    # Pipeline schedule depth (the "model" mode); 0 = auto
+    # (parallel/pipeline.choose_num_microbatches).
     num_microbatches: int = 0
+    # Tokens of the pipeline's per-stage canary probe.
+    canary_tokens: int = 8
     # Sequential microbatches per node inside the step; gradients, loss
     # and mean logits average over them.  Batches trim to a multiple of
     # num_nodes x grad_accum_steps.
@@ -407,7 +411,7 @@ _MODEL_SIZE_SUFFIX = {"small": "", "medium": "-medium", "large": "-large",
 #: refuses (or, for the XLA compile cache, warns about) any value other
 #: than the default instead of dropping it.
 JAX_ONLY_FIELDS = {"mesh_shape": None, "dcn_mesh_shape": None,
-                   "compilation_cache_dir": None, "canary_tokens": 8,
+                   "compilation_cache_dir": None,
                    "shard_opt_state": False, "shard_params": False}
 _SLICE_4_FIELDS = ("mesh_shape", "dcn_mesh_shape", "shard_opt_state",
                    "shard_params")
@@ -466,7 +470,7 @@ def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
 def _take_jax_only_fields(kwargs: Dict[str, Any]) -> None:
     """Remove the JAX-only keys from ``kwargs``: a value at the JAX
     default asks for nothing the port lacks; the mesh and the parameter
-    and optimizer sharding raise naming Slice 4, the XLA compile cache
+    and optimizer sharding raise naming Slice 4b, the XLA compile cache
     warns (it has no counterpart), any other value raises by name."""
     for key, default in JAX_ONLY_FIELDS.items():
         if key not in kwargs:
@@ -476,9 +480,9 @@ def _take_jax_only_fields(kwargs: Dict[str, Any]) -> None:
             continue
         if key in _SLICE_4_FIELDS:
             raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (ROADMAP Slice 4: "
-                "core/mesh.py and core/sharding.py on torch.distributed); "
-                "the port trains data-parallel on one card")
+                f"{key}={value!r} is not ported yet (ROADMAP Slice 4b: "
+                "the hybrid mesh and parameter and optimizer sharding); "
+                "the port trains on one card")
         if key == "compilation_cache_dir":
             logger.warning(
                 "compilation_cache_dir=%r ignored: it is XLA's persistent "

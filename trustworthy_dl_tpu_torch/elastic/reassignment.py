@@ -24,10 +24,11 @@ monitor) and rebuilds the attack mask from the original identities, so a
 node still in the attack's target set attacks again and is evicted again.
 
 Host bookkeeping keeps original node ids throughout: ``trainer.node_map``
-maps a coordinate to its id.  The tensor, sequence, expert and hybrid
-modes and ``restaff.py`` (pipeline stages) wait for ROADMAP Slice 4.  The
-trainer emits ``elastic_evict`` and ``elastic_readmit`` trace events after
-each transition, as in JAX.
+maps a coordinate to its id.  A pipeline stage is not evicted here: it
+restaffs (``restaff.py``) and returns through the restaff's idle pool.
+The tensor, sequence, expert and hybrid modes wait for ROADMAP Slice 4b.
+The trainer emits ``elastic_evict`` and ``elastic_readmit`` trace events
+after each transition, as in JAX.
 """
 
 from __future__ import annotations
@@ -51,16 +52,22 @@ PER_NODE_FIELDS = ("trust", "out_baseline", "grad_baseline", "verifier",
                    "monitor", "prev_suspects", "clean_streak")
 
 #: Modes with elastic eviction on one card.  JAX's group modes (tensor,
-#: sequence, expert, hybrid) wait for ROADMAP Slice 4.
+#: sequence, expert, hybrid) wait for ROADMAP Slice 4b.
 ELASTIC_MODES = ("data",)
 
 
 def _refuse_mode(config: Any, what: str) -> None:
+    if config.parallelism == "model":
+        # JAX's routing: a compromised stage restaffs instead.
+        raise NotImplementedError(
+            f"elastic {what} supports {ELASTIC_MODES}; a compromised "
+            "pipeline stage restaffs instead and re-enters through the "
+            "restaff idle pool (elastic/restaff.py)")
     if config.parallelism not in ELASTIC_MODES:
         raise NotImplementedError(
             f"elastic {what} in parallelism={config.parallelism!r} is not "
-            "ported yet (ROADMAP Slice 4: the group modes of elastic/ and "
-            "elastic/restaff.py); the port evicts in 'data' mode")
+            "ported yet (ROADMAP Slice 4b: the group modes of elastic/); "
+            "the port evicts in 'data' mode")
 
 
 def _per_node_tensors(state: TrainState):

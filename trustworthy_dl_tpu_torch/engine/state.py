@@ -84,6 +84,9 @@ class TrainState(NamedTuple):
     clean_streak: torch.Tensor    # i32 [n] consecutive clean steps
     fleet_norm: VerifierState     # 1-row Welford of the median log-norm
     fleet_raw_streak: torch.Tensor  # i32 [1]
+    # Pipeline mode's per-stage canary reference
+    # (``parallel/pipeline.CanaryState``); None in the other modes.
+    canary: Any = None
 
 
 def init_train_state(rng: torch.Generator, params: Any, opt_state: OptState,
@@ -91,8 +94,12 @@ def init_train_state(rng: torch.Generator, params: Any, opt_state: OptState,
                      initial_trust: float = 1.0, decay_rate: float = 0.01,
                      recovery_rate: float = 0.005,
                      detector_window: int = 1000,
-                     device: Optional[Any] = None) -> TrainState:
-    """Fresh state for ``num_nodes`` nodes on the params' device."""
+                     device: Optional[Any] = None,
+                     num_monitor_leaves: Optional[int] = None,
+                     canary: Any = None) -> TrainState:
+    """Fresh state for ``num_nodes`` nodes on the params' device.  The
+    monitor tracks ``num_monitor_leaves`` gradient leaves a node (default
+    every param leaf; a pipeline stage's are its block leaves)."""
     leaves = tree_leaves(params)
     device = leaves[0].device if device is None else torch.device(device)
     n = num_nodes
@@ -105,12 +112,15 @@ def init_train_state(rng: torch.Generator, params: Any, opt_state: OptState,
         grad_baseline=init_baseline_state(n, detector_window,
                                           NUM_GRADIENT_STATS, device=device),
         verifier=init_verifier_state(n, device),
-        monitor=init_monitor_state(n, len(leaves), device),
+        monitor=init_monitor_state(
+            n, len(leaves) if num_monitor_leaves is None
+            else num_monitor_leaves, device),
         prev_suspects=torch.zeros(n, dtype=torch.bool, device=device),
         step=0, epoch=0, rng=rng,
         clean_streak=torch.zeros(n, dtype=torch.int32, device=device),
         fleet_norm=init_verifier_state(1, device),
-        fleet_raw_streak=torch.zeros(1, dtype=torch.int32, device=device))
+        fleet_raw_streak=torch.zeros(1, dtype=torch.int32, device=device),
+        canary=canary)
 
 
 __all__ = ["MonitorState", "TrainState", "init_monitor_state",

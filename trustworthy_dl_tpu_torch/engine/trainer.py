@@ -66,12 +66,27 @@ two per-run hooks that a reset detaches: ``chaos`` (a
 ``step_guard`` (``engine.supervisor.TrainingSupervisor``, whose
 ``after_step`` may reject a step or roll back).
 
+Pipeline ("model") parallelism, as in JAX (``parallel/pipeline.py``):
+``parallelism="model"`` stacks the GPT-2 blocks over ``num_nodes``
+stages (a stage is a trust node), runs the GPipe step on the
+single-controller mesh (``core/mesh.py``; every stage on the trainer's
+device), feeds it the global [B, T] batch trimmed to a multiple of
+``num_microbatches`` (0 resolves to ``choose_num_microbatches``' depth
+at construction, on the trainer's copy of the config), and keeps the
+per-stage canary state.  With ``elastic_resharding`` a confirmed stage
+is restaffed (``elastic/restaff.py``): the model repartitions over the
+best-trusted survivors and the idle pool, and after
+``readmit_after_steps`` the evicted identity re-enters the pool on
+probation and the stage count regrows where the layer count allows.
+Checkpoints hold the stage-stacked blocks; the sidecar carries the
+stage count and the idle pool, and a resume adopts them.
+
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
-runs its plain PyTorch version.  Not ported yet: the pipeline, tensor,
-sequence and expert modes (with their elastic forms); a configuration
-that asks for one of the modes raises ``NotImplementedError`` at
-construction.
+runs its plain PyTorch version.  The tensor, sequence, expert and hybrid
+modes (with their elastic forms) are not ported yet: a configuration that
+asks for one raises ``NotImplementedError`` at construction, naming
+ROADMAP Slice 4b.
 """
 
 from __future__ import annotations
@@ -90,6 +105,7 @@ from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     null_plan
 from trustworthy_dl_tpu_torch.core.config import COMPUTE_DTYPES, \
     NodeConfig, TrainingConfig
+from trustworthy_dl_tpu_torch.core.mesh import build_mesh, not_ported
 from trustworthy_dl_tpu_torch.data.loader import PrefetchLoader
 from trustworthy_dl_tpu_torch.detect.detector import AttackDetector, \
     AttackType
@@ -145,8 +161,8 @@ class TrainingState(enum.Enum):
 
 
 class DistributedTrainer:
-    """Trusted data-parallel training of ``config.num_nodes`` logical
-    nodes on one device."""
+    """Trusted training of ``config.num_nodes`` logical nodes on one
+    device: data-parallel, or pipeline stages (``parallelism="model"``)."""
 
     def __init__(self, config: TrainingConfig,
                  model_overrides: Optional[Dict[str, Any]] = None,
@@ -167,6 +183,17 @@ class DistributedTrainer:
             overrides.setdefault("remat_policy", config.remat_policy)
         self.model = create_model(config.model_name, **overrides)
         self.optimizer = build_optimizer(config)
+        self.mesh = build_mesh(config.num_nodes, config.parallelism,
+                               device=self.device)
+        if config.parallelism == "model" and config.num_microbatches == 0:
+            from trustworthy_dl_tpu_torch.parallel.pipeline import \
+                choose_num_microbatches
+
+            # Resolved into a copy: the caller's config keeps the 0
+            # sentinel, to seed another trainer that resolves again.
+            config = dataclasses.replace(
+                config, num_microbatches=choose_num_microbatches(
+                    config.batch_size, config.num_nodes))
         self._rebuild_steps(config)
         self.checkpointer = CheckpointManager(config.checkpoint_dir)
         # The built steps are shaped for this node count (reset_for_run).
@@ -182,9 +209,18 @@ class DistributedTrainer:
         reads the node count when built, so a topology change rebuilds
         them."""
         self.config = config
-        self._train_step = build_train_step(self.model, config,
-                                            self.optimizer)
-        self._eval_step = build_node_eval_step(self.model)
+        if config.parallelism == "model":
+            from trustworthy_dl_tpu_torch.parallel.pipeline import \
+                build_pipeline_eval_step, build_pipeline_train_step
+
+            self._train_step = build_pipeline_train_step(
+                self.model, config, self.optimizer, self.mesh)
+            self._eval_step = build_pipeline_eval_step(self.model, config,
+                                                       self.mesh)
+        else:
+            self._train_step = build_train_step(self.model, config,
+                                                self.optimizer)
+            self._eval_step = build_node_eval_step(self.model)
         watcher = getattr(getattr(self, "obs", None), "compilewatch", None)
         if watcher is not None:
             # The step was legitimately rebuilt for a new topology: its
@@ -242,6 +278,10 @@ class DistributedTrainer:
         # devices it left (always [] on one card; the sidecar's shape).
         self._evicted_at: Dict[int, int] = {}
         self._evicted_devices: Dict[int, List[Any]] = {}
+        # Pipeline restaff: healthy ids a repartition could not seat,
+        # re-staffed by the next restaff (elastic/restaff.py); their
+        # devices, always [] on one card.
+        self._idle_pool: Dict[int, List[Any]] = {}
         # The live loader, re-sized after a topology change; the per-node
         # batch is taken from each epoch's first batch.  ``_trim_grace``
         # counts the old-size batches still queued after a re-size.
@@ -279,8 +319,11 @@ class DistributedTrainer:
 
     def initialize(self, seed: Optional[int] = None,
                    params: Optional[Any] = None) -> TrainState:
-        """Fresh params (drawn from ``seed``, or the ``params`` given, e.g.
-        converted from the JAX package), optimizer state and world-view."""
+        """Fresh params (drawn from ``seed``, or the ``params`` given in the
+        model's own layout, e.g. converted from the JAX package),
+        optimizer state and world-view.  In model mode the blocks stack
+        over the stages first (raising where the layer count does not
+        divide, as in JAX) and the canary state starts."""
         seed = self.config.seed if seed is None else seed
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -288,15 +331,26 @@ class DistributedTrainer:
         else:
             params = map_tree(lambda a: a.detach().to(
                 device=self.device, dtype=torch.float32), params)
+        c = self.config
+        monitor_leaves = canary = None
+        if c.parallelism == "model":
+            from trustworthy_dl_tpu_torch.parallel.pipeline import \
+                init_canary_state, make_canary, stack_stages
+
+            params = dict(params)
+            params["blocks"] = stack_stages(params["blocks"], c.num_nodes)
+            monitor_leaves = len(tree_leaves(params["blocks"]))
+            canary = init_canary_state(c.num_nodes, make_canary(
+                self.model.config, c.canary_tokens, device=self.device))
         opt_state = self.optimizer.init(tree_leaves(params))
         rng = torch.Generator(device=self.device).manual_seed(seed + 1)
-        c = self.config
         self.state = init_train_state(
             rng, params, opt_state, num_nodes=c.num_nodes,
             trust_threshold=c.trust_threshold,
             initial_trust=c.initial_trust, decay_rate=c.trust_decay_rate,
             recovery_rate=c.trust_recovery_rate,
-            detector_window=c.detector_history, device=self.device)
+            detector_window=c.detector_history, device=self.device,
+            num_monitor_leaves=monitor_leaves, canary=canary)
         self.training_state = TrainingState.TRAINING
         return self.state
 
@@ -379,9 +433,21 @@ class DistributedTrainer:
         (``_trim_grace``), which gives None: the caller skips it.
         Validation (``for_eval``) drops nothing: a batch that does not
         split evenly over the nodes is one row of B; an empty batch gives
-        None."""
+        None.  Model mode keeps the global [B, ...] batch (the schedule
+        splits it) trimmed to a multiple of ``num_microbatches``; there a
+        validation tail below it gives None and a larger one is
+        trimmed."""
         n = self.config.num_nodes
         lead = min(arr.shape[0] for arr in batch.values())
+        if self.config.parallelism == "model":
+            quantum = self.config.num_microbatches
+            b = (lead // quantum) * quantum
+            if b == 0:
+                if for_eval:
+                    return None
+                raise ValueError(f"batch size {lead} < num_microbatches x "
+                                 f"dp rows = {quantum}")
+            return self._rows(batch, b, None)
         if for_eval:
             if lead == 0:
                 return None
@@ -398,20 +464,22 @@ class DistributedTrainer:
                              f"grad_accum_steps = {quantum}")
         return self._rows(batch, b, n)
 
-    def _rows(self, batch: Dict[str, np.ndarray], b: int, rows: int
-              ) -> Dict[str, torch.Tensor]:
-        """Host rows to the device.  On a card the rows go through pinned
-        memory with a copy that does not block the host (a pageable
-        ``.to`` waits for every queued step); the step that reads them
-        runs after the copy on the same stream."""
+    def _rows(self, batch: Dict[str, np.ndarray], b: int,
+              rows: Optional[int]) -> Dict[str, torch.Tensor]:
+        """Host rows to the device, [rows, b // rows, ...] (``rows`` None:
+        [b, ...]).  On a card the rows go through pinned memory with a
+        copy that does not block the host (a pageable ``.to`` waits for
+        every queued step); the step that reads them runs after the copy
+        on the same stream."""
         out = {}
         for k, arr in batch.items():
             arr = np.asarray(arr)
             # Images stay f32; token and label ids become int64.
             dtype = torch.float32 if np.issubdtype(arr.dtype, np.floating) \
                 else torch.long
-            t = torch.as_tensor(arr[:b].reshape(
-                (rows, b // rows) + arr.shape[1:]), dtype=dtype)
+            lead = (b,) if rows is None else (rows, b // rows)
+            t = torch.as_tensor(arr[:b].reshape(lead + arr.shape[1:]),
+                                dtype=dtype)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t.to(self.device)
@@ -445,7 +513,8 @@ class DistributedTrainer:
         try:
             for batch_idx, batch in enumerate(dataloader):
                 self.global_step += 1
-                if self._per_node_batch is None:
+                if self._per_node_batch is None and \
+                        self.config.parallelism != "model":
                     lead = min(arr.shape[0] for arr in batch.values())
                     per = lead // (self.config.num_nodes
                                    * self.config.grad_accum_steps)
@@ -734,21 +803,31 @@ class DistributedTrainer:
         self._last_status = status.copy()
 
     # ------------------------------------------------------------------
-    # Elasticity (data mode on one card; elastic/reassignment.py)
+    # Elasticity on one card: data mode (elastic/reassignment.py) and the
+    # pipeline restaff (elastic/restaff.py)
     # ------------------------------------------------------------------
 
     def _apply_evictions(self, evict_coords: Sequence[int]) -> None:
-        """Evict confirmed coordinates and re-size the loader; a lagged
-        drain defers this to a full-drain point, the synchronous loop
-        calls it at once."""
+        """Evict confirmed coordinates and re-size the loader, or restaff
+        the pipeline in model mode; a lagged drain defers this to a
+        full-drain point, the synchronous loop calls it at once."""
         evict_coords = list(evict_coords)
         if not (evict_coords and self.config.elastic_resharding
                 and len(evict_coords) < self.config.num_nodes):
             return
-        record = evict_and_reshard(self, evict_coords)
+        if self.config.parallelism == "model":
+            from trustworthy_dl_tpu_torch.elastic.restaff import \
+                restaff_pipeline
+
+            # The compromised stage's layers migrate and the model
+            # repartitions: every layer keeps training.
+            record = restaff_pipeline(self, evict_coords)
+        else:
+            record = evict_and_reshard(self, evict_coords)
         record["step"] = self.global_step
         self.reassignment_history.append(record)
         for orig in record["evicted_nodes"]:
+            # The cool-off clock of a readmission starts.
             self._evicted_at[int(orig)] = self.global_step
         self._resize_loader()
         if self.obs is not None:
@@ -771,29 +850,58 @@ class DistributedTrainer:
         """Readmit the evicted nodes whose cool-off
         (``readmit_after_steps``) has passed, on probation: without it a
         false-positive eviction costs 1/n of the fleet for the rest of the
-        run."""
+        run.  Model mode returns the identity to the restaff pool and
+        regrows the stage count where the layer count allows."""
         if not self._readmit_due():
             return
         cfg = self.config
         due = sorted(nid for nid, when in self._evicted_at.items()
                      if self.global_step - when >= cfg.readmit_after_steps)
-        record = readmit_and_reshard(self, due)
-        record["step"] = self.global_step
-        self.reassignment_history.append(record)
-        self._resize_loader()
+        if cfg.parallelism == "model":
+            self._readmit_stages(due)
+        else:
+            record = readmit_and_reshard(self, due)
+            record["step"] = self.global_step
+            self.reassignment_history.append(record)
+            self._resize_loader()
         if self.obs is not None:
             self.obs.trace.emit(
                 EventType.ELASTIC_READMIT, step=self.global_step,
                 nodes=[int(n) for n in due],
                 live_nodes=self.config.num_nodes)
 
+    def _readmit_stages(self, due: Sequence[int]) -> None:
+        """Model mode's return path: the cooled-off evicted identities
+        enter the restaff pool on probation (RECOVERING at the 0.5 trust
+        floor), and a restaff at once regrows the stage count where the
+        layer count allows; otherwise they wait in the pool for the next
+        restaff."""
+        from trustworthy_dl_tpu_torch.elastic.restaff import \
+            choose_stage_count, restaff_pipeline
+
+        for nid in due:
+            self._idle_pool[nid] = self._evicted_devices.pop(nid, []) or []
+            self._evicted_at.pop(nid, None)
+            self._open_incidents.discard(nid)
+            self.trust_manager.begin_probation(nid)
+        lead = tree_leaves(self.state.params["blocks"])[0]
+        grown = choose_stage_count(lead.shape[0] * lead.shape[1],
+                                   self.config.num_nodes
+                                   + len(self._idle_pool))
+        if grown > self.config.num_nodes:
+            record = restaff_pipeline(self, [])
+            record["step"] = self.global_step
+            self.reassignment_history.append(record)
+
     def _resize_loader(self) -> None:
         """Re-size the live loader after a topology change so its batch
         divides nodes x accumulation again (otherwise every later batch is
         trimmed).  Works on a loader with a ``batch_size`` attribute (both
-        of the package's); another keeps the trimming."""
+        of the package's); another keeps the trimming.  Model mode keeps
+        its global batch (the stage count does not split it)."""
         loader = self._active_loader
-        if loader is None or self._per_node_batch is None:
+        if loader is None or self._per_node_batch is None or \
+                self.config.parallelism == "model":
             return
         new_bs = (self._per_node_batch * self.config.num_nodes
                   * self.config.grad_accum_steps)
@@ -924,7 +1032,11 @@ class DistributedTrainer:
                 continue
             out = self._eval_step(self.state.params, batch)
             first = next(iter(batch.values()))
-            weight = int(first.shape[0] * first.shape[1])
+            # Model mode feeds the global [B, ...] batch, the other the
+            # node split [rows, per_row, ...].
+            weight = int(first.shape[0]) if \
+                self.config.parallelism == "model" else \
+                int(first.shape[0] * first.shape[1])
             pulled = torch.stack([out["loss"], out["accuracy"]]).tolist()
             total += pulled[0] * weight
             acc += pulled[1] * weight
@@ -1005,14 +1117,14 @@ class DistributedTrainer:
             # resume on the host.
             "compromised_nodes": sorted(
                 int(i) for i in self.trust_manager.get_compromised_nodes()),
-            # Pending cool-offs survive a resume, or an eviction would
-            # silently become permanent.  No device leaves one card, and
-            # the idle pool belongs to the pipeline restaff (Slice 4).
+            # Pending cool-offs and the restaff's parked ids survive a
+            # resume, or an eviction would silently become permanent.  No
+            # device leaves one card.
             "evicted_at": {str(nid): int(step)
                            for nid, step in self._evicted_at.items()},
             "evicted_devices": {str(nid): []
                                 for nid in self._evicted_devices},
-            "idle_pool": {},
+            "idle_pool": {str(nid): [] for nid in self._idle_pool},
         })
         return path
 
@@ -1022,6 +1134,8 @@ class DistributedTrainer:
         n = int(meta["num_nodes"])
         logger.info("Checkpoint topology has %d node(s) (config says %d): "
                     "adopting the saved topology", n, self.config.num_nodes)
+        self.mesh = build_mesh(n, self.config.parallelism,
+                               device=self.device)
         self._rebuild_steps(dataclasses.replace(self.config, num_nodes=n))
         self.node_map = [int(i) for i in meta["node_map"]]
         # The attack plan was shaped for the old node count: reset it
@@ -1068,6 +1182,8 @@ class DistributedTrainer:
                                 meta.get("evicted_at", {}).items()}
             self._evicted_devices = {int(k): [] for k in
                                      meta.get("evicted_devices", {})}
+            self._idle_pool = {int(k): [] for k in
+                               meta.get("idle_pool", {})}
         self.global_step = int(self.state.step)
         # A restore redraws the status rows: transitions re-anchor.
         self._last_status = None
@@ -1089,11 +1205,9 @@ class DistributedTrainer:
 def _refuse_unported(config: TrainingConfig) -> None:
     """A configuration that asks for what the port has not got raises
     here, naming the ROADMAP item (``expert`` too: the MoE family trains
-    in data mode, its expert mesh is Slice 4's)."""
-    if config.parallelism != "data":
-        raise NotImplementedError(
-            f"parallelism={config.parallelism!r} is not ported yet (ROADMAP "
-            "Slice 4: parallel/); the port trains 'data'")
+    in data mode, its expert mesh is Slice 4b's)."""
+    if config.parallelism not in ("data", "model"):
+        raise not_ported(config.parallelism)
 
 
 __all__ = ["DistributedTrainer", "TrainingState"]

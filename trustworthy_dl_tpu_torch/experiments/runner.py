@@ -16,10 +16,13 @@ metrics snapshot and Prometheus text, ``obs_report.json``), and
 experiment_results.json embeds the step-time/MFU report as
 ``obs_report``.  The runner trains on the card
 (``device="cuda"``) unless given ``device="cpu"``.  It runs the GPT-2,
-ResNet and VGG presets in data mode; a preset whose mode is not ported
-raises at ``setup_experiment``.  ``main --envelope`` runs the detection
-envelope (``experiments/envelope.py``), ``main --serve-envelope`` the
-serve-side one (``experiments/serve_envelope.py``).
+ResNet and VGG presets in data mode and a pipeline ("model") config as
+JAX does; JAX's ``gpt2_small_pipeline_clean`` asks for 8 stages of GPT-2
+small's 12 layers and raises at ``setup_experiment``'s initialisation in
+both packages ("12 layers not divisible by 8 stages").  ``main
+--envelope`` runs the detection envelope (``experiments/envelope.py``),
+``main --serve-envelope`` the serve-side one
+(``experiments/serve_envelope.py``).
 """
 
 from __future__ import annotations
@@ -87,7 +90,8 @@ class ExperimentRunner:
     # ------------------------------------------------------------------
 
     def setup_experiment(self) -> None:
-        # The trainer refuses the modes the port has not got (parallel/).
+        # The trainer refuses the modes the port has not got (ROADMAP
+        # Slice 4b: tensor, sequence, expert, hybrid).
         self.trainer = DistributedTrainer(
             self.training_config, model_overrides=self.model_overrides,
             device=self.device,

@@ -75,7 +75,7 @@ its ``serve.request`` span under the fleet's attempt span, and
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
 where every kernel wrapper runs its plain PyTorch version.  Tensor
-parallelism is not ported (ROADMAP Slice 4).
+parallelism is not ported (ROADMAP Slice 4c).
 """
 
 from __future__ import annotations

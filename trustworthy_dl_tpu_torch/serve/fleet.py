@@ -80,7 +80,7 @@ attempt, hedge and vote replay, so a survivor's stream equals a single
 engine's given that seed; replica engines take seeds mixed from the fleet
 seed and their index.  Greedy streams equal JAX's bit for bit.
 
-Not ported here: tensor-parallel replicas (ROADMAP Slice 4).  A
+Not ported here: tensor-parallel replicas (ROADMAP Slice 4c).  A
 ``FleetConfig`` with ``tp_size`` above 1 or a ``tp_max`` (the autoscaler's
 scale-up to a doubled TP group) raises ``NotImplementedError``; every
 scale-up adds a replica of one card's width.
@@ -142,7 +142,7 @@ class FleetConfig:
     """Host-side fleet knobs, JAX's fields, defaults and validation.
     Tick-denominated fields follow the fleet clock (one ``step()`` = one
     tick).  ``tp_size`` / ``tp_max`` past their defaults are refused after
-    JAX's checks (ROADMAP Slice 4)."""
+    JAX's checks (ROADMAP Slice 4c)."""
 
     num_replicas: int = 2
     # trust: the monitor's flag rate over a window of retirements
@@ -196,7 +196,7 @@ class FleetConfig:
     # preemptions replay)
     live_migration: bool = True
     # tensor-parallel replicas and the autoscaler's scale-up to a doubled
-    # TP group (Slice 4): refused past 1 / 0
+    # TP group (Slice 4c): refused past 1 / 0
     tp_size: int = 1
     tp_max: int = 0
 
@@ -260,7 +260,7 @@ class FleetConfig:
             raise NotImplementedError(
                 f"tp_size={self.tp_size}, tp_max={self.tp_max}: "
                 "tensor-parallel replicas are not ported yet (ROADMAP "
-                "Slice 4); every replica serves on one card")
+                "Slice 4c); every replica serves on one card")
 
 
 def backoff_ticks(cfg: FleetConfig, attempt: int) -> int:
@@ -439,7 +439,7 @@ class ServingFleet:
         if tp > 1:
             raise NotImplementedError(
                 f"tp_size={tp}: tensor-parallel replicas are not ported "
-                "yet (ROADMAP Slice 4); every replica serves on one card")
+                "yet (ROADMAP Slice 4c); every replica serves on one card")
         self.device = resolve_device(device)
         self.obs = obs
         pick = (lambda given, name: given if given is not None
@@ -544,7 +544,7 @@ class ServingFleet:
         #: restarts so records naming a dead generation's blocks reconcile.
         self.journals: Dict[str, Any] = {}
         # Drill counters (diffed against predict_fleet), JAX's keys;
-        # tp_scale_ups stays 0 (scale-up to a TP group is Slice 4's).
+        # tp_scale_ups stays 0 (scale-up to a TP group is Slice 4c's).
         self.counters: Dict[str, int] = {
             "crashes": 0, "restarts": 0, "stalls": 0, "poisons": 0,
             "adaptive_poisons": 0, "slowstarts": 0,
@@ -1327,7 +1327,7 @@ class ServingFleet:
         a replica retired from the other pool changes pools.  Every
         scale-up here adds a replica at one card's width: the scale-up to
         a doubled TP group (``control.choose_scale_action``'s ``"up"``)
-        needs ``tp_max``, refused until Slice 4."""
+        needs ``tp_max``, refused until Slice 4c."""
         frm = len(self._in_service())
         rep = next((r for r in self.replicas
                     if r.state is ReplicaState.RETIRED

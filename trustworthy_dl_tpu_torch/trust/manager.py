@@ -127,6 +127,17 @@ class TrustManager:
         self._state = ts.initiate_recovery(self._state,
                                            self._one_hot(node_id))
 
+    def begin_probation(self, node_id: int, trust: float = 0.5) -> None:
+        """Probation re-entry of a readmitted identity (the pipeline
+        restaff's return path): ``initiate_recovery`` plus the
+        readmission trust floor, the 0.5 a data-mode readmitted row
+        starts from."""
+        self.initiate_recovery(node_id)
+        one = self._one_hot(node_id)
+        s = self._state
+        self._state = s._replace(scores=torch.where(
+            one, torch.clamp(s.scores, min=trust), s.scores))
+
     def adaptive_threshold_adjustment(self) -> None:
         self._state = ts.adaptive_threshold(self._state)
 
