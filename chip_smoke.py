@@ -254,6 +254,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
    pipeline's shapes (``pipeline_case``).  The schedule study at S = 4,
    M in (1, 2, 4, 8), batch 16, one layer a stage at GPT-2 small's
    width: step time, bubble fraction, peak bytes above the state.
+10c. sequence: the non-causal instances of B2 and B3 (``causal=False``)
+   at [96, 256, 64] (the ring's chunk) and [96, 1024, 64] bf16 against
+   their plain twins (the causal cases' tolerances), timed with events and
+   the profiler's ``device_ms`` beside their bounds and SDPA with
+   ``is_causal=False``, forward and whole backward (``sequence_case`` in
+   the B2/B3 entries), and ``flash_chunk``'s backward under a nonzero lse
+   cotangent against the twins.  Ring attention at [8, 12, 1024, 64] bf16
+   over 4 positions of the card, forward and gradients: each within 2x
+   the data-mode flash attention's error against f32 full attention on
+   the same inputs, exactly 4 causal and 6 non-causal launches of B2, dq
+   and dk/dv; Ulysses against the model's full attention.  GPT-2 small
+   through ``DistributedTrainer(parallelism="sequence", mesh=build_mesh(4,
+   "sequence", devices=["cuda"] * 16))``, a (4, 4) mesh, a ring of 4, 4
+   nodes x 8 x 1024, node 2 poisoned from step 5, beside a data-mode
+   trainer from the same seed on the same batches: every step's loss
+   within SEQ_LOSS_RTOL relative, and a control (the ring with its
+   below-diagonal chunks dropped) outside it, the same incident, B1-B3
+   exact (10 B2, dq and dk/dv a layer a node-step, 6 of them
+   non-causal), step ms, busy share over one step and peak memory of
+   both.  Then a 2-step ``cli train
+   --parallelism sequence``, a ring of 1: B2 launches as data mode's at
+   that shape.
 
 11. vision: ``ExperimentRunner`` on the three vision presets at their
    own configuration (8 nodes, batch 32, synthetic CIFAR-10 32x32x3
@@ -556,6 +578,20 @@ PIPE_STUDY_MICRO, PIPE_STUDY_BATCH, PIPE_STUDY_STEPS = (1, 2, 4, 8), 16, 2
 # JAX's own pipeline test tolerance (tests/test_pipeline.py) for the
 # pipelined loss and block gradients against the sequential forward.
 PIPE_RTOL, PIPE_ATOL = 5e-2, 5e-3
+# sequence: the non-causal kernel cases (BH, T) at D = 64; ring attention
+# at SEQ_ATTN_SHAPE over SEQ_RING positions of the card, its error within
+# SEQ_ERR_RATIO x the data-mode flash attention's; the trainers at the
+# train geometry on a (4, SEQ_RING) mesh, SEQ_STEPS steps with node 2
+# poisoned from SEQ_ATTACK (detector_warmup 4), the busy window over step
+# SEQ_BUSY_STEP, every step's loss within SEQ_LOSS_RTOL of data mode's
+# and a ring that drops its below-diagonal chunks outside it (on an H100
+# the sound ring's largest gap over the 8 steps read 4.23e-5, the
+# control's 1.21e-2; the limit sits 12x over the one and 24x under the
+# other); the CLI's steps.
+SEQ_CASES = ((96, 256), (96, 1024))
+SEQ_RING, SEQ_ATTN_SHAPE, SEQ_ERR_RATIO = 4, (8, 12, 1024, 64), 2.0
+SEQ_STEPS, SEQ_ATTACK, SEQ_BUSY_STEP, SEQ_LOSS_RTOL = 8, 5, 3, 5e-4
+SEQ_CLI_STEPS = 2
 # vision: the runner's three vision presets at their own configuration (8
 # nodes, batch 32, CIFAR-10's 32x32x3 images and 10 classes, bf16, full
 # published widths), epochs cut to fit: (preset, epochs, steps an epoch,
@@ -2940,12 +2976,124 @@ def gpt2_small(torch, **overrides):
                                      **overrides)
 
 
-def flash_work(bh, t, d, matmuls):
-    """Flops of ``matmuls`` [t, t] x [t, d]-shaped products restricted to
-    the causal triangle (t (t + 1) / 2 query-key pairs), 2 per
-    multiply-add, over ``bh`` heads."""
-    pairs = t * (t + 1) // 2
+def flash_work(bh, t, d, matmuls, causal=True):
+    """Flops of ``matmuls`` [t, t] x [t, d]-shaped products over ``bh``
+    heads, 2 per multiply-add: over the causal triangle (t (t + 1) / 2
+    query-key pairs) when ``causal``, else the whole score matrix."""
+    pairs = t * (t + 1) // 2 if causal else t * t
     return 2 * bh * d * pairs * matmuls
+
+
+FLASH_KERNELS = (
+    # entry, profiler kernel name, tiles read, tiles written, lse-sized
+    # rows moved, [t, t] x [t, d] products
+    ("flash_attention_fwd", "flash_fwd_kernel", 3, 1, 1, 2),
+    ("flash_attention_bwd_dq", "flash_dq_kernel", 4, 1, 2, 3),
+    ("flash_attention_bwd_dkv", "flash_dkv_kernel", 4, 2, 2, 4))
+
+
+def flash_case(torch, bh, t, d, causal, flush, gen, what):
+    """B2, dq and dk/dv at [bh, t, d] bf16 (``causal`` or not; B3 from
+    the new B2's ``lse``) against their plain twins, each within the
+    attention tolerances, timed (events and the profiler's device time)
+    beside its bound, its twin and SDPA (the forward; for both B3 entries
+    SDPA's whole backward, which computes dq, dk and dv together).
+    Returns ``{entry name: case}``; the forward's case also holds its lse
+    error and its rate on events."""
+    import torch.nn.functional as F
+
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
+    dev = flush.device
+    q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    calls = {
+        "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v,
+                                                               causal),
+                                lambda: fa.flash_fwd_plain(q, k, v, causal)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(*args, causal),
+            lambda: fa.flash_bwd_dq_plain(*args, causal)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(*args, causal),
+            lambda: fa.flash_bwd_dkv_plain(*args, causal))}
+    errs = {}
+    for name, (kern, plain) in calls.items():
+        got = (o, lse) if name == "flash_attention_fwd" else kern()
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        if name == "flash_attention_fwd":
+            lse_err = float((got[1] - ref[1]).abs().max())
+            if lse_err > LSE_ATOL:
+                raise AssertionError(f"{what}: flash fwd lse err {lse_err}")
+            got, ref = got[:1], ref[:1]
+        errs[name] = 0.0
+        for a, b in zip(got, ref):
+            e = (a.float() - b.float()).abs()
+            if not bool((e <= ATTN_ATOL + ATTN_RTOL * b.float().abs()).all()):
+                raise AssertionError(f"{what}: {name} disagrees with plain "
+                                     f"(max abs err {float(e.max())})")
+            errs[name] = max(errs[name], float(e.max()))
+        del got, ref
+    q4, k4, v4 = (a.reshape(1, bh, t, d).clone().requires_grad_()
+                  for a in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), is_causal=causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out4, (q4, k4, v4), do.view(1, bh, t, d),
+                                   retain_graph=True)
+
+    def library_device(fn):
+        """SDPA's device ms, or None (not measured) where the profiler
+        drops some of its kernels' launches in every session, as it did
+        for cuDNN's backward late in a whole smoke: a yardstick, not a
+        gate.  The kernels' own device times stay strict."""
+        try:
+            return kernel_ab.device_ms(fn, flush, 25)
+        except RuntimeError as exc:
+            print(f"{what}: SDPA's device time not measured: {exc}",
+                  file=sys.stderr, flush=True)
+            return None
+
+    library = {"flash_attention_fwd": (sdpa_fwd, time_ms(torch, sdpa_fwd,
+                                                         flush),
+                                       library_device(sdpa_fwd))}
+    library["flash_attention_bwd_dq"] = library["flash_attention_bwd_dkv"] \
+        = (sdpa_bwd, time_ms(torch, sdpa_bwd, flush),
+           library_device(sdpa_bwd))
+    tile, rows = bh * t * d * 2, bh * t * 4
+    label = f"SDPA is_causal={causal}"
+    cases = {}
+    for name, kernel, ins, n_out, n_rows, matmuls in FLASH_KERNELS:
+        kern, plain = calls[name]
+        b_ms, b_by = bound_entry((ins + n_out) * tile + n_rows * rows,
+                                 flash_work(bh, t, d, matmuls, causal),
+                                 "bfloat16")
+        _, lib_ms, lib_dev = library[name]
+        cases[name] = {
+            "bhtd": [bh, t, d], "causal": causal,
+            "max_abs_err": errs[name], "ms": time_ms(torch, kern, flush),
+            "device_ms": device_ms(kern, flush, kernel),
+            "plain_ms": time_ms(torch, plain, flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev,
+            "library": label + ("" if name == "flash_attention_fwd"
+                                else ", its whole backward")}
+    fwd = cases["flash_attention_fwd"]
+    fwd["lse_max_abs_err"] = lse_err
+    fwd["tflops"] = flash_work(bh, t, d, 2, causal) / (fwd["ms"] * 1e-3) \
+        / 1e12
+    return cases
 
 
 def moments_case(torch, segs, flush):
@@ -3001,7 +3149,6 @@ def check_train_kernels(torch, entries):
 
     from trustworthy_dl_tpu_torch.models import gpt2
     from trustworthy_dl_tpu_torch.ops import flash_attention as fa
-    from trustworthy_dl_tpu_torch.utils import kernel_ab
     from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
     dev = torch.device("cuda")
@@ -3026,20 +3173,17 @@ def check_train_kernels(torch, entries):
 
     bh, t, d = cfg.n_head * TRAIN_BATCH // TRAIN_NODES, TRAIN_T, \
         cfg.head_dim
-
-    def mk():
-        return torch.randn(bh, t, d, device=dev, generator=gen).to(
-            torch.bfloat16)
-
-    q, k, v, do = mk(), mk(), mk(), mk()
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-    torch.cuda.synchronize()
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v)
-    dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+    cases = flash_case(torch, bh, t, d, True, flush, gen, "train")
+    for name, replaces in (("flash_attention_fwd", ":176"),
+                           ("flash_attention_bwd_dq", ":306"),
+                           ("flash_attention_bwd_dkv", ":324")):
+        entries[name] = {
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": "trustworthy_dl_tpu/ops/flash_attention.py"
+                        + replaces,
+            "launches": 0, **cases[name],
+            "shape": {"bhtd": [bh, t, d], "dtype": "bfloat16"}}
+    fwd = entries["flash_attention_fwd"]
 
     def err(a, b, name):
         e = (a.float() - b.float()).abs()
@@ -3048,73 +3192,6 @@ def check_train_kernels(torch, entries):
                                  f"(max abs err {float(e.max())})")
         return float(e.max())
 
-    o_err = err(o, o_ref, "flash fwd")
-    lse_err = float((lse - lse_ref).abs().max())
-    if lse_err > LSE_ATOL:
-        raise AssertionError(f"flash fwd lse err {lse_err}")
-    dq_err = err(dq, dq_ref, "flash dq")
-    dkv_err = max(err(dk, dk_ref, "flash dk"), err(dv, dv_ref, "flash dv"))
-    del o_ref, dq_ref, dk_ref, dv_ref
-
-    # Yardsticks: SDPA forward, and SDPA's backward alone (it computes dq,
-    # dk and dv together, so both B3 entries carry the same time).
-    q4, k4, v4 = (a.reshape(1, bh, t, d).clone().requires_grad_()
-                  for a in (q, k, v))
-    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-
-    def sdpa_bwd_call():
-        return torch.autograd.grad(out4, (q4, k4, v4), do.view(1, bh, t, d),
-                                   retain_graph=True)
-
-    sdpa_bwd = time_ms(torch, sdpa_bwd_call, flush)
-    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4.detach(), k4.detach(), v4.detach(), is_causal=True), flush)
-    tile = bh * t * d * 2
-    rows = bh * t * 4
-    for name, replaces, ins, outs, n_rows, matmuls, kern, plain, e, lib in (
-            ("flash_attention_fwd", ":176", 3, 1, 1, 2,
-             lambda: fa.flash_attention_fwd(q, k, v),
-             lambda: fa.flash_fwd_plain(q, k, v), o_err, sdpa_fwd),
-            ("flash_attention_bwd_dq", ":306", 4, 1, 2, 3,
-             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta),
-             dq_err, sdpa_bwd),
-            ("flash_attention_bwd_dkv", ":324", 4, 2, 2, 4,
-             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
-             dkv_err, sdpa_bwd)):
-        bound_ms, bound_by = bound_entry(
-            (ins + outs) * tile + n_rows * rows,
-            flash_work(bh, t, d, matmuls), "bfloat16")
-        entries[name] = {
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": "trustworthy_dl_tpu/ops/flash_attention.py"
-                        + replaces,
-            "launches": 0, "max_abs_err": e,
-            "ms": time_ms(torch, kern, flush),
-            "plain_ms": time_ms(torch, plain, flush, reps=5),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib,
-            "shape": {"bhtd": [bh, t, d], "dtype": "bfloat16"},
-        }
-    fwd = entries["flash_attention_fwd"]
-    fwd["lse_max_abs_err"] = lse_err
-    fwd["tflops"] = flash_work(bh, t, d, 2) / (fwd["ms"] * 1e-3) / 1e12
-    # The kernel's own time (profiler), where ``ms``'s event window also
-    # holds the wrapper's host dispatch whenever the card waits for it.
-    fwd["device_ms"] = device_ms(lambda: fa.flash_attention_fwd(q, k, v),
-                                 flush, "flash_fwd_kernel")
-    # B3 likewise; the yardstick is SDPA's whole backward (every kernel of
-    # it), which computes dq, dk and dv together.
-    sdpa_bwd_device = kernel_ab.device_ms(sdpa_bwd_call, flush, 25)
-    for name, kernel, fn in (
-            ("flash_attention_bwd_dq", "flash_dq_kernel",
-             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)),
-            ("flash_attention_bwd_dkv", "flash_dkv_kernel",
-             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
-        entries[name]["device_ms"] = device_ms(fn, flush, kernel)
-        entries[name]["library_device_ms"] = sdpa_bwd_device
-    del q, k, v, do, o, lse, delta, dq, dk, dv, q4, k4, v4, out4
     # B2 at the other head widths the kernel is built for, at T = 1024:
     # the same checks and yardstick, one entry each under ``cases``.
     fwd["cases"] = []
@@ -4457,10 +4534,7 @@ def pipeline_kernel_cases(torch, entries, flush):
     shapes (``pipeline_case`` in each entry): B2 and B3 at one
     microbatch's attention [2 x 12, 1024, 64] bf16, B1 over the 48
     segments of the four stages' block-gradient leaves."""
-    import torch.nn.functional as F
-
     from trustworthy_dl_tpu_torch.models import gpt2
-    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
     from trustworthy_dl_tpu_torch.parallel.pipeline import stack_stages
     from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
@@ -4479,61 +4553,10 @@ def pipeline_kernel_cases(torch, entries, flush):
     del grads, segs
 
     bh = cfg.n_head * PIPE_BATCH // PIPE_MICRO
-    t, d = TRAIN_T, cfg.head_dim
-    q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
-        torch.bfloat16) for _ in range(4))
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1)
-    outs = {"flash_attention_fwd": (o,),
-            "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta),),
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta)}
-    torch.cuda.synchronize()
-    refs = {"flash_attention_fwd": (fa.flash_fwd_plain(q, k, v)[0],),
-            "flash_attention_bwd_dq": (fa.flash_bwd_dq_plain(
-                q, k, v, do, lse, delta),),
-            "flash_attention_bwd_dkv": fa.flash_bwd_dkv_plain(
-                q, k, v, do, lse, delta)}
-    q4, k4, v4 = (a.reshape(1, bh, t, d).clone().requires_grad_()
-                  for a in (q, k, v))
-    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-
-    def sdpa_bwd():
-        return torch.autograd.grad(out4, (q4, k4, v4), do.view(1, bh, t, d),
-                                   retain_graph=True)
-
-    sdpa_bwd_ms = time_ms(torch, sdpa_bwd, flush)
-    sdpa_fwd_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4.detach(), k4.detach(), v4.detach(), is_causal=True), flush)
-    tile, rows = bh * t * d * 2, bh * t * 4
-    for name, ins, n_out, n_rows, matmuls, kern, plain, lib in (
-            ("flash_attention_fwd", 3, 1, 1, 2,
-             lambda: fa.flash_attention_fwd(q, k, v),
-             lambda: fa.flash_fwd_plain(q, k, v), sdpa_fwd_ms),
-            ("flash_attention_bwd_dq", 4, 1, 2, 3,
-             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta),
-             sdpa_bwd_ms),
-            ("flash_attention_bwd_dkv", 4, 2, 2, 4,
-             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta),
-             sdpa_bwd_ms)):
-        errs = []
-        for a, b in zip(outs[name], refs[name]):
-            e = (a.float() - b.float()).abs()
-            if not bool((e <= ATTN_ATOL + ATTN_RTOL * b.float().abs()).all()):
-                raise AssertionError(f"pipeline: {name} disagrees with plain "
-                                     f"(max abs err {float(e.max())})")
-            errs.append(float(e.max()))
-        b_ms, b_by = bound_entry((ins + n_out) * tile + n_rows * rows,
-                                 flash_work(bh, t, d, matmuls), "bfloat16")
-        entries[name]["pipeline_case"] = {
-            "bhtd": [bh, t, d], "max_abs_err": max(errs),
-            "ms": time_ms(torch, kern, flush),
-            "plain_ms": time_ms(torch, plain, flush, reps=5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-    del q, k, v, do, o, lse, delta, outs, refs, q4, k4, v4, out4
+    cases = flash_case(torch, bh, TRAIN_T, cfg.head_dim, True, flush, gen,
+                       "pipeline")
+    for name, case in cases.items():
+        entries[name]["pipeline_case"] = case
 
 
 def pipeline_schedule_check(torch, tr, batch):
@@ -4834,6 +4857,351 @@ def pipeline_drive(torch, entries, card):
                             "launches": byz_launches},
               "study": {"cells": study["cells"],
                         "table": render_study(study).splitlines()}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sequence_kernel_cases(torch, entries, flush):
+    """B2 and B3's non-causal instances against their plain twins at
+    ``SEQ_CASES`` (D = 64, bf16), timed beside their bounds, the twins and
+    SDPA with ``is_causal=False`` (``sequence_case`` in each entry), and
+    ``flash_chunk``'s backward under a nonzero lse cotangent at the ring's
+    chunk against the twins given Delta - dlse."""
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+
+    dev = flush.device
+    gen = torch.Generator(device=dev).manual_seed(26)
+    d = GPT2_SMALL["n_embd"] // GPT2_SMALL["n_head"]
+    for name, *_ in FLASH_KERNELS:
+        entries[name]["sequence_case"] = []
+    for bh, t in SEQ_CASES:
+        for name, case in flash_case(torch, bh, t, d, False, flush, gen,
+                                     f"sequence {bh}x{t}").items():
+            entries[name]["sequence_case"].append(case)
+
+    def err(a, b, what):
+        e = (a.float() - b.float()).abs()
+        if not bool((e <= ATTN_ATOL + ATTN_RTOL * b.float().abs()).all()):
+            raise AssertionError(f"sequence: {what} disagrees with plain "
+                                 f"(max abs err {float(e.max())})")
+        return float(e.max())
+
+    # flash_chunk's backward with an lse cotangent, at the ring's chunk.
+    bh, t = SEQ_CASES[0]
+    q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    dlse = 0.5 * torch.randn(bh, t, device=dev, generator=gen)
+    chunk = {}
+    for causal in (True, False):
+        args = [a.clone().requires_grad_() for a in (q, k, v)]
+        o, lse = fa.flash_chunk(*args, causal)
+        grads = torch.autograd.grad((o, lse), args, (do, dlse))
+        delta = (do.float() * o.detach().float()).sum(-1) - dlse
+        lse = lse.detach()
+        refs = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+                *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal))
+        chunk["causal" if causal else "full"] = max(
+            err(g, r, f"flash_chunk causal={causal} grad")
+            for g, r in zip(grads, refs))
+    return {"flash_chunk_dlse_grad_max_abs_err": chunk,
+            "bhtd": [bh, t, d]}
+
+
+def ring_attention_check(torch):
+    """Ring attention over SEQ_RING positions of the card at
+    SEQ_ATTN_SHAPE bf16, forward and gradients, against f32 full
+    attention beside the data-mode flash attention's error on the same
+    inputs; its launches; Ulysses against the model's full attention."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.core.mesh import SEQ_AXIS, Mesh
+    from trustworthy_dl_tpu_torch.models.gpt2 import full_attention
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+    from trustworthy_dl_tpu_torch.parallel import sequence as seq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    qkv = [torch.randn(*SEQ_ATTN_SHAPE, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(3)]
+    g = torch.randn(*SEQ_ATTN_SHAPE, device=dev, generator=gen).to(
+        torch.bfloat16)
+    ref_in = [a.float().requires_grad_() for a in qkv]
+    ref = full_attention(*ref_in, True)
+    refs = [ref.detach(), *torch.autograd.grad(ref, ref_in, g.float())]
+    del ref, ref_in
+    mesh = Mesh(np.array([dev] * SEQ_RING, dtype=object), (SEQ_AXIS,))
+
+    def errors(fn):
+        args = [a.clone().requires_grad_() for a in qkv]
+        out = fn(*args)
+        got = [out.detach(), *torch.autograd.grad(out, args, g)]
+        return [float((a.float() - b).abs().max()) for a, b in
+                zip(got, refs)]
+
+    flash_err = errors(lambda q, k, v: fa.flash_attention(q, k, v))
+    ops.reset_launch_counts()
+    with seq.use_sequence_mesh(mesh):
+        ring_err = errors(lambda q, k, v: seq.ring_attention(q, k, v, True))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    causal_calls = SEQ_RING
+    full_calls = SEQ_RING * (SEQ_RING - 1) // 2
+    for name in names:
+        got = (launches[name], launches[f"{name}_full"])
+        if got != (causal_calls + full_calls, full_calls):
+            raise AssertionError(f"sequence ring: {name} launched {got} "
+                                 f"(all, non-causal), design says "
+                                 f"{(causal_calls + full_calls, full_calls)}")
+    labels = ("out", "dq", "dk", "dv")
+    for label, r, f in zip(labels, ring_err, flash_err):
+        if not r <= SEQ_ERR_RATIO * f:
+            raise AssertionError(f"sequence ring: {label} error {r} against "
+                                 f"f32 full attention, over {SEQ_ERR_RATIO}"
+                                 f" x data mode's {f}")
+    with seq.use_sequence_mesh(mesh):
+        uly = seq.ulysses_attention(*qkv, True)
+    full = full_attention(*qkv, True)
+    uly_err = float((uly.float() - full.float()).abs().max())
+    if not bool(((uly.float() - full.float()).abs()
+                 <= ATTN_ATOL + ATTN_RTOL * full.float().abs()).all()):
+        raise AssertionError(f"sequence ulysses: off full attention by "
+                             f"{uly_err}")
+    return {"shape": list(SEQ_ATTN_SHAPE), "positions": SEQ_RING,
+            "ring_err_vs_f32": dict(zip(labels, ring_err)),
+            "flash_err_vs_f32": dict(zip(labels, flash_err)),
+            "err_ratio_limit": SEQ_ERR_RATIO,
+            "launches": {n: [launches[n], launches[f"{n}_full"]]
+                         for n in names},
+            "ulysses_max_abs_vs_full": uly_err}
+
+
+def sequence_want(steps, nodes=TRAIN_NODES, ring=SEQ_RING):
+    """B1-B3 launches of ``steps`` sequence-mode steps (no remat): per
+    layer a node-step, a causal ring of ``ring`` makes ring causal and
+    ring (ring - 1) / 2 non-causal chunk launches of B2 in the forward and
+    of dq and dk/dv in the backward; two B1 a step (gradients, features).
+    The ``_full`` counts are the non-causal share."""
+    layers = GPT2_SMALL["n_layer"] * nodes * steps
+    full = ring * (ring - 1) // 2
+    want = {"fused_moments": 2 * steps}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        want[name] = (ring + full) * layers
+        want[f"{name}_full"] = full * layers
+    return want
+
+
+def sequence_drive(torch, entries, card):
+    """Phase 10c: sequence parallelism (module docstring): the non-causal
+    kernel cases, ring and Ulysses attention on the card, GPT-2 small
+    through ``DistributedTrainer(parallelism="sequence")`` on a (4, 4)
+    mesh under gradient poisoning beside data mode, and ``cli train
+    --parallelism sequence``."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.core.mesh import build_mesh
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.ops import flash_attention as fa
+    from trustworthy_dl_tpu_torch.parallel import sequence as seq
+    from trustworthy_dl_tpu_torch.utils.train_profile import busy_window
+
+    cfg = gpt2_small(torch)
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    tmp = tempfile.mkdtemp(prefix="tddl_sequence_")
+    t0 = time.perf_counter()
+    parts = {}
+    try:
+        t1 = time.perf_counter()
+        chunk = sequence_kernel_cases(torch, entries, flush)
+        parts["kernel_cases_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ring = ring_attention_check(torch)
+        parts["ring_s"] = time.perf_counter() - t1
+        del flush
+        torch.cuda.empty_cache()
+
+        def make(parallelism):
+            """A trainer of ``parallelism`` under the attack, and its
+            loader (the same batches for every arm)."""
+            mesh = build_mesh(TRAIN_NODES, "sequence",
+                              devices=["cuda"] * (TRAIN_NODES * SEQ_RING)) \
+                if parallelism == "sequence" else None
+            tr = DistributedTrainer(TrainingConfig(
+                model_name="gpt2", batch_size=TRAIN_BATCH,
+                num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
+                seed=0, detector_warmup=4, parallelism=parallelism,
+                checkpoint_interval=10 ** 6, checkpoint_dir=tmp),
+                mesh=mesh, model_overrides=dict(seq_len=TRAIN_T),
+                device="cuda")
+            tr.initialize()
+            attacker = AdversarialAttacker(AttackConfig(
+                attack_types=["gradient_poisoning"], target_nodes=[2],
+                intensity=1.0, start_step=SEQ_ATTACK))
+            attacker.activate_attacks()
+            tr.set_attack_plan(attacker.plan(TRAIN_NODES, "cuda"))
+            loader = get_dataloader(
+                "openwebtext", batch_size=TRAIN_BATCH, seq_len=TRAIN_T,
+                vocab_size=cfg.vocab_size,
+                num_examples=TRAIN_BATCH * SEQ_STEPS, seed=0)
+            return tr, loader
+
+        def done(tr):
+            tr.cleanup()
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def run(parallelism):
+            tr, loader = make(parallelism)
+            gc.collect()
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            busy = busy_window(tr, loader, first=SEQ_BUSY_STEP,
+                               last=SEQ_BUSY_STEP)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            launches = ops.launch_counts()
+            hist = list(tr.batch_history)
+            out = {"mesh": dict(tr.mesh.shape),
+                   "attn_impl": tr.model.config.attn_impl,
+                   "losses": [h["loss"] for h in hist],
+                   "step_ms": [1e3 * h["step_s"] for h in hist
+                               if h["step_s"] is not None],
+                   "busy_share": busy["busy_share"],
+                   "enqueue_ms_median": busy["enqueue_ms_median"],
+                   "peak_memory_bytes":
+                       torch.cuda.max_memory_allocated() - resident,
+                   "resident_before_bytes": resident,
+                   "run_s": wall, "launches": launches,
+                   "incidents": [(r["node_id"], r["step"], r["attack_type"])
+                                 for r in tr.attack_history]}
+            expect_gating(hist, SEQ_ATTACK, f"sequence ({parallelism})")
+            done(tr)
+            return out
+
+        def control():
+            """The loss gate's control: the ring with its below-diagonal
+            chunks dropped (each gives no mass: zero output, lse at the
+            merge's NEG_INF), on the same batches; its losses."""
+            real = fa.flash_chunk
+
+            def dropped(q, k, v, causal):
+                if causal:
+                    return real(q, k, v, causal)
+                return torch.zeros_like(q), torch.full(
+                    q.shape[:2], seq.NEG_INF, device=q.device)
+
+            fa.flash_chunk = dropped
+            try:
+                tr, loader = make("sequence")
+                tr.train_epoch(loader, 0)
+                losses = [h["loss"] for h in tr.batch_history]
+            finally:
+                fa.flash_chunk = real
+            done(tr)
+            return losses
+
+        t1 = time.perf_counter()
+        sp = run("sequence")
+        parts["sequence_run_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        dp = run("data")
+        parts["data_run_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ctrl = control()
+        parts["control_run_s"] = time.perf_counter() - t1
+        if sp["mesh"] != {"data": TRAIN_NODES, "seq": SEQ_RING} or \
+                sp["attn_impl"] != "ring" or dp["attn_impl"] != "auto":
+            raise AssertionError(f"sequence: mesh {sp['mesh']}, attention "
+                                 f"{sp['attn_impl']} / {dp['attn_impl']}")
+        want = sequence_want(SEQ_STEPS)
+        expect_launches_equal(sp["launches"], want, "sequence trainer")
+        data_want = step_launches(cfg, [TRAIN_NODES] * SEQ_STEPS,
+                                  remat=False)
+        expect_launches_equal(dp["launches"], data_want, "sequence's data "
+                                                         "arm")
+        if any(dp["launches"][f"{n}_full"] for n in (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")):
+            raise AssertionError(f"sequence's data arm launched a "
+                                 f"non-causal kernel: {dp['launches']}")
+        # Every step's loss against data mode's: from step 2 on they read
+        # the ring's gradients (flash_chunk's backward, lse cotangent
+        # included).  The control, a ring that drops its below-diagonal
+        # chunks, must fall outside the limit, or the gate proves nothing.
+        gaps = [abs(a - b) / abs(b) for a, b in zip(sp["losses"],
+                                                     dp["losses"])]
+        ctrl_gaps = [abs(a - b) / abs(b) for a, b in zip(ctrl,
+                                                          dp["losses"])]
+        if len(gaps) != SEQ_STEPS or len(ctrl_gaps) != SEQ_STEPS or \
+                not max(gaps) <= SEQ_LOSS_RTOL or not all(
+                    math.isfinite(x) for x in sp["losses"]) or \
+                not max(ctrl_gaps) > SEQ_LOSS_RTOL:
+            raise AssertionError(
+                f"sequence: losses {sp['losses']} vs data mode's "
+                f"{dp['losses']}: largest relative gap {max(gaps)}, the "
+                f"control's {max(ctrl_gaps)} ({ctrl}); limit "
+                f"{SEQ_LOSS_RTOL}")
+        incident = [(2, SEQ_ATTACK + 2, "gradient_poisoning")]
+        if sp["incidents"] != dp["incidents"] or sp["incidents"] != incident:
+            raise AssertionError(f"sequence: incidents {sp['incidents']} vs "
+                                 f"data mode's {dp['incidents']}, design "
+                                 f"says {incident}")
+        for name in want:
+            if name in entries:
+                entries[name]["launches_sequence"] = want[name]
+            elif name.endswith("_full"):
+                entries[name[:-5]]["launches_full_sequence"] = want[name]
+
+        # cli train --parallelism sequence: a ring of 1.
+        t1 = time.perf_counter()
+        seq.set_sequence_mesh(None)
+        ops.reset_launch_counts()
+        cli_out = []
+        run_cli(["train", "--parallelism", "sequence", "--nodes",
+                 str(TRAIN_NODES), "--batch-size", str(TRAIN_BATCH),
+                 "--seq-len", str(TRAIN_T), "--steps-per-epoch",
+                 str(SEQ_CLI_STEPS), "--epochs", "1", "--checkpoint-dir",
+                 os.path.join(tmp, "cli")], cli_out)
+        cli_launches = ops.launch_counts()
+        parts["cli_s"] = time.perf_counter() - t1
+        # Data mode at this shape: one causal B2 a layer a node-step and a
+        # validation pass (one batch over the nodes); a ring of 1 is one
+        # causal flash_chunk a layer, so the same count.
+        cli_want = GPT2_SMALL["n_layer"] * TRAIN_NODES * (SEQ_CLI_STEPS + 1)
+        if cli_launches["flash_attention_fwd"] != cli_want or \
+                cli_launches["flash_attention_fwd_full"] or \
+                seq.get_sequence_mesh().shape != {"data": 1, "seq": 1}:
+            raise AssertionError(f"sequence cli: launches {cli_launches}, "
+                                 f"design says {cli_want} causal B2, mesh "
+                                 f"{seq.get_sequence_mesh()}")
+        seq.set_sequence_mesh(None)
+        emit({"phase": "sequence", "card": card,
+              "seconds": time.perf_counter() - t0, "parts_s": parts,
+              "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                       "weights, random init seed 0)",
+              "nodes": TRAIN_NODES, "batch": TRAIN_BATCH, "seq_len": TRAIN_T,
+              "ring": SEQ_RING, "flash_chunk": chunk, "ring_attention": ring,
+              "sequence": sp, "data": dp, "expected_launches": want,
+              "expected_launches_data": data_want,
+              "loss_rel_gaps": gaps, "loss_rel_gap_max": max(gaps),
+              "control_losses": ctrl, "control_loss_rel_gaps": ctrl_gaps,
+              "control_loss_rel_gap_max": max(ctrl_gaps),
+              "loss_rtol": SEQ_LOSS_RTOL,
+              "step_ms_median": statistics.median(sp["step_ms"][2:]),
+              "data_step_ms_median": statistics.median(dp["step_ms"][2:]),
+              "cli": {"launches": cli_launches, "want_b2": cli_want,
+                      "out_tail": cli_out[-6:]}})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6194,6 +6562,9 @@ def main() -> int:
     elastic_drive(torch, entries, smi)
     torch.cuda.empty_cache()
     pipeline_drive(torch, entries, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sequence_drive(torch, entries, smi)
     gc.collect()
     torch.cuda.empty_cache()
     vision_drive(torch, entries, smi)

@@ -126,8 +126,7 @@ def test_explicit_flash_on_an_untaken_shape_raises():
     with pytest.raises(ValueError):
         fa.flash_attention(x, x, x)
     with pytest.raises(ValueError):
-        fa.flash_attention(torch.zeros(1, 2, 64, 16), x[..., :64, :],
-                           x[..., :64, :], causal=False)
+        fa.flash_attention(x, x, x, causal=False)
 
 
 def test_model_flash_path_matches_full_path():

@@ -3,7 +3,10 @@ an int8 pool, B5's bf16-query split-K kernel at the edges of its spans,
 B7 trust epilogue, B8 fused verify tail, B9 paged adapter delta; B4 int8
 dequant matmul; B1 moment battery, also at ResNet-101's 3,344-segment
 gradient mix in 27 launches; B2/B3 flash attention
-forward and backward; B3, B7 and B8 also run twice for the same bits;
+forward and backward, causal and not (the non-causal instances also
+through ``flash_chunk`` with an lse cotangent, and ring attention over
+four positions of the card with its chunk launches counted); B3, B7 and
+B8 also run twice for the same bits;
 B7 at odd V, one column and duplicated maxima across its CTAs' shares;
 B8 100 times over poisoned scratch and on two streams at once)
 against their plain PyTorch twins, on the card, the detector baseline's
@@ -313,6 +316,114 @@ def test_flash_autograd_matches_full_attention(cuda):
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
     for a, b in zip(grads, ref_grads):
         torch.testing.assert_close(a.float(), b, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (2, 64, 32), (4, 192, 64),
+                                    (2, 128, 128), (5, 320, 128),
+                                    (96, 256, 64), (96, 1024, 64)])
+def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d):
+    """B2 and B3's non-causal instances (``causal=False``) against their
+    plain twins, with the causal cases' tolerances; each launch counted in
+    ``launches`` and in ``launches_full``."""
+    q, k, v, do = _flash_inputs(cuda, bh, t, d, 8)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    counts = [(w.launches, w.launches_full) for w in wrappers]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=False)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_full) for w in wrappers] == \
+        [(a + 1, b + 1) for a, b in counts]
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal=False)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-3,
+                               rtol=2.0 ** -7)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    refs = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=False),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False))
+    for got, ref in zip((dq, dk, dv), refs):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                                   rtol=2.0 ** -7)
+    # Not the causal kernel: the first query row attends every key.
+    assert float((o[:, 0].float() - v[:, 0].float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_chunk_with_an_lse_cotangent_matches_plain(cuda, causal):
+    """``flash_chunk``'s backward on the card (Delta - dlse into B3's
+    kernels) against the twins given the same Delta - dlse, at the ring's
+    chunk shape [96, 256, 64]."""
+    q, k, v, do = _flash_inputs(cuda, 96, 256, 64, 9)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    dlse = 0.5 * torch.randn(96, 256, device=cuda, generator=gen)
+    args = [a.clone().requires_grad_() for a in (q, k, v)]
+    o, lse = fa.flash_chunk(*args, causal)
+    grads = torch.autograd.grad((o, lse), args, (do, dlse))
+    delta = (do.float() * o.detach().float()).sum(-1) - dlse
+    lse = lse.detach()
+    refs = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal))
+    for got, ref in zip(grads, refs):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
+                                   rtol=2.0 ** -7)
+
+
+def test_ring_attention_on_the_card_launches_each_chunk(cuda):
+    """Ring attention over 4 positions of the card at [2, 4, 512, 64]
+    bf16: 4 causal and 6 non-causal launches of B2, dq and dk/dv; output
+    and gradients near f32 full attention."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.core.mesh import SEQ_AXIS, Mesh
+    from trustworthy_dl_tpu_torch.models.gpt2 import full_attention
+    from trustworthy_dl_tpu_torch.parallel import sequence as seq
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    qkv = [torch.randn(2, 4, 512, 64, device=cuda, generator=gen).to(
+        torch.bfloat16).requires_grad_() for _ in range(3)]
+    g = torch.randn(2, 4, 512, 64, device=cuda, generator=gen)
+    mesh = Mesh(np.array([cuda] * 4, dtype=object), (SEQ_AXIS,))
+    ops.reset_launch_counts()
+    with seq.use_sequence_mesh(mesh):
+        out = seq.ring_attention(*qkv, True)
+    grads = torch.autograd.grad(out, qkv, g.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert (counts[name], counts[f"{name}_full"]) == (10, 6), counts
+    ref_in = [a.detach().float().requires_grad_() for a in qkv]
+    ref = full_attention(*ref_in, True)
+    ref_grads = torch.autograd.grad(ref, ref_in, g)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a.float(), b, atol=3e-2, rtol=3e-2)
+
+
+def test_sequence_trainer_refuses_f32_chunks_the_kernels_tile(cuda):
+    """A ring whose chunks the flash kernels tile needs their bf16: an f32
+    sequence-mode trainer is refused at construction; at a chunk the
+    kernels do not tile (the einsum body) it builds."""
+    from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+    from trustworthy_dl_tpu_torch.core.mesh import build_mesh
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.parallel import sequence as seq
+
+    def trainer(seq_len):
+        return DistributedTrainer(
+            TrainingConfig(model_name="gpt2", batch_size=8, num_nodes=4,
+                           parallelism="sequence", dtype="float32"),
+            mesh=build_mesh(4, "sequence", devices=[cuda] * 8),
+            model_overrides=dict(n_layer=1, n_embd=64, n_head=4,
+                                 vocab_size=128, n_positions=256,
+                                 seq_len=seq_len),
+            device="cuda")
+
+    with pytest.raises(ValueError, match="bfloat16"):
+        trainer(128)
+    assert trainer(48).model.config.attn_impl == "ring"
+    seq.set_sequence_mesh(None)
 
 
 def test_baseline_follows_the_card(cuda):

@@ -190,9 +190,10 @@ def test_mesh_and_rules():
         assert dict(rules.table) == dict(jrules.table)
         assert rules.partition_spec("stage", None) == \
             tuple(jrules.partition_spec("stage", None))
-    for mode in ("tensor", "sequence", "expert", "hybrid"):
+    for mode in ("tensor", "expert", "hybrid"):
         with pytest.raises(NotImplementedError, match="Slice 4b"):
             tmesh.build_mesh(4, mode)
+    assert tmesh.build_mesh(4, "sequence").shape == {"data": 1, "seq": 1}
     place = tsharding.row_placer(mesh, "stage", S)
     assert place(torch.ones(S, 2)).device == torch.device("cpu")
     assert tsharding.tree_bytes_per_device(

@@ -11,7 +11,8 @@ serving fleet, ``serve/fleet.py``; its control plane ``serve/control.py``,
 the adaptive adversary ``chaos/adversary.py`` and the serve envelope;
 pipeline parallelism: ``core/mesh.py``, ``core/sharding.py``,
 ``parallel/pipeline.py``, ``elastic/restaff.py`` and the schedule study
-``experiments/pipeline_study.py``).
+``experiments/pipeline_study.py``; sequence parallelism,
+``parallel/sequence.py``).
 ``serve/control.py`` and ``chaos/adversary.py`` import no torch at all,
 as their JAX counterparts import no jax.  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
@@ -61,7 +62,8 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.parallel",
                "trustworthy_dl_tpu_torch.parallel.pipeline",
                "trustworthy_dl_tpu_torch.elastic.restaff",
-               "trustworthy_dl_tpu_torch.experiments.pipeline_study")
+               "trustworthy_dl_tpu_torch.experiments.pipeline_study",
+               "trustworthy_dl_tpu_torch.parallel.sequence")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

@@ -23,8 +23,9 @@ test file uses, so this file's JAX programs are its own).
   ``TrainingConfig``'s 10 epochs, as JAX's does.
 * ``serve --spec-k`` past ``--max-new-tokens`` exits 2 with JAX's line;
   ``serve --no-spec-decode`` and ``serve --legacy-stripe`` give JAX's
-  engine knobs and streams; ``train --parallelism data`` reaches the
-  config as in JAX and trains, the modes the port has not got exit 2.
+  engine knobs and streams; ``train --parallelism data`` and
+  ``sequence`` reach the config as in JAX and train, the modes the port
+  has not got exit 2.
 """
 
 import contextlib
@@ -472,15 +473,22 @@ class _Stop(Exception):
 
 
 def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
-    """``--parallelism data`` and ``model`` reach the config in both
-    packages and the port trains both (pipeline stages: 4 stages of the
-    tiny model's 2 layers do not divide, so 2 nodes here); a mode the
-    port has not got exits 2 naming Slice 4b (JAX trains it)."""
+    """``--parallelism data``, ``model`` and ``sequence`` reach the config
+    in both packages and the port trains all three (pipeline stages: 4
+    stages of the tiny model's 2 layers do not divide, so 2 nodes here;
+    sequence mode without a mesh: JAX's one-device layout on the port's
+    one position, a ring of 1, where JAX's CLI builds its sequence
+    trainer over its 8 devices, checked here on the tiny model); a mode
+    the port has not got exits 2 naming Slice 4b (JAX trains it)."""
     seen = {}
 
     class JTrainer(jtrainer_mod.DistributedTrainer):
         def __init__(self, config, **kw):
             seen["jax"] = config.parallelism
+            if config.parallelism == "sequence":
+                super().__init__(config, model_overrides=dict(JTINY))
+                seen["jax_mesh"] = dict(self.mesh.shape)
+                seen["jax_attn"] = self.model.config.attn_impl
             raise _Stop
 
     monkeypatch.setattr(jtrainer_mod, "DistributedTrainer", JTrainer)
@@ -489,6 +497,15 @@ def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
                    "--batch-size", "8", "--checkpoint-dir",
                    str(tmp_path / "j")])
     assert seen["jax"] == "data"
+    with pytest.raises(_Stop):
+        jcli.main(["--parallelism", "sequence", "--nodes", "4",
+                   "--batch-size", "8", "--checkpoint-dir",
+                   str(tmp_path / "js")])
+    assert seen["jax"] == "sequence" and seen["jax_attn"] == "ring"
+    assert seen["jax_mesh"] == {"data": 4, "seq": 2}
+    from trustworthy_dl_tpu.parallel.sequence import set_sequence_mesh
+
+    set_sequence_mesh(None)     # JAX's trainer bound its global mesh
     tiny = {k: v for k, v in TTINY.items() if k != "seq_len"}
     rc = cli.train_main(["--parallelism", "data", "--device", "cpu",
                          "--batch-size", "8", "--seq-len", "16",
@@ -504,6 +521,17 @@ def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
                          str(tmp_path / "model")], model_overrides=tiny)
     out = capsys.readouterr().out
     assert rc == 0 and "Training completed: 1 steps" in out
+    from trustworthy_dl_tpu_torch.parallel import sequence as tseq
+
+    rc = cli.train_main(["--parallelism", "sequence", "--nodes", "4",
+                         "--device", "cpu", "--batch-size", "8",
+                         "--seq-len", "16", "--steps-per-epoch", "1",
+                         "--epochs", "1", "--checkpoint-dir",
+                         str(tmp_path / "sequence")], model_overrides=tiny)
+    out = capsys.readouterr().out
+    assert rc == 0 and "Training completed: 1 steps" in out
+    assert tseq.get_sequence_mesh().shape == {"data": 1, "seq": 1}
+    tseq.set_sequence_mesh(None)
     rc = cli.train_main(["--parallelism", "tensor", "--device", "cpu",
                          "--batch-size", "8", "--checkpoint-dir",
                          str(tmp_path / "tensor")], model_overrides=tiny)

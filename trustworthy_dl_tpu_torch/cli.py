@@ -30,9 +30,10 @@ and MoE families and a checkpoint trained with pipeline parallelism (rc
 MoE), ResNet or VGG over logical nodes on the configured dataset (the
 synthetic source stands in for a corpus or image file that is absent),
 validated each epoch on the dataset's validation split, printing the
-run's statistics; ``--parallelism`` takes JAX's modes: ``data`` and
-``model`` (pipeline stages of the dense GPT-2 family) train, the others
-exit 2 naming ROADMAP Slice 4b.  Its configuration is
+run's statistics; ``--parallelism`` takes JAX's modes: ``data``,
+``model`` (pipeline stages of the dense GPT-2 family) and ``sequence``
+(ring attention; without a mesh, JAX's one-device layout, a ring of 1)
+train, the others exit 2 naming ROADMAP Slice 4b.  Its configuration is
 ``core.config.load_config(--config)`` or the ``TrainingConfig``
 defaults, with only the flags given on top; it checkpoints under the
 configured directory (and at the end), resumes with ``--resume``, and

@@ -18,10 +18,11 @@ The input prefetch (``prefetch_depth``) and the async host pipeline
 (``async_host_depth``) default to 2 as in JAX; elastic eviction and
 readmission (``elastic_resharding``, ``readmit_after_steps``) run in data
 mode, and restaff a pipeline stage in model mode.  ``parallelism`` takes
-JAX's modes: ``DistributedTrainer`` trains "data" and "model" (pipeline
+JAX's modes: ``DistributedTrainer`` trains "data", "model" (pipeline
 stages, ``num_microbatches`` deep, 0 the auto depth, the canary probe
-``canary_tokens`` wide) and refuses the others (tensor, sequence, expert,
-hybrid: ROADMAP Slice 4b).  ``ml_detectors`` turns on the
+``canary_tokens`` wide) and "sequence" (ring attention over the seq
+positions) and refuses the others (tensor, expert, hybrid: ROADMAP Slice
+4b).  ``ml_detectors`` turns on the
 epoch-cadence ML tier (behind scikit-learn, as in JAX) and
 ``exact_order_stats`` picks the host detector's order statistics.
 ``dtype`` is the model's compute dtype (``COMPUTE_DTYPES``; the
@@ -53,7 +54,8 @@ logger = logging.getLogger(__name__)
 #: ``TrainingConfig.dtype``'s names and the torch dtypes they stand for.
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-#: The JAX package's parallelism modes; the port trains "data" and "model".
+#: The JAX package's parallelism modes; the port trains "data", "model" and
+#: "sequence".
 PARALLELISM_MODES = ("data", "model", "tensor", "sequence", "expert",
                      "hybrid")
 

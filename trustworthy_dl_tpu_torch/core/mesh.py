@@ -1,22 +1,25 @@
 """The device mesh of a training run: a single-controller mesh.
 
-Counterpart of ``trustworthy_dl_tpu/core/mesh.py`` for the ``data`` and
-``model`` (pipeline) modes.  The JAX package's mesh is single-controller:
-one process holds every device, and a collective is an op inside the
-compiled step.  The port keeps that shape without a process group: a
-:class:`Mesh` holds axis names and an array of ``torch.device``s, one per
-position, and reports ``.shape`` as a dict.  Under pipelining each stage's
-block slice and its activations live on its position's device, and JAX's
-``ppermute`` to the next stage is ``tensor.to(next_device)``, a no-op when
-both stages share a device.  On one card every position is that card
-(``cuda:0``); in the tests every position is the CPU.
+Counterpart of ``trustworthy_dl_tpu/core/mesh.py`` for the ``data``,
+``model`` (pipeline) and ``sequence`` modes.  The JAX package's mesh is
+single-controller: one process holds every device, and a collective is an
+op inside the compiled step.  The port keeps that shape without a process
+group: a :class:`Mesh` holds axis names and an array of ``torch.device``s,
+one per position, and reports ``.shape`` as a dict.  Under pipelining
+each stage's block slice and its activations live on its position's
+device, and JAX's ``ppermute`` to the next stage is
+``tensor.to(next_device)``, a no-op when both stages share a device; ring
+attention's K/V rotation is the same move (``parallel/sequence.py``).
+On one card every position is that card (``cuda:0``); in the tests every
+position is the CPU.
 
 ``build_mesh`` gives ``data`` a one-device node axis (the logical nodes
-run one after another on it, JAX's degenerate mode on one device) and
-``model`` a ``(1, S)`` data x stage layout, JAX's layout off a TPU.  The
-tensor, sequence, expert and hybrid modes need collectives across cards
-(``torch.distributed``) and raise naming ROADMAP Slice 4b, as do the
-hybrid mesh and multi-host set-up (Slices 4b and 4c).
+run one after another on it, JAX's degenerate mode on one device),
+``model`` a ``(1, S)`` data x stage layout, JAX's layout off a TPU, and
+``sequence`` JAX's ``(nodes, group)`` data x seq layout over the
+positions given (one position: ``(1, 1)``).  The tensor, expert and
+hybrid modes raise naming ROADMAP Slice 4b, as does multi-host set-up
+(Slice 4c).
 """
 
 from __future__ import annotations
@@ -45,8 +48,7 @@ _PARALLELISM_AXIS = {
 AXIS_ORDER = (DATA_AXIS, STAGE_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS)
 
 #: The ROADMAP item each mode without a mesh here waits for.
-_LATER = {"tensor": "Slice 4b", "sequence": "Slice 4b",
-          "expert": "Slice 4b", "hybrid": "Slice 4b"}
+_LATER = {"tensor": "Slice 4b", "expert": "Slice 4b", "hybrid": "Slice 4b"}
 
 
 def node_axis_for(parallelism: str) -> str:
@@ -63,8 +65,8 @@ def not_ported(parallelism: str) -> NotImplementedError:
     item = _LATER.get(parallelism, "Slice 4b")
     return NotImplementedError(
         f"parallelism={parallelism!r} is not ported yet (ROADMAP {item}: "
-        "its collectives span several cards); the port trains 'data' and "
-        "'model'")
+        "its collectives span several cards); the port trains 'data', "
+        "'model' and 'sequence'")
 
 
 class Mesh:
@@ -117,7 +119,12 @@ def build_mesh(num_nodes: int, parallelism: str = "data",
     """The mesh of a run.  ``data``: a one-position data axis on
     ``device`` (the logical nodes run in turn on it).  ``model``: a
     ``(1, S)`` data x stage mesh, stage s on ``devices[s % len(devices)]``
-    (default ``device``).  Other modes raise naming their ROADMAP item;
+    (default ``device``).  ``sequence``: JAX's tensor/sequence arm over
+    the positions ``devices`` (default one, ``device``; positions may
+    repeat a device): with more nodes than positions the node axis takes
+    the largest divisor of ``num_nodes`` that fits, then each node owns a
+    group of ``len(devices) // nodes`` positions, a ``(nodes, group)``
+    data x seq mesh.  Other modes raise naming their ROADMAP item;
     ``mesh_shape`` and ``dcn_mesh_shape`` are refused by name (JAX's
     hybrid layouts)."""
     if parallelism in _LATER:
@@ -132,16 +139,39 @@ def build_mesh(num_nodes: int, parallelism: str = "data",
         for s, dev in enumerate(_device_list(num_nodes, device, devices)):
             arr[0, s] = dev
         return Mesh(arr, (DATA_AXIS, STAGE_AXIS))
+    if parallelism == "sequence":
+        positions = [torch.device(d) for d in (devices or [device])]
+        if not positions:
+            raise ValueError("build_mesh: no devices")
+        n_dev = len(positions)
+        if num_nodes > n_dev:
+            # JAX's degenerate mode: the node axis takes the largest
+            # divisor of num_nodes that fits (the nodes run in turn).
+            num_nodes = max(d for d in range(1, n_dev + 1)
+                            if num_nodes % d == 0)
+        group = n_dev // num_nodes
+        arr = np.empty((num_nodes, group), dtype=object)
+        for i, dev in enumerate(positions[:num_nodes * group]):
+            arr[i // group, i % group] = dev
+        return Mesh(arr, (DATA_AXIS, SEQ_AXIS))
     arr = np.empty((1,), dtype=object)
     arr[0] = _device_list(1, device, devices)[0]
     return Mesh(arr, (DATA_AXIS,))
 
 
 def bind_mode_mesh(mesh: Mesh, parallelism: str) -> None:
-    """JAX binds the global collectives mesh of the sequence and expert
-    modes here; a no-op for ``data`` and ``model``, which read no global
-    mesh.  The modes that would bind one raise naming Slice 4b."""
-    if parallelism in ("sequence", "expert"):
+    """Bind the global mesh of the modes whose forwards read one, as JAX
+    does: the sequence mesh of ring and Ulysses attention.  The one
+    binding ladder, shared by trainer construction and checkpoint
+    topology adoption; a no-op for ``data`` and ``model``.  ``expert``
+    would bind MoE's expert mesh and raises naming Slice 4b.  The import
+    is lazy to keep core/ free of parallel/ dependencies."""
+    if parallelism == "sequence":
+        from trustworthy_dl_tpu_torch.parallel.sequence import \
+            set_sequence_mesh
+
+        set_sequence_mesh(mesh)
+    elif parallelism == "expert":
         raise not_ported(parallelism)
 
 

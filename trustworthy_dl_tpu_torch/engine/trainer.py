@@ -81,12 +81,23 @@ probation and the stage count regrows where the layer count allows.
 Checkpoints hold the stage-stacked blocks; the sidecar carries the
 stage count and the idle pool, and a resume adopts them.
 
+Sequence parallelism, as in JAX (``parallel/sequence.py``):
+``parallelism="sequence"`` builds the ``(nodes, group)`` data x seq mesh
+(``mesh=`` gives one; by default one position, a ring of 1), binds it as
+the sequence mesh (``core.mesh.bind_mode_mesh``, again when a checkpoint
+adopts a new topology) and defaults the GPT family's ``attn_impl`` to
+``"ring"``.  The step is the data-mode step: only the attention differs.
+On the card, where the ring's chunks tile for the flash kernels, the
+compute dtype must be the kernels' bf16 (refused at construction
+otherwise); elastic eviction in sequence mode is refused at construction
+(ROADMAP item 27: the group modes of ``elastic/``).
+
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
-runs its plain PyTorch version.  The tensor, sequence, expert and hybrid
-modes (with their elastic forms) are not ported yet: a configuration that
-asks for one raises ``NotImplementedError`` at construction, naming
-ROADMAP Slice 4b.
+runs its plain PyTorch version.  The tensor, expert and hybrid modes
+(with their elastic forms) are not ported yet: a configuration that asks
+for one raises ``NotImplementedError`` at construction, naming ROADMAP
+Slice 4b.
 """
 
 from __future__ import annotations
@@ -105,7 +116,8 @@ from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     null_plan
 from trustworthy_dl_tpu_torch.core.config import COMPUTE_DTYPES, \
     NodeConfig, TrainingConfig
-from trustworthy_dl_tpu_torch.core.mesh import build_mesh, not_ported
+from trustworthy_dl_tpu_torch.core.mesh import SEQ_AXIS, Mesh, \
+    bind_mode_mesh, build_mesh, node_axis_for, not_ported
 from trustworthy_dl_tpu_torch.data.loader import PrefetchLoader
 from trustworthy_dl_tpu_torch.detect.detector import AttackDetector, \
     AttackType
@@ -124,6 +136,7 @@ from trustworthy_dl_tpu_torch.engine.step import HostMetricsPacker, \
 from trustworthy_dl_tpu_torch.models.factory import create_model
 from trustworthy_dl_tpu_torch.obs.compilewatch import guarded
 from trustworthy_dl_tpu_torch.obs.events import EventType
+from trustworthy_dl_tpu_torch.ops.flash_attention import supports_flash
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
 from trustworthy_dl_tpu_torch.trust.state import NodeStatus
@@ -162,19 +175,25 @@ class TrainingState(enum.Enum):
 
 class DistributedTrainer:
     """Trusted training of ``config.num_nodes`` logical nodes on one
-    device: data-parallel, or pipeline stages (``parallelism="model"``)."""
+    device: data-parallel, pipeline stages (``parallelism="model"``) or
+    sequence-parallel attention (``parallelism="sequence"``)."""
 
-    def __init__(self, config: TrainingConfig,
+    def __init__(self, config: TrainingConfig, mesh: Optional[Mesh] = None,
                  model_overrides: Optional[Dict[str, Any]] = None,
                  device: Any = "cuda"):
         _refuse_unported(config)
         self.device = resolve_device(device)
+        if mesh is not None:
+            _refuse_foreign_mesh(mesh, config.parallelism, self.device)
         if config.debug_nans:
             enable_nan_debugging()
         # The epoch-cadence ML tier, gated once: without scikit-learn the
         # refit is a no-op, so the per-step battery feed would be waste.
         self._ml_enabled = config.ml_detectors and _sklearn_available()
         overrides = dict(model_overrides or {})
+        if config.parallelism == "sequence" and \
+                config.model_name.startswith("gpt"):
+            overrides.setdefault("attn_impl", "ring")
         overrides.setdefault("dtype", COMPUTE_DTYPES[config.dtype])
         if config.lm_head_chunk >= 0:
             overrides.setdefault("lm_head_chunk", config.lm_head_chunk)
@@ -183,8 +202,10 @@ class DistributedTrainer:
             overrides.setdefault("remat_policy", config.remat_policy)
         self.model = create_model(config.model_name, **overrides)
         self.optimizer = build_optimizer(config)
-        self.mesh = build_mesh(config.num_nodes, config.parallelism,
-                               device=self.device)
+        self.mesh = mesh if mesh is not None else build_mesh(
+            config.num_nodes, config.parallelism, device=self.device)
+        bind_mode_mesh(self.mesh, config.parallelism)
+        _refuse_untaken_ring(self.model, self.mesh, self.device)
         if config.parallelism == "model" and config.num_microbatches == 0:
             from trustworthy_dl_tpu_torch.parallel.pipeline import \
                 choose_num_microbatches
@@ -1134,8 +1155,13 @@ class DistributedTrainer:
         n = int(meta["num_nodes"])
         logger.info("Checkpoint topology has %d node(s) (config says %d): "
                     "adopting the saved topology", n, self.config.num_nodes)
-        self.mesh = build_mesh(n, self.config.parallelism,
+        # Sequence mode keeps its positions (JAX rebuilds over the saved
+        # device set); the other modes rebuild on the trainer's device.
+        positions = list(self.mesh.devices.flat) \
+            if self.config.parallelism == "sequence" else None
+        self.mesh = build_mesh(n, self.config.parallelism, devices=positions,
                                device=self.device)
+        bind_mode_mesh(self.mesh, self.config.parallelism)
         self._rebuild_steps(dataclasses.replace(self.config, num_nodes=n))
         self.node_map = [int(i) for i in meta["node_map"]]
         # The attack plan was shaped for the old node count: reset it
@@ -1205,9 +1231,56 @@ class DistributedTrainer:
 def _refuse_unported(config: TrainingConfig) -> None:
     """A configuration that asks for what the port has not got raises
     here, naming the ROADMAP item (``expert`` too: the MoE family trains
-    in data mode, its expert mesh is Slice 4b's)."""
-    if config.parallelism not in ("data", "model"):
+    in data mode, its expert mesh is Slice 4b's).  Elastic eviction in
+    sequence mode is refused here, not mid-run where JAX evicts."""
+    if config.parallelism not in ("data", "model", "sequence"):
         raise not_ported(config.parallelism)
+    if config.parallelism == "sequence" and config.elastic_resharding:
+        raise NotImplementedError(
+            "elastic_resharding in parallelism='sequence' is not ported yet "
+            "(ROADMAP item 27: the group modes of elastic/); the port evicts "
+            "in 'data' mode")
+
+
+def _refuse_foreign_mesh(mesh: Mesh, parallelism: str,
+                         device: torch.device) -> None:
+    """A given mesh must be the mode's (its node axis present: a sequence
+    mesh without ``seq`` would quietly run full attention) and lie on the
+    trainer's device at every position (one card; a CPU position would
+    take a card's attention or stage to the CPU unseen)."""
+    axis = node_axis_for(parallelism)
+    if axis not in mesh.axis_names:
+        raise ValueError(f"parallelism={parallelism!r} needs a mesh with a "
+                         f"{axis!r} axis, got {mesh.axis_names}")
+    want = (device.type, device.index or 0)
+    for dev in mesh.devices.flat:
+        dev = torch.device(dev)
+        if (dev.type, dev.index or 0) != want:
+            raise ValueError(f"mesh position on {dev} for a trainer on "
+                             f"{device}: the port trains on one device, so "
+                             f"every position must be it")
+
+
+def _refuse_untaken_ring(model: Any, mesh: Mesh, device: torch.device
+                         ) -> None:
+    """On the card a ring whose chunk shape the flash kernels tile runs
+    through them (``ops.flash_attention.supports_flash``), and they take
+    bf16 only: another compute dtype is refused here, before anything is
+    allocated, rather than at the first launch (the kernels' limits,
+    stated once)."""
+    cfg = model.config
+    if device.type != "cuda" or getattr(cfg, "attn_impl", None) != "ring" \
+            or SEQ_AXIS not in mesh.axis_names:
+        return
+    ring = mesh.shape[SEQ_AXIS]
+    t = model.input_spec["seq_len"]
+    d = cfg.n_embd // cfg.n_head
+    if t % ring == 0 and supports_flash(t // ring, d) and \
+            cfg.dtype != torch.bfloat16:
+        raise ValueError(
+            f"parallelism='sequence': the ring's [{t // ring}, {d}] chunks "
+            f"go through the flash kernels, which take bfloat16, not "
+            f"{cfg.dtype}")
 
 
 __all__ = ["DistributedTrainer", "TrainingState"]

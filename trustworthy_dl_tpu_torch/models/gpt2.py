@@ -10,8 +10,9 @@ matrix), ``flash`` (kernels B2/B3, ``ops/flash_attention``) and ``auto``
 full below).  ``remat`` checkpoints every block (policy ``block``) or,
 with policy ``attention`` on the effectively-full attention path, only
 the attention core.  The loss takes the vocab-chunked fused head
-(``ops/fused_ce.py``) where ``lm_head_chunk`` resolves to a width.  The
-ring and Ulysses variants are not ported yet.
+(``ops/fused_ce.py``) where ``lm_head_chunk`` resolves to a width.
+``ring`` and ``ulysses`` (``parallel/sequence.py``) register themselves
+when first asked for, as in JAX.
 """
 
 from __future__ import annotations
@@ -144,18 +145,19 @@ def split_heads(a: torch.Tensor, n_head: int) -> torch.Tensor:
     return a.reshape(b, t, n_head, d // n_head).permute(0, 2, 1, 3)
 
 
-def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                   ) -> torch.Tensor:
-    """Causal softmax attention [B, H, T, Dh]: scores in the compute dtype,
-    masked with its finfo.min, softmax in f32 cast back."""
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True) -> torch.Tensor:
+    """Softmax attention [B, H, T, Dh]: scores in the compute dtype, masked
+    with its finfo.min when ``causal``, softmax in f32 cast back."""
     d = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
-    t_q, t_k = q.shape[-2], k.shape[-2]
-    mask = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device
-                      ).tril(diagonal=t_k - t_q)
-    scores = torch.where(mask, scores,
-                         torch.full_like(scores,
-                                         torch.finfo(scores.dtype).min))
+    if causal:
+        t_q, t_k = q.shape[-2], k.shape[-2]
+        mask = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device
+                          ).tril(diagonal=t_k - t_q)
+        scores = torch.where(mask, scores,
+                             torch.full_like(scores,
+                                             torch.finfo(scores.dtype).min))
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
@@ -206,7 +208,15 @@ ATTENTION: Dict[str, AttnFn] = {"full": full_attention, "flash": _flash,
                                 "auto": _auto}
 
 
+def register_attention(name: str, fn: AttnFn) -> None:
+    ATTENTION[name] = fn
+
+
 def get_attention(name: str) -> AttnFn:
+    if name not in ATTENTION and name in ("ring", "ulysses"):
+        # Late registration, as in JAX: the sequence-parallel impls live
+        # in parallel/ and register themselves on import.
+        import trustworthy_dl_tpu_torch.parallel.sequence  # noqa: F401
     if name not in ATTENTION:
         raise ValueError(f"unknown attention impl {name!r} (one of "
                          f"{sorted(ATTENTION)})")

@@ -75,6 +75,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tddl_flash_fwd": ([_P] * 5 + [_I] * 3 + [_P], _I),
         "tddl_flash_bwd_dq": ([_P] * 7 + [_I] * 3 + [_P], _I),
         "tddl_flash_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_P], _I),
+        "tddl_flash_fwd_full": ([_P] * 5 + [_I] * 3 + [_P], _I),
+        "tddl_flash_bwd_dq_full": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "tddl_flash_bwd_dkv_full": ([_P] * 8 + [_I] * 3 + [_P], _I),
         "tddl_error_string": _ERROR_STRING,
     },
 }
@@ -245,14 +248,24 @@ def kernel_wrappers() -> tuple:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's ``launches`` back to 0."""
+    """Set every kernel wrapper's ``launches`` (and a flash wrapper's
+    ``launches_full``) back to 0."""
     for fn in kernel_wrappers():
         fn.launches = 0
+        if hasattr(fn, "launches_full"):
+            fn.launches_full = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    """``launches`` of every kernel wrapper, by wrapper name."""
-    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    """``launches`` of every kernel wrapper, by wrapper name; a wrapper
+    with a non-causal instance (B2, B3) adds ``<name>_full``, the share of
+    its launches that went to that instance."""
+    out = {}
+    for fn in kernel_wrappers():
+        out[fn.__name__] = fn.launches
+        if hasattr(fn, "launches_full"):
+            out[f"{fn.__name__}_full"] = fn.launches_full
+    return out
 
 
 __all__ = [

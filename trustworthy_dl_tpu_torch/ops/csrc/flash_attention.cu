@@ -1,14 +1,21 @@
-// Causal flash attention for Hopper (sm_90a): forward (B2) and backward
-// (B3, as a dq kernel and a dk/dv kernel).
+// Flash attention for Hopper (sm_90a): forward (B2) and backward (B3, as a
+// dq kernel and a dk/dv kernel), causal and not.
 //
 // Replaces trustworthy_dl_tpu/ops/flash_attention.py: _fwd_kernel
 // (pallas_call in _flash_fwd) and _dq_kernel / _dkv_kernel (the two
-// pallas_calls in _flash_bwd).  Layout [BH, T, D] bf16, as the JAX wrapper
-// merges batch and heads.  The forward writes o (bf16) and the row
-// logsumexp lse (f32); the backward rebuilds P = exp(S - lse) from them and
-// takes Delta = sum(dO * O) per row from the caller (a plain reduction, as
-// the JAX package leaves it to XLA).  Scores are scaled by 1/sqrt(D) and
-// masked causally with the finite NEG_INF of the TPU kernels.
+// pallas_calls in _flash_bwd), at causal=True through tddl_flash_fwd,
+// tddl_flash_bwd_dq and tddl_flash_bwd_dkv, and at causal=False through
+// tddl_flash_fwd_full, tddl_flash_bwd_dq_full and tddl_flash_bwd_dkv_full
+// (the ring attention's chunks below the diagonal, and flash_chunk's).
+// Each kernel is a template over CAUSAL: the non-causal instance walks every
+// key tile (forward, dq) or every query tile (dk/dv) and masks nothing.
+// Layout [BH, T, D] bf16, as the JAX wrapper merges batch and heads.  The
+// forward writes o (bf16) and the row logsumexp lse (f32); the backward
+// rebuilds P = exp(S - lse) from them and takes Delta = sum(dO * O) per
+// row from the caller (a plain reduction, as the JAX package leaves it to
+// XLA; flash_chunk's caller subtracts the lse cotangent from it).  Scores
+// are scaled by 1/sqrt(D) and, in the causal instance, masked with the
+// finite NEG_INF of the TPU kernels.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (trustworthy_dl_tpu_torch/ops/__init__.py).  Every entry point
@@ -21,6 +28,13 @@
 // close together and the kernels have to use the tensor cores and read
 // each tile once.  Tiles wholly above the diagonal are never loaded (the
 // TPU kernels' causal skip); the diagonal tile is masked elementwise.
+// The non-causal instance does the whole score matrix: at the ring's chunk
+// [96, 256, 64] the forward moves 12.7 MB (3.79 us) for 1.61 GFLOP (1.63
+// us), dq ~15.9 MB (4.7 us) for 2.42 GFLOP and dk/dv ~19.1 MB (5.7 us) for
+// 3.22 GFLOP, so bytes bound all three; at [96, 1024, 64] the products do:
+// 25.8 / 38.7 / 51.5 GFLOP, 26.1 / 39.1 / 52.1 us.  Its query tiles all
+// walk the same number of key tiles, so the longest-first order below has
+// nothing to balance there and is kept as it is.
 //
 // The forward (B2) is FlashAttention-2's shape, written out by hand:
 //   * one CTA of four warps per (64-row query tile, batch*head), query
@@ -141,7 +155,7 @@ __device__ __forceinline__ void store_staged(bf16* dst, const bf16* stage,
 }
 
 // At D <= 64, four CTAs (16 warps) per SM: at most 128 registers a thread.
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -156,6 +170,7 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
 
   const int nq = T / TILE;
   const int qi = nq - 1 - blockIdx.x;
+  const int nk = CAUSAL ? qi + 1 : nq;  // key tiles this query tile attends
   const size_t head = (size_t)blockIdx.y * T * D;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -181,13 +196,13 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
   float m0 = NEG_INF, m1 = NEG_INF;  // running max, scaled log2 units
   float l0 = 0.f, l1 = 0.f;          // this lane's share of the row sums
 
-  for (int kj = 0; kj <= qi; ++kj) {
+  for (int kj = 0; kj < nk; ++kj) {
     cp_async_wait<0>();  // this thread's copies of tile kj have landed
     __syncthreads();     // everyone's have, and every warp is done with kj - 1
-    if (kj < qi) {       // tile kj + 1 into the stage kj - 1 used
-      bf16* nk = kv_s + ((kj + 1) & 1) * 2 * TILE * LD;
-      copy_tile_async<D>(nk, k + head + (size_t)(kj + 1) * TILE * D);
-      copy_tile_async<D>(nk + TILE * LD,
+    if (kj + 1 < nk) {   // tile kj + 1 into the stage kj - 1 used
+      bf16* nxt = kv_s + ((kj + 1) & 1) * 2 * TILE * LD;
+      copy_tile_async<D>(nxt, k + head + (size_t)(kj + 1) * TILE * D);
+      copy_tile_async<D>(nxt + TILE * LD,
                          v + head + (size_t)(kj + 1) * TILE * D);
       cp_async_commit();
     }
@@ -214,8 +229,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
       }
     }
 
-    // Online softmax in registers.  Only the diagonal tile is masked.
-    if (kj == qi) {
+    // Online softmax in registers.  Only the causal diagonal tile is masked.
+    if (CAUSAL && kj == qi) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -234,8 +249,8 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 4 : 2)
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     // The running max in scaled log2 units (scale > 0 commutes with max).
     // m starts at the finite NEG_INF, so the first tile's correction is
-    // exp2(-huge) = 0, never NaN; every row sees its diagonal key, so the
-    // tile's max is a real score.
+    // exp2(-huge) = 0, never NaN; every row sees its diagonal key (every key
+    // when not causal), so the tile's max is a real score.
     mx0 = fmaxf(m0, mx0 * scale_log2);
     mx1 = fmaxf(m1, mx1 * scale_log2);
     const float corr0 = ex2(m0 - mx0);
@@ -351,9 +366,9 @@ __device__ __forceinline__ void stage_rows(bf16* stage, float (*acc)[4],
 // ---------------------------------------------------------------------------
 // B3, dq: grid (T/64, BH), query tiles longest-first.
 // dQ = scale * (P o (dO.V^T - Delta)) . K over the key tiles at and below
-// the diagonal; K and V through the ring.
+// the diagonal (every key tile when not causal); K and V through the ring.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -371,6 +386,7 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
 
   const int nq = T / TILE;
   const int qi = nq - 1 - blockIdx.x;
+  const int nk = CAUSAL ? qi + 1 : nq;
   const size_t head = (size_t)blockIdx.y * T * D;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -401,13 +417,13 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
   for (int n = 0; n < ND; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int kj = 0; kj <= qi; ++kj) {
+  for (int kj = 0; kj < nk; ++kj) {
     cp_async_wait<0>();
     __syncthreads();
-    if (kj < qi) {
-      bf16* nk = kv_s + ((kj + 1) & 1) * 2 * TILE * LD;
-      copy_tile_async<D>(nk, k + head + (size_t)(kj + 1) * TILE * D);
-      copy_tile_async<D>(nk + TILE * LD,
+    if (kj + 1 < nk) {
+      bf16* nxt = kv_s + ((kj + 1) & 1) * 2 * TILE * LD;
+      copy_tile_async<D>(nxt, k + head + (size_t)(kj + 1) * TILE * D);
+      copy_tile_async<D>(nxt + TILE * LD,
                          v + head + (size_t)(kj + 1) * TILE * D);
       cp_async_commit();
     }
@@ -456,9 +472,9 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
     }
 
     // P = exp2(s * scale log2 e - lse log2 e), masked to 0 above the
-    // diagonal; dS = P o (dP - Delta), packed to bf16 pairs: n8 tiles 2kk
-    // and 2kk + 1 are dS.K's k16 step kk.
-    const bool diag = kj == qi;
+    // diagonal when causal; dS = P o (dP - Delta), packed to bf16 pairs: n8
+    // tiles 2kk and 2kk + 1 are dS.K's k16 step kk.
+    const bool diag = CAUSAL && kj == qi;
     uint32_t dsf[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -498,12 +514,13 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
 
 // ---------------------------------------------------------------------------
 // B3, dk/dv: grid (T/64, BH), one key tile each (tile 0, the longest walk,
-// first), walking the query tiles at and below the diagonal.
+// first), walking the query tiles at and below the diagonal (every query
+// tile when not causal).
 // dV = P^T . dO, dK = scale * dS^T . Q; Q, dO and the tile's lse and Delta
 // through the ring.  The scores are transposed (keys are the warp's rows,
 // queries its columns), so a lane reads lse and Delta for its columns.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
     flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
@@ -525,6 +542,7 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
 
   const int nq = T / TILE;
   const int kj = blockIdx.x;
+  const int q0 = CAUSAL ? kj : 0;  // the first query tile this key tile meets
   const size_t head = (size_t)blockIdx.y * T * D;
   const size_t head_rows = (size_t)blockIdx.y * T;
   const int warp = threadIdx.x >> 5;
@@ -552,7 +570,7 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
 
   copy_tile_async<D>(k_s, k + head + (size_t)kj * TILE * D);
   copy_tile_async<D>(v_s, v + head + (size_t)kj * TILE * D);
-  copy_stage(0, kj);
+  copy_stage(0, q0);
   cp_async_commit();
 
   const float scale_log2 = scale * LOG2E;
@@ -564,8 +582,8 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-  for (int qi = kj; qi < nq; ++qi) {
-    const int st = (qi - kj) & 1;
+  for (int qi = q0; qi < nq; ++qi) {
+    const int st = (qi - q0) & 1;
     cp_async_wait<0>();
     __syncthreads();
     if (qi + 1 < nq) {
@@ -577,7 +595,7 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
     const float* lse_s = rows_s + 2 * st * TILE;
     const float* dl_s = lse_s + TILE;
     if constexpr (HOLD) {
-      if (qi == kj) {
+      if (qi == q0) {
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk) {
           ldsm_x4(kf[kk], k_s + arow + kk * 16);
@@ -585,7 +603,7 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
         }
       }
     }
-    const bool diag = qi == kj;
+    const bool diag = CAUSAL && qi == kj;
 
 #pragma unroll
     for (int grp = 0; grp < Bwd<D>::DKV_GROUPS; ++grp) {
@@ -681,7 +699,7 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 int launch(int which, const void* q, const void* k, const void* v,
            const void* o_or_do, const void* lse, const void* delta, void* out0,
            void* out1, int BH, int T, cudaStream_t stream) {
@@ -693,19 +711,22 @@ int launch(int which, const void* q, const void* k, const void* v,
   const bf16* vb = static_cast<const bf16*>(v);
   int err;
   if (which == 0) {
-    if ((err = prepare(flash_fwd_kernel<D>, Dm::FWD_SMEM))) return err;
-    flash_fwd_kernel<D><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
+    if ((err = prepare(flash_fwd_kernel<D, CAUSAL>, Dm::FWD_SMEM)))
+      return err;
+    flash_fwd_kernel<D, CAUSAL><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
         qb, kb, vb, static_cast<bf16*>(out0), static_cast<float*>(out1), T,
         scale * LOG2E);
   } else if (which == 1) {
-    if ((err = prepare(flash_dq_kernel<D>, Bwd<D>::DQ_SMEM))) return err;
-    flash_dq_kernel<D><<<grid, THREADS, Bwd<D>::DQ_SMEM, stream>>>(
+    if ((err = prepare(flash_dq_kernel<D, CAUSAL>, Bwd<D>::DQ_SMEM)))
+      return err;
+    flash_dq_kernel<D, CAUSAL><<<grid, THREADS, Bwd<D>::DQ_SMEM, stream>>>(
         qb, kb, vb, static_cast<const bf16*>(o_or_do),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(out0), T, scale);
   } else {
-    if ((err = prepare(flash_dkv_kernel<D>, Bwd<D>::DKV_SMEM))) return err;
-    flash_dkv_kernel<D><<<grid, THREADS, Bwd<D>::DKV_SMEM, stream>>>(
+    if ((err = prepare(flash_dkv_kernel<D, CAUSAL>, Bwd<D>::DKV_SMEM)))
+      return err;
+    flash_dkv_kernel<D, CAUSAL><<<grid, THREADS, Bwd<D>::DKV_SMEM, stream>>>(
         qb, kb, vb, static_cast<const bf16*>(o_or_do),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, scale);
@@ -713,6 +734,7 @@ int launch(int which, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <bool CAUSAL>
 int dispatch(int which, const void* q, const void* k, const void* v,
              const void* o_or_do, const void* lse, const void* delta,
              void* out0, void* out1, int BH, int T, int D, void* stream) {
@@ -721,17 +743,17 @@ int dispatch(int which, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(which, q, k, v, o_or_do, lse, delta, out0, out1, BH, T,
-                        s);
+      return launch<16, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
+                                out1, BH, T, s);
     case 32:
-      return launch<32>(which, q, k, v, o_or_do, lse, delta, out0, out1, BH, T,
-                        s);
+      return launch<32, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
+                                out1, BH, T, s);
     case 64:
-      return launch<64>(which, q, k, v, o_or_do, lse, delta, out0, out1, BH, T,
-                        s);
+      return launch<64, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
+                                out1, BH, T, s);
     case 128:
-      return launch<128>(which, q, k, v, o_or_do, lse, delta, out0, out1, BH,
-                         T, s);
+      return launch<128, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
+                                 out1, BH, T, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -744,15 +766,16 @@ extern "C" {
 // B2: q, k, v [BH, T, D] bf16 -> o [BH, T, D] bf16, lse [BH, T] f32.
 int tddl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int BH, int T, int D, void* stream) {
-  return dispatch(0, q, k, v, nullptr, nullptr, nullptr, o, lse, BH, T, D,
-                  stream);
+  return dispatch<true>(0, q, k, v, nullptr, nullptr, nullptr, o, lse, BH, T,
+                        D, stream);
 }
 
 // B3 (dq): + dO [BH, T, D] bf16, lse and Delta [BH, T] f32 -> dq.
 int tddl_flash_bwd_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int T, int D, void* stream) {
-  return dispatch(1, q, k, v, dout, lse, delta, dq, nullptr, BH, T, D, stream);
+  return dispatch<true>(1, q, k, v, dout, lse, delta, dq, nullptr, BH, T, D,
+                        stream);
 }
 
 // B3 (dk/dv): same inputs -> dk, dv.
@@ -760,7 +783,31 @@ int tddl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int T, int D,
                        void* stream) {
-  return dispatch(2, q, k, v, dout, lse, delta, dk, dv, BH, T, D, stream);
+  return dispatch<true>(2, q, k, v, dout, lse, delta, dk, dv, BH, T, D,
+                        stream);
+}
+
+// The same three at causal=False: every query attends every key.
+int tddl_flash_fwd_full(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int BH, int T, int D, void* stream) {
+  return dispatch<false>(0, q, k, v, nullptr, nullptr, nullptr, o, lse, BH, T,
+                         D, stream);
+}
+
+int tddl_flash_bwd_dq_full(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int BH, int T, int D,
+                           void* stream) {
+  return dispatch<false>(1, q, k, v, dout, lse, delta, dq, nullptr, BH, T, D,
+                         stream);
+}
+
+int tddl_flash_bwd_dkv_full(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int BH,
+                            int T, int D, void* stream) {
+  return dispatch<false>(2, q, k, v, dout, lse, delta, dk, dv, BH, T, D,
+                         stream);
 }
 
 const char* tddl_error_string(int err) {

@@ -1,5 +1,5 @@
-"""Causal flash attention: forward (B2) and backward (B3) behind one
-``torch.autograd.Function``.
+"""Flash attention, causal and not: forward (B2) and backward (B3) behind
+``torch.autograd.Function``s.
 
 Counterpart of ``trustworthy_dl_tpu/ops/flash_attention.py``.  Layout
 [BH, T, D] with batch and heads merged, as the JAX wrapper does.  Each
@@ -11,10 +11,21 @@ note there for what each kernel replaces, its bound and its design):
 * :func:`flash_attention_bwd_dq` -> dq;
 * :func:`flash_attention_bwd_dkv` -> (dk, dv),
 
-each with a plain integer ``launches`` that it increments where it launches
-its kernel and nowhere else; there it also adds its kernel's products
-(``flash_*_flops``) to an open FLOP tally (``ops.count_kernel_flops``).  The backward takes Delta = sum(dO * O) per
-row from a plain reduction, as the JAX package leaves it to XLA.
+each taking ``causal`` (JAX's static flag: ``False`` drops the mask and
+the tile skip, and launches the kernel's non-causal instance), each with
+a plain integer ``launches`` that it increments where it launches its
+kernel and nowhere else, and ``launches_full`` beside it, which counts the
+non-causal launches among them; there it also adds its kernel's products
+(``flash_*_flops``) to an open FLOP tally (``ops.count_kernel_flops``).
+The backward takes Delta = sum(dO * O) per row from a plain reduction, as
+the JAX package leaves it to XLA.
+
+:class:`FlashAttention` (:func:`flash_attention`) returns o;
+:class:`FlashChunk` (:func:`flash_chunk`) returns (o, lse) with a
+gradient through lse as well, the building block of ring attention
+(``parallel/sequence.py``): its backward folds the lse cotangent into
+Delta (JAX's Delta_eff = Delta - dlse), which reaches the kernels as a
+tensor, so no kernel changes for it.
 
 The kernels take bf16 on the card, T a multiple of 64 and D in
 :data:`HEAD_DIMS`; anything else raises ``ValueError``.  Unlike the JAX
@@ -46,10 +57,14 @@ def supports_flash(t: int, d: int) -> bool:
     return t >= TILE and t % TILE == 0 and d in HEAD_DIMS
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """f32 causal scores [BH, T, T] scaled by 1/sqrt(D), NEG_INF masked."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool = True
+            ) -> torch.Tensor:
+    """f32 scores [BH, T, T] scaled by 1/sqrt(D), NEG_INF masked above the
+    diagonal when ``causal``."""
     t, d = q.shape[-2], q.shape[-1]
     s = torch.einsum("btd,bsd->bts", q.float(), k.float()) / math.sqrt(d)
+    if not causal:
+        return s
     mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
@@ -61,11 +76,12 @@ def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o in q's dtype, lse f32 [BH, T]): the forward kernel's function,
     spelled over the whole [T, T] score matrix."""
-    s = _scores(q, k)
+    s = _scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
@@ -73,9 +89,9 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _probs_and_dscores(q, k, v, lse, do, delta):
+def _probs_and_dscores(q, k, v, lse, do, delta, causal):
     """(P, dS) rounded through the input dtype as the kernels use them."""
-    p = torch.exp(_scores(q, k) - lse[..., None])
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
     dp = torch.einsum("btd,bsd->bts", do.float(), v.float())
     ds = p * (dp - delta[..., None])
     return _rounded(p, q.dtype), _rounded(ds, q.dtype)
@@ -83,19 +99,20 @@ def _probs_and_dscores(q, k, v, lse, do, delta):
 
 def flash_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor,
-                       delta: torch.Tensor) -> torch.Tensor:
+                       delta: torch.Tensor, causal: bool = True
+                       ) -> torch.Tensor:
     """dq = scale * (P o (dO.V^T - Delta)) . K, P = exp(S - lse)."""
-    _, ds = _probs_and_dscores(q, k, v, lse, do, delta)
+    _, ds = _probs_and_dscores(q, k, v, lse, do, delta, causal)
     dq = torch.einsum("bts,bsd->btd", ds, k.float()) / math.sqrt(q.shape[-1])
     return dq.to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor,
-                        delta: torch.Tensor
+                        delta: torch.Tensor, causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) = (scale * dS^T . Q, P^T . dO)."""
-    p, ds = _probs_and_dscores(q, k, v, lse, do, delta)
+    p, ds = _probs_and_dscores(q, k, v, lse, do, delta, causal)
     dk = torch.einsum("bts,btd->bsd", ds, q.float()) / math.sqrt(q.shape[-1])
     dv = torch.einsum("bts,btd->bsd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -105,7 +122,8 @@ def flash_fwd_flops(bh: int, t: int, d: int) -> int:
     """Product FLOPs of B2 at [BH, T, D]: the plain twin's two [T, T] x D
     products (QK^T and PV), as ``torch.utils.flop_counter`` counts
     :func:`flash_fwd_plain`.  The function is counted over the whole score
-    matrix; the causal kernel skips the tiles above the diagonal."""
+    matrix, causal or not; the causal kernel skips the tiles above the
+    diagonal."""
     return 4 * bh * t * t * d
 
 
@@ -143,96 +161,146 @@ def _check(op: str, *tensors: torch.Tensor) -> None:
                              f"aligned and on {q.device}")
 
 
-def _launch(entry: str, *tensors: torch.Tensor) -> None:
+def _launch(entry: str, causal: bool, *tensors: torch.Tensor) -> None:
+    """Launch ``entry`` (its non-causal instance ``<entry>_full`` when not
+    ``causal``) on q's device and stream."""
     q = tensors[0]
     bh, t, d = q.shape
+    name = entry if causal else f"{entry}_full"
     lib = kernel_library("flash_attention")
     with torch.cuda.device(q.device):
-        err = getattr(lib, entry)(*[a.data_ptr() for a in tensors], bh, t, d,
-                                  stream_handle(q.device))
-    check_launch(lib, err, entry)
+        err = getattr(lib, name)(*[a.data_ptr() for a in tensors], bh, t, d,
+                                 stream_handle(q.device))
+    check_launch(lib, err, name)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+def _count(wrapper, causal: bool, flops: int) -> None:
+    """One launch of ``wrapper``'s kernel: its counters and the open FLOP
+    tallies."""
+    wrapper.launches += 1
+    if not causal:
+        wrapper.launches_full += 1
+    tally_flops(wrapper.__name__, flops)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Causal attention forward (B2): [BH, T, D] x3 -> (o, lse)."""
+    """Attention forward (B2): [BH, T, D] x3 -> (o, lse)."""
     if not on_cuda(q, "flash_attention_fwd"):
-        return flash_fwd_plain(q, k, v)
+        return flash_fwd_plain(q, k, v, causal)
     _check("flash_attention_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("tddl_flash_fwd", q, k, v, o, lse)
-    flash_attention_fwd.launches += 1
-    tally_flops("flash_attention_fwd", flash_fwd_flops(*q.shape))
+    _launch("tddl_flash_fwd", causal, q, k, v, o, lse)
+    _count(flash_attention_fwd, causal, flash_fwd_flops(*q.shape))
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_full = 0
 
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor,
-                           lse: torch.Tensor, delta: torch.Tensor
-                           ) -> torch.Tensor:
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool = True) -> torch.Tensor:
     """The dq half of the backward (B3): one pass per query tile."""
     if not on_cuda(q, "flash_attention_bwd_dq"):
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
     _check("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    _launch("tddl_flash_bwd_dq", q, k, v, do, lse, delta, dq)
-    flash_attention_bwd_dq.launches += 1
-    tally_flops("flash_attention_bwd_dq", flash_bwd_dq_flops(*q.shape))
+    _launch("tddl_flash_bwd_dq", causal, q, k, v, do, lse, delta, dq)
+    _count(flash_attention_bwd_dq, causal, flash_bwd_dq_flops(*q.shape))
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_full = 0
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
-                            lse: torch.Tensor, delta: torch.Tensor
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv half of the backward (B3): one pass per key tile."""
     if not on_cuda(q, "flash_attention_bwd_dkv"):
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     _check("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("tddl_flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv)
-    flash_attention_bwd_dkv.launches += 1
-    tally_flops("flash_attention_bwd_dkv", flash_bwd_dkv_flops(*q.shape))
+    _launch("tddl_flash_bwd_dkv", causal, q, k, v, do, lse, delta, dk, dv)
+    _count(flash_attention_bwd_dkv, causal, flash_bwd_dkv_flops(*q.shape))
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_full = 0
+
+
+def _backward(q, k, v, o, lse, do, causal, dlse=None):
+    """dq, dk, dv from the saved forward: Delta = sum(dO * O) per row, less
+    the lse cotangent where the caller differentiates through lse."""
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """[BH, T, D] causal attention; saves q, k, v, o and lse for the
-    backward kernels."""
+    """[BH, T, D] attention; saves q, k, v, o and lse for the backward
+    kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = flash_attention_fwd(q, k, v)
+    def forward(ctx, q, k, v, causal=True):
+        o, lse = flash_attention_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta)
-        return dq, dk, dv
+        return (*_backward(*ctx.saved_tensors, do, ctx.causal), None)
+
+
+class FlashChunk(torch.autograd.Function):
+    """[BH, T, D] attention returning (o, lse f32 [BH, T]), differentiable
+    through both (JAX's ``flash_chunk``): the backward takes (dO, dlse)
+    and runs the kernels with Delta - dlse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_backward(*ctx.saved_tensors, do, ctx.causal, dlse), None)
+
+
+def flash_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[BH, T, D] -> (o, lse f32 [BH, T]) with full autograd support
+    including lse: the per-rotation chunk of ring attention, whose
+    cross-chunk combine weights depend on lse."""
+    if not supports_flash(q.shape[-2], q.shape[-1]):
+        raise ValueError(f"flash_chunk: T={q.shape[-2]}, D={q.shape[-1]} "
+                         f"not taken by the kernel (T a multiple of {TILE}, "
+                         f"D in {HEAD_DIMS})")
+    return FlashChunk.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """[B, H, T, D] (or [BH, T, D]) causal flash attention, differentiable.
+    """[B, H, T, D] (or [BH, T, D]) flash attention, differentiable.
     Raises ``ValueError`` for a shape the kernels do not take."""
-    if not causal:
-        raise ValueError("flash_attention: the kernels are causal only")
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
@@ -242,7 +310,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel (T a multiple of {TILE}, D in {HEAD_DIMS});"
                          " use attn_impl='full'")
     merge = lambda a: a.reshape(b * h, t, d).contiguous()   # noqa: E731
-    out = FlashAttention.apply(merge(q), merge(k), merge(v)).reshape(
+    out = FlashAttention.apply(merge(q), merge(k), merge(v), causal).reshape(
         b, h, t, d)
     return out[0] if squeeze else out
 
@@ -252,9 +320,11 @@ KERNEL_WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq,
                    flash_attention_bwd_dkv)
 
 __all__ = [
-    "FlashAttention", "HEAD_DIMS", "KERNEL_WRAPPERS", "NEG_INF", "TILE",
+    "FlashAttention", "FlashChunk", "HEAD_DIMS", "KERNEL_WRAPPERS", "NEG_INF",
+    "TILE",
     "flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
     "flash_attention_fwd", "flash_bwd_dkv_flops", "flash_bwd_dkv_plain",
+    "flash_chunk",
     "flash_bwd_dq_flops", "flash_bwd_dq_plain", "flash_fwd_flops",
     "flash_fwd_plain", "supports_flash",
 ]

@@ -1,3 +1,3 @@
 """Parallel strategies beyond data mode: pipeline (stage) parallelism
-(``pipeline``).  Tensor and sequence parallelism wait for ROADMAP Slice
-4b."""
+(``pipeline``) and sequence parallelism, ring and Ulysses attention
+(``sequence``).  Tensor parallelism waits for ROADMAP Slice 4b."""

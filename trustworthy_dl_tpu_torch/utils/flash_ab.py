@@ -27,8 +27,16 @@ dk/dv kernel, and the whole backward of each build as
 dk/dv), beside the Delta reduction alone (``delta``) and SDPA's whole
 backward (``sdpa_bwd``: ``torch.autograd.grad`` through causal SDPA,
 every kernel of it; ``sdpa_bwd_kernels`` names them, so the record says
-which backend torch picked).  Then the card's name and power limit.
-About a minute for both passes, the other build's nvcc included.
+which backend torch picked).
+
+Then the non-causal instances (``causal=False``, the ring attention's
+chunks), one JSON line per shape (``"pass": "full"``) at the ring's chunk
+[96, 256, 64] and at the same three shapes: this build's
+``tddl_flash_fwd_full``, ``tddl_flash_bwd_dq_full`` and
+``tddl_flash_bwd_dkv_full`` held against the twins at ``causal=False``,
+timed in turns beside SDPA's forward and whole backward with
+``is_causal=False``.  Then the card's name and power limit.  About a
+minute and a half for the three passes, the other build's nvcc included.
 
     python -m trustworthy_dl_tpu_torch.utils.flash_ab --f64
 
@@ -50,6 +58,8 @@ import numpy as np
 import torch
 
 SHAPES = ((96, 1024, 64), (96, 1024, 32), (48, 1024, 128))
+#: The non-causal pass's shapes: the ring's chunk, then SHAPES.
+FULL_SHAPES = ((96, 256, 64),) + SHAPES
 #: f32 ulps by which :func:`f64_record` moves P and dP at most.
 ULP_MOVES = (1, 4, 16)
 
@@ -139,8 +149,64 @@ def main(argv=None) -> int:
         print(json.dumps(backward_record(
             fa, ab, F, flush, args.reps, gen, bh, t, d, other_dq, other_dkv,
             worst)), flush=True)
+    for bh, t, d in FULL_SHAPES:
+        print(json.dumps(full_record(
+            fa, ab, F, flush, args.reps, gen, bh, t, d, worst)), flush=True)
     print(ab.card_line())
     return 0
+
+
+def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst):
+    """One shape of the non-causal pass (module docstring)."""
+    dev = flush.device
+    q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, False)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, False)
+    dq = fa.flash_attention_bwd_dq(*args, False)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, False)
+    torch.cuda.synchronize()
+    ratios = {"o": worst(o, o_ref),
+              "dq": worst(dq, fa.flash_bwd_dq_plain(*args, False))}
+    for name, got, ref in zip(("dk", "dv"), (dk, dv),
+                              fa.flash_bwd_dkv_plain(*args, False)):
+        ratios[name] = worst(got, ref)
+    record = {"pass": "full", "bhtd": [bh, t, d],
+              "this_err_over_tolerance": ratios,
+              "this_lse_max_abs_err": float((lse - lse_ref).abs().max()),
+              "this_within_tolerance": max(ratios.values()) <= 1.0}
+    del o_ref, lse_ref, dq, dk, dv
+
+    def this_pair():
+        dl = (do.float() * o.float()).sum(dim=-1)
+        return (fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, False),
+                fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl, False))
+
+    q4, k4, v4 = (a.view(1, bh, t, d).clone().requires_grad_()
+                  for a in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=False)
+    do4 = do.view(1, bh, t, d)
+    arms = {"this_fwd": lambda: fa.flash_attention_fwd(q, k, v, False),
+            "this_dq": lambda: fa.flash_attention_bwd_dq(*args, False),
+            "this_dkv": lambda: fa.flash_attention_bwd_dkv(*args, False),
+            "this_pair": this_pair,
+            "sdpa_fwd": lambda: F.scaled_dot_product_attention(
+                q4.detach(), k4.detach(), v4.detach(), is_causal=False),
+            "sdpa_bwd": lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True)}
+    record.update(ab.in_turns(
+        arms, ("this_fwd", "this_dq", "this_dkv", "this_pair", "sdpa_fwd",
+               "sdpa_bwd"), flush, reps,
+        launches={"this_fwd": 1, "this_dq": 1, "this_dkv": 1}))
+    best = {name: min(record[f"{name}_device_ms"]) for name in arms}
+    record["this_fwd_over_sdpa_fwd"] = best["this_fwd"] / best["sdpa_fwd"]
+    record["this_pair_over_sdpa_bwd"] = best["this_pair"] / best["sdpa_bwd"]
+    flops = 2 * bh * d * t * t * 2
+    record["this_fwd_device_tflops"] = flops / (best["this_fwd"] * 1e-3) \
+        / 1e12
+    return record
 
 
 def backward_record(fa, ab, F, flush, reps, gen, bh, t, d, other_dq,

@@ -40,8 +40,10 @@ def other_library(source: Path, name: str) -> ctypes.CDLL:
     """``source`` (another ``csrc/<name>.cu``) built with the checkout's
     flags (``csrc/`` is on the include path, so it takes the checkout's
     headers), loaded, with every entry of ``ops.SIGNATURES[name]``
-    declared.  The library is keyed by the flags, the source and every
-    ``csrc/*.cuh``, as ``ops.library_path`` keys the checkout's."""
+    declared (an entry the other source lacks, such as one added since,
+    is left out: ``hasattr(lib, entry)`` says which it has).  The library
+    is keyed by the flags, the source and every ``csrc/*.cuh``, as
+    ``ops.library_path`` keys the checkout's."""
     flags = [*ops.NVCC_FLAGS, "-I", str(ops.CSRC)]
     digest = hashlib.sha256(" ".join(flags).encode() + source.read_bytes())
     for header in sorted(ops.CSRC.glob("*.cuh")):
@@ -59,6 +61,8 @@ def other_library(source: Path, name: str) -> ctypes.CDLL:
         os.replace(tmp, target)
     lib = ctypes.CDLL(str(target))
     for fn, (argtypes, restype) in ops.SIGNATURES[name].items():
+        if not hasattr(lib, fn):
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
