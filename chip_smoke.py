@@ -276,6 +276,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
    both.  Then a 2-step ``cli train
    --parallelism sequence``, a ring of 1: B2 launches as data mode's at
    that shape.
+10d. group_modes: GPT-2 small at full width on position meshes over
+   the card, 4 nodes x 2 x 1024, no remat, node 2 poisoned from step 5:
+   data mode, then tensor on ``build_mesh(4, "tensor", devices=["cuda"]
+   * 8)`` (4, 2), hybrid ``{data: 4, model: 2}`` and data mode with
+   ``shard_opt_state`` and ``shard_params`` on 4 data positions, 7 steps
+   each: every step's loss, trust, gates and statuses equal to data
+   mode's bit for bit, B1-B3 exact (336 of each flash kernel, 14 B1) and
+   equal, the params' and moments' bytes a position
+   (``tree_bytes_per_device`` over the specs) equal to the arithmetic of
+   GPT-2 small's shapes, printed beside ``torch.cuda.memory_allocated``.
+   ``gpt2-moe`` (8 experts, block remat) on a (4, 2) data x expert mesh,
+   2 steps of 4 x 1 x 1024, equal to its data-mode run bit for bit, the
+   expert mesh bound. Tensor mode with ``elastic_resharding`` (depth 0):
+   node 2 evicted at step 7 to a (3, 2) mesh of 6 positions, the attack
+   cleared, readmitted at step 9 to (4, 2), the records and node maps as
+   predicted, the layout then equal to a fresh tensor trainer's, B1-B3
+   exact over the 38 node-steps.
 
 11. vision: ``ExperimentRunner`` on the three vision presets at their
    own configuration (8 nodes, batch 32, synthetic CIFAR-10 32x32x3
@@ -592,6 +609,20 @@ SEQ_CASES = ((96, 256), (96, 1024))
 SEQ_RING, SEQ_ATTN_SHAPE, SEQ_ERR_RATIO = 4, (8, 12, 1024, 64), 2.0
 SEQ_STEPS, SEQ_ATTACK, SEQ_BUSY_STEP, SEQ_LOSS_RTOL = 8, 5, 3, 5e-4
 SEQ_CLI_STEPS = 2
+# group_modes: GPT-2 small at full width on position meshes over the
+# card, 4 nodes x GROUP_ROWS x 1024 tokens.  Arms (a) data, (b) tensor on
+# a (4, 2) mesh, (c) hybrid {data: 4, model: 2}, (d) data with ZeRO-1 and
+# FSDP on 4 data positions: GROUP_STEPS steps with node 2 poisoned from
+# GROUP_ATTACK (detector_warmup 4), every step's loss, trust, gate and
+# status bit-equal to (a)'s, B1-B3 exact and equal.  (e) gpt2-moe (8
+# experts, block remat) on a (4, 2) data x expert mesh beside its own
+# data-mode run, GROUP_MOE_STEPS clean steps of GROUP_MOE_ROWS rows a
+# node, bit-equal.  (f) tensor with elastic_resharding at async depth 0:
+# node 2 confirmed at step GROUP_ATTACK + 2 and evicted (mesh (3, 2)), the
+# attack cleared, readmitted GROUP_READMIT steps later (mesh (4, 2)), one
+# more step; its layout then equals a fresh tensor trainer's.
+GROUP_ROWS, GROUP_STEPS, GROUP_ATTACK = 2, 7, 5
+GROUP_MOE_ROWS, GROUP_MOE_STEPS, GROUP_READMIT = 1, 2, 2
 # vision: the runner's three vision presets at their own configuration (8
 # nodes, batch 32, CIFAR-10's 32x32x3 images and 10 classes, bf16, full
 # published widths), epochs cut to fit: (preset, epochs, steps an epoch,
@@ -5206,6 +5237,291 @@ def sequence_drive(torch, entries, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def group_bytes_want(cfg, ways):
+    """Params a position of GPT-2 ``cfg`` under each layout, from the
+    shapes alone (f32): ``tensor`` halves the six column- and row-parallel
+    block leaves over ``ways`` (qkv and fc weights and biases, both proj
+    weights), ``fsdp`` divides every leaf (each has a dim divisible by
+    ``ways``), ``full`` is the whole tree."""
+    d, v, p, n = cfg.n_embd, cfg.vocab_size, cfg.n_positions, cfg.n_layer
+    block = 2 * d + (d * 3 * d + 3 * d) + (d * d + d) + 2 * d + \
+        (d * 4 * d + 4 * d) + (4 * d * d + d)
+    full = v * d + p * d + 2 * d + n * block
+    tp_sharded = n * (d * 3 * d + 3 * d + d * d + d * 4 * d + 4 * d
+                      + 4 * d * d)
+    return {"full": 4 * full, "tensor": 4 * (full - tp_sharded
+                                             + tp_sharded // ways),
+            "fsdp": 4 * full // ways}
+
+
+def group_modes_drive(torch, entries, card, dev="cuda", n_layer=12,
+                      seq_len=TRAIN_T):
+    """Phase 10d: the tensor, hybrid and expert modes, ZeRO-1 and FSDP, and
+    the group modes of ``elastic/`` on the card (module docstring).  A
+    rehearsal on the CPU passes ``dev="cpu"`` and a shallower, shorter
+    model (the CPU counts no launch)."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.attacks import AdversarialAttacker
+    from trustworthy_dl_tpu_torch.attacks.adversarial import null_plan
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+    from trustworthy_dl_tpu_torch.core.config import AttackConfig, \
+        TrainingConfig
+    from trustworthy_dl_tpu_torch.core.mesh import build_mesh
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
+    from trustworthy_dl_tpu_torch.models import moe as tmoe
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
+
+    cfg = gpt2_small(torch, n_layer=n_layer)
+    batch = TRAIN_NODES * GROUP_ROWS
+    positions = [dev] * 8
+    tmp = tempfile.mkdtemp(prefix="tddl_group_")
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def allocated():
+        return torch.cuda.memory_allocated() if dev == "cuda" else 0
+    t0 = time.perf_counter()
+    parts = {}
+
+    def trainer(parallelism="data", mesh=None, model="gpt2", rows=GROUP_ROWS,
+                attack=True, **kw):
+        tr = DistributedTrainer(TrainingConfig(
+            model_name=model, batch_size=TRAIN_NODES * rows,
+            num_nodes=TRAIN_NODES, optimizer="adamw", learning_rate=1e-4,
+            seed=0, detector_warmup=4, parallelism=parallelism,
+            checkpoint_interval=10 ** 6, checkpoint_dir=tmp, **kw),
+            mesh=mesh, model_overrides=dict(seq_len=seq_len,
+                                            n_layer=n_layer), device=dev)
+        tr.initialize()
+        if attack:
+            attacker = AdversarialAttacker(AttackConfig(
+                attack_types=["gradient_poisoning"], target_nodes=[2],
+                intensity=1.0, start_step=GROUP_ATTACK))
+            attacker.activate_attacks()
+            tr.set_attack_plan(attacker.plan(TRAIN_NODES, dev))
+        return tr
+
+    def loader(rows, steps, seed=0):
+        return get_dataloader("openwebtext", batch_size=TRAIN_NODES * rows,
+                              seq_len=seq_len, vocab_size=cfg.vocab_size,
+                              num_examples=TRAIN_NODES * rows * steps,
+                              seed=seed)
+
+    def done(tr):
+        tr.cleanup()
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    def run(name, tr, rows=GROUP_ROWS, steps=GROUP_STEPS):
+        """One arm: its trajectory, launches and layout figures."""
+        statuses = record_status(tr)
+        sync()
+        resident = allocated()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        tr.train_epoch(loader(rows, steps), 0)
+        sync()
+        parts[f"{name}_s"] = time.perf_counter() - t1
+        hist = list(tr.batch_history)
+        tree = shreg.opt_state_tree(tr.state.opt_state)
+        out = {"mesh": dict(tr.mesh.shape),
+               "trajectory": {
+                   "loss": [h["loss"] for h in hist],
+                   "trust": [h["trust_scores"] for h in hist],
+                   "weights": [h["weights"] for h in hist],
+                   "attacked": [h["attacked"] for h in hist],
+                   "status": statuses,
+                   "drop": [h.get("moe_drop_fraction") for h in hist]},
+               "incidents": [(r["node_id"], r["step"], r["attack_type"])
+                             for r in tr.attack_history],
+               "launches": ops.launch_counts(),
+               "params_bytes_per_position": shreg.tree_bytes_per_device(
+                   tr.state.params, tr.specs["params"], tr.mesh),
+               "opt_bytes_per_position": shreg.tree_bytes_per_device(
+                   tree, tr.specs["opt_state"], tr.mesh),
+               "params_bytes": shreg.tree_bytes_per_device(tr.state.params),
+               "memory_allocated_bytes": allocated(),
+               "resident_before_bytes": resident,
+               "step_ms": [1e3 * h["step_s"] for h in hist
+                           if h["step_s"] is not None]}
+        out["specs"] = tr.specs
+        done(tr)
+        return out
+
+    try:
+        fsdp_mesh = build_mesh(TRAIN_NODES, "data",
+                               devices=positions[:TRAIN_NODES])
+        arms = {
+            "data": run("data", trainer()),
+            "tensor": run("tensor", trainer("tensor", build_mesh(
+                TRAIN_NODES, "tensor", devices=positions))),
+            "hybrid": run("hybrid", trainer(
+                "hybrid", mesh_shape={"data": TRAIN_NODES, "model": 2})),
+            "fsdp": run("fsdp", trainer(
+                "data", fsdp_mesh, shard_opt_state=True, shard_params=True)),
+        }
+        want_mesh = {"data": {"data": 1},
+                     "tensor": {"data": TRAIN_NODES, "model": 2},
+                     "hybrid": {"data": TRAIN_NODES, "model": 2},
+                     "fsdp": {"data": TRAIN_NODES}}
+        want = step_launches(cfg, [TRAIN_NODES] * GROUP_STEPS, remat=False)
+        base = arms["data"]
+        expect_gating([dict(weights=w, attacked=a) for w, a in zip(
+            base["trajectory"]["weights"], base["trajectory"]["attacked"])],
+            GROUP_ATTACK, "group_modes (data)")
+        incident = [(2, GROUP_ATTACK + 2, "gradient_poisoning")]
+        for name, arm in arms.items():
+            if arm["mesh"] != want_mesh[name]:
+                raise AssertionError(f"group_modes {name}: mesh "
+                                     f"{arm['mesh']}, want {want_mesh[name]}")
+            expect_launches_equal(arm["launches"], want,
+                                  f"group_modes {name}")
+            if arm["trajectory"] != base["trajectory"] or \
+                    arm["incidents"] != incident or \
+                    len(arm["trajectory"]["loss"]) != GROUP_STEPS or \
+                    not all(math.isfinite(x)
+                            for x in arm["trajectory"]["loss"]):
+                raise AssertionError(
+                    f"group_modes {name}: trajectory "
+                    f"{arm['trajectory']['loss']} incidents "
+                    f"{arm['incidents']}, data mode's "
+                    f"{base['trajectory']['loss']} {base['incidents']}")
+        figures = group_bytes_want(cfg, 2)
+        fsdp = group_bytes_want(cfg, TRAIN_NODES)
+        bytes_want = {"data": (figures["full"], 2 * figures["full"]),
+                      "tensor": (figures["tensor"], 2 * figures["tensor"]),
+                      "hybrid": (figures["tensor"], 2 * figures["tensor"]),
+                      "fsdp": (fsdp["fsdp"], 2 * fsdp["fsdp"])}
+        for name, (p_want, moments) in bytes_want.items():
+            arm = arms[name]
+            # AdamW's two f32 moments, and the count (a replicated i32).
+            if arm["params_bytes_per_position"] != p_want or \
+                    arm["opt_bytes_per_position"] != moments + 4 or \
+                    arm["params_bytes"] != figures["full"]:
+                raise AssertionError(
+                    f"group_modes {name}: {arm['params_bytes_per_position']}"
+                    f" / {arm['opt_bytes_per_position']} bytes a position, "
+                    f"the shapes say {p_want} / {moments + 4}")
+        if arms["tensor"]["specs"] != arms["hybrid"]["specs"]:
+            raise AssertionError("group_modes: the hybrid layout is not the "
+                                 "tensor layout")
+
+        # (e) expert parallelism on the MoE model beside its data mode.
+        moe = {}
+        for name, kw in (("expert", dict(parallelism="expert",
+                                         mesh=build_mesh(
+                                             TRAIN_NODES, "expert",
+                                             devices=positions))),
+                         ("moe_data", {})):
+            tr = trainer(model="gpt2-moe", rows=GROUP_MOE_ROWS,
+                         attack=False, remat=True, **kw)
+            leaves = len(tree_leaves(tr.state.params))
+            moe_cfg = tr.model.config
+            if name == "expert" and tmoe.get_expert_mesh() is not tr.mesh:
+                raise AssertionError("group_modes expert: the trainer did "
+                                     "not bind its expert mesh")
+            moe[name] = run(name, tr, rows=GROUP_MOE_ROWS,
+                            steps=GROUP_MOE_STEPS)
+        tmoe.set_expert_mesh(None)
+        moe_want = moe_launches(moe_cfg, GROUP_MOE_STEPS, leaves)
+        for name, arm in moe.items():
+            expect_launches_equal(arm["launches"], moe_want,
+                                  f"group_modes {name}")
+        if moe["expert"]["trajectory"] != moe["moe_data"]["trajectory"] or \
+                moe["expert"]["mesh"] != {"data": TRAIN_NODES,
+                                          "expert": 2} or \
+                not all(0.0 <= d < 1.0
+                        for d in moe["expert"]["trajectory"]["drop"]):
+            raise AssertionError(
+                f"group_modes expert: {moe['expert']['trajectory']} vs "
+                f"data mode's {moe['moe_data']['trajectory']}, mesh "
+                f"{moe['expert']['mesh']}")
+
+        # (f) group eviction and readmission in tensor mode.
+        t1 = time.perf_counter()
+        tr = trainer("tensor", build_mesh(TRAIN_NODES, "tensor",
+                                          devices=positions),
+                     elastic_resharding=True,
+                     readmit_after_steps=GROUP_READMIT, async_host_depth=0,
+                     prefetch_depth=0)
+        ops.reset_launch_counts()
+        tr.train_epoch(loader(GROUP_ROWS, GROUP_STEPS), 0)
+        meshes = [tuple(tr.mesh.devices.shape)]
+        maps = [list(tr.node_map)]
+        tr.set_attack_plan(null_plan(tr.config.num_nodes, dev))
+        tail = GROUP_READMIT + 1
+        examples = 3 * GROUP_ROWS * GROUP_READMIT + batch
+        tr.train_epoch(get_dataloader(
+            "openwebtext", batch_size=3 * GROUP_ROWS, seq_len=seq_len,
+            vocab_size=cfg.vocab_size, num_examples=examples, seed=1), 1)
+        meshes.append(tuple(tr.mesh.devices.shape))
+        maps.append(list(tr.node_map))
+        f_launches = ops.launch_counts()
+        parts["elastic_s"] = time.perf_counter() - t1
+        hist = list(tr.batch_history)
+        nodes = [len(h["per_node_loss"]) for h in hist]
+        evict_step = GROUP_ATTACK + 2
+        records = [{k: v for k, v in r.items()
+                    if k not in ("timestamp", "migration_time_s",
+                                 "bytes_moved", "measured_gbps")}
+                   for r in tr.reassignment_history]
+        want_records = [
+            {"evicted_nodes": [2], "surviving_nodes": [0, 1, 3],
+             "new_device_count": 6, "step": evict_step},
+            {"readmitted_nodes": [2], "all_nodes": [0, 1, 3, 2],
+             "new_device_count": 8, "step": evict_step + GROUP_READMIT}]
+        want_nodes = [TRAIN_NODES] * GROUP_STEPS + [3] * GROUP_READMIT + \
+            [TRAIN_NODES]
+        specs_fresh = arms["tensor"]["specs"]
+        expect_gating(hist[:GROUP_STEPS], GROUP_ATTACK, "group_modes elastic")
+        if records != want_records or nodes != want_nodes or \
+                meshes != [(3, 2), (TRAIN_NODES, 2)] or \
+                maps != [[0, 1, 3], [0, 1, 3, 2]] or \
+                tr.specs != specs_fresh or len(hist) != GROUP_STEPS + tail:
+            raise AssertionError(
+                f"group_modes elastic: records {records} (want "
+                f"{want_records}), nodes {nodes} (want {want_nodes}), meshes "
+                f"{meshes}, maps {maps}, specs fresh "
+                f"{tr.specs == specs_fresh}")
+        f_want = step_launches(cfg, nodes, remat=False)
+        expect_launches_equal(f_launches, f_want, "group_modes elastic")
+        elastic = {"records": [{k: v for k, v in r.items()
+                                if k != "timestamp"}
+                               for r in tr.reassignment_history],
+                   "nodes_per_step": nodes, "meshes": meshes,
+                   "losses": [h["loss"] for h in hist],
+                   "launches": f_launches}
+        done(tr)
+
+        for name in want:
+            entries[name]["launches_group_modes"] = \
+                4 * want[name] + 2 * moe_want[name] + f_want[name]
+        emit({"phase": "group_modes", "card": card,
+              "seconds": time.perf_counter() - t0, "parts_s": parts,
+              "model": f"gpt2 ({n_layer}L, 768, 12H, V50257, bf16 over f32 "
+                       "master weights, random init seed 0); gpt2-moe (8 "
+                       "experts, top-2) for the expert arm",
+              "nodes": TRAIN_NODES, "rows_per_node": GROUP_ROWS,
+              "seq_len": seq_len, "steps": GROUP_STEPS,
+              "attack_start": GROUP_ATTACK, "incident": incident,
+              "arms": {name: {k: v for k, v in arm.items()
+                              if k not in ("specs", "trajectory")}
+                       for name, arm in {**arms, **moe}.items()},
+              "losses": base["trajectory"]["loss"],
+              "moe_losses": moe["moe_data"]["trajectory"]["loss"],
+              "bytes_per_position_want": {"params": {
+                  k: v[0] for k, v in bytes_want.items()}},
+              "expected_launches": want, "expected_launches_moe": moe_want,
+              "elastic": elastic})
+    finally:
+        tmoe.set_expert_mesh(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def b1_at_mix(torch, shapes, nodes, flush, full=False):
     """B1 over a drive's gradient battery (every leaf of every node, at
     most ``MAX_SEGMENTS`` a launch, split as the step splits it) on random
@@ -6565,6 +6881,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sequence_drive(torch, entries, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    group_modes_drive(torch, entries, smi)
     gc.collect()
     torch.cuda.empty_cache()
     vision_drive(torch, entries, smi)

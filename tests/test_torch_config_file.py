@@ -5,12 +5,13 @@ The same files (YAML and JSON; the nested README schema and flat field
 names) resolve to the same ``TrainingConfig`` values in both packages,
 field for field over the port's fields.  Overrides that are not None win
 over the file.  No key that JAX applies is dropped without a word: the
-mesh and sharding keys raise ``NotImplementedError`` naming ROADMAP Slice
-4, another JAX-only field at a value other than JAX's default raises by
+mesh and sharding keys (``mesh_shape``, ``dcn_mesh_shape``,
+``shard_params``, ``shard_opt_state``) resolve to JAX's values,
+another JAX-only field at a value other than JAX's default raises by
 name, ``compilation_cache_dir`` (XLA's compile cache) warns once, and a
 JAX-only field at JAX's default asks for nothing and loads.  A
-``parallelism`` other than "data" passes through and the trainer refuses
-it; ``load_experiment_config`` keeps its behaviour.
+``parallelism`` other than "data" passes through and the trainer builds
+its mesh; ``load_experiment_config`` keeps its behaviour.
 """
 
 import dataclasses
@@ -100,13 +101,17 @@ def test_overrides_that_are_not_none_win(tmp_path):
 ], ids=["mesh_shape", "dcn_mesh_shape", "flat_mesh_shape", "shard_params",
         "shard_opt_state"])
 def test_slice_4_keys_are_refused(tmp_path, raw):
+    """The mesh and sharding keys, refused until the port had the tensor,
+    hybrid and expert modes and ZeRO-1 / FSDP placement, now resolve to
+    JAX's values (the nested ``distributed`` section and flat names)."""
     path = _write(tmp_path, raw, "yaml")
     jax_ = jload_config(path)       # JAX applies the key ...
     key = next(iter(raw["distributed"])) if "distributed" in raw \
         else next(iter(raw))
     assert getattr(jax_, key) != getattr(JTrainingConfig(), key)
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        load_config(path)           # ... the port refuses it by name
+    port = load_config(path)        # ... and so does the port
+    assert getattr(port, key) == getattr(jax_, key)
+    assert _fields(port) == {k: getattr(jax_, k) for k in _fields(port)}
 
 
 def test_other_jax_fields_are_refused_by_name(tmp_path):
@@ -146,14 +151,27 @@ def test_unknown_keys_are_ignored_like_jax(tmp_path):
 
 
 def test_parallelism_passes_through_and_the_trainer_refuses(tmp_path):
+    """A file's ``parallelism`` reaches the trainer, which builds the
+    mode's mesh (tensor mode without positions: JAX's one-device
+    layout) where it refused the mode before; a hybrid file's
+    ``mesh_shape`` builds its positions."""
     from trustworthy_dl_tpu_torch.engine.trainer import DistributedTrainer
 
+    tiny = dict(n_layer=1, n_embd=16, n_head=2, vocab_size=64,
+                n_positions=16, seq_len=8)
     path = _write(tmp_path, {"distributed": {"parallelism": "tensor"}},
                   "yaml")
     config = load_config(path)
     assert config.parallelism == jload_config(path).parallelism == "tensor"
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        DistributedTrainer(config, device="cpu")
+    tr = DistributedTrainer(config, model_overrides=tiny, device="cpu")
+    assert tr.mesh.shape == {"data": 1, "model": 1}
+    path = _write(tmp_path, {"distributed": {
+        "parallelism": "hybrid", "mesh_shape": {"data": 2, "model": 2}}},
+        "json")
+    config = load_config(path)
+    assert config.mesh_shape == jload_config(path).mesh_shape
+    tr = DistributedTrainer(config, model_overrides=tiny, device="cpu")
+    assert tr.mesh.shape == {"data": 2, "model": 2}
 
 
 def test_new_fields_default_as_in_jax():

@@ -296,15 +296,25 @@ def test_resume_onto_the_saved_topology_keeps_the_cooloff(runs):
 
 
 def test_other_modes_still_raise_naming_their_item():
-    state_cfg = TrainingConfig(parallelism="tensor")
+    """The group modes evict now, as in JAX (``ELASTIC_MODES``): tensor
+    mode with ``elastic_resharding`` constructs.  What JAX refuses the
+    port refuses with JAX's words: a pipeline stage restaffs instead,
+    and a hybrid layout whose data extent is not the node count cannot
+    reshape (the trainer keeps the greedy hand-off there)."""
+    assert el.ELASTIC_MODES == jel.ELASTIC_MODES
+    for parallelism, kw, match in (
+            ("model", {}, "restaff"),
+            ("hybrid", dict(mesh_shape={"data": 2, "model": 2}),
+             "hybrid elasticity requires")):
+        class Stub:
+            config = TrainingConfig(parallelism=parallelism, **kw)
 
-    class Stub:
-        config = state_cfg
-
-    for fn in (el.evict_and_reshard, el.readmit_and_reshard):
-        with pytest.raises(NotImplementedError, match="Slice 4"):
-            fn(Stub(), [0])
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        DistributedTrainer(TrainingConfig(parallelism="tensor",
-                                          elastic_resharding=True),
-                           model_overrides=dict(TINY), device="cpu")
+        assert not el.elastic_supported(Stub.config)
+        for fn in (el.evict_and_reshard, el.readmit_and_reshard):
+            with pytest.raises(NotImplementedError, match=match):
+                fn(Stub(), [0])
+    tr = DistributedTrainer(TrainingConfig(parallelism="tensor",
+                                           elastic_resharding=True),
+                            model_overrides=dict(TINY), device="cpu")
+    assert el.elastic_supported(tr.config)
+    assert tr.mesh.shape == {"data": 1, "model": 1}

@@ -507,14 +507,27 @@ def test_cli_trains_gpt2_moe_on_the_cpu(capsys, tmp_path):
     assert "Training completed: 2 steps" in out
 
 
-def test_expert_parallelism_is_refused_naming_slice_4(capsys):
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        DistributedTrainer(TrainingConfig(model_name="gpt2-moe",
-                                          num_nodes=2,
-                                          parallelism="expert"),
-                           model_overrides=dict(TINY), device="cpu")
+def test_expert_parallelism_is_refused_naming_slice_4(capsys, tmp_path):
+    """Expert parallelism, refused before the port had it, trains as in
+    JAX: the trainer builds the (data, expert) mesh (one position by
+    default, JAX's one-device layout) and binds it as the expert mesh;
+    ``cli train --parallelism expert`` trains."""
+    from trustworthy_dl_tpu_torch.models import moe as tmoe
+
+    tr = DistributedTrainer(TrainingConfig(model_name="gpt2-moe",
+                                           num_nodes=2,
+                                           parallelism="expert",
+                                           checkpoint_dir=str(tmp_path)),
+                            model_overrides=dict(TINY), device="cpu")
+    assert tr.mesh.axis_names == ("data", "expert")
+    assert tmoe.get_expert_mesh() is tr.mesh
     from trustworthy_dl_tpu_torch.cli import train_main
 
     assert train_main(["--device", "cpu", "--model", "gpt2-moe",
-                       "--parallelism", "expert"]) == 2
-    assert "Slice 4" in capsys.readouterr().out
+                       "--parallelism", "expert", "--nodes", "2",
+                       "--batch-size", "4", "--seq-len", "16",
+                       "--steps-per-epoch", "1", "--epochs", "1",
+                       "--checkpoint-dir", str(tmp_path / "cli")],
+                      model_overrides=dict(ARCH, n_experts=4)) == 0
+    assert "Training completed: 1 steps" in capsys.readouterr().out
+    tmoe.set_expert_mesh(None)

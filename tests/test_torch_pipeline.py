@@ -190,9 +190,15 @@ def test_mesh_and_rules():
         assert dict(rules.table) == dict(jrules.table)
         assert rules.partition_spec("stage", None) == \
             tuple(jrules.partition_spec("stage", None))
-    for mode in ("tensor", "expert", "hybrid"):
-        with pytest.raises(NotImplementedError, match="Slice 4b"):
-            tmesh.build_mesh(4, mode)
+    # The tensor and expert arms without positions: JAX's one-device
+    # layout; hybrid needs its mesh_shape in both packages.
+    one = jbuild_mesh(S, "data").devices.flat[:1]
+    for mode in ("tensor", "expert"):
+        jone = jbuild_mesh(4, mode, devices=list(one))
+        assert tmesh.build_mesh(4, mode).shape == dict(jone.shape)
+    for build in (tmesh.build_mesh, jbuild_mesh):
+        with pytest.raises(ValueError, match="requires mesh_shape"):
+            build(4, "hybrid")
     assert tmesh.build_mesh(4, "sequence").shape == {"data": 1, "seq": 1}
     place = tsharding.row_placer(mesh, "stage", S)
     assert place(torch.ones(S, 2)).device == torch.device("cpu")

@@ -12,7 +12,9 @@ the adaptive adversary ``chaos/adversary.py`` and the serve envelope;
 pipeline parallelism: ``core/mesh.py``, ``core/sharding.py``,
 ``parallel/pipeline.py``, ``elastic/restaff.py`` and the schedule study
 ``experiments/pipeline_study.py``; sequence parallelism,
-``parallel/sequence.py``).
+``parallel/sequence.py``; tensor parallelism,
+``parallel/tensor_parallel.py``, with the layout registry and the group
+modes of ``elastic/``).
 ``serve/control.py`` and ``chaos/adversary.py`` import no torch at all,
 as their JAX counterparts import no jax.  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
@@ -63,7 +65,8 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.parallel.pipeline",
                "trustworthy_dl_tpu_torch.elastic.restaff",
                "trustworthy_dl_tpu_torch.experiments.pipeline_study",
-               "trustworthy_dl_tpu_torch.parallel.sequence")
+               "trustworthy_dl_tpu_torch.parallel.sequence",
+               "trustworthy_dl_tpu_torch.parallel.tensor_parallel")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

@@ -323,7 +323,8 @@ def test_model_mode_eviction_routes_to_the_restaff():
     for fn in (el.evict_and_reshard, el.readmit_and_reshard):
         with pytest.raises(NotImplementedError, match="restaff"):
             fn(Stub(), [0])
-    assert el.ELASTIC_MODES == ("data",)
+    assert el.ELASTIC_MODES == ("data", "tensor", "sequence", "expert",
+                                "hybrid")
     with pytest.raises(ValueError, match="parallelism='model'"):
         restaff.restaff_pipeline(type("T", (), {
             "config": dataclasses.replace(Stub.config,

@@ -410,19 +410,23 @@ def test_trainer_sequence_detects_the_attack_as_jax(trainers):
 
 def test_trainer_sequence_defaults_and_refusals(tmp_path):
     """``attn_impl`` defaults to ``"ring"`` in sequence mode (a ring of 1
-    without a mesh, JAX's one-device layout); elastic eviction there is
-    refused at construction, naming its ROADMAP item."""
+    without a mesh, JAX's one-device layout); elastic eviction there,
+    refused until the group modes of ``elastic/`` were ported, now
+    constructs (``tests/test_torch_elastic_modes.py`` evicts)."""
     tr = DistributedTrainer(
         TrainingConfig(checkpoint_dir=str(tmp_path), **CONFIG),
         model_overrides=dict(TINY, dtype=torch.float32), device="cpu")
     assert tr.model.config.attn_impl == "ring"
     assert tr.mesh.devices.shape == (1, 1)
     assert seq.get_sequence_mesh() is tr.mesh
-    with pytest.raises(NotImplementedError, match="item 27"):
-        DistributedTrainer(
-            TrainingConfig(checkpoint_dir=str(tmp_path),
-                           elastic_resharding=True, **CONFIG),
-            model_overrides=dict(TINY, dtype=torch.float32), device="cpu")
+    from trustworthy_dl_tpu_torch.elastic.reassignment import \
+        elastic_supported
+
+    elastic = DistributedTrainer(
+        TrainingConfig(checkpoint_dir=str(tmp_path),
+                       elastic_resharding=True, **CONFIG),
+        model_overrides=dict(TINY, dtype=torch.float32), device="cpu")
+    assert elastic_supported(elastic.config)
     seq.set_sequence_mesh(None)
 
 

@@ -137,8 +137,8 @@ def test_save_checkpoint_refuses_non_finite_params(tmp_path):
     assert trainer.save_checkpoint() is not None
     assert trainer.checkpointer.load_metadata(1) == {
         "num_nodes": 4, "node_map": [0, 1, 2, 3], "parallelism": "data",
-        "compromised_nodes": [], "evicted_at": {}, "evicted_devices": {},
-        "idle_pool": {}}
+        "mesh_devices": ["cpu"], "compromised_nodes": [], "evicted_at": {},
+        "evicted_devices": {}, "idle_pool": {}}
     trainer.state = trainer.state._replace(
         params=_corrupt_largest_leaf(trainer.state.params))
     trainer.global_step = 2
@@ -149,7 +149,8 @@ def test_save_checkpoint_refuses_non_finite_params(tmp_path):
 def test_resume_onto_another_node_count_waits_for_elastic(tmp_path):
     """Elastic data mode is ported: a trainer built for 2 nodes resumes a
     4-node checkpoint onto its saved topology, and the elastic knobs
-    construct.  A mode not ported still raises, naming its item."""
+    construct.  Tensor mode, not ported when this was written, now
+    constructs on its one-position mesh."""
     ckpt = str(tmp_path / "ckpt")
     trainer = DistributedTrainer(_config(ckpt), model_overrides=dict(TINY),
                                  device="cpu")
@@ -167,9 +168,9 @@ def test_resume_onto_another_node_count_waits_for_elastic(tmp_path):
     for kw in (dict(elastic_resharding=True), dict(readmit_after_steps=5)):
         DistributedTrainer(_config(ckpt, **kw), model_overrides=dict(TINY),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DistributedTrainer(_config(ckpt, parallelism="tensor"),
-                           model_overrides=dict(TINY), device="cpu")
+    tensor = DistributedTrainer(_config(ckpt, parallelism="tensor"),
+                                model_overrides=dict(TINY), device="cpu")
+    assert tensor.mesh.shape == {"data": 1, "model": 1}
 
 
 def _attacked_trainer(ckpt_dir):

@@ -478,16 +478,18 @@ def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
     stages of the tiny model's 2 layers do not divide, so 2 nodes here;
     sequence mode without a mesh: JAX's one-device layout on the port's
     one position, a ring of 1, where JAX's CLI builds its sequence
-    trainer over its 8 devices, checked here on the tiny model); a mode
-    the port has not got exits 2 naming Slice 4b (JAX trains it)."""
+    trainer over its 8 devices, checked here on the tiny model); tensor
+    mode, once refused, trains too (one position: a TP group of 1, where
+    JAX's CLI builds its (4, 2) tensor trainer)."""
     seen = {}
 
     class JTrainer(jtrainer_mod.DistributedTrainer):
         def __init__(self, config, **kw):
             seen["jax"] = config.parallelism
-            if config.parallelism == "sequence":
+            if config.parallelism in ("sequence", "tensor"):
                 super().__init__(config, model_overrides=dict(JTINY))
-                seen["jax_mesh"] = dict(self.mesh.shape)
+                seen[f"jax_mesh_{config.parallelism}"] = dict(
+                    self.mesh.shape)
                 seen["jax_attn"] = self.model.config.attn_impl
             raise _Stop
 
@@ -502,7 +504,13 @@ def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
                    "--batch-size", "8", "--checkpoint-dir",
                    str(tmp_path / "js")])
     assert seen["jax"] == "sequence" and seen["jax_attn"] == "ring"
-    assert seen["jax_mesh"] == {"data": 4, "seq": 2}
+    assert seen["jax_mesh_sequence"] == {"data": 4, "seq": 2}
+    with pytest.raises(_Stop):
+        jcli.main(["--parallelism", "tensor", "--nodes", "4",
+                   "--batch-size", "8", "--checkpoint-dir",
+                   str(tmp_path / "jt")])
+    assert seen["jax"] == "tensor"
+    assert seen["jax_mesh_tensor"] == {"data": 4, "model": 2}
     from trustworthy_dl_tpu.parallel.sequence import set_sequence_mesh
 
     set_sequence_mesh(None)     # JAX's trainer bound its global mesh
@@ -532,13 +540,13 @@ def test_train_parallelism_flag(tmp_path, capsys, monkeypatch):
     assert rc == 0 and "Training completed: 1 steps" in out
     assert tseq.get_sequence_mesh().shape == {"data": 1, "seq": 1}
     tseq.set_sequence_mesh(None)
-    rc = cli.train_main(["--parallelism", "tensor", "--device", "cpu",
-                         "--batch-size", "8", "--checkpoint-dir",
+    rc = cli.train_main(["--parallelism", "tensor", "--nodes", "4",
+                         "--device", "cpu", "--batch-size", "8",
+                         "--seq-len", "16", "--steps-per-epoch", "1",
+                         "--epochs", "1", "--checkpoint-dir",
                          str(tmp_path / "tensor")], model_overrides=tiny)
     out = capsys.readouterr().out
-    assert rc == 2
-    assert "parallelism='tensor' is not ported yet" in out
-    assert "Slice 4b" in out
+    assert rc == 0 and "Training completed: 1 steps" in out
     parsed = cli.build_train_parser()._option_string_actions[
         "--parallelism"]
     jparsed = jcli.build_parser()._option_string_actions["--parallelism"]

@@ -30,10 +30,14 @@ and MoE families and a checkpoint trained with pipeline parallelism (rc
 MoE), ResNet or VGG over logical nodes on the configured dataset (the
 synthetic source stands in for a corpus or image file that is absent),
 validated each epoch on the dataset's validation split, printing the
-run's statistics; ``--parallelism`` takes JAX's modes: ``data``,
-``model`` (pipeline stages of the dense GPT-2 family) and ``sequence``
-(ring attention; without a mesh, JAX's one-device layout, a ring of 1)
-train, the others exit 2 naming ROADMAP Slice 4b.  Its configuration is
+run's statistics; ``--parallelism`` takes JAX's modes and trains each:
+``data``, ``model`` (pipeline stages of the dense GPT-2 family),
+``sequence`` (ring attention), ``tensor`` and ``expert`` (without a mesh,
+JAX's one-device layout: one position, a ring or TP group of 1) and
+``hybrid``, which needs the config's ``mesh_shape`` (JAX's "requires
+mesh_shape" error otherwise) and runs on as many positions of the device
+as it names; what the port cannot run (a DCN extent above 1) exits 2
+naming its ROADMAP item.  Its configuration is
 ``core.config.load_config(--config)`` or the ``TrainingConfig``
 defaults, with only the flags given on top; it checkpoints under the
 configured directory (and at the end), resumes with ``--resume``, and

@@ -17,12 +17,14 @@ package's (``weight_decay`` 0.0, ``detector_warmup`` 10,
 The input prefetch (``prefetch_depth``) and the async host pipeline
 (``async_host_depth``) default to 2 as in JAX; elastic eviction and
 readmission (``elastic_resharding``, ``readmit_after_steps``) run in data
-mode, and restaff a pipeline stage in model mode.  ``parallelism`` takes
-JAX's modes: ``DistributedTrainer`` trains "data", "model" (pipeline
-stages, ``num_microbatches`` deep, 0 the auto depth, the canary probe
-``canary_tokens`` wide) and "sequence" (ring attention over the seq
-positions) and refuses the others (tensor, expert, hybrid: ROADMAP Slice
-4b).  ``ml_detectors`` turns on the
+mode and the group modes (tensor, sequence, expert, hybrid), and restaff
+a pipeline stage in model mode.  ``parallelism`` takes
+JAX's modes, and ``DistributedTrainer`` trains them all: "data",
+"model" (pipeline stages, ``num_microbatches`` deep, 0 the auto depth,
+the canary probe ``canary_tokens`` wide), "sequence" (ring attention over
+the seq positions), "tensor", "expert" and "hybrid" (``mesh_shape``,
+with ``dcn_mesh_shape``); ``shard_opt_state`` and ``shard_params`` are
+ZeRO-1 and FSDP in data mode.  ``ml_detectors`` turns on the
 epoch-cadence ML tier (behind scikit-learn, as in JAX) and
 ``exact_order_stats`` picks the host detector's order statistics.
 ``dtype`` is the model's compute dtype (``COMPUTE_DTYPES``; the
@@ -54,8 +56,7 @@ logger = logging.getLogger(__name__)
 #: ``TrainingConfig.dtype``'s names and the torch dtypes they stand for.
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-#: The JAX package's parallelism modes; the port trains "data", "model" and
-#: "sequence".
+#: The JAX package's parallelism modes, all of which the port trains.
 PARALLELISM_MODES = ("data", "model", "tensor", "sequence", "expert",
                      "hybrid")
 
@@ -225,13 +226,23 @@ class TrainingConfig:
     gradient_verification_enabled: bool = True
     checkpoint_interval: int = 100
     max_reassignment_attempts: int = 3
-    # One of PARALLELISM_MODES; the trainer takes "data" and "model".
+    # One of PARALLELISM_MODES.
     parallelism: str = "data"
+    # "hybrid": the within-slice {axis: extent} layout, and the
+    # across-slice extents (an extent above 1 needs several hosts).
+    mesh_shape: Optional[Dict[str, int]] = None
+    dcn_mesh_shape: Optional[Dict[str, int]] = None
     # Pipeline schedule depth (the "model" mode); 0 = auto
     # (parallel/pipeline.choose_num_microbatches).
     num_microbatches: int = 0
     # Tokens of the pipeline's per-stage canary probe.
     canary_tokens: int = 8
+    # ZeRO-1 (the optimizer state) and FSDP (the params, and the state
+    # with them) over the data axis, in data mode on a data axis of more
+    # than one position: layout specs only (core/sharding.layout_specs),
+    # the same numerics.
+    shard_opt_state: bool = False
+    shard_params: bool = False
     # Sequential microbatches per node inside the step; gradients, loss
     # and mean logits average over them.  Batches trim to a multiple of
     # num_nodes x grad_accum_steps.
@@ -280,7 +291,7 @@ class TrainingConfig:
     # Transfer rate of the migration-time model, GiB/s.
     migration_gbps: float = 1.0
     # Elastic eviction (confirmed nodes leave the node axis) and
-    # readmission after this many steps (0: never), data mode.
+    # readmission after this many steps (0: never): data and group modes.
     elastic_resharding: bool = False
     readmit_after_steps: int = 0
     # Input prefetch: batches assembled on a host thread ahead of the
@@ -412,11 +423,7 @@ _MODEL_SIZE_SUFFIX = {"small": "", "medium": "-medium", "large": "-large",
 #: their JAX defaults: a config file may set them, and :func:`load_config`
 #: refuses (or, for the XLA compile cache, warns about) any value other
 #: than the default instead of dropping it.
-JAX_ONLY_FIELDS = {"mesh_shape": None, "dcn_mesh_shape": None,
-                   "compilation_cache_dir": None,
-                   "shard_opt_state": False, "shard_params": False}
-_SLICE_4_FIELDS = ("mesh_shape", "dcn_mesh_shape", "shard_opt_state",
-                   "shard_params")
+JAX_ONLY_FIELDS = {"compilation_cache_dir": None}
 
 
 def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
@@ -471,20 +478,14 @@ def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
 
 def _take_jax_only_fields(kwargs: Dict[str, Any]) -> None:
     """Remove the JAX-only keys from ``kwargs``: a value at the JAX
-    default asks for nothing the port lacks; the mesh and the parameter
-    and optimizer sharding raise naming Slice 4b, the XLA compile cache
-    warns (it has no counterpart), any other value raises by name."""
+    default asks for nothing the port lacks; the XLA compile cache warns
+    (it has no counterpart), any other value raises by name."""
     for key, default in JAX_ONLY_FIELDS.items():
         if key not in kwargs:
             continue
         value = kwargs.pop(key)
         if value == default:
             continue
-        if key in _SLICE_4_FIELDS:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (ROADMAP Slice 4b: "
-                "the hybrid mesh and parameter and optimizer sharding); "
-                "the port trains on one card")
         if key == "compilation_cache_dir":
             logger.warning(
                 "compilation_cache_dir=%r ignored: it is XLA's persistent "

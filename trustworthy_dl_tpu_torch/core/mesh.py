@@ -1,25 +1,29 @@
 """The device mesh of a training run: a single-controller mesh.
 
-Counterpart of ``trustworthy_dl_tpu/core/mesh.py`` for the ``data``,
-``model`` (pipeline) and ``sequence`` modes.  The JAX package's mesh is
-single-controller: one process holds every device, and a collective is an
-op inside the compiled step.  The port keeps that shape without a process
-group: a :class:`Mesh` holds axis names and an array of ``torch.device``s,
-one per position, and reports ``.shape`` as a dict.  Under pipelining
-each stage's block slice and its activations live on its position's
-device, and JAX's ``ppermute`` to the next stage is
+Counterpart of ``trustworthy_dl_tpu/core/mesh.py``.  The JAX package's
+mesh is single-controller: one process holds every device, and a
+collective is an op inside the compiled step.  The port keeps that shape
+without a process group: a :class:`Mesh` holds axis names and an array of
+``torch.device``s, one per position, and reports ``.shape`` as a dict.
+Under pipelining each stage's block slice and its activations live on its
+position's device, and JAX's ``ppermute`` to the next stage is
 ``tensor.to(next_device)``, a no-op when both stages share a device; ring
 attention's K/V rotation is the same move (``parallel/sequence.py``).
 On one card every position is that card (``cuda:0``); in the tests every
 position is the CPU.
 
-``build_mesh`` gives ``data`` a one-device node axis (the logical nodes
-run one after another on it, JAX's degenerate mode on one device),
-``model`` a ``(1, S)`` data x stage layout, JAX's layout off a TPU, and
-``sequence`` JAX's ``(nodes, group)`` data x seq layout over the
-positions given (one position: ``(1, 1)``).  The tensor, expert and
-hybrid modes raise naming ROADMAP Slice 4b, as does multi-host set-up
-(Slice 4c).
+``build_mesh`` ports JAX's arms over the positions given (default one,
+``device``; positions may repeat a device): ``data`` a node axis after
+JAX's fit rule (one position: JAX's one-device layout), ``model`` a
+``(1, S)`` data x stage layout, JAX's layout off a TPU, ``tensor``,
+``sequence`` and ``expert`` JAX's ``(nodes, group)`` layout under their
+own axis name, and ``hybrid`` the explicit ``mesh_shape``
+(:func:`build_hybrid_mesh`, by default over as many positions of
+``device`` as the shape names).  A DCN extent above 1 asks for JAX's
+grouping by slice, which needs several hosts (ROADMAP item 29): it is
+refused by name once the positions suffice.  JAX's ``shard_map_compat``
+has no counterpart: the per-position loops of ``parallel/`` play its
+part.
 """
 
 from __future__ import annotations
@@ -47,9 +51,6 @@ _PARALLELISM_AXIS = {
 #: Outermost-first axis order (JAX's).
 AXIS_ORDER = (DATA_AXIS, STAGE_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS)
 
-#: The ROADMAP item each mode without a mesh here waits for.
-_LATER = {"tensor": "Slice 4b", "expert": "Slice 4b", "hybrid": "Slice 4b"}
-
 
 def node_axis_for(parallelism: str) -> str:
     """Mesh axis that plays the role of the reference's node index."""
@@ -58,15 +59,6 @@ def node_axis_for(parallelism: str) -> str:
     except KeyError:
         raise ValueError(
             f"no canonical node axis for parallelism={parallelism!r}")
-
-
-def not_ported(parallelism: str) -> NotImplementedError:
-    """The refusal of a mode the port cannot run yet, naming its item."""
-    item = _LATER.get(parallelism, "Slice 4b")
-    return NotImplementedError(
-        f"parallelism={parallelism!r} is not ported yet (ROADMAP {item}: "
-        "its collectives span several cards); the port trains 'data', "
-        "'model' and 'sequence'")
 
 
 class Mesh:
@@ -111,68 +103,112 @@ def _device_list(num: int, device: Any, devices: Optional[Sequence[Any]]
     return [devices[i % len(devices)] for i in range(num)]
 
 
+def _grid(positions: Sequence[torch.device], shape: Sequence[int]
+          ) -> np.ndarray:
+    """The first ``prod(shape)`` positions, row-major in ``shape``."""
+    arr = np.empty(tuple(shape), dtype=object)
+    for i, dev in enumerate(positions[:arr.size]):
+        arr[np.unravel_index(i, arr.shape)] = dev
+    return arr
+
+
+def build_hybrid_mesh(ici_mesh_shape: Dict[str, int],
+                      dcn_mesh_shape: Optional[Dict[str, int]] = None,
+                      devices: Optional[Sequence[Any]] = None,
+                      device: Any = "cpu") -> Mesh:
+    """JAX's multi-slice mesh: a per-axis extent within a slice (ICI) and
+    across slices (DCN), the axes in :data:`AXIS_ORDER`.  The positions
+    are ``devices``, by default the product of the extents, every one
+    ``device``.  With every DCN extent at 1 the layout is a reshape in
+    axis order, as in JAX; a DCN extent counts against the positions
+    (the shortfall raises "needs"), and above 1 it asks for JAX's grouping
+    by slice, which the port refuses (several hosts: ROADMAP item 29)."""
+    dcn_mesh_shape = dcn_mesh_shape or {}
+    extra = (set(ici_mesh_shape) | set(dcn_mesh_shape)) - set(AXIS_ORDER)
+    if extra:
+        raise ValueError(f"unknown mesh axes {extra}")
+    order = [a for a in AXIS_ORDER
+             if a in ici_mesh_shape or a in dcn_mesh_shape]
+    ici = [int(ici_mesh_shape.get(a, 1)) for a in order]
+    dcn = [int(dcn_mesh_shape.get(a, 1)) for a in order]
+    total = int(np.prod(ici)) * int(np.prod(dcn))
+    positions = [torch.device(d) for d in devices] if devices is not None \
+        else [torch.device(device)] * total
+    if total > len(positions):
+        raise ValueError(
+            f"hybrid mesh ici={ici_mesh_shape} dcn={dcn_mesh_shape} needs "
+            f"{total} devices, have {len(positions)}")
+    if any(d > 1 for d in dcn):
+        raise NotImplementedError(
+            f"dcn_mesh_shape={dcn_mesh_shape} groups positions by slice, "
+            "across hosts: not ported yet (ROADMAP item 29, multi-host "
+            "set-up); the port's mesh holds one process")
+    return Mesh(_grid(positions, ici), tuple(order))
+
+
 def build_mesh(num_nodes: int, parallelism: str = "data",
                mesh_shape: Optional[Dict[str, int]] = None,
                devices: Optional[Sequence[Any]] = None,
                dcn_mesh_shape: Optional[Dict[str, int]] = None,
                device: Any = "cpu") -> Mesh:
-    """The mesh of a run.  ``data``: a one-position data axis on
-    ``device`` (the logical nodes run in turn on it).  ``model``: a
-    ``(1, S)`` data x stage mesh, stage s on ``devices[s % len(devices)]``
-    (default ``device``).  ``sequence``: JAX's tensor/sequence arm over
-    the positions ``devices`` (default one, ``device``; positions may
-    repeat a device): with more nodes than positions the node axis takes
-    the largest divisor of ``num_nodes`` that fits, then each node owns a
-    group of ``len(devices) // nodes`` positions, a ``(nodes, group)``
-    data x seq mesh.  Other modes raise naming their ROADMAP item;
-    ``mesh_shape`` and ``dcn_mesh_shape`` are refused by name (JAX's
-    hybrid layouts)."""
-    if parallelism in _LATER:
-        raise not_ported(parallelism)
-    node_axis_for(parallelism)
-    if mesh_shape or dcn_mesh_shape:
-        raise NotImplementedError(
-            "mesh_shape and dcn_mesh_shape are not ported yet (ROADMAP "
-            "Slice 4b: the hybrid mesh)")
-    if parallelism == "model":
+    """The mesh of a run over the positions ``devices`` (default one,
+    ``device``; positions may repeat a device).  ``hybrid``: the explicit
+    ``mesh_shape`` (:func:`build_hybrid_mesh`; required, as in JAX).
+    ``model``: a ``(1, S)`` data x stage mesh, stage s on
+    ``devices[s % len(devices)]``.  The others follow JAX's fit rule:
+    with more nodes than positions the node axis takes the largest
+    divisor of ``num_nodes`` that fits; then ``data`` is a node axis of
+    that many positions, and ``tensor``, ``sequence`` and ``expert`` give
+    each node a group of ``len(devices) // nodes`` positions, a
+    ``(nodes, group)`` mesh over ``data`` and the mode's axis.  A
+    ``dcn_mesh_shape`` outside hybrid mode raises, as in JAX."""
+    if parallelism == "hybrid":
+        if not mesh_shape:
+            raise ValueError("hybrid parallelism requires mesh_shape")
+        return build_hybrid_mesh(mesh_shape, dcn_mesh_shape, devices,
+                                 device=device)
+    if dcn_mesh_shape:
+        raise ValueError(
+            "dcn_mesh_shape requires parallelism='hybrid' (got "
+            f"{parallelism!r}); express the within-slice layout in "
+            "mesh_shape and the across-slice extents in dcn_mesh_shape")
+    axis = node_axis_for(parallelism)
+    if axis == STAGE_AXIS:
         arr = np.empty((1, num_nodes), dtype=object)
         for s, dev in enumerate(_device_list(num_nodes, device, devices)):
             arr[0, s] = dev
         return Mesh(arr, (DATA_AXIS, STAGE_AXIS))
-    if parallelism == "sequence":
-        positions = [torch.device(d) for d in (devices or [device])]
-        if not positions:
-            raise ValueError("build_mesh: no devices")
-        n_dev = len(positions)
-        if num_nodes > n_dev:
-            # JAX's degenerate mode: the node axis takes the largest
-            # divisor of num_nodes that fits (the nodes run in turn).
-            num_nodes = max(d for d in range(1, n_dev + 1)
-                            if num_nodes % d == 0)
-        group = n_dev // num_nodes
-        arr = np.empty((num_nodes, group), dtype=object)
-        for i, dev in enumerate(positions[:num_nodes * group]):
-            arr[i // group, i % group] = dev
-        return Mesh(arr, (DATA_AXIS, SEQ_AXIS))
-    arr = np.empty((1,), dtype=object)
-    arr[0] = _device_list(1, device, devices)[0]
-    return Mesh(arr, (DATA_AXIS,))
+    positions = [torch.device(d) for d in (devices or [device])]
+    if not positions:
+        raise ValueError("build_mesh: no devices")
+    n_dev = len(positions)
+    if num_nodes > n_dev:
+        # JAX's degenerate mode: the node axis takes the largest divisor
+        # of num_nodes that fits (the nodes run in turn).
+        num_nodes = max(d for d in range(1, n_dev + 1)
+                        if num_nodes % d == 0)
+    if axis == DATA_AXIS:
+        return Mesh(_grid(positions, (num_nodes,)), (DATA_AXIS,))
+    group = n_dev // num_nodes
+    return Mesh(_grid(positions, (num_nodes, group)), (DATA_AXIS, axis))
 
 
 def bind_mode_mesh(mesh: Mesh, parallelism: str) -> None:
     """Bind the global mesh of the modes whose forwards read one, as JAX
-    does: the sequence mesh of ring and Ulysses attention.  The one
-    binding ladder, shared by trainer construction and checkpoint
-    topology adoption; a no-op for ``data`` and ``model``.  ``expert``
-    would bind MoE's expert mesh and raises naming Slice 4b.  The import
-    is lazy to keep core/ free of parallel/ dependencies."""
+    does: the sequence mesh of ring and Ulysses attention, MoE's expert
+    mesh.  The one binding ladder, shared by trainer construction, the
+    elastic mesh rebuilds and checkpoint topology adoption; a no-op for
+    the other modes.  The imports are lazy to keep core/ free of
+    parallel/ and models/ dependencies."""
     if parallelism == "sequence":
         from trustworthy_dl_tpu_torch.parallel.sequence import \
             set_sequence_mesh
 
         set_sequence_mesh(mesh)
     elif parallelism == "expert":
-        raise not_ported(parallelism)
+        from trustworthy_dl_tpu_torch.models.moe import set_expert_mesh
+
+        set_expert_mesh(mesh)
 
 
 def stage_devices(mesh: Mesh) -> list:
@@ -186,6 +222,6 @@ def local_device_count() -> int:
 
 
 __all__ = ["AXIS_ORDER", "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "Mesh",
-           "SEQ_AXIS", "STAGE_AXIS", "bind_mode_mesh", "build_mesh",
-           "local_device_count", "node_axis_for", "not_ported",
+           "SEQ_AXIS", "STAGE_AXIS", "bind_mode_mesh", "build_hybrid_mesh",
+           "build_mesh", "local_device_count", "node_axis_for",
            "stage_devices"]

@@ -203,6 +203,7 @@ def restaff_pipeline(trainer: Any, drop: Sequence[int]) -> Dict[str, Any]:
     trainer.mesh = build_mesh(new_S, "model", device=device)
     trainer._rebuild_steps(new_config)
     trainer.state = new_state
+    trainer._lay_out()      # the blocks' stage specs on the new mesh
     evicted_ids = [trainer.node_map[i] for i in drop]
     new_map = [nid for _, nid, _ in chosen]
     trainer.node_map = new_map

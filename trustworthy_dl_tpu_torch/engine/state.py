@@ -7,11 +7,12 @@ the step needs no host round-trip.  Two fields differ in kind from the
 JAX package: ``step`` and ``epoch`` are host ints (so
 ``plan.is_live(step)`` and the trust clock need no device sync), and
 ``rng`` is a ``torch.Generator`` on the device.
+:func:`zero1_place_opt_state` is JAX's ZeRO-1 delegate.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -123,5 +124,20 @@ def init_train_state(rng: torch.Generator, params: Any, opt_state: OptState,
         canary=canary)
 
 
+def zero1_place_opt_state(opt_state: OptState, mesh: Any
+                          ) -> Tuple[OptState, Dict[str, Any]]:
+    """ZeRO-1 placement: (the optimizer state on the mesh, its specs),
+    every moment sharded over the mesh's data axis on its first
+    evenly-divisible dim, the count and indivisible leaves replicated.
+    A thin delegate, as in JAX: the rule is the registry's
+    ``place_zero_sharded``, shared with FSDP and elastic migration."""
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+    from trustworthy_dl_tpu_torch.core.mesh import DATA_AXIS
+
+    placed, specs = shreg.place_zero_sharded(
+        shreg.opt_state_tree(opt_state), mesh, DATA_AXIS)
+    return OptState(placed["count"], placed["mu"], placed["nu"]), specs
+
+
 __all__ = ["MonitorState", "TrainState", "init_monitor_state",
-           "init_train_state", "update_monitor"]
+           "init_train_state", "update_monitor", "zero1_place_opt_state"]

@@ -89,15 +89,30 @@ adopts a new topology) and defaults the GPT family's ``attn_impl`` to
 ``"ring"``.  The step is the data-mode step: only the attention differs.
 On the card, where the ring's chunks tile for the flash kernels, the
 compute dtype must be the kernels' bf16 (refused at construction
-otherwise); elastic eviction in sequence mode is refused at construction
-(ROADMAP item 27: the group modes of ``elastic/``).
+otherwise).
+
+Tensor, expert and hybrid parallelism, ZeRO-1 and FSDP, as in JAX: the
+trainer builds the mode's mesh (``mesh=`` gives one; ``hybrid`` takes
+``mesh_shape`` and ``dcn_mesh_shape``), binds the expert mesh in expert
+mode (and warns, as JAX does, for a dense model there), and keeps the
+layout of the params and the optimizer state as data beside the state:
+``self.specs``, computed by ``core.sharding.layout_specs`` at
+initialisation, restore, topology adoption and every elastic transition
+(the TP layout in tensor and hybrid mode, ZeRO-1 with
+``shard_opt_state`` and FSDP with ``shard_params`` on a data axis of more
+than one position).  JAX's GSPMD computes the replicated program's
+values; every position of the port's mesh is the trainer's device, so
+the step is the data-mode step and a mode's trajectory equals data
+mode's bit for bit.  With ``elastic_resharding`` a confirmed node leaves
+with its whole group of positions in the group modes (tensor, sequence,
+expert, hybrid where ``mesh_shape``'s data extent is the node count
+within one slice: ``elastic.reassignment.elastic_supported``; another
+hybrid layout keeps the in-step gating and the greedy hand-off, as in
+JAX), and returns with it.
 
 The trainer runs on the card (``device="cuda"``, the default) and raises
 without CUDA unless the caller passes ``device="cpu"``, where every kernel
-runs its plain PyTorch version.  The tensor, expert and hybrid modes
-(with their elastic forms) are not ported yet: a configuration that asks
-for one raises ``NotImplementedError`` at construction, naming ROADMAP
-Slice 4b.
+runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -116,8 +131,9 @@ from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     null_plan
 from trustworthy_dl_tpu_torch.core.config import COMPUTE_DTYPES, \
     NodeConfig, TrainingConfig
-from trustworthy_dl_tpu_torch.core.mesh import SEQ_AXIS, Mesh, \
-    bind_mode_mesh, build_mesh, node_axis_for, not_ported
+from trustworthy_dl_tpu_torch.core.mesh import DATA_AXIS, SEQ_AXIS, Mesh, \
+    bind_mode_mesh, build_mesh, node_axis_for
+from trustworthy_dl_tpu_torch.core.sharding import layout_specs
 from trustworthy_dl_tpu_torch.data.loader import PrefetchLoader
 from trustworthy_dl_tpu_torch.detect.detector import AttackDetector, \
     AttackType
@@ -125,6 +141,7 @@ from trustworthy_dl_tpu_torch.detect.stats import GRADIENT_STAT_NAMES, \
     NUM_TENSOR_STATS, TENSOR_STAT_NAMES
 from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
 from trustworthy_dl_tpu_torch.elastic.reassignment import \
+    _check_hybrid_elastic, elastic_mesh_shape, elastic_supported, \
     evict_and_reshard, readmit_and_reshard
 from trustworthy_dl_tpu_torch.engine.async_host import AsyncHostPipeline
 from trustworthy_dl_tpu_torch.engine.checkpoint import CheckpointManager
@@ -175,13 +192,12 @@ class TrainingState(enum.Enum):
 
 class DistributedTrainer:
     """Trusted training of ``config.num_nodes`` logical nodes on one
-    device: data-parallel, pipeline stages (``parallelism="model"``) or
-    sequence-parallel attention (``parallelism="sequence"``)."""
+    device, in every parallelism mode of the JAX package: data, pipeline
+    stages (``"model"``), sequence, tensor, expert and hybrid."""
 
     def __init__(self, config: TrainingConfig, mesh: Optional[Mesh] = None,
                  model_overrides: Optional[Dict[str, Any]] = None,
                  device: Any = "cuda"):
-        _refuse_unported(config)
         self.device = resolve_device(device)
         if mesh is not None:
             _refuse_foreign_mesh(mesh, config.parallelism, self.device)
@@ -203,8 +219,15 @@ class DistributedTrainer:
         self.model = create_model(config.model_name, **overrides)
         self.optimizer = build_optimizer(config)
         self.mesh = mesh if mesh is not None else build_mesh(
-            config.num_nodes, config.parallelism, device=self.device)
+            config.num_nodes, config.parallelism, config.mesh_shape,
+            dcn_mesh_shape=config.dcn_mesh_shape, device=self.device)
         bind_mode_mesh(self.mesh, config.parallelism)
+        if config.parallelism == "expert" and \
+                "-moe" not in config.model_name:
+            logger.warning(
+                "parallelism='expert' with non-MoE model %r: the 'expert' "
+                "mesh axis will carry no sharded computation",
+                config.model_name)
         _refuse_untaken_ring(self.model, self.mesh, self.device)
         if config.parallelism == "model" and config.num_microbatches == 0:
             from trustworthy_dl_tpu_torch.parallel.pipeline import \
@@ -220,6 +243,9 @@ class DistributedTrainer:
         # The built steps are shaped for this node count (reset_for_run).
         self._constructed_num_nodes = config.num_nodes
         self.state: Optional[TrainState] = None
+        # The layout of the state's params and optimizer state on the mesh
+        # (``core.sharding.layout_specs``); set with the state.
+        self.specs: Optional[Dict[str, Any]] = None
         # Telemetry: an obs.ObsSession installed by ``attach_obs``.
         self.obs: Any = None
         self.training_state = TrainingState.INITIALIZING
@@ -295,8 +321,9 @@ class DistributedTrainer:
         # Per original id, the attack plan's injection bit (a readmitted
         # node's schedule survives the mask's compaction and expansion).
         self._plan_bits: Dict[int, bool] = {}
-        # Elastic bookkeeping: original id -> eviction step, and the
-        # devices it left (always [] on one card; the sidecar's shape).
+        # Elastic bookkeeping: original id -> eviction step, and the mesh
+        # positions it left with (its group in the group modes; [] where
+        # the nodes share the mesh's positions).
         self._evicted_at: Dict[int, int] = {}
         self._evicted_devices: Dict[int, List[Any]] = {}
         # Pipeline restaff: healthy ids a repartition could not seat,
@@ -372,8 +399,21 @@ class DistributedTrainer:
             recovery_rate=c.trust_recovery_rate,
             detector_window=c.detector_history, device=self.device,
             num_monitor_leaves=monitor_leaves, canary=canary)
+        self._lay_out()
         self.training_state = TrainingState.TRAINING
         return self.state
+
+    def _lay_out(self) -> None:
+        """The state's layout on the current mesh, through the one spec
+        function (``core.sharding.layout_specs``): every placement site
+        (initialisation, restore, topology adoption, eviction,
+        readmission, restaff) calls this, so a cycle reproduces a fresh
+        trainer's specs."""
+        c = self.config
+        self.specs = layout_specs(
+            c.parallelism, self.mesh, self.state.params,
+            self.state.opt_state, shard_params=c.shard_params,
+            shard_opt_state=c.shard_opt_state)
 
     def reset_for_run(self, seed: Optional[int] = None) -> TrainState:
         """A fresh run on the same built steps: device state (params,
@@ -824,8 +864,9 @@ class DistributedTrainer:
         self._last_status = status.copy()
 
     # ------------------------------------------------------------------
-    # Elasticity on one card: data mode (elastic/reassignment.py) and the
-    # pipeline restaff (elastic/restaff.py)
+    # Elasticity on one card: data and the group modes
+    # (elastic/reassignment.py) and the pipeline restaff
+    # (elastic/restaff.py)
     # ------------------------------------------------------------------
 
     def _apply_evictions(self, evict_coords: Sequence[int]) -> None:
@@ -843,8 +884,12 @@ class DistributedTrainer:
             # The compromised stage's layers migrate and the model
             # repartitions: every layer keeps training.
             record = restaff_pipeline(self, evict_coords)
-        else:
+        elif elastic_supported(self.config):
             record = evict_and_reshard(self, evict_coords)
+        else:
+            # A hybrid layout eviction cannot reshape (JAX's fallback):
+            # the in-step gating and the greedy hand-off stand.
+            return
         record["step"] = self.global_step
         self.reassignment_history.append(record)
         for orig in record["evicted_nodes"]:
@@ -880,7 +925,7 @@ class DistributedTrainer:
                      if self.global_step - when >= cfg.readmit_after_steps)
         if cfg.parallelism == "model":
             self._readmit_stages(due)
-        else:
+        elif elastic_supported(cfg):
             record = readmit_and_reshard(self, due)
             record["step"] = self.global_step
             self.reassignment_history.append(record)
@@ -969,8 +1014,11 @@ class DistributedTrainer:
                 "anomaly_score": float(host["out_score"][coord]),
                 "gradient_score": float(host["grad_score"][coord])}})
         self.trust_manager.mark_compromised(node_id, attack_type)
-        if not self.config.elastic_resharding:
-            # The greedy hand-off; elastic mode evicts the node instead.
+        if not (self.config.elastic_resharding
+                and (elastic_supported(self.config)
+                     or self.config.parallelism == "model")):
+            # The greedy hand-off; elastic mode evicts the node (restaffs
+            # a stage) instead.
             self.reassign_node_tasks(node_id, exclude)
         self.training_state = TrainingState.UNDER_ATTACK
 
@@ -1134,35 +1182,55 @@ class DistributedTrainer:
             "num_nodes": self.config.num_nodes,
             "node_map": list(self.node_map),
             "parallelism": self.config.parallelism,
+            # The live mesh's positions: after a group eviction the mesh
+            # has fewer than the constructor built, and a resume rebuilds
+            # this set (a readmission then returns the evicted group).
+            "mesh_devices": [str(d) for d in self.mesh.devices.flat],
             # Evicted ids have no device row: their standing survives the
             # resume on the host.
             "compromised_nodes": sorted(
                 int(i) for i in self.trust_manager.get_compromised_nodes()),
-            # Pending cool-offs and the restaff's parked ids survive a
-            # resume, or an eviction would silently become permanent.  No
-            # device leaves one card.
+            # Pending cool-offs, the positions each evicted id left with
+            # and the restaff's parked ids survive a resume, or an
+            # eviction would silently become permanent.
             "evicted_at": {str(nid): int(step)
                            for nid, step in self._evicted_at.items()},
-            "evicted_devices": {str(nid): []
-                                for nid in self._evicted_devices},
+            "evicted_devices": {str(nid): [str(d) for d in devs or []]
+                                for nid, devs in
+                                self._evicted_devices.items()},
             "idle_pool": {str(nid): [] for nid in self._idle_pool},
         })
         return path
 
+    def _positions(self, saved: Sequence[str]) -> List[torch.device]:
+        """Saved mesh positions re-resolved on this trainer: every
+        position of the port's mesh is its device."""
+        return [self.device] * len(saved)
+
     def _adopt_topology(self, meta: Dict[str, Any]) -> None:
-        """Rebuild the steps and the state's template for a checkpoint
-        saved on another node count (after an eviction)."""
+        """Rebuild the mesh, the steps and the state's template for a
+        checkpoint saved on another node count (after an eviction): over
+        the saved positions where the sidecar has them (a checkpoint of
+        an older layout: the current positions), a hybrid mesh_shape's
+        data extent the saved count."""
         n = int(meta["num_nodes"])
         logger.info("Checkpoint topology has %d node(s) (config says %d): "
                     "adopting the saved topology", n, self.config.num_nodes)
-        # Sequence mode keeps its positions (JAX rebuilds over the saved
-        # device set); the other modes rebuild on the trainer's device.
-        positions = list(self.mesh.devices.flat) \
-            if self.config.parallelism == "sequence" else None
-        self.mesh = build_mesh(n, self.config.parallelism, devices=positions,
+        config = dataclasses.replace(
+            self.config, num_nodes=n,
+            mesh_shape=elastic_mesh_shape(self.config, n))
+        if config.parallelism == "hybrid":
+            # Only an elastic hybrid layout makes such a checkpoint: any
+            # other fails here rather than rebuild without its extents.
+            _check_hybrid_elastic(config)
+        positions = self._positions(meta["mesh_devices"]) \
+            if "mesh_devices" in meta else list(self.mesh.devices.flat)
+        self.mesh = build_mesh(n, config.parallelism, config.mesh_shape,
+                               devices=positions,
+                               dcn_mesh_shape=config.dcn_mesh_shape,
                                device=self.device)
-        bind_mode_mesh(self.mesh, self.config.parallelism)
-        self._rebuild_steps(dataclasses.replace(self.config, num_nodes=n))
+        bind_mode_mesh(self.mesh, config.parallelism)
+        self._rebuild_steps(config)
         self.node_map = [int(i) for i in meta["node_map"]]
         # The attack plan was shaped for the old node count: reset it
         # (the caller plans again).
@@ -1186,6 +1254,7 @@ class DistributedTrainer:
         if self.state is None:
             self.initialize()
         self.state = self.checkpointer.restore(self.state, step)
+        self._lay_out()
         if meta:
             self.node_map = [int(i) for i in meta["node_map"]]
             # Ids may exceed the constructor's node count (a trainer built
@@ -1206,8 +1275,9 @@ class DistributedTrainer:
                         node_id, attack_type="restored_from_checkpoint")
             self._evicted_at = {int(k): int(v) for k, v in
                                 meta.get("evicted_at", {}).items()}
-            self._evicted_devices = {int(k): [] for k in
-                                     meta.get("evicted_devices", {})}
+            self._evicted_devices = {
+                int(k): self._positions(v)
+                for k, v in meta.get("evicted_devices", {}).items()}
             self._idle_pool = {int(k): [] for k in
                                meta.get("idle_pool", {})}
         self.global_step = int(self.state.step)
@@ -1228,27 +1298,15 @@ class DistributedTrainer:
         logger.info("Distributed training cleanup completed")
 
 
-def _refuse_unported(config: TrainingConfig) -> None:
-    """A configuration that asks for what the port has not got raises
-    here, naming the ROADMAP item (``expert`` too: the MoE family trains
-    in data mode, its expert mesh is Slice 4b's).  Elastic eviction in
-    sequence mode is refused here, not mid-run where JAX evicts."""
-    if config.parallelism not in ("data", "model", "sequence"):
-        raise not_ported(config.parallelism)
-    if config.parallelism == "sequence" and config.elastic_resharding:
-        raise NotImplementedError(
-            "elastic_resharding in parallelism='sequence' is not ported yet "
-            "(ROADMAP item 27: the group modes of elastic/); the port evicts "
-            "in 'data' mode")
-
-
 def _refuse_foreign_mesh(mesh: Mesh, parallelism: str,
                          device: torch.device) -> None:
     """A given mesh must be the mode's (its node axis present: a sequence
-    mesh without ``seq`` would quietly run full attention) and lie on the
-    trainer's device at every position (one card; a CPU position would
-    take a card's attention or stage to the CPU unseen)."""
-    axis = node_axis_for(parallelism)
+    mesh without ``seq`` would quietly run full attention; a hybrid mesh
+    carries its nodes on ``data``) and lie on the trainer's device at
+    every position (one card; a CPU position would take a card's
+    attention or stage to the CPU unseen)."""
+    axis = DATA_AXIS if parallelism == "hybrid" else \
+        node_axis_for(parallelism)
     if axis not in mesh.axis_names:
         raise ValueError(f"parallelism={parallelism!r} needs a mesh with a "
                          f"{axis!r} axis, got {mesh.axis_names}")

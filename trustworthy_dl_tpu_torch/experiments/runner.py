@@ -90,8 +90,6 @@ class ExperimentRunner:
     # ------------------------------------------------------------------
 
     def setup_experiment(self) -> None:
-        # The trainer refuses the modes the port has not got (ROADMAP
-        # Slice 4b: tensor, expert, hybrid).
         self.trainer = DistributedTrainer(
             self.training_config, model_overrides=self.model_overrides,
             device=self.device,

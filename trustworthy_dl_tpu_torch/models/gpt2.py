@@ -12,7 +12,8 @@ with policy ``attention`` on the effectively-full attention path, only
 the attention core.  The loss takes the vocab-chunked fused head
 (``ops/fused_ce.py``) where ``lm_head_chunk`` resolves to a width.
 ``ring`` and ``ulysses`` (``parallel/sequence.py``) register themselves
-when first asked for, as in JAX.
+when first asked for, as in JAX.  :func:`logical_axes` declares the
+tensor-parallel layout that ``parallel/tensor_parallel.py`` resolves.
 """
 
 from __future__ import annotations
@@ -125,6 +126,38 @@ def init_block_params(cfg: GPT2Config, generator: torch.Generator,
             "proj": {"w": normal(n, 4 * d, d, std=proj_std),
                      "b": zeros(n, d)},
         },
+    }
+
+
+def logical_axes() -> Params:
+    """The model's sharding declaration, named once here and resolved per
+    parallelism mode by the registry (``core/sharding.py``).  Each leaf
+    is a tuple of logical axis names, one per dim of the matching param
+    (blocks carry the stacked ``layer`` leading dim).  Megatron layout:
+    qkv/fc shard their output dim (column parallel, ``w_tp``), the two
+    proj weights their input dim (row parallel), so the pair needs one
+    all-reduce; column-parallel biases shard, row-parallel biases, norms
+    and embeddings replicate."""
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+
+    LYR, HID, TP = shreg.LAYER, shreg.HIDDEN, shreg.W_TP
+    block = {
+        "ln_1": {"scale": (LYR, HID), "bias": (LYR, HID)},
+        "attn": {
+            "qkv": {"w": (LYR, HID, TP), "b": (LYR, TP)},
+            "proj": {"w": (LYR, TP, HID), "b": (LYR, HID)},
+        },
+        "ln_2": {"scale": (LYR, HID), "bias": (LYR, HID)},
+        "mlp": {
+            "fc": {"w": (LYR, HID, TP), "b": (LYR, TP)},
+            "proj": {"w": (LYR, TP, HID), "b": (LYR, HID)},
+        },
+    }
+    return {
+        "wte": (None, HID),
+        "wpe": (None, HID),
+        "blocks": block,
+        "ln_f": {"scale": (HID,), "bias": (HID,)},
     }
 
 

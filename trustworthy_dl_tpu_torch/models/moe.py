@@ -29,15 +29,23 @@ Everything outside the MLP is ``models/gpt2.py`` (its attention registry
 included, so flash B2/B3 runs at T >= ``AUTO_FLASH_MIN_T``), and the
 params keep the stacked-blocks layout.  The routing and expert products
 are library matmuls: in JAX they are XLA einsums outside any Pallas
-kernel.  Expert parallelism (``moe_ep_specs`` and the expert mesh) waits
-for the port's ``parallel/``.
+kernel.
+
+Expert parallelism, as in JAX: ``set_expert_mesh`` / ``use_expert_mesh``
+bind the mesh whose ``expert`` axis the [E, C, d] expert blocks are
+constrained to (the trainer binds it in ``parallelism="expert"``), and
+``moe_ep_specs`` is the spec tree that shards the expert weights' E axis.
+In JAX the constraints make GSPMD insert the all_to_all pair around the
+expert FFNs; on a mesh whose positions share one device that exchange is
+the identity, so the port's constraints are too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +57,52 @@ from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
+
+_EXPERT_MESH: Any = None
+
+
+def set_expert_mesh(mesh: Any) -> None:
+    global _EXPERT_MESH
+    _EXPERT_MESH = mesh
+
+
+def get_expert_mesh() -> Any:
+    return _EXPERT_MESH
+
+
+@contextlib.contextmanager
+def use_expert_mesh(mesh: Any) -> Iterator[None]:
+    """Make MoE forwards constrain the expert blocks to ``mesh``'s
+    ``expert`` axis (the pattern of ``parallel/sequence.use_sequence_mesh``)."""
+    global _EXPERT_MESH
+    prev = _EXPERT_MESH
+    _EXPERT_MESH = mesh
+    try:
+        yield
+    finally:
+        _EXPERT_MESH = prev
+
+
+def _expert_sharding() -> Optional[Any]:
+    """The [E, C, d] blocks' sharding on the bound mesh (E over
+    ``expert``), or None without a mesh or an ``expert`` axis."""
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+    from trustworthy_dl_tpu_torch.core.mesh import EXPERT_AXIS
+
+    mesh = _EXPERT_MESH
+    if mesh is None or EXPERT_AXIS not in mesh.axis_names:
+        return None
+    return shreg.rules_for("expert").named_sharding(
+        mesh, shreg.EXPERT, None, None)
+
+
+def _constrain(blocks: Tensor) -> Tensor:
+    """JAX's ``with_sharding_constraint`` of the expert blocks to
+    :func:`_expert_sharding`: GSPMD's all_to_all between token and expert
+    layouts.  On positions that share one device (every mesh the port
+    places on: ``core.sharding`` refuses a mesh of several devices) the
+    exchange moves nothing, so this is the identity."""
+    return blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +287,8 @@ def moe_mlp(moe: Params, x: Tensor, cfg: MoEConfig
     combine, aux = route(moe, xf, cfg, _capacity(s, cfg))          # [S, E, C]
     routed = combine > 0
     drop = 1.0 - routed.float().sum() / (s * cfg.top_k)
-    out = experts(moe, dispatch_tokens(routed, xf, cfg.dtype), cfg.dtype)
+    expert_in = _constrain(dispatch_tokens(routed, xf, cfg.dtype))
+    out = _constrain(experts(moe, expert_in, cfg.dtype))
     return combine_outputs(combine, out).reshape(b, t, d), aux, drop
 
 
@@ -329,6 +384,25 @@ def loss_fn(params: Params, batch: Dict[str, Tensor], cfg: MoEConfig
     return loss_with_monitor(params, batch, cfg)[0]
 
 
+def moe_ep_specs(params: Params) -> Params:
+    """Spec tree for expert parallelism: the expert weights (``moe`` but
+    not its router, [L, E, ...]) shard their E axis over ``expert``, the
+    layer axis and everything else replicate."""
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+
+    rules = shreg.rules_for("expert")
+
+    def walk(node: Any, keys: Tuple[str, ...]) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, keys + (k,)) for k, v in node.items()}
+        if "moe" in keys and "router" not in keys:
+            return rules.partition_spec(
+                shreg.LAYER, shreg.EXPERT, *([None] * (node.dim() - 2)))
+        return rules.partition_spec()
+
+    return walk(params, ())
+
+
 def num_params(params: Params) -> int:
     return sum(int(p.numel()) for p in tree_leaves(params))
 
@@ -336,7 +410,8 @@ def num_params(params: Params) -> int:
 __all__ = [
     "MoEConfig", "apply_blocks", "block_forward", "combine_outputs",
     "dispatch_tokens", "experts", "forward", "forward_with_monitor",
-    "init_block_params", "init_params", "loss_fn", "loss_with_monitor",
-    "moe_mlp", "num_params", "route", "router_dispatch",
-    "router_dispatch_priority",
+    "get_expert_mesh", "init_block_params", "init_params", "loss_fn",
+    "loss_with_monitor", "moe_ep_specs", "moe_mlp", "num_params", "route",
+    "router_dispatch", "router_dispatch_priority", "set_expert_mesh",
+    "use_expert_mesh",
 ]

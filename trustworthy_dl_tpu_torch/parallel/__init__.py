@@ -1,3 +1,3 @@
 """Parallel strategies beyond data mode: pipeline (stage) parallelism
-(``pipeline``) and sequence parallelism, ring and Ulysses attention
-(``sequence``).  Tensor parallelism waits for ROADMAP Slice 4b."""
+(``pipeline``), sequence parallelism, ring and Ulysses attention
+(``sequence``), and the tensor-parallel layout (``tensor_parallel``)."""
