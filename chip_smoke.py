@@ -215,8 +215,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    at the end of the phase.  The drill runs at ``async_host_depth=0``:
    ``FaultPlan.predict``'s retry counts are the synchronous guard's.
 9. async_host: the train geometry, detection ON, node 2 poisoned from
-   step 4: runs of 8 steps at ``async_host_depth`` 0, 2, 2, 0 from the
-   same state (each arm's step ms over its last 6 steps a run), then a
+   step 4: runs of 8 steps at ``async_host_depth`` 0 and 2 from the
+   same state (each arm's step ms over its last 6 steps), then a
    12-step epoch of each depth with steps 3-10 under the profiler (the
    device's busy share in a steady window,
    ``utils/train_profile.busy_window``); losses, per-node losses,
@@ -293,6 +293,34 @@ Phases (each prints one JSON line; any failure exits non-zero):
    cleared, readmitted at step 9 to (4, 2), the records and node maps as
    predicted, the layout then equal to a fresh tensor trainer's, B1-B3
    exact over the 38 node-steps.
+10e. serve_tp: tensor-parallel serving replicas on the card.  The serve
+   phase's 16 requests on a smoke engine at ``tp_size`` 1 and at 2 (a
+   ``model`` mesh of 2 positions, both ``cuda:0``, the params with the TP
+   layout): every stream equal to the other arm's and to the serve
+   phase's, B5, B6 and B7 exactly as each engine's counters make them and
+   equal between the arms; tokens/s and peak memory of each; the TP-2
+   specs' bytes a position (``tree_bytes_per_device``) beside
+   ``torch.cuda.memory_allocated``.  The HBM gate with a budget 40 blocks
+   above what is allocated: both widths shrink the pool to the same
+   blocks (the gate divides by distinct devices, 1 here).  Then JAX's TP
+   scale-up scenario on real engines: 2 replicas at TP 1, ``tp_max`` 4, 4
+   slots each, 8 requests filling every slot (occupancy pressure, a queue
+   below its threshold): one scale-up, one ``tp_scale_ups``, replica 2
+   at TP 2, ``chips_in_service`` 2 -> 4; 4 more requests once it is
+   healthy, replica 2 serving some; every stream equal to one engine's;
+   ``verify_attribution()``; B5 and B7 exactly as every generation's
+   counters make them.
+10f. multihost: two processes on the card (``utils/multiproc_worker``),
+   joined over gloo on 127.0.0.1 (``initialize_multihost``), run the
+   gathered trusted step at GPT-2 small's width: 4 nodes (2 a rank) x 8 x
+   1024, 3 steps, gradient and data poisoning of nodes 1 and 2 from step 1.
+   Both exit 0; losses, trust and the final params' hash equal across the
+   ranks; B1-B3 per rank exactly as its 2 nodes a step make them; the
+   losses within 1e-5 relative and the trust within 1e-5 of the
+   one-process run in this process (whether they are bit-equal is
+   printed).  Per rank: step ms, the gather's ms and bytes, peak memory,
+   the last step's busy share; the card's compute mode (two CUDA
+   contexts on one card need ``Default``).
 
 11. vision: ``ExperimentRunner`` on the three vision presets at their
    own configuration (8 nodes, batch 32, synthetic CIFAR-10 32x32x3
@@ -569,7 +597,9 @@ DRILL_RETRIES, DRILL_ROLLBACK_AFTER, DRILL_RESTARTS = 2, 2, 2
 # run untimed), node 2 poisoned from step ASYNC_ATTACK (detector_warmup
 # 2); then the GRAD_NAN drill at depth 2: checkpoints every 4 steps, NaN
 # params after step 5, rollback_after 1, one epoch of 8 steps.
-ASYNC_ORDER, ASYNC_STEPS, ASYNC_WARMUP, ASYNC_ATTACK = (0, 2, 2, 0), 8, 2, 4
+# One run a depth, for the smoke's time limit; the bit-equality gate
+# holds as with runs in turns.
+ASYNC_ORDER, ASYNC_STEPS, ASYNC_WARMUP, ASYNC_ATTACK = (0, 2), 8, 2, 4
 NAN_INTERVAL, NAN_STEP, NAN_STEPS = 4, 5, 8
 # elastic: node 2 poisoned from step 6 (detector_warmup 4), readmission
 # after 8 steps; epoch 0 12 steps at 4 x 8, then, after a save and a
@@ -623,6 +653,25 @@ SEQ_CLI_STEPS = 2
 # more step; its layout then equals a fresh tensor trainer's.
 GROUP_ROWS, GROUP_STEPS, GROUP_ATTACK = 2, 7, 5
 GROUP_MOE_ROWS, GROUP_MOE_STEPS, GROUP_READMIT = 1, 2, 2
+# serve_tp: the serve phase's traffic on a TP-1 and a TP-2 engine; the
+# HBM gate's budget TP_GATE_BLOCKS blocks above what is allocated, so
+# both widths shrink their pool to that; the fleet drill is JAX's
+# scenario (2 replicas at TP 1, tp_max 4) on real engines of TP_FLEET
+# slots: TP_FLEET_FIRST requests fill every slot (occupancy pressure,
+# queue per replica below the 8.0 threshold), the scale-up brings replica
+# 2 at TP 2, and TP_FLEET_SECOND more arrive once it is healthy.
+TP_GATE_BLOCKS = 40
+TP_FLEET = dict(max_slots=4, max_seq=48, queue_limit=32,
+                enable_monitor=False)
+TP_FLEET_FIRST, TP_FLEET_SECOND, TP_FLEET_MAX_TICKS = 8, 4, 400
+# multihost: two worker processes on the card over gloo at GPT-2 small's
+# width, 4 nodes (2 a rank) x 8 rows of 1024 tokens, MULTIHOST_STEPS
+# steps under the live plan (gradient and data poisoning of nodes 1 and
+# 2 from step 1); each rank's losses within MULTIHOST_LOSS_RTOL of the
+# one-process run in this process (the same kernels on the same inputs:
+# expected equal), its trust within MULTIHOST_TRUST_ATOL.
+MULTIHOST_STEPS, MULTIHOST_TIMEOUT_S = 3, 420
+MULTIHOST_LOSS_RTOL, MULTIHOST_TRUST_ATOL = 1e-5, 1e-5
 # vision: the runner's three vision presets at their own configuration (8
 # nodes, batch 32, CIFAR-10's 32x32x3 images and 10 classes, bf16, full
 # published widths), epochs cut to fit: (preset, epochs, steps an epoch,
@@ -5522,6 +5571,320 @@ def group_modes_drive(torch, entries, card, dev="cuda", n_layer=12,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def tp_fleet_drill(torch, dev, params, cfg):
+    """JAX's TP scale-up scenario on real engines: a 2-replica fleet at
+    TP 1 with ``tp_max`` 4 under occupancy pressure.  Returns (fleet,
+    record, requests by fleet id, chips in service at each tick)."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch.serve import (AutoscalerConfig,
+                                                FleetConfig, ReplicaState,
+                                                ServeRequest)
+
+    fleet, rec = recorded_fleet(
+        torch, dev, params, cfg, FleetConfig(
+            num_replicas=2, tp_size=1, tp_max=4, restart_ticks=2,
+            quarantine_cooloff_ticks=10_000,
+            autoscale=AutoscalerConfig(
+                min_replicas=2, max_replicas=3,
+                scale_up_queue_per_replica=8.0,
+                scale_down_queue_per_replica=-1.0,
+                scale_up_occupancy=0.9, scale_down_occupancy=-1.0,
+                scale_up_cooldown_ticks=10 ** 6,
+                scale_down_cooldown_ticks=1,
+                scale_down_idle_ticks=10 ** 6)), **TP_FLEET)
+    rng = np.random.default_rng(13)
+    waves = [[(rng.integers(0, cfg.vocab_size, int(rng.integers(3, 9)))
+               .tolist(), int(rng.integers(8, 13))) for _ in range(n)]
+             for n in (TP_FLEET_FIRST, TP_FLEET_SECOND)]
+    reqs, chips = {}, []
+
+    class Feed:
+        sent = 0
+        done = False
+
+        def __call__(self):
+            chips.append(fleet.chips_in_service())
+            ready = self.sent == 0 or (
+                len(fleet.replicas) > 2
+                and fleet.replicas[2].state is ReplicaState.HEALTHY)
+            if self.sent < len(waves) and ready:
+                for prompt, new in waves[self.sent]:
+                    fid = fleet.submit(ServeRequest(prompt=prompt,
+                                                    max_new_tokens=new))
+                    if fid is None:
+                        raise AssertionError("serve_tp fleet: shed")
+                    reqs[fid] = (prompt, new)
+                self.sent += 1
+            self.done = self.sent == len(waves)
+
+    drive_ticks(torch, dev, fleet, rec, feed=Feed(),
+                max_ticks=TP_FLEET_MAX_TICKS)
+    chips.append(fleet.chips_in_service())
+    return fleet, rec, reqs, chips
+
+
+def serve_tp_drive(torch, entries, card, base_results=None, dev="cuda",
+                   n_layer=12):
+    """Phase 10e: tensor-parallel serving replicas on one card (module
+    docstring).  A rehearsal on the CPU passes ``dev="cpu"`` and a
+    shallower model (no serve-phase reference then; the CPU counts no
+    launch)."""
+    from trustworthy_dl_tpu_torch import ops
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+    from trustworthy_dl_tpu_torch.obs.hbm import HbmMonitor
+    from trustworthy_dl_tpu_torch.serve.fleet import ReplicaObs
+    from trustworthy_dl_tpu_torch.serve.kv_slots import kv_bytes_per_token
+    from trustworthy_dl_tpu_torch.utils.serve_profile import (serve_smoke,
+                                                              smoke_engine,
+                                                              smoke_traffic)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    cfg, params = smoke_gpt2(torch, dev, n_layer)
+    requests = smoke_traffic(cfg.vocab_size)
+    out = {"phase": "serve_tp", "card": card,
+           "model": f"gpt2 ({n_layer}L, 768, 12H, V50257, bf16, random "
+                    "init seed 0)", "requests": len(requests)}
+
+    # -- 1. TP 1 against TP 2 over the serve traffic -----------------------
+    arms = {}
+    for tp in (1, 2):
+        sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        engine, results, wall = serve_smoke(cfg, params, "kernel", requests,
+                                            device=dev, tp_size=tp)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+            else 0
+        summary = engine.metrics_summary()
+        check_completed(results, requests)
+        want = {"paged_attention": cfg.n_layer * summary["decode_ticks"],
+                "paged_prefill_attention":
+                    cfg.n_layer * summary["prefill_chunks"],
+                "logit_trust_stats": summary["prompts_prefilled"]
+                + summary["decode_ticks"]}
+        if dev.type == "cuda":
+            expect_launches(launches, want, f"serve_tp tp={tp}")
+        arm = {"wall_s": wall, "tokens_per_s": summary["tokens_per_s"],
+               "peak_memory_bytes": peak,
+               "launches": launches_of(launches, want),
+               "decode_ticks": summary["decode_ticks"],
+               "prefill_chunks": summary["prefill_chunks"]}
+        if tp > 1:
+            whole = shreg.tree_bytes_per_device(params)
+            per_position = shreg.tree_bytes_per_device(
+                params, engine.tp_specs, engine.tp_mesh)
+            arm.update({
+                "mesh": engine.tp_mesh.shape,
+                "positions_on": sorted({str(d) for d in
+                                        engine.tp_mesh.devices.flat}),
+                "param_bytes": whole,
+                "param_bytes_per_position": per_position,
+                "memory_allocated_bytes": (torch.cuda.memory_allocated()
+                                           if dev.type == "cuda" else 0)})
+            if not per_position < whole:
+                raise AssertionError(f"serve_tp: TP-2 specs shard nothing "
+                                     f"({per_position} of {whole} bytes)")
+        arms[tp] = (results, arm)
+        del engine
+    res1, res2 = arms[1][0], arms[2][0]
+    differ = [r for r in res1 if res1[r].tokens != res2[r].tokens]
+    if base_results is not None:
+        differ += [r for r in res1 if res1[r].tokens
+                   != base_results[r].tokens]
+    if differ:
+        raise AssertionError(f"serve_tp: streams of requests {differ} "
+                             "differ between TP 1, TP 2 and the serve "
+                             "phase")
+    if arms[1][1]["launches"] != arms[2][1]["launches"]:
+        raise AssertionError(f"serve_tp: launches {arms[1][1]['launches']} "
+                             f"at TP 1, {arms[2][1]['launches']} at TP 2")
+    out["arms"] = {f"tp{tp}": arm for tp, (_, arm) in arms.items()}
+    out["tp2_over_tp1_tokens_per_s"] = (arms[2][1]["tokens_per_s"]
+                                        / arms[1][1]["tokens_per_s"])
+    out["streams_bit_identical"] = True
+    out["reference"] = "serve phase" if base_results is not None \
+        else "tp1 only"
+    del arms, res1, res2
+
+    # -- 2. the HBM gate admits the same blocks at both widths -------------
+    block_bytes = 16 * kv_bytes_per_token(cfg)
+    admitted = {}
+    for tp in (1, 2):
+        gc.collect()
+        if dev.type == "cuda":
+            budget = torch.cuda.memory_allocated() \
+                + TP_GATE_BLOCKS * block_bytes
+        else:
+            budget = TP_GATE_BLOCKS * block_bytes
+        hbm = HbmMonitor(budget_bytes=budget)
+        engine = smoke_engine(cfg, params, "kernel", device=dev,
+                              tp_size=tp, obs=ReplicaObs(hbm=hbm))
+        admitted[tp] = {"num_blocks": engine.scheduler.num_blocks,
+                        "denials": hbm.pressure_denials}
+        del engine
+    if admitted[1] != admitted[2] or admitted[1]["denials"] != 1:
+        raise AssertionError(f"serve_tp: the HBM gate admitted {admitted}")
+    out["hbm_gate"] = {"budget_blocks": TP_GATE_BLOCKS, **{
+        f"tp{tp}": a for tp, a in admitted.items()}}
+
+    # -- 3. the fleet's scale-up to a doubled TP group ---------------------
+    fleet, rec, reqs, chips = tp_fleet_drill(torch, dev, params, cfg)
+    counters = {k: fleet.counters[k] for k in ("scale_ups", "scale_downs",
+                                                "tp_scale_ups")}
+    widths = [r.tp for r in fleet.replicas]
+    new = fleet.replicas[2] if len(fleet.replicas) > 2 else None
+    if counters != {"scale_ups": 1, "scale_downs": 0, "tp_scale_ups": 1} \
+            or widths != [1, 1, 2] or chips[0] != 2 or max(chips) != 4 \
+            or new.engine.tp_mesh is None:
+        raise AssertionError(f"serve_tp fleet: counters {counters}, widths "
+                             f"{widths}, chips {chips}")
+    results = fleet.results
+    order = sorted(reqs)
+    ref, one_tps = one_engine_streams(
+        torch, dev, params, cfg, [reqs[f] for f in order],
+        max_slots=TP_FLEET["max_slots"], max_seq=TP_FLEET["max_seq"],
+        enable_monitor=False)
+    differ = [f for f, r in zip(order, ref)
+              if results[f].status != "completed"
+              or results[f].tokens != r.tokens]
+    by_new = sum(1 for r in results.values() if r.replica == 2)
+    if differ or by_new < 1:
+        raise AssertionError(f"serve_tp fleet: requests {differ} differ "
+                             f"from one engine's; replica 2 served {by_new}")
+    ok, problems = fleet.verify_attribution()
+    if not ok:
+        raise AssertionError(f"serve_tp fleet attribution: {problems[:3]}")
+    gens, want = fleet_launch_check(rec["generations"], rec["launches"],
+                                    cfg.n_layer, "serve_tp fleet",
+                                    prefill_chunks=False) \
+        if dev.type == "cuda" else ([], {})
+    tokens = sum(len(r.tokens) for r in results.values())
+    out["fleet"] = {
+        "wall_s": rec["wall"], "ticks": fleet.tick,
+        "tokens_per_s": tokens / rec["wall"],
+        "one_engine_tokens_per_s": one_tps, "counters": counters,
+        "widths": widths, "chips_in_service": [chips[0], max(chips),
+                                               chips[-1]],
+        "replica_2_mesh": new.engine.tp_mesh.shape,
+        "served_by_scaled_up_replica": by_new,
+        "host_ms_per_tick": rec["host_ms_per_tick"],
+        "generations": gens, "launches": launches_of(rec["launches"], want),
+        "expected_launches": want}
+    for name, n in out["arms"]["tp2"]["launches"].items():
+        key = {"paged_attention": "paged_decode_attention"}.get(name, name)
+        if key in entries and n:
+            entries[key]["launches_serve_tp"] = n
+    emit({**out, "seconds": time.perf_counter() - t_phase})
+
+
+def compute_mode(card: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={card}", "--query-gpu=compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def multihost_drive(torch, entries, card, smi):
+    """Phase 10f: two processes on the card over gloo run the gathered
+    trusted step at GPT-2 small's width (module docstring)."""
+    import socket
+
+    from trustworthy_dl_tpu_torch.utils import multiproc_worker as worker
+
+    t_phase = time.perf_counter()
+    mode = compute_mode(card)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    args = [str(port), "--device", "cuda", "--size", "gpt2-small",
+            "--steps", str(MULTIHOST_STEPS), "--plan", "live", "--profile"]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "trustworthy_dl_tpu_torch.utils."
+         "multiproc_worker", str(r), "2", *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MULTIHOST_TIMEOUT_S)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t_phase
+    ranks, stats = [], []
+    for r, (rc, out, err) in enumerate(outs):
+        lines = out.splitlines()
+        ok = [ln for ln in lines if ln.startswith("MULTIPROC_OK")]
+        st = [ln for ln in lines if ln.startswith("MULTIPROC_STATS ")]
+        if rc != 0 or len(ok) != 1 or len(st) != 1:
+            raise AssertionError(f"multihost: rank {r} exited {rc} "
+                                 f"(compute mode {mode}): {err[-3000:]}")
+        ranks.append(worker.parse_ok_line(ok[0]))
+        stats.append(json.loads(st[0].split(" ", 1)[1]))
+    if ranks[0]["losses"] != ranks[1]["losses"] or \
+            ranks[0]["trust"] != ranks[1]["trust"] or \
+            ranks[0]["params"] != ranks[1]["params"]:
+        raise AssertionError(f"multihost: the ranks disagree: {ranks}")
+    cfg = gpt2_small(torch)
+    want = step_launches(cfg, [TRAIN_NODES // 2] * MULTIHOST_STEPS)
+    for r, st in enumerate(stats):
+        got = {k: st["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"multihost: rank {r} launches {got}, "
+                                 f"design says {want}")
+    t_ref = time.perf_counter()
+    ref = worker.run_steps("gpt2-small", "cuda", MULTIHOST_STEPS,
+                               "live", profile=True)
+    ref_s = time.perf_counter() - t_ref
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                ref["losses"])]
+    trust_gap = max(abs(a - b) for a, b in zip(ranks[0]["trust"],
+                                               ref["trust"]))
+    if max(gaps) > MULTIHOST_LOSS_RTOL or trust_gap > MULTIHOST_TRUST_ATOL \
+            or not all(math.isfinite(x) for x in ref["losses"]):
+        raise AssertionError(f"multihost: losses {ranks[0]['losses']} "
+                             f"against one process's {ref['losses']}, "
+                             f"trust gap {trust_gap}")
+    ref_want = step_launches(cfg, [TRAIN_NODES] * MULTIHOST_STEPS)
+    if {k: ref["launches"].get(k, 0) for k in ref_want} != ref_want:
+        raise AssertionError(f"multihost: one-process launches "
+                             f"{ref['launches']}, design says {ref_want}")
+    for name, n in want.items():
+        entries[name]["launches_multihost"] = 2 * n
+    keys = ("step_ms", "gather_ms", "gather_bytes", "peak_memory_bytes",
+            "profile", "rows")
+    emit({"phase": "multihost", "card": smi, "compute_mode": mode, "seconds": time.perf_counter() - t_phase,
+          "workers_s": spawn_s, "one_process_s": ref_s,
+          "model": "gpt2 (12L, 768, 12H, V50257, bf16 over f32 master "
+                   "weights, random init seed 0)",
+          "world": 2, "backend": "gloo (staged through host memory)",
+          "nodes": TRAIN_NODES, "rows_per_node": 8, "seq_len": TRAIN_T,
+          "steps": MULTIHOST_STEPS,
+          "ranks": [{k: st.get(k) for k in keys} for st in stats],
+          "one_process": {k: ref.get(k) for k in keys},
+          # Medians over the steps after the first (which loads and warms).
+          "rank_step_ms_median": statistics.median(
+              ms for st in stats for ms in st["step_ms"][1:]),
+          "one_process_step_ms_median": statistics.median(
+              ref["step_ms"][1:]),
+          "gather_ms_median": statistics.median(
+              ms for st in stats for ms in st["gather_ms"][1:]),
+          "losses": ranks[0]["losses"], "one_process_losses": ref["losses"],
+          "loss_rel_gap_max": max(gaps), "trust_gap_max": trust_gap,
+          "bit_equal_to_one_process": (ranks[0]["losses"] == ref["losses"]
+                                       and ranks[0]["params"]
+                                       == ref["params"]),
+          "trust": ranks[0]["trust"], "launches_per_rank": want,
+          "one_process_launches": ref_want})
+
+
 def b1_at_mix(torch, shapes, nodes, flush, full=False):
     """B1 over a drive's gradient battery (every leaf of every node, at
     most ``MAX_SEGMENTS`` a launch, split as the step splits it) on random
@@ -6884,6 +7247,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     group_modes_drive(torch, entries, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tp_drive(torch, entries, smi, base_results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    multihost_drive(torch, entries, card, smi)
     gc.collect()
     torch.cuda.empty_cache()
     vision_drive(torch, entries, smi)

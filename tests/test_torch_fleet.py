@@ -14,8 +14,9 @@ attribution ledger's records (attempts, statuses, ``hedge_lost`` and
 ``vote_replay`` rows; ``ttft_s`` and the stamp ``t`` left out, they are
 wall time) and the registry values the case reads.
 
-Beside them: the control-plane fields accepted with JAX's validation, the
-refusals that stay (``tp_size``/``tp_max``, Slice 4), an attacker attached
+Beside them: the control-plane fields accepted with JAX's validation,
+tensor-parallel replica widths (``tp_size``/``tp_max``) threaded to every
+replica build as in JAX, an attacker attached
 to the injector, the injector's fleet hooks against JAX's (fire-once,
 persistence, heal, the adaptive event without an adversary), the engine's
 fleet surface
@@ -93,6 +94,8 @@ class FakeEngine:
         self.anomaly = (view.anomaly if view is not None
                         else kwargs.get("anomaly"))
         self.chaos = kwargs.get("chaos")
+        self.tp_size = kwargs.get("tp_size", 1)
+        self.tp_devices = kwargs.get("tp_devices")
         self.queue_limit = kwargs.get("queue_limit", 64)
         self.kv_dtype = "model"
         self.weight_dtype = "model"
@@ -771,21 +774,69 @@ def test_control_plane_fields_are_accepted_with_jax_validation(field):
 
 @pytest.mark.parametrize("kwargs", [dict(tp_size=2), dict(tp_max=2)])
 def test_tensor_parallel_replicas_are_refused_naming_slice_4(kwargs):
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        tserve.FleetConfig(**kwargs)
+    """Once refused, now JAX's behaviour: the config takes the TP fields,
+    and both fleets build every initial replica at the config's width
+    (an engine kwarg ``tp_size`` from 2 up, none at 1), count it in
+    ``chips_in_service`` and keep it across a rebuild.  JAX carves its 8
+    CPU devices into per-replica slices; the port's CPU fleet has one
+    device, so its replicas' positions share it (``tp_devices`` None)."""
+    width = kwargs.get("tp_size", 1)
+    views = []
+    for side in SIDES:
+        api = Api(side)
+        cfg = api.FleetConfig(**kwargs)
+        assert (cfg.tp_size, cfg.tp_max) == (width, kwargs.get("tp_max", 0))
+        fleet, fakes = fake_fleet(api, **kwargs)
+        assert [r.tp for r in fleet.replicas] == [width, width]
+        assert fleet.chips_in_service() == 2 * width
+        assert [f.tp_size for f in fakes.values()] == [width, width]
+        devices = [f.tp_devices for f in fakes.values()]
+        if width == 1 or api.port:
+            assert devices == [None, None]
+        else:
+            assert [len(d) for d in devices] == [width, width]
+            assert not set(devices[0]) & set(devices[1])
+        rep = fleet.replicas[1]
+        fleet._build_replica(1, prev=rep)      # a rebuild keeps the width
+        assert rep.tp == width and fakes[1].tp_size == width
+        views.append((fleet.chips_in_service(), dict(fleet.counters)))
+    assert views[0] == views[1]
 
 
 def test_tp_size_through_the_serve_config_is_refused_naming_slice_4():
+    """Once refused, now JAX's behaviour: ``ServeConfig(tp_size=2)`` is
+    accepted and 0 refused with JAX's message; a fleet given ``tp_size``
+    through its engine kwargs (``from_config``'s path) pops it and builds
+    its replicas at the larger of it and the config's width."""
+    from trustworthy_dl_tpu.core.config import ServeConfig as JServeConfig
     from trustworthy_dl_tpu_torch.core.config import ServeConfig
 
     assert ServeConfig().tp_size == 1
-    with pytest.raises(ValueError):
-        ServeConfig(tp_size=0)
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        ServeConfig(tp_size=2)
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        tserve.ServingFleet(engine_factory=lambda i, **kw: None,
-                            device="cpu", tp_size=2)
+    assert ServeConfig(tp_size=2).tp_size == JServeConfig(tp_size=2).tp_size
+    errors = []
+    for config in (ServeConfig, JServeConfig):
+        with pytest.raises(ValueError) as exc:
+            config(tp_size=0)
+        errors.append(str(exc.value))
+    assert errors[0] == errors[1]
+    widths = []
+    for side in SIDES:
+        api = Api(side)
+        built = {}
+
+        def factory(index, _api=api, **kw):
+            built[index] = FakeEngine(index, _api, **kw)
+            return built[index]
+
+        extra = dict(device="cpu") if api.port else {}
+        fleet = api.ServingFleet(engine_factory=factory, tp_size=2,
+                                 registry=api.MetricsRegistry(), **extra)
+        assert fleet._base_tp == 2
+        assert "tp_size" not in fleet._engine_kwargs
+        widths.append(([r.tp for r in fleet.replicas],
+                       [e.tp_size for e in built.values()],
+                       fleet.chips_in_service()))
+    assert widths[0] == widths[1] == ([2, 2], [2, 2], 4)
 
 
 def test_injector_adversary_attaches_and_activates():

@@ -144,14 +144,16 @@ def test_hybrid_errors_match_jax(eight_devices, args, err, match):
 def test_mode_errors_match_jax_and_dcn_slices_are_refused(eight_devices):
     """hybrid without mesh_shape and a DCN shape outside hybrid raise
     JAX's ValueErrors; a DCN extent above 1 that the positions can hold
-    asks for JAX's slice grouping, which needs several hosts."""
+    asks for JAX's slice grouping across processes, which the port refuses
+    naming its rule: one process a card."""
     for build, devs in ((tmesh.build_mesh, CPU8),
                         (jmeshmod.build_mesh, eight_devices)):
         with pytest.raises(ValueError, match="requires mesh_shape"):
             build(2, "hybrid", devices=devs)
         with pytest.raises(ValueError, match="requires parallelism"):
             build(2, "tensor", devices=devs, dcn_mesh_shape={DATA: 2})
-    with pytest.raises(NotImplementedError, match="item 29"):
+    with pytest.raises(NotImplementedError,
+                       match="one process a card: initialize_multihost"):
         tmesh.build_hybrid_mesh({DATA: 2}, {DATA: 2}, devices=CPU8)
 
 
@@ -270,7 +272,8 @@ def test_place_zero_sharded_bytes_per_position(eight_devices):
     assert shreg.row_spec(DATA, 2) == tuple(jshreg.row_spec(DATA, 2))
     assert shreg.row_placer(mesh, DATA, 8)(torch.ones(8, 3)).device == \
         torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 29"):
+    with pytest.raises(NotImplementedError,
+                       match="one process a card: initialize_multihost"):
         shreg.replicated_placer(tmesh.build_mesh(
             2, "data", devices=["cpu", "meta"]))
     # Two spellings of one device are one device.

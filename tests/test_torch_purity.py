@@ -14,7 +14,8 @@ pipeline parallelism: ``core/mesh.py``, ``core/sharding.py``,
 ``experiments/pipeline_study.py``; sequence parallelism,
 ``parallel/sequence.py``; tensor parallelism,
 ``parallel/tensor_parallel.py``, with the layout registry and the group
-modes of ``elastic/``).
+modes of ``elastic/``; the multi-process worker
+``utils/multiproc_worker.py``).
 ``serve/control.py`` and ``chaos/adversary.py`` import no torch at all,
 as their JAX counterparts import no jax.  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
@@ -66,7 +67,8 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.elastic.restaff",
                "trustworthy_dl_tpu_torch.experiments.pipeline_study",
                "trustworthy_dl_tpu_torch.parallel.sequence",
-               "trustworthy_dl_tpu_torch.parallel.tensor_parallel")
+               "trustworthy_dl_tpu_torch.parallel.tensor_parallel",
+               "trustworthy_dl_tpu_torch.utils.multiproc_worker")
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 

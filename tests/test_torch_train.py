@@ -164,7 +164,7 @@ def _check_step(s, j, t):
     kurt = st.STAT_INDEX["kurtosis"]
     shape = [st.STAT_INDEX["skewness"], st.STAT_INDEX["cosine_similarity"]]
     for key in ("out_stats", "grad_stats"):
-        for node in range(N):
+        for node in range(len(j[key])):
             a, b = t[key][node], j[key][node]
             scale = abs(b[st.STAT_INDEX["std"]])
             cols = [c for c in range(st.NUM_GRADIENT_STATS)

@@ -153,9 +153,9 @@ class ServeConfig:
     legacy stripe pool, which has no block pool, prefix cache or chunked
     prefill: a paged knob set away from its default then warns (and
     ``spec_k`` or ``adapter_rank`` > 0 is refused).  ``tp_size`` is the
-    replica's tensor-parallel width: 1 (JAX's default) is the one-card
-    engine; wider engines are refused naming ROADMAP Slice 4c.  Bad values
-    fail here, at construction."""
+    replica's tensor-parallel width (JAX's): the engine's params carry the
+    model's TP layout over a ``model`` mesh of that many positions, which
+    share the engine's card.  Bad values fail here, at construction."""
 
     max_slots: int = 8
     max_seq: int = 256
@@ -178,11 +178,6 @@ class ServeConfig:
     def __post_init__(self) -> None:
         if self.tp_size < 1:
             raise ValueError(f"tp_size must be >= 1, got {self.tp_size}")
-        if self.tp_size > 1:
-            raise NotImplementedError(
-                f"tp_size={self.tp_size} is not ported yet (ROADMAP Slice "
-                "4c: tensor-parallel serving replicas across several "
-                "GPUs); the port serves on one card")
         if self.max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {self.max_slots}")
         if self.max_seq < 1:

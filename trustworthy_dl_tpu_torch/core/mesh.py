@@ -20,18 +20,36 @@ JAX's fit rule (one position: JAX's one-device layout), ``model`` a
 own axis name, and ``hybrid`` the explicit ``mesh_shape``
 (:func:`build_hybrid_mesh`, by default over as many positions of
 ``device`` as the shape names).  A DCN extent above 1 asks for JAX's
-grouping by slice, which needs several hosts (ROADMAP item 29): it is
-refused by name once the positions suffice.  JAX's ``shard_map_compat``
-has no counterpart: the per-position loops of ``parallel/`` play its
-part.
+grouping by slice across processes: it is refused by name once the
+positions suffice.  JAX's ``shard_map_compat`` has no counterpart: the
+per-position loops of ``parallel/`` play its part.
+
+Several processes: :func:`initialize_multihost` /
+:func:`shutdown_multihost` are JAX's, over ``torch.distributed``'s gloo
+backend, one process a card (PyTorch's idiom, where one JAX process owns
+several devices).  With a group initialised ``build_mesh(n, "data")``
+lays the ``data`` axis over the ranks: position r is rank r's device, the
+node rows split contiguously by rank, and the mesh records this
+process's position (``Mesh.process_index``), which is where it places.
+The gathered trusted step (``engine/step.build_train_step``'s
+``process_group``) is what runs across them.  A collective stages its
+tensors through host memory, so it needs no CUDA collective library.
 """
 
 from __future__ import annotations
 
+import datetime
+import logging
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
+
+#: How long a rank waits for the others at set-up and at a collective
+#: before it fails: a rank that never arrives raises, it does not hang.
+MULTIHOST_TIMEOUT = datetime.timedelta(seconds=60)
 
 # Canonical axis names, the JAX package's.
 DATA_AXIS = "data"     # data-parallel shards
@@ -62,15 +80,18 @@ def node_axis_for(parallelism: str) -> str:
 
 
 class Mesh:
-    """Axis names over an array of ``torch.device``s (one per
-    position)."""
+    """Axis names over an array of ``torch.device``s (one per position).
+    ``process_index`` is None for the single-controller mesh; for a mesh
+    that spans processes it is this process's position (its rank)."""
 
-    def __init__(self, devices: Any, axis_names: Sequence[str]):
+    def __init__(self, devices: Any, axis_names: Sequence[str],
+                 process_index: Optional[int] = None):
         arr = np.asarray(devices, dtype=object)
         if arr.ndim != len(axis_names):
             raise ValueError(f"{arr.ndim}-d devices for axes {axis_names}")
         self.devices = arr
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.process_index = process_index
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -122,7 +143,7 @@ def build_hybrid_mesh(ici_mesh_shape: Dict[str, int],
     ``device``.  With every DCN extent at 1 the layout is a reshape in
     axis order, as in JAX; a DCN extent counts against the positions
     (the shortfall raises "needs"), and above 1 it asks for JAX's grouping
-    by slice, which the port refuses (several hosts: ROADMAP item 29)."""
+    by slice across processes, which the port refuses."""
     dcn_mesh_shape = dcn_mesh_shape or {}
     extra = (set(ici_mesh_shape) | set(dcn_mesh_shape)) - set(AXIS_ORDER)
     if extra:
@@ -140,9 +161,10 @@ def build_hybrid_mesh(ici_mesh_shape: Dict[str, int],
             f"{total} devices, have {len(positions)}")
     if any(d > 1 for d in dcn):
         raise NotImplementedError(
-            f"dcn_mesh_shape={dcn_mesh_shape} groups positions by slice, "
-            "across hosts: not ported yet (ROADMAP item 29, multi-host "
-            "set-up); the port's mesh holds one process")
+            f"dcn_mesh_shape={dcn_mesh_shape} groups positions by slice "
+            "across processes, which the port does not: one process a "
+            "card: initialize_multihost, whose mesh is the data axis over "
+            "the ranks")
     return Mesh(_grid(positions, ici), tuple(order))
 
 
@@ -161,7 +183,16 @@ def build_mesh(num_nodes: int, parallelism: str = "data",
     that many positions, and ``tensor``, ``sequence`` and ``expert`` give
     each node a group of ``len(devices) // nodes`` positions, a
     ``(nodes, group)`` mesh over ``data`` and the mode's axis.  A
-    ``dcn_mesh_shape`` outside hybrid mode raises, as in JAX."""
+    ``dcn_mesh_shape`` outside hybrid mode raises, as in JAX.  With a
+    process group of more than one rank initialised and no ``devices``,
+    ``data`` is :func:`process_data_mesh`; the other modes are refused."""
+    if devices is None and process_count() > 1:
+        if parallelism != "data" or mesh_shape or dcn_mesh_shape:
+            raise NotImplementedError(
+                f"parallelism={parallelism!r} across {process_count()} "
+                "processes: only the data axis spans processes (one "
+                "process a card)")
+        return process_data_mesh(num_nodes, device)
     if parallelism == "hybrid":
         if not mesh_shape:
             raise ValueError("hybrid parallelism requires mesh_shape")
@@ -221,7 +252,95 @@ def local_device_count() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
-__all__ = ["AXIS_ORDER", "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS", "Mesh",
-           "SEQ_AXIS", "STAGE_AXIS", "bind_mode_mesh", "build_hybrid_mesh",
-           "build_mesh", "local_device_count", "node_axis_for",
-           "stage_devices"]
+def _group_ready() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None) -> None:
+    """Join the process group of a multi-process run (JAX's
+    ``jax.distributed.initialize``), over gloo.  The coordinator is
+    ``tcp://<coordinator_address>`` (``host:port``) when given, else
+    ``env://``, which reads ``MASTER_ADDR`` and ``MASTER_PORT`` (and
+    ``WORLD_SIZE`` and ``RANK`` where the arguments leave them out), as
+    ``torchrun`` sets them.  A rank that does not arrive within
+    :data:`MULTIHOST_TIMEOUT` makes the others raise."""
+    import torch.distributed as dist
+
+    kwargs: Dict[str, Any] = {}
+    if num_processes is not None:
+        kwargs["world_size"] = int(num_processes)
+    if process_id is not None:
+        kwargs["rank"] = int(process_id)
+    init_method = "env://" if coordinator_address is None \
+        else f"tcp://{coordinator_address}"
+    dist.init_process_group("gloo", init_method=init_method,
+                            timeout=MULTIHOST_TIMEOUT, **kwargs)
+    logger.info("Initialized distributed environment: process %d/%d",
+                process_index(), process_count())
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group; a no-op when none was initialised (JAX's
+    guard)."""
+    if _group_ready():
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def process_index() -> int:
+    """This process's rank (0 without a process group)."""
+    if not _group_ready():
+        return 0
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
+def process_count() -> int:
+    """Processes in the run (1 without a process group)."""
+    if not _group_ready():
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size()
+
+
+def process_data_mesh(num_nodes: int, device: Any = "cpu") -> Mesh:
+    """The ``data`` axis over the ranks of the process group, one
+    position a rank: position r is rank r's device (each rank names its
+    own; one collective collects them).  Node rows split contiguously by
+    rank (:func:`process_node_rows`), JAX's ``P("data")`` over
+    process-ordered devices."""
+    import torch.distributed as dist
+
+    world = process_count()
+    process_node_rows(num_nodes, process_index(), world)   # raises if uneven
+    names = [None] * world
+    dist.all_gather_object(names, str(torch.device(device)))
+    positions = np.empty(world, dtype=object)
+    positions[:] = [torch.device(n) for n in names]
+    return Mesh(positions, (DATA_AXIS,), process_index=process_index())
+
+
+def process_node_rows(num_nodes: int, rank: int, world: int) -> range:
+    """The node rows rank ``rank`` of ``world`` runs: ``num_nodes /
+    world`` contiguous rows."""
+    if num_nodes % world != 0:
+        raise ValueError(f"{num_nodes} nodes do not split evenly over "
+                         f"{world} processes: each rank takes the same "
+                         "number of contiguous node rows")
+    per = num_nodes // world
+    return range(rank * per, (rank + 1) * per)
+
+
+__all__ = ["AXIS_ORDER", "DATA_AXIS", "EXPERT_AXIS", "MODEL_AXIS",
+           "MULTIHOST_TIMEOUT", "Mesh", "SEQ_AXIS", "STAGE_AXIS",
+           "bind_mode_mesh", "build_hybrid_mesh", "build_mesh",
+           "initialize_multihost", "local_device_count", "node_axis_for",
+           "process_count", "process_data_mesh", "process_index",
+           "process_node_rows", "shutdown_multihost", "stage_devices"]

@@ -21,9 +21,15 @@ dense tensor there: JAX's GSPMD computes the replicated program's values,
 and the port runs the replicated step.  :func:`tree_bytes_per_device`
 reads the specs, JAX's ``shard_shape`` arithmetic: it counts bytes per
 *position* (on one card the device holds every leaf whole).  A mesh
-whose positions are different devices would need a tensor per device
-and is refused (ROADMAP item 29).  The serving tensor-parallel helpers
-wait for ROADMAP item 28.
+whose positions are different devices would need a tensor per device in
+one process and is refused: the port runs one process a card
+(``core/mesh.initialize_multihost``), and a mesh that spans processes
+places on this process's own position.
+
+Serving's tensor-parallel replicas (:func:`serve_tp_mesh`,
+:func:`place_serve_tp`) carry the same TP layout as training, one spec
+tree for both planes; by default the positions of a replica's group all
+share the engine's device.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import math
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, \
     Tuple, Union
 
+import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.core.mesh import DATA_AXIS, EXPERT_AXIS, \
@@ -171,15 +178,30 @@ def axis_size(mesh: Mesh, mesh_axis: str) -> int:
     return int(mesh.shape.get(mesh_axis, 1))
 
 
+def device_key(device: Any) -> Tuple[str, int]:
+    """(type, index): "cuda" and "cuda:0" name one card."""
+    device = torch.device(device)
+    return device.type, device.index or 0
+
+
+def distinct_devices(mesh: Mesh) -> int:
+    """How many different devices the mesh's positions lie on (positions
+    may share one: on one card every position is that card)."""
+    return len({device_key(d) for d in mesh.devices.flat})
+
+
 def _one_device(mesh: Mesh) -> torch.device:
-    # "cuda" and "cuda:0" name one card.
-    devices = {(torch.device(d).type, torch.device(d).index or 0): d
-               for d in mesh.devices.flat}
+    """The device this process places onto: the mesh's one device, or in
+    a mesh that spans processes this process's own position."""
+    positions = list(mesh.devices.flat)
+    if mesh.process_index is not None:
+        positions = [positions[mesh.process_index]]
+    devices = {device_key(d): d for d in positions}
     if len(devices) != 1:
         raise NotImplementedError(
-            f"placement over {len(devices)} devices is not ported yet "
-            "(ROADMAP item 29: one tensor per device, across processes); "
-            "the port's mesh holds one card")
+            f"placement over {len(devices)} devices in one process is not "
+            "ported: one process a card: initialize_multihost "
+            "(core/mesh.py), each process placing onto its own position")
     return next(iter(devices.values()))
 
 
@@ -378,10 +400,48 @@ def mesh_spec_tree(tree: Any, specs: Any) -> Any:
     return tree_unflatten(tree, out)
 
 
+# ---------------------------------------------------------------------------
+# Serving: tensor-parallel replica meshes.
+# ---------------------------------------------------------------------------
+
+
+def serve_tp_mesh(tp_size: int, devices: Optional[Sequence[Any]] = None,
+                  device: Any = "cpu") -> Mesh:
+    """A serve replica's TP mesh: ``tp_size`` positions over the ``model``
+    axis.  The fleet carves per-replica device slices and passes them
+    here; without ``devices`` every position is ``device`` (the engine's:
+    the group's positions share the card, where JAX takes the first
+    ``tp_size`` local devices)."""
+    if tp_size < 1:
+        raise ValueError("tp_size must be >= 1")
+    devices = [torch.device(d) for d in devices] if devices is not None \
+        else [torch.device(device)] * tp_size
+    if len(devices) < tp_size:
+        raise ValueError(
+            f"serve TP mesh needs {tp_size} devices, have {len(devices)}")
+    positions = np.empty(tp_size, dtype=object)
+    positions[:] = devices[:tp_size]
+    return Mesh(positions, (MODEL_AXIS,))
+
+
+def place_serve_tp(params: Any, mesh: Mesh) -> Tuple[Any, Any]:
+    """(serve params on the replica's mesh, their TP specs): the model's
+    declared TP layout through the same registry rules training TP uses,
+    one layout for both planes.  Every spec replicates on a mesh without
+    a ``model`` axis."""
+    from trustworthy_dl_tpu_torch.parallel.tensor_parallel import \
+        apply_tp_sharding
+
+    return apply_tp_sharding(params, mesh)
+
+
 __all__ = ["BATCH", "EXPERT", "HEAD", "HIDDEN", "LAYER", "LOGICAL_AXES",
            "NODE", "NamedSharding", "SEQLEN", "STAGE", "ShardingRules",
-           "W_FSDP", "W_TP", "axis_rules", "axis_size", "follow_specs",
-           "layout_specs", "mesh_spec_tree", "opt_state_tree", "place_zero_sharded",
+           "W_FSDP", "W_TP", "axis_rules", "axis_size", "device_key",
+           "distinct_devices",
+           "follow_specs", "layout_specs", "mesh_spec_tree",
+           "opt_state_tree", "place_serve_tp", "place_zero_sharded",
            "replicated_placer", "replicated_spec", "resolve_tree",
-           "row_placer", "row_spec", "rules_for", "tp_owns_params",
-           "tree_bytes_per_device", "zero_shard_spec", "zero_specs"]
+           "row_placer", "row_spec", "rules_for", "serve_tp_mesh",
+           "tp_owns_params", "tree_bytes_per_device", "zero_shard_spec",
+           "zero_specs"]

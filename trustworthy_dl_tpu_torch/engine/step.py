@@ -32,6 +32,20 @@ detached tensors under ``torch.no_grad``: one moment-battery launch
 (kernel B1) covers every gradient leaf of every node, one more every
 node's (every microbatch's) features.
 
+Across processes (``process_group`` of W > 1 ranks, one process a card,
+``core/mesh.initialize_multihost``): each rank holds its ``n / W``
+contiguous node rows of the batch and runs only their node passes; one
+all-gather, staged through host memory, then collects every node's loss,
+mean logits, gradient leaves, features and model diagnostics in node
+order, and every rank runs detection, trust, aggregation and the
+optimizer over all ``n`` nodes.  Every rank ends the step with the same
+state, bit for bit, as the one-process step over the same global batch
+(JAX's replicated state): the per-node values are the same computations,
+gathered as bytes.  A live plan's batch poisoning draws for all ``n``
+rows, as the one-process step does, so the ranks gather the batch first
+on such a step and each keeps its own rows; the gradient injection acts
+on the gathered ``n``.
+
 :func:`build_eval_step` and :func:`build_node_eval_step` are the
 validation steps: loss and accuracy, through the fused eval head where
 ``lm_head_chunk`` resolves to a width (dense GPT-2 only, as in JAX).
@@ -41,6 +55,7 @@ input is NaN) and standard deviations are population ones, as in JAX.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
     Sequence, Tuple
 
@@ -50,6 +65,7 @@ from torch.profiler import record_function
 from trustworthy_dl_tpu_torch.attacks.adversarial import AttackPlan, \
     poison_batch, poison_gradients
 from trustworthy_dl_tpu_torch.core.config import TrainingConfig
+from trustworthy_dl_tpu_torch.core.mesh import process_node_rows
 from trustworthy_dl_tpu_torch.detect import baseline as bl
 from trustworthy_dl_tpu_torch.detect import stats as st
 from trustworthy_dl_tpu_torch.detect.detector import anomaly_verdicts, \
@@ -295,16 +311,62 @@ def _node_loss(bundle: ModelBundle) -> Callable:
     return plain
 
 
+#: Each tensor's bytes start on this boundary in a gather's buffer, so
+#: every view back to a wider dtype is aligned.
+_GATHER_ALIGN = 16
+
+
+def _gather_from_ranks(tensors: Sequence[Tensor], group: Any
+                       ) -> Tuple[List[List[Tensor]], int]:
+    """Every rank's ``tensors`` (the same shapes and dtypes on each rank),
+    in rank order, on their device: their bytes in one buffer, one
+    all-gather of it staged through host memory, and views back.  Returns
+    (per rank, the tensors; the bytes gathered)."""
+    import torch.distributed as dist
+
+    device = tensors[0].device
+    chunks, spans, offset = [], [], 0
+    for t in tensors:
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        pad = -raw.numel() % _GATHER_ALIGN
+        chunks += [raw, raw.new_zeros(pad)] if pad else [raw]
+        spans.append((offset, raw.numel()))
+        offset += raw.numel() + pad
+    flat = torch.cat(chunks).cpu()
+    world = dist.get_world_size(group)
+    host = torch.empty((world, flat.numel()), dtype=torch.uint8)
+    dist.all_gather(list(host.unbind(0)), flat, group=group)
+    out = []
+    for buf in host.to(device):
+        out.append([buf[start:start + size].view(t.dtype).reshape(t.shape)
+                    for t, (start, size) in zip(tensors, spans)])
+    return out, host.numel()
+
+
 def build_train_step(bundle: ModelBundle, config: TrainingConfig,
-                     optimizer: Optimizer, max_sort: int = 16384) -> StepFn:
+                     optimizer: Optimizer, max_sort: int = 16384,
+                     process_group: Any = None) -> StepFn:
     """The step for ``config.num_nodes`` nodes: ``step(state, batch, plan,
     grad_noise=None, batch_noise=None) -> (state, metrics)``, with batches
     {'input': [n, b, T], 'target': [n, b, T]} on the state's device (b a
     multiple of ``config.grad_accum_steps``), or {'input': [n, b, H, W,
     C] f32 images, 'target': [n, b] labels} for a vision model.
     ``grad_noise`` / ``batch_noise`` hand the attack injectors their draws
-    (else they draw from ``state.rng``)."""
+    (else they draw from ``state.rng``), for all n nodes.
+
+    ``process_group`` (``torch.distributed``, W ranks): the batch is this
+    rank's ``n / W`` contiguous node rows, and the step gathers the
+    per-node results from every rank (module docstring).  The step's
+    ``last_gather`` then holds the last gather's ``bytes`` and wall
+    ``ms`` (device work drained first, so it is the gather alone)."""
     n_nodes = config.num_nodes
+    world, rank = 1, 0
+    if process_group is not None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size(process_group)
+        rank = dist.get_rank(process_group)
+    my_rows = process_node_rows(n_nodes, rank, world)
     accum = config.grad_accum_steps
     detection = config.attack_detection_enabled
     verification = config.gradient_verification_enabled
@@ -313,17 +375,18 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
     node_loss = _node_loss(bundle)
 
     def node_passes(params: Any, batch: Dict[str, Tensor]):
-        """Per node, per microbatch: forward + loss + grads.  Returns
-        (losses [n], features (detached, n lists of ``accum``),
-        mean_logits [n, V], grads as [n, ...] leaves in tree order,
-        model_aux or None), each node's loss, mean logits, grads and
-        diagnostics the mean over its microbatches, the diagnostics then
-        the mean over the nodes."""
+        """Per node row of ``batch``, per microbatch: forward + loss +
+        grads.  Returns (losses [r], features (detached, r lists of
+        ``accum``), mean_logits [r, V], grads as [r, ...] leaves in tree
+        order, per-node model_aux {key: [r]} or None), each node's loss,
+        mean logits, grads and diagnostics the mean over its
+        microbatches."""
         template = tree_leaves(params)
+        rows = next(iter(batch.values())).shape[0]
         losses, feats, mean_logits, node_aux = [], [], [], []
         grads: List[Tensor] = []
         inv = 1.0 / accum
-        for i in range(n_nodes):
+        for i in range(rows):
             leaves = [p.detach().requires_grad_(True) for p in template]
             node_params = tree_unflatten(params, leaves)
             micro = {k: v[i].chunk(accum) for k, v in batch.items()}
@@ -339,7 +402,7 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
                     micro_aux.append({k: v.detach()
                                       for k, v in out[3].items()})
                 if i == 0 and a == 0:
-                    grads = [torch.empty((n_nodes,) + x.shape, dtype=x.dtype,
+                    grads = [torch.empty((rows,) + x.shape, dtype=x.dtype,
                                          device=x.device) for x in g]
                 for dst, src in zip(grads, g):
                     if a == 0:
@@ -361,10 +424,39 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
             if micro_aux:
                 node_aux.append({k: torch.stack([m[k] for m in micro_aux])
                                  .mean(dim=0) for k in micro_aux[0]})
-        model_aux = ({k: torch.stack([m[k] for m in node_aux]).mean(dim=0)
-                      for k in node_aux[0]} if node_aux else None)
+        node_aux = ({k: torch.stack([m[k] for m in node_aux])
+                     for k in node_aux[0]} if node_aux else None)
         return (torch.stack(losses), feats, torch.stack(mean_logits), grads,
-                model_aux)
+                node_aux)
+
+    def gather_rows(tensors: Sequence[Tensor]) -> List[Tensor]:
+        """Each of this rank's per-node-row tensors, joined with every
+        other rank's rows in rank (node) order."""
+        if tensors and tensors[0].device.type == "cuda":
+            torch.cuda.synchronize(tensors[0].device)
+        t0 = time.perf_counter()
+        by_rank, nbytes = _gather_from_ranks(tensors, process_group)
+        out = [torch.cat([r[j] for r in by_rank])
+               for j in range(len(tensors))]
+        train_step.last_gather = {
+            "bytes": nbytes, "ms": 1e3 * (time.perf_counter() - t0)}
+        return out
+
+    def gather_passes(losses, feats, mean_logits, grads, node_aux):
+        """Every rank's node passes, all n nodes in node order."""
+        keys = sorted(node_aux) if node_aux else []
+        flat_feats = [f for node in feats for f in node]
+        pieces = ([losses, mean_logits] + list(grads)
+                  + [torch.stack(flat_feats)] + [node_aux[k] for k in keys])
+        joined = gather_rows(pieces)
+        losses, mean_logits = joined[0], joined[1]
+        grads = joined[2:2 + len(grads)]
+        every_feat = joined[2 + len(grads)]
+        feats = [[every_feat[i * accum + a] for a in range(accum)]
+                 for i in range(n_nodes)]
+        node_aux = ({k: v for k, v in zip(keys, joined[3 + len(grads):])}
+                    if keys else None)
+        return losses, feats, mean_logits, grads, node_aux
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    plan: AttackPlan,
@@ -375,15 +467,31 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
         now = float(step) * config.time_per_step
         live = plan.is_live(step)
 
-        # 1. Attack injection on the data path.
-        if live:
+        # 1. Attack injection on the data path: across processes over
+        # the gathered batch (the draws cover all n rows), each rank then
+        # keeping its own rows.
+        if live and world > 1:
+            keys = sorted(batch)
+            full = dict(zip(keys, gather_rows([batch[k] for k in keys])))
+            full = poison_batch(plan, full, step, num_classes,
+                                generator=state.rng, noise=batch_noise)
+            batch = {k: v[my_rows.start:my_rows.stop]
+                     for k, v in full.items()}
+        elif live:
             batch = poison_batch(plan, batch, step, num_classes,
                                  generator=state.rng, noise=batch_noise)
 
-        # 2-3. Per-node forward/backward, then gradient injection.
+        # 2-3. Per-node forward/backward (this rank's nodes), the gather
+        # of every rank's, then gradient injection.
         with record_function("tddl.forward_backward"):
-            losses, feats, mean_logits, grads, model_aux = node_passes(
-                state.params, batch)
+            passes = node_passes(state.params, batch)
+        if world > 1:
+            with record_function("tddl.gather"):
+                passes = gather_passes(*passes)
+        losses, feats, mean_logits, grads, node_aux = passes
+        # The diagnostics' mean over the nodes (a fleet-level health).
+        model_aux = ({k: v.mean(dim=0) for k, v in node_aux.items()}
+                     if node_aux else None)
         if live:
             grads = poison_gradients(plan, grads, step, generator=state.rng,
                                      noise=grad_noise)
@@ -391,6 +499,8 @@ def build_train_step(bundle: ModelBundle, config: TrainingConfig,
         with torch.no_grad():
             return _after_backward(state, plan, losses, feats, mean_logits,
                                    grads, model_aux, now)
+
+    train_step.last_gather = None
 
     def _after_backward(state, plan, losses, feats, mean_logits, grads,
                         model_aux, now):

@@ -74,8 +74,20 @@ its ``serve.request`` span under the fleet's attempt span, and
 
 The engine runs on the card: ``device`` defaults to ``"cuda"`` and a
 machine without CUDA raises unless the caller passes ``device="cpu"``,
-where every kernel wrapper runs its plain PyTorch version.  Tensor
-parallelism is not ported (ROADMAP Slice 4c).
+where every kernel wrapper runs its plain PyTorch version.
+
+Tensor parallelism (``tp_size`` > 1, JAX's): the engine holds a TP mesh
+over the ``model`` axis (``tp_mesh``) and its params carry the model's
+registry TP layout (``tp_specs``, ``core.sharding.place_serve_tp``, the
+spec tree training TP resolves).  JAX's GSPMD computes the replicated
+program's values; the port serves the replicated program, so a TP engine's
+streams and kernel launches are a one-position engine's.  By default the
+group's positions are the engine's device (``tp_devices`` names them
+otherwise, all on that device).  The HBM headroom gate budgets KV bytes
+per device: it divides the per-token bytes by the number of distinct
+devices among the positions (:func:`per_device_kv_bytes`), JAX's
+``bytes // tp`` where positions are cards, the whole pool where they
+share one.
 """
 
 from __future__ import annotations
@@ -90,6 +102,7 @@ import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch import ops
+from trustworthy_dl_tpu_torch.core import sharding as shreg
 from trustworthy_dl_tpu_torch.detect import baseline as bl
 from trustworthy_dl_tpu_torch.models import generate as gen
 from trustworthy_dl_tpu_torch.models import gpt2
@@ -128,6 +141,15 @@ def engine_libraries(attn_impl: str, weight_dtype: str, spec_k: int,
     if weight_dtype == "int8" or spec_k > 0:
         names.append("fused_dequant_matmul")
     return names
+
+
+def per_device_kv_bytes(bytes_per_token: int, tp_mesh: Any) -> int:
+    """KV bytes a token costs each device of a TP group: the pool's heads
+    shard over the group's distinct devices (``tp_mesh`` None: one
+    device).  Positions that share a device hold its whole pool, so the
+    headroom gate never admits more than that device holds."""
+    ways = 1 if tp_mesh is None else shreg.distinct_devices(tp_mesh)
+    return max(bytes_per_token // ways, 1)
 
 
 class _NullMetric:
@@ -307,16 +329,38 @@ class ServingEngine:
                  obs: Any = None, paged: bool = True,
                  buckets: Optional[Sequence[int]] = None,
                  chaos: Any = None, replica_id: Optional[int] = None,
-                 retire_hook: Optional[Callable[..., None]] = None):
+                 retire_hook: Optional[Callable[..., None]] = None,
+                 tp_size: int = 1,
+                 tp_devices: Optional[Sequence[Any]] = None):
         # core.config imports serve (its pool geometry check): late import.
         from trustworthy_dl_tpu_torch.core.config import (validate_adapters,
                                                           validate_spec)
 
+        self.device = resolve_device(device)
+        # Tensor-parallel replica, first as in JAX (before the geometry
+        # checks, the HBM gate and the views): a TP mesh over the 'model'
+        # axis and the params with the registry's TP layout, the rules
+        # training TP resolves.
+        self.tp_size = int(tp_size)
+        self.tp_mesh: Any = None
+        self.tp_specs: Any = None
+        if self.tp_size > 1:
+            self.tp_mesh = shreg.serve_tp_mesh(self.tp_size, tp_devices,
+                                               device=self.device)
+            foreign = [d for d in self.tp_mesh.devices.flat
+                       if shreg.device_key(d) != shreg.device_key(
+                           self.device)]
+            if foreign:
+                raise ValueError(
+                    f"tp_devices {foreign} for an engine on {self.device}: "
+                    "the engine serves in one process, so every position "
+                    "of its TP group must be its device")
+            params, self.tp_specs = shreg.place_serve_tp(params,
+                                                         self.tp_mesh)
         q8.validate_dtypes(kv_dtype, weight_dtype)
         validate_spec(spec_k, paged, weight_dtype)
         validate_adapters(adapter_rank, adapter_pool_pages, adapter_dtype,
                           paged, spec_k)
-        self.device = resolve_device(device)
         self.paged = bool(paged)
         if paged and buckets is not None:
             raise ValueError("buckets are the stripe pool's prefill widths "
@@ -377,8 +421,9 @@ class ServingEngine:
         # an ``hbm_pressure`` event and ``tddl_hbm_pressure_total``.
         self.hbm = hbm
         if hbm is not None:
-            bpt = (kv_bytes_per_token(cfg, torch.int8)
-                   if kv_dtype == "int8" else kv_bytes_per_token(cfg))
+            bpt = per_device_kv_bytes(
+                kv_bytes_per_token(cfg, torch.int8) if kv_dtype == "int8"
+                else kv_bytes_per_token(cfg), self.tp_mesh)
         if hbm is not None and not paged:
             # The stripe pool shrinks by slots (floor: one).
             requested = max_slots * max_seq * bpt
@@ -638,7 +683,8 @@ class ServingEngine:
                    spec_k=serve_config.spec_k,
                    adapter_rank=serve_config.adapter_rank,
                    adapter_pool_pages=serve_config.adapter_pool_pages,
-                   adapter_dtype=serve_config.adapter_dtype, **kwargs)
+                   adapter_dtype=serve_config.adapter_dtype,
+                   tp_size=serve_config.tp_size, **kwargs)
 
     # -- submission --------------------------------------------------------
 

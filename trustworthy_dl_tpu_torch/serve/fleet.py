@@ -1,8 +1,8 @@
 """Trust-aware serving fleet: N engine replicas behind one ``submit()``.
 
-Counterpart of ``trustworthy_dl_tpu/serve/fleet.py`` at ``tp_size`` 1: every
-replica is a ``ServingEngine`` in this process on the one card, stepped by
-a synchronous tick loop.  One engine is one failure domain; the fleet
+Counterpart of ``trustworthy_dl_tpu/serve/fleet.py``: every replica is a
+``ServingEngine`` in this process on the one card, stepped by a
+synchronous tick loop.  One engine is one failure domain; the fleet
 reuses the training trust stack at replica granularity:
 
 * **Replica lifecycle** -- ``healthy -> degraded -> draining ->
@@ -50,6 +50,15 @@ reuses the training trust stack at replica granularity:
   pools (``pool_roles``): submissions prefer prefill replicas, and a
   request that has emitted its first decode token moves to a decode
   replica as a live block copy; each pool scales on its own signals.
+* **Tensor-parallel replicas** -- ``FleetConfig.tp_size`` is every initial
+  replica's TP width (an engine with a TP mesh, ``serve/engine.py``), so
+  capacity is a replicas x model-shards grid (``chips_in_service``).  With
+  ``tp_max`` above it the autoscaler chooses the shape of each scale-up
+  (``control.choose_scale_action``): occupancy pressure under a quiet
+  queue brings the new replica with a doubled TP group, queue pressure
+  adds one of the current width.  A rebuild keeps its replica's width.
+  Each replica takes a contiguous slice of the local cards where there
+  are enough; on one card every group's positions share it.
 
 Time is counted in ticks (``step()`` = chaos -> step each live replica ->
 retirements -> supervision -> retries and hedges), so drills are
@@ -80,10 +89,6 @@ attempt, hedge and vote replay, so a survivor's stream equals a single
 engine's given that seed; replica engines take seeds mixed from the fleet
 seed and their index.  Greedy streams equal JAX's bit for bit.
 
-Not ported here: tensor-parallel replicas (ROADMAP Slice 4c).  A
-``FleetConfig`` with ``tp_size`` above 1 or a ``tp_max`` (the autoscaler's
-scale-up to a doubled TP group) raises ``NotImplementedError``; every
-scale-up adds a replica of one card's width.
 """
 
 from __future__ import annotations
@@ -95,6 +100,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, Dict, List, Optional, Set, Tuple
 
+import torch
+
 from trustworthy_dl_tpu_torch.chaos.plan import FaultKind
 from trustworthy_dl_tpu_torch.obs import attribution
 from trustworthy_dl_tpu_torch.obs.events import EventType
@@ -105,6 +112,7 @@ from trustworthy_dl_tpu_torch.serve.control import (Autoscaler,
                                                     ClassQueues,
                                                     ScaleSignals,
                                                     TenantBuckets,
+                                                    choose_scale_action,
                                                     class_for_priority,
                                                     predicted_replicas)
 from trustworthy_dl_tpu_torch.serve.engine import (ServeRequest, ServeResult,
@@ -141,8 +149,9 @@ TERMINAL_STATUSES = ("completed", "deadline_exceeded", "shed_slo",
 class FleetConfig:
     """Host-side fleet knobs, JAX's fields, defaults and validation.
     Tick-denominated fields follow the fleet clock (one ``step()`` = one
-    tick).  ``tp_size`` / ``tp_max`` past their defaults are refused after
-    JAX's checks (ROADMAP Slice 4c)."""
+    tick).  ``tp_size`` is every initial replica's tensor-parallel width;
+    ``tp_max`` (0: ``tp_size``) bounds the autoscaler's scale-up to a
+    doubled TP group."""
 
     num_replicas: int = 2
     # trust: the monitor's flag rate over a window of retirements
@@ -195,8 +204,8 @@ class FleetConfig:
     # False: no live migration anywhere (drains run out or replay,
     # preemptions replay)
     live_migration: bool = True
-    # tensor-parallel replicas and the autoscaler's scale-up to a doubled
-    # TP group (Slice 4c): refused past 1 / 0
+    # tensor-parallel width of every initial replica, and the widest group
+    # a scale-up may build (0: tp_size, no scale-up dimension)
     tp_size: int = 1
     tp_max: int = 0
 
@@ -256,11 +265,6 @@ class FleetConfig:
             if not ({"prefill", "decode"} <= set(roles)):
                 raise ValueError("pool_roles needs at least one prefill "
                                  "AND one decode replica")
-        if self.tp_size > 1 or self.tp_max:
-            raise NotImplementedError(
-                f"tp_size={self.tp_size}, tp_max={self.tp_max}: "
-                "tensor-parallel replicas are not ported yet (ROADMAP "
-                "Slice 4c); every replica serves on one card")
 
 
 def backoff_ticks(cfg: FleetConfig, attempt: int) -> int:
@@ -363,6 +367,7 @@ class _Replica:
         self.engine = engine
         self.gen = 0
         self.role = "mixed"         # pool role; "mixed" = a unified fleet
+        self.tp = 1                 # tensor-parallel group width
         self.state = ReplicaState.HEALTHY
         self.last_progress_tick = 0
         self.stalled_until = -1     # chaos wedge: step() skipped until
@@ -435,11 +440,11 @@ class ServingFleet:
         if num_replicas is not None:
             self.config = dataclasses.replace(self.config,
                                               num_replicas=num_replicas)
-        tp = int(engine_kwargs.pop("tp_size", 1) or 1)
-        if tp > 1:
-            raise NotImplementedError(
-                f"tp_size={tp}: tensor-parallel replicas are not ported "
-                "yet (ROADMAP Slice 4c); every replica serves on one card")
+        # The replicas' TP width: the fleet config's, or a wider tp_size
+        # riding the engine kwargs (from_config passes the ServeConfig's);
+        # popped, since a scale-up may widen one replica past it.
+        self._base_tp = max(int(engine_kwargs.pop("tp_size", 1) or 1),
+                            self.config.tp_size)
         self.device = resolve_device(device)
         self.obs = obs
         pick = (lambda given, name: given if given is not None
@@ -543,8 +548,7 @@ class ServingFleet:
         #: journal key ("replica:gen") -> block allocator, kept across
         #: restarts so records naming a dead generation's blocks reconcile.
         self.journals: Dict[str, Any] = {}
-        # Drill counters (diffed against predict_fleet), JAX's keys;
-        # tp_scale_ups stays 0 (scale-up to a TP group is Slice 4c's).
+        # Drill counters (diffed against predict_fleet), JAX's keys.
         self.counters: Dict[str, int] = {
             "crashes": 0, "restarts": 0, "stalls": 0, "poisons": 0,
             "adaptive_poisons": 0, "slowstarts": 0,
@@ -647,8 +651,26 @@ class ServingFleet:
     def _default_factory(self, index: int, **kwargs: Any) -> Any:
         return ServingEngine(self._params, self._cfg, **kwargs)
 
-    def _engine_build_kwargs(self, index: int) -> Dict[str, Any]:
+    def _tp_devices(self, index: int, tp: int) -> Optional[List[Any]]:
+        """Replica ``index``'s TP device slice: contiguous groups of
+        ``tp`` local devices when there are enough for disjoint slices,
+        else None (the engine puts every position on its own device: on
+        one card the groups share it)."""
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if self.device.type == "cuda" else [self.device])
+        lo, hi = index * tp, (index + 1) * tp
+        if hi <= len(devices):
+            return list(devices[lo:hi])
+        return None
+
+    def _engine_build_kwargs(self, index: int,
+                             tp: Optional[int] = None) -> Dict[str, Any]:
         kwargs = dict(self._engine_kwargs)
+        tp = tp or self._base_tp
+        if tp > 1:
+            kwargs["tp_size"] = tp
+            kwargs["tp_devices"] = self._tp_devices(index, tp)
         kwargs.setdefault("seed", draw_seed(self.seed, -1 - index))
         kwargs["replica_id"] = index
         kwargs["chaos"] = self.chaos
@@ -676,11 +698,19 @@ class ServingFleet:
 
     def _build_replica(self, index: int,
                        prev: Optional[_Replica] = None,
-                       role: Optional[str] = None) -> _Replica:
-        engine = self._factory(index, **self._engine_build_kwargs(index))
+                       role: Optional[str] = None,
+                       tp: Optional[int] = None) -> _Replica:
+        # The TP width is sticky like the role: a rebuild keeps its width;
+        # only a scale-up chooses a new one.
+        if tp is None:
+            tp = prev.tp if prev is not None and prev.tp > 1 \
+                else self._base_tp
+        engine = self._factory(index,
+                               **self._engine_build_kwargs(index, tp))
         rep = prev if prev is not None else _Replica(
             index, engine, self.config.flag_window)
         rep.engine = engine
+        rep.tp = tp
         # The pool role belongs to the index (its initial assignment) or to
         # the scale-up that made it; a rebuild keeps it.
         if role is not None:
@@ -1324,11 +1354,21 @@ class ServingFleet:
         journals kept) or append a replica.  The engine is built mid-run
         through the engine's HBM headroom gate and warms through
         RESTARTING.  ``role`` pins it to one pool; with none retired there,
-        a replica retired from the other pool changes pools.  Every
-        scale-up here adds a replica at one card's width: the scale-up to
-        a doubled TP group (``control.choose_scale_action``'s ``"up"``)
-        needs ``tp_max``, refused until Slice 4c."""
+        a replica retired from the other pool changes pools.  With TP
+        headroom (``tp_max`` above the width) ``control.choose_scale_action``
+        picks the shape: ``"up"`` builds the new replica with a doubled TP
+        group (occupancy pressure, quiet queue: per-replica pool bytes are
+        the bottleneck), ``"out"`` one of the current width.  Replicas in
+        service are never rebuilt in place; the fleet widens through
+        churn."""
         frm = len(self._in_service())
+        cfgc = self.config
+        cur_tp = max((r.tp for r in self._in_service()
+                      if r.engine is not None), default=self._base_tp)
+        tp_max = cfgc.tp_max or max(cfgc.tp_size, self._base_tp)
+        action = choose_scale_action(self.autoscaler.cfg, sig, cur_tp,
+                                     tp_max)
+        tp_new = min(cur_tp * 2, tp_max) if action == "up" else None
         rep = next((r for r in self.replicas
                     if r.state is ReplicaState.RETIRED
                     and (role is None or r.role == role)), None)
@@ -1337,15 +1377,18 @@ class ServingFleet:
                         if r.state is ReplicaState.RETIRED), None)
         if rep is not None:
             rep.gen += 1
-            self._build_replica(rep.index, prev=rep, role=role)
+            self._build_replica(rep.index, prev=rep, role=role, tp=tp_new)
         else:
-            rep = self._build_replica(len(self.replicas), role=role)
+            rep = self._build_replica(len(self.replicas), role=role,
+                                      tp=tp_new)
             self.replicas.append(rep)
-        rep.warm_until = self.tick + self.config.restart_ticks
+        rep.warm_until = self.tick + cfgc.restart_ticks
         rep.last_progress_tick = self.tick
         self._transition(rep, ReplicaState.RESTARTING, "scale_up")
-        logger.warning("fleet: scale-out -> replica %d (queue/replica "
-                       "%.1f, occupancy %.2f)", rep.index,
+        if action == "up":
+            self.counters["tp_scale_ups"] += 1
+        logger.warning("fleet: scale-%s -> replica %d tp=%d (queue/replica "
+                       "%.1f, occupancy %.2f)", action, rep.index, rep.tp,
                        sig.queue_per_replica, sig.occupancy)
         self._emit_scale("up", frm, len(self._in_service()), "scale_up")
 
@@ -2244,9 +2287,10 @@ class ServingFleet:
                 self._classq_gauge.set(float(depth), slo_class=name)
 
     def chips_in_service(self) -> int:
-        """Devices the fleet occupies: its replicas in service (all but
-        RETIRED), each one card wide at ``tp_size`` 1."""
-        return len(self._in_service())
+        """Devices the fleet occupies: the replicas x model-shards grid,
+        each replica in service counting its TP group's width (TP
+        positions, which share the card on one card)."""
+        return sum(r.tp for r in self._in_service())
 
     @property
     def open_requests(self) -> int:

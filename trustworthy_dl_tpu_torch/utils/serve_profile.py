@@ -100,7 +100,8 @@ def drive_smoke(engine, requests, max_new: int = 32, tenants=None):
             raise RuntimeError("request shed by backpressure")
     t0 = time.perf_counter()
     results = engine.run_until_idle()
-    torch.cuda.synchronize()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
     return results, time.perf_counter() - t0
 
 
