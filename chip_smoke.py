@@ -370,6 +370,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (top-k 40), with ``--top-p 0.9``, with ``--top-k 1`` and greedy (gates:
    every draw inside the keep-set the CPU computes from the same logits,
    top-k 1 equal to greedy, the decoded text printed).
+12b. host_tier: the C++ host tier (``native/``) and the kernel-build
+   cache (``utils/compile_cache.py``), host code.  At the train phase's
+   geometry (512 windows of 1024 from the synthetic stream of 524,801
+   tokens): the synthetic stream, a permutation of the windows, the 4 x 8
+   x 1024 row gather and the 32 x 1024 window gather, each bit-equal to
+   its numpy twin, with both tiers' host ms and the loader's ms a batch.
+   The text phase's corpus encoded by fresh tokenizers through the C++
+   batch encoder and through the Python merge loop: ids equal, seconds
+   and tokens/s of each.  Then two fresh processes warm one new cache
+   directory under ``build/`` (``python -m
+   trustworthy_dl_tpu_torch.utils.compile_cache``): the first records an
+   ``nvcc_build`` for each of the five kernel libraries and a
+   ``gxx_build`` for the native one, the second records no build and six
+   loads; each one's seconds; the directory is removed.  The ``build``
+   line also carries the native library's ``g++`` seconds.
 
 13. obs: the telemetry plane (``trustworthy_dl_tpu_torch/obs``) on the
    card.  Serve: the serve phase's GPT-2 small geometry over the 16 smoke
@@ -6624,10 +6639,156 @@ def text_drive(torch, entries, card):
                   "logit_trust_stats")},
               "serve_sampled_tokens_per_s": sampled_summary["tokens_per_s"],
               "generate": runs, "gates": gates})
+        return text, tok
     finally:
         for owner, name, value in reversed(patched):
             setattr(owner, name, value)
         shutil.rmtree(root, ignore_errors=True)
+
+
+def best_ms(fn, reps=5):
+    """Least host ms of ``reps`` calls of ``fn`` (host code: no card)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def warm_cache(directory):
+    """One fresh process warming the kernel-build cache ``directory``
+    (``python -m trustworthy_dl_tpu_torch.utils.compile_cache``): its
+    compile events by stage, their seconds and the process's wall."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trustworthy_dl_tpu_torch.utils.compile_cache",
+         directory], cwd=here, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"host_tier: warming {directory} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    record["process_s"] = time.perf_counter() - t0
+    return record
+
+
+def host_tier_drive(card, text, tok):
+    """Phase 12b: the C++ host tier (``native/``) at the train geometry and
+    on the text phase's corpus, then the kernel-build cache
+    (``utils/compile_cache.py``) in two fresh processes."""
+    import numpy as np
+
+    from trustworthy_dl_tpu_torch import native, ops
+    from trustworthy_dl_tpu_torch.data import get_dataloader
+    from trustworthy_dl_tpu_torch.data import tokenizer as tok_mod
+
+    t_phase = time.perf_counter()
+    gates = []
+
+    def same(what, got, want):
+        for g, w in (zip(got, want) if isinstance(got, tuple)
+                     else [(got, want)]):
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not np.array_equal(g, w):
+                raise AssertionError(f"host_tier: {what} differs from its "
+                                     "numpy twin")
+        gates.append(f"{what}_bit_equal")
+
+    # -- 1. the C entries against their numpy twins, at the train geometry
+    n = TRAIN_BATCH * ON_STEPS            # the train phase's windows
+    stream_len = n * (TRAIN_T + 1) + 1    # its synthetic stream
+    ms = {}
+    stream = native.synthetic_tokens(stream_len, 512, 0)
+    same("synthetic_tokens", stream,
+         native.synthetic_tokens_plain(stream_len, 512, 0))
+    ms["synthetic_tokens"] = best_ms(
+        lambda: native.synthetic_tokens(stream_len, 512, 0))
+    ms["synthetic_tokens_plain"] = best_ms(
+        lambda: native.synthetic_tokens_plain(stream_len, 512, 0), 1)
+    loader = get_dataloader("openwebtext", batch_size=TRAIN_BATCH,
+                            seq_len=TRAIN_T, vocab_size=50257,
+                            num_examples=n, seed=0)
+    rows = loader.inputs
+    perm = native.permutation(0, len(rows))
+    same("permutation", perm, native.permutation_plain(0, len(rows)))
+    ms["permutation"] = best_ms(lambda: native.permutation(0, len(rows)))
+    ms["permutation_plain"] = best_ms(
+        lambda: native.permutation_plain(0, len(rows)))
+    sel = perm[:TRAIN_BATCH]              # 4 nodes x 8 rows of 1024
+    same("gather_rows", native.gather_rows(rows, sel),
+         native.gather_rows_plain(rows, sel))
+    ms["gather_rows"] = best_ms(lambda: native.gather_rows(rows, sel), 25)
+    ms["gather_rows_plain"] = best_ms(
+        lambda: native.gather_rows_plain(rows, sel), 25)
+    same("window_gather", native.window_gather(stream, TRAIN_T,
+                                               TRAIN_BATCH, 7),
+         native.window_gather_plain(stream, TRAIN_T, TRAIN_BATCH, 7))
+    ms["window_gather"] = best_ms(
+        lambda: native.window_gather(stream, TRAIN_T, TRAIN_BATCH, 7), 25)
+    ms["window_gather_plain"] = best_ms(
+        lambda: native.window_gather_plain(stream, TRAIN_T, TRAIN_BATCH, 7),
+        25)
+    t0 = time.perf_counter()
+    batches = sum(1 for _ in loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / batches
+
+    # -- 2. the text phase's corpus through both encoders ----------------
+    merges = [m for m, _ in sorted(tok.ranks.items(), key=lambda kv: kv[1])]
+    encode = {}
+    for label, method in (("batch_cpp", "encode"),
+                          ("python_loop", "encode_plain")):
+        fresh = tok_mod.BPETokenizer(tok.vocab, merges)   # empty word cache
+        t0 = time.perf_counter()
+        ids = getattr(fresh, method)(text)
+        seconds = time.perf_counter() - t0
+        encode[label] = {"seconds": seconds, "tokens": len(ids),
+                         "tokens_per_s": len(ids) / seconds, "ids": ids}
+    if encode["batch_cpp"].pop("ids") != encode["python_loop"].pop("ids"):
+        raise AssertionError("host_tier: the batch encoder's ids differ "
+                             "from the Python loop's")
+    gates.append("encoders_equal")
+
+    # -- 3. the kernel-build cache in two fresh processes ------------------
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="kernel_cache_", dir=build)
+    try:
+        first, second = warm_cache(cache), warm_cache(cache)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    kernels = sorted(ops.SIGNATURES)
+    if sorted(first["events"].get("nvcc_build", [])) != kernels or \
+            first["events"].get("gxx_build") != ["tddl_native"]:
+        raise AssertionError(f"host_tier: the first process built "
+                             f"{first['events']}")
+    if set(second["events"]) != {"library_load"} or \
+            sorted(second["events"]["library_load"]) != \
+            sorted(kernels + ["tddl_native"]):
+        raise AssertionError(f"host_tier: the second process over the warm "
+                             f"cache recorded {second['events']}")
+    gates += ["first_process_builds_all", "second_process_only_loads"]
+
+    def cache_line(record):
+        return {"events": record["events"], "seconds": record["seconds"],
+                "process_s": record["process_s"],
+                "event_seconds": record["event_seconds"]}
+
+    emit({"phase": "host_tier", "card": card,
+          "seconds": time.perf_counter() - t_phase,
+          "native": {"gxx_build_s":
+                     first["event_seconds"]["gxx_build:tddl_native"],
+                     "geometry": {"rows": int(len(rows)), "seq_len": TRAIN_T,
+                                  "batch": TRAIN_BATCH,
+                                  "stream_tokens": stream_len},
+                     "host_ms": ms, "loader_ms_per_batch": loader_ms,
+                     "loader_batches": batches},
+          "encode": {"corpus_bytes": len(text.encode()),
+                     "pretokenizer": tok_mod.PRETOKENIZER, **encode},
+          "cache": {"first": cache_line(first),
+                    "second": cache_line(second)},
+          "gates": gates})
 
 
 def trace_files(path):
@@ -7202,8 +7363,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     built = ops.build()
+    from trustworthy_dl_tpu_torch import native
+
+    gxx = native.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": built})
+          "nvcc_seconds": built, "gxx_seconds": gxx})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     entries = check_kernels(torch, pa)
@@ -7257,7 +7421,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_drive(torch, entries, smi)
     torch.cuda.empty_cache()
-    text_drive(torch, entries, smi)
+    text, tok = text_drive(torch, entries, smi)
+    host_tier_drive(smi, text, tok)
+    del text, tok
     gc.collect()
     torch.cuda.empty_cache()
     obs_drive(torch, entries, smi)

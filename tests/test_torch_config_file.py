@@ -4,14 +4,14 @@ the CPU.
 The same files (YAML and JSON; the nested README schema and flat field
 names) resolve to the same ``TrainingConfig`` values in both packages,
 field for field over the port's fields.  Overrides that are not None win
-over the file.  No key that JAX applies is dropped without a word: the
-mesh and sharding keys (``mesh_shape``, ``dcn_mesh_shape``,
-``shard_params``, ``shard_opt_state``) resolve to JAX's values,
-another JAX-only field at a value other than JAX's default raises by
-name, ``compilation_cache_dir`` (XLA's compile cache) warns once, and a
-JAX-only field at JAX's default asks for nothing and loads.  A
-``parallelism`` other than "data" passes through and the trainer builds
-its mesh; ``load_experiment_config`` keeps its behaviour.
+over the file.  No key that JAX applies is dropped: every field of JAX's
+``TrainingConfig`` is one of the port's, the mesh and sharding keys
+(``mesh_shape``, ``dcn_mesh_shape``, ``shard_params``,
+``shard_opt_state``) resolve to JAX's values, ``compilation_cache_dir``
+(the port's kernel-build cache) loads without a warning, and a file of
+JAX's defaults loads equal to the port's.  A ``parallelism`` other than
+"data" passes through and the trainer builds its mesh;
+``load_experiment_config`` keeps its behaviour.
 """
 
 import dataclasses
@@ -25,7 +25,6 @@ from trustworthy_dl_tpu.core.config import TrainingConfig as JTrainingConfig
 from trustworthy_dl_tpu.core.config import load_config as jload_config
 from trustworthy_dl_tpu.core.config import \
     load_experiment_config as jload_experiment_config
-from trustworthy_dl_tpu_torch.core import config as C
 from trustworthy_dl_tpu_torch.core.config import TrainingConfig, \
     load_config, load_experiment_config
 
@@ -124,23 +123,26 @@ def test_other_jax_fields_are_refused_by_name(tmp_path):
 
 def test_jax_only_fields_at_jax_defaults_load(tmp_path):
     """A file dumped from JAX's defaults asks for nothing the port lacks:
-    it loads, equal to the defaults."""
+    every field of JAX's ``TrainingConfig`` is one of the port's, and the
+    file loads, equal to the defaults."""
     raw = dataclasses.asdict(JTrainingConfig())
-    assert set(C.JAX_ONLY_FIELDS) <= set(raw)
-    assert {k: raw[k] for k in C.JAX_ONLY_FIELDS} == C.JAX_ONLY_FIELDS
+    assert set(raw) <= {f.name for f in dataclasses.fields(TrainingConfig)}
     path = _write(tmp_path, raw, "yaml")
     assert _fields(load_config(path)) == _fields(TrainingConfig())
 
 
 def test_compilation_cache_dir_warns(tmp_path, caplog):
+    """The field is the port's kernel-build cache now: it loads as JAX's
+    does, and nothing warns about it."""
     path = _write(tmp_path, {"compilation_cache_dir": "jax_cache",
                              "num_epochs": 2}, "yaml")
-    with caplog.at_level(logging.WARNING, logger=C.__name__):
+    with caplog.at_level(logging.WARNING):
         config = load_config(path)
     warned = [r for r in caplog.records
               if "compilation_cache_dir" in r.getMessage()]
-    assert len(warned) == 1
+    assert warned == []
     assert config.num_epochs == 2
+    assert config.compilation_cache_dir == "jax_cache"
     assert jload_config(path).compilation_cache_dir == "jax_cache"
 
 

@@ -15,9 +15,13 @@ pipeline parallelism: ``core/mesh.py``, ``core/sharding.py``,
 ``parallel/sequence.py``; tensor parallelism,
 ``parallel/tensor_parallel.py``, with the layout registry and the group
 modes of ``elastic/``; the multi-process worker
-``utils/multiproc_worker.py``).
+``utils/multiproc_worker.py``; the C++ host tier ``native/``, the
+kernel-build cache ``utils/compile_cache.py`` and the port's own linter
+``analysis/``).
 ``serve/control.py`` and ``chaos/adversary.py`` import no torch at all,
-as their JAX counterparts import no jax.  No ``obs`` module imports
+as their JAX counterparts import no jax; nor do ``analysis/`` (the linter
+lints itself: its import-purity rule is clean over the package),
+``native/`` and ``utils/compile_cache.py``.  No ``obs`` module imports
 torch when it is imported: ``obs/hbm.py`` and ``obs/meta.py`` reach
 ``torch.cuda`` only inside functions, so importing ``obs`` never
 initialises CUDA.  scikit-learn, the ML tier's optional dependency, is
@@ -68,7 +72,14 @@ NEW_MODULES = ("trustworthy_dl_tpu_torch.engine.async_host",
                "trustworthy_dl_tpu_torch.experiments.pipeline_study",
                "trustworthy_dl_tpu_torch.parallel.sequence",
                "trustworthy_dl_tpu_torch.parallel.tensor_parallel",
-               "trustworthy_dl_tpu_torch.utils.multiproc_worker")
+               "trustworthy_dl_tpu_torch.utils.multiproc_worker",
+               "trustworthy_dl_tpu_torch.native",
+               "trustworthy_dl_tpu_torch.utils.compile_cache",
+               "trustworthy_dl_tpu_torch.analysis",
+               "trustworthy_dl_tpu_torch.analysis.cli",
+               *(f"trustworthy_dl_tpu_torch.analysis.rules.{m}" for m in (
+                   "artifact", "determinism", "hygiene", "jit",
+                   "locality", "obs", "purity")))
 REQUIRED = ("torch", "numpy", "trustworthy_dl_tpu_torch")
 OPTIONAL = ("regex", "yaml", "matplotlib", "sklearn")
 
@@ -225,13 +236,34 @@ def test_obs_touches_torch_only_inside_functions():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("module", ["serve/control.py", "chaos/adversary.py"])
+HOST_ONLY = ["serve/control.py", "chaos/adversary.py",
+             "utils/compile_cache.py", "native/__init__.py",
+             *sorted(str(p.relative_to(REPO / "trustworthy_dl_tpu_torch"))
+                     for p in (REPO / "trustworthy_dl_tpu_torch"
+                               / "analysis").rglob("*.py"))]
+
+
+@pytest.mark.parametrize("module", HOST_ONLY)
 def test_host_only_modules_import_no_torch(module):
-    """The control plane and the adversary are host code: no import of
-    torch anywhere in them, inside functions included (the control plane
-    reads ``obs/slo.py``, which imports no torch either)."""
+    """The control plane, the adversary, the kernel cache, the native
+    tier's bindings and the linter are host code: no import of torch
+    anywhere in them, inside functions included (the control plane reads
+    ``obs/slo.py``, which imports no torch either; the cache's ``warm``
+    reaches torch only through ``ops``, inside the function)."""
     path = REPO / "trustworthy_dl_tpu_torch" / module
     roots = {root for root, _ in _guarded_imports(path)}
     assert roots <= {"numpy", "trustworthy_dl_tpu_torch"}, roots
     slo = REPO / "trustworthy_dl_tpu_torch" / "obs" / "slo.py"
     assert "torch" not in {root for root, _ in _guarded_imports(slo)}
+
+
+def test_the_ports_lint_holds_its_own_import_purity():
+    """The port's import-purity rule over the whole package: no module
+    imports jax, jaxlib, orbax or the JAX package, and no host-only module
+    (``analysis/`` included) reaches torch through module-level imports."""
+    from trustworthy_dl_tpu_torch.analysis import run_lint
+
+    result = run_lint(root=str(REPO), rule_names=["import-purity"],
+                      use_baseline=False)
+    assert result.clean, [f.as_dict() for f in result.findings]
+    assert result.files_scanned > 100

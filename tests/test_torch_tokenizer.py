@@ -3,8 +3,8 @@ tokenizer.py``) against the JAX package's, on the CPU; mirrors
 ``tests/test_tokenizer.py``.
 
 Everything here is exact: the byte table, ``train_bpe``'s merge list and
-vocabulary, ``encode``'s ids (the port's Python merge loop against JAX's
-public ``encode``, which runs its native encoder where it is built),
+vocabulary, ``encode``'s ids (the port's native batch encoder against
+JAX's public ``encode``, which runs its native encoder where built),
 ``decode`` (unknown ids to U+FFFD), the saved files byte for byte, and
 ``prepare_data``'s ``.bin`` / ``_val.bin`` bytes and returned dict.  One
 deliberate difference: the port's ``load`` keeps the merges whose left

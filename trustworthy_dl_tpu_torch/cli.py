@@ -59,7 +59,11 @@ forensics ``incident_*.json`` beside each flight dump and
 supervisor's flight dumps and their incidents land beside the
 checkpoints.  Both run under the compile watcher and print the compile
 count, the storms and the sentinel's verdict.  ``serve``'s SLO rules take
-``--slo-ttft-ms`` and ``--slo-itl-ms``.
+``--slo-ttft-ms`` and ``--slo-itl-ms``.  ``train --compile-cache`` and
+``serve --compile-cache`` point the kernel-build cache
+(``utils/compile_cache.py``) at ``<obs-dir or checkpoint-dir>/kernel_cache``
+(JAX's flag names ``jax_cache`` there, XLA's cache), so a repeat run loads
+the kernel and native libraries instead of building them.
 
 ``obs`` is the counterpart of ``trustworthy-dl-obs`` (``obs_main``), the
 reader of such a directory: tail and filter the trace, a Chrome timeline,
@@ -70,10 +74,17 @@ list|show|blast``.  It runs on the host and imports no torch.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 import sys
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+
+def _kernel_cache_dir(run_dir: str) -> str:
+    """``--compile-cache``'s directory under a run directory."""
+    return os.path.join(run_dir, "kernel_cache")
 
 
 def _dense_gpt2(model: str) -> bool:
@@ -171,8 +182,6 @@ def build_prepare_parser() -> argparse.ArgumentParser:
 def prepare_main(argv: Optional[List[str]] = None) -> int:
     """Entry point of ``prepare``: the offline .txt -> .bin step, on the
     host."""
-    import os
-
     from trustworthy_dl_tpu_torch.data.tokenizer import prepare_data
 
     args = build_prepare_parser().parse_args(argv)
@@ -348,6 +357,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         help="resident adapter pages (default max-slots)")
     parser.add_argument("--adapter-dtype", type=str, default="model",
                         choices=["model", "int8"])
+    parser.add_argument("--compile-cache", action="store_true",
+                        help="point the kernel-build cache (the nvcc and "
+                             "g++ libraries, utils/compile_cache.py) at "
+                             "<obs-dir or checkpoint-dir>/kernel_cache, so "
+                             "repeat serves load the libraries instead of "
+                             "building them")
     parser.add_argument("--obs-dir", type=str, default=None,
                         help="write serving telemetry here: trace.jsonl "
                              "(request lifecycle events + spans "
@@ -535,6 +550,12 @@ def serve_main(argv: Optional[List[str]] = None,
         adapter_dtype=args.adapter_dtype)
     if _refuses_pipeline_checkpoint(args.checkpoint_dir, "serving"):
         return 2
+    if args.compile_cache:
+        from trustworthy_dl_tpu_torch.utils.compile_cache import \
+            enable_persistent_cache
+
+        enable_persistent_cache(_kernel_cache_dir(args.obs_dir
+                                                  or args.checkpoint_dir))
     trainer = _inference_trainer(args, model_overrides)
     cfg = trainer.model.config
     if args.max_seq > cfg.n_positions:
@@ -820,6 +841,12 @@ def build_train_parser() -> argparse.ArgumentParser:
                              "device-to-host copy a step; 0 = "
                              "synchronous (config default: 2).  Chaos "
                              "drills asserting exact retry counts need 0")
+    parser.add_argument("--compile-cache", action="store_true",
+                        help="point the kernel-build cache (the nvcc and "
+                             "g++ libraries, utils/compile_cache.py) at "
+                             "<obs-dir or checkpoint-dir>/kernel_cache, so "
+                             "repeat runs load the libraries instead of "
+                             "building them")
     # The self-healing supervisor (engine/supervisor.py) and chaos drills.
     parser.add_argument("--supervise", action="store_true",
                         help="wrap training in the self-healing supervisor: "
@@ -891,6 +918,9 @@ def train_main(argv: Optional[List[str]] = None,
         config = load_config(args.config, **overrides)
     else:
         config = TrainingConfig(**overrides)
+    if args.compile_cache:
+        config = dataclasses.replace(config, compilation_cache_dir=(
+            _kernel_cache_dir(args.obs_dir or config.checkpoint_dir)))
     lm = not config.model_name.lower().startswith(("resnet", "vgg"))
     model_kw = {**({"seq_len": args.seq_len} if lm else {}),
                 **(model_overrides or {})}
@@ -1059,7 +1089,6 @@ def obs_main(argv: Optional[List[str]] = None) -> int:
     """Entry point of ``obs``: the reader side of an obs directory
     (host-only; imports no torch)."""
     import json
-    import os
     import sys as _sys
 
     from trustworthy_dl_tpu_torch.obs.events import read_jsonl_rotated
@@ -1211,7 +1240,6 @@ def _obs_incident(argv: List[str]) -> int:
 
 def _print_slo_status(obs_dir: str) -> None:
     import json
-    import os
 
     path = os.path.join(obs_dir, "slo_status.json")
     if os.path.exists(path):
@@ -1247,7 +1275,6 @@ def _print_slo_status(obs_dir: str) -> None:
 
 def _print_obs_summary(obs_dir: str, events: list) -> None:
     import json
-    import os
 
     print(f"obs dir: {obs_dir}")
     counts: dict = {}

@@ -31,7 +31,8 @@ epoch-cadence ML tier (behind scikit-learn, as in JAX) and
 parameters stay f32): the trainer hands it to the model config unless the
 caller's ``model_overrides`` names a dtype.  ``profile_dir`` and
 ``debug_nans`` are the profiling and NaN-trapping switches of
-``utils/profiling.py``.  :func:`load_config` reads a
+``utils/profiling.py``; ``compilation_cache_dir`` points the kernel-build
+cache (``utils/compile_cache.py``).  :func:`load_config` reads a
 :class:`TrainingConfig` and :func:`load_experiment_config` an
 :class:`ExperimentConfig` from a YAML or JSON file (JSON where pyyaml is
 not installed).
@@ -40,7 +41,6 @@ not installed).
 from __future__ import annotations
 
 import dataclasses
-import logging
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -50,8 +50,6 @@ import torch
 from trustworthy_dl_tpu_torch.models.generate import ATTN_IMPLS
 from trustworthy_dl_tpu_torch.quant.int8 import validate_dtypes
 from trustworthy_dl_tpu_torch.serve.kv_slots import validate_paged_geometry
-
-logger = logging.getLogger(__name__)
 
 #: ``TrainingConfig.dtype``'s names and the torch dtypes they stand for.
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -298,6 +296,12 @@ class TrainingConfig:
     # loop.  Drills that assert FaultPlan.predict's exact retry counts
     # need 0: the lagged guard runs no in-place retry.
     async_host_depth: int = 2
+    # The persistent kernel-build cache (utils/compile_cache.py): the
+    # directory the kernel and native libraries build into and load from,
+    # enabled by DistributedTrainer at construction.  None keeps the
+    # default, build/torch_kernels/ under the checkout; cli train|serve
+    # --compile-cache point it under the run directory.
+    compilation_cache_dir: Optional[str] = None
     weight_decay: float = 0.0
     grad_clip_norm: float = 0.0        # 0 disables
     lr_schedule: str = "constant"      # constant | cosine | linear
@@ -414,13 +418,6 @@ class AttackConfig:
 _MODEL_SIZE_SUFFIX = {"small": "", "medium": "-medium", "large": "-large",
                       "xl": "-xl"}
 
-#: The JAX package's ``TrainingConfig`` fields that the port's lacks, with
-#: their JAX defaults: a config file may set them, and :func:`load_config`
-#: refuses (or, for the XLA compile cache, warns about) any value other
-#: than the default instead of dropping it.
-JAX_ONLY_FIELDS = {"compilation_cache_dir": None}
-
-
 def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
     """Flatten the README schema's nested mapping (model / training /
     distributed / security sections) into TrainingConfig keyword
@@ -463,44 +460,21 @@ def _config_from_mapping(raw: Dict[str, Any]) -> Dict[str, Any]:
                 security["gradient_verification"])
     if "dataset" in raw:
         out["dataset_name"] = raw["dataset"]
-    valid = {f.name for f in dataclasses.fields(TrainingConfig)} \
-        | set(JAX_ONLY_FIELDS)
+    valid = {f.name for f in dataclasses.fields(TrainingConfig)}
     for key, value in raw.items():
         if key in valid:
             out[key] = value
     return out
 
 
-def _take_jax_only_fields(kwargs: Dict[str, Any]) -> None:
-    """Remove the JAX-only keys from ``kwargs``: a value at the JAX
-    default asks for nothing the port lacks; the XLA compile cache warns
-    (it has no counterpart), any other value raises by name."""
-    for key, default in JAX_ONLY_FIELDS.items():
-        if key not in kwargs:
-            continue
-        value = kwargs.pop(key)
-        if value == default:
-            continue
-        if key == "compilation_cache_dir":
-            logger.warning(
-                "compilation_cache_dir=%r ignored: it is XLA's persistent "
-                "compile cache, which the port has no counterpart of",
-                value)
-            continue
-        raise NotImplementedError(
-            f"{key}={value!r} is not ported yet: the port's TrainingConfig "
-            f"has no {key}")
-
-
 def load_config(path: str, **overrides: Any) -> TrainingConfig:
     """A TrainingConfig from a YAML/JSON file (the nested README schema or
     flat field names; unknown keys are ignored, as in JAX), then every
-    override that is not None on top (the command line's flags).  A key
-    the JAX package would apply and the port cannot is refused by name
-    (:func:`_take_jax_only_fields`), never dropped in silence."""
+    override that is not None on top (the command line's flags).  The
+    port's ``TrainingConfig`` has every field of JAX's, so no key JAX
+    applies is dropped."""
     kwargs = _config_from_mapping(_load_mapping(path))
     kwargs.update({k: v for k, v in overrides.items() if v is not None})
-    _take_jax_only_fields(kwargs)
     return TrainingConfig(**kwargs)
 
 

@@ -1,11 +1,13 @@
 """Training data: the learnable synthetic sources and the loaders.
 
-Counterpart of ``trustworthy_dl_tpu/data/loader.py`` and of the numpy half
-of ``trustworthy_dl_tpu/native`` (splitmix64 streams, the affine
-next-token chain, Fisher-Yates permutations, window gathers), bit for
-bit: the same seed gives the same batches as the JAX package.  Real
-corpora load from ``data_dir`` or ``$TDDL_DATA_DIR``: ``<name>.bin`` (a
-flat uint16 token memmap) first, else ``<name>.txt`` read as raw UTF-8
+Counterpart of ``trustworthy_dl_tpu/data/loader.py``, bit for bit: the
+same seed gives the same batches as the JAX package.  The synthetic
+stream, the epoch permutations and the row and window gathers run on the
+C++ host tier (``native/``); its numpy twins (``*_plain``) are importable
+from here too.
+
+Real corpora load from ``data_dir`` or ``$TDDL_DATA_DIR``: ``<name>.bin``
+(a flat uint16 token memmap) first, else ``<name>.txt`` read as raw UTF-8
 bytes (byte-level ids, ``vocab_size`` >= 256), each split 95/5 into train
 and validation; otherwise the synthetic source stands in.  The vision
 datasets (``cifar10``, ``cifar-10``, ``cifar100``, ``imagenet``,
@@ -24,50 +26,15 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 
-_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+from trustworthy_dl_tpu_torch.native import gather_rows, \
+    gather_rows_plain, permutation, permutation_plain, splitmix_fill, \
+    splitmix_fill_plain, synthetic_tokens, synthetic_tokens_plain, \
+    window_gather, window_gather_plain
 
 #: The dataset names of the two branches of :func:`get_dataloader`.
 LM_DATASETS = ("openwebtext", "wikitext", "lm", "synthetic_lm")
 VISION_DATASETS = ("cifar10", "cifar-10", "cifar100", "imagenet",
                    "synthetic_vision")
-
-
-def _splitmix64(x: np.ndarray) -> np.ndarray:
-    """Vectorised splitmix64 finaliser on uint64 states (wrapping)."""
-    with np.errstate(over="ignore"):
-        z = x + _GOLDEN
-        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-        return z ^ (z >> np.uint64(31))
-
-
-def splitmix_fill(seed: int, n: int) -> np.ndarray:
-    """u64 [n]: splitmix64(seed + i * GOLDEN)."""
-    with np.errstate(over="ignore"):
-        states = np.uint64(seed) + np.arange(n, dtype=np.uint64) * _GOLDEN
-    return _splitmix64(states)
-
-
-def _splitmix_scalar(x: int) -> int:
-    return int(_splitmix64(np.asarray([x], np.uint64))[0])
-
-
-def synthetic_tokens(n: int, vocab: int, seed: int) -> np.ndarray:
-    """i32 [n] affine next-token chain t -> (31 t + 7) mod V with 10 %
-    uniform resets: low-entropy enough that a model visibly learns."""
-    a, b = 31, 7
-    noise_u = splitmix_fill(_splitmix_scalar(seed ^ 0xA5A5A5A5A5A5A5A5), n)
-    reset = (noise_u >> np.uint64(48)) < np.uint64(6554)
-    resets_tok = (splitmix_fill(_splitmix_scalar(seed ^ 0x5A5A5A5A5A5A5A5A),
-                                n) % np.uint64(vocab)).astype(np.int64)
-    out = np.empty(n, np.int32)
-    t = _splitmix_scalar(seed) % vocab
-    out[0] = t
-    reset_l, tok_l = reset.tolist(), resets_tok.tolist()
-    for i in range(1, n):
-        t = tok_l[i] if reset_l[i] else (a * t + b) % vocab
-        out[i] = t
-    return out
 
 
 def synthetic_images(num: int, num_classes: int, shape, seed: int
@@ -83,31 +50,6 @@ def synthetic_images(num: int, num_classes: int, shape, seed: int
     images = prototypes[labels] + rng.normal(
         0, 0.7, size=(num, h, w, c)).astype(np.float32)
     return images, labels
-
-
-def permutation(seed: int, n: int) -> np.ndarray:
-    """i64 [n] Fisher-Yates permutation from the splitmix stream."""
-    out = np.arange(n, dtype=np.int64)
-    if n:
-        us = splitmix_fill(seed, n)
-        for i in range(n - 1, 0, -1):
-            j = int(us[i] % np.uint64(i + 1))
-            out[i], out[j] = out[j], out[i]
-    return out
-
-
-def window_gather(stream: np.ndarray, seq_len: int, batch: int, seed: int
-                  ) -> "tuple[np.ndarray, np.ndarray]":
-    """(inputs, targets) i32 [batch, seq_len]: seq_len + 1 windows of a
-    token stream at splitmix-derived offsets."""
-    stream = np.ascontiguousarray(stream, np.int32)
-    span = len(stream) - seq_len
-    if span <= 0:
-        raise ValueError(f"stream of {len(stream)} tokens too short for "
-                         f"seq_len={seq_len}")
-    offs = (splitmix_fill(seed, batch) % np.uint64(span)).astype(np.int64)
-    windows = stream[offs[:, None] + np.arange(seq_len + 1)[None, :]]
-    return windows[:, :-1].copy(), windows[:, 1:].copy()
 
 
 class ArrayDataLoader:
@@ -144,7 +86,8 @@ class ArrayDataLoader:
             start += bs
             if len(sel) < bs:
                 break
-            yield {"input": self.inputs[sel], "target": self.targets[sel]}
+            yield {"input": gather_rows(self.inputs, sel),
+                   "target": gather_rows(self.targets, sel)}
 
 
 class TokenStreamLoader:
@@ -337,6 +280,8 @@ def _vision_loader(name: str, split: str, batch_size: int,
 
 
 __all__ = ["ArrayDataLoader", "PrefetchLoader", "TokenStreamLoader",
-           "LM_DATASETS", "VISION_DATASETS", "get_dataloader", "permutation",
-           "splitmix_fill", "synthetic_images", "synthetic_tokens",
-           "window_gather"]
+           "LM_DATASETS", "VISION_DATASETS", "gather_rows",
+           "gather_rows_plain", "get_dataloader", "permutation",
+           "permutation_plain", "splitmix_fill", "splitmix_fill_plain",
+           "synthetic_images", "synthetic_tokens", "synthetic_tokens_plain",
+           "window_gather", "window_gather_plain"]

@@ -10,20 +10,29 @@ uint16 token memmap (``data/loader.py``) beside the tokenizer files.
 The pre-tokenizer is GPT-2's pattern through the optional ``regex``
 module, else the same shape in the standard library's ``re``
 (``PRETOKENIZER`` says which one this process runs); both packages make
-the same choice.  The JAX package hands batches of words to a prebuilt C++
-encoder and keeps a Python merge loop as its fallback; the port runs that
-Python loop (:meth:`BPETokenizer._bpe_ids`), which gives the same ids.
+the same choice.  :meth:`BPETokenizer.encode` hands the misses of its word
+cache to the C++ host tier's batch encoder (``native.bpe_encode``) in one
+call, as the JAX package does; :meth:`BPETokenizer.encode_plain` runs the
+Python merge loop (:meth:`BPETokenizer._bpe_ids`) instead, the twin the
+tests and the card's ``host_tier`` phase hold the encoder against.  The
+encoder holds one merge table a process: a tokenizer installs its own
+when another one's is live.
 """
 
 from __future__ import annotations
 
 import heapq
+import itertools
 import json
 import os
+import threading
 from collections import Counter
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, \
+    Tuple
 
 import numpy as np
+
+from trustworthy_dl_tpu_torch import native
 
 try:  # GPT-2's exact pre-tokenizer needs \p classes (regex module).
     import regex as _re
@@ -45,6 +54,13 @@ except ImportError:  # std-re fallback: same shape with unicode classes
 
 #: Word-cache bound per tokenizer (entries, matched string -> ids).
 _CACHE_CAP = 262_144
+
+#: Which tokenizer's merge table the native encoder holds (a generation
+#: number each tokenizer draws at construction), and the lock that keeps
+#: an install and the encode that follows it together.
+_TABLE_GEN = itertools.count()
+_NATIVE_TABLE_OWNER: Optional[int] = None
+_NATIVE_LOCK = threading.Lock()
 
 
 def bytes_to_unicode() -> Dict[int, str]:
@@ -174,6 +190,7 @@ class BPETokenizer:
         # product is not in the vocabulary could never emit a token and
         # is left out.
         self._id_ranks: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        lefts, rights, prods = [], [], []
         for (a, b), rank in sorted(self.ranks.items(), key=lambda kv: kv[1]):
             ia, ib, ip = (self.vocab.get(a), self.vocab.get(b),
                           self.vocab.get(a + b))
@@ -181,6 +198,15 @@ class BPETokenizer:
                 continue
             if (ia, ib) not in self._id_ranks:
                 self._id_ranks[(ia, ib)] = (rank, ip)
+            lefts.append(ia)
+            rights.append(ib)
+            prods.append(ip)
+        # The same table as the native encoder takes it: a pair listed
+        # twice keeps its first rank there too.
+        self._merge_arrays = (np.asarray(lefts, np.int32),
+                              np.asarray(rights, np.int32),
+                              np.asarray(prods, np.int32))
+        self._table_gen = next(_TABLE_GEN)
         self._cache: Dict[str, List[int]] = {}   # matched word -> ids
 
     def _bpe_ids(self, word: Tuple[int, ...]) -> List[int]:
@@ -198,11 +224,46 @@ class BPETokenizer:
             parts[best_i:best_i + 2] = [best[1]]
         return parts
 
+    def _encode_words(self, words: List[Tuple[int, ...]]
+                      ) -> List[List[int]]:
+        """Encode a batch of unit-id words in one call of the native
+        encoder, installing this tokenizer's merge table first when another
+        one's is live."""
+        global _NATIVE_TABLE_OWNER
+        offsets = np.zeros(len(words) + 1, np.int64)
+        np.cumsum([len(w) for w in words], out=offsets[1:])
+        flat = np.fromiter((u for w in words for u in w), np.int32,
+                           count=int(offsets[-1]))
+        with _NATIVE_LOCK:
+            if _NATIVE_TABLE_OWNER != self._table_gen:
+                native.bpe_load(*self._merge_arrays)
+                _NATIVE_TABLE_OWNER = self._table_gen
+            out, out_offsets = native.bpe_encode(flat, offsets)
+        bounds = out_offsets.tolist()
+        ids = out.tolist()
+        return [ids[bounds[i]:bounds[i + 1]] for i in range(len(words))]
+
+    def _encode_plain_words(self, words: List[Tuple[int, ...]]
+                            ) -> List[List[int]]:
+        return [self._bpe_ids(w) for w in words]
+
     @property
     def vocab_size(self) -> int:
         return len(self.vocab)
 
     def encode(self, text: str) -> List[int]:
+        """Ids of ``text``: the word cache's misses go to the native
+        encoder in one batch."""
+        return self._encode(text, self._encode_words)
+
+    def encode_plain(self, text: str) -> List[int]:
+        """Ids of ``text`` through the Python merge loop: the twin of
+        :meth:`encode`, equal id for id."""
+        return self._encode(text, self._encode_plain_words)
+
+    def _encode(self, text: str,
+                encode_words: Callable[[List[Tuple[int, ...]]],
+                                       List[List[int]]]) -> List[int]:
         words = _PAT.findall(text)
         cache = self._cache
         # Misses keyed on the matched string, in first-seen order: repeated
@@ -210,9 +271,9 @@ class BPETokenizer:
         fresh = [m for m in dict.fromkeys(words) if m not in cache]
         local: Dict[str, List[int]] = {}
         if fresh:
-            local = {m: self._bpe_ids(tuple(self.vocab[u]
-                                            for u in _word_to_units(m)))
-                     for m in fresh}
+            local = dict(zip(fresh, encode_words(
+                [tuple(self.vocab[u] for u in _word_to_units(m))
+                 for m in fresh])))
             # Bounded cache: inserts stop at the cap (nothing is evicted:
             # entries of this call stay reachable through ``local``).
             budget = _CACHE_CAP - len(cache)

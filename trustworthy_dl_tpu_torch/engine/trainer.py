@@ -157,6 +157,8 @@ from trustworthy_dl_tpu_torch.ops.flash_attention import supports_flash
 from trustworthy_dl_tpu_torch.serve.engine import resolve_device
 from trustworthy_dl_tpu_torch.trust.manager import TrustManager
 from trustworthy_dl_tpu_torch.trust.state import NodeStatus
+from trustworthy_dl_tpu_torch.utils.compile_cache import \
+    enable_persistent_cache
 from trustworthy_dl_tpu_torch.utils.metrics import MetricsCollector
 from trustworthy_dl_tpu_torch.utils.monitor import NodeMonitor
 from trustworthy_dl_tpu_torch.utils.profiling import enable_nan_debugging, \
@@ -203,6 +205,8 @@ class DistributedTrainer:
             _refuse_foreign_mesh(mesh, config.parallelism, self.device)
         if config.debug_nans:
             enable_nan_debugging()
+        if config.compilation_cache_dir:
+            enable_persistent_cache(config.compilation_cache_dir)
         # The epoch-cadence ML tier, gated once: without scikit-learn the
         # refit is a no-op, so the per-step battery feed would be waste.
         self._ml_enabled = config.ml_detectors and _sklearn_available()

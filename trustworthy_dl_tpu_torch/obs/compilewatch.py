@@ -5,21 +5,24 @@ Counterpart of ``trustworthy_dl_tpu/obs/compilewatch.py``.  The port has no
 XLA and no ``torch.compile``: its compilations are the hand-written
 kernels' libraries, which ``trustworthy_dl_tpu_torch/ops/__init__.py``
 builds with ``nvcc`` (stage ``nvcc_build``) and loads with ``ctypes``
-(stage ``library_load``) at first use.  A serving engine loads every
-library its configuration can launch when it is built, and a trainer's
-first step loads what the step launches, so a load inside a hot loop after
-its first call is the port's recompile storm: a library dropped and
-reloaded, or a code path that reaches a kernel no earlier call reached.
+(stage ``library_load``) at first use, and the native host tier's library
+(``native/``: ``g++``, stage ``gxx_build``, then its load), all through
+the kernel cache's build helper (``utils/compile_cache.py``).  A serving
+engine loads every library its configuration can launch when it is
+built, and a trainer's first step loads what the step launches, so a load
+inside a hot loop after its first call is the port's recompile storm: a
+library dropped and reloaded, or a code path that reaches a kernel no
+earlier call reached.
 
 Two pieces, as in JAX:
 
-* :class:`CompileRegistry` — a listener of the ``ops`` compile hook that
+* :class:`CompileRegistry` — a listener of the compile hook that
   records every build and load in the process: per-stage counts and wall
   time (``tddl_compile_total`` / ``tddl_compile_seconds{stage=}``) and one
   typed ``compile`` trace event per library load.  The hook
-  (``ops.compile_listener``) is process-global, so ONE module-level
-  dispatcher is set lazily and fans out to the currently installed
-  registries; ``install()`` / ``uninstall()`` are cheap and test-safe.
+  (``compile_cache.compile_listener``) is process-global, so ONE
+  module-level dispatcher is set lazily and fans out to the currently
+  installed registries; ``install()`` / ``uninstall()`` are cheap and test-safe.
   ``total`` counts library loads (a build is always followed by its load,
   so counting both would count one library twice), as JAX's counts
   backend compiles and records its other stages per stage.
@@ -32,8 +35,8 @@ Two pieces, as in JAX:
   closes it).  A legitimate rebuild (an elastic topology change rebuilding
   the train step) calls ``reset(scope)`` so the next load is warmup again.
 
-Host-only at import time: ``ops`` (and with it torch) is imported lazily
-inside ``install()``.
+Host-only: the hook lives in ``utils/compile_cache.py``, which imports no
+torch.
 """
 
 from __future__ import annotations
@@ -46,14 +49,15 @@ from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional
 
 from trustworthy_dl_tpu_torch.obs.events import EventType
+from trustworthy_dl_tpu_torch.utils import compile_cache
 
 logger = logging.getLogger(__name__)
 
 #: The stage that counts as "a compile": one kernel library becoming
 #: loaded in the process (built first when it was missing).
 COMPILE_STAGE = "library_load"
-#: Every stage the ``ops`` hook reports.
-COMPILE_STAGES = ("nvcc_build", "library_load")
+#: Every stage the compile hook reports.
+COMPILE_STAGES = ("nvcc_build", "gxx_build", "library_load")
 
 _DISPATCH_LOCK = threading.Lock()
 _ACTIVE: "set[CompileRegistry]" = set()
@@ -70,9 +74,7 @@ def _install_dispatcher() -> None:
     with _DISPATCH_LOCK:
         if _DISPATCHER_INSTALLED:
             return
-        from trustworthy_dl_tpu_torch import ops
-
-        ops.compile_listener = _dispatch_compile
+        compile_cache.compile_listener = _dispatch_compile
         _DISPATCHER_INSTALLED = True
 
 
@@ -98,7 +100,7 @@ class CompileRegistry:
         if registry is not None:
             self._count_metric = registry.counter(
                 "tddl_compile_total",
-                "Kernel libraries loaded, observed through the ops hook",
+                "Kernel libraries loaded, observed through the compile hook",
             )
             self._seconds_metric = registry.counter(
                 "tddl_compile_seconds",
@@ -110,7 +112,7 @@ class CompileRegistry:
     # -- lifecycle ---------------------------------------------------------
 
     def install(self) -> "CompileRegistry":
-        """Start receiving compile events (idempotent).  Imports ops."""
+        """Start receiving compile events (idempotent)."""
         _install_dispatcher()
         with _DISPATCH_LOCK:
             _ACTIVE.add(self)

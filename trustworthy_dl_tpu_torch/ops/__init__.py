@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  The
-build runs at first use, into ``build/torch_kernels/`` under the checkout,
-and is keyed by a hash of the sources and flags, so a fresh checkout builds
-what it needs and an unchanged one reuses the libraries.  :func:`build`
-starts one ``nvcc`` per missing library, all at once.
+build runs at first use, into the kernel cache (``utils/compile_cache.py``:
+``build/torch_kernels/`` under the checkout unless the cache was pointed
+elsewhere), and is keyed by a hash of the sources and flags, so a fresh
+checkout builds what it needs and an unchanged one reuses the libraries.
+:func:`build` starts one ``nvcc`` per missing library, all at once.
 
 Dispatch is by device.  A wrapper given CPU tensors runs its kernel's plain
 PyTorch version (that is how the tests run here, on machines without a
@@ -13,32 +14,33 @@ card); given CUDA tensors it launches the kernel or raises.  There is no
 switch between the two and no fallback from a CUDA tensor to the plain
 version: a kernel that fails to build or launch is an error.
 
-Two hooks serve the telemetry plane (``obs/``).  :data:`compile_listener`
-is called with (stage, library, seconds) for every ``nvcc`` build
-(``nvcc_build``) and every library load (``library_load``): the port's
-compilations, which ``obs.compilewatch`` meters.  :func:`count_kernel_flops`
-opens a tally, to which every wrapper adds its kernel's products where it
-launches it (:func:`tally_flops`), for the cost ledger's analyzed FLOPs
-(``obs.hbm.count_flops``).
+Two hooks serve the telemetry plane (``obs/``).  :func:`note_compile`
+(``compile_cache.note_compile``) reports (stage, library, seconds) for
+every ``nvcc`` build (``nvcc_build``) and every library load
+(``library_load``): the port's compilations, which ``obs.compilewatch``
+meters.  :func:`count_kernel_flops` opens a tally, to which every wrapper
+adds its kernel's products where it launches it (:func:`tally_flops`),
+for the cost ledger's analyzed FLOPs (``obs.hbm.count_flops``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
-import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import torch
 
+from trustworthy_dl_tpu_torch.utils import compile_cache
+from trustworthy_dl_tpu_torch.utils.compile_cache import note_compile
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: The kernel cache's default directory (``compile_cache.DEFAULT_DIR``).
+BUILD_DIR = compile_cache.DEFAULT_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,18 +91,6 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
-#: The one listener of kernel-library compilations, (stage, library,
-#: seconds) with stage ``nvcc_build`` or ``library_load``: set by
-#: ``obs.compilewatch``, which fans it out to its installed registries.
-compile_listener: Optional[Callable[[str, str, float], None]] = None
-
-
-def note_compile(stage: str, name: str, seconds: float) -> None:
-    """Report one build or load of library ``name`` to the listener."""
-    listener = compile_listener
-    if listener is not None:
-        listener(stage, name, seconds)
-
 
 #: Open FLOP tallies.  Process-wide, not per thread: on the card the
 #: autograd engine runs a backward (B3's launches) on its own thread.
@@ -148,14 +138,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by a hash of every source
-    in ``csrc/`` (shared headers included) and the compiler flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
-            digest.update(path.name.encode())
-            digest.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to in the kernel cache: keyed by a
+    hash of every source in ``csrc/`` (shared headers included) and the
+    compiler flags."""
+    sources = sorted(p for p in CSRC.iterdir()
+                     if p.suffix in (".cu", ".cuh"))
+    return compile_cache.library_path(name, sources, NVCC_FLAGS)
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -165,35 +153,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     compiler's ``-Xptxas -v`` report lands beside each library as
     ``.log``.  Raises with the compiler's output on failure."""
     names = list(names) if names is not None else list(SIGNATURES)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out: Dict[str, float] = {}
-    running = []
-    nvcc = None
-    for name in names:
-        target = library_path(name)
-        if target.exists():
-            out[name] = 0.0
-            continue
-        nvcc = nvcc or nvcc_path()
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running.append((name, target, tmp, proc, time.perf_counter()))
-    failures = []
-    for name, target, tmp, proc, t0 in running:
-        log, _ = proc.communicate()
-        out[name] = time.perf_counter() - t0
-        target.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu "
-                            f"(rc {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, target)
-        note_compile("nvcc_build", name, out[name])
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return out
+
+    def command(name: str):
+        return lambda tmp: [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                            str(CSRC / f"{name}.cu")]
+
+    return compile_cache.build_libraries(
+        [(name, library_path(name), command(name)) for name in names],
+        "nvcc_build")
 
 
 def kernel_library(name: str) -> ctypes.CDLL:
@@ -203,13 +170,8 @@ def kernel_library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            t0 = time.perf_counter()
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _LIBS[name] = lib
-            note_compile("library_load", name, time.perf_counter() - t0)
+            lib = _LIBS[name] = compile_cache.load_library(
+                name, library_path(name), SIGNATURES[name])
         return lib
 
 
@@ -270,7 +232,7 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "BUILD_DIR", "CSRC", "DTYPE_CODES", "SIGNATURES", "build",
-    "check_launch", "compile_listener", "count_kernel_flops",
+    "check_launch", "count_kernel_flops",
     "kernel_library", "kernel_wrappers", "launch_counts", "library_path",
     "note_compile", "nvcc_path", "on_cuda",
     "reset_launch_counts", "stream_handle", "tally_flops",

@@ -561,6 +561,7 @@ class ContinuousBatchingScheduler:
                                self.attn_impl)
         self.local_prefills += 1
         task.slot = slot
+        # tddl-lint: disable=host-sync — the prefill's one intended pull
         token, ent, margin = packed.cpu().numpy()[:, 0]   # one host copy
         task._record(int(token), float(ent), float(margin))
         self.lengths[slot] = p
@@ -591,6 +592,7 @@ class ContinuousBatchingScheduler:
                                   tokens_dev.long(), lengths_dev, seeds,
                                   indices, temps, greedy, self.attn_impl)
         self.decode_ticks += 1
+        # tddl-lint: disable=host-sync — the tick's one intended pull
         host = packed.cpu().numpy()      # the tick's one device-to-host copy
         next_tok, ent, margin = host[0], host[1], host[2]
         ticked: List[SlotTask] = []
@@ -970,6 +972,7 @@ class PagedBatchingScheduler:
         if not final:
             st.pos += c
             return None
+        # tddl-lint: disable=host-sync — the prefill's one intended pull
         token, ent, margin = packed.cpu().numpy()[:, 0]
         task._record(int(token), float(ent), float(margin))
         self.prompts_prefilled += 1
@@ -1052,6 +1055,7 @@ class PagedBatchingScheduler:
                 lengths_dev, seeds, indices, temps, greedy, self.attn_impl,
                 self._adapter_args(pages))
         self.decode_ticks += 1
+        # tddl-lint: disable=host-sync — the tick's one intended pull
         host = packed.cpu().numpy()      # the tick's one device-to-host copy
         next_tok, ent, margin = host[0], host[1], host[2]
         for slot, task in active.items():
@@ -1115,6 +1119,7 @@ class PagedBatchingScheduler:
                                        self.attn_impl)
             draft_dev.append(cur)
         # One host copy for the whole draft chain.
+        # tddl-lint: disable=host-sync — the draft chain's one intended pull
         drafts = torch.stack(draft_dev, dim=1).cpu().numpy()
         t1 = time.perf_counter()
         self.spec_draft_s += t1 - t0
@@ -1125,6 +1130,7 @@ class PagedBatchingScheduler:
                                        tables_dev, lengths_dev, seeds,
                                        indices.reshape(-1), temps, greedy,
                                        self.attn_impl)
+        # tddl-lint: disable=host-sync — the verify's one pull, every window
         host = packed.cpu().numpy()                      # [3, ms, k+1]
         self.spec_verify_s += time.perf_counter() - t1
         self.spec_ticks += 1
