@@ -3080,11 +3080,13 @@ def flash_work(bh, t, d, matmuls, causal=True):
 
 
 FLASH_KERNELS = (
-    # entry, profiler kernel name, tiles read, tiles written, lse-sized
-    # rows moved, [t, t] x [t, d] products
+    # entry, profiler kernel name (a prefix of the mma.sync and the wgmma
+    # instances' names), tiles read, tiles written, lse-sized rows moved,
+    # [t, t] x [t, d] products.  The non-causal dq also reads o and writes
+    # the Delta rows it computes (flash_case adds the tile).
     ("flash_attention_fwd", "flash_fwd_kernel", 3, 1, 1, 2),
-    ("flash_attention_bwd_dq", "flash_dq_kernel", 4, 1, 2, 3),
-    ("flash_attention_bwd_dkv", "flash_dkv_kernel", 4, 2, 2, 4))
+    ("flash_attention_bwd_dq", "flash_dq_", 4, 1, 2, 3),
+    ("flash_attention_bwd_dkv", "flash_dkv_", 4, 2, 2, 4))
 
 
 def flash_case(torch, bh, t, d, causal, flush, gen, what):
@@ -3092,7 +3094,8 @@ def flash_case(torch, bh, t, d, causal, flush, gen, what):
     the new B2's ``lse``) against their plain twins, each within the
     attention tolerances, timed (events and the profiler's device time)
     beside its bound, its twin and SDPA (the forward; for both B3 entries
-    SDPA's whole backward, which computes dq, dk and dv together).
+    SDPA's whole backward, which computes dq, dk and dv together).  Not
+    causal, dq takes o and returns (dq, Delta), both held to the twin's.
     Returns ``{entry name: case}``; the forward's case also holds its lse
     error and its rate on events."""
     import torch.nn.functional as F
@@ -3106,13 +3109,16 @@ def flash_case(torch, bh, t, d, causal, flush, gen, what):
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta)
+    # The non-causal dq computes Delta from o itself.
+    dq_args = args if causal else (q, k, v, do, lse, None)
+    dq_kw = {} if causal else {"o": o}
     calls = {
         "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v,
                                                                causal),
                                 lambda: fa.flash_fwd_plain(q, k, v, causal)),
         "flash_attention_bwd_dq": (
-            lambda: fa.flash_attention_bwd_dq(*args, causal),
-            lambda: fa.flash_bwd_dq_plain(*args, causal)),
+            lambda: fa.flash_attention_bwd_dq(*dq_args, causal, **dq_kw),
+            lambda: fa.flash_bwd_dq_plain(*dq_args, causal, **dq_kw)),
         "flash_attention_bwd_dkv": (
             lambda: fa.flash_attention_bwd_dkv(*args, causal),
             lambda: fa.flash_bwd_dkv_plain(*args, causal))}
@@ -3171,6 +3177,7 @@ def flash_case(torch, bh, t, d, causal, flush, gen, what):
     cases = {}
     for name, kernel, ins, n_out, n_rows, matmuls in FLASH_KERNELS:
         kern, plain = calls[name]
+        ins += not causal and name == "flash_attention_bwd_dq"
         b_ms, b_by = bound_entry((ins + n_out) * tile + n_rows * rows,
                                  flash_work(bh, t, d, matmuls, causal),
                                  "bfloat16")
@@ -4959,7 +4966,9 @@ def pipeline_drive(torch, entries, card):
 def sequence_kernel_cases(torch, entries, flush):
     """B2 and B3's non-causal instances against their plain twins at
     ``SEQ_CASES`` (D = 64, bf16), timed beside their bounds, the twins and
-    SDPA with ``is_causal=False`` (``sequence_case`` in each entry), and
+    SDPA with ``is_causal=False`` (``sequence_case`` in each entry); at
+    the same shapes under a nonzero lse cotangent, the dq kernel's (dq,
+    Delta - dlse) and dk/dv from that Delta against the twins; and
     ``flash_chunk``'s backward under a nonzero lse cotangent at the ring's
     chunk against the twins given Delta - dlse."""
     from trustworthy_dl_tpu_torch.ops import flash_attention as fa
@@ -4981,6 +4990,26 @@ def sequence_kernel_cases(torch, entries, flush):
                                  f"(max abs err {float(e.max())})")
         return float(e.max())
 
+    # The non-causal dq's own Delta under an lse cotangent, and dk/dv
+    # from it, at each SEQ_CASES shape.
+    with_dlse = {}
+    for bh, t in SEQ_CASES:
+        q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
+            torch.bfloat16) for _ in range(4))
+        dlse = 0.5 * torch.randn(bh, t, device=dev, generator=gen)
+        o, lse = fa.flash_attention_fwd(q, k, v, False)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, False,
+                                              o, dlse)
+        got = (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, False))
+        torch.cuda.synchronize()
+        refs = fa.flash_bwd_dq_plain(q, k, v, do, lse, None, False, o, dlse)
+        refs = (*refs, *fa.flash_bwd_dkv_plain(q, k, v, do, lse, refs[1],
+                                               False))
+        with_dlse[f"{bh}x{t}"] = {
+            name: err(a, b, f"{name} under dlse at {bh}x{t}")
+            for name, a, b in zip(("dq", "delta", "dk", "dv"), got, refs)}
+
     # flash_chunk's backward with an lse cotangent, at the ring's chunk.
     bh, t = SEQ_CASES[0]
     q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
@@ -4999,7 +5028,7 @@ def sequence_kernel_cases(torch, entries, flush):
             err(g, r, f"flash_chunk causal={causal} grad")
             for g, r in zip(grads, refs))
     return {"flash_chunk_dlse_grad_max_abs_err": chunk,
-            "bhtd": [bh, t, d]}
+            "nc_dlse_max_abs_err": with_dlse, "bhtd": [bh, t, d]}
 
 
 def ring_attention_check(torch):

@@ -7,8 +7,8 @@ Inputs are made with numpy from a seed and fed to both packages.
 * The plain twins against JAX's ``_flash_fwd`` and ``_flash_bwd`` at
   [2, 128, 16] with 64-row tiles (two tiles each way, so the kernels'
   online rescaling runs), causal and not, given the same o, lse and Delta
-  on the backward side: o, lse, dq, dk and dv within 2e-5 (f32; only the
-  summation order differs).
+  on the backward side (the non-causal dq computing Delta from o): o,
+  lse, dq, dk and dv within 2e-5 (f32; only the summation order differs).
 * ``flash_chunk`` against JAX's ``flash_chunk``: (o, lse) within 2e-5, and
   the VJP under nonzero (dO, dlse) cotangents within 1e-4 (the lse
   cotangent folded into Delta on both sides, then three chained
@@ -64,9 +64,15 @@ def test_twins_match_pallas_kernels(causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
                                atol=ATOL)
     # The backward twins from JAX's own o and lse, as the kernels get them.
+    # Not causal, dq takes o and returns its own Delta beside dq.
     o, lse = torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jlse))
     delta = (tdo * o).sum(-1)
-    dq = fa.flash_attention_bwd_dq(tq, tk, tv, tdo, lse, delta, causal)
+    if causal:
+        dq = fa.flash_attention_bwd_dq(tq, tk, tv, tdo, lse, delta, causal)
+    else:
+        dq, own = fa.flash_attention_bwd_dq(tq, tk, tv, tdo, lse, None,
+                                            causal, o)
+        torch.testing.assert_close(own, delta, atol=ATOL, rtol=0)
     dk, dv = fa.flash_attention_bwd_dkv(tq, tk, tv, tdo, lse, delta, causal)
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,

@@ -283,17 +283,28 @@ def test_flash_kernels_match_plain(cuda, bh, t, d):
                                    rtol=2.0 ** -7)
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,t,d", [(4, 192, 64), (2, 1024, 128)])
-def test_flash_backward_kernels_are_deterministic(cuda, bh, t, d):
+def test_flash_backward_kernels_are_deterministic(cuda, bh, t, d, causal):
     """dq and dk/dv take no atomics and each writes only its own rows:
-    two calls on the same inputs give the same bits."""
+    two calls on the same inputs give the same bits, causal and not (the
+    non-causal dq's Delta, computed under an lse cotangent, too)."""
     q, k, v, do = _flash_inputs(cuda, bh, t, d, 6)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1)
-    first = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
-    second = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-              *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dlse = 0.5 * torch.randn(bh, t, device=cuda, generator=gen)
+
+    def backward():
+        if causal:
+            delta = (do.float() * o.float()).sum(-1)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        else:
+            dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None,
+                                                  False, o, dlse)
+        return (dq, delta, *fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                       delta, causal))
+
+    first, second = backward(), backward()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -318,20 +329,26 @@ def test_flash_autograd_matches_full_attention(cuda):
         torch.testing.assert_close(a.float(), b, atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("with_dlse", [False, True])
 @pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (2, 64, 32), (4, 192, 64),
                                     (2, 128, 128), (5, 320, 128),
                                     (96, 256, 64), (96, 1024, 64)])
-def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d):
+def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d, with_dlse):
     """B2 and B3's non-causal instances (``causal=False``) against their
-    plain twins, with the causal cases' tolerances; each launch counted in
-    ``launches`` and in ``launches_full``."""
+    plain twins, with the causal cases' tolerances; the dq kernel's own
+    Delta (less an lse cotangent, or not) within 1e-5 + 1e-5 relative of
+    the twin's f32 reduction (f32 sums of D products in another order);
+    each launch counted in ``launches`` and in ``launches_full``."""
     q, k, v, do = _flash_inputs(cuda, bh, t, d, 8)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    dlse = 0.5 * torch.randn(bh, t, device=cuda, generator=gen) \
+        if with_dlse else None
     wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                 fa.flash_attention_bwd_dkv)
     counts = [(w.launches, w.launches_full) for w in wrappers]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
-    delta = (do.float() * o.float()).sum(-1)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, False, o,
+                                          dlse)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                         causal=False)
     torch.cuda.synchronize()
@@ -341,8 +358,11 @@ def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-3,
                                rtol=2.0 ** -7)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
-    refs = (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal=False),
-            *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False))
+    dq_ref, delta_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse, None, False,
+                                              o, dlse)
+    torch.testing.assert_close(delta, delta_ref, atol=1e-5, rtol=1e-5)
+    refs = (dq_ref, *fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta_ref,
+                                            causal=False))
     for got, ref in zip((dq, dk, dv), refs):
         torch.testing.assert_close(got.float(), ref.float(), atol=2e-3,
                                    rtol=2.0 ** -7)

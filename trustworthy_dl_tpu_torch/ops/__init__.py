@@ -78,7 +78,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tddl_flash_bwd_dq": ([_P] * 7 + [_I] * 3 + [_P], _I),
         "tddl_flash_bwd_dkv": ([_P] * 8 + [_I] * 3 + [_P], _I),
         "tddl_flash_fwd_full": ([_P] * 5 + [_I] * 3 + [_P], _I),
-        "tddl_flash_bwd_dq_full": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "tddl_flash_bwd_dq_full": ([_P] * 9 + [_I] * 3 + [_P], _I),
         "tddl_flash_bwd_dkv_full": ([_P] * 8 + [_I] * 3 + [_P], _I),
         "tddl_error_string": _ERROR_STRING,
     },

@@ -8,14 +8,19 @@
 // tddl_flash_fwd_full, tddl_flash_bwd_dq_full and tddl_flash_bwd_dkv_full
 // (the ring attention's chunks below the diagonal, and flash_chunk's).
 // Each kernel is a template over CAUSAL: the non-causal instance walks every
-// key tile (forward, dq) or every query tile (dk/dv) and masks nothing.
-// Layout [BH, T, D] bf16, as the JAX wrapper merges batch and heads.  The
-// forward writes o (bf16) and the row logsumexp lse (f32); the backward
-// rebuilds P = exp(S - lse) from them and takes Delta = sum(dO * O) per
-// row from the caller (a plain reduction, as the JAX package leaves it to
-// XLA; flash_chunk's caller subtracts the lse cotangent from it).  Scores
-// are scaled by 1/sqrt(D) and, in the causal instance, masked with the
-// finite NEG_INF of the TPU kernels.
+// key tile (forward, dq) or every query tile (dk/dv) and masks nothing; at
+// D = 64 and 128 the non-causal backward is a pair of kernels of its own,
+// on wgmma (below).  Layout [BH, T, D] bf16, as the JAX wrapper merges
+// batch and heads.  The forward writes o (bf16) and the row logsumexp lse
+// (f32); the backward rebuilds P = exp(S - lse) from them.  The causal
+// backward takes Delta = sum(dO * O) per row from the caller (a plain
+// reduction, as the JAX package leaves it to XLA; flash_chunk's caller
+// subtracts the lse cotangent from it).  The non-causal dq computes Delta -
+// dlse itself for its 64 rows, in f32 from dO and o (dlse the lse
+// cotangent, or none), and writes it for dk/dv, which runs after it on the
+// same stream: the non-causal backward is two launches.  Scores are scaled
+// by 1/sqrt(D) and, in the causal instance, masked with the finite NEG_INF
+// of the TPU kernels.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (trustworthy_dl_tpu_torch/ops/__init__.py).  Every entry point
@@ -30,11 +35,12 @@
 // TPU kernels' causal skip); the diagonal tile is masked elementwise.
 // The non-causal instance does the whole score matrix: at the ring's chunk
 // [96, 256, 64] the forward moves 12.7 MB (3.79 us) for 1.61 GFLOP (1.63
-// us), dq ~15.9 MB (4.7 us) for 2.42 GFLOP and dk/dv ~19.1 MB (5.7 us) for
-// 3.22 GFLOP, so bytes bound all three; at [96, 1024, 64] the products do:
-// 25.8 / 38.7 / 51.5 GFLOP, 26.1 / 39.1 / 52.1 us.  Its query tiles all
-// walk the same number of key tiles, so the longest-first order below has
-// nothing to balance there and is kept as it is.
+// us), dq, reading o for Delta and writing Delta, ~19.2 MB (5.7 us) for
+// 2.42 GFLOP and dk/dv ~19.1 MB (5.7 us) for 3.22 GFLOP, so bytes bound all
+// three; at [96, 1024, 64] the products do: 25.8 / 38.7 / 51.5 GFLOP, 26.1
+// / 39.1 / 52.1 us.  Its query tiles all walk the same number of key
+// tiles, so the forward's longest-first order has nothing to balance there
+// and is kept as it is.
 //
 // The forward (B2) is FlashAttention-2's shape, written out by hand:
 //   * one CTA of four warps per (64-row query tile, batch*head), query
@@ -92,7 +98,50 @@
 //     ptxas's registers and spills for every instance).
 //   * both epilogues stage bf16 rows in the warp's own rows of a tile it
 //     alone reads and write 16-byte coalesced rows.
-// TMA, wgmma and warp specialisation are later work.
+//   That is the causal pair, and the non-causal one at D = 16 and 32 (its
+//   dq adds Delta).
+// The non-causal pair at D = 64 and 128 (Wg below) runs its seven products
+// on wgmma, which alone reaches the card's full tensor-core rate.  The
+// C entry picks it by D, never by a failure; D = 16 and 32 stay on
+// mma.sync, as their 32- and 64-byte rows would need narrower swizzles
+// and no model of the port runs them.
+//   * one warpgroup (the CTA's four warps) owns a 64-row tile, so m64nNk16
+//     fits the grid as it was: dq per query tile, dk/dv per key tile;
+//   * every operand tile sits in shared memory in the 128-byte-swizzled
+//     layout wgmma reads (wgmma_sm90.cuh), written there by hand-swizzled
+//     16-byte cp.async copies; no tensor maps, so nothing is encoded on
+//     the host per launch;
+//   * the streamed tiles (K, V for dq; Q, dO and the lse and Delta rows
+//     for dk/dv) come through a ring tracked by cp.async groups, 3 stages
+//     (4 in D = 128's dk/dv): step i copies tile i + STAGES - 2 into the
+//     stage tile i - 2 used, whose products every warp has waited for
+//     before step i's barrier, so the next products issue without waiting
+//     on the last ones' stage;
+//   * dq: S = Q.K^T and dP = dO.V^T as two commit groups of m64n64 with
+//     both operands K-major; P = exp2(.) as soon as S lands, while dP
+//     runs; dS = P o (dP - Delta) rounded to bf16 pairs is already the
+//     register A operand of dQ += dS.K (m64nD), which reads the same K
+//     tile MN-major through its descriptor; dQ_j stays in flight under
+//     step j + 1's S and dP;
+//   * dk/dv: S^T = K.Q^T and dP^T = V.dO^T (m64n64, m64n32 at D = 128,
+//     whose two accumulators of 64 f32 leave no room for wider scores); P^T
+//     as bf16 pairs feeds dV += P^T.dO while dP^T lands, dS^T feeds dK +=
+//     dS^T.Q, dO and Q read MN-major;
+//   * the Delta prologue: two lanes a row over alternate 16-byte chunks of
+//     dO and o from global memory while the first tiles copy, one shuffle,
+//     then each lane takes its fragment rows' values by shuffle;
+//   * registers (ptxas, sm_90a, CUDA 12.8): dq 144 / 212 and dk/dv 167 /
+//     224 at D = 64 / 128, 0 spill bytes but for dk/dv's 16 at D = 64; the
+//     launch bounds ask for 3 CTAs an SM at D = 64 (dk/dv needs 189
+//     registers unbounded; at 2 CTAs an SM it took 1.18x as long at the
+//     ring's chunk), 1 at D = 128 (the ring's 128-166 KB of shared
+//     memory).  D = 128's dk/dv shares its score registers
+//     between its two query groups (declared per group, ptxas serialised
+//     its products: C7515), and at one CTA an SM needs its fourth stage:
+//     with three it took 1.6x as long (PERF.md has the designs tried,
+//     B3-nc).
+// TMA, a producer warp with setmaxnreg, and wgmma for the causal pair are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +150,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -336,7 +386,9 @@ struct Bwd {
   // its fixed fragments are reloaded by ldmatrix each step, and dk/dv runs
   // the tile's 64 queries as two groups of 32 to halve its live scores.
   // ptxas (CUDA 12.8): dq 114 / 128 / 166 / 242 and dk/dv 132 / 158 / 242
-  // / 255 registers at D = 16 / 32 / 64 / 128, 0 spill bytes.  On the
+  // / 255 registers at D = 16 / 32 / 64 / 128, 0 spill bytes (the
+  // non-causal instances at D = 16 / 32, dq with its Delta prologue: dq
+  // 88 / 128, dk/dv 106 / 163, 0 spill bytes).  On the
   // H100, dq at D = 64 with 2 CTAs an SM (224 registers) took 9% longer,
   // and dk/dv with K and V reloaded at 3 CTAs 5% longer (PERF.md, B3).
   static constexpr bool HOLD = D <= 64;
@@ -363,6 +415,46 @@ __device__ __forceinline__ void stage_rows(bf16* stage, float (*acc)[4],
   }
 }
 
+// Delta = sum_d dO o O - dlse (dlse may be null) over this warp's 16 rows
+// from `row0` (an index into [BH * T]), in f32: two lanes a row, each
+// over alternate 16-byte chunks, then one shuffle.  The even lane writes
+// the row to delta_out; returns this lane's rows g and g + 8 (the
+// fragment rows of mma.sync and of wgmma's accumulator alike).
+template <int D>
+__device__ __forceinline__ void warp_delta(const bf16* __restrict__ dout,
+                                           const bf16* __restrict__ o,
+                                           const float* __restrict__ dlse,
+                                           float* __restrict__ delta_out,
+                                           size_t row0, int lane, float& dl0,
+                                           float& dl1) {
+  const int r = lane >> 1;
+  const int h = lane & 1;
+  const bf16* a = dout + (row0 + r) * D;
+  const bf16* b = o + (row0 + r) * D;
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    const int c = (2 * i + h) * 8;
+    const uint4 x = *reinterpret_cast<const uint4*>(a + c);
+    const uint4 y = *reinterpret_cast<const uint4*>(b + c);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 xf = __bfloat1622float2(xp[e]);
+      const float2 yf = __bfloat1622float2(yp[e]);
+      sum = fmaf(xf.x, yf.x, sum);
+      sum = fmaf(xf.y, yf.y, sum);
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (dlse != nullptr) sum -= dlse[row0 + r];
+  if (h == 0) delta_out[row0 + r] = sum;
+  const int g = lane >> 2;
+  dl0 = __shfl_sync(0xffffffffu, sum, 2 * g);
+  dl1 = __shfl_sync(0xffffffffu, sum, 2 * (g + 8));
+}
+
 // ---------------------------------------------------------------------------
 // B3, dq: grid (T/64, BH), query tiles longest-first.
 // dQ = scale * (P o (dO.V^T - Delta)) . K over the key tiles at and below
@@ -374,7 +466,9 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int T, float scale) {
+                    int T, float scale, const bf16* __restrict__ o,
+                    const float* __restrict__ dlse,
+                    float* __restrict__ delta_out) {
   constexpr int LD = Dims<D>::LDB;
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
@@ -403,10 +497,17 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DQ_MINB)
   copy_tile_async<D>(kv_s + TILE * LD, v + head);
   cp_async_commit();
 
-  // This lane's two rows (g, g + 8): lse in log2 units, and Delta.
+  // This lane's two rows (g, g + 8): lse in log2 units, and Delta (the
+  // caller's when causal; computed here, and written out, when not).
   const size_t row = (size_t)blockIdx.y * T + qi * TILE + r0 + g;
   const float nl0 = -lse[row] * LOG2E, nl1 = -lse[row + 8] * LOG2E;
-  const float dl0 = delta[row], dl1 = delta[row + 8];
+  float dl0, dl1;
+  if constexpr (CAUSAL) {
+    dl0 = delta[row];
+    dl1 = delta[row + 8];
+  } else {
+    warp_delta<D>(dout, o, dlse, delta_out, row - g, lane, dl0, dl1);
+  }
   const float scale_log2 = scale * LOG2E;
   // The A-fragment row address of this lane in the warp's rows.
   const int arow = (r0 + lrow + lm0 * 8) * LD + lm1 * 8;
@@ -693,67 +794,450 @@ __global__ void __launch_bounds__(THREADS, Bwd<D>::DKV_MINB)
   store_staged<D>(dk + out, v_s + r0 * LD, lane);
 }
 
+// ---------------------------------------------------------------------------
+// B3 at causal=False, D = 64 and 128: dq (with Delta) and dk/dv on wgmma.
+// One warpgroup (the CTA's four warps) owns a 64-row tile; every operand
+// tile sits in shared memory in the 128-byte-swizzled layout wgmma reads
+// (wgmma_sm90.cuh), copied there by hand-swizzled cp.async.  The streamed
+// tiles come through a ring of STAGES stages tracked by cp.async groups:
+// step i copies tile i + STAGES - 2 into the stage tile i - 2 used, whose
+// products every warp has waited for before step i's barrier, so one
+// stage drains while one is read and the rest fill.
+// ---------------------------------------------------------------------------
+template <int D>
+struct Wg {
+  static constexpr uint32_t BLOCK_BYTES = TILE * wgmma_sm90::SW128_ROW;
+  static constexpr uint32_t TILE_BYTES = (D / 64) * BLOCK_BYTES;
+  // Ring stages (of K and V in dq, of Q and dO in dk/dv): 3, so three
+  // CTAs fit an SM at D = 64; D = 128's dk/dv, one CTA an SM, takes 4 and
+  // keeps two tiles ahead.
+  static constexpr int DQ_STAGES = 3;
+  static constexpr int DKV_STAGES = D == 64 ? 3 : 4;
+  // dk/dv's queries a group: D = 128's two accumulators are 128 f32 a
+  // thread, so its scores go 32 queries at a time (m64n32).
+  static constexpr int NQ = D == 128 ? 32 : 64;
+  // dq: Q, dO and the ring's (K, V); dk/dv: K, V and the ring's (Q, dO)
+  // and (lse, Delta) rows; 1024 bytes to align the base.
+  static constexpr size_t DQ_SMEM = (2 + 2 * DQ_STAGES) * TILE_BYTES + 1024;
+  static constexpr size_t DKV_SMEM = (2 + 2 * DKV_STAGES) * TILE_BYTES +
+                                     DKV_STAGES * 2 * Dims<D>::ROW_BYTES +
+                                     1024;
+  static constexpr int MIN_BLOCKS = D == 64 ? 3 : 1;  // CTAs an SM
+};
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// [64, D] rows of a [*, D] bf16 array into a swizzled tile, 16 bytes a
+// thread per cp.async: row r's chunk c to column block c / 8, chunk
+// (c % 8) ^ (r % 8).
+template <int D>
+__device__ __forceinline__ void copy_tile_sw128(unsigned char* dst,
+                                                const bf16* src) {
+  constexpr int VPR = D / 8;
+#pragma unroll
+  for (int it = 0; it < TILE * VPR / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / VPR;
+    const int c = i % VPR;
+    cp_async16(dst + (c >> 3) * Wg<D>::BLOCK_BYTES +
+                   r * wgmma_sm90::SW128_ROW + (((c & 7) ^ (r & 7)) << 4),
+               src + (size_t)r * D + c * 8);
+  }
+}
+
+// acc (+)= A . B over one k16 step: m64nN with A and B K-major.
+template <int N>
+__device__ __forceinline__ void wg_ss(float (&acc)[N / 8][4], uint64_t da,
+                                      uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_sm90::ss_n64(acc, da, db, scale_d);
+  else
+    wgmma_sm90::ss_n32(acc, da, db, scale_d);
+}
+
+// acc += A . B over one k16 step: m64nD, A from registers, B MN-major.
+template <int D>
+__device__ __forceinline__ void wg_rs(float (&acc)[D / 8][4],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_sm90::rs_n64(acc, a, db, 1);
+  else
+    wgmma_sm90::rs_n128(acc, a, db, 1);
+}
+
+// ---------------------------------------------------------------------------
+// dq: grid (T/64, BH).  Q and dO fixed; K and V through the ring.  Per key
+// tile: S = Q.K^T and dP = dO.V^T (m64n64, K-major), P = exp2(.) once S
+// has landed while dP runs, dS = P o (dP - Delta) rounded to bf16 pairs as
+// the A registers of dQ += dS.K (m64nD, K read MN-major from the same
+// tile).  dQ_j stays in flight under step j + 1's S and dP.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(THREADS, Wg<D>::MIN_BLOCKS)
+    flash_dq_wgmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const bf16* __restrict__ o,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dlse,
+                          float* __restrict__ delta, bf16* __restrict__ dq,
+                          int T, float scale) {
+  namespace wg = wgmma_sm90;
+  using W = Wg<D>;
+  constexpr int S = W::DQ_STAGES;
+  constexpr uint32_t TB = W::TILE_BYTES;
+  constexpr uint32_t BB = W::BLOCK_BYTES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* q_s = smem;
+  unsigned char* do_s = smem + TB;
+  unsigned char* kv_s = smem + 2 * TB;  // stage s: K at 2s, V at 2s + 1
+
+  const int nq = T / TILE;
+  const int qi = blockIdx.x;
+  const size_t head = (size_t)blockIdx.y * T * D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+
+  auto copy_kv = [&](int kj) {  // one cp.async group, empty past the end
+    if (kj < nq) {
+      unsigned char* dst = kv_s + (kj % S) * 2 * TB;
+      copy_tile_sw128<D>(dst, k + head + (size_t)kj * TILE * D);
+      copy_tile_sw128<D>(dst + TB, v + head + (size_t)kj * TILE * D);
+    }
+    cp_async_commit();
+  };
+  copy_tile_sw128<D>(q_s, q + head + (size_t)qi * TILE * D);
+  copy_tile_sw128<D>(do_s, dout + head + (size_t)qi * TILE * D);
+  copy_kv(0);
+#pragma unroll
+  for (int j = 1; j < S - 2; ++j) copy_kv(j);
+
+  // Delta of the warp's rows while the copies fly; lse in log2 units.
+  const size_t row0 = (size_t)blockIdx.y * T + qi * TILE + warp * 16;
+  float dl0, dl1;
+  warp_delta<D>(dout, o, dlse, delta, row0, lane, dl0, dl1);
+  const float nl0 = -lse[row0 + g] * LOG2E;
+  const float nl1 = -lse[row0 + g + 8] * LOG2E;
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t q_a = smem_u32(q_s);
+  const uint32_t do_a = smem_u32(do_s);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kj = 0; kj < nq; ++kj) {
+    cp_async_wait<S - 3>();  // this thread's copies of tile kj have landed
+    wg::fence_proxy_async();
+    __syncthreads();  // everyone's have; tile kj - 2's products are done
+    copy_kv(kj + S - 2);
+    const uint32_t k_a = smem_u32(kv_s + (kj % S) * 2 * TB);
+    const uint32_t v_a = k_a + TB;
+
+    float s[8][4], dp[8][4];
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<64>(s, wg::desc_kmajor(q_a, kk, BB), wg::desc_kmajor(k_a, kk, BB),
+                kk > 0);
+    wg::commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<64>(dp, wg::desc_kmajor(do_a, kk, BB),
+                wg::desc_kmajor(v_a, kk, BB), kk > 0);
+    wg::commit();
+
+    wg::wait<1>();  // S (and dQ of the step before) have landed
+    wg::fence_regs(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = ex2(fmaf(s[j][e], scale_log2, e < 2 ? nl0 : nl1));
+    wg::wait<0>();
+    wg::fence_regs(dp);
+    // dS's n8 tiles 2kk and 2kk + 1 are dQ's k16 step kk.
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = s[j][e] * (dp[j][e] - (e < 2 ? dl0 : dl1));
+      dsf[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_rs<D>(acc, dsf[kk], wg::desc_mnmajor(k_a, kk, BB));
+    wg::commit();
+  }
+  wg::wait<0>();
+  wg::fence_regs(acc);
+
+  // Epilogue: the Q and dO tiles, free once every warp's products are
+  // done, stage the bf16 rows for 16-byte coalesced stores.
+  __syncthreads();
+  bf16* stage = reinterpret_cast<bf16*>(smem) + warp * 16 * Dims<D>::LDB;
+  stage_rows<D>(stage, acc, scale, g, c2);
+  __syncwarp();
+  store_staged<D>(dq + head + (size_t)(qi * TILE + warp * 16) * D, stage,
+                  lane);
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv: grid (T/64, BH), one key tile each.  K and V fixed; Q, dO and the
+// query tile's lse and Delta rows through the ring.  Per query tile, in
+// groups of NQ queries: S^T = K.Q^T and dP^T = V.dO^T (m64nNQ, K-major);
+// P^T = exp2(.) from the staged lse of its columns, rounded to bf16 pairs
+// as the A registers of dV += P^T.dO (issued while dP^T lands); dS^T = P^T
+// o (dP^T - Delta) as those of dK += dS^T.Q (dO and Q read MN-major).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(THREADS, Wg<D>::MIN_BLOCKS)
+    flash_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int T, float scale) {
+  namespace wg = wgmma_sm90;
+  using W = Wg<D>;
+  constexpr int S = W::DKV_STAGES;
+  constexpr int NQ = W::NQ;
+  constexpr int NJ = NQ / 8;  // n8 query tiles a group
+  constexpr uint32_t TB = W::TILE_BYTES;
+  constexpr uint32_t BB = W::BLOCK_BYTES;
+  constexpr int LD = Dims<D>::LDB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* ring = smem + 2 * TB;  // stage s: Q at 2s, dO at 2s + 1
+  // stage s: lse at 2s, Delta at 2s + 1 rows of 64.
+  float* rows_s = reinterpret_cast<float*>(ring + 2 * S * TB);
+
+  const int nq = T / TILE;
+  const int kj = blockIdx.x;
+  const size_t head = (size_t)blockIdx.y * T * D;
+  const size_t head_rows = (size_t)blockIdx.y * T;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+
+  auto copy_stage = [&](int qi) {  // one cp.async group, empty past the end
+    if (qi < nq) {
+      const int st = qi % S;
+      unsigned char* dst = ring + st * 2 * TB;
+      copy_tile_sw128<D>(dst, q + head + (size_t)qi * TILE * D);
+      copy_tile_sw128<D>(dst + TB, dout + head + (size_t)qi * TILE * D);
+      if (threadIdx.x < 32) {
+        const int i = (threadIdx.x & 15) * 4;
+        const float* src = threadIdx.x < 16 ? lse : delta;
+        cp_async16(rows_s + (2 * st + (threadIdx.x >> 4)) * TILE + i,
+                   src + head_rows + qi * TILE + i);
+      }
+    }
+    cp_async_commit();
+  };
+  copy_tile_sw128<D>(smem, k + head + (size_t)kj * TILE * D);
+  copy_tile_sw128<D>(smem + TB, v + head + (size_t)kj * TILE * D);
+  copy_stage(0);
+#pragma unroll
+  for (int j = 1; j < S - 2; ++j) copy_stage(j);
+
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_a = smem_u32(smem);
+  const uint32_t v_a = k_a + TB;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  float s[NJ][4], dp[NJ][4];
+  for (int qi = 0; qi < nq; ++qi) {
+    cp_async_wait<S - 3>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    copy_stage(qi + S - 2);
+    const int st = qi % S;
+    const uint32_t q_a = smem_u32(ring + st * 2 * TB);
+    const uint32_t do_a = q_a + TB;
+    const float* lse_s = rows_s + 2 * st * TILE;
+    const float* dl_s = lse_s + TILE;
+
+#pragma unroll
+    for (int grp = 0; grp < TILE / NQ; ++grp) {
+      const int col0 = grp * NQ;  // the group's first query
+      const uint32_t qg_a = q_a + col0 * wg::SW128_ROW;
+      const uint32_t dog_a = do_a + col0 * wg::SW128_ROW;
+      // The groups share s and dp: a group's products overwrite the last
+      // group's values in place (scale_d = 0), with no copy between.
+      wg::fence_regs(s);
+      wg::fence_regs(dp);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg_ss<NQ>(s, wg::desc_kmajor(k_a, kk, BB),
+                  wg::desc_kmajor(qg_a, kk, BB), kk > 0);
+      wg::commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg_ss<NQ>(dp, wg::desc_kmajor(v_a, kk, BB),
+                  wg::desc_kmajor(dog_a, kk, BB), kk > 0);
+      wg::commit();
+
+      wg::wait<1>();  // S^T (and every product before dP^T) have landed
+      wg::fence_regs(s);
+      // P^T in place of S^T, and as bf16 A-fragments (k over queries).
+      uint32_t pf[NJ / 2][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(lse_s + col0 + j * 8 + c2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = ex2(fmaf(s[j][e], scale_log2,
+                             -((e & 1) ? l.y : l.x) * LOG2E));
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+      }
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk)
+        wg_rs<D>(dva, pf[kk], wg::desc_mnmajor(dog_a, kk, BB));
+      wg::commit();
+
+      wg::wait<1>();  // dP^T has landed; dV may still run
+      wg::fence_regs(dp);
+      uint32_t dsf[NJ / 2][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(dl_s + col0 + j * 8 + c2);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = s[j][e] * (dp[j][e] - ((e & 1) ? dl.y : dl.x));
+        dsf[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk)
+        wg_rs<D>(dka, dsf[kk], wg::desc_mnmajor(qg_a, kk, BB));
+      wg::commit();
+    }
+  }
+  wg::wait<0>();
+  wg::fence_regs(dka);
+  wg::fence_regs(dva);
+
+  // Epilogue: the ring, free once every warp's products are done, stages
+  // dV's rows and then dK's.
+  __syncthreads();
+  bf16* stage_v = reinterpret_cast<bf16*>(ring) + r0 * LD;
+  bf16* stage_k = stage_v + TILE * LD;
+  stage_rows<D>(stage_v, dva, 1.f, g, c2);
+  stage_rows<D>(stage_k, dka, scale, g, c2);
+  __syncwarp();
+  const size_t out = head + (size_t)(kj * TILE + r0) * D;
+  store_staged<D>(dv + out, stage_v, lane);
+  store_staged<D>(dk + out, stage_k, lane);
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// One entry's arrays: Delta is read by dk/dv and by the causal dq, and
+// written by the non-causal dq, which also reads o and dlse (null where no
+// lse cotangent is folded in).
+struct Ptrs {
+  const void *q, *k, *v, *dout, *o, *lse, *dlse;
+  void *delta, *out0, *out1;
+};
+
 template <int D, bool CAUSAL>
-int launch(int which, const void* q, const void* k, const void* v,
-           const void* o_or_do, const void* lse, const void* delta, void* out0,
-           void* out1, int BH, int T, cudaStream_t stream) {
+int launch(int which, const Ptrs& p, int BH, int T, cudaStream_t stream) {
   using Dm = Dims<D>;
   const dim3 grid(T / TILE, BH);
   const float scale = (float)(1.0 / sqrt((double)D));
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* qb = static_cast<const bf16*>(p.q);
+  const bf16* kb = static_cast<const bf16*>(p.k);
+  const bf16* vb = static_cast<const bf16*>(p.v);
+  const bf16* dob = static_cast<const bf16*>(p.dout);
+  const float* lse = static_cast<const float*>(p.lse);
+  float* delta = static_cast<float*>(p.delta);
+  // Non-causal B3 at D = 64 and 128 runs on wgmma; at D = 16 and 32 (a
+  // product of K = 16 or 32, too short to feed wgmma) on mma.sync.
+  constexpr bool WG = !CAUSAL && D >= 64;
   int err;
   if (which == 0) {
     if ((err = prepare(flash_fwd_kernel<D, CAUSAL>, Dm::FWD_SMEM)))
       return err;
     flash_fwd_kernel<D, CAUSAL><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
-        qb, kb, vb, static_cast<bf16*>(out0), static_cast<float*>(out1), T,
-        scale * LOG2E);
+        qb, kb, vb, static_cast<bf16*>(p.out0), static_cast<float*>(p.out1),
+        T, scale * LOG2E);
+  } else if constexpr (WG) {
+    if (which == 1) {
+      if ((err = prepare(flash_dq_wgmma_kernel<D>, Wg<D>::DQ_SMEM)))
+        return err;
+      flash_dq_wgmma_kernel<D><<<grid, THREADS, Wg<D>::DQ_SMEM, stream>>>(
+          qb, kb, vb, dob, static_cast<const bf16*>(p.o), lse,
+          static_cast<const float*>(p.dlse), delta,
+          static_cast<bf16*>(p.out0), T, scale);
+    } else {
+      if ((err = prepare(flash_dkv_wgmma_kernel<D>, Wg<D>::DKV_SMEM)))
+        return err;
+      flash_dkv_wgmma_kernel<D><<<grid, THREADS, Wg<D>::DKV_SMEM, stream>>>(
+          qb, kb, vb, dob, lse, delta, static_cast<bf16*>(p.out0),
+          static_cast<bf16*>(p.out1), T, scale);
+    }
   } else if (which == 1) {
     if ((err = prepare(flash_dq_kernel<D, CAUSAL>, Bwd<D>::DQ_SMEM)))
       return err;
     flash_dq_kernel<D, CAUSAL><<<grid, THREADS, Bwd<D>::DQ_SMEM, stream>>>(
-        qb, kb, vb, static_cast<const bf16*>(o_or_do),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(out0), T, scale);
+        qb, kb, vb, dob, lse, delta, static_cast<bf16*>(p.out0), T, scale,
+        static_cast<const bf16*>(p.o), static_cast<const float*>(p.dlse),
+        delta);
   } else {
     if ((err = prepare(flash_dkv_kernel<D, CAUSAL>, Bwd<D>::DKV_SMEM)))
       return err;
     flash_dkv_kernel<D, CAUSAL><<<grid, THREADS, Bwd<D>::DKV_SMEM, stream>>>(
-        qb, kb, vb, static_cast<const bf16*>(o_or_do),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(out0), static_cast<bf16*>(out1), T, scale);
+        qb, kb, vb, dob, lse, delta, static_cast<bf16*>(p.out0),
+        static_cast<bf16*>(p.out1), T, scale);
   }
   return (int)cudaGetLastError();
 }
 
 template <bool CAUSAL>
-int dispatch(int which, const void* q, const void* k, const void* v,
-             const void* o_or_do, const void* lse, const void* delta,
-             void* out0, void* out1, int BH, int T, int D, void* stream) {
+int dispatch(int which, const Ptrs& p, int BH, int T, int D, void* stream) {
   if (BH < 1 || BH > 65535 || T < TILE || T % TILE != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
-                                out1, BH, T, s);
+      return launch<16, CAUSAL>(which, p, BH, T, s);
     case 32:
-      return launch<32, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
-                                out1, BH, T, s);
+      return launch<32, CAUSAL>(which, p, BH, T, s);
     case 64:
-      return launch<64, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
-                                out1, BH, T, s);
+      return launch<64, CAUSAL>(which, p, BH, T, s);
     case 128:
-      return launch<128, CAUSAL>(which, q, k, v, o_or_do, lse, delta, out0,
-                                 out1, BH, T, s);
+      return launch<128, CAUSAL>(which, p, BH, T, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -766,16 +1250,19 @@ extern "C" {
 // B2: q, k, v [BH, T, D] bf16 -> o [BH, T, D] bf16, lse [BH, T] f32.
 int tddl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int BH, int T, int D, void* stream) {
-  return dispatch<true>(0, q, k, v, nullptr, nullptr, nullptr, o, lse, BH, T,
-                        D, stream);
+  return dispatch<true>(
+      0, {q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, o, lse}, BH,
+      T, D, stream);
 }
 
 // B3 (dq): + dO [BH, T, D] bf16, lse and Delta [BH, T] f32 -> dq.
 int tddl_flash_bwd_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int T, int D, void* stream) {
-  return dispatch<true>(1, q, k, v, dout, lse, delta, dq, nullptr, BH, T, D,
-                        stream);
+  return dispatch<true>(1,
+                        {q, k, v, dout, nullptr, lse, nullptr,
+                         const_cast<void*>(delta), dq, nullptr},
+                        BH, T, D, stream);
 }
 
 // B3 (dk/dv): same inputs -> dk, dv.
@@ -783,31 +1270,40 @@ int tddl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int T, int D,
                        void* stream) {
-  return dispatch<true>(2, q, k, v, dout, lse, delta, dk, dv, BH, T, D,
-                        stream);
+  return dispatch<true>(2,
+                        {q, k, v, dout, nullptr, lse, nullptr,
+                         const_cast<void*>(delta), dk, dv},
+                        BH, T, D, stream);
 }
 
 // The same three at causal=False: every query attends every key.
 int tddl_flash_fwd_full(const void* q, const void* k, const void* v, void* o,
                         void* lse, int BH, int T, int D, void* stream) {
-  return dispatch<false>(0, q, k, v, nullptr, nullptr, nullptr, o, lse, BH, T,
-                         D, stream);
+  return dispatch<false>(
+      0, {q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, o, lse}, BH,
+      T, D, stream);
 }
 
+// Non-causal dq computes Delta itself: + o [BH, T, D] bf16 and dlse [BH, T]
+// f32 (or null) -> delta [BH, T] f32 (sum(dO * O) - dlse, for dk/dv) and
+// dq.
 int tddl_flash_bwd_dq_full(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dq, int BH, int T, int D,
-                           void* stream) {
-  return dispatch<false>(1, q, k, v, dout, lse, delta, dq, nullptr, BH, T, D,
-                         stream);
+                           const void* dout, const void* o, const void* lse,
+                           const void* dlse, void* delta, void* dq, int BH,
+                           int T, int D, void* stream) {
+  return dispatch<false>(1, {q, k, v, dout, o, lse, dlse, delta, dq, nullptr},
+                         BH, T, D, stream);
 }
 
+// dk/dv at causal=False, from the Delta that tddl_flash_bwd_dq_full wrote.
 int tddl_flash_bwd_dkv_full(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int BH,
                             int T, int D, void* stream) {
-  return dispatch<false>(2, q, k, v, dout, lse, delta, dk, dv, BH, T, D,
-                         stream);
+  return dispatch<false>(2,
+                         {q, k, v, dout, nullptr, lse, nullptr,
+                          const_cast<void*>(delta), dk, dv},
+                         BH, T, D, stream);
 }
 
 const char* tddl_error_string(int err) {

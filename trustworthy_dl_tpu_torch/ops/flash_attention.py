@@ -8,7 +8,9 @@ tensors to its hand-written kernel in ``csrc/flash_attention.cu`` (see the
 note there for what each kernel replaces, its bound and its design):
 
 * :func:`flash_attention_fwd` -> (o, lse f32 [BH, T]);
-* :func:`flash_attention_bwd_dq` -> dq;
+* :func:`flash_attention_bwd_dq` -> dq from the caller's Delta when
+  causal, and (dq, Delta) when not: the non-causal kernel computes Delta
+  = sum(dO * O) - dlse itself from o and the lse cotangent;
 * :func:`flash_attention_bwd_dkv` -> (dk, dv),
 
 each taking ``causal`` (JAX's static flag: ``False`` drops the mask and
@@ -17,15 +19,16 @@ a plain integer ``launches`` that it increments where it launches its
 kernel and nowhere else, and ``launches_full`` beside it, which counts the
 non-causal launches among them; there it also adds its kernel's products
 (``flash_*_flops``) to an open FLOP tally (``ops.count_kernel_flops``).
-The backward takes Delta = sum(dO * O) per row from a plain reduction, as
-the JAX package leaves it to XLA.
+The causal backward takes Delta = sum(dO * O) per row from a plain
+reduction, as the JAX package leaves it to XLA; the non-causal backward is
+two launches, dq (which writes Delta) and then dk/dv (which reads it).
 
 :class:`FlashAttention` (:func:`flash_attention`) returns o;
 :class:`FlashChunk` (:func:`flash_chunk`) returns (o, lse) with a
 gradient through lse as well, the building block of ring attention
 (``parallel/sequence.py``): its backward folds the lse cotangent into
-Delta (JAX's Delta_eff = Delta - dlse), which reaches the kernels as a
-tensor, so no kernel changes for it.
+Delta (JAX's Delta_eff = Delta - dlse), in the plain reduction when causal
+and inside the non-causal dq kernel when not.
 
 The kernels take bf16 on the card, T a multiple of 64 and D in
 :data:`HEAD_DIMS`; anything else raises ``ValueError``.  Unlike the JAX
@@ -37,7 +40,7 @@ an error, and ``"auto"`` only picks flash where the kernel runs.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -97,14 +100,32 @@ def _probs_and_dscores(q, k, v, lse, do, delta, causal):
     return _rounded(p, q.dtype), _rounded(ds, q.dtype)
 
 
+def row_delta(do: torch.Tensor, o: torch.Tensor,
+              dlse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Delta = sum(dO * O) per row in f32 [BH, T], less the lse cotangent
+    ``dlse`` where the caller differentiates through lse."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
 def flash_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor,
-                       delta: torch.Tensor, causal: bool = True
-                       ) -> torch.Tensor:
-    """dq = scale * (P o (dO.V^T - Delta)) . K, P = exp(S - lse)."""
+                       delta: Optional[torch.Tensor] = None,
+                       causal: bool = True, o: Optional[torch.Tensor] = None,
+                       dlse: Optional[torch.Tensor] = None):
+    """dq = scale * (P o (dO.V^T - Delta)) . K, P = exp(S - lse).  Given
+    ``delta``, returns dq; given ``o`` (and ``dlse`` or None) instead, it
+    takes Delta = :func:`row_delta` itself and returns (dq, delta), as the
+    non-causal kernel does."""
+    own = delta is None
+    if own:
+        if o is None:
+            raise ValueError("flash_bwd_dq_plain: give delta, or o")
+        delta = row_delta(do, o, dlse)
     _, ds = _probs_and_dscores(q, k, v, lse, do, delta, causal)
     dq = torch.einsum("bts,bsd->btd", ds, k.float()) / math.sqrt(q.shape[-1])
-    return dq.to(q.dtype)
+    dq = dq.to(q.dtype)
+    return (dq, delta) if own else dq
 
 
 def flash_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -161,16 +182,17 @@ def _check(op: str, *tensors: torch.Tensor) -> None:
                              f"aligned and on {q.device}")
 
 
-def _launch(entry: str, causal: bool, *tensors: torch.Tensor) -> None:
+def _launch(entry: str, causal: bool, *tensors: Optional[torch.Tensor]
+            ) -> None:
     """Launch ``entry`` (its non-causal instance ``<entry>_full`` when not
-    ``causal``) on q's device and stream."""
+    ``causal``) on q's device and stream; None passes a null pointer."""
     q = tensors[0]
     bh, t, d = q.shape
     name = entry if causal else f"{entry}_full"
     lib = kernel_library("flash_attention")
+    ptrs = [None if a is None else a.data_ptr() for a in tensors]
     with torch.cuda.device(q.device):
-        err = getattr(lib, name)(*[a.data_ptr() for a in tensors], bh, t, d,
-                                 stream_handle(q.device))
+        err = getattr(lib, name)(*ptrs, bh, t, d, stream_handle(q.device))
     check_launch(lib, err, name)
 
 
@@ -203,16 +225,35 @@ flash_attention_fwd.launches_full = 0
 
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor,
-                           lse: torch.Tensor, delta: torch.Tensor,
-                           causal: bool = True) -> torch.Tensor:
-    """The dq half of the backward (B3): one pass per query tile."""
+                           lse: torch.Tensor,
+                           delta: Optional[torch.Tensor] = None,
+                           causal: bool = True,
+                           o: Optional[torch.Tensor] = None,
+                           dlse: Optional[torch.Tensor] = None):
+    """The dq half of the backward (B3): one pass per query tile.  Causal,
+    it takes the caller's ``delta`` and returns dq.  Not causal, it takes
+    ``o`` (and the lse cotangent ``dlse``, or None) in place of ``delta``,
+    computes Delta = sum(dO * O) - dlse inside the kernel and returns (dq,
+    delta), delta f32 [BH, T] for :func:`flash_attention_bwd_dkv`."""
+    if causal != (delta is not None) or causal == (o is not None) \
+            or (causal and dlse is not None):
+        raise ValueError("flash_attention_bwd_dq: give delta when causal, "
+                         "o (and dlse or None) when not")
     if not on_cuda(q, "flash_attention_bwd_dq"):
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
-    _check("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, o, dlse)
     dq = torch.empty_like(q)
-    _launch("tddl_flash_bwd_dq", causal, q, k, v, do, lse, delta, dq)
+    if causal:
+        _check("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+        _launch("tddl_flash_bwd_dq", causal, q, k, v, do, lse, delta, dq)
+    else:
+        delta = torch.empty(q.shape[:2], dtype=torch.float32,
+                            device=q.device)
+        rows = (lse, delta) if dlse is None else (lse, dlse, delta)
+        _check("flash_attention_bwd_dq", q, k, v, do, o, *rows)
+        _launch("tddl_flash_bwd_dq", causal, q, k, v, do, o, lse, dlse,
+                delta, dq)
     _count(flash_attention_bwd_dq, causal, flash_bwd_dq_flops(*q.shape))
-    return dq
+    return dq if causal else (dq, delta)
 
 
 flash_attention_bwd_dq.launches = 0
@@ -240,13 +281,18 @@ flash_attention_bwd_dkv.launches_full = 0
 
 
 def _backward(q, k, v, o, lse, do, causal, dlse=None):
-    """dq, dk, dv from the saved forward: Delta = sum(dO * O) per row, less
-    the lse cotangent where the caller differentiates through lse."""
+    """dq, dk, dv from the saved forward and Delta = sum(dO * O) per row,
+    less the lse cotangent where the caller differentiates through lse: a
+    plain reduction before the two kernels when causal, the dq kernel's
+    own when not (two launches, no reduction)."""
     do = do.contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1)
-    if dlse is not None:
-        delta = delta - dlse.float()
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    if causal:
+        delta = row_delta(do, o, dlse)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    else:
+        dlse = None if dlse is None else dlse.float().contiguous()
+        dq, delta = flash_attention_bwd_dq(q, k, v, do, lse, None, causal,
+                                           o, dlse)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv
 
@@ -326,5 +372,5 @@ __all__ = [
     "flash_attention_fwd", "flash_bwd_dkv_flops", "flash_bwd_dkv_plain",
     "flash_chunk",
     "flash_bwd_dq_flops", "flash_bwd_dq_plain", "flash_fwd_flops",
-    "flash_fwd_plain", "supports_flash",
+    "flash_fwd_plain", "row_delta", "supports_flash",
 ]

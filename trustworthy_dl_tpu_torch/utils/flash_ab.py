@@ -31,12 +31,25 @@ which backend torch picked).
 
 Then the non-causal instances (``causal=False``, the ring attention's
 chunks), one JSON line per shape (``"pass": "full"``) at the ring's chunk
-[96, 256, 64] and at the same three shapes: this build's
-``tddl_flash_fwd_full``, ``tddl_flash_bwd_dq_full`` and
-``tddl_flash_bwd_dkv_full`` held against the twins at ``causal=False``,
-timed in turns beside SDPA's forward and whole backward with
-``is_causal=False``.  Then the card's name and power limit.  About a
-minute and a half for the three passes, the other build's nvcc included.
+[96, 256, 64] and at the same three shapes, an A/B as well: both builds'
+``tddl_flash_bwd_dq_full`` and ``tddl_flash_bwd_dkv_full`` held against
+the twins at ``causal=False`` (``*_err_over_tolerance``;
+``this_vs_other_max_abs``, Delta included), then in turns (this, other,
+other, this) the dq kernel, the dk/dv kernel and the whole non-causal
+backward as ``FlashChunk.backward`` runs it under an lse cotangent
+(``*_pair``): this build's two launches, dq computing Delta, against the
+other's Delta - dlse reduction, dq and dk/dv.  An other build whose
+``tddl_flash_bwd_dq_full`` still takes Delta (seven arrays, the parent's
+C signature, read off its source) gets the reduction; one that takes o
+and dlse computes Delta itself.  Beside them this build's
+``tddl_flash_fwd_full`` and SDPA's forward and whole backward with
+``is_causal=False``, and ``this_pair_kernels``: the profiler's names of
+the kernels this build's pair launches (its two, and nothing else:
+``this_pair_two_kernels``); the host's microseconds to enqueue this
+build's pair (``this_pair_host_us``) and the Delta - dlse reduction
+alone (``delta_reduction_host_us``).  Then the card's name and power
+limit.  About two minutes for the three passes, the other build's nvcc
+included.
 
     python -m trustworthy_dl_tpu_torch.utils.flash_ab --f64
 
@@ -50,7 +63,9 @@ CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -116,6 +131,25 @@ def main(argv=None) -> int:
         other_call("tddl_flash_bwd_dkv", q, k, v, do, lse, delta, dk, dv)
         return dk, dv
 
+    takes_o = dq_full_takes_o(args.other)
+    if not takes_o:   # the parent's C signature: q, k, v, dO, lse, Delta, dq
+        lib.tddl_flash_bwd_dq_full.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+    def other_full(q, k, v, do, o, lse, dlse):
+        """The other build's non-causal backward as its ``_backward`` runs
+        it: (dq, delta, dk, dv)."""
+        dq, dk, dv = (torch.empty_like(a) for a in (q, k, v))
+        if takes_o:
+            delta = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
+            other_call("tddl_flash_bwd_dq_full", q, k, v, do, o, lse, dlse,
+                       delta, dq)
+        else:
+            delta = fa.row_delta(do, o, dlse)
+            other_call("tddl_flash_bwd_dq_full", q, k, v, do, lse, delta, dq)
+        other_call("tddl_flash_bwd_dkv_full", q, k, v, do, lse, delta, dk, dv)
+        return dq, delta, dk, dv
+
     def worst(got, ref):
         """The largest error over its tolerance (at most 1 is within)."""
         err = (got.float() - ref.float()).abs()
@@ -151,61 +185,121 @@ def main(argv=None) -> int:
             worst)), flush=True)
     for bh, t, d in FULL_SHAPES:
         print(json.dumps(full_record(
-            fa, ab, F, flush, args.reps, gen, bh, t, d, worst)), flush=True)
+            fa, ab, F, flush, args.reps, gen, bh, t, d, worst, other_full,
+            other_call, takes_o)), flush=True)
     print(ab.card_line())
     return 0
 
 
-def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst):
+def dq_full_takes_o(source: Path) -> bool:
+    """Whether ``source``'s ``tddl_flash_bwd_dq_full`` takes o and dlse
+    (nine arrays: it computes Delta itself) rather than Delta (seven)."""
+    sig = re.search(r"int tddl_flash_bwd_dq_full\(([^)]*)\)",
+                    source.read_text())
+    if sig is None:
+        raise ValueError(f"{source}: no tddl_flash_bwd_dq_full")
+    return sig.group(1).count("void*") - 1 == 9
+
+
+def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst, other_full,
+                other_call, takes_o):
     """One shape of the non-causal pass (module docstring)."""
     dev = flush.device
     q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
         torch.bfloat16) for _ in range(4))
+    dlse = 0.5 * torch.randn(bh, t, device=dev, generator=gen)
     o, lse = fa.flash_attention_fwd(q, k, v, False)
-    delta = (do.float() * o.float()).sum(dim=-1)
-    args = (q, k, v, do, lse, delta)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, False)
-    dq = fa.flash_attention_bwd_dq(*args, False)
-    dk, dv = fa.flash_attention_bwd_dkv(*args, False)
+    refs = fa.flash_bwd_dq_plain(q, k, v, do, lse, None, False, o, dlse)
+    refs = (*refs, *fa.flash_bwd_dkv_plain(q, k, v, do, lse, refs[1], False))
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, lse, None, False, o,
+                                          dlse)
+    outs = {"this": (dq, delta, *fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, False)),
+        "other": other_full(q, k, v, do, o, lse, dlse)}
     torch.cuda.synchronize()
-    ratios = {"o": worst(o, o_ref),
-              "dq": worst(dq, fa.flash_bwd_dq_plain(*args, False))}
-    for name, got, ref in zip(("dk", "dv"), (dk, dv),
-                              fa.flash_bwd_dkv_plain(*args, False)):
-        ratios[name] = worst(got, ref)
+    names = ("dq", "delta", "dk", "dv")
     record = {"pass": "full", "bhtd": [bh, t, d],
-              "this_err_over_tolerance": ratios,
-              "this_lse_max_abs_err": float((lse - lse_ref).abs().max()),
-              "this_within_tolerance": max(ratios.values()) <= 1.0}
-    del o_ref, lse_ref, dq, dk, dv
+              "other_computes_delta": takes_o,
+              "this_fwd_err_over_tolerance": worst(o, o_ref),
+              "this_lse_max_abs_err": float((lse - lse_ref).abs().max())}
+    for build, got in outs.items():
+        ratios = {n: worst(a, b) for n, a, b in zip(names, got, refs)}
+        record[f"{build}_err_over_tolerance"] = ratios
+        record[f"{build}_within_tolerance"] = max(ratios.values()) <= 1.0
+    record["this_vs_other_max_abs"] = {
+        n: float((a.float() - b.float()).abs().max())
+        for n, a, b in zip(names, outs["this"], outs["other"])}
+    del o_ref, lse_ref, refs, outs, dq
+    other_delta = fa.row_delta(do, o, dlse)
+
+    def other_dq():
+        dq = torch.empty_like(q)
+        if takes_o:
+            other_call("tddl_flash_bwd_dq_full", q, k, v, do, o, lse, dlse,
+                       torch.empty_like(delta), dq)
+        else:
+            other_call("tddl_flash_bwd_dq_full", q, k, v, do, lse,
+                       other_delta, dq)
+        return dq
+
+    def other_dkv():
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        other_call("tddl_flash_bwd_dkv_full", q, k, v, do, lse, other_delta,
+                   dk, dv)
+        return dk, dv
 
     def this_pair():
-        dl = (do.float() * o.float()).sum(dim=-1)
-        return (fa.flash_attention_bwd_dq(q, k, v, do, lse, dl, False),
-                fa.flash_attention_bwd_dkv(q, k, v, do, lse, dl, False))
+        return fa._backward(q, k, v, o, lse, do, False, dlse)
 
     q4, k4, v4 = (a.view(1, bh, t, d).clone().requires_grad_()
                   for a in (q, k, v))
     out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=False)
     do4 = do.view(1, bh, t, d)
-    arms = {"this_fwd": lambda: fa.flash_attention_fwd(q, k, v, False),
-            "this_dq": lambda: fa.flash_attention_bwd_dq(*args, False),
-            "this_dkv": lambda: fa.flash_attention_bwd_dkv(*args, False),
+    arms = {"this_dq": lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, None, False, o, dlse),
+            "other_dq": other_dq,
+            "this_dkv": lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, False),
+            "other_dkv": other_dkv,
             "this_pair": this_pair,
+            "other_pair": lambda: other_full(q, k, v, do, o, lse, dlse),
+            "this_fwd": lambda: fa.flash_attention_fwd(q, k, v, False),
             "sdpa_fwd": lambda: F.scaled_dot_product_attention(
                 q4.detach(), k4.detach(), v4.detach(), is_causal=False),
             "sdpa_bwd": lambda: torch.autograd.grad(
                 out4, (q4, k4, v4), do4, retain_graph=True)}
+    order = [f"{b}_{kind}" for kind in ("dq", "dkv", "pair")
+             for b in ("this", "other", "other", "this")]
     record.update(ab.in_turns(
-        arms, ("this_fwd", "this_dq", "this_dkv", "this_pair", "sdpa_fwd",
-               "sdpa_bwd"), flush, reps,
-        launches={"this_fwd": 1, "this_dq": 1, "this_dkv": 1}))
+        arms, (*order, "this_fwd", "sdpa_fwd", "sdpa_bwd"), flush, reps,
+        launches={"this_dq": 1, "other_dq": 1, "this_dkv": 1,
+                  "other_dkv": 1, "this_pair": 2, "this_fwd": 1}))
+    # The host's enqueue: this build's whole pair through the wrappers,
+    # beside the Delta - dlse reduction alone, which it no longer runs.
+    record["this_pair_host_us"] = ab.host_us(this_pair)
+    record["delta_reduction_host_us"] = ab.host_us(
+        lambda: fa.row_delta(do, o, dlse))
+    record["this_pair_kernels"] = ab.kernel_names(this_pair, flush)
+    record["this_pair_two_kernels"] = (
+        len(record["this_pair_kernels"]) == 2
+        and all("flash_" in n for n in record["this_pair_kernels"]))
+    record["sdpa_bwd_kernels"] = ab.kernel_names(arms["sdpa_bwd"], flush)
     best = {name: min(record[f"{name}_device_ms"]) for name in arms}
     record["this_fwd_over_sdpa_fwd"] = best["this_fwd"] / best["sdpa_fwd"]
-    record["this_pair_over_sdpa_bwd"] = best["this_pair"] / best["sdpa_bwd"]
-    flops = 2 * bh * d * t * t * 2
-    record["this_fwd_device_tflops"] = flops / (best["this_fwd"] * 1e-3) \
+    for build in ("this", "other"):
+        record[f"{build}_pair_over_sdpa_bwd"] = (
+            best[f"{build}_pair"] / best["sdpa_bwd"])
+    for kind in ("dq", "dkv", "pair"):
+        record[f"other_over_this_{kind}"] = (best[f"other_{kind}"]
+                                             / best[f"this_{kind}"])
+    flops = 2 * bh * d * t * t
+    record["this_fwd_device_tflops"] = 2 * flops / (best["this_fwd"] * 1e-3) \
         / 1e12
+    record["this_dq_device_tflops"] = 3 * flops / (best["this_dq"] * 1e-3) \
+        / 1e12
+    record["this_dkv_device_tflops"] = 4 * flops / (
+        best["this_dkv"] * 1e-3) / 1e12
     return record
 
 
