@@ -438,12 +438,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ledger and verdict store is an explicit path under the phase's temporary
    root, whatever the environment names.
 
-The line before the last two is the ``kernels`` summary, then the card's
-``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
+The public names the port serves as the JAX package does are checked
+inside the phases above, on the card, at no launch: the serve engine's
+``attn_kernel_path`` ("kernel", and its summary's key), ``paged_pool_blocks``
+and ``PagedKV.bytes_per_block`` on its bf16 pool and on the spec drive's
+int8 pool, the stripe engine's path ("plain"), and after the attacked train
+run ``TrustManager.select_best_nodes`` against ``trust.state.
+select_best_nodes`` on the card's state (node 2 excluded), the trainer's
+``GradientVerifier`` over one node's CUDA gradients of GPT-2 small
+(accepted) and a NaN-poisoned copy (refused), and ``export_trust_data``
+read back with node 2 "compromised".  They print as one ``names {...}``
+line before the ``kernels`` summary.
+
+The last three lines are the ``kernels`` summary, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -741,6 +754,37 @@ FORCED_STORM_DECODE = 3
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: What the phases checked of the public names (printed as ``names``).
+NAMES = {}
+
+
+def check_pool_names(torch, engine, what):
+    """``paged_pool_blocks`` sizes the engine's paged pool back from its
+    bytes, and ``bytes_per_block`` tiles them, trash block included."""
+    from trustworthy_dl_tpu_torch.serve.kv_slots import paged_pool_blocks
+
+    kv = engine.scheduler.kv
+    blocks = paged_pool_blocks(engine.cfg, kv.pool_bytes, kv.block_size,
+                               torch.int8 if kv.quantized else None)
+    if blocks != kv.num_blocks or \
+            kv.bytes_per_block * (kv.num_blocks + 1) != kv.pool_bytes:
+        raise AssertionError(
+            f"{what}: paged_pool_blocks {blocks}, pool of {kv.num_blocks} "
+            f"blocks, {kv.bytes_per_block} bytes a block, {kv.pool_bytes} "
+            "bytes")
+    return {"num_blocks": kv.num_blocks, "pool_bytes": kv.pool_bytes,
+            "bytes_per_block": kv.bytes_per_block,
+            "paged_pool_blocks": blocks}
+
+
+def check_attn_path(engine, summary, want, what):
+    if not engine.attn_kernel_path == summary["attn_kernel_path"] == want:
+        raise AssertionError(
+            f"{what}: attn_kernel_path {engine.attn_kernel_path}, summary "
+            f"{summary['attn_kernel_path']}, want {want}")
+    return want
 
 
 def one_card() -> str:
@@ -1435,6 +1479,10 @@ def serve_drive(torch, pa, entries, card):
         raise AssertionError(f"kernels off this path launched: {counts}")
     summary = engine.metrics_summary()
     check_completed(results, requests)
+    NAMES["serve"] = {
+        "attn_kernel_path": check_attn_path(engine, summary, "kernel",
+                                            "serve"),
+        **check_pool_names(torch, engine, "serve")}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
     if launches["paged_attention"] != cfg.n_layer * summary["decode_ticks"]:
@@ -1564,6 +1612,7 @@ def serve_tiers_drive(torch, entries, card):
         raise AssertionError(f"int8 pool not kept ({engine.kv_fallback_reason}"
                              f"); probe report {probe}")
     check_completed(results, requests)
+    NAMES["serve_int8_pool"] = check_pool_names(torch, engine, "serve_spec")
     sched = engine.scheduler
     if sched._spec_claims or sched.blocks_in_use != len(sched.prefix):
         raise AssertionError("speculative claims or blocks leaked")
@@ -1860,6 +1909,8 @@ def serve_stripe_drive(torch, entries, card, base_results, tier_results):
         if s["layout"] != "stripe" or s["local_prefills"] != len(requests):
             raise AssertionError(f"{phase}: {s['layout']} engine, "
                                  f"{s['local_prefills']} prefills")
+        NAMES.setdefault("serve_stripe", {})[tier] = check_attn_path(
+            engine, s, "plain", phase)
         forwards = s["local_prefills"] + s["decode_ticks"]
         want = {"logit_trust_stats": forwards}
         if tier == "int8":
@@ -3390,6 +3441,7 @@ def train_drive(torch, entries, card):
     if [r["node_id"] for r in on.attack_history] != [2] or \
             on.attack_history[0]["attack_type"] != "gradient_poisoning":
         raise AssertionError(f"attack history {on.attack_history}")
+    NAMES["train"] = train_names(torch, on, loader)
 
     # A step's step_s is the wall since the previous step ended (batch
     # drawn and copied, step, host sync, record-keeping), so the timed
@@ -3424,6 +3476,60 @@ def train_drive(torch, entries, card):
                              for r in on.attack_history],
           "trust_last": on_hist[-1]["trust_scores"]})
     return on, loader
+
+
+def train_names(torch, on, loader):
+    """After the attacked run (its launches already read): the manager's
+    ``select_best_nodes`` against the state function on the card's trust
+    state, node 2 excluded; the trainer's ``GradientVerifier`` over one
+    node's gradients of GPT-2 small (two of its rows), computed on the card
+    through the full-attention model (no kernel wrapper), accepted, and a copy with
+    one NaN refused; ``export_trust_data`` read back."""
+    from trustworthy_dl_tpu_torch.models import gpt2
+    from trustworthy_dl_tpu_torch.trust import state as ts
+    from trustworthy_dl_tpu_torch.utils.tree import tree_leaves, \
+        tree_unflatten
+
+    best = on.trust_manager.select_best_nodes(TRAIN_NODES)
+    coords = ts.select_best_nodes(on.state.trust, TRAIN_NODES).tolist()
+    from_state = [on.node_map[c] for c in coords if c >= 0]
+    if best != from_state or 2 in best or not best:
+        raise AssertionError(f"select_best_nodes: manager {best}, state "
+                             f"{from_state}")
+    leaves = [p.detach().clone().requires_grad_()
+              for p in tree_leaves(on.state.params)]
+    cfg = dataclasses.replace(on.model.config, attn_impl="full")
+    node = {k: v[0, :2] for k, v in
+            on._node_batch(next(iter(loader))).items()}
+    loss = gpt2.loss_fn(tree_unflatten(on.state.params, leaves), node, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    values = sum(g.numel() for g in grads)
+    if grads[0].device.type != "cuda" or values < 124_000_000:
+        raise AssertionError(f"{values} gradient values on "
+                             f"{grads[0].device}")
+    verifier = on.gradient_verifier
+    t0 = time.perf_counter()
+    clean = verifier.verify_gradients(list(grads), node_id=0, step=0)
+    verify_s = time.perf_counter() - t0
+    poisoned = list(grads)
+    poisoned[0] = grads[0].clone()
+    poisoned[0].view(-1)[0] = float("nan")
+    refused = not verifier.verify_gradients(poisoned, node_id=0, step=1)
+    if not (clean and refused):
+        raise AssertionError(f"gradient verifier: clean {clean}, NaN copy "
+                             f"refused {refused}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trust.json")
+        on.trust_manager.export_trust_data(path)
+        with open(path) as f:
+            status = json.load(f)["node_status"]
+    if status["2"] != "compromised":
+        raise AssertionError(f"exported node status {status}")
+    del grads, poisoned, leaves, loss
+    torch.cuda.empty_cache()
+    return {"select_best_nodes": best, "verifier_values": values,
+            "verifier_clean": clean, "verifier_nan_refused": refused,
+            "verify_s": verify_s, "exported_status": status}
 
 
 def flash_vs_full(torch, on, loader, card):
@@ -7456,6 +7562,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     obs_drive(torch, entries, smi)
+    print("names " + json.dumps(NAMES), flush=True)
     emit({"kernels": list(entries.values())})
     print(nvidia_smi_line(card), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

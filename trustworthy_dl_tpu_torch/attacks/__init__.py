@@ -1,5 +1,10 @@
 """Attack injection for experiments (``adversarial``)."""
 
-from trustworthy_dl_tpu_torch.attacks.adversarial import (  # noqa: F401
-    AdversarialAttacker, AttackPlan, null_plan, plan_from_config)
-from trustworthy_dl_tpu_torch.core.config import AttackConfig  # noqa: F401
+from trustworthy_dl_tpu_torch.attacks.adversarial import ATTACK_KINDS, \
+    AdversarialAttacker, AttackPlan, null_plan, plan_from_config, \
+    poison_batch, poison_gradients
+from trustworthy_dl_tpu_torch.core.config import AttackConfig
+
+__all__ = ["ATTACK_KINDS", "AdversarialAttacker", "AttackConfig",
+           "AttackPlan", "null_plan", "plan_from_config", "poison_batch",
+           "poison_gradients"]

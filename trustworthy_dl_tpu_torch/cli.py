@@ -888,6 +888,11 @@ def build_train_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def build_parser() -> argparse.ArgumentParser:
+    """The parser of ``cli train`` (JAX's ``cli.build_parser``)."""
+    return build_train_parser()
+
+
 def train_main(argv: Optional[List[str]] = None,
                model_overrides: Optional[dict] = None) -> int:
     """Entry point of ``train``; ``model_overrides`` shrinks the model

@@ -399,6 +399,12 @@ class NodeConfig:
     device_id: int = 0
     model_partition: str = ""
     trust_score: float = 1.0
+    status: str = "trusted"
+
+    @property
+    def gpu_id(self) -> int:
+        """The reference's name for ``device_id``."""
+        return self.device_id
 
 
 @dataclass

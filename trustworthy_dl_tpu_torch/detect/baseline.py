@@ -19,6 +19,14 @@ class BaselineState(NamedTuple):
     ring: torch.Tensor   # f32 [n, K, S]
     count: torch.Tensor  # i64 [n], total writes per node
 
+    @property
+    def num_nodes(self) -> int:
+        return self.ring.shape[0]
+
+    @property
+    def window(self) -> int:
+        return self.ring.shape[1]
+
 
 def init_baseline_state(num_nodes: int, window: int, num_stats: int, *,
                         device: Any) -> BaselineState:

@@ -196,6 +196,23 @@ def anomaly_verdicts(current_stats: torch.Tensor, state: BaselineState,
                     score=score, z=z, evidence_mask=evidence)
 
 
+def push_then_detect(state: BaselineState, current_stats: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None,
+                     warmup: int = WARMUP,
+                     score_threshold: float = ANOMALY_SCORE
+                     ) -> Tuple[BaselineState, Verdicts]:
+    """The reference's order: push this step's stats, rebuild the baseline
+    over the window that now holds them, then score; a node ``mask``
+    skips is never an attack."""
+    state = bl.push_stats(state, current_stats, mask)
+    verdicts = anomaly_verdicts(current_stats, state, warmup,
+                                score_threshold)
+    if mask is not None:
+        verdicts = verdicts._replace(
+            is_attack=verdicts.is_attack & mask.bool())
+    return state, verdicts
+
+
 # ---------------------------------------------------------------------------
 # Host-facing API
 # ---------------------------------------------------------------------------
@@ -563,5 +580,5 @@ __all__ = [
     "ANOMALY_SCORE", "AttackDetectionResult", "AttackDetector", "AttackType",
     "BACKDOOR_KL", "BYZANTINE_SIMILARITY", "EVIDENCE_Z", "Verdicts", "WARMUP",
     "anomaly_verdicts", "attribute_attack", "classify_attack",
-    "classify_attack_dominant",
+    "classify_attack_dominant", "push_then_detect",
 ]

@@ -2,18 +2,20 @@
 fleet-level norm-surge alarm.
 
 Counterpart of ``trustworthy_dl_tpu/detect/verifier.py`` (the in-step
-functions and the host episode tracker).  Gradients are valid iff finite
-and their global L2 norm is not an extreme outlier against the node's own
-history (z in log space, widened for young baselines); the verdict is a
-pure read (:func:`norm_suspicions`) and absorption a separate step
-(:func:`absorb_norms`), so the caller absorbs by its final judgement.
+functions, the host episode tracker and the host :class:`GradientVerifier`).
+Gradients are valid iff finite and their global L2 norm is not an extreme
+outlier against the node's own history (z in log space, widened for young
+baselines); the verdict is a pure read (:func:`norm_suspicions`) and
+absorption a separate step (:func:`absorb_norms`), so the caller absorbs by
+its final judgement.  :func:`verify_gradients_array` composes the two.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 logger = logging.getLogger(__name__)
@@ -80,6 +82,81 @@ def absorb_norms(state: VerifierState, grad_norms: torch.Tensor,
     return VerifierState(count=new_count, mean=new_mean, m2=new_m2)
 
 
+def verify_gradients_array(
+        state: VerifierState, grad_norms: torch.Tensor,
+        all_finite: torch.Tensor, norm_z_threshold: float = DEFAULT_NORM_Z,
+        warmup: int = DEFAULT_WARMUP,
+        update_mask: Optional[torch.Tensor] = None
+) -> Tuple[VerifierState, torch.Tensor, torch.Tensor]:
+    """One-shot verify-and-absorb: ``grad_norms`` f32 [n] (each node's
+    global L2 norm), ``all_finite`` bool [n].  Returns (new state, valid
+    bool [n], norm_suspect bool [n]) with ``valid = finite & ~suspect &
+    update_mask`` (the mask defaults to all-true); the baseline absorbs
+    exactly the valid samples, so a poisoned norm never enters its own
+    baseline."""
+    if update_mask is None:
+        update_mask = torch.ones_like(all_finite, dtype=torch.bool)
+    suspect = norm_suspicions(state, grad_norms, norm_z_threshold, warmup)
+    valid = all_finite.bool() & ~suspect & update_mask.bool()
+    return absorb_norms(state, grad_norms, valid), valid, suspect
+
+
+def _host_f32(gradient: Any) -> np.ndarray:
+    """One gradient leaf as flat host f32 (a tensor on any device, or
+    anything ``np.asarray`` reads)."""
+    if isinstance(gradient, torch.Tensor):
+        gradient = gradient.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(gradient, np.float32).reshape(-1)
+
+
+class GradientVerifier:
+    """Host verifier with the reference's call signature
+    (``distributed_trainer.py:199-201``): one node's gradient leaves in,
+    a bool out.  The norm is computed on the host as JAX's is (numpy f32,
+    one ``sum(f * f)`` a leaf, summed as Python floats), so the verdicts
+    equal JAX's; the Welford state lives on ``device`` (default the
+    CPU)."""
+
+    def __init__(self, norm_z_threshold: float = DEFAULT_NORM_Z,
+                 warmup: int = DEFAULT_WARMUP, max_nodes: int = 256,
+                 device: Any = "cpu"):
+        self.norm_z_threshold = norm_z_threshold
+        self.warmup = warmup
+        self.device = torch.device(device)
+        self._state = init_verifier_state(max_nodes, self.device)
+        self._max_nodes = max_nodes
+
+    def _row(self, node_id: int, value: Any, dtype: torch.dtype
+             ) -> torch.Tensor:
+        row = torch.zeros(self._max_nodes, dtype=dtype, device=self.device)
+        row[node_id] = value
+        return row
+
+    def verify_gradients(self, gradients: Sequence[Any], node_id: int,
+                         step: int) -> bool:
+        if gradients is None or len(gradients) == 0:
+            return False
+        flats = [_host_f32(g) for g in gradients]
+        all_finite = all(bool(np.all(np.isfinite(f))) for f in flats)
+        norm = float(np.sqrt(sum(float(np.sum(f * f)) for f in flats)))
+        self._state, valid, _ = verify_gradients_array(
+            self._state, self._row(node_id, norm, torch.float32),
+            self._row(node_id, all_finite, torch.bool),
+            self.norm_z_threshold, self.warmup,
+            self._row(node_id, True, torch.bool))
+        ok = bool(valid[node_id])
+        if not ok:
+            logger.warning("Gradient verification failed for node %d at "
+                           "step %d", node_id, step)
+        return ok
+
+    def reset_node(self, node_id: int) -> None:
+        """Forget one node's history (a fresh warm-up)."""
+        row = torch.tensor([node_id], device=self.device)
+        self._state = VerifierState(
+            *(t.index_fill(0, row, 0) for t in self._state))
+
+
 def fleet_surge_update(state: VerifierState, median_norm: torch.Tensor,
                        raw_streak: torch.Tensor,
                        norm_z_threshold: float = DEFAULT_NORM_Z
@@ -141,6 +218,7 @@ class FleetEpisodeTracker:
 
 __all__ = [
     "DEFAULT_NORM_Z", "DEFAULT_WARMUP", "FLEET_LATCH_LIMIT", "FLEET_WARMUP",
-    "FleetEpisodeTracker", "VerifierState", "absorb_norms",
-    "fleet_surge_update", "init_verifier_state", "norm_suspicions",
+    "FleetEpisodeTracker", "GradientVerifier", "VerifierState",
+    "absorb_norms", "fleet_surge_update", "init_verifier_state",
+    "norm_suspicions", "verify_gradients_array",
 ]

@@ -53,9 +53,11 @@ import numpy as np
 import torch
 
 from trustworthy_dl_tpu_torch.core import sharding as shreg
-from trustworthy_dl_tpu_torch.core.mesh import Mesh, bind_mode_mesh, \
-    build_mesh
-from trustworthy_dl_tpu_torch.engine.state import MonitorState, TrainState
+from trustworthy_dl_tpu_torch.core.mesh import DATA_AXIS, Mesh, \
+    bind_mode_mesh, build_mesh
+from trustworthy_dl_tpu_torch.core.sharding import row_placer
+from trustworthy_dl_tpu_torch.engine.state import MonitorState, TrainState, \
+    fleet_scalar_fields
 from trustworthy_dl_tpu_torch.trust.state import METRIC_DEFAULTS, \
     NodeStatus
 from trustworthy_dl_tpu_torch.utils.tree import map_tree
@@ -138,23 +140,33 @@ def surviving_devices(mesh: Mesh, num_nodes: int, drop: Sequence[int]
 
 
 def migrate_state(state: TrainState, mesh: Mesh) -> TrainState:
-    """Place a (compacted or expanded) state onto ``mesh``: every tensor
-    to the mesh's device (``core.sharding.replicated_placer``; on one card
-    nothing moves, and a mesh of several devices is refused).  Which
-    leaves shard is the layout's business (:func:`_reapply_mode_shardings`
-    recomputes it), not the tensors'."""
+    """Place a (compacted or expanded) state onto ``mesh``, as JAX's
+    does: the per-node rows through ``core.sharding.row_placer``, the
+    params, optimizer state, fleet-alarm fields
+    (``engine.state.fleet_scalar_fields``) and canary replicated (on one
+    card both rules land on the card, so nothing moves; a mesh of
+    several devices is refused).  Which leaves shard is the layout's
+    business (:func:`_reapply_mode_shardings` recomputes it), not the
+    tensors'."""
+    n = int(state.prev_suspects.shape[0])
+    place_row = row_placer(mesh, DATA_AXIS, n)
     place = shreg.replicated_placer(mesh)
 
-    def move(value: Any) -> Any:
+    def move(value: Any, place: Any = place) -> Any:
         if isinstance(value, torch.Tensor):
             return place(value)
         if isinstance(value, tuple) and hasattr(value, "_fields"):
-            return type(value)(*(move(v) for v in value))
+            return type(value)(*(move(v, place) for v in value))
         if isinstance(value, (dict, list)):
             return map_tree(place, value)
         return value
 
-    return type(state)(*(move(v) for v in state))
+    per_node = {k: move(getattr(state, k), place_row)
+                for k in PER_NODE_FIELDS}
+    shared = {k: move(v) for k, v in dict(
+        params=state.params, opt_state=state.opt_state,
+        canary=state.canary, **fleet_scalar_fields(state)).items()}
+    return state._replace(**per_node, **shared)
 
 
 def _reapply_mode_shardings(trainer: Any) -> None:
@@ -396,4 +408,4 @@ def readmit_and_reshard(trainer: Any, node_ids: Sequence[int]
 __all__ = ["ELASTIC_MODES", "PER_NODE_FIELDS", "compact_train_state",
            "elastic_mesh_shape", "elastic_supported", "evict_and_reshard",
            "expand_train_state", "migrate_state", "node_device_group",
-           "readmit_and_reshard", "surviving_devices"]
+           "readmit_and_reshard", "row_placer", "surviving_devices"]

@@ -124,6 +124,15 @@ def init_train_state(rng: torch.Generator, params: Any, opt_state: OptState,
         canary=canary)
 
 
+def fleet_scalar_fields(state: TrainState) -> Dict[str, Any]:
+    """The fleet-alarm fields, which move like the scalars (replicated):
+    one definition for every site that places the state, so none drops a
+    new field."""
+    return {k: v for k, v in dict(
+        fleet_norm=state.fleet_norm,
+        fleet_raw_streak=state.fleet_raw_streak).items() if v is not None}
+
+
 def zero1_place_opt_state(opt_state: OptState, mesh: Any
                           ) -> Tuple[OptState, Dict[str, Any]]:
     """ZeRO-1 placement: (the optimizer state on the mesh, its specs),
@@ -139,5 +148,6 @@ def zero1_place_opt_state(opt_state: OptState, mesh: Any
     return OptState(placed["count"], placed["mu"], placed["nu"]), specs
 
 
-__all__ = ["MonitorState", "TrainState", "init_monitor_state",
-           "init_train_state", "update_monitor", "zero1_place_opt_state"]
+__all__ = ["MonitorState", "TrainState", "fleet_scalar_fields",
+           "init_monitor_state", "init_train_state", "update_monitor",
+           "zero1_place_opt_state"]

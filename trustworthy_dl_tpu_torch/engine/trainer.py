@@ -139,7 +139,8 @@ from trustworthy_dl_tpu_torch.detect.detector import AttackDetector, \
     AttackType
 from trustworthy_dl_tpu_torch.detect.stats import GRADIENT_STAT_NAMES, \
     NUM_TENSOR_STATS, TENSOR_STAT_NAMES
-from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker
+from trustworthy_dl_tpu_torch.detect.verifier import FleetEpisodeTracker, \
+    GradientVerifier
 from trustworthy_dl_tpu_torch.elastic.reassignment import \
     _check_hybrid_elastic, elastic_mesh_shape, elastic_supported, \
     evict_and_reshard, readmit_and_reshard
@@ -293,6 +294,9 @@ class DistributedTrainer:
             recovery_rate=config.trust_recovery_rate,
             alpha=config.trust_alpha)
         self.node_monitor = NodeMonitor()
+        # The reference's host verifier (JAX's trainer holds one too); the
+        # step verifies in its own state, this one serves callers.
+        self.gradient_verifier = GradientVerifier()
         # The host detector: the ML tier's battery histories and models,
         # and the detections counted against the attack plan's ground
         # truth (``detection_stats``).

@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from trustworthy_dl_tpu_torch.models import layers as L
 from trustworthy_dl_tpu_torch.ops import fused_ce
-from trustworthy_dl_tpu_torch.utils.tree import map_tree
+from trustworthy_dl_tpu_torch.utils.tree import map_tree, tree_leaves
 
 Params = Dict[str, Any]
 
@@ -81,16 +81,13 @@ def init_params(cfg: GPT2Config, generator: torch.Generator,
     from the JAX init's (another generator); tests that compare the two
     packages convert JAX weights with ``models.convert``."""
     d = cfg.n_embd
-    wte = torch.randn(cfg.vocab_size, d, generator=generator,
-                      device=device) * 0.02
-    wpe = torch.randn(cfg.n_positions, d, generator=generator,
-                      device=device) * 0.02
+    wte = L.embedding_init(generator, cfg.vocab_size, d, device)
+    wpe = L.embedding_init(generator, cfg.n_positions, d, device)
     return {
         "wte": wte,
         "wpe": wpe,
         "blocks": init_block_params(cfg, generator, device),
-        "ln_f": {"scale": torch.ones(d, device=device),
-                 "bias": torch.zeros(d, device=device)},
+        "ln_f": L.layernorm_init(d, device),
     }
 
 
@@ -431,3 +428,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     """Next-token cross entropy on {'input', 'target'} batches."""
     return loss_with_monitor(params, batch, cfg)[0]
 
+
+def num_params(params: Params) -> int:
+    """Elements in every tensor of a parameter tree."""
+    return sum(int(p.numel()) for p in tree_leaves(params))

@@ -25,8 +25,10 @@ import torch.nn.functional as F
 Params = Dict[str, torch.Tensor]
 
 
-def _normal(generator: torch.Generator, shape: Tuple[int, ...], scale: float,
-            device: Any) -> torch.Tensor:
+def uniform_scaling_init(generator: torch.Generator, shape: Tuple[int, ...],
+                         scale: float, device: Any = "cpu") -> torch.Tensor:
+    """normal(``scale``) f32 draws of ``shape`` from ``generator`` (JAX's
+    takes a key)."""
     return torch.randn(*shape, generator=generator, device=device) * scale
 
 
@@ -35,7 +37,8 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
     """normal(1 / sqrt(in_dim)) weights (or ``scale``), zero bias."""
     if scale is None:
         scale = 1.0 / math.sqrt(in_dim)
-    return {"w": _normal(generator, (in_dim, out_dim), scale, device),
+    return {"w": uniform_scaling_init(generator, (in_dim, out_dim), scale,
+                                      device),
             "b": torch.zeros(out_dim, device=device)}
 
 
@@ -44,6 +47,11 @@ def dense(params: Params, x: torch.Tensor,
     """``x @ w + b`` in ``dtype``: the bias is added in the compute dtype,
     after the product is rounded to it, as the JAX spelling does."""
     return x @ params["w"].to(dtype) + params["b"].to(dtype)
+
+
+def layernorm_init(dim: int, device: Any = "cpu") -> Params:
+    return {"scale": torch.ones(dim, device=device),
+            "bias": torch.zeros(dim, device=device)}
 
 
 def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5
@@ -82,8 +90,15 @@ def conv_init(generator: torch.Generator, kh: int, kw: int, cin: int,
               cout: int, device: Any = "cpu") -> Params:
     """He-normal [kh, kw, cin, cout] weights, zero bias."""
     scale = math.sqrt(2.0 / (kh * kw * cin))
-    return {"w": _normal(generator, (kh, kw, cin, cout), scale, device),
+    return {"w": uniform_scaling_init(generator, (kh, kw, cin, cout),
+                                      scale, device),
             "b": torch.zeros(cout, device=device)}
+
+
+def embedding_init(generator: torch.Generator, vocab: int, dim: int,
+                   device: Any = "cpu") -> torch.Tensor:
+    """normal(0.02) [vocab, dim] f32 embeddings."""
+    return uniform_scaling_init(generator, (vocab, dim), 0.02, device)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -35,6 +35,7 @@ from typing import Dict, Iterable, Iterator, Optional
 
 import torch
 
+from trustworthy_dl_tpu_torch._lazy import lazy_exports
 from trustworthy_dl_tpu_torch.utils import compile_cache
 from trustworthy_dl_tpu_torch.utils.compile_cache import note_compile
 
@@ -230,10 +231,22 @@ def launch_counts() -> Dict[str, int]:
     return out
 
 
+# The kernel wrappers JAX's ``ops`` serves at the package's path, resolved
+# at first access (their modules import this one).  ``flash_attention`` is
+# not among them: here that name is the submodule, whose
+# ``flash_attention`` is the wrapper.
+_WRAPPERS, __getattr__, __dir__ = lazy_exports(__name__, {
+    "ops.fused_stats": ("fused_moments",),
+    "ops.fused_dequant_matmul": ("dequant_matmul",),
+    "ops.paged_attention": ("adapter_delta", "fused_verify_tail",
+                            "logit_trust_stats", "paged_prefill_attention"),
+})
+
 __all__ = [
     "BUILD_DIR", "CSRC", "DTYPE_CODES", "SIGNATURES", "build",
     "check_launch", "count_kernel_flops",
     "kernel_library", "kernel_wrappers", "launch_counts", "library_path",
     "note_compile", "nvcc_path", "on_cuda",
     "reset_launch_counts", "stream_handle", "tally_flops",
+    *_WRAPPERS,
 ]

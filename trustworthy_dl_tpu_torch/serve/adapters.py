@@ -27,7 +27,8 @@ last request drains.  Adapter weights are materialised deterministically
 from the adapter id (:func:`materialize_adapter`), bit for bit the JAX
 package's draws.  As in JAX, every residency change is an
 ``adapter_swap`` trace event and the engine binds the pool's pages-in-use
-gauge and evictions counter.  Sharding specs are not ported yet.
+gauge and evictions counter.  The pool's partition specs
+(:func:`adapter_partition_specs`) replicate it, as the KV pool is.
 """
 
 from __future__ import annotations
@@ -79,6 +80,16 @@ def adapter_page_row(page_by_slot: Dict[int, int],
     for slot, page in page_by_slot.items():
         row[slot] = page
     return row
+
+
+def adapter_partition_specs() -> Tuple[Any, Any]:
+    """The partition specs of the pool's (a, b) tensors: replicated, so
+    every device of a replica serves every tenant, as with the KV pool.
+    Spelled only here (lint: adapter-locality), through the sharding
+    registry."""
+    from trustworthy_dl_tpu_torch.core import sharding as shreg
+
+    return shreg.replicated_spec(), shreg.replicated_spec()
 
 
 def _adapter_seed(name: str) -> int:
@@ -352,5 +363,5 @@ class AdapterPool:
 __all__ = [
     "DEFAULT_INIT_SCALE", "SITE_ATTN_OUT", "SITE_MLP", "ZERO_PAGE",
     "AdapterPool", "adapter_bytes_per_page", "adapter_page_row",
-    "adapter_pool_bytes", "materialize_adapter", "quantize_adapter",
+    "adapter_partition_specs", "adapter_pool_bytes", "materialize_adapter", "quantize_adapter",
 ]

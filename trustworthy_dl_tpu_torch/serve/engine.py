@@ -1261,6 +1261,16 @@ class ServingEngine:
         return self.scheduler.allocator.capacity
 
     @property
+    def attn_kernel_path(self) -> str:
+        """The decode program's path (``models.generate.ATTN_IMPLS``):
+        "kernel" (through the kernel wrappers: the hand-written kernels on
+        the card, their plain twins on CPU tensors) or "plain" (the
+        reference path, and always on the stripe pool).  JAX's "pallas"
+        and "interpret" are the port's "kernel", its "jnp" the port's
+        "plain"."""
+        return self.attn_kernel_paths["decode"]
+
+    @property
     def attn_kernel_paths(self) -> Dict[str, str]:
         """The serving-kernel path of each paged program
         (``PAGED_PROGRAMS``): the scheduler's ``attn_impl`` on the paged
@@ -1305,6 +1315,7 @@ class ServingEngine:
             "peak_active_requests": self.peak_active,
             "peak_tokens_in_flight": self.peak_tokens_in_flight,
             "layout": "paged" if self.paged else "stripe",
+            "attn_kernel_path": self.attn_kernel_path,
             "attn_kernel_paths": self.attn_kernel_paths,
         }
         if self.paged:

@@ -109,6 +109,11 @@ class PagedKV(NamedTuple):
             total += self.k_scale.nbytes + self.v_scale.nbytes
         return total
 
+    @property
+    def bytes_per_block(self) -> int:
+        """Device bytes of one block (values + scales)."""
+        return self.pool_bytes // (self.num_blocks + 1)
+
 
 def kv_bytes_per_token(cfg: gpt2.GPT2Config,
                        dtype: Optional[torch.dtype] = None) -> int:
@@ -127,6 +132,16 @@ def kv_bytes_per_slot(cfg: gpt2.GPT2Config, max_seq: int,
                       dtype: Optional[torch.dtype] = None) -> int:
     """Bytes one stripe slot costs: ``max_seq`` cached positions."""
     return max_seq * kv_bytes_per_token(cfg, dtype)
+
+
+def paged_pool_blocks(cfg: gpt2.GPT2Config, hbm_bytes: int, block_size: int,
+                      kv_dtype: Optional[torch.dtype] = None) -> int:
+    """The most usable blocks whose paged pool, the trash block included,
+    fits in ``hbm_bytes``: how an equal-memory comparison sizes a pool."""
+    if block_size < 1:
+        raise ValueError(f"block_size must be >= 1, got {block_size}")
+    per_block = block_size * kv_bytes_per_token(cfg, kv_dtype)
+    return max(int(hbm_bytes // per_block) - 1, 0)
 
 
 def init_slots(cfg: gpt2.GPT2Config, max_slots: int, max_seq: int,

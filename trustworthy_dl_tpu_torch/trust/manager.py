@@ -4,9 +4,10 @@ Counterpart of ``trustworthy_dl_tpu/trust/manager.py``.  The trust math
 lives only in ``trust/state.py``; this class holds one host (CPU)
 :class:`TrustState` and forwards every mutation to those functions, adding
 what belongs on the host: a wall-clock decay clock for standalone use,
-per-node history and attack logs, statistics, and the
-:meth:`sync_from_device` bridge through which the training step's state
-reaches the reports at epoch cadence.
+per-node history and attack logs, the :class:`TrustScore` and
+:class:`NodeMetrics` records, statistics, operator recommendations, the
+JSON export, and the :meth:`sync_from_device` bridge through which the
+training step's state reaches the reports at epoch cadence.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import logging
 import time
 from collections import defaultdict, deque
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -22,8 +24,37 @@ import torch
 from trustworthy_dl_tpu_torch.trust import state as ts
 from trustworthy_dl_tpu_torch.trust.state import METRIC_NAMES, NodeStatus, \
     TrustState
+from trustworthy_dl_tpu_torch.utils.io import atomic_write_json
 
 logger = logging.getLogger(__name__)
+
+#: The rows of the state that :meth:`TrustManager.initialize_node` resets
+#: (the attack count is kept, as JAX's does).
+_NODE_ROWS = ("scores", "status", "update_count", "last_updated",
+              "decay_rate", "recovery_rate", "metrics")
+
+
+@dataclass(frozen=True)
+class TrustScore:
+    """Read-only snapshot of one node's score row."""
+
+    value: float
+    last_updated: float
+    update_count: int
+    decay_rate: float = 0.01
+    recovery_rate: float = 0.005
+
+
+@dataclass(frozen=True)
+class NodeMetrics:
+    """Read-only snapshot of one node's metrics row."""
+
+    output_deviation: float = 0.0
+    gradient_consistency: float = 1.0
+    communication_latency: float = 0.0
+    resource_utilization: float = 0.0
+    error_rate: float = 0.0
+    uptime: float = 1.0
 
 
 class TrustManager:
@@ -72,13 +103,42 @@ class TrustManager:
         mask[node_id] = True
         return torch.from_numpy(mask)
 
+    def _snapshot_metrics(self, node_id: int) -> NodeMetrics:
+        row = self._state.metrics[node_id].tolist()
+        return NodeMetrics(**dict(zip(METRIC_NAMES, row)))
+
     # -- mutations --------------------------------------------------------
+
+    def initialize_node(self, node_id: int) -> None:
+        """(Re)set one node to the initial trust, status and metrics (its
+        attack count stays); an id past the node count grows the state."""
+        if node_id >= self.num_nodes:
+            self.grow_to(node_id + 1)
+            return
+        fresh = ts.init_trust_state(
+            1, trust_threshold=self.trust_threshold,
+            initial_trust=self.initial_trust,
+            decay_rate=self.default_decay_rate,
+            recovery_rate=self.default_recovery_rate, now=self._now())
+        rows = {}
+        for key in _NODE_ROWS:
+            row = getattr(self._state, key).clone()
+            row[node_id] = getattr(fresh, key)[0]
+            rows[key] = row
+        self._state = self._state._replace(**rows)
+
+    def reset_node_trust(self, node_id: int) -> None:
+        self.initialize_node(node_id)
+        logger.info("trust: node %d reset", node_id)
 
     def update_trust_score(self, node_id: int, output_deviation: float,
                            gradient_consistency: float,
                            **kwargs: float) -> None:
         """Standalone one-node update with wall-clock decay, through the
-        vectorised ``ts.update_trust`` and a one-hot mask."""
+        vectorised ``ts.update_trust`` and a one-hot mask; an unknown id
+        is initialised first."""
+        if node_id >= self.num_nodes:
+            self.initialize_node(node_id)
         st = self._state
         extra = st.metrics[:, 2:6].numpy().copy()
         for key, value in kwargs.items():
@@ -151,6 +211,19 @@ class TrustManager:
             return 0.0
         return float(self._state.scores[node_id])
 
+    def get_score_record(self, node_id: int) -> Optional[TrustScore]:
+        """One node's score row as a :class:`TrustScore` (None out of
+        range), ``last_updated`` re-based to absolute wall time."""
+        if not 0 <= node_id < self.num_nodes:
+            return None
+        s = self._state
+        return TrustScore(
+            value=float(s.scores[node_id]),
+            last_updated=float(s.last_updated[node_id]) + self._epoch0,
+            update_count=int(s.update_count[node_id]),
+            decay_rate=float(s.decay_rate[node_id]),
+            recovery_rate=float(s.recovery_rate[node_id]))
+
     def get_node_status(self, node_id: int) -> NodeStatus:
         if not 0 <= node_id < self.num_nodes:
             return NodeStatus.OFFLINE
@@ -173,6 +246,13 @@ class TrustManager:
         if not 0 <= node_id < self.num_nodes:
             return False
         return bool(ts.can_assign_task(self._state)[node_id])
+
+    def select_best_nodes(self, num_nodes: int) -> List[int]:
+        """The assignable nodes of highest trust, at most ``num_nodes``
+        (clamped to the node count, as the reference's slice is)."""
+        k = min(num_nodes, self.num_nodes)
+        return [i for i in ts.select_best_nodes(self._state, k).tolist()
+                if i >= 0]
 
     def calculate_system_trust(self) -> float:
         return float(ts.system_trust(self._state))
@@ -214,15 +294,57 @@ class TrustManager:
         history = list(self.trust_history.get(node_id, ()))
         return history[-limit:] if limit else history
 
+    def get_recommendations(self) -> List[str]:
+        """Operator hints derived from the current aggregate picture."""
+        out: List[str] = []
+        stats = self.get_trust_statistics()
+        compromised = self.get_compromised_nodes()
+        if compromised:
+            out.append(
+                f"nodes {sorted(compromised)} are compromised: keep them "
+                "gated (or evict with elastic_resharding) and initiate "
+                "recovery only after the incident is understood")
+        if stats.get("mean_trust", 1.0) < 0.6:
+            out.append("mean trust below 0.6: audit the flagged nodes "
+                       "before continuing")
+        if len(compromised) > self.num_nodes * 0.3:
+            out.append(">30% of nodes compromised: treat as coordinated "
+                       "attack, rotate keys/hosts")
+        if stats.get("total_attacks", 0) > 10:
+            out.append("attack log is long: tighten detector thresholds or "
+                       "enable ML detectors")
+        suspicious = self.get_suspicious_nodes()
+        if suspicious:
+            out.append(f"keep suspicious nodes {suspicious} under per-batch "
+                       "observation")
+        return out
+
+    def export_trust_data(self, filepath: str) -> None:
+        """The world-view as JSON (records, status labels, histories,
+        statistics), written atomically."""
+        n = self.num_nodes
+        payload = {
+            "trust_scores": {str(i): self.get_score_record(i).__dict__.copy()
+                             for i in range(n)},
+            "node_status": {str(i): self.get_node_status(i).label
+                            for i in range(n)},
+            "trust_history": {str(i): list(h)
+                              for i, h in self.trust_history.items()},
+            "attack_history": {str(i): a
+                               for i, a in self.attack_history.items()},
+            "statistics": self.get_trust_statistics(),
+        }
+        atomic_write_json(filepath, payload)
+        logger.info("trust: exported world-view to %s", filepath)
+
     # -- device bridge ----------------------------------------------------
 
     def _record_history(self, node_id: int,
                         wall_time: Optional[float] = None) -> None:
-        row = self._state.metrics[node_id].tolist()
         self.trust_history[node_id].append({
             "timestamp": wall_time if wall_time is not None else time.time(),
             "trust_score": self.get_trust_score(node_id),
-            "metrics": dict(zip(METRIC_NAMES, row)),
+            "metrics": self._snapshot_metrics(node_id).__dict__.copy(),
         })
 
     def to_device_state(self, device: torch.device | str,
@@ -266,4 +388,4 @@ class TrustManager:
             self._record_history(int(i), wall_time)
 
 
-__all__ = ["TrustManager"]
+__all__ = ["NodeMetrics", "TrustManager", "TrustScore"]

@@ -234,6 +234,19 @@ def contribution_weights(state: TrustState,
     return ok.float()
 
 
+def select_best_nodes(state: TrustState, k: int) -> torch.Tensor:
+    """i64 [k]: the k assignable nodes of highest trust, best first, -1
+    where fewer than k are assignable.  Equal scores keep the lower index
+    first (``jax.lax.top_k``'s order), through a stable sort."""
+    if not 0 <= k <= state.scores.shape[0]:
+        raise ValueError(f"k={k} outside [0, {state.scores.shape[0]}]")
+    score = torch.where(can_assign_task(state), state.scores,
+                        torch.full_like(state.scores, -torch.inf))
+    top, idx = torch.sort(score, descending=True, stable=True)
+    top, idx = top[:k], idx[:k]
+    return torch.where(top > -torch.inf, idx, torch.full_like(idx, -1))
+
+
 def system_trust(state: TrustState) -> torch.Tensor:
     """Self-weighted average of the scores."""
     s = state.scores
@@ -289,5 +302,5 @@ __all__ = [
     "can_assign_task", "contribution_weights", "init_trust_state",
     "initiate_recovery", "instantaneous_trust", "mark_compromised",
     "next_status", "predict_reliability", "probation_recovery",
-    "system_trust", "update_trust",
+    "select_best_nodes", "system_trust", "update_trust",
 ]
