@@ -3135,7 +3135,7 @@ FLASH_KERNELS = (
     # instances' names), tiles read, tiles written, lse-sized rows moved,
     # [t, t] x [t, d] products.  The non-causal dq also reads o and writes
     # the Delta rows it computes (flash_case adds the tile).
-    ("flash_attention_fwd", "flash_fwd_kernel", 3, 1, 1, 2),
+    ("flash_attention_fwd", "flash_fwd_", 3, 1, 1, 2),
     ("flash_attention_bwd_dq", "flash_dq_", 4, 1, 2, 3),
     ("flash_attention_bwd_dkv", "flash_dkv_", 4, 2, 2, 4))
 
@@ -3246,6 +3246,8 @@ def flash_case(torch, bh, t, d, causal, flush, gen, what):
     fwd["lse_max_abs_err"] = lse_err
     fwd["tflops"] = flash_work(bh, t, d, 2, causal) / (fwd["ms"] * 1e-3) \
         / 1e12
+    fwd["device_tflops"] = flash_work(bh, t, d, 2, causal) / (
+        fwd["device_ms"] * 1e-3) / 1e12
     return cases
 
 
@@ -3361,7 +3363,7 @@ def check_train_kernels(torch, entries):
         q4, k4, v4 = (a.view(1, c_bh, t, c_d) for a in (q, k, v))
         c_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), flush)
         c_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v),
-                          flush, "flash_fwd_kernel")
+                          flush, "flash_fwd_")
         c_bound, c_by = bound_entry(4 * c_bh * t * c_d * 2 + c_bh * t * 4,
                                     flash_work(c_bh, t, c_d, 2), "bfloat16")
         fwd["cases"].append({

@@ -5,8 +5,10 @@ dequant matmul; B1 moment battery, also at ResNet-101's 3,344-segment
 gradient mix in 27 launches; B2/B3 flash attention
 forward and backward, causal and not (the non-causal instances also
 through ``flash_chunk`` with an lse cotangent, and ring attention over
-four positions of the card with its chunk launches counted); B3, B7 and
-B8 also run twice for the same bits;
+four positions of the card with its chunk launches counted; the
+non-causal forward also with keys scaled by their index, and its kernel
+named by the profiler: wgmma at D = 64 and 128); B2, B3, B7 and B8 also
+run twice for the same bits;
 B7 at odd V, one column and duplicated maxima across its CTAs' shares;
 B8 100 times over poisoned scratch and on two streams at once)
 against their plain PyTorch twins, on the card, the detector baseline's
@@ -245,10 +247,12 @@ def test_moments_kernel_at_resnet101_segment_mix(cuda):
     assert torch.equal(got[:, exact], ref[:, exact])
 
 
-def _flash_inputs(device, bh, t, d, seed):
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(bh, t, d, device=device, generator=gen).to(
-        torch.bfloat16) for _ in range(4)]
+def _flash_inputs(device, bh, t, d, seed, rising=False):
+    """q, k, v, dO bf16 [bh, t, d] from a seed; ``rising`` scales key row s
+    by 1 + s / 64 (``utils/flash_ab.flash_inputs``)."""
+    from trustworthy_dl_tpu_torch.utils.flash_ab import flash_inputs
+
+    return flash_inputs(bh, t, d, seed, rising, device)
 
 
 @pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (2, 64, 32), (4, 192, 64),
@@ -310,6 +314,40 @@ def test_flash_backward_kernels_are_deterministic(cuda, bh, t, d, causal):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,t,d", [(4, 192, 64), (2, 1024, 128)])
+def test_flash_forward_kernels_are_deterministic(cuda, bh, t, d, causal):
+    """B2 takes no atomics and each CTA writes only its own rows: two
+    calls on the same inputs give the same bits of o and lse, causal and
+    not (the non-causal wgmma kernel at both widths)."""
+    q, k, v, _ = _flash_inputs(cuda, bh, t, d, 6)
+    first = fa.flash_attention_fwd(q, k, v, causal)
+    second = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,causal,wgmma", [(64, False, True),
+                                            (128, False, True),
+                                            (32, False, False),
+                                            (64, True, False),
+                                            (128, True, False)])
+def test_flash_forward_launches_its_instance(cuda, d, causal, wgmma):
+    """The forward's kernel is chosen by D and ``causal`` alone: the
+    non-causal entry at D = 64 and 128 launches ``flash_fwd_wgmma_kernel``,
+    at D = 32 the mma.sync instance, and the causal entry the mma.sync
+    instance at every D (profiler's kernel names, one kernel a call)."""
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
+
+    q, k, v, _ = _flash_inputs(cuda, 4, 256, d, 13)
+    names = kernel_ab.kernel_names(
+        lambda: fa.flash_attention_fwd(q, k, v, causal),
+        torch.empty(1024, dtype=torch.uint8, device=cuda))
+    assert len(names) == 1 and "flash_fwd_" in names[0], names
+    assert ("wgmma" in names[0]) == wgmma, names
+
+
 def test_flash_autograd_matches_full_attention(cuda):
     """Through the autograd Function: forward and gradients of a bf16
     [2, 3, 128, 32] attention against the model's full attention."""
@@ -330,16 +368,20 @@ def test_flash_autograd_matches_full_attention(cuda):
 
 
 @pytest.mark.parametrize("with_dlse", [False, True])
-@pytest.mark.parametrize("bh,t,d", [(3, 64, 16), (2, 64, 32), (4, 192, 64),
-                                    (2, 128, 128), (5, 320, 128),
-                                    (96, 256, 64), (96, 1024, 64)])
-def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d, with_dlse):
+@pytest.mark.parametrize("bh,t,d,rising", [
+    (3, 64, 16, False), (2, 64, 32, False), (4, 192, 64, False),
+    (2, 128, 128, False), (5, 320, 128, False), (96, 256, 64, False),
+    (96, 1024, 64, False), (4, 192, 64, True), (2, 192, 128, True)])
+def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d, rising,
+                                              with_dlse):
     """B2 and B3's non-causal instances (``causal=False``) against their
     plain twins, with the causal cases' tolerances; the dq kernel's own
     Delta (less an lse cotangent, or not) within 1e-5 + 1e-5 relative of
     the twin's f32 reduction (f32 sums of D products in another order);
-    each launch counted in ``launches`` and in ``launches_full``."""
-    q, k, v, do = _flash_inputs(cuda, bh, t, d, 8)
+    each launch counted in ``launches`` and in ``launches_full``.  The
+    ``rising`` cases scale the keys by their index (:func:`_flash_inputs`),
+    so the forward's running maximum moves on nearly every key tile."""
+    q, k, v, do = _flash_inputs(cuda, bh, t, d, 8, rising)
     gen = torch.Generator(device=cuda).manual_seed(12)
     dlse = 0.5 * torch.randn(bh, t, device=cuda, generator=gen) \
         if with_dlse else None
@@ -368,6 +410,30 @@ def test_non_causal_flash_kernels_match_plain(cuda, bh, t, d, with_dlse):
                                    rtol=2.0 ** -7)
     # Not the causal kernel: the first query row attends every key.
     assert float((o[:, 0].float() - v[:, 0].float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("bh,t,d", [(2, 1024, 64), (2, 1024, 128)])
+def test_non_causal_flash_forward_on_rising_scores(cuda, bh, t, d):
+    """The non-causal forward on keys scaled by their index at T = 1024:
+    the running max moves on nearly every one of the 16 key tiles, and at
+    the end a row's scores spread ~17x as wide as unit-normal ones, so a
+    few keys carry each row.  o against ``tiled_fwd_reference`` (the TPU
+    kernel's own order of roundings: P rounded against the running max)
+    within the smoke's tolerances, lse against the plain twin within 1e-3.
+    The plain twin rounds P against the row's final max instead; on rows
+    this peaked the two roundings of a dominant P differ by one bf16
+    step, which can exceed atol 2e-3 + rtol 2^-7 on its own
+    (``utils/flash_ab --rising`` holds both builds, the twin and the exact
+    f64 softmax against each other)."""
+    from trustworthy_dl_tpu_torch.utils.flash_ab import tiled_fwd_reference
+
+    q, k, v, _ = _flash_inputs(cuda, bh, t, d, 8, rising=True)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    ref = tiled_fwd_reference(q, k, v)
+    torch.testing.assert_close(o.double(), ref, atol=2e-3, rtol=2.0 ** -7)
+    torch.testing.assert_close(lse, fa.flash_fwd_plain(q, k, v, False)[1],
+                               atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("causal", [True, False])

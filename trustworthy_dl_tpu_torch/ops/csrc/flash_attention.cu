@@ -9,8 +9,8 @@
 // (the ring attention's chunks below the diagonal, and flash_chunk's).
 // Each kernel is a template over CAUSAL: the non-causal instance walks every
 // key tile (forward, dq) or every query tile (dk/dv) and masks nothing; at
-// D = 64 and 128 the non-causal backward is a pair of kernels of its own,
-// on wgmma (below).  Layout [BH, T, D] bf16, as the JAX wrapper merges
+// D = 64 and 128 the non-causal forward and backward are kernels of their
+// own, on wgmma (below).  Layout [BH, T, D] bf16, as the JAX wrapper merges
 // batch and heads.  The forward writes o (bf16) and the row logsumexp lse
 // (f32); the backward rebuilds P = exp(S - lse) from them.  The causal
 // backward takes Delta = sum(dO * O) per row from the caller (a plain
@@ -40,7 +40,10 @@
 // three; at [96, 1024, 64] the products do: 25.8 / 38.7 / 51.5 GFLOP, 26.1
 // / 39.1 / 52.1 us.  Its query tiles all walk the same number of key
 // tiles, so the forward's longest-first order has nothing to balance there
-// and is kept as it is.
+// and is kept as it is.  At D = 64 the forward's exponentials weigh as much
+// as its products (one ex2 a score on 16 SFU lanes an SM against 2 x 64
+// multiply-adds a score on the tensor cores), so they have to run under
+// the products, of another tile or another CTA.
 //
 // The forward (B2) is FlashAttention-2's shape, written out by hand:
 //   * one CTA of four warps per (64-row query tile, batch*head), query
@@ -100,23 +103,33 @@
 //     alone reads and write 16-byte coalesced rows.
 //   That is the causal pair, and the non-causal one at D = 16 and 32 (its
 //   dq adds Delta).
-// The non-causal pair at D = 64 and 128 (Wg below) runs its seven products
-// on wgmma, which alone reaches the card's full tensor-core rate.  The
-// C entry picks it by D, never by a failure; D = 16 and 32 stay on
+// The non-causal forward and pair at D = 64 and 128 (Wg below) run their
+// products on wgmma, which alone reaches the card's full tensor-core rate.
+// The C entry picks them by D, never by a failure; D = 16 and 32 stay on
 // mma.sync, as their 32- and 64-byte rows would need narrower swizzles
 // and no model of the port runs them.
 //   * one warpgroup (the CTA's four warps) owns a 64-row tile, so m64nNk16
-//     fits the grid as it was: dq per query tile, dk/dv per key tile;
+//     fits the grid as it was: the forward and dq per query tile, dk/dv
+//     per key tile;
 //   * every operand tile sits in shared memory in the 128-byte-swizzled
 //     layout wgmma reads (wgmma_sm90.cuh), written there by hand-swizzled
 //     16-byte cp.async copies; no tensor maps, so nothing is encoded on
 //     the host per launch;
-//   * the streamed tiles (K, V for dq; Q, dO and the lse and Delta rows
-//     for dk/dv) come through a ring tracked by cp.async groups, 3 stages
-//     (4 in D = 128's dk/dv): step i copies tile i + STAGES - 2 into the
-//     stage tile i - 2 used, whose products every warp has waited for
-//     before step i's barrier, so the next products issue without waiting
-//     on the last ones' stage;
+//   * the streamed tiles (K, V for the forward and dq; Q, dO and the lse
+//     and Delta rows for dk/dv) come through a ring tracked by cp.async
+//     groups, 3 stages (4 in D = 128's dk/dv): step i copies tile i +
+//     STAGES - 2 into the stage tile i - 2 used, whose products every warp
+//     has waited for before step i's barrier, so the next products issue
+//     without waiting on the last ones' stage (the forward's prologue
+//     copies all 3 stages' tiles at once);
+//   * forward: S_j = Q.K_j^T (m64n64, both K-major, Q from its swizzled
+//     tile) and O += P_{j-1}.V_{j-1} (m64nD, P's bf16 pairs as the register
+//     A operand, V MN-major) issue as two commit groups; the online
+//     softmax of S_j (flash_fwd_kernel's: quad shuffles, one FFMA and one
+//     ex2 a score, l over the unrounded P) runs on the accumulator while
+//     P_{j-1}.V_{j-1} is in flight, and only then is O rescaled and P_j
+//     packed, so no product in flight has its registers rewritten.  Its o
+//     and lse are bit for bit the mma.sync instance's (utils/flash_ab);
 //   * dq: S = Q.K^T and dP = dO.V^T as two commit groups of m64n64 with
 //     both operands K-major; P = exp2(.) as soon as S lands, while dP
 //     runs; dS = P o (dP - Delta) rounded to bf16 pairs is already the
@@ -130,9 +143,11 @@
 //   * the Delta prologue: two lanes a row over alternate 16-byte chunks of
 //     dO and o from global memory while the first tiles copy, one shuffle,
 //     then each lane takes its fragment rows' values by shuffle;
-//   * registers (ptxas, sm_90a, CUDA 12.8): dq 144 / 212 and dk/dv 167 /
-//     224 at D = 64 / 128, 0 spill bytes but for dk/dv's 16 at D = 64; the
-//     launch bounds ask for 3 CTAs an SM at D = 64 (dk/dv needs 189
+//   * registers (ptxas, sm_90a, CUDA 12.8): the forward 109 / 160, dq 144
+//     / 212 and dk/dv 167 / 224 at D = 64 / 128, 0 spill bytes but for
+//     dk/dv's 16 at D = 64; the forward's launch bounds ask for 3 CTAs an
+//     SM at D = 64 and 2 at D = 128 (Q and 3 stages: 57 and 113 KB), the
+//     pair's for 3 CTAs an SM at D = 64 (dk/dv needs 189
 //     registers unbounded; at 2 CTAs an SM it took 1.18x as long at the
 //     ring's chunk), 1 at D = 128 (the ring's 128-166 KB of shared
 //     memory).  D = 128's dk/dv shares its score registers
@@ -140,8 +155,15 @@
 //     its products: C7515), and at one CTA an SM needs its fourth stage:
 //     with three it took 1.6x as long (PERF.md has the designs tried,
 //     B3-nc).
-// TMA, a producer warp with setmaxnreg, and wgmma for the causal pair are
-// later work.
+//   On the H100 the forward at [96, 1024, 64] takes 1.08-1.15x SDPA's device
+//   time: with its softmax taken out it still takes 0.95x SDPA's whole
+//   forward, so the 64-row tile's products and copies bound it, not the
+//   SFU.  A 4-stage ring, Q in registers at 4 CTAs an SM, two warpgroups
+//   sharing each K/V tile, 128-key steps and, at D = 128, 2 stages all
+//   measured no faster (PERF.md and CHANGES.md, B2-nc).
+// Left for later: wgmma for the causal kernels (forward and backward), and
+// TMA with a producer warp (setmaxnreg) and mbarriers in place of the
+// CTA-wide barrier a tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -823,6 +845,12 @@ struct Wg {
                                      DKV_STAGES * 2 * Dims<D>::ROW_BYTES +
                                      1024;
   static constexpr int MIN_BLOCKS = D == 64 ? 3 : 1;  // CTAs an SM
+  // The forward: Q and the ring's (K, V).  3 stages keep 3 CTAs an SM at
+  // D = 64 and 2 at D = 128 (2 x 114,688 bytes with the base's and the
+  // runtime's 1 KB each: the SM's 228 KB).
+  static constexpr int FWD_STAGES = 3;
+  static constexpr size_t FWD_SMEM = (1 + 2 * FWD_STAGES) * TILE_BYTES + 1024;
+  static constexpr int FWD_MIN_BLOCKS = D == 64 ? 3 : 2;
 };
 
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -865,6 +893,197 @@ __device__ __forceinline__ void wg_rs(float (&acc)[D / 8][4],
     wgmma_sm90::rs_n64(acc, a, db, 1);
   else
     wgmma_sm90::rs_n128(acc, a, db, 1);
+}
+
+// ---------------------------------------------------------------------------
+// B2 at causal=False, D = 64 and 128: grid (T/64, BH).  Q fixed; K and V
+// through the ring, whose prologue copies the first FWD_STAGES tiles (so
+// at the ring's chunk, 4 key tiles, most are in flight from the start);
+// step j >= 2 then copies tile j + FWD_STAGES - 2 into the stage tile j - 2
+// used.  Per key tile j: S_j = Q.K_j^T (m64n64, K-major) and O +=
+// P_{j-1}.V_{j-1} (m64nD, P from registers, V read MN-major) issue as two
+// commit groups; the online softmax of S_j runs while P_{j-1}.V_{j-1} is
+// in flight, and O is rescaled, and P_j packed, once it has landed.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(THREADS, Wg<D>::FWD_MIN_BLOCKS)
+    flash_fwd_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           float* __restrict__ lse, int T, float scale_log2) {
+  namespace wg = wgmma_sm90;
+  using W = Wg<D>;
+  constexpr int S = W::FWD_STAGES;
+  constexpr uint32_t TB = W::TILE_BYTES;
+  constexpr uint32_t BB = W::BLOCK_BYTES;
+  constexpr int LD = Dims<D>::LDB;
+  constexpr float LN2 = 0.69314718055994531f;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* kv_s = smem + TB;  // stage s: K at 2s, V at 2s + 1
+
+  const int nk = T / TILE;
+  const int qi = blockIdx.x;
+  const size_t head = (size_t)blockIdx.y * T * D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c2 = (lane & 3) * 2;
+
+  auto copy_kv = [&](int kj) {  // one cp.async group, empty past the end
+    if (kj < nk) {
+      unsigned char* dst = kv_s + (kj % S) * 2 * TB;
+      copy_tile_sw128<D>(dst, k + head + (size_t)kj * TILE * D);
+      copy_tile_sw128<D>(dst + TB, v + head + (size_t)kj * TILE * D);
+    }
+    cp_async_commit();
+  };
+  copy_tile_sw128<D>(smem, q + head + (size_t)qi * TILE * D);
+#pragma unroll
+  for (int j = 0; j < S; ++j) copy_kv(j);  // Q rides in tile 0's group
+
+  // Group j holds tile j: S groups in the prologue, one a step from step 2.
+  auto tile_landed = [&](int kj) {
+    if (kj == 0)
+      cp_async_wait<S - 1>();
+    else if (kj == 1)
+      cp_async_wait<S - 2>();
+    else
+      cp_async_wait<S - 3>();
+    wg::fence_proxy_async();
+    __syncthreads();  // everyone's copies; tile kj - 2's products are done
+    if (kj >= 2) copy_kv(kj + S - 2);
+  };
+
+  const uint32_t q_a = smem_u32(smem);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float s[8][4];
+  uint32_t pf[4][4];  // P of the last tile as bf16 A-fragments
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max, scaled log2 units
+  float l0 = 0.f, l1 = 0.f;          // this lane's share of the row sums
+  float corr0, corr1;
+
+  auto scores = [&](int kj) {  // S = Q.K_kj^T, one commit group
+    const uint32_t k_a = smem_u32(kv_s + (kj % S) * 2 * TB);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg_ss<64>(s, wg::desc_kmajor(q_a, kk, BB), wg::desc_kmajor(k_a, kk, BB),
+                kk > 0);
+    wg::commit();
+  };
+  auto pv = [&](int kj) {  // O += P.V_kj, one commit group
+    const uint32_t v_a = smem_u32(kv_s + (kj % S) * 2 * TB + TB);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_rs<D>(acc, pf[kk], wg::desc_mnmajor(v_a, kk, BB));
+    wg::commit();
+  };
+  // The online softmax of S in place, as flash_fwd_kernel's: the running
+  // max takes S's (two quad shuffles a row), P = exp2(s * scale_log2 - m)
+  // with one FFMA and one ex2 each, l sums the unrounded P; corr is the
+  // factor of the rows' earlier sums (0 at the first tile: m starts at
+  // the finite NEG_INF).
+  auto softmax = [&]() {
+    float mx0 = s[0][0], mx1 = s[0][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(m0, mx0 * scale_log2);
+    mx1 = fmaxf(m1, mx1 * scale_log2);
+    corr0 = ex2(m0 - mx0);
+    corr1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= corr0;
+    l1 *= corr1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = ex2(fmaf(s[j][0], scale_log2, -mx0));
+      s[j][1] = ex2(fmaf(s[j][1], scale_log2, -mx0));
+      s[j][2] = ex2(fmaf(s[j][2], scale_log2, -mx1));
+      s[j][3] = ex2(fmaf(s[j][3], scale_log2, -mx1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+  };
+  // P's n8 tiles 2kk and 2kk + 1, rounded to bf16 pairs, are P.V's k16
+  // step kk.
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+    }
+  };
+
+  tile_landed(0);
+  wg::fence();
+  scores(0);
+  wg::wait<0>();
+  wg::fence_regs(s);
+  softmax();  // O is still 0: nothing to rescale
+  pack_p();
+  for (int kj = 1; kj < nk; ++kj) {
+    tile_landed(kj);
+    wg::fence();
+    scores(kj);
+    pv(kj - 1);
+    wg::wait<1>();  // S has landed; P.V may still run
+    wg::fence_regs(s);
+    softmax();
+    wg::wait<0>();  // P.V has landed: O and P's registers are free
+    wg::fence_regs(acc);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= corr0;
+      acc[n][1] *= corr0;
+      acc[n][2] *= corr1;
+      acc[n][3] *= corr1;
+    }
+    pack_p();
+  }
+  wg::fence();
+  pv(nk - 1);
+  wg::wait<0>();
+  wg::fence_regs(acc);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
+
+  // Epilogue: the Q tile and the ring, free once every warp's products
+  // are done, stage the bf16 rows for 16-byte coalesced stores.
+  __syncthreads();
+  bf16* stage = reinterpret_cast<bf16*>(smem) + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + n * 8 + c2) =
+        pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + n * 8 + c2) =
+        pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  __syncwarp();
+  store_staged<D>(o + head + (size_t)(qi * TILE + warp * 16) * D, stage,
+                  lane);
+  if ((lane & 3) == 0) {
+    float* lrow_out = lse + (size_t)blockIdx.y * T + qi * TILE + warp * 16;
+    lrow_out[g] = (m0 + log2f(l0)) * LN2;
+    lrow_out[g + 8] = (m1 + log2f(l1)) * LN2;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1182,16 +1401,24 @@ int launch(int which, const Ptrs& p, int BH, int T, cudaStream_t stream) {
   const bf16* dob = static_cast<const bf16*>(p.dout);
   const float* lse = static_cast<const float*>(p.lse);
   float* delta = static_cast<float*>(p.delta);
-  // Non-causal B3 at D = 64 and 128 runs on wgmma; at D = 16 and 32 (a
-  // product of K = 16 or 32, too short to feed wgmma) on mma.sync.
+  // Non-causal B2 and B3 at D = 64 and 128 run on wgmma; at D = 16 and 32
+  // (a product of K = 16 or 32, too short to feed wgmma) on mma.sync.
   constexpr bool WG = !CAUSAL && D >= 64;
   int err;
   if (which == 0) {
-    if ((err = prepare(flash_fwd_kernel<D, CAUSAL>, Dm::FWD_SMEM)))
-      return err;
-    flash_fwd_kernel<D, CAUSAL><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
-        qb, kb, vb, static_cast<bf16*>(p.out0), static_cast<float*>(p.out1),
-        T, scale * LOG2E);
+    if constexpr (WG) {
+      if ((err = prepare(flash_fwd_wgmma_kernel<D>, Wg<D>::FWD_SMEM)))
+        return err;
+      flash_fwd_wgmma_kernel<D><<<grid, THREADS, Wg<D>::FWD_SMEM, stream>>>(
+          qb, kb, vb, static_cast<bf16*>(p.out0),
+          static_cast<float*>(p.out1), T, scale * LOG2E);
+    } else {
+      if ((err = prepare(flash_fwd_kernel<D, CAUSAL>, Dm::FWD_SMEM)))
+        return err;
+      flash_fwd_kernel<D, CAUSAL><<<grid, THREADS, Dm::FWD_SMEM, stream>>>(
+          qb, kb, vb, static_cast<bf16*>(p.out0),
+          static_cast<float*>(p.out1), T, scale * LOG2E);
+    }
   } else if constexpr (WG) {
     if (which == 1) {
       if ((err = prepare(flash_dq_wgmma_kernel<D>, Wg<D>::DQ_SMEM)))

@@ -13,8 +13,9 @@ with ``chip_smoke.py``'s tolerances, then timed in turns (this, other,
 other, this) with the L2 flushed before each launch: the median of
 per-launch CUDA-event timings (``ms``, which also holds the host's
 dispatch whenever the card waits for it) and the profiler's device time
-of the kernel (``device_ms``), beside SDPA's on the same inputs.  One
-JSON line per shape.
+of the kernel (``device_ms``), beside SDPA's on the same inputs;
+``this_vs_other_max_abs``: the builds' largest difference in o and lse.
+One JSON line per shape.
 
 Then the backward, one JSON line per shape (``"pass": "bwd"``): both
 builds' ``tddl_flash_bwd_dq`` and ``tddl_flash_bwd_dkv`` held against
@@ -32,24 +33,40 @@ which backend torch picked).
 Then the non-causal instances (``causal=False``, the ring attention's
 chunks), one JSON line per shape (``"pass": "full"``) at the ring's chunk
 [96, 256, 64] and at the same three shapes, an A/B as well: both builds'
-``tddl_flash_bwd_dq_full`` and ``tddl_flash_bwd_dkv_full`` held against
-the twins at ``causal=False`` (``*_err_over_tolerance``;
-``this_vs_other_max_abs``, Delta included), then in turns (this, other,
-other, this) the dq kernel, the dk/dv kernel and the whole non-causal
+``tddl_flash_fwd_full`` held against ``flash_fwd_plain(causal=False)``
+(``*_fwd_err_over_tolerance`` of o, ``*_lse_max_abs_err``,
+``*_fwd_within_tolerance`` with the smoke's 1e-3 on lse), and both
+builds' ``tddl_flash_bwd_dq_full`` and ``tddl_flash_bwd_dkv_full``
+against the twins (``*_err_over_tolerance``; ``this_vs_other_max_abs``,
+o, lse and Delta included), then in turns (this, other, other, this) the
+forward, the dq kernel, the dk/dv kernel and the whole non-causal
 backward as ``FlashChunk.backward`` runs it under an lse cotangent
 (``*_pair``): this build's two launches, dq computing Delta, against the
 other's Delta - dlse reduction, dq and dk/dv.  An other build whose
 ``tddl_flash_bwd_dq_full`` still takes Delta (seven arrays, the parent's
 C signature, read off its source) gets the reduction; one that takes o
-and dlse computes Delta itself.  Beside them this build's
-``tddl_flash_fwd_full`` and SDPA's forward and whole backward with
-``is_causal=False``, and ``this_pair_kernels``: the profiler's names of
+and dlse computes Delta itself.  Beside them SDPA's forward and whole backward
+with ``is_causal=False``, the forward's bound (``fwd_bound_ms``: q, k, v
+read and o, lse written once at the card's 3.35 TB/s, or its two [T, T] x
+D products at 989 TFLOP/s, whichever is longer; ``fwd_bound_by``) and
+each build's forward TFLOP/s on device time; ``this_fwd_kernels`` and
+``other_fwd_kernels``: the profiler's names of the kernel each build's
+forward launches (the wgmma instance at D = 64 and 128, the mma.sync one
+at D = 32); ``this_pair_kernels``: the profiler's names of
 the kernels this build's pair launches (its two, and nothing else:
 ``this_pair_two_kernels``); the host's microseconds to enqueue this
 build's pair (``this_pair_host_us``) and the Delta - dlse reduction
 alone (``delta_reduction_host_us``).  Then the card's name and power
 limit.  About two minutes for the three passes, the other build's nvcc
-included.
+included.  ``--passes full`` (or any of ``causal``, ``bwd``, ``full``)
+runs only those passes: a variant of the checkout's own kernel, an edited
+copy of the source, against the checkout's.
+
+    python -m trustworthy_dl_tpu_torch.utils.flash_ab OTHER.cu --rising
+
+prints instead one JSON line per shape and seed (:func:`rising_record`):
+both builds' non-causal forward on keys scaled by their index, against
+the plain twin, the exact f64 softmax and :func:`tiled_fwd_reference`.
 
     python -m trustworthy_dl_tpu_torch.utils.flash_ab --f64
 
@@ -73,10 +90,13 @@ import numpy as np
 import torch
 
 SHAPES = ((96, 1024, 64), (96, 1024, 32), (48, 1024, 128))
+PASSES = ("causal", "bwd", "full")
 #: The non-causal pass's shapes: the ring's chunk, then SHAPES.
 FULL_SHAPES = ((96, 256, 64),) + SHAPES
 #: f32 ulps by which :func:`f64_record` moves P and dP at most.
 ULP_MOVES = (1, 4, 16)
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12
 
 
 def main(argv=None) -> int:
@@ -84,8 +104,14 @@ def main(argv=None) -> int:
     parser.add_argument("other", type=Path, nargs="?",
                         help="another flash_attention.cu")
     parser.add_argument("--reps", type=int, default=25)
+    parser.add_argument("--passes", nargs="+", choices=PASSES,
+                        default=list(PASSES),
+                        help="which passes to run (default: all three)")
     parser.add_argument("--f64", action="store_true",
                         help="only the dk record against f64 twins")
+    parser.add_argument("--rising", action="store_true",
+                        help="only the non-causal forward on keys scaled "
+                             "by their index, against three references")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_ab: needs a CUDA card", file=sys.stderr)
@@ -120,6 +146,12 @@ def main(argv=None) -> int:
                                   torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{args.other}: {entry}: CUDA error {err}")
+
+    if args.rising:
+        for record in rising_record(fa, other_call):
+            print(json.dumps(record), flush=True)
+        print(ab.card_line())
+        return 0
 
     def other_dq(q, k, v, do, lse, delta):
         dq = torch.empty_like(q)
@@ -156,20 +188,25 @@ def main(argv=None) -> int:
         return float((err / (2e-3 + 2.0 ** -7 * ref.float().abs())).max())
 
     gen = torch.Generator(device=dev).manual_seed(4)
-    for bh, t, d in SHAPES:
+    for bh, t, d in SHAPES if "causal" in args.passes else ():
         q, k, v = (torch.randn(bh, t, d, device=dev, generator=gen).to(
             torch.bfloat16) for _ in range(3))
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v)
         arms = {"this": lambda: fa.flash_attention_fwd(q, k, v),
                 "other": lambda: other_fwd(q, k, v)}
         record = {"bhtd": [bh, t, d]}
+        outs = {}
         for name, fn in arms.items():
-            o, lse = fn()
+            o, lse = outs[name] = fn()
             torch.cuda.synchronize()
             err = (o.float() - o_ref.float()).abs()
             record[f"{name}_within_tolerance"] = bool(
                 (err <= 2e-3 + 2.0 ** -7 * o_ref.float().abs()).all()
                 and float((lse - lse_ref).abs().max()) <= 1e-3)
+        record["this_vs_other_max_abs"] = {
+            n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(("o", "lse"), outs["this"], outs["other"])}
+        del outs
         q4, k4, v4 = (a.view(1, bh, t, d) for a in (q, k, v))
         arms["sdpa"] = lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True)
@@ -179,11 +216,11 @@ def main(argv=None) -> int:
         record["this_device_tflops"] = flops / (
             min(record["this_device_ms"]) * 1e-3) / 1e12
         print(json.dumps(record), flush=True)
-    for bh, t, d in SHAPES:
+    for bh, t, d in SHAPES if "bwd" in args.passes else ():
         print(json.dumps(backward_record(
             fa, ab, F, flush, args.reps, gen, bh, t, d, other_dq, other_dkv,
             worst)), flush=True)
-    for bh, t, d in FULL_SHAPES:
+    for bh, t, d in FULL_SHAPES if "full" in args.passes else ():
         print(json.dumps(full_record(
             fa, ab, F, flush, args.reps, gen, bh, t, d, worst, other_full,
             other_call, takes_o)), flush=True)
@@ -208,7 +245,15 @@ def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst, other_full,
     q, k, v, do = (torch.randn(bh, t, d, device=dev, generator=gen).to(
         torch.bfloat16) for _ in range(4))
     dlse = 0.5 * torch.randn(bh, t, device=dev, generator=gen)
+
+    def other_fwd():
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
+        other_call("tddl_flash_fwd_full", q, k, v, o, lse)
+        return o, lse
+
     o, lse = fa.flash_attention_fwd(q, k, v, False)
+    fwd = {"this": (o, lse), "other": other_fwd()}
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, False)
     refs = fa.flash_bwd_dq_plain(q, k, v, do, lse, None, False, o, dlse)
     refs = (*refs, *fa.flash_bwd_dkv_plain(q, k, v, do, lse, refs[1], False))
@@ -220,17 +265,23 @@ def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst, other_full,
     torch.cuda.synchronize()
     names = ("dq", "delta", "dk", "dv")
     record = {"pass": "full", "bhtd": [bh, t, d],
-              "other_computes_delta": takes_o,
-              "this_fwd_err_over_tolerance": worst(o, o_ref),
-              "this_lse_max_abs_err": float((lse - lse_ref).abs().max())}
+              "other_computes_delta": takes_o}
+    for build, (b_o, b_lse) in fwd.items():
+        ratio = worst(b_o, o_ref)
+        lse_err = float((b_lse - lse_ref).abs().max())
+        record[f"{build}_fwd_err_over_tolerance"] = ratio
+        record[f"{build}_lse_max_abs_err"] = lse_err
+        record[f"{build}_fwd_within_tolerance"] = ratio <= 1.0 \
+            and lse_err <= 1e-3
     for build, got in outs.items():
         ratios = {n: worst(a, b) for n, a, b in zip(names, got, refs)}
         record[f"{build}_err_over_tolerance"] = ratios
         record[f"{build}_within_tolerance"] = max(ratios.values()) <= 1.0
     record["this_vs_other_max_abs"] = {
         n: float((a.float() - b.float()).abs().max())
-        for n, a, b in zip(names, outs["this"], outs["other"])}
-    del o_ref, lse_ref, refs, outs, dq
+        for n, a, b in zip(("o", "lse", *names), (*fwd["this"], *outs["this"]),
+                           (*fwd["other"], *outs["other"]))}
+    del o_ref, lse_ref, refs, outs, dq, fwd
     other_delta = fa.row_delta(do, o, dlse)
 
     def other_dq():
@@ -265,16 +316,18 @@ def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst, other_full,
             "this_pair": this_pair,
             "other_pair": lambda: other_full(q, k, v, do, o, lse, dlse),
             "this_fwd": lambda: fa.flash_attention_fwd(q, k, v, False),
+            "other_fwd": other_fwd,
             "sdpa_fwd": lambda: F.scaled_dot_product_attention(
                 q4.detach(), k4.detach(), v4.detach(), is_causal=False),
             "sdpa_bwd": lambda: torch.autograd.grad(
                 out4, (q4, k4, v4), do4, retain_graph=True)}
-    order = [f"{b}_{kind}" for kind in ("dq", "dkv", "pair")
+    order = [f"{b}_{kind}" for kind in ("fwd", "dq", "dkv", "pair")
              for b in ("this", "other", "other", "this")]
     record.update(ab.in_turns(
-        arms, (*order, "this_fwd", "sdpa_fwd", "sdpa_bwd"), flush, reps,
-        launches={"this_dq": 1, "other_dq": 1, "this_dkv": 1,
-                  "other_dkv": 1, "this_pair": 2, "this_fwd": 1}))
+        arms, (*order, "sdpa_fwd", "sdpa_bwd"), flush, reps,
+        launches={"this_fwd": 1, "other_fwd": 1, "this_dq": 1,
+                  "other_dq": 1, "this_dkv": 1, "other_dkv": 1,
+                  "this_pair": 2}))
     # The host's enqueue: this build's whole pair through the wrappers,
     # beside the Delta - dlse reduction alone, which it no longer runs.
     record["this_pair_host_us"] = ab.host_us(this_pair)
@@ -285,17 +338,27 @@ def full_record(fa, ab, F, flush, reps, gen, bh, t, d, worst, other_full,
         len(record["this_pair_kernels"]) == 2
         and all("flash_" in n for n in record["this_pair_kernels"]))
     record["sdpa_bwd_kernels"] = ab.kernel_names(arms["sdpa_bwd"], flush)
-    best = {name: min(record[f"{name}_device_ms"]) for name in arms}
-    record["this_fwd_over_sdpa_fwd"] = best["this_fwd"] / best["sdpa_fwd"]
     for build in ("this", "other"):
+        record[f"{build}_fwd_kernels"] = ab.kernel_names(
+            arms[f"{build}_fwd"], flush)
+    best = {name: min(record[f"{name}_device_ms"]) for name in arms}
+    flops = 2 * bh * d * t * t
+    for build in ("this", "other"):
+        record[f"{build}_fwd_over_sdpa_fwd"] = (best[f"{build}_fwd"]
+                                                / best["sdpa_fwd"])
+        record[f"{build}_fwd_device_tflops"] = 2 * flops / (
+            best[f"{build}_fwd"] * 1e-3) / 1e12
         record[f"{build}_pair_over_sdpa_bwd"] = (
             best[f"{build}_pair"] / best["sdpa_bwd"])
-    for kind in ("dq", "dkv", "pair"):
+    for kind in ("fwd", "dq", "dkv", "pair"):
         record[f"other_over_this_{kind}"] = (best[f"other_{kind}"]
                                              / best[f"this_{kind}"])
-    flops = 2 * bh * d * t * t
-    record["this_fwd_device_tflops"] = 2 * flops / (best["this_fwd"] * 1e-3) \
-        / 1e12
+    # The forward's least time: q, k, v read and o, lse written once, or
+    # its two [T, T] x D products at the bf16 peak.
+    t_bytes = (4 * bh * t * d * 2 + bh * t * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * flops / BF16_FLOPS * 1e3
+    record["fwd_bound_ms"] = max(t_bytes, t_ops)
+    record["fwd_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     record["this_dq_device_tflops"] = 3 * flops / (best["this_dq"] * 1e-3) \
         / 1e12
     record["this_dkv_device_tflops"] = 4 * flops / (
@@ -372,6 +435,78 @@ def backward_record(fa, ab, F, flush, reps, gen, bh, t, d, other_dq,
     record["other_over_this_dq"] = best["other_dq"] / best["this_dq"]
     record["other_over_this_dkv"] = best["other_dkv"] / best["this_dkv"]
     return record
+
+
+def tiled_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The non-causal forward's o in f64 as the TPU kernel computes it:
+    over 64-key tiles, P = exp(s - m) against the running max m, rounded
+    to bf16 before P.V, l summed over the unrounded P."""
+    bh, t, d = q.shape
+    s = torch.einsum("btd,bsd->bts", q.double(), k.double()) / d ** 0.5
+    m = torch.full((bh, t, 1), -1e300, dtype=torch.float64, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(bh, t, d, dtype=torch.float64, device=q.device)
+    for j in range(0, t, 64):
+        sj = s[..., j:j + 64]
+        m_new = torch.maximum(m, sj.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sj - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bts,bsd->btd", p.to(torch.bfloat16).double(),
+            v[:, j:j + 64].double())
+        m = m_new
+    return acc / l
+
+
+def flash_inputs(bh, t, d, seed, rising=False, device="cuda"):
+    """q, k, v, dO bf16 [bh, t, d] from ``seed``; ``rising`` scales key row
+    s by 1 + s / 64, so the scores' spread grows along the key axis and
+    the running max moves on nearly every key tile."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, t, d, device=device, generator=gen)
+                   for _ in range(4))
+    if rising:
+        k = k * (1.0 + torch.arange(t, device=device) / 64.0)[:, None]
+    return [a.to(torch.bfloat16) for a in (q, k, v, do)]
+
+
+def rising_record(fa, other_call, shapes=((2, 1024, 128), (2, 1024, 64),
+                                          (4, 192, 64)),
+                  seeds=range(8, 14)):
+    """For each shape and seed, both builds' ``tddl_flash_fwd_full`` on
+    :func:`flash_inputs` with ``rising`` (as the card tests draw them):
+    each o's largest error over the card tolerance (atol 2e-3 + rtol
+    2^-7) against the plain twin, the exact f64 softmax and
+    :func:`tiled_fwd_reference`, the twin's own against the last two,
+    and the builds' largest difference."""
+    for bh, t, d in shapes:
+        for seed in seeds:
+            q, k, v, _ = flash_inputs(bh, t, d, seed, rising=True)
+            other = torch.empty_like(q)
+            other_lse = torch.empty(q.shape[:2], dtype=torch.float32,
+                                    device=q.device)
+            other_call("tddl_flash_fwd_full", q, k, v, other, other_lse)
+            outs = {"this": fa.flash_attention_fwd(q, k, v, False)[0],
+                    "other": other,
+                    "twin": fa.flash_fwd_plain(q, k, v, False)[0]}
+            s = torch.einsum("btd,bsd->bts", q.double(), k.double()) \
+                / d ** 0.5
+            refs = {"twin": outs["twin"].double(),
+                    "exact": torch.einsum("bts,bsd->btd", torch.softmax(
+                        s, -1), v.double()),
+                    "tiled": tiled_fwd_reference(q, k, v)}
+            del s
+            record = {"bhtd": [bh, t, d], "seed": seed}
+            for name, got in outs.items():
+                record[name] = {
+                    f"vs_{r}": float(((got.double() - ref).abs() / (
+                        2e-3 + 2.0 ** -7 * ref.abs())).max())
+                    for r, ref in refs.items() if r != name}
+            record["this_vs_other_max_abs"] = float(
+                (outs["this"].float() - other.float()).abs().max())
+            yield record
 
 
 def f64_record(shape=(48, 1024, 128), perturbations: int = 8) -> dict:
