@@ -154,8 +154,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (gate: every step's ``moe_drop_fraction`` >= 0.5, which E C = S k / 2
    forces), each run with the launch counters set to 0 just before and
    read just after.  Gates: the train phase's gating of node 2, finite
-   losses, B1-B3 exactly as the steps make them (B1 at most 128 segments a
-   launch: 4 x 17 gradient segments and 4 feature segments a step).  Then
+   losses, B1-B3 exactly as the steps make them (B1 at most ``MAX_SEGMENTS``
+   segments a launch: 4 x 17 gradient segments and 4 feature segments a
+   step).  Then
    B1 over the MoE step's 68-segment gradient battery (2.08e9 values)
    against its plain twin, timed with its bound and library calls.  Step
    ms, tokens/s, peak memory and each step's drop fraction.
@@ -333,8 +334,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    finite; ``resnet32_cifar10_clean`` 52 steps, no node flagged, and,
    where scikit-learn imports, ``ml_flags`` for all 8 nodes after the
    second epoch's refit (else 26 steps and the tier off, nothing fed:
-   JAX's gate, and the line says so).  B1 launched exactly ceil(8 L / 128) + 1 times a
-   step for L leaves (28 for ResNet-101, 5 for VGG-16, 10 for ResNet-32),
+   JAX's gate, and the line says so).  B1 launched exactly ceil(8 L /
+   MAX_SEGMENTS) + 1 times a step for L leaves (3 for ResNet-101's 418, 2
+   for VGG-16 and ResNet-32 at MAX_SEGMENTS = 2,000),
    no other kernel; B1 at each drive's gradient mix against its plain
    twin, timed (ResNet-101's with the twin, bound and library calls);
    each drive's step ms, samples/s, peak memory, the host's
@@ -3255,8 +3257,10 @@ def moments_case(torch, segs, flush):
     """B1 over ``segs`` against its plain twin (the sums within
     MOMENT_RTOL of each segment's magnitudes, the extrema exact), timed
     beside its bound and the fewest PyTorch reductions that give the
-    eight sums."""
+    eight sums: CUDA events, and the profiler's ``device_ms`` of the
+    call's device work (the ticket memset and the kernel)."""
     from trustworthy_dl_tpu_torch.ops import fused_stats as fs
+    from trustworthy_dl_tpu_torch.utils import kernel_ab
 
     got = fs.fused_moments(segs)
     torch.cuda.synchronize()
@@ -3288,6 +3292,8 @@ def moments_case(torch, segs, flush):
     return {"max_abs_err": float(sum_err.max()),
             "ms": time_ms(torch, lambda: fs.fused_moments(segs), flush,
                           reps=10),
+            "device_ms": kernel_ab.device_ms(lambda: fs.fused_moments(segs),
+                                             flush, 10),
             "plain_ms": time_ms(torch, lambda: fs.fused_moments_plain(segs),
                                 flush, reps=5),
             "bound_ms": bound_ms, "bound_by": bound_by,

@@ -94,6 +94,96 @@ def test_moments_of_many_segments_in_one_call():
         _check_moments(row, ref, x)
 
 
+@pytest.mark.parametrize("seed", range(8))
+def test_moments_nan_flag_is_sum_of_squares(seed):
+    """The kernel's fold puts NaN back into min, max and max|x| where sum
+    x^2 is NaN: over random mixes of NaN, +-inf and finite values whose
+    x^2 and x^4 overflow, the twin's and JAX's ``_xla_moments``' s2 is NaN
+    exactly when the segment holds a NaN (s3 may turn NaN from +inf and
+    -inf alone), and their min, max and max|x| agree."""
+    from trustworthy_dl_tpu.ops.fused_stats import _xla_moments
+
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(12):
+        n = int(rng.integers(1, 40))
+        x = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 25, n)
+             ).astype(np.float32)
+        picks = rng.random(n)
+        x[picks < 0.1] = np.nan
+        x[(picks >= 0.1) & (picks < 0.2)] = np.inf
+        x[(picks >= 0.2) & (picks < 0.3)] = -np.inf
+        has_nan = bool(np.isnan(x).any())
+        got = fs.fused_moments([torch.from_numpy(x)])[0].numpy()
+        ref = np.array([float(v) for v in _xla_moments(jnp.asarray(x))])
+        assert bool(np.isnan(got[fs.S2])) == has_nan
+        assert bool(np.isnan(ref[fs.S2])) == has_nan
+        for col in (fs.MIN, fs.MAX, fs.LINF):
+            assert bool(np.isnan(got[col])) == has_nan
+            np.testing.assert_array_equal(got[col], ref[col])
+
+
+def test_moments_split_past_one_launch_matches_jax():
+    """``engine.step._moments`` over more than ``MAX_SEGMENTS`` segments
+    (two launches' worth on the card, empty and one-value segments among
+    them) is row for row the twin over all of them, and within the file's
+    tolerances of JAX's ``fused_moments(interpret=True)``."""
+    from trustworthy_dl_tpu_torch.engine.step import _moments
+
+    rng = np.random.default_rng(21)
+    sizes = rng.integers(0, 70, fs.MAX_SEGMENTS + 37)
+    sizes[[0, fs.MAX_SEGMENTS - 1, fs.MAX_SEGMENTS]] = (0, 1, 66_000)
+    xs = [(rng.standard_normal(int(n)) * 0.05).astype(np.float32)
+          for n in sizes]
+    segs = [torch.from_numpy(x) for x in xs]
+    got = _moments(segs)
+    assert got.shape == (len(xs), 8)
+    np.testing.assert_array_equal(got.numpy(),
+                                  fs.fused_moments_plain(segs).numpy())
+    empty = [0, 0, 0, 0, np.inf, -np.inf, 0, 0]
+    for row, x in zip(got.numpy(), xs):
+        if x.size == 0:
+            np.testing.assert_array_equal(row, empty)
+            continue
+        ref = np.array([float(v) for v in jfused(jnp.asarray(x),
+                                                 interpret=True)])
+        _check_moments(row, ref, x)
+
+
+def test_moments_ab_helpers():
+    """``utils/moments_ab``'s reading of a variant, its loading of another
+    checkout's wrapper, its split, and its bound."""
+    from pathlib import Path
+
+    from trustworthy_dl_tpu_torch.utils import moments_ab as mab
+
+    source = (Path(fs.__file__).parent / "csrc" / "fused_stats.cu"
+              ).read_text()
+    assert mab.parse_variant("DIAG=2") == 2
+    assert "TDDL_B1_DIAG" in source
+    for spec in ("LOADS=2", "CHUNK=65536", "DIAG=x"):
+        with pytest.raises(ValueError):
+            mab.parse_variant(spec)
+    # This checkout as the other: its wrapper, loaded apart, keeps its cap
+    # and runs the twin on CPU tensors without touching the library.
+    other = mab.other_wrapper(Path(fs.__file__).parents[2], lib=None)
+    assert other is not fs and other.MAX_SEGMENTS == fs.MAX_SEGMENTS
+    assert other.kernel_library("fused_stats") is None
+    segs = [torch.linspace(-1.0, 1.0, 9), torch.zeros(0)]
+    np.testing.assert_array_equal(other.fused_moments(segs).numpy(),
+                                  fs.fused_moments_plain(segs).numpy())
+    calls = []
+    segs = [torch.full((i + 1,), float(i)) for i in range(5)]
+    out = mab.split(lambda part: calls.append(len(part)) or
+                    fs.fused_moments(part), segs, 2)
+    assert calls == [2, 2, 1]
+    np.testing.assert_array_equal(out.numpy(),
+                                  fs.fused_moments_plain(segs).numpy())
+    ms, by = mab.bound_ms([torch.zeros(1000), torch.zeros(24)])
+    assert by == "bytes"
+    assert ms == pytest.approx((1024 * 4 + 2 * 32) / mab.HBM_BYTES_PER_S
+                               * 1e3)
+
+
 def test_leafwise_battery_matches_jax():
     rng = np.random.default_rng(11)
     leaves = [(rng.standard_normal(n) * s).astype(np.float32)

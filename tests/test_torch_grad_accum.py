@@ -242,9 +242,11 @@ def test_accum_ragged_batch_trimmed():
 
 
 def test_feature_segments_past_one_launch_split(monkeypatch):
-    """2 nodes x 65 microbatches = 130 feature segments, past B1's 128 a
-    launch: the step splits them over launches of at most
-    ``MAX_SEGMENTS`` (128, then 2) and trains."""
+    """2 nodes x 65 microbatches = 130 feature segments, past a cap of 128
+    a launch: the step splits them over launches of at most
+    ``MAX_SEGMENTS`` (128, then 2) and trains.  The cap is set to 128
+    here: the kernel's own (2,000) would take 1,001 microbatches a node;
+    ``tests/test_torch_fused_stats.py`` splits past it."""
     sizes = []
     real = fs.fused_moments
 
@@ -252,6 +254,7 @@ def test_feature_segments_past_one_launch_split(monkeypatch):
         sizes.append(len(segments))
         return real(segments)
 
+    monkeypatch.setattr(fs, "MAX_SEGMENTS", 128)
     monkeypatch.setattr(fs, "fused_moments", counting)
     trainer = _trainer(65, nodes=2, batch=130)
     batch = trainer._node_batch(trainer.model.example_batch(

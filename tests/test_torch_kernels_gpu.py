@@ -2,7 +2,10 @@
 an int8 pool, B5's bf16-query split-K kernel at the edges of its spans,
 B7 trust epilogue, B8 fused verify tail, B9 paged adapter delta; B4 int8
 dequant matmul; B1 moment battery, also at ResNet-101's 3,344-segment
-gradient mix in 27 launches; B2/B3 flash attention
+gradient mix in ceil(3344 / MAX_SEGMENTS) launches, the same bits over
+two calls and a CUDA-graph replay, a NaN kept to its segment, and its
+edges (+-inf, misaligned and empty segments, one and MAX_SEGMENTS + 1
+segments, a call after calls of other counts); B2/B3 flash attention
 forward and backward, causal and not (the non-causal instances also
 through ``flash_chunk`` with an lse cotangent, and ring attention over
 four positions of the card with its chunk launches counted; the
@@ -214,12 +217,13 @@ def test_moments_kernel_matches_plain(cuda):
 
 
 def test_moments_kernel_at_resnet101_segment_mix(cuda):
-    """B1 through the step's split (``engine.step._moments``, at most 128
-    segments a launch) over ResNet-101's 418 gradient leaves on each of 8
-    nodes: 3,344 segments in 27 launches, against the plain twin: the sums
-    within 2e-5 of their magnitude sums with no absolute floor (at 1e-3
-    gradients a floor would swallow the short segments' S3 and S4), the
-    extrema exact."""
+    """B1 through the step's split (``engine.step._moments``, at most
+    ``MAX_SEGMENTS`` segments a launch) over ResNet-101's 418 gradient
+    leaves on each of 8 nodes: 3,344 segments in ceil(3344 /
+    MAX_SEGMENTS) launches, against the plain twin: the sums within 2e-5
+    of their magnitude sums with no absolute floor (at 1e-3 gradients a
+    floor would swallow the short segments' S3 and S4), the extrema
+    exact."""
     from trustworthy_dl_tpu_torch.engine.step import _moments
     from trustworthy_dl_tpu_torch.models.factory import create_model
     from trustworthy_dl_tpu_torch.utils.tree import tree_leaves
@@ -234,7 +238,8 @@ def test_moments_kernel_at_resnet101_segment_mix(cuda):
     before = fs.fused_moments.launches
     got = _moments(segs)
     torch.cuda.synchronize()
-    assert fs.fused_moments.launches == before + 27
+    assert fs.fused_moments.launches == before + -(-3344
+                                                  // fs.MAX_SEGMENTS)
     assert got.shape == (3344, 8)
     ref = fs.fused_moments_plain(segs)
     sums = [fs.S1, fs.S2, fs.S3, fs.S4, fs.L1]
@@ -245,6 +250,141 @@ def test_moments_kernel_at_resnet101_segment_mix(cuda):
     assert bool((err <= 2e-5 * mag).all())
     exact = [fs.MIN, fs.MAX, fs.LINF]
     assert torch.equal(got[:, exact], ref[:, exact])
+
+
+def _mix_segments(device, mix):
+    """``utils/moments_ab``'s gradient segments of the ``gpt2`` (64
+    segments, 497.8 M values) or ``resnet101`` (3,344 segments) mix."""
+    from trustworthy_dl_tpu_torch.utils import moments_ab as mab
+
+    (model, nodes), = [(m, n) for name, m, n in mab.MIXES if name == mix]
+    return mab.mix_segments(mix, model, nodes, device)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _moments_close(got, segs):
+    """Rows against the twin: sums within 2e-5 of their magnitude sums
+    plus 1e-6, NaN where the twin has NaN, min / max / max|x| exact."""
+    ref = fs.fused_moments_plain(segs)
+    sums = [fs.S1, fs.S2, fs.S3, fs.S4, fs.L1]
+    mag = torch.stack([torch.stack([a.sum(), (a ** 2).sum(), (a ** 3).sum(),
+                                    (a ** 4).sum(), a.sum()])
+                       for a in (s.abs() for s in segs)])
+    err = (got[:, sums] - ref[:, sums]).abs()
+    finite = torch.isfinite(ref[:, sums])
+    assert bool((err[finite] <= 2e-5 * mag[finite] + 1e-6).all())
+    assert torch.equal(torch.isnan(got[:, sums]), torch.isnan(ref[:, sums]))
+    assert torch.equal(torch.isinf(got[:, sums]), torch.isinf(ref[:, sums]))
+    exact = [fs.MIN, fs.MAX, fs.LINF]
+    torch.testing.assert_close(got[:, exact], ref[:, exact], rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("mix", ["gpt2", "resnet101"])
+def test_moments_kernel_bits_repeat_and_replay(cuda, mix):
+    """B1 at the GPT-2 and ResNet-101 gradient mixes: two calls give the
+    same bits, and so do two replays of the battery captured in a CUDA
+    graph (the tickets are zeroed on the stream each call; no float
+    atomics, the fold's order is fixed)."""
+    from trustworthy_dl_tpu_torch.engine.step import _moments
+
+    segs = _mix_segments(cuda, mix)
+    first = _moments(segs)
+    second = _moments(segs)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(first), _bits(second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _moments(segs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _moments(segs)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(replayed), _bits(first))
+
+
+def test_moments_kernel_nan_stays_in_its_segment(cuda):
+    """A NaN in one multi-chunk segment makes that row's min, max and
+    max|x| NaN and leaves every other row as the twin's."""
+    rng = np.random.default_rng(31)
+    segs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+            for n in (100_000, 5, 70_000, 1_000_000, 33)]
+    segs[3][654_321] = float("nan")
+    got = fs.fused_moments(segs)
+    torch.cuda.synchronize()
+    for row in range(len(segs)):
+        ext = got[row, [fs.MIN, fs.MAX, fs.LINF]]
+        assert bool(torch.isnan(ext).all()) == (row == 3)
+    assert not bool(torch.isnan(got[[0, 1, 2, 4]]).any())
+    _moments_close(got, segs)
+
+
+def test_moments_kernel_edges(cuda):
+    """+-inf without NaN (min -inf, max +inf), segments that start off a
+    16-byte boundary (at every offset, across chunks), empty segments,
+    and calls of 1, MAX_SEGMENTS and MAX_SEGMENTS + 1 segments (the last
+    through ``_moments``: two launches; straight into the wrapper it is
+    refused)."""
+    from trustworthy_dl_tpu_torch.engine.step import _moments
+
+    rng = np.random.default_rng(32)
+    base = torch.tensor(rng.normal(size=300_011).astype(np.float32),
+                        device=cuda)
+    infs = base[:70_000].clone()
+    infs[[5, 40_000]] = float("inf")
+    infs[[7, 69_999]] = float("-inf")
+    segs = [infs, base[:0], *(base[k:k + 65_541 + k] for k in range(4)),
+            base[3:7], base[1:2], base[:0]]
+    got = fs.fused_moments(segs)
+    torch.cuda.synchronize()
+    assert got[0, fs.MIN] == float("-inf") and got[0, fs.MAX] == float("inf")
+    assert got[0, fs.LINF] == float("inf")
+    empty = torch.tensor([0, 0, 0, 0, float("inf"), float("-inf"), 0, 0],
+                         device=cuda)
+    assert torch.equal(got[1], empty) and torch.equal(got[-1], empty)
+    _moments_close(got, segs)
+
+    one = fs.fused_moments([base])
+    torch.cuda.synchronize()
+    _moments_close(one, [base])
+    sizes = rng.integers(0, 3000, fs.MAX_SEGMENTS + 1)
+    sizes[::97] = 40_000
+    many = [base[:int(n)] for n in sizes]
+    full = fs.fused_moments(many[:fs.MAX_SEGMENTS])
+    torch.cuda.synchronize()
+    _moments_close(full, many[:fs.MAX_SEGMENTS])
+    before = fs.fused_moments.launches
+    split = _moments(many)
+    torch.cuda.synchronize()
+    assert fs.fused_moments.launches == before + 2
+    assert torch.equal(_bits(split[:fs.MAX_SEGMENTS]), _bits(full))
+    _moments_close(split, many)
+    with pytest.raises(ValueError):
+        fs.fused_moments(many)
+
+
+def test_moments_kernel_call_after_other_count(cuda):
+    """A call after calls of other segment counts (more segments, longer
+    ones) gives the bits of the same call made first."""
+    rng = np.random.default_rng(33)
+    data = torch.tensor(rng.normal(size=2_000_000).astype(np.float32),
+                        device=cuda)
+    small = [data[:100_000], data[7:40_007], data[:3]]
+    fresh = fs.fused_moments(small)
+    torch.cuda.synchronize()
+    big = [data[i * 1000:(i + 1) * 1000 + 70_000] for i in range(1500)]
+    fs.fused_moments(big)
+    fs.fused_moments([data])
+    again = fs.fused_moments(small)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(fresh), _bits(again))
 
 
 def _flash_inputs(device, bh, t, d, seed, rising=False):

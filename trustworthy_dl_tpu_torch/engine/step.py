@@ -146,8 +146,11 @@ def _norm_cross_outliers(global_norms: Tensor) -> Tensor:
 
 
 def _moments(segments: Sequence[Tensor]) -> Tensor:
-    """B1 over any number of segments, :data:`fs.MAX_SEGMENTS` a launch."""
+    """B1 over any number of segments, :data:`fs.MAX_SEGMENTS` a launch
+    (one launch's rows come back as they are, several are concatenated)."""
     step = fs.MAX_SEGMENTS
+    if len(segments) <= step:
+        return fs.fused_moments(segments)
     return torch.cat([fs.fused_moments(segments[i:i + step])
                       for i in range(0, len(segments), step)])
 

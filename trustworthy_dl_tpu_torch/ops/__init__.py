@@ -66,8 +66,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "tddl_error_string": _ERROR_STRING,
     },
     "fused_stats": {
-        "tddl_fused_moments": ([ctypes.POINTER(_P), ctypes.POINTER(_L), _I,
-                                _L, _P, _P, _P], _I),
+        "tddl_fused_moments": ([_P, _P, _I, _L, _P, _P, _P], _I),
         "tddl_error_string": _ERROR_STRING,
     },
     "adapter_delta": {

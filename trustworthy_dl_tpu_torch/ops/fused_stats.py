@@ -11,17 +11,20 @@ and its design).  Unlike the TPU version there is no size cut-off: every
 segment, of any length, goes through the kernel.
 
 The statistics are diagnostics and constant under differentiation: the
-inputs are detached and the twin runs under ``torch.no_grad``.
+kernel reads the inputs' memory into an output without a gradient, and
+the twin detaches them and runs under ``torch.no_grad``.
 
-:func:`fused_moments` carries a plain integer ``launches`` that it
-increments where it launches its kernel and nowhere else; there it also
-adds its products, :func:`fused_moments_flops` (none: the battery is
-reductions), to an open FLOP tally (``ops.count_kernel_flops``).
+:func:`fused_moments` carries a plain integer ``launches`` that
+:func:`launch_moments` increments where it launches the kernel and
+nowhere else; there it also adds its products,
+:func:`fused_moments_flops` (none: the battery is reductions), to an
+open FLOP tally (``ops.count_kernel_flops``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from array import array
 from typing import Sequence
 
 import torch
@@ -29,10 +32,11 @@ import torch
 from trustworthy_dl_tpu_torch.ops import check_launch, kernel_library, \
     on_cuda, stream_handle, tally_flops
 
-#: Elements per CTA in the kernel's first pass (a multiple of 4).
+#: Elements a CTA reads (a multiple of 4).
 CHUNK = 32768
-#: Segments one launch takes (the kernel's parameter block).
-MAX_SEGMENTS = 128
+#: Segments one launch takes: the kernel's segment table, 16 bytes a
+#: segment in its parameter block (``csrc/fused_stats.cu``).
+MAX_SEGMENTS = 2000
 
 # Row layout of the moments.
 S1, S2, S3, S4, MIN, MAX, L1, LINF = range(8)
@@ -68,39 +72,51 @@ def fused_moments_flops(sizes: Sequence[int]) -> int:
 def fused_moments(segments: Sequence[torch.Tensor]) -> torch.Tensor:
     """The moment battery of every segment, f32 [len(segments), 8], in one
     kernel launch for CUDA tensors (each a contiguous f32 tensor on one
-    card, at most :data:`MAX_SEGMENTS` of them)."""
-    segments = [s.detach().reshape(-1) for s in segments]
+    card, of any shape, at most :data:`MAX_SEGMENTS` of them)."""
     if not segments:
         raise ValueError("fused_moments: no segments")
     if not on_cuda(segments[0], "fused_moments"):
         return fused_moments_plain(segments)
-    device = segments[0].device
-    if len(segments) > MAX_SEGMENTS:
-        raise ValueError(f"fused_moments: {len(segments)} segments > "
+    return launch_moments(kernel_library("fused_stats"), segments)
+
+
+def launch_moments(lib: ctypes.CDLL, segments: Sequence[torch.Tensor]
+                   ) -> torch.Tensor:
+    """:func:`fused_moments`' launch through ``lib``'s
+    ``tddl_fused_moments`` (the checkout's library, or a diagnostic build
+    of ``csrc/fused_stats.cu`` in ``utils/moments_ab``).  One pass over the
+    segments checks them and reads their pointers and lengths; the output
+    and the kernel's scratch (partial rows, then one ticket a segment) are
+    one allocation, the output its first ``8 len(segments)`` floats."""
+    count = len(segments)
+    if count > MAX_SEGMENTS:
+        raise ValueError(f"fused_moments: {count} segments > "
                          f"{MAX_SEGMENTS} per launch")
+    device = segments[0].device
+    index = device.index
     for i, seg in enumerate(segments):
-        if seg.dtype != torch.float32 or seg.device != device \
+        if seg.dtype is not torch.float32 or seg.get_device() != index \
                 or not seg.is_contiguous():
             raise ValueError(f"fused_moments: segment {i} must be a "
                              f"contiguous f32 tensor on {device}, got "
-                             f"{seg.dtype} on {seg.device}")
-    lens = [seg.numel() for seg in segments]
-    chunks = sum(-(-n // CHUNK) for n in lens)
-    partials = torch.empty((max(chunks, 1), 8), dtype=torch.float32,
-                           device=device)
-    out = torch.empty((len(segments), 8), dtype=torch.float32, device=device)
-    ptrs = (ctypes.c_void_p * len(segments))(
-        *[seg.data_ptr() for seg in segments])
-    lens_c = (ctypes.c_longlong * len(segments))(*lens)
-    lib = kernel_library("fused_stats")
+                             f"{seg.dtype} on {seg.device}"
+                             + ("" if seg.is_contiguous()
+                                else ", not contiguous"))
+    ptrs = array("Q", [seg.data_ptr() for seg in segments])
+    lens = array("q", [seg.numel() for seg in segments])
+    # Chunk rows: max(1, ceil(n / CHUNK)) a segment, at most this many.
+    rows = sum(lens) // CHUNK + count
+    buf = torch.empty(8 * count + 8 * rows + count, dtype=torch.float32,
+                      device=device)
     with torch.cuda.device(device):
-        err = lib.tddl_fused_moments(ptrs, lens_c, len(segments), CHUNK,
-                                     partials.data_ptr(), out.data_ptr(),
-                                     stream_handle(device))
+        err = lib.tddl_fused_moments(
+            ptrs.buffer_info()[0], lens.buffer_info()[0], count, CHUNK,
+            buf.data_ptr() + 32 * count, buf.data_ptr(),
+            stream_handle(device))
     check_launch(lib, err, "tddl_fused_moments")
     fused_moments.launches += 1
     tally_flops("fused_moments", fused_moments_flops(lens))
-    return out
+    return buf[:8 * count].view(count, 8)
 
 
 fused_moments.launches = 0
@@ -109,4 +125,4 @@ fused_moments.launches = 0
 KERNEL_WRAPPERS = (fused_moments,)
 
 __all__ = ["CHUNK", "KERNEL_WRAPPERS", "MAX_SEGMENTS", "fused_moments",
-           "fused_moments_flops", "fused_moments_plain"]
+           "fused_moments_flops", "fused_moments_plain", "launch_moments"]

@@ -25,7 +25,7 @@ import statistics
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -36,15 +36,18 @@ from trustworthy_dl_tpu_torch.utils.serve_profile import device_us
 FLUSH_BYTES = 128 * 1024 * 1024
 
 
-def other_library(source: Path, name: str) -> ctypes.CDLL:
+def other_library(source: Path, name: str,
+                  defines: Sequence[str] = ()) -> ctypes.CDLL:
     """``source`` (another ``csrc/<name>.cu``) built with the checkout's
     flags (``csrc/`` is on the include path, so it takes the checkout's
-    headers), loaded, with every entry of ``ops.SIGNATURES[name]``
-    declared (an entry the other source lacks, such as one added since,
-    is left out: ``hasattr(lib, entry)`` says which it has).  The library
-    is keyed by the flags, the source and every ``csrc/*.cuh``, as
-    ``ops.library_path`` keys the checkout's."""
-    flags = [*ops.NVCC_FLAGS, "-I", str(ops.CSRC)]
+    headers) and ``-D`` each of ``defines`` (``"KEY=VALUE"``: a variant
+    of a source's compile-time knobs), loaded, with every entry of
+    ``ops.SIGNATURES[name]`` declared (an entry the other source lacks,
+    such as one added since, is left out: ``hasattr(lib, entry)`` says
+    which it has).  The library is keyed by the flags, the source and
+    every ``csrc/*.cuh``, as ``ops.library_path`` keys the checkout's."""
+    flags = [*ops.NVCC_FLAGS, "-I", str(ops.CSRC),
+             *(f"-D{d}" for d in defines)]
     digest = hashlib.sha256(" ".join(flags).encode() + source.read_bytes())
     for header in sorted(ops.CSRC.glob("*.cuh")):
         digest.update(header.name.encode())
